@@ -5,17 +5,32 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
     python3 chip_smoke.py
 
 1. prints the card's name and power limit, builds the CUDA kernels from
-   ``tpl_tpu_torch/csrc`` and prints the build time;
-2. kernel phase: at the demo grid (T=10, S=201, DS=37, L=21) runs the
-   lat/lon action-min kernel against its plain PyTorch version on the
-   card, on seeded inputs and on every backward slice of a real solve;
+   ``tpl_tpu_torch/csrc`` (one ``nvcc`` per source, all started together)
+   and prints the build time and the ptxas register / memory report;
+2. action-min kernel phase: at the demo grid (T=10, S=201, DS=37, L=21)
+   runs the lat/lon action-min kernel against its plain PyTorch version on
+   the card, on seeded inputs and on every backward slice of a real solve;
    prints the largest differences, the tie cells and both times;
-3. slice phase: drives ``EnvironmentApp`` + ``PlanningApp`` with the DP
-   lat/lon planner on ``demo/country_follow`` at the demo param set's full
-   grid for at least 5 replans; checks every published trajectory, that
+3. slice phase (open loop): drives ``EnvironmentApp`` + ``PlanningApp``
+   with the DP lat/lon planner on ``demo/country_follow`` at the demo param
+   set's full grid for 5 replans; checks every published trajectory, that
    each replan launched the kernel once per backward slice, and the last
    replan's solve against the plain version on the CPU;
-4. prints one JSON line describing the kernels, then
+4. closed-loop phase: ``SimStandalone`` on ``demo/country_follow`` with
+   ``dp_lat_lon_planner`` at the full demo grid and the demo control set's
+   ``model_predictive_controller`` (H=60, 20 iterations, float64) for 400
+   ticks of 0.01 s, rule checker on; checks zero violations, no emergency
+   plan, finite controls, the ego's speed at the end, 8 action-min launches
+   per replan and one iLQR launch per controller solve, and the last solve
+   against the plain version on the CPU; prints the per-tick control and
+   total wall times and the per-replan wall;
+5. iLQR kernel phase: the tracking-MPC kernel against the plain
+   ``make_update_fn`` on the card, float64, on the ``_mpc_setup`` inputs
+   of ``__graft_entry__.py`` (8 and 20 iterations) and on 3 warm-started
+   solves recorded in the closed loop; prints the largest |x|, |u|
+   differences, the cost difference, mu_step and iteration counts, and
+   both times per solve;
+6. prints one JSON line describing the kernels, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failure raises (nonzero exit).  Without CUDA it exits nonzero before
@@ -35,11 +50,19 @@ COST_RTOL, COST_ATOL = 1e-6, 1e-3
 CONSTR_ATOL = 1e-4
 TRAJ_ATOL = 1e-3
 MAX_TIE_SHARE = 1e-3
+# the float64 iLQR kernel against its plain version (tests/test_torch_ilqr.py)
+MPC_X_ATOL = 1e-6
+MPC_COST_RTOL = 1e-9
 
 DEMO_SPEC = dict(t_steps=10, s_steps=201, ds_steps=37, l_steps=21)
 MIN_REPLANS = 5
 TICK = 0.1
 MAX_TICKS = 60
+
+LOOP_TICKS = 400            # 4 s of the closed loop (test_demo_follow_short)
+MPC_H = 60
+RECORD_SOLVES = (100, 200, 300)
+KERNELS = ("latlon_action_min", "ilqr_tracking_mpc")
 
 
 def cuda_ms(fn, n):
@@ -200,7 +223,7 @@ def slice_phase(lam, tllk):
             raise AssertionError(f"tick {k}: emergency trajectory")
         if not all(np.all(np.isfinite(c)) for c in cols):
             raise AssertionError(f"tick {k}: non-finite trajectory")
-        if replans >= MIN_REPLANS + 2:
+        if replans >= MIN_REPLANS:
             break
     launches = lam.launches
     print(f"slice: {k + 1} ticks, {replans} replans, kernel launches "
@@ -229,7 +252,206 @@ def slice_phase(lam, tllk):
                                atol=TRAJ_ATOL)
     print("slice: last solve matches the plain version on the CPU "
           f"(max traj diff {float((tr_g.cpu() - tr_c).abs().max()):.3e})")
-    return launches, float(np.median(replan_ms))
+
+
+def mpc_setup_inputs(itm, max_iterations):
+    """The packed inputs and launch arguments of ``__graft_entry__.py``'s
+    ``_mpc_setup`` (its numbers, copied: that module imports JAX)."""
+    from tpl_tpu_torch.optim import ilqr
+
+    ss = np.arange(128) * 0.5
+    ref_y = 2.0 * np.sin(ss * 0.1)
+    phi = np.arctan(np.gradient(ref_y, ss))
+    params = {
+        "pd": 10.0, "pv": 5.0, "pdelta": 0.0, "min_pdelta_dot": 0.1,
+        "pdelta_dot": 0.0, "min_p_phi_dot": 0.0, "p_phi_dot": 0.0,
+        "p_phi": 0.01, "p_phi_ref_dot_diff": 0.01, "pa": 2.0, "pj": 0.5,
+        "l": 3.165, "v_ch": 32.0,
+        "ref_x": ss, "ref_y": ref_y, "ref_phi": phi,
+        "ref_k": np.gradient(phi, ss), "ref_v": np.full(128, 8.0),
+        "ref_step": 0.5, "max_delta": 0.7, "max_acc": 3.0,
+        "min_acc": -3.0, "a_offset": 0.0}
+    x = np.zeros((MPC_H + 1, 7))
+    x[0] = [0.0, 1.0, 0.0, 0.0, 5.0, 0.0, 0.0]
+    inputs = dict(
+        x=x, u=np.zeros((MPC_H, 2)), lam=np.zeros((MPC_H, 4)),
+        u_lims=np.tile(np.array([[[-3.0, 1.5], [-1.0, 1.0]]]), (MPC_H, 1, 1)),
+        bw_lim=np.stack([np.full(4, 1e4), np.full(4, 1e30)], -1),
+        cfg_f=np.array([0.05, 1e-6]))
+    args = (MPC_H, 128, MPC_H, max_iterations, 1, 0, ilqr.HEUN)
+    return itm.pack_inputs(inputs, params), args
+
+
+def compare_solves(itm, got, want, H, what):
+    """Kernel vs plain results: raises beyond the tolerances; returns
+    (max |x|, |u| difference, cost relative difference)."""
+    a = itm.unpack_outputs(got.cpu().numpy(), H)
+    b = itm.unpack_outputs(want.cpu().numpy(), H)
+    dx = float(np.max(np.abs(a["x"] - b["x"])))
+    du = float(np.max(np.abs(a["u"] - b["u"])))
+    dlam = float(np.max(np.abs(a["lam"] - b["lam"])))
+    dcost = abs(a["traj_costs"] - b["traj_costs"]) / max(
+        abs(b["traj_costs"]), 1e-300)
+    print(f"ilqr check {what}: max|dx| {dx:.3e}, max|du| {du:.3e}, "
+          f"max|dlam| {dlam:.3e}, cost rel {dcost:.3e}, mu_step "
+          f"{a['mu_step']}/{b['mu_step']}, iterations "
+          f"{a['iterations']}/{b['iterations']}")
+    if max(dx, du, dlam) > MPC_X_ATOL or not dcost <= MPC_COST_RTOL:
+        raise AssertionError(f"{what}: kernel and plain solves differ")
+    if (a["mu_step"], a["iterations"]) != (b["mu_step"], b["iterations"]):
+        raise AssertionError(f"{what}: mu_step / iterations differ")
+    if not np.all(np.isfinite(a["x"])):
+        raise AssertionError(f"{what}: non-finite solve")
+    return max(dx, du), dcost
+
+
+def closed_loop_phase(lam, itm):
+    """SimStandalone with the DP planner and the tracking MPC on the card;
+    records 3 warm-started solves and the last one for the iLQR phase."""
+    import torch
+    from tpl_tpu_torch.simulation import SimStandalone
+
+    sim = SimStandalone(app_id="smoke_loop",
+                        scenario_path="demo/country_follow")
+    store = sim.planning_app.sh_planners
+    with store.lock():
+        store.active_planner = "dp_lat_lon_planner"
+        cpp = store.dp_lat_lon_planner.params.planner.cpp
+    spec = {k: getattr(cpp, k) for k in DEMO_SPEC}
+    if spec != DEMO_SPEC:
+        raise AssertionError(f"demo param set grid {spec} != {DEMO_SPEC}")
+    planner = sim.planning_app.planners["dp_lat_lon_planner"]
+    controllers = sim.control_app.sh_controllers
+    with controllers.lock():
+        active = controllers.active_controller
+        mp = controllers.model_predictive_controller.params
+        mpc_cfg = (mp.horizon, mp.max_iterations)
+    if active != "model_predictive_controller" or mpc_cfg != (MPC_H, 20):
+        raise AssertionError(f"control set: {active} {mpc_cfg}")
+    mpc = sim.control_app.controllers["model_predictive_controller"]
+    with sim.core.sh_state.lock():
+        ss = sim.core.sh_state.sim
+        ss.settings.running = True
+        ss.settings.use_real_time = False
+        ss.rule_checker.enable = True
+
+    # keep copies of some solves' packed inputs and time each solve on the
+    # card (these are the loop's own launches: the wrapper is called as the
+    # controller calls it)
+    solve = itm.update
+    rec = {"n": 0, "picked": [], "last": None, "events": []}
+
+    def recording(buf, *args):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = solve(buf, *args)
+        ev[1].record()
+        rec["events"].append(ev)
+        if rec["n"] in RECORD_SOLVES:
+            rec["picked"].append((rec["n"], buf.clone(), args))
+        rec["last"] = (buf.clone(), args, out.clone())
+        rec["n"] += 1
+        return out
+
+    itm.update = recording
+    try:
+        last_replan = planner.policy.last_replan_time
+        tick_ms, control_ms, replan_ms, iterations = [], [], [], []
+        solves0 = mpc.opt.updates
+        lam.launches = 0
+        itm.launches = 0
+        for k in range(LOOP_TICKS):
+            t0 = time.perf_counter()
+            sim.update()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            tick_ms.append(wall)
+            if mpc.opt.updates - solves0 > len(iterations):
+                iterations.append(mpc.opt.iterations)
+            with controllers.lock():
+                control_ms.append(controllers.runtime * 1e3)
+                controls = np.array(controllers.controls)
+            with store.lock():
+                emergency = store.trajectory.emergency
+            if planner.policy.last_replan_time != last_replan:
+                last_replan = planner.policy.last_replan_time
+                replan_ms.append(wall)
+            if emergency:
+                raise AssertionError(f"tick {k}: emergency trajectory")
+            if not np.all(np.isfinite(controls)):
+                raise AssertionError(f"tick {k}: non-finite controls")
+        am_launches, ilqr_launches = lam.launches, itm.launches
+        solves = mpc.opt.updates - solves0
+    finally:
+        itm.update = solve
+
+    with sim.core.sh_state.lock():
+        s = sim.core.sh_state.sim
+        violations = list(s.rule_checker.violations)
+        t_end, x_end, v_end = s.t, s.ego.x, s.ego.v
+    print(f"closed loop: {LOOP_TICKS} ticks to t={t_end:.2f} s, ego x "
+          f"{x_end:.2f} v {v_end:.2f} m/s, {len(violations)} violations, "
+          f"{len(replan_ms)} replans, {solves} MPC solves; launches: "
+          f"latlon_action_min {am_launches}, ilqr_tracking_mpc "
+          f"{ilqr_launches}")
+    if violations:
+        raise AssertionError(f"rule violations: {violations[:3]}")
+    if not v_end > 4.0:
+        raise AssertionError(f"ego speed {v_end} at the end")
+    if am_launches != (spec["t_steps"] - 2) * len(replan_ms):
+        raise AssertionError(f"{am_launches} action-min launches for "
+                             f"{len(replan_ms)} replans")
+    if solves < LOOP_TICKS - 5 or ilqr_launches != solves:
+        raise AssertionError(f"{ilqr_launches} iLQR launches for {solves} "
+                             "controller solves")
+    print(f"per-tick control wall ms: median {np.median(control_ms):.3f}, "
+          f"max {np.max(control_ms):.3f}; per-tick total wall ms: median "
+          f"{np.median(tick_ms):.3f}, max {np.max(tick_ms):.3f}; per-replan "
+          f"wall ms: median {np.median(replan_ms):.3f} (first "
+          f"{replan_ms[0]:.3f}, max {np.max(replan_ms):.3f})")
+    solve_ms = [a.elapsed_time(b) for a, b in rec["events"]]
+    print(f"MPC solve on the card (CUDA events) ms: median "
+          f"{np.median(solve_ms):.4f}, max {np.max(solve_ms):.4f}; "
+          f"iterations per solve: median {np.median(iterations):.1f}, max "
+          f"{np.max(iterations)}")
+
+    # the last tick's solve, re-run by the plain version on the CPU
+    buf, args, out = rec["last"]
+    err, _ = compare_solves(itm, out, itm.update_reference(buf.cpu(), *args),
+                            MPC_H, "last loop solve vs plain on the CPU")
+    return dict(am_launches=am_launches, ilqr_launches=ilqr_launches,
+                picked=rec["picked"], err=err)
+
+
+def ilqr_phase(itm, picked, dev):
+    """The iLQR kernel against the plain make_update_fn on the card."""
+    import torch
+
+    cases = []
+    for it in (8, 20):
+        host, args = mpc_setup_inputs(itm, it)
+        cases.append((f"_mpc_setup {it} it", torch.from_numpy(host).to(dev),
+                      args))
+    if len(picked) != len(RECORD_SOLVES):
+        raise AssertionError(f"recorded {len(picked)} loop solves")
+    cases += [(f"loop solve {n}", buf, args) for n, buf, args in picked]
+    max_err = 0.0
+    for what, buf, args in cases:
+        got = itm.update(buf, *args)
+        want = itm.update_reference(buf, *args)
+        torch.cuda.synchronize()
+        err, _ = compare_solves(itm, got, want, MPC_H, what)
+        max_err = max(max_err, err)
+
+    times = {}
+    for what, buf, args in cases[:2]:
+        ms = cuda_ms(lambda: itm.update(buf, *args), 50)
+        plain_ms = cuda_ms(lambda: itm.update_reference(buf, *args), 2)
+        times[what] = (ms, plain_ms)
+        print(f"ilqr_tracking_mpc {what} at H={MPC_H}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms per solve")
+    return max_err, times[cases[1][0]]
 
 
 def main():
@@ -241,6 +463,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import tpl_tpu_torch
     from tpl_tpu_torch import _build
+    from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
     from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
     from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
 
@@ -255,23 +478,35 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
+    _build.build(KERNELS)
     lam._kernel()
-    print(f"built latlon_action_min in {time.perf_counter() - t0:.2f} s")
-    log = _build.BUILD_LOG.get("latlon_action_min", "").strip()
-    if log:
-        print(log)
+    itm._kernel()
+    print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
+    for name in KERNELS:
+        log = _build.BUILD_LOG.get(name, "").strip()
+        if log:
+            print(log)
 
-    max_err, ms, plain_ms = kernel_phase(lam, tllk, torch.device("cuda"))
-    launches, replan_ms = slice_phase(lam, tllk)
+    dev = torch.device("cuda")
+    am_err, am_ms, am_plain_ms = kernel_phase(lam, tllk, dev)
+    slice_phase(lam, tllk)
+    loop = closed_loop_phase(lam, itm)
+    ilqr_err, (ilqr_ms, ilqr_plain_ms) = ilqr_phase(itm, loop["picked"], dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    print(json.dumps({"kernels": [{
-        "name": "latlon_action_min", "route": "cuda",
-        "source": "tpl_tpu_torch/csrc/latlon_action_min.cu",
-        "replaces": "tpl_tpu/planning/dyn_prog/latlon_pallas.py:168",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": "latlon_action_min", "route": "cuda",
+         "source": "tpl_tpu_torch/csrc/latlon_action_min.cu",
+         "replaces": "tpl_tpu/planning/dyn_prog/latlon_pallas.py:168",
+         "launches": loop["am_launches"], "max_abs_err": am_err,
+         "ms": am_ms, "plain_ms": am_plain_ms},
+        {"name": "ilqr_tracking_mpc", "route": "cuda",
+         "source": "tpl_tpu_torch/csrc/ilqr_tracking_mpc.cu",
+         "replaces": "tpl_tpu/optim/ilqr.py:126",
+         "launches": loop["ilqr_launches"],
+         "max_abs_err": max(ilqr_err, loop["err"]),
+         "ms": ilqr_ms, "plain_ms": ilqr_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

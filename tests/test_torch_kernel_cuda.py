@@ -5,14 +5,18 @@ On a machine with a card (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernel_cuda.py
 
-Tolerances as in test_torch_latlon_solver.py: cost rtol=1e-6, atol=1e-3;
-constraint atol=1e-4; trajectory atol=1e-3.
+Tolerances: the action-min kernel as in test_torch_latlon_solver.py (cost
+rtol=1e-6, atol=1e-3; constraint atol=1e-4; trajectory atol=1e-3); the
+float64 iLQR kernel against its plain version x, u atol=1e-6, traj_costs
+rtol=1e-9, mu_step and the iteration count equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tpl_tpu_torch.optim import ilqr, ilqr_tracking_mpc as itm
+from tpl_tpu_torch.optim import problems, solver
 from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
 from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
 
@@ -89,3 +93,117 @@ def test_solve_on_card_matches_cpu(cuda):
                                rtol=COST_RTOL, atol=COST_ATOL)
     np.testing.assert_allclose(tr_g.cpu(), tr_c, rtol=COST_RTOL,
                                atol=TRAJ_ATOL)
+
+
+# ---------------------------------------------------------------------
+# the iLQR tracking-MPC kernel
+
+MPC_H = 60
+
+
+def mpc_params(rng=None):
+    """The ``__graft_entry__._mpc_setup`` reference course and weights
+    (with a seeded perturbation of the course when ``rng`` is given)."""
+    ss = np.arange(128) * 0.5
+    ref_y = 2.0 * np.sin(ss * 0.1)
+    if rng is not None:
+        ref_y = ref_y + np.cumsum(rng.normal(0.0, 0.02, 128))
+    phi = np.arctan(np.gradient(ref_y, ss))
+    return {"pd": 10.0, "pv": 5.0, "pdelta": 0.0, "min_pdelta_dot": 0.1,
+            "pdelta_dot": 0.0, "min_p_phi_dot": 0.0, "p_phi_dot": 0.0,
+            "p_phi": 0.01, "p_phi_ref_dot_diff": 0.01, "pa": 2.0,
+            "pj": 0.5, "l": 3.165, "v_ch": 32.0, "ref_x": ss, "ref_y": ref_y,
+            "ref_phi": phi, "ref_k": np.gradient(phi, ss),
+            "ref_v": np.full(128, 8.0), "ref_step": 0.5, "max_delta": 0.7,
+            "max_acc": 3.0, "min_acc": -3.0, "a_offset": 0.0}
+
+
+def mpc_inputs(x0, u=None, lam_=None, lg_limit=1e30):
+    H = MPC_H
+    x = np.zeros((H + 1, 7))
+    x[0] = x0
+    return dict(
+        x=x, u=np.zeros((H, 2)) if u is None else u,
+        lam=np.zeros((H, 4)) if lam_ is None else lam_,
+        u_lims=np.tile(np.array([[[-3.0, 1.5], [-1.0, 1.0]]]), (H, 1, 1)),
+        bw_lim=np.stack([np.full(4, 1e4), np.full(4, lg_limit)], -1),
+        cfg_f=np.array([0.05, 1e-6]))
+
+
+def _close_solves(got, want):
+    np.testing.assert_allclose(got["x"], want["x"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got["u"], want["u"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got["lam"], want["lam"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got["traj_costs"], want["traj_costs"],
+                               rtol=1e-9)
+    assert got["mu_step"] == want["mu_step"]
+    assert got["iterations"] == want["iterations"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["setup8", "setup20", "warm", "lg2_T45"])
+def test_ilqr_kernel_matches_plain(cuda, case):
+    rng = np.random.default_rng(len(case))
+    x0 = [0.0, 1.0, 0.0, 0.0, 5.0, 0.0, 0.0]
+    T, it, lg, mu = MPC_H, 20, 1, 0
+    u = lam_ = None
+    params = mpc_params()
+    if case == "setup8":
+        it = 8
+    elif case == "warm":
+        params = mpc_params(rng)
+        x0 = [0.3, 1.4, 0.1, 0.05, 7.0, 0.2, 0.5]
+        u = rng.normal(0.0, 0.3, (MPC_H, 2))
+        mu = 2
+    elif case == "lg2_T45":
+        x0 = [0.3, -1.5, -0.1, 0.65, 9.0, 0.0, 2.9]
+        u = rng.normal(0.0, 0.3, (MPC_H, 2))
+        lam_ = rng.uniform(0.0, 1e-3, (MPC_H, 4))
+        T, lg, mu = 45, 2, 1
+    host = itm.pack_inputs(mpc_inputs(x0, u, lam_), params)
+    buf = torch.from_numpy(host).to(cuda)
+    before = itm.launches
+    out = itm.update(buf, MPC_H, 128, T, it, lg, mu, ilqr.HEUN)
+    torch.cuda.synchronize()
+    assert itm.launches == before + 1
+    ref = itm.update_reference(buf, MPC_H, 128, T, it, lg, mu, ilqr.HEUN)
+    got = itm.unpack_outputs(out.cpu().numpy(), MPC_H)
+    want = itm.unpack_outputs(ref.cpu().numpy(), MPC_H)
+    _close_solves(got, want)
+    assert np.all(np.isfinite(got["x"]))
+
+
+@pytest.mark.cuda
+def test_cuda_solver_launches_kernel_once_per_update(cuda):
+    """The tracking-MPC Solver on the card: one kernel launch per update,
+    the same result as the same Solver on the CPU, warm start included."""
+    sides = []
+    for dev in (cuda, torch.device("cpu")):
+        prob, spec = problems.trajectory_tracking_mpc(ref_capacity=128)
+        s = solver.Solver(prob, spec, horizon_max=MPC_H,
+                          dtype=torch.float64, device=dev)
+        s.integrator_type = s.HEUN
+        s.horizon = MPC_H
+        s.max_iterations = 20
+        s.barrier_weight[:] = 1e4
+        s.lg_mult_limit = 0.0
+        s.u_min[:] = [-3.0, -1.0]
+        s.u_max[:] = [1.5, 1.0]
+        for k, v in mpc_params().items():
+            setattr(s.params, k, v)
+        s.x[0] = [0.0, 1.0, 0.0, 0.0, 5.0, 0.0, 0.0]
+        sides.append(s)
+    for tick in range(3):
+        before = itm.launches
+        sides[0].update()
+        assert itm.launches == before + 1
+        sides[1].update()
+        assert itm.launches == before + 1        # the CPU side: plain
+        np.testing.assert_allclose(sides[0].x, sides[1].x, rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_allclose(sides[0].u, sides[1].u, rtol=0,
+                                   atol=1e-6)
+        assert sides[0]._mu_step == sides[1]._mu_step
+        for s in sides:
+            s.shift(1)
+            s.x[0] = s.x[0] + np.array([0.0, 0.01, 0.0, 0.0, 0.02, 0.0, 0.0])

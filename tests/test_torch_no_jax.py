@@ -1,6 +1,7 @@
 """The port never imports JAX or the JAX package: checked in a fresh
-interpreter after ``import tpl_tpu_torch`` and after one CPU planning tick
-of the slice, and statically over the port's sources."""
+interpreter after ``import tpl_tpu_torch``, after one CPU planning tick of
+the slice and after a few closed-loop ticks of the port's
+``SimStandalone``, and statically over the port's sources."""
 
 import os
 import re
@@ -33,6 +34,28 @@ st.step(0.0)
 st.step(0.1)
 assert st.planner.traj_dp is not None
 assert not leaked(), ("tick", leaked())
+
+from tpl_tpu_torch.simulation import SimStandalone
+sim = SimStandalone(app_id="nojax_loop", scenario_path="demo/country_follow")
+store = sim.planning_app.sh_planners
+store.active_planner = "dp_lat_lon_planner"
+for cpp in (store.dp_lat_lon_planner.params.planner.cpp,
+            store.dp_lat_lon_planner.params.env.cpp):
+    for k, v in dict(t_steps=4, s_steps=41, s_max=40.0, ds_steps=5,
+                     ds_max=16.0, l_steps=7).items():
+        if hasattr(cpp, k):
+            setattr(cpp, k, v)
+sim.control_app.sh_controllers.model_predictive_controller.params.horizon = 10
+ss = sim.core.sh_state.sim
+ss.settings.running = True
+ss.settings.use_real_time = False
+ss.rule_checker.enable = True
+for _ in range(4):
+    sim.update()
+mpc = sim.control_app.controllers["model_predictive_controller"]
+assert mpc.opt.iterations > 0, "the MPC never solved"
+assert sim.core.sh_state.sim.rule_checker.violations == []
+assert not leaked(), ("closed loop", leaked())
 print("clean")
 """
 

@@ -1,11 +1,15 @@
 """
 tpl_tpu_torch — the PyTorch / CUDA port of ``tpl_tpu``.
 
-The slice ported so far is perception + planning with the DP lat/lon
-planner: ``ops`` (host geometry, profiles, LQR), ``environment``,
-``application`` (environment and planning apps), ``planning`` (trajectory,
-replan policy, the DP environment, the lat/lon value-iteration solve and
-its hand-written Hopper action-min kernel under ``csrc/``).
+The ported path is the closed loop through ``simulation.SimStandalone``
+with the DP lat/lon planner and the tracking MPC: ``ops`` (host geometry,
+profiles, LQR, the solver's table lookups), ``environment``,
+``application`` (environment, planning and control apps), ``planning``
+(trajectory, replan policy, the DP environment, the lat/lon
+value-iteration solve), ``optim`` (the AL-iLQR core, its problems and the
+``Solver``), ``control`` (the tracking MPC and the constant-deceleration
+fallback) and ``simulation``.  Two hand-written Hopper kernels live under
+``csrc/``: the DP backward action-min and the float64 tracking-MPC solve.
 
 The device is always explicit: call :func:`use_device` once before any
 solve; :func:`device` raises if that never happened.  Nothing picks a

@@ -48,6 +48,40 @@ def nvcc_path():
                        "the CUDA kernels are built from csrc/ at first use")
 
 
+def _paths(name):
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
+                           ).hexdigest()[:16]
+    return src, os.path.join(BUILD_DIR, f"{name}_{tag}.so")
+
+
+def build(names):
+    """Compile every missing ``csrc/<name>.cu`` of ``names``, one ``nvcc``
+    per source, all started together.  Raises on the first failure."""
+    jobs = []
+    for name in names:
+        src, so = _paths(name)
+        if os.path.exists(so):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.tmp{os.getpid()}"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+        jobs.append((name, so, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, so, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"building {name} failed ({' '.join(cmd)}):\n{out}")
+            continue
+        BUILD_LOG[name] = out
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name):
     """Compile (if needed) and load ``csrc/<name>.cu``; returns the
     ``ctypes.CDLL``."""
@@ -55,22 +89,7 @@ def load(name):
         lib = _LOADED.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                               ).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, f"{name}_{tag}.so")
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.tmp{os.getpid()}"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"building {name} failed ({' '.join(cmd)}):\n"
-                    f"{res.stdout}{res.stderr}")
-            BUILD_LOG[name] = res.stdout + res.stderr
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        build([name])
+        lib = ctypes.CDLL(_paths(name)[1])
         _LOADED[name] = lib
         return lib

@@ -1,12 +1,24 @@
 """
-Host-side interpolation primitives (numpy).
+Interpolation primitives: host-side numpy helpers and the torch table
+lookups of the solver problems.
 
 ``normalize_angle`` / ``short_angle_dist`` follow the reference's python
 helpers (library/tpl/util.py:92-108); ``lerp_xs`` is the equally-spaced
 vector interpolation of library/tpl/environment/prediction_module.py:10-38.
+
+``lerp`` / ``lerp_angle`` / ``lerp_multi`` / ``box_interp`` are the torch
+lookups of the generated solver runtime (optim.c:332-480): floor / ceil
+indices clamped to the table, alpha clamped to [0, 1].  Written as plain
+index-and-clamp formulas, torch autograd and ``torch.func`` give them the
+genopt-parity derivatives of the JAX package's custom JVPs: slope
+``v1 - v0`` between the clamped indices (zero exactly on a grid point,
+where both indices coincide, and in the clamped regions), no second
+derivative in the query, and a zero slope for ``box_interp``
+(tests/test_torch_ilqr.py checks this).
 """
 
 import numpy as np
+import torch
 
 
 def normalize_angle(a):
@@ -48,3 +60,55 @@ def lerp_xs(x, xs, ys, angle=False, clip_alpha=False):
     if ys.ndim > 1:
         a = np.expand_dims(a, -1) if np.ndim(a) else a
     return ys[start] * (1.0 - a) + ys[end] * a
+
+
+def _angle_dist_t(a0, a1):
+    """torch :func:`short_angle_dist` (floored mod, as ``jnp.mod``)."""
+    return torch.remainder((a1 - a0) + np.pi, 2 * np.pi) - np.pi
+
+
+def _indices_t(q, n):
+    """Clamped floor / ceil indices and alpha of fractional index ``q``.
+    A NaN query reads row 0; its alpha, and so the lookup, stays NaN."""
+    qs = torch.nan_to_num(q, nan=0.0)
+    i0 = torch.clamp(torch.floor(qs), 0, n - 1)
+    i1 = torch.clamp(torch.ceil(qs), 0, n - 1)
+    a = torch.clamp(q - i0, 0.0, 1.0)
+    return i0.long(), i1.long(), a
+
+
+def _take(table, idx):
+    """``table[idx]`` along the first dim (``index_select``, which also
+    batches under ``torch.func.vmap``)."""
+    rows = torch.index_select(table, 0, idx.reshape(-1))
+    return rows.reshape(idx.shape + table.shape[1:])
+
+
+def lerp(x0, dx, x, arr):
+    """Linear interpolation into the equally spaced 1-D tensor ``arr``."""
+    i0, i1, a = _indices_t((x - x0) / dx, arr.shape[0])
+    v0, v1 = _take(arr, i0), _take(arr, i1)
+    return v0 + a * (v1 - v0)
+
+
+def lerp_multi(x0, dx, x, mat):
+    """:func:`lerp` into the columns of ``mat`` (n, C) at one query;
+    returns shape (..., C)."""
+    i0, i1, a = _indices_t((x - x0) / dx, mat.shape[0])
+    v0, v1 = _take(mat, i0), _take(mat, i1)
+    return v0 + a[..., None] * (v1 - v0)
+
+
+def lerp_angle(x0, dx, x, arr):
+    """Like :func:`lerp`, along the short angular distance."""
+    n = arr.shape[0]
+    q = torch.clamp((x - x0) / dx, 0.0, n - 1.0)
+    i0, i1, a = _indices_t(q, n)
+    v0, v1 = _take(arr, i0), _take(arr, i1)
+    return v0 + _angle_dist_t(v0, v1) * a
+
+
+def box_interp(dx, x, arr):
+    """Nearest-below (piecewise constant) lookup. (optim.c:357-369)"""
+    q = torch.nan_to_num(x / dx, nan=0.0)
+    return _take(arr, torch.clamp(torch.floor(q), 0, arr.shape[0] - 1).long())

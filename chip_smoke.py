@@ -16,9 +16,9 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    set's full grid for 5 replans; checks every published trajectory, that
    each replan launched the kernel once per backward slice, and the last
    replan's solve against the plain version on the CPU;
-4. closed-loop phase: ``SimStandalone`` on ``demo/country_follow`` with
+4. DP closed-loop phase: ``SimStandalone`` on ``demo/country_follow`` with
    ``dp_lat_lon_planner`` at the full demo grid and the demo control set's
-   ``model_predictive_controller`` (H=60, 20 iterations, float64) for 400
+   ``model_predictive_controller`` (H=60, 20 iterations, float64) for 200
    ticks of 0.01 s, rule checker on; checks zero violations, no emergency
    plan, finite controls, the ego's speed at the end, 8 action-min launches
    per replan and one iLQR launch per controller solve, and the last solve
@@ -30,8 +30,27 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    solves recorded in the closed loop; prints the largest |x|, |u|
    differences, the cost difference, mu_step and iteration counts, and
    both times per solve;
-6. prints one JSON line describing the kernels, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+6. RSTP closed-loop phase: ``SimStandalone`` on ``demo/country_follow``
+   with the scenario's own param sets, no override (``path_vel_decomp_
+   planner``, ``use_fused``, H=250, replanning every tick, plus the MPC) for
+   400 ticks; the same checks (an emergency plan only while the collision
+   screen's hard brake is latched, as in the JAX package's own loop, over
+   t=0.04-1.03 s, and out of it at the end), exactly 2 ``ilqr_rstp`` and 1
+   ``rstp_rampify`` launches per replan, and the last fused step re-run on
+   the CPU by the plain versions from the recorded carry and inputs;
+   prints the per-tick total, planning and control walls;
+7. the same on ``demo/country_overtake`` for 200 ticks, with the
+   planner's collision screen off (with it on, the JAX package's own loop
+   latches the hard brake for 196 of the 200 ticks and the ego stops) and
+   no emergency plan: a standing car ahead is the leader of the replans;
+8. RSTP kernel phase: both ``ilqr_rstp`` instantiations against
+   ``update_reference`` on the card on the first cold and 3 warm solves of
+   the follow loop, ``rstp_rampify`` against its plain version, bit for
+   bit, on seeded and loop inputs; prints the differences and both
+   times;
+9. prints one JSON line describing the kernels, then
+   ``{"ok": true, "device": {...}}`` as the last line.  Each phase prints
+   its seconds.
 
 Any failure raises (nonzero exit).  Without CUDA it exits nonzero before
 printing any result.
@@ -53,23 +72,39 @@ MAX_TIE_SHARE = 1e-3
 # the float64 iLQR kernel against its plain version (tests/test_torch_ilqr.py)
 MPC_X_ATOL = 1e-6
 MPC_COST_RTOL = 1e-9
+# the float32 RSTP solves, kernel against plain: both stop within a
+# relative cost change of 1e-6, where a line-search acceptance (and so
+# mu_step, and now and then one iteration more) is decided by float32
+# rounding; along the weakly determined directions of a converged profile
+# the two then part by up to ~6e-3 (m/s, s) (the kernel's body run on the
+# CPU against the plain version, 10 cases)
+RSTP_X_ATOL = 2e-2
+RSTP_COST_RTOL = 1e-5
+# the fused step on the card against the same step on the CPU (plain)
+FUSED_PATH_ATOL = 5e-3      # m
+FUSED_V_ATOL = 5e-2         # m/s
 
 DEMO_SPEC = dict(t_steps=10, s_steps=201, ds_steps=37, l_steps=21)
 MIN_REPLANS = 5
 TICK = 0.1
 MAX_TICKS = 60
 
+DP_TICKS = 200
 LOOP_TICKS = 400            # 4 s of the closed loop (test_demo_follow_short)
+OVERTAKE_TICKS = 200
 MPC_H = 60
-RECORD_SOLVES = (100, 200, 300)
-KERNELS = ("latlon_action_min", "ilqr_tracking_mpc")
+RSTP_H = 250
+RECORD_SOLVES = (50, 100, 150)
+RECORD_REPLANS = (100, 200, 300)
+KERNELS = ("latlon_action_min", "ilqr_tracking_mpc", "ilqr_rstp",
+           "rstp_rampify")
 
 
-def cuda_ms(fn, n):
-    """Mean time of fn() over n runs after warm-up, by CUDA events."""
+def cuda_ms(fn, n, warm=3):
+    """Mean time of fn() over n runs after ``warm`` runs, by CUDA events."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -361,7 +396,7 @@ def closed_loop_phase(lam, itm):
         solves0 = mpc.opt.updates
         lam.launches = 0
         itm.launches = 0
-        for k in range(LOOP_TICKS):
+        for k in range(DP_TICKS):
             t0 = time.perf_counter()
             sim.update()
             torch.cuda.synchronize()
@@ -390,7 +425,7 @@ def closed_loop_phase(lam, itm):
         s = sim.core.sh_state.sim
         violations = list(s.rule_checker.violations)
         t_end, x_end, v_end = s.t, s.ego.x, s.ego.v
-    print(f"closed loop: {LOOP_TICKS} ticks to t={t_end:.2f} s, ego x "
+    print(f"closed loop: {DP_TICKS} ticks to t={t_end:.2f} s, ego x "
           f"{x_end:.2f} v {v_end:.2f} m/s, {len(violations)} violations, "
           f"{len(replan_ms)} replans, {solves} MPC solves; launches: "
           f"latlon_action_min {am_launches}, ilqr_tracking_mpc "
@@ -402,7 +437,7 @@ def closed_loop_phase(lam, itm):
     if am_launches != (spec["t_steps"] - 2) * len(replan_ms):
         raise AssertionError(f"{am_launches} action-min launches for "
                              f"{len(replan_ms)} replans")
-    if solves < LOOP_TICKS - 5 or ilqr_launches != solves:
+    if solves < DP_TICKS - 5 or ilqr_launches != solves:
         raise AssertionError(f"{ilqr_launches} iLQR launches for {solves} "
                              "controller solves")
     print(f"per-tick control wall ms: median {np.median(control_ms):.3f}, "
@@ -454,6 +489,282 @@ def ilqr_phase(itm, picked, dev):
     return max_err, times[cases[1][0]]
 
 
+def _to(tree, dev):
+    """A fused-step carry (dict of tensors, solver states, host values)
+    moved to ``dev``."""
+    import torch
+    from tpl_tpu_torch.optim import ilqr
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, ilqr.SolverState):
+        return ilqr.SolverState(*(_to(a, dev) for a in (
+            tree.x, tree.u, tree.lam, tree.mu_step)))
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree
+
+
+def rstp_loop_phase(rstp, rmp, itm, scenario, ticks, screen=True,
+                    record=False):
+    """SimStandalone with the scenario's own param sets (the RSTP planner,
+    fused, and the tracking MPC) on the card.  Checks the loop and the
+    launch counts; re-runs the last fused step on the CPU.  With
+    ``record``, keeps the first cold and 3 warm solves of each RSTP problem
+    and two rampify calls for the kernel phase."""
+    import torch
+    from tpl_tpu_torch.planning.path_vel_decomp import fused_replan
+    from tpl_tpu_torch.simulation import SimStandalone
+
+    name = scenario.split("/")[-1]
+    sim = SimStandalone(app_id=f"smoke_{name}", scenario_path=scenario)
+    store = sim.planning_app.sh_planners
+    with store.lock():
+        active = store.active_planner
+        params = store.path_vel_decomp_planner.params
+        cfg = (params.use_fused, params.horizon, params.smooth_only)
+        params.collision_screen = screen
+    if active != "path_vel_decomp_planner" or cfg != (True, RSTP_H, False):
+        raise AssertionError(f"planning set of {scenario}: {active} {cfg}")
+    planner = sim.planning_app.planners["path_vel_decomp_planner"]
+    controllers = sim.control_app.sh_controllers
+    with controllers.lock():
+        active = controllers.active_controller
+        mp = controllers.model_predictive_controller.params
+        mpc_cfg = (mp.horizon, mp.max_iterations)
+    if active != "model_predictive_controller" or mpc_cfg != (MPC_H, 20):
+        raise AssertionError(f"control set: {active} {mpc_cfg}")
+    mpc = sim.control_app.controllers["model_predictive_controller"]
+    with sim.core.sh_state.lock():
+        ss = sim.core.sh_state.sim
+        ss.settings.running = True
+        ss.settings.use_real_time = False
+        ss.rule_checker.enable = True
+
+    # the loop's own launches, recorded as the planner makes them
+    solve, scan = rstp.update, rmp.scan
+    rec = {"n": {}, "picked": [], "scans": [], "events": []}
+
+    def recording(pname, buf, *args):
+        n = rec["n"].get(pname, 0)
+        rec["n"][pname] = n + 1
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = solve(pname, buf, *args)
+        ev[1].record()
+        rec["events"].append((pname, ev))
+        if record and (n == 0 or n in RECORD_REPLANS):
+            rec["picked"].append((f"{pname} solve {n}", pname, buf.clone(),
+                                  args))
+        return out
+
+    def recording_scan(*args):
+        if record and len(rec["scans"]) < 2 and (
+                not rec["scans"] or planner.fused.steps >= 100):
+            rec["scans"].append(tuple(a.clone() if torch.is_tensor(a) else a
+                                      for a in args))
+        return scan(*args)
+
+    last = {}
+
+    def recording_step(step):
+        def run(carry, inp):
+            last.update(carry=carry, inp=inp)
+            carry, out = step(carry, inp)
+            last["out"] = out
+            return carry, out
+        return run
+
+    rstp.update, rmp.scan = recording, recording_scan
+    try:
+        tick_ms, plan_ms, control_ms, its, emergency = [], [], [], [], []
+        leaders = 0
+        solves0 = mpc.opt.updates
+        rstp.launches = rmp.launches = itm.launches = 0
+        for k in range(ticks):
+            t0 = time.perf_counter()
+            sim.update()
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            fused = planner.fused
+            if fused is not None and "wrapped" not in last:
+                fused._step = recording_step(fused._step)
+                last["wrapped"] = True
+            with store.lock():
+                plan_ms.append(store.runtime * 1e3)
+                traj = store.trajectory
+            with controllers.lock():
+                control_ms.append(controllers.runtime * 1e3)
+                controls = np.array(controllers.controls)
+            if fused is not None:
+                its.append(fused.iterations)
+                leaders += planner.velocity_optim.s_leader < 1e5
+                # a published plan of the planner's own, screened or not
+                # (an unknown planner publishes an empty emergency plan)
+                if len(traj.x) != fused.H or not np.all(
+                        np.isfinite(traj.velocity)):
+                    raise AssertionError(f"{name} tick {k}: no finite plan")
+            if traj.emergency:
+                emergency.append(k)
+            if not np.all(np.isfinite(controls)):
+                raise AssertionError(f"{name} tick {k}: non-finite controls")
+        launches = dict(ilqr_rstp=rstp.launches, rstp_rampify=rmp.launches,
+                        ilqr_tracking_mpc=itm.launches)
+        solves = mpc.opt.updates - solves0
+    finally:
+        rstp.update, rmp.scan = solve, scan
+
+    replans = planner.fused.steps
+    with sim.core.sh_state.lock():
+        s = sim.core.sh_state.sim
+        violations = list(s.rule_checker.violations)
+        t_end, x_end, v_end = s.t, s.ego.x, s.ego.v
+    window = f"ticks {emergency[0]}-{emergency[-1]}" if emergency else "none"
+    print(f"rstp {name}: {ticks} ticks to t={t_end:.2f} s, ego x {x_end:.2f} "
+          f"v {v_end:.2f} m/s, {len(violations)} violations, {replans} "
+          f"replans ({leaders} with a leader), {solves} MPC solves, "
+          f"{len(emergency)} emergency ticks ({window}); launches: "
+          f"{launches}")
+    if violations:
+        raise AssertionError(f"rule violations: {violations[:3]}")
+    # the collision screen may latch the hard brake for screen_hold_time
+    # (on country_follow the JAX package's loop does so from t=0.04 s on,
+    # when the leader is first seen); the run must end out of it
+    if not screen and emergency:
+        raise AssertionError(f"{name}: emergency with the screen off")
+    if emergency and emergency[-1] >= ticks - ticks // 4:
+        raise AssertionError(f"{name}: emergency latched at the end")
+    if not v_end > 4.0:
+        raise AssertionError(f"ego speed {v_end} at the end")
+    if replans < ticks - 5:
+        raise AssertionError(f"only {replans} replans in {ticks} ticks")
+    if (launches["ilqr_rstp"], launches["rstp_rampify"]) != (2 * replans,
+                                                             replans):
+        raise AssertionError(f"{launches} for {replans} replans")
+    # while the hard brake is latched the constant-deceleration controller
+    # drives and the MPC does not solve
+    if solves < ticks - len(emergency) - 5 \
+            or launches["ilqr_tracking_mpc"] != solves:
+        raise AssertionError(f"{launches} for {solves} controller solves")
+    its = np.array(its)
+    print(f"rstp {name} walls ms: per-tick total median "
+          f"{np.median(tick_ms):.3f} max {np.max(tick_ms):.3f}; planning "
+          f"median {np.median(plan_ms):.3f} max {np.max(plan_ms):.3f}; "
+          f"control median {np.median(control_ms):.3f} max "
+          f"{np.max(control_ms):.3f}")
+    for pname in rstp.PROBLEMS:
+        ms = [ev[0].elapsed_time(ev[1]) for p, ev in rec["events"]
+              if p == pname]
+        col = 0 if pname == "lateral_profile" else 1
+        print(f"rstp {name} {pname} in the loop (CUDA events) ms: median "
+              f"{np.median(ms):.4f}, max {np.max(ms):.4f}; iterations per "
+              f"solve: median {np.median(its[:, col]):.1f}, max "
+              f"{np.max(its[:, col])}")
+
+    # the last fused step, re-run on the CPU by the plain versions
+    H = planner.fused.H
+    step_cpu = fused_replan.make_fused_step(H)
+    _, out_cpu = step_cpu(_to(last["carry"], torch.device("cpu")),
+                          last["inp"])
+    got = fused_replan.unpack_outputs(last["out"].cpu().numpy(), H)
+    want = fused_replan.unpack_outputs(out_cpu.numpy(), H)
+    T = int(last["inp"]["scal_i"][0])
+    d_path = float(np.max(np.abs(got["opt_path"][:T, :2]
+                                 - want["opt_path"][:T, :2])))
+    d_v = float(np.max(np.abs(got["prof"][:T, 0] - want["prof"][:T, 0])))
+    d_lead = np.abs(got["scals"][:2] - want["scals"][:2])
+    print(f"rstp {name}: last fused step vs the plain versions on the CPU: "
+          f"max|path| {d_path:.3e} m, max|v| {d_v:.3e} m/s, "
+          f"s/v_leader diff {d_lead[0]:.3e} / {d_lead[1]:.3e}, iterations "
+          f"{got['tails'][:, 2]} / {want['tails'][:, 2]}")
+    if not (d_path <= FUSED_PATH_ATOL and d_v <= FUSED_V_ATOL
+            and np.all(d_lead <= FUSED_PATH_ATOL)):
+        raise AssertionError(f"{name}: the fused step on the card and on "
+                             "the CPU differ")
+    if name == "country_overtake" and leaders < replans - 5:
+        raise AssertionError(f"only {leaders} of {replans} replans with a "
+                             "leader")
+    return dict(launches=launches, picked=rec["picked"], scans=rec["scans"],
+                err=max(d_path, d_v))
+
+
+def compare_rstp(rstp, got, want, pname, H, what):
+    """ilqr_rstp kernel vs plain results: raises beyond the float32
+    tolerances; returns (max |x|, |u| difference, cost rel difference)."""
+    a = rstp.unpack_outputs(pname, got.cpu().numpy().astype(np.float64), H)
+    b = rstp.unpack_outputs(pname, want.cpu().numpy().astype(np.float64), H)
+    dx = float(np.max(np.abs(a["x"] - b["x"])))
+    du = float(np.max(np.abs(a["u"] - b["u"])))
+    dlam = float(np.max(np.abs(a["lam"] - b["lam"])))
+    dcost = abs(a["traj_costs"] - b["traj_costs"]) / max(
+        abs(b["traj_costs"]), 1e-30)
+    print(f"ilqr_rstp check {what}: max|dx| {dx:.3e}, max|du| {du:.3e}, "
+          f"max|dlam| {dlam:.3e}, cost rel {dcost:.3e}, mu_step "
+          f"{a['mu_step']}/{b['mu_step']}, iterations "
+          f"{a['iterations']}/{b['iterations']}")
+    if max(dx, du, dlam) > RSTP_X_ATOL or not dcost <= RSTP_COST_RTOL:
+        raise AssertionError(f"{what}: kernel and plain solves differ")
+    if not np.all(np.isfinite(a["x"])):
+        raise AssertionError(f"{what}: non-finite solve")
+    return max(dx, du), dcost
+
+
+def rstp_kernel_phase(rstp, rmp, picked, scans, dev):
+    """Both ilqr_rstp instantiations and rstp_rampify against their plain
+    versions on the card."""
+    import torch
+
+    want_n = 2 * (1 + len(RECORD_REPLANS))
+    if len(picked) != want_n or len(scans) != 2:
+        raise AssertionError(f"recorded {len(picked)} solves, {len(scans)} "
+                             "scans")
+    max_err = 0.0
+    for what, pname, buf, args in picked:
+        got = rstp.update(pname, buf, *args)
+        want = rstp.update_reference(pname, buf, *args)
+        torch.cuda.synchronize()
+        err, _ = compare_rstp(rstp, got, want, pname, args[0], what)
+        max_err = max(max_err, err)
+    times = {}
+    for what, pname, buf, args in picked:
+        if pname in times:
+            continue        # the first (cold) solve of each problem
+        ms = cuda_ms(lambda: rstp.update(pname, buf, *args), 50)
+        plain_ms = cuda_ms(lambda: rstp.update_reference(pname, buf, *args),
+                           1, warm=1)
+        times[pname] = (ms, plain_ms)
+        print(f"ilqr_rstp {what} at H={args[0]}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms per solve")
+
+    rng = np.random.default_rng(0)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    lim = np.maximum(1.0, 10.0 + np.cumsum(rng.normal(0, 1.0, RSTP_H)))
+    lim[40:45] = 2.0
+    seeded = (f32(8.0), f32(0.3), f32(lim), RSTP_H - 30, f32(-2.5),
+              f32(2.5), f32(-1.5), f32(1.5), f32(1.0), f32(0.5))
+    scan_err = 0.0
+    for what, args in [("seeded", seeded), ("loop first", scans[0]),
+                       ("loop later", scans[1])]:
+        got = rmp.scan(*args)
+        want = rmp.scan_reference(*args)
+        torch.cuda.synchronize()
+        err = float(torch.max(torch.abs(got - want)))
+        same = bool(torch.equal(got, want))
+        print(f"rstp_rampify check {what}: max|kernel-plain| {err:.3e}, "
+              f"bit-exact {same}")
+        # the same float32 operations in the same order, no FMA
+        if not same or not torch.all(torch.isfinite(got)):
+            raise AssertionError(f"rampify {what}: kernel and plain differ")
+        scan_err = max(scan_err, err)
+    ms = cuda_ms(lambda: rmp.scan(*scans[1]), 200)
+    plain_ms = cuda_ms(lambda: rmp.scan_reference(*scans[1]), 2)
+    print(f"rstp_rampify at H={RSTP_H}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    return dict(ilqr_err=max_err, ilqr_times=times, scan_err=scan_err,
+                scan_ms=(ms, plain_ms))
+
+
 def main():
     import torch
 
@@ -463,9 +774,11 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import tpl_tpu_torch
     from tpl_tpu_torch import _build
+    from tpl_tpu_torch.optim import ilqr_rstp as rstp
     from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
     from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
     from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
+    from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify as rmp
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -479,8 +792,8 @@ def main():
 
     t0 = time.perf_counter()
     _build.build(KERNELS)
-    lam._kernel()
-    itm._kernel()
+    for mod in (lam, itm, rstp, rmp):
+        mod._kernel()
     print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         log = _build.BUILD_LOG.get(name, "").strip()
@@ -488,13 +801,33 @@ def main():
             print(log)
 
     dev = torch.device("cuda")
-    am_err, am_ms, am_plain_ms = kernel_phase(lam, tllk, dev)
-    slice_phase(lam, tllk)
-    loop = closed_loop_phase(lam, itm)
-    ilqr_err, (ilqr_ms, ilqr_plain_ms) = ilqr_phase(itm, loop["picked"], dev)
+    phases = {}
+
+    def phase(name, fn, *args, **kw):
+        t = time.perf_counter()
+        res = fn(*args, **kw)
+        phases[name] = time.perf_counter() - t
+        print(f"phase {name}: {phases[name]:.1f} s", flush=True)
+        return res
+
+    am_err, am_ms, am_plain_ms = phase("action_min kernel", kernel_phase,
+                                       lam, tllk, dev)
+    phase("DP slice", slice_phase, lam, tllk)
+    loop = phase("DP closed loop", closed_loop_phase, lam, itm)
+    ilqr_err, (ilqr_ms, ilqr_plain_ms) = phase(
+        "tracking-MPC kernel", ilqr_phase, itm, loop["picked"], dev)
+    follow = phase("RSTP closed loop, country_follow", rstp_loop_phase, rstp,
+                   rmp, itm, "demo/country_follow", LOOP_TICKS, record=True)
+    overtake = phase("RSTP closed loop, country_overtake", rstp_loop_phase,
+                     rstp, rmp, itm, "demo/country_overtake", OVERTAKE_TICKS,
+                     screen=False)
+    kern = phase("RSTP kernels", rstp_kernel_phase, rstp, rmp,
+                 follow["picked"], follow["scans"], dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
+    launches = follow["launches"]
+    vel_ms, vel_plain_ms = kern["ilqr_times"]["velocity_profile_space"]
     print(json.dumps({"kernels": [
         {"name": "latlon_action_min", "route": "cuda",
          "source": "tpl_tpu_torch/csrc/latlon_action_min.cu",
@@ -504,9 +837,22 @@ def main():
         {"name": "ilqr_tracking_mpc", "route": "cuda",
          "source": "tpl_tpu_torch/csrc/ilqr_tracking_mpc.cu",
          "replaces": "tpl_tpu/optim/ilqr.py:126",
-         "launches": loop["ilqr_launches"],
+         "launches": launches["ilqr_tracking_mpc"],
          "max_abs_err": max(ilqr_err, loop["err"]),
-         "ms": ilqr_ms, "plain_ms": ilqr_plain_ms}]}))
+         "ms": ilqr_ms, "plain_ms": ilqr_plain_ms},
+        {"name": "ilqr_rstp", "route": "cuda",
+         "source": "tpl_tpu_torch/csrc/ilqr_rstp.cu",
+         "replaces": "tpl_tpu/optim/ilqr.py:126",
+         "launches": launches["ilqr_rstp"],
+         "max_abs_err": max(kern["ilqr_err"], follow["err"],
+                            overtake["err"]),
+         "ms": vel_ms, "plain_ms": vel_plain_ms},
+        {"name": "rstp_rampify", "route": "cuda",
+         "source": "tpl_tpu_torch/csrc/rstp_rampify.cu",
+         "replaces": "tpl_tpu/planning/path_vel_decomp/fused_replan.py:244",
+         "launches": launches["rstp_rampify"],
+         "max_abs_err": kern["scan_err"],
+         "ms": kern["scan_ms"][0], "plain_ms": kern["scan_ms"][1]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,17 +8,21 @@ On a machine with a card (no JAX needed):
 Tolerances: the action-min kernel as in test_torch_latlon_solver.py (cost
 rtol=1e-6, atol=1e-3; constraint atol=1e-4; trajectory atol=1e-3); the
 float64 iLQR kernel against its plain version x, u atol=1e-6, traj_costs
-rtol=1e-9, mu_step and the iteration count equal.
+rtol=1e-9, mu_step and the iteration count equal; the float32 RSTP iLQR
+kernel against its plain version x, u, lam atol=2e-2, traj_costs
+rtol=1e-5 (where each solve stops is decided by float32 rounding, see
+RSTP_X_ATOL); the rampify scan bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpl_tpu_torch.optim import ilqr, ilqr_tracking_mpc as itm
+from tpl_tpu_torch.optim import ilqr, ilqr_rstp, ilqr_tracking_mpc as itm
 from tpl_tpu_torch.optim import problems, solver
 from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
 from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
+from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify
 
 COST_RTOL, COST_ATOL = 1e-6, 1e-3
 CONSTR_ATOL = 1e-4
@@ -207,3 +211,143 @@ def test_cuda_solver_launches_kernel_once_per_update(cuda):
         for s in sides:
             s.shift(1)
             s.x[0] = s.x[0] + np.array([0.0, 0.01, 0.0, 0.0, 0.02, 0.0, 0.0])
+
+
+# ---------------------------------------------------------------------
+# the float32 RSTP iLQR kernel and the rampify scan
+
+RSTP_N_REF = 512
+# kernel against plain, both float32: each stops at a relative cost change
+# of 1e-6, which near convergence is a few float32 roundings of the cost, so
+# a line-search acceptance, mu_step and the iteration at which a solve stops
+# are decided by rounding; along the weakly determined directions of a
+# converged profile the two then part by a few 1e-3 (m, m/s, s)
+RSTP_X_ATOL = 2e-2
+RSTP_COST_RTOL = 1e-5
+
+
+def rstp_solver(name, H, T, dev, rng, warm):
+    """A float32 Solver of an RSTP problem on ``dev``: the lateral / velocity
+    profile configurations of tests/test_torch_ilqr.py at n_ref = 512, with
+    a seeded start (and warm start)."""
+    n = RSTP_N_REF
+    prob, spec = getattr(problems, name)(ref_capacity=n)
+    s = solver.Solver(prob, spec, horizon_max=H, dtype=torch.float32,
+                      device=dev)
+    s.horizon = T
+    s.step = 0.5
+    s.barrier_weight[:] = 1000.0
+    s.u_min[:] = -2.5
+    s.u_max[:] = 2.5
+    s.params.ref_step = 0.5
+    s.max_lg_iterations = 1
+    if name == "lateral_profile":
+        s.max_iterations = 5
+        s.lg_mult_limit = 0.0
+        s.params.k_ref = (0.01 * np.sin(np.arange(n) * 0.1)
+                          + rng.normal(0.0, 0.002, n))
+        s.params.d_offset = np.zeros(n)
+        lower = np.full(n, -2.0)
+        lower[40:60] = 1.0
+        s.params.d_lower_constr = lower
+        s.params.d_upper_constr = np.full(n, 2.0)
+        s.params.w_d, s.params.w_v_d = 0.01, 1.0
+        s.params.w_a_d, s.params.w_k = 200.0, 1.0
+        s.x[0] = [rng.normal(0.0, 0.5), 0.0]
+    else:
+        s.max_iterations = 20
+        s.lg_mult_limit = 0.1
+        v_ref = np.full(n, 10.0)
+        v_ref[60:] = 3.0
+        s.params.ref_v = v_ref
+        s.params.ref_k = 0.02 * np.sin(np.arange(n) * 0.05)
+        t_min = np.zeros(n)
+        t_min[80] = 12.0
+        s.params.ref_t_min = t_min
+        s.params.ref_t_max = np.full(n, 1e10)
+        s.params.ref_t_offset = np.ones(n)
+        s.params.ref_v_weight = np.ones(n)
+        s.params.p_a = 2.0
+        s.x[0] = [rng.uniform(0.5, 9.0), 0.0]
+    if warm:
+        nc = ilqr_rstp.PROBLEMS[name]["nc"]
+        s.u = rng.normal(0.0, 0.3, T)
+        s.lagrange_multiplier = (rng.uniform(0.0, 0.05, (T, nc))
+                                 * (rng.uniform(size=(T, nc)) < 0.3))
+        s._mu_step = int(rng.integers(0, 4))
+    return s
+
+
+def _close_rstp(got, want, max_iterations):
+    for k in ("x", "u", "lam"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=RSTP_X_ATOL)
+    np.testing.assert_allclose(got["traj_costs"], want["traj_costs"],
+                               rtol=RSTP_COST_RTOL)
+    assert 1 <= got["iterations"] <= max_iterations
+    assert np.all(np.isfinite(got["x"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lateral_profile",
+                                  "velocity_profile_space"])
+@pytest.mark.parametrize("H,T,warm", [(250, 250, False), (250, 200, True),
+                                      (60, 45, True)])
+def test_rstp_kernel_matches_plain(cuda, name, H, T, warm):
+    rng = np.random.default_rng(H + T + warm)
+    s = rstp_solver(name, H, T, "cpu", rng, warm)
+    host = ilqr_rstp.pack_inputs(name, s._inputs(), s.params._values,
+                                 s._mu_step)
+    buf = torch.from_numpy(host).to(cuda)
+    run = (H, RSTP_N_REF, T, s.max_iterations, 1)
+    before = ilqr_rstp.launches
+    out = ilqr_rstp.update(name, buf, *run)
+    torch.cuda.synchronize()
+    assert ilqr_rstp.launches == before + 1
+    ref = ilqr_rstp.update_reference(name, buf, *run)
+    _close_rstp(ilqr_rstp.unpack_outputs(name, out.cpu().numpy(), H),
+                ilqr_rstp.unpack_outputs(name, ref.cpu().numpy(), H),
+                s.max_iterations)
+
+
+@pytest.mark.cuda
+def test_rstp_solver_launches_kernel_once_per_update(cuda):
+    """A float32 velocity-profile Solver on the card: one ilqr_rstp launch
+    per update, the result of the same Solver on the CPU (plain)."""
+    sides = [rstp_solver("velocity_profile_space", 250, 250, dev,
+                         np.random.default_rng(3), False)
+             for dev in (cuda, torch.device("cpu"))]
+    for tick in range(3):
+        before = ilqr_rstp.launches
+        sides[0].update()
+        assert ilqr_rstp.launches == before + 1
+        sides[1].update()
+        assert ilqr_rstp.launches == before + 1       # the CPU side: plain
+        np.testing.assert_allclose(sides[0].x, sides[1].x, rtol=0,
+                                   atol=RSTP_X_ATOL)
+        np.testing.assert_allclose(sides[0].traj_costs, sides[1].traj_costs,
+                                   rtol=RSTP_COST_RTOL)
+        for s in sides:
+            s.shift(1)
+
+
+def rampify_args(dev, H, T, seed):
+    rng = np.random.default_rng(seed)
+    lim = np.maximum(1.0, 10.0 + np.cumsum(rng.normal(0.0, 1.0, H)))
+    lim[H // 6:H // 6 + 5] = 2.0
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return (f32(rng.uniform(0.0, 12.0)), f32(rng.normal(0.0, 0.5)), f32(lim),
+            T, f32(-2.5), f32(2.5), f32(-1.5), f32(1.5), f32(1.0), f32(0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,T", [(250, 250), (250, 180), (64, 64), (2, 1)])
+def test_rampify_kernel_matches_plain_bit_for_bit(cuda, H, T):
+    args = rampify_args(cuda, H, T, H + T)
+    before = rstp_rampify.launches
+    got = rstp_rampify.scan(*args)
+    torch.cuda.synchronize()
+    assert rstp_rampify.launches == before + 1
+    want = rstp_rampify.scan_reference(*args)
+    assert got.shape == (H, 2)
+    # the same float32 operations in the same order, no FMA contraction
+    assert torch.equal(got, want)

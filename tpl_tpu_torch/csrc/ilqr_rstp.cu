@@ -1,0 +1,864 @@
+// One full augmented-Lagrangian iLQR update of an RSTP profile problem, in
+// one launch of one thread block: lateral_profile (nx=2, nu=1, nc=2, with an
+// end cost) or velocity_profile_space (nx=2, nu=1, nc=5), float32, Euler.
+//
+// Replaces: the two XLA programs the JAX package builds from
+// tpl_tpu/optim/ilqr.py:126 (make_update_fn) for the RSTP planner's solves
+// (tpl_tpu/planning/path_vel_decomp/fused_replan.py:322-327); there is no
+// Pallas kernel for them.  Plain version: tpl_tpu_torch/optim/ilqr.py
+// make_update_fn, through tpl_tpu_torch/optim/ilqr_rstp.py update_reference.
+//
+// What bounds it on an H100: latency.  A solve is a chain of dependent scans
+// of tiny float32 math (up to 20 iterations, each a Riccati recursion and
+// rollouts over a horizon of 250 steps) that plain torch issues as thousands
+// of small launches per iteration.  The design keeps the whole solve in one
+// block with every array in shared memory, so nothing but the packed inputs
+// and outputs touches device memory:
+//
+// - derivatives: threads stride over the active steps; step t's dynamics and
+//   augmented cost are evaluated on a second-order forward-mode number
+//   (value, gradient and packed Hessian over (x, u)), which gives
+//   fx = I + dt*df/dx, fu = dt*df/du, lx, lu, lxx, luu, lux; the end cost's
+//   gradient and Hessian at x[T] start the backward pass;
+// - Riccati backward pass: one thread, sequential in t, the 2x2 state
+//   algebra in registers (at nx=2, nu=1 a block barrier per step would cost
+//   more than the step);
+// - line search: lane 0 of warp w rolls out alpha = 10^-w, then all threads
+//   evaluate the per-step costs, lane 0 of warp w sums its candidate's in
+//   step order (plus the end cost) and thread 0 picks the first improving
+//   alpha and applies the mu schedule and the termination test.
+//
+// The kernel is a template over the problem (sizes, dynamics, stage cost,
+// end cost, constraints, table lookups) and the scalar type; the launcher
+// instantiates it for the two problems in float32.  The tables are read at
+// the step's arc length t*dt, which does not depend on (x, u), so lookups
+// carry no derivative.  The velocity dynamics branch on v > 1 + 1e-3 and the
+// t_min constraint on t_min > 0: the derivative is the taken branch's.
+// Every sum runs in a fixed order, so the result is deterministic.  Built
+// without fast math and with --fmad=false.  Input and output layouts: see
+// tpl_tpu_torch/optim/ilqr_rstp.py (input_layout, output_layout); mu_step
+// travels in the last input word and the first word of the output's tail.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace ilqr_rstp {
+
+constexpr int NA = 8;                    // line-search candidates
+constexpr int THREADS = 256;
+
+// ---------------------------------------------------------------------
+// scalar math, float and double
+
+__device__ __forceinline__ float fsin(float a) { return sinf(a); }
+__device__ __forceinline__ float fcos(float a) { return cosf(a); }
+__device__ __forceinline__ float fatan(float a) { return atanf(a); }
+__device__ __forceinline__ float ffloor(float a) { return floorf(a); }
+__device__ __forceinline__ float fceil(float a) { return ceilf(a); }
+__device__ __forceinline__ double fsin(double a) { return sin(a); }
+__device__ __forceinline__ double fcos(double a) { return cos(a); }
+__device__ __forceinline__ double fatan(double a) { return atan(a); }
+__device__ __forceinline__ double ffloor(double a) { return floor(a); }
+__device__ __forceinline__ double fceil(double a) { return ceil(a); }
+
+// torch.clamp: NaN passes through
+template <typename R>
+__device__ __forceinline__ R clampr(R x, R lo, R hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// ---------------------------------------------------------------------
+// second-order forward-mode number over the N variables (x, u)
+
+template <typename R, int N>
+struct Jet {
+  static constexpr int NH = N * (N + 1) / 2;   // packed upper triangle
+  R v;
+  R g[N];
+  R h[NH];
+
+  Jet() = default;
+  __device__ explicit Jet(R c) : v(c) {
+    for (int i = 0; i < N; ++i) g[i] = R(0);
+    for (int i = 0; i < NH; ++i) h[i] = R(0);
+  }
+};
+
+template <int N>
+__device__ __forceinline__ int hidx(int i, int j) {  // i <= j
+  return i * N - (i * (i - 1)) / 2 + (j - i);
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> jvar(R c, int k) {
+  Jet<R, N> r(c);
+  r.g[k] = R(1);
+  return r;
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> operator+(const Jet<R, N>& a,
+                                               const Jet<R, N>& b) {
+  Jet<R, N> r;
+  r.v = a.v + b.v;
+  for (int i = 0; i < N; ++i) r.g[i] = a.g[i] + b.g[i];
+  for (int i = 0; i < Jet<R, N>::NH; ++i) r.h[i] = a.h[i] + b.h[i];
+  return r;
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> operator-(const Jet<R, N>& a,
+                                               const Jet<R, N>& b) {
+  Jet<R, N> r;
+  r.v = a.v - b.v;
+  for (int i = 0; i < N; ++i) r.g[i] = a.g[i] - b.g[i];
+  for (int i = 0; i < Jet<R, N>::NH; ++i) r.h[i] = a.h[i] - b.h[i];
+  return r;
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> operator+(const Jet<R, N>& a, R b) {
+  Jet<R, N> r = a;
+  r.v = a.v + b;
+  return r;
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> operator+(R b, const Jet<R, N>& a) {
+  Jet<R, N> r = a;
+  r.v = b + a.v;
+  return r;
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> operator-(const Jet<R, N>& a, R b) {
+  Jet<R, N> r = a;
+  r.v = a.v - b;
+  return r;
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> operator-(R b, const Jet<R, N>& a) {
+  Jet<R, N> r;
+  r.v = b - a.v;
+  for (int i = 0; i < N; ++i) r.g[i] = -a.g[i];
+  for (int i = 0; i < Jet<R, N>::NH; ++i) r.h[i] = -a.h[i];
+  return r;
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> operator*(const Jet<R, N>& a, R b) {
+  Jet<R, N> r;
+  r.v = a.v * b;
+  for (int i = 0; i < N; ++i) r.g[i] = a.g[i] * b;
+  for (int i = 0; i < Jet<R, N>::NH; ++i) r.h[i] = a.h[i] * b;
+  return r;
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> operator*(R b, const Jet<R, N>& a) {
+  Jet<R, N> r;
+  r.v = b * a.v;
+  for (int i = 0; i < N; ++i) r.g[i] = b * a.g[i];
+  for (int i = 0; i < Jet<R, N>::NH; ++i) r.h[i] = b * a.h[i];
+  return r;
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> operator*(const Jet<R, N>& a,
+                                               const Jet<R, N>& b) {
+  Jet<R, N> r;
+  r.v = a.v * b.v;
+  for (int i = 0; i < N; ++i) r.g[i] = a.v * b.g[i] + b.v * a.g[i];
+  for (int i = 0; i < N; ++i)
+    for (int j = i; j < N; ++j) {
+      const int k = hidx<N>(i, j);
+      r.h[k] = a.v * b.h[k] + b.v * a.h[k] + a.g[i] * b.g[j]
+               + a.g[j] * b.g[i];
+    }
+  return r;
+}
+
+// q = a / b: a = q b, so q' = (a' - q b') / b and
+// q'' = (a'' - q' b'^T - b' q'^T - q b'') / b
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> operator/(const Jet<R, N>& a,
+                                               const Jet<R, N>& b) {
+  Jet<R, N> r;
+  r.v = a.v / b.v;
+  for (int i = 0; i < N; ++i) r.g[i] = (a.g[i] - r.v * b.g[i]) / b.v;
+  for (int i = 0; i < N; ++i)
+    for (int j = i; j < N; ++j) {
+      const int k = hidx<N>(i, j);
+      r.h[k] = (a.h[k] - r.g[i] * b.g[j] - r.g[j] * b.g[i] - r.v * b.h[k])
+               / b.v;
+    }
+  return r;
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> operator/(R a, const Jet<R, N>& b) {
+  return Jet<R, N>(a) / b;
+}
+
+// f(a) with f(a.v) = f0, f'(a.v) = f1, f''(a.v) = f2
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> chain(const Jet<R, N>& a, R f0, R f1,
+                                           R f2) {
+  Jet<R, N> r;
+  r.v = f0;
+  for (int i = 0; i < N; ++i) r.g[i] = f1 * a.g[i];
+  for (int i = 0; i < N; ++i)
+    for (int j = i; j < N; ++j) {
+      const int k = hidx<N>(i, j);
+      r.h[k] = f1 * a.h[k] + f2 * a.g[i] * a.g[j];
+    }
+  return r;
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> fcos(const Jet<R, N>& a) {
+  const R s = fsin(a.v), c = fcos(a.v);
+  return chain(a, c, -s, -c);
+}
+
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> fatan(const Jet<R, N>& a) {
+  const R d = R(1) + a.v * a.v;
+  return chain(a, fatan(a.v), R(1) / d, R(-2) * a.v / (d * d));
+}
+
+template <typename R>
+__device__ __forceinline__ R val(R a) { return a; }
+template <typename R, int N>
+__device__ __forceinline__ R val(const Jet<R, N>& a) { return a.v; }
+template <class S>
+__device__ __forceinline__ S sq(const S& a) { return a * a; }
+
+// ---------------------------------------------------------------------
+// table lookups at the step's arc length (tpl_tpu_torch/ops/interp.py)
+
+template <typename R>
+struct Lookup {
+  int i0, i1;
+  R a;
+};
+
+// lerp / lerp_multi at (s - 0) / step: clamped floor / ceil indices and
+// alpha (a NaN query reads row 0; its alpha stays NaN)
+template <typename R>
+__device__ __forceinline__ Lookup<R> lerp_at(R s, R step, int n) {
+  const R q = s / step;
+  const R qs = isnan(q) ? R(0) : q;
+  const R f0 = clampr(ffloor(qs), R(0), R(n - 1));
+  const R f1 = clampr(fceil(qs), R(0), R(n - 1));
+  Lookup<R> r;
+  r.i0 = (int)f0;
+  r.i1 = (int)f1;
+  r.a = clampr(q - f0, R(0), R(1));
+  return r;
+}
+
+template <typename R>
+__device__ __forceinline__ R lerp_row(const Lookup<R>& lk, const R* tab) {
+  return tab[lk.i0] + lk.a * (tab[lk.i1] - tab[lk.i0]);
+}
+
+// box_interp: the row below s / step, clamped
+template <typename R>
+__device__ __forceinline__ R box_row(R s, R step, int n, const R* tab) {
+  R q = s / step;
+  q = isnan(q) ? R(0) : q;
+  return tab[(int)clampr(ffloor(q), R(0), R(n - 1))];
+}
+
+// ---------------------------------------------------------------------
+// the problems (tpl_tpu_torch/optim/problems.py)
+
+template <typename R>
+struct Prm {
+  const R* s;     // scalars
+  const R* tab;   // the problem's tables, n_ref each
+  int n_ref;
+  R dt;
+};
+
+// lateral_profile: states (d, v_d), action a_d
+template <typename R>
+struct Lateral {
+  static constexpr int NX = 2, NU = 1, NC = 2, NS = 5, NT = 4;
+  static constexpr bool END_COST = true;
+  enum { REF_STEP, W_D, W_V_D, W_A_D, W_K };
+  enum { K_REF, D_OFFSET, D_LOWER, D_UPPER };
+
+  struct Ref {
+    R k_r, d_o, d_lo, d_up;
+  };
+
+  __device__ static Ref ref(const Prm<R>& P, int t) {
+    const int n = P.n_ref;
+    const Lookup<R> lk = lerp_at((R)t * P.dt, P.s[REF_STEP], n);
+    Ref r;
+    r.k_r = lerp_row(lk, P.tab + K_REF * n);
+    r.d_o = lerp_row(lk, P.tab + D_OFFSET * n);
+    r.d_lo = lerp_row(lk, P.tab + D_LOWER * n);
+    r.d_up = lerp_row(lk, P.tab + D_UPPER * n);
+    return r;
+  }
+
+  template <class S>
+  __device__ static void dynamics(const Prm<R>&, const Ref&, const S* x,
+                                  const S* u, S* f) {
+    f[0] = x[1];
+    f[1] = u[0];
+  }
+
+  template <class S>
+  __device__ static S cost(const Prm<R>& P, const Ref& r, const S* x,
+                           const S* u) {
+    const S& d = x[0];
+    const S& v_d = x[1];
+    const S& a_d = u[0];
+    const R* p = P.s;
+    const S k = (a_d / (sq(v_d) + R(1)) + r.k_r) * fcos(fatan(v_d))
+                / (R(1) - d * r.k_r);
+    S c = p[W_D] * sq(d - r.d_o) + p[W_V_D] * sq(v_d);
+    c = c + p[W_A_D] * sq(a_d);
+    return c + p[W_K] * sq(k);
+  }
+
+  template <class S>
+  __device__ static void constraints(const Prm<R>&, const Ref& r, const S* x,
+                                     const S*, S* g) {
+    g[0] = r.d_lo - x[0];
+    g[1] = x[0] - r.d_up;
+  }
+
+  template <class S>
+  __device__ static S end_cost(const Prm<R>& P, const S* x, int T) {
+    const int n = P.n_ref;
+    const Lookup<R> lk = lerp_at((R)T * P.dt, P.s[REF_STEP], n);
+    const R d_o = lerp_row(lk, P.tab + D_OFFSET * n);
+    return P.s[W_D] * sq(x[0] - d_o) + P.s[W_V_D] * sq(x[1]);
+  }
+};
+
+// velocity_profile_space: states (v, st), action a
+template <typename R>
+struct Velocity {
+  static constexpr int NX = 2, NU = 1, NC = 5, NS = 4, NT = 6;
+  static constexpr bool END_COST = false;
+  enum { P_V, P_A, MAX_A_TOTAL, REF_STEP };
+  enum { REF_V, REF_K, REF_T_MAX, REF_T_MIN, REF_T_OFFSET, REF_V_WEIGHT };
+
+  struct Ref {
+    R v_trg, v_w, t_min, t_max, kk, t_off;
+  };
+
+  __device__ static Ref ref(const Prm<R>& P, int t) {
+    const int n = P.n_ref;
+    const R s = (R)t * P.dt;
+    const Lookup<R> lk = lerp_at(s, P.s[REF_STEP], n);
+    Ref r;
+    r.v_trg = lerp_row(lk, P.tab + REF_V * n);
+    r.v_w = lerp_row(lk, P.tab + REF_V_WEIGHT * n);
+    r.t_min = lerp_row(lk, P.tab + REF_T_MIN * n);
+    r.t_max = lerp_row(lk, P.tab + REF_T_MAX * n);
+    r.kk = box_row(s, P.s[REF_STEP], n, P.tab + REF_K * n);
+    r.t_off = box_row(s, P.s[REF_STEP], n, P.tab + REF_T_OFFSET * n);
+    return r;
+  }
+
+  // dv/ds = a/v, dt/ds = 1/v above v = 1 + 1e-3; a and t_offset below
+  template <class S>
+  __device__ static void dynamics(const Prm<R>&, const Ref& r, const S* x,
+                                  const S* u, S* f) {
+    if (val(x[0]) > (R)(1.0 + 1e-3)) {
+      f[0] = u[0] / x[0];
+      f[1] = R(1) / x[0];
+    } else {
+      f[0] = u[0];
+      f[1] = S(r.t_off);
+    }
+  }
+
+  template <class S>
+  __device__ static S cost(const Prm<R>& P, const Ref& r, const S* x,
+                           const S* u) {
+    const R* p = P.s;
+    return p[P_V] * sq(r.v_trg - x[0]) * r.v_w + p[P_A] * sq(u[0]);
+  }
+
+  template <class S>
+  __device__ static void constraints(const Prm<R>& P, const Ref& r,
+                                     const S* x, const S* u, S* g) {
+    const S& v = x[0];
+    const S& st = x[1];
+    const S a_lat = sq(v) * r.kk;
+    g[0] = (sq(u[0]) + sq(a_lat)) - sq(P.s[MAX_A_TOTAL]);
+    g[1] = R(1) - v;
+    g[2] = v - r.v_trg;
+    g[3] = (st + r.t_off) - r.t_max;
+    if (r.t_min > R(0))
+      g[4] = (r.t_min - st) * (v - R(1));
+    else
+      g[4] = (r.t_min - st) * R(1);
+  }
+
+  template <class S>
+  __device__ static S end_cost(const Prm<R>&, const S*, int) {
+    return S(R(0));
+  }
+};
+
+// ---------------------------------------------------------------------
+// the solve, generic in the problem
+
+template <class P, typename R>
+struct Solve {
+  static constexpr int NX = P::NX, NU = P::NU, NC = P::NC;
+  static constexpr int NV = NX + NU;
+  typedef Jet<R, NV> J;
+  typedef Jet<R, NX> JX;
+  static_assert(NU == 1, "the action solve is the nu = 1 closed form");
+
+  // per-step derivative block: fx (NX,NX), fu (NX,NU), lx, lu, lxx,
+  // luu (NU,NU), lux (NU,NX)
+  static constexpr int D_FX = 0;
+  static constexpr int D_FU = D_FX + NX * NX;
+  static constexpr int D_LX = D_FU + NX * NU;
+  static constexpr int D_LU = D_LX + NX;
+  static constexpr int D_LXX = D_LU + NU;
+  static constexpr int D_LUU = D_LXX + NX * NX;
+  static constexpr int D_LUX = D_LUU + NU * NU;
+  static constexpr int ND = D_LUX + NU * NX;
+
+  enum { SI_MU, SI_DONE, SI_ITERS, SI_PICK, SI_N };
+
+  struct Smem {
+    R *xs, *us, *lam, *ulim, *bw, *cfg, *alphas, *scal, *tab, *mu;
+    R *der, *kk, *KK, *cx, *cu, *cstep, *ccost, *VxT, *VxxT, *cur;
+    int* si;                   // mu_step, done, iterations, pick
+    size_t in_len;             // words copied from the input
+  };
+
+  __host__ __device__ static size_t carve(R* base, int H, int n_ref,
+                                          Smem* m) {
+    size_t o = 0;
+    auto take = [&](size_t n) {
+      R* p = base ? base + o : nullptr;
+      o += n;
+      return p;
+    };
+    Smem s;
+    s.xs = take((size_t)(H + 1) * NX);
+    s.us = take((size_t)H * NU);
+    s.lam = take((size_t)H * NC);
+    s.ulim = take((size_t)H * NU * 2);
+    s.bw = take(NC * 2);
+    s.cfg = take(2);
+    s.alphas = take(NA);
+    s.scal = take(P::NS);
+    s.tab = take((size_t)P::NT * n_ref);
+    s.mu = take(1);
+    s.in_len = o;
+    s.der = take((size_t)H * ND);
+    s.kk = take((size_t)H * NU);
+    s.KK = take((size_t)H * NU * NX);
+    s.cx = take((size_t)NA * (H + 1) * NX);
+    s.cu = take((size_t)NA * H * NU);
+    s.cstep = take((size_t)NA * H);
+    s.ccost = take(NA);
+    s.VxT = take(NX);
+    s.VxxT = take(NX * NX);
+    s.cur = take(1);
+    s.si = base ? (int*)(base + o) : nullptr;
+    if (m) *m = s;
+    return o * sizeof(R) + SI_N * sizeof(int);
+  }
+
+  // cost + sum(g*lam) + sum(inactive ? 0 : w*g*g)
+  template <class S>
+  __device__ static S aug_cost(const Prm<R>& Pr, const typename P::Ref& r,
+                               const S* x, const S* u, const R* lam,
+                               const R* bw) {
+    S c = P::cost(Pr, r, x, u);
+    S g[NC];
+    P::constraints(Pr, r, x, u, g);
+    S s = g[0] * lam[0];
+    for (int i = 1; i < NC; ++i) s = s + g[i] * lam[i];
+    c = c + s;
+    S pen(R(0));
+    for (int i = 0; i < NC; ++i) {
+      const bool inactive = val(g[i]) < R(0) && fabs(lam[i]) < R(1e-4);
+      if (!inactive) pen = pen + (bw[2 * i] * g[i]) * g[i];
+    }
+    return c + pen;
+  }
+
+  __device__ static R step_cost(const Prm<R>& Pr, int t, const R* x,
+                                const R* u, const R* lam, const R* bw) {
+    const typename P::Ref r = P::ref(Pr, t);
+    return aug_cost(Pr, r, x, u, lam, bw);
+  }
+
+  __device__ static void deriv(const Prm<R>& Pr, int t, const R* x,
+                               const R* u, const R* lam, const R* bw,
+                               R* d) {
+    const typename P::Ref r = P::ref(Pr, t);
+    J X[NX], U[NU];
+    for (int i = 0; i < NX; ++i) X[i] = jvar<R, NV>(x[i], i);
+    for (int i = 0; i < NU; ++i) U[i] = jvar<R, NV>(u[i], NX + i);
+    J f[NX];
+    P::dynamics(Pr, r, X, U, f);
+    for (int i = 0; i < NX; ++i) {
+      for (int j = 0; j < NX; ++j)
+        d[D_FX + i * NX + j] = (i == j ? R(1) : R(0)) + Pr.dt * f[i].g[j];
+      for (int j = 0; j < NU; ++j)
+        d[D_FU + i * NU + j] = Pr.dt * f[i].g[NX + j];
+    }
+    const J c = aug_cost(Pr, r, X, U, lam, bw);
+    for (int i = 0; i < NX; ++i) d[D_LX + i] = c.g[i];
+    for (int i = 0; i < NU; ++i) d[D_LU + i] = c.g[NX + i];
+    for (int i = 0; i < NX; ++i)
+      for (int j = 0; j < NX; ++j)
+        d[D_LXX + i * NX + j] =
+            c.h[i <= j ? hidx<NV>(i, j) : hidx<NV>(j, i)];
+    for (int i = 0; i < NU; ++i)
+      for (int j = 0; j < NU; ++j)
+        d[D_LUU + i * NU + j] = c.h[i <= j ? hidx<NV>(NX + i, NX + j)
+                                           : hidx<NV>(NX + j, NX + i)];
+    for (int i = 0; i < NU; ++i)
+      for (int j = 0; j < NX; ++j)
+        d[D_LUX + i * NX + j] = c.h[hidx<NV>(j, NX + i)];
+  }
+
+  __device__ static R end_cost(const Prm<R>& Pr, const R* x, int T) {
+    return P::END_COST ? P::end_cost(Pr, x, T) : R(0);
+  }
+
+  // one Euler step (ilqr._integrate)
+  __device__ static void integrate(const Prm<R>& Pr, int t, const R* x,
+                                   const R* u, R* xn) {
+    const typename P::Ref r = P::ref(Pr, t);
+    R f[NX];
+    P::dynamics(Pr, r, x, u, f);
+    for (int i = 0; i < NX; ++i) xn[i] = x[i] + Pr.dt * f[i];
+  }
+
+  // per-step augmented costs of candidate c's rollout (n_cand == 1: of the
+  // current trajectory) into cstep; steps >= T cost 0
+  __device__ static void step_costs(const Prm<R>& Pr, const Smem& m, int H,
+                                    int T, int n_cand) {
+    for (int k = threadIdx.x; k < n_cand * H; k += blockDim.x) {
+      const int c = k / H, t = k % H;
+      const R* x = n_cand == 1 ? m.xs : m.cx + (size_t)c * (H + 1) * NX;
+      const R* u = n_cand == 1 ? m.us : m.cu + (size_t)c * H * NU;
+      m.cstep[k] = t < T ? step_cost(Pr, t, x + t * NX, u + t * NU,
+                                     m.lam + t * NC, m.bw)
+                         : R(0);
+    }
+  }
+
+  // sum of steps [0, Te) in step order plus the end cost at x[min(T, H)]
+  __device__ static R traj_cost(const Prm<R>& Pr, const R* cstep,
+                                const R* xs, int H, int T) {
+    const int Te = T < H ? T : H;
+    R s = R(0);
+    for (int t = 0; t < Te; ++t) s += cstep[t];
+    const int iT = T < 0 ? 0 : (T > H ? H : T);
+    return s + end_cost(Pr, xs + iT * NX, T);
+  }
+
+  // the end cost's gradient and Hessian at x[T] (zero beyond H or without
+  // an end cost): the backward pass starts from them
+  __device__ static void end_derivs(const Prm<R>& Pr, const Smem& m, int H,
+                                    int T) {
+    for (int i = 0; i < NX; ++i) m.VxT[i] = R(0);
+    for (int i = 0; i < NX * NX; ++i) m.VxxT[i] = R(0);
+    if constexpr (P::END_COST) {
+      if (T > H) return;
+      JX X[NX];
+      for (int i = 0; i < NX; ++i) X[i] = jvar<R, NX>(m.xs[T * NX + i], i);
+      const JX e = P::end_cost(Pr, X, T);
+      for (int i = 0; i < NX; ++i) m.VxT[i] = e.g[i];
+      for (int i = 0; i < NX; ++i)
+        for (int j = 0; j < NX; ++j)
+          m.VxxT[i * NX + j] = e.h[i <= j ? hidx<NX>(i, j) : hidx<NX>(j, i)];
+    }
+  }
+
+  // the Riccati backward pass (ilqr.py backward) over steps T-1 .. 0, on
+  // the calling thread
+  __device__ static void backward(const Smem& m, int H, int T, R mu) {
+    for (int i = 0; i < H * NU; ++i) m.kk[i] = R(0);
+    for (int i = 0; i < H * NU * NX; ++i) m.KK[i] = R(0);
+    R Vx[NX], Vxx[NX * NX];
+    for (int i = 0; i < NX; ++i) Vx[i] = m.VxT[i];
+    for (int i = 0; i < NX * NX; ++i) Vxx[i] = m.VxxT[i];
+    const int n = T < H ? T : H;
+    for (int t = n - 1; t >= 0; --t) {
+      const R* d = m.der + (size_t)t * ND;
+      const R* fx = d + D_FX;
+      const R* fu = d + D_FU;
+      R Qx[NX], A[NX * NX], B[NX], Qxx[NX * NX], Qux[NX];
+      // Qx = lx + fx^T Vx, Qu = lu + fu^T Vx
+      for (int i = 0; i < NX; ++i) {
+        R s = R(0);
+        for (int k = 0; k < NX; ++k) s += fx[k * NX + i] * Vx[k];
+        Qx[i] = d[D_LX + i] + s;
+      }
+      R s = R(0);
+      for (int k = 0; k < NX; ++k) s += fu[k] * Vx[k];
+      const R Qu = d[D_LU] + s;
+      // A = fx^T Vxx, B = fu^T Vxx
+      for (int i = 0; i < NX; ++i)
+        for (int j = 0; j < NX; ++j) {
+          R a = R(0);
+          for (int k = 0; k < NX; ++k) a += fx[k * NX + i] * Vxx[k * NX + j];
+          A[i * NX + j] = a;
+        }
+      for (int j = 0; j < NX; ++j) {
+        R b = R(0);
+        for (int k = 0; k < NX; ++k) b += fu[k] * Vxx[k * NX + j];
+        B[j] = b;
+      }
+      // Qxx = lxx + A fx, Quu = luu + B fu, Qux = lux + B fx
+      for (int i = 0; i < NX; ++i)
+        for (int j = 0; j < NX; ++j) {
+          R a = R(0);
+          for (int k = 0; k < NX; ++k) a += A[i * NX + k] * fx[k * NX + j];
+          Qxx[i * NX + j] = d[D_LXX + i * NX + j] + a;
+        }
+      R qb = R(0);
+      for (int k = 0; k < NX; ++k) qb += B[k] * fu[k];
+      const R Quu = d[D_LUU] + qb;
+      for (int j = 0; j < NX; ++j) {
+        R a = R(0);
+        for (int k = 0; k < NX; ++k) a += B[k] * fx[k * NX + j];
+        Qux[j] = d[D_LUX + j] + a;
+      }
+      // the nu = 1 action solve: zero gain when Quu <= 0
+      const R inv = Quu > R(0) ? R(-1) / (Quu + mu) : R(0);
+      R k = inv * Qu;
+      R K[NX];
+      for (int j = 0; j < NX; ++j) K[j] = inv * Qux[j];
+      // the control-limit clamp
+      const R ut = m.us[t];
+      const R lo = m.ulim[2 * t], hi = m.ulim[2 * t + 1];
+      const R c = ut + k;
+      const bool over = c > hi, under = c < lo;
+      if (over) k = hi - ut;
+      if (under) k = lo - ut;
+      if (over || under)
+        for (int j = 0; j < NX; ++j) K[j] = R(0);
+      m.kk[t] = k;
+      for (int j = 0; j < NX; ++j) m.KK[t * NX + j] = K[j];
+      // Vxx = Qxx + KQux + KQux^T + (K^T Quu) K,
+      // Vx = (K^T Quu) k + K^T Qu + Qux^T k + Qx
+      for (int i = 0; i < NX; ++i)
+        for (int j = 0; j < NX; ++j)
+          Vxx[i * NX + j] = ((Qxx[i * NX + j] + K[i] * Qux[j])
+                             + K[j] * Qux[i]) + (K[i] * Quu) * K[j];
+      for (int i = 0; i < NX; ++i)
+        Vx[i] = (((K[i] * Quu) * k + K[i] * Qu) + Qux[i] * k) + Qx[i];
+    }
+  }
+
+  // candidate c's closed-loop rollout at alpha_c (ilqr.py fb_rollouts)
+  __device__ static void fb_rollout(const Prm<R>& Pr, const Smem& m, int H,
+                                    int T, int c) {
+    const R alpha = m.alphas[c];
+    R* cx = m.cx + (size_t)c * (H + 1) * NX;
+    R* cu = m.cu + (size_t)c * H * NU;
+    R x[NX], xn[NX];
+    for (int i = 0; i < NX; ++i) x[i] = cx[i] = m.xs[i];
+    for (int t = 0; t < H; ++t) {
+      R u = m.us[t];
+      if (t < T) {
+        const R* xr = m.xs + t * NX;
+        const R* K = m.KK + (size_t)t * NX;
+        R s = R(0);
+        for (int j = 0; j < NX; ++j) s += (x[j] - xr[j]) * K[j];
+        u = clampr((u + alpha * m.kk[t]) + s, m.ulim[2 * t],
+                   m.ulim[2 * t + 1]);
+        integrate(Pr, t, x, &u, xn);
+        for (int i = 0; i < NX; ++i) x[i] = xn[i];
+      }
+      cu[t] = u;
+      for (int i = 0; i < NX; ++i) cx[(t + 1) * NX + i] = x[i];
+    }
+  }
+
+  __device__ static void run(R* sm, const R* __restrict__ in,
+                             R* __restrict__ out, int H, int n_ref, int T,
+                             int max_it, int max_lg) {
+    Smem m;
+    carve(sm, H, n_ref, &m);
+    const int tid = threadIdx.x;
+    const int Te = T < H ? T : H;   // steps that move (T may exceed H)
+
+    for (size_t i = tid; i < m.in_len; i += blockDim.x) sm[i] = in[i];
+    __syncthreads();
+    const Prm<R> Pr{m.scal, m.tab, n_ref, m.cfg[0]};
+    if (tid == 0) {
+      const int ms = (int)m.mu[0];
+      m.si[SI_MU] = ms < 0 ? 0 : (ms > 7 ? 7 : ms);
+      m.si[SI_DONE] = 0;
+      m.si[SI_ITERS] = 0;
+      // initial rollout with the current controls (no clamp), frozen
+      // beyond T
+      R xn[NX];
+      for (int t = 0; t < H; ++t) {
+        const R* x = m.xs + t * NX;
+        if (t < T) {
+          integrate(Pr, t, x, m.us + t * NU, xn);
+        } else {
+          for (int i = 0; i < NX; ++i) xn[i] = x[i];
+        }
+        for (int i = 0; i < NX; ++i) m.xs[(t + 1) * NX + i] = xn[i];
+      }
+    }
+    __syncthreads();
+    // its cost, with the OLD multipliers
+    step_costs(Pr, m, H, T, 1);
+    __syncthreads();
+    if (tid == 0) m.cur[0] = traj_cost(Pr, m.cstep, m.xs, H, T);
+    __syncthreads();
+
+    // mu = 0 if mu_step == 0 else 10^(mu_step - 1), mu_step in [0, 7]
+    const R mu_of_step[8] = {R(0), R(1), R(10), R(100), R(1e3), R(1e4),
+                             R(1e5), R(1e6)};
+    for (int lg = 0; lg < max_lg; ++lg) {
+      // clipped multiplier update on the active steps
+      for (int k = tid; k < Te * NC; k += blockDim.x) {
+        const int t = k / NC, i = k % NC;
+        const typename P::Ref r = P::ref(Pr, t);
+        R g[NC];
+        P::constraints(Pr, r, m.xs + t * NX, m.us + t * NU, g);
+        R y = m.lam[k] + m.bw[2 * i] * g[i];
+        y = y < R(0) ? R(0) : y;
+        m.lam[k] = y > m.bw[2 * i + 1] ? m.bw[2 * i + 1] : y;
+      }
+      __syncthreads();
+
+      for (int it = 0; it < max_it; ++it) {
+        const int ms = m.si[SI_MU];
+        // derivatives of the active steps; the end cost's at x[T]
+        for (int t = tid; t < Te; t += blockDim.x)
+          deriv(Pr, t, m.xs + t * NX, m.us + t * NU, m.lam + t * NC, m.bw,
+                m.der + (size_t)t * ND);
+        if (tid == 0) end_derivs(Pr, m, H, T);
+        __syncthreads();
+        if (tid == 0) backward(m, H, T, mu_of_step[ms]);
+        __syncthreads();
+        // the 8 line-search rollouts, one per warp
+        if ((tid & 31) == 0 && tid / 32 < NA) fb_rollout(Pr, m, H, T, tid / 32);
+        __syncthreads();
+        step_costs(Pr, m, H, T, NA);
+        __syncthreads();
+        if ((tid & 31) == 0 && tid / 32 < NA) {
+          const int c = tid / 32;
+          m.ccost[c] = traj_cost(Pr, m.cstep + c * H,
+                                 m.cx + (size_t)c * (H + 1) * NX, H, T);
+        }
+        __syncthreads();
+        if (tid == 0) {
+          const R cur = m.cur[0];
+          int pick = -1;
+          for (int c = 0; c < NA; ++c) {
+            const R cc = m.ccost[c];
+            if (cc < cur && isfinite(cc) && cc >= R(0)) {
+              pick = c;
+              break;
+            }
+          }
+          R nc = cur;
+          if (pick >= 0) {
+            nc = m.ccost[pick];
+            m.si[SI_MU] = ms - 1 > 0 ? ms - 1 : 0;
+          } else {
+            m.si[SI_MU] = ms + 1 < 7 ? ms + 1 : 7;
+          }
+          const R denom = nc == R(0) ? R(1) : nc;
+          const R rel = fabs(nc - cur) / denom;
+          m.cur[0] = nc;
+          m.si[SI_DONE] = rel < m.cfg[1] ? 1 : 0;
+          m.si[SI_ITERS] += 1;
+          m.si[SI_PICK] = pick;
+        }
+        __syncthreads();
+        const int pick = m.si[SI_PICK];
+        if (pick >= 0) {
+          const R* cx = m.cx + (size_t)pick * (H + 1) * NX;
+          const R* cu = m.cu + (size_t)pick * H * NU;
+          for (int i = tid; i < (H + 1) * NX; i += blockDim.x) m.xs[i] = cx[i];
+          for (int i = tid; i < H * NU; i += blockDim.x) m.us[i] = cu[i];
+        }
+        __syncthreads();
+        if (m.si[SI_DONE]) break;
+      }
+    }
+
+    // outputs: x, u, lam, mu_step, traj_costs, iterations
+    const int nxo = (H + 1) * NX, nuo = H * NU, nlo = H * NC;
+    for (int i = tid; i < nxo; i += blockDim.x) out[i] = m.xs[i];
+    for (int i = tid; i < nuo; i += blockDim.x) out[nxo + i] = m.us[i];
+    for (int i = tid; i < nlo; i += blockDim.x) out[nxo + nuo + i] = m.lam[i];
+    if (tid == 0) {
+      out[nxo + nuo + nlo] = (R)m.si[SI_MU];
+      out[nxo + nuo + nlo + 1] = m.cur[0];
+      out[nxo + nuo + nlo + 2] = (R)m.si[SI_ITERS];
+    }
+  }
+};
+
+template <class P, typename R>
+__global__ void __launch_bounds__(THREADS)
+ilqr_rstp_kernel(const R* __restrict__ in, R* __restrict__ out, int H,
+                 int n_ref, int T, int max_it, int max_lg) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Solve<P, R>::run(reinterpret_cast<R*>(smem_raw), in, out, H, n_ref, T,
+                   max_it, max_lg);
+}
+
+}  // namespace ilqr_rstp
+
+// problem ids, as in tpl_tpu_torch/optim/ilqr_rstp.py PROBLEMS
+extern "C" size_t ilqr_rstp_smem_bytes(int problem, int H, int n_ref) {
+  using namespace ilqr_rstp;
+  if (problem == 0)
+    return Solve<Lateral<float>, float>::carve(nullptr, H, n_ref, nullptr);
+  if (problem == 1)
+    return Solve<Velocity<float>, float>::carve(nullptr, H, n_ref, nullptr);
+  return 0;
+}
+
+#ifdef __CUDACC__
+template <class P>
+static int launch(const float* in, float* out, int H, int n_ref, int T,
+                  int max_it, int max_lg, cudaStream_t stream) {
+  using namespace ilqr_rstp;
+  const size_t smem = Solve<P, float>::carve(nullptr, H, n_ref, nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      ilqr_rstp_kernel<P, float>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ilqr_rstp_kernel<P, float><<<1, THREADS, smem, stream>>>(
+      in, out, H, n_ref, T, max_it, max_lg);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ilqr_rstp_update(int problem, const float* in, float* out,
+                                int H, int n_ref, int T, int max_it,
+                                int max_lg, void* stream) {
+  using namespace ilqr_rstp;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (problem == 0)
+    return launch<Lateral<float>>(in, out, H, n_ref, T, max_it, max_lg, s);
+  if (problem == 1)
+    return launch<Velocity<float>>(in, out, H, n_ref, T, max_it, max_lg, s);
+  return (int)cudaErrorInvalidValue;
+}
+#endif

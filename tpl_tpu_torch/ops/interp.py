@@ -62,7 +62,7 @@ def lerp_xs(x, xs, ys, angle=False, clip_alpha=False):
     return ys[start] * (1.0 - a) + ys[end] * a
 
 
-def _angle_dist_t(a0, a1):
+def short_angle_dist_t(a0, a1):
     """torch :func:`short_angle_dist` (floored mod, as ``jnp.mod``)."""
     return torch.remainder((a1 - a0) + np.pi, 2 * np.pi) - np.pi
 
@@ -105,7 +105,7 @@ def lerp_angle(x0, dx, x, arr):
     q = torch.clamp((x - x0) / dx, 0.0, n - 1.0)
     i0, i1, a = _indices_t(q, n)
     v0, v1 = _take(arr, i0), _take(arr, i1)
-    return v0 + _angle_dist_t(v0, v1) * a
+    return v0 + short_angle_dist_t(v0, v1) * a
 
 
 def box_interp(dx, x, arr):

@@ -16,24 +16,31 @@ lerp lookups behave exactly like the reference's variable-length arrays.
 The solve runs on the solver's device (``tpl_tpu_torch.device()`` unless
 given).  Each :meth:`Solver.update` packs every input into one host buffer,
 uploads it once and downloads one packed result.  A problem with a
-hand-written kernel (``KERNELS``: the float64 tracking MPC) goes through its
-wrapper, which launches the kernel on a CUDA device and runs the plain
-:func:`~tpl_tpu_torch.optim.ilqr.make_update_fn` on a CPU device; every
-other problem runs the plain version on its device.
+hand-written kernel for the solver's dtype (``KERNELS``: the float64
+tracking MPC, the float32 RSTP profiles) goes through its wrapper, which
+launches the kernel on a CUDA device and runs the plain
+:func:`~tpl_tpu_torch.optim.ilqr.make_update_fn` on a CPU device; a problem
+whose kernel exists for another dtype raises on a CUDA device; every other
+problem runs the plain version on its device.
 """
 
+import functools
 import time
 
 import numpy as np
 import torch
 
 import tpl_tpu_torch
-from tpl_tpu_torch.optim import ilqr, ilqr_tracking_mpc
+from tpl_tpu_torch.optim import ilqr, ilqr_rstp, ilqr_tracking_mpc
 from tpl_tpu_torch.optim.ilqr import EULER, HEUN, RK4
 from tpl_tpu_torch.optim.problems import ArraySpec  # noqa: F401 (re-export)
 
-# problems whose float64 solve has a hand-written kernel
-KERNELS = {"trajectory_tracking_mpc": ilqr_tracking_mpc}
+# (problem name, dtype) -> the solve of its hand-written kernel
+KERNELS = {
+    ("trajectory_tracking_mpc", torch.float64): ilqr_tracking_mpc.solve,
+    **{(name, torch.float32): functools.partial(ilqr_rstp.solve, name)
+       for name in ilqr_rstp.PROBLEMS},
+}
 
 # limits outside this range travel as the sentinels (solver.py:348-355)
 _BIG = 1e30
@@ -287,15 +294,17 @@ class Solver:
 
     def update(self):
         start = time.perf_counter()
-        kernel = KERNELS.get(self.problem.name)
+        name = self.problem.name
+        kernel = KERNELS.get((name, self.dtype))
         run = (self.horizon, self.max_iterations, self.max_lg_iterations,
                self._mu_step, self._integrator)
-        if kernel is not None and self.dtype == torch.float64:
-            res = kernel.solve(self._inputs(), self.params._values, *run,
-                               self.device)
-        elif kernel is not None and self.device.type == "cuda":
-            raise ValueError(f"{self.problem.name}: the CUDA solve is "
-                             f"float64 only, got {self.dtype}")
+        if kernel is not None:
+            res = kernel(self._inputs(), self.params._values, *run,
+                         self.device)
+        elif self.device.type == "cuda" and any(n == name for n, _ in KERNELS):
+            dtypes = [str(d) for n, d in KERNELS if n == name]
+            raise ValueError(f"{name}: the CUDA solve takes {dtypes}, got "
+                             f"{self.dtype}")
         else:
             res = self._plain_solve(*run)
         self._x[:] = res["x"]

@@ -1,0 +1,137 @@
+"""
+The fused RSTP step's jerk/acc-limited reference profile, as one kernel.
+
+:func:`scan` is the port of ``_rampify_scan``
+(``tpl_tpu/planning/path_vel_decomp/fused_replan.py:244-299``), the float32
+twin of the host ``ops.profile.rampify_profile``: a backward scan over
+t = H-1 .. 1 that limits deceleration into slower regions, then a forward
+scan that limits acceleration out of them.  Every step depends on the
+previous one.  The JAX package ran the two ``jax.lax.scan`` of that
+function inside the fused step's XLA program; there is no Pallas kernel.
+
+On a CUDA tensor :func:`scan` launches the hand-written kernel
+``csrc/rstp_rampify.cu`` (one launch per call, counted in ``launches``); on
+a CPU tensor it runs the plain version :func:`scan_reference`, the torch
+port of ``_rampify_scan`` step for step.
+"""
+
+import ctypes
+
+import torch
+
+launches = 0        # kernel launches since import (reset freely)
+
+N_SCAL = 8          # v0, a0, a_min, a_max, j_min, j_max, v_min, step
+_MAX_SMEM = 227 * 1024
+
+
+def _check(lim_v, T, scalars):
+    H = lim_v.shape[0]
+    if lim_v.dtype != torch.float32 or lim_v.dim() != 1 or H < 2:
+        raise ValueError(f"lim_v must be a float32 vector of at least 2, got "
+                         f"{lim_v.dtype} {tuple(lim_v.shape)}")
+    if not 1 <= T <= H:
+        raise ValueError(f"active length {T} outside 1..{H}")
+    for s in scalars:
+        if s.dtype != torch.float32 or s.numel() != 1 \
+                or s.device != lim_v.device:
+            raise ValueError("the scan's scalars must be float32 one-element "
+                             f"tensors on {lim_v.device}")
+
+
+def scan(v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min, step):
+    """The (H, 2) [velocity, acceleration] profile under the limits
+    ``lim_v`` (H,), whose rows >= T hold row T-1.  Every argument but the
+    host integer ``T`` is a float32 tensor on one device, the scalars with
+    one element."""
+    global launches
+    scalars = (v0, a0, a_min, a_max, j_min, j_max, v_min, step)
+    _check(lim_v, T, scalars)
+    dev = lim_v.device
+    if dev.type == "cpu":
+        return scan_reference(v0, a0, lim_v, T, a_min, a_max, j_min, j_max,
+                              v_min, step)
+    if dev.type != "cuda":
+        raise ValueError(f"rstp_rampify: unsupported device {dev}")
+
+    H = lim_v.shape[0]
+    lib = _kernel()
+    smem = lib.rstp_rampify_smem_bytes(H)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"horizon {H} needs {smem} B of shared memory, "
+                         f"above {_MAX_SMEM}")
+    buf = torch.cat([torch.stack([s.reshape(()) for s in scalars]),
+                     lim_v.contiguous()])
+    out = torch.empty((H, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rstp_rampify_scan(buf.data_ptr(), out.data_ptr(), H, T,
+                                    stream)
+    if err != 0:
+        raise RuntimeError(f"rstp_rampify launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def scan_reference(v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min,
+                   step):
+    """The plain PyTorch version of :func:`scan` (a Python loop of
+    one-element tensor ops), on the device of ``lim_v``."""
+    v0, a0, a_min, a_max, j_min, j_max, v_min, step = (
+        s.reshape(()) for s in (v0, a0, a_min, a_max, j_min, j_max, v_min,
+                                step))
+    H = lim_v.shape[0]
+    dev = lim_v.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    lim = torch.maximum(torch.cat([lim_v[:T], lim_v[T - 1].expand(H - T)]),
+                        v_min)
+
+    # backward pass over t = H-1 .. 1; row t keeps the carry before step t
+    cv, ca = lim[H - 1], zero
+    bv, ba = [zero] * H, [zero] * H
+    for t in range(H - 1, 0, -1):
+        bv[t], ba[t] = cv, ca
+        lim_t, lim_tm1 = lim[t], lim[t - 1]
+        lim_a = torch.maximum(a_min, (cv - lim_tm1) / step * cv)
+        neg = lim_a < 0.0
+        ca = torch.where(neg, torch.maximum(ca + j_min / cv * step, lim_a),
+                         zero)
+        cv = torch.where(neg, cv, lim_t)
+        cv = cv + torch.minimum(-ca / cv * step, lim_tm1 - cv)
+
+    # forward pass
+    cv, ca = torch.maximum(v0, v_min), a0
+    bv[0], ba[0] = cv, ca
+    lim_a = zero
+    out_v, out_a = [], []
+    for t in range(H):
+        if t < H - 1:
+            lim_a = torch.minimum(a_max, (bv[t + 1] - cv) / step * cv)
+        pos = lim_a > 0.0
+        ca = torch.where(pos, torch.minimum(ca + j_max / cv * step, lim_a),
+                         zero)
+        cv = torch.where(pos, cv, bv[t])
+        next_v = cv + torch.minimum(ca / cv * step, lim[t] - cv)
+        cv = torch.minimum(bv[t], next_v)
+        out_v.append(cv)
+        out_a.append(ca)
+    return torch.stack([torch.stack(out_v), torch.stack(out_a)], -1)
+
+
+_LIB = None
+
+
+def _kernel():
+    """Build (first call) and bind the kernel library."""
+    global _LIB
+    if _LIB is None:
+        from tpl_tpu_torch import _build
+
+        lib = _build.load("rstp_rampify")
+        lib.rstp_rampify_scan.restype = ctypes.c_int
+        lib.rstp_rampify_scan.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.rstp_rampify_smem_bytes.restype = ctypes.c_size_t
+        lib.rstp_rampify_smem_bytes.argtypes = [ctypes.c_int]
+        _LIB = lib
+    return _LIB

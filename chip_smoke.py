@@ -2,11 +2,14 @@
 """
 Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent-csrc DIR]
 
 1. prints the card's name and power limit, builds the CUDA kernels from
    ``tpl_tpu_torch/csrc`` (one ``nvcc`` per source, all started together)
-   and prints the build time and the ptxas register / memory report;
+   and prints the build time and the ptxas register / memory report; then
+   the latency probe: the SM clock under load and the card's cycles per
+   dependent operation (``csrc/latency_probe.cu``), on one line with the
+   card's name and power limit;
 2. action-min kernel phase: at the demo grid (T=10, S=201, DS=37, L=21)
    runs the lat/lon action-min kernel against its plain PyTorch version on
    the card, on seeded inputs and on every backward slice of a real solve;
@@ -29,7 +32,10 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    of ``__graft_entry__.py`` (8 and 20 iterations) and on 3 warm-started
    solves recorded in the closed loop; prints the largest |x|, |u|
    differences, the cost difference, mu_step and iteration counts, and
-   both times per solve;
+   both times per solve; runs the kernel's profiling instantiation, checks
+   that its result is bit-equal and prints one "phases" line per solve:
+   microseconds per iteration by phase (thread 0's ``clock64()`` cycles over
+   the SM clock);
 6. RSTP closed-loop phase: ``SimStandalone`` on ``demo/country_follow``
    with the scenario's own param sets, no override (``path_vel_decomp_
    planner``, ``use_fused``, H=250, replanning every tick, plus the MPC) for
@@ -47,10 +53,21 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    ``update_reference`` on the card on the first cold and 3 warm solves of
    the follow loop, ``rstp_rampify`` against its plain version, bit for
    bit, on seeded and loop inputs; prints the differences and both
-   times;
-9. prints one JSON line describing the kernels, then
-   ``{"ok": true, "device": {...}}`` as the last line.  Each phase prints
-   its seconds.
+   times, and the solves' "phases" lines as in 5;
+9. prints the card's name and power limit and one JSON line describing the
+   kernels (launches on the main path and per tick or per DP replan, the
+   largest difference to the plain version, the kernel's and the plain
+   version's times, the roofline bound ``bound_ms`` and the critical-path
+   bound ``chain_ms`` from this run's shapes, iteration counts and probe
+   latencies), then ``{"ok": true, "device": {...}}`` as the last line.
+   Each phase prints its seconds; the whole run takes about 130 s.
+
+With ``--parent-csrc DIR`` (a directory holding another version of
+``ilqr_tracking_mpc.cu`` and ``ilqr_rstp.cu``, for example ``git show`` of
+an earlier commit's) phases 5 and 8 also build that version with the same
+flags, run both on the same inputs through the bare launchers in turns
+(other, tree, tree, other) and print the largest difference of the results
+and the four times.
 
 Any failure raises (nonzero exit).  Without CUDA it exits nonzero before
 printing any result.
@@ -97,7 +114,8 @@ RSTP_H = 250
 RECORD_SOLVES = (50, 100, 150)
 RECORD_REPLANS = (100, 200, 300)
 KERNELS = ("latlon_action_min", "ilqr_tracking_mpc", "ilqr_rstp",
-           "rstp_rampify")
+           "rstp_rampify", "latency_probe")
+NO_LIBRARY = None           # no single PyTorch call computes these kernels
 
 
 def cuda_ms(fn, n, warm=3):
@@ -114,6 +132,42 @@ def cuda_ms(fn, n, warm=3):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
+
+
+def smi(query):
+    """First line of ``nvidia-smi --query-gpu=<query>
+    --format=csv,noheader``."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz(busy):
+    """The SM clock nvidia-smi reports while the card works: ``busy()``
+    queues about a second of launches, the clock is read beside them."""
+    import torch
+
+    busy()
+    mhz = float(smi("clocks.sm").split()[0])
+    torch.cuda.synchronize()
+    return mhz
+
+
+def phase_line(kernel, what, ilqr, cycles, iterations, mhz):
+    """One line of a profiled solve: microseconds per iteration for the
+    phases of an iteration, per solve for the others (thread 0's clock64()
+    cycles over the SM clock)."""
+    us = {k: v / mhz for k, v in cycles.items()}
+    per_it = ", ".join(f"{k} {us[k] / max(iterations, 1):.2f}"
+                       for k in ilqr.ITERATION_PHASES)
+    once = ", ".join(f"{k} {us[k]:.2f}" for k in ilqr.PHASES
+                     if k not in ilqr.ITERATION_PHASES)
+    it_sum = sum(us[k] for k in ilqr.ITERATION_PHASES) / max(iterations, 1)
+    print(f"phases {kernel} {what} ({iterations} iterations, SM {mhz:.0f} "
+          f"MHz): us per iteration: {per_it} (sum {it_sum:.2f}); us per "
+          f"solve: {once}; total {sum(us.values()):.2f} us")
+    return us
 
 
 def check_close(got, want, what):
@@ -456,12 +510,57 @@ def closed_loop_phase(lam, itm):
     err, _ = compare_solves(itm, out, itm.update_reference(buf.cpu(), *args),
                             MPC_H, "last loop solve vs plain on the CPU")
     return dict(am_launches=am_launches, ilqr_launches=ilqr_launches,
-                picked=rec["picked"], err=err)
+                replans=len(replan_ms), picked=rec["picked"], err=err)
 
 
-def ilqr_phase(itm, picked, dev):
-    """The iLQR kernel against the plain make_update_fn on the card."""
+def in_turns(old, new, n):
+    """Mean ms of old() and new() by CUDA events, run old, new, new, old;
+    returns ((old ms, old ms), (new ms, new ms))."""
+    a = cuda_ms(old, n)
+    b = cuda_ms(new, n)
+    c = cuda_ms(new, n)
+    d = cuda_ms(old, n)
+    return (a, d), (b, c)
+
+
+def compare_with_parent(source, lib_fn, csrc, cases):
+    """Holds the tree's launcher ``lib_fn`` of ``<source>.cu`` against the
+    same launcher of another version of that source, built from the
+    directory ``csrc`` with the port's flags.  ``cases`` are (what, like,
+    call): ``call(fn, out)`` launches ``fn`` into ``out`` (a tensor like
+    ``like``) and returns the CUDA error code.  Both go through the bare
+    launcher into buffers made once, so that the wrapper's host work is in
+    neither time.  Prints the largest difference of the results and the
+    times in turns."""
     import torch
+    from tpl_tpu_torch import _build
+
+    parent = getattr(_build.load(source, csrc), lib_fn.__name__)
+    parent.restype, parent.argtypes = lib_fn.restype, lib_fn.argtypes
+    fns = (parent, lib_fn)
+    for what, like, call in cases:
+        outs = [torch.empty_like(like) for _ in fns]
+
+        def launch(i):
+            err = call(fns[i], outs[i])
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+
+        launch(0), launch(1)
+        torch.cuda.synchronize()
+        diff = float((outs[1] - outs[0]).abs().max())
+        (a, d), (b, c) = in_turns(lambda: launch(0), lambda: launch(1), 30)
+        print(f"{source} {what} vs the parent's source: max |new - parent| "
+              f"{diff:.3e}; ms per solve parent {a:.4f}, new {b:.4f}, new "
+              f"{c:.4f}, parent {d:.4f}")
+
+
+def ilqr_phase(itm, picked, dev, mhz, parent_csrc=None):
+    """The iLQR kernel against the plain make_update_fn on the card, its
+    profiling instantiation, and (with ``parent_csrc``) against another
+    version of its source."""
+    import torch
+    from tpl_tpu_torch.optim import ilqr
 
     cases = []
     for it in (8, 20):
@@ -479,6 +578,17 @@ def ilqr_phase(itm, picked, dev):
         err, _ = compare_solves(itm, got, want, MPC_H, what)
         max_err = max(max_err, err)
 
+    # the profiling instantiation: the same bits, and the cycles per phase
+    for what, buf, args in cases[:3]:
+        got = itm.update(buf, *args)
+        prof, cycles = itm.profile(buf, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, prof):
+            raise AssertionError(f"{what}: the profiling instantiation's "
+                                 "result differs")
+        its = itm.unpack_outputs(got.cpu().numpy(), MPC_H)["iterations"]
+        phase_line("ilqr_tracking_mpc", what, ilqr, cycles, its, mhz)
+
     times = {}
     for what, buf, args in cases[:2]:
         ms = cuda_ms(lambda: itm.update(buf, *args), 50)
@@ -486,7 +596,19 @@ def ilqr_phase(itm, picked, dev):
         times[what] = (ms, plain_ms)
         print(f"ilqr_tracking_mpc {what} at H={MPC_H}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms per solve")
-    return max_err, times[cases[1][0]]
+
+    if parent_csrc:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        compare_with_parent(
+            "ilqr_tracking_mpc", itm._kernel().ilqr_tracking_mpc, parent_csrc,
+            [(what, itm.update(buf, *args),
+              lambda fn, out, buf=buf, args=args: fn(
+                  buf.data_ptr(), out.data_ptr(), *args, stream))
+             for what, buf, args in cases])
+    _, buf, args = cases[1]
+    its = itm.unpack_outputs(itm.update(buf, *args).cpu().numpy(),
+                             MPC_H)["iterations"]
+    return max_err, times[cases[1][0]], its
 
 
 def _to(tree, dev):
@@ -710,10 +832,12 @@ def compare_rstp(rstp, got, want, pname, H, what):
     return max(dx, du), dcost
 
 
-def rstp_kernel_phase(rstp, rmp, picked, scans, dev):
+def rstp_kernel_phase(rstp, rmp, picked, scans, dev, mhz, parent_csrc=None):
     """Both ilqr_rstp instantiations and rstp_rampify against their plain
-    versions on the card."""
+    versions on the card, the solves' profiling instantiations, and (with
+    ``parent_csrc``) the solves against another version of their source."""
     import torch
+    from tpl_tpu_torch.optim import ilqr
 
     want_n = 2 * (1 + len(RECORD_REPLANS))
     if len(picked) != want_n or len(scans) != 2:
@@ -726,6 +850,30 @@ def rstp_kernel_phase(rstp, rmp, picked, scans, dev):
         torch.cuda.synchronize()
         err, _ = compare_rstp(rstp, got, want, pname, args[0], what)
         max_err = max(max_err, err)
+    # the profiling instantiation: the same bits, and the cycles per phase
+    iterations = {}
+    for what, pname, buf, args in picked:
+        got = rstp.update(pname, buf, *args)
+        prof, cycles = rstp.profile(pname, buf, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, prof):
+            raise AssertionError(f"{what}: the profiling instantiation's "
+                                 "result differs")
+        its = rstp.unpack_outputs(pname, got.cpu().numpy(),
+                                  args[0])["iterations"]
+        iterations.setdefault(pname, its)
+        phase_line("ilqr_rstp", what, ilqr, cycles, its, mhz)
+
+    if parent_csrc:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        compare_with_parent(
+            "ilqr_rstp", rstp._kernel().ilqr_rstp_update, parent_csrc,
+            [(what, rstp.update(pname, buf, *args),
+              lambda fn, out, pid=rstp.PROBLEMS[pname]["id"], buf=buf,
+              args=args: fn(pid, buf.data_ptr(), out.data_ptr(), *args,
+                            stream))
+             for what, pname, buf, args in picked])
+
     times = {}
     for what, pname, buf, args in picked:
         if pname in times:
@@ -762,11 +910,55 @@ def rstp_kernel_phase(rstp, rmp, picked, scans, dev):
     print(f"rstp_rampify at H={RSTP_H}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms")
     return dict(ilqr_err=max_err, ilqr_times=times, scan_err=scan_err,
-                scan_ms=(ms, plain_ms))
+                scan_ms=(ms, plain_ms), iterations=iterations,
+                shapes={pname: args[:3] for _, pname, _, args in picked[:2]})
 
 
-def main():
+def probe_phase(lat, itm, dev):
+    """The card's operation latencies (csrc/latency_probe.cu) and the SM
+    clock under load; prints them with the card's name and power limit."""
     import torch
+
+    host, args = mpc_setup_inputs(itm, 20)
+    buf = torch.from_numpy(host).to(dev)
+    itm.update(buf, *args)
+    torch.cuda.synchronize()
+
+    def busy():
+        for _ in range(400):
+            itm.update(buf, *args)
+
+    mhz = sm_clock_mhz(busy)
+    runs = [lat.measure(dev) for _ in range(3)]
+    torch.cuda.synchronize()
+    cycles = {k: min(r[k] for r in runs) for k in lat.PROBES}
+    print("latency probe on " + smi("name,power.limit")
+          + f" at SM {mhz:.0f} MHz, cycles per dependent operation (least "
+          "of 3 runs of 4096): "
+          + json.dumps({k: round(v, 2) for k, v in cycles.items()}))
+    # the tracking-MPC rollouts take sin and cos of an angle in one
+    # sincos() call: its bits must be those of sin() and cos()
+    spans = [(-8.0, 8.0), (-1000.0, 1000.0), (-1e-3, 1e-3)]
+    bad = [lat.sincos_mismatches(dev, lo, hi, 4_000_000) for lo, hi in spans]
+    print(f"sincos vs sin, cos on 4,000,000 float64 arguments in each of "
+          f"{spans}: {bad} differ")
+    if any(bad):
+        raise AssertionError("sincos() and sin(), cos() differ on this card")
+    return cycles, mhz
+
+
+def main(argv=()):
+    import argparse
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent-csrc", default=None, metavar="DIR",
+                    help="a directory with another version of "
+                    "ilqr_tracking_mpc.cu and ilqr_rstp.cu (and the headers "
+                    "they include): built with the same flags, run in turns "
+                    "with the tree's kernels on the same inputs, results and "
+                    "times printed")
+    opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -774,16 +966,15 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import tpl_tpu_torch
     from tpl_tpu_torch import _build
+    from tpl_tpu_torch import _latency as lat
     from tpl_tpu_torch.optim import ilqr_rstp as rstp
     from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
     from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
     from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
     from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify as rmp
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    card = smi("name,power.limit")
+    print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     tpl_tpu_torch.use_device("cuda")
@@ -792,7 +983,7 @@ def main():
 
     t0 = time.perf_counter()
     _build.build(KERNELS)
-    for mod in (lam, itm, rstp, rmp):
+    for mod in (lam, itm, rstp, rmp, lat):
         mod._kernel()
     print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
@@ -810,49 +1001,77 @@ def main():
         print(f"phase {name}: {phases[name]:.1f} s", flush=True)
         return res
 
+    cycles, mhz = phase("latency probe", probe_phase, lat, itm, dev)
     am_err, am_ms, am_plain_ms = phase("action_min kernel", kernel_phase,
                                        lam, tllk, dev)
     phase("DP slice", slice_phase, lam, tllk)
     loop = phase("DP closed loop", closed_loop_phase, lam, itm)
-    ilqr_err, (ilqr_ms, ilqr_plain_ms) = phase(
-        "tracking-MPC kernel", ilqr_phase, itm, loop["picked"], dev)
+    ilqr_err, (ilqr_ms, ilqr_plain_ms), mpc_its = phase(
+        "tracking-MPC kernel", ilqr_phase, itm, loop["picked"], dev, mhz,
+        opts.parent_csrc)
     follow = phase("RSTP closed loop, country_follow", rstp_loop_phase, rstp,
                    rmp, itm, "demo/country_follow", LOOP_TICKS, record=True)
     overtake = phase("RSTP closed loop, country_overtake", rstp_loop_phase,
                      rstp, rmp, itm, "demo/country_overtake", OVERTAKE_TICKS,
                      screen=False)
     kern = phase("RSTP kernels", rstp_kernel_phase, rstp, rmp,
-                 follow["picked"], follow["scans"], dev)
+                 follow["picked"], follow["scans"], dev, mhz,
+                 opts.parent_csrc)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
+    # the bounds, from this run's shapes and iteration counts, and the
+    # launches per tick of the vendored loop / per DP replan
     launches = follow["launches"]
-    vel_ms, vel_plain_ms = kern["ilqr_times"]["velocity_profile_space"]
-    print(json.dumps({"kernels": [
-        {"name": "latlon_action_min", "route": "cuda",
+    vel = "velocity_profile_space"
+    vel_ms, vel_plain_ms = kern["ilqr_times"][vel]
+    vel_H, vel_n_ref, vel_T = kern["shapes"][vel]
+    vel_its = kern["iterations"][vel]
+    S, DS, L = (DEMO_SPEC[k] for k in ("s_steps", "ds_steps", "l_steps"))
+    bounds = {
+        "latlon_action_min": (lam.bound_ms(S, DS, L),
+                              lam.chain_ms(cycles, mhz)),
+        "ilqr_tracking_mpc": (itm.bound_ms(MPC_H, 128, MPC_H, mpc_its),
+                              itm.chain_ms(MPC_H, MPC_H, mpc_its, cycles,
+                                           mhz)),
+        "ilqr_rstp": (rstp.bound_ms(vel, vel_H, vel_n_ref, vel_T, vel_its),
+                      rstp.chain_ms(vel, vel_H, vel_T, vel_its, cycles, mhz)),
+        "rstp_rampify": (rmp.bound_ms(RSTP_H), rmp.chain_ms(RSTP_H, cycles,
+                                                            mhz))}
+    rows = [
+        {"name": "latlon_action_min",
          "source": "tpl_tpu_torch/csrc/latlon_action_min.cu",
          "replaces": "tpl_tpu/planning/dyn_prog/latlon_pallas.py:168",
-         "launches": loop["am_launches"], "max_abs_err": am_err,
-         "ms": am_ms, "plain_ms": am_plain_ms},
-        {"name": "ilqr_tracking_mpc", "route": "cuda",
+         "launches": loop["am_launches"],
+         "per_replan": loop["am_launches"] / max(loop["replans"], 1),
+         "max_abs_err": am_err, "ms": am_ms, "plain_ms": am_plain_ms},
+        {"name": "ilqr_tracking_mpc",
          "source": "tpl_tpu_torch/csrc/ilqr_tracking_mpc.cu",
          "replaces": "tpl_tpu/optim/ilqr.py:126",
          "launches": launches["ilqr_tracking_mpc"],
+         "launches_per_tick": launches["ilqr_tracking_mpc"] / LOOP_TICKS,
          "max_abs_err": max(ilqr_err, loop["err"]),
          "ms": ilqr_ms, "plain_ms": ilqr_plain_ms},
-        {"name": "ilqr_rstp", "route": "cuda",
-         "source": "tpl_tpu_torch/csrc/ilqr_rstp.cu",
+        {"name": "ilqr_rstp", "source": "tpl_tpu_torch/csrc/ilqr_rstp.cu",
          "replaces": "tpl_tpu/optim/ilqr.py:126",
          "launches": launches["ilqr_rstp"],
+         "launches_per_tick": launches["ilqr_rstp"] / LOOP_TICKS,
          "max_abs_err": max(kern["ilqr_err"], follow["err"],
                             overtake["err"]),
          "ms": vel_ms, "plain_ms": vel_plain_ms},
-        {"name": "rstp_rampify", "route": "cuda",
+        {"name": "rstp_rampify",
          "source": "tpl_tpu_torch/csrc/rstp_rampify.cu",
          "replaces": "tpl_tpu/planning/path_vel_decomp/fused_replan.py:244",
          "launches": launches["rstp_rampify"],
+         "launches_per_tick": launches["rstp_rampify"] / LOOP_TICKS,
          "max_abs_err": kern["scan_err"],
-         "ms": kern["scan_ms"][0], "plain_ms": kern["scan_ms"][1]}]}))
+         "ms": kern["scan_ms"][0], "plain_ms": kern["scan_ms"][1]}]
+    for row in rows:
+        (ms, by), chain = bounds[row["name"]]
+        row.update(route="cuda", bound_ms=ms, bound_by=by, chain_ms=chain,
+                   library_ms=NO_LIBRARY)
+    print(card)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -860,4 +1079,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

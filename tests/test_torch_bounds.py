@@ -1,0 +1,222 @@
+"""The kernels' bounds from shapes, the device default and the build key.
+
+``bound_ms`` (roofline) and ``chain_ms`` (critical path) are computed by
+Python functions in the kernels' wrapper modules from shapes and iteration
+counts alone, so they are held here against byte, operation and step
+counts worked out by hand at the main path's sizes (the tracking MPC at
+H = 60, the RSTP solves and the rampify scan at H = 250, the DP slice at
+S = 201, DS = 37, L = 21).  Only the latencies that ``chain_ms`` multiplies
+come from the card; the tests pass made-up ones.
+"""
+
+import os
+
+import pytest
+import torch
+
+import tpl_tpu_torch
+from tpl_tpu_torch import _build, _latency
+from tpl_tpu_torch.optim import ilqr, ilqr_rstp, ilqr_tracking_mpc as itm
+from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
+from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify as rmp
+
+
+def test_roofline_takes_the_larger_time_and_names_it():
+    # 3.35e9 bytes take 1 ms; 6.7e9 float32 operations take 0.1 ms
+    ms, by = _latency.roofline_ms(3.35e9, 6.7e9, "float32")
+    assert (ms, by) == (pytest.approx(1.0), "bytes")
+    # the float64 peak is 34 TFLOP/s: 3.4e10 operations take 1 ms
+    ms, by = _latency.roofline_ms(3.35e6, 3.4e10, "float64")
+    assert (ms, by) == (pytest.approx(1.0), "operations")
+
+
+def test_chain_ms_prices_each_operation_with_its_latency():
+    # 100 adds of 8 cycles and 10 divisions of 100 cycles at 2000 MHz:
+    # 1800 cycles = 0.9 us
+    ms = _latency.chain_ms({"f64_add": 100, "f64_div": 10},
+                           {"f64_add": 8.0, "f64_div": 100.0, "x": 1.0}, 2000)
+    assert ms == pytest.approx(0.9e-3)
+
+
+def test_mpc_bounds_at_h60():
+    H, n_ref, T, its = 60, 128, 60, 20
+    # in: x 61*7, u 60*2, lam 60*4, u_lims 60*2*2, bw_lim 4*2, cfg 2,
+    # alphas 8, 18 scalars, 5 tables of 128; out: x, u, lam, 3
+    n_in = 427 + 120 + 240 + 240 + 8 + 2 + 8 + 18 + 640
+    n_out = 427 + 120 + 240 + 3
+    assert itm.traffic_bytes(H, n_ref) == 8 * (n_in + n_out) == 19944
+    # per iteration and step: derivatives 164 (one pass over the step cost,
+    # 119, and one operation for each of the 9 gradient, 25 upper Hessian
+    # and 11 state-dependent Jacobian entries), a Riccati step 2520, 8
+    # candidates of (203 + 119 + 1); once: the open rollout (2*58 + 35),
+    # its cost and sum, one multiplier round of 20 per step
+    assert itm.OPS["derivatives"] == 119 + 9 + 25 + 11 == 164
+    per_it = 60 * (164 + 2520 + 8 * 323)
+    once = 60 * (151 + 119 + 1) + 60 * 20
+    assert itm.operations(H, T, its) == once + its * per_it == 6339060
+    ms, by = itm.bound_ms(H, n_ref, T, its)
+    assert by == "operations"
+    assert ms == pytest.approx(6339060 / 34e12 * 1e3)
+    # the derivatives are counted below one dense forward-mode pass per
+    # variable, which any way of forming them exceeds
+    assert itm.OPS["derivatives"] < 10 * 58 + 10 * 119
+    # the critical path: 21 rollouts' worth of dynamics (2 per step), 20
+    # Riccati passes, 21 ordered sums
+    ops = itm.chain_ops(H, T, its)
+    assert ops["f64_div"] == 60 * (21 * 2 * 2 + 20 * 1) == 6240
+    assert ops["f64_cos"] == ops["f64_fmod"] == ops["smem_load"] == 2520
+    assert ops["f64_mul"] == 60 * (21 * 6 + 20 * 3 + 2 + 20 * 7) == 19680
+    assert ops["f64_add"] == 60 * (21 * 16 + 20 * 11 + 3 + 20 * 19
+                                   + 21) == 57600
+    # with every latency one cycle at 1000 MHz the path is its length in ns
+    one = dict.fromkeys(_latency.PROBES, 1.0)
+    assert itm.chain_ms(H, T, its, one, 1000) == pytest.approx(
+        sum(ops.values()) * 1e-6)
+    # fewer active steps and iterations shrink both
+    assert itm.operations(H, 45, 3) < itm.operations(H, T, its)
+    assert itm.chain_ops(H, 45, 3)["f64_div"] == 45 * (4 * 4 + 3)
+
+
+@pytest.mark.parametrize("name,n_tab,n_scal,nc,step_cost,roll,deriv,mult", [
+    # deriv: one pass over the step cost and one operation for each
+    # gradient, upper Hessian and state-dependent Jacobian entry
+    ("lateral_profile", 4, 5, 2, 58, 35, 58 + 3 + 6 + 0, 12),
+    ("velocity_profile_space", 6, 4, 5, 79, 46, 79 + 3 + 5 + 3, 25)])
+def test_rstp_bounds_at_h250(name, n_tab, n_scal, nc, step_cost, roll, deriv,
+                             mult):
+    H, n_ref, T, its = 250, 250, 250, 4
+    n_in = (251 * 2 + 250 + 250 * nc + 500 + 2 * nc + 2 + 8 + n_scal
+            + n_tab * n_ref + 1)
+    n_out = 251 * 2 + 250 + 250 * nc + 3
+    assert ilqr_rstp.traffic_bytes(name, H, n_ref) == 4 * (n_in + n_out)
+    per_it = 250 * (deriv + 113 + 8 * (roll + step_cost + 1))
+    once = 250 * (roll - 11 + step_cost + 1) + 250 * mult
+    assert ilqr_rstp.operations(name, H, T, its) == once + its * per_it
+    ms, by = ilqr_rstp.bound_ms(name, H, n_ref, T, its)
+    assert by == "operations"
+    assert ms == pytest.approx((once + its * per_it) / 67e12 * 1e3)
+    ops = ilqr_rstp.chain_ops(name, H, T, its)
+    div = 1 if name == "velocity_profile_space" else 0
+    assert ops.get("f32_div", 0) == 250 * (its * (1 + div) + div)
+    assert ops["f32_mul"] == 250 * (its * (2 + 5) + 1) == 7250
+    assert ops["f32_add"] == 250 * (its * (4 + 5) + 1 + its + 1) == 10500
+    # an active horizon below H counts the steps that move
+    assert ilqr_rstp.chain_ops(name, H, 100, 1)["f32_mul"] == 100 * 8
+
+
+def test_rstp_bounds_reject_an_unknown_problem():
+    with pytest.raises(ValueError):
+        ilqr_rstp.operations("trajectory_tracking_mpc", 60, 60, 1)
+
+
+def test_rampify_bounds_at_h250():
+    H = 250
+    # 8 scalars and 250 limits in, 250 rows of 2 out, 4 bytes each
+    assert rmp.traffic_bytes(H) == 4 * 258 + 4 * 500 == 3032
+    # 250 staged limits, 249 backward steps of 15, 250 forward steps of 17
+    assert rmp.operations(H) == 250 + 249 * 15 + 250 * 17 == 8235
+    ms, by = rmp.bound_ms(H)
+    assert by == "bytes" and ms == pytest.approx(3032 / 3.35e12 * 1e3)
+    ops = rmp.chain_ops(H)
+    assert ops == {"f32_div": 2 * 249 + 2 * 250, "f32_mul": 2 * 249 + 2 * 250,
+                   "f32_add": 4 * 249 + 5 * 250}
+    lat = {"f32_div": 40.0, "f32_mul": 4.0, "f32_add": 4.0}
+    cycles = 998 * 40 + 998 * 4 + 2246 * 4
+    assert rmp.chain_ms(H, lat, 2000) == pytest.approx(cycles / 2000 * 1e-3)
+
+
+def test_action_min_bounds_at_the_demo_grid():
+    S, DS, L = 201, 37, 21
+    cells = S * DS * L
+    assert cells == 156177
+    tables = 3 * 37 * 7 + 7 + 37 * 49 + 37 * 7 + 4 * 7 + 37 + 5
+    words = 4 * cells + 2 * cells + S * L * 7 + tables + 4 * cells
+    assert lam.traffic_bytes(S, DS, L) == 4 * words == 6376972
+    assert lam.operations(S, DS, L) == cells * (49 * 21 + 23) == 164298204
+    ms, by = lam.bound_ms(S, DS, L)
+    assert by == "operations"
+    assert ms == pytest.approx(164298204 / 67e12 * 1e3)
+    assert lam.bound_ms(S, DS, L)[0] > 6376972 / 3.35e12 * 1e3
+    lat = {"smem_load": 30.0, "f32_add": 4.0, "f32_mul": 4.0}
+    assert lam.chain_ms(lat, 1000) == pytest.approx(
+        (30 + 12 * 4 + 2 * 4) * 1e-6)
+
+
+def test_phase_names_follow_the_kernels_clock():
+    assert len(ilqr.PHASES) == 10
+    assert ilqr.PHASES[0] == "load" and ilqr.PHASES[-1] == "store"
+    assert set(ilqr.ITERATION_PHASES) < set(ilqr.PHASES)
+    assert "riccati" in ilqr.ITERATION_PHASES
+    assert "init_rollout" not in ilqr.ITERATION_PHASES
+
+
+def test_probe_and_profiles_need_the_card():
+    """The measuring entry points raise on a CPU tensor or device: they
+    have no plain version to fall back to."""
+    with pytest.raises(ValueError):
+        _latency.measure("cpu")
+    with pytest.raises(ValueError):
+        itm.profile(torch.zeros(2493, dtype=torch.float64), 60, 128, 60, 1,
+                    1, 0)
+    n = ilqr.layout(ilqr_rstp.input_layout("lateral_profile", 60, 64))[1]
+    with pytest.raises(ValueError):
+        ilqr_rstp.profile("lateral_profile",
+                          torch.zeros(n, dtype=torch.float32), 60, 64, 60, 1,
+                          1)
+
+
+def test_unset_device_is_the_card():
+    """``device()`` without ``use_device`` resolves to cuda, and raises
+    where there is no card instead of handing out the CPU."""
+    saved = tpl_tpu_torch._DEVICE
+    tpl_tpu_torch._DEVICE = None
+    try:
+        if torch.cuda.is_available():
+            assert tpl_tpu_torch.device() == torch.device("cuda")
+            assert tpl_tpu_torch._DEVICE == torch.device("cuda")
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                tpl_tpu_torch.device()
+            with pytest.raises(RuntimeError):
+                ilqr.init_state(None, 4)
+            assert tpl_tpu_torch._DEVICE is None
+        tpl_tpu_torch.use_device("cpu")
+        assert tpl_tpu_torch.device() == torch.device("cpu")
+    finally:
+        tpl_tpu_torch._DEVICE = saved
+
+
+def test_build_tag_follows_included_headers(tmp_path):
+    """An edited ``#include "..."``d header changes the library's tag; an
+    unrelated file and a system include do not."""
+    (tmp_path / "k.cu").write_text(
+        '#include <math.h>\n#include "k_common.cuh"\nint k() { return K; }\n')
+    (tmp_path / "k_common.cuh").write_text(
+        '#include "k_deep.cuh"\n#define K 1\n')
+    (tmp_path / "k_deep.cuh").write_text("// nothing\n")
+    (tmp_path / "other.cuh").write_text("#define OTHER 1\n")
+    src, so = _build._paths("k", str(tmp_path))
+    assert src == str(tmp_path / "k.cu")
+    assert os.path.dirname(so) == _build.BUILD_DIR
+    assert _build._paths("k", str(tmp_path))[1] == so
+    (tmp_path / "other.cuh").write_text("#define OTHER 2\n")
+    assert _build._paths("k", str(tmp_path))[1] == so
+    (tmp_path / "k_common.cuh").write_text(
+        '#include "k_deep.cuh"\n#define K 2\n')
+    so2 = _build._paths("k", str(tmp_path))[1]
+    assert so2 != so
+    (tmp_path / "k_deep.cuh").write_text("// something\n")
+    so3 = _build._paths("k", str(tmp_path))[1]
+    assert so3 not in (so, so2)
+    (tmp_path / "k.cu").write_text(
+        '#include "k_common.cuh"\nint k() { return K + 1; }\n')
+    assert _build._paths("k", str(tmp_path))[1] not in (so, so2, so3)
+
+
+def test_kernel_sources_share_the_common_header():
+    """Both iLQR kernels include csrc/ilqr_common.cuh, so their tags move
+    with it."""
+    for name in ("ilqr_tracking_mpc", "ilqr_rstp"):
+        seen = set()
+        _build._sources(os.path.join(_build.CSRC, name + ".cu"), seen)
+        assert os.path.join(_build.CSRC, "ilqr_common.cuh") in seen

@@ -147,11 +147,20 @@ def test_ref_line_coverage_check():
 
 
 def test_device_is_explicit():
-    """Nothing runs before a device is chosen."""
+    """An unset device is the card: without one it raises and stays unset,
+    and only ``use_device("cpu")`` leads to the CPU."""
+    import torch
+
     saved = tpl_tpu_torch._DEVICE
     tpl_tpu_torch._DEVICE = None
     try:
-        with pytest.raises(RuntimeError):
-            tpl_tpu_torch.device()
+        if torch.cuda.is_available():
+            assert tpl_tpu_torch.device().type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                tpl_tpu_torch.device()
+            assert tpl_tpu_torch._DEVICE is None
+        assert tpl_tpu_torch.use_device("cpu").type == "cpu"
+        assert tpl_tpu_torch.device().type == "cpu"
     finally:
         tpl_tpu_torch._DEVICE = saved

@@ -351,3 +351,54 @@ def test_rampify_kernel_matches_plain_bit_for_bit(cuda, H, T):
     assert got.shape == (H, 2)
     # the same float32 operations in the same order, no FMA contraction
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------
+# the profiling instantiations and the latency probe
+
+@pytest.mark.cuda
+def test_ilqr_profiling_instantiation_is_bit_equal(cuda):
+    """The tracking-MPC kernel's profiling instantiation returns the normal
+    one's bits and a cycle count for every phase."""
+    host = itm.pack_inputs(mpc_inputs([0.0, 1.0, 0.0, 0.0, 5.0, 0.0, 0.0]),
+                           mpc_params())
+    buf = torch.from_numpy(host).to(cuda)
+    run = (MPC_H, 128, MPC_H, 8, 1, 0, ilqr.HEUN)
+    out = itm.update(buf, *run)
+    prof, cycles = itm.profile(buf, *run)
+    torch.cuda.synchronize()
+    assert torch.equal(out, prof)
+    assert set(cycles) == set(ilqr.PHASES)
+    assert all(v > 0 for v in cycles.values())
+    assert cycles["rollouts"] > cycles["pick_copy"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lateral_profile",
+                                  "velocity_profile_space"])
+def test_rstp_profiling_instantiation_is_bit_equal(cuda, name):
+    s = rstp_solver(name, 250, 250, "cpu", np.random.default_rng(5), False)
+    host = ilqr_rstp.pack_inputs(name, s._inputs(), s.params._values,
+                                 s._mu_step)
+    buf = torch.from_numpy(host).to(cuda)
+    run = (250, RSTP_N_REF, 250, s.max_iterations, 1)
+    out = ilqr_rstp.update(name, buf, *run)
+    prof, cycles = ilqr_rstp.profile(name, buf, *run)
+    torch.cuda.synchronize()
+    assert torch.equal(out, prof)
+    assert all(v > 0 for v in cycles.values())
+
+
+@pytest.mark.cuda
+def test_latency_probe_and_sincos_check(cuda):
+    """The probe returns a positive latency for every operation, ordered as
+    the hardware orders them, and the card's sincos() has the bits of its
+    sin() and cos() (the tracking-MPC rollouts rely on it)."""
+    from tpl_tpu_torch import _latency
+
+    lat = _latency.measure(cuda)
+    assert set(lat) == set(_latency.PROBES)
+    assert all(v > 0 for v in lat.values())
+    assert lat["f64_div"] > lat["f64_add"] and lat["f32_div"] > lat["f32_add"]
+    assert lat["f64_sin"] > lat["f64_mul"]
+    assert _latency.sincos_mismatches(cuda, -50.0, 50.0, 1_000_000) == 0

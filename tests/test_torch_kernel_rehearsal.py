@@ -1,0 +1,361 @@
+"""A CPU rehearsal of the two iLQR kernel bodies.
+
+There is no CUDA compiler and no card where these tests run, but the kernel
+bodies are plain C++ once the CUDA runtime's few names are supplied.  The
+fixture writes a stand-in ``cuda_runtime.h`` (``__syncthreads`` as a
+``std::barrier`` over 256 ``std::thread``s, ``__syncwarp`` and
+``__shfl_sync`` as a per-warp barrier and exchange, ``clock64`` as a
+counter), compiles ``csrc/ilqr_tracking_mpc.cu`` and ``csrc/ilqr_rstp.cu``
+with ``g++ -std=c++20`` (their launchers sit under ``#ifdef __CUDACC__``)
+and runs the bodies on host threads:
+
+- the float64 tracking-MPC kernel on the ``_mpc_setup`` inputs and on a
+  warm-started two-round solve,
+- the RSTP kernel's template instantiated in double on a lateral and a
+  velocity problem at H = 250,
+
+each against the plain float64 ``make_update_fn`` at 1e-12 (atol + rtol;
+the two keep the same operation order and differ only in how the
+derivatives are formed and in libm's last bits), with equal ``mu_step`` and
+iteration counts.  float32 is not rehearsed: its stopping iteration is decided by
+rounding (see tests/test_torch_kernel_cuda.py RSTP_X_ATOL).
+
+    python -m pytest tests/test_torch_kernel_rehearsal.py -q
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from tpl_tpu_torch import _build
+from tpl_tpu_torch.optim import ilqr, ilqr_rstp, ilqr_tracking_mpc as itm
+from tpl_tpu_torch.optim import problems
+
+ATOL = 1e-12
+RTOL = 1e-12        # multipliers reach 1e2 and more (weight 1e4)
+MPC_H = 60
+RSTP_H = 250
+RSTP_N_REF = 512
+
+STUB = r"""
+// a stand-in of the CUDA runtime for running kernel bodies on host threads
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstring>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __restrict__
+#define __shared__
+#define __launch_bounds__(n)
+#define __align__(n) __attribute__((aligned(n)))
+
+struct Dim3 { unsigned x, y, z; };
+inline thread_local Dim3 threadIdx{0, 0, 0};
+inline const Dim3 blockDim{256, 1, 1};
+inline const Dim3 blockIdx{0, 0, 0};
+
+namespace rehearsal {
+constexpr int THREADS = 256, WARP = 32;
+inline std::barrier<> block_barrier(THREADS);
+inline std::barrier<> warp_barrier[THREADS / WARP] = {
+    std::barrier<>(WARP), std::barrier<>(WARP), std::barrier<>(WARP),
+    std::barrier<>(WARP), std::barrier<>(WARP), std::barrier<>(WARP),
+    std::barrier<>(WARP), std::barrier<>(WARP)};
+inline unsigned char exchange[THREADS / WARP][WARP][16];
+}  // namespace rehearsal
+
+inline void __syncthreads() { rehearsal::block_barrier.arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  rehearsal::warp_barrier[threadIdx.x / 32].arrive_and_wait();
+}
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src) {
+  static_assert(sizeof(T) <= 16, "exchange slot");
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  std::memcpy(rehearsal::exchange[w][lane], &v, sizeof(T));
+  __syncwarp();
+  T r;
+  std::memcpy(&r, rehearsal::exchange[w][src & 31], sizeof(T));
+  __syncwarp();
+  return r;
+}
+inline long long clock64() {
+  static thread_local long long t = 0;
+  return ++t;
+}
+"""
+
+HARNESS = r"""
+#include <thread>
+#include <vector>
+#include "ilqr_tracking_mpc.cu"
+#include "ilqr_rstp.cu"
+
+// the kernels' dynamic shared memory (an extern array declared inside a
+// function belongs to the function's namespace)
+namespace ilqr_mpc { double sm[32768]; }
+namespace ilqr_rstp { alignas(16) unsigned char smem_raw[262144]; }
+
+template <class F>
+static void run_block(F body) {
+  std::vector<std::thread> pool;
+  for (unsigned i = 0; i < 256; ++i)
+    pool.emplace_back([=] {
+      threadIdx.x = i;
+      body();
+    });
+  for (auto& t : pool) t.join();
+}
+
+extern "C" void rehearse_mpc(const double* in, double* out, long long* prof,
+                             int H, int n_ref, int T, int max_it, int max_lg,
+                             int mu_step, int integrator) {
+  run_block([=] {
+    if (prof)
+      ilqr_mpc::ilqr_tracking_mpc_kernel<true>(in, out, prof, H, n_ref, T,
+                                               max_it, max_lg, mu_step,
+                                               integrator);
+    else
+      ilqr_mpc::ilqr_tracking_mpc_kernel<false>(in, out, nullptr, H, n_ref,
+                                                T, max_it, max_lg, mu_step,
+                                                integrator);
+  });
+}
+
+extern "C" void rehearse_rstp(int problem, const double* in, double* out,
+                              int H, int n_ref, int T, int max_it,
+                              int max_lg) {
+  using namespace ilqr_rstp;
+  double* smd = reinterpret_cast<double*>(smem_raw);
+  run_block([=] {
+    if (problem == 0)
+      Solve<Lateral<double>, double>::run<false>(smd, in, out, nullptr, H,
+                                                 n_ref, T, max_it, max_lg);
+    else
+      Solve<Velocity<double>, double>::run<false>(smd, in, out, nullptr, H,
+                                                  n_ref, T, max_it, max_lg);
+  });
+}
+
+extern "C" size_t rehearse_rstp_smem(int problem, int H, int n_ref) {
+  using namespace ilqr_rstp;
+  return problem == 0
+      ? Solve<Lateral<double>, double>::carve(nullptr, H, n_ref, nullptr)
+      : Solve<Velocity<double>, double>::carve(nullptr, H, n_ref, nullptr);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def bodies(tmp_path_factory):
+    """The two kernel bodies compiled for the host, as a ctypes library."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel bodies for the host")
+    tmp = tmp_path_factory.mktemp("rehearsal")
+    (tmp / "cuda_runtime.h").write_text(STUB)
+    (tmp / "harness.cpp").write_text(HARNESS)
+    so = tmp / "rehearsal.so"
+    cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+           "-pthread", "-x", "c++", "-I", str(tmp), "-I", _build.CSRC,
+           str(tmp / "harness.cpp"), "-o", str(so)]
+    done = subprocess.run(cmd, capture_output=True, text=True)
+    assert done.returncode == 0, done.stderr[-4000:]
+    lib = ctypes.CDLL(str(so))
+    lib.rehearse_mpc.restype = None
+    lib.rehearse_mpc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    lib.rehearse_rstp.restype = None
+    lib.rehearse_rstp.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
+                                  + [ctypes.c_int] * 5)
+    lib.rehearse_rstp_smem.restype = ctypes.c_size_t
+    lib.rehearse_rstp_smem.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+# ---------------------------------------------------------------------
+# the tracking-MPC kernel body
+
+def mpc_params(rng=None):
+    """The ``__graft_entry__._mpc_setup`` reference course and weights
+    (with a seeded perturbation of the course when ``rng`` is given)."""
+    ss = np.arange(128) * 0.5
+    ref_y = 2.0 * np.sin(ss * 0.1)
+    if rng is not None:
+        ref_y = ref_y + np.cumsum(rng.normal(0.0, 0.02, 128))
+    phi = np.arctan(np.gradient(ref_y, ss))
+    return {"pd": 10.0, "pv": 5.0, "pdelta": 0.0, "min_pdelta_dot": 0.1,
+            "pdelta_dot": 0.0, "min_p_phi_dot": 0.0, "p_phi_dot": 0.0,
+            "p_phi": 0.01, "p_phi_ref_dot_diff": 0.01, "pa": 2.0,
+            "pj": 0.5, "l": 3.165, "v_ch": 32.0, "ref_x": ss, "ref_y": ref_y,
+            "ref_phi": phi, "ref_k": np.gradient(phi, ss),
+            "ref_v": np.full(128, 8.0), "ref_step": 0.5, "max_delta": 0.7,
+            "max_acc": 3.0, "min_acc": -3.0, "a_offset": 0.0}
+
+
+def mpc_case(case):
+    rng = np.random.default_rng(len(case))
+    H = MPC_H
+    x0 = [0.0, 1.0, 0.0, 0.0, 5.0, 0.0, 0.0]
+    T, it, lg, mu = H, 20, 1, 0
+    u, lam = np.zeros((H, 2)), np.zeros((H, 4))
+    params = mpc_params()
+    if case == "setup8":
+        it = 8
+    elif case == "warm":
+        params = mpc_params(rng)
+        x0 = [0.3, 1.4, 0.1, 0.05, 7.0, 0.2, 0.5]
+        u = rng.normal(0.0, 0.3, (H, 2))
+        mu = 2
+    elif case == "lg2_T45":
+        x0 = [0.3, -1.5, -0.1, 0.65, 9.0, 0.0, 2.9]
+        u = rng.normal(0.0, 0.3, (H, 2))
+        lam = rng.uniform(0.0, 1e-3, (H, 4))
+        T, lg, mu = 45, 2, 1
+    x = np.zeros((H + 1, 7))
+    x[0] = x0
+    inputs = dict(
+        x=x, u=u, lam=lam,
+        u_lims=np.tile(np.array([[[-3.0, 1.5], [-1.0, 1.0]]]), (H, 1, 1)),
+        bw_lim=np.stack([np.full(4, 1e4), np.full(4, 1e30)], -1),
+        cfg_f=np.array([0.05, 1e-6]))
+    return itm.pack_inputs(inputs, params), (H, 128, T, it, lg, mu, ilqr.HEUN)
+
+
+@pytest.mark.parametrize("case", ["setup8", "setup20", "warm", "lg2_T45"])
+def test_mpc_kernel_body_matches_plain(bodies, case):
+    host, args = mpc_case(case)
+    H = args[0]
+    out = np.zeros(ilqr.layout(itm.output_layout(H))[1])
+    bodies.rehearse_mpc(_ptr(host), _ptr(out), None, *args)
+    want = itm.update_reference(torch.from_numpy(host), *args).numpy()
+    got, ref = itm.unpack_outputs(out, H), itm.unpack_outputs(want, H)
+    for k in ("x", "u", "lam"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got["traj_costs"], ref["traj_costs"],
+                               rtol=1e-12)
+    assert got["mu_step"] == ref["mu_step"]
+    assert got["iterations"] == ref["iterations"]
+    assert np.all(np.isfinite(got["x"]))
+
+
+def test_mpc_profiling_body_is_bit_equal(bodies):
+    """The profiling instantiation returns the same bits and a count for
+    every phase."""
+    host, args = mpc_case("setup8")
+    n = ilqr.layout(itm.output_layout(args[0]))[1]
+    out, prof_out = np.zeros(n), np.zeros(n)
+    prof = np.zeros(len(ilqr.PHASES), np.int64)
+    bodies.rehearse_mpc(_ptr(host), _ptr(out), None, *args)
+    bodies.rehearse_mpc(_ptr(host), _ptr(prof_out), _ptr(prof), *args)
+    assert np.array_equal(out, prof_out)
+    assert np.all(prof > 0)
+
+
+# ---------------------------------------------------------------------
+# the RSTP kernel body, instantiated in double
+
+def rstp_case(name, T, warm, seed):
+    """A float64 lateral / velocity profile problem at n_ref = 512 (the
+    configurations of tests/test_torch_kernel_cuda.py rstp_solver): packed
+    input, launch arguments."""
+    rng = np.random.default_rng(seed)
+    H, n = RSTP_H, RSTP_N_REF
+    spec = ilqr_rstp.PROBLEMS[name]
+    nc = spec["nc"]
+    params = {"ref_step": 0.5}
+    x = np.zeros((H + 1, 2))
+    if name == "lateral_profile":
+        it, lg_limit = 5, 0.0
+        lower = np.full(n, -2.0)
+        lower[40:60] = 1.0
+        params.update(
+            k_ref=0.01 * np.sin(np.arange(n) * 0.1)
+            + rng.normal(0.0, 0.002, n),
+            d_offset=np.zeros(n), d_lower_constr=lower,
+            d_upper_constr=np.full(n, 2.0), w_d=0.01, w_v_d=1.0, w_a_d=200.0,
+            w_k=1.0)
+        x[0] = [rng.normal(0.0, 0.5), 0.0]
+    else:
+        it, lg_limit = 20, 0.1
+        v_ref = np.full(n, 10.0)
+        v_ref[60:] = 3.0
+        t_min = np.zeros(n)
+        t_min[80] = 12.0
+        params.update(
+            ref_v=v_ref, ref_k=0.02 * np.sin(np.arange(n) * 0.05),
+            ref_t_min=t_min, ref_t_max=np.full(n, 1e10),
+            ref_t_offset=np.ones(n), ref_v_weight=np.ones(n), p_v=1.0,
+            p_a=2.0, max_a_total=3.0)
+        x[0] = [rng.uniform(0.5, 9.0), 0.0]
+    u, lam, mu = np.zeros((H, 1)), np.zeros((H, nc)), 0
+    if warm:
+        u[:T, 0] = rng.normal(0.0, 0.3, T)
+        lam[:T] = (rng.uniform(0.0, 0.05, (T, nc))
+                   * (rng.uniform(size=(T, nc)) < 0.3))
+        mu = int(rng.integers(0, 4))
+    arrays = dict(
+        x=x, u=u, lam=lam,
+        u_lims=np.tile(np.array([[[-2.5, 2.5]]]), (H, 1, 1)),
+        bw_lim=np.stack([np.full(nc, 1000.0), np.full(nc, lg_limit)], -1),
+        cfg_f=np.array([0.5, 1e-6]), alphas=ilqr.ALPHAS,
+        scalars=[params[k] for k in spec["scalars"]],
+        tables=np.stack([params[k] for k in spec["tables"]]),
+        mu_step=[float(mu)])
+    host = np.concatenate([
+        np.asarray(arrays[k], np.float64).reshape(-1)
+        for k, _ in ilqr_rstp.input_layout(name, H, n)])
+    return host, params, (H, n, T, it, 1), mu
+
+
+def rstp_plain(name, host, args, mu):
+    """The plain float64 ``make_update_fn`` on the packed float64 input."""
+    H, n_ref, T, it, lg = args
+    spec = ilqr_rstp.PROBLEMS[name]
+    prob, _ = getattr(problems, name)(ref_capacity=n_ref)
+    update = ilqr.make_update_fn(prob, H, ilqr.EULER, dtype=torch.float64)
+    v = ilqr.unpack(torch.from_numpy(host),
+                    ilqr.layout(ilqr_rstp.input_layout(name, H, n_ref))[0])
+    params = {k: v["scalars"][i] for i, k in enumerate(spec["scalars"])}
+    params.update({k: v["tables"][i] for i, k in enumerate(spec["tables"])})
+    cfg = ilqr.packed_cfg(v["u_lims"], v["bw_lim"], v["cfg_f"], T, it, lg)
+    state = ilqr.SolverState(v["x"], v["u"], v["lam"], mu)
+    new, info = update(state, v["x"][0], params, cfg)
+    return dict(x=new.x.numpy(), u=new.u.numpy(), lam=new.lam.numpy(),
+                mu_step=new.mu_step, traj_costs=float(info["traj_costs"]),
+                iterations=info["iterations"])
+
+
+@pytest.mark.parametrize("name,T,warm", [
+    ("lateral_profile", 250, False), ("lateral_profile", 200, True),
+    ("velocity_profile_space", 250, False),
+    ("velocity_profile_space", 200, True)])
+def test_rstp_kernel_body_in_double_matches_plain(bodies, name, T, warm):
+    host, _, args, mu = rstp_case(name, T, warm, seed=T + warm)
+    H, n_ref = args[:2]
+    pid = ilqr_rstp.PROBLEMS[name]["id"]
+    assert bodies.rehearse_rstp_smem(pid, H, n_ref) <= 262144
+    out = np.zeros(ilqr.layout(ilqr_rstp.output_layout(name, H))[1])
+    bodies.rehearse_rstp(pid, _ptr(host), _ptr(out), *args)
+    got = ilqr_rstp.unpack_outputs(name, out, H)
+    ref = rstp_plain(name, host, args, mu)
+    for k in ("x", "u", "lam"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got["traj_costs"], ref["traj_costs"],
+                               rtol=1e-12)
+    assert got["mu_step"] == ref["mu_step"]
+    assert got["iterations"] == ref["iterations"]
+    assert 1 <= got["iterations"] <= args[3]
+    assert np.all(np.isfinite(got["x"]))

@@ -2,18 +2,25 @@
 tpl_tpu_torch — the PyTorch / CUDA port of ``tpl_tpu``.
 
 The ported path is the closed loop through ``simulation.SimStandalone``
-with the DP lat/lon planner and the tracking MPC: ``ops`` (host geometry,
-profiles, LQR, the solver's table lookups), ``environment``,
-``application`` (environment, planning and control apps), ``planning``
-(trajectory, replan policy, the DP environment, the lat/lon
+with the vendored param sets' own planner and controller, the RSTP
+(path / velocity decomposed) planner and the tracking MPC, or with the DP
+lat/lon planner: ``ops`` (host geometry, profiles, LQR, the solver's table
+lookups), ``environment``, ``application`` (environment, planning and
+control apps), ``planning`` (trajectory, replan policy, the RSTP planner
+with its fused replan step, the DP environment and the lat/lon
 value-iteration solve), ``optim`` (the AL-iLQR core, its problems and the
 ``Solver``), ``control`` (the tracking MPC and the constant-deceleration
-fallback) and ``simulation``.  Two hand-written Hopper kernels live under
-``csrc/``: the DP backward action-min and the float64 tracking-MPC solve.
+fallback) and ``simulation``.  Four hand-written Hopper kernels live under
+``csrc/``: the float64 tracking-MPC solve, the float32 RSTP profile solves,
+the RSTP rampify scan and the DP backward action-min
+(``csrc/latency_probe.cu`` measures the card's operation latencies for
+their bounds).
 
-The device is always explicit: call :func:`use_device` once before any
-solve; :func:`device` raises if that never happened.  Nothing picks a
-device by itself and nothing moves to the CPU because no GPU was found.
+The device is the card unless the caller asks otherwise: :func:`device`
+resolves an unset device to ``cuda`` through :func:`use_device`, which
+raises where there is no card.  ``use_device("cpu")`` is the only way to
+the CPU (the tests use it); nothing moves to the CPU because no GPU was
+found.
 """
 
 __version__ = "0.1.0"
@@ -36,8 +43,8 @@ def use_device(name):
 
 
 def device():
-    """The device chosen by :func:`use_device`."""
+    """The device chosen by :func:`use_device`; ``cuda`` if none was
+    chosen (raises where there is no card)."""
     if _DEVICE is None:
-        raise RuntimeError("no device selected: call "
-                           "tpl_tpu_torch.use_device(...) first")
+        return use_device("cuda")
     return _DEVICE

@@ -4,14 +4,16 @@ Build-at-first-use for the hand-written CUDA kernels under ``csrc/``.
 Each kernel source is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes``.  Libraries land in
 ``build/tpl_tpu_torch/`` at the repository root, keyed by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads straight away.  A missing ``nvcc`` or a failed compile raises with
-the compiler's output; there is no fallback.
+source, the ``csrc/`` headers it includes and the flags, so an edited source
+or header rebuilds and an unchanged one loads straight away.  A missing
+``nvcc`` or a failed compile raises with the compiler's output; there is no
+fallback.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,20 +50,37 @@ def nvcc_path():
                        "the CUDA kernels are built from csrc/ at first use")
 
 
-def _paths(name):
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        tag = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                           ).hexdigest()[:16]
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _sources(path, seen):
+    """The bytes of ``path`` and of every ``#include "..."``d file found
+    beside it, each once, in include order."""
+    if path in seen or not os.path.isfile(path):
+        return b""
+    seen.add(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    for inc in _INCLUDE.findall(data):
+        data += _sources(os.path.normpath(os.path.join(
+            os.path.dirname(path), inc.decode())), seen)
+    return data
+
+
+def _paths(name, csrc=None):
+    src = os.path.join(csrc or CSRC, name + ".cu")
+    tag = hashlib.sha1(_sources(src, set()) + " ".join(NVCC_FLAGS).encode()
+                       ).hexdigest()[:16]
     return src, os.path.join(BUILD_DIR, f"{name}_{tag}.so")
 
 
-def build(names):
-    """Compile every missing ``csrc/<name>.cu`` of ``names``, one ``nvcc``
-    per source, all started together.  Raises on the first failure."""
+def build(names, csrc=None):
+    """Compile every missing ``<name>.cu`` of ``names`` (under ``csrc/``, or
+    under the directory ``csrc`` given), one ``nvcc`` per source, all
+    started together.  Raises on the first failure."""
     jobs = []
     for name in names:
-        src, so = _paths(name)
+        src, so = _paths(name, csrc)
         if os.path.exists(so):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -76,20 +95,22 @@ def build(names):
         if proc.returncode != 0:
             failed.append(f"building {name} failed ({' '.join(cmd)}):\n{out}")
             continue
-        BUILD_LOG[name] = out
+        if csrc is None:
+            BUILD_LOG[name] = out
         os.replace(tmp, so)
     if failed:
         raise RuntimeError("\n".join(failed))
 
 
-def load(name):
-    """Compile (if needed) and load ``csrc/<name>.cu``; returns the
-    ``ctypes.CDLL``."""
+def load(name, csrc=None):
+    """Compile (if needed) and load ``csrc/<name>.cu`` (or ``<name>.cu`` of
+    another source directory ``csrc``, to hold two versions of a kernel
+    against each other); returns the ``ctypes.CDLL``."""
     with _LOCK:
-        lib = _LOADED.get(name)
+        lib = _LOADED.get((name, csrc))
         if lib is not None:
             return lib
-        build([name])
-        lib = ctypes.CDLL(_paths(name)[1])
-        _LOADED[name] = lib
+        build([name], csrc)
+        lib = ctypes.CDLL(_paths(name, csrc)[1])
+        _LOADED[(name, csrc)] = lib
         return lib

@@ -23,6 +23,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "smem_limit.cuh"
+
 namespace rstp_rampify {
 
 constexpr int THREADS = 128;
@@ -106,10 +108,12 @@ extern "C" size_t rstp_rampify_smem_bytes(int H) {
 #ifdef __CUDACC__
 extern "C" int rstp_rampify_scan(const float* in, float* out, int H, int T,
                                  void* stream) {
+  // the dynamic shared-memory limit is raised once per device and size
+  // (smem_limit.cuh), not on every launch
+  static smem_limit::Marks marks;
   const size_t smem = rstp_rampify_smem_bytes(H);
-  cudaError_t err = cudaFuncSetAttribute(
-      rstp_rampify::rstp_rampify_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = smem_limit::ensure(rstp_rampify::rstp_rampify_kernel, smem,
+                                      marks);
   if (err != cudaSuccess) return (int)err;
   rstp_rampify::rstp_rampify_kernel<<<1, rstp_rampify::THREADS, smem,
                                       (cudaStream_t)stream>>>(in, out, H, T);

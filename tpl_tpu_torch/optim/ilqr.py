@@ -54,6 +54,13 @@ RK4 = 2
 # "how many mathematicians could you take in a fight?" (genopt.py:81)
 _AL_ZERO = 1e-4
 
+# the phases of one solve that the kernels' profiling instantiations clock,
+# in the order of enum Phase in csrc/ilqr_common.cuh
+PHASES = ("load", "init_rollout", "multipliers", "derivatives", "riccati",
+          "rollouts", "step_costs", "cost_sums", "pick_copy", "store")
+# phases that run once per iteration (the others once per solve or round)
+ITERATION_PHASES = PHASES[3:9]
+
 # line-search step sizes, as the JAX package computes them (numpy's power:
 # 10.0 ** -5 here is not the double nearest 1e-5)
 ALPHAS = 10.0 ** -np.arange(8)

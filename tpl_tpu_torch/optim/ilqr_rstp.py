@@ -21,6 +21,9 @@ reads it back.  On a CUDA tensor :func:`update` launches the hand-written
 kernel ``csrc/ilqr_rstp.cu`` (one launch per update, counted in
 ``launches``); on a CPU tensor it runs the plain version
 :func:`update_reference`, which is the plain ``make_update_fn``.
+:func:`profile` launches the kernel's profiling instantiation (the same
+bits, and cycles per phase).  :func:`bound_ms` and :func:`chain_ms` state
+the kernel's two bounds from shapes and iteration counts.
 """
 
 import ctypes
@@ -28,6 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
+from tpl_tpu_torch import _latency
 from tpl_tpu_torch.optim import ilqr, problems
 
 # per problem: the kernel's id, sizes, and its scalar params and reference
@@ -45,6 +49,48 @@ PROBLEMS = {
 }
 
 launches = 0        # kernel launches since import (reset freely)
+
+# Operation counts of one step of the algorithm, as the plain version
+# defines it (an add, multiply, divide, compare or transcendental counts as
+# one), per problem: the reference lookups at the step's arc length, the
+# Euler rollout step with its feedback (lookups included, as the plain
+# version makes them in every step), the augmented step cost, one Riccati
+# step at nx = 2, nu = 1, and the derivatives of one step.
+#
+# The derivatives are counted as what the function needs, not as what a
+# way of forming them executes: one pass over the step cost, whose
+# intermediate values every entry shares, and one operation for each entry
+# of the step's block that is neither structurally zero nor a constant (the
+# gradient, the Hessian's upper triangle, the dynamics' Jacobian):
+# - lateral_profile, 3 + 6 + 0: the curvature term couples (d, v_d, a_d)
+#   fully; the dynamics are linear, so fx and fu are constants;
+# - velocity_profile_space, 3 + 5 + 3: the Hessian has no (st, a) entry; of
+#   a / v and 1 / v (the branch above v = 1) three Jacobian entries depend
+#   on the state.
+# The kernel's dense forward-mode numbers execute about ten passes, so the
+# count is below any implementation's.
+DERIV_ENTRIES = {"lateral_profile": 3 + 6 + 0,
+                 "velocity_profile_space": 3 + 5 + 3}
+OPS = {
+    "lateral_profile": dict(
+        ref=20, rollout_step=35, step_cost=58, riccati_step=113,
+        derivatives=58 + DERIV_ENTRIES["lateral_profile"], multipliers=12),
+    "velocity_profile_space": dict(
+        ref=28, rollout_step=46, step_cost=79, riccati_step=113,
+        derivatives=79 + DERIV_ENTRIES["velocity_profile_space"],
+        multipliers=25),
+}
+# The critical path of one step (dependent operations, by the probe's
+# names).  Riccati: fx^T Vxx (a dot of 2), Qxx = lxx + A fx, Quu + mu, the
+# division, the gain, (K Quu) K and the last sum.  Rollout: the feedback
+# dot of 2 with its two sums, the dynamics (a division in the velocity
+# problem, none in the lateral one) and the Euler sum; the lookups depend
+# on the step alone and are off the path.
+CHAIN_RICCATI = dict(f32_mul=5, f32_add=5, f32_div=1)
+CHAIN_ROLLOUT = {
+    "lateral_profile": dict(f32_mul=2, f32_add=4),
+    "velocity_profile_space": dict(f32_mul=2, f32_add=4, f32_div=1),
+}
 
 _MAX_SMEM = 227 * 1024      # dynamic shared memory a block can use (H100)
 
@@ -142,15 +188,37 @@ def update(name, buf, H, n_ref, T, max_iterations, max_lg_iterations,
     """One update of problem ``name`` from the packed inputs ``buf``
     (float32, on the solve's device); returns the packed result on the
     same device."""
-    global launches
     _check(name, buf, H, n_ref, integrator)
-    dev = buf.device
-    if dev.type == "cpu":
+    if buf.device.type == "cpu":
         return update_reference(name, buf, H, n_ref, T, max_iterations,
                                 max_lg_iterations, integrator)
+    return _launch(name, buf, H, n_ref, T, max_iterations, max_lg_iterations,
+                   None)
+
+
+def profile(name, buf, H, n_ref, T, max_iterations, max_lg_iterations,
+            integrator=ilqr.EULER):
+    """:func:`update` through the kernel's profiling instantiation (CUDA
+    only): returns the packed result, bit-equal to :func:`update`'s, and
+    thread 0's cycles per phase, a dict over ``ilqr.PHASES`` (sums over the
+    solve)."""
+    _check(name, buf, H, n_ref, integrator)
+    cycles = torch.zeros(len(ilqr.PHASES), dtype=torch.int64,
+                         device=buf.device)
+    out = _launch(name, buf, H, n_ref, T, max_iterations, max_lg_iterations,
+                  cycles)
+    return out, dict(zip(ilqr.PHASES, cycles.cpu().tolist()))
+
+
+def _launch(name, buf, H, n_ref, T, max_iterations, max_lg_iterations,
+            cycles):
+    """Launches the kernel (its profiling instantiation when ``cycles``, an
+    int64 tensor of ``len(ilqr.PHASES)``, is given) on the checked CUDA
+    tensor ``buf``."""
+    global launches
+    dev = buf.device
     if dev.type != "cuda":
         raise ValueError(f"ilqr_rstp: unsupported device {dev}")
-
     lib = _kernel()
     pid = PROBLEMS[name]["id"]
     smem = lib.ilqr_rstp_smem_bytes(pid, H, n_ref)
@@ -159,15 +227,74 @@ def update(name, buf, H, n_ref, T, max_iterations, max_lg_iterations,
                          f"needs {smem} B of shared memory, above {_MAX_SMEM}")
     out = torch.empty(ilqr.layout(output_layout(name, H))[1],
                       dtype=torch.float32, device=dev)
+    run = (H, n_ref, T, max_iterations, max_lg_iterations)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ilqr_rstp_update(pid, buf.data_ptr(), out.data_ptr(), H,
-                                   n_ref, T, max_iterations,
-                                   max_lg_iterations, stream)
+        if cycles is None:
+            err = lib.ilqr_rstp_update(pid, buf.data_ptr(), out.data_ptr(),
+                                       *run, stream)
+        else:
+            err = lib.ilqr_rstp_profile(pid, buf.data_ptr(), out.data_ptr(),
+                                        cycles.data_ptr(), *run, stream)
     if err != 0:
         raise RuntimeError(f"ilqr_rstp launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def traffic_bytes(name, H, n_ref):
+    """Bytes one update must move: the packed input read once and the
+    packed result written once."""
+    return 4 * (ilqr.layout(input_layout(name, H, n_ref))[1]
+                + ilqr.layout(output_layout(name, H))[1])
+
+
+def operations(name, H, T, iterations, max_lg_iterations=1):
+    """Operations of one update that ran ``iterations`` iLQR iterations in
+    all (the result's count): the initial rollout and its cost, the
+    multiplier updates, and per iteration the derivatives, the Riccati pass,
+    8 rollouts with their step costs and the 8 ordered sums."""
+    _spec(name)
+    ops = OPS[name]
+    n = min(T, H)
+    init = n * (ops["rollout_step"] - 11 + ops["step_cost"] + 1)
+    per_it = n * (ops["derivatives"] + ops["riccati_step"]
+                  + len(ilqr.ALPHAS) * (ops["rollout_step"]
+                                        + ops["step_cost"] + 1))
+    return (init + max_lg_iterations * n * ops["multipliers"]
+            + iterations * per_it)
+
+
+def bound_ms(name, H, n_ref, T, iterations, max_lg_iterations=1):
+    """(ms, "bytes" or "operations"): the roofline bound of one update."""
+    return _latency.roofline_ms(
+        traffic_bytes(name, H, n_ref),
+        operations(name, H, T, iterations, max_lg_iterations), "float32")
+
+
+def chain_ops(name, H, T, iterations):
+    """Dependent operations on the critical path of one update: the
+    initial rollout and its ordered cost sum, then per iteration T Riccati
+    steps, T rollout steps and the ordered cost sum."""
+    _spec(name)
+    roll = CHAIN_ROLLOUT[name]
+    n = min(T, H)
+    total = {}
+    add = lambda ops, times: _latency.add_ops(total, ops, times)
+    add(roll, n * iterations)
+    # the initial rollout has no feedback: the dynamics and the Euler sum
+    add({k: v for k, v in roll.items() if k == "f32_div"}, n)
+    add(dict(f32_mul=1, f32_add=1), n)
+    add(CHAIN_RICCATI, n * iterations)
+    add(dict(f32_add=1), n * (1 + iterations))  # the ordered cost sums
+    return total
+
+
+def chain_ms(name, H, T, iterations, cycles, sm_mhz):
+    """The critical path's time from the probe's latencies (``cycles`` per
+    operation, :func:`tpl_tpu_torch._latency.measure`) at ``sm_mhz``."""
+    return _latency.chain_ms(chain_ops(name, H, T, iterations), cycles,
+                             sm_mhz)
 
 
 _PLAIN = {}
@@ -227,6 +354,10 @@ def _kernel():
         lib.ilqr_rstp_update.restype = ctypes.c_int
         lib.ilqr_rstp_update.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+            + [ctypes.c_void_p])
+        lib.ilqr_rstp_profile.restype = ctypes.c_int
+        lib.ilqr_rstp_profile.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
             + [ctypes.c_void_p])
         lib.ilqr_rstp_smem_bytes.restype = ctypes.c_size_t
         lib.ilqr_rstp_smem_bytes.argtypes = [ctypes.c_int] * 3

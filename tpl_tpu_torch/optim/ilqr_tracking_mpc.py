@@ -15,6 +15,9 @@ returns the packed result (:func:`unpack_outputs`).  On a CUDA tensor it
 launches the hand-written kernel ``csrc/ilqr_tracking_mpc.cu`` (one launch
 per update, counted in ``launches``); on a CPU tensor it runs the plain
 version :func:`update_reference`, which is the plain ``make_update_fn``.
+:func:`profile` launches the kernel's profiling instantiation (the same
+bits, and cycles per phase).  :func:`bound_ms` and :func:`chain_ms` state
+the kernel's two bounds from shapes and iteration counts.
 """
 
 import ctypes
@@ -22,6 +25,7 @@ import ctypes
 import numpy as np
 import torch
 
+from tpl_tpu_torch import _latency
 from tpl_tpu_torch.optim import ilqr, problems
 
 NX, NU, NC = 7, 2, 4
@@ -34,6 +38,45 @@ SCALARS = ("pd", "pv", "pdelta", "min_pdelta_dot", "pdelta_dot",
 TABLES = ("ref_x", "ref_y", "ref_phi", "ref_k", "ref_v")
 
 launches = 0        # kernel launches since import (reset freely)
+
+# Operation counts of one step of the algorithm, as the plain version
+# defines it (an add, multiply, divide, compare or transcendental counts as
+# one): the dynamics with their table lookups, the augmented step cost, one
+# closed-loop HEUN rollout step (2 x 7 feedback products, two dynamics
+# evaluations, the combination), one Riccati step (72 + 67 dot products of
+# 7, the nu = 2 solve, the value update), the derivatives of one step and the
+# multiplier update.
+#
+# The derivatives are counted as what the function needs, not as what a
+# way of forming them executes: one pass over the step cost, whose
+# intermediate values (the lookups, the sines and cosines, d_r, s_dot, the
+# yaw rate) every entry shares with it and with the dynamics, and one
+# operation for each entry of the step's block that is neither structurally
+# zero nor a constant:
+# - the cost's gradient, 9: every variable of (x, u) appears in it;
+# - its Hessian's upper triangle, 25: the 21 pairs over (px, py, phi, delta,
+#   v, s_r), which the yaw-rate-difference term couples, and (a, a), (j, j),
+#   (v, delta_dot), (delta_dot, delta_dot); the lower triangle is a copy;
+# - the dynamics' Jacobian, 11: d(v cos phi), d(v sin phi) and the yaw rate
+#   by two variables each, s_dot by (px, py, phi, v, s_r); the rows of
+#   delta, v, a are the constants 0, 1 and dt.
+# Forward-mode numbers execute more than this even with every structural
+# zero left out, so the count is below any implementation's.
+DERIV_ENTRIES = dict(gradient=9, hessian=25, jacobian=11)
+OPS = dict(dynamics=58, step_cost=119, rollout_step=203, riccati_step=2520,
+           derivatives=119 + sum(DERIV_ENTRIES.values()), multipliers=20)
+# The critical path of one step (dependent operations, by the probe's
+# names).  Riccati: A = fx^T Vxx (a dot of 7), Qxx = lxx + A fx, the nu = 2
+# solve (a + mu, the determinant, one division, the inverse's entry, the
+# gain), K^T Quu K and the last sum.  Rollout (HEUN): the feedback dot of 7
+# and its two sums, then twice the dynamics' longest chain (the query's
+# division, floor and alpha, a table load, the angle distance with its mod,
+# the lerp, a cosine, d_r, the denominator, the division of s_dot) and the
+# two combinations.
+CHAIN_RICCATI = dict(f64_mul=7, f64_add=19, f64_div=1)
+CHAIN_DYNAMICS = dict(f64_div=2, f64_fmod=1, f64_add=8, f64_mul=3, f64_cos=1,
+                      smem_load=1)
+CHAIN_ROLLOUT_EXTRA = dict(f64_mul=3, f64_add=11)   # feedback, combinations
 
 _MAX_SMEM = 227 * 1024      # dynamic shared memory a block can use (H100)
 
@@ -92,15 +135,37 @@ def update(buf, H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
            integrator=ilqr.HEUN):
     """One update from the packed inputs ``buf`` (float64, on the solve's
     device); returns the packed result on the same device."""
-    global launches
     _check(buf, H, n_ref, mu_step, integrator)
-    dev = buf.device
-    if dev.type == "cpu":
+    if buf.device.type == "cpu":
         return update_reference(buf, H, n_ref, T, max_iterations,
                                 max_lg_iterations, mu_step, integrator)
+    return _launch(buf, H, n_ref, T, max_iterations, max_lg_iterations,
+                   mu_step, integrator, None)
+
+
+def profile(buf, H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
+            integrator=ilqr.HEUN):
+    """:func:`update` through the kernel's profiling instantiation (CUDA
+    only): returns the packed result, bit-equal to :func:`update`'s, and
+    thread 0's cycles per phase, a dict over ``ilqr.PHASES`` (sums over the
+    solve)."""
+    _check(buf, H, n_ref, mu_step, integrator)
+    cycles = torch.zeros(len(ilqr.PHASES), dtype=torch.int64,
+                         device=buf.device)
+    out = _launch(buf, H, n_ref, T, max_iterations, max_lg_iterations,
+                  mu_step, integrator, cycles)
+    return out, dict(zip(ilqr.PHASES, cycles.cpu().tolist()))
+
+
+def _launch(buf, H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
+            integrator, cycles):
+    """Launches the kernel (its profiling instantiation when ``cycles``, an
+    int64 tensor of ``len(ilqr.PHASES)``, is given) on the checked CUDA
+    tensor ``buf``."""
+    global launches
+    dev = buf.device
     if dev.type != "cuda":
         raise ValueError(f"ilqr_tracking_mpc: unsupported device {dev}")
-
     lib = _kernel()
     smem = lib.ilqr_tracking_mpc_smem_bytes(H, n_ref)
     if smem > _MAX_SMEM:
@@ -108,16 +173,75 @@ def update(buf, H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
                          f"{smem} B of shared memory, above {_MAX_SMEM}")
     out = torch.empty(ilqr.layout(output_layout(H))[1], dtype=torch.float64,
                       device=dev)
+    run = (H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
+           integrator)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ilqr_tracking_mpc(buf.data_ptr(), out.data_ptr(), H, n_ref,
-                                    T, max_iterations, max_lg_iterations,
-                                    mu_step, integrator, stream)
+        if cycles is None:
+            err = lib.ilqr_tracking_mpc(buf.data_ptr(), out.data_ptr(), *run,
+                                        stream)
+        else:
+            err = lib.ilqr_tracking_mpc_profile(
+                buf.data_ptr(), out.data_ptr(), cycles.data_ptr(), *run,
+                stream)
     if err != 0:
         raise RuntimeError(f"ilqr_tracking_mpc launch failed: CUDA error "
                            f"{err}")
     launches += 1
     return out
+
+
+def traffic_bytes(H, n_ref):
+    """Bytes one update must move: the packed input read once and the
+    packed result written once."""
+    return 8 * (ilqr.layout(input_layout(H, n_ref))[1]
+                + ilqr.layout(output_layout(H))[1])
+
+
+def operations(H, T, iterations, max_lg_iterations=1, integrator=ilqr.HEUN):
+    """Operations of one update that ran ``iterations`` iLQR iterations in
+    all (the result's count): the initial rollout and its cost, the
+    multiplier updates, and per iteration the derivatives, the Riccati pass,
+    8 rollouts with their step costs and the 8 ordered sums."""
+    if integrator != ilqr.HEUN:
+        raise ValueError("operation counts are stated for HEUN")
+    n = min(T, H)
+    open_loop = 2 * OPS["dynamics"] + 35        # no feedback, no clamp
+    init = n * (open_loop + OPS["step_cost"] + 1)
+    per_it = n * (OPS["derivatives"] + OPS["riccati_step"]
+                  + len(ilqr.ALPHAS) * (OPS["rollout_step"]
+                                        + OPS["step_cost"] + 1))
+    return (init + max_lg_iterations * n * OPS["multipliers"]
+            + iterations * per_it)
+
+
+def bound_ms(H, n_ref, T, iterations, max_lg_iterations=1):
+    """(ms, "bytes" or "operations"): the roofline bound of one update."""
+    return _latency.roofline_ms(
+        traffic_bytes(H, n_ref),
+        operations(H, T, iterations, max_lg_iterations), "float64")
+
+
+def chain_ops(H, T, iterations):
+    """Dependent operations on the critical path of one update: the
+    initial rollout and its ordered cost sum, then per iteration T Riccati
+    steps, T rollout steps and the ordered cost sum."""
+    n = min(T, H)
+    dyn2 = {k: 2 * v for k, v in CHAIN_DYNAMICS.items()}
+    total = {}
+    add = lambda ops, times: _latency.add_ops(total, ops, times)
+    add(dyn2, n * (1 + iterations))
+    add(CHAIN_ROLLOUT_EXTRA, n * iterations)
+    add(dict(f64_mul=2, f64_add=3), n)          # the initial rollout's sums
+    add(CHAIN_RICCATI, n * iterations)
+    add(dict(f64_add=1), n * (1 + iterations))  # the ordered cost sums
+    return total
+
+
+def chain_ms(H, T, iterations, cycles, sm_mhz):
+    """The critical path's time from the probe's latencies (``cycles`` per
+    operation, :func:`tpl_tpu_torch._latency.measure`) at ``sm_mhz``."""
+    return _latency.chain_ms(chain_ops(H, T, iterations), cycles, sm_mhz)
 
 
 _PLAIN = {}
@@ -172,6 +296,9 @@ def _kernel():
         lib.ilqr_tracking_mpc.restype = ctypes.c_int
         lib.ilqr_tracking_mpc.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.ilqr_tracking_mpc_profile.restype = ctypes.c_int
+        lib.ilqr_tracking_mpc_profile.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.ilqr_tracking_mpc_smem_bytes.restype = ctypes.c_size_t
         lib.ilqr_tracking_mpc_smem_bytes.argtypes = [ctypes.c_int] * 2
         _LIB = lib

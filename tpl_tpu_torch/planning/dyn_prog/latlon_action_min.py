@@ -21,9 +21,22 @@ import ctypes
 import numpy as np
 import torch
 
+from tpl_tpu_torch import _latency
+
 NB = 7              # backward action samples per dimension
 
 launches = 0        # kernel launches since import (reset freely)
+
+# Operations of one action of one cell as the plain version defines them
+# (the occupancy and safety clamps, the five cost terms, the next node's
+# cost and the lexicographic comparison) and of one cell beside its actions
+# (the safety distance per dl, the two final sums); an add, multiply,
+# compare or clamp counts as one.
+OPS = dict(action=21, cell=23)
+# A cell's critical path: a load of the next node, the longest cost chain
+# of one action (8 dependent adds and multiplies) and a min-reduction tree
+# over the 49 actions (6 levels, a compare-select counted as an add).
+CHAIN_CELL = dict(smem_load=1, f32_add=12, f32_mul=2)
 
 TABLE_KEYS = ("ids", "ks", "kl", "ca", "schg", "qdds", "qdl", "dds_vals",
               "dl_vals", "dss", "consts")
@@ -153,6 +166,38 @@ def action_min_reference(nodes_next, state_cost, state_constr, d_fwd,
     if return_actions:
         return node, constr_o, cost_o
     return node
+
+
+def traffic_bytes(S, DS, L):
+    """Bytes one slice must move: the next nodes, the two state maps, the
+    forward distances and the action tables read once, the nodes written
+    once (all 4-byte words)."""
+    cells = S * DS * L
+    tables = (3 * DS * NB + NB) + DS * NB * NB + DS * NB + 4 * NB + DS + 5
+    return 4 * (4 * cells + 2 * cells + S * L * NB + tables + 4 * cells)
+
+
+def operations(S, DS, L):
+    """Operations of one slice: every cell tries NB * NB actions."""
+    return S * DS * L * (NB * NB * OPS["action"] + OPS["cell"])
+
+
+def bound_ms(S, DS, L):
+    """(ms, "bytes" or "operations"): the roofline bound of one slice."""
+    return _latency.roofline_ms(traffic_bytes(S, DS, L),
+                                operations(S, DS, L), "float32")
+
+
+def chain_ops():
+    """Dependent operations on one cell's critical path (the cells are
+    independent, so the slice's path is one cell's)."""
+    return dict(CHAIN_CELL)
+
+
+def chain_ms(cycles, sm_mhz):
+    """The critical path's time from the probe's latencies (``cycles`` per
+    operation, :func:`tpl_tpu_torch._latency.measure`) at ``sm_mhz``."""
+    return _latency.chain_ms(chain_ops(), cycles, sm_mhz)
 
 
 def _check(nodes_next, state_cost, state_constr, d_fwd, tables):

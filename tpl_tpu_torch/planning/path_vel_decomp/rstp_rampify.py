@@ -19,10 +19,22 @@ import ctypes
 
 import torch
 
+from tpl_tpu_torch import _latency
+
 launches = 0        # kernel launches since import (reset freely)
 
 N_SCAL = 8          # v0, a0, a_min, a_max, j_min, j_max, v_min, step
 _MAX_SMEM = 227 * 1024
+
+# Operations of one backward / forward step as the plain version defines
+# them (an add, multiply, divide, maximum, minimum or select counts as one),
+# and the dependent operations on each step's critical path by the probe's
+# names (a maximum, minimum or select counts as an add).  Backward: the
+# limit's (cv - lim) / step * cv, the maximum, then -ca / cv * step, the
+# minimum and the sum.  Forward: the same with the final minimum.
+OPS = dict(backward_step=15, forward_step=17)
+CHAIN_BACKWARD = dict(f32_div=2, f32_mul=2, f32_add=4)
+CHAIN_FORWARD = dict(f32_div=2, f32_mul=2, f32_add=5)
 
 
 def _check(lim_v, T, scalars):
@@ -71,6 +83,38 @@ def scan(v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min, step):
         raise RuntimeError(f"rstp_rampify launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def traffic_bytes(H):
+    """Bytes one scan must move: the 8 scalars and the limits read once,
+    the (H, 2) profile written once."""
+    return 4 * (N_SCAL + H) + 4 * 2 * H
+
+
+def operations(H):
+    """Operations of one scan: the staged limits, H - 1 backward steps and
+    H forward steps."""
+    return H + (H - 1) * OPS["backward_step"] + H * OPS["forward_step"]
+
+
+def bound_ms(H):
+    """(ms, "bytes" or "operations"): the roofline bound of one scan."""
+    return _latency.roofline_ms(traffic_bytes(H), operations(H), "float32")
+
+
+def chain_ops(H):
+    """Dependent operations on the critical path: H - 1 backward steps,
+    then H forward steps."""
+    total = {k: v * (H - 1) for k, v in CHAIN_BACKWARD.items()}
+    for k, v in CHAIN_FORWARD.items():
+        total[k] = total.get(k, 0) + v * H
+    return total
+
+
+def chain_ms(H, cycles, sm_mhz):
+    """The critical path's time from the probe's latencies (``cycles`` per
+    operation, :func:`tpl_tpu_torch._latency.measure`) at ``sm_mhz``."""
+    return _latency.chain_ms(chain_ops(H), cycles, sm_mhz)
 
 
 def scan_reference(v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min,

@@ -2,7 +2,7 @@
 """
 Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--parent-csrc DIR]
+    python3 chip_smoke.py [--parent-csrc DIR]... [--kernels-only]
 
 1. prints the card's name and power limit, builds the CUDA kernels from
    ``tpl_tpu_torch/csrc`` (one ``nvcc`` per source, all started together)
@@ -12,8 +12,15 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    card's name and power limit;
 2. action-min kernel phase: at the demo grid (T=10, S=201, DS=37, L=21)
    runs the lat/lon action-min kernel against its plain PyTorch version on
-   the card, on seeded inputs and on every backward slice of a real solve;
-   prints the largest differences, the tie cells and both times;
+   the card, on seeded inputs and on every backward slice of a real solve,
+   and the fused backward-slice kernel (the slice's producers and the
+   action-min in one launch) against its plain version on the same 8
+   slices; prints the largest differences and the tie cells; times both
+   through their bare launchers (into buffers made once) and through their
+   wrappers, in turns, the action-min also at two smaller grids, at other
+   tile heights and beside an empty kernel of the same launch shape;
+   prints the kernel launches (torch.profiler) and the host wall of one
+   solve's backward pass with and without the fusion;
 3. slice phase (open loop): drives ``EnvironmentApp`` + ``PlanningApp``
    with the DP lat/lon planner on ``demo/country_follow`` at the demo param
    set's full grid for 5 replans; checks every published trajectory, that
@@ -52,22 +59,35 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
 8. RSTP kernel phase: both ``ilqr_rstp`` instantiations against
    ``update_reference`` on the card on the first cold and 3 warm solves of
    the follow loop, ``rstp_rampify`` against its plain version, bit for
-   bit, on seeded and loop inputs; prints the differences and both
-   times, and the solves' "phases" lines as in 5;
+   bit, on seeded inputs (a random-walk limit, a constant one) and on two
+   of the loop's own calls; prints the differences, the times through the
+   bare launchers and the wrappers, the solves' "phases" lines as in 5 and
+   one per scan (microseconds per phase, cycles per step);
 9. prints the card's name and power limit and one JSON line describing the
    kernels (launches on the main path and per tick or per DP replan, the
-   largest difference to the plain version, the kernel's and the plain
-   version's times, the roofline bound ``bound_ms`` and the critical-path
+   largest difference to the plain version, the kernel's time through its
+   bare launcher ``ms`` and through its wrapper ``wrapper_ms``, the plain
+   version's time, the roofline bound ``bound_ms`` and the critical-path
    bound ``chain_ms`` from this run's shapes, iteration counts and probe
    latencies), then ``{"ok": true, "device": {...}}`` as the last line.
-   Each phase prints its seconds; the whole run takes about 130 s.
+   The ``latlon_action_min`` row counts every launch of the source's
+   action-min (on the main path all of them go through the fused entry,
+   which has its own row, ``latlon_backward_slice``).
+   Each phase prints its seconds; the whole run takes about 150 s.
 
-With ``--parent-csrc DIR`` (a directory holding another version of
-``ilqr_tracking_mpc.cu`` and ``ilqr_rstp.cu``, for example ``git show`` of
-an earlier commit's) phases 5 and 8 also build that version with the same
-flags, run both on the same inputs through the bare launchers in turns
-(other, tree, tree, other) and print the largest difference of the results
-and the four times.
+With ``--parent-csrc DIR`` (a directory holding another version of any of
+the four kernel sources and the headers they include, for example ``git
+show`` of an earlier commit's; may be given more than once) the kernel
+phases also build that version with the same flags, run both on the same
+inputs through the bare launchers in turns (other, tree, tree, other) and
+print the largest difference of the results and the four times; for the
+action-min and the rampify scan a difference other than 0.0 raises.  A
+rampify source of the earlier one-buffer launcher is recognised, and if it
+exports ``rstp_rampify_profile`` with stamps after its staging, backward
+scan, forward scan and write-out, its "phases" lines are printed too.
+
+With ``--kernels-only`` the run stops after phase 2 and the rampify part
+of phase 8 on seeded inputs: no loop is driven and no result line printed.
 
 Any failure raises (nonzero exit).  Without CUDA it exits nonzero before
 printing any result.
@@ -200,7 +220,41 @@ def tie_cells(constr_o, cost_o):
     return (other & near).any(-1).cpu()
 
 
-def kernel_phase(lam, tllk, dev):
+def seeded_slice(lam, tllk, dev, rng, S, DS, L):
+    """Seeded inputs of one backward slice on an (S, DS, L) grid: (next
+    nodes, state cost, state constraint, d_fwd) and the default params'
+    action tables."""
+    import torch
+
+    solve, _ = tllk.make_latlon_solver(
+        dict(t_steps=4, s_steps=S, ds_steps=DS, l_steps=L), dev)
+    pp = tllk.unpack_pp(torch.from_numpy(tllk.LatLonParams().packed()).to(dev))
+    tables = solve.action_tables(pp)
+    dds_v, dl_v = (tables[k].cpu().numpy() for k in ("dds_vals", "dl_vals"))
+    nodes = np.stack([rng.uniform(0, 1e4, (S, DS, L)),
+                      rng.uniform(0, 5, (S, DS, L))
+                      * (rng.uniform(size=(S, DS, L)) < 0.2),
+                      rng.choice(dds_v, (S, DS, L)),
+                      rng.choice(dl_v, (S, DS, L))], -1)
+    args = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+        nodes, rng.uniform(0, 1e3, (S, DS, L)),
+        rng.uniform(0, 2, (S, DS, L)) * (rng.uniform(size=(S, DS, L)) < .1),
+        rng.uniform(-5, 60, (S, L, lam.NB)))]
+    return args, tables
+
+
+def action_min_call(args, tables, stream, ts_rows=None):
+    """``call(fn, out)`` for the bare launchers of latlon_action_min.cu on
+    one slice's inputs (``ts_rows``: the tile argument of
+    ``latlon_action_min_tiled``)."""
+    S, DS, L = args[0].shape[:3]
+    ptrs = [a.data_ptr() for a in args] + list(tables.ptrs)
+    tile = [] if ts_rows is None else [ts_rows]
+    return lambda fn, out: fn(*ptrs, out.data_ptr(), S, DS, L, *tile, stream)
+
+
+def kernel_phase(lam, tllk, dev, parent_csrc=None):
+    import ctypes
     import torch
 
     T, S, DS, L = (DEMO_SPEC[k] for k in ("t_steps", "s_steps", "ds_steps",
@@ -212,18 +266,7 @@ def kernel_phase(lam, tllk, dev):
     n_cells = n_ties = 0
 
     # (a) seeded inputs
-    pp = tllk.unpack_pp(torch.from_numpy(p.packed()).to(dev))
-    tables = solve.action_tables(pp)
-    dds_v, dl_v = (tables[k].cpu().numpy() for k in ("dds_vals", "dl_vals"))
-    nodes = np.stack([rng.uniform(0, 1e4, (S, DS, L)),
-                      rng.uniform(0, 5, (S, DS, L))
-                      * (rng.uniform(size=(S, DS, L)) < 0.2),
-                      rng.choice(dds_v, (S, DS, L)),
-                      rng.choice(dl_v, (S, DS, L))], -1)
-    seeded = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
-        nodes, rng.uniform(0, 1e3, (S, DS, L)),
-        rng.uniform(0, 2, (S, DS, L)) * (rng.uniform(size=(S, DS, L)) < .1),
-        rng.uniform(-5, 60, (S, L, lam.NB)))]
+    seeded, tables = seeded_slice(lam, tllk, dev, rng, S, DS, L)
     cases = [("seeded", seeded, tables)]
 
     # (b) every backward slice of a real solve: a straight road with a
@@ -243,11 +286,13 @@ def kernel_phase(lam, tllk, dev):
     dist_x, rl_t, step_t, pp = solve.prepare(dist, rl, 0.5, p.packed())
     tables = solve.action_tables(pp)
     nxt = solve.final_slice(dist_x, rl_t, step_t, pp)
+    scene = (dist_x, rl_t, step_t, pp, tables)
     for i in range(T - 2, 0, -1):
         ins = solve.slice_inputs(i, dist_x, rl_t, step_t, pp)
         cases.append((f"slice {i}", [nxt, *ins], tables))
         nxt = lam.action_min_reference(nxt, *ins, tables)
 
+    plain = {}
     for name, args, tb in cases:
         got = lam.action_min(*args, tb)
         want, constr_o, cost_o = lam.action_min_reference(
@@ -261,6 +306,7 @@ def kernel_phase(lam, tllk, dev):
         max_err = max(max_err, err)
         n_cells += flips.numel()
         n_ties += int(flips.sum())
+        plain[name] = (want, ties)
         print(f"kernel check {name}: max|kernel-plain| = {err:.3e}, "
               f"tie cells {int(ties.sum())}, differing picks "
               f"{int(flips.sum())}")
@@ -268,12 +314,166 @@ def kernel_phase(lam, tllk, dev):
         raise AssertionError(f"{n_ties} of {n_cells} cells pick another "
                              "action")
 
+    # the fused slice kernel on the same 8 real slices, against its plain
+    # version (slice_inputs + action_min_reference: what the loop above
+    # computed)
+    fused_err, n_flips = 0.0, 0
+    for i in range(T - 2, 0, -1):
+        name = f"slice {i}"
+        nxt = cases[T - 1 - i][1][0]
+        got = solve.backward_slice(nxt, i, *scene)
+        torch.cuda.synchronize()
+        want, ties = plain[name]
+        err, flips = check_close(got, want, "fused " + name)
+        if bool(torch.any(flips & ~ties)):
+            raise AssertionError(f"fused {name}: {int((flips & ~ties).sum())}"
+                                 " non-tie cells pick another action")
+        fused_err = max(fused_err, err)
+        n_flips += int(flips.sum())
+        print(f"fused slice check {name}: max|kernel-plain| = {err:.3e}, "
+              f"bit-equal {bool(torch.equal(got, want))}, differing picks "
+              f"{int(flips.sum())}")
+    if n_flips > MAX_TIE_SHARE * (T - 2) * S * DS * L:
+        raise AssertionError(f"fused slices: {n_flips} cells pick another "
+                             "action")
+
+    # times: through the bare launcher into a buffer made once and through
+    # the wrapper, at the demo grid and at two smaller ones; an empty kernel
+    # of the same launch shape; other tile heights
+    lib = lam._kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     args, tb = cases[1][1], cases[1][2]
-    ms = cuda_ms(lambda: lam.action_min(*args, tb), 200)
+    grids = [(f"slice {T - 2} at S={S} DS={DS} L={L}", args, tb)]
+    for small in ((61, 9, 11), (37, 5, 3)):
+        a, t = seeded_slice(lam, tllk, dev, rng, *small)
+        grids.append(("seeded at S={} DS={} L={}".format(*small), a, t))
+    for what, a, t in grids:
+        out = torch.empty_like(a[0])
+        call = action_min_call(a, t, stream)
+        times = launcher_times(
+            "latlon_action_min", what,
+            lambda: call(lib.latlon_action_min, out),
+            lambda: lam.action_min(*a, t), 200)
+        if a is args:
+            ms, wrapper_ms = times
+    rows = lib.latlon_action_min_tile_rows(L)
+    blocks, threads = -(-S // rows) * DS, -(-rows * L // 32) * 32
+    shapes = [(blocks, threads), (-(-S * DS * L // 256), 256)]
+    empty = [cuda_ms(lambda: lib.latlon_empty_launch(b, t, stream), 200)
+             for b, t in shapes]
+    print("empty kernel: " + ", ".join(
+        f"{b} blocks of {t} threads {e:.4f} ms"
+        for (b, t), e in zip(shapes, empty)))
+    out = torch.empty_like(args[0])
+    sweep = []
+    for ts_rows in (3, 6, 8, 9, 12, 15, 24):
+        call = action_min_call(args, tb, stream, ts_rows)
+        sweep.append((ts_rows, cuda_ms(
+            lambda: call(lib.latlon_action_min_tiled, out), 200)))
+        if not torch.equal(out, lam.action_min(*args, tb)):
+            raise AssertionError(f"tile of {ts_rows} rows: another result")
+    print(f"latlon_action_min by tile height (default {rows}), ms: "
+          + ", ".join(f"{r} rows {m:.4f}" for r, m in sweep))
     plain_ms = cuda_ms(lambda: lam.action_min_reference(*args, tb), 20)
-    print(f"action_min at S={S} DS={DS} L={L}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    return max_err, ms, plain_ms
+    print(f"action_min at S={S} DS={DS} L={L}: kernel {ms:.4f} ms (bare "
+          f"launcher; wrapper {wrapper_ms:.4f}), plain {plain_ms:.4f} ms")
+    for csrc in parents_with(parent_csrc, "latlon_action_min"):
+        compare_with_parent(
+            "latlon_action_min", lib.latlon_action_min, csrc,
+            [(what, a[0], action_min_call(a, t, stream))
+             for what, a, t in [("seeded", seeded, tables)] + grids], n=200)
+
+    # the fused slice: bare launcher and wrapper at slice T - 2, its plain
+    # version (the producers as tensor operations, then the plain
+    # action-min) and the path it replaces (the producers as tensor
+    # operations, then the action-min kernel)
+    i = T - 2
+    nxt = cases[1][1][0]
+    out = torch.empty_like(nxt)
+    table_ptrs = (ctypes.c_void_p * len(lam.TABLE_KEYS))(*tables.ptrs)
+    fused_ms, fused_wrapper_ms = launcher_times(
+        "latlon_backward_slice", f"slice {i} at S={S} DS={DS} L={L}",
+        lambda: lib.latlon_backward_slice(
+            nxt.data_ptr(), dist_x[i].data_ptr(), rl_t.data_ptr(),
+            step_t.data_ptr(), tables.slice_consts.data_ptr(), table_ptrs,
+            out.data_ptr(), S, DS, L, rl_t.shape[0], i, stream),
+        lambda: solve.backward_slice(nxt, i, *scene), 200)
+    fused_plain_ms = cuda_ms(
+        lambda: solve.backward_slice_reference(nxt, i, *scene), 10)
+    unfused_ms = cuda_ms(lambda: lam.action_min(
+        nxt, *solve.slice_inputs(i, dist_x, rl_t, step_t, pp), tables), 20)
+    print(f"backward slice at S={S} DS={DS} L={L}: fused kernel "
+          f"{fused_ms:.4f} ms (bare launcher; wrapper "
+          f"{fused_wrapper_ms:.4f}), producers as tensor operations + "
+          f"action-min kernel {unfused_ms:.4f} ms, plain {fused_plain_ms:.4f}"
+          " ms")
+
+    # kernel launches of one solve (torch.profiler), and of its backward
+    # pass with and without the fusion
+    x0 = np.zeros(12, np.float32)
+    x0[tllk.C_DS] = 9.0
+
+    def backward(step):
+        node = solve.final_slice(dist_x, rl_t, step_t, pp)
+        for k in range(T - 2, 0, -1):
+            node = step(node, k)
+        return node
+
+    def fused():
+        return backward(lambda node, k: solve.backward_slice(node, k, *scene))
+
+    def unfused():
+        return backward(lambda node, k: lam.action_min(
+            node, *solve.slice_inputs(k, dist_x, rl_t, step_t, pp), tables))
+
+    def whole():
+        return solve(dist, rl, 0.5, p.packed(), x0)
+
+    n_fused, n_unfused = count_launches(fused), count_launches(unfused)
+    n_solve = count_launches(whole)
+    walls = [wall_ms(f, 5) for f in (unfused, fused, fused, unfused, whole)]
+    print("host wall ms ending in a synchronize (mean of 5): the backward "
+          "pass with the producers as tensor operations {:.2f}, fused {:.2f},"
+          " fused {:.2f}, tensor operations {:.2f}; one whole solve {:.2f}"
+          .format(*walls))
+    print(f"kernel launches (torch.profiler): the backward pass of one solve "
+          f"({T - 2} slices after the final one) {n_unfused} with the "
+          f"producers as tensor operations, {n_fused} fused; one whole solve "
+          f"{n_solve} (before the fusion {n_solve - n_fused + n_unfused})")
+    return dict(err=max_err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                fused=dict(err=fused_err, ms=fused_ms,
+                           wrapper_ms=fused_wrapper_ms,
+                           plain_ms=fused_plain_ms))
+
+
+def wall_ms(fn, n):
+    """Mean host time of fn() over n runs after one, each ending in a
+    synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def count_launches(fn):
+    """Device kernels and copies that one call of ``fn`` launches, by
+    torch.profiler (after one warm call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
 def slice_phase(lam, tllk):
@@ -296,7 +496,7 @@ def slice_phase(lam, tllk):
 
     last = planner.policy.last_replan_time
     replans, replan_ms = 0, []
-    lam.launches = 0
+    lam.launches = lam.slice_launches = 0
     for k in range(MAX_TICKS):
         t0 = time.perf_counter()
         traj = stack.step(round(k * TICK, 5))
@@ -316,10 +516,10 @@ def slice_phase(lam, tllk):
             break
     launches = lam.launches
     print(f"slice: {k + 1} ticks, {replans} replans, kernel launches "
-          f"{launches}")
+          f"{launches} ({lam.slice_launches} of the fused slice kernel)")
     if replans < MIN_REPLANS:
         raise AssertionError(f"only {replans} replans")
-    if launches != (spec["t_steps"] - 2) * replans:
+    if not launches == lam.slice_launches == (spec["t_steps"] - 2) * replans:
         raise AssertionError(f"{launches} launches for {replans} replans")
     print("per-replan wall ms: " + ", ".join(f"{m:.2f}" for m in replan_ms)
           + f" (median {np.median(replan_ms):.2f})")
@@ -448,7 +648,7 @@ def closed_loop_phase(lam, itm):
         last_replan = planner.policy.last_replan_time
         tick_ms, control_ms, replan_ms, iterations = [], [], [], []
         solves0 = mpc.opt.updates
-        lam.launches = 0
+        lam.launches = lam.slice_launches = 0
         itm.launches = 0
         for k in range(DP_TICKS):
             t0 = time.perf_counter()
@@ -471,6 +671,7 @@ def closed_loop_phase(lam, itm):
             if not np.all(np.isfinite(controls)):
                 raise AssertionError(f"tick {k}: non-finite controls")
         am_launches, ilqr_launches = lam.launches, itm.launches
+        slice_launches = lam.slice_launches
         solves = mpc.opt.updates - solves0
     finally:
         itm.update = solve
@@ -482,13 +683,14 @@ def closed_loop_phase(lam, itm):
     print(f"closed loop: {DP_TICKS} ticks to t={t_end:.2f} s, ego x "
           f"{x_end:.2f} v {v_end:.2f} m/s, {len(violations)} violations, "
           f"{len(replan_ms)} replans, {solves} MPC solves; launches: "
-          f"latlon_action_min {am_launches}, ilqr_tracking_mpc "
-          f"{ilqr_launches}")
+          f"latlon_action_min {am_launches} (all {slice_launches} through "
+          f"the fused slice kernel), ilqr_tracking_mpc {ilqr_launches}")
     if violations:
         raise AssertionError(f"rule violations: {violations[:3]}")
     if not v_end > 4.0:
         raise AssertionError(f"ego speed {v_end} at the end")
-    if am_launches != (spec["t_steps"] - 2) * len(replan_ms):
+    if not am_launches == slice_launches == (
+            spec["t_steps"] - 2) * len(replan_ms):
         raise AssertionError(f"{am_launches} action-min launches for "
                              f"{len(replan_ms)} replans")
     if solves < DP_TICKS - 5 or ilqr_launches != solves:
@@ -509,7 +711,8 @@ def closed_loop_phase(lam, itm):
     buf, args, out = rec["last"]
     err, _ = compare_solves(itm, out, itm.update_reference(buf.cpu(), *args),
                             MPC_H, "last loop solve vs plain on the CPU")
-    return dict(am_launches=am_launches, ilqr_launches=ilqr_launches,
+    return dict(am_launches=am_launches, slice_launches=slice_launches,
+                ilqr_launches=ilqr_launches,
                 replans=len(replan_ms), picked=rec["picked"], err=err)
 
 
@@ -523,36 +726,68 @@ def in_turns(old, new, n):
     return (a, d), (b, c)
 
 
-def compare_with_parent(source, lib_fn, csrc, cases):
+def parents_with(dirs, source):
+    """The directories of ``dirs`` (may be None) that hold ``<source>.cu``."""
+    return [d for d in dirs or ()
+            if os.path.isfile(os.path.join(d, source + ".cu"))]
+
+
+def compare_with_parent(source, lib_fn, csrc, cases, n=30):
     """Holds the tree's launcher ``lib_fn`` of ``<source>.cu`` against the
     same launcher of another version of that source, built from the
     directory ``csrc`` with the port's flags.  ``cases`` are (what, like,
-    call): ``call(fn, out)`` launches ``fn`` into ``out`` (a tensor like
-    ``like``) and returns the CUDA error code.  Both go through the bare
-    launcher into buffers made once, so that the wrapper's host work is in
-    neither time.  Prints the largest difference of the results and the
-    times in turns."""
+    call) or (what, like, call, parent_call): ``call(fn, out)`` launches
+    ``fn`` into ``out`` (a tensor like ``like``) and returns the CUDA error
+    code; ``parent_call`` does so for a parent whose launcher reads its
+    arguments another way.  Both go through the bare launcher into
+    buffers made once, so that the wrapper's host work is in neither time.
+    Prints the largest difference of the results and the times in turns;
+    returns the parent's library."""
     import torch
     from tpl_tpu_torch import _build
 
-    parent = getattr(_build.load(source, csrc), lib_fn.__name__)
-    parent.restype, parent.argtypes = lib_fn.restype, lib_fn.argtypes
+    parent_lib = _build.load(source, csrc)
+    parent = getattr(parent_lib, lib_fn.__name__)
+    parent.restype = lib_fn.restype
+    parent.argtypes = lib_fn.argtypes
     fns = (parent, lib_fn)
-    for what, like, call in cases:
+    for what, like, *calls in cases:
         outs = [torch.empty_like(like) for _ in fns]
 
         def launch(i):
-            err = call(fns[i], outs[i])
+            err = calls[-1 if i == 0 else 0](fns[i], outs[i])
             if err:
                 raise RuntimeError(f"launch failed: CUDA error {err}")
 
         launch(0), launch(1)
         torch.cuda.synchronize()
         diff = float((outs[1] - outs[0]).abs().max())
-        (a, d), (b, c) = in_turns(lambda: launch(0), lambda: launch(1), 30)
-        print(f"{source} {what} vs the parent's source: max |new - parent| "
-              f"{diff:.3e}; ms per solve parent {a:.4f}, new {b:.4f}, new "
+        (a, d), (b, c) = in_turns(lambda: launch(0), lambda: launch(1), n)
+        print(f"{source} {what} vs the source in {csrc}: max |new - parent| "
+              f"{diff:.3e}; ms per launch parent {a:.4f}, new {b:.4f}, new "
               f"{c:.4f}, parent {d:.4f}")
+        if not diff == 0.0 and source in ("rstp_rampify",
+                                          "latlon_action_min"):
+            raise AssertionError(f"{source} {what}: the result differs from "
+                                 "the parent kernel's")
+    return parent_lib
+
+
+def launcher_times(name, what, bare, wrapper, n):
+    """A kernel through its bare launcher (``bare()`` launches into buffers
+    made once and returns the CUDA error code) and through its Python
+    wrapper, in turns; prints the four times side by side and returns
+    (bare ms, wrapper ms), each the mean of its two."""
+    def checked():
+        err = bare()
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+    (a, d), (b, c) = in_turns(checked, wrapper, n)
+    print(f"{name} {what}: ms per launch through the bare launcher {a:.4f}, "
+          f"the wrapper {b:.4f}, the wrapper {c:.4f}, the bare launcher "
+          f"{d:.4f}")
+    return (a + d) / 2, (b + c) / 2
 
 
 def ilqr_phase(itm, picked, dev, mhz, parent_csrc=None):
@@ -590,17 +825,22 @@ def ilqr_phase(itm, picked, dev, mhz, parent_csrc=None):
         phase_line("ilqr_tracking_mpc", what, ilqr, cycles, its, mhz)
 
     times = {}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib_fn = itm._kernel().ilqr_tracking_mpc
     for what, buf, args in cases[:2]:
-        ms = cuda_ms(lambda: itm.update(buf, *args), 50)
+        out = torch.empty_like(itm.update(buf, *args))
+        ms, wrapper_ms = launcher_times(
+            "ilqr_tracking_mpc", what,
+            lambda: lib_fn(buf.data_ptr(), out.data_ptr(), *args, stream),
+            lambda: itm.update(buf, *args), 50)
         plain_ms = cuda_ms(lambda: itm.update_reference(buf, *args), 2)
-        times[what] = (ms, plain_ms)
+        times[what] = (ms, wrapper_ms, plain_ms)
         print(f"ilqr_tracking_mpc {what} at H={MPC_H}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms per solve")
 
-    if parent_csrc:
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    for csrc in parents_with(parent_csrc, "ilqr_tracking_mpc"):
         compare_with_parent(
-            "ilqr_tracking_mpc", itm._kernel().ilqr_tracking_mpc, parent_csrc,
+            "ilqr_tracking_mpc", itm._kernel().ilqr_tracking_mpc, csrc,
             [(what, itm.update(buf, *args),
               lambda fn, out, buf=buf, args=args: fn(
                   buf.data_ptr(), out.data_ptr(), *args, stream))
@@ -864,10 +1104,10 @@ def rstp_kernel_phase(rstp, rmp, picked, scans, dev, mhz, parent_csrc=None):
         iterations.setdefault(pname, its)
         phase_line("ilqr_rstp", what, ilqr, cycles, its, mhz)
 
-    if parent_csrc:
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for csrc in parents_with(parent_csrc, "ilqr_rstp"):
         compare_with_parent(
-            "ilqr_rstp", rstp._kernel().ilqr_rstp_update, parent_csrc,
+            "ilqr_rstp", rstp._kernel().ilqr_rstp_update, csrc,
             [(what, rstp.update(pname, buf, *args),
               lambda fn, out, pid=rstp.PROBLEMS[pname]["id"], buf=buf,
               args=args: fn(pid, buf.data_ptr(), out.data_ptr(), *args,
@@ -878,12 +1118,33 @@ def rstp_kernel_phase(rstp, rmp, picked, scans, dev, mhz, parent_csrc=None):
     for what, pname, buf, args in picked:
         if pname in times:
             continue        # the first (cold) solve of each problem
-        ms = cuda_ms(lambda: rstp.update(pname, buf, *args), 50)
+        out = torch.empty_like(rstp.update(pname, buf, *args))
+        ms, wrapper_ms = launcher_times(
+            "ilqr_rstp", what,
+            lambda: rstp._kernel().ilqr_rstp_update(
+                rstp.PROBLEMS[pname]["id"], buf.data_ptr(), out.data_ptr(),
+                *args, stream),
+            lambda: rstp.update(pname, buf, *args), 50)
         plain_ms = cuda_ms(lambda: rstp.update_reference(pname, buf, *args),
                            1, warm=1)
-        times[pname] = (ms, plain_ms)
+        times[pname] = (ms, wrapper_ms, plain_ms)
         print(f"ilqr_rstp {what} at H={args[0]}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms per solve")
+
+    ramp = rampify_phase(rmp, scans, dev, mhz, parent_csrc)
+    return dict(ilqr_err=max_err, ilqr_times=times, iterations=iterations,
+                shapes={pname: args[:3] for _, pname, _, args in picked[:2]},
+                **ramp)
+
+
+def rampify_phase(rmp, scans, dev, mhz, parent_csrc=None):
+    """rstp_rampify against its plain version, bit for bit, on seeded
+    inputs and on the loop's recorded calls ``scans`` (may be empty); its
+    profiling instantiation; its times through the bare launcher and the
+    wrapper; and (with ``parent_csrc``) against another version of its
+    source, whose launcher takes the scalars and the limits in one buffer."""
+    import ctypes
+    import torch
 
     rng = np.random.default_rng(0)
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
@@ -891,11 +1152,16 @@ def rstp_kernel_phase(rstp, rmp, picked, scans, dev, mhz, parent_csrc=None):
     lim[40:45] = 2.0
     seeded = (f32(8.0), f32(0.3), f32(lim), RSTP_H - 30, f32(-2.5),
               f32(2.5), f32(-1.5), f32(1.5), f32(1.0), f32(0.5))
+    # a constant limit (cruising): every step resets the acceleration
+    flat = (f32(10.0), f32(0.0), f32(np.full(RSTP_H, 10.0)), RSTP_H,
+            *seeded[4:])
+    cases = [("seeded", seeded), ("flat", flat)] + list(
+        zip(("loop first", "loop later"), scans))
     scan_err = 0.0
-    for what, args in [("seeded", seeded), ("loop first", scans[0]),
-                       ("loop later", scans[1])]:
+    for what, args in cases:
         got = rmp.scan(*args)
         want = rmp.scan_reference(*args)
+        prof, cycles = rmp.profile(*args)
         torch.cuda.synchronize()
         err = float(torch.max(torch.abs(got - want)))
         same = bool(torch.equal(got, want))
@@ -904,14 +1170,85 @@ def rstp_kernel_phase(rstp, rmp, picked, scans, dev, mhz, parent_csrc=None):
         # the same float32 operations in the same order, no FMA
         if not same or not torch.all(torch.isfinite(got)):
             raise AssertionError(f"rampify {what}: kernel and plain differ")
+        if not torch.equal(got, prof):
+            raise AssertionError(f"rampify {what}: the profiling "
+                                 "instantiation's result differs")
+        rampify_phase_line("rstp_rampify", what, rmp.PHASES, cycles, args,
+                           mhz)
         scan_err = max(scan_err, err)
-    ms = cuda_ms(lambda: rmp.scan(*scans[1]), 200)
-    plain_ms = cuda_ms(lambda: rmp.scan_reference(*scans[1]), 2)
-    print(f"rstp_rampify at H={RSTP_H}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    return dict(ilqr_err=max_err, ilqr_times=times, scan_err=scan_err,
-                scan_ms=(ms, plain_ms), iterations=iterations,
-                shapes={pname: args[:3] for _, pname, _, args in picked[:2]})
+
+    lib = rmp._kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def kernel_args(args):
+        v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min, step = args
+        return (v0, a0, a_min, a_max, j_min, j_max, v_min, step), lim_v, T
+
+    what, args = cases[-1]
+    scalars, lim_v, T = kernel_args(args)
+    H = lim_v.shape[0]
+    ptrs = rmp.pointers(scalars, lim_v)
+    out = torch.empty((H, 2), dtype=torch.float32, device=dev)
+    ms, wrapper_ms = launcher_times(
+        "rstp_rampify", f"{what} at H={H}",
+        lambda: lib.rstp_rampify_scan(ptrs, out.data_ptr(), H, T, stream),
+        lambda: rmp.scan(*args), 200)
+    plain_ms = cuda_ms(lambda: rmp.scan_reference(*args), 2)
+    print(f"rstp_rampify at H={H}: kernel {ms:.4f} ms (bare launcher; "
+          f"wrapper {wrapper_ms:.4f}), plain {plain_ms:.4f} ms")
+
+    for csrc in parents_with(parent_csrc, "rstp_rampify"):
+        # an earlier version takes one buffer: the 8 scalars, then the
+        # limits, and has no phase count of its own
+        from tpl_tpu_torch import _build
+
+        old_style = not hasattr(_build.load("rstp_rampify", csrc),
+                                "rstp_rampify_n_phases")
+        packed, held = [], []
+        for what, args in cases:
+            scalars, lim_v, T = kernel_args(args)
+            buf = torch.cat([torch.stack([s.reshape(()) for s in scalars]),
+                             lim_v])
+            ptrs = rmp.pointers(scalars, lim_v)
+            held.append((buf, ptrs))
+            case = [what, out,
+                    lambda fn, o, ptrs=ptrs, T=T: fn(ptrs, o.data_ptr(), H, T,
+                                                     stream)]
+            if old_style:
+                case.append(lambda fn, o, buf=buf, T=T: fn(
+                    buf.data_ptr(), o.data_ptr(), H, T, stream))
+            packed.append(case)
+        parent = compare_with_parent(
+            "rstp_rampify", lib.rstp_rampify_scan, csrc, packed, n=200)
+        if old_style and hasattr(parent, "rstp_rampify_profile"):
+            # a copy with phase stamps added: staging, the backward scan,
+            # the forward scan, the write-out
+            fn = parent.rstp_rampify_profile
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                           + [ctypes.c_void_p])
+            names = ("stage", "backward", "forward", "store")
+            for (what, args), (buf, _) in zip(cases, held):
+                cyc = torch.zeros(len(names), dtype=torch.int64, device=dev)
+                err = fn(buf.data_ptr(), out.data_ptr(), cyc.data_ptr(), H,
+                         kernel_args(args)[2], stream)
+                if err:
+                    raise RuntimeError(f"launch failed: CUDA error {err}")
+                rampify_phase_line("parent rstp_rampify", what, names,
+                                   dict(zip(names, cyc.cpu().tolist())),
+                                   args, mhz)
+    return dict(scan_err=scan_err, scan_ms=(ms, wrapper_ms, plain_ms))
+
+
+def rampify_phase_line(kernel, what, names, cycles, args, mhz):
+    """One line of a profiled scan: microseconds per phase (thread 0's
+    clock64() cycles over the SM clock) and cycles per step of each scan."""
+    H = args[2].shape[0]
+    us = ", ".join(f"{k} {cycles[k] / mhz:.2f}" for k in names)
+    print(f"phases {kernel} {what} (H={H}, T={args[3]}, SM {mhz:.0f} MHz): "
+          f"us: {us} (total {sum(cycles.values()) / mhz:.2f}); cycles per "
+          f"step: backward {cycles['backward'] / (H - 1):.1f}, forward "
+          f"{cycles['forward'] / H:.1f}")
 
 
 def probe_phase(lat, itm, dev):
@@ -952,12 +1289,15 @@ def main(argv=()):
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent-csrc", default=None, metavar="DIR",
-                    help="a directory with another version of "
-                    "ilqr_tracking_mpc.cu and ilqr_rstp.cu (and the headers "
-                    "they include): built with the same flags, run in turns "
-                    "with the tree's kernels on the same inputs, results and "
-                    "times printed")
+    ap.add_argument("--parent-csrc", action="append", metavar="DIR",
+                    help="a directory with another version of any of the "
+                    "four kernel sources (and the headers they include): "
+                    "built with the same flags, run in turns with the tree's "
+                    "kernels on the same inputs, results and times printed")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, probe, then only the action-min and rampify "
+                    "kernel checks and times on seeded inputs; drives no "
+                    "loop and prints no result line")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1002,11 +1342,16 @@ def main(argv=()):
         return res
 
     cycles, mhz = phase("latency probe", probe_phase, lat, itm, dev)
-    am_err, am_ms, am_plain_ms = phase("action_min kernel", kernel_phase,
-                                       lam, tllk, dev)
+    am = phase("action_min kernel", kernel_phase, lam, tllk, dev,
+               opts.parent_csrc)
+    if opts.kernels_only:
+        phase("rampify kernel", rampify_phase, rmp, [], dev, mhz,
+              opts.parent_csrc)
+        print("kernels only: no loop was driven")
+        return 0
     phase("DP slice", slice_phase, lam, tllk)
     loop = phase("DP closed loop", closed_loop_phase, lam, itm)
-    ilqr_err, (ilqr_ms, ilqr_plain_ms), mpc_its = phase(
+    ilqr_err, (ilqr_ms, ilqr_wrapper_ms, ilqr_plain_ms), mpc_its = phase(
         "tracking-MPC kernel", ilqr_phase, itm, loop["picked"], dev, mhz,
         opts.parent_csrc)
     follow = phase("RSTP closed loop, country_follow", rstp_loop_phase, rstp,
@@ -1024,7 +1369,7 @@ def main(argv=()):
     # launches per tick of the vendored loop / per DP replan
     launches = follow["launches"]
     vel = "velocity_profile_space"
-    vel_ms, vel_plain_ms = kern["ilqr_times"][vel]
+    vel_ms, vel_wrapper_ms, vel_plain_ms = kern["ilqr_times"][vel]
     vel_H, vel_n_ref, vel_T = kern["shapes"][vel]
     vel_its = kern["iterations"][vel]
     S, DS, L = (DEMO_SPEC[k] for k in ("s_steps", "ds_steps", "l_steps"))
@@ -1037,35 +1382,49 @@ def main(argv=()):
         "ilqr_rstp": (rstp.bound_ms(vel, vel_H, vel_n_ref, vel_T, vel_its),
                       rstp.chain_ms(vel, vel_H, vel_T, vel_its, cycles, mhz)),
         "rstp_rampify": (rmp.bound_ms(RSTP_H), rmp.chain_ms(RSTP_H, cycles,
-                                                            mhz))}
+                                                            mhz)),
+        "latlon_backward_slice": (lam.slice_bound_ms(S, DS, L),
+                                  lam.slice_chain_ms(cycles, mhz))}
     rows = [
         {"name": "latlon_action_min",
          "source": "tpl_tpu_torch/csrc/latlon_action_min.cu",
          "replaces": "tpl_tpu/planning/dyn_prog/latlon_pallas.py:168",
          "launches": loop["am_launches"],
          "per_replan": loop["am_launches"] / max(loop["replans"], 1),
-         "max_abs_err": am_err, "ms": am_ms, "plain_ms": am_plain_ms},
+         "max_abs_err": am["err"], "ms": am["ms"],
+         "wrapper_ms": am["wrapper_ms"], "plain_ms": am["plain_ms"]},
         {"name": "ilqr_tracking_mpc",
          "source": "tpl_tpu_torch/csrc/ilqr_tracking_mpc.cu",
          "replaces": "tpl_tpu/optim/ilqr.py:126",
          "launches": launches["ilqr_tracking_mpc"],
          "launches_per_tick": launches["ilqr_tracking_mpc"] / LOOP_TICKS,
          "max_abs_err": max(ilqr_err, loop["err"]),
-         "ms": ilqr_ms, "plain_ms": ilqr_plain_ms},
+         "ms": ilqr_ms, "wrapper_ms": ilqr_wrapper_ms,
+         "plain_ms": ilqr_plain_ms},
         {"name": "ilqr_rstp", "source": "tpl_tpu_torch/csrc/ilqr_rstp.cu",
          "replaces": "tpl_tpu/optim/ilqr.py:126",
          "launches": launches["ilqr_rstp"],
          "launches_per_tick": launches["ilqr_rstp"] / LOOP_TICKS,
          "max_abs_err": max(kern["ilqr_err"], follow["err"],
                             overtake["err"]),
-         "ms": vel_ms, "plain_ms": vel_plain_ms},
+         "ms": vel_ms, "wrapper_ms": vel_wrapper_ms,
+         "plain_ms": vel_plain_ms},
         {"name": "rstp_rampify",
          "source": "tpl_tpu_torch/csrc/rstp_rampify.cu",
          "replaces": "tpl_tpu/planning/path_vel_decomp/fused_replan.py:244",
          "launches": launches["rstp_rampify"],
          "launches_per_tick": launches["rstp_rampify"] / LOOP_TICKS,
          "max_abs_err": kern["scan_err"],
-         "ms": kern["scan_ms"][0], "plain_ms": kern["scan_ms"][1]}]
+         "ms": kern["scan_ms"][0], "wrapper_ms": kern["scan_ms"][1],
+         "plain_ms": kern["scan_ms"][2]},
+        {"name": "latlon_backward_slice",
+         "source": "tpl_tpu_torch/csrc/latlon_action_min.cu",
+         "replaces": "tpl_tpu/planning/dyn_prog/lat_lon_kernel.py:276",
+         "launches": loop["slice_launches"],
+         "per_replan": loop["slice_launches"] / max(loop["replans"], 1),
+         "max_abs_err": am["fused"]["err"], "ms": am["fused"]["ms"],
+         "wrapper_ms": am["fused"]["wrapper_ms"],
+         "plain_ms": am["fused"]["plain_ms"]}]
     for row in rows:
         (ms, by), chain = bounds[row["name"]]
         row.update(route="cuda", bound_ms=ms, bound_by=by, chain_ms=chain,

@@ -142,6 +142,31 @@ def test_action_min_bounds_at_the_demo_grid():
         (30 + 12 * 4 + 2 * 4) * 1e-6)
 
 
+def test_fused_slice_bounds_at_the_demo_grid():
+    S, DS, L = 201, 37, 21
+    cells = S * DS * L
+    tables = 3 * 37 * 7 + 7 + 37 * 49 + 37 * 7 + 4 * 7 + 37 + 5
+    # next nodes and nodes (4 words a cell each), the (S, L) distance map,
+    # S reference rows of 8, the reference step, 17 slice constants
+    words = 4 * cells + S * L + S * 8 + 1 + 17 + tables + 4 * cells
+    assert len(lam.SLICE_CONSTS) == 17
+    assert lam.slice_traffic_bytes(S, DS, L) == 4 * words == 5032756
+    # the two state maps and d_fwd are no longer moved
+    assert lam.slice_traffic_bytes(S, DS, L) < lam.traffic_bytes(S, DS, L)
+    # per cell 6 operations per searched offset and 49 others; per (s, l)
+    # 20; per s 9; per (l, dl) 6; per ds 4
+    producers = (cells * (6 * 21 + 49) + S * L * 20 + S * 9 + 21 * 7 * 6
+                 + 37 * 4)
+    assert lam.slice_operations(S, DS, L) == 164298204 + producers
+    assert producers == 27418234
+    ms, by = lam.slice_bound_ms(S, DS, L)
+    assert by == "operations"
+    assert ms == pytest.approx((164298204 + producers) / 67e12 * 1e3)
+    lat = {"smem_load": 30.0, "f32_add": 4.0, "f32_mul": 4.0, "f32_div": 40.0}
+    assert lam.slice_chain_ms(lat, 1000) == pytest.approx(
+        (3 * 30 + 24 * 4 + 6 * 4 + 40) * 1e-6)
+
+
 def test_phase_names_follow_the_kernels_clock():
     assert len(ilqr.PHASES) == 10
     assert ilqr.PHASES[0] == "load" and ilqr.PHASES[-1] == "store"
@@ -163,6 +188,15 @@ def test_probe_and_profiles_need_the_card():
         ilqr_rstp.profile("lateral_profile",
                           torch.zeros(n, dtype=torch.float32), 60, 64, 60, 1,
                           1)
+
+
+def test_rampify_profile_needs_the_card():
+    """The scan's profiling instantiation has no plain version either, and
+    its phase names are the kernel's four."""
+    one = torch.ones(1)
+    with pytest.raises(ValueError):
+        rmp.profile(one, one, torch.ones(8), 8, *([one] * 6))
+    assert rmp.PHASES == ("stage", "backward", "forward_stage", "forward")
 
 
 def test_unset_device_is_the_card():

@@ -75,6 +75,111 @@ def test_action_min_kernel_matches_plain(cuda, S, DS, L):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,DS,L,ts_rows", [
+    (201, 37, 21, 5), (201, 37, 21, 16), (61, 9, 11, 7), (37, 5, 3, 1),
+    (37, 5, 3, 64), (9, 3, 40, 8)])
+def test_action_min_tile_edges_match_plain(cuda, S, DS, L, ts_rows):
+    """Tiles whose height does not divide S, is larger than S, or fills a
+    block of more than 256 threads: the same bits as the plain version and
+    as the default tile."""
+    rng = np.random.default_rng(S + ts_rows)
+    solve, _ = tllk.make_latlon_solver(
+        dict(t_steps=4, s_steps=S, ds_steps=DS, l_steps=L), cuda)
+    pp = tllk.unpack_pp(torch.from_numpy(tllk.LatLonParams().packed())
+                        .to(cuda))
+    tables = solve.action_tables(pp)
+    args = _seeded(rng, cuda, tables, S, DS, L)
+    out = torch.empty_like(args[0])
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    err = lam._kernel().latlon_action_min_tiled(
+        *[a.data_ptr() for a in args], *tables.ptrs, out.data_ptr(), S, DS,
+        L, ts_rows, stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(out, lam.action_min_reference(*args, tables))
+    assert torch.equal(out, lam.action_min(*args, tables))
+
+
+@pytest.mark.cuda
+def test_solve_launches_the_kernel_once_per_backward_slice(cuda):
+    """A DP solve at T time steps launches the action-min T - 2 times."""
+    spec = dict(t_steps=6, s_steps=41, ds_steps=9, l_steps=11)
+    T, S, L = spec["t_steps"], spec["s_steps"], spec["l_steps"]
+    dist = np.full((T, S, L, 2), 10000.0, np.float32)
+    rl = np.zeros((200, 8), np.float32)
+    rl[:, 0] = np.arange(200) * 0.5
+    rl[:, 4], rl[:, 5], rl[:, 6] = 14.0, 4.0, 4.0
+    x0 = np.zeros(12, np.float32)
+    x0[tllk.C_DS] = 5.0
+    before, before_fused = lam.launches, lam.slice_launches
+    tllk.make_latlon_solver(spec, cuda)[0](
+        dist, rl, 0.5, tllk.LatLonParams().packed(), x0)
+    torch.cuda.synchronize()
+    # every one of them through the fused slice kernel
+    assert lam.launches == before + T - 2
+    assert lam.slice_launches == before_fused + T - 2
+
+
+def _slice_scene(dev, S, DS, L, T, seed, params=None):
+    """A seeded scene for whole backward slices (the scene of
+    tests/test_torch_kernel_rehearsal.py slice_case) on ``dev``."""
+    rng = np.random.default_rng(seed)
+    solve, _ = tllk.make_latlon_solver(
+        dict(t_steps=T, s_steps=S, ds_steps=DS, l_steps=L), dev)
+    p = tllk.LatLonParams()
+    for k, v in (params or {}).items():
+        setattr(p, k, v)
+    dist = np.full((T, S, L, 2), 10000.0, np.float32)
+    dist[..., 0] = 10000.0 + (S - np.arange(S))[None, :, None]
+    mid = L // 2
+    for t in range(T):
+        lead = min(S - 1, S // 6 + (S // 25 + 1) * t)
+        dist[t, :lead, max(mid - 2, 0):mid + 3, 0] = (
+            lead - np.arange(lead))[:, None]
+        park = (3 * S) // 5
+        dist[t, :park, 1:max(2, L // 4), 0] = np.minimum(
+            dist[t, :park, 1:max(2, L // 4), 0],
+            (park - np.arange(park))[:, None])
+    dist[:, :, [0, L - 1], 0] = 0.0
+    dist[..., 0] += rng.uniform(0, 0.5, (T, S, L)).astype(np.float32)
+    n_ref = 2 * S + 40
+    rl = np.zeros((n_ref, 8), np.float32)
+    rl[:, 0] = np.arange(n_ref) * 0.5
+    rl[:, 4] = 14.0 - 6.0 * (np.arange(n_ref) > n_ref // 2)
+    rl[:, 5] = 4.0 - 1.5 * (np.arange(n_ref) % 50 > 30)
+    rl[:, 6] = 4.0 - 2.0 * (np.arange(n_ref) % 70 > 50)
+    return (solve, *solve.prepare(dist, rl, 0.5, p.packed()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,DS,L,T,params", [
+    (201, 37, 21, 4, None), (61, 9, 11, 6, None), (37, 5, 3, 5, None),
+    (61, 9, 11, 5, dict(w_lat_dist=2.0, l_trg=1.5, t_st_min=2.5, s_st=20.0,
+                        t_st_max=1.5, d_lat_comf=1.0))])
+def test_fused_slice_kernel_matches_plain(cuda, S, DS, L, T, params):
+    """``backward_slice`` on the card (one launch of the fused kernel)
+    against ``backward_slice_reference`` on the card, every backward slice
+    of a seeded scene, chained through the plain version: the same bits."""
+    solve, dist_x, rl, step, pp = _slice_scene(cuda, S, DS, L, T, S + T,
+                                               params)
+    tables = solve.action_tables(pp)
+    nxt = solve.final_slice(dist_x, rl, step, pp)
+    for i in range(T - 2, 0, -1):
+        before = lam.slice_launches
+        got = solve.backward_slice(nxt, i, dist_x, rl, step, pp, tables)
+        torch.cuda.synchronize()
+        assert lam.slice_launches == before + 1
+        want = solve.backward_slice_reference(nxt, i, dist_x, rl, step, pp,
+                                              tables)
+        np.testing.assert_allclose(got[..., 0].cpu(), want[..., 0].cpu(),
+                                   rtol=COST_RTOL, atol=COST_ATOL)
+        np.testing.assert_allclose(got[..., 1].cpu(), want[..., 1].cpu(),
+                                   rtol=0, atol=CONSTR_ATOL)
+        assert torch.equal(got, want), f"slice {i}"
+        nxt = want
+
+
+@pytest.mark.cuda
 def test_solve_on_card_matches_cpu(cuda):
     """The whole solve on the card (kernel) against the CPU (plain)."""
     T, S, L = DEMO["t_steps"], DEMO["s_steps"], DEMO["l_steps"]
@@ -351,6 +456,41 @@ def test_rampify_kernel_matches_plain_bit_for_bit(cuda, H, T):
     assert got.shape == (H, 2)
     # the same float32 operations in the same order, no FMA contraction
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,T", [(250, 250), (250, 180), (2, 1)])
+def test_rampify_profiling_instantiation_is_bit_equal(cuda, H, T):
+    """The scan's profiling instantiation returns the normal one's bits and
+    a cycle count for every phase; each call is one launch."""
+    args = rampify_args(cuda, H, T, H + T)
+    before = rstp_rampify.launches
+    out = rstp_rampify.scan(*args)
+    prof, cycles = rstp_rampify.profile(*args)
+    torch.cuda.synchronize()
+    assert rstp_rampify.launches == before + 2
+    assert torch.equal(out, prof)
+    assert tuple(cycles) == rstp_rampify.PHASES
+    assert all(v > 0 for v in cycles.values())
+    if H == 250:
+        assert cycles["backward"] > cycles["stage"]
+
+
+@pytest.mark.cuda
+def test_rampify_reads_scalars_where_they_lie(cuda):
+    """The scalars as slices of one vector (as the fused step passes them)
+    and a NaN limit: the plain version's values, NaN for NaN."""
+    args = list(rampify_args(cuda, 64, 50, 7))
+    vec = torch.stack([a.reshape(()) for a in args[4:]])
+    args[4:] = [vec[i] for i in range(6)]
+    assert torch.equal(rstp_rampify.scan(*args),
+                       rstp_rampify.scan_reference(*args))
+    args[2] = args[2].clone()
+    args[2][20] = float("nan")
+    got = rstp_rampify.scan(*args).cpu().numpy()
+    want = rstp_rampify.scan_reference(*args).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got).any()
 
 
 # ---------------------------------------------------------------------

@@ -1,13 +1,16 @@
-"""A CPU rehearsal of the two iLQR kernel bodies.
+"""A CPU rehearsal of the hand-written kernels' bodies.
 
 There is no CUDA compiler and no card where these tests run, but the kernel
 bodies are plain C++ once the CUDA runtime's few names are supplied.  The
 fixture writes a stand-in ``cuda_runtime.h`` (``__syncthreads`` as a
 ``std::barrier`` over 256 ``std::thread``s, ``__syncwarp`` and
 ``__shfl_sync`` as a per-warp barrier and exchange, ``clock64`` as a
-counter), compiles ``csrc/ilqr_tracking_mpc.cu`` and ``csrc/ilqr_rstp.cu``
-with ``g++ -std=c++20`` (their launchers sit under ``#ifdef __CUDACC__``)
-and runs the bodies on host threads:
+counter, ``float2`` / ``float4``, a ``blockIdx`` per thread), compiles the
+four kernel sources of ``csrc/`` with ``g++ -std=c++20 -ffp-contract=off``
+(their launchers sit under ``#ifdef __CUDACC__``; the asynchronous copy and
+the NaN-passing max / min instructions have plain stand-ins under ``#ifndef
+__CUDA_ARCH__``) and runs the bodies on host threads, the blocks of a grid
+one after the other:
 
 - the float64 tracking-MPC kernel on the ``_mpc_setup`` inputs and on a
   warm-started two-round solve,
@@ -17,8 +20,19 @@ and runs the bodies on host threads:
 each against the plain float64 ``make_update_fn`` at 1e-12 (atol + rtol;
 the two keep the same operation order and differ only in how the
 derivatives are formed and in libm's last bits), with equal ``mu_step`` and
-iteration counts.  float32 is not rehearsed: its stopping iteration is decided by
-rounding (see tests/test_torch_kernel_cuda.py RSTP_X_ATOL).
+iteration counts (float32 is not rehearsed for these: its stopping
+iteration is decided by rounding, see tests/test_torch_kernel_cuda.py
+RSTP_X_ATOL);
+
+- the rampify scan against ``scan_reference`` (a NaN limit and ``v_min`` =
+  0 among the cases) and its profiling instantiation,
+- the DP action-min against ``action_min_reference`` on the card tests'
+  three grids and at other tile heights,
+- the fused backward slice against ``backward_slice_reference`` on every
+  backward slice of a seeded scene,
+
+each **bit for bit** in float32: these kernels keep the plain versions'
+operations and their order.
 
     python -m pytest tests/test_torch_kernel_rehearsal.py -q
 """
@@ -34,6 +48,9 @@ import torch
 from tpl_tpu_torch import _build
 from tpl_tpu_torch.optim import ilqr, ilqr_rstp, ilqr_tracking_mpc as itm
 from tpl_tpu_torch.optim import problems
+from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
+from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
+from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify
 
 ATOL = 1e-12
 RTOL = 1e-12        # multipliers reach 1e2 and more (weight 1e4)
@@ -55,13 +72,20 @@ STUB = r"""
 #define __forceinline__ inline
 #define __restrict__
 #define __shared__
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 
 struct Dim3 { unsigned x, y, z; };
 inline thread_local Dim3 threadIdx{0, 0, 0};
+inline thread_local Dim3 blockIdx{0, 0, 0};
 inline const Dim3 blockDim{256, 1, 1};
-inline const Dim3 blockIdx{0, 0, 0};
+
+struct float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 
 namespace rehearsal {
 constexpr int THREADS = 256, WARP = 32;
@@ -99,21 +123,89 @@ HARNESS = r"""
 #include <vector>
 #include "ilqr_tracking_mpc.cu"
 #include "ilqr_rstp.cu"
+#include "rstp_rampify.cu"
+#include "latlon_action_min.cu"
 
 // the kernels' dynamic shared memory (an extern array declared inside a
 // function belongs to the function's namespace)
 namespace ilqr_mpc { double sm[32768]; }
 namespace ilqr_rstp { alignas(16) unsigned char smem_raw[262144]; }
+namespace rstp_rampify { alignas(16) unsigned char smem_raw[65536]; }
+namespace latlon_am { alignas(16) unsigned char smem_raw[262144]; }
 
+// A grid of gx x gy blocks of 256 threads: every host thread runs its
+// thread of each block in turn (the blocks share the one shared-memory
+// array, so they run one after the other, kept apart by a block barrier).
 template <class F>
-static void run_block(F body) {
+static void run_grid(unsigned gx, unsigned gy, F body) {
   std::vector<std::thread> pool;
   for (unsigned i = 0; i < 256; ++i)
     pool.emplace_back([=] {
       threadIdx.x = i;
-      body();
+      for (unsigned by = 0; by < gy; ++by)
+        for (unsigned bx = 0; bx < gx; ++bx) {
+          blockIdx.x = bx;
+          blockIdx.y = by;
+          body();
+          __syncthreads();
+        }
     });
   for (auto& t : pool) t.join();
+}
+
+template <class F>
+static void run_block(F body) { run_grid(1, 1, body); }
+
+extern "C" void rehearse_rampify(const float* scalars, const float* lim_v,
+                                 float* out, long long* prof, int H, int T) {
+  using namespace rstp_rampify;
+  const Args in = {scalars, scalars + 1, scalars + 2, scalars + 3,
+                   scalars + 4, scalars + 5, scalars + 6, scalars + 7, lim_v};
+  run_block([=] {
+    if (prof)
+      rstp_rampify_kernel<true>(in, out, prof, H, T);
+    else
+      rstp_rampify_kernel<false>(in, out, nullptr, H, T);
+  });
+}
+
+static latlon_am::Tables tables_of(const void* const* t) {
+  return latlon_am::Tables{
+      (const int*)t[0], (const int*)t[1], (const int*)t[2],
+      (const float*)t[3], (const float*)t[4], (const float*)t[5],
+      (const float*)t[6], (const float*)t[7], (const float*)t[8],
+      (const float*)t[9], (const float*)t[10]};
+}
+
+extern "C" void rehearse_action_min(
+    const float* nodes_next, const float* state_cost,
+    const float* state_constr, const float* d_fwd, const void* const* tables,
+    float* out, int S, int DS, int L, int ts_rows) {
+  using namespace latlon_am;
+  const Tables tb = tables_of(tables);
+  run_grid((S + ts_rows - 1) / ts_rows, DS, [=] {
+    action_min_kernel<FEW_THREADS>(
+        reinterpret_cast<const float4*>(nodes_next), state_cost, state_constr,
+        d_fwd, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg, tb.qdds, tb.qdl,
+        tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
+        reinterpret_cast<float4*>(out), S, DS, L, ts_rows);
+  });
+}
+
+extern "C" void rehearse_backward_slice(
+    const float* nodes_next, const float* dist_t, const float* ref_line,
+    const float* ref_step, const float* slice_consts,
+    const void* const* tables, float* out, int S, int DS, int L, int n_ref,
+    int slice, int ts_rows) {
+  using namespace latlon_am;
+  const Tables tb = tables_of(tables);
+  run_grid((S + ts_rows - 1) / ts_rows, DS, [=] {
+    backward_slice_kernel<FEW_THREADS>(
+        reinterpret_cast<const float4*>(nodes_next), dist_t, ref_line,
+        ref_step, slice_consts, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg, tb.qdds,
+        tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
+        reinterpret_cast<float4*>(out), S, DS, L, n_ref, slice, ts_rows);
+  });
 }
 
 extern "C" void rehearse_mpc(const double* in, double* out, long long* prof,
@@ -178,6 +270,18 @@ def bodies(tmp_path_factory):
                                   + [ctypes.c_int] * 5)
     lib.rehearse_rstp_smem.restype = ctypes.c_size_t
     lib.rehearse_rstp_smem.argtypes = [ctypes.c_int] * 3
+    lib.rehearse_rampify.restype = None
+    lib.rehearse_rampify.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    lib.rehearse_action_min.restype = None
+    lib.rehearse_action_min.argtypes = ([ctypes.c_void_p] * 6
+                                        + [ctypes.c_int] * 4)
+    lib.rehearse_backward_slice.restype = None
+    lib.rehearse_backward_slice.argtypes = ([ctypes.c_void_p] * 7
+                                            + [ctypes.c_int] * 6)
+    lib.rstp_rampify_smem_bytes.restype = ctypes.c_size_t
+    lib.rstp_rampify_smem_bytes.argtypes = [ctypes.c_int]
+    lib.latlon_action_min_tile_rows.restype = ctypes.c_int
+    lib.latlon_action_min_tile_rows.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -359,3 +463,167 @@ def test_rstp_kernel_body_in_double_matches_plain(bodies, name, T, warm):
     assert got["iterations"] == ref["iterations"]
     assert 1 <= got["iterations"] <= args[3]
     assert np.all(np.isfinite(got["x"]))
+
+
+# ---------------------------------------------------------------------
+# the rampify scan and the DP action-min, float32, bit for bit
+
+def rampify_case(H, T, seed, nan_at=None, v_min=1.0):
+    """Seeded scan inputs (the limits of tests/test_torch_kernel_cuda.py
+    rampify_args): the 8 scalars in the kernel's order, the limits, T."""
+    rng = np.random.default_rng(seed)
+    lim = np.maximum(1.0, 10.0 + np.cumsum(rng.normal(0.0, 1.0, H)))
+    lim[H // 6:H // 6 + 5] = 2.0
+    if nan_at is not None:
+        lim[nan_at] = np.nan
+    v0, a0 = rng.uniform(0.0, 12.0), rng.normal(0.0, 0.5)
+    # v0, a0, a_min, a_max, j_min, j_max, v_min, step
+    scal = np.array([v0, a0, -2.5, 2.5, -1.5, 1.5, v_min, 0.5], np.float32)
+    return scal, lim.astype(np.float32), T
+
+
+def rampify_plain(scal, lim, T):
+    t = [torch.tensor(v) for v in scal]
+    v0, a0, a_min, a_max, j_min, j_max, v_min, step = t
+    return rstp_rampify.scan_reference(v0, a0, torch.from_numpy(lim), T,
+                                       a_min, a_max, j_min, j_max, v_min,
+                                       step).numpy()
+
+
+@pytest.mark.parametrize("H,T,nan_at,v_min", [
+    (250, 250, None, 1.0), (250, 180, None, 1.0), (64, 64, None, 1.0),
+    (2, 1, None, 1.0), (250, 250, 100, 1.0), (64, 40, None, 0.0)])
+def test_rampify_kernel_body_matches_plain_bit_for_bit(bodies, H, T, nan_at,
+                                                       v_min):
+    scal, lim, T = rampify_case(H, T, H + T, nan_at, v_min)
+    assert bodies.rstp_rampify_smem_bytes(H) <= 65536
+    out = np.full((H, 2), -7.0, np.float32)
+    bodies.rehearse_rampify(_ptr(scal), _ptr(lim), _ptr(out), None, H, T)
+    want = rampify_plain(scal, lim, T)
+    # the same float32 operations in the same order; NaN rows count as equal
+    np.testing.assert_array_equal(out, want)
+    assert np.array_equal(np.isnan(out), np.isnan(want))
+    if nan_at is None:
+        assert np.all(np.isfinite(out))
+    else:
+        assert np.any(np.isnan(out))
+
+
+def test_rampify_profiling_body_is_bit_equal(bodies):
+    scal, lim, T = rampify_case(250, 200, 3)
+    out, prof_out = (np.zeros((250, 2), np.float32) for _ in range(2))
+    prof = np.zeros(len(rstp_rampify.PHASES), np.int64)
+    bodies.rehearse_rampify(_ptr(scal), _ptr(lim), _ptr(out), None, 250, T)
+    bodies.rehearse_rampify(_ptr(scal), _ptr(lim), _ptr(prof_out), _ptr(prof),
+                            250, T)
+    assert np.array_equal(out, prof_out)
+    assert np.all(prof > 0)
+
+
+def _table_ptrs(tables):
+    return (ctypes.c_void_p * len(lam.TABLE_KEYS))(*tables.ptrs)
+
+
+def action_min_case(S, DS, L, seed):
+    """Seeded slice inputs as tests/test_torch_kernel_cuda.py makes them
+    (next nodes with tabulated dds / dl, state maps, forward distances) and
+    the action tables of the default params on that grid."""
+    rng = np.random.default_rng(seed)
+    solve, _ = tllk.make_latlon_solver(
+        dict(t_steps=4, s_steps=S, ds_steps=DS, l_steps=L), "cpu")
+    pp = tllk.unpack_pp(torch.from_numpy(tllk.LatLonParams().packed()))
+    tables = solve.action_tables(pp)
+    nodes = np.stack([rng.uniform(0, 1e4, (S, DS, L)),
+                      rng.uniform(0, 5, (S, DS, L))
+                      * (rng.uniform(size=(S, DS, L)) < 0.2),
+                      rng.choice(tables["dds_vals"].numpy(), (S, DS, L)),
+                      rng.choice(tables["dl_vals"].numpy(), (S, DS, L))], -1)
+    arrays = (nodes, rng.uniform(0, 1e3, (S, DS, L)),
+              rng.uniform(0, 2, (S, DS, L)),
+              rng.uniform(-5, 60, (S, L, lam.NB)))
+    return [torch.from_numpy(a.astype(np.float32)) for a in arrays], tables
+
+
+@pytest.mark.parametrize("S,DS,L,ts_rows", [
+    (201, 37, 21, 0), (61, 9, 11, 0), (37, 5, 3, 0), (61, 9, 11, 5),
+    (37, 5, 3, 16)])
+def test_action_min_kernel_body_matches_plain_bit_for_bit(bodies, S, DS, L,
+                                                          ts_rows):
+    """The tiled kernel on the card-test grids (S not a multiple of the
+    tile, shifts past both edges), at the default tile and two others."""
+    args, tables = action_min_case(S, DS, L, S)
+    ts_rows = ts_rows or bodies.latlon_action_min_tile_rows(L)
+    assert 1 <= ts_rows and ts_rows * L <= 256
+    out = np.full((S, DS, L, 4), -7.0, np.float32)
+    bodies.rehearse_action_min(*[_ptr(a.numpy()) for a in args],
+                               _table_ptrs(tables), _ptr(out), S, DS, L,
+                               ts_rows)
+    want = lam.action_min_reference(*args, tables).numpy()
+    assert np.array_equal(out, want)
+    # shifts reach past both s edges on every grid
+    ks = tables["ks"].numpy()
+    assert ks.max() > 0 and S - 1 + ks.max() > S - 1
+
+
+def slice_case(S, DS, L, T, seed, params=None):
+    """A seeded scene for whole backward slices: a distance-ahead map with a
+    leader, a parked car and closed road edges (the scene of chip_smoke.py's
+    kernel phase, scaled to the grid), a reference line whose speed limit
+    and lane bounds vary, and the solver on that grid."""
+    rng = np.random.default_rng(seed)
+    spec = dict(t_steps=T, s_steps=S, ds_steps=DS, l_steps=L)
+    solve, _ = tllk.make_latlon_solver(spec, "cpu")
+    p = tllk.LatLonParams()
+    for k, v in (params or {}).items():
+        setattr(p, k, v)
+    dist = np.full((T, S, L, 2), 10000.0, np.float32)
+    dist[..., 0] = 10000.0 + (S - np.arange(S))[None, :, None]
+    mid = L // 2
+    for t in range(T):
+        lead = min(S - 1, S // 6 + (S // 25 + 1) * t)
+        dist[t, :lead, max(mid - 2, 0):mid + 3, 0] = (
+            lead - np.arange(lead))[:, None]
+        park = (3 * S) // 5
+        dist[t, :park, 1:max(2, L // 4), 0] = np.minimum(
+            dist[t, :park, 1:max(2, L // 4), 0],
+            (park - np.arange(park))[:, None])
+    dist[:, :, [0, L - 1], 0] = 0.0
+    dist[..., 0] += rng.uniform(0, 0.5, (T, S, L)).astype(np.float32)
+    n_ref = 2 * S + 40
+    rl = np.zeros((n_ref, 8), np.float32)
+    rl[:, 0] = np.arange(n_ref) * 0.5
+    rl[:, 4] = 14.0 - 6.0 * (np.arange(n_ref) > n_ref // 2)
+    rl[:, 5] = 4.0 - 1.5 * (np.arange(n_ref) % 50 > 30)
+    rl[:, 6] = 4.0 - 2.0 * (np.arange(n_ref) % 70 > 50)
+    dist_x, rl_t, step_t, pp = solve.prepare(dist, rl, 0.5, p.packed())
+    return solve, dist_x, rl_t, step_t, pp
+
+
+@pytest.mark.parametrize("S,DS,L,T,params", [
+    (201, 37, 21, 4, None), (61, 9, 11, 6, None), (37, 5, 3, 5, None),
+    (61, 9, 11, 5, dict(w_lat_dist=2.0, l_trg=1.5, t_st_min=2.5, s_st=20.0,
+                        t_st_max=1.5, d_lat_comf=1.0))])
+def test_backward_slice_kernel_body_matches_plain_bit_for_bit(bodies, S, DS,
+                                                              L, T, params):
+    """The fused slice kernel against ``backward_slice_reference``
+    (``slice_inputs`` + ``action_min_reference``) on every backward slice of
+    a seeded scene, chained through the plain version."""
+    solve, dist_x, rl, step, pp = slice_case(S, DS, L, T, S + T, params)
+    tables = solve.action_tables(pp)
+    ts_rows = bodies.latlon_action_min_tile_rows(L)
+    nxt = solve.final_slice(dist_x, rl, step, pp)
+    searched = 0
+    for i in range(T - 2, 0, -1):
+        want = solve.backward_slice_reference(nxt, i, dist_x, rl, step, pp,
+                                              tables)
+        out = np.full((S, DS, L, 4), -7.0, np.float32)
+        bodies.rehearse_backward_slice(
+            _ptr(nxt.numpy()), _ptr(dist_x[i].numpy()), _ptr(rl.numpy()),
+            _ptr(step.reshape(1).numpy()), _ptr(tables.slice_consts.numpy()),
+            _table_ptrs(tables), _ptr(out), S, DS, L, rl.shape[0], i, ts_rows)
+        assert np.array_equal(out, want.numpy()), f"slice {i}"
+        nxt = want
+        cost, _, d_fwd = solve.slice_inputs(i, dist_x, rl, step, pp)
+        searched += int((d_fwd < 1000.0).sum())
+    # the scene's obstacles reach the forward distances
+    assert searched > 0

@@ -225,6 +225,60 @@ def test_solve_matches_xla_backward(layout, seed):
                                    rtol=COST_RTOL)
 
 
+@pytest.mark.parametrize("layout,seed", [("stationary", 7), ("moving", 8),
+                                         ("narrow", 9)])
+def test_backward_slice_matches_xla_backward(layout, seed):
+    """``backward_slice`` (on the CPU its plain version,
+    ``backward_slice_reference``: the slice's producers and the action-min
+    in one call) on the JAX solve's next-slice nodes against the JAX
+    ``backward_slice`` (``backward="xla"``), slice by slice; tolerances as
+    for the solve."""
+    dist, rl, step, rng = _world(layout, seed)
+    p = _params()
+    nodes_j, _, _ = _jax_solve("xla", dist, rl, step, p, _x0(rng))
+    solve, _ = tllk.make_latlon_solver(SPEC, "cpu")
+    dist_x, rl_t, step_t, pp = solve.prepare(dist, rl, step, p.packed())
+    tables = solve.action_tables(pp)
+    dds_vals, dl_vals = _samples(p)
+    n_cells = n_flips = 0
+    for i in range(SPEC["t_steps"] - 2, 0, -1):
+        nxt = torch.from_numpy(nodes_j[i + 1].astype(np.float32))
+        got = solve.backward_slice(nxt, i, dist_x, rl_t, step_t, pp, tables)
+        ref = solve.backward_slice_reference(nxt, i, dist_x, rl_t, step_t,
+                                             pp, tables)
+        assert torch.equal(got, ref)
+        ins = solve.slice_inputs(i, dist_x, rl_t, step_t, pp)
+        assert torch.equal(got, lam.action_min(nxt, *ins, tables))
+        got, want = got.numpy(), nodes_j[i]
+        np.testing.assert_allclose(got[..., 0], want[..., 0],
+                                   rtol=COST_RTOL, atol=COST_ATOL)
+        np.testing.assert_allclose(got[..., 1], want[..., 1],
+                                   atol=CONSTR_ATOL, rtol=0)
+        n_cells += got[..., 0].size
+        n_flips += int(np.sum(np.any(
+            _action_ids(got, dds_vals, dl_vals)
+            != _action_ids(want, dds_vals, dl_vals), axis=-1)))
+    assert n_flips <= MAX_TIE_SHARE * n_cells, (n_flips, n_cells)
+
+
+def test_fused_slice_launch_needs_the_card_and_made_tables():
+    """The fused kernel's launch wrapper has no plain version of its own:
+    a CPU tensor raises (``backward_slice`` dispatches before it), and so do
+    tables that carry no slice constants."""
+    S, DS, L = 5, 3, 4
+    pp = tllk.unpack_pp(torch.from_numpy(tllk.LatLonParams().packed()))
+    tb = lam.make_tables(pp, torch.arange(DS, dtype=torch.float32),
+                         torch.tensor(1.0), torch.tensor(1.0),
+                         torch.tensor(1.0), DS)
+    assert tb.slice_consts.shape == (len(lam.SLICE_CONSTS),)
+    assert tb.slice_consts[lam.SLICE_CONSTS.index("w_l")] == pp["w_l"]
+    assert lam.Tables(dict(tb)).slice_consts is None
+    with pytest.raises(ValueError, match="CUDA"):
+        lam.backward_slice_launch(torch.zeros((S, DS, L, 4)),
+                                  torch.zeros((S, L)), torch.zeros((9, 8)),
+                                  torch.tensor(0.5), 1, tb)
+
+
 @pytest.mark.parametrize("layout,seed", [("stationary", 5), ("moving", 6)])
 def test_matches_pallas_backward(layout, seed):
     """The JAX package's TPU kernel (interpret mode on the CPU) is held
@@ -280,3 +334,35 @@ def test_kernel_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         lam.action_min(nodes, sc.transpose(0, 1).contiguous()
                        .transpose(0, 1), sc, dfwd, tb)
+
+
+def test_action_tables_are_checked_once_when_made():
+    """``make_tables`` returns checked :class:`Tables` that carry their
+    device pointers; a wrong table raises where the tables are made, and a
+    launch checks them only against the grid it is given."""
+    S, DS, L = 5, 3, 4
+    pp = tllk.unpack_pp(torch.from_numpy(tllk.LatLonParams().packed()))
+    tb = lam.make_tables(pp, torch.arange(DS, dtype=torch.float32),
+                         torch.tensor(1.0), torch.tensor(1.0),
+                         torch.tensor(1.0), DS)
+    assert isinstance(tb, lam.Tables) and tb.DS == DS
+    assert tb.ptrs == tuple(tb[k].data_ptr() for k in lam.TABLE_KEYS)
+    bad = dict(tb)
+    bad["ks"] = tb["ks"].float()
+    with pytest.raises(TypeError):
+        lam.Tables(bad)
+    bad = dict(tb)
+    bad["ca"] = tb["ca"][:, :, :5]
+    with pytest.raises(ValueError):
+        lam.Tables(bad)
+    # a plain dict is checked (and wrapped) on the call
+    nodes = torch.zeros((S, DS, L, 4))
+    sc = torch.zeros((S, DS, L))
+    dfwd = torch.zeros((S, L, lam.NB))
+    assert torch.equal(lam.action_min(nodes, sc, sc, dfwd, dict(tb)),
+                       lam.action_min(nodes, sc, sc, dfwd, tb))
+    # tables of another ds grid
+    with pytest.raises(ValueError):
+        lam.action_min(torch.zeros((S, DS + 1, L, 4)),
+                       torch.zeros((S, DS + 1, L)),
+                       torch.zeros((S, DS + 1, L)), dfwd, tb)

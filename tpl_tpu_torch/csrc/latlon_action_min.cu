@@ -11,17 +11,21 @@
 // XLA two-stage argmin's tie order.  The TPU kernel's padded layout and its
 // 127-row shift cap are not carried over: indices clamp to the grid edge.
 //
-// What bounds it on an H100: nothing arithmetic (about 49 x 20 flops a cell).
-// Each cell reads 49 next-slice nodes of 16 bytes, ~780 B, so one slice at
-// the demo grid (201 x 37 x 21 = 156,177 cells) moves ~120 MB through L2 and
-// the SMs; the 2.5 MB next-slice table itself stays resident in the 50 MB L2.
-// At this small grid the launch is also latency-bound (611 blocks).
-// The design answers that with one thread per cell in the node tensor's own
-// memory order (neighbouring threads on neighbouring l, so every lookup of a
-// warp is a run of contiguous float4 loads of the same target row), all four
-// channels in one 16-byte load, and the per-action tables staged once per
-// block in shared memory.  Fusing the state-cost / d_fwd producers in and
-// capturing the 8 launches of a solve in a CUDA graph are left for later.
+// What bounds it on an H100: the 49 lookups of a cell, not its ~1,050
+// operations.  Read straight from device memory they are 49 x 16 B a cell,
+// ~120 MB per slice at the demo grid (201 x 37 x 21 = 156,177 cells) through
+// L2 and L1 for a next-slice table of 2.5 MB.  But the 49 lookups of a cell
+// hit only 7 rows of that table, one per dds action: row (clamp(s + ks[ds,
+// j]), ids[ds, j]), L x 16 contiguous bytes; the 7 dl shifts move along l
+// inside it.  So a block takes one ds, a run of TS consecutive s and all l,
+// stages the 7 x TS target rows in shared memory with asynchronous 16-byte
+// copies (cp.async.cg, past L1; 7 loads from device memory per cell instead
+// of 49) and reads every lookup from there, the l shift edge-clamped.  All
+// 7 x TS rows are resident at once (27.6 KB at TS = 12, L = 21), so the
+// actions are visited in the plain order with one running best; the copies
+// of one block overlap the arithmetic of the others on its SM.  A block
+// reads only its own ds row of the action tables, into registers, and both
+// action loops are unrolled, so d_fwd's 7 values stay in registers.
 //
 // Rounding: the integer shift tables arrive precomputed (round-half-even on
 // the host side, matching jnp.round); the kernel itself rounds nothing.
@@ -29,13 +33,137 @@
 // rounds exactly like the elementwise reference.
 
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
 
-namespace {
+#include "smem_limit.cuh"
+
+namespace latlon_am {
 
 constexpr int NB = 7;           // action samples per dimension
-constexpr int THREADS = 256;
+constexpr int MAX_ROWS = 24;    // s rows of a block's tile, at most
+constexpr int MAX_THREADS = 1024;
+constexpr int FEW_THREADS = 256;    // the instantiation with more registers
+// blocks of FEW_THREADS an SM holds at least: caps the registers at 80
+constexpr int FEW_BLOCKS = 3;
 
-__global__ void __launch_bounds__(THREADS) action_min_kernel(
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// 16 bytes from device memory to shared memory, asynchronously
+__device__ __forceinline__ void copy16_async(float4* dst, const float4* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+// waits for every copy16_async of the calling thread
+__device__ __forceinline__ void copies_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::
+                   : "memory");
+#endif
+}
+
+__host__ __device__ inline size_t smem_bytes(int ts, int L) {
+  return sizeof(float4) * NB * ts * L + sizeof(float) * NB * NB;
+}
+
+// The action tables of one solve (tpl_tpu_torch latlon_action_min.py
+// TABLE_KEYS), as device pointers, in the kernels' parameter order.
+struct Tables {
+  const int *ids, *ks, *kl;
+  const float *ca, *schg, *qdds, *qdl, *dds_vals, *dl_vals, *dss, *consts;
+};
+
+// Stages what every cell of the block's tile looks up: the 7 target rows
+// per s of the tile, one per dds action, as rows (NB, ts_rows, L), and the
+// block's ds row of the slope constraints as s_ca (j, m).  The caller waits
+// (copies_wait) and synchronises.
+__device__ __forceinline__ void stage_lookups(
+    float4* rows, float* s_ca, const float4* __restrict__ nodes_next,
+    const Tables& tb, int ds, int s0, int S, int DS, int L, int tile) {
+  for (int k = threadIdx.x; k < NB * tile; k += blockDim.x) {
+    const int j = k / tile;
+    const int r = k - j * tile;
+    const int st = clampi(s0 + r / L + tb.ks[ds * NB + j], 0, S - 1);
+    copy16_async(rows + k, nodes_next
+                 + ((size_t)(st * DS + tb.ids[ds * NB + j]) * L + r % L));
+  }
+  for (int k = threadIdx.x; k < NB * NB; k += blockDim.x)
+    s_ca[k] = tb.ca[ds * NB * NB + k];
+}
+
+struct Best {
+  float cost, constr, dds, dl;
+};
+
+// The lexicographic (constraint, cost) minimum over the 7 x 7 actions of one
+// cell, dl outer and dds inner (the XLA flattening order of the argmin),
+// first minimum winning.  my_rows: the staged rows of the cell's s, entry
+// (j, lt) at my_rows[j * tile + lt]; dfwd: the cell's 7 forward distances.
+__device__ __forceinline__ Best best_action(
+    const float4* my_rows, const float* s_ca, const Tables& tb,
+    const float (&dfwd)[NB], int ds, int l, int L, int tile) {
+  const float gap_min = tb.consts[0], time_gap = tb.consts[1];
+  const float w_safety = tb.consts[2], w_ddds = tb.consts[3];
+  const float w_ddl = tb.consts[4];
+  const float ds_gap = tb.dss[ds] * time_gap;
+
+  float sc[NB], dds_v[NB], q_dds[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    sc[j] = tb.schg[ds * NB + j];
+    dds_v[j] = tb.dds_vals[j];
+    q_dds[j] = tb.qdds[j];
+  }
+
+  Best b = {0.f, 0.f, 0.f, 0.f};
+  bool first = true;
+#pragma unroll
+  for (int m = 0; m < NB; ++m) {
+    const int lt = clampi(l + tb.kl[m], 0, L - 1);
+    const float d_safety = (dfwd[m] - gap_min) - ds_gap;
+    const float qdl_m = tb.qdl[m];
+    const float dl_v = tb.dl_vals[m];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const float4 nn = my_rows[j * tile + lt];
+
+      const float occ = fmaxf(0.f, sc[j] - dfwd[m]);
+      const float constr = (s_ca[j * NB + m] + occ) + nn.y;
+
+      float cost = w_safety * fmaxf(0.f, sc[j] - d_safety);
+      cost = cost + q_dds[j];
+      const float e_dds = nn.z - dds_v[j];
+      cost = cost + w_ddds * (e_dds * e_dds);
+      cost = cost + qdl_m;
+      const float e_dl = nn.w - dl_v;
+      cost = cost + w_ddl * (e_dl * e_dl);
+      cost = cost + nn.x;
+
+      if (first || constr < b.constr ||
+          (constr == b.constr && cost < b.cost)) {
+        b.constr = constr;
+        b.cost = cost;
+        b.dds = dds_v[j];
+        b.dl = dl_v;
+        first = false;
+      }
+    }
+  }
+  return b;
+}
+
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == FEW_THREADS ? FEW_BLOCKS
+                                                                  : 1)
+action_min_kernel(
     const float4* __restrict__ nodes_next,   // (S, DS, L) x 4 channels
     const float* __restrict__ state_cost,    // (S, DS, L)
     const float* __restrict__ state_constr,  // (S, DS, L)
@@ -53,126 +181,325 @@ __global__ void __launch_bounds__(THREADS) action_min_kernel(
     const float* __restrict__ consts,        // gap_min, time_gap, w_safety,
                                              // w_ddds, w_ddl
     float4* __restrict__ out,                // (S, DS, L) x 4 channels
-    int S, int DS, int L) {
-  extern __shared__ float smem[];
-  float* s_ca = smem;                          // DS * NB * NB
-  float* s_schg = s_ca + DS * NB * NB;         // DS * NB
-  float* s_dss = s_schg + DS * NB;             // DS
-  float* s_act = s_dss + DS;                   // 4 * NB + 5
-  int* s_ids = reinterpret_cast<int*>(s_act + 4 * NB + 5);  // DS * NB
-  int* s_ks = s_ids + DS * NB;                 // DS * NB
-  int* s_kl = s_ks + DS * NB;                  // NB
+    int S, int DS, int L, int ts_rows) {
+  // (the tables arrive as read-only kernel parameters of their own, which
+  // is what lets the compiler keep their loads out of the way)
+  const Tables tb = {ids, ks, kl, ca, schg, qdds, qdl, dds_vals, dl_vals,
+                     dss, consts};
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* rows = reinterpret_cast<float4*>(smem_raw);   // (NB, ts_rows, L)
+  float* s_ca = reinterpret_cast<float*>(rows + NB * ts_rows * L);  // (j, m)
 
-  for (int k = threadIdx.x; k < DS * NB * NB; k += blockDim.x) s_ca[k] = ca[k];
-  for (int k = threadIdx.x; k < DS * NB; k += blockDim.x) {
-    s_schg[k] = schg[k];
-    s_ids[k] = ids[k];
-    s_ks[k] = ks[k];
-  }
-  for (int k = threadIdx.x; k < DS; k += blockDim.x) s_dss[k] = dss[k];
-  if (threadIdx.x < NB) {
-    const int m = threadIdx.x;
-    s_act[m] = qdds[m];
-    s_act[NB + m] = qdl[m];
-    s_act[2 * NB + m] = dds_vals[m];
-    s_act[3 * NB + m] = dl_vals[m];
-    s_kl[m] = kl[m];
-  }
-  if (threadIdx.x < 5) s_act[4 * NB + threadIdx.x] = consts[threadIdx.x];
+  const int tid = threadIdx.x;
+  const int ds = blockIdx.y;
+  const int s0 = blockIdx.x * ts_rows;
+  const int tile = ts_rows * L;
+  stage_lookups(rows, s_ca, nodes_next, tb, ds, s0, S, DS, L, tile);
+  copies_wait();
   __syncthreads();
 
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= S * DS * L) return;
-  const int l = cell % L;
-  const int ds = (cell / L) % DS;
-  const int s = cell / (L * DS);
-
-  const float gap_min = s_act[4 * NB + 0];
-  const float time_gap = s_act[4 * NB + 1];
-  const float w_safety = s_act[4 * NB + 2];
-  const float w_ddds = s_act[4 * NB + 3];
-  const float w_ddl = s_act[4 * NB + 4];
-  const float ds_gap = s_dss[ds] * time_gap;
+  const int row = tid / L;
+  const int l = tid - row * L;
+  const int s = s0 + row;
+  if (tid >= tile || s >= S) return;
+  const int cell = (s * DS + ds) * L + l;
 
   float dfwd[NB];
   const float* dfwd_cell = d_fwd + (s * L + l) * NB;
 #pragma unroll
   for (int m = 0; m < NB; ++m) dfwd[m] = dfwd_cell[m];
 
-  float b_constr = 0.f, b_cost = 0.f, b_dds = 0.f, b_dl = 0.f;
-  bool first = true;
+  const Best b = best_action(rows + row * L, s_ca, tb, dfwd, ds, l, L, tile);
+  out[cell] = make_float4(state_cost[cell] + b.cost,
+                          state_constr[cell] + b.constr, b.dds, b.dl);
+}
 
-  // dl outer, dds inner: the XLA flattening order of the argmin
-#pragma unroll 1
-  for (int m = 0; m < NB; ++m) {
-    const int lt = min(max(l + s_kl[m], 0), L - 1);
-    const float d_safety = (dfwd[m] - gap_min) - ds_gap;
-    const float qdl_m = s_act[NB + m];
-    const float dl_v = s_act[3 * NB + m];
+// The per-solve scalars of the fused slice, in the order of
+// latlon_action_min.py SLICE_CONSTS.
+enum SliceConst {
+  C_S_MIN, C_S_STEP, C_L_MIN, C_L_STEP, C_DT, C_DT_START, C_LENGTH_VEH,
+  C_WIDTH_VEH, C_D_LAT_COMF, C_L_TRG, C_W_L, C_W_LAT_DIST, C_W_PROGRESS,
+  C_T_ST_MIN, C_T_ST_MAX, C_S_ST, C_W_ST, N_SLICE_CONST
+};
+
+__host__ __device__ inline size_t slice_smem_bytes(int ts, int L) {
+  // the lookups, the tile's rows of the distance map, the d_fwd l indices
+  return smem_bytes(ts, L) + sizeof(float) * ts * L + sizeof(int) * L * NB;
+}
+
+// One whole backward slice: what the plain version computes with some
+// hundred tensor operations before the action-min (the state cost and
+// constraint of every cell, with the nearest reference-line row, the two
+// first-obstacle searches along l and the mid-lane target, and the 7
+// forward distances with their per-side running minimum), computed per cell
+// from the tile's rows of the distance map in shared memory, then the
+// action-min above.  Every expression keeps the plain version's operations
+// and their order (reference: lat_lon_planner.cu:80-192 computed the same
+// per cell inside its backward step).
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == FEW_THREADS ? FEW_BLOCKS
+                                                                  : 1)
+backward_slice_kernel(
+    const float4* __restrict__ nodes_next,   // (S, DS, L) x 4 channels
+    const float* __restrict__ dist_t,        // (S, L) distance ahead
+    const float* __restrict__ ref_line,      // (n_ref, 8)
+    const float* __restrict__ ref_step,      // one value
+    const float* __restrict__ sc,            // SliceConst
+    const int* __restrict__ ids,             // (DS, NB) target ds row
+    const int* __restrict__ ks,              // (DS, NB) s shift (cells)
+    const int* __restrict__ kl,              // (NB,)    l shift (cells)
+    const float* __restrict__ ca,            // (DS, NB, NB) slope constr
+    const float* __restrict__ schg,          // (DS, NB) s change
+    const float* __restrict__ qdds,          // (NB,)
+    const float* __restrict__ qdl,           // (NB,)
+    const float* __restrict__ dds_vals,      // (NB,)
+    const float* __restrict__ dl_vals,       // (NB,)
+    const float* __restrict__ dss,           // (DS,)
+    const float* __restrict__ consts,        // gap_min, time_gap, w_safety,
+                                             // w_ddds, w_ddl
+    float4* __restrict__ out,                // (S, DS, L) x 4 channels
+    int S, int DS, int L, int n_ref, int slice, int ts_rows) {
+  // (the tables arrive as read-only kernel parameters of their own, which
+  // is what lets the compiler keep their loads out of the way)
+  const Tables tb = {ids, ks, kl, ca, schg, qdds, qdl, dds_vals, dl_vals,
+                     dss, consts};
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* rows = reinterpret_cast<float4*>(smem_raw);   // (NB, ts_rows, L)
+  float* s_ca = reinterpret_cast<float*>(rows + NB * ts_rows * L);  // (j, m)
+  float* dist = s_ca + NB * NB;                         // (ts_rows, L)
+  int* il2 = reinterpret_cast<int*>(dist + ts_rows * L);   // (L, NB)
+
+  const int tid = threadIdx.x;
+  const int ds = blockIdx.y;
+  const int s0 = blockIdx.x * ts_rows;
+  const int tile = ts_rows * L;
+  const float l_min = sc[C_L_MIN], l_step = sc[C_L_STEP], dt = sc[C_DT];
+
+  stage_lookups(rows, s_ca, nodes_next, tb, ds, s0, S, DS, L, tile);
+  for (int k = tid; k < tile; k += blockDim.x)
+    dist[k] = dist_t[clampi(s0 + k / L, 0, S - 1) * L + k % L];
+  // the l index each dl action's lateral sweep reads, per l
+  for (int k = tid; k < L * NB; k += blockDim.x) {
+    const float l_g = l_min + (float)(k / NB) * l_step;
+    const float at = rintf(((l_g + tb.dl_vals[k % NB] * dt) - l_min) / l_step);
+    il2[k] = (int)fminf(fmaxf(at, 0.f), (float)(L - 1));
+  }
+  copies_wait();
+  __syncthreads();
+
+  const int row = tid / L;
+  const int l = tid - row * L;
+  const int s = s0 + row;
+  if (tid >= tile || s >= S) return;
+  const int cell = (s * DS + ds) * L + l;
+
+  const float s_g = sc[C_S_MIN] + (float)s * sc[C_S_STEP];
+  const float l_g = l_min + (float)l * l_step;
+  const float ds_g = tb.dss[ds];
+  const float t = sc[C_DT_START] + (float)(slice - 1) * dt;
+  const float half_len = sc[C_LENGTH_VEH] * 0.5f;
+  const float* drow = dist + row * L;
+
+  // the nearest reference-line row (round half to even)
+  const float at = rintf(s_g / *ref_step);
+  const float* rl =
+      ref_line + (size_t)(int)fminf(fmaxf(at, 0.f), (float)(n_ref - 1)) * 8;
+  const float v_max_ref = rl[4];
+  const float half_width = sc[C_WIDTH_VEH] * 0.5f;
+  const float d_left_ref = rl[5] - half_width;
+  const float d_right_ref = -(rl[6] - half_width);
+
+  // the first l offset to each side whose distance ahead is too short
+  const float mean_dist = fmaxf(ds_g * dt, half_len);
+  int i_left = 0, i_right = 0;
+  bool found_left = false, found_right = false;
+  for (int k = 0; k < L; ++k)
+    if (drow[clampi(l + k, 0, L - 1)] < mean_dist) {
+      i_left = k;
+      found_left = true;
+      break;
+    }
+  for (int k = 0; k < L; ++k)
+    if (drow[clampi(l - k, 0, L - 1)] < mean_dist) {
+      i_right = k;
+      found_right = true;
+      break;
+    }
+  const float l_left = found_left ? l_g + (float)i_left * l_step : 0.f;
+  const float l_right = found_right ? l_g - (float)i_right * l_step : 0.f;
+  const float mid = l_right + (l_left - l_right) * 0.5f;
+  const float mid_y = fminf(l_right + sc[C_D_LAT_COMF], mid);
+  const float mid_z = fmaxf(l_left - sc[C_D_LAT_COMF], mid);
+  const float l_trg = sc[C_L_TRG];
+  const float mid_x =
+      l_trg < l_right ? mid_y : (l_trg > l_left ? mid_z : l_trg);
+
+  // the state cost and constraint, term by term
+  float cost = 1000.f * fmaxf(l_g - d_left_ref, 0.f);
+  cost = cost + 1000.f * fmaxf(d_right_ref - l_g, 0.f);
+  float e = mid_x - l_g;
+  cost = cost + sc[C_W_L] * (e * e);
+  e = mid_y - l_g;
+  cost = cost + (l_g < mid_y ? sc[C_W_LAT_DIST] * (e * e) : 0.f);
+  e = mid_z - l_g;
+  cost = cost + (l_g > mid_z ? sc[C_W_LAT_DIST] * (e * e) : 0.f);
+  cost = cost + sc[C_W_PROGRESS] * (1000.f - s_g);
+  const float constr = ds_g > v_max_ref ? ds_g - v_max_ref : 0.f;
+  const float s_st = sc[C_S_ST], w_st = sc[C_W_ST];
+  cost = cost + (t < sc[C_T_ST_MIN] ? w_st * fmaxf(s_g - s_st, 0.f) : 0.f);
+  cost = cost + (t > sc[C_T_ST_MAX] ? w_st * fmaxf(s_st - s_g, 0.f) : 0.f);
+
+  // the forward distances: center, then the running minimum to each side
+  float dfwd[NB];
+  const int* il2_l = il2 + l * NB;
+  dfwd[0] = drow[il2_l[0]];
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      const int a = ds * NB + j;
-      const int st = min(max(s + s_ks[a], 0), S - 1);
-      const float4 nn = nodes_next[(st * DS + s_ids[a]) * L + lt];
-      const float sc = s_schg[a];
-      const float dds_v = s_act[2 * NB + j];
+  for (int m = 1; m < NB; ++m)
+    dfwd[m] = fminf(m == NB / 2 + 1 ? dfwd[0] : dfwd[m - 1], drow[il2_l[m]]);
+#pragma unroll
+  for (int m = 0; m < NB; ++m) dfwd[m] = dfwd[m] - half_len;
 
-      const float occ = fmaxf(0.f, sc - dfwd[m]);
-      const float constr = (s_ca[a * NB + m] + occ) + nn.y;
+  const Best b = best_action(rows + row * L, s_ca, tb, dfwd, ds, l, L, tile);
+  out[cell] = make_float4(cost + b.cost, constr + b.constr, b.dds, b.dl);
+}
 
-      float cost = w_safety * fmaxf(0.f, sc - d_safety);
-      cost = cost + s_act[j];                     // qdds
-      const float e_dds = nn.z - dds_v;
-      cost = cost + w_ddds * (e_dds * e_dds);
-      cost = cost + qdl_m;
-      const float e_dl = nn.w - dl_v;
-      cost = cost + w_ddl * (e_dl * e_dl);
-      cost = cost + nn.x;
+// an empty kernel, to time a launch of the same shape
+__global__ void empty_kernel() {}
 
-      if (first || constr < b_constr ||
-          (constr == b_constr && cost < b_cost)) {
-        b_constr = constr;
-        b_cost = cost;
-        b_dds = dds_v;
-        b_dl = dl_v;
-        first = false;
-      }
+}  // namespace latlon_am
+
+// The s rows of a block's tile at L lateral cells.  A block has one thread
+// per cell of its tile, in whole warps, so the height is chosen to fill the
+// warps' lanes (L = 21: 12 rows, 252 of 256 lanes; 8 rows would idle 24 of
+// 192), the largest such within FEW_THREADS; 0 where even one row has too
+// many cells.
+extern "C" int latlon_action_min_tile_rows(int L) {
+  using namespace latlon_am;
+  int best = 0;
+  float best_fill = 0.f;
+  for (int rows = 1; rows <= MAX_ROWS; ++rows) {
+    const int cells = rows * L;
+    if (cells > MAX_THREADS || (best && cells > FEW_THREADS)) break;
+    const float fill = (float)cells / (float)((cells + 31) / 32 * 32);
+    if (fill >= best_fill) {
+      best = rows;
+      best_fill = fill;
     }
   }
-
-  out[cell] = make_float4(state_cost[cell] + b_cost,
-                          state_constr[cell] + b_constr, b_dds, b_dl);
+  return best;
 }
 
-}  // namespace
+extern "C" int latlon_n_slice_consts() { return latlon_am::N_SLICE_CONST; }
 
-extern "C" size_t latlon_action_min_smem_bytes(int DS) {
-  return sizeof(float) * (DS * NB * NB + DS * NB + DS + 4 * NB + 5) +
-         sizeof(int) * (2 * DS * NB + NB);
+#ifdef __CUDACC__
+namespace latlon_am {
+
+// the launch shape of a tile of ts_rows rows (0: the default height)
+struct Shape {
+  int ts_rows, threads;
+  dim3 grid;
+  bool few, ok;
+};
+
+inline Shape shape_of(int S, int DS, int L, int ts_rows) {
+  Shape sh;
+  sh.ts_rows = ts_rows > 0 ? ts_rows : latlon_action_min_tile_rows(L);
+  sh.ok = sh.ts_rows > 0 && sh.ts_rows * L <= MAX_THREADS && DS <= 65535;
+  if (!sh.ok) return sh;
+  sh.grid = dim3((S + sh.ts_rows - 1) / sh.ts_rows, DS);
+  sh.threads = (sh.ts_rows * L + 31) / 32 * 32;
+  sh.few = sh.threads <= FEW_THREADS;
+  return sh;
 }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// Allocates nothing and does not synchronise.
+inline Tables tables_of(const void* const* t) {
+  return Tables{
+      static_cast<const int*>(t[0]), static_cast<const int*>(t[1]),
+      static_cast<const int*>(t[2]), static_cast<const float*>(t[3]),
+      static_cast<const float*>(t[4]), static_cast<const float*>(t[5]),
+      static_cast<const float*>(t[6]), static_cast<const float*>(t[7]),
+      static_cast<const float*>(t[8]), static_cast<const float*>(t[9]),
+      static_cast<const float*>(t[10])};
+}
+
+}  // namespace latlon_am
+
+// Launches on `stream` with tiles of `ts_rows` s rows (0: the default,
+// latlon_action_min_tile_rows) and returns cudaGetLastError() (0 on
+// success).  Allocates nothing and does not synchronise.
+extern "C" int latlon_action_min_tiled(
+    const void* nodes_next, const void* state_cost, const void* state_constr,
+    const void* d_fwd, const void* ids, const void* ks, const void* kl,
+    const void* ca, const void* schg, const void* qdds, const void* qdl,
+    const void* dds_vals, const void* dl_vals, const void* dss,
+    const void* consts, void* out, int S, int DS, int L, int ts_rows,
+    void* stream) {
+  using namespace latlon_am;
+  const Shape sh = shape_of(S, DS, L, ts_rows);
+  if (!sh.ok) return (int)cudaErrorInvalidValue;
+  static smem_limit::Marks marks[2];
+  const size_t smem = smem_bytes(sh.ts_rows, L);
+  auto kernel = sh.few ? action_min_kernel<FEW_THREADS>
+                       : action_min_kernel<MAX_THREADS>;
+  cudaError_t err = smem_limit::ensure(kernel, smem, marks[sh.few]);
+  if (err != cudaSuccess) return (int)err;
+  const void* const t[] = {ids, ks, kl, ca, schg, qdds, qdl, dds_vals,
+                           dl_vals, dss, consts};
+  const Tables tb = tables_of(t);
+  kernel<<<sh.grid, sh.threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(nodes_next),
+      static_cast<const float*>(state_cost),
+      static_cast<const float*>(state_constr),
+      static_cast<const float*>(d_fwd), tb.ids, tb.ks, tb.kl, tb.ca, tb.schg,
+      tb.qdds, tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
+      static_cast<float4*>(out), S, DS, L, sh.ts_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One whole backward slice (backward_slice_kernel) at the default tile:
+// `tables` holds the 11 table pointers in the order of latlon_am::Tables,
+// `slice` is the slice's index i (its time is dt_start + (i - 1) dt).
+extern "C" int latlon_backward_slice(
+    const void* nodes_next, const void* dist_t, const void* ref_line,
+    const void* ref_step, const void* slice_consts, const void* const* tables,
+    void* out, int S, int DS, int L, int n_ref, int slice, void* stream) {
+  using namespace latlon_am;
+  const Shape sh = shape_of(S, DS, L, 0);
+  if (!sh.ok || n_ref < 1) return (int)cudaErrorInvalidValue;
+  static smem_limit::Marks marks[2];
+  const size_t smem = slice_smem_bytes(sh.ts_rows, L);
+  auto kernel = sh.few ? backward_slice_kernel<FEW_THREADS>
+                       : backward_slice_kernel<MAX_THREADS>;
+  cudaError_t err = smem_limit::ensure(kernel, smem, marks[sh.few]);
+  if (err != cudaSuccess) return (int)err;
+  const Tables tb = tables_of(tables);
+  kernel<<<sh.grid, sh.threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(nodes_next),
+      static_cast<const float*>(dist_t), static_cast<const float*>(ref_line),
+      static_cast<const float*>(ref_step),
+      static_cast<const float*>(slice_consts), tb.ids, tb.ks, tb.kl, tb.ca,
+      tb.schg, tb.qdds, tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
+      static_cast<float4*>(out), S, DS, L, n_ref, slice, sh.ts_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same at the default tile.
 extern "C" int latlon_action_min(
     const void* nodes_next, const void* state_cost, const void* state_constr,
     const void* d_fwd, const void* ids, const void* ks, const void* kl,
     const void* ca, const void* schg, const void* qdds, const void* qdl,
     const void* dds_vals, const void* dl_vals, const void* dss,
     const void* consts, void* out, int S, int DS, int L, void* stream) {
-  const int cells = S * DS * L;
-  const int blocks = (cells + THREADS - 1) / THREADS;
-  const size_t smem = latlon_action_min_smem_bytes(DS);
-  action_min_kernel<<<blocks, THREADS, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(nodes_next),
-      static_cast<const float*>(state_cost),
-      static_cast<const float*>(state_constr),
-      static_cast<const float*>(d_fwd), static_cast<const int*>(ids),
-      static_cast<const int*>(ks), static_cast<const int*>(kl),
-      static_cast<const float*>(ca), static_cast<const float*>(schg),
-      static_cast<const float*>(qdds), static_cast<const float*>(qdl),
-      static_cast<const float*>(dds_vals), static_cast<const float*>(dl_vals),
-      static_cast<const float*>(dss), static_cast<const float*>(consts),
-      static_cast<float4*>(out), S, DS, L);
+  return latlon_action_min_tiled(nodes_next, state_cost, state_constr, d_fwd,
+                                 ids, ks, kl, ca, schg, qdds, qdl, dds_vals,
+                                 dl_vals, dss, consts, out, S, DS, L, 0,
+                                 stream);
+}
+
+// Launches an empty kernel of `blocks` x `threads` on `stream`.
+extern "C" int latlon_empty_launch(int blocks, int threads, void* stream) {
+  latlon_am::empty_kernel<<<blocks, threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
+#endif

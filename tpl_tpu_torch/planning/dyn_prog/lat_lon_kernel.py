@@ -5,8 +5,11 @@ rollout, as PyTorch tensor programs on one device.
 
 Re-design of the reference's CUDA value iteration (reference:
 library/src/dyn_prog/lat_lon_planner.cu): each backward time slice is one
-whole-grid evaluation of the state costs followed by the hand-written
-action-min kernel (latlon_action_min.py); the CUDA texture value lookups
+launch of the hand-written fused slice kernel (latlon_action_min.py
+backward_slice_launch: the state costs, the forward distances and the
+action-min of every cell) on a CUDA device and, as its plain version on the
+CPU, a whole-grid evaluation of the state costs followed by the plain
+action-min; the CUDA texture value lookups
 (point for backward, trilinear for forward, arr_tex_surf.cuh:136-167)
 become explicit round-index lookups / manual trilinear interpolation.
 The whole solve runs in float32.
@@ -321,6 +324,27 @@ def make_latlon_solver(spec, device):
         _ss, dss, _lls, s_step, ds_step, l_step = grids(pp)
         return lam.make_tables(pp, dss, s_step, ds_step, l_step, DS)
 
+    def backward_slice_reference(nodes_next, i, dist_x, ref_line, ref_step,
+                                 pp, tables):
+        """Backward slice i from the next slice's nodes, as tensor
+        operations: the plain version of :func:`backward_slice`."""
+        return lam.action_min_reference(
+            nodes_next, *slice_inputs(i, dist_x, ref_line, ref_step, pp),
+            tables)
+
+    def backward_slice(nodes_next, i, dist_x, ref_line, ref_step, pp,
+                       tables):
+        """Backward slice i (S, DS, L, 4) from the next slice's nodes: one
+        launch of the fused kernel on a CUDA device
+        (``latlon_action_min.backward_slice_launch``), the plain version on
+        the CPU."""
+        if nodes_next.device.type == "cpu":
+            return backward_slice_reference(nodes_next, i, dist_x, ref_line,
+                                            ref_step, pp, tables)
+        return lam.backward_slice_launch(
+            nodes_next, dist_x[min(max(i, 0), T - 1)], ref_line, ref_step, i,
+            tables)
+
     def final_slice(dist_x, ref_line, ref_step, pp):
         """Slice T-1: state cost + finalState (lat_lon_planner.cu:66-78)."""
         _ss, _dss, lls, _s_step, _ds_step, _l_step = grids(pp)
@@ -552,9 +576,8 @@ def make_latlon_solver(spec, device):
         tables = action_tables(pp)
         slices = [final_slice(dist_x, ref_line, ref_step, pp)]
         for i in range(T - 2, 0, -1):
-            slices.append(lam.action_min(
-                slices[-1], *slice_inputs(i, dist_x, ref_line, ref_step, pp),
-                tables))
+            slices.append(backward_slice(slices[-1], i, dist_x, ref_line,
+                                         ref_step, pp, tables))
         slices.append(torch.zeros((S, DS, L, 4), dtype=f32, device=dev))
         nodes = torch.stack(slices[::-1])             # (T, S, DS, L, 4)
 
@@ -649,11 +672,15 @@ def make_latlon_solver(spec, device):
 
     # stage access for kernel checks: prepare() converts solve's inputs,
     # final_slice(...) is slice T-1, slice_inputs(i, ...) and
-    # action_tables(pp) are what action_min takes for slice i
+    # action_tables(pp) are what action_min takes for slice i,
+    # backward_slice(...) is what solve runs per slice (the fused kernel on
+    # a CUDA device) and backward_slice_reference(...) its plain version
     solve.prepare = _inputs
     solve.final_slice = final_slice
     solve.slice_inputs = slice_inputs
     solve.action_tables = action_tables
+    solve.backward_slice = backward_slice
+    solve.backward_slice_reference = backward_slice_reference
     return solve, reeval
 
 

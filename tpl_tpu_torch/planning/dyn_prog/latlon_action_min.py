@@ -12,8 +12,14 @@ make_action_min)
 
 :func:`action_min` runs the hand-written CUDA kernel
 (``csrc/latlon_action_min.cu``) on a CUDA tensor and the plain PyTorch
-version :func:`action_min_reference` on a CPU tensor.  ``launches`` counts
-kernel launches.
+version :func:`action_min_reference` on a CPU tensor.
+:func:`backward_slice_launch` launches the same source's fused kernel, which
+also computes what the action-min consumes (the slice's state costs and
+forward distances) per cell; the solve goes through it
+(``lat_lon_kernel``'s ``backward_slice``).  ``launches`` counts the
+launches of either, ``slice_launches`` those of the fused kernel.  The
+action tables are checked once, where :func:`make_tables` makes them
+(:class:`Tables`).
 """
 
 import ctypes
@@ -24,8 +30,13 @@ import torch
 from tpl_tpu_torch import _latency
 
 NB = 7              # backward action samples per dimension
+MAX_DS = 65535      # the kernel's grid has one block row per ds
 
-launches = 0        # kernel launches since import (reset freely)
+# kernel launches since import (reset freely): every launch of the source's
+# action-min, alone (action_min) or with the slice's producers fused in
+# (backward_slice_launch), and those of the fused kernel alone
+launches = 0
+slice_launches = 0
 
 # Operations of one action of one cell as the plain version defines them
 # (the occupancy and safety clamps, the five cost terms, the next node's
@@ -41,6 +52,13 @@ CHAIN_CELL = dict(smem_load=1, f32_add=12, f32_mul=2)
 TABLE_KEYS = ("ids", "ks", "kl", "ca", "schg", "qdds", "qdl", "dds_vals",
               "dl_vals", "dss", "consts")
 _INT_TABLES = ("ids", "ks", "kl")
+# the per-solve scalars the fused backward slice reads beside the tables
+# (enum SliceConst of csrc/latlon_action_min.cu): params and grid steps
+SLICE_CONSTS = ("s_min", "s_step", "l_min", "l_step", "dt", "dt_start",
+                "length_veh", "width_veh", "d_lat_comf", "l_trg", "w_l",
+                "w_lat_dist", "w_progress", "t_st_min", "t_st_max", "s_st",
+                "w_spatio_temporal")
+REF_LINE_CHANNELS = 8
 
 
 def div_const(x, n):
@@ -99,9 +117,13 @@ def make_tables(pp, dss, s_step, ds_step, l_step, DS):
     qdl = pp["w_dl"] * (dl_s * dt) ** 2
     consts = torch.stack([pp["gap_min"], pp["time_gap"],
                           pp["w_safety_dist"], pp["w_ddds"], pp["w_ddl"]])
-    return dict(ids=ids.contiguous(), ks=ks.contiguous(), kl=kl, ca=ca,
-                schg=s_change, qdds=qdds, qdl=qdl, dds_vals=dds_s,
-                dl_vals=dl_s, dss=dss.contiguous(), consts=consts)
+    scalars = dict(pp, s_step=s_step, l_step=l_step)
+    slice_consts = torch.stack([scalars[k].reshape(()).to(torch.float32)
+                                for k in SLICE_CONSTS])
+    return Tables(dict(ids=ids.contiguous(), ks=ks.contiguous(), kl=kl,
+                       ca=ca, schg=s_change, qdds=qdds, qdl=qdl,
+                       dds_vals=dds_s, dl_vals=dl_s, dss=dss.contiguous(),
+                       consts=consts), slice_consts)
 
 
 def action_min_reference(nodes_next, state_cost, state_constr, d_fwd,
@@ -188,6 +210,55 @@ def bound_ms(S, DS, L):
                                 operations(S, DS, L), "float32")
 
 
+# Operations of the fused slice beside its action-min, as the plain version
+# (lat_lon_kernel.py slice_inputs) defines them.  Per cell: the two
+# first-offset searches (per offset a comparison, a step of the first-true
+# search and a step of the any-reduction, on each side), the bounds and the
+# mid-lane target (4 + 13), the state cost's and constraint's terms (32).
+# Per (s, l): 7 lookups, 6 running minima, 7 subtractions.  Per s: its grid
+# value (2), the reference row's index (4) and the two lane bounds (3).  Per
+# (l, dl): the swept l index (6).  Per ds: its grid value and mean distance
+# (4).
+SLICE_OPS = dict(cell_per_offset=6, cell=49, s_l=20, s=9, l_dl=6, ds=4)
+# the fused cell's critical path beside the action-min's: the reference
+# row's division, its load and the state cost's longest chain of terms
+CHAIN_SLICE_CELL = dict(f32_div=1, smem_load=2, f32_add=12, f32_mul=4)
+
+
+def slice_traffic_bytes(S, DS, L):
+    """Bytes one fused slice must move: the next nodes, the slice's
+    distance map, the S reference-line rows it looks up, the reference
+    step, the slice constants and the action tables read once, the nodes
+    written once (all 4-byte words)."""
+    cells = S * DS * L
+    tables = (3 * DS * NB + NB) + DS * NB * NB + DS * NB + 4 * NB + DS + 5
+    return 4 * (4 * cells + S * L + S * REF_LINE_CHANNELS + 1
+                + len(SLICE_CONSTS) + tables + 4 * cells)
+
+
+def slice_operations(S, DS, L):
+    """Operations of one fused slice: its action-min's and the producers'."""
+    o = SLICE_OPS
+    return (operations(S, DS, L)
+            + S * DS * L * (o["cell_per_offset"] * L + o["cell"])
+            + S * L * o["s_l"] + S * o["s"] + L * NB * o["l_dl"]
+            + DS * o["ds"])
+
+
+def slice_bound_ms(S, DS, L):
+    """(ms, "bytes" or "operations"): the roofline bound of one fused
+    slice."""
+    return _latency.roofline_ms(slice_traffic_bytes(S, DS, L),
+                                slice_operations(S, DS, L), "float32")
+
+
+def slice_chain_ms(cycles, sm_mhz):
+    """The fused cell's critical path: the producers' chain, then the
+    action-min's."""
+    ops = _latency.add_ops(dict(CHAIN_CELL), CHAIN_SLICE_CELL, 1)
+    return _latency.chain_ms(ops, cycles, sm_mhz)
+
+
 def chain_ops():
     """Dependent operations on one cell's critical path (the cells are
     independent, so the slice's path is one cell's)."""
@@ -200,33 +271,65 @@ def chain_ms(cycles, sm_mhz):
     return _latency.chain_ms(chain_ops(), cycles, sm_mhz)
 
 
+class Tables(dict):
+    """The action tables of one solve (the keys of :data:`TABLE_KEYS`),
+    checked once when they are made: shapes, types, one device, contiguous.
+    A launch then takes their device pointers from ``ptrs`` and checks only
+    the per-slice tensors.  ``slice_consts`` holds the scalars of
+    :data:`SLICE_CONSTS` for the fused backward slice (None where the tables
+    were not made by :func:`make_tables`).  Read-only after construction."""
+
+    def __init__(self, items, slice_consts=None):
+        super().__init__(items)
+        DS = self["dss"].shape[0]
+        dev = self["dss"].device
+        shapes = dict(ids=(DS, NB), ks=(DS, NB), kl=(NB,), ca=(DS, NB, NB),
+                      schg=(DS, NB), qdds=(NB,), qdl=(NB,), dds_vals=(NB,),
+                      dl_vals=(NB,), dss=(DS,), consts=(5,))
+        for name in TABLE_KEYS:
+            _check_tensor(name, self[name], shapes[name],
+                          torch.int32 if name in _INT_TABLES
+                          else torch.float32, dev)
+        if slice_consts is not None:
+            _check_tensor("slice_consts", slice_consts, (len(SLICE_CONSTS),),
+                          torch.float32, dev)
+        self.DS = DS
+        self.device = dev
+        self.ptrs = tuple(self[k].data_ptr() for k in TABLE_KEYS)
+        self.slice_consts = slice_consts
+
+
+def _check_tensor(name, t, shape, dtype, dev):
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype} != {dtype}")
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, expected {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def _check(nodes_next, state_cost, state_constr, d_fwd, tables):
+    """The per-slice tensors against the grid of ``nodes_next`` and the
+    (already checked) tables; returns the tables as :class:`Tables`."""
     if nodes_next.dim() != 4 or nodes_next.shape[-1] != 4:
         raise ValueError(f"nodes_next must be (S, DS, L, 4), got "
                          f"{tuple(nodes_next.shape)}")
+    if not isinstance(tables, Tables):
+        tables = Tables(tables)
     S, DS, L, _ = nodes_next.shape
-    want = {"state_cost": (state_cost, (S, DS, L)),
-            "state_constr": (state_constr, (S, DS, L)),
-            "d_fwd": (d_fwd, (S, L, NB)),
-            "ids": (tables["ids"], (DS, NB)), "ks": (tables["ks"], (DS, NB)),
-            "kl": (tables["kl"], (NB,)), "ca": (tables["ca"], (DS, NB, NB)),
-            "schg": (tables["schg"], (DS, NB)),
-            "qdds": (tables["qdds"], (NB,)), "qdl": (tables["qdl"], (NB,)),
-            "dds_vals": (tables["dds_vals"], (NB,)),
-            "dl_vals": (tables["dl_vals"], (NB,)),
-            "dss": (tables["dss"], (DS,)), "consts": (tables["consts"], (5,))}
-    want["nodes_next"] = (nodes_next, (S, DS, L, 4))
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-        dtype = torch.int32 if name in _INT_TABLES else torch.float32
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: dtype {t.dtype} != {dtype}")
-        if t.device != nodes_next.device:
-            raise ValueError(f"{name} on {t.device}, nodes_next on "
-                             f"{nodes_next.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    dev = nodes_next.device
+    f32 = torch.float32
+    _check_tensor("nodes_next", nodes_next, (S, DS, L, 4), f32, dev)
+    _check_tensor("state_cost", state_cost, (S, DS, L), f32, dev)
+    _check_tensor("state_constr", state_constr, (S, DS, L), f32, dev)
+    _check_tensor("d_fwd", d_fwd, (S, L, NB), f32, dev)
+    if tables.DS != DS or tables.device != dev:
+        raise ValueError(f"action tables for ds_steps={tables.DS} on "
+                         f"{tables.device}, nodes_next has ds_steps={DS} on "
+                         f"{dev}")
+    return tables
 
 
 def action_min(nodes_next, state_cost, state_constr, d_fwd, tables):
@@ -238,7 +341,7 @@ def action_min(nodes_next, state_cost, state_constr, d_fwd, tables):
     on one device.  Returns (S, DS, L, 4) float32.
     """
     global launches
-    _check(nodes_next, state_cost, state_constr, d_fwd, tables)
+    tables = _check(nodes_next, state_cost, state_constr, d_fwd, tables)
     dev = nodes_next.device
     if dev.type == "cpu":
         return action_min_reference(nodes_next, state_cost, state_constr,
@@ -246,25 +349,85 @@ def action_min(nodes_next, state_cost, state_constr, d_fwd, tables):
     if dev.type != "cuda":
         raise ValueError(f"action_min: unsupported device {dev}")
     if nodes_next.data_ptr() % 16:
-        raise ValueError("nodes_next must be 16-byte aligned (float4 loads)")
+        raise ValueError("nodes_next must be 16-byte aligned (16-byte copies)")
 
     lib = _kernel()
     S, DS, L, _ = nodes_next.shape
-    smem = lib.latlon_action_min_smem_bytes(DS)
-    if smem > 48 * 1024:
-        raise ValueError(f"ds_steps={DS} needs {smem} B of action tables, "
-                         "above the 48 KB dynamic shared-memory default")
+    if lib.latlon_action_min_tile_rows(L) < 1 or DS > MAX_DS:
+        raise ValueError(f"l_steps={L}, ds_steps={DS}: the kernel takes one "
+                         "thread per lateral cell (at most 1024) and one "
+                         f"block row per ds (at most {MAX_DS})")
     out = torch.empty_like(nodes_next)
-    ptrs = [t.data_ptr() for t in (nodes_next, state_cost, state_constr,
-                                   d_fwd)]
-    ptrs += [tables[k].data_ptr() for k in TABLE_KEYS]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.latlon_action_min(*ptrs, out.data_ptr(), S, DS, L, stream)
+        err = lib.latlon_action_min(
+            nodes_next.data_ptr(), state_cost.data_ptr(),
+            state_constr.data_ptr(), d_fwd.data_ptr(), *tables.ptrs,
+            out.data_ptr(), S, DS, L, stream)
     if err != 0:
         raise RuntimeError(f"latlon_action_min launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    return out
+
+
+def backward_slice_launch(nodes_next, dist_t, ref_line, ref_step, i, tables):
+    """One whole backward slice i on the card, in one launch of the fused
+    kernel: the state cost and constraint and the forward distances of every
+    cell (what ``lat_lon_kernel``'s ``slice_inputs`` computes with tensor
+    operations) and the action-min.
+
+    nodes_next (S, DS, L, 4), dist_t (S, L) the slice's distance-ahead map,
+    ref_line (n, 8), ref_step one element, ``tables`` from
+    :func:`make_tables`; float32, contiguous, on one CUDA device.  Returns
+    (S, DS, L, 4) float32.  Its plain version is the solver's
+    ``backward_slice_reference``; a tensor that is not on a CUDA device
+    raises.
+    """
+    global launches, slice_launches
+    if nodes_next.dim() != 4 or nodes_next.shape[-1] != 4:
+        raise ValueError(f"nodes_next must be (S, DS, L, 4), got "
+                         f"{tuple(nodes_next.shape)}")
+    S, DS, L, _ = nodes_next.shape
+    dev = nodes_next.device
+    if dev.type != "cuda":
+        raise ValueError(f"backward_slice_launch: needs a CUDA device, got "
+                         f"{dev}")
+    if not isinstance(tables, Tables) or tables.slice_consts is None:
+        raise ValueError("the fused slice needs the tables of make_tables")
+    if ref_line.dim() != 2:
+        raise ValueError(f"ref_line must be (n, {REF_LINE_CHANNELS}), got "
+                         f"{tuple(ref_line.shape)}")
+    f32 = torch.float32
+    _check_tensor("nodes_next", nodes_next, (S, DS, L, 4), f32, dev)
+    _check_tensor("dist_t", dist_t, (S, L), f32, dev)
+    _check_tensor("ref_line", ref_line,
+                  (ref_line.shape[0], REF_LINE_CHANNELS), f32, dev)
+    _check_tensor("ref_step", ref_step.reshape(1), (1,), f32, dev)
+    if tables.DS != DS or tables.device != dev:
+        raise ValueError(f"action tables for ds_steps={tables.DS} on "
+                         f"{tables.device}, nodes_next has ds_steps={DS} on "
+                         f"{dev}")
+    if nodes_next.data_ptr() % 16:
+        raise ValueError("nodes_next must be 16-byte aligned (16-byte copies)")
+    lib = _kernel()
+    if lib.latlon_action_min_tile_rows(L) < 1 or DS > MAX_DS \
+            or ref_line.shape[0] < 1:
+        raise ValueError(f"l_steps={L}, ds_steps={DS}, {ref_line.shape[0]} "
+                         "reference rows: outside what the kernel takes")
+    out = torch.empty_like(nodes_next)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.latlon_backward_slice(
+            nodes_next.data_ptr(), dist_t.data_ptr(), ref_line.data_ptr(),
+            ref_step.data_ptr(), tables.slice_consts.data_ptr(),
+            (ctypes.c_void_p * len(TABLE_KEYS))(*tables.ptrs),
+            out.data_ptr(), S, DS, L, ref_line.shape[0], int(i), stream)
+    if err != 0:
+        raise RuntimeError(f"latlon_backward_slice launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    slice_launches += 1
     return out
 
 
@@ -281,7 +444,19 @@ def _kernel():
         lib.latlon_action_min.restype = ctypes.c_int
         lib.latlon_action_min.argtypes = (
             [ctypes.c_void_p] * 16 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.latlon_action_min_smem_bytes.restype = ctypes.c_size_t
-        lib.latlon_action_min_smem_bytes.argtypes = [ctypes.c_int]
+        lib.latlon_action_min_tiled.restype = ctypes.c_int
+        lib.latlon_action_min_tiled.argtypes = (
+            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.latlon_action_min_tile_rows.restype = ctypes.c_int
+        lib.latlon_action_min_tile_rows.argtypes = [ctypes.c_int]
+        lib.latlon_backward_slice.restype = ctypes.c_int
+        lib.latlon_backward_slice.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        if lib.latlon_n_slice_consts() != len(SLICE_CONSTS):
+            raise RuntimeError("latlon_action_min.cu and SLICE_CONSTS "
+                               "disagree")
+        lib.latlon_empty_launch.restype = ctypes.c_int
+        lib.latlon_empty_launch.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
         _LIB = lib
     return _LIB

@@ -12,7 +12,9 @@ function inside the fused step's XLA program; there is no Pallas kernel.
 On a CUDA tensor :func:`scan` launches the hand-written kernel
 ``csrc/rstp_rampify.cu`` (one launch per call, counted in ``launches``); on
 a CPU tensor it runs the plain version :func:`scan_reference`, the torch
-port of ``_rampify_scan`` step for step.
+port of ``_rampify_scan`` step for step.  The kernel reads the scalars and
+the limits where they lie (nine pointers), so a call copies nothing;
+:func:`profile` runs its profiling instantiation.
 """
 
 import ctypes
@@ -24,6 +26,10 @@ from tpl_tpu_torch import _latency
 launches = 0        # kernel launches since import (reset freely)
 
 N_SCAL = 8          # v0, a0, a_min, a_max, j_min, j_max, v_min, step
+# the kernel's phases (enum Phase of csrc/rstp_rampify.cu): the limits and the
+# backward reset branch staged by the block, the backward scan, the forward
+# reset branch staged, the forward scan (which writes the rows out)
+PHASES = ("stage", "backward", "forward_stage", "forward")
 _MAX_SMEM = 227 * 1024
 
 # Operations of one backward / forward step as the plain version defines
@@ -56,29 +62,61 @@ def scan(v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min, step):
     ``lim_v`` (H,), whose rows >= T hold row T-1.  Every argument but the
     host integer ``T`` is a float32 tensor on one device, the scalars with
     one element."""
-    global launches
     scalars = (v0, a0, a_min, a_max, j_min, j_max, v_min, step)
     _check(lim_v, T, scalars)
     dev = lim_v.device
     if dev.type == "cpu":
         return scan_reference(v0, a0, lim_v, T, a_min, a_max, j_min, j_max,
                               v_min, step)
+    return _launch(scalars, lim_v, T, None)
+
+
+def profile(v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min, step):
+    """:func:`scan` through the kernel's profiling instantiation: returns
+    the profile (the same bits) and thread 0's cycles per phase, a dict over
+    :data:`PHASES`.  Needs a CUDA tensor."""
+    scalars = (v0, a0, a_min, a_max, j_min, j_max, v_min, step)
+    _check(lim_v, T, scalars)
+    if lim_v.device.type != "cuda":
+        raise ValueError("the profiling instantiation runs on a CUDA device, "
+                         f"not {lim_v.device}")
+    cycles = torch.zeros(len(PHASES), dtype=torch.int64, device=lim_v.device)
+    out = _launch(scalars, lim_v, T, cycles)
+    return out, dict(zip(PHASES, cycles.cpu().tolist()))
+
+
+def pointers(scalars, lim_v):
+    """The kernel's input argument: a host array of the nine device
+    pointers (v0, a0, a_min, a_max, j_min, j_max, v_min, step, then
+    ``lim_v``).  The scalars are read where they lie, so slices of one
+    input vector need no copy."""
+    return (ctypes.c_void_p * (N_SCAL + 1))(
+        *[s.data_ptr() for s in scalars], lim_v.data_ptr())
+
+
+def _launch(scalars, lim_v, T, cycles):
+    """One launch on the checked CUDA inputs (the profiling instantiation
+    when ``cycles`` is given)."""
+    global launches
+    dev = lim_v.device
     if dev.type != "cuda":
         raise ValueError(f"rstp_rampify: unsupported device {dev}")
-
     H = lim_v.shape[0]
     lib = _kernel()
     smem = lib.rstp_rampify_smem_bytes(H)
     if smem > _MAX_SMEM:
         raise ValueError(f"horizon {H} needs {smem} B of shared memory, "
                          f"above {_MAX_SMEM}")
-    buf = torch.cat([torch.stack([s.reshape(()) for s in scalars]),
-                     lim_v.contiguous()])
+    lim_v = lim_v.contiguous()
     out = torch.empty((H, 2), dtype=torch.float32, device=dev)
+    ptrs = pointers(scalars, lim_v)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rstp_rampify_scan(buf.data_ptr(), out.data_ptr(), H, T,
-                                    stream)
+        if cycles is None:
+            err = lib.rstp_rampify_scan(ptrs, out.data_ptr(), H, T, stream)
+        else:
+            err = lib.rstp_rampify_profile(ptrs, out.data_ptr(),
+                                           cycles.data_ptr(), H, T, stream)
     if err != 0:
         raise RuntimeError(f"rstp_rampify launch failed: CUDA error {err}")
     launches += 1
@@ -175,6 +213,11 @@ def _kernel():
         lib.rstp_rampify_scan.restype = ctypes.c_int
         lib.rstp_rampify_scan.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.rstp_rampify_profile.restype = ctypes.c_int
+        lib.rstp_rampify_profile.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        if lib.rstp_rampify_n_phases() != len(PHASES):
+            raise RuntimeError("rstp_rampify.cu and PHASES disagree")
         lib.rstp_rampify_smem_bytes.restype = ctypes.c_size_t
         lib.rstp_rampify_smem_bytes.argtypes = [ctypes.c_int]
         _LIB = lib

@@ -3,10 +3,12 @@
 Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--parent-csrc DIR]... [--kernels-only]
+                          [--host-profile TICKS]
 
 1. prints the card's name and power limit, builds the CUDA kernels from
    ``tpl_tpu_torch/csrc`` (one ``nvcc`` per source, all started together)
-   and prints the build time and the ptxas register / memory report; then
+   and the host C routes of ``tpl_tpu_torch/native`` (``g++``), and prints
+   the build time and the ptxas register / memory report; then
    the latency probe: the SM clock under load and the card's cycles per
    dependent operation (``csrc/latency_probe.cu``), on one line with the
    card's name and power limit;
@@ -63,7 +65,26 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    of the loop's own calls; prints the differences, the times through the
    bare launchers and the wrappers, the solves' "phases" lines as in 5 and
    one per scan (microseconds per phase, cycles per step);
-9. prints the card's name and power limit and one JSON line describing the
+9. host C routes: each of the four routes of ``tpl_tpu_torch/native``
+   (``project``, ``resample``, ``rampify_profile``, ``rampify_corridor``)
+   against its numpy path, on the calls the follow loop itself made
+   (recorded as the loop made them) and on seeded inputs; prints which
+   route each of the four took in the loop and how often;
+10. batched tracking MPC: ``optim.batched.make_batched_update_fn`` for
+   ``trajectory_tracking_mpc`` at B=2048, H=60, 8 iterations, HEUN, the
+   ``_mpc_setup`` inputs with ``x0 + 0.01 * b`` (the batch of the JAX
+   package's bench), in float64 and in float32: one launch of
+   ``ilqr_tracking_mpc_batched`` (a grid of B blocks) per update, all 2048
+   results against the plain batched update on the card, per scenario
+   (float64: x, u, lam atol = rtol = 1e-9 on at least 99 % of the scenarios
+   and equal mu_step and iteration counts on all; float32 and the reason
+   for a share: see BATCH_* / F32_* below), blocks 0, 1 and 2047 bit-equal
+   to three single launches (float64); the same batch size with every start
+   near the course, where every block does the full work; prints blocks per SM, shared memory per block, ms per batch
+   through the bare launcher and through the wrapper at B = 1, 132, 264,
+   2048, solves per second, the plain version's time, the roofline bound
+   and the floor of the one-block-per-scenario design;
+11. prints the card's name and power limit and one JSON line describing the
    kernels (launches on the main path and per tick or per DP replan, the
    largest difference to the plain version, the kernel's time through its
    bare launcher ``ms`` and through its wrapper ``wrapper_ms``, the plain
@@ -73,7 +94,7 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    The ``latlon_action_min`` row counts every launch of the source's
    action-min (on the main path all of them go through the fused entry,
    which has its own row, ``latlon_backward_slice``).
-   Each phase prints its seconds; the whole run takes about 150 s.
+   Each phase prints its seconds; the whole run takes about 200 s.
 
 With ``--parent-csrc DIR`` (a directory holding another version of any of
 the four kernel sources and the headers they include, for example ``git
@@ -88,6 +109,12 @@ scan, forward scan and write-out, its "phases" lines are printed too.
 
 With ``--kernels-only`` the run stops after phase 2 and the rampify part
 of phase 8 on seeded inputs: no loop is driven and no result line printed.
+
+With ``--host-profile TICKS`` the run builds, then drives the vendored RSTP
+loop on ``demo/country_follow`` for TICKS ticks under ``cProfile`` twice,
+with the host C routes off (the numpy paths) and on, and prints for each the
+10 functions that lead by cumulative time, the share of the four routed
+functions, and the medians of the tick's phases; no result line.
 
 Any failure raises (nonzero exit).  Without CUDA it exits nonzero before
 printing any result.
@@ -120,6 +147,35 @@ RSTP_COST_RTOL = 1e-5
 # the fused step on the card against the same step on the CPU (plain)
 FUSED_PATH_ATOL = 5e-3      # m
 FUSED_V_ATOL = 5e-2         # m/s
+
+# the batched tracking MPC, kernel against the plain batched update on the
+# card, per scenario.  The bench's batch adds 0.01 * b to EVERY state of the
+# start, the steering angle included, so scenario b starts at delta = 0.01 b
+# rad: most scenarios start far off the course (their first line search
+# fails and they stop after one iteration), some start beside a pole of
+# tan(delta) (b = 157, 471, ...), and their rollouts amplify a rounding by
+# many orders of magnitude.  So the tolerance is held per scenario, and a
+# stated share of the scenarios must meet it; the rest are printed, and must
+# be finite and (float64) take the same decisions.
+# float64: x, u, lam atol = rtol = 1e-9 and the cost rtol 1e-9 (the same
+# operations in the same order; the kernel's body run on the CPU agrees to
+# 1e-12 on well-conditioned scenarios); mu_step and iteration counts equal
+# on every scenario.
+# float32: both are float32 runs of the same algorithm; whether a line
+# search accepts a step whose cost change is a rounding of the cost is
+# decided by rounding, so mu_step, the iteration at which a solve stops and,
+# along weakly determined directions, a control may part: the tolerance
+# tests/test_torch_kernel_cuda.py states for float32 solves (x, u, lam 2e-2,
+# cost 1e-5), with mu_step and the iteration count, on the stated share.
+BATCH_ATOL = BATCH_RTOL = 1e-9
+BATCH_MIN_SHARE = 0.99
+F32_X_ATOL = 2e-2
+F32_COST_RTOL = 1e-5
+F32_MIN_SHARE = 0.98
+BATCH = 2048
+PROFILE_SKIP_TICKS = 110
+BATCH_ITERATIONS = 8
+BATCH_SIZES = (1, 132, 264, 2048)
 
 DEMO_SPEC = dict(t_steps=10, s_steps=201, ds_steps=37, l_steps=21)
 MIN_REPLANS = 5
@@ -1251,6 +1307,372 @@ def rampify_phase_line(kernel, what, names, cycles, args, mhz):
           f"{cycles['forward'] / H:.1f}")
 
 
+def mpc_batch_inputs(B, dtype, dev, spread=None):
+    """The batch of the JAX package's bench (bench.py _mpc_batched_setup):
+    the ``_mpc_setup`` course, weights and limits, zero warm start, starts
+    ``x0 + 0.01 * b`` on every state (or ``x0 + 0.01 * (b % spread)``); in
+    the batched update's layout on ``dev``."""
+    import torch
+    from tpl_tpu_torch.optim import batched, problems
+
+    H = MPC_H
+    ss = np.arange(128) * 0.5
+    ref_y = 2.0 * np.sin(ss * 0.1)
+    phi = np.arctan(np.gradient(ref_y, ss))
+    params = {
+        "pd": 10.0, "pv": 5.0, "pdelta": 0.0, "min_pdelta_dot": 0.1,
+        "pdelta_dot": 0.0, "min_p_phi_dot": 0.0, "p_phi_dot": 0.0,
+        "p_phi": 0.01, "p_phi_ref_dot_diff": 0.01, "pa": 2.0, "pj": 0.5,
+        "l": 3.165, "v_ch": 32.0,
+        "ref_x": ss, "ref_y": ref_y, "ref_phi": phi,
+        "ref_k": np.gradient(phi, ss), "ref_v": np.full(128, 8.0),
+        "ref_step": 0.5, "max_delta": 0.7, "max_acc": 3.0,
+        "min_acc": -3.0, "a_offset": 0.0}
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
+        device=dev, dtype=dtype)
+    b = np.arange(B) if spread is None else np.arange(B) % spread
+    x0 = (np.array([0.0, 1.0, 0.0, 0.0, 5.0, 0.0, 0.0])[:, None]
+          + 0.01 * b[None, :])
+    cfg = dict(u_min=t(np.tile([-3.0, -1.0], (H, 1))),
+               u_max=t(np.tile([1.5, 1.0], (H, 1))),
+               barrier_weight=t(np.full(4, 1e4)),
+               lg_mult_limit=t(np.full(4, 1e30)), dt=t(0.05),
+               min_rel_cost_change=t(1e-6), T=H,
+               max_iterations=BATCH_ITERATIONS, max_lg_iterations=1)
+    prob, _ = problems.trajectory_tracking_mpc(ref_capacity=128)
+    x, u, lam, mu = batched.init_batch(prob, H, B, dtype, dev)
+    return prob, (x, u, lam, mu, t(x0), {k: t(v) for k, v in params.items()},
+                  cfg)
+
+
+def batched_phase(itm, dev, cycles, mhz):
+    """The batched tracking MPC at B=2048 on the card, float64 then
+    float32: the main path (one update through ``make_batched_update_fn``),
+    every scenario against the plain version, three blocks bit-equal to
+    single launches, and the times."""
+    import torch
+    from tpl_tpu_torch.optim import batched, ilqr
+
+    H, n_ref, B = MPC_H, 128, BATCH
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = itm._kernel()
+    res = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        prob, args = mpc_batch_inputs(B, dtype, dev)
+        upd = batched.make_batched_update_fn(prob, H, B, ilqr.HEUN, dtype)
+
+        # the main path: one update, one launch
+        itm.launches_batched = 0
+        before_single = itm.launches
+        got = upd(*args, iterations=True)
+        torch.cuda.synchronize()
+        launches = itm.launches_batched
+        if launches != 1 or itm.launches != before_single:
+            raise AssertionError(f"{tag}: {launches} batched launches for "
+                                 "one update")
+        want = upd.reference(*args, iterations=True)
+        torch.cuda.synchronize()
+
+        its = got[5].cpu().numpy()
+        f64 = dtype == torch.float64
+        atol, rtol, cost_rtol, min_share = (
+            (BATCH_ATOL, BATCH_RTOL, MPC_COST_RTOL, BATCH_MIN_SHARE) if f64
+            else (F32_X_ATOL, 0.0, F32_COST_RTOL, F32_MIN_SHARE))
+        diffs = [(g - w).abs().amax((0, 1)) for g, w in zip(got[:3],
+                                                            want[:3])]
+        rel = ((got[4] - want[4]).abs() / want[4].abs().clamp(min=1e-30))
+        same = (got[3] == want[3]) & (got[5] == want[5])
+        ok = rel <= cost_rtol
+        for g, w in zip(got[:3], want[:3]):
+            ok &= torch.isclose(g, w, rtol=rtol, atol=atol).all(0).all(0)
+        if not f64:
+            ok &= same
+        share = float(ok.float().mean())
+        err_ok = max(float(d[ok].max()) for d in diffs)
+        err_all = max(float(d.max()) for d in diffs)
+        print(f"batched check {tag} B={B}: {int(ok.sum())} of {B} scenarios "
+              f"within the tolerance (max|kernel - plain| over x, u, lam "
+              f"{err_ok:.3e} on them, {err_all:.3e} on all; cost rel "
+              f"{float(rel[ok].max()):.3e} / {float(rel.max()):.3e}); mu_step "
+              f"and iterations equal on {int(same.sum())}; iterations min "
+              f"{its.min()} median {np.median(its):.0f} max {its.max()}, "
+              f"histogram {np.bincount(its, minlength=9).tolist()}")
+        for b in torch.nonzero(~ok).flatten().tolist()[:24]:
+            d0 = float(args[4][3, b])
+            print(f"  scenario {b}: max|dx| {float(diffs[0][b]):.3e}, max|du| "
+                  f"{float(diffs[1][b]):.3e}, cost rel {float(rel[b]):.3e}, "
+                  f"iterations {int(got[5][b])}/{int(want[5][b])}, mu_step "
+                  f"{int(got[3][b])}/{int(want[3][b])}, start delta "
+                  f"{d0:.2f} rad (cos {np.cos(d0):+.4f}), max|x| "
+                  f"{float(got[0][..., b].abs().max()):.3e}")
+        if not all(bool(torch.isfinite(g).all()) for g in got[:3]):
+            raise AssertionError(f"{tag}: non-finite batched solve")
+        if share < min_share:
+            raise AssertionError(f"{tag} batch: only {share:.4f} of the "
+                                 "scenarios within the tolerance")
+        if f64 and not bool(same.all()):
+            raise AssertionError("float64 batch: mu_step / iterations "
+                                 "differ from the plain version's")
+
+        # the packed batch through the bare launcher; blocks 0, 1, B - 1
+        # against single launches on their rows (float64: the same bits)
+        x, u, lam, mu, x0, params, cfg = args
+        buf = itm.pack_inputs_batched(x, u, lam, x0, params, cfg, dtype)
+        out = itm.launch_batched(buf, mu, H, n_ref, H, BATCH_ITERATIONS, 1,
+                                 ilqr.HEUN)
+        torch.cuda.synchronize()
+        if dtype == torch.float64:
+            for b in (0, 1, B - 1):
+                single = itm.update(buf[b].clone(), H, n_ref, H,
+                                    BATCH_ITERATIONS, 1, int(mu[b]),
+                                    ilqr.HEUN)
+                if not torch.equal(out[b], single):
+                    raise AssertionError(f"block {b} of the batch and a "
+                                         "single launch differ")
+            print("batched check float64: blocks 0, 1 and "
+                  f"{B - 1} are bit-equal to single launches")
+
+        per_sm = itm.blocks_per_sm(H, n_ref, dtype)
+        smem = itm.smem_bytes(H, n_ref, dtype)
+        print(f"batched {tag}: {smem} B of shared memory per block, "
+              f"{per_sm} blocks per SM, {sms} SMs: {sms * per_sm} scenarios "
+              f"at a time, {-(-B // (sms * per_sm))} waves at B={B}")
+
+        f32 = itm.DTYPES[dtype]
+        times = {}
+        for n in BATCH_SIZES:
+            _, a = mpc_batch_inputs(n, dtype, dev)
+            upd_n = batched.make_batched_update_fn(prob, H, n, ilqr.HEUN,
+                                                   dtype)
+            buf_n = itm.pack_inputs_batched(a[0], a[1], a[2], a[4], a[5],
+                                            a[6], dtype)
+            out_n = torch.empty((n, out.shape[1]), dtype=dtype, device=dev)
+            times[n] = launcher_times(
+                "ilqr_tracking_mpc_batched", f"{tag} B={n}",
+                lambda: lib.ilqr_tracking_mpc_batched(
+                    buf_n.data_ptr(), out_n.data_ptr(), a[3].data_ptr(), n,
+                    H, n_ref, H, BATCH_ITERATIONS, 1, ilqr.HEUN, f32, stream),
+                lambda: upd_n(*a), 10)
+        # the same batch size with every scenario near the course (starts
+        # x0 + 0.01 * (b % 8)), so that every block does the full work
+        _, a = mpc_batch_inputs(B, dtype, dev, spread=8)
+        buf_t = itm.pack_inputs_batched(a[0], a[1], a[2], a[4], a[5], a[6],
+                                        dtype)
+        its_t = itm.unpack_outputs_batched(itm.launch_batched(
+            buf_t, a[3], H, n_ref, H, BATCH_ITERATIONS, 1, ilqr.HEUN),
+            H)[5].cpu().numpy()
+        tame_ms = cuda_ms(lambda: lib.ilqr_tracking_mpc_batched(
+            buf_t.data_ptr(), out.data_ptr(), a[3].data_ptr(), B, H, n_ref,
+            H, BATCH_ITERATIONS, 1, ilqr.HEUN, f32, stream), 10)
+        tame = dict(ms=tame_ms, mean_iterations=float(its_t.mean()),
+                    bound=itm.bound_ms_batched(H, n_ref, H, its_t, dtype)[0],
+                    floor=itm.floor_ms_batched(B, sms, per_sm, itm.chain_ms(
+                        H, H, float(its_t.mean()), cycles, mhz)))
+        print(f"batched {tag} B={B}, every scenario near the course (starts "
+              f"x0 + 0.01 * (b % 8); iterations histogram "
+              f"{np.bincount(its_t, minlength=9).tolist()}): kernel "
+              f"{tame_ms:.3f} ms per batch ({B / tame_ms * 1e3:.0f} "
+              f"solves/s), bound {tame['bound']:.4f} ms, floor of the design "
+              f"{tame['floor']:.3f} ms")
+        plain_ms = cuda_ms(lambda: upd.reference(*args), 1, warm=0)
+        bound, by = itm.bound_ms_batched(H, n_ref, H, its, dtype)
+        chain = itm.chain_ms(H, H, float(its.mean()), cycles, mhz)
+        floor = itm.floor_ms_batched(B, sms, per_sm, chain)
+        ms, wrapper_ms = times[B]
+        print(f"batched {tag} B={B} H={H} {BATCH_ITERATIONS} iterations HEUN: "
+              f"kernel {ms:.3f} ms per batch ({B / ms * 1e3:.0f} solves/s), "
+              f"wrapper {wrapper_ms:.3f} ms ({B / wrapper_ms * 1e3:.0f} "
+              f"solves/s), plain {plain_ms:.1f} ms; bound {bound:.4f} ms by "
+              f"{by}; one solve's chain at the mean {its.mean():.2f} "
+              f"iterations {chain:.4f} ms (float64 latencies), floor of the "
+              f"design {floor:.3f} ms")
+        res[tag] = dict(
+            launches=launches, err=err_ok, err_all=err_all, share=share,
+            ms=ms, wrapper_ms=wrapper_ms, tame=tame,
+            plain_ms=plain_ms, bound=(bound, by), floor=floor,
+            blocks_per_sm=per_sm, smem=smem,
+            by_batch={n: t[0] for n, t in times.items()},
+            wrapper_by_batch={n: t[1] for n, t in times.items()})
+    return res
+
+
+def record_native_calls(native, keep=3):
+    """Wraps the four C routes so that the first ``keep`` argument sets of
+    each are kept (copied); returns (records, restore)."""
+    rec = {k: [] for k in native.ROUTES}
+    orig = {k: getattr(native, k) for k in native.ROUTES}
+
+    def wrap(name):
+        def run(*args, **kw):
+            if len(rec[name]) < keep and not kw:
+                rec[name].append(tuple(np.array(a) if isinstance(
+                    a, np.ndarray) else a for a in args))
+            return orig[name](*args, **kw)
+        return run
+
+    for k in native.ROUTES:
+        setattr(native, k, wrap(k))
+
+    def restore():
+        for k, fn in orig.items():
+            setattr(native, k, fn)
+    return rec, restore
+
+
+def native_phase(native, recorded, loop_calls):
+    """Each C route against its numpy path, on the follow loop's own calls
+    (``recorded``) and on seeded inputs; ``loop_calls`` are the loop's C
+    calls per route."""
+    from tpl_tpu_torch.ops import geometry, profile
+    from tpl_tpu_torch.planning.path_vel_decomp import path_optim
+
+    if native.get_lib() is None or not native.enabled():
+        raise AssertionError("the host C library is not loaded")
+    rng = np.random.default_rng(0)
+    pts = np.cumsum(rng.normal(0, 1.0, (60, 2)), axis=0)
+    lim = np.maximum(1.0, 10.0 + np.cumsum(rng.normal(0, 1.0, RSTP_H)))
+    path = np.zeros((RSTP_H, 6))
+    path[:, 5] = rng.uniform(0.0, 12.0, RSTP_H)
+    lower, upper = np.full(RSTP_H, -3.0), np.full(RSTP_H, 3.0)
+    lower[80:95] = 0.5
+    seeded = {
+        "project": [(pts, rng.normal(0, 5.0, (17, 2)), False),
+                    (pts[:23], rng.normal(0, 5.0, (9, 2)), True)],
+        "resample": [(pts, 0.5, 100, 0, False), (pts[:20], 0.7, 90, 3, True)],
+        "rampify_profile": [(8.0, 0.3, lim, -2.5, 2.5, -1.5, 1.5, 1.0, 0.5),
+                            (None, None, lim, -2.5, 2.5, -1.5, 1.5, 1.0,
+                             0.5)],
+        "rampify_corridor": [(0.5, RSTP_H, 20.0, 0.3, path, 2.0, lower,
+                              upper)]}
+    port = {"project": geometry._project_core, "resample": geometry.resample,
+            "rampify_profile": profile.rampify_profile,
+            "rampify_corridor": path_optim.rampify_corridor}
+    atol = {"project": 1e-12, "resample": 1e-12, "rampify_profile": 0.0,
+            "rampify_corridor": 0.0}
+
+    def flat(res):
+        if isinstance(res, dict):
+            return np.concatenate([np.asarray(res[k], np.float64).reshape(-1)
+                                   for k in sorted(res)])
+        return np.asarray(res, np.float64).reshape(-1)
+
+    for route in native.ROUTES:
+        cases = [("loop", a) for a in recorded[route]] + [
+            ("seeded", a) for a in seeded[route]]
+        worst = 0.0
+        for what, a in cases:
+            before = native.calls[route]
+            got = flat(port[route](*a))
+            if native.calls[route] != before + 1:
+                raise AssertionError(f"{route}: the hook did not take the C "
+                                     "route")
+            was = native.enable(False)
+            try:
+                want = flat(port[route](*a))
+            finally:
+                native.enable(was)
+            if native.calls[route] != before + 1:
+                raise AssertionError(f"{route}: the numpy path reached the C "
+                                     "route")
+            if got.shape != want.shape:
+                raise AssertionError(f"{route} {what}: shapes differ")
+            both = np.isfinite(got) & np.isfinite(want)
+            if not np.array_equal(np.isfinite(got), np.isfinite(want)):
+                raise AssertionError(f"{route} {what}: non-finite entries "
+                                     "differ")
+            err = float(np.max(np.abs(got[both] - want[both]), initial=0.0))
+            worst = max(worst, err)
+            if err > atol[route]:
+                raise AssertionError(f"{route} {what}: C and numpy differ by "
+                                     f"{err:.3e}")
+        print(f"host route {route}: C (hostops.cpp), {loop_calls[route]} "
+              f"calls in the follow loop; against the numpy path on "
+              f"{len(recorded[route])} of the loop's calls and "
+              f"{len(seeded[route])} seeded: max|C - numpy| {worst:.3e} "
+              f"(tolerance {atol[route]:.0e})")
+
+
+def host_profile_phase(native, ticks):
+    """cProfile of ``ticks`` ticks of the vendored RSTP loop on
+    demo/country_follow, with the host C routes off and on."""
+    import cProfile
+    import pstats
+    import torch
+    from tpl_tpu_torch.simulation import SimStandalone
+
+    routed = {"_project_core": "project", "resample": "resample",
+              "rampify_profile": "rampify_profile",
+              "rampify_corridor": "rampify_corridor"}
+    card = smi("name,power.limit")
+    for on in (False, True):
+        native.enable(on)
+        sim = SimStandalone(app_id=f"smoke_prof_{int(on)}",
+                            scenario_path="demo/country_follow")
+        store = sim.planning_app.sh_planners
+        controllers = sim.control_app.sh_controllers
+        with sim.core.sh_state.lock():
+            ss = sim.core.sh_state.sim
+            ss.settings.running = True
+            ss.settings.use_real_time = False
+        # past the cold solves and the collision screen's latch (the hard
+        # brake over t = 0.04-1.03 s, while the MPC does not solve)
+        for _ in range(PROFILE_SKIP_TICKS):
+            sim.update()
+        torch.cuda.synchronize()
+        for k in native.ROUTES:
+            native.calls[k] = 0
+        tick_ms, plan_ms, control_ms = [], [], []
+        prof = cProfile.Profile()
+        for _ in range(ticks):
+            t0 = time.perf_counter()
+            prof.enable()
+            sim.update()
+            prof.disable()
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            with store.lock():
+                plan_ms.append(store.runtime * 1e3)
+            with controllers.lock():
+                control_ms.append(controllers.runtime * 1e3)
+        st = pstats.Stats(prof)
+        total = st.total_tt
+        rows = sorted(st.stats.items(), key=lambda kv: -kv[1][3])
+        what = "C routes on" if on else "C routes off (numpy paths)"
+        print(f"host profile, {what}, {ticks} ticks of demo/country_follow "
+              f"(RSTP fused + MPC) on {card}: {total / ticks * 1e3:.2f} ms of "
+              f"profiled host time per tick; tick wall median "
+              f"{np.median(tick_ms):.2f} ms, planning {np.median(plan_ms):.2f}"
+              f", control {np.median(control_ms):.2f}; C calls per tick "
+              + json.dumps({k: round(v / ticks, 2)
+                            for k, v in native.calls.items()}))
+        print("  top 10 by cumulative time (ms per tick, calls per tick, "
+              "function):")
+        shown = 0
+        for (fname, line, func), (cc, nc, tt, ct, _) in rows:
+            print(f"  {ct / ticks * 1e3:9.3f} ms {nc / ticks:8.1f} calls  "
+                  f"{os.path.basename(fname)}:{line}({func}), own "
+                  f"{tt / ticks * 1e3:.3f} ms")
+            shown += 1
+            if shown == 10:
+                break
+        for (fname, line, func), (cc, nc, tt, ct, _) in rows:
+            if func in routed and "tpl_tpu_torch" in fname and (
+                    "native" not in fname):
+                print(f"  routed {func} ({os.path.basename(fname)}): "
+                      f"{ct / ticks * 1e3:.3f} ms per tick cumulative, "
+                      f"{nc / ticks:.1f} calls per tick")
+        for name in ("prepare", "update_environment", "update"):
+            for (fname, line, func), (cc, nc, tt, ct, _) in rows:
+                if func == name and any(m in fname for m in (
+                        "path_optim", "velocity_optim", "environment_app",
+                        "planning_app", "control_app")):
+                    print(f"  {os.path.basename(fname)}:{func}: "
+                          f"{ct / ticks * 1e3:.3f} ms per tick cumulative")
+    native.enable(True)
+
+
 def probe_phase(lat, itm, dev):
     """The card's operation latencies (csrc/latency_probe.cu) and the SM
     clock under load; prints them with the card's name and power limit."""
@@ -1298,6 +1720,10 @@ def main(argv=()):
                     help="build, probe, then only the action-min and rampify "
                     "kernel checks and times on seeded inputs; drives no "
                     "loop and prints no result line")
+    ap.add_argument("--host-profile", type=int, default=0, metavar="TICKS",
+                    help="build, then cProfile TICKS ticks of the vendored "
+                    "RSTP loop with the host C routes off and on; prints "
+                    "the leading functions and no result line")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1307,6 +1733,7 @@ def main(argv=()):
     import tpl_tpu_torch
     from tpl_tpu_torch import _build
     from tpl_tpu_torch import _latency as lat
+    from tpl_tpu_torch import native
     from tpl_tpu_torch.optim import ilqr_rstp as rstp
     from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
     from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
@@ -1325,7 +1752,9 @@ def main(argv=()):
     _build.build(KERNELS)
     for mod in (lam, itm, rstp, rmp, lat):
         mod._kernel()
-    print(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.2f} s")
+    native.get_lib()
+    print(f"built {', '.join(KERNELS)} and native/hostops.cpp in "
+          f"{time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         log = _build.BUILD_LOG.get(name, "").strip()
         if log:
@@ -1341,6 +1770,10 @@ def main(argv=()):
         print(f"phase {name}: {phases[name]:.1f} s", flush=True)
         return res
 
+    if opts.host_profile:
+        phase("host profile", host_profile_phase, native, opts.host_profile)
+        print("host profile only: no kernel was checked")
+        return 0
     cycles, mhz = phase("latency probe", probe_phase, lat, itm, dev)
     am = phase("action_min kernel", kernel_phase, lam, tllk, dev,
                opts.parent_csrc)
@@ -1354,14 +1787,24 @@ def main(argv=()):
     ilqr_err, (ilqr_ms, ilqr_wrapper_ms, ilqr_plain_ms), mpc_its = phase(
         "tracking-MPC kernel", ilqr_phase, itm, loop["picked"], dev, mhz,
         opts.parent_csrc)
-    follow = phase("RSTP closed loop, country_follow", rstp_loop_phase, rstp,
-                   rmp, itm, "demo/country_follow", LOOP_TICKS, record=True)
+    native_rec, restore = record_native_calls(native)
+    for k in native.ROUTES:
+        native.calls[k] = 0
+    try:
+        follow = phase("RSTP closed loop, country_follow", rstp_loop_phase,
+                       rstp, rmp, itm, "demo/country_follow", LOOP_TICKS,
+                       record=True)
+    finally:
+        restore()
+    loop_calls = dict(native.calls)
     overtake = phase("RSTP closed loop, country_overtake", rstp_loop_phase,
                      rstp, rmp, itm, "demo/country_overtake", OVERTAKE_TICKS,
                      screen=False)
     kern = phase("RSTP kernels", rstp_kernel_phase, rstp, rmp,
                  follow["picked"], follow["scans"], dev, mhz,
                  opts.parent_csrc)
+    phase("host C routes", native_phase, native, native_rec, loop_calls)
+    bat = phase("batched tracking MPC", batched_phase, itm, dev, cycles, mhz)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -1429,6 +1872,44 @@ def main(argv=()):
         (ms, by), chain = bounds[row["name"]]
         row.update(route="cuda", bound_ms=ms, bound_by=by, chain_ms=chain,
                    library_ms=NO_LIBRARY)
+    # the batch: the float64 numbers under the contract's keys (chain_ms is
+    # the floor of the one-block-per-scenario design), the float32
+    # instantiation's beside them
+    b64, b32 = bat["float64"], bat["float32"]
+    row = {"name": "ilqr_tracking_mpc_batched", "route": "cuda",
+           "source": "tpl_tpu_torch/csrc/ilqr_tracking_mpc.cu",
+           "replaces": "tpl_tpu/optim/batched.py:30",
+           "batch": BATCH, "launches": b64["launches"],
+           "max_abs_err": b64["err"], "ms": b64["ms"],
+           "wrapper_ms": b64["wrapper_ms"], "plain_ms": b64["plain_ms"],
+           "bound_ms": b64["bound"][0], "bound_by": b64["bound"][1],
+           "chain_ms": b64["floor"], "library_ms": NO_LIBRARY,
+           "solves_per_s": BATCH / b64["wrapper_ms"] * 1e3,
+           "kernel_solves_per_s": BATCH / b64["ms"] * 1e3,
+           "blocks_per_sm": b64["blocks_per_sm"],
+           "ms_by_batch": b64["by_batch"],
+           "wrapper_ms_by_batch": b64["wrapper_by_batch"],
+           "max_abs_err_all": b64["err_all"],
+           "share_within_tolerance": b64["share"],
+           "near_course_ms": b64["tame"]["ms"],
+           "near_course_bound_ms": b64["tame"]["bound"],
+           "near_course_chain_ms": b64["tame"]["floor"]}
+    for k, v in (("launches", b32["launches"]), ("max_abs_err", b32["err"]),
+                 ("ms", b32["ms"]), ("wrapper_ms", b32["wrapper_ms"]),
+                 ("plain_ms", b32["plain_ms"]), ("bound_ms", b32["bound"][0]),
+                 ("chain_ms", b32["floor"]),
+                 ("solves_per_s", BATCH / b32["wrapper_ms"] * 1e3),
+                 ("kernel_solves_per_s", BATCH / b32["ms"] * 1e3),
+                 ("blocks_per_sm", b32["blocks_per_sm"]),
+                 ("ms_by_batch", b32["by_batch"]),
+                 ("wrapper_ms_by_batch", b32["wrapper_by_batch"]),
+                 ("max_abs_err_all", b32["err_all"]),
+                 ("share_within_tolerance", b32["share"]),
+                 ("near_course_ms", b32["tame"]["ms"]),
+                 ("near_course_bound_ms", b32["tame"]["bound"]),
+                 ("near_course_chain_ms", b32["tame"]["floor"])):
+        row["float32_" + k] = v
+    rows.append(row)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -11,14 +11,25 @@ float64 iLQR kernel against its plain version x, u atol=1e-6, traj_costs
 rtol=1e-9, mu_step and the iteration count equal; the float32 RSTP iLQR
 kernel against its plain version x, u, lam atol=2e-2, traj_costs
 rtol=1e-5 (where each solve stops is decided by float32 rounding, see
-RSTP_X_ATOL); the rampify scan bit for bit.
+RSTP_X_ATOL); the rampify scan bit for bit; the batched tracking-MPC kernel
+(a grid of the float64 kernel, one scenario per block) against the plain
+batched update at the float64 kernel's own tolerance (x, u, lam atol=1e-6:
+on seeded warm starts a scenario's rounding differences grow to 1e-8 and
+more over 8 iterations; chip_smoke.py holds 99 % of the bench's cold batch
+to 1e-9) with equal
+mu_step and iteration counts, each block bit-equal to a single launch; its
+float32 instantiation
+at the float32 tolerance above, with equal mu_step and iteration counts, on
+at least 90 % of a seeded batch's scenarios (an accepted or rejected last
+step of equal cost to rounding moves a control and the steps after it).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tpl_tpu_torch.optim import ilqr, ilqr_rstp, ilqr_tracking_mpc as itm
+from tpl_tpu_torch.optim import batched, ilqr, ilqr_rstp
+from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
 from tpl_tpu_torch.optim import problems, solver
 from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
 from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
@@ -316,6 +327,112 @@ def test_cuda_solver_launches_kernel_once_per_update(cuda):
         for s in sides:
             s.shift(1)
             s.x[0] = s.x[0] + np.array([0.0, 0.01, 0.0, 0.0, 0.02, 0.0, 0.0])
+
+
+# ---------------------------------------------------------------------
+# the batched tracking-MPC kernel: a grid of B blocks
+
+def mpc_batch(B, dtype, dev, T=MPC_H, iterations=8, warm=True):
+    """A seeded batch in the batched update's layout on ``dev``: starts
+    near the course (the bench's 0.01 * b on every state would put scenario
+    157 beside a pole of tan(delta), where a rollout amplifies a rounding
+    without bound: here b wraps at 8) and a seeded offset, warm controls,
+    multipliers and mu_steps on all but scenario 0."""
+    rng = np.random.default_rng(B + T)
+    H = MPC_H
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
+        device=dev, dtype=dtype)
+    x0 = (np.array([0.0, 1.0, 0.0, 0.0, 5.0, 0.0, 0.0])[:, None]
+          + 0.01 * (np.arange(B) % 8)[None, :]
+          + rng.normal(0.0, 0.3, (7, B))
+          * np.array([1, 1, 0.2, 0.1, 3, 0, 0.5])[:, None])
+    u, lam_ = np.zeros((H, 2, B)), np.zeros((H, 4, B))
+    mu = np.zeros(B, np.int32)
+    if warm:
+        u[..., 1:] = rng.normal(0.0, 0.3, (H, 2, B - 1))
+        lam_[..., 1:] = rng.uniform(0.0, 1e-3, (H, 4, B - 1))
+        mu[1:] = rng.integers(0, 4, B - 1)
+    x = np.zeros((H + 1, 7, B))
+    x[0] = x0
+    params = {k: t(v) for k, v in mpc_params().items()}
+    cfg = dict(u_min=t(np.tile([-3.0, -1.0], (H, 1))),
+               u_max=t(np.tile([1.5, 1.0], (H, 1))),
+               barrier_weight=t(np.full(4, 1e4)),
+               lg_mult_limit=t(np.full(4, 1e30)), dt=t(0.05),
+               min_rel_cost_change=t(1e-6), T=T, max_iterations=iterations,
+               max_lg_iterations=1)
+    state = (t(x), t(u), t(lam_), torch.from_numpy(mu).to(dev), t(x0))
+    return state, params, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,warm", [(5, MPC_H, True), (140, 45, True),
+                                      (3, MPC_H, False)])
+def test_batched_kernel_float64_matches_plain_and_single_launches(cuda, B, T,
+                                                                  warm):
+    state, params, cfg = mpc_batch(B, torch.float64, cuda, T=T, warm=warm)
+    prob = problems.trajectory_tracking_mpc(128)[0]
+    upd = batched.make_batched_update_fn(prob, MPC_H, B, ilqr.HEUN,
+                                         torch.float64)
+    before, single_before = itm.launches_batched, itm.launches
+    got = upd(*state, params, cfg, iterations=True)
+    torch.cuda.synchronize()
+    assert itm.launches_batched == before + 1       # one launch per update
+    assert itm.launches == single_before
+    want = upd.reference(*state, params, cfg, iterations=True)
+    assert itm.launches_batched == before + 1       # the plain version
+    for name, g, w in zip(("x", "u", "lam"), got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=0, atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(got[4].cpu().numpy(), want[4].cpu().numpy(),
+                               rtol=1e-9)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[5], want[5])
+    assert got[3].dtype == torch.int32 and got[0].shape == (MPC_H + 1, 7, B)
+    # every block returns the bits of a single launch on its scenario
+    x, u, lam_, mu, x0 = state
+    buf = itm.pack_inputs_batched(x, u, lam_, x0, params, cfg, torch.float64)
+    out = itm.launch_batched(buf, mu, MPC_H, 128, T, 8, 1, ilqr.HEUN)
+    for b in sorted({0, 1, B // 2, B - 1}):
+        single = itm.update(buf[b].clone(), MPC_H, 128, T, 8, 1, int(mu[b]),
+                            ilqr.HEUN)
+        assert torch.equal(out[b], single), f"block {b}"
+    assert torch.equal(itm.unpack_outputs_batched(out, MPC_H)[0], got[0])
+
+
+@pytest.mark.cuda
+def test_batched_kernel_float32_matches_plain(cuda):
+    B = 64
+    state, params, cfg = mpc_batch(B, torch.float32, cuda, warm=False)
+    prob = problems.trajectory_tracking_mpc(128)[0]
+    upd = batched.make_batched_update_fn(prob, MPC_H, B, ilqr.HEUN,
+                                         torch.float32)
+    before = itm.launches_batched
+    got = upd(*state, params, cfg, iterations=True)
+    torch.cuda.synchronize()
+    assert itm.launches_batched == before + 1
+    assert got[0].dtype == torch.float32
+    want = upd.reference(*state, params, cfg, iterations=True)
+    ok = (got[3] == want[3]) & (got[5] == want[5])
+    ok &= (got[4] - want[4]).abs() <= RSTP_COST_RTOL * want[4].abs()
+    for g, w in zip(got[:3], want[:3]):
+        ok &= torch.isclose(g, w, rtol=0, atol=RSTP_X_ATOL).all(0).all(0)
+    assert float(ok.float().mean()) >= 0.9, ok
+    assert all(bool(torch.isfinite(g).all()) for g in got[:3])
+
+
+@pytest.mark.cuda
+def test_batched_update_on_cuda_raises_for_other_problems(cuda):
+    """A CUDA tensor launches the kernel or raises: no plain version in
+    silence."""
+    prob = problems.lateral_profile(128)[0]
+    upd = batched.make_batched_update_fn(prob, 20, 2, ilqr.EULER,
+                                         torch.float32)
+    x, u, lam_, mu = batched.init_batch(prob, 20, 2, torch.float32, cuda)
+    cfg = dict(T=20, max_iterations=2, max_lg_iterations=1)
+    with pytest.raises(NotImplementedError, match="no batched kernel"):
+        upd(x, u, lam_, mu, x[0], {}, cfg)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        itm.launch_batched(torch.zeros((2, 4)), mu.cpu(), 20, 128, 20, 2)
 
 
 # ---------------------------------------------------------------------

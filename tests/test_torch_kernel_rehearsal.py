@@ -14,6 +14,16 @@ one after the other:
 
 - the float64 tracking-MPC kernel on the ``_mpc_setup`` inputs and on a
   warm-started two-round solve,
+- its batched launch on a grid of 4 blocks (one scenario per block): every
+  block bit-equal to the single-block body on that scenario's row, and the
+  batch against the plain float64 batched update
+  (``tpl_tpu_torch/optim/batched.py``) at the same 1e-12; the float32
+  instantiation of the same body on the same grid against the plain float32
+  batched update at the float32 tolerance of
+  tests/test_torch_kernel_cuda.py (x, lam atol 2e-2, traj_costs rtol
+  1e-5, u 2e-2 on the scenarios whose mu_step and iteration count agree
+  and 1e-1 elsewhere: where a float32 solve stops, and whether its last
+  step is accepted, is decided by rounding),
 - the RSTP kernel's template instantiated in double on a lateral and a
   velocity problem at H = 250,
 
@@ -46,7 +56,8 @@ import pytest
 import torch
 
 from tpl_tpu_torch import _build
-from tpl_tpu_torch.optim import ilqr, ilqr_rstp, ilqr_tracking_mpc as itm
+from tpl_tpu_torch.optim import batched, ilqr, ilqr_rstp
+from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
 from tpl_tpu_torch.optim import problems
 from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
 from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
@@ -128,7 +139,8 @@ HARNESS = r"""
 
 // the kernels' dynamic shared memory (an extern array declared inside a
 // function belongs to the function's namespace)
-namespace ilqr_mpc { double sm[32768]; }
+namespace ilqr_mpc { alignas(16) unsigned char smem_raw[262144]; }
+namespace ilqr_mpc_f32 { alignas(16) unsigned char smem_raw[131072]; }
 namespace ilqr_rstp { alignas(16) unsigned char smem_raw[262144]; }
 namespace rstp_rampify { alignas(16) unsigned char smem_raw[65536]; }
 namespace latlon_am { alignas(16) unsigned char smem_raw[262144]; }
@@ -213,13 +225,30 @@ extern "C" void rehearse_mpc(const double* in, double* out, long long* prof,
                              int mu_step, int integrator) {
   run_block([=] {
     if (prof)
-      ilqr_mpc::ilqr_tracking_mpc_kernel<true>(in, out, prof, H, n_ref, T,
-                                               max_it, max_lg, mu_step,
-                                               integrator);
+      ilqr_mpc::ilqr_tracking_mpc_kernel<true>(in, out, prof, nullptr, H,
+                                               n_ref, T, max_it, max_lg,
+                                               mu_step, integrator);
     else
-      ilqr_mpc::ilqr_tracking_mpc_kernel<false>(in, out, nullptr, H, n_ref,
-                                                T, max_it, max_lg, mu_step,
-                                                integrator);
+      ilqr_mpc::ilqr_tracking_mpc_kernel<false>(in, out, nullptr, nullptr, H,
+                                                n_ref, T, max_it, max_lg,
+                                                mu_step, integrator);
+  });
+}
+
+// the batched launch: a grid of B blocks, block b on scenario b
+extern "C" void rehearse_mpc_batched(const void* in, void* out,
+                                     const int* mu_steps, int B, int H,
+                                     int n_ref, int T, int max_it, int max_lg,
+                                     int integrator, int f32) {
+  run_grid(B, 1, [=] {
+    if (f32)
+      ilqr_mpc_f32::ilqr_tracking_mpc_kernel<false>(
+          (const float*)in, (float*)out, nullptr, mu_steps, H, n_ref, T,
+          max_it, max_lg, 0, integrator);
+    else
+      ilqr_mpc::ilqr_tracking_mpc_kernel<false>(
+          (const double*)in, (double*)out, nullptr, mu_steps, H, n_ref, T,
+          max_it, max_lg, 0, integrator);
   });
 }
 
@@ -265,6 +294,11 @@ def bodies(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     lib.rehearse_mpc.restype = None
     lib.rehearse_mpc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    lib.rehearse_mpc_batched.restype = None
+    lib.rehearse_mpc_batched.argtypes = ([ctypes.c_void_p] * 3
+                                         + [ctypes.c_int] * 8)
+    lib.ilqr_tracking_mpc_smem_bytes.restype = ctypes.c_size_t
+    lib.ilqr_tracking_mpc_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.rehearse_rstp.restype = None
     lib.rehearse_rstp.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
                                   + [ctypes.c_int] * 5)
@@ -366,6 +400,126 @@ def test_mpc_profiling_body_is_bit_equal(bodies):
     bodies.rehearse_mpc(_ptr(host), _ptr(prof_out), _ptr(prof), *args)
     assert np.array_equal(out, prof_out)
     assert np.all(prof > 0)
+
+
+def mpc_batch(dtype, B=4, T=MPC_H, iterations=8, warm=True):
+    """A seeded batch in the batched update's layout (CPU tensors): the
+    ``_mpc_setup`` course and limits, starts spread as the bench spreads
+    them and wider, warm controls, multipliers and mu_steps."""
+    rng = np.random.default_rng(B + T)
+    H = MPC_H
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(dtype)
+    x0 = (np.array([0.0, 1.0, 0.0, 0.0, 5.0, 0.0, 0.0])[:, None]
+          + 0.01 * np.arange(B)[None, :]
+          + rng.normal(0.0, 0.3, (7, B))
+          * np.array([1, 1, 0.2, 0.1, 3, 0, 0.5])[:, None])
+    u, lam = np.zeros((H, 2, B)), np.zeros((H, 4, B))
+    mu = np.zeros(B, np.int32)
+    if warm:
+        u[..., 1:] = rng.normal(0.0, 0.3, (H, 2, B - 1))
+        lam[..., 1:] = rng.uniform(0.0, 1e-3, (H, 4, B - 1))
+        mu[1:] = rng.integers(0, 4, B - 1)
+    x = np.zeros((H + 1, 7, B))
+    x[0] = x0
+    params = {k: t(v) for k, v in mpc_params().items()}
+    cfg = dict(u_min=t(np.tile([-3.0, -1.0], (H, 1))),
+               u_max=t(np.tile([1.5, 1.0], (H, 1))),
+               barrier_weight=t(np.full(4, 1e4)),
+               lg_mult_limit=t(np.full(4, 1e30)), dt=t(0.05),
+               min_rel_cost_change=t(1e-6), T=T, max_iterations=iterations,
+               max_lg_iterations=1)
+    return (t(x), t(u), t(lam), torch.from_numpy(mu), t(x0)), params, cfg
+
+
+def rehearse_batch(bodies, state, params, cfg, dtype):
+    """The batched kernel body on the grid; returns the packed input, the
+    packed result and the unpacked result."""
+    x, u, lam, mu, x0 = state
+    buf = itm.pack_inputs_batched(x, u, lam, x0, params, cfg, dtype)
+    B = buf.shape[0]
+    assert buf.is_contiguous() and buf.dtype == dtype
+    n_out = ilqr.layout(itm.output_layout(MPC_H))[1]
+    out = np.zeros((B, n_out), buf.numpy().dtype)
+    f32 = int(dtype == torch.float32)
+    assert bodies.ilqr_tracking_mpc_smem_bytes(MPC_H, 128, f32) <= (
+        131072 if f32 else 262144)
+    bodies.rehearse_mpc_batched(
+        _ptr(buf.numpy()), _ptr(out), _ptr(mu.numpy()), B, MPC_H, 128,
+        cfg["T"], cfg["max_iterations"], 1, ilqr.HEUN, f32)
+    return buf, out, itm.unpack_outputs_batched(torch.from_numpy(out), MPC_H)
+
+
+@pytest.mark.parametrize("T,warm", [(MPC_H, True), (45, True),
+                                    (MPC_H, False)])
+def test_mpc_batched_body_float64(bodies, T, warm):
+    """Each block of the grid returns the bits of the single-block body on
+    its scenario, and the batch agrees with the plain batched update."""
+    state, params, cfg = mpc_batch(torch.float64, T=T, warm=warm)
+    buf, out, got = rehearse_batch(bodies, state, params, cfg,
+                                   torch.float64)
+    B = buf.shape[0]
+    # row b is scenario b's pack_inputs
+    for b in (0, B - 1):
+        x, u, lam, mu, x0 = state
+        row = itm.pack_inputs(
+            dict(x=x[..., b].numpy(), u=u[..., b].numpy(),
+                 lam=lam[..., b].numpy(),
+                 u_lims=np.stack([cfg["u_min"].numpy(),
+                                  cfg["u_max"].numpy()], -1),
+                 bw_lim=np.stack([cfg["barrier_weight"].numpy(),
+                                  cfg["lg_mult_limit"].numpy()], -1),
+                 cfg_f=np.array([0.05, 1e-6])),
+            {k: v.numpy() for k, v in params.items()})
+        np.testing.assert_array_equal(buf[b].numpy(), row)
+    for b in range(B):
+        single = np.zeros(out.shape[1])
+        bodies.rehearse_mpc(_ptr(buf[b].numpy().copy()), _ptr(single), None,
+                            MPC_H, 128, T, cfg["max_iterations"], 1,
+                            int(state[3][b]), ilqr.HEUN)
+        assert np.array_equal(out[b], single), f"block {b}"
+    upd = batched.make_batched_update_fn(
+        problems.trajectory_tracking_mpc(128)[0], MPC_H, B, ilqr.HEUN,
+        torch.float64)
+    want = upd(*state, params, cfg, iterations=True)
+    for name, g, w in zip(("x", "u", "lam"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+    np.testing.assert_allclose(got[4].numpy(), want[4].numpy(), rtol=1e-12)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[5], want[5])
+    if warm:
+        assert len(set(got[5].tolist())) > 1      # they stop at different
+    assert np.all(np.isfinite(got[0].numpy()))    # iteration counts
+
+
+def test_mpc_batched_body_float32(bodies):
+    """The float32 instantiation of the body against the plain float32
+    batched update, and near the float64 result."""
+    state, params, cfg = mpc_batch(torch.float32)
+    _, out, got = rehearse_batch(bodies, state, params, cfg, torch.float32)
+    assert out.dtype == np.float32
+    B = out.shape[0]
+    prob = problems.trajectory_tracking_mpc(128)[0]
+    want = batched.make_batched_update_fn(
+        prob, MPC_H, B, ilqr.HEUN, torch.float32)(
+            *state, params, cfg, iterations=True)
+    state64, params64, cfg64 = mpc_batch(torch.float64)
+    ref64 = batched.make_batched_update_fn(
+        prob, MPC_H, B, ilqr.HEUN, torch.float64)(*state64, params64, cfg64)
+    for ref in (want, ref64):
+        for name, g, w in (("x", got[0], ref[0]), ("lam", got[2], ref[2])):
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=2e-2, err_msg=name)
+        np.testing.assert_allclose(got[4].numpy(), ref[4].numpy(), rtol=1e-5)
+    # u where kernel and plain took the same decisions; where the last
+    # step's acceptance (a cost change of a rounding) went the other way, a
+    # jerk moves by about 2e-2
+    same = ((got[3] == want[3]) & (got[5] == want[5])).numpy()
+    du = (got[1] - want[1]).abs().amax((0, 1)).numpy()
+    assert same.sum() >= B // 2
+    assert du[same].max() <= 2e-2 and du.max() <= 1e-1
+    its = got[5].numpy()
+    assert np.all((1 <= its) & (its <= cfg["max_iterations"]))
+    assert np.all(np.isfinite(out))
 
 
 # ---------------------------------------------------------------------

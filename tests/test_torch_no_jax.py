@@ -1,7 +1,8 @@
 """The port never imports JAX or the JAX package: checked in a fresh
 interpreter after ``import tpl_tpu_torch``, after one CPU planning tick of
-the slice and after a few closed-loop ticks of the port's
-``SimStandalone``, and statically over the port's sources."""
+the slice, after a few closed-loop ticks of the port's ``SimStandalone``,
+after the host C routes were built and called and after a batched update,
+and statically over the port's sources."""
 
 import os
 import re
@@ -56,6 +57,33 @@ mpc = sim.control_app.controllers["model_predictive_controller"]
 assert mpc.opt.iterations > 0, "the MPC never solved"
 assert sim.core.sh_state.sim.rule_checker.violations == []
 assert not leaked(), ("closed loop", leaked())
+
+import numpy as np
+import torch
+from tpl_tpu_torch import native
+from tpl_tpu_torch.ops import geometry
+from tpl_tpu_torch.optim import batched, ilqr, problems
+assert native.enabled() and native.get_lib() is not None
+assert native.calls["project"] > 0, "the loop never took the C route"
+pts = np.column_stack([np.arange(8.0), np.zeros(8)])
+assert geometry.resample(pts, 0.5, 6).shape == (6, 5)
+assert native.calls["resample"] > 0
+prob, _ = problems.ref_line_smoother_k(ref_capacity=16)
+upd = batched.make_batched_update_fn(prob, 5, 2, ilqr.EULER, torch.float64)
+x, u, lam, mu = batched.init_batch(prob, 5, 2, torch.float64, "cpu")
+f = lambda *a: torch.tensor(a, dtype=torch.float64)
+params = dict(w_pos=f(1.0)[0], w_k=f(0.1)[0], ref_step=f(0.5)[0],
+              ref_x=torch.arange(16.0, dtype=torch.float64) * 0.5,
+              ref_y=torch.zeros(16, dtype=torch.float64))
+cfg = dict(u_min=torch.full((5, 1), -1.0, dtype=torch.float64),
+           u_max=torch.full((5, 1), 1.0, dtype=torch.float64),
+           barrier_weight=f(1.0), lg_mult_limit=f(1e30), dt=f(0.5)[0],
+           min_rel_cost_change=f(1e-6)[0], T=5, max_iterations=3,
+           max_lg_iterations=1)
+out = upd(x, u, lam, mu, torch.zeros((3, 2), dtype=torch.float64) + 0.1,
+          params, cfg)
+assert out[0].shape == (6, 3, 2) and bool(torch.isfinite(out[0]).all())
+assert not leaked(), ("native and batched", leaked())
 print("clean")
 """
 

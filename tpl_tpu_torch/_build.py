@@ -1,18 +1,21 @@
 """
-Build-at-first-use for the hand-written CUDA kernels under ``csrc/``.
+Build-at-first-use for the hand-written CUDA kernels under ``csrc/`` and
+for the host C++ routines of ``native/``.
 
-Each kernel source is compiled by ``nvcc`` into a shared library with a
-plain C interface and loaded with ``ctypes``.  Libraries land in
+Each kernel source is compiled by ``nvcc`` (:func:`load`), each host source
+by ``g++`` (:func:`load_host`), into a shared library with a plain C
+interface and loaded with ``ctypes``.  Libraries land in
 ``build/tpl_tpu_torch/`` at the repository root, keyed by a hash of the
-source, the ``csrc/`` headers it includes and the flags, so an edited source
-or header rebuilds and an unchanged one loads straight away.  A missing
-``nvcc`` or a failed compile raises with the compiler's output; there is no
-fallback.
+source, the headers it includes from its own directory and the flags, so an
+edited source or header rebuilds and an unchanged one loads straight away.
+A missing compiler or a failed compile raises with the compiler's output;
+there is no fallback.
 """
 
 import ctypes
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -27,6 +30,11 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpl_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
+
+# -ffp-contract=off keeps every float op rounding like the numpy oracles
+# (a fused multiply-add flips argmin winners at exact geometric ties)
+HOST_FLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-shared",
+              "-fPIC"]
 
 _LOCK = threading.Lock()
 _LOADED = {}
@@ -67,11 +75,18 @@ def _sources(path, seen):
     return data
 
 
+def _library(src, flags, machine=b""):
+    """The library path of source ``src`` built with ``flags`` (and for the
+    machine described by ``machine``, where the flags depend on it)."""
+    name = os.path.splitext(os.path.basename(src))[0]
+    tag = hashlib.sha1(_sources(src, set()) + " ".join(flags).encode()
+                       + machine).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"{name}_{tag}.so")
+
+
 def _paths(name, csrc=None):
     src = os.path.join(csrc or CSRC, name + ".cu")
-    tag = hashlib.sha1(_sources(src, set()) + " ".join(NVCC_FLAGS).encode()
-                       ).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"{name}_{tag}.so")
+    return src, _library(src, NVCC_FLAGS)
 
 
 def build(names, csrc=None):
@@ -113,4 +128,53 @@ def load(name, csrc=None):
         build([name], csrc)
         lib = ctypes.CDLL(_paths(name, csrc)[1])
         _LOADED[(name, csrc)] = lib
+        return lib
+
+
+def gxx_path():
+    found = shutil.which(os.environ.get("CXX") or "g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found (put it on PATH or set CXX); the host "
+                       "routines of tpl_tpu_torch/native are built at first "
+                       "use")
+
+
+def _cpu_features():
+    """What ``-march=native`` resolves to here: the CPU's feature flags, so
+    that a build directory carried to another machine rebuilds there."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith((b"flags", b"Features")):
+                    return line
+    except OSError:
+        pass
+    return platform.machine().encode()
+
+
+def load_host(src):
+    """Compile (if needed) the host C++ source ``src`` with ``g++`` and
+    :data:`HOST_FLAGS` and load it; returns the ``ctypes.CDLL``."""
+    with _LOCK:
+        lib = _LOADED.get(src)
+        if lib is not None:
+            return lib
+        if not os.path.isfile(src):
+            raise RuntimeError(f"host source {src} not found")
+        so = _library(src, HOST_FLAGS, _cpu_features())
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.tmp{os.getpid()}"
+            cmd = [gxx_path(), *HOST_FLAGS, "-o", tmp, src]
+            done = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            if done.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError(f"building {os.path.basename(src)} failed "
+                                   f"({' '.join(cmd)}):\n{done.stdout}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        _LOADED[src] = lib
         return lib

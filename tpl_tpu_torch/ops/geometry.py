@@ -12,6 +12,7 @@ The implementations here are new, vectorized numpy designs.
 
 import numpy as np
 
+from tpl_tpu_torch import native
 from tpl_tpu_torch.ops.interp import short_angle_dist
 
 
@@ -51,6 +52,8 @@ def _project_core(points, positions, closed):
     """Vectorized core: project M positions onto an N-vertex polyline.
 
     Returns dict of arrays with all Projection fields (leading dim M).
+    Takes the C route of :mod:`tpl_tpu_torch.native` unless that is switched
+    off; the numpy path below is its oracle.
     """
     points = np.asarray(points, dtype=np.float64)
     positions = np.atleast_2d(np.asarray(positions, dtype=np.float64))
@@ -74,6 +77,20 @@ def _project_core(points, positions, closed):
             angle=np.zeros(m),
             tangent=np.zeros((m, 2)),
             in_bounds=np.zeros(m, dtype=bool))
+
+    if native.enabled():
+        res = native.project(points, positions, closed)
+        return dict(
+            start=res[:, 0].astype(np.int64),
+            end=res[:, 1].astype(np.int64),
+            alpha=res[:, 2],
+            index=res[:, 3].astype(np.int64),
+            point=res[:, 4:6],
+            distance=res[:, 6],
+            arc_len=res[:, 7],
+            angle=res[:, 8],
+            tangent=res[:, 9:11],
+            in_bounds=res[:, 11] != 0.0)
 
     if closed:
         seg_prev = points
@@ -219,6 +236,10 @@ def resample(points, sampling_dist, steps, start_index=0, closed=False):
     Raises RuntimeError when no next sample can be found.
     """
     pts_arr = np.asarray(points, dtype=np.float64)
+    if (native.enabled() and pts_arr.ndim == 2 and pts_arr.shape[0] > 0
+            and steps > 0):
+        return native.resample(pts_arr, sampling_dist, steps, start_index,
+                               closed)
     pts = pts_arr[:, :2]
     if len(pts) == 0 or steps == 0:
         return np.zeros((0, 5))

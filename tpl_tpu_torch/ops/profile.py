@@ -4,11 +4,14 @@ Velocity-profile helpers.
 ``rampify_profile`` reproduces the reference's jerk/acceleration-limited
 backward+forward spatial velocity integration (reference:
 library/tpl/planning/utils.py:6-65). The loops are short (horizon ~250) and
-host-side, so plain numpy loops are used; the optimizer consuming the profile
-runs on device.
+host-side: they take the C route of :mod:`tpl_tpu_torch.native`, with the
+plain numpy loops as its oracle; the optimizer consuming the profile runs on
+device.
 """
 
 import numpy as np
+
+from tpl_tpu_torch import native
 
 
 def rampify_profile(v0, a0, lim_v, a_min, a_max, j_min, j_max, v_min, step):
@@ -19,6 +22,9 @@ def rampify_profile(v0, a0, lim_v, a_min, a_max, j_min, j_max, v_min, step):
     [velocity, acceleration]. v0/a0 may be None to take the backward-pass
     boundary values. (reference: library/tpl/planning/utils.py:6-65)
     """
+    if native.enabled():
+        return native.rampify_profile(v0, a0, lim_v, a_min, a_max, j_min,
+                                      j_max, v_min, step)
     lim_v = np.maximum(np.asarray(lim_v, dtype=np.float64), v_min)
     horizon = len(lim_v)
     profile = np.zeros((horizon, 2))

@@ -145,36 +145,38 @@ def augmented_cost(prob, x, u, t, dt, params, lam, w):
 def derivatives(prob, xs, us, ts, dt, params, lam, w):
     """Backward-pass derivatives of n steps at once: fx = I + dt*df/dx
     (Euler jacobians whatever the rollout integrator), fu = dt*df/du, and
-    the augmented cost's lx, lu, lxx, luu, lux; shapes (n, ...).
+    the augmented cost's lx, lu, lxx, luu, lux; shapes (n, ...), or
+    (B, n, ...) for a batch of trajectories ``xs`` (B, n, nx).
 
     Step t's dynamics and cost depend on (x_t, u_t) alone, so
-    differentiating their sums over the steps gives every step's
-    derivative exactly; the rows of each jacobian come from one batched
-    backward pass (``vmap`` over the basis vectors).  On the CPU this is
-    ~7x faster than ``vmap(hessian(...))`` over the horizon.
+    differentiating their sums over the steps (and the batch) gives every
+    step's derivative exactly; the rows of each jacobian come from one
+    batched backward pass (``vmap`` over the basis vectors).  On the CPU
+    this is ~7x faster than ``vmap(hessian(...))`` over the horizon.
     """
     nx, nu = prob.nx, prob.nu
-    nz, n = nx + nu, len(xs)
+    nz, lead = nx + nu, xs.shape[:-1]
     with torch.enable_grad():
         z = torch.cat([xs, us], -1).detach().requires_grad_()
-        x, u = z[:, :nx], z[:, nx:]
+        x, u = z[..., :nx], z[..., nx:]
         f = prob.dynamics(x, u, ts, dt, params)
         c = augmented_cost(prob, x, u, ts, dt, params, lam, w)
         g, = torch.autograd.grad(c.sum(), z, create_graph=True)
-        basis = torch.eye(nz, dtype=z.dtype, device=z.device)
+        basis = torch.eye(nz, dtype=z.dtype, device=z.device).reshape(
+            (nz,) + (1,) * len(lead) + (nz,))
         jf, = torch.autograd.grad(
-            f, z, basis[:nx, None, :nx].expand(nx, n, nx),
+            f, z, basis[:nx, ..., :nx].expand((nx,) + lead + (nx,)),
             retain_graph=True, is_grads_batched=True)
         hc, = torch.autograd.grad(
-            g, z, basis[:, None, :].expand(nz, n, nz), is_grads_batched=True)
-    jf = jf.detach().transpose(0, 1)            # (n, nx, nz)
-    hc = hc.detach().transpose(0, 1)            # (n, nz, nz)
+            g, z, basis.expand((nz,) + lead + (nz,)), is_grads_batched=True)
+    jf = jf.detach().movedim(0, -2)             # (..., nx, nz)
+    hc = hc.detach().movedim(0, -2)             # (..., nz, nz)
     g = g.detach()
     eye = torch.eye(nx, dtype=xs.dtype, device=xs.device)
     fx = eye + dt * jf[..., :nx]
     fu = dt * jf[..., nx:]
-    return (fx, fu, g[:, :nx], g[:, nx:], hc[:, :nx, :nx], hc[:, nx:, nx:],
-            hc[:, nx:, :nx])
+    return (fx, fu, g[..., :nx], g[..., nx:], hc[..., :nx, :nx],
+            hc[..., nx:, nx:], hc[..., nx:, :nx])
 
 
 def layout(shapes):

@@ -1,5 +1,6 @@
 """
-One full AL-iLQR update of the spatial-progress tracking MPC, as one kernel.
+One full AL-iLQR update of the spatial-progress tracking MPC, as one kernel:
+one thread block per solve, a grid of B blocks for a batch of B scenarios.
 
 The solve is :func:`tpl_tpu_torch.optim.ilqr.make_update_fn` of
 :func:`~tpl_tpu_torch.optim.problems.trajectory_tracking_mpc` in float64:
@@ -18,6 +19,17 @@ version :func:`update_reference`, which is the plain ``make_update_fn``.
 :func:`profile` launches the kernel's profiling instantiation (the same
 bits, and cycles per phase).  :func:`bound_ms` and :func:`chain_ms` state
 the kernel's two bounds from shapes and iteration counts.
+
+The batch (``tpl_tpu_torch.optim.batched`` on CUDA tensors; the JAX
+package's ``tpl_tpu/optim/batched.py:30``) is the same kernel body on a grid
+of B blocks, float64 or float32: :func:`pack_inputs_batched` lays B packed
+inputs one after the other with vectorised tensor operations on the device,
+:func:`launch_batched` is the bare launcher (one launch per batch, counted
+in ``launches_batched``), :func:`update_batched` the wrapper the batched
+update calls.  Block b of a float64 batch returns the bits of a single
+launch on scenario b's inputs.  :func:`bound_ms_batched` and
+:func:`floor_ms_batched` state the batch's roofline bound and the least
+time of this design (waves of blocks, each a solve's dependent chain).
 """
 
 import ctypes
@@ -37,7 +49,8 @@ SCALARS = ("pd", "pv", "pdelta", "min_pdelta_dot", "pdelta_dot",
            "min_acc", "a_offset")
 TABLES = ("ref_x", "ref_y", "ref_phi", "ref_k", "ref_v")
 
-launches = 0        # kernel launches since import (reset freely)
+launches = 0          # single-solve kernel launches (reset freely)
+launches_batched = 0  # batched kernel launches, one per batch
 
 # Operation counts of one step of the algorithm, as the plain version
 # defines it (an add, multiply, divide, compare or transcendental counts as
@@ -167,7 +180,7 @@ def _launch(buf, H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
     if dev.type != "cuda":
         raise ValueError(f"ilqr_tracking_mpc: unsupported device {dev}")
     lib = _kernel()
-    smem = lib.ilqr_tracking_mpc_smem_bytes(H, n_ref)
+    smem = lib.ilqr_tracking_mpc_smem_bytes(H, n_ref, 0)
     if smem > _MAX_SMEM:
         raise ValueError(f"horizon {H} with {n_ref} reference samples needs "
                          f"{smem} B of shared memory, above {_MAX_SMEM}")
@@ -189,6 +202,124 @@ def _launch(buf, H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
                            f"{err}")
     launches += 1
     return out
+
+
+DTYPES = {torch.float64: 0, torch.float32: 1}     # the kernel's f32 flag
+
+
+def pack_inputs_batched(x, u, lam, x0, params, cfg, dtype=torch.float64):
+    """The ``(B, n_in)`` buffer of a batch on the device of ``x``: row b is
+    scenario b's :func:`pack_inputs`.  ``x``, ``u``, ``lam``, ``x0`` carry
+    the batch last (``tpl_tpu_torch.optim.batched``); a param is a scalar
+    or table shared across the batch, or a ``(B,)`` scalar per scenario;
+    ``cfg`` is the batched update's.  Packed with tensor operations, no
+    loop over the scenarios."""
+    dev, B, H = x.device, x.shape[-1], u.shape[0]
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    n_ref = t(params[TABLES[0]]).shape[0]
+    xs = torch.zeros((B, H + 1, NX), dtype=dtype, device=dev)
+    xs[:, 0] = t(x0).T
+    shared = lambda a: t(a).reshape(1, -1).expand(B, -1)
+    scal = torch.stack([t(params[n]).expand(B) for n in SCALARS], 1)
+    tables = torch.stack([t(params[n]) for n in TABLES])
+    if tables.shape != (len(TABLES), n_ref):
+        raise ValueError("the reference tables are shared across the batch: "
+                         f"expected {(len(TABLES), n_ref)}, got "
+                         f"{tuple(tables.shape)}")
+    parts = dict(
+        x=xs.reshape(B, -1), u=t(u).movedim(-1, 0).reshape(B, -1),
+        lam=t(lam).movedim(-1, 0).reshape(B, -1),
+        u_lims=shared(torch.stack([t(cfg["u_min"]), t(cfg["u_max"])], -1)),
+        bw_lim=shared(torch.stack([t(cfg["barrier_weight"]),
+                                   t(cfg["lg_mult_limit"])], -1)),
+        cfg_f=shared(torch.stack([t(cfg["dt"]).reshape(()),
+                                  t(cfg["min_rel_cost_change"]).reshape(())])),
+        alphas=shared(ilqr.ALPHAS), scalars=scal, tables=shared(tables))
+    return torch.cat([parts[name] for name, _ in input_layout(H, n_ref)], 1)
+
+
+def unpack_outputs_batched(out, H, mu_dtype=torch.int32):
+    """``(xs, u, lam, mu_step, traj_costs, iterations)`` of a ``(B, n_out)``
+    packed result, the batch last as the batched update returns it."""
+    B = out.shape[0]
+    offs, _ = ilqr.layout(output_layout(H))
+    v = {name: out[:, off:off + int(np.prod(shape))].reshape((B,) + shape)
+         for name, (off, shape) in offs.items()}
+    tail = v["tail"]
+    return (v["x"].movedim(0, -1), v["u"].movedim(0, -1),
+            v["lam"].movedim(0, -1), tail[:, 0].to(mu_dtype), tail[:, 1],
+            tail[:, 2].to(torch.int64))
+
+
+def launch_batched(buf, mu_steps, H, n_ref, T, max_iterations,
+                   max_lg_iterations=1, integrator=ilqr.HEUN):
+    """The bare launcher of the batched kernel: ``buf`` ``(B, n_in)``
+    float64 or float32 and ``mu_steps`` ``(B,)`` int32 on one CUDA device;
+    one launch of B blocks, returns the ``(B, n_out)`` packed results."""
+    global launches_batched
+    dev = buf.device
+    if dev.type != "cuda":
+        raise ValueError(f"the batched kernel runs on CUDA tensors, got {dev}")
+    if buf.dtype not in DTYPES:
+        raise NotImplementedError(f"no batched kernel for {buf.dtype}")
+    _, n = ilqr.layout(input_layout(H, n_ref))
+    if buf.dim() != 2 or buf.shape[1] != n or not buf.is_contiguous():
+        raise ValueError(f"packed inputs must be a contiguous (B, {n}) "
+                         f"tensor, got {tuple(buf.shape)}")
+    B = buf.shape[0]
+    if (mu_steps.dtype != torch.int32 or tuple(mu_steps.shape) != (B,)
+            or mu_steps.device != dev or not mu_steps.is_contiguous()):
+        raise ValueError(f"mu_steps must be a contiguous int32 ({B},) tensor "
+                         f"on {dev}")
+    if integrator not in (ilqr.EULER, ilqr.HEUN, ilqr.RK4):
+        raise ValueError(f"unknown integrator {integrator}")
+    lib, f32 = _kernel(), DTYPES[buf.dtype]
+    smem = lib.ilqr_tracking_mpc_smem_bytes(H, n_ref, f32)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"horizon {H} with {n_ref} reference samples needs "
+                         f"{smem} B of shared memory, above {_MAX_SMEM}")
+    out = torch.empty((B, ilqr.layout(output_layout(H))[1]), dtype=buf.dtype,
+                      device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ilqr_tracking_mpc_batched(
+            buf.data_ptr(), out.data_ptr(), mu_steps.data_ptr(), B, H, n_ref,
+            int(T), int(max_iterations), int(max_lg_iterations), integrator,
+            f32, stream)
+    if err != 0:
+        raise RuntimeError(f"ilqr_tracking_mpc_batched launch failed: CUDA "
+                           f"error {err}")
+    launches_batched += 1
+    return out
+
+
+def update_batched(x, u, lam, mu_step, x0, params, cfg, integrator=ilqr.HEUN,
+                   dtype=torch.float64):
+    """The batched update of ``tpl_tpu_torch.optim.batched`` on CUDA
+    tensors: pack, one launch, unpack.  Returns ``(xs, u, lam, mu_step,
+    traj_costs, iterations)``, the batch last."""
+    H = u.shape[0]
+    buf = pack_inputs_batched(x, u, lam, x0, params, cfg, dtype)
+    n_ref = len(params[TABLES[0]])
+    mu = mu_step.to(torch.int32).clamp(0, 7).contiguous()
+    out = launch_batched(buf, mu, H, n_ref, int(cfg["T"]),
+                         int(cfg["max_iterations"]),
+                         int(cfg.get("max_lg_iterations", 1)), integrator)
+    return unpack_outputs_batched(out, H, mu_step.dtype)
+
+
+def blocks_per_sm(H, n_ref, dtype=torch.float64):
+    """Blocks of the batched kernel one SM holds at a time (the occupancy
+    calculator's answer on the current CUDA device)."""
+    n = _kernel().ilqr_tracking_mpc_blocks_per_sm(H, n_ref, DTYPES[dtype])
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n
+
+
+def smem_bytes(H, n_ref, dtype=torch.float64):
+    """Dynamic shared memory of one block (one solve)."""
+    return _kernel().ilqr_tracking_mpc_smem_bytes(H, n_ref, DTYPES[dtype])
 
 
 def traffic_bytes(H, n_ref):
@@ -220,6 +351,25 @@ def bound_ms(H, n_ref, T, iterations, max_lg_iterations=1):
     return _latency.roofline_ms(
         traffic_bytes(H, n_ref),
         operations(H, T, iterations, max_lg_iterations), "float64")
+
+
+def bound_ms_batched(H, n_ref, T, iterations, dtype=torch.float64):
+    """(ms, "bytes" or "operations"): the roofline bound of one batch whose
+    scenarios ran ``iterations`` (a sequence, one count per scenario): every
+    scenario's packed input read and result written once, and the
+    operations its own iteration count needs, at the peak of ``dtype``."""
+    size = torch.empty((), dtype=dtype).element_size()
+    n_bytes = len(iterations) * traffic_bytes(H, n_ref) // 8 * size
+    n_ops = sum(operations(H, T, int(it)) for it in iterations)
+    return _latency.roofline_ms(n_bytes, n_ops,
+                                str(dtype).replace("torch.", ""))
+
+
+def floor_ms_batched(B, sms, per_sm, solve_chain_ms):
+    """The least time of the one-block-per-scenario design: the batch runs
+    in ``ceil(B / (sms * per_sm))`` waves of resident blocks, and a wave
+    takes at least one solve's dependent chain (``solve_chain_ms``)."""
+    return -(-B // (sms * per_sm)) * solve_chain_ms
 
 
 def chain_ops(H, T, iterations):
@@ -300,6 +450,11 @@ def _kernel():
         lib.ilqr_tracking_mpc_profile.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.ilqr_tracking_mpc_smem_bytes.restype = ctypes.c_size_t
-        lib.ilqr_tracking_mpc_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.ilqr_tracking_mpc_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.ilqr_tracking_mpc_batched.restype = ctypes.c_int
+        lib.ilqr_tracking_mpc_batched.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.ilqr_tracking_mpc_blocks_per_sm.restype = ctypes.c_int
+        lib.ilqr_tracking_mpc_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         _LIB = lib
     return _LIB

@@ -5,14 +5,14 @@ The corridor is assembled in packed per-step arrays: map bounds, a
 fixed already-traversed head, then one batched hull projection per
 predicted object decides the evade side and carves the corridor slice
 in a single masked assignment. Smoothed evasion ramps come from the
-slope-limited corridor rampify (numpy), and the profile solves on the
+slope-limited corridor rampify (the C route of
+:mod:`tpl_tpu_torch.native`), and the profile solves on the
 shared iLQR core: on a CUDA device one launch of the ``ilqr_rstp`` kernel
 (float32), through :class:`~tpl_tpu_torch.optim.solver.Solver`.
 
-The port of ``tpl_tpu/planning/path_vel_decomp/path_optim.py``; the JAX
-package's native hook in ``rampify_corridor`` is dropped (the numpy path
-is the port's) and the solver runs on ``tpl_tpu_torch.device()`` instead
-of being pinned to the host CPU.
+The port of ``tpl_tpu/planning/path_vel_decomp/path_optim.py``; the
+solver runs on ``tpl_tpu_torch.device()`` instead of being pinned to the
+host CPU.
 
 Behavioral parity target:
 library/tpl/planning/path_vel_decomp/path_optim.py:11-307.
@@ -20,7 +20,7 @@ library/tpl/planning/path_vel_decomp/path_optim.py:11-307.
 
 import numpy as np
 
-from tpl_tpu_torch import util
+from tpl_tpu_torch import native, util
 from tpl_tpu_torch.util import runtime
 from tpl_tpu_torch.optim import problems
 from tpl_tpu_torch.optim.solver import Solver
@@ -34,6 +34,11 @@ def rampify_corridor(step, horizon, evasion_sharpness, proj_distance, path,
     (reference: path_optim.py:11-55; forward pass then backward pass,
     slope limited by the opposite corridor bound minus the lateral gap)
     """
+    if native.enabled():
+        return native.rampify_corridor(step, horizon, evasion_sharpness,
+                                       proj_distance, path, gap, lower, upper)
+
+    # the oracle: the same two passes in numpy
     n = len(path)
     profiles = []
     for backward in (False, True):

@@ -84,7 +84,31 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    through the bare launcher and through the wrapper at B = 1, 132, 264,
    2048, solves per second, the plain version's time, the roofline bound
    and the floor of the one-block-per-scenario design;
-11. prints the card's name and power limit and one JSON line describing the
+11. FAS closed loops: ``SimStandalone`` on ``demo/country_follow`` with
+   ``poly_lat_dp_lon_planner`` (the demo planning set's block: the sweep at
+   1 x 20, lon T=10, S=201, V=37, A=20, P=200, env 10 x 201 x 31) and then
+   ``lattice_planner`` (its defaults) active, the scenario's other sets, 300
+   ticks each, the chain's launch counters set to 0 just before each loop
+   and read just after; checks zero violations, no emergency plan, finite
+   controls and 13 launches of the chain's kernels per replan (9 backward
+   slices, 1 forward pass, 1 sweep, 1 selection, 1 rampify start scan);
+   prints the end state beside the JAX package's CPU loop's, the per-replan
+   wall (median, max) and the launches of one replan (torch.profiler);
+   keeps the inputs of each loop's first replan;
+12. FAS kernels: ``csrc/lon_dp.cu`` (every backward slice of a seeded
+   demo-width solve and of each loop's first solve, A=20 and A=7: the
+   chosen jerks as indices on all but 0.1 % of the nodes, the values to
+   the stated tolerance; the forward and reeval passes), ``csrc/poly_lat.cu``
+   (the sweep seeded at 1 x 20 and 21 x 13 and each loop's, 1 x 20 and
+   21 x 13; the selection on both loops' maps and 20 seeded ones) and the
+   start mode of ``csrc/rstp_rampify.cu`` (seeded, and each loop's at its
+   path step) against their plain versions on the card (a lon slice, the
+   forward pass and the loops' rampify scans also bit for bit against the
+   plain versions on the CPU; the RSTP mode of the rampify source still bit
+   for bit); times through the bare launchers and the wrappers on the FAS
+   loop's inputs, the wrappers on the lattice loop's, the plain versions'
+   times, ``bound_ms`` and ``chain_ms``;
+13. prints the card's name and power limit and one JSON line describing the
    kernels (launches on the main path and per tick or per DP replan, the
    largest difference to the plain version, the kernel's time through its
    bare launcher ``ms`` and through its wrapper ``wrapper_ms``, the plain
@@ -93,8 +117,12 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    latencies), then ``{"ok": true, "device": {...}}`` as the last line.
    The ``latlon_action_min`` row counts every launch of the source's
    action-min (on the main path all of them go through the fused entry,
-   which has its own row, ``latlon_backward_slice``).
-   Each phase prints its seconds; the whole run takes about 200 s.
+   which has its own row, ``latlon_backward_slice``).  The five FAS rows
+   carry the lattice loop's launches, largest differences and wrapper
+   times under ``lattice_*`` beside the FAS loop's, the lon slices' share
+   of differing jerks (``jerk_flip_share``) and the sweep's largest
+   relative cost difference (``max_cost_rel_err``).
+   Each phase prints its seconds; the whole run takes about 150 s.
 
 With ``--parent-csrc DIR`` (a directory holding another version of any of
 the four kernel sources and the headers they include, for example ``git
@@ -189,8 +217,41 @@ MPC_H = 60
 RSTP_H = 250
 RECORD_SOLVES = (50, 100, 150)
 RECORD_REPLANS = (100, 200, 300)
+FAS = "poly_lat_dp_lon_planner"
+LATTICE = "lattice_planner"
+FAS_TICKS = 300
+# the grids each planner runs at on demo/country_follow: (lateral LD, SD,
+# S), (lon T, S, V, A, P), (env T, S, L); the FAS planner's from the demo
+# planning set's block, the lattice planner's its defaults
+FAS_GRID = {FAS: ((1, 20, 201), (10, 201, 37, 20, 200), (10, 201, 31)),
+            LATTICE: ((21, 13, 201), (10, 201, 37, 7, 200), (10, 201, 21))}
+# the JAX package's own loops on the CPU, 300 ticks on demo/country_follow,
+# that planner active with the scenario's sets: (t, x, v) at the end
+FAS_JAX_END = {FAS: (2.99, 39.51, 8.97), LATTICE: (2.99, 42.77, 10.80)}
+# (row, the wrapper the chain calls, how many of its first calls are kept:
+# every backward slice of the first solve, T - 1 at both planners' grids)
+FAS_ENTRIES = (("lon_dp_backward", "backward_slice", 9),
+               ("lon_dp_forward", "forward", 1),
+               ("poly_lat_sweep", "sweep", 1),
+               ("poly_lat_select", "select_device", 1),
+               ("rstp_rampify_start", "scan_start", 1))
+SWEEP_RTOL = 1e-9
+# (row, source, the XLA program of the JAX package it replaces)
+FAS_ROWS = (
+    ("lon_dp_backward", "lon_dp.cu",
+     "tpl_tpu/planning/dyn_prog/lon_kernel.py:197"),
+    ("lon_dp_forward", "lon_dp.cu",
+     "tpl_tpu/planning/dyn_prog/lon_kernel.py:344"),
+    ("poly_lat_sweep", "poly_lat.cu",
+     "tpl_tpu/planning/dyn_prog/poly_lat_kernel.py:121"),
+    ("poly_lat_select", "poly_lat.cu",
+     "tpl_tpu/planning/dyn_prog/poly_chain_kernel.py:78"),
+    ("rstp_rampify_start", "rstp_rampify.cu",
+     "tpl_tpu/planning/dyn_prog/poly_chain_kernel.py:227"))
+
+
 KERNELS = ("latlon_action_min", "ilqr_tracking_mpc", "ilqr_rstp",
-           "rstp_rampify", "latency_probe")
+           "rstp_rampify", "latency_probe", "lon_dp", "poly_lat")
 NO_LIBRARY = None           # no single PyTorch call computes these kernels
 
 
@@ -1673,6 +1734,454 @@ def host_profile_phase(native, ticks):
     native.enable(True)
 
 
+def fas_counts(tlk, plk, rmp, reset=False):
+    """The chain's kernel launch counters by entry (set to 0 with
+    ``reset``)."""
+    if reset:
+        tlk.launches = tlk.backward_launches = tlk.forward_launches = 0
+        plk.launches = plk.sweep_launches = plk.select_launches = 0
+        rmp.launches = rmp.start_launches = 0
+    return {"lon_dp_backward": tlk.backward_launches,
+            "lon_dp_forward": tlk.forward_launches,
+            "poly_lat_sweep": plk.sweep_launches,
+            "poly_lat_select": plk.select_launches,
+            "rstp_rampify_start": rmp.start_launches}
+
+
+def record_fas_calls(tlk, plk, rmp):
+    """Wraps the chain's five kernel entries so that copies of the
+    arguments of their first calls (the first replan's inputs; every
+    backward slice of its solve, the final one first) are kept.  Returns
+    (recorded by row name, restore)."""
+    import torch
+
+    mods = {"backward_slice": tlk, "forward": tlk, "sweep": plk,
+            "select_device": plk, "scan_start": rmp}
+    rec = {row: [] for row, _, _ in FAS_ENTRIES}
+    saved = []
+    for row, name, keep in FAS_ENTRIES:
+        mod = mods[name]
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def wrapped(*args, _fn=fn, _row=row, _keep=keep, **kw):
+            if len(rec[_row]) < _keep:
+                rec[_row].append(tuple(a.clone() if torch.is_tensor(a) else a
+                                       for a in args))
+            return _fn(*args, **kw)
+
+        setattr(mod, name, wrapped)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return rec, restore
+
+
+def fas_loop_phase(tlk, plk, rmp, planner_name, ticks, record=False):
+    """SimStandalone on demo/country_follow with ``planner_name`` (the
+    FAS-2025 chain's planners) active and the scenario's own sets, the
+    chain on the card; the launch counters set to 0 just before the loop
+    and read just after.  Checks zero rule violations, no emergency plan,
+    finite controls and each of the chain's kernels launched exactly as
+    often per replan as a replan launches it; prints the end state beside
+    the JAX package's CPU loop's, the per-replan wall (the planner's own
+    ``runtime_dp``) and the launches of one replan (torch.profiler)."""
+    import torch
+    from tpl_tpu_torch.simulation import SimStandalone
+
+    sim = SimStandalone(app_id=f"smoke_{planner_name}",
+                        scenario_path="demo/country_follow")
+    store = sim.planning_app.sh_planners
+    with store.lock():
+        store.active_planner = planner_name
+        prm = getattr(store, planner_name).params
+        if planner_name == FAS:
+            lat, lon = prm.planner.cpp_lat, prm.planner.cpp_lon
+        else:
+            lat, lon = prm.planner.lat_sampling, prm.planner.dyn_prog
+        env = prm.env.cpp
+        grid = ((lat.l_dst_steps, lat.s_dst_steps, lat.s_steps),
+                (lon.t_steps, lon.s_steps, lon.v_steps, lon.a_steps,
+                 lon.path_steps), (env.t_steps, env.s_steps, env.l_steps))
+    if grid != FAS_GRID[planner_name]:
+        raise AssertionError(f"{planner_name} grid {grid} != "
+                             f"{FAS_GRID[planner_name]}")
+    planner = sim.planning_app.planners[planner_name]
+    controllers = sim.control_app.sh_controllers
+    with sim.core.sh_state.lock():
+        ss = sim.core.sh_state.sim
+        ss.settings.running = True
+        ss.settings.use_real_time = False
+        ss.rule_checker.enable = True
+    chain_args = []
+    replan = planner.chain.replan
+
+    def recording_replan(*args):
+        chain_args[:] = [args]
+        return replan(*args)
+
+    planner.chain.replan = recording_replan
+    rec, restore = record_fas_calls(tlk, plk, rmp) if record else (
+        None, lambda: None)
+    tick_ms, replan_ms = [], []
+    last = planner.policy.last_replan_time
+    fas_counts(tlk, plk, rmp, reset=True)
+    try:
+        for k in range(ticks):
+            t0 = time.perf_counter()
+            sim.update()
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            if planner.policy.last_replan_time != last:
+                last = planner.policy.last_replan_time
+                replan_ms.append(planner.runtime_dp)
+            with store.lock():
+                emergency = store.trajectory.emergency
+            with controllers.lock():
+                controls = np.array(controllers.controls)
+            if emergency:
+                raise AssertionError(f"{planner_name} tick {k}: emergency "
+                                     "trajectory")
+            if not np.all(np.isfinite(controls)):
+                raise AssertionError(f"{planner_name} tick {k}: non-finite "
+                                     "controls")
+        counts = fas_counts(tlk, plk, rmp)
+    finally:
+        restore()
+    n = len(replan_ms)
+    T = grid[1][0]
+    per_replan = {"lon_dp_backward": T - 1, "lon_dp_forward": 1,
+                  "poly_lat_sweep": 1, "poly_lat_select": 1,
+                  "rstp_rampify_start": 1}
+    for row, per in per_replan.items():
+        if n == 0 or counts[row] != per * n:
+            raise AssertionError(f"{planner_name}: {counts[row]} {row} "
+                                 f"launches for {n} replans")
+    with sim.core.sh_state.lock():
+        s = sim.core.sh_state.sim
+        violations = list(s.rule_checker.violations)
+        t_end, x_end, v_end = s.t, s.ego.x, s.ego.v
+    if violations:
+        raise AssertionError(f"{planner_name}: rule violations "
+                             f"{violations[:3]}")
+    if not v_end > 4.0:
+        raise AssertionError(f"{planner_name}: ego speed {v_end} at the end")
+    jt, jx, jv = FAS_JAX_END[planner_name]
+    total = count_launches(lambda: planner.chain.replan(*chain_args[0]))
+    kernels = sum(per_replan.values())
+    print(f"{planner_name}: {ticks} ticks to t={t_end:.2f} s, ego x "
+          f"{x_end:.2f} v {v_end:.2f} m/s (the JAX package's CPU loop: "
+          f"t={jt:.2f} s, x {jx:.2f} v {jv:.2f}), 0 violations, no "
+          f"emergency, {n} replans; launches per replan: {kernels} kernels "
+          f"of the chain ({', '.join(f'{r} {p}' for r, p in per_replan.items())})"
+          f" of {total} in all (torch.profiler, one replan of the last "
+          f"inputs)")
+    print(f"{planner_name}: per-replan wall ms (runtime_dp): median "
+          f"{np.median(replan_ms):.3f}, max {np.max(replan_ms):.3f} (first "
+          f"{replan_ms[0]:.3f}); per-tick total wall ms: median "
+          f"{np.median(tick_ms):.3f}, max {np.max(tick_ms):.3f}")
+    return dict(counts=counts, replans=n, replan_ms=replan_ms, rec=rec,
+                total=total, end=(t_end, x_end, v_end))
+
+
+def lon_check(got, want, what):
+    """A lon backward slice of the kernel against the plain version's:
+    the jerks as indices equal on all but MAX_TIE_SHARE of the nodes, cost
+    and constraint within tolerance on the others.  Returns (max abs err
+    where the jerks agree, share of differing jerks)."""
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    flips = got[..., 2] != want[..., 2]
+    share = float(flips.float().mean())
+    if share > MAX_TIE_SHARE:
+        raise AssertionError(f"{what}: jerks differ on {share:.2e} of nodes")
+    keep = ~flips
+    np.testing.assert_allclose(got[..., 0][keep], want[..., 0][keep],
+                               rtol=COST_RTOL, atol=COST_ATOL,
+                               err_msg=what + " cost")
+    np.testing.assert_allclose(got[..., 1][keep], want[..., 1][keep], rtol=0,
+                               atol=CONSTR_ATOL, err_msg=what + " constr")
+    return float(torch.max(torch.abs(got - want)[keep])), share
+
+
+def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz):
+    """The chain's kernels against their plain versions on the card, on
+    seeded inputs at the demo width (lon T=10, S=201, V=37, A=20, P=200;
+    the sweep at 1 x 20 and 21 x 13) and on the recorded inputs of each
+    loop's first replan (``recs``: the FAS loop's under "fas", the lattice
+    loop's under "lattice": lon A=20 and A=7, the sweep at 1 x 20 and
+    21 x 13, the rampify start mode at the path step of each); the jerks of
+    every lon slice as indices (the share of differing nodes bounded), the
+    loops' first lon slice after the final one, forward pass and rampify
+    scan also bit for bit against the plain versions on the CPU; the
+    selection's winner exactly; the RSTP mode of the rampify source still
+    bit for bit.  Times each entry through its bare launcher and its
+    wrapper (in turns) and its plain version on the FAS loop's inputs, the
+    wrapper on the lattice loop's, and prints ``bound_ms`` / ``chain_ms``.
+    Returns one result dict per row: ``err`` / ``share`` the largest over
+    the seeded and FAS-loop inputs, ``lattice_err`` / ``lattice_share``
+    over the lattice loop's."""
+    import torch
+    from tpl_tpu_torch.scenes import (LON_DEMO, lon_nodes, lon_scene,
+                                      poly_lat_scene, rampify_args)
+
+    on = lambda d, *a: tuple(torch.as_tensor(np.asarray(x)).to(d) for x in a)
+    cpu = lambda a: tuple(x.cpu() if torch.is_tensor(x) else x for x in a)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    loops = ("fas", "lattice")
+    res = {row: {} for row, _, _ in FAS_ROWS}
+
+    def note(row, key, err):
+        res[row][key] = max(res[row].get(key, 0.0), err)
+
+    def key(loop, name="err"):
+        return name if loop in ("seeded", "fas") else f"lattice_{name}"
+
+    # lon backward slice: seeded (every slice from the plain next slice)
+    # and every slice of each loop's first solve, from its own next slice
+    T, S, V, A, P = (LON_DEMO[k] for k in "TSVAP")
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, 5, demo=True)
+    args = on(dev, pp, path, dist)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A, dev=dev)
+    slices = {"seeded": [(nodes[min(i + 1, T - 1)],) + args + (i, i == T - 1)
+                         for i in range(T - 1, 0, -1)]}
+    slices.update((loop, recs[loop]["lon_dp_backward"]) for loop in loops)
+    for loop, cases in slices.items():
+        for a in cases:
+            e, share = lon_check(tlk.backward_slice(*a),
+                                 tlk.backward_slice_reference(*a),
+                                 f"{loop} slice {a[4]}")
+            note("lon_dp_backward", key(loop), e)
+            note("lon_dp_backward", key(loop, "share"), share)
+        # the first slice after the final one, bit for bit on the CPU
+        a = cases[1]
+        if not torch.equal(tlk.backward_slice_reference(*cpu(a)),
+                           tlk.backward_slice(*a).cpu()):
+            raise AssertionError(f"lon_dp_backward {loop} slice {a[4]}: "
+                                 "kernel and plain version on the CPU differ")
+        r = res["lon_dp_backward"]
+        print(f"lon_dp_backward check, {loop}: {len(cases)} slices at "
+              f"{tuple(cases[0][0].shape[:3])}: max|kernel-plain| "
+              f"{r[key(loop)]:.3e}, jerks differ on at most "
+              f"{r[key(loop, 'share')]:.2e} of nodes; slice {a[4]} "
+              f"bit-equal to the plain version on the CPU")
+    nxt, pp_r, path_r, dist_r, t_idx, _ = recs["fas"]["lon_dp_backward"][1]
+    Tr = dist_r.shape[0]
+    Sr, Vr, Ar = nxt.shape[:3]
+    Pr = path_r.shape[0]
+    out = torch.empty_like(nxt)
+    lib = tlk._kernel()
+    ms, wrapper_ms = launcher_times(
+        "lon_dp_backward", f"FAS loop slice {t_idx} ({Sr} x {Vr} x {Ar})",
+        lambda: lib.lon_dp_backward(nxt.data_ptr(), pp_r.data_ptr(),
+                                    path_r.data_ptr(), dist_r.data_ptr(),
+                                    out.data_ptr(), Sr, Vr, Ar, Pr, t_idx, 0,
+                                    stream),
+        lambda: tlk.backward_slice(nxt, pp_r, path_r, dist_r, t_idx, False,
+                                   out=out), 100)
+    lat_a = recs["lattice"]["lon_dp_backward"][1]
+    res["lon_dp_backward"].update(
+        ms=ms, wrapper_ms=wrapper_ms,
+        plain_ms=cuda_ms(lambda: tlk.backward_slice_reference(
+            nxt, pp_r, path_r, dist_r, t_idx, False), 3),
+        lattice_wrapper_ms=cuda_ms(lambda: tlk.backward_slice(*lat_a), 100),
+        bound=tlk.bound_ms(Sr, Vr, Ar, Pr, Tr),
+        chain=tlk.chain_ms(cycles, mhz))
+
+    # lon forward pass and reeval (the trajectory's jerks set to j_min)
+    solves = {"seeded": (nodes,) + args + on(dev, x0)}
+    solves.update((loop, recs[loop]["lon_dp_forward"][0]) for loop in loops)
+    for loop, a in solves.items():
+        got = tlk.forward(*a)
+        note("lon_dp_forward", key(loop),
+             float(torch.max(torch.abs(got - tlk.forward_reference(*a)))))
+        traj = got.clone()
+        traj[2:, tlk.LC_J] = a[1][tlk.LON_PP_KEYS.index("j_min")]
+        b = a[:4] + (traj,)
+        note("lon_dp_forward", key(loop), float(torch.max(torch.abs(
+            tlk.reeval_pass(*b) - tlk.reeval_reference(*b)))))
+        if loop != "seeded" and not torch.equal(
+                got.cpu(), tlk.forward_reference(*cpu(a))):
+            raise AssertionError(f"lon_dp_forward {loop}: kernel and plain "
+                                 "version on the CPU differ")
+        print(f"lon_dp_forward check, {loop} (A={a[0].shape[3]}): forward "
+              f"and reeval max|kernel-plain| "
+              f"{res['lon_dp_forward'][key(loop)]:.3e}"
+              + ("" if loop == "seeded" else
+                 "; the forward pass bit-equal to the plain version on "
+                 "the CPU"))
+    if max(res["lon_dp_forward"].values()) > TRAJ_ATOL:
+        raise AssertionError("lon_dp_forward: kernel and plain differ")
+    nodes_r, pp_r, path_r, dist_r, x0_r = recs["fas"]["lon_dp_forward"][0]
+    Tr = nodes_r.shape[0]
+    outf = torch.empty((Tr, 7), dtype=torch.float32, device=dev)
+    ms, wrapper_ms = launcher_times(
+        "lon_dp_forward", f"FAS loop solve (T={Tr}, {tlk.NF} jerks)",
+        lambda: lib.lon_dp_forward(
+            nodes_r.data_ptr(), pp_r.data_ptr(), path_r.data_ptr(),
+            dist_r.data_ptr(), x0_r.data_ptr(), outf.data_ptr(), Tr, Sr, Vr,
+            Ar, Pr, Tr, 0, stream),
+        lambda: tlk.forward(nodes_r, pp_r, path_r, dist_r, x0_r), 100)
+    traj = outf.clone()
+    traj[2:, tlk.LC_J] = pp_r[tlk.LON_PP_KEYS.index("j_min")]
+    reeval_ms = cuda_ms(lambda: tlk.reeval_pass(nodes_r, pp_r, path_r,
+                                                dist_r, traj), 100)
+    print(f"lon_dp_forward: reeval of {traj.shape[0]} rows through the "
+          f"wrapper {reeval_ms:.4f} ms")
+    lat_a = recs["lattice"]["lon_dp_forward"][0]
+    res["lon_dp_forward"].update(
+        ms=ms, wrapper_ms=wrapper_ms,
+        plain_ms=cuda_ms(lambda: tlk.forward_reference(
+            nodes_r, pp_r, path_r, dist_r, x0_r), 2),
+        lattice_wrapper_ms=cuda_ms(lambda: tlk.forward(*lat_a), 100),
+        bound=tlk.forward_bound_ms(Sr, Vr, Ar, Pr, Tr),
+        chain=tlk.forward_chain_ms(Tr, cycles, mhz), reeval_ms=reeval_ms)
+
+    # the candidate sweep: seeded at 1 x 20 and 21 x 13, and each loop's:
+    # the collision distance exactly, the float64 cost to SWEEP_RTOL
+    cases = []
+    for LD, SD in ((1, 20), (21, 13)):
+        occ, rl, step, ppl, env, start = poly_lat_scene(LD, SD, 201,
+                                                        LD + SD)
+        cases.append(("seeded", on(dev, occ, rl, np.array([step], np.float32),
+                                   ppl, env, start) + (LD, SD, 201)))
+    cases += [(loop, recs[loop]["poly_lat_sweep"][0]) for loop in loops]
+    for loop, a in cases:
+        cd, tc = plk.sweep(*a)
+        cd_w, tc_w = plk.evaluate_reference(*a)
+        e = float(torch.max(torch.abs(cd - cd_w)))
+        rel = float(torch.max(torch.abs(tc - tc_w)
+                              / torch.clamp(torch.abs(tc_w), min=1e-300)))
+        note("poly_lat_sweep", key(loop), e)
+        note("poly_lat_sweep", key(loop, "cost_rel"), rel)
+        print(f"poly_lat_sweep check, {loop} {a[6]} x {a[7]}: max|cd "
+              f"kernel-plain| {e:.3e}, max rel cost {rel:.3e}, cost dtype "
+              f"{tc.dtype}")
+        if e != 0.0 or rel > SWEEP_RTOL or tc.dtype != torch.float64:
+            raise AssertionError(f"poly_lat_sweep {loop}: kernel and plain "
+                                 "differ")
+    occ_r, rl_r, step_r, ppl_r, env_r, start_r, LD, SD, Sl = \
+        recs["fas"]["poly_lat_sweep"][0]
+    cd_o = torch.empty((LD, SD), dtype=torch.float32, device=dev)
+    tc_o = torch.empty((LD, SD), dtype=torch.float64, device=dev)
+    inv = plk._hermite_inv(dev)
+    plib = plk._kernel()
+    TE, SE, LE = occ_r.shape
+    ms, wrapper_ms = launcher_times(
+        "poly_lat_sweep", f"FAS loop replan ({LD} x {SD} x {Sl})",
+        lambda: plib.poly_lat_sweep(
+            occ_r.data_ptr(), rl_r.data_ptr(), step_r.data_ptr(),
+            ppl_r.data_ptr(), env_r.data_ptr(), start_r.data_ptr(),
+            inv.data_ptr(), cd_o.data_ptr(), tc_o.data_ptr(), LD, SD, Sl, TE,
+            SE, LE, rl_r.shape[0], stream),
+        lambda: plk.sweep(*recs["fas"]["poly_lat_sweep"][0]), 100)
+    lat_a = recs["lattice"]["poly_lat_sweep"][0]
+    res["poly_lat_sweep"].update(
+        ms=ms, wrapper_ms=wrapper_ms,
+        plain_ms=cuda_ms(lambda: plk.evaluate_reference(
+            *recs["fas"]["poly_lat_sweep"][0]), 3),
+        lattice_wrapper_ms=cuda_ms(lambda: plk.sweep(*lat_a), 50),
+        bound=plk.bound_ms(LD, SD, Sl, rl_r.shape[0],
+                           min(TE * SE * LE, 9 * LD * SD * Sl)),
+        chain=plk.chain_ms(Sl, cycles, mhz),
+        lattice_bound_ms=plk.bound_ms(
+            lat_a[6], lat_a[7], lat_a[8], lat_a[1].shape[0],
+            min(lat_a[0].numel(), 9 * lat_a[6] * lat_a[7] * lat_a[8]))[0])
+
+    # the selection: the winner exactly, the cost's difference measured
+    rng = np.random.default_rng(0)
+    cases = [(loop, recs[loop]["poly_lat_select"][0]) for loop in loops]
+    for trial in range(20):
+        cd = rng.uniform(0.0, 60.0, (21, 13)).astype(np.float32)
+        cd[rng.random((21, 13)) < 0.3] = 1000.0
+        tc = rng.uniform(0.0, 100.0, (21, 13))
+        tc[rng.random((21, 13)) < 0.2] = 1e7
+        cases.append(("seeded", on(dev, cd, tc, np.float32([2.0]))
+                      + (21, 13)))
+    for loop, a in cases:
+        got = plk.select_device(*a)
+        want = plk.select_reference(*cpu(a))
+        if int(got[0]) != int(want[0]):
+            raise AssertionError(f"poly_lat_select {loop}: winner "
+                                 f"{int(got[0])} != {int(want[0])}")
+        note("poly_lat_select", key(loop),
+             abs(float(got[1]) - float(want[1])))
+    r = res["poly_lat_select"]
+    print(f"poly_lat_select check: the FAS loop's (1 x 20), the lattice "
+          f"loop's (21 x 13) and 20 seeded 21 x 13 maps: the plain "
+          f"version's winner on all; max|cost kernel-plain| {r['err']:.3e} "
+          f"(seeded, FAS loop), {r['lattice_err']:.3e} (lattice loop)")
+    if max(r.values()) != 0.0:
+        raise AssertionError("poly_lat_select: kernel and plain differ")
+    cd_s, tc_s, lv_s, LD, SD = recs["fas"]["poly_lat_select"][0]
+    best = torch.empty((), dtype=torch.int64, device=dev)
+    cost = torch.empty((), dtype=torch.float32, device=dev)
+    ms, wrapper_ms = launcher_times(
+        "poly_lat_select", f"FAS loop replan ({LD} x {SD})",
+        lambda: plib.poly_lat_select(cd_s.data_ptr(), tc_s.data_ptr(),
+                                     lv_s.data_ptr(), best.data_ptr(),
+                                     cost.data_ptr(), LD, SD, stream),
+        lambda: plk.select_device(cd_s, tc_s, lv_s, LD, SD), 100)
+    lat_a = recs["lattice"]["poly_lat_select"][0]
+    res["poly_lat_select"].update(
+        ms=ms, wrapper_ms=wrapper_ms,
+        plain_ms=cuda_ms(lambda: plk.select_reference(cd_s, tc_s, lv_s, LD,
+                                                      SD), 10),
+        lattice_wrapper_ms=cuda_ms(lambda: plk.select_device(*lat_a), 100),
+        bound=plk.select_bound_ms(LD, SD),
+        chain=plk.select_chain_ms(LD, SD, cycles, mhz))
+
+    # the rampify start mode (seeded, and each loop's at its path step), and
+    # the RSTP mode of the same source, bit for bit
+    ra = rampify_args(dev, 200, 200, 3)
+    cases = [("seeded", (ra[2],) + ra[4:])]
+    cases += [(loop, recs[loop]["rstp_rampify_start"][0]) for loop in loops]
+    for loop, a in cases:
+        got = rmp.scan_start(*a)
+        want = rmp.scan_start_reference(*a)
+        note("rstp_rampify_start", key(loop),
+             float(torch.max(torch.abs(got - want))))
+        if not (torch.equal(got, want) and (loop == "seeded" or torch.equal(
+                got.cpu(), rmp.scan_start_reference(*cpu(a))))):
+            raise AssertionError(f"rstp_rampify start mode {loop}: kernel "
+                                 "and plain differ")
+        print(f"rstp_rampify start mode check, {loop} (H={a[0].shape[0]}, "
+              f"step {float(a[-1]):g}): bit-equal to the plain version"
+              + ("" if loop == "seeded" else " on the card and the CPU"))
+    if not torch.equal(rmp.scan(*ra), rmp.scan_reference(*ra)):
+        raise AssertionError("rstp_rampify: the RSTP mode and its plain "
+                             "version differ")
+    print("rstp_rampify RSTP mode check: bit-equal to the plain version")
+    loop_a = recs["fas"]["rstp_rampify_start"][0]
+    lim_r = loop_a[0]
+    H = lim_r.shape[0]
+    ptrs = rmp.pointers((loop_a[1],) * 2 + loop_a[1:], lim_r)
+    outr = torch.empty((H, 2), dtype=torch.float32, device=dev)
+    rlib = rmp._kernel()
+    ms, wrapper_ms = launcher_times(
+        "rstp_rampify_start", f"FAS loop replan (H={H})",
+        lambda: rlib.rstp_rampify_scan_start(ptrs, outr.data_ptr(), H,
+                                             stream),
+        lambda: rmp.scan_start(*loop_a), 200)
+    lat_a = recs["lattice"]["rstp_rampify_start"][0]
+    res["rstp_rampify_start"].update(
+        ms=ms, wrapper_ms=wrapper_ms,
+        plain_ms=cuda_ms(lambda: rmp.scan_start_reference(*loop_a), 2),
+        lattice_wrapper_ms=cuda_ms(lambda: rmp.scan_start(*lat_a), 200),
+        bound=rmp.bound_ms(H), chain=rmp.chain_ms(H, cycles, mhz))
+    for row, r in res.items():
+        print(f"{row}: kernel {r['ms']:.4f} ms (bare launcher; wrapper "
+              f"{r['wrapper_ms']:.4f}; on the lattice loop's inputs "
+              f"{r['lattice_wrapper_ms']:.4f}), plain {r['plain_ms']:.4f} "
+              f"ms, bound_ms {r['bound'][0]:.6f} ({r['bound'][1]}), "
+              f"chain_ms {r['chain']:.6f}; max|kernel-plain| {r['err']:.3e}"
+              f", lattice loop {r['lattice_err']:.3e}")
+    return res
+
+
 def probe_phase(lat, itm, dev):
     """The card's operation latencies (csrc/latency_probe.cu) and the SM
     clock under load; prints them with the card's name and power limit."""
@@ -1738,6 +2247,8 @@ def main(argv=()):
     from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
     from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
     from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
+    from tpl_tpu_torch.planning.dyn_prog import lon_kernel as tlk
+    from tpl_tpu_torch.planning.dyn_prog import poly_lat_kernel as plk
     from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify as rmp
 
     card = smi("name,power.limit")
@@ -1750,7 +2261,7 @@ def main(argv=()):
 
     t0 = time.perf_counter()
     _build.build(KERNELS)
-    for mod in (lam, itm, rstp, rmp, lat):
+    for mod in (lam, itm, rstp, rmp, lat, tlk, plk):
         mod._kernel()
     native.get_lib()
     print(f"built {', '.join(KERNELS)} and native/hostops.cpp in "
@@ -1805,6 +2316,13 @@ def main(argv=()):
                  opts.parent_csrc)
     phase("host C routes", native_phase, native, native_rec, loop_calls)
     bat = phase("batched tracking MPC", batched_phase, itm, dev, cycles, mhz)
+    fas = phase("FAS closed loop, poly_lat_dp_lon_planner", fas_loop_phase,
+                tlk, plk, rmp, FAS, FAS_TICKS, record=True)
+    lattice = phase("FAS closed loop, lattice_planner", fas_loop_phase, tlk,
+                    plk, rmp, LATTICE, FAS_TICKS, record=True)
+    fk = phase("FAS kernels", fas_kernel_phase, tlk, plk, rmp,
+               {"fas": fas["rec"], "lattice": lattice["rec"]}, dev, cycles,
+               mhz)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -1910,6 +2428,33 @@ def main(argv=()):
                  ("near_course_chain_ms", b32["tame"]["floor"])):
         row["float32_" + k] = v
     rows.append(row)
+    # the FAS chain's kernels: launches on its loop, the lattice loop's
+    # beside them; the checks on seeded inputs and on the FAS loop's, the
+    # lattice loop's beside them; times on the FAS loop's inputs
+    for name, source, replaces in FAS_ROWS:
+        r = fk[name]
+        row = {
+            "name": name, "route": "cuda",
+            "source": f"tpl_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": fas["counts"][name],
+            "per_replan": fas["counts"][name] / fas["replans"],
+            "lattice_launches": lattice["counts"][name],
+            "lattice_per_replan": (lattice["counts"][name]
+                                   / lattice["replans"]),
+            "max_abs_err": r["err"], "lattice_max_abs_err": r["lattice_err"],
+            "ms": r["ms"], "wrapper_ms": r["wrapper_ms"],
+            "lattice_wrapper_ms": r["lattice_wrapper_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "chain_ms": r["chain"],
+            "library_ms": NO_LIBRARY}
+        # the share of lon nodes whose chosen jerk differs; the sweep's
+        # largest relative cost difference
+        for k, out in (("share", "jerk_flip_share"),
+                       ("cost_rel", "max_cost_rel_err")):
+            if k in r:
+                row[out] = r[k]
+                row["lattice_" + out] = r["lattice_" + k]
+        rows.append(row)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

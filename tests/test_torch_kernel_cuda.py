@@ -33,7 +33,12 @@ from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
 from tpl_tpu_torch.optim import problems, solver
 from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
 from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
+from tpl_tpu_torch.planning.dyn_prog import lon_kernel as tlk
+from tpl_tpu_torch.planning.dyn_prog import poly_chain_kernel as tpck
+from tpl_tpu_torch.planning.dyn_prog import poly_lat_kernel as plk
 from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify
+from tpl_tpu_torch.scenes import (LON_DEMO, lon_nodes, lon_scene,
+                                  poly_lat_scene, rampify_args)
 
 COST_RTOL, COST_ATOL = 1e-6, 1e-3
 CONSTR_ATOL = 1e-4
@@ -552,15 +557,6 @@ def test_rstp_solver_launches_kernel_once_per_update(cuda):
             s.shift(1)
 
 
-def rampify_args(dev, H, T, seed):
-    rng = np.random.default_rng(seed)
-    lim = np.maximum(1.0, 10.0 + np.cumsum(rng.normal(0.0, 1.0, H)))
-    lim[H // 6:H // 6 + 5] = 2.0
-    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
-    return (f32(rng.uniform(0.0, 12.0)), f32(rng.normal(0.0, 0.5)), f32(lim),
-            T, f32(-2.5), f32(2.5), f32(-1.5), f32(1.5), f32(1.0), f32(0.5))
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,T", [(250, 250), (250, 180), (64, 64), (2, 1)])
 def test_rampify_kernel_matches_plain_bit_for_bit(cuda, H, T):
@@ -659,3 +655,194 @@ def test_latency_probe_and_sincos_check(cuda):
     assert lat["f64_div"] > lat["f64_add"] and lat["f32_div"] > lat["f32_add"]
     assert lat["f64_sin"] > lat["f64_mul"]
     assert _latency.sincos_mismatches(cuda, -50.0, 50.0, 1_000_000) == 0
+
+
+# ---------------------------------------------------------------------
+# the poly chain's kernels (lon DP, lateral sweep and selection, the
+# rampify start mode): bit for bit against the plain versions on the CPU,
+# but the sweep (float64 sums in another order, sinf / cosf of another
+# library: the cost to rtol 1e-12, the collision distance exactly)
+
+def _on(dev, *arrays):
+    return tuple(torch.as_tensor(np.asarray(a)).to(dev) for a in arrays)
+
+
+@pytest.mark.cuda
+def test_lon_backward_kernel_matches_plain_bit_for_bit(cuda):
+    """Every slice of a demo-width solve (the final one included), each
+    from the plain version's next slice."""
+    T, S, V, A, P = (LON_DEMO[k] for k in "TSVAP")
+    pp, path, dist, _ = lon_scene(S, V, A, P, T, 5, demo=True)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    args = _on(cuda, pp, path, dist)
+    for i in range(T - 1, 0, -1):
+        before = tlk.backward_launches
+        got = tlk.backward_slice(nodes[min(i + 1, T - 1)].to(cuda), *args, i,
+                                 i == T - 1)
+        torch.cuda.synchronize()
+        assert tlk.backward_launches == before + 1
+        assert torch.equal(got.cpu(), nodes[i]), f"slice {i}"
+    assert (nodes[1:T - 1, ..., 1] > 0).any()
+
+
+@pytest.mark.cuda
+def test_lon_forward_and_reeval_kernel_match_plain_bit_for_bit(cuda):
+    T, S, V, A, P = (LON_DEMO[k] for k in "TSVAP")
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, 6, demo=True)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    args = _on("cpu", pp, path, dist)
+    want = tlk.forward_reference(nodes, *args, torch.from_numpy(x0))
+    before = tlk.forward_launches
+    got = tlk.forward(nodes.to(cuda), *_on(cuda, pp, path, dist),
+                      torch.from_numpy(x0).to(cuda))
+    torch.cuda.synchronize()
+    assert tlk.forward_launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    traj = want.clone()
+    traj[2:, tlk.LC_J] = float(pp[tlk.LON_PP_KEYS.index("j_min")])
+    traj = torch.cat([traj, traj[-3:]])
+    want_r = tlk.reeval_reference(nodes, *args, traj)
+    got_r = tlk.reeval_pass(nodes.to(cuda), *_on(cuda, pp, path, dist),
+                            traj.to(cuda))
+    assert torch.equal(got_r.cpu(), want_r)
+
+
+@pytest.mark.cuda
+def test_lon_solve_launches_one_kernel_per_slice_and_one_forward(cuda):
+    T, S, V, A, P = (LON_DEMO[k] for k in "TSVAP")
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, 7, demo=True)
+    solve, _ = tlk.make_lon_solver(dict(t_steps=T, s_steps=S, v_steps=V,
+                                        a_steps=A, path_steps=P))
+    b0, f0 = tlk.backward_launches, tlk.forward_launches
+    nodes, traj = solve(*_on(cuda, dist, path, pp, x0))
+    torch.cuda.synchronize()
+    assert (tlk.backward_launches - b0, tlk.forward_launches - f0) == (T - 1,
+                                                                       1)
+    want_nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    assert torch.equal(nodes.cpu(), want_nodes)
+    assert torch.equal(traj.cpu(), tlk.forward_reference(
+        want_nodes, *_on("cpu", pp, path, dist), torch.from_numpy(x0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("LD,SD,S", [(1, 20, 201), (21, 13, 201),
+                                     (6, 4, 61)])
+def test_poly_lat_sweep_kernel_matches_plain(cuda, LD, SD, S):
+    scene = poly_lat_scene(LD, SD, S, LD + SD + S)
+    occ, rl, step, pp, env, start = scene
+    step = np.array([step], np.float32)
+    want_cd, want_tc = plk.evaluate_reference(
+        *_on("cpu", occ, rl, step, pp, env, start), LD, SD, S)
+    before = plk.sweep_launches
+    cd, tc = plk.sweep(*_on(cuda, occ, rl, step, pp, env, start), LD, SD, S)
+    torch.cuda.synchronize()
+    assert plk.sweep_launches == before + 1
+    assert (cd.dtype, tc.dtype) == (torch.float32, torch.float64)
+    assert torch.equal(cd.cpu(), want_cd)
+    np.testing.assert_allclose(tc.cpu().numpy(), want_tc.numpy(), rtol=1e-12,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_poly_lat_select_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(0)
+    for LD, SD in ((21, 13), (1, 20), (4, 3)):
+        for trial in range(10):
+            cd = rng.uniform(0.0, 60.0, (LD, SD)).astype(np.float32)
+            cd[rng.random((LD, SD)) < 0.3] = 1000.0
+            tc = rng.uniform(0.0, 100.0, (LD, SD))
+            tc[rng.random((LD, SD)) < 0.2] = 1e7
+            lv = np.array([2.0], np.float32)
+            want = plk.select_reference(*_on("cpu", cd, tc, lv), LD, SD)
+            before = plk.select_launches
+            got = plk.select_device(*_on(cuda, cd, tc, lv), LD, SD)
+            assert plk.select_launches == before + 1
+            assert int(got[0]) == int(want[0]) and float(got[1]) == float(
+                want[1]), (LD, SD, trial)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [200, 37, 2])
+def test_rampify_start_mode_matches_plain_bit_for_bit(cuda, H):
+    args = rampify_args(cuda, H, H, H)
+    lim = args[2].clone()
+    lim[H // 3] = 0.0
+    scal = args[4:]
+    before = (rstp_rampify.launches, rstp_rampify.start_launches)
+    got = rstp_rampify.scan_start(lim, *scal)
+    torch.cuda.synchronize()
+    assert (rstp_rampify.launches, rstp_rampify.start_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = rstp_rampify.scan_start_reference(lim.cpu(),
+                                             *[a.cpu() for a in scal])
+    assert torch.equal(got.cpu(), want)
+    # the RSTP mode of the same source is unchanged
+    assert torch.equal(rstp_rampify.scan(*args).cpu(),
+                       rstp_rampify.scan_reference(*[
+                           a.cpu() if torch.is_tensor(a) else a
+                           for a in args]))
+
+
+@pytest.mark.cuda
+def test_chain_replan_launch_counts(cuda):
+    """One replan of the chain on the card at the demo set's widths: one
+    sweep, one selection, one rampify scan, T - 1 backward slices and one
+    forward pass; the same winner and trajectory as the plain chain on the
+    CPU."""
+    import tpl_tpu_torch
+    from tpl_tpu_torch.planning.dyn_prog.dp_environment import (
+        DpEnvironment, DpEnvParams)
+
+    def straight_env():
+        env = DpEnvironment()
+        p = DpEnvParams()
+        p.l_steps = 31
+        env.reinit_buffers(p)
+        rl = np.zeros((401, 9))
+        rl[:, 0] = np.arange(401) * 0.5
+        rl[:, 3] = rl[:, 0]
+        rl[:, 5] = 10.0
+        rl[:, 6] = rl[:, 7] = 6.0
+        env.set_ref_line(rl, 0.5)
+        quad = np.array([[38.0, -1.0], [42.0, -1.0], [42.0, 1.0],
+                         [38.0, 1.0]])
+        env.insert_geometry([(quad, t) for t in np.arange(10.0)],
+                            stationary=True)
+        env.update()
+        return env
+
+    lat = plk.PolyLatParams()
+    lat.l_dst_min = lat.l_dst_max = 0.0
+    lat.l_dst_steps, lat.s_dst_steps = 1, 20
+    lat.s_dst_min, lat.s_dst_max = 2.0, 80.0
+    lon = tlk.LonParams()
+    lon.a_steps, lon.path_step_size = 20, 1.0
+    start = np.array([0.3, 0.0, 0.0, 0.0, 8.0], np.float32)
+    old = np.zeros((tpck.KEEP_CAP, 12), np.float32)
+    x0 = np.zeros(7)
+    x0[tlk.LC_V] = 8.0
+    prev = np.array([0.5, 0.1], np.float32)
+    out = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            tpl_tpu_torch.use_device(dev)
+            env = straight_env()
+            counts = (plk.sweep_launches, plk.select_launches,
+                      rstp_rampify.start_launches, tlk.backward_launches,
+                      tlk.forward_launches)
+            out[dev] = tpck.ChainRunner().replan(env, lat, lon, start, old, 0,
+                                                 x0, prev)
+            counts = tuple(a - b for a, b in zip(
+                (plk.sweep_launches, plk.select_launches,
+                 rstp_rampify.start_launches, tlk.backward_launches,
+                 tlk.forward_launches), counts))
+            want = (0, 0, 0, 0, 0) if dev == "cpu" else (
+                1, 1, 1, lon.t_steps - 1, 1)
+            assert counts == want, (dev, counts)
+    finally:
+        tpl_tpu_torch.use_device("cuda")
+    new_c, path_c, il_c, isd_c, cost_c, traj_c, arc_c = out["cpu"]
+    new_g, path_g, il_g, isd_g, cost_g, traj_g, arc_g = out["cuda"]
+    assert (il_g, isd_g) == (il_c, isd_c)
+    np.testing.assert_allclose(path_g, path_c, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(traj_g, traj_c, rtol=0, atol=TRAJ_ATOL)

@@ -60,8 +60,13 @@ from tpl_tpu_torch.optim import batched, ilqr, ilqr_rstp
 from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
 from tpl_tpu_torch.optim import problems
 from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
+from tpl_tpu_torch.ops import splines
 from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
+from tpl_tpu_torch.planning.dyn_prog import lon_kernel as tlk
+from tpl_tpu_torch.planning.dyn_prog import poly_lat_kernel as plk
 from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify
+
+from tpl_tpu_torch.scenes import lon_nodes, lon_scene, poly_lat_scene
 
 ATOL = 1e-12
 RTOL = 1e-12        # multipliers reach 1e2 and more (weight 1e4)
@@ -136,6 +141,8 @@ HARNESS = r"""
 #include "ilqr_rstp.cu"
 #include "rstp_rampify.cu"
 #include "latlon_action_min.cu"
+#include "lon_dp.cu"
+#include "poly_lat.cu"
 
 // the kernels' dynamic shared memory (an extern array declared inside a
 // function belongs to the function's namespace)
@@ -144,6 +151,8 @@ namespace ilqr_mpc_f32 { alignas(16) unsigned char smem_raw[131072]; }
 namespace ilqr_rstp { alignas(16) unsigned char smem_raw[262144]; }
 namespace rstp_rampify { alignas(16) unsigned char smem_raw[65536]; }
 namespace latlon_am { alignas(16) unsigned char smem_raw[262144]; }
+namespace lon_dp { alignas(16) unsigned char smem_raw[4096]; }
+namespace poly_lat { alignas(16) unsigned char smem_raw[65536]; }
 
 // A grid of gx x gy blocks of 256 threads: every host thread runs its
 // thread of each block in turn (the blocks share the one shared-memory
@@ -175,9 +184,64 @@ extern "C" void rehearse_rampify(const float* scalars, const float* lim_v,
                    scalars + 4, scalars + 5, scalars + 6, scalars + 7, lim_v};
   run_block([=] {
     if (prof)
-      rstp_rampify_kernel<true>(in, out, prof, H, T);
+      rstp_rampify_kernel<true>(in, out, prof, H, T, false);
     else
-      rstp_rampify_kernel<false>(in, out, nullptr, H, T);
+      rstp_rampify_kernel<false>(in, out, nullptr, H, T, false);
+  });
+}
+
+// the start mode (poly chain's rampify_device) over the whole horizon
+extern "C" void rehearse_rampify_start(const float* scalars,
+                                       const float* lim_v, float* out, int H) {
+  using namespace rstp_rampify;
+  const Args in = {scalars, scalars + 1, scalars + 2, scalars + 3,
+                   scalars + 4, scalars + 5, scalars + 6, scalars + 7, lim_v};
+  run_block([=] { rstp_rampify_kernel<false>(in, out, nullptr, H, H, true); });
+}
+
+extern "C" void rehearse_lon_backward(const float* nodes_next, const float* pp,
+                                      const float* path,
+                                      const float* dist_path, float* out,
+                                      int S, int V, int A, int P, int t_idx,
+                                      int is_last) {
+  using namespace lon_dp;
+  run_grid((S * V * A + THREADS - 1) / THREADS, 1, [=] {
+    lon_backward_kernel(reinterpret_cast<const float4*>(nodes_next), pp, path,
+                        dist_path, reinterpret_cast<float4*>(out), S, V, A, P,
+                        t_idx, is_last != 0);
+  });
+}
+
+extern "C" void rehearse_lon_forward(const float* nodes, const float* pp,
+                                     const float* path, const float* dist_path,
+                                     const float* states, float* out, int T,
+                                     int S, int V, int A, int P, int n_rows,
+                                     int mode) {
+  using namespace lon_dp;
+  run_block([=] {
+    lon_forward_kernel(reinterpret_cast<const float4*>(nodes), pp, path,
+                       dist_path, states, out, T, S, V, A, P, n_rows, mode);
+  });
+}
+
+extern "C" void rehearse_poly_lat_sweep(
+    const float* occ, const float* ref_line, const float* ref_step,
+    const float* pp, const float* env, const float* start, const double* inv,
+    float* cd, double* tc, int LD, int SD, int S, int TE, int SE, int LE,
+    int n_ref) {
+  using namespace poly_lat;
+  run_grid(LD * SD, 1, [=] {
+    poly_lat_sweep_kernel(occ, ref_line, ref_step, pp, env, start, inv, cd, tc,
+                          LD, SD, S, TE, SE, LE, n_ref);
+  });
+}
+
+extern "C" void rehearse_poly_lat_select(const float* cd, const double* tc,
+                                         const float* length_veh,
+                                         long long* best, float* cost, int LD,
+                                         int SD) {
+  run_block([=] {
+    poly_lat::poly_lat_select_kernel(cd, tc, length_veh, best, cost, LD, SD);
   });
 }
 
@@ -306,6 +370,20 @@ def bodies(tmp_path_factory):
     lib.rehearse_rstp_smem.argtypes = [ctypes.c_int] * 3
     lib.rehearse_rampify.restype = None
     lib.rehearse_rampify.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    lib.rehearse_rampify_start.restype = None
+    lib.rehearse_rampify_start.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.rehearse_lon_backward.restype = None
+    lib.rehearse_lon_backward.argtypes = ([ctypes.c_void_p] * 5
+                                          + [ctypes.c_int] * 6)
+    lib.rehearse_lon_forward.restype = None
+    lib.rehearse_lon_forward.argtypes = ([ctypes.c_void_p] * 6
+                                         + [ctypes.c_int] * 7)
+    lib.rehearse_poly_lat_sweep.restype = None
+    lib.rehearse_poly_lat_sweep.argtypes = ([ctypes.c_void_p] * 9
+                                            + [ctypes.c_int] * 7)
+    lib.rehearse_poly_lat_select.restype = None
+    lib.rehearse_poly_lat_select.argtypes = ([ctypes.c_void_p] * 5
+                                             + [ctypes.c_int] * 2)
     lib.rehearse_action_min.restype = None
     lib.rehearse_action_min.argtypes = ([ctypes.c_void_p] * 6
                                         + [ctypes.c_int] * 4)
@@ -623,8 +701,8 @@ def test_rstp_kernel_body_in_double_matches_plain(bodies, name, T, warm):
 # the rampify scan and the DP action-min, float32, bit for bit
 
 def rampify_case(H, T, seed, nan_at=None, v_min=1.0):
-    """Seeded scan inputs (the limits of tests/test_torch_kernel_cuda.py
-    rampify_args): the 8 scalars in the kernel's order, the limits, T."""
+    """Seeded scan inputs (the limits of ``tpl_tpu_torch.scenes.
+    rampify_args``): the 8 scalars in the kernel's order, the limits, T."""
     rng = np.random.default_rng(seed)
     lim = np.maximum(1.0, 10.0 + np.cumsum(rng.normal(0.0, 1.0, H)))
     lim[H // 6:H // 6 + 5] = 2.0
@@ -781,3 +859,99 @@ def test_backward_slice_kernel_body_matches_plain_bit_for_bit(bodies, S, DS,
         searched += int((d_fwd < 1000.0).sum())
     # the scene's obstacles reach the forward distances
     assert searched > 0
+
+
+# ---------------------------------------------------------------------
+# the poly chain's kernels: the rampify start mode, the lon DP backward
+# slice and forward / reeval pass bit for bit in float32; the lateral sweep
+# (float64, sums in another order than the plain version's library calls)
+# at 1e-12 and its selection exactly
+
+@pytest.mark.parametrize("H,seed,v_min", [(200, 1, 1.0), (200, 2, 0.5),
+                                          (37, 3, 1.0), (2, 4, 1.0)])
+def test_rampify_start_mode_body_matches_plain_bit_for_bit(bodies, H, seed,
+                                                           v_min):
+    scal, lim, _ = rampify_case(H, H, seed, v_min=v_min)
+    lim[H // 3] = 0.0        # a stop cell (clipped up to v_min)
+    out = np.full((H, 2), -7.0, np.float32)
+    bodies.rehearse_rampify_start(_ptr(scal), _ptr(lim), _ptr(out), H)
+    t = [torch.tensor(v) for v in scal]
+    want = rstp_rampify.scan_start_reference(torch.from_numpy(lim), *t[2:])
+    np.testing.assert_array_equal(out, want.numpy())
+    assert np.all(np.isfinite(out))
+
+
+@pytest.mark.parametrize("S,V,A,P,T", [(41, 13, 5, 90, 5), (23, 7, 20, 40, 4)])
+def test_lon_dp_kernel_bodies_match_plain_bit_for_bit(bodies, S, V, A, P, T):
+    """Every backward slice (the final one included), the forward pass and
+    the reeval pass against the plain versions."""
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, S + A)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    for i in range(T - 1, 0, -1):
+        nxt = nodes[min(i + 1, T - 1)].numpy()
+        out = np.full((S, V, A, 4), -7.0, np.float32)
+        bodies.rehearse_lon_backward(_ptr(nxt), _ptr(pp), _ptr(path),
+                                     _ptr(dist), _ptr(out), S, V, A, P, i,
+                                     int(i == T - 1))
+        np.testing.assert_array_equal(out, nodes[i].numpy(),
+                                      err_msg=f"slice {i}")
+    # the constraint channel is in play: some nodes are infeasible
+    assert (nodes[1:T - 1, ..., 1] > 0).any()
+
+    args = (torch.from_numpy(pp), torch.from_numpy(path),
+            torch.from_numpy(dist))
+    want = tlk.forward_reference(nodes, *args, torch.from_numpy(x0)).numpy()
+    out = np.full((T, 7), -7.0, np.float32)
+    bodies.rehearse_lon_forward(_ptr(nodes.numpy()), _ptr(pp), _ptr(path),
+                                _ptr(dist), _ptr(x0), _ptr(out), T, S, V, A,
+                                P, T, 0)
+    np.testing.assert_array_equal(out, want)
+
+    traj = want.copy()
+    traj[:, tlk.LC_J] += np.float32(0.1)
+    traj = np.concatenate([traj, traj[-2:]])     # more rows than slices
+    want_r = tlk.reeval_reference(nodes, *args, torch.from_numpy(traj)).numpy()
+    out_r = np.full_like(traj, -7.0)
+    bodies.rehearse_lon_forward(_ptr(nodes.numpy()), _ptr(pp), _ptr(path),
+                                _ptr(dist), _ptr(traj), _ptr(out_r), T, S, V,
+                                A, P, len(traj), 1)
+    np.testing.assert_array_equal(out_r, want_r)
+
+
+@pytest.mark.parametrize("LD,SD,S", [(21, 13, 61), (1, 20, 41), (6, 4, 201)])
+def test_poly_lat_sweep_body_matches_plain(bodies, LD, SD, S):
+    occ, rl, step, pp, env, start = poly_lat_scene(LD, SD, S, LD + SD + S)
+    cd = np.full((LD, SD), -7.0, np.float32)
+    tc = np.full((LD, SD), -7.0, np.float64)
+    inv = np.ascontiguousarray(splines._HERMITE_INV[5])
+    step_a = np.array([step], np.float32)
+    bodies.rehearse_poly_lat_sweep(_ptr(occ), _ptr(rl), _ptr(step_a), _ptr(pp),
+                                   _ptr(env), _ptr(start), _ptr(inv), _ptr(cd),
+                                   _ptr(tc), LD, SD, S, *occ.shape, len(rl))
+    T = torch.from_numpy
+    want_cd, want_tc = plk.evaluate_reference(
+        T(occ), T(rl), T(step_a), T(pp), T(env), T(start), LD, SD, S)
+    np.testing.assert_array_equal(cd, want_cd.numpy())
+    np.testing.assert_allclose(tc, want_tc.numpy(), rtol=1e-12, atol=0)
+    # the scene's obstacles and limits reach the outputs
+    assert (cd < 1000.0).any() and (tc >= 1e6).any() or LD == 1
+
+
+def test_poly_lat_select_body_matches_plain(bodies):
+    rng = np.random.default_rng(0)
+    for LD, SD in ((21, 13), (1, 20), (4, 3)):
+        for trial in range(10):
+            cd = rng.uniform(0.0, 60.0, (LD, SD)).astype(np.float32)
+            cd[rng.random((LD, SD)) < 0.3] = 1000.0
+            tc = rng.uniform(0.0, 100.0, (LD, SD))
+            tc[rng.random((LD, SD)) < 0.2] = 1e7
+            lv = np.array([2.0], np.float32)
+            best = np.zeros(1, np.int64)
+            cost = np.zeros(1, np.float32)
+            bodies.rehearse_poly_lat_select(_ptr(cd), _ptr(tc), _ptr(lv),
+                                            _ptr(best), _ptr(cost), LD, SD)
+            want_b, want_c = plk.select_reference(
+                torch.from_numpy(cd), torch.from_numpy(tc),
+                torch.from_numpy(lv), LD, SD)
+            assert int(best[0]) == int(want_b), (LD, SD, trial)
+            assert cost[0] == float(want_c)

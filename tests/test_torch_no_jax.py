@@ -1,8 +1,9 @@
 """The port never imports JAX or the JAX package: checked in a fresh
 interpreter after ``import tpl_tpu_torch``, after one CPU planning tick of
 the slice, after a few closed-loop ticks of the port's ``SimStandalone``,
-after the host C routes were built and called and after a batched update,
-and statically over the port's sources."""
+after the host C routes were built and called, after a batched update and
+after two ticks of each FAS-2025 planner, and statically over the port's
+sources, ``chip_smoke.py`` and the card tests it imports."""
 
 import os
 import re
@@ -84,6 +85,32 @@ out = upd(x, u, lam, mu, torch.zeros((3, 2), dtype=torch.float64) + 0.1,
           params, cfg)
 assert out[0].shape == (6, 3, 2) and bool(torch.isfinite(out[0]).all())
 assert not leaked(), ("native and batched", leaked())
+
+from tpl_tpu_torch.ops import jgeometry, splines
+from tpl_tpu_torch.planning import LatticePlanner, PolyLatDpLonPlanner
+cut = dict(s_max=40.0, s_steps=41, t_steps=4, v_steps=7, a_steps=4,
+           path_steps=40, l_steps=11)
+for name in ("poly_lat_dp_lon_planner", "lattice_planner"):
+    sim = SimStandalone(app_id="nojax_" + name,
+                        scenario_path="demo/country_follow")
+    store = sim.planning_app.sh_planners
+    store.active_planner = name
+    prm = getattr(store, name).params
+    for cpp in (prm.env.cpp, *(getattr(prm.planner, k) for k in (
+            "cpp_lat", "cpp_lon", "lat_sampling", "dyn_prog")
+            if hasattr(prm.planner, k))):
+        for k, v in cut.items():
+            if hasattr(cpp, k):
+                setattr(cpp, k, v)
+    sim.control_app.sh_controllers.model_predictive_controller.params \
+        .horizon = 10
+    ss = sim.core.sh_state.sim
+    ss.settings.running = True
+    ss.settings.use_real_time = False
+    for _ in range(2):
+        sim.update()
+    assert sim.planning_app.planners[name].traj_lon is not None, name
+assert not leaked(), ("poly chain", leaked())
 print("clean")
 """
 
@@ -96,7 +123,8 @@ def test_port_runs_without_jax():
     assert res.stdout.strip().endswith("clean")
 
 
-@pytest.mark.parametrize("path", ["tpl_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("path", ["tpl_tpu_torch", "chip_smoke.py",
+                                  "tests/test_torch_kernel_cuda.py"])
 def test_sources_name_no_jax(path):
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|tpl_tpu)\b(?!_torch)",
                      re.M)

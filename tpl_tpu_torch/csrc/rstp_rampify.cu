@@ -33,6 +33,14 @@
 // step (one float each) and lim_v (H).  Output: (H, 2) rows of [velocity,
 // acceleration].  The PROF = true instantiation also writes thread 0's
 // clock64() cycles per phase (enum Phase) and returns the same bits.
+//
+// The start mode (`start_mode`, entry rstp_rampify_scan_start) is the
+// poly chain's rampify_device (tpl_tpu/planning/dyn_prog/
+// poly_chain_kernel.py:227-273), ops.profile.rampify_profile with
+// v0 = a0 = None: the same two recurrences over the whole horizon (T = H),
+// but the forward scan starts from the backward scan's own end state
+// (v, -a) instead of (max(v0, v_min), a0), and row 0 of the backward
+// profile is that v.  v0 and a0 are not read.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,7 +98,9 @@ __host__ __device__ inline size_t smem_floats(int H) {
 template <bool PROF>
 __global__ void __launch_bounds__(THREADS)
 rstp_rampify_kernel(Args in, float* __restrict__ out,
-                    long long* __restrict__ prof, int H, int T) {
+                    long long* __restrict__ prof, int H, int T,
+                    bool start_mode) {
+  __shared__ float start_a;   // start mode: the forward scan's first a
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* lim = reinterpret_cast<float*>(smem_raw);
   float* bv = lim + H;      // row t: the backward carry before step t
@@ -144,7 +154,12 @@ rstp_rampify_kernel(Args in, float* __restrict__ out,
       lim_tm1 = next_lim;
       reset_v = next_reset;
     }
-    bv[0] = mx(*in.v0, v_min);
+    if (start_mode) {
+      bv[0] = cv;
+      start_a = -ca;
+    } else {
+      bv[0] = mx(*in.v0, v_min);
+    }
   }
   __syncthreads();
   stamp(PH_BACKWARD);
@@ -160,7 +175,7 @@ rstp_rampify_kernel(Args in, float* __restrict__ out,
   if (tid == 0) {
     const float a_max = *in.a_max, j_max = *in.j_max;
     float2* rows = reinterpret_cast<float2*>(out);
-    float cv = bv[0], ca = *in.a0;
+    float cv = bv[0], ca = start_mode ? start_a : *in.a0;
     float pv_t = cv, pv_tp1 = bv[1], lim_t = lim[0], reset_v = fz[0];
     float lim_a = 0.0f;
     // step t; the last one keeps the limit of the step before it (its own
@@ -203,7 +218,7 @@ namespace rstp_rampify {
 
 template <bool PROF>
 int launch(const Args& in, float* out, long long* prof, int H, int T,
-           void* stream) {
+           bool start_mode, void* stream) {
   // the dynamic shared-memory limit is raised once per device and size
   // (smem_limit.cuh), not on every launch
   static smem_limit::Marks marks;
@@ -211,7 +226,7 @@ int launch(const Args& in, float* out, long long* prof, int H, int T,
   cudaError_t err = smem_limit::ensure(rstp_rampify_kernel<PROF>, smem, marks);
   if (err != cudaSuccess) return (int)err;
   rstp_rampify_kernel<PROF><<<1, THREADS, smem, (cudaStream_t)stream>>>(
-      in, out, prof, H, T);
+      in, out, prof, H, T, start_mode);
   return (int)cudaGetLastError();
 }
 
@@ -224,7 +239,16 @@ extern "C" int rstp_rampify_scan(const float* const* in, float* out, int H,
                                  int T, void* stream) {
   const rstp_rampify::Args a = {in[0], in[1], in[2], in[3], in[4],
                                 in[5], in[6], in[7], in[8]};
-  return rstp_rampify::launch<false>(a, out, nullptr, H, T, stream);
+  return rstp_rampify::launch<false>(a, out, nullptr, H, T, false, stream);
+}
+
+// The start mode over the whole horizon (T = H); `in` as above, its v0 and
+// a0 not read.
+extern "C" int rstp_rampify_scan_start(const float* const* in, float* out,
+                                       int H, void* stream) {
+  const rstp_rampify::Args a = {in[0], in[1], in[2], in[3], in[4],
+                                in[5], in[6], in[7], in[8]};
+  return rstp_rampify::launch<false>(a, out, nullptr, H, H, true, stream);
 }
 
 // The same with the phase clock: `prof` receives N_PHASE cycle counts.
@@ -233,6 +257,6 @@ extern "C" int rstp_rampify_profile(const float* const* in, float* out,
                                     void* stream) {
   const rstp_rampify::Args a = {in[0], in[1], in[2], in[3], in[4],
                                 in[5], in[6], in[7], in[8]};
-  return rstp_rampify::launch<true>(a, out, prof, H, T, stream);
+  return rstp_rampify::launch<true>(a, out, prof, H, T, false, stream);
 }
 #endif

@@ -237,8 +237,13 @@ def velocity_profile_space(ref_capacity=256):
         a = u[..., 0]
         t_offset = box_interp(p["ref_step"], t * dt, p["ref_t_offset"])
         fast = v > 1.0 + 1e-3
-        dv = torch.where(fast, a / v, a)
-        dst = torch.where(fast, 1.0 / v, t_offset)
+        # divide by v only where it is taken: autograd sends the zero
+        # gradient of the branch not taken through 1 / v, and at v = 0 its
+        # infinite slope turns that zero into NaN (JAX's where selects the
+        # derivative instead)
+        v_fast = torch.where(fast, v, torch.ones_like(v))
+        dv = torch.where(fast, a / v_fast, a)
+        dst = torch.where(fast, 1.0 / v_fast, t_offset)
         return torch.stack(torch.broadcast_tensors(dv, dst), dim=-1)
 
     def cost(x, u, t, dt, p):

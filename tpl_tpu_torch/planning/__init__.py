@@ -10,4 +10,6 @@ from tpl_tpu_torch.planning.dyn_prog import (
     DpEnv,
     DpEnvironment,
     DpLatLonPlanner,
+    LatticePlanner,
+    PolyLatDpLonPlanner,
 )

@@ -16,6 +16,8 @@ supporting halfplanes, which over-approximates the dilation near convex
 corners (strictly more conservative).
 """
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -179,6 +181,31 @@ def _build_grids(ref_line, ref_step, quads, quad_tbit, quad_stat, quad_valid,
     return occ_map, dist_map_lon
 
 
+def _dist_map_path(occ_map, path_sl, s_min, s_step, l_min, l_step):
+    """Distance to the next occupied cell along an arbitrary path.
+
+    path_sl: (S, 2) frenet (s, l) of the path sampled at each grid s index
+    (env.cu:131-158); the scalars are 0-d tensors or floats.  The cell
+    indices truncate toward zero (an int cast), then clamp.  Returns (T, S),
+    a reverse cumulative minimum of the occupied rows.
+    """
+    T, S, L = occ_map.shape
+    dev = occ_map.device
+    idx_s = torch.clamp(((path_sl[:, 0] - s_min) / s_step).to(torch.int32),
+                        0, S - 1).long()
+    idx_l = torch.clamp(((path_sl[:, 1] - l_min) / l_step).to(torch.int32),
+                        0, L - 1).long()
+    occ = occ_map[:, idx_s, idx_l] > 0.0                         # (T, S)
+
+    s_idx = torch.arange(S, dtype=torch.float32, device=dev)[None, :]
+    nxt = torch.where(occ, s_idx, float("inf"))
+    next_occ = torch.flip(torch.cummin(torch.flip(nxt, [1]), dim=1).values,
+                          [1])
+    return torch.where(torch.isfinite(next_occ),
+                       (next_occ - s_idx) * s_step,
+                       10000.0 + (S - s_idx) * s_step)
+
+
 def gen_prediction_quads(pred_states, hull, path, ts, station_step_size=5.0,
                          expansion_rate=0.0, sweep_length=0.5):
     """Swept prediction footprint as convex quads with time stamps.
@@ -287,9 +314,10 @@ def _make_ccw(quad):
 class DpEnvironment:
     """Frenet-grid DynProgEnvironment (reference: env.cu:281-513)."""
 
-    # Quads beyond this count are silently dropped (kept as in the JAX
-    # package; see ROADMAP queue 3).
+    # Quads beyond this count are dropped, as in the JAX package (kept for
+    # parity); the first build that drops some warns once per process.
     MAX_QUADS = 192
+    _warned_cap = False
 
     def __init__(self):
         self.params = DpEnvParams()
@@ -362,6 +390,12 @@ class DpEnvironment:
                 f" < environment s_max = {p.s_max}")
 
         Q = self.MAX_QUADS
+        if len(self._quads) > Q and not DpEnvironment._warned_cap:
+            DpEnvironment._warned_cap = True
+            warnings.warn(f"DpEnvironment: {len(self._quads)} prediction "
+                          f"quads, only the first MAX_QUADS={Q} are "
+                          "rasterized (as in the JAX package)",
+                          RuntimeWarning, stacklevel=2)
         quads = np.zeros((Q, 4, 2), dtype=np.float32)
         tbit = np.full(Q, -1, dtype=np.int32)
         stat = np.zeros(Q, dtype=bool)
@@ -400,6 +434,21 @@ class DpEnvironment:
         occ, dist_lon = _build_grids(*inputs, p.t_steps, p.s_steps,
                                      p.l_steps)
         return self.adopt_grid(occ, dist_lon)
+
+    def update_dist_map_path(self, path_sl):
+        """path_sl: (s_steps, 2) frenet path samples; returns (T, S)."""
+        p = self.params
+        occ = self.grid.occ_map
+        path_sl = torch.as_tensor(np.asarray(path_sl, np.float32)
+                                  if not isinstance(path_sl, torch.Tensor)
+                                  else path_sl, device=occ.device)
+
+        def scalar(x):
+            return torch.tensor(np.float32(x), device=occ.device)
+
+        return _dist_map_path(occ, path_sl.to(torch.float32),
+                              scalar(p.s_min), scalar(p.s_step_size),
+                              scalar(p.l_min), scalar(p.l_step_size))
 
     # --- debug getters (env.cu:452-513) ---
 

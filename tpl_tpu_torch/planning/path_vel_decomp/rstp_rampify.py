@@ -15,6 +15,13 @@ a CPU tensor it runs the plain version :func:`scan_reference`, the torch
 port of ``_rampify_scan`` step for step.  The kernel reads the scalars and
 the limits where they lie (nine pointers), so a call copies nothing;
 :func:`profile` runs its profiling instantiation.
+
+:func:`scan_start` is the same kernel's start mode, the poly chain's
+``rampify_device`` (``tpl_tpu/planning/dyn_prog/poly_chain_kernel.py:
+227-273``): the same recurrences over the whole horizon, the forward scan
+starting from the backward scan's end state (v, -a); plain version
+:func:`scan_start_reference`.  ``launches`` counts both modes,
+``start_launches`` the start mode.
 """
 
 import ctypes
@@ -24,6 +31,7 @@ import torch
 from tpl_tpu_torch import _latency
 
 launches = 0        # kernel launches since import (reset freely)
+start_launches = 0
 
 N_SCAL = 8          # v0, a0, a_min, a_max, j_min, j_max, v_min, step
 # the kernel's phases (enum Phase of csrc/rstp_rampify.cu): the limits and the
@@ -71,6 +79,20 @@ def scan(v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min, step):
     return _launch(scalars, lim_v, T, None)
 
 
+def scan_start(lim_v, a_min, a_max, j_min, j_max, v_min, step):
+    """The (H, 2) [velocity, acceleration] profile of the start mode
+    under the limits ``lim_v`` (H,), every row active; the scalars are
+    one-element float32 tensors on the device of ``lim_v``."""
+    # v0 and a0 are not read in the start mode: any valid pointer will do
+    scalars = (a_min, a_min, a_min, a_max, j_min, j_max, v_min, step)
+    H = lim_v.shape[0]
+    _check(lim_v, H, scalars)
+    if lim_v.device.type == "cpu":
+        return scan_start_reference(lim_v, a_min, a_max, j_min, j_max, v_min,
+                                    step)
+    return _launch(scalars, lim_v, H, None, start=True)
+
+
 def profile(v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min, step):
     """:func:`scan` through the kernel's profiling instantiation: returns
     the profile (the same bits) and thread 0's cycles per phase, a dict over
@@ -94,10 +116,10 @@ def pointers(scalars, lim_v):
         *[s.data_ptr() for s in scalars], lim_v.data_ptr())
 
 
-def _launch(scalars, lim_v, T, cycles):
+def _launch(scalars, lim_v, T, cycles, start=False):
     """One launch on the checked CUDA inputs (the profiling instantiation
-    when ``cycles`` is given)."""
-    global launches
+    when ``cycles`` is given, the start mode with ``start``)."""
+    global launches, start_launches
     dev = lim_v.device
     if dev.type != "cuda":
         raise ValueError(f"rstp_rampify: unsupported device {dev}")
@@ -112,7 +134,9 @@ def _launch(scalars, lim_v, T, cycles):
     ptrs = pointers(scalars, lim_v)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if cycles is None:
+        if start:
+            err = lib.rstp_rampify_scan_start(ptrs, out.data_ptr(), H, stream)
+        elif cycles is None:
             err = lib.rstp_rampify_scan(ptrs, out.data_ptr(), H, T, stream)
         else:
             err = lib.rstp_rampify_profile(ptrs, out.data_ptr(),
@@ -120,6 +144,7 @@ def _launch(scalars, lim_v, T, cycles):
     if err != 0:
         raise RuntimeError(f"rstp_rampify launch failed: CUDA error {err}")
     launches += 1
+    start_launches += int(start)
     return out
 
 
@@ -156,9 +181,10 @@ def chain_ms(H, cycles, sm_mhz):
 
 
 def scan_reference(v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min,
-                   step):
+                   step, start=False):
     """The plain PyTorch version of :func:`scan` (a Python loop of
-    one-element tensor ops), on the device of ``lim_v``."""
+    one-element tensor ops), on the device of ``lim_v``; with ``start``
+    that of :func:`scan_start` (``v0`` and ``a0`` unread)."""
     v0, a0, a_min, a_max, j_min, j_max, v_min, step = (
         s.reshape(()) for s in (v0, a0, a_min, a_max, j_min, j_max, v_min,
                                 step))
@@ -182,7 +208,10 @@ def scan_reference(v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min,
         cv = cv + torch.minimum(-ca / cv * step, lim_tm1 - cv)
 
     # forward pass
-    cv, ca = torch.maximum(v0, v_min), a0
+    if start:
+        ca = -ca
+    else:
+        cv, ca = torch.maximum(v0, v_min), a0
     bv[0], ba[0] = cv, ca
     lim_a = zero
     out_v, out_a = [], []
@@ -200,6 +229,12 @@ def scan_reference(v0, a0, lim_v, T, a_min, a_max, j_min, j_max, v_min,
     return torch.stack([torch.stack(out_v), torch.stack(out_a)], -1)
 
 
+def scan_start_reference(lim_v, a_min, a_max, j_min, j_max, v_min, step):
+    """The plain PyTorch version of :func:`scan_start`."""
+    return scan_reference(a_min, a_min, lim_v, lim_v.shape[0], a_min, a_max,
+                          j_min, j_max, v_min, step, start=True)
+
+
 _LIB = None
 
 
@@ -213,6 +248,9 @@ def _kernel():
         lib.rstp_rampify_scan.restype = ctypes.c_int
         lib.rstp_rampify_scan.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.rstp_rampify_scan_start.restype = ctypes.c_int
+        lib.rstp_rampify_scan_start.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p])
         lib.rstp_rampify_profile.restype = ctypes.c_int
         lib.rstp_rampify_profile.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])

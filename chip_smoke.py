@@ -108,7 +108,39 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    for bit); times through the bare launchers and the wrappers on the FAS
    loop's inputs, the wrappers on the lattice loop's, the plain versions'
    times, ``bound_ms`` and ``chain_ms``;
-13. prints the card's name and power limit and one JSON line describing the
+13. rollout planner closed loops: ``SimStandalone`` with
+   ``idm_sampling_planner`` on ``demo/country_overtake`` (the demo planning
+   set: 8 candidates of 100 steps, a replan every 0.05 s) and then with
+   ``poly_sampling_planner`` on ``demo/country_follow`` (2 x 1 x 3
+   candidates of 25 steps, a replan every 0.2 s), the scenario's other
+   sets, 300 ticks each, the launch counters set to 0 just before each loop
+   and read just after; checks zero violations, no emergency plan, finite
+   controls and exactly one ``idm_rollout`` and one ``idm_evaluate`` launch
+   per IDM replan (the grid's two launches, ``poly_sampling_eval`` and
+   ``poly_sampling_select``, per poly replan); prints the launches per
+   replan and per tick, the end state beside the JAX package's CPU loop's
+   and the per-replan wall (median, max);
+   keeps the first replan's inputs;
+14. IDM kernels: ``csrc/idm_rollout.cu`` and ``csrc/idm_evaluate.cu``
+   against their plain versions on the card, every candidate, on the
+   seeded scenes of tests/test_idm_kernel.py (a stop cell, off-road
+   excursions, a parked collider the collision screen must hit), on an
+   oncoming car (C=256, T=100: the interaction screen's hull tests must
+   run and hit), on the IDM loop's first replan and on the JAX bench's
+   scene at its full width (bench.py ``_idm_setup``, rebuilt in
+   ``tpl_tpu_torch/scenes.py``: NR=801, O=12, P=16, K=16, T=100,
+   C=16,384); no candidate may pass the tolerance nor flip ``invalid``;
+   prints the largest differences, the hull tests the gates let through
+   (collision, interaction), the candidates with an interaction cost and a
+   flipped selection; times both through the bare launcher and the wrapper
+   in turns at C=16,384 and at the loop's C=8, the plain versions at
+   C=16,384 (the compared run), and prints rollouts/s at C=16,384 (C over
+   the two kernels' ms), ``bound_ms`` and ``chain_ms``;
+15. poly sampling kernel: ``csrc/poly_sampling.cu`` against its plain
+   version and the numpy oracle ``_eval_candidates`` on the JAX bench's
+   scene (C=30), tests/test_poly_kernel.py's two scenes and the poly loop's
+   first replan (the winner's index equal, its rows to tolerance), timed;
+16. prints the card's name and power limit and one JSON line describing the
    kernels (launches on the main path and per tick or per DP replan, the
    largest difference to the plain version, the kernel's time through its
    bare launcher ``ms`` and through its wrapper ``wrapper_ms``, the plain
@@ -121,8 +153,12 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    carry the lattice loop's launches, largest differences and wrapper
    times under ``lattice_*`` beside the FAS loop's, the lon slices' share
    of differing jerks (``jerk_flip_share``) and the sweep's largest
-   relative cost difference (``max_cost_rel_err``).
-   Each phase prints its seconds; the whole run takes about 150 s.
+   relative cost difference (``max_cost_rel_err``).  The three rollout
+   planner rows carry their own loop's launches (per replan and per tick);
+   the IDM rows their times
+   at C=16,384 (``candidates``), at the loop's width (``loop_ms``),
+   ``rollouts_per_s`` and ``selection_flips``.
+   Each phase prints its seconds.
 
 With ``--parent-csrc DIR`` (a directory holding another version of any of
 the four kernel sources and the headers they include, for example ``git
@@ -250,8 +286,37 @@ FAS_ROWS = (
      "tpl_tpu/planning/dyn_prog/poly_chain_kernel.py:227"))
 
 
+# the rollout planners: each drives SimStandalone on its demo scenario with
+# the scenario's other sets; the JAX package's own loops on the CPU, 300
+# ticks, that planner active: (scenario, t, x, v) at the end
+IDM = "idm_sampling_planner"
+POLY = "poly_sampling_planner"
+ROLLOUT_TICKS = 300
+ROLLOUT_JAX_END = {IDM: ("demo/country_overtake", 2.99, 48.803, 10.723),
+                   POLY: ("demo/country_follow", 2.99, 37.695, 7.643)}
+# the IDM kernels against their plain versions on the card, every
+# candidate: rtol = atol = 1e-5 (the JAX package's own lanes-vs-vmap
+# tolerance; the card's and torch's transcendentals may part by an ulp and
+# a closed loop carries it), no candidate past it, every ``invalid`` equal
+IDM_TOL = 1e-5
+IDM_C = 16384               # the JAX bench's candidates a launch
+# the poly grid: the winner's index equal; its float64 rows to 1e-9 against
+# the plain version (the coefficient solves sum in another order), to 1e-4
+# against the numpy oracle (tests/test_poly_kernel.py)
+POLY_ROW_TOL = 1e-9
+POLY_ORACLE_TOL = 1e-4
+ROLLOUT_ROWS = (
+    ("idm_rollout", "idm_rollout.cu",
+     "tpl_tpu/planning/idm_sampling/idm_kernel.py:444"),
+    ("idm_evaluate", "idm_evaluate.cu",
+     "tpl_tpu/planning/idm_sampling/idm_kernel.py:928"),
+    ("poly_sampling", "poly_sampling.cu",
+     "tpl_tpu/planning/poly_sampling/poly_kernel.py:76"))
+
+
 KERNELS = ("latlon_action_min", "ilqr_tracking_mpc", "ilqr_rstp",
-           "rstp_rampify", "latency_probe", "lon_dp", "poly_lat")
+           "rstp_rampify", "latency_probe", "lon_dp", "poly_lat",
+           "idm_rollout", "idm_evaluate", "poly_sampling")
 NO_LIBRARY = None           # no single PyTorch call computes these kernels
 
 
@@ -2182,6 +2247,385 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz):
     return res
 
 
+def rollout_counts(idk, pok, reset=False):
+    """The rollout planners' kernel launch counters (set to 0 with
+    ``reset``); ``poly_sampling`` is its two launches together."""
+    if reset:
+        idk.rollout_launches = idk.evaluate_launches = 0
+        pok.eval_launches = pok.select_launches = 0
+    return {"idm_rollout": idk.rollout_launches,
+            "idm_evaluate": idk.evaluate_launches,
+            "poly_sampling": pok.eval_launches + pok.select_launches,
+            "poly_sampling_eval": pok.eval_launches,
+            "poly_sampling_select": pok.select_launches}
+
+
+def rollout_loop_phase(idk, pok, name, ticks):
+    """SimStandalone on the planner's demo scenario (``IDM`` on
+    demo/country_overtake, ``POLY`` on demo/country_follow) with that
+    planner active and the scenario's other sets, the launch counters set
+    to 0 just before the loop and read just after.  Checks zero rule
+    violations, no emergency plan, finite controls and the planner's
+    kernels launched exactly as often per replan as a replan launches them
+    (IDM: one rollout and one evaluation; poly: the grid and its selection)
+    and the other planner's not at all; prints the end state beside the JAX
+    package's CPU loop's and the per-replan wall.  Returns the first
+    replan's inputs."""
+    import torch
+    from tpl_tpu_torch.simulation import SimStandalone
+
+    scenario, jt, jx, jv = ROLLOUT_JAX_END[name]
+    sim = SimStandalone(app_id=f"smoke_{name}", scenario_path=scenario)
+    store = sim.planning_app.sh_planners
+    with store.lock():
+        store.active_planner = name
+    planner = sim.planning_app.planners[name]
+    controllers = sim.control_app.sh_controllers
+    with sim.core.sh_state.lock():
+        ss = sim.core.sh_state.sim
+        ss.settings.running = True
+        ss.settings.use_real_time = False
+        ss.rule_checker.enable = True
+    tick_ms, replan_ms, first = [], [], None
+    last = planner.last_update_time
+    rollout_counts(idk, pok, reset=True)
+    for k in range(ticks):
+        t0 = time.perf_counter()
+        sim.update()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        if planner.last_update_time != last:
+            last = planner.last_update_time
+            replan_ms.append(planner.runtime_planning)
+            if first is None:
+                first = planner.last_inputs
+        with store.lock():
+            emergency = store.trajectory.emergency
+        with controllers.lock():
+            controls = np.array(controllers.controls)
+        if emergency:
+            raise AssertionError(f"{name} tick {k}: emergency trajectory")
+        if not np.all(np.isfinite(controls)):
+            raise AssertionError(f"{name} tick {k}: non-finite controls")
+    counts = rollout_counts(idk, pok)
+    n = len(replan_ms)
+    if name == IDM:
+        per_replan = {"idm_rollout": 1, "idm_evaluate": 1, "poly_sampling": 0}
+    else:
+        per_replan = {"idm_rollout": 0, "idm_evaluate": 0, "poly_sampling": 2,
+                      "poly_sampling_eval": 1, "poly_sampling_select": 1}
+    for row, per in per_replan.items():
+        if n == 0 or counts[row] != per * n:
+            raise AssertionError(f"{name}: {counts[row]} {row} launches for "
+                                 f"{n} replans")
+    with sim.core.sh_state.lock():
+        s = sim.core.sh_state.sim
+        violations = list(s.rule_checker.violations)
+        t_end, x_end, v_end = s.t, s.ego.x, s.ego.v
+    if violations:
+        raise AssertionError(f"{name}: rule violations {violations[:3]}")
+    if not v_end > 4.0:
+        raise AssertionError(f"{name}: ego speed {v_end} at the end")
+    print(f"{name} on {scenario}: {ticks} ticks to t={t_end:.2f} s, ego x "
+          f"{x_end:.3f} v {v_end:.3f} m/s (the JAX package's CPU loop: "
+          f"t={jt:.2f} s, x {jx:.3f} v {jv:.3f}), 0 violations, no "
+          f"emergency, {n} replans; launches per replan (per tick): "
+          + ", ".join(f"{r} {p} ({counts[r] / ticks:g})"
+                      for r, p in per_replan.items() if p))
+    print(f"{name}: per-replan wall ms: median {np.median(replan_ms):.3f}, "
+          f"max {np.max(replan_ms):.3f} (first {replan_ms[0]:.3f}); per-tick "
+          f"total wall ms: median {np.median(tick_ms):.3f}, max "
+          f"{np.max(tick_ms):.3f}")
+    return dict(counts=counts, replans=n, ticks=ticks, first=first,
+                replan_ms=replan_ms, end=(t_end, x_end, v_end))
+
+
+def _first_min(costs):
+    """The hierarchical minimum of the IDM selection (a fresh selection
+    state: no hysteresis), on the (5, C) costs."""
+    from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
+    from tpl_tpu_torch.planning.idm_sampling.idm_sampling_planner import \
+        IdmSamplingPlanner
+    import types
+
+    state = types.SimpleNamespace(i_prev=-1, i_min_prev=0, t_decision=0.0)
+    return IdmSamplingPlanner._select(
+        state, idk.costs_dict(np.asarray(costs, np.float64)), 0.05,
+        types.SimpleNamespace(dt_decision=0.5))
+
+
+def plain_timed(fn):
+    """(fn(), its ms by CUDA events): one call, no warm-up."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def idm_compare(idk, what, args, T, lg, refs=None, cons=None):
+    """The IDM kernels against their plain versions on the card on one
+    scene, every candidate: the rollout (unless ``refs`` / ``cons`` are
+    given: the evaluation alone on them) and the evaluation of the kernel's
+    rollout.  Raises on a candidate past IDM_TOL or a flipped ``invalid``;
+    prints the largest differences, the hull tests the evaluation's gates
+    let through (collision, interaction: :func:`idm_kernel.evaluate_work`),
+    the candidates with an interaction cost and whether the selection
+    flipped.  Returns (max rollout err, max evaluation err, selection
+    flipped, plain rollout ms, plain evaluation ms, (n_coll, n_inter), the
+    kernel's costs (5, C))."""
+    import torch
+
+    e_roll, ms_roll, past = 0.0, None, None
+    if refs is None:
+        refs, cons = idk.rollout(*args, T)
+        want, ms_roll = plain_timed(lambda: idk.rollout_reference(
+            *args[:4], args[4][0], args[5], args[6][0], args[7], args[8], T))
+        for g, w in zip((refs, cons), want):
+            d = torch.abs(g - w)
+            e_roll = max(e_roll, float(d.max()))
+            bad = (d > IDM_TOL + IDM_TOL * torch.abs(w)).flatten(1).any(1)
+            past = bad if past is None else past | bad
+        del want
+    costs = idk.evaluate(refs, cons, args[2], args[7], args[5], args[6],
+                         args[8], lg)
+    want_c, ms_eval = plain_timed(lambda: idk.evaluate_reference(
+        refs, cons, args[2], args[7], args[5], args[6][0], args[8], lg[0]))
+    d = torch.abs(costs - want_c)
+    e_eval = float(d.max())
+    bad = (d > IDM_TOL + IDM_TOL * torch.abs(want_c)).any(0)
+    past = bad if past is None else past | bad
+    n_past = int(past.sum())
+    flips = int((costs[4] != want_c[4]).sum())
+    work = idk.evaluate_work(cons, args[7], args[8])
+    n_int = int((costs[2] > 0).sum())
+    sel_k, sel_p = _first_min(costs.cpu()), _first_min(want_c.cpu())
+    print(f"idm check, {what} ({costs.shape[1]} candidates of {T} steps): "
+          f"max|kernel-plain| rollout {e_roll:.3e}, evaluation "
+          f"{e_eval:.3e}; {n_past} candidates past rtol = atol = "
+          f"{IDM_TOL:g}; invalid flipped on {flips}; the gates let "
+          f"{work[0]} collision and {work[1]} interaction hull tests "
+          f"through, {n_int} candidates with an interaction cost, "
+          f"{int(costs[4].sum())} invalid; selection kernel {sel_k}, plain "
+          f"{sel_p}" + (" (FLIPPED: a near tie)" if sel_k != sel_p else ""))
+    if n_past or flips:
+        raise AssertionError(f"idm {what}: kernels and plain versions differ")
+    return e_roll, e_eval, sel_k != sel_p, ms_roll, ms_eval, work, costs
+
+
+def idm_kernel_phase(idk, first, dev, cycles, mhz):
+    """The IDM kernels against their plain versions on the card, every
+    candidate: the seeded scenes of tests/test_idm_kernel.py (the stop
+    cell, off-road excursions to +-5 m, the parked collider with
+    trajectories driven through it), an oncoming car (the interaction
+    screen's hull tests must run and hit), the loop's first replan (C=8)
+    and the JAX bench's scene at its full width (C=16,384); times both
+    kernels through the bare launcher and the wrapper in turns at C=16,384
+    and C=8, the plain versions at C=16,384 (the compared run);
+    rollouts/s, ``bound_ms`` and ``chain_ms``."""
+    import torch
+    from tpl_tpu_torch.scenes import (idm_args, idm_bench_scene, idm_scene,
+                                      idm_through_states)
+
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    lg0 = torch.zeros(1, dtype=torch.float32, device=dev)
+    res = {"idm_rollout": {"err": 0.0}, "idm_evaluate": {"err": 0.0}}
+    flips = []
+
+    def note(r):
+        res["idm_rollout"]["err"] = max(res["idm_rollout"]["err"], r[0])
+        res["idm_evaluate"]["err"] = max(res["idm_evaluate"]["err"], r[1])
+        flips.append(r[2])
+        return r
+
+    for what, kw, C, T, lt in (("stop cell", dict(stop_cell=True), 48, 30, 5),
+                               ("off-road", dict(), 13, 100, 5),
+                               ("oncoming car", dict(oncoming=True), 256,
+                                100, 5)):
+        rl, objs, pp, ir, ic = idm_scene(**kw)
+        l_trgs = np.linspace(-lt, lt, C).astype(np.float32)
+        d_stops = np.where(np.arange(C) % 3 == 0, 30.0, 1e6).astype(
+            np.float32)
+        a = idm_args(rl, objs, pp, ir, ic, l_trgs, d_stops, dev)
+        r = note(idm_compare(idk, what, a, T, lg0))
+    if not (r[5][1] > 0 and bool((r[6][2] > 0).any())):
+        raise AssertionError("idm oncoming car: no interaction hull test "
+                             "hit")
+    rl, objs, pp, ir, ic = idm_scene(collider=True)
+    refs, cons = (torch.from_numpy(a).to(dev)
+                  for a in idm_through_states(64, 20))
+    a = idm_args(rl, objs, pp, ir, ic, np.linspace(-3, 3, 64), np.zeros(64),
+                 dev)
+    r = note(idm_compare(idk, "parked collider", a, 20, lg0, refs, cons))
+    if not bool(r[6][4].any()):
+        raise AssertionError("idm parked collider: no candidate collides")
+
+    # the loop's first replan
+    loop_a = (f32(first["init_ref"]), f32(first["init_con"]),
+              f32(first["l_trgs"]), f32(first["d_stops"]),
+              f32([first["dt_replan"]]), f32(first["ref_line"]),
+              f32([first["ref_step"]]), idk.objs_to_torch(first["objs"], dev),
+              f32(first["pp"]))
+    loop_T, loop_lg = first["T"], f32([first["l_trg_global"]])
+    note(idm_compare(idk, "the loop's first replan", loop_a, loop_T, loop_lg))
+
+    # the JAX bench's scene at its full width (the plain versions' times)
+    rl, objs, pp, ir, ic, l_trgs, d_stops = idm_bench_scene(IDM_C)
+    T = 100
+    big = idm_args(rl, objs, pp, ir, ic, l_trgs, d_stops, dev)
+    _, _, _, plain_roll, plain_eval, (n_coll, n_inter), _ = note(
+        idm_compare(idk, "the JAX bench's scene", big, T, lg0))
+
+    lib = idk._kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    NR, (O, P, K) = rl.shape[0], objs["hull_preds"].shape[:3]
+
+    def bare(a, C, T, out_r, out_c, lg, out_e):
+        optrs = [a[7][k].data_ptr() for k in idk.OBJ_KEYS]
+
+        def rollout():
+            return lib.idm_rollout(*(x.data_ptr() for x in a[:7]), *optrs,
+                                   a[8].data_ptr(), out_r.data_ptr(),
+                                   out_c.data_ptr(), C, T, a[5].shape[0], *(
+                                       a[7]["hull_preds"].shape[:3]), stream)
+
+        def evaluate():
+            return lib.idm_evaluate(out_r.data_ptr(), out_c.data_ptr(),
+                                    a[2].data_ptr(), *optrs, a[5].data_ptr(),
+                                    a[6].data_ptr(), a[8].data_ptr(),
+                                    lg.data_ptr(), out_e.data_ptr(), C, T,
+                                    a[5].shape[0],
+                                    *a[7]["hull_preds"].shape[:3], stream)
+        return rollout, evaluate
+
+    times = {}
+    for tag, a, C, Tt, lg, n in (("full", big, IDM_C, T, lg0, 10),
+                                 ("loop", loop_a, len(first["l_trgs"]),
+                                  loop_T, loop_lg, 200)):
+        out_r = torch.empty((C, Tt, 10), dtype=torch.float32, device=dev)
+        out_c = torch.empty((C, Tt, 9), dtype=torch.float32, device=dev)
+        out_e = torch.empty((5, C), dtype=torch.float32, device=dev)
+        b_roll, b_eval = bare(a, C, Tt, out_r, out_c, lg, out_e)
+        times[tag] = (
+            launcher_times("idm_rollout", f"{tag} (C={C}, T={Tt})", b_roll,
+                           lambda: idk.rollout(*a, Tt, out=(out_r, out_c)),
+                           n),
+            launcher_times("idm_evaluate", f"{tag} (C={C}, T={Tt})", b_eval,
+                           lambda: idk.evaluate(out_r, out_c, a[2], a[7],
+                                                a[5], a[6], a[8], lg,
+                                                out=out_e), n))
+    occupancy = (lib.idm_rollout_blocks_per_sm(NR, O, P, K),
+                 lib.idm_evaluate_blocks_per_sm(T, O, P, K))
+    print(f"idm blocks of 256 threads per SM at NR={NR}, O={O}, P={P}, "
+          f"K={K}, T={T}: rollout {occupancy[0]} (8 candidates a block), "
+          f"evaluation {occupancy[1]} (2 a block)")
+    (r_ms, r_wms), (e_ms, e_wms) = times["full"]
+    rate = IDM_C / (r_ms + e_ms) * 1e3
+    res["idm_rollout"].update(
+        ms=r_ms, wrapper_ms=r_wms, plain_ms=plain_roll,
+        loop_ms=times["loop"][0][0], loop_wrapper_ms=times["loop"][0][1],
+        bound=idk.rollout_bound_ms(IDM_C, T, NR, O, P, K),
+        chain=idk.rollout_chain_ms(T, cycles, mhz),
+        blocks_per_sm=occupancy[0])
+    res["idm_evaluate"].update(
+        ms=e_ms, wrapper_ms=e_wms, plain_ms=plain_eval,
+        loop_ms=times["loop"][1][0], loop_wrapper_ms=times["loop"][1][1],
+        bound=idk.evaluate_bound_ms(IDM_C, T, NR, O, P, K, n_coll, n_inter),
+        chain=idk.evaluate_chain_ms(T, O, cycles, mhz),
+        blocks_per_sm=occupancy[1])
+    for row, r in res.items():
+        r.update(selection_flips=sum(flips), rollouts_per_s=rate)
+        print(f"{row}: kernel {r['ms']:.4f} ms at C={IDM_C} (bare launcher; "
+              f"wrapper {r['wrapper_ms']:.4f}; {r['loop_ms']:.4f} at the "
+              f"loop's C={len(first['l_trgs'])}), plain {r['plain_ms']:.2f} "
+              f"ms at C={IDM_C}, bound_ms {r['bound'][0]:.6f} "
+              f"({r['bound'][1]}), chain_ms {r['chain']:.6f}; max"
+              f"|kernel-plain| {r['err']:.3e}")
+    print(f"idm rollouts/s at C={IDM_C}, T={T}: {rate:.0f} (C over the two "
+          f"kernels' bare-launcher ms {r_ms:.4f} + {e_ms:.4f}); the "
+          f"evaluation's gates let {n_coll} collision and {n_inter} "
+          f"interaction hull tests through of {IDM_C * T * O} each; "
+          f"selection flips {sum(flips)} of {len(flips)} scenes")
+    return res
+
+
+def poly_kernel_phase(pok, psp, first, dev, cycles, mhz):
+    """The poly-sampling kernels against their plain version on the card
+    and the numpy oracle ``_eval_candidates``: the JAX bench's scene (C=30,
+    500 path points, 8 obstacles), tests/test_poly_kernel.py's two scenes
+    and the loop's first replan; the winner's index equal, its rows to
+    POLY_ROW_TOL (plain) and POLY_ORACLE_TOL (oracle).  Times the two
+    launches through the bare launchers and the wrapper on the bench scene,
+    the plain version, ``bound_ms`` and ``chain_ms``."""
+    import torch
+    from tpl_tpu_torch.scenes import poly_scene
+
+    cases = [("the JAX bench's scene", poly_scene(bench=True)),
+             ("obstacles", poly_scene()),
+             ("free", poly_scene(obstacles=False)),
+             ("the loop's first replan", first)]
+    err = 0.0
+    for what, case in cases:
+        a = psp.device_inputs(*case, dev)
+        packed, cost, best = pok.run(*a)
+        want_p, want_c, want_b = pok.run_reference(*a)
+        oracle = psp._eval_candidates(*case)
+        e = float(torch.max(torch.abs(packed - want_p)))
+        rel = abs(float(cost) - float(want_c)) / abs(float(want_c))
+        rows = packed.cpu().numpy()
+        e_o = max(float(np.max(np.abs(rows[i] - oracle[k])))
+                  for i, k in enumerate(pok.OUT_KEYS))
+        print(f"poly_sampling check, {what} (C={a[1].shape[0]}, N="
+              f"{a[4].shape[0]}, path {a[5].shape[0]}, obstacles "
+              f"{a[6].shape[0]} x {a[6].shape[1]}): winner {int(best)} (plain "
+              f"{int(want_b)}, oracle {oracle['best']}), max|kernel-plain| "
+              f"rows {e:.3e}, cost rel {rel:.3e}; max|kernel-oracle| "
+              f"{e_o:.3e}")
+        if not (int(best) == int(want_b) == oracle["best"]
+                and e <= POLY_ROW_TOL * (1 + float(torch.max(torch.abs(
+                    want_p)))) and rel <= 1e-12 and e_o <= POLY_ORACLE_TOL
+                * (1 + float(np.max(np.abs(rows))))):
+            raise AssertionError(f"poly_sampling {what}: kernel, plain and "
+                                 "oracle differ")
+        err = max(err, e)
+    a = psp.device_inputs(*cases[0][1], dev)
+    C, N, n_path = a[1].shape[0], a[4].shape[0], a[5].shape[0]
+    O, K = a[6].shape[:2]
+    lib = pok._kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    inv = pok._inverses(dev)
+    rows = torch.empty((C, 11, N), dtype=torch.float64, device=dev)
+    costs = torch.empty(C, dtype=torch.float64, device=dev)
+    packed = torch.empty((11, N), dtype=torch.float64, device=dev)
+    cost = torch.empty((), dtype=torch.float64, device=dev)
+    best = torch.empty((), dtype=torch.int64, device=dev)
+
+    def bare():
+        e = lib.poly_sampling_eval(*(x.data_ptr() for x in a), inv.data_ptr(),
+                                   rows.data_ptr(), costs.data_ptr(), C, N,
+                                   n_path, O, K, stream)
+        return e or lib.poly_sampling_select(
+            rows.data_ptr(), costs.data_ptr(), packed.data_ptr(),
+            cost.data_ptr(), best.data_ptr(), C, N, stream)
+
+    ms, wrapper_ms = launcher_times(
+        "poly_sampling", f"the JAX bench's scene (C={C}, N={N}, two "
+        "launches)", bare, lambda: pok.run(*a), 200)
+    res = dict(err=err, ms=ms, wrapper_ms=wrapper_ms,
+               plain_ms=cuda_ms(lambda: pok.run_reference(*a), 10),
+               bound=pok.bound_ms(C, N, n_path, O, K),
+               chain=pok.chain_ms(C, N, cycles, mhz))
+    print(f"poly_sampling: kernel {ms:.4f} ms (bare launchers; wrapper "
+          f"{wrapper_ms:.4f}), plain {res['plain_ms']:.4f} ms, bound_ms "
+          f"{res['bound'][0]:.6f} ({res['bound'][1]}), chain_ms "
+          f"{res['chain']:.6f}; max|kernel-plain| {err:.3e}")
+    return res
+
+
 def probe_phase(lat, itm, dev):
     """The card's operation latencies (csrc/latency_probe.cu) and the SM
     clock under load; prints them with the card's name and power limit."""
@@ -2250,6 +2694,10 @@ def main(argv=()):
     from tpl_tpu_torch.planning.dyn_prog import lon_kernel as tlk
     from tpl_tpu_torch.planning.dyn_prog import poly_lat_kernel as plk
     from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify as rmp
+    from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
+    from tpl_tpu_torch.planning.poly_sampling import poly_kernel as pok
+    from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner \
+        as psp
 
     card = smi("name,power.limit")
     print(card)
@@ -2261,7 +2709,7 @@ def main(argv=()):
 
     t0 = time.perf_counter()
     _build.build(KERNELS)
-    for mod in (lam, itm, rstp, rmp, lat, tlk, plk):
+    for mod in (lam, itm, rstp, rmp, lat, tlk, plk, idk, pok):
         mod._kernel()
     native.get_lib()
     print(f"built {', '.join(KERNELS)} and native/hostops.cpp in "
@@ -2323,6 +2771,14 @@ def main(argv=()):
     fk = phase("FAS kernels", fas_kernel_phase, tlk, plk, rmp,
                {"fas": fas["rec"], "lattice": lattice["rec"]}, dev, cycles,
                mhz)
+    idm = phase("IDM closed loop, country_overtake", rollout_loop_phase, idk,
+                pok, IDM, ROLLOUT_TICKS)
+    poly = phase("poly sampling closed loop, country_follow",
+                 rollout_loop_phase, idk, pok, POLY, ROLLOUT_TICKS)
+    ik = phase("IDM kernels", idm_kernel_phase, idk, idm["first"], dev,
+               cycles, mhz)
+    pk = phase("poly sampling kernel", poly_kernel_phase, pok, psp,
+               poly["first"], dev, cycles, mhz)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -2454,6 +2910,29 @@ def main(argv=()):
             if k in r:
                 row[out] = r[k]
                 row["lattice_" + out] = r["lattice_" + k]
+        rows.append(row)
+    # the rollout planners' kernels: launches on their loops, the checks on
+    # the seeded scenes, the loops' first replans and the JAX bench's scenes,
+    # times at the bench's widths (IDM: C=16,384; poly: C=30)
+    for name, source, replaces in ROLLOUT_ROWS:
+        loop_run = poly if name == "poly_sampling" else idm
+        r = pk if name == "poly_sampling" else ik[name]
+        row = {
+            "name": name, "route": "cuda",
+            "source": f"tpl_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": loop_run["counts"][name],
+            "per_replan": loop_run["counts"][name] / loop_run["replans"],
+            "launches_per_tick": loop_run["counts"][name] / loop_run["ticks"],
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "chain_ms": r["chain"], "library_ms": NO_LIBRARY}
+        if name != "poly_sampling":
+            row.update(candidates=IDM_C, blocks_per_sm=r["blocks_per_sm"],
+                       loop_ms=r["loop_ms"],
+                       loop_wrapper_ms=r["loop_wrapper_ms"],
+                       rollouts_per_s=r["rollouts_per_s"],
+                       selection_flips=r["selection_flips"])
         rows.append(row)
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -21,7 +21,12 @@ mu_step and iteration counts, each block bit-equal to a single launch; its
 float32 instantiation
 at the float32 tolerance above, with equal mu_step and iteration counts, on
 at least 90 % of a seeded batch's scenarios (an accepted or rejected last
-step of equal cost to rounding moves a control and the steps after it).
+step of equal cost to rounding moves a control and the steps after it); the
+IDM rollout and evaluation against their plain versions at rtol = atol =
+1e-5 (the JAX package's own lanes-vs-vmap tolerance: the card's sin / cos /
+atan / tanh / pow and torch's may part by an ulp, and a closed loop carries
+it), ``invalid`` equal; the poly-sampling grid's winner equal, its float64
+rows to 1e-9 (the coefficient solves sum in another order).
 """
 
 import numpy as np
@@ -37,8 +42,14 @@ from tpl_tpu_torch.planning.dyn_prog import lon_kernel as tlk
 from tpl_tpu_torch.planning.dyn_prog import poly_chain_kernel as tpck
 from tpl_tpu_torch.planning.dyn_prog import poly_lat_kernel as plk
 from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify
-from tpl_tpu_torch.scenes import (LON_DEMO, lon_nodes, lon_scene,
-                                  poly_lat_scene, rampify_args)
+from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
+from tpl_tpu_torch.planning.idm_sampling import idm_sampling_planner as isp
+from tpl_tpu_torch.planning.poly_sampling import poly_kernel as pok
+from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner as psp
+from tpl_tpu_torch.scenes import (LON_DEMO, idm_args, idm_bench_scene,
+                                  idm_scene, idm_through_states, lon_nodes,
+                                  lon_scene, poly_lat_scene, poly_scene,
+                                  rampify_args)
 
 COST_RTOL, COST_ATOL = 1e-6, 1e-3
 CONSTR_ATOL = 1e-4
@@ -846,3 +857,146 @@ def test_chain_replan_launch_counts(cuda):
     assert (il_g, isd_g) == (il_c, isd_c)
     np.testing.assert_allclose(path_g, path_c, rtol=0, atol=1e-4)
     np.testing.assert_allclose(traj_g, traj_c, rtol=0, atol=TRAJ_ATOL)
+
+
+IDM_RTOL = IDM_ATOL = 1e-5
+
+
+def _idm_rollout_case(dev, scene, C, T):
+    if scene == "bench":
+        rl, objs, pp, init_ref, init_con, l_trgs, d_stops = \
+            idm_bench_scene(C)
+    else:
+        rl, objs, pp, init_ref, init_con = idm_scene(
+            stop_cell=scene == "stop_cell", oncoming=scene == "oncoming")
+        l_trgs = np.linspace(-5, 5, C).astype(np.float32)
+        d_stops = np.where(np.arange(C) % 3 == 0, 30.0, 1e6).astype(
+            np.float32)
+    return idm_args(rl, objs, pp, init_ref, init_con, l_trgs, d_stops, dev)
+
+
+def _cpu(args):
+    return tuple({k: v.cpu() for k, v in a.items()} if isinstance(a, dict)
+                 else a.cpu() if torch.is_tensor(a) else a for a in args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,C,T", [("stop_cell", 48, 30),
+                                       ("free", 13, 100),
+                                       ("bench", 64, 100),
+                                       ("oncoming", 24, 100)])
+def test_idm_rollout_kernel_matches_plain(cuda, scene, C, T):
+    args = _idm_rollout_case(cuda, scene, C, T)
+    before = (idk.rollout_launches, idk.evaluate_launches)
+    refs, cons = idk.rollout(*args, T)
+    torch.cuda.synchronize()
+    assert (idk.rollout_launches, idk.evaluate_launches) == (before[0] + 1,
+                                                             before[1])
+    want = idk.rollout_reference(*args[:4], args[4][0], args[5], args[6][0],
+                                 args[7], args[8], T)
+    np.testing.assert_allclose(refs.cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=IDM_RTOL, atol=IDM_ATOL)
+    np.testing.assert_allclose(cons.cpu().numpy(), want[1].cpu().numpy(),
+                               rtol=IDM_RTOL, atol=IDM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["collider", "rollout", "oncoming"])
+def test_idm_evaluate_kernel_matches_plain(cuda, case):
+    """The parked collider (the collision screen hits), a rollout of the
+    stop-cell scene and one of an oncoming car (the interaction screen's
+    hull tests run and hit)."""
+    rl, objs, pp, init_ref, init_con = idm_scene(
+        stop_cell=case == "rollout", collider=case == "collider",
+        oncoming=case == "oncoming")
+    if case == "collider":
+        C, T = 64, 20
+        refs, cons = (torch.from_numpy(a).to(cuda)
+                      for a in idm_through_states(C, T))
+        l_trgs = np.linspace(-3, 3, C).astype(np.float32)
+    else:
+        C, T = 40, 100
+        l_trgs = np.linspace(-5, 5, C).astype(np.float32)
+    a = idm_args(rl, objs, pp, init_ref, init_con, l_trgs,
+                 np.full(C, 1e6, np.float32), cuda)
+    if case != "collider":
+        refs, cons = idk.rollout(*a, T)
+    lg = torch.zeros(1, dtype=torch.float32, device=cuda)
+    before = (idk.rollout_launches, idk.evaluate_launches)
+    got = idk.evaluate(refs, cons, a[2], a[7], a[5], a[6], a[8], lg)
+    torch.cuda.synchronize()
+    assert (idk.rollout_launches, idk.evaluate_launches) == (before[0],
+                                                             before[1] + 1)
+    want = idk.evaluate_reference(refs, cons, a[2], a[7], a[5], a[6][0],
+                                  a[8], lg[0]).cpu().numpy()
+    got = got.cpu().numpy()
+    np.testing.assert_array_equal(got[4], want[4])
+    np.testing.assert_allclose(got, want, rtol=IDM_RTOL, atol=IDM_ATOL)
+    if case == "collider":
+        assert want[4].any()
+    if case == "oncoming":
+        assert idk.evaluate_work(cons, a[7], a[8])[1] > 0
+        assert (want[2] > 0).any() and (want[3] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["obstacles", "free", "bench"])
+def test_poly_sampling_kernel_matches_plain(cuda, scene):
+    start, path, obs, pp = poly_scene(obstacles=scene == "obstacles",
+                                      bench=scene == "bench")
+    a = psp.device_inputs(start, path, obs, pp, cuda)
+    before = (pok.eval_launches, pok.select_launches)
+    packed, cost, best = pok.run(*a)
+    torch.cuda.synchronize()
+    assert (pok.eval_launches, pok.select_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want_p, want_c, want_b = pok.run_reference(*a)
+    assert int(best) == int(want_b)
+    assert int(best) == psp._eval_candidates(start, path, obs, pp)["best"]
+    np.testing.assert_allclose(packed.cpu().numpy(), want_p.cpu().numpy(),
+                               rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(float(cost), float(want_c), rtol=1e-12)
+
+
+@pytest.mark.cuda
+def test_rollout_planner_wrappers_never_take_the_plain_version(cuda,
+                                                               monkeypatch):
+    """On CUDA tensors the three entries launch their kernels: with the
+    plain versions replaced by a function that raises, they still run."""
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for mod, name in ((idk, "rollout_reference"),
+                      (idk, "evaluate_reference"), (pok, "run_reference")):
+        monkeypatch.setattr(mod, name, plain)
+    a = _idm_rollout_case(cuda, "stop_cell", 16, 20)
+    before = (idk.rollout_launches, idk.evaluate_launches,
+              pok.eval_launches + pok.select_launches)
+    refs, cons = idk.rollout(*a, 20)
+    idk.evaluate(refs, cons, a[2], a[7], a[5], a[6], a[8],
+                 torch.zeros(1, dtype=torch.float32, device=cuda))
+    start, path, obs, pp = poly_scene()
+    pok.run(*psp.device_inputs(start, path, obs, pp, cuda))
+    torch.cuda.synchronize()
+    assert (idk.rollout_launches, idk.evaluate_launches,
+            pok.eval_launches + pok.select_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+@pytest.mark.cuda
+def test_idm_replan_is_one_upload_two_launches_one_download(cuda):
+    """``run_kernels`` on the card: one rollout and one evaluation launch;
+    its costs those of the CPU path (the plain versions)."""
+    rl, objs, pp, init_ref, init_con = idm_scene(stop_cell=True)
+    C, T = 8, 100
+    l_trgs = np.linspace(-3, 3, C).astype(np.float32)
+    d_stops = np.full(C, 1e6, np.float32)
+    inputs = (init_ref, init_con, l_trgs, d_stops, 0.05, rl, 0.5, objs,
+              pp.packed(), 0.0, T)
+    before = (idk.rollout_launches, idk.evaluate_launches)
+    refs, cons, costs = isp.run_kernels(*inputs, cuda)
+    assert (idk.rollout_launches, idk.evaluate_launches) == (before[0] + 1,
+                                                             before[1] + 1)
+    refs_c, cons_c, costs_c = isp.run_kernels(*inputs, torch.device("cpu"))
+    np.testing.assert_allclose(cons, cons_c, rtol=IDM_RTOL, atol=IDM_ATOL)
+    np.testing.assert_allclose(costs, costs_c, rtol=IDM_RTOL, atol=IDM_ATOL)

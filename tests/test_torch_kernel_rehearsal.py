@@ -65,8 +65,13 @@ from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
 from tpl_tpu_torch.planning.dyn_prog import lon_kernel as tlk
 from tpl_tpu_torch.planning.dyn_prog import poly_lat_kernel as plk
 from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify
+from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
+from tpl_tpu_torch.planning.poly_sampling import poly_kernel as pok
+from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner as psp
 
-from tpl_tpu_torch.scenes import lon_nodes, lon_scene, poly_lat_scene
+from tpl_tpu_torch.scenes import (idm_args, idm_scene, idm_through_states,
+                                  lon_nodes, lon_scene, poly_lat_scene,
+                                  poly_scene)
 
 ATOL = 1e-12
 RTOL = 1e-12        # multipliers reach 1e2 and more (weight 1e4)
@@ -143,6 +148,9 @@ HARNESS = r"""
 #include "latlon_action_min.cu"
 #include "lon_dp.cu"
 #include "poly_lat.cu"
+#include "idm_rollout.cu"
+#include "idm_evaluate.cu"
+#include "poly_sampling.cu"
 
 // the kernels' dynamic shared memory (an extern array declared inside a
 // function belongs to the function's namespace)
@@ -153,6 +161,9 @@ namespace rstp_rampify { alignas(16) unsigned char smem_raw[65536]; }
 namespace latlon_am { alignas(16) unsigned char smem_raw[262144]; }
 namespace lon_dp { alignas(16) unsigned char smem_raw[4096]; }
 namespace poly_lat { alignas(16) unsigned char smem_raw[65536]; }
+namespace idm_rollout_k { alignas(16) unsigned char smem_raw[262144]; }
+namespace idm_evaluate_k { alignas(16) unsigned char smem_raw[262144]; }
+namespace poly_sampling_k { alignas(16) unsigned char smem_raw[65536]; }
 
 // A grid of gx x gy blocks of 256 threads: every host thread runs its
 // thread of each block in turn (the blocks share the one shared-memory
@@ -242,6 +253,58 @@ extern "C" void rehearse_poly_lat_select(const float* cd, const double* tc,
                                          int SD) {
   run_block([=] {
     poly_lat::poly_lat_select_kernel(cd, tc, length_veh, best, cost, LD, SD);
+  });
+}
+
+// the IDM rollout on a grid of C / 8 blocks (a warp per candidate); objs
+// holds the ten object arrays in idm_kernel.OBJ_KEYS order
+extern "C" void rehearse_idm_rollout(
+    const float* init_ref, const float* init_con, const float* l_trgs,
+    const float* d_stops, const float* dt_replan, const float* ref_line,
+    const float* ref_step, const float* const* objs, const float* pp,
+    float* out_ref, float* out_con, int C, int T, int NR, int O, int P,
+    int K) {
+  using namespace idm_rollout_k;
+  const Objs ob = {objs[0], objs[1], objs[2], objs[3], objs[4],
+                   objs[5], objs[6], objs[7], objs[8], objs[9]};
+  run_grid((C + CANDS - 1) / CANDS, 1, [=] {
+    idm_rollout_kernel(init_ref, init_con, l_trgs, d_stops, dt_replan,
+                       ref_line, ref_step, ob, pp, out_ref, out_con, C, T,
+                       NR, O, P, K);
+  });
+}
+
+// the packed parameters' keys as the two IDM kernels index them
+extern "C" const char* rehearse_idm_param_keys() { return idm::PARAM_KEYS; }
+
+// the IDM evaluation on a grid of C / 2 blocks
+extern "C" void rehearse_idm_evaluate(
+    const float* refs, const float* states, const float* l_trgs,
+    const float* const* objs, const float* ref_line, const float* ref_step,
+    const float* pp, const float* l_trg_global, float* out, int C, int T,
+    int NR, int O, int P, int K) {
+  using namespace idm_evaluate_k;
+  run_grid((C + CANDS - 1) / CANDS, 1, [=] {
+    idm_evaluate_kernel(refs, states, l_trgs, objs[0], objs[1], objs[3],
+                        objs[4], objs[5], objs[7], objs[8], ref_line,
+                        ref_step, pp, l_trg_global, out, C, T, NR, O, P, K);
+  });
+}
+
+// the poly-sampling grid (a block per candidate) then its selection
+extern "C" void rehearse_poly_sampling(
+    const float* start, const float* di, const float* Ti, const float* tv,
+    const float* ts, const float* path, const float* hulls,
+    const float* valid, const float* pp, const double* inv, double* rows,
+    double* costs, double* packed, double* cost, long long* best, int C,
+    int N, int n_path, int O, int K) {
+  using namespace poly_sampling_k;
+  run_grid(C, 1, [=] {
+    poly_sampling_eval_kernel(start, di, Ti, tv, ts, path, hulls, valid, pp,
+                              inv, rows, costs, C, N, n_path, O, K);
+  });
+  run_block([=] {
+    poly_sampling_select_kernel(rows, costs, packed, cost, best, C, N);
   });
 }
 
@@ -384,6 +447,15 @@ def bodies(tmp_path_factory):
     lib.rehearse_poly_lat_select.restype = None
     lib.rehearse_poly_lat_select.argtypes = ([ctypes.c_void_p] * 5
                                              + [ctypes.c_int] * 2)
+    lib.rehearse_idm_rollout.restype = None
+    lib.rehearse_idm_rollout.argtypes = ([ctypes.c_void_p] * 11
+                                         + [ctypes.c_int] * 6)
+    lib.rehearse_idm_evaluate.restype = None
+    lib.rehearse_idm_evaluate.argtypes = ([ctypes.c_void_p] * 9
+                                          + [ctypes.c_int] * 6)
+    lib.rehearse_poly_sampling.restype = None
+    lib.rehearse_poly_sampling.argtypes = ([ctypes.c_void_p] * 15
+                                           + [ctypes.c_int] * 5)
     lib.rehearse_action_min.restype = None
     lib.rehearse_action_min.argtypes = ([ctypes.c_void_p] * 6
                                         + [ctypes.c_int] * 4)
@@ -955,3 +1027,140 @@ def test_poly_lat_select_body_matches_plain(bodies):
                 torch.from_numpy(lv), LD, SD)
             assert int(best[0]) == int(want_b), (LD, SD, trial)
             assert cost[0] == float(want_c)
+
+
+# ---------------------------------------------------------------------
+# the rollout planners' kernel bodies: the operations of the plain
+# versions, but sin / cos / atan / tanh / pow come from the host's libm
+# here and from torch's vectorised kernels there, and a 30-step closed loop
+# carries an ulp forward; so these hold to the JAX package's own
+# lanes-vs-vmap tolerance (tests/test_idm_kernel.py: rtol = atol = 1e-5).
+IDM_RTOL = IDM_ATOL = 1e-5
+
+
+def _idm_obj_ptrs(objs):
+    arrs = [np.ascontiguousarray(objs[k].numpy()) for k in idk.OBJ_KEYS]
+    return (ctypes.c_void_p * len(arrs))(*[a.ctypes.data for a in arrs]), arrs
+
+
+def test_idm_param_keys_match_pp_keys(bodies):
+    """The order of the packed parameters that both IDM kernels index
+    (csrc/idm_common.cuh) is idm_kernel.PP_KEYS."""
+    bodies.rehearse_idm_param_keys.restype = ctypes.c_char_p
+    keys = bodies.rehearse_idm_param_keys().decode()
+    assert keys.split(",")[:-1] == list(idk.PP_KEYS)
+
+
+def _idm_rollout_body(bodies, T, C, **scene):
+    rl, objs, pp, init_ref, init_con = idm_scene(**scene)
+    l_trgs = np.linspace(-5, 5, C).astype(np.float32)
+    d_stops = np.where(np.arange(C) % 3 == 0, 30.0, 1e6).astype(np.float32)
+    a = idm_args(rl, objs, pp, init_ref, init_con, l_trgs, d_stops, "cpu")
+    want = idk.rollout_reference(*a[:4], a[4][0], a[5], a[6][0], a[7], a[8],
+                                 T)
+    optrs, keep = _idm_obj_ptrs(a[7])
+    out_r = np.full((C, T, 10), -7.0, np.float32)
+    out_c = np.full((C, T, 9), -7.0, np.float32)
+    n = [np.ascontiguousarray(x.numpy()) for x in a[:7] + (a[8],)]
+    bodies.rehearse_idm_rollout(*[_ptr(x) for x in n[:7]], optrs, _ptr(n[7]),
+                                _ptr(out_r), _ptr(out_c), C, T, len(rl),
+                                *objs["hull_preds"].shape[:3])
+    np.testing.assert_allclose(out_r, want[0].numpy(), rtol=IDM_RTOL,
+                               atol=IDM_ATOL)
+    np.testing.assert_allclose(out_c, want[1].numpy(), rtol=IDM_RTOL,
+                               atol=IDM_ATOL)
+    return want
+
+
+@pytest.mark.parametrize("stop_cell,T,C", [(True, 30, 48), (False, 20, 16)])
+def test_idm_rollout_body_matches_plain(bodies, stop_cell, T, C):
+    """The stop cell, candidates to +-5 m (off-road excursions) and a stop
+    distance on every third candidate, as tests/test_idm_kernel.py."""
+    want = _idm_rollout_body(bodies, T, C, stop_cell=stop_cell)
+    # the scene's leaders, stop cell and road edges reach the states
+    assert (want[0][..., idk.R_DR] < 100.0).any()
+    assert float(want[1][..., idk.V_V].min()) < 4.0
+
+
+def test_idm_rollout_body_oncoming_matches_plain(bodies):
+    """An oncoming car: it changes the rollouts of the candidates that
+    steer toward its lane (a leader of negative speed) and of no other."""
+    T, C = 40, 24
+    want = _idm_rollout_body(bodies, T, C, oncoming=True)
+    a = idm_args(*idm_scene(), np.linspace(-5, 5, C),
+                 np.where(np.arange(C) % 3 == 0, 30.0, 1e6), "cpu")
+    without = idk.rollout_reference(*a[:4], a[4][0], a[5], a[6][0], a[7],
+                                    a[8], T)[1]
+    changed = (want[1] != without).flatten(1).any(1)
+    assert changed.any() and not changed.all()
+
+
+@pytest.mark.parametrize("case", ["collider", "rollout", "oncoming"])
+def test_idm_evaluate_body_matches_plain(bodies, case):
+    """The parked collider with trajectories driven through it (the
+    collision screen must hit), a rollout of the stop-cell scene, and a
+    rollout (T = 100) of an oncoming car (the interaction screen's hull
+    tests must run and hit)."""
+    rl, objs, pp, init_ref, init_con = idm_scene(
+        stop_cell=case == "rollout", collider=case == "collider",
+        oncoming=case == "oncoming")
+    if case == "collider":
+        C, T = 64, 20
+        refs, cons = idm_through_states(C, T)
+        l_trgs = np.linspace(-3, 3, C).astype(np.float32)
+    else:
+        C, T = 24, 30 if case == "rollout" else 100
+        l_trgs = np.linspace(-5, 5, C).astype(np.float32)
+        a = idm_args(rl, objs, pp, init_ref, init_con, l_trgs,
+                     np.full(C, 1e6, np.float32), "cpu")
+        r, c = idk.rollout_reference(*a[:4], a[4][0], a[5], a[6][0], a[7],
+                                     a[8], T)
+        refs, cons = r.numpy(), c.numpy()
+    a = idm_args(rl, objs, pp, init_ref, init_con, l_trgs, l_trgs, "cpu")
+    lg = torch.zeros((), dtype=torch.float32)
+    want = idk.evaluate_reference(torch.from_numpy(refs),
+                                  torch.from_numpy(cons), a[2], a[7], a[5],
+                                  a[6][0], a[8], lg).numpy()
+    optrs, keep = _idm_obj_ptrs(a[7])
+    out = np.full((5, C), -7.0, np.float32)
+    lg_a = np.zeros(1, np.float32)
+    n = [np.ascontiguousarray(x.numpy()) for x in (a[2], a[5], a[6], a[8])]
+    bodies.rehearse_idm_evaluate(_ptr(refs), _ptr(cons), _ptr(n[0]), optrs,
+                                 _ptr(n[1]), _ptr(n[2]), _ptr(n[3]),
+                                 _ptr(lg_a), _ptr(out), C, T, len(rl),
+                                 *objs["hull_preds"].shape[:3])
+    np.testing.assert_array_equal(out[4], want[4])        # invalid
+    np.testing.assert_allclose(out, want, rtol=IDM_RTOL, atol=IDM_ATOL)
+    if case == "collider":
+        assert want[4].any() and (want[3] > 0).any()
+    if case == "oncoming":
+        assert idk.evaluate_work(torch.from_numpy(cons), a[7], a[8])[1] > 0
+        assert (want[2] > 0).any() and (want[3] > 0).any()
+
+
+@pytest.mark.parametrize("scene", ["obstacles", "free", "bench"])
+def test_poly_sampling_body_matches_plain(bodies, scene):
+    """The grid and the selection: the plain version's winner, its rows
+    to 1e-9 (float64 rows; the coefficient solves sum in another order)."""
+    start, path, obs, pp = poly_scene(obstacles=scene == "obstacles",
+                                      bench=scene == "bench")
+    a = psp.device_inputs(start, path, obs, pp, "cpu")
+    want_p, want_c, want_b = pok.run_reference(*a)
+    n = [np.ascontiguousarray(x.numpy()) for x in a]
+    C, N = a[1].shape[0], a[4].shape[0]
+    O, K = a[6].shape[:2]
+    inv = np.ascontiguousarray(pok._inverses("cpu").numpy())
+    rows = np.zeros((C, 11, N))
+    costs = np.zeros(C)
+    packed = np.zeros((11, N))
+    cost = np.zeros(1)
+    best = np.zeros(1, np.int64)
+    bodies.rehearse_poly_sampling(*[_ptr(x) for x in n], _ptr(inv),
+                                  _ptr(rows), _ptr(costs), _ptr(packed),
+                                  _ptr(cost), _ptr(best), C, N, len(path), O,
+                                  K)
+    assert int(best[0]) == int(want_b)
+    np.testing.assert_allclose(packed, want_p.numpy(), rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(cost[0], float(want_c), rtol=1e-12)
+    if scene != "free":
+        assert (costs >= pok.PENALTY).any()

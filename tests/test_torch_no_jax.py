@@ -1,8 +1,9 @@
 """The port never imports JAX or the JAX package: checked in a fresh
 interpreter after ``import tpl_tpu_torch``, after one CPU planning tick of
 the slice, after a few closed-loop ticks of the port's ``SimStandalone``,
-after the host C routes were built and called, after a batched update and
-after two ticks of each FAS-2025 planner, and statically over the port's
+after the host C routes were built and called, after a batched update,
+after two ticks of each FAS-2025 planner and after two ticks of each
+rollout planner (IDM sampling, poly sampling), and statically over the port's
 sources, ``chip_smoke.py`` and the card tests it imports."""
 
 import os
@@ -111,6 +112,31 @@ for name in ("poly_lat_dp_lon_planner", "lattice_planner"):
         sim.update()
     assert sim.planning_app.planners[name].traj_lon is not None, name
 assert not leaked(), ("poly chain", leaked())
+
+from tpl_tpu_torch.planning import IdmSamplingPlanner, PolySamplingPlanner
+from tpl_tpu_torch.planning.idm_sampling import idm_kernel
+from tpl_tpu_torch.planning.poly_sampling import poly_kernel
+for name, scenario in (("idm_sampling_planner", "demo/country_overtake"),
+                       ("poly_sampling_planner", "demo/country_follow")):
+    sim = SimStandalone(app_id="nojax_" + name, scenario_path=scenario)
+    store = sim.planning_app.sh_planners
+    store.active_planner = name
+    sim.control_app.sh_controllers.model_predictive_controller.params \
+        .horizon = 10
+    ss = sim.core.sh_state.sim
+    ss.settings.running = True
+    ss.settings.use_real_time = False
+    planner = sim.planning_app.planners[name]
+    # the poly sampler replans every 0.2 s: make its second tick a replan
+    planner.last_update_time = -1.0
+    for _ in range(2):
+        sim.update()
+    done = planner.traj_np if name.startswith("idm") else planner.poly_traj
+    assert done is not None, name
+    assert isinstance(planner, (IdmSamplingPlanner, PolySamplingPlanner))
+assert idm_kernel.rollout_launches == idm_kernel.evaluate_launches == 0
+assert poly_kernel.eval_launches == poly_kernel.select_launches == 0
+assert not leaked(), ("rollout planners", leaked())
 print("clean")
 """
 

@@ -3,18 +3,27 @@ tpl_tpu_torch — the PyTorch / CUDA port of ``tpl_tpu``.
 
 The ported path is the closed loop through ``simulation.SimStandalone``
 with the vendored param sets' own planner and controller, the RSTP
-(path / velocity decomposed) planner and the tracking MPC, or with the DP
-lat/lon planner: ``ops`` (host geometry, profiles, LQR, the solver's table
-lookups), ``environment``, ``application`` (environment, planning and
-control apps), ``planning`` (trajectory, replan policy, the RSTP planner
-with its fused replan step, the DP environment and the lat/lon
-value-iteration solve), ``optim`` (the AL-iLQR core, its problems and the
-``Solver``), ``control`` (the tracking MPC and the constant-deceleration
-fallback) and ``simulation``.  Four hand-written Hopper kernels live under
-``csrc/``: the float64 tracking-MPC solve, the float32 RSTP profile solves,
-the RSTP rampify scan and the DP backward action-min
-(``csrc/latency_probe.cu`` measures the card's operation latencies for
-their bounds).
+(path / velocity decomposed) planner and the tracking MPC, or with any of
+the other ported planners selected by name: ``ops`` (host geometry,
+profiles, LQR, splines, the solver's table lookups), ``environment``,
+``application`` (environment, planning and control apps), ``planning``
+(trajectory, replan policy; the RSTP planner with its fused replan step;
+the DP lat/lon planner; the FAS-2025 chain, ``poly_lat_dp_lon_planner`` and
+``lattice_planner``; the rollout planners, ``idm_sampling_planner`` and
+``poly_sampling_planner``), ``optim`` (the AL-iLQR core, its problems, the
+``Solver`` and the batched update), ``control`` (the tracking MPC and the
+constant-deceleration fallback), ``native`` (the host C routes) and
+``simulation``.  Nine hand-written Hopper kernel sources live under
+``csrc/``: ``ilqr_tracking_mpc.cu`` (the float64 tracking-MPC solve, single
+and batched), ``ilqr_rstp.cu`` (the float32 RSTP profile solves),
+``rstp_rampify.cu`` (the RSTP rampify scan and the FAS start mode),
+``latlon_action_min.cu`` (the DP backward action-min and fused slice),
+``lon_dp.cu`` and ``poly_lat.cu`` (the FAS chain's lon DP and lateral
+sweep), ``idm_rollout.cu`` and ``idm_evaluate.cu`` (the IDM sampling
+rollouts and their screens, sharing ``idm_common.cuh``) and
+``poly_sampling.cu`` (the Werling grid);
+``csrc/latency_probe.cu`` measures the card's operation latencies for
+their bounds.
 
 The device is the card unless the caller asks otherwise: :func:`device`
 resolves an unset device to ``cuda`` through :func:`use_device`, which

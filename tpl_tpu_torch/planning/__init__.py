@@ -13,3 +13,5 @@ from tpl_tpu_torch.planning.dyn_prog import (
     LatticePlanner,
     PolyLatDpLonPlanner,
 )
+from tpl_tpu_torch.planning.idm_sampling import IdmSamplingPlanner
+from tpl_tpu_torch.planning.poly_sampling import PolySamplingPlanner

@@ -8,6 +8,8 @@ import torch
 
 from .planning.dyn_prog import lon_kernel as tlk
 from .planning.dyn_prog import poly_lat_kernel as plk
+from .planning.idm_sampling import idm_kernel as idk
+from .planning.poly_sampling import poly_sampling_planner as psp
 
 # the demo planning set's lon grid
 LON_DEMO = dict(T=10, S=201, V=37, A=20, P=200)
@@ -98,3 +100,185 @@ def poly_lat_scene(LD, SD, S, seed):
     env = np.array([1.0, 1.0, 0.0, float(SE - 1), -5.0, 5.0], np.float32)
     start = np.array([0.4, 0.05, 0.01, 1.0, 8.0], np.float32)
     return occ, rl, np.float32(0.5), p.packed(), env, start
+
+
+def _idm_pp(**kw):
+    """The scenes' IDM parameters (the JAX package's tests and bench)."""
+    pp = idk.IdmSamplingParams()
+    pp.width_veh = 2.0
+    pp.length_veh = 5.0
+    pp.radius_veh = 2.7
+    pp.dist_front_veh = 3.8
+    pp.dist_back_veh = -1.1
+    for k, v in kw.items():
+        setattr(pp, k, v)
+    return pp
+
+
+def idm_scene(stop_cell=False, collider=False, oncoming=False):
+    """The seeded scene of tests/test_idm_kernel.py (NR=201, O=4, P=8,
+    K=8): (ref_line (201, 7), objs (numpy, masks bool), pp
+    (IdmSamplingParams), init_ref (10,), init_con (9,)).  ``stop_cell``: the
+    ref speed 0 from cell 150 on; ``collider``: object 0 parked on the ego
+    path, so that the screens hit; ``oncoming``: object 3 a car driving
+    toward the ego at 10 m/s (heading near pi, 1 m to the left of the ego's
+    start, drifting toward it), so that the interaction screen's hull test
+    runs and hits and the rollout's leader has a negative speed."""
+    rng = np.random.default_rng(0)
+    NR = 201
+    rl = np.zeros((NR, 7), np.float32)
+    rl[:, 0] = np.arange(NR) * 0.5 - 50.0
+    rl[:, 4] = 12.0
+    rl[:, 5] = 4.0
+    rl[:, 6] = 4.0
+    if stop_cell:
+        rl[150:, 4] = 0.0
+    O, P, K = 4, 8, 8
+    objs = dict(
+        pred_t=np.tile(np.arange(P, dtype=np.float32), (O, 1)),
+        pred_xy=np.zeros((O, P, 2), np.float32),
+        pred_heading=np.zeros((O, P), np.float32),
+        pred_v=np.zeros((O, P), np.float32),
+        pred_dists=np.tile(np.arange(P, dtype=np.float32), (O, 1)),
+        hull_preds=np.zeros((O, P, K, 2), np.float32),
+        hull_projs=np.full((O, P, 4), -1000.0, np.float32),
+        radius_hull=np.ones(O, np.float32),
+        valid=np.ones(O, bool),
+        on_local_map=np.ones(O, bool))
+    box = rng.normal(scale=0.5, size=(K, 2)).astype(np.float32)
+    for i in range(O):
+        objs["pred_xy"][i, :, 0] = 20.0 + 8 * i + np.arange(P) * 1.5
+        objs["pred_xy"][i, :, 1] = (i % 3 - 1) * 2.0
+        objs["hull_preds"][i] = objs["pred_xy"][i][:, None, :] + box[None]
+    if collider:
+        objs["pred_xy"][0, :, 0] = 8.0
+        objs["pred_xy"][0, :, 1] = 0.0
+        objs["pred_v"][0] = 0.0
+        b0 = objs["hull_preds"][0][0] - objs["hull_preds"][0][0].mean(0)
+        objs["hull_preds"][0] = objs["pred_xy"][0][:, None, :] + b0[None]
+    if oncoming:
+        xy = np.stack([60.0 - 10.0 * np.arange(P),
+                       2.5 - 0.1 * np.arange(P)], -1).astype(np.float32)
+        seg = np.diff(xy, axis=0)
+        head = np.arctan2(seg[:, 1], seg[:, 0])
+        head = np.append(head, head[-1]).astype(np.float32)
+        objs["pred_xy"][3] = xy
+        objs["pred_heading"][3] = head
+        objs["pred_v"][3] = 10.0
+        objs["pred_dists"][3] = np.concatenate(
+            [[0.0], np.cumsum(np.hypot(seg[:, 0], seg[:, 1]))])
+        objs["radius_hull"][3] = 2.5
+        # a 4.6 m x 1.8 m car: corners and edge midpoints, counterclockwise
+        u = np.array([[-1, -1], [0, -1], [1, -1], [1, 0], [1, 1], [0, 1],
+                      [-1, 1], [-1, 0]], np.float32) * [2.3, 0.9]
+        c, s_ = np.cos(head), np.sin(head)
+        objs["hull_preds"][3, :, :, 0] = (xy[:, None, 0] + c[:, None] * u[:, 0]
+                                          - s_[:, None] * u[:, 1])
+        objs["hull_preds"][3, :, :, 1] = (xy[:, None, 1] + s_[:, None] * u[:, 0]
+                                          + c[:, None] * u[:, 1])
+    init_ref = np.zeros(10, np.float32)
+    init_ref[4] = 8.0
+    init_con = np.zeros(9, np.float32)
+    init_con[5] = 8.0
+    return rl, objs, _idm_pp(), init_ref, init_con
+
+
+def idm_through_states(C, T):
+    """Fabricated (ref_states (C, T, 10), states (C, T, 9)) that drive
+    straight through the collider scene, fanned out laterally (the JAX
+    package's tests/test_idm_kernel.py: a real rollout brakes for the
+    parked car and never collides)."""
+    rng = np.random.default_rng(3)
+    cons = np.zeros((C, T, 9), np.float32)
+    ts = np.arange(T, dtype=np.float32) * 0.1
+    for c in range(C):
+        y = np.float32(-4.0 + 8.0 * c / (C - 1))
+        cons[c, :, 0] = ts
+        cons[c, :, 1] = ts * 8.0
+        cons[c, :, 2] = y
+        cons[c, :, 3] = rng.normal(scale=0.1)
+        cons[c, :, 5] = 8.0
+        cons[c, :, 6] = rng.normal(scale=0.5)
+        cons[c, :, 7] = ts * 8.0 + 50.0 * 0.5
+        cons[c, :, 8] = y
+    refs = np.zeros((C, T, 10), np.float32)
+    refs[:, :, 8] = 4.0 - np.abs(cons[:, :, 2])
+    refs[:, :, 9] = 4.0 + cons[:, :, 2]
+    return refs, cons
+
+
+def idm_bench_scene(C=16384):
+    """The JAX package's IDM throughput scene (bench.py _idm_setup): NR=801,
+    O=12, P=16, K=16, T=100; returns (ref_line, objs, pp, init_ref,
+    init_con, l_trgs (C,) = linspace(-3, 3), d_stops (C,) = 1e6)."""
+    NR = 801
+    rl = np.zeros((NR, 7), np.float32)
+    rl[:, 0] = np.arange(NR) * 0.5 - 200.0
+    rl[:, 4] = 12.0
+    rl[:, 5] = 4.0
+    rl[:, 6] = 4.0
+    objs = dict(
+        pred_t=np.tile(np.arange(16, dtype=np.float32), (12, 1)),
+        pred_xy=np.zeros((12, 16, 2), np.float32),
+        pred_heading=np.zeros((12, 16), np.float32),
+        pred_v=np.zeros((12, 16), np.float32),
+        pred_dists=np.tile(np.arange(16, dtype=np.float32), (12, 1)),
+        hull_preds=np.zeros((12, 16, 16, 2), np.float32),
+        hull_projs=np.full((12, 16, 4), -1000.0, np.float32),
+        radius_hull=np.ones(12, np.float32),
+        valid=np.ones(12, bool),
+        on_local_map=np.ones(12, bool))
+    box = np.array([[-2, -1], [2, -1], [2, 1], [-2, 1]] * 4, np.float32)
+    for i in range(12):
+        objs["pred_xy"][i, :, 0] = 30.0 + 10 * i + np.arange(16) * 2.0
+        objs["pred_xy"][i, :, 1] = (i % 3 - 1) * 2.5
+        objs["hull_preds"][i] = objs["pred_xy"][i][:, None, :] + box[None]
+    init_ref = np.zeros(10, np.float32)
+    init_ref[4] = 8.0
+    init_con = np.zeros(9, np.float32)
+    init_con[5] = 8.0
+    return (rl, objs, _idm_pp(), init_ref, init_con,
+            np.linspace(-3, 3, C).astype(np.float32),
+            np.full(C, 1e6, np.float32))
+
+
+def idm_args(rl, objs, pp, init_ref, init_con, l_trgs, d_stops, dev,
+             dt_replan=0.1, ref_step=0.5):
+    """The rollout's tensor arguments on ``dev``: (init_ref, init_con,
+    l_trgs, d_stops, dt_replan, ref_line, ref_step, objs, pp_vec)."""
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    return (f32(init_ref), f32(init_con), f32(l_trgs), f32(d_stops),
+            f32([dt_replan]), f32(rl), f32([ref_step]),
+            idk.objs_to_torch(objs, dev), f32(pp.packed()))
+
+
+def poly_scene(obstacles=True, bench=False):
+    """The poly-sampling scenes: tests/test_poly_kernel.py's (a 200-point
+    straight path, two obstacles; C=30 candidates of 25 steps) or, with
+    ``bench``, the JAX package's bench scene (bench.py
+    bench_poly_sampling: 500 points, 8 box obstacles).  Returns (start,
+    path, obstacles, PolySamplingParams)."""
+    N = 500 if bench else 200
+    path = np.zeros((N, 6))
+    path[:, 0] = np.arange(N) * 0.5
+    path[:, 3] = path[:, 0]
+    path[:, 5] = 10.0
+    start = dict(d=0.5, d_d=0.1, d_dd=0.0, s=0.0, s_d=8.0, s_dd=0.0)
+    if bench:
+        obs = [dict(hull=np.array(
+            [[30. + 12 * i, -1.], [34. + 12 * i, -1.],
+             [34. + 12 * i, 1.], [30. + 12 * i, 1.]])) for i in range(8)]
+    elif obstacles:
+        obs = [dict(hull=np.array([[30., -1.], [34., -1.], [34., 1.],
+                                   [30., 1.]])),
+               dict(hull=np.array([[18., 1.5], [21., 1.5], [21., 3.5],
+                                   [18., 3.5], [19.5, 4.0]]))]
+    else:
+        obs = []
+    pp = psp.PolySamplingParams()
+    pp.lane_width = 3.0
+    pp.v_samples = 2
+    pp.rear_axis_to_rear = 1.0
+    pp.rear_axis_to_front = 4.0
+    pp.width_ego = 2.5
+    return start, path, obs, pp

@@ -140,7 +140,29 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    version and the numpy oracle ``_eval_candidates`` on the JAX bench's
    scene (C=30), tests/test_poly_kernel.py's two scenes and the poly loop's
    first replan (the winner's index equal, its rows to tolerance), timed;
-16. prints the card's name and power limit and one JSON line describing the
+16. graph DP closed loop: ``SimStandalone`` on ``demo/country_follow``
+   with ``dp_poly_planner`` active (the demo planning set's block: env 10 x
+   201 x 21 x 21 directions, graph 10 x 15 x 21, two levels) and the
+   scenario's other sets, 300 ticks, rule checker on, the launch counters
+   set to 0 just before the loop and read just after; checks zero
+   violations, no emergency plan, finite controls, per replan one
+   ``dir_dist_map``, two ``poly_eval_edges`` and two ``poly_propagate``
+   launches, and the end state against the JAX package's CPU loop's;
+   prints the medians of ``runtime_environment`` and ``runtime_planning``;
+   keeps the first replan's grids and start state;
+17. graph DP kernels: ``csrc/dir_dist_map.cu`` against its plain version
+   on tests/test_dp_poly_planner.py's scene (``scenes.dp_poly_env``),
+   seeded random occupancy (also at ray_steps 40) and the loop's first
+   grid, cell for cell (the scene also against the plain version on the
+   CPU); ``csrc/poly_planner.cu``'s edge evaluation at four start indices
+   (two capped at 400,000 edges) on both levels over the scene's and the
+   loop's field (t, ds, l exact, s and the cost to 4 float32 ulps; the
+   largest differences printed) and its propagation on the kernel's own
+   end points and on seeded graphs with equal least costs, NaN costs and
+   nodes without edges (every selection equal); times each kernel through
+   its bare launcher and its wrapper in turns on the loop's first replan,
+   the plain versions, ``bound_ms`` and ``chain_ms``;
+18. prints the card's name and power limit and one JSON line describing the
    kernels (launches on the main path and per tick or per DP replan, the
    largest difference to the plain version, the kernel's time through its
    bare launcher ``ms`` and through its wrapper ``wrapper_ms``, the plain
@@ -157,7 +179,9 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    planner rows carry their own loop's launches (per replan and per tick);
    the IDM rows their times
    at C=16,384 (``candidates``), at the loop's width (``loop_ms``),
-   ``rollouts_per_s`` and ``selection_flips``.
+   ``rollouts_per_s`` and ``selection_flips``.  The three graph DP rows
+   carry their loop's launches (per replan and per tick) and the loop's
+   ``runtime_environment`` / ``runtime_planning`` medians.
    Each phase prints its seconds.
 
 With ``--parent-csrc DIR`` (a directory holding another version of any of
@@ -314,9 +338,35 @@ ROLLOUT_ROWS = (
      "tpl_tpu/planning/poly_sampling/poly_kernel.py:76"))
 
 
+# the graph DP planner: SimStandalone on demo/country_follow with the demo
+# planning set's own block (env 10 x 201 x 21 x 21 directions, graph 10 x
+# 15 x 21, two levels); the JAX package's own loop on the CPU, 300 ticks,
+# that planner active with the scenario's other sets: (t, x, v) at the end
+DP_POLY = "dp_poly_planner"
+DP_POLY_TICKS = 300
+DP_POLY_GRID = ((10, 201, 21, 21), (2, 10, 15, 21))
+DP_POLY_JAX_END = (2.99, 43.882, 12.251)
+DP_POLY_END_ATOL = 0.05     # m, m/s: both loops choose the same edges
+# launches of one replan: the field, an evaluation and a propagation a level
+DP_POLY_PER_REPLAN = {"dir_dist_map": 1, "poly_eval_edges": 2,
+                      "poly_propagate": 2}
+# the edge evaluation, kernel against its plain version on the card: the
+# same float32 operations in the same order, neither contracted; allowed: 4
+# float32 ulps on s and the cost, t / ds / l exact
+DP_EVAL_RTOL = 4 * 2.0 ** -23
+DP_POLY_ROWS = (
+    ("dir_dist_map", "dir_dist_map.cu",
+     "tpl_tpu/planning/dyn_prog/dp_environment.py:206"),
+    ("poly_eval_edges", "poly_planner.cu",
+     "tpl_tpu/planning/dyn_prog/poly_planner_kernel.py:189"),
+    ("poly_propagate", "poly_planner.cu",
+     "tpl_tpu/planning/dyn_prog/poly_planner_kernel.py:275"))
+
+
 KERNELS = ("latlon_action_min", "ilqr_tracking_mpc", "ilqr_rstp",
            "rstp_rampify", "latency_probe", "lon_dp", "poly_lat",
-           "idm_rollout", "idm_evaluate", "poly_sampling")
+           "idm_rollout", "idm_evaluate", "poly_sampling", "dir_dist_map",
+           "poly_planner")
 NO_LIBRARY = None           # no single PyTorch call computes these kernels
 
 
@@ -2626,6 +2676,383 @@ def poly_kernel_phase(pok, psp, first, dev, cycles, mhz):
     return res
 
 
+def dp_poly_counts(dpe, ppk, reset=False):
+    """The graph DP planner's kernel launch counters (set to 0 with
+    ``reset``)."""
+    if reset:
+        dpe.dir_dist_launches = 0
+        ppk.eval_launches = ppk.propagate_launches = 0
+    return {"dir_dist_map": dpe.dir_dist_launches,
+            "poly_eval_edges": ppk.eval_launches,
+            "poly_propagate": ppk.propagate_launches}
+
+
+def dp_poly_loop_phase(dpe, ppk, ticks):
+    """SimStandalone on demo/country_follow with ``dp_poly_planner`` active
+    (the demo planning set's block) and the scenario's other sets, the rule
+    checker on, the launch counters set to 0 just before the loop and read
+    just after.  Checks zero rule violations, no emergency plan, finite
+    controls, per replan one field launch and two evaluation and two
+    propagation launches (one a level), and the end state against the JAX
+    package's CPU loop's; prints the medians of ``runtime_environment`` and
+    ``runtime_planning``.  Returns the first replan's grids and start state
+    and the times."""
+    import torch
+    from tpl_tpu_torch.simulation import SimStandalone
+
+    sim = SimStandalone(app_id="smoke_dp_poly",
+                        scenario_path="demo/country_follow")
+    store = sim.planning_app.sh_planners
+    with store.lock():
+        store.active_planner = DP_POLY
+        prm = store.dp_poly_planner.params
+        e, g = prm.dp_env, prm.dp_planner
+        grid = ((e.t_steps, e.s_steps, e.l_steps, e.dir_steps),
+                (g.eval_steps, g.t_steps, g.ds_steps, g.l_steps))
+    if grid != DP_POLY_GRID:
+        raise AssertionError(f"{DP_POLY} grid {grid} != {DP_POLY_GRID}")
+    planner = sim.planning_app.planners[DP_POLY]
+    controllers = sim.control_app.sh_controllers
+    with sim.core.sh_state.lock():
+        ss = sim.core.sh_state.sim
+        ss.settings.running = True
+        ss.settings.use_real_time = False
+        ss.rule_checker.enable = True
+    replans = []
+    update = planner.dp_planner.update
+
+    def counted_update(init_state, env):
+        if not replans:
+            replans.append(dict(
+                init=np.array(init_state), occ=env.grid.occ_map.clone(),
+                dd=env.grid.dir_dist_map.clone(),
+                ref_line=env.grid.ref_line.clone(), ref_step=env.ref_step,
+                env_params=env.params, params=planner.dp_planner.params))
+        else:
+            replans.append(None)
+        return update(init_state, env)
+
+    planner.dp_planner.update = counted_update
+    tick_ms, env_ms, plan_ms = [], [], []
+    dp_poly_counts(dpe, ppk, reset=True)
+    for k in range(ticks):
+        n = len(replans)
+        t0 = time.perf_counter()
+        sim.update()
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(replans) != n:
+            env_ms.append(planner.runtime_environment)
+            plan_ms.append(planner.runtime_planning)
+        with store.lock():
+            emergency = store.trajectory.emergency
+        with controllers.lock():
+            controls = np.array(controllers.controls)
+        if emergency:
+            raise AssertionError(f"{DP_POLY} tick {k}: emergency trajectory")
+        if not np.all(np.isfinite(controls)):
+            raise AssertionError(f"{DP_POLY} tick {k}: non-finite controls")
+    counts = dp_poly_counts(dpe, ppk)
+    n = len(replans)
+    for row, per in DP_POLY_PER_REPLAN.items():
+        if n == 0 or counts[row] != per * n:
+            raise AssertionError(f"{DP_POLY}: {counts[row]} {row} launches "
+                                 f"for {n} replans")
+    with sim.core.sh_state.lock():
+        s = sim.core.sh_state.sim
+        violations = list(s.rule_checker.violations)
+        t_end, x_end, v_end = s.t, s.ego.x, s.ego.v
+    if violations:
+        raise AssertionError(f"{DP_POLY}: rule violations {violations[:3]}")
+    jt, jx, jv = DP_POLY_JAX_END
+    print(f"{DP_POLY}: {ticks} ticks to t={t_end:.2f} s, ego x {x_end:.4f} "
+          f"v {v_end:.4f} m/s (the JAX package's CPU loop: t={jt:.2f} s, x "
+          f"{jx:.3f} v {jv:.3f}), 0 violations, no emergency, {n} replans; "
+          "launches per replan: " + ", ".join(
+              f"{r} {counts[r] / n:g}" for r in DP_POLY_PER_REPLAN))
+    if not (abs(t_end - jt) < 1e-9 and abs(x_end - jx) <= DP_POLY_END_ATOL
+            and abs(v_end - jv) <= DP_POLY_END_ATOL):
+        raise AssertionError(f"{DP_POLY}: the loop ends at x {x_end}, v "
+                             f"{v_end}, not at the JAX loop's x {jx}, v {jv}")
+    print(f"{DP_POLY}: per-replan wall ms: runtime_environment median "
+          f"{np.median(env_ms):.3f} (max {np.max(env_ms):.3f}), "
+          f"runtime_planning median {np.median(plan_ms):.3f} (max "
+          f"{np.max(plan_ms):.3f}, first {plan_ms[0]:.3f}: it builds and "
+          f"uploads the first graph); per-tick total wall ms: median "
+          f"{np.median(tick_ms):.3f}, max {np.max(tick_ms):.3f}")
+    return dict(counts=counts, replans=n, first=replans[0], env_ms=env_ms,
+                plan_ms=plan_ms, end=(t_end, x_end, v_end))
+
+
+def dp_field_check(dpe, what, occ, ray, scal, step, R):
+    """The field kernel against its plain version on the card: any differing
+    cell raises.  Returns (the kernel's field, the plain version's ms)."""
+    got = dpe.dir_dist_map(occ, ray, *scal, step, R)
+    want, plain_ms = plain_timed(
+        lambda: dpe.dir_dist_reference(occ, ray, *scal, step, R))
+    bad = int((got != want).sum())
+    free = float((want == dpe.FREE_DIST).float().mean())
+    print(f"dir_dist_map check, {what} ({tuple(got.shape)}, ray_steps {R}): "
+          f"{bad} cells differ; {dpe.dir_dist_samples(want, step, R):,} "
+          f"samples marched, {free:.3f} of the rays meet nothing")
+    if bad:
+        raise AssertionError(f"dir_dist_map {what}: {bad} cells differ")
+    return got, plain_ms
+
+
+def dp_prop_check(ppk, what, bufs, plain_bufs):
+    """The propagation kernel against its plain version on the card on
+    equal inputs: every selection, propagated cost and the trajectory equal
+    (NaN equal to NaN), else raises."""
+    import torch
+
+    pts, node_cost, best, seg, node_off, seg_off, traj = bufs
+    ppk.propagate_and_backtrack(*bufs)
+    ppk.propagate_reference(*plain_bufs)
+    inner = node_off[-2]
+    b_bad = int((best[:inner] != plain_bufs[2][:inner]).sum())
+    c_ok = torch.equal(torch.nan_to_num(node_cost[:inner], posinf=1e308),
+                       torch.nan_to_num(plain_bufs[1][:inner], posinf=1e308))
+    t_ok = torch.equal(torch.nan_to_num(traj), torch.nan_to_num(
+        plain_bufs[6]))
+    n_inf = int(torch.isinf(node_cost[1:inner]).sum())
+    n_nan = int(torch.isnan(node_cost[:inner]).sum())
+    print(f"poly_propagate check, {what} ({node_off[-1]:,} nodes, "
+          f"{node_off[-1] - 1:,} edges): {b_bad} selections differ, costs "
+          f"{'equal' if c_ok else 'DIFFER'}, trajectory "
+          f"{'equal' if t_ok else 'DIFFERS'}; {n_inf} nodes without an "
+          f"edge, {n_nan} NaN costs")
+    if b_bad or not c_ok or not t_ok:
+        raise AssertionError(f"poly_propagate {what}: kernel and plain "
+                             "version differ")
+
+
+def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz):
+    """The graph DP planner's three kernels against their plain versions on
+    the card at the demo widths: the field on tests/test_dp_poly_planner.py's
+    scene (``scenes.dp_poly_env``), seeded random occupancy (also at
+    ray_steps 40) and the loop's first-replan grid, cell for cell; the edge
+    evaluation at four start indices (two of them capped at 400,000 edges)
+    on both levels, from the loop's first start state over the scene's
+    field and over the loop's first field (t, ds, l exact, s and the cost to
+    DP_EVAL_RTOL); the propagation on the kernel's own end points of each
+    and on seeded graphs with equal least costs, NaN costs and nodes without
+    edges, every selection equal.  Times each kernel through its bare
+    launcher and its wrapper in turns, the plain versions, ``bound_ms`` and
+    ``chain_ms``."""
+    import torch
+    from tpl_tpu_torch import scenes
+
+    f32 = np.float32
+    env = scenes.dp_poly_env(True)
+    p = env.params
+    ray, step = dpe.ray_table(p.dir_min, p.dir_max, p.dir_steps,
+                              p.s_step_size, p.l_step_size)
+    ray = ray.to(dev)
+    scal = [float(f32(x)) for x in (p.s_min, p.s_step_size, p.l_min,
+                                    p.l_step_size)]
+    R = env.ray_steps_default()
+    fields = {}
+    for what, occ, r in (
+            ("the test scene", env.grid.occ_map, R),
+            ("seeded random occupancy", torch.from_numpy(
+                scenes.dp_random_occ(5)).to(dev), R),
+            ("seeded random occupancy", torch.from_numpy(
+                scenes.dp_random_occ(6, density=0.3)).to(dev), 40),
+            ("the loop's first replan", first["occ"], R)):
+        dd, field_plain_ms = dp_field_check(dpe, what, occ, ray, scal, step,
+                                            r)
+        fields.setdefault(what, dd)
+    # the loop's own field is the kernel's: the same as computed here
+    if not torch.equal(fields["the loop's first replan"], first["dd"]):
+        raise AssertionError("dir_dist_map: the loop's field differs")
+    field = fields["the test scene"]
+    cpu = dpe.dir_dist_reference(env.grid.occ_map.cpu(), ray.cpu(), *scal,
+                                 step, R)
+    if not torch.equal(field.cpu(), cpu):
+        raise AssertionError("dir_dist_map: the card's field differs from "
+                             "the plain version's on the CPU")
+
+    kp = first["params"]
+    n_int = kp.n_int_steps()
+    err = dict(s=0.0, cost=0.0)
+    cases = []
+    for key in scenes.dp_poly_keys():
+        for what, dd, rl, ref_step, ep in (
+                ("the test scene", field, env.grid.ref_line, env.ref_step,
+                 p),
+                ("the loop's first replan", first["dd"], first["ref_line"],
+                 first["ref_step"], first["env_params"])):
+            node_steps, edge_steps = ppk.build_eval_graph(kp, *key)
+            ev = ppk.eval_params(kp, ep, f32(ref_step))
+            init = np.array(first["init"], np.float32)
+            init[ppk.PP_DS] = kp.ds_min + key[0] * kp.ds_step_size + 0.3
+            init[ppk.PP_L] = kp.l_min + key[1] * kp.l_step_size - 0.1
+            level = [torch.from_numpy(init[None]).to(dev)]
+            plain_level = [level[0]]
+            for k in range(len(edge_steps)):
+                starts = torch.from_numpy(edge_steps[k]).to(dev)
+                specs = torch.from_numpy(node_steps[k + 1].astype(
+                    np.float32)).to(dev)
+                last = k == len(edge_steps) - 1
+                got = ppk.eval_edges(level[k], starts, specs, last, ev, dd,
+                                     rl, n_int)
+                want = ppk.eval_edges_reference(level[k], starts, specs,
+                                                last, ev, dd, rl, n_int)
+                exact = [ppk.PP_T, ppk.PP_DS, ppk.PP_DDS, ppk.PP_L,
+                         ppk.PP_DL, ppk.PP_DDL]
+                line = []
+                for c, name in ((ppk.PP_S, "s"), (ppk.PP_COST, "cost")):
+                    d = torch.abs(got[:, c] - want[:, c])
+                    rel = float(torch.max(d / torch.clamp(
+                        torch.abs(want[:, c]), min=1e-30)))
+                    err[name] = max(err[name], float(d.max()))
+                    line.append(f"{name} max abs {float(d.max()):.3e} rel "
+                                f"{rel:.3e}")
+                    if rel > DP_EVAL_RTOL:
+                        raise AssertionError(f"poly_eval_edges {key} level "
+                                             f"{k + 1}: {name} rel {rel}")
+                if not torch.equal(got[:, exact], want[:, exact]):
+                    raise AssertionError(f"poly_eval_edges {key} level "
+                                         f"{k + 1}: t, ds or l differ")
+                print(f"poly_eval_edges check, {what}, start index {key}, "
+                      f"level {k + 1} ({len(edge_steps[k]):,} edges): "
+                      + ", ".join(line) + "; t, ds, l exact")
+                level.append(got)
+                plain_level.append(want)
+            node_off, seg, seg_off = ppk.graph_layout(
+                [len(x) for x in level], edge_steps)
+            seg = torch.from_numpy(seg).to(dev)
+
+            def bufs(lv):
+                N, K = node_off[-1], len(edge_steps)
+                return (torch.cat(lv).contiguous(),
+                        torch.zeros(N, dtype=torch.float64, device=dev),
+                        torch.zeros(N, dtype=torch.int32, device=dev), seg,
+                        node_off, seg_off,
+                        torch.zeros((K + 1, 8), dtype=torch.float64,
+                                    device=dev))
+            b = bufs(level)
+            dp_prop_check(ppk, f"{what}, start index {key}", b, bufs(level))
+            cases.append(dict(key=key, what=what, level=level, bufs=b,
+                              edge_steps=edge_steps, ev=ev, dd=dd, rl=rl))
+    for seed, ties, nan in ((0, True, True), (1, True, False),
+                            (2, False, True)):
+        node_pts, edge_steps = scenes.dp_poly_propagation_case(
+            seed, n1=2000, e2=400_000, ties=ties, nan=nan)
+        dp_prop_check(ppk, f"seeded (ties {ties}, NaN {nan})",
+                      scenes.dp_poly_buffers(node_pts, edge_steps, dev),
+                      scenes.dp_poly_buffers(node_pts, edge_steps, dev))
+
+    # times: the field on the loop's first grid, the evaluation of both
+    # levels and the propagation at the loop's capped start index (7, 10)
+    lib_d, lib_p = dpe._kernel(), ppk._kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    occ = first["occ"]
+    T, S, L = occ.shape
+    D = ray.shape[0]
+    out = torch.empty((T, S, L, D), dtype=torch.float32, device=dev)
+
+    def field_bare():
+        return lib_d.dir_dist_map(occ.data_ptr(), ray.data_ptr(), *scal,
+                                  step, out.data_ptr(), T, S, L, D, R,
+                                  stream)
+
+    field_ms, field_wrapper_ms = launcher_times(
+        "dir_dist_map", f"the loop's first grid ({T} x {S} x {L} x {D}, "
+        f"ray_steps {R})", field_bare,
+        lambda: dpe.dir_dist_map(occ, ray, *scal, step, R), 50)
+    _, field_plain_ms = plain_timed(
+        lambda: dpe.dir_dist_reference(occ, ray, *scal, step, R))
+    field_bound = dpe.dir_dist_bound_ms(first["dd"], step, R)
+    field_chain = dpe.dir_dist_chain_ms(first["dd"], step, R, cycles, mhz)
+
+    c = next(x for x in cases if x["key"] == (7, 10)
+             and x["what"] == "the loop's first replan")
+    pts, node_cost, best, seg, node_off, seg_off, traj = c["bufs"]
+    dd, rl, ev = c["dd"], c["rl"], c["ev"]
+    m4, h5 = ppk.inverses_f32()
+    consts = np.concatenate([ev, m4.ravel(), h5.ravel()]).astype(np.float32)
+    K = len(c["edge_steps"])
+    starts = [torch.from_numpy(e).to(dev) for e in c["edge_steps"]]
+    specs = [c["level"][k + 1][:, [ppk.PP_T, ppk.PP_DS, ppk.PP_L]]
+             .contiguous() for k in range(K)]
+    outs = [torch.empty_like(c["level"][k + 1]) for k in range(K)]
+
+    def eval_bare():
+        for k in range(K):
+            e = lib_p.poly_eval_edges(
+                c["level"][k].data_ptr(), starts[k].data_ptr(),
+                specs[k].data_ptr(), dd.data_ptr(), rl.data_ptr(),
+                outs[k].data_ptr(), consts.ctypes.data, len(starts[k]),
+                int(k == K - 1), n_int, T, S, L, D, rl.shape[0], stream)
+            if e:
+                return e
+        return 0
+
+    def eval_wrapper():
+        for k in range(K):
+            ppk.eval_edges(c["level"][k], starts[k], specs[k], k == K - 1,
+                           ev, dd, rl, n_int, out=outs[k])
+
+    E = [len(e) for e in c["edge_steps"]]
+    eval_ms, eval_wrapper_ms = launcher_times(
+        "poly_eval_edges", f"start index (7, 10), both levels ({E[0]:,} + "
+        f"{E[1]:,} edges, two launches)", eval_bare, eval_wrapper, 50)
+    _, eval_plain_ms = plain_timed(lambda: [ppk.eval_edges_reference(
+        c["level"][k], starts[k], specs[k], k == K - 1, ev, dd, rl, n_int)
+        for k in range(K)])
+    eval_bound = ppk.eval_bound_ms([len(c["level"][k]) for k in range(K)],
+                                   E, dd.shape, rl.shape[0], n_int)
+    eval_chain = K * ppk.eval_chain_ms(n_int, cycles, mhz)
+
+    offs = np.zeros(2 * ppk.MAX_LEVELS + 3, np.int32)
+    offs[:K + 2] = node_off
+    offs[ppk.MAX_LEVELS + 2:ppk.MAX_LEVELS + 3 + K] = seg_off
+
+    def prop_bare():
+        for k in range(K - 1, -1, -1):
+            e = lib_p.poly_propagate(pts.data_ptr(), node_cost.data_ptr(),
+                                     best.data_ptr(), seg.data_ptr(),
+                                     traj.data_ptr(), offs.ctypes.data, K, k,
+                                     stream)
+            if e:
+                return e
+        return 0
+
+    prop_ms, prop_wrapper_ms = launcher_times(
+        "poly_propagate", f"start index (7, 10) ({node_off[-1]:,} nodes, "
+        f"{K} launches)", prop_bare,
+        lambda: ppk.propagate_and_backtrack(pts, node_cost, best, seg,
+                                            node_off, seg_off, traj), 50)
+    plain_bufs = (pts, node_cost.clone(), best.clone(), seg, node_off,
+                  seg_off, traj.clone())
+    _, prop_plain_ms = plain_timed(
+        lambda: ppk.propagate_reference(*plain_bufs))
+    prop_bound = ppk.propagate_bound_ms(node_off, seg_off)
+    prop_chain = ppk.propagate_chain_ms(node_off, seg.cpu().numpy(),
+                                        seg_off, cycles, mhz)
+    res = {
+        "dir_dist_map": dict(err=0.0, ms=field_ms,
+                             wrapper_ms=field_wrapper_ms,
+                             plain_ms=field_plain_ms, bound=field_bound,
+                             chain=field_chain),
+        "poly_eval_edges": dict(err=max(err.values()), ms=eval_ms,
+                                wrapper_ms=eval_wrapper_ms,
+                                plain_ms=eval_plain_ms, bound=eval_bound,
+                                chain=eval_chain),
+        "poly_propagate": dict(err=0.0, ms=prop_ms,
+                               wrapper_ms=prop_wrapper_ms,
+                               plain_ms=prop_plain_ms, bound=prop_bound,
+                               chain=prop_chain)}
+    for name, r in res.items():
+        print(f"{name}: kernel {r['ms']:.4f} ms (bare launcher; wrapper "
+              f"{r['wrapper_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+              f"bound_ms {r['bound'][0]:.6f} ({r['bound'][1]}), chain_ms "
+              f"{r['chain']:.6f}; max|kernel-plain| {r['err']:.3e}")
+    return res
+
+
 def probe_phase(lat, itm, dev):
     """The card's operation latencies (csrc/latency_probe.cu) and the SM
     clock under load; prints them with the card's name and power limit."""
@@ -2698,6 +3125,8 @@ def main(argv=()):
     from tpl_tpu_torch.planning.poly_sampling import poly_kernel as pok
     from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner \
         as psp
+    from tpl_tpu_torch.planning.dyn_prog import dp_environment as dpe
+    from tpl_tpu_torch.planning.dyn_prog import poly_planner_kernel as ppk
 
     card = smi("name,power.limit")
     print(card)
@@ -2709,7 +3138,7 @@ def main(argv=()):
 
     t0 = time.perf_counter()
     _build.build(KERNELS)
-    for mod in (lam, itm, rstp, rmp, lat, tlk, plk, idk, pok):
+    for mod in (lam, itm, rstp, rmp, lat, tlk, plk, idk, pok, dpe, ppk):
         mod._kernel()
     native.get_lib()
     print(f"built {', '.join(KERNELS)} and native/hostops.cpp in "
@@ -2779,6 +3208,10 @@ def main(argv=()):
                cycles, mhz)
     pk = phase("poly sampling kernel", poly_kernel_phase, pok, psp,
                poly["first"], dev, cycles, mhz)
+    gdp = phase("graph DP closed loop", dp_poly_loop_phase, dpe, ppk,
+                DP_POLY_TICKS)
+    gk = phase("graph DP kernels", dp_poly_kernel_phase, dpe, ppk,
+               gdp["first"], dev, cycles, mhz)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -2934,6 +3367,23 @@ def main(argv=()):
                        rollouts_per_s=r["rollouts_per_s"],
                        selection_flips=r["selection_flips"])
         rows.append(row)
+    # the graph DP planner's kernels: launches on its loop, the checks on
+    # the seeded scenes and the loop's first replan, times on the loop's
+    # first replan (the evaluation and propagation at start index (7, 10))
+    for name, source, replaces in DP_POLY_ROWS:
+        r = gk[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"tpl_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": gdp["counts"][name],
+            "per_replan": gdp["counts"][name] / gdp["replans"],
+            "launches_per_tick": gdp["counts"][name] / DP_POLY_TICKS,
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "chain_ms": r["chain"], "library_ms": NO_LIBRARY,
+            "runtime_environment_median_ms": float(np.median(gdp["env_ms"])),
+            "runtime_planning_median_ms": float(np.median(gdp["plan_ms"]))})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -254,3 +254,59 @@ def test_kernel_sources_share_the_common_header():
         seen = set()
         _build._sources(os.path.join(_build.CSRC, name + ".cu"), seen)
         assert os.path.join(_build.CSRC, "ilqr_common.cuh") in seen
+
+
+def test_dir_dist_bounds_count_the_samples_marched():
+    """The field's bound counts the samples this field needed: a ray that
+    blocks at sample i marched i + 1, a free one all ``ray_steps``."""
+    from tpl_tpu_torch.planning.dyn_prog import dp_environment as dpe
+
+    field = torch.tensor([0.0, 1.5, dpe.FREE_DIST, 0.5],
+                         dtype=torch.float32).reshape(1, 1, 1, 4)
+    assert dpe.dir_dist_samples(field, 0.5, 72) == 1 + 4 + 72 + 2
+    # 4 bytes of occupancy, 4 x 8 of rays, 4 x 4 of field written
+    assert dpe.dir_dist_bytes(1, 1, 1, 4) == 4 + 32 + 16
+    ms, by = dpe.dir_dist_bound_ms(field, 0.5, 72)
+    ops = 79 * dpe.OPS_SAMPLE + 4
+    assert by == "operations" and ms == pytest.approx(ops / 67e9)
+    # the demo grid with every ray free: operations lead
+    T, S, L, D = 10, 201, 21, 21
+    free = torch.full((T, S, L, D), dpe.FREE_DIST)
+    ms, by = dpe.dir_dist_bound_ms(free, 0.5, 72)
+    ops = T * S * L * D * (72 * dpe.OPS_SAMPLE + 1)
+    assert by == "operations" and ms == pytest.approx(ops / 67e9)
+    cycles = {"f32_mul": 4.0, "f32_add": 4.0, "f32_div": 40.0,
+              "smem_load": 30.0}
+    assert dpe.dir_dist_chain_ms(free, 0.5, 72, cycles, 2000) == \
+        pytest.approx(72 * (4 + 8 + 40 + 30) / 2e6)
+
+
+def test_graph_dp_bounds_at_the_demo_widths():
+    from tpl_tpu_torch.planning.dyn_prog import poly_planner_kernel as ppk
+
+    # 400,000 edges of 37 steps from 1,939 start points over the demo field
+    ops = ppk.eval_operations(400_000, 37)
+    assert ops == 400_000 * (37 * ppk.OPS_STEP + ppk.OPS_EDGE)
+    n_bytes = ppk.eval_bytes(1939, 400_000, (10, 201, 21, 21), 401)
+    assert n_bytes == (32 * 1939 + 16 * 400_000 + 4 * 886_410 + 32 * 401
+                       + 32 * 400_000)
+    ms, by = ppk.eval_bound_ms([1939], [400_000], (10, 201, 21, 21), 401,
+                               37)
+    assert by == "operations" and ms == pytest.approx(ops / 67e9)
+    # a replan's two launches: the root's 1,939 edges, then the 400,000
+    ms2, _ = ppk.eval_bound_ms([1, 1939], [1939, 400_000],
+                               (10, 201, 21, 21), 401, 37)
+    assert ms2 == pytest.approx((ops + ppk.eval_operations(1939, 37))
+                                / 67e9)
+    # the propagation of a root, 3 level-1 nodes and 5 leaves: the leaves'
+    # float32 costs, level 1's float64 ones, 2 + 4 offsets, 4 nodes' costs
+    # and edges written (12 bytes each, and the offsets' 4), the trajectory
+    node_off, seg_off = [0, 1, 4, 9], [0, 2, 6]
+    assert ppk.propagate_bytes(node_off, seg_off) == (
+        4 * 5 + 8 * 3 + 4 * 6 + 4 * 4 + 12 * 4 + 8 * 8 * 3)
+    cycles = {"f64_add": 8.0, "smem_load": 30.0}
+    seg = [0, 3, 0, 2, 2, 5]
+    # level 1: the longest range 3 edges, one round; level 0: 3, one round
+    assert ppk.propagate_chain_ms(node_off, __import__("numpy").array(seg),
+                                  seg_off, cycles, 2000) == pytest.approx(
+        (2 * (8 + 30) + 2 * (5 * 8 + 5 * 30) + 2 * 2 * 30) / 2e6)

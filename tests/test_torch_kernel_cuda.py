@@ -26,7 +26,10 @@ IDM rollout and evaluation against their plain versions at rtol = atol =
 1e-5 (the JAX package's own lanes-vs-vmap tolerance: the card's sin / cos /
 atan / tanh / pow and torch's may part by an ulp, and a closed loop carries
 it), ``invalid`` equal; the poly-sampling grid's winner equal, its float64
-rows to 1e-9 (the coefficient solves sum in another order).
+rows to 1e-9 (the coefficient solves sum in another order); the graph DP
+planner's directional field cell for cell, its edge evaluation bit for bit
+(the same float32 operations in the same order, neither contracted) and
+its propagation's selections, costs and trajectory exactly.
 """
 
 import numpy as np
@@ -46,10 +49,14 @@ from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
 from tpl_tpu_torch.planning.idm_sampling import idm_sampling_planner as isp
 from tpl_tpu_torch.planning.poly_sampling import poly_kernel as pok
 from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner as psp
-from tpl_tpu_torch.scenes import (LON_DEMO, idm_args, idm_bench_scene,
-                                  idm_scene, idm_through_states, lon_nodes,
-                                  lon_scene, poly_lat_scene, poly_scene,
-                                  rampify_args)
+from tpl_tpu_torch.planning.dyn_prog import dp_environment as dpe
+from tpl_tpu_torch.planning.dyn_prog import poly_planner_kernel as ppk
+from tpl_tpu_torch.scenes import (LON_DEMO, dp_poly_buffers, dp_poly_env,
+                                  dp_poly_propagation_case, dp_random_occ,
+                                  idm_args, idm_bench_scene, idm_scene,
+                                  idm_through_states, lon_nodes, lon_scene,
+                                  poly_lat_scene, poly_scene, rampify_args)
+import tpl_tpu_torch
 
 COST_RTOL, COST_ATOL = 1e-6, 1e-3
 CONSTR_ATOL = 1e-4
@@ -1000,3 +1007,168 @@ def test_idm_replan_is_one_upload_two_launches_one_download(cuda):
     refs_c, cons_c, costs_c = isp.run_kernels(*inputs, torch.device("cpu"))
     np.testing.assert_allclose(cons, cons_c, rtol=IDM_RTOL, atol=IDM_ATOL)
     np.testing.assert_allclose(costs, costs_c, rtol=IDM_RTOL, atol=IDM_ATOL)
+
+
+# ---------------------------------------------------------------------
+# the graph DP planner's kernels
+
+def _field_args(dev):
+    p = dpe.DpEnvParams()
+    ray, step = dpe.ray_table(p.dir_min, p.dir_max, p.dir_steps,
+                              p.s_step_size, p.l_step_size)
+    scal = [float(np.float32(x)) for x in (p.s_min, p.s_step_size, p.l_min,
+                                           p.l_step_size)]
+    return ray.to(dev), scal, step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,R", [("scene", 72), ("random", 72),
+                                    ("random", 40)])
+def test_dir_dist_kernel_matches_plain(cuda, case, R):
+    tpl_tpu_torch.use_device("cuda")
+    occ = (dp_poly_env(True).grid.occ_map if case == "scene" else
+           torch.from_numpy(dp_random_occ(7)).to(cuda))
+    ray, scal, step = _field_args(cuda)
+    before = dpe.dir_dist_launches
+    got = dpe.dir_dist_map(occ, ray, *scal, step, R)
+    want = dpe.dir_dist_reference(occ, ray, *scal, step, R)
+    cpu = dpe.dir_dist_reference(occ.cpu(), ray.cpu(), *scal, step, R)
+    torch.cuda.synchronize()
+    assert dpe.dir_dist_launches == before + 1
+    assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+
+
+def _graph_levels(dev, key, small):
+    env = dp_poly_env(True)
+    dd = env.update_dir_dist_map()
+    p = ppk.DpPolyParams()
+    if small:
+        p.ds_steps, p.l_steps = 8, 9
+    node_steps, edge_steps = ppk.build_eval_graph(p, *key)
+    ev = ppk.eval_params(p, env.params, np.float32(env.ref_step))
+    init = torch.zeros((1, 8), dtype=torch.float32, device=dev)
+    init[0, ppk.PP_DS] = p.ds_min + key[0] * p.ds_step_size + 0.3
+    init[0, ppk.PP_DDS] = -0.4
+    init[0, ppk.PP_L] = p.l_min + key[1] * p.l_step_size - 0.1
+    return env, dd, p, node_steps, edge_steps, ev, init
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key,small", [((2, 4), True), ((7, 10), False)])
+def test_poly_planner_kernels_match_plain(cuda, key, small):
+    """Both levels' evaluation bit for bit (against the plain version on
+    the card and on the CPU), then the propagation on those end points:
+    every selection, cost and the trajectory equal."""
+    tpl_tpu_torch.use_device("cuda")
+    env, dd, p, node_steps, edge_steps, ev, init = _graph_levels(cuda, key,
+                                                                 small)
+    level = [init]
+    K = len(edge_steps)
+    for k in range(K):
+        starts = torch.from_numpy(edge_steps[k]).to(cuda)
+        specs = torch.from_numpy(node_steps[k + 1].astype(np.float32)).to(
+            cuda)
+        got = ppk.eval_edges(level[k], starts, specs, k == K - 1, ev, dd,
+                             env.grid.ref_line, p.n_int_steps())
+        want = ppk.eval_edges_reference(level[k], starts, specs, k == K - 1,
+                                        ev, dd, env.grid.ref_line,
+                                        p.n_int_steps())
+        cpu = ppk.eval_edges_reference(level[k].cpu(), starts.cpu(),
+                                       specs.cpu(), k == K - 1, ev, dd.cpu(),
+                                       env.grid.ref_line.cpu(),
+                                       p.n_int_steps())
+        assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+        level.append(got)
+    node_pts = [x.double().cpu().numpy() for x in level]
+    a = dp_poly_buffers(node_pts, edge_steps, cuda)
+    b = dp_poly_buffers(node_pts, edge_steps, "cpu")
+    ppk.propagate_and_backtrack(*a)
+    ppk.propagate_reference(*b)
+    inner = a[4][-2]
+    assert torch.equal(a[2][:inner].cpu(), b[2][:inner])
+    assert torch.equal(a[1][:inner].cpu(), b[1][:inner])
+    assert torch.equal(a[6].cpu(), b[6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,ties,nan", [(0, True, True), (1, True, False),
+                                           (2, False, True)])
+def test_poly_propagate_kernel_matches_plain(cuda, seed, ties, nan):
+    node_pts, edge_steps = dp_poly_propagation_case(seed, n1=300, e2=20_000,
+                                                    ties=ties, nan=nan)
+    a = dp_poly_buffers(node_pts, edge_steps, cuda)
+    b = dp_poly_buffers(node_pts, edge_steps, "cpu")
+    before = ppk.propagate_launches
+    ppk.propagate_and_backtrack(*a)
+    ppk.propagate_reference(*b)
+    torch.cuda.synchronize()
+    assert ppk.propagate_launches == before + 2
+    inner = a[4][-2]
+    assert torch.equal(a[2][:inner].cpu(), b[2][:inner])
+    nan_eq = torch.nan_to_num
+    assert torch.equal(nan_eq(a[1][:inner].cpu(), posinf=1e308),
+                       nan_eq(b[1][:inner], posinf=1e308))
+    assert torch.equal(nan_eq(a[6].cpu()), nan_eq(b[6]))
+
+
+@pytest.mark.cuda
+def test_graph_dp_replan_on_card_matches_cpu(cuda, monkeypatch):
+    """``DpPolyPlannerKernel.update`` on the card: 2 evaluation and 2
+    propagation launches, no plain version, and the CPU path's trajectory;
+    the field through one launch."""
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    init = np.zeros(8)
+    init[ppk.PP_DS], init[ppk.PP_L] = 8.0, 0.4
+    tpl_tpu_torch.use_device("cpu")
+    env_c = dp_poly_env(True)
+    env_c.update_dir_dist_map()
+    want = ppk.DpPolyPlannerKernel().update(init, env_c)
+    tpl_tpu_torch.use_device("cuda")
+    env = dp_poly_env(True)
+    for mod, name in ((dpe, "dir_dist_reference"),
+                      (ppk, "eval_edges_reference"),
+                      (ppk, "propagate_reference")):
+        monkeypatch.setattr(mod, name, plain)
+    before = (dpe.dir_dist_launches, ppk.eval_launches,
+              ppk.propagate_launches)
+    env.update_dir_dist_map()
+    got = ppk.DpPolyPlannerKernel().update(init, env)
+    assert (dpe.dir_dist_launches, ppk.eval_launches,
+            ppk.propagate_launches) == (before[0] + 1, before[1] + 2,
+                                        before[2] + 2)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_graph_dp_replan_moves_one_state_up_and_one_trajectory_down(cuda):
+    """A replan on a cached graph, traced by torch.profiler in a process
+    that has run no sim loop: one host-to-device copy (the start state),
+    the 2 evaluation and 2 propagation kernels, one device-to-host copy
+    (the trajectory); no level's end points leave the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tpl_tpu_torch.use_device("cuda")
+    env = dp_poly_env(True)
+    env.update_dir_dist_map()
+    k = ppk.DpPolyPlannerKernel()
+    init = np.zeros(8)
+    init[ppk.PP_DS], init[ppk.PP_L] = 8.0, 0.4
+    want = k.update(init, env)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = k.update(init, env)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    up = [n for n in names if "HtoD" in n]
+    down = [n for n in names if "DtoH" in n]
+    kernels = [n for n in names if "Memcpy" not in n and "Memset" not in n]
+    assert len(up) == 1 and len(down) == 1, names
+    assert sorted(n.split("(")[0].split("::")[-1] for n in kernels) == [
+        "eval_edges_kernel", "eval_edges_kernel", "propagate_kernel",
+        "propagate_kernel"], names
+    np.testing.assert_array_equal(got, want)

@@ -6,7 +6,7 @@ fixture writes a stand-in ``cuda_runtime.h`` (``__syncthreads`` as a
 ``std::barrier`` over 256 ``std::thread``s, ``__syncwarp`` and
 ``__shfl_sync`` as a per-warp barrier and exchange, ``clock64`` as a
 counter, ``float2`` / ``float4``, a ``blockIdx`` per thread), compiles the
-four kernel sources of ``csrc/`` with ``g++ -std=c++20 -ffp-contract=off``
+kernel sources of ``csrc/`` with ``g++ -std=c++20 -ffp-contract=off``
 (their launchers sit under ``#ifdef __CUDACC__``; the asynchronous copy and
 the NaN-passing max / min instructions have plain stand-ins under ``#ifndef
 __CUDA_ARCH__``) and runs the bodies on host threads, the blocks of a grid
@@ -42,7 +42,13 @@ RSTP_X_ATOL);
   backward slice of a seeded scene,
 
 each **bit for bit** in float32: these kernels keep the plain versions'
-operations and their order.
+operations and their order; and the graph DP planner's directional field
+(cell for cell, on a stretch of the JAX test scene and seeded occupancy),
+its edge evaluation (bit for bit on both levels of three small graphs) and
+its propagation (every selection, propagated cost and the trajectory, also
+on seeded graphs with ties, NaN costs and edgeless nodes).  Grids and
+graphs are kept small: every block costs barriers of 256 host threads,
+which crawl when the machine is busy.
 
     python -m pytest tests/test_torch_kernel_rehearsal.py -q
 """
@@ -55,6 +61,7 @@ import numpy as np
 import pytest
 import torch
 
+import tpl_tpu_torch
 from tpl_tpu_torch import _build
 from tpl_tpu_torch.optim import batched, ilqr, ilqr_rstp
 from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
@@ -64,12 +71,16 @@ from tpl_tpu_torch.ops import splines
 from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
 from tpl_tpu_torch.planning.dyn_prog import lon_kernel as tlk
 from tpl_tpu_torch.planning.dyn_prog import poly_lat_kernel as plk
+from tpl_tpu_torch.planning.dyn_prog import dp_environment as dpe
+from tpl_tpu_torch.planning.dyn_prog import poly_planner_kernel as ppk
 from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify
 from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
 from tpl_tpu_torch.planning.poly_sampling import poly_kernel as pok
 from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner as psp
 
-from tpl_tpu_torch.scenes import (idm_args, idm_scene, idm_through_states,
+from tpl_tpu_torch.scenes import (dp_poly_buffers, dp_poly_env,
+                                  dp_poly_propagation_case, dp_random_occ,
+                                  idm_args, idm_scene, idm_through_states,
                                   lon_nodes, lon_scene, poly_lat_scene,
                                   poly_scene)
 
@@ -151,6 +162,8 @@ HARNESS = r"""
 #include "idm_rollout.cu"
 #include "idm_evaluate.cu"
 #include "poly_sampling.cu"
+#include "dir_dist_map.cu"
+#include "poly_planner.cu"
 
 // the kernels' dynamic shared memory (an extern array declared inside a
 // function belongs to the function's namespace)
@@ -164,6 +177,7 @@ namespace poly_lat { alignas(16) unsigned char smem_raw[65536]; }
 namespace idm_rollout_k { alignas(16) unsigned char smem_raw[262144]; }
 namespace idm_evaluate_k { alignas(16) unsigned char smem_raw[262144]; }
 namespace poly_sampling_k { alignas(16) unsigned char smem_raw[65536]; }
+namespace dir_dist { alignas(16) unsigned char smem_raw[65536]; }
 
 // A grid of gx x gy blocks of 256 threads: every host thread runs its
 // thread of each block in turn (the blocks share the one shared-memory
@@ -306,6 +320,53 @@ extern "C" void rehearse_poly_sampling(
   run_block([=] {
     poly_sampling_select_kernel(rows, costs, packed, cost, best, C, N);
   });
+}
+
+// the directional distance field: a grid of S / S_TILE x T blocks
+extern "C" void rehearse_dir_dist(const float* occ, const float* ray,
+                                  float s_min, float s_step, float l_min,
+                                  float l_step, float step, float* out, int T,
+                                  int S, int L, int D, int R) {
+  using namespace dir_dist;
+  run_grid((S + S_TILE - 1) / S_TILE, T, [=] {
+    dir_dist_kernel(occ, ray, s_min, s_step, l_min, l_step, step, out, S, L,
+                    D, R);
+  });
+}
+
+// one level's edge evaluation, a thread per edge; consts as the launcher's
+extern "C" void rehearse_poly_eval(const float* start_pts,
+                                   const int* edge_starts,
+                                   const float* end_specs,
+                                   const float* dir_dist, const float* ref_line,
+                                   float* out, const float* consts, int E,
+                                   int is_last, int R, int T, int S, int L,
+                                   int D, int n_ref) {
+  using namespace poly_planner_k;
+  EvalParams p;
+  std::memcpy(p.ev, consts, sizeof(p.ev));
+  std::memcpy(p.m4, consts + N_EV, sizeof(p.m4));
+  std::memcpy(p.h5, consts + N_EV + 25, sizeof(p.h5));
+  run_grid((E + THREADS - 1) / THREADS, 1, [=] {
+    eval_edges_kernel(start_pts, edge_starts, end_specs, dir_dist, ref_line,
+                      out, p, E, is_last, R, T, S, L, D, n_ref);
+  });
+}
+
+// the K propagation launches, the last level first; offs as the launcher's
+extern "C" void rehearse_poly_propagate(const float* pts, double* node_cost,
+                                        int* best, const int* seg,
+                                        double* traj, const int* offs, int K) {
+  using namespace poly_planner_k;
+  Levels lv;
+  std::memcpy(lv.node_off, offs, sizeof(lv.node_off));
+  std::memcpy(lv.seg_off, offs + MAX_LEVELS + 2, sizeof(lv.seg_off));
+  for (int k = K - 1; k >= 0; --k) {
+    const int n = lv.node_off[k + 1] - lv.node_off[k];
+    run_grid(n > 0 ? (n + WARPS - 1) / WARPS : 1, 1, [=] {
+      propagate_kernel(pts, node_cost, best, seg, traj, lv, K, k);
+    });
+  }
 }
 
 static latlon_am::Tables tables_of(const void* const* t) {
@@ -462,6 +523,16 @@ def bodies(tmp_path_factory):
     lib.rehearse_backward_slice.restype = None
     lib.rehearse_backward_slice.argtypes = ([ctypes.c_void_p] * 7
                                             + [ctypes.c_int] * 6)
+    lib.rehearse_dir_dist.restype = None
+    lib.rehearse_dir_dist.argtypes = ([ctypes.c_void_p] * 2
+                                      + [ctypes.c_float] * 5
+                                      + [ctypes.c_void_p] + [ctypes.c_int] * 5)
+    lib.rehearse_poly_eval.restype = None
+    lib.rehearse_poly_eval.argtypes = ([ctypes.c_void_p] * 7
+                                       + [ctypes.c_int] * 8)
+    lib.rehearse_poly_propagate.restype = None
+    lib.rehearse_poly_propagate.argtypes = ([ctypes.c_void_p] * 6
+                                            + [ctypes.c_int])
     lib.rstp_rampify_smem_bytes.restype = ctypes.c_size_t
     lib.rstp_rampify_smem_bytes.argtypes = [ctypes.c_int]
     lib.latlon_action_min_tile_rows.restype = ctypes.c_int
@@ -1164,3 +1235,141 @@ def test_poly_sampling_body_matches_plain(bodies, scene):
     np.testing.assert_allclose(cost[0], float(want_c), rtol=1e-12)
     if scene != "free":
         assert (costs >= pok.PENALTY).any()
+
+
+# ---------------------------------------------------------------------
+# the graph DP planner's kernels: the directional field cell for cell, the
+# edge evaluation's end points bit for bit (the same operations in the same
+# order), the propagation's selections and trajectory exactly
+
+def _dir_field(bodies, occ, R):
+    p = dpe.DpEnvParams()
+    f32 = np.float32
+    ray, step = dpe.ray_table(p.dir_min, p.dir_max, p.dir_steps,
+                              p.s_step_size, p.l_step_size)
+    scal = [float(f32(x)) for x in (p.s_min, p.s_step_size, p.l_min,
+                                    p.l_step_size)]
+    occ = np.ascontiguousarray(occ, np.float32)
+    want = dpe.dir_dist_reference(torch.from_numpy(occ), ray, *scal, step, R)
+    T, S, L = occ.shape
+    D = ray.shape[0]
+    out = np.zeros((T, S, L, D), np.float32)
+    bodies.rehearse_dir_dist(_ptr(occ), _ptr(np.ascontiguousarray(
+        ray.numpy())), *scal, step, _ptr(out), T, S, L, D, R)
+    return out, want.numpy()
+
+
+@pytest.mark.parametrize("case,R", [("obstacle", 72), ("random", 72),
+                                    ("random", 40)])
+def test_dir_dist_body_matches_plain_cell_for_cell(bodies, case, R):
+    """On two time slices of 41 stations (a grid of 11 x 2 blocks: the
+    host threads' barriers are slow when the machine is busy): the test
+    scene's stretch around the obstacle and seeded occupancy."""
+    tpl_tpu_torch.use_device("cpu")
+    occ = (dp_poly_env(True).get_occ_map()[:2, 40:81] if case == "obstacle"
+           else dp_random_occ(3, T=2, S=41))
+    got, want = _dir_field(bodies, occ, R)
+    np.testing.assert_array_equal(got, want)
+    # some rays meet nothing, some block at once, some in between
+    assert (want == dpe.FREE_DIST).any() and (want == 0.0).any()
+    assert ((want > 0.0) & (want < dpe.FREE_DIST)).any()
+
+
+def _rehearse_eval(bodies, start_pts, starts, specs, is_last, ev, dd, rl,
+                   n_int):
+    m4, h5 = ppk.inverses_f32()
+    consts = np.concatenate([ev, m4.ravel(), h5.ravel()]).astype(np.float32)
+    E = len(starts)
+    out = np.zeros((E, 8), np.float32)
+    T, S, L, D = dd.shape
+    bodies.rehearse_poly_eval(
+        _ptr(start_pts), _ptr(starts), _ptr(specs), _ptr(dd), _ptr(rl),
+        _ptr(out), _ptr(consts), E, int(is_last), n_int, T, S, L, D, len(rl))
+    return out
+
+
+def _rehearse_propagate(bodies, pts, seg, node_off, seg_off):
+    K = len(node_off) - 2
+    N = node_off[-1]
+    offs = np.zeros(2 * ppk.MAX_LEVELS + 3, np.int32)
+    offs[:K + 2] = node_off
+    offs[ppk.MAX_LEVELS + 2:ppk.MAX_LEVELS + 3 + K] = seg_off
+    node_cost = np.zeros(N)
+    best = np.zeros(N, np.int32)
+    traj = np.zeros((K + 1, 8))
+    bodies.rehearse_poly_propagate(
+        _ptr(np.ascontiguousarray(pts, np.float32)), _ptr(node_cost),
+        _ptr(best), _ptr(np.ascontiguousarray(seg, np.int32)), _ptr(traj),
+        _ptr(offs), K)
+    return node_cost, best, traj
+
+
+@pytest.mark.parametrize("key", [(2, 4), (5, 1), (7, 8)])
+def test_poly_planner_bodies_match_plain(bodies, key):
+    """Both levels' edge evaluation on the obstacle scene, then the
+    propagation on those end points: every end point bit for bit, every
+    selection and the trajectory exactly, on a graph of 6 s x 8 ds x 9 l
+    (the demo widths' graphs are checked on the card)."""
+    tpl_tpu_torch.use_device("cpu")
+    env = dp_poly_env(True)
+    dd = env.update_dir_dist_map()
+    p = ppk.DpPolyParams()
+    p.t_steps, p.ds_steps, p.l_steps = 6, 8, 9
+    node_steps, edge_steps = ppk.build_eval_graph(p, *key)
+    ev = ppk.eval_params(p, env.params, np.float32(env.ref_step))
+    rl = env.grid.ref_line
+    init = np.zeros(8, np.float32)
+    init[ppk.PP_DS] = p.ds_min + key[0] * p.ds_step_size + 0.3
+    init[ppk.PP_L] = p.l_min + key[1] * p.l_step_size - 0.1
+    level = [torch.from_numpy(init[None])]
+    n_int = p.n_int_steps()
+    K = len(edge_steps)
+    for k in range(K):
+        starts = torch.from_numpy(edge_steps[k])
+        specs = torch.from_numpy(node_steps[k + 1].astype(np.float32))
+        want = ppk.eval_edges_reference(level[k], starts, specs, k == K - 1,
+                                        ev, dd, rl, n_int)
+        got = _rehearse_eval(bodies, level[k].numpy(), starts.numpy(),
+                             specs.numpy(), k == K - 1, ev, dd.numpy(),
+                             rl.numpy(), n_int)
+        np.testing.assert_array_equal(got, want.numpy())
+        level.append(want)
+    pts = torch.cat(level)
+    node_off, seg, seg_off = ppk.graph_layout([len(x) for x in level],
+                                              edge_steps)
+    N = node_off[-1]
+    node_cost = torch.zeros(N, dtype=torch.float64)
+    best = torch.zeros(N, dtype=torch.int32)
+    traj = torch.zeros((K + 1, 8), dtype=torch.float64)
+    ppk.propagate_reference(pts, node_cost, best, torch.from_numpy(seg),
+                            node_off, seg_off, traj)
+    g_cost, g_best, g_traj = _rehearse_propagate(bodies, pts.numpy(), seg,
+                                                 node_off, seg_off)
+    inner = node_off[K]
+    np.testing.assert_array_equal(g_best[:inner], best.numpy()[:inner])
+    np.testing.assert_array_equal(g_cost[:inner], node_cost.numpy()[:inner])
+    np.testing.assert_array_equal(g_traj, traj.numpy())
+    assert np.all(np.diff(g_traj[:, ppk.PP_T]) > 0)
+
+
+@pytest.mark.parametrize("seed,ties,nan", [(0, True, True), (1, True, False),
+                                           (2, False, True)])
+def test_poly_propagate_body_matches_plain(bodies, seed, ties, nan):
+    """Seeded graphs with equal least costs in a node's range, NaN costs
+    and nodes without edges: the same selections, costs and trajectory."""
+    node_pts, edge_steps = dp_poly_propagation_case(seed, ties=ties, nan=nan)
+    pts, node_cost, best, seg, node_off, seg_off, traj = dp_poly_buffers(
+        node_pts, edge_steps, "cpu")
+    ppk.propagate_reference(pts, node_cost, best, seg, node_off, seg_off,
+                            traj)
+    g_cost, g_best, g_traj = _rehearse_propagate(bodies, pts.numpy(),
+                                                 seg.numpy(), node_off,
+                                                 seg_off)
+    inner = node_off[-2]
+    np.testing.assert_array_equal(g_best[:inner], best.numpy()[:inner])
+    np.testing.assert_array_equal(g_cost[:inner], node_cost.numpy()[:inner])
+    np.testing.assert_array_equal(g_traj, traj.numpy())
+    # the case has what it is for: nodes without edges (+inf) and, with
+    # ``nan``, a NaN propagated cost
+    assert np.isinf(node_cost.numpy()[1:inner]).any()
+    assert np.isnan(node_cost.numpy()[:inner]).any() == nan

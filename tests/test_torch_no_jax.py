@@ -2,9 +2,11 @@
 interpreter after ``import tpl_tpu_torch``, after one CPU planning tick of
 the slice, after a few closed-loop ticks of the port's ``SimStandalone``,
 after the host C routes were built and called, after a batched update,
-after two ticks of each FAS-2025 planner and after two ticks of each
-rollout planner (IDM sampling, poly sampling), and statically over the port's
-sources, ``chip_smoke.py`` and the card tests it imports."""
+after two ticks of each FAS-2025 planner, after two ticks of each
+rollout planner (IDM sampling, poly sampling) and after two ticks of the
+graph DP planner (``dp_poly_planner``), and statically over the port's
+sources (the graph DP planner's modules named on their own),
+``chip_smoke.py`` and the card tests it imports."""
 
 import os
 import re
@@ -137,6 +139,33 @@ for name, scenario in (("idm_sampling_planner", "demo/country_overtake"),
 assert idm_kernel.rollout_launches == idm_kernel.evaluate_launches == 0
 assert poly_kernel.eval_launches == poly_kernel.select_launches == 0
 assert not leaked(), ("rollout planners", leaked())
+
+from tpl_tpu_torch.planning import DpPolyPlanner
+from tpl_tpu_torch.planning.dyn_prog import dp_environment, poly_planner_kernel
+sim = SimStandalone(app_id="nojax_dp_poly", scenario_path="demo/country_follow")
+store = sim.planning_app.sh_planners
+store.active_planner = "dp_poly_planner"
+prm = store.dp_poly_planner.params
+for cpp, cut in ((prm.dp_env, dict(t_steps=4, s_steps=41, s_max=40.0)),
+                 (prm.dp_planner, dict(t_steps=4, ds_steps=5, l_steps=7,
+                                       s_max=40.0))):
+    for k, v in cut.items():
+        assert hasattr(cpp, k), k
+        setattr(cpp, k, v)
+sim.control_app.sh_controllers.model_predictive_controller.params.horizon = 10
+ss = sim.core.sh_state.sim
+ss.settings.running = True
+ss.settings.use_real_time = False
+for _ in range(2):
+    sim.update()
+planner = sim.planning_app.planners["dp_poly_planner"]
+assert isinstance(planner, DpPolyPlanner)
+assert planner.behavior.traj_dp is not None
+assert planner.dp_env.grid.dir_dist_map.shape == (4, 41, 21, 21)
+assert dp_environment.dir_dist_launches == 0
+assert poly_planner_kernel.eval_launches == 0
+assert poly_planner_kernel.propagate_launches == 0
+assert not leaked(), ("graph DP planner", leaked())
 print("clean")
 """
 
@@ -149,8 +178,12 @@ def test_port_runs_without_jax():
     assert res.stdout.strip().endswith("clean")
 
 
-@pytest.mark.parametrize("path", ["tpl_tpu_torch", "chip_smoke.py",
-                                  "tests/test_torch_kernel_cuda.py"])
+@pytest.mark.parametrize("path", [
+    "tpl_tpu_torch", "chip_smoke.py", "tests/test_torch_kernel_cuda.py",
+    "tpl_tpu_torch/planning/dyn_prog/dp_environment.py",
+    "tpl_tpu_torch/planning/dyn_prog/poly_planner_kernel.py",
+    "tpl_tpu_torch/planning/dyn_prog/dp_poly_planner.py",
+    "tpl_tpu_torch/scenes.py"])
 def test_sources_name_no_jax(path):
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|tpl_tpu)\b(?!_torch)",
                      re.M)

@@ -10,10 +10,10 @@ profiles, LQR, splines, the solver's table lookups), ``environment``,
 (trajectory, replan policy; the RSTP planner with its fused replan step;
 the DP lat/lon planner; the FAS-2025 chain, ``poly_lat_dp_lon_planner`` and
 ``lattice_planner``; the rollout planners, ``idm_sampling_planner`` and
-``poly_sampling_planner``), ``optim`` (the AL-iLQR core, its problems, the
+``poly_sampling_planner``; the graph DP planner, ``dp_poly_planner``), ``optim`` (the AL-iLQR core, its problems, the
 ``Solver`` and the batched update), ``control`` (the tracking MPC and the
 constant-deceleration fallback), ``native`` (the host C routes) and
-``simulation``.  Nine hand-written Hopper kernel sources live under
+``simulation``.  Eleven hand-written Hopper kernel sources live under
 ``csrc/``: ``ilqr_tracking_mpc.cu`` (the float64 tracking-MPC solve, single
 and batched), ``ilqr_rstp.cu`` (the float32 RSTP profile solves),
 ``rstp_rampify.cu`` (the RSTP rampify scan and the FAS start mode),
@@ -21,7 +21,9 @@ and batched), ``ilqr_rstp.cu`` (the float32 RSTP profile solves),
 ``lon_dp.cu`` and ``poly_lat.cu`` (the FAS chain's lon DP and lateral
 sweep), ``idm_rollout.cu`` and ``idm_evaluate.cu`` (the IDM sampling
 rollouts and their screens, sharing ``idm_common.cuh``) and
-``poly_sampling.cu`` (the Werling grid);
+``poly_sampling.cu`` (the Werling grid), ``dir_dist_map.cu`` and
+``poly_planner.cu`` (the graph DP planner's directional distance field, its
+edge evaluation and its cost propagation);
 ``csrc/latency_probe.cu`` measures the card's operation latencies for
 their bounds.
 

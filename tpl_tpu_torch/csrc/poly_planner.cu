@@ -1,0 +1,310 @@
+// The graph DP planner's edge evaluation and cost propagation, for Hopper
+// (sm_90a).
+//
+// Replaces XLA programs and a numpy loop of the JAX package (no Pallas
+// kernel): tpl_tpu/planning/dyn_prog/poly_planner_kernel.py
+// make_edge_eval's eval_edges (:130-270) and propagate_and_backtrack
+// (:275-314).  The reference is poly_planner.cu:11-155 (evalEdge,
+// propagateCost, copyTrajectory).
+//
+// poly_eval_edges: one thread per edge of a level.  The thread reads its
+// start point (8 floats) and end spec [t, ds, l], solves the quartic lon
+// fit and the quintic lat fit (float32 boundary values times the float32
+// inverses, products summed in index order), then integrates R steps of
+// 0.25 s: the squared lon and lat jerks up to the end time, the speed,
+// speed-limit (a lerp of the ref line's column 4) and occupancy costs (the
+// directional field straight ahead at the step's (t, s, l), rounded half to
+// even) up to the end time or, on the last level, the horizon; the three
+// sums run in step order.  It writes the end point [t, s, ds, 0, l, 0, 0,
+// cost].
+//
+// poly_propagate: one launch per level, from the last down; one warp per
+// node of the level.  The node's edges are one contiguous range (its
+// offsets in `seg`); the lanes take them 32 apart, keeping the least
+// (cost, edge) pair, and a butterfly of shuffles reduces the warp.  The
+// order: a NaN cost first (the first NaN, as np.argmin), else the least
+// cost, the smaller edge index among equal costs.  Edge costs are read as
+// float64 (the last level's float32 end costs, the others' propagated
+// costs), the node's own float32 cost is raised in float64; a node without
+// edges gets +inf and edge 0.  The level-0 launch (one block, the root)
+// then backtracks on one thread and writes the (K + 1, 8) float64
+// trajectory.
+//
+// The operations and their order are the plain versions'
+// (poly_planner_kernel.eval_edges_reference, propagate_reference), so the
+// two agree to float32 rounding of the card's division and the math
+// library (none is used past the IEEE operations) and select the same
+// edges.  Build with --fmad=false.
+
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stddef.h>
+#include <string.h>
+
+namespace poly_planner_k {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_LEVELS = 8;
+constexpr float DT_INT = 0.25f;
+constexpr unsigned FULL = 0xffffffffu;
+
+// point fields
+enum { PP_T, PP_S, PP_DS, PP_DDS, PP_L, PP_DL, PP_DDL, PP_COST };
+// the scalars (poly_planner_kernel.EVAL_KEYS)
+enum Ev {
+  W_J, W_L, W_V_DIFF, LENGTH_VEH, T_HORIZON, REF_STEP, DT_START, DT, S_MIN,
+  S_MAX, L_MIN, L_MAX, DIR_MIN, DIR_MAX, N_EV
+};
+
+struct EvalParams {
+  float ev[N_EV];
+  float m4[25];  // the quartic's inverse, row-major
+  float h5[36];  // the quintic's inverse
+};
+
+// each level's first row in the node table and first entry in `seg`
+struct Levels {
+  int node_off[MAX_LEVELS + 2];
+  int seg_off[MAX_LEVELS + 1];
+};
+
+// the deriv-th u-derivative of sum_k c[k] u^k: Horner from 0, each
+// operation rounded on its own
+template <int ORDER, int DERIV>
+__device__ __forceinline__ float poly_eval(const float* c, float u) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = ORDER; k >= DERIV; --k) {
+    float fac = 1.0f;
+#pragma unroll
+    for (int m = k - DERIV + 1; m <= k; ++m) fac *= (float)m;
+    acc = acc * u + c[k] * fac;
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// max(0, x), a NaN passing through (jnp.maximum)
+__device__ __forceinline__ float max0(float x) {
+  return (x > 0.0f || x != x) ? x : 0.0f;
+}
+
+__global__ void __launch_bounds__(THREADS) eval_edges_kernel(
+    const float* __restrict__ start_pts, const int* __restrict__ edge_starts,
+    const float* __restrict__ end_specs, const float* __restrict__ dir_dist,
+    const float* __restrict__ ref_line, float* __restrict__ out,
+    const EvalParams p, int E, int is_last, int R, int T, int S, int L, int D,
+    int n_ref) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  const float* ev = p.ev;
+  const float4* sp4 =
+      reinterpret_cast<const float4*>(start_pts) + (size_t)edge_starts[e] * 2;
+  const float4 sa = sp4[0], sb = sp4[1];
+  const float t0 = sa.x, s0 = sa.y, ds0 = sa.z, dds0 = sa.w;
+  const float l0 = sb.x, dl0 = sb.y, ddl0 = sb.z;
+  const float te = end_specs[(size_t)e * 3];
+  const float dse = end_specs[(size_t)e * 3 + 1];
+  const float le = end_specs[(size_t)e * 3 + 2];
+  const float d = te - t0;
+
+  const float bl[5] = {s0, ds0 * d, dds0 * d * d, dse * d, 0.0f};
+  const float bt[6] = {l0, dl0 * d, ddl0 * d * d, le, 0.0f, 0.0f};
+  float cl[5], ct[6];
+#pragma unroll
+  for (int m = 0; m < 5; ++m) {
+    float acc = bl[0] * p.m4[m * 5];
+#pragma unroll
+    for (int k = 1; k < 5; ++k) acc = acc + bl[k] * p.m4[m * 5 + k];
+    cl[m] = acc;
+  }
+#pragma unroll
+  for (int m = 0; m < 6; ++m) {
+    float acc = bt[0] * p.h5[m * 6];
+#pragma unroll
+    for (int k = 1; k < 6; ++k) acc = acc + bt[k] * p.h5[m * 6 + k];
+    ct[m] = acc;
+  }
+  const float d3 = d * (d * d);
+  const float s_end = poly_eval<4, 0>(cl, 1.0f);
+  const float ds_end = poly_eval<4, 1>(cl, 1.0f) / d;
+  const float l_end = poly_eval<5, 0>(ct, 1.0f);
+  const float t_end_eval = is_last ? ev[T_HORIZON] : te;
+  const float s_span = ev[S_MAX] - ev[S_MIN];
+  const float l_span = ev[L_MAX] - ev[L_MIN];
+  const int di = (int)clampf(rintf((0.0f - ev[DIR_MIN]) /
+                                   (ev[DIR_MAX] - ev[DIR_MIN]) *
+                                   (float)(D - 1)),
+                             0.0f, (float)(D - 1));
+
+  float j_lon = 0.0f, j_lat = 0.0f, steps = 0.0f;
+  for (int r = 0; r < R; ++r) {
+    const float ts = t0 + (float)r * DT_INT;
+    const float u = clampf((ts - t0) / d, 0.0f, 1.0f);
+    const bool in_poly = ts <= te;
+    const float jl = poly_eval<4, 3>(cl, u) / d3;
+    const float jt = poly_eval<5, 3>(ct, u) / d3;
+    j_lon = j_lon + (in_poly ? jl * jl : 0.0f);
+    j_lat = j_lat + (in_poly ? jt * jt : 0.0f);
+
+    const float ds_t = in_poly ? poly_eval<4, 1>(cl, u) / d : ds_end;
+    const float s_t = in_poly ? poly_eval<4, 0>(cl, u)
+                              : s_end + (ts - te) * ds_end;
+    const float l_t = in_poly ? poly_eval<5, 0>(ct, u) : l_end;
+
+    // the speed limit at s: a lerp of the ref line's column 4
+    const float q = s_t / ev[REF_STEP];
+    const float i0 = clampf(floorf(q), 0.0f, (float)(n_ref - 1));
+    const int i1 = (int)clampf(ceilf(q), 0.0f, (float)(n_ref - 1));
+    const float a = clampf(q - i0, 0.0f, 1.0f);
+    const float v_max = ref_line[(size_t)(int)i0 * 8 + 4] * (1.0f - a) +
+                        ref_line[(size_t)i1 * 8 + 4] * a;
+    float cost = ev[W_V_DIFF] * fabsf(100.0f - ds_t);
+    cost = cost + 100.0f * max0(ds_t - v_max);
+
+    // the directional field straight ahead at (t, s, l)
+    const float t_idx = ts < ev[DT_START]
+                            ? 0.0f
+                            : rintf((ts - ev[DT_START]) / ev[DT]) + 1.0f;
+    const int ti = (int)clampf(t_idx, 0.0f, (float)(T - 1));
+    const int si = (int)clampf(
+        rintf((s_t - ev[S_MIN]) / s_span * (float)(S - 1)), 0.0f,
+        (float)(S - 1));
+    const int li = (int)clampf(
+        rintf((l_t - ev[L_MIN]) / l_span * (float)(L - 1)), 0.0f,
+        (float)(L - 1));
+    const float d_front = dir_dist[(((size_t)ti * S + si) * L + li) * D + di];
+    const float d_safety = d_front - ev[LENGTH_VEH] * 0.5f - 1.0f - ds_t * 1.0f;
+    const float x = ds_t * DT_INT;
+    cost = cost + (x > d_safety ? 100.0f * (x - d_safety) : 0.0f);
+    steps = steps + (ts <= t_end_eval ? cost : 0.0f);
+  }
+  float c = ev[W_J] * j_lon;
+  c = c + ev[W_J] * j_lat;
+  c = c + ev[W_L] * fabsf(0.0f - le);
+  c = c + steps;
+  float4* o = reinterpret_cast<float4*>(out) + (size_t)e * 2;
+  o[0] = make_float4(te, s_end, dse, 0.0f);
+  o[1] = make_float4(le, 0.0f, 0.0f, c);
+}
+
+// (c, i) before (bc, bi): a NaN first (the smaller index among NaNs), else
+// the smaller cost, the smaller index among equal costs
+__device__ __forceinline__ bool before(double c, int i, double bc, int bi) {
+  const bool cn = c != c, bn = bc != bc;
+  if (cn || bn) return cn && (!bn || i < bi);
+  return c < bc || (c == bc && i < bi);
+}
+
+__global__ void __launch_bounds__(THREADS) propagate_kernel(
+    const float* __restrict__ pts, double* __restrict__ node_cost,
+    int* __restrict__ best, const int* __restrict__ seg,
+    double* __restrict__ traj, const Levels lv, int K, int k) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int a = lv.node_off[k], b = lv.node_off[k + 1];
+  const int i = blockIdx.x * WARPS + warp;
+  const bool last = k == K - 1;
+  if (i < b - a) {
+    const int* sg = seg + lv.seg_off[k];
+    const int lo = sg[i], hi = sg[i + 1];
+    double bc = INFINITY;
+    int bi = INT_MAX;
+    for (int j = lo + lane; j < hi; j += 32) {
+      const double c = last ? (double)pts[(size_t)(b + j) * 8 + PP_COST]
+                            : node_cost[b + j];
+      if (before(c, j, bc, bi)) {
+        bc = c;
+        bi = j;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const double oc = __shfl_sync(FULL, bc, lane ^ off);
+      const int oi = __shfl_sync(FULL, bi, lane ^ off);
+      if (before(oc, oi, bc, bi)) {
+        bc = oc;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
+      if (bi == INT_MAX) {  // no edge
+        bc = INFINITY;
+        bi = 0;
+      }
+      node_cost[a + i] = (double)pts[(size_t)(a + i) * 8 + PP_COST] + bc;
+      best[a + i] = bi;
+    }
+  }
+  if (k == 0) {
+    __syncthreads();
+    if (threadIdx.x == 0 && blockIdx.x == 0) {
+      for (int c = 0; c < 8; ++c) traj[c] = (double)pts[c];
+      traj[PP_COST] = node_cost[0];
+      int idx = 0;
+      for (int kk = 0; kk < K; ++kk) {
+        idx = best[lv.node_off[kk] + idx];
+        const size_t r = (size_t)lv.node_off[kk + 1] + idx;
+        double* row = traj + (kk + 1) * 8;
+        for (int c = 0; c < 8; ++c) row[c] = (double)pts[r * 8 + c];
+        if (kk + 1 < K) row[PP_COST] = node_cost[r];
+      }
+    }
+  }
+}
+
+}  // namespace poly_planner_k
+
+#ifdef __CUDACC__
+extern "C" int poly_planner_n_eval_params() { return poly_planner_k::N_EV; }
+extern "C" int poly_planner_max_levels() { return poly_planner_k::MAX_LEVELS; }
+
+// One level's end points (E, 8) float32 from its start points, its edges'
+// start indices (E,) int32 and end specs (E, 3), the directional field
+// (T, S, L, D) and the ref line (n_ref, 8); `consts` (host) holds the
+// scalars of EVAL_KEYS, then the quartic's and the quintic's inverses.
+extern "C" int poly_eval_edges(const float* start_pts, const int* edge_starts,
+                               const float* end_specs, const float* dir_dist,
+                               const float* ref_line, float* out,
+                               const float* consts, int E, int is_last,
+                               int R, int T, int S, int L, int D, int n_ref,
+                               void* stream) {
+  using namespace poly_planner_k;
+  if (E < 0 || R < 1 || T < 1 || S < 1 || L < 1 || D < 1 || n_ref < 1)
+    return (int)cudaErrorInvalidValue;
+  if (E == 0) return 0;
+  EvalParams p;
+  memcpy(p.ev, consts, sizeof(p.ev));
+  memcpy(p.m4, consts + N_EV, sizeof(p.m4));
+  memcpy(p.h5, consts + N_EV + 25, sizeof(p.h5));
+  eval_edges_kernel<<<(E + THREADS - 1) / THREADS, THREADS, 0,
+                      (cudaStream_t)stream>>>(start_pts, edge_starts,
+                                              end_specs, dir_dist, ref_line,
+                                              out, p, E, is_last, R, T, S, L,
+                                              D, n_ref);
+  return (int)cudaGetLastError();
+}
+
+// Level k of K's propagation; `offs` (host): the node offsets (K + 2),
+// then from MAX_LEVELS + 2 on the seg offsets (K + 1).  The level-0 launch
+// also writes the trajectory (K + 1, 8) float64.
+extern "C" int poly_propagate(const float* pts, double* node_cost, int* best,
+                              const int* seg, double* traj, const int* offs,
+                              int K, int k, void* stream) {
+  using namespace poly_planner_k;
+  if (K < 1 || K > MAX_LEVELS || k < 0 || k >= K)
+    return (int)cudaErrorInvalidValue;
+  Levels lv;
+  memcpy(lv.node_off, offs, sizeof(lv.node_off));
+  memcpy(lv.seg_off, offs + MAX_LEVELS + 2, sizeof(lv.seg_off));
+  const int n = lv.node_off[k + 1] - lv.node_off[k];
+  const int blocks = n > 0 ? (n + WARPS - 1) / WARPS : 1;
+  propagate_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      pts, node_cost, best, seg, traj, lv, K, k);
+  return (int)cudaGetLastError();
+}
+#endif

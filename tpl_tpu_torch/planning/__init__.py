@@ -10,8 +10,9 @@ from tpl_tpu_torch.planning.dyn_prog import (
     DpEnv,
     DpEnvironment,
     DpLatLonPlanner,
-    LatticePlanner,
     PolyLatDpLonPlanner,
+    DpPolyPlanner,
+    LatticePlanner,
 )
 from tpl_tpu_torch.planning.idm_sampling import IdmSamplingPlanner
 from tpl_tpu_torch.planning.poly_sampling import PolySamplingPlanner

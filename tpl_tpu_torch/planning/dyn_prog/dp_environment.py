@@ -10,19 +10,32 @@ env.cu, occupancy_renderer.cu)
 Occupancy cell values (env.cu:11-63): 0 = free, 1 = occupied (moving),
 2 = off-road / grid boundary / zero-speed cell, 3 = stationary obstacle.
 
+The directional distance field (the graph DP's obstacle lookup) is the
+hand-written kernel of ``csrc/dir_dist_map.cu`` on a CUDA tensor and its
+plain PyTorch version :func:`dir_dist_reference` on a CPU tensor
+(:func:`dir_dist_map`); ``ray_steps`` is a runtime argument of both.
+
 Divergence note: the reference dilates rasterized pixels with a circular
 kernel (env.cu:25-43); here dilation is by euclidean distance to the quad's
 supporting halfplanes, which over-approximates the dilation near convex
 corners (strictly more conservative).
 """
 
+import ctypes
 import warnings
 
 import numpy as np
 import torch
 
 import tpl_tpu_torch
+from tpl_tpu_torch import _latency
 from tpl_tpu_torch.ops import project
+from tpl_tpu_torch.planning.dyn_prog.lon_kernel import _check, axis_points
+
+dir_dist_launches = 0   # kernel launches since import (reset freely)
+
+# the distance of a ray that meets nothing within its steps
+FREE_DIST = 10000.0
 
 
 class DpEnvParams:
@@ -69,6 +82,7 @@ class DpEnvGrid:
         self.dist_map_lon = dist_map_lon  # (T, S, L, 2) float32
         self.ref_line = ref_line          # (N, 8) float32 device
         self.params = params
+        self.dir_dist_map = None          # (T, S, L, D) float32, on demand
 
 
 # ref line channel indices (x, y, heading, k, v_max, d_left, d_right, semantic)
@@ -204,6 +218,158 @@ def _dist_map_path(occ_map, path_sl, s_min, s_step, l_min, l_step):
     return torch.where(torch.isfinite(next_occ),
                        (next_occ - s_idx) * s_step,
                        10000.0 + (S - s_idx) * s_step)
+
+
+def ray_table(dir_min, dir_max, dir_steps, s_step, l_step):
+    """The rays' per-sample steps ((D, 2) float32 [ds, dl]) and the sample
+    spacing (a float32 value), as the JAX package's ``_dir_dist_map``
+    computes them on the CPU: the angles ``dir_min + d * (dir_max -
+    dir_min) / (D - 1)`` with the division by the constant a product with
+    its float32 reciprocal contracted into the addition (``axis_points``),
+    the spacing ``min(s_step, l_step)``, its cosine and sine of each angle
+    correctly rounded to float32 (what XLA's float32 cosine gives on these
+    angles), times the spacing in float32.  Kernel and plain version read
+    this one table."""
+    f32 = np.float32
+    angles = axis_points(f32(dir_min), f32(dir_max),
+                         torch.arange(dir_steps, dtype=torch.float32),
+                         dir_steps - 1)
+    step = f32(min(f32(s_step), f32(l_step)))
+    ds = step * torch.cos(angles.double()).float()
+    dl = step * torch.sin(angles.double()).float()
+    return torch.stack([ds, dl], dim=1).contiguous(), float(step)
+
+
+def dir_dist_reference(occ, ray, s_min, s_step, l_min, l_step, step,
+                       ray_steps):
+    """The directional distance field (T, S, L, D) float32 (the plain
+    version; reference: env.cu:160-214 updateDirDistMap, the JAX package's
+    ``_dir_dist_map``).  From cell (s, l) each ray d samples ``ss + ds * i``,
+    ``ls + dl * i`` for i < ``ray_steps`` (each operation rounded on its
+    own); a sample blocks when its float indices ``(x - min) / step`` leave
+    the open grid (``<= 0`` or ``>= n``: row 0 and column 0 block at once)
+    or its cell, ``trunc(clip(f, 0, n - 1))``, is occupied.  The distance is
+    the first blocking sample's index times ``step``, or ``FREE_DIST``.
+    ``occ`` (T, S, L) and ``ray`` (:func:`ray_table`) float32 on one device,
+    the scalars float32 values."""
+    f32 = torch.float32
+    dev = occ.device
+    T, S, L = occ.shape
+    i = torch.arange(ray_steps, dtype=f32, device=dev)
+    ss = s_min + torch.arange(S, dtype=f32, device=dev) * s_step
+    ls = l_min + torch.arange(L, dtype=f32, device=dev) * l_step
+    s_ray = ss[:, None, None, None] + ray[None, None, :, 0, None] * i
+    l_ray = ls[None, :, None, None] + ray[None, None, :, 1, None] * i
+    is_f = (s_ray - s_min) / s_step                     # (S, 1, D, R)
+    il_f = (l_ray - l_min) / l_step                     # (1, L, D, R)
+    out_of_grid = ((is_f <= 0.0) | (is_f >= S) | (il_f <= 0.0)
+                   | (il_f >= L))                       # (S, L, D, R)
+    cell = (torch.clamp(is_f, 0, S - 1).to(torch.int32).long() * L
+            + torch.clamp(il_f, 0, L - 1).to(torch.int32).long())
+    free = torch.tensor(FREE_DIST, dtype=f32, device=dev)
+    out = []
+    for t in range(T):
+        blocked = (occ[t].reshape(-1)[cell] > 0.0) | out_of_grid
+        first = blocked.to(torch.uint8).argmax(dim=-1).to(f32)
+        out.append(torch.where(blocked.any(dim=-1), first * step, free))
+    return torch.stack(out)
+
+
+def dir_dist_map(occ, ray, s_min, s_step, l_min, l_step, step, ray_steps):
+    """The directional distance field (T, S, L, D) float32: the kernel
+    ``dir_dist_map`` on a CUDA tensor, :func:`dir_dist_reference` on a CPU
+    tensor.  Arguments as
+    :func:`dir_dist_reference`'s; ``ray_steps`` is a runtime integer, so a
+    new value compiles nothing."""
+    global dir_dist_launches
+    dev = occ.device
+    if occ.dim() != 3:
+        raise ValueError(f"occ must be (T, S, L), got {tuple(occ.shape)}")
+    T, S, L = occ.shape
+    _check("occ", occ, (T, S, L), torch.float32, dev)
+    if ray.dim() != 2 or ray.shape[1] != 2:
+        raise ValueError(f"ray must be (D, 2), got {tuple(ray.shape)}")
+    D = ray.shape[0]
+    _check("ray", ray, (D, 2), torch.float32, dev)
+    if ray_steps < 1:
+        raise ValueError(f"ray_steps must be positive, got {ray_steps}")
+    if dev.type == "cpu":
+        return dir_dist_reference(occ, ray, s_min, s_step, l_min, l_step,
+                                  step, ray_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"dir_dist_map: unsupported device {dev}")
+    lib = _kernel()
+    out = torch.empty((T, S, L, D), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.dir_dist_map(occ.data_ptr(), ray.data_ptr(), s_min, s_step,
+                               l_min, l_step, step, out.data_ptr(), T, S, L,
+                               D, ray_steps,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dir_dist_map launch failed: CUDA error {err}")
+    dir_dist_launches += 1
+    return out
+
+
+# Operations of one ray sample as the plain version defines it: the two
+# sample positions (a multiply and an add each), the two float indices (a
+# subtraction and a division each), the four grid tests, the two clips and
+# truncations, the cell index and its read; one more for the distance.
+OPS_SAMPLE = 16
+# the critical path of one cell: per sample a multiply, an add, a
+# subtraction, a division, then the shared read of the cell
+CHAIN_SAMPLE = dict(f32_mul=1, f32_add=2, f32_div=1, smem_load=1)
+
+
+def dir_dist_samples(field, step, ray_steps):
+    """The samples the rays of ``field`` (a computed field) marched: the
+    first blocking sample's index + 1, or ``ray_steps`` where none blocked
+    (the work this run's data needs, with the early exit)."""
+    f = field.double()
+    return int(torch.where(f == FREE_DIST, float(ray_steps),
+                           torch.round(f / step) + 1.0).sum())
+
+
+def dir_dist_bytes(T, S, L, D):
+    """Bytes the field must move: the occupancy and the ray table read
+    once, the field written once."""
+    return 4 * T * S * L + 8 * D + 4 * T * S * L * D
+
+
+def dir_dist_bound_ms(field, step, ray_steps):
+    T, S, L, D = field.shape
+    return _latency.roofline_ms(
+        dir_dist_bytes(T, S, L, D),
+        dir_dist_samples(field, step, ray_steps) * OPS_SAMPLE + field.numel(),
+        "float32")
+
+
+def dir_dist_chain_ms(field, step, ray_steps, cycles, sm_mhz):
+    """The longest ray's chain: its samples (at most ``ray_steps``) one
+    after the other."""
+    f = field.double()
+    longest = int(torch.where(f == FREE_DIST, float(ray_steps),
+                              torch.round(f / step) + 1.0).max())
+    return _latency.chain_ms(_latency.add_ops({}, CHAIN_SAMPLE, longest),
+                             cycles, sm_mhz)
+
+
+_LIB = None
+
+
+def _kernel():
+    """Build (first call) and bind the field's kernel library."""
+    global _LIB
+    if _LIB is None:
+        from tpl_tpu_torch import _build
+
+        lib = _build.load("dir_dist_map")
+        lib.dir_dist_map.restype = ctypes.c_int
+        lib.dir_dist_map.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        _LIB = lib
+    return _LIB
 
 
 def gen_prediction_quads(pred_states, hull, path, ts, station_step_size=5.0,
@@ -450,6 +616,39 @@ class DpEnvironment:
                               scalar(p.s_min), scalar(p.s_step_size),
                               scalar(p.l_min), scalar(p.l_step_size))
 
+    def ray_steps_default(self):
+        """The samples a ray takes: ``ds_max`` over the sample spacing
+        (dp_environment.py of the JAX package, :472-473)."""
+        p = self.params
+        return int(p.ds_max / min(p.s_step_size, p.l_step_size))
+
+    def update_dir_dist_map(self, ray_steps=None):
+        """Compute the directional distance field (T, S, L, D) on the
+        grid's device and keep it on the grid (``grid.dir_dist_map``).
+        ``ray_steps`` (default :meth:`ray_steps_default`) is a runtime
+        argument of the kernel: no value of it compiles anything."""
+        p = self.params
+        if ray_steps is None:
+            ray_steps = self.ray_steps_default()
+        f32 = np.float32
+        ray, step = ray_table(p.dir_min, p.dir_max, p.dir_steps,
+                              p.s_step_size, p.l_step_size)
+        occ = self.grid.occ_map
+        dd = dir_dist_map(occ, ray.to(occ.device), float(f32(p.s_min)),
+                          float(f32(p.s_step_size)), float(f32(p.l_min)),
+                          float(f32(p.l_step_size)), step, int(ray_steps))
+        self.grid.dir_dist_map = dd
+        return dd
+
+    def adopt_dir_dist_map(self, dd):
+        """Install an externally computed field (T, S, L, D) on the grid,
+        moved to the grid's device as float32 (numpy or tensor)."""
+        occ = self.grid.occ_map
+        self.grid.dir_dist_map = torch.as_tensor(
+            np.array(dd, np.float32) if not isinstance(dd, torch.Tensor)
+            else dd, dtype=torch.float32, device=occ.device).contiguous()
+        return self.grid.dir_dist_map
+
     # --- debug getters (env.cu:452-513) ---
 
     def get_occ_map(self):
@@ -457,3 +656,6 @@ class DpEnvironment:
 
     def get_dist_map_lon(self):
         return self.grid.dist_map_lon.cpu().numpy()
+
+    def get_dist_map_dir(self, idx_t):
+        return self.grid.dir_dist_map[idx_t].cpu().numpy()

@@ -706,3 +706,148 @@ def make_latlon_replan(spec, device):
         return occ, dist_lon, traj
 
     return replan, solve, reeval
+
+
+# ---------------------------------------------------------------------
+# Host-side evaluator for trajectory re-evaluation against a fresh
+# environment (reference: lat_lon_planner.cu:358-402 reevalTraj) and the
+# smoothing / cartesian post-processing (lat_lon_planner.cu:645-825).
+# ---------------------------------------------------------------------
+
+class HostEval:
+    """Numpy twin of the device evaluator over pulled grids (numpy arrays,
+    or tensors moved to the host): the host oracle of the solver's
+    ``reeval`` (``make_latlon_solver``)."""
+
+    def __init__(self, dist_map_lon, ref_line, ref_step, params):
+        def host(a):
+            return a.cpu().numpy() if isinstance(a, torch.Tensor) else \
+                np.asarray(a)
+        self.dist_x = host(dist_map_lon)[..., 0]
+        self.ref_line = host(ref_line)
+        self.ref_step = ref_step
+        self.p = params
+
+    def t_index(self, t):
+        p = self.p
+        if t < p.dt_start:
+            return 0
+        return int(min(self.dist_x.shape[0] - 1,
+                       round((t - p.dt_start) / p.dt) + 1))
+
+    def ref_tex(self, s):
+        i = int(np.clip(round(s / self.ref_step), 0, len(self.ref_line) - 1))
+        return self.ref_line[i]
+
+    def dist(self, t, s, l):
+        p = self.p
+        S = self.dist_x.shape[1]
+        L = self.dist_x.shape[2]
+        si = int(np.clip(round((s - p.s_min) / p.s_step), 0, S - 1))
+        li = int(np.clip(round((l - p.l_min) / p.l_step), 0, L - 1))
+        return self.dist_x[self.t_index(t), si, li]
+
+    def get_mid(self, t, s, l, ds, dt):
+        p = self.p
+        L = self.dist_x.shape[2]
+        mean_dist = max(p.length_veh * 0.5, ds * dt)
+        l_left = 0.0
+        l_right = 0.0
+        for i in range(L):
+            if self.dist(t, s, l + i * p.l_step) < mean_dist:
+                l_left = l + i * p.l_step
+                break
+        for i in range(L):
+            if self.dist(t, s, l - i * p.l_step) < mean_dist:
+                l_right = l - i * p.l_step
+                break
+        mid = l_right + (l_left - l_right) * 0.5
+        y = min(l_right + p.d_lat_comf, mid)
+        z = max(l_left - p.d_lat_comf, mid)
+        if p.l_trg < l_right:
+            x = y
+        elif p.l_trg > l_left:
+            x = z
+        else:
+            x = p.l_trg
+        return x, y, z, l_left, l_right
+
+    def eval_state(self, tp, dt):
+        p = self.p
+        t, s, ds, l = tp[C_T], tp[C_S], tp[C_DS], tp[C_L]
+        rl = self.ref_tex(s)
+        cost = 0.0
+        constr = 0.0
+        flags = 0
+
+        d_left_ref = rl[5] - p.width_veh * 0.5
+        d_right_ref = -(rl[6] - p.width_veh * 0.5)
+        cost += 1000.0 * max(0.0, l - d_left_ref)
+        cost += 1000.0 * max(0.0, d_right_ref - l)
+
+        mid_x, mid_y, mid_z, _, _ = self.get_mid(t, s, l, ds, dt)
+        cost += p.w_l * (mid_x - l) ** 2
+        if l < mid_y:
+            cost += p.w_lat_dist * (mid_y - l) ** 2
+        if l > mid_z:
+            cost += p.w_lat_dist * (mid_z - l) ** 2
+
+        cost += p.w_progress * (1000.0 - s)
+
+        if ds > rl[4]:
+            constr += ds - rl[4]
+            flags |= CONSTR_VELOCITY
+
+        if t < p.t_st_min:
+            cost += p.w_spatio_temporal * max(0.0, s - p.s_st)
+        if t > p.t_st_max:
+            cost += p.w_spatio_temporal * max(0.0, p.s_st - s)
+        return cost, constr, flags
+
+    def reeval(self, traj):
+        """traj: (N, 12) numpy; returns re-evaluated copy.
+        (lat_lon_planner.cu:358-402)"""
+        p = self.p
+        traj = np.array(traj, dtype=np.float64)
+        n = len(traj)
+        for i in range(n):
+            tp = traj[i]
+            dt = 0.0 if i == n - 1 else traj[i + 1][C_T] - tp[C_T]
+            cost, constr, flags = self.eval_state(tp, dt)
+
+            l_next = tp[C_L] + dt * tp[C_DL]
+            l_dist = l_next - tp[C_L]
+            steps = int(np.ceil(abs(l_dist) / p.l_step))
+            d_fwd = self.dist(tp[C_T], tp[C_S], tp[C_L])
+            if steps > 0:
+                step_size = l_dist / steps
+                for k in range(steps):
+                    d_fwd = min(d_fwd, self.dist(
+                        tp[C_T], tp[C_S], tp[C_L] + k * step_size))
+            d_fwd -= p.length_veh * 0.5
+            d_safety = d_fwd - p.gap_min - tp[C_DS] * p.time_gap
+
+            if i < n - 1:
+                tn = traj[i + 1]
+                s_change = tn[C_S] - tp[C_S]
+                l_change = tn[C_L] - tp[C_L]
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    slope = abs(l_change / s_change)
+                if np.isfinite(slope) and slope > p.slope_abs_max:
+                    constr += abs(slope - p.slope_abs_max) * 1000.0
+                    flags |= CONSTR_ANGLE
+                if s_change > d_fwd:
+                    constr += s_change - d_fwd
+                    flags |= CONSTR_OCCUPANCY
+                cost += p.w_safety_dist * max(0.0, s_change - d_safety)
+                ddds = tn[C_DDS] - tp[C_DDS]
+                ddl = tn[C_DL] - tp[C_DL]
+                cost += p.w_dds * (tp[C_DDS] * dt) ** 2
+                cost += p.w_ddds * ddds ** 2
+                cost += p.w_dl * (tp[C_DL] * dt) ** 2
+                cost += p.w_ddl * ddl ** 2
+
+            traj[i][C_COST] = cost
+            traj[i][C_CONSTR] = constr
+            traj[i][C_FLAGS] = float(flags)
+        return traj

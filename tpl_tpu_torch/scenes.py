@@ -6,7 +6,9 @@ bodies (``tests/test_torch_kernel_rehearsal.py``) all draw from here."""
 import numpy as np
 import torch
 
+from .planning.dyn_prog import dp_environment as dpe
 from .planning.dyn_prog import lon_kernel as tlk
+from .planning.dyn_prog import poly_planner_kernel as ppk
 from .planning.dyn_prog import poly_lat_kernel as plk
 from .planning.idm_sampling import idm_kernel as idk
 from .planning.poly_sampling import poly_sampling_planner as psp
@@ -282,3 +284,82 @@ def poly_scene(obstacles=True, bench=False):
     pp.rear_axis_to_front = 4.0
     pp.width_ego = 2.5
     return start, path, obs, pp
+
+
+def dp_poly_env(obstacle=True):
+    """tests/test_dp_poly_planner.py's ``_env`` scene on the port's
+    ``DpEnvironment`` (grids on ``tpl_tpu_torch.device()``): the demo env
+    grid (10 x 201 x 21, 21 directions) over a straight 200 m road, 10 m/s,
+    4 m to each side; with ``obstacle`` a stationary 4 x 2 m block at s
+    58-62 m on the centre line in every slice.  The directional field is
+    not computed."""
+    env = dpe.DpEnvironment()
+    env.reinit_buffers(dpe.DpEnvParams())
+    rl = np.zeros((401, 9))
+    rl[:, 0] = np.arange(401) * 0.5
+    rl[:, 3] = rl[:, 0]
+    rl[:, 5] = 10.0
+    rl[:, 6] = 4.0
+    rl[:, 7] = 4.0
+    env.set_ref_line(rl, 0.5)
+    if obstacle:
+        quad = np.array([[58., -1.], [62., -1.], [62., 1.], [58., 1.]])
+        env.insert_geometry([(quad, t) for t in np.arange(10.0)],
+                            stationary=True)
+    env.update()
+    return env
+
+
+def dp_random_occ(seed, T=10, S=201, L=21, density=0.1):
+    """A seeded occupancy grid (T, S, L) float32 of the four cell values
+    (0 free, 1 moving, 2 blocked, 3 stationary), ``density`` of it
+    occupied."""
+    rng = np.random.default_rng(seed)
+    occ = rng.integers(1, 4, (T, S, L)).astype(np.float32)
+    return np.where(rng.random((T, S, L)) < density, occ,
+                    np.float32(0.0)).astype(np.float32)
+
+
+def dp_poly_keys():
+    """The four (ds, l) start indices the graph DP's checks take at the
+    demo widths (15 ds x 21 l): slow and centred, a level-2 cap at ds 3 and
+    7 (469,335 and 577,838 edges uncapped), fast and off centre."""
+    return [(1, 10), (3, 10), (7, 10), (12, 4)]
+
+
+def dp_poly_propagation_case(seed, n1=40, e2=300, ties=True, nan=True):
+    """A seeded two-level graph for the propagation: a root with ``n1``
+    edges, level 1's nodes with ``e2`` edges among them (some nodes have
+    none), float32 points; with ``ties`` the costs take few values (equal
+    least costs in a node's range), with ``nan`` a NaN cost among level 2's
+    and one among level 1's.  Returns (node point arrays (float64, one per
+    level), edge start arrays (int32, one per level))."""
+    rng = np.random.default_rng(seed)
+    with_edges = rng.permutation(n1)[:n1 * 3 // 4]
+    starts2 = np.sort(rng.choice(with_edges, e2)).astype(np.int32)
+    counts = [1, n1, e2]
+    pts = []
+    for n in counts:
+        p = rng.normal(0.0, 5.0, (n, 8)).astype(np.float32)
+        if ties:
+            p[:, ppk.PP_COST] = rng.integers(0, 4, n).astype(np.float32)
+        pts.append(p.astype(np.float64))
+    if nan:
+        pts[2][rng.integers(0, e2), ppk.PP_COST] = np.nan
+        pts[1][rng.integers(0, n1), ppk.PP_COST] = np.nan
+    return pts, [np.zeros(n1, np.int32), starts2]
+
+
+def dp_poly_buffers(node_pts, edge_steps, dev):
+    """The device buffers of :func:`poly_planner_kernel.
+    propagate_and_backtrack` for a graph given as per-level point arrays:
+    (pts, node_cost, best, seg, node_off, seg_off, traj)."""
+    node_off, seg, seg_off = ppk.graph_layout([len(p) for p in node_pts],
+                                              edge_steps)
+    N, K = node_off[-1], len(edge_steps)
+    pts = torch.from_numpy(np.concatenate(node_pts).astype(np.float32))
+    return (pts.to(dev),
+            torch.zeros(N, dtype=torch.float64, device=dev),
+            torch.zeros(N, dtype=torch.int32, device=dev),
+            torch.from_numpy(seg).to(dev), node_off, seg_off,
+            torch.zeros((K + 1, 8), dtype=torch.float64, device=dev))

@@ -129,13 +129,18 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    run and hit), on the IDM loop's first replan and on the JAX bench's
    scene at its full width (bench.py ``_idm_setup``, rebuilt in
    ``tpl_tpu_torch/scenes.py``: NR=801, O=12, P=16, K=16, T=100,
-   C=16,384); no candidate may pass the tolerance nor flip ``invalid``;
-   prints the largest differences, the hull tests the gates let through
-   (collision, interaction), the candidates with an interaction cost and a
+   C=16,384), and on the hairpin scene (``scenes.idm_hairpin_scene``, C=8
+   and 256: a ref line that doubles back, where the exact pruned searches
+   must decide); no candidate may pass the tolerance nor flip ``invalid``;
+   prints the largest differences, the hull tests and path projections the
+   gates let through, the candidates with an interaction cost and a
    flipped selection; times both through the bare launcher and the wrapper
    in turns at C=16,384 and at the loop's C=8, the plain versions at
    C=16,384 (the compared run), and prints rollouts/s at C=16,384 (C over
-   the two kernels' ms), ``bound_ms`` and ``chain_ms``;
+   the two kernels' ms), blocks an SM and registers a thread (ptxas), the
+   needed-work ``bound_ms`` (the work an exact search needs on the bench's
+   plain rollout: ``idm_kernel.rollout_work``, ``evaluate_work``) beside
+   the full-scan one, and ``chain_ms``;
 15. poly sampling kernel: ``csrc/poly_sampling.cu`` against its plain
    version and the numpy oracle ``_eval_candidates`` on the JAX bench's
    scene (C=30), tests/test_poly_kernel.py's two scenes and the poly loop's
@@ -179,18 +184,26 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    planner rows carry their own loop's launches (per replan and per tick);
    the IDM rows their times
    at C=16,384 (``candidates``), at the loop's width (``loop_ms``),
-   ``rollouts_per_s`` and ``selection_flips``.  The three graph DP rows
+   ``rollouts_per_s``, ``selection_flips``, ``blocks_per_sm``,
+   ``registers``, ``spill_bytes``, the full-scan bound
+   (``full_scan_bound_ms``; ``bound_ms`` is the needed-work one) and the
+   counts behind it (``needed_work``).  The three graph DP rows
    carry their loop's launches (per replan and per tick) and the loop's
    ``runtime_environment`` / ``runtime_planning`` medians.
    Each phase prints its seconds.
 
 With ``--parent-csrc DIR`` (a directory holding another version of any of
-the four kernel sources and the headers they include, for example ``git
-show`` of an earlier commit's; may be given more than once) the kernel
-phases also build that version with the same flags, run both on the same
-inputs through the bare launchers in turns (other, tree, tree, other) and
-print the largest difference of the results and the four times; for the
-action-min and the rampify scan a difference other than 0.0 raises.  A
+the kernel sources ``latlon_action_min.cu``, ``ilqr_tracking_mpc.cu``,
+``ilqr_rstp.cu``, ``rstp_rampify.cu``, ``idm_rollout.cu``,
+``idm_evaluate.cu`` and the headers they include, for example ``git show``
+of an earlier commit's; may be given more than once) the kernel phases
+also build that version with the same flags, run both on the same inputs
+through the bare launchers in turns (other, tree, tree, other) and print
+the largest difference of the results and the four times; for the
+action-min, the rampify scan and the two IDM kernels (the IDM kernels on
+the JAX bench's scene, the loop's first replan, the seeded scenes and the
+hairpin; the evaluation of the tree's rollout) a difference other than 0.0
+raises.  A
 rampify source of the earlier one-buffer launcher is recognised, and if it
 exports ``rstp_rampify_profile`` with stamps after its staging, backward
 scan, forward scan and write-out, its "phases" lines are printed too.
@@ -210,6 +223,7 @@ printing any result.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -998,8 +1012,8 @@ def compare_with_parent(source, lib_fn, csrc, cases, n=30):
         print(f"{source} {what} vs the source in {csrc}: max |new - parent| "
               f"{diff:.3e}; ms per launch parent {a:.4f}, new {b:.4f}, new "
               f"{c:.4f}, parent {d:.4f}")
-        if not diff == 0.0 and source in ("rstp_rampify",
-                                          "latlon_action_min"):
+        if not diff == 0.0 and source in ("rstp_rampify", "latlon_action_min",
+                                          "idm_rollout", "idm_evaluate"):
             raise AssertionError(f"{source} {what}: the result differs from "
                                  "the parent kernel's")
     return parent_lib
@@ -2417,7 +2431,7 @@ def plain_timed(fn):
     return out, start.elapsed_time(stop)
 
 
-def idm_compare(idk, what, args, T, lg, refs=None, cons=None):
+def idm_compare(idk, what, args, T, lg, refs=None, cons=None, keep=False):
     """The IDM kernels against their plain versions on the card on one
     scene, every candidate: the rollout (unless ``refs`` / ``cons`` are
     given: the evaluation alone on them) and the evaluation of the kernel's
@@ -2426,8 +2440,9 @@ def idm_compare(idk, what, args, T, lg, refs=None, cons=None):
     let through (collision, interaction: :func:`idm_kernel.evaluate_work`),
     the candidates with an interaction cost and whether the selection
     flipped.  Returns (max rollout err, max evaluation err, selection
-    flipped, plain rollout ms, plain evaluation ms, (n_coll, n_inter), the
-    kernel's costs (5, C))."""
+    flipped, plain rollout ms, plain evaluation ms, (n_coll, n_inter,
+    n_proj), the kernel's costs (5, C)) and, with ``keep``, the plain
+    rollout (ref_states, states)."""
     import torch
 
     e_roll, ms_roll, past = 0.0, None, None
@@ -2440,7 +2455,8 @@ def idm_compare(idk, what, args, T, lg, refs=None, cons=None):
             e_roll = max(e_roll, float(d.max()))
             bad = (d > IDM_TOL + IDM_TOL * torch.abs(w)).flatten(1).any(1)
             past = bad if past is None else past | bad
-        del want
+        if not keep:
+            del want
     costs = idk.evaluate(refs, cons, args[2], args[7], args[5], args[6],
                          args[8], lg)
     want_c, ms_eval = plain_timed(lambda: idk.evaluate_reference(
@@ -2451,40 +2467,100 @@ def idm_compare(idk, what, args, T, lg, refs=None, cons=None):
     past = bad if past is None else past | bad
     n_past = int(past.sum())
     flips = int((costs[4] != want_c[4]).sum())
-    work = idk.evaluate_work(cons, args[7], args[8])
+    work = idk.evaluate_work(cons, args[7], args[8], projections=True)
     n_int = int((costs[2] > 0).sum())
     sel_k, sel_p = _first_min(costs.cpu()), _first_min(want_c.cpu())
     print(f"idm check, {what} ({costs.shape[1]} candidates of {T} steps): "
           f"max|kernel-plain| rollout {e_roll:.3e}, evaluation "
           f"{e_eval:.3e}; {n_past} candidates past rtol = atol = "
           f"{IDM_TOL:g}; invalid flipped on {flips}; the gates let "
-          f"{work[0]} collision and {work[1]} interaction hull tests "
-          f"through, {n_int} candidates with an interaction cost, "
+          f"{work[0]} collision and {work[1]} interaction hull tests and "
+          f"{work[2]} of {costs.shape[1] * T * args[7]['valid'].shape[0]} "
+          f"path projections through, {n_int} candidates with an "
+          f"interaction cost, "
           f"{int(costs[4].sum())} invalid; selection kernel {sel_k}, plain "
           f"{sel_p}" + (" (FLIPPED: a near tie)" if sel_k != sel_p else ""))
     if n_past or flips:
         raise AssertionError(f"idm {what}: kernels and plain versions differ")
-    return e_roll, e_eval, sel_k != sel_p, ms_roll, ms_eval, work, costs
+    res = (e_roll, e_eval, sel_k != sel_p, ms_roll, ms_eval, work, costs)
+    return res + (want,) if keep else res
 
 
-def idm_kernel_phase(idk, first, dev, cycles, mhz):
+def ptxas_usage(name):
+    """(registers a thread, spill stores + loads in bytes) of a kernel
+    library built from csrc/, from its ptxas report, or (None, None)."""
+    from tpl_tpu_torch import _build
+
+    log = _build.BUILD_LOG.get(name, "")
+    regs = re.findall(r"Used (\d+) registers", log)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        log)
+    if not regs:
+        return None, None
+    return (max(int(r) for r in regs),
+            sum(int(a) + int(b) for a, b in spills))
+
+
+def idm_parent_cases(idk, scenes, dev):
+    """The ``compare_with_parent`` cases of the IDM kernels on ``scenes``
+    ((what, args, T, lg), the rollout's arguments): the rollout into one
+    buffer (the ref states, then the states), the evaluation of the tree
+    kernel's rollout."""
+    import torch
+
+    lib = idk._kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    roll, ev = [], []
+    for what, a, T, lg in scenes:
+        C = a[2].shape[0]
+        NR, OPK = a[5].shape[0], a[7]["hull_preds"].shape[:3]
+        optrs = [a[7][k].data_ptr() for k in idk.OBJ_KEYS]
+        like = torch.empty(C * T * 19, dtype=torch.float32, device=dev)
+
+        def r_call(fn, out, a=a, C=C, T=T, NR=NR, OPK=OPK, optrs=optrs):
+            return fn(*(x.data_ptr() for x in a[:7]), *optrs, a[8].data_ptr(),
+                      out.data_ptr(), out.data_ptr() + C * T * 10 * 4, C, T,
+                      NR, *OPK, stream)
+        refs, cons = idk.rollout(*a, T)
+        costs = torch.empty((5, C), dtype=torch.float32, device=dev)
+
+        def e_call(fn, out, a=a, C=C, T=T, NR=NR, OPK=OPK, optrs=optrs,
+                   refs=refs, cons=cons, lg=lg):
+            return fn(refs.data_ptr(), cons.data_ptr(), a[2].data_ptr(),
+                      *optrs, a[5].data_ptr(), a[6].data_ptr(),
+                      a[8].data_ptr(), lg.data_ptr(), out.data_ptr(), C, T,
+                      NR, *OPK, stream)
+        roll.append((f"{what} (C={C}, T={T})", like, r_call))
+        ev.append((f"{what} (C={C}, T={T})", costs, e_call))
+    return {"idm_rollout": (lib.idm_rollout, roll),
+            "idm_evaluate": (lib.idm_evaluate, ev)}
+
+
+def idm_kernel_phase(idk, first, dev, cycles, mhz, parent_csrc=None):
     """The IDM kernels against their plain versions on the card, every
     candidate: the seeded scenes of tests/test_idm_kernel.py (the stop
     cell, off-road excursions to +-5 m, the parked collider with
     trajectories driven through it), an oncoming car (the interaction
-    screen's hull tests must run and hit), the loop's first replan (C=8)
-    and the JAX bench's scene at its full width (C=16,384); times both
-    kernels through the bare launcher and the wrapper in turns at C=16,384
-    and C=8, the plain versions at C=16,384 (the compared run);
-    rollouts/s, ``bound_ms`` and ``chain_ms``."""
+    screen's hull tests must run and hit), the hairpin scene (a ref line
+    that doubles back: the exact searches must decide), the loop's first
+    replan (C=8) and the JAX bench's scene at its full width (C=16,384);
+    times both kernels through the bare launcher and the wrapper in turns
+    at C=16,384 and C=8, the plain versions at C=16,384 (the compared run);
+    rollouts/s, blocks an SM, registers a thread, the full-scan and the
+    needed-work ``bound_ms`` and ``chain_ms``; and (with ``parent_csrc``)
+    both kernels against another version of their sources on the bench,
+    the loop's first replan, the seeded scenes and the hairpin, bit for
+    bit, in turns."""
     import torch
-    from tpl_tpu_torch.scenes import (idm_args, idm_bench_scene, idm_scene,
+    from tpl_tpu_torch.scenes import (idm_args, idm_bench_scene,
+                                      idm_hairpin_scene, idm_scene,
                                       idm_through_states)
 
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
     lg0 = torch.zeros(1, dtype=torch.float32, device=dev)
     res = {"idm_rollout": {"err": 0.0}, "idm_evaluate": {"err": 0.0}}
     flips = []
+    parent_scenes = []
 
     def note(r):
         res["idm_rollout"]["err"] = max(res["idm_rollout"]["err"], r[0])
@@ -2492,16 +2568,22 @@ def idm_kernel_phase(idk, first, dev, cycles, mhz):
         flips.append(r[2])
         return r
 
-    for what, kw, C, T, lt in (("stop cell", dict(stop_cell=True), 48, 30, 5),
-                               ("off-road", dict(), 13, 100, 5),
-                               ("oncoming car", dict(oncoming=True), 256,
-                                100, 5)):
-        rl, objs, pp, ir, ic = idm_scene(**kw)
+    for what, scene, kw, C, T, lt in (
+            ("stop cell", idm_scene, dict(stop_cell=True), 48, 30, 5),
+            ("off-road", idm_scene, dict(), 13, 100, 5),
+            ("hairpin", idm_hairpin_scene, dict(), 8, 100, 5),
+            ("hairpin", idm_hairpin_scene, dict(), 256, 100, 5),
+            ("oncoming car", idm_scene, dict(oncoming=True), 256, 100, 5)):
+        rl, objs, pp, ir, ic = scene(**kw)
         l_trgs = np.linspace(-lt, lt, C).astype(np.float32)
         d_stops = np.where(np.arange(C) % 3 == 0, 30.0, 1e6).astype(
             np.float32)
         a = idm_args(rl, objs, pp, ir, ic, l_trgs, d_stops, dev)
         r = note(idm_compare(idk, what, a, T, lg0))
+        parent_scenes.append((what, a, T, lg0))
+        if what == "hairpin" and not (r[5][1] > 0 and r[5][2] > 0):
+            raise AssertionError("idm hairpin: no interaction hull test or "
+                                 "path projection ran")
     if not (r[5][1] > 0 and bool((r[6][2] > 0).any())):
         raise AssertionError("idm oncoming car: no interaction hull test "
                              "hit")
@@ -2522,13 +2604,19 @@ def idm_kernel_phase(idk, first, dev, cycles, mhz):
               f32(first["pp"]))
     loop_T, loop_lg = first["T"], f32([first["l_trg_global"]])
     note(idm_compare(idk, "the loop's first replan", loop_a, loop_T, loop_lg))
+    parent_scenes.append(("the loop's first replan", loop_a, loop_T,
+                          loop_lg))
 
     # the JAX bench's scene at its full width (the plain versions' times)
     rl, objs, pp, ir, ic, l_trgs, d_stops = idm_bench_scene(IDM_C)
     T = 100
     big = idm_args(rl, objs, pp, ir, ic, l_trgs, d_stops, dev)
-    _, _, _, plain_roll, plain_eval, (n_coll, n_inter), _ = note(
-        idm_compare(idk, "the JAX bench's scene", big, T, lg0))
+    _, _, _, plain_roll, plain_eval, (n_coll, n_inter, n_proj), _, \
+        (p_refs, p_cons) = note(idm_compare(idk, "the JAX bench's scene",
+                                            big, T, lg0, keep=True))
+    parent_scenes.append(("the JAX bench's scene", big, T, lg0))
+    work = idk.rollout_work(p_refs, p_cons, big[5], big[6][0], big[8])
+    del p_refs, p_cons
 
     lib = idk._kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -2568,38 +2656,65 @@ def idm_kernel_phase(idk, first, dev, cycles, mhz):
                            lambda: idk.evaluate(out_r, out_c, a[2], a[7],
                                                 a[5], a[6], a[8], lg,
                                                 out=out_e), n))
+    split = {C: bool(lib.rollout_lib.idm_rollout_split(C))
+             for C in (len(first["l_trgs"]), IDM_C)}
     occupancy = (lib.idm_rollout_blocks_per_sm(NR, O, P, K),
                  lib.idm_evaluate_blocks_per_sm(T, O, P, K))
+    usage = (ptxas_usage("idm_rollout"), ptxas_usage("idm_evaluate"))
     print(f"idm blocks of 256 threads per SM at NR={NR}, O={O}, P={P}, "
-          f"K={K}, T={T}: rollout {occupancy[0]} (8 candidates a block), "
-          f"evaluation {occupancy[1]} (2 a block)")
+          f"K={K}, T={T}: rollout {occupancy[0]} (8 candidates a block, "
+          f"or 4 of two warps each; two warps a candidate at C = "
+          f"{', '.join(f'{c}: {v}' for c, v in split.items())}), "
+          f"evaluation {occupancy[1]} (persistent, batches of up to 16 "
+          f"candidates); registers a thread (spilled bytes): rollout "
+          f"{usage[0][0]} ({usage[0][1]}), evaluation {usage[1][0]} "
+          f"({usage[1][1]})")
     (r_ms, r_wms), (e_ms, e_wms) = times["full"]
     rate = IDM_C / (r_ms + e_ms) * 1e3
     res["idm_rollout"].update(
         ms=r_ms, wrapper_ms=r_wms, plain_ms=plain_roll,
         loop_ms=times["loop"][0][0], loop_wrapper_ms=times["loop"][0][1],
-        bound=idk.rollout_bound_ms(IDM_C, T, NR, O, P, K),
+        bound=idk.rollout_bound_ms(IDM_C, T, NR, O, P, K, work),
+        full_scan_bound=idk.rollout_bound_ms(IDM_C, T, NR, O, P, K),
         chain=idk.rollout_chain_ms(T, cycles, mhz),
-        blocks_per_sm=occupancy[0])
+        blocks_per_sm=occupancy[0], registers=usage[0][0],
+        spill_bytes=usage[0][1], work=work)
     res["idm_evaluate"].update(
         ms=e_ms, wrapper_ms=e_wms, plain_ms=plain_eval,
         loop_ms=times["loop"][1][0], loop_wrapper_ms=times["loop"][1][1],
-        bound=idk.evaluate_bound_ms(IDM_C, T, NR, O, P, K, n_coll, n_inter),
+        bound=idk.evaluate_bound_ms(IDM_C, T, NR, O, P, K, n_coll, n_inter,
+                                    n_proj),
+        full_scan_bound=idk.evaluate_bound_ms(IDM_C, T, NR, O, P, K, n_coll,
+                                              n_inter),
         chain=idk.evaluate_chain_ms(T, O, cycles, mhz),
-        blocks_per_sm=occupancy[1])
+        blocks_per_sm=occupancy[1], registers=usage[1][0],
+        spill_bytes=usage[1][1],
+        work=dict(collision_tests=n_coll, interaction_tests=n_inter,
+                  projections=n_proj))
     for row, r in res.items():
         r.update(selection_flips=sum(flips), rollouts_per_s=rate)
         print(f"{row}: kernel {r['ms']:.4f} ms at C={IDM_C} (bare launcher; "
               f"wrapper {r['wrapper_ms']:.4f}; {r['loop_ms']:.4f} at the "
               f"loop's C={len(first['l_trgs'])}), plain {r['plain_ms']:.2f} "
               f"ms at C={IDM_C}, bound_ms {r['bound'][0]:.6f} "
-              f"({r['bound'][1]}), chain_ms {r['chain']:.6f}; max"
+              f"({r['bound'][1]}, the work these inputs need: {r['work']}), "
+              f"full-scan bound_ms {r['full_scan_bound'][0]:.6f} "
+              f"({r['full_scan_bound'][1]}), chain_ms {r['chain']:.6f}; max"
               f"|kernel-plain| {r['err']:.3e}")
     print(f"idm rollouts/s at C={IDM_C}, T={T}: {rate:.0f} (C over the two "
           f"kernels' bare-launcher ms {r_ms:.4f} + {e_ms:.4f}); the "
           f"evaluation's gates let {n_coll} collision and {n_inter} "
-          f"interaction hull tests through of {IDM_C * T * O} each; "
-          f"selection flips {sum(flips)} of {len(flips)} scenes")
+          f"interaction hull tests and {n_proj} path projections through "
+          f"of {IDM_C * T * O} each; selection flips {sum(flips)} of "
+          f"{len(flips)} scenes")
+
+    # the sources against another version of them, bit for bit, in turns
+    for source, (fn, cases) in (idm_parent_cases(idk, parent_scenes, dev)
+                                if parents_with(parent_csrc, "idm_rollout")
+                                or parents_with(parent_csrc, "idm_evaluate")
+                                else {}).items():
+        for csrc in parents_with(parent_csrc, source):
+            compare_with_parent(source, fn, csrc, cases)
     return res
 
 
@@ -3093,7 +3208,8 @@ def main(argv=()):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", action="append", metavar="DIR",
                     help="a directory with another version of any of the "
-                    "four kernel sources (and the headers they include): "
+                    "six kernel sources the phases compare (and the headers "
+                    "they include): "
                     "built with the same flags, run in turns with the tree's "
                     "kernels on the same inputs, results and times printed")
     ap.add_argument("--kernels-only", action="store_true",
@@ -3205,7 +3321,7 @@ def main(argv=()):
     poly = phase("poly sampling closed loop, country_follow",
                  rollout_loop_phase, idk, pok, POLY, ROLLOUT_TICKS)
     ik = phase("IDM kernels", idm_kernel_phase, idk, idm["first"], dev,
-               cycles, mhz)
+               cycles, mhz, opts.parent_csrc)
     pk = phase("poly sampling kernel", poly_kernel_phase, pok, psp,
                poly["first"], dev, cycles, mhz)
     gdp = phase("graph DP closed loop", dp_poly_loop_phase, dpe, ppk,
@@ -3362,7 +3478,9 @@ def main(argv=()):
             "chain_ms": r["chain"], "library_ms": NO_LIBRARY}
         if name != "poly_sampling":
             row.update(candidates=IDM_C, blocks_per_sm=r["blocks_per_sm"],
-                       loop_ms=r["loop_ms"],
+                       registers=r["registers"], spill_bytes=r["spill_bytes"],
+                       full_scan_bound_ms=r["full_scan_bound"][0],
+                       needed_work=r["work"], loop_ms=r["loop_ms"],
                        loop_wrapper_ms=r["loop_wrapper_ms"],
                        rollouts_per_s=r["rollouts_per_s"],
                        selection_flips=r["selection_flips"])

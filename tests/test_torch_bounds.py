@@ -310,3 +310,86 @@ def test_graph_dp_bounds_at_the_demo_widths():
     assert ppk.propagate_chain_ms(node_off, __import__("numpy").array(seg),
                                   seg_off, cycles, 2000) == pytest.approx(
         (2 * (8 + 30) + 2 * (5 * 8 + 5 * 30) + 2 * 2 * 30) / 2e6)
+
+
+def test_idm_full_scan_bounds_at_the_bench_width():
+    """The full-scan bounds keep their counts: per candidate step 22 per
+    hull point, 14 per object, 8 per ref cell, 16 per segment, 300 for the
+    speed-limit lookups and 120 for the IDM law and the controller; per
+    (candidate, step, object) of the evaluation the gate and a projection
+    onto all P - 1 path segments."""
+    from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
+    C, T, NR, O, P, K = 16384, 100, 801, 12, 16, 16
+    per_step = 22 * O * K + 14 * O + 8 * NR + 16 * (NR - 1) + 300 + 120
+    assert idk.rollout_operations(C, T, NR, O, K) == C * (T - 1) * per_step
+    per_obj = 10 + 16 * (P - 1) + 8 * P + 12
+    sat = 18 * K + (3 * K + 18) * K
+    assert idk.evaluate_operations(C, T, O, P, K, 5, 7) == (
+        C * T * (O * per_obj + 12) + 12 * sat)
+
+
+def _hairpin_rollout(C=12, T=40):
+    from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
+    from tpl_tpu_torch.scenes import idm_args, idm_hairpin_scene
+    import numpy as np
+    rl, objs, pp, ir, ic = idm_hairpin_scene()
+    l_trgs = np.linspace(-5, 5, C).astype(np.float32)
+    d_stops = np.full(C, 1e6, np.float32)
+    a = idm_args(rl, objs, pp, ir, ic, l_trgs, d_stops, "cpu")
+    refs, cons = idk.rollout_reference(*a[:4], a[4][0], a[5], a[6][0], a[7],
+                                       a[8], T)
+    return a, refs, cons
+
+
+def test_idm_needed_work_counts_what_an_exact_search_needs():
+    """On the hairpin scene the needed-work bound counts fewer operations
+    than the full scan, at least one chunk of segments a step, the cells
+    of the chunks the stop point opens, and only the path projections the
+    path gate lets through."""
+    from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
+    C, T = 12, 40
+    a, refs, cons = _hairpin_rollout(C, T)
+    NR, (O, P, K) = a[5].shape[0], a[7]["hull_preds"].shape[:3]
+    w = idk.rollout_work(refs, cons, a[5], a[6][0], a[8])
+    n_sch = (NR - 1 + 31) // 32
+    assert w["seg_chunks"] == C * (T - 1) * n_sch
+    assert 32 * C * (T - 1) <= w["segments"] < C * (T - 1) * (NR - 1)
+    assert w["cells"] > 0 and w["cells"] % 32 == 0
+    needed = idk.rollout_operations(C, T, NR, O, K, w)
+    assert needed < idk.rollout_operations(C, T, NR, O, K)
+    n_coll, n_inter, n_proj = idk.evaluate_work(cons, a[7], a[8],
+                                                projections=True)
+    assert (n_coll, n_inter) == idk.evaluate_work(cons, a[7], a[8])
+    assert 0 < n_proj < C * T * O
+    assert idk.evaluate_operations(C, T, O, P, K, n_coll, n_inter, n_proj) < \
+        idk.evaluate_operations(C, T, O, P, K, n_coll, n_inter)
+    ms, by = idk.rollout_bound_ms(C, T, NR, O, P, K, w)
+    assert by in ("bytes", "operations") and ms > 0
+
+
+def test_idm_box_keys_never_exclude_the_nearest_segment():
+    """The exact pruning's premise, on every step of the hairpin rollouts:
+    the chunk that holds the projection's nearest segment has a box key
+    not above the least squared distance (float32, the kernels' formula),
+    and so does every chunk holding a segment at that least distance."""
+    from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
+    a, refs, cons = _hairpin_rollout()
+    rl = a[5]
+    NR = rl.shape[0]
+    n_sch = (NR - 1 + 31) // 32
+    boxes = idk._grown_boxes(rl[:, 0], rl[:, 1], n_sch)
+    ax, ay, vx, vy, vv = (t[:, None] for t in
+                          idk._seg_tables(rl[:, :2])[:5])
+    px, py = cons[:, 1:, idk.V_X].flatten(), cons[:, 1:, idk.V_Y].flatten()
+    q = torch.clamp(((px - ax) * vx + (py - ay) * vy) / vv, 0.0, 1.0)
+    ex, ey = px - (ax + vx * q), py - (ay + vy * q)
+    d2 = ex * ex + ey * ey                                  # (NR - 1, N)
+    best = d2.amin(0)
+    key = idk._box_key(boxes[:, None], px, py)              # (n_sch, N)
+    at_min = d2 == best
+    chunk_of = torch.arange(NR - 1) // 32
+    for j in range(n_sch):
+        holds = at_min[chunk_of == j].any(0)
+        assert bool((key[j][holds] <= best[holds]).all())
+    # and the boxes exclude most chunks: the pruning decides here
+    assert float((key > best).float().mean()) > 0.5

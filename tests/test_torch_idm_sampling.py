@@ -15,7 +15,8 @@ Tolerances:
 - the rollout and evaluation on the scenes of tests/test_idm_kernel.py
   (T = 20-30): rtol = atol = 1e-5, the JAX package's own lanes-vs-vmap
   tolerance there; ``invalid`` equal;
-- a T = 100 rollout: rtol = atol = 1e-4.  The port's transcendentals and
+- a T = 100 rollout (the stop-cell, bench, oncoming and hairpin scenes):
+  rtol = atol = 1e-4.  The port's transcendentals and
   XLA's (which contracts multiply-adds into FMAs on the CPU) part by an ulp
   now and then, and 99 closed-loop steps carry that forward.  The three
   multiply-adds where XLA's rounding decides when a stopped candidate
@@ -47,7 +48,7 @@ import tpl_tpu_torch
 from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
 from tpl_tpu_torch.planning.idm_sampling import idm_sampling_planner as isp
 from tpl_tpu_torch.scenes import idm_scene, idm_through_states, \
-    idm_bench_scene
+    idm_bench_scene, idm_hairpin_scene
 from tpl_tpu_torch.simulation import SimStandalone
 
 PLANNER = "idm_sampling_planner"
@@ -232,6 +233,37 @@ def test_plain_evaluate_matches_jax(case):
         assert n_inter > 0 and (want["cost_interaction"] > 0).any()
         hit = want["cost_collision"] > 0
         assert hit.any() and not hit.all()
+
+
+@pytest.mark.parametrize("T,C,tol", [(30, 16, RTOL), (100, 24, LONG_TOL)])
+def test_plain_hairpin_matches_jax(T, C, tol):
+    """The hairpin scene (scenes.idm_hairpin_scene: a ref line that doubles
+    back, its legs 8 m apart, a zero-speed stretch, a narrowing and four
+    objects, one oncoming): the plain rollout against JAX ``rollout_lanes``
+    (1e-5 at T = 30, 1e-4 at T = 100, as the other scenes), then the plain
+    evaluation of the JAX rollout against ``evaluate_lanes`` at 1e-5.
+    Over 99 steps candidates reach the second leg and stop, and the
+    interaction screen's hull tests run and hit."""
+    rl, objs, pp, init_ref, init_con = idm_hairpin_scene()
+    l_trgs = np.linspace(-5, 5, C).astype(np.float32)
+    d_stops = np.where(np.arange(C) % 3 == 0, 30.0, 1e6).astype(np.float32)
+    (jr, jc), (pr, pc) = _rollouts(rl, objs, pp, init_ref, init_con, l_trgs,
+                                   d_stops, T)
+    np.testing.assert_allclose(pr, jr, rtol=tol, atol=tol)
+    np.testing.assert_allclose(pc, jc, rtol=tol, atol=tol)
+    want, got = _evaluations(rl, objs, pp, jr, jc, l_trgs, T)
+    np.testing.assert_array_equal(got["invalid"], want["invalid"])
+    for k in idk.COST_KEYS[:4]:
+        np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL,
+                                   err_msg=k)
+    if T == 100:
+        half_circle_end = 40.0 + 4.0 * np.pi
+        assert (jc[:, -1, idk.V_S] > half_circle_end).any()
+        assert (jc[:, -1, idk.V_V] == 0.0).any()
+        n_inter = idk.evaluate_work(torch.from_numpy(jc),
+                                    idk.objs_to_torch(objs, "cpu"),
+                                    _port_pp(pp))[1]
+        assert n_inter > 0 and (want["cost_interaction"] > 0).any()
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu():

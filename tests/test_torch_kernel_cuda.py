@@ -53,7 +53,8 @@ from tpl_tpu_torch.planning.dyn_prog import dp_environment as dpe
 from tpl_tpu_torch.planning.dyn_prog import poly_planner_kernel as ppk
 from tpl_tpu_torch.scenes import (LON_DEMO, dp_poly_buffers, dp_poly_env,
                                   dp_poly_propagation_case, dp_random_occ,
-                                  idm_args, idm_bench_scene, idm_scene,
+                                  idm_args, idm_bench_scene,
+                                  idm_hairpin_scene, idm_scene,
                                   idm_through_states, lon_nodes, lon_scene,
                                   poly_lat_scene, poly_scene, rampify_args)
 import tpl_tpu_torch
@@ -873,12 +874,15 @@ def _idm_rollout_case(dev, scene, C, T):
     if scene == "bench":
         rl, objs, pp, init_ref, init_con, l_trgs, d_stops = \
             idm_bench_scene(C)
+        return idm_args(rl, objs, pp, init_ref, init_con, l_trgs, d_stops,
+                        dev)
+    if scene == "hairpin":
+        rl, objs, pp, init_ref, init_con = idm_hairpin_scene()
     else:
         rl, objs, pp, init_ref, init_con = idm_scene(
             stop_cell=scene == "stop_cell", oncoming=scene == "oncoming")
-        l_trgs = np.linspace(-5, 5, C).astype(np.float32)
-        d_stops = np.where(np.arange(C) % 3 == 0, 30.0, 1e6).astype(
-            np.float32)
+    l_trgs = np.linspace(-5, 5, C).astype(np.float32)
+    d_stops = np.where(np.arange(C) % 3 == 0, 30.0, 1e6).astype(np.float32)
     return idm_args(rl, objs, pp, init_ref, init_con, l_trgs, d_stops, dev)
 
 
@@ -891,7 +895,8 @@ def _cpu(args):
 @pytest.mark.parametrize("scene,C,T", [("stop_cell", 48, 30),
                                        ("free", 13, 100),
                                        ("bench", 64, 100),
-                                       ("oncoming", 24, 100)])
+                                       ("oncoming", 24, 100),
+                                       ("hairpin", 24, 100)])
 def test_idm_rollout_kernel_matches_plain(cuda, scene, C, T):
     args = _idm_rollout_case(cuda, scene, C, T)
     before = (idk.rollout_launches, idk.evaluate_launches)
@@ -908,14 +913,19 @@ def test_idm_rollout_kernel_matches_plain(cuda, scene, C, T):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["collider", "rollout", "oncoming"])
+@pytest.mark.parametrize("case", ["collider", "rollout", "oncoming",
+                                  "hairpin"])
 def test_idm_evaluate_kernel_matches_plain(cuda, case):
     """The parked collider (the collision screen hits), a rollout of the
-    stop-cell scene and one of an oncoming car (the interaction screen's
-    hull tests run and hit)."""
-    rl, objs, pp, init_ref, init_con = idm_scene(
-        stop_cell=case == "rollout", collider=case == "collider",
-        oncoming=case == "oncoming")
+    stop-cell scene, one of an oncoming car (the interaction screen's hull
+    tests run and hit) and one of the hairpin scene (the path gate lets a
+    part of the projections through)."""
+    if case == "hairpin":
+        rl, objs, pp, init_ref, init_con = idm_hairpin_scene()
+    else:
+        rl, objs, pp, init_ref, init_con = idm_scene(
+            stop_cell=case == "rollout", collider=case == "collider",
+            oncoming=case == "oncoming")
     if case == "collider":
         C, T = 64, 20
         refs, cons = (torch.from_numpy(a).to(cuda)
@@ -944,6 +954,9 @@ def test_idm_evaluate_kernel_matches_plain(cuda, case):
     if case == "oncoming":
         assert idk.evaluate_work(cons, a[7], a[8])[1] > 0
         assert (want[2] > 0).any() and (want[3] > 0).any()
+    if case == "hairpin":
+        n_proj = idk.evaluate_work(cons, a[7], a[8], projections=True)[2]
+        assert 0 < n_proj < C * 100 * objs["pred_t"].shape[0]
 
 
 @pytest.mark.cuda

@@ -4,8 +4,10 @@ There is no CUDA compiler and no card where these tests run, but the kernel
 bodies are plain C++ once the CUDA runtime's few names are supplied.  The
 fixture writes a stand-in ``cuda_runtime.h`` (``__syncthreads`` as a
 ``std::barrier`` over 256 ``std::thread``s, ``__syncwarp`` and
-``__shfl_sync`` as a per-warp barrier and exchange, ``clock64`` as a
-counter, ``float2`` / ``float4``, a ``blockIdx`` per thread), compiles the
+``__shfl_sync`` / ``__ballot_sync`` as a per-warp barrier and exchange,
+``__ffs`` as a count of trailing zeros, ``clock64`` as a
+counter, ``float2`` / ``float4``, a ``blockIdx`` and ``gridDim`` per
+thread), compiles the
 kernel sources of ``csrc/`` with ``g++ -std=c++20 -ffp-contract=off``
 (their launchers sit under ``#ifdef __CUDACC__``; the asynchronous copy and
 the NaN-passing max / min instructions have plain stand-ins under ``#ifndef
@@ -80,7 +82,8 @@ from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner as psp
 
 from tpl_tpu_torch.scenes import (dp_poly_buffers, dp_poly_env,
                                   dp_poly_propagation_case, dp_random_occ,
-                                  idm_args, idm_scene, idm_through_states,
+                                  idm_args, idm_hairpin_scene, idm_scene,
+                                  idm_through_states,
                                   lon_nodes, lon_scene, poly_lat_scene,
                                   poly_scene)
 
@@ -110,6 +113,7 @@ STUB = r"""
 struct Dim3 { unsigned x, y, z; };
 inline thread_local Dim3 threadIdx{0, 0, 0};
 inline thread_local Dim3 blockIdx{0, 0, 0};
+inline thread_local Dim3 gridDim{1, 1, 1};
 inline const Dim3 blockDim{256, 1, 1};
 
 struct float2 { float x, y; };
@@ -144,6 +148,21 @@ inline T __shfl_sync(unsigned, T v, int src) {
   __syncwarp();
   return r;
 }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const unsigned v = pred ? 1u : 0u;
+  std::memcpy(rehearsal::exchange[w][lane], &v, sizeof(v));
+  __syncwarp();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) {
+    unsigned b;
+    std::memcpy(&b, rehearsal::exchange[w][i], sizeof(b));
+    r |= b << i;
+  }
+  __syncwarp();
+  return r;
+}
+inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 inline long long clock64() {
   static thread_local long long t = 0;
   return ++t;
@@ -188,6 +207,7 @@ static void run_grid(unsigned gx, unsigned gy, F body) {
   for (unsigned i = 0; i < 256; ++i)
     pool.emplace_back([=] {
       threadIdx.x = i;
+      gridDim = {gx, gy, 1};
       for (unsigned by = 0; by < gy; ++by)
         for (unsigned bx = 0; bx < gx; ++bx) {
           blockIdx.x = bx;
@@ -270,38 +290,49 @@ extern "C" void rehearse_poly_lat_select(const float* cd, const double* tc,
   });
 }
 
-// the IDM rollout on a grid of C / 8 blocks (a warp per candidate); objs
-// holds the ten object arrays in idm_kernel.OBJ_KEYS order
+// the IDM rollout on a grid of C / 8 blocks (a warp per candidate) or,
+// split, of C / 4 (two warps per candidate); objs holds the ten object
+// arrays in idm_kernel.OBJ_KEYS order
 extern "C" void rehearse_idm_rollout(
     const float* init_ref, const float* init_con, const float* l_trgs,
     const float* d_stops, const float* dt_replan, const float* ref_line,
     const float* ref_step, const float* const* objs, const float* pp,
     float* out_ref, float* out_con, int C, int T, int NR, int O, int P,
-    int K) {
+    int K, int split) {
   using namespace idm_rollout_k;
   const Objs ob = {objs[0], objs[1], objs[2], objs[3], objs[4],
                    objs[5], objs[6], objs[7], objs[8], objs[9]};
-  run_grid((C + CANDS - 1) / CANDS, 1, [=] {
-    idm_rollout_kernel(init_ref, init_con, l_trgs, d_stops, dt_replan,
-                       ref_line, ref_step, ob, pp, out_ref, out_con, C, T,
-                       NR, O, P, K);
+  const int cands = split ? WARPS / 2 : WARPS;
+  run_grid((C + cands - 1) / cands, 1, [=] {
+    if (split)
+      idm_rollout_kernel<true>(init_ref, init_con, l_trgs, d_stops,
+                               dt_replan, ref_line, ref_step, ob, pp, out_ref,
+                               out_con, C, T, NR, O, P, K);
+    else
+      idm_rollout_kernel<false>(init_ref, init_con, l_trgs, d_stops,
+                                dt_replan, ref_line, ref_step, ob, pp,
+                                out_ref, out_con, C, T, NR, O, P, K);
   });
 }
 
 // the packed parameters' keys as the two IDM kernels index them
 extern "C" const char* rehearse_idm_param_keys() { return idm::PARAM_KEYS; }
 
-// the IDM evaluation on a grid of C / 2 blocks
+// the IDM evaluation on the launcher's grid for `slots` resident blocks
+// (persistent blocks walking batches of candidates)
 extern "C" void rehearse_idm_evaluate(
     const float* refs, const float* states, const float* l_trgs,
     const float* const* objs, const float* ref_line, const float* ref_step,
     const float* pp, const float* l_trg_global, float* out, int C, int T,
-    int NR, int O, int P, int K) {
+    int NR, int O, int P, int K, int slots) {
   using namespace idm_evaluate_k;
-  run_grid((C + CANDS - 1) / CANDS, 1, [=] {
+  int cands = 0, grid = 0;
+  idm_evaluate_grid(C, slots, max_cands(T, O, P), &cands, &grid);
+  run_grid(grid, 1, [=] {
     idm_evaluate_kernel(refs, states, l_trgs, objs[0], objs[1], objs[3],
                         objs[4], objs[5], objs[7], objs[8], ref_line,
-                        ref_step, pp, l_trg_global, out, C, T, NR, O, P, K);
+                        ref_step, pp, l_trg_global, out, C, T, NR, O, P, K,
+                        cands);
   });
 }
 
@@ -510,10 +541,14 @@ def bodies(tmp_path_factory):
                                              + [ctypes.c_int] * 2)
     lib.rehearse_idm_rollout.restype = None
     lib.rehearse_idm_rollout.argtypes = ([ctypes.c_void_p] * 11
-                                         + [ctypes.c_int] * 6)
+                                         + [ctypes.c_int] * 7)
+    lib.idm_rollout_split.restype = ctypes.c_int
+    lib.idm_rollout_split.argtypes = [ctypes.c_int]
     lib.rehearse_idm_evaluate.restype = None
     lib.rehearse_idm_evaluate.argtypes = ([ctypes.c_void_p] * 9
-                                          + [ctypes.c_int] * 6)
+                                          + [ctypes.c_int] * 7)
+    lib.idm_evaluate_grid.restype = None
+    lib.idm_evaluate_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     lib.rehearse_poly_sampling.restype = None
     lib.rehearse_poly_sampling.argtypes = ([ctypes.c_void_p] * 15
                                            + [ctypes.c_int] * 5)
@@ -1122,6 +1157,22 @@ def test_idm_param_keys_match_pp_keys(bodies):
     assert keys.split(",")[:-1] == list(idk.PP_KEYS)
 
 
+def _idm_rollout_run(bodies, rl, objs, a, C, T, split=None):
+    """The rollout body on the launcher's grid (``split`` None: the
+    launcher's choice for C, ``idm_rollout_split``): (ref_states,
+    states)."""
+    if split is None:
+        split = bodies.idm_rollout_split(C)
+    optrs, keep = _idm_obj_ptrs(a[7])
+    out_r = np.full((C, T, 10), -7.0, np.float32)
+    out_c = np.full((C, T, 9), -7.0, np.float32)
+    n = [np.ascontiguousarray(x.numpy()) for x in a[:7] + (a[8],)]
+    bodies.rehearse_idm_rollout(*[_ptr(x) for x in n[:7]], optrs, _ptr(n[7]),
+                                _ptr(out_r), _ptr(out_c), C, T, len(rl),
+                                *objs["hull_preds"].shape[:3], split)
+    return out_r, out_c
+
+
 def _idm_rollout_body(bodies, T, C, **scene):
     rl, objs, pp, init_ref, init_con = idm_scene(**scene)
     l_trgs = np.linspace(-5, 5, C).astype(np.float32)
@@ -1129,13 +1180,7 @@ def _idm_rollout_body(bodies, T, C, **scene):
     a = idm_args(rl, objs, pp, init_ref, init_con, l_trgs, d_stops, "cpu")
     want = idk.rollout_reference(*a[:4], a[4][0], a[5], a[6][0], a[7], a[8],
                                  T)
-    optrs, keep = _idm_obj_ptrs(a[7])
-    out_r = np.full((C, T, 10), -7.0, np.float32)
-    out_c = np.full((C, T, 9), -7.0, np.float32)
-    n = [np.ascontiguousarray(x.numpy()) for x in a[:7] + (a[8],)]
-    bodies.rehearse_idm_rollout(*[_ptr(x) for x in n[:7]], optrs, _ptr(n[7]),
-                                _ptr(out_r), _ptr(out_c), C, T, len(rl),
-                                *objs["hull_preds"].shape[:3])
+    out_r, out_c = _idm_rollout_run(bodies, rl, objs, a, C, T)
     np.testing.assert_allclose(out_r, want[0].numpy(), rtol=IDM_RTOL,
                                atol=IDM_ATOL)
     np.testing.assert_allclose(out_c, want[1].numpy(), rtol=IDM_RTOL,
@@ -1199,7 +1244,7 @@ def test_idm_evaluate_body_matches_plain(bodies, case):
     bodies.rehearse_idm_evaluate(_ptr(refs), _ptr(cons), _ptr(n[0]), optrs,
                                  _ptr(n[1]), _ptr(n[2]), _ptr(n[3]),
                                  _ptr(lg_a), _ptr(out), C, T, len(rl),
-                                 *objs["hull_preds"].shape[:3])
+                                 *objs["hull_preds"].shape[:3], 2)
     np.testing.assert_array_equal(out[4], want[4])        # invalid
     np.testing.assert_allclose(out, want, rtol=IDM_RTOL, atol=IDM_ATOL)
     if case == "collider":
@@ -1207,6 +1252,91 @@ def test_idm_evaluate_body_matches_plain(bodies, case):
     if case == "oncoming":
         assert idk.evaluate_work(torch.from_numpy(cons), a[7], a[8])[1] > 0
         assert (want[2] > 0).any() and (want[3] > 0).any()
+
+
+def _idm_hairpin_case(C, T):
+    """The hairpin scene from station 28 m: in 30 steps the candidates pass
+    the narrowing and enter the half circle, where both legs are near."""
+    rl, objs, pp, init_ref, init_con = idm_hairpin_scene(start_s=28.0)
+    l_trgs = np.linspace(-5, 5, C).astype(np.float32)
+    d_stops = np.where(np.arange(C) % 3 == 0, 30.0, 1e6).astype(np.float32)
+    return rl, objs, idm_args(rl, objs, pp, init_ref, init_con, l_trgs,
+                              d_stops, "cpu")
+
+
+def test_idm_rollout_body_hairpin_matches_plain(bodies):
+    """The exact pruned stop and projection searches on the hairpin scene
+    (the far leg's chunks cannot be excluded, the narrowing sends
+    candidates off the road) against the plain version at 1e-5."""
+    C, T = 16, 30
+    rl, objs, a = _idm_hairpin_case(C, T)
+    want = idk.rollout_reference(*a[:4], a[4][0], a[5], a[6][0], a[7], a[8],
+                                 T)
+    out_r, out_c = _idm_rollout_run(bodies, rl, objs, a, C, T)
+    np.testing.assert_allclose(out_r, want[0].numpy(), rtol=IDM_RTOL,
+                               atol=IDM_ATOL)
+    np.testing.assert_allclose(out_c, want[1].numpy(), rtol=IDM_RTOL,
+                               atol=IDM_ATOL)
+    # the candidates reach the half circle, and some are off the road in
+    # the narrowing (cells 60-89: stations 30-45 m, |l| beyond 1.2 m)
+    assert float(want[1][:, -1, idk.V_S].max()) > 40.0
+    s, l = want[0][..., idk.R_S], want[0][..., idk.R_L]
+    assert bool(((s >= 30.0) & (s < 45.0) & (l.abs() > 1.2)).any())
+
+
+@pytest.mark.parametrize("scene", ["hairpin", "oncoming"])
+def test_idm_rollout_body_split_is_bit_equal(bodies, scene):
+    """Two warps a candidate (the launcher's choice up to
+    SPLIT_MAX_C candidates) and one warp a candidate (above it) give the
+    same bits: the two halves of a step exchange values, they compute
+    nothing another way."""
+    C, T = 12, 30
+    if scene == "hairpin":
+        rl, objs, a = _idm_hairpin_case(C, T)
+    else:
+        rl, objs, pp, init_ref, init_con = idm_scene(oncoming=True)
+        l_trgs = np.linspace(-5, 5, C).astype(np.float32)
+        a = idm_args(rl, objs, pp, init_ref, init_con, l_trgs,
+                     np.full(C, 1e6, np.float32), "cpu")
+    assert bodies.idm_rollout_split(C) == 1
+    assert bodies.idm_rollout_split(513) == 0
+    split = _idm_rollout_run(bodies, rl, objs, a, C, T, split=1)
+    whole = _idm_rollout_run(bodies, rl, objs, a, C, T, split=0)
+    for x, y in zip(split, whole):
+        np.testing.assert_array_equal(x.view(np.uint32), y.view(np.uint32))
+
+
+@pytest.mark.parametrize("slots", [1, 3])
+def test_idm_evaluate_body_hairpin_matches_plain(bodies, slots):
+    """The evaluation of the hairpin rollout: the path gate, the shared
+    (step, object) table and the per-warp sums against the plain version,
+    on one resident block (every batch on it) and on three (batches of 6,
+    one block a batch)."""
+    C, T = 16, 30
+    rl, objs, a = _idm_hairpin_case(C, T)
+    refs, cons = (x.numpy() for x in idk.rollout_reference(
+        *a[:4], a[4][0], a[5], a[6][0], a[7], a[8], T))
+    lg = torch.zeros((), dtype=torch.float32)
+    want = idk.evaluate_reference(torch.from_numpy(refs),
+                                  torch.from_numpy(cons), a[2], a[7], a[5],
+                                  a[6][0], a[8], lg).numpy()
+    cands, grid = ctypes.c_int(), ctypes.c_int()
+    bodies.idm_evaluate_grid(C, slots, 16, ctypes.byref(cands),
+                             ctypes.byref(grid))
+    assert (cands.value, grid.value) == ((16, 1) if slots == 1 else (6, 3))
+    optrs, keep = _idm_obj_ptrs(a[7])
+    out = np.full((5, C), -7.0, np.float32)
+    lg_a = np.zeros(1, np.float32)
+    n = [np.ascontiguousarray(x.numpy()) for x in (a[2], a[5], a[6], a[8])]
+    bodies.rehearse_idm_evaluate(_ptr(refs), _ptr(cons), _ptr(n[0]), optrs,
+                                 _ptr(n[1]), _ptr(n[2]), _ptr(n[3]),
+                                 _ptr(lg_a), _ptr(out), C, T, len(rl),
+                                 *objs["hull_preds"].shape[:3], slots)
+    np.testing.assert_array_equal(out[4], want[4])
+    np.testing.assert_allclose(out, want, rtol=IDM_RTOL, atol=IDM_ATOL)
+    n_coll, n_inter, n_proj = idk.evaluate_work(torch.from_numpy(cons), a[7],
+                                                a[8], projections=True)
+    assert n_coll > 0 and 0 < n_proj < C * T * objs["pred_t"].shape[0]
 
 
 @pytest.mark.parametrize("scene", ["obstacles", "free", "bench"])

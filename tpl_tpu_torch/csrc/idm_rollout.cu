@@ -9,26 +9,56 @@
 // serial chain (each step's state feeds the next), so the warp walks the
 // T - 1 steps one after the other and splits the work inside a step over
 // its 32 lanes: the leader search over the O x K predicted hull points, the
-// lane search over the O objects, the 25 speed-limit lookups, the stop scan
-// over the NR ref cells and the projection of the new position onto the NR
-// - 1 ref segments.  Each is a lane-local scan in index order followed by a
-// warp reduction; an arg-minimum keeps the smallest index among equal
-// values, as jnp.argmin does.  Every lane then holds the same step state and
-// does the scalar part (the IDM law, the Stanley controller, the kinematic
-// update) redundantly.
+// lane search over the O objects, the 25 speed-limit lookups, the stop
+// point and the projection of the new position onto the ref line.  Every
+// cross-lane reduction is a (value, index) minimum (the smallest index among
+// equal values, as jnp.argmin), a minimum or an OR, which no order changes.
+// Every lane then holds the same step state and does the scalar part (the
+// IDM law, the Stanley controller, the kinematic update) redundantly.
 //
-// Shared tables, built inside the launch: the block copies the ref line
-// (channel-major), the objects and the ref line's segment arc lengths (a
-// float64 running sum, rounded once per segment) into shared memory; before
-// each step the block's 256 threads interpolate the objects' hulls,
-// headings, speeds and hull projections at the step time (the same for every
-// candidate: the float32 running sum t0 + dt + dt + ...), into one of two
-// buffers, so one barrier a step suffices.
+// A step is a long chain of dependent full-precision operations, and one
+// warp issues it in order.  Where the candidates are few (C <= SPLIT_MAX_C,
+// the launcher's choice from C; the loop's C = 8 is one block on one SM),
+// each takes two warps (SPLIT, 4 candidates a block): one the reference's
+// half of a step (the leader and lane searches, the IDM law, the ref line
+// ahead), one the vehicle's (the speed limit and the stop point, the
+// controller, the kinematics, the projection).  They exchange the speed
+// limit and stop distance, the new acceleration and the reference's state
+// through shared memory, with two more block barriers a step; each value is
+// computed by the same operations as with one warp, so the bits are equal.
 //
-// What bounds it: the serial steps.  Per candidate and step the lanes do
-// ~23 k float32 operations (the stop scan and the projection over 801 ref
-// cells dominate), 36 G at the JAX bench's 16,384 candidates x 99 steps;
-// bytes are small (the states written, 124.5 MB there).
+// Shared tables, built once per block: the packed parameters, the ref line
+// (channel-major), the ref line's segment arc lengths (a float64 running
+// sum, rounded once per segment), the objects (their hulls stay in global
+// memory, read once a step per block), and per 32-cell chunk of the ref line
+// the least d_left and d_right, whether it holds a zero-speed cell, and per
+// 32-segment chunk the segments' bounding box, grown by the rounding margin
+// of idm_common.cuh.  Before each step the block's 256 threads interpolate
+// the objects' hulls, headings, speeds and hull projections at the step
+// time (the same for every candidate: the float32 running sum t0 + dt + dt
+// + ...) into one of two buffers, so one barrier a step suffices.
+//
+// The two searches that would scan the whole ref line every step are exact
+// pruned searches:
+// - the stop point: its zero-speed leg is the first zero-speed cell at or
+//   after i0 and its off-road leg the first off-road cell at or after s
+//   (n * ref_step, and ss - s - d_safe_min with it, never decrease in n for
+//   ref_step > 0, so the first is the least); the warp finds the first chunk
+//   that can hold one with one ballot over 32 chunks, then the cell with one
+//   ballot over the chunk.  A ref step that is not positive takes the full
+//   scan of every cell.
+// - the projection: the chunk of the previous step's segment first, then
+//   every chunk whose box key is not above the best d2 so far, in index
+//   order; a chunk is skipped only where every segment in it gives a
+//   strictly larger float d2 than the minimum (idm_common.cuh), and the
+//   (d2, index) minimum of the evaluated segments is the full scan's.
+//
+// What bounds it: the serial steps.  Per candidate and step the lanes do a
+// few thousand float32 operations (the leader search over the hull points,
+// ~12 full-precision transcendentals, two projections of one or two chunks
+// on the bench's straight ref line), 0.9-1.8 G at the JAX bench's 16,384
+// candidates x 99 steps; bytes are small (the states written, 124.5 MB
+// there).  Registers are held to three blocks an SM (__launch_bounds__).
 //
 // The operations and their order follow the plain version
 // (tpl_tpu_torch/planning/idm_sampling/idm_kernel.py rollout_reference),
@@ -50,11 +80,21 @@ using namespace idm;
 
 constexpr int THREADS = 256;
 constexpr int WARP = 32;
-constexpr int CANDS = THREADS / WARP;     // candidates a block
+constexpr int WARPS = THREADS / WARP;
+// at most this many candidates take two warps each (split): one for the
+// reference's update, one for the vehicle's
+constexpr int SPLIT_MAX_C = 512;
+// a warp's role: the reference (leader, IDM law, ref line), the vehicle
+// (speed limit, stop point, controller, kinematics, projection), or both
+enum { REF, CON, BOTH };
+// what the two warps of a split candidate exchange in shared memory: the
+// reference's state, the speed limit and stop distance, the acceleration
+enum { X_REF = 0, X_VTRG = N_R, X_DSTOP, X_ANEW, N_X = 16 };
+constexpr int MIN_BLOCKS = 3;             // blocks an SM the registers allow
 constexpr int MAX_PTS = MAX_OBJ * MAX_HULL;
 constexpr int PTS_PER_LANE = MAX_PTS / WARP;
 constexpr int MAX_REF = 4096;
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int CHUNK = 32;                 // cells / segments a chunk
 
 struct Objs {
   const float* pred_t;        // (O, P)
@@ -129,6 +169,19 @@ __device__ __forceinline__ float ref_2hot(const float* rl, int NR, int ch,
   return t0 * (1.0f - a) + rl[ch * NR + (int)i1] * a;
 }
 
+// the squared distance of (px, py) to ref segment n (x, y rows of rl)
+__device__ __forceinline__ float seg_d2(const float* rl, int NR, int n,
+                                        float px, float py) {
+  const float ax = rl[n], ay = rl[NR + n];
+  const float vx = rl[n + 1] - ax, vy = rl[NR + n + 1] - ay;
+  const float vv = fmaxf(vx * vx + vy * vy, 1e-12f);
+  const float q = ((px - ax) * vx + (py - ay) * vy) / vv;
+  const float qc = clampf(q, 0.0f, 1.0f);
+  const float fx = ax + vx * qc, fy = ay + vy * qc;
+  const float ex = px - fx, ey = py - fy;
+  return ex * ex + ey * ey;
+}
+
 // the per-step object table
 struct StepTab {
   float* hx;     // (O * K)
@@ -138,15 +191,27 @@ struct StepTab {
   float* hp;     // (O * 4)
 };
 
-__host__ __device__ inline size_t rollout_smem_floats(int NR, int O, int P,
-                                                      int K) {
-  return (size_t)REF_CH * NR + (NR - 1)          // ref line, arc lengths
-      + (size_t)O * P * (1 + 1 + 1 + 2 * K + 4)  // t, heading, v, hulls, hp
-      + 2 * O                                    // valid, valid & on map
-      + 2 * ((size_t)2 * O * K + 2 * O + 4 * O); // two step tables
+__host__ __device__ inline int seg_chunks(int NR) {
+  return (NR - 1 + CHUNK - 1) / CHUNK;
+}
+__host__ __device__ inline int cell_chunks(int NR) {
+  return (NR + CHUNK - 1) / CHUNK;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ inline size_t rollout_smem_floats(int NR, int O, int P,
+                                                      int K) {
+  return 32                                      // the packed parameters
+      + (size_t)REF_CH * NR + (NR - 1)           // ref line, arc lengths
+      + 4 * (size_t)seg_chunks(NR)               // segment chunk boxes
+      + 3 * (size_t)cell_chunks(NR)              // min d_l, min d_r, zero
+      + (size_t)O * P * (1 + 1 + 1 + 4)          // t, heading, v, hp
+      + 2 * O                                    // valid, valid & on map
+      + 2 * ((size_t)2 * O * K + 2 * O + 4 * O)  // two step tables
+      + (size_t)WARPS * N_X;                     // the split exchange
+}
+
+template <bool SPLIT>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 idm_rollout_kernel(const float* __restrict__ init_ref,
                    const float* __restrict__ init_con,
                    const float* __restrict__ l_trgs,
@@ -158,30 +223,34 @@ idm_rollout_kernel(const float* __restrict__ init_ref,
                    float* __restrict__ out_ref, float* __restrict__ out_con,
                    int C, int T, int NR, int O, int P, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* rl = reinterpret_cast<float*>(smem_raw);   // (7, NR)
+  float* pp = reinterpret_cast<float*>(smem_raw);   // (N_PP), 32 floats
+  float* rl = pp + 32;                              // (7, NR)
   float* arc0 = rl + REF_CH * NR;                   // (NR - 1)
-  float* o_t = arc0 + (NR - 1);                     // (O, P)
+  const int n_sch = seg_chunks(NR), n_cch = cell_chunks(NR);
+  float* sbox = arc0 + (NR - 1);                    // (n_sch, 4)
+  float* c_dl = sbox + 4 * n_sch;                   // (n_cch)
+  float* c_dr = c_dl + n_cch;
+  float* c_zero = c_dr + n_cch;
+  float* o_t = c_zero + n_cch;                      // (O, P)
   float* o_head = o_t + O * P;
   float* o_v = o_head + O * P;
-  float* o_hull = o_v + O * P;                      // (O, P, K, 2)
-  float* o_hp = o_hull + O * P * K * 2;             // (O, P, 4)
+  float* o_hp = o_v + O * P;                        // (O, P, 4)
   float* o_valid = o_hp + O * P * 4;                // (O)
   float* o_valid_map = o_valid + O;                 // (O)
   float* tab_base = o_valid_map + O;
   const int tab_floats = 2 * O * K + 2 * O + 4 * O;
-  StepTab tabs[2];
-  for (int b = 0; b < 2; ++b) {
-    float* p0 = tab_base + b * tab_floats;
-    tabs[b] = {p0, p0 + O * K, p0 + 2 * O * K, p0 + 2 * O * K + O,
-               p0 + 2 * O * K + 2 * O};
-  }
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int c_raw = blockIdx.x * CANDS + tid / WARP;
+  const int warp = tid / WARP;
+  const int slot = SPLIT ? warp >> 1 : warp;     // the block's candidate
+  const int role = SPLIT ? warp & 1 : BOTH;
+  float* xch = tab_base + 2 * tab_floats + slot * N_X;
+  const int c_raw = blockIdx.x * (SPLIT ? WARPS / 2 : WARPS) + slot;
   const bool active = c_raw < C;
   const int c = active ? c_raw : C - 1;
 
+  for (int k = tid; k < N_PP; k += THREADS) pp[k] = pp_in[k];
   for (int n = tid; n < NR; n += THREADS)
     for (int ch = 0; ch < REF_CH; ++ch)
       rl[ch * NR + n] = ref_line[(size_t)n * REF_CH + ch];
@@ -190,37 +259,69 @@ idm_rollout_kernel(const float* __restrict__ init_ref,
     o_head[i] = ob.pred_heading[i];
     o_v[i] = ob.pred_v[i];
   }
-  for (int i = tid; i < O * P * K * 2; i += THREADS) o_hull[i] = ob.hull_preds[i];
   for (int i = tid; i < O * P * 4; i += THREADS) o_hp[i] = ob.hull_projs[i];
   for (int o = tid; o < O; o += THREADS) {
     o_valid[o] = ob.valid[o];
     o_valid_map[o] = (ob.valid[o] != 0.0f && ob.on_local_map[o] != 0.0f)
         ? 1.0f : 0.0f;
   }
+  // the segments' lengths, then (one thread) their start arc lengths: a
+  // float64 running sum, each partial sum rounded to float32
+  for (int n = tid; n + 1 < NR; n += THREADS) {
+    const float vx = ref_line[(size_t)(n + 1) * REF_CH] -
+                     ref_line[(size_t)n * REF_CH];
+    const float vy = ref_line[(size_t)(n + 1) * REF_CH + 1] -
+                     ref_line[(size_t)n * REF_CH + 1];
+    arc0[n] = sqrtf(fmaxf(vx * vx + vy * vy, 1e-12f));
+  }
+  __syncthreads();
   if (tid == 0) {
-    // the segments' start arc lengths: a float64 running sum, each partial
-    // sum rounded to float32
     double acc = 0.0;
     for (int n = 0; n + 1 < NR; ++n) {
+      const float len = arc0[n];
       arc0[n] = (float)acc;
-      const float vx = ref_line[(size_t)(n + 1) * REF_CH] -
-                       ref_line[(size_t)n * REF_CH];
-      const float vy = ref_line[(size_t)(n + 1) * REF_CH + 1] -
-                       ref_line[(size_t)n * REF_CH + 1];
-      acc += (double)sqrtf(fmaxf(vx * vx + vy * vy, 1e-12f));
+      acc += (double)len;
+    }
+  }
+  // the chunk tables, a warp a chunk
+  for (int j = warp; j < n_sch; j += WARPS) {
+    const int n = j * CHUNK + lane;          // vertices n and n + 1
+    const bool in = n + 1 < NR;
+    float xlo = in ? fminf(rl[n], rl[n + 1]) : INFINITY;
+    float xhi = in ? fmaxf(rl[n], rl[n + 1]) : -INFINITY;
+    float ylo = in ? fminf(rl[NR + n], rl[NR + n + 1]) : INFINITY;
+    float yhi = in ? fmaxf(rl[NR + n], rl[NR + n + 1]) : -INFINITY;
+    xlo = warp_min(xlo);
+    ylo = warp_min(ylo);
+    xhi = -warp_min(-xhi);
+    yhi = -warp_min(-yhi);
+    if (lane == 0) {
+      box_grow(xlo, xhi, ylo, yhi);
+      sbox[4 * j] = xlo;
+      sbox[4 * j + 1] = xhi;
+      sbox[4 * j + 2] = ylo;
+      sbox[4 * j + 3] = yhi;
+    }
+  }
+  for (int j = warp; j < n_cch; j += WARPS) {
+    const int n = j * CHUNK + lane;
+    const bool in = n < NR;
+    const float dl = warp_min(in ? rl[5 * NR + n] : INFINITY);
+    const float dr = warp_min(in ? rl[6 * NR + n] : INFINITY);
+    const unsigned z = __ballot_sync(FULL, in && rl[4 * NR + n] == 0.0f);
+    if (lane == 0) {
+      c_dl[j] = dl;
+      c_dr[j] = dr;
+      c_zero[j] = z ? 1.0f : 0.0f;
     }
   }
 
-  float pp[N_PP];
-  for (int k = 0; k < N_PP; ++k) pp[k] = pp_in[k];
   const float ref_step = *ref_step_p;
   const float dt_replan = *dt_replan_p;
+  const bool step_up = ref_step > 0.0f;   // n * ref_step never decreases
   const float l_trg = l_trgs[c];
   const float d_stop0 = d_stops[c];
-  const float db = pp[DIST_BACK_VEH], df = pp[DIST_FRONT_VEH];
-  const float half_w = pp[WIDTH_VEH] / 2.0f;
   const float inf = INFINITY;
-  const float sq2 = 2.0f * sqrtf(pp[A_MAX] * pp[A_BREAK_COMF]);
   const float* rl_v = rl + 4 * NR;
   const float* rl_dl = rl + 5 * NR;
   const float* rl_dr = rl + 6 * NR;
@@ -229,20 +330,25 @@ idm_rollout_kernel(const float* __restrict__ init_ref,
   for (int i = 0; i < N_R; ++i) ref[i] = init_ref[i];
   for (int i = 0; i < N_V; ++i) con[i] = init_con[i];
   float t_step = init_ref[R_T];     // the shared step time, as the carry sums
+  int prev_seg = 0;                 // the last projection's segment
+  if (SPLIT && role == REF && lane < N_R) xch[X_REF + lane] = init_ref[lane];
   __syncthreads();
+  const float sq2 = 2.0f * sqrtf(pp[A_MAX] * pp[A_BREAK_COMF]);
 
   float* o_ref = out_ref + (size_t)c * T * N_R;
   float* o_con = out_con + (size_t)c * T * N_V;
 
   for (int k = 0; k + 1 < T; ++k) {
     // the objects at the step time, shared by the block's candidates
-    const StepTab tb = tabs[k & 1];
+    float* tb0 = tab_base + (k & 1) * tab_floats;
+    const StepTab tb = {tb0, tb0 + O * K, tb0 + 2 * O * K,
+                        tb0 + 2 * O * K + O, tb0 + 2 * O * K + 2 * O};
     for (int p = tid; p < O * K; p += THREADS) {
       const int o = p / K, kk = p % K;
       int i;
       float a;
       bracket(o_t + o * P, P, t_step, i, a);
-      const float* h0 = o_hull + ((size_t)(o * P + i) * K + kk) * 2;
+      const float* h0 = ob.hull_preds + ((size_t)(o * P + i) * K + kk) * 2;
       const float* h1 = h0 + K * 2;
       tb.hx[p] = lerp2(h0[0], h1[0], a);
       tb.hy[p] = lerp2(h0[1], h1[1], a);
@@ -259,287 +365,407 @@ idm_rollout_kernel(const float* __restrict__ init_ref,
     }
     t_step = t_step + pp[DT];
     __syncthreads();
+    if (SPLIT && role == CON) {
+      // the reference's state of this step, from its warp
+#pragma unroll
+      for (int i = 0; i < N_R; ++i) ref[i] = xch[X_REF + i];
+    }
 
     const float x = ref[R_X], y = ref[R_Y], h = ref[R_H], s = ref[R_S];
     const float l = ref[R_L], v = ref[R_V], a = ref[R_A];
+    const float db = pp[DIST_BACK_VEH], df = pp[DIST_FRONT_VEH];
+    const float half_w = pp[WIDTH_VEH] / 2.0f;
 
-    // --- reference update: the speed limit ahead ---
-    const float v_trg_dist = v * pp[T_VEL_LOOKAHEAD];
-    float v_trg = inf;
-    if (lane < 25) {
-      const float sk = s + (float)lane * (v_trg_dist * (1.0f / 25.0f));
-      v_trg = ref_2hot(rl, NR, 4, ref_step, sk);
+    // --- the speed limit ahead and the next stop point ---
+    float v_trg = inf, d_stop = inf;
+    if (role != REF) {
+      const float v_trg_dist = v * pp[T_VEL_LOOKAHEAD];
+      if (lane < 25) {
+        const float sk = s + (float)lane * (v_trg_dist * (1.0f / 25.0f));
+        v_trg = ref_2hot(rl, NR, 4, ref_step, sk);
+      }
+      v_trg = fmaxf(0.001f, warp_min(v_trg));
+
+      // the first zero-v cell at or after ceil(s / step) and the first
+      // off-road cell at or after s
+      const int i0 = (int)clampf(ceilf(s / ref_step), 0.0f, (float)(NR - 1));
+      float zmin = inf, dmin = inf;
+      if (step_up) {
+        // the zero-speed leg: chunks from i0's on that hold a zero cell
+        const int cz = i0 / CHUNK;
+        bool found = false;
+        for (int g = cz - cz % WARP; g < n_cch && !found; g += WARP) {
+          const int j = g + lane;
+          unsigned m = __ballot_sync(FULL, j >= cz && j < n_cch &&
+                                               c_zero[j] != 0.0f);
+          while (m) {
+            const int n = (g + __ffs(m) - 1) * CHUNK + lane;
+            m &= m - 1;
+            const unsigned hit = __ballot_sync(
+                FULL, n < NR && n >= i0 && rl_v[n] == 0.0f);
+            if (hit) {
+              zmin = (float)((n & ~(CHUNK - 1)) + __ffs(hit) - 1) * ref_step;
+              found = true;
+              break;
+            }
+          }
+        }
+        // the off-road leg: chunks whose last cell is at or after s and
+        // whose least d_right / d_left let this l off the road
+        found = false;
+        for (int g = 0; g < n_cch && !found; g += WARP) {
+          const int j = g + lane;
+          bool can = false;
+          if (j < n_cch) {
+            const int last = j * CHUNK + CHUNK - 1 < NR ? j * CHUNK + CHUNK - 1
+                                                        : NR - 1;
+            can = (float)last * ref_step >= s &&
+                  (l < -c_dr[j] || l > c_dl[j]);
+          }
+          unsigned m = __ballot_sync(FULL, can);
+          while (m) {
+            const int n = (g + __ffs(m) - 1) * CHUNK + lane;
+            m &= m - 1;
+            const bool off = n < NR && (float)n * ref_step >= s &&
+                             (l < -rl_dr[n] || l > rl_dl[n]);
+            const unsigned hit = __ballot_sync(FULL, off);
+            if (hit) {
+              const float ss =
+                  (float)((n & ~(CHUNK - 1)) + __ffs(hit) - 1) * ref_step;
+              dmin = ss - s - pp[D_SAFE_MIN];
+              found = true;
+              break;
+            }
+          }
+        }
+      } else {
+        for (int n = lane; n < NR; n += WARP) {
+          const float ss = (float)n * ref_step;
+          if (n >= i0 && rl_v[n] == 0.0f) zmin = fminf(zmin, ss);
+          if (ss >= s && (l < -rl_dr[n] || l > rl_dl[n]))
+            dmin = fminf(dmin, ss - s - pp[D_SAFE_MIN]);
+        }
+        zmin = warp_min(zmin);
+        dmin = warp_min(dmin);
+      }
+      const float d_zero = zmin == inf ? inf : zmin - s;
+      d_stop = fminf(d_zero, dmin);
+      d_stop = fminf(d_stop0 - s, d_stop);
+      if (SPLIT && lane == 0) {
+        xch[X_VTRG] = v_trg;
+        xch[X_DSTOP] = d_stop;
+      }
     }
-    v_trg = fmaxf(0.001f, warp_min(v_trg));
 
-    // the leader (get_leader_lanes): hull points of every object
-    const float dx = cosf(h), dy = sinf(h);
-    const float p0x = x - dx * db;
-    const float p0y = y - dy * db;
-    const float ray_len = 200.0f + db;
-    float arc_r[PTS_PER_LANE], lat_r[PTS_PER_LANE];
-    unsigned left = 0, right = 0;
+    // --- the leader (get_leader_lanes): hull points of every object, in
+    // two passes (the sides each object spans, then the leader), each
+    // point's frame coordinates computed in both ---
+    float d_lead = inf, v_lead = 0.0f, d_right = 100.0f, d_left = 100.0f;
+    if (role != CON) {
+      const float dx = cosf(h), dy = sinf(h);
+      const float p0x = x - dx * db;
+      const float p0y = y - dy * db;
+      const float ray_len = 200.0f + db;
+      unsigned left = 0, right = 0;
 #pragma unroll
-    for (int r = 0; r < PTS_PER_LANE; ++r) {
-      const int p = lane + r * WARP;
-      arc_r[r] = 0.0f;
-      lat_r[r] = 0.0f;
-      if (p < O * K) {
-        const float rx = tb.hx[p] - p0x;
-        const float ry = tb.hy[p] - p0y;
-        arc_r[r] = rx * dx + ry * dy;
-        lat_r[r] = dx * ry - dy * rx;
-        const int o = p / K;
-        if (o_valid_map[o] != 0.0f) {
-          if (lat_r[r] > 0.0f) left |= 1u << o;
-          if (lat_r[r] < 0.0f) right |= 1u << o;
+      for (int r = 0; r < PTS_PER_LANE; ++r) {
+        const int p = lane + r * WARP;
+        if (p < O * K) {
+          const float rx = tb.hx[p] - p0x;
+          const float ry = tb.hy[p] - p0y;
+          const float la = dx * ry - dy * rx;
+          const int o = p / K;
+          if (o_valid_map[o] != 0.0f) {
+            if (la > 0.0f) left |= 1u << o;
+            if (la < 0.0f) right |= 1u << o;
+          }
         }
       }
-    }
-    const unsigned spans = warp_or(left) & warp_or(right);
-    float d_lead = inf, d_right = 100.0f, d_left = 100.0f;
-    int idx = 1 << 30;
-    unsigned span_front = 0;
-    const float close = half_w + pp[D_SAFE_LAT];
+      const unsigned spans = warp_or(left) & warp_or(right);
+      int idx = 1 << 30;
+      unsigned span_front = 0;
+      const float close = half_w + pp[D_SAFE_LAT];
 #pragma unroll
-    for (int r = 0; r < PTS_PER_LANE; ++r) {
-      const int p = lane + r * WARP;
-      if (p < O * K) {
-        const int o = p / K;
-        const bool vm = o_valid_map[o] != 0.0f;
-        const bool sp = (spans >> o) & 1u;
-        const float ar = arc_r[r], la = lat_r[r];
-        const bool in_b = ar > 0.0f && ar < ray_len;
-        const bool lead = in_b && vm && (sp || fabsf(la) < close);
-        take_min(d_lead, idx, lead ? ar - db : inf, p);
-        const bool front = in_b && vm && ar < df;
-        if (front && la < 0.0f && !sp) d_right = fminf(d_right, fabsf(la));
-        if (front && la > 0.0f && !sp) d_left = fminf(d_left, fabsf(la));
-        if (front && sp) span_front = 1;
+      for (int r = 0; r < PTS_PER_LANE; ++r) {
+        const int p = lane + r * WARP;
+        if (p < O * K) {
+          const int o = p / K;
+          const float rx = tb.hx[p] - p0x;
+          const float ry = tb.hy[p] - p0y;
+          const float ar = rx * dx + ry * dy;
+          const float la = dx * ry - dy * rx;
+          const bool vm = o_valid_map[o] != 0.0f;
+          const bool sp = (spans >> o) & 1u;
+          const bool in_b = ar > 0.0f && ar < ray_len;
+          const bool lead = in_b && vm && (sp || fabsf(la) < close);
+          take_min(d_lead, idx, lead ? ar - db : inf, p);
+          const bool front = in_b && vm && ar < df;
+          if (front && la < 0.0f && !sp) d_right = fminf(d_right, fabsf(la));
+          if (front && la > 0.0f && !sp) d_left = fminf(d_left, fabsf(la));
+          if (front && sp) span_front = 1;
+        }
+      }
+      warp_argmin(d_lead, idx);
+      d_right = warp_min(d_right);
+      d_left = warp_min(d_left);
+      if (warp_or(span_front)) {
+        d_right = 0.0f;
+        d_left = 0.0f;
+      }
+      if (isfinite(d_lead)) {
+        const int io = idx / K;
+        v_lead = tb.v[io] * cosf(tb.head[io] - h);
+      }
+
+      // the lane search over the objects' hull projections
+      float lane_d = inf;
+      int li = 1 << 30;
+      if (lane < O) {
+        const float* hp = tb.hp + lane * 4;
+        const bool on_lane = l_trg > hp[2] - half_w - pp[D_SAFE_LAT] &&
+                             l_trg < hp[3] + half_w + pp[D_SAFE_LAT] &&
+                             s < hp[1] && o_valid[lane] != 0.0f;
+        lane_d = on_lane ? hp[0] - s : inf;
+        li = lane;
+      }
+      warp_argmin(lane_d, li);
+      if (lane_d < d_lead) {
+        v_lead = tb.v[li];
+        d_lead = lane_d;
+      }
+      if (!isfinite(d_lead)) d_lead = 1e6f;
+      if (v_lead < 0.0f) {
+        d_lead = d_lead - 10.0f;
+        v_lead = v_lead * 2.0f;
       }
     }
-    warp_argmin(d_lead, idx);
-    d_right = warp_min(d_right);
-    d_left = warp_min(d_left);
-    if (warp_or(span_front)) {
-      d_right = 0.0f;
-      d_left = 0.0f;
-    }
-    const int io = idx / K;
-    const float v_at = tb.v[io] * cosf(tb.head[io] - h);
-    float v_lead = isfinite(d_lead) ? v_at : 0.0f;
-
-    // the lane search over the objects' hull projections
-    float lane_d = inf;
-    int li = 1 << 30;
-    if (lane < O) {
-      const float* hp = tb.hp + lane * 4;
-      const bool on_lane = l_trg > hp[2] - half_w - pp[D_SAFE_LAT] &&
-                           l_trg < hp[3] + half_w + pp[D_SAFE_LAT] &&
-                           s < hp[1] && o_valid[lane] != 0.0f;
-      lane_d = on_lane ? hp[0] - s : inf;
-      li = lane;
-    }
-    warp_argmin(lane_d, li);
-    if (lane_d < d_lead) {
-      v_lead = tb.v[li];
-      d_lead = lane_d;
-    }
-    if (!isfinite(d_lead)) d_lead = 1e6f;
-    if (v_lead < 0.0f) {
-      d_lead = d_lead - 10.0f;
-      v_lead = v_lead * 2.0f;
+    if (SPLIT) {
+      __syncthreads();
+      if (role == REF) {
+        v_trg = xch[X_VTRG];
+        d_stop = xch[X_DSTOP];
+      }
     }
 
-    // the next stop point: the first zero-v cell at or after ceil(s / step)
-    // and the first off-road cell ahead
-    const int i0 = (int)clampf(ceilf(s / ref_step), 0.0f, (float)(NR - 1));
-    float zmin = inf, dmin = inf;
-    for (int n = lane; n < NR; n += WARP) {
-      const float ss = (float)n * ref_step;
-      if (n >= i0 && rl_v[n] == 0.0f) zmin = fminf(zmin, ss);
-      if (ss >= s && (l < -rl_dr[n] || l > rl_dl[n]))
-        dmin = fminf(dmin, ss - s - pp[D_SAFE_MIN]);
-    }
-    zmin = warp_min(zmin);
-    dmin = warp_min(dmin);
-    const float d_zero = zmin == inf ? inf : zmin - s;
-    float d_stop = fminf(d_zero, dmin);
-    d_stop = fminf(d_stop0 - s, d_stop);
-
-    // the IDM law
-    const float th_ = tanhf((l - l_trg) * 0.5f);
-    float t_headway = pp[T_HEADWAY_DESIRED] * (1.0f - th_ * th_);
-    t_headway = fmaxf(t_headway, 0.5f);
-    const float s_net_stop = d_stop - df + 1.0f;
-    const float s_star_stop = 1.0f + v * t_headway + (v * v) / sq2;
-    float inter_term = s_star_stop / s_net_stop;
-    const float s_net = d_lead - df;
-    const float s_star = pp[D_SAFE_MIN] + v * t_headway + v * (v - v_lead) / sq2;
-    if (d_lead < d_stop) inter_term = fmaxf(s_star / s_net, inter_term);
-    const float v_rel = v / v_trg;
-    const float expo = v_rel < 1.0f ? pp[IDM_EXP_ACC] : pp[IDM_EXP_DCC];
-    float a_idm = pp[A_MAX] * (1.0f - powf(v_rel, expo) - inter_term * inter_term);
-
-    const float rp_h = ref_2hot(rl, NR, 2, ref_step, s);
-    const float rp_k = ref_2hot(rl, NR, 3, ref_step, s);
-    const float l_change = clampf(l_trg - l, -1.5f, 1.5f);
-    const float nl = l + l_change * pp[DT];
-    const float s_rate = v * cosf(h - rp_h) / (1.0f - l * rp_k);
-    const float ns = s + s_rate * pp[DT];
-    const float nrp_x = ref_2hot(rl, NR, 0, ref_step, ns);
-    const float nrp_y = ref_2hot(rl, NR, 1, ref_step, ns);
-    const float nrp_h = ref_2hot(rl, NR, 2, ref_step, ns);
-    const float heading_rel = short_angle(h, rp_h) + s_rate * rp_k * pp[DT];
-    const float nh = nrp_h + heading_rel;
-
+    // --- reference update: the IDM law and the ref line ahead ---
     const float dt_control = k == 0 ? dt_replan : pp[DT];
-    const float dtc = fmaxf(dt_control, 1e-6f);
-    const bool lane_changing = fabsf(l - l_trg) > 0.5f && v > 1.0f && v < 5.0f;
-    if (lane_changing) a_idm = fminf(a_idm, 0.0f);
-    float j = (a_idm - a) / dtc;
-    if (v == 0.0f && a < 0.0f)
-      j = fminf(fmaxf(j, pp[J_MIN]), -a / dtc);
-    else
-      j = fminf(fmaxf(j, pp[J_MIN]), pp[J_MAX]);
-    const float a_new = fminf(fmaxf(fma32(j, dt_control, a), pp[A_MIN]),
-                              pp[A_MAX]);
+    float a_new = 0.0f, nl = 0.0f, ns = 0.0f, nh = 0.0f;
+    float nrp_x = 0.0f, nrp_y = 0.0f, nrp_h = 0.0f;
+    if (role != CON) {
+      const float th_ = tanhf((l - l_trg) * 0.5f);
+      float t_headway = pp[T_HEADWAY_DESIRED] * (1.0f - th_ * th_);
+      t_headway = fmaxf(t_headway, 0.5f);
+      const float s_net_stop = d_stop - df + 1.0f;
+      const float s_star_stop = 1.0f + v * t_headway + (v * v) / sq2;
+      float inter_term = s_star_stop / s_net_stop;
+      const float s_net = d_lead - df;
+      const float s_star = pp[D_SAFE_MIN] + v * t_headway +
+                           v * (v - v_lead) / sq2;
+      if (d_lead < d_stop) inter_term = fmaxf(s_star / s_net, inter_term);
+      const float v_rel = v / v_trg;
+      const float expo = v_rel < 1.0f ? pp[IDM_EXP_ACC] : pp[IDM_EXP_DCC];
+      float a_idm = pp[A_MAX] *
+          (1.0f - powf(v_rel, expo) - inter_term * inter_term);
 
-    float ref_out[N_R];
-    for (int i = 0; i < N_R; ++i) ref_out[i] = ref[i];
-    ref_out[R_A] = a_new;
-    ref_out[R_DR] = d_right;
-    ref_out[R_DL] = d_left;
+      const float dtc = fmaxf(dt_control, 1e-6f);
+      const bool lane_changing = fabsf(l - l_trg) > 0.5f && v > 1.0f &&
+                                 v < 5.0f;
+      if (lane_changing) a_idm = fminf(a_idm, 0.0f);
+      float j = (a_idm - a) / dtc;
+      if (v == 0.0f && a < 0.0f)
+        j = fminf(fmaxf(j, pp[J_MIN]), -a / dtc);
+      else
+        j = fminf(fmaxf(j, pp[J_MIN]), pp[J_MAX]);
+      a_new = fminf(fmaxf(fma32(j, dt_control, a), pp[A_MIN]), pp[A_MAX]);
+      if (SPLIT && lane == 0) xch[X_ANEW] = a_new;
 
-    // --- following controller (Stanley + PD) ---
+      const float rp_h = ref_2hot(rl, NR, 2, ref_step, s);
+      const float rp_k = ref_2hot(rl, NR, 3, ref_step, s);
+      const float l_change = clampf(l_trg - l, -1.5f, 1.5f);
+      nl = l + l_change * pp[DT];
+      const float s_rate = v * cosf(h - rp_h) / (1.0f - l * rp_k);
+      ns = s + s_rate * pp[DT];
+      nrp_x = ref_2hot(rl, NR, 0, ref_step, ns);
+      nrp_y = ref_2hot(rl, NR, 1, ref_step, ns);
+      nrp_h = ref_2hot(rl, NR, 2, ref_step, ns);
+      const float heading_rel = short_angle(h, rp_h) + s_rate * rp_k * pp[DT];
+      nh = nrp_h + heading_rel;
+    }
+
+    // --- following controller (Stanley + PD): the steering, from the
+    // step's states alone ---
+    float new_steer = 0.0f;
     const float cx = con[V_X], cy = con[V_Y], ch = con[V_H];
     const float cst = con[V_ST], cv = con[V_V], ca = con[V_A];
     const float cs = con[V_S], cl = con[V_L];
-    const float k_con = ref_2hot(rl, NR, 3, ref_step, cs);
-    const float k_adj = fabsf(k_con) > 1e-4f ? 1.0f / (1.0f / k_con + cl) : k_con;
-    const float steer_ref = atanf(k_adj * pp[WHEEL_BASE]);
-    const float angle_diff = short_angle(ch, h);
-    const float lat_diff = l - cl;
-    float steer_angle = steer_ref + angle_diff +
-        atanf(pp[K_STANLEY] * lat_diff / (pp[V_OFFSET_STANLEY] + cv));
-    steer_angle = fminf(fmaxf(steer_angle, -pp[STEER_ANGLE_MAX]),
-                        pp[STEER_ANGLE_MAX]);
-    const float steer_rate = fminf(fmaxf((steer_angle - cst) / dtc,
-                                         -pp[STEER_RATE_MAX]),
-                                   pp[STEER_RATE_MAX]);
-    const bool do_steer = cv > 1.0f || ca > 0.5f || fabsf(lat_diff) > 0.1f;
-    const float new_steer = do_steer ? cst + steer_rate * dt_control : cst;
-    const float err_s = s - cs;
-    const float err_v = v - cv;
-    const float a_con = a_new + err_s * pp[K_P_S] + err_v * pp[K_P_V];
-
-    float con_out[N_V];
-    for (int i = 0; i < N_V; ++i) con_out[i] = con[i];
-    con_out[V_ST] = new_steer;
-    con_out[V_A] = a_con;
-
-    const float nv = fmaxf(fma32(pp[DT], a_con, cv), 0.0f);
-    const float nheading = ch + pp[DT] * nv * tanf(new_steer) / pp[WHEEL_BASE];
-    const float nx = cx + pp[DT] * nv * cosf(nheading);
-    const float ny = cy + pp[DT] * nv * sinf(nheading);
-
-    // the projection of (nx, ny) onto the ref linestrip
-    float best_d2 = inf;
-    int best = 1 << 30;
-    for (int n = lane; n + 1 < NR; n += WARP) {
-      const float ax = rl[n], ay = rl[NR + n];
-      const float vx = rl[n + 1] - ax, vy = rl[NR + n + 1] - ay;
-      const float vv = fmaxf(vx * vx + vy * vy, 1e-12f);
-      const float q = ((nx - ax) * vx + (ny - ay) * vy) / vv;
-      const float qc = clampf(q, 0.0f, 1.0f);
-      const float fx = ax + vx * qc, fy = ay + vy * qc;
-      const float ex = nx - fx, ey = ny - fy;
-      take_min(best_d2, best, ex * ex + ey * ey, n);
+    if (role != REF) {
+      const float dtc = fmaxf(dt_control, 1e-6f);
+      const float k_con = ref_2hot(rl, NR, 3, ref_step, cs);
+      const float k_adj = fabsf(k_con) > 1e-4f ? 1.0f / (1.0f / k_con + cl)
+                                               : k_con;
+      const float steer_ref = atanf(k_adj * pp[WHEEL_BASE]);
+      const float angle_diff = short_angle(ch, h);
+      const float lat_diff = l - cl;
+      float steer_angle = steer_ref + angle_diff +
+          atanf(pp[K_STANLEY] * lat_diff / (pp[V_OFFSET_STANLEY] + cv));
+      steer_angle = fminf(fmaxf(steer_angle, -pp[STEER_ANGLE_MAX]),
+                          pp[STEER_ANGLE_MAX]);
+      const float steer_rate = fminf(fmaxf((steer_angle - cst) / dtc,
+                                           -pp[STEER_RATE_MAX]),
+                                     pp[STEER_RATE_MAX]);
+      const bool do_steer = cv > 1.0f || ca > 0.5f || fabsf(lat_diff) > 0.1f;
+      new_steer = do_steer ? cst + steer_rate * dt_control : cst;
     }
-    warp_argmin(best_d2, best);
-    float arc_p, lat_p;
-    {
-      const int n = best;
-      const float ax = rl[n], ay = rl[NR + n];
-      const float vx = rl[n + 1] - ax, vy = rl[NR + n + 1] - ay;
-      const float vv = fmaxf(vx * vx + vy * vy, 1e-12f);
-      const float q = ((nx - ax) * vx + (ny - ay) * vy) / vv;
-      const float qc = clampf(q, 0.0f, 1.0f);
-      const float fx = ax + vx * qc, fy = ay + vy * qc;
-      const float ex = nx - fx, ey = ny - fy;
-      float dist = sqrtf(ex * ex + ey * ey);
-      const float gx = fx - ax, gy = fy - ay;
-      arc_p = arc0[n] + sqrtf(gx * gx + gy * gy);
-      const float ang = atan2f(vy, vx);
-      const float ox = fx - nx, oy = fy - ny;
-      const float on = sqrtf(ox * ox + oy * oy);
-      const float inv = 1.0f / fmaxf(on, 1e-12f);
-      const bool sign_neg = cosf(ang) * (-oy * inv) + sinf(ang) * (ox * inv) <= 0.0f;
-      if (sign_neg) dist = -dist;
-      if (on < 1e-9f) dist = 0.0f;
-      lat_p = dist;
+    if (SPLIT) {
+      __syncthreads();
+      if (role == CON) a_new = xch[X_ANEW];
     }
 
-    // write the step's states: lanes 0-9 the reference, 10-18 the vehicle
-    if (active && lane < N_R + N_V) {
+    // the step's states: the reference (its acceleration and side
+    // distances of this step), the vehicle (its steering and acceleration
+    // of this step)
+    if (role != CON && active && lane < N_R) {
       float val = 0.0f;
 #pragma unroll
       for (int i = 0; i < N_R; ++i)
-        if (lane == i) val = ref_out[i];
-#pragma unroll
-      for (int i = 0; i < N_V; ++i)
-        if (lane == N_R + i) val = con_out[i];
-      if (lane < N_R)
-        o_ref[(size_t)k * N_R + lane] = val;
-      else
-        o_con[(size_t)k * N_V + lane - N_R] = val;
+        if (lane == i)
+          val = i == R_A ? a_new : i == R_DR ? d_right
+              : i == R_DL ? d_left : ref[i];
+      o_ref[(size_t)k * N_R + lane] = val;
     }
+    if (role != REF) {
+      const float a_con = a_new + (s - cs) * pp[K_P_S] + (v - cv) * pp[K_P_V];
+      if (active && lane < N_V) {
+        float val = 0.0f;
+#pragma unroll
+        for (int i = 0; i < N_V; ++i)
+          if (lane == i)
+            val = i == V_ST ? new_steer : i == V_A ? a_con : con[i];
+        o_con[(size_t)k * N_V + lane] = val;
+      }
 
-    ref[R_T] = ref[R_T] + pp[DT];
-    ref[R_X] = nrp_x - nl * sinf(nrp_h);
-    ref[R_Y] = nrp_y + nl * cosf(nrp_h);
-    ref[R_H] = nh;
-    ref[R_V] = fmaxf(fma32(a_new, pp[DT], v), 0.0f);
-    ref[R_A] = a_new;
-    ref[R_S] = ns;
-    ref[R_L] = nl;
-    ref[R_DR] = 0.0f;
-    ref[R_DL] = 0.0f;
-    con[V_T] = con[V_T] + pp[DT];
-    con[V_X] = nx;
-    con[V_Y] = ny;
-    con[V_H] = nheading;
-    con[V_ST] = new_steer;
-    con[V_V] = nv;
-    con[V_A] = a_con;
-    con[V_S] = arc_p;
-    con[V_L] = lat_p;
+      // the vehicle's kinematics, then its projection onto the ref
+      // linestrip: the last step's chunk, then the chunks the boxes cannot
+      // exclude, in index order
+      const float nv = fmaxf(fma32(pp[DT], a_con, cv), 0.0f);
+      const float nheading = ch + pp[DT] * nv * tanf(new_steer) /
+                             pp[WHEEL_BASE];
+      const float nx = cx + pp[DT] * nv * cosf(nheading);
+      const float ny = cy + pp[DT] * nv * sinf(nheading);
+      const int n_seg = NR - 1;
+      float bd = inf;
+      int bi = 1 << 30;
+      const int wc = prev_seg / CHUNK;
+      {
+        const int n = wc * CHUNK + lane;
+        if (n < n_seg) take_min(bd, bi, seg_d2(rl, NR, n, nx, ny), n);
+      }
+      float best = warp_min(bd);
+      for (int g = 0; g < n_sch; g += WARP) {
+        const int jl = g + lane;
+        const float key = jl < n_sch && jl != wc
+            ? box_key(sbox + 4 * jl, nx, ny) : inf;
+        unsigned m = __ballot_sync(FULL, !(key > best));
+        while (m) {
+          const int b = __ffs(m) - 1;
+          m &= m - 1;
+          if (__shfl_sync(FULL, key, b) > best) continue;   // best has fallen
+          const int n = (g + b) * CHUNK + lane;
+          if (n < n_seg) take_min(bd, bi, seg_d2(rl, NR, n, nx, ny), n);
+          best = warp_min(bd);
+        }
+      }
+      warp_argmin(bd, bi);
+      prev_seg = bi;
+      float arc_p, lat_p;
+      {
+        const int n = bi;
+        const float ax = rl[n], ay = rl[NR + n];
+        const float vx = rl[n + 1] - ax, vy = rl[NR + n + 1] - ay;
+        const float vv = fmaxf(vx * vx + vy * vy, 1e-12f);
+        const float q = ((nx - ax) * vx + (ny - ay) * vy) / vv;
+        const float qc = clampf(q, 0.0f, 1.0f);
+        const float fx = ax + vx * qc, fy = ay + vy * qc;
+        const float ex = nx - fx, ey = ny - fy;
+        float dist = sqrtf(ex * ex + ey * ey);
+        const float gx = fx - ax, gy = fy - ay;
+        arc_p = arc0[n] + sqrtf(gx * gx + gy * gy);
+        const float ang = atan2f(vy, vx);
+        const float ox = fx - nx, oy = fy - ny;
+        const float on = sqrtf(ox * ox + oy * oy);
+        const float inv = 1.0f / fmaxf(on, 1e-12f);
+        const bool sign_neg =
+            cosf(ang) * (-oy * inv) + sinf(ang) * (ox * inv) <= 0.0f;
+        if (sign_neg) dist = -dist;
+        if (on < 1e-9f) dist = 0.0f;
+        lat_p = dist;
+      }
+      con[V_T] = con[V_T] + pp[DT];
+      con[V_X] = nx;
+      con[V_Y] = ny;
+      con[V_H] = nheading;
+      con[V_ST] = new_steer;
+      con[V_V] = nv;
+      con[V_A] = a_con;
+      con[V_S] = arc_p;
+      con[V_L] = lat_p;
+    }
+    if (role != CON) {
+      ref[R_T] = ref[R_T] + pp[DT];
+      ref[R_X] = nrp_x - nl * sinf(nrp_h);
+      ref[R_Y] = nrp_y + nl * cosf(nrp_h);
+      ref[R_H] = nh;
+      ref[R_V] = fmaxf(fma32(a_new, pp[DT], v), 0.0f);
+      ref[R_A] = a_new;
+      ref[R_S] = ns;
+      ref[R_L] = nl;
+      ref[R_DR] = 0.0f;
+      ref[R_DL] = 0.0f;
+      if (SPLIT && lane < N_R) {
+        float val = 0.0f;
+#pragma unroll
+        for (int i = 0; i < N_R; ++i)
+          if (lane == i) val = ref[i];
+        xch[X_REF + lane] = val;
+      }
+    }
   }
-  if (active && lane < N_R + N_V) {
+  if (role != CON && active && lane < N_R) {
     float val = 0.0f;
 #pragma unroll
     for (int i = 0; i < N_R; ++i)
       if (lane == i) val = ref[i];
+    o_ref[(size_t)(T - 1) * N_R + lane] = val;
+  }
+  if (role != REF && active && lane < N_V) {
+    float val = 0.0f;
 #pragma unroll
     for (int i = 0; i < N_V; ++i)
-      if (lane == N_R + i) val = con[i];
-    if (lane < N_R)
-      o_ref[(size_t)(T - 1) * N_R + lane] = val;
-    else
-      o_con[(size_t)(T - 1) * N_V + lane - N_R] = val;
+      if (lane == i) val = con[i];
+    o_con[(size_t)(T - 1) * N_V + lane] = val;
   }
 }
 
 }  // namespace idm_rollout_k
 
+// whether C candidates take two warps each: where they are few, the card
+// has warps to spare and a step's two halves run side by side
+extern "C" int idm_rollout_split(int C) {
+  return C <= idm_rollout_k::SPLIT_MAX_C ? 1 : 0;
+}
+
 #ifdef __CUDACC__
-// lets the kernel take more than 48 KB of dynamic shared memory
+// lets both instantiations take more than 48 KB of dynamic shared memory
 static cudaError_t opt_in(size_t smem) {
   static size_t opted = 0;
   if (smem <= 48 * 1024 || smem <= opted) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      idm_rollout_k::idm_rollout_kernel,
+  cudaError_t e = cudaFuncSetAttribute(
+      idm_rollout_k::idm_rollout_kernel<false>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(idm_rollout_k::idm_rollout_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (e == cudaSuccess) opted = smem;
   return e;
 }
@@ -551,7 +777,7 @@ extern "C" int idm_rollout_blocks_per_sm(int NR, int O, int P, int K) {
   const size_t smem = rollout_smem_floats(NR, O, P, K) * sizeof(float);
   int n = 0;
   if (opt_in(smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, idm_rollout_kernel, THREADS,
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, idm_rollout_kernel<false>, THREADS,
                                                     smem) != cudaSuccess)
     return -1;
   return n;
@@ -583,8 +809,11 @@ extern "C" int idm_rollout(const float* init_ref, const float* init_con,
   if (e != cudaSuccess) return (int)e;
   const Objs ob = {pred_t, pred_xy, pred_heading, pred_v, pred_dists,
                    hull_preds, hull_projs, radius_hull, valid, on_local_map};
-  const int blocks = (C + CANDS - 1) / CANDS;
-  idm_rollout_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  const bool split = idm_rollout_split(C) != 0;
+  const int cands = split ? WARPS / 2 : WARPS;
+  const int blocks = (C + cands - 1) / cands;
+  auto* kernel = split ? idm_rollout_kernel<true> : idm_rollout_kernel<false>;
+  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       init_ref, init_con, l_trgs, d_stops, dt_replan, ref_line, ref_step, ob,
       pp, out_ref, out_con, C, T, NR, O, P, K);
   return (int)cudaGetLastError();

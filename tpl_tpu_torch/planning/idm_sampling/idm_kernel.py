@@ -9,12 +9,13 @@ Two device entries live here, each a hand-written kernel on a CUDA tensor
 and a plain PyTorch version on a CPU tensor:
 
 - the closed-loop rollout of every candidate (:func:`rollout`; kernel
-  ``idm_rollout`` of ``csrc/idm_rollout.cu``, one warp per candidate; plain
-  :func:`rollout_reference`, the JAX package's ``rollout_lanes``);
+  ``idm_rollout`` of ``csrc/idm_rollout.cu``, one warp per candidate, two
+  where the candidates are at most 512; plain :func:`rollout_reference`,
+  the JAX package's ``rollout_lanes``);
 - the screens and costs of every candidate (:func:`evaluate`; kernel
-  ``idm_evaluate`` of ``csrc/idm_evaluate.cu``, a thread per (candidate,
-  step); plain :func:`evaluate_reference`, the JAX package's
-  ``evaluate_lanes``).
+  ``idm_evaluate`` of ``csrc/idm_evaluate.cu``, persistent blocks walking
+  batches of candidates, a thread per (candidate, step); plain
+  :func:`evaluate_reference`, the JAX package's ``evaluate_lanes``).
 
 Everything is float32, as the JAX program casts it, except the road-edge
 margin of the evaluation, which the JAX package computes in float64 (a
@@ -852,38 +853,54 @@ def make_idm_kernel(spec):
 # defines them (float32): the leader search 22 per hull point, the lane
 # search 14 per object, the stop scan 8 per ref cell, the projection 16 per
 # segment, the 25 speed-limit lookups 12 each, the IDM law and the
-# controller 120; transcendentals counted as one operation each.
+# controller 120; transcendentals counted as one operation each.  The
+# kernel's exact searches (csrc/idm_rollout.cu) add a box key of 8 per
+# segment chunk and a test of 6 per cell chunk they look at.
 ROLLOUT_OPS = dict(point=22, obj=14, cell=8, seg=16, lookup=12 * 25,
-                   scalar=120)
+                   scalar=120, seg_chunk=8, cell_chunk=6)
 # Operations of the evaluation: per (candidate, step, object) the collision
-# gate 10 and the interaction screen's projection (16 per path segment),
-# two brackets (4 per prediction point each) and term 12; per hull test
-# that a gate lets through (:func:`evaluate_work`) the hull lerp 6 per
-# vertex, the edges and self-projections 3 * K + 4 per edge, the rectangle
-# 12 per vertex and 14 per edge; per (candidate, step) the sums, 12.
-EVAL_OPS = dict(vertex=6 + 12, edge_k=3, edge=4 + 14, gate=10, seg=16,
-                pred=8, inter=12, step=12)
-# the critical path of one candidate's rollout step: a warp-wide
-# (value, index) reduction of five levels for each of the projection, the
-# stop scan, the leader search and the speed limit, the lane search on one
-# lane, the per-lane serial scans (25 segments, 25 cells, 6 points), the
+# gate 10, the path gate 8 and, where the path gate lets it through, the
+# interaction screen's projection (16 per path segment), two brackets (4 per
+# prediction point each) and term 12; per hull test that a gate lets through
+# (:func:`evaluate_work`) the hull lerp 6 per vertex, the edges and
+# self-projections 3 * K + 4 per edge, the rectangle 12 per vertex and 14 per
+# edge; per (candidate, step) the sums, 12.
+EVAL_OPS = dict(vertex=6 + 12, edge_k=3, edge=4 + 14, gate=10, path_gate=8,
+                seg=16, pred=8, inter=12, step=12)
+# the critical path of one candidate's rollout step (csrc/idm_rollout.cu):
+# warp-wide reductions of five levels (the speed limit, the leader's two
+# sides, its (value, index) minimum, its side distances, the lane search,
+# the projection's best after the first chunk and its final (value, index)
+# minimum), four ballots (the stop point's chunk and cell searches), the
+# per-lane scans (6 hull points twice, one segment of the first chunk), the
 # scalar chain of the IDM law and the controller
-CHAIN_STEP = dict(f32_add=25 * 3 + 25 + 6 * 3 + 12 + 60, f32_mul=40,
+CHAIN_STEP = dict(f32_add=6 * 3 * 2 + 16 + 12 + 60 + 5 * 10, f32_mul=40,
                   f32_div=9, f32_sin=3, f32_cos=4, f32_atan=3,
-                  smem_load=4 * 5 * 2 + 12)
-# the evaluation of one (candidate, step): the slowest thread's interaction
-# screen, objects one after the other (the hull's K x K self-projections
-# dominate), then the per-candidate sums, T steps on one thread
+                  smem_load=10 * 5 * 2 + 4 * 2 + 12)
+# the evaluation of one (candidate, step): the O gates (collision and path)
+# one after the other, one hull test of each screen (the hull's K x K
+# self-projections dominate) and the projection of the interaction screen,
+# then the per-candidate sums, T steps on one thread
+CHAIN_EVAL_GATE = dict(f32_add=8, f32_mul=4, smem_load=6)
 CHAIN_EVAL_OBJ = dict(f32_add=16 * 16 + 40, f32_mul=16 * 16, f32_div=3,
                       f32_cos=2, f32_sin=1, smem_load=40)
 CHAIN_EVAL_STEP = dict(f32_add=4, smem_load=4)
 
 
-def rollout_operations(C, T, NR, O, K):
+def rollout_operations(C, T, NR, O, K, work=None):
+    """Operations of one rollout: with ``work`` None, every step scanning
+    every ref cell and segment (the full-scan bound of the plain version);
+    with ``work`` (:func:`rollout_work`), the cells, segments and chunks an
+    exact pruned search needs on these inputs."""
     per_step = (ROLLOUT_OPS["point"] * O * K + ROLLOUT_OPS["obj"] * O
-                + ROLLOUT_OPS["cell"] * NR + ROLLOUT_OPS["seg"] * (NR - 1)
                 + ROLLOUT_OPS["lookup"] + ROLLOUT_OPS["scalar"])
-    return C * (T - 1) * per_step
+    if work is None:
+        return C * (T - 1) * (per_step + ROLLOUT_OPS["cell"] * NR
+                              + ROLLOUT_OPS["seg"] * (NR - 1))
+    return (C * (T - 1) * per_step + ROLLOUT_OPS["cell"] * work["cells"]
+            + ROLLOUT_OPS["seg"] * work["segments"]
+            + ROLLOUT_OPS["seg_chunk"] * work["seg_chunks"]
+            + ROLLOUT_OPS["cell_chunk"] * work["cell_chunks"])
 
 
 def rollout_bytes(C, T, NR, O, P, K):
@@ -895,9 +912,12 @@ def rollout_bytes(C, T, NR, O, P, K):
                 + C * T * 19)
 
 
-def rollout_bound_ms(C, T, NR, O, P, K):
+def rollout_bound_ms(C, T, NR, O, P, K, work=None):
+    """The roofline bound of one rollout, of the full scan (``work`` None)
+    or of the work :func:`rollout_work` counts."""
     return _latency.roofline_ms(rollout_bytes(C, T, NR, O, P, K),
-                                rollout_operations(C, T, NR, O, K), "float32")
+                                rollout_operations(C, T, NR, O, K, work),
+                                "float32")
 
 
 def rollout_chain_ms(T, cycles, sm_mhz):
@@ -905,13 +925,114 @@ def rollout_chain_ms(T, cycles, sm_mhz):
                              sm_mhz)
 
 
-def evaluate_work(states, objs, pp_vec):
+CHUNK = 32      # cells / segments a chunk of the kernels' exact searches
+BOX_REL = 2.0 ** -20    # the kernels' box margin (csrc/idm_common.cuh)
+
+
+def _grown_boxes(x, y, n_chunks):
+    """The bounding boxes of consecutive CHUNK-segment chunks of the
+    polyline (x, y) (..., N), grown by the kernels' rounding margin
+    (csrc/idm_common.cuh box_grow): (..., n_chunks, 4)."""
+    n_seg = x.shape[-1] - 1
+    pad = n_chunks * CHUNK - n_seg
+    inf = float("inf")
+
+    def ends(v, fn, fill):
+        lo = fn(v[..., :-1], v[..., 1:])
+        lo = torch.nn.functional.pad(lo, (0, pad), value=fill)
+        return lo.reshape(lo.shape[:-1] + (n_chunks, CHUNK))
+
+    xlo = ends(x, torch.minimum, inf).amin(-1)
+    xhi = ends(x, torch.maximum, -inf).amax(-1)
+    ylo = ends(y, torch.minimum, inf).amin(-1)
+    yhi = ends(y, torch.maximum, -inf).amax(-1)
+    m = torch.maximum(torch.maximum(xlo.abs(), xhi.abs()),
+                      torch.maximum(ylo.abs(), yhi.abs()))
+    d = m * BOX_REL
+    return torch.stack([xlo - d, xhi + d, ylo - d, yhi + d], -1)
+
+
+
+def _box_key(box, px, py):
+    """csrc/idm_common.cuh box_key: every segment in ``box`` has a squared
+    distance to (px, py) above x wherever the key is above x."""
+    dx = torch.clamp(torch.maximum(box[..., 0] - px, px - box[..., 1]),
+                     min=0.0)
+    dy = torch.clamp(torch.maximum(box[..., 2] - py, py - box[..., 3]),
+                     min=0.0)
+    lb = dx * dx + dy * dy
+    return torch.where(lb > 1e-30, lb * (1.0 - BOX_REL),
+                       torch.zeros_like(lb))
+
+
+def rollout_work(refs, cons, ref_line, ref_step, pp_vec):
+    """The work an exact pruned search needs on the rollout that gave
+    ``refs`` (C, T, 10) and ``cons`` (C, T, 9) (the plain version's
+    outputs): per step, the projection's segments in the CHUNK-segment
+    chunks whose box key is not above the true minimum (the chunks no exact
+    search may skip) and the box keys of every chunk; the stop point's cell
+    chunks up to the first that can hold its zero-speed or off-road cell,
+    and the cells of those it opens.  Returns a dict of totals
+    (``segments``, ``seg_chunks``, ``cells``, ``cell_chunks``) for
+    :func:`rollout_operations`."""
+    pp = _pp(pp_vec)
+    C, T = cons.shape[:2]
+    NR = ref_line.shape[0]
+    f32 = torch.float32
+    dev = cons.device
+    n_sch = (NR - 1 + CHUNK - 1) // CHUNK
+    n_cch = (NR + CHUNK - 1) // CHUNK
+    boxes = _grown_boxes(ref_line[:, 0], ref_line[:, 1], n_sch)  # (n_sch, 4)
+    seg_of = torch.full((n_sch,), CHUNK, dtype=torch.int64, device=dev)
+    seg_of[-1] = (NR - 1) - CHUNK * (n_sch - 1)
+    tabs = tuple(x[:, None] for x in _seg_tables(ref_line[:, :2]))
+    pad = n_cch * CHUNK - NR
+    chunked = lambda v, fill: torch.nn.functional.pad(
+        v, (0, pad), value=fill).reshape(n_cch, CHUNK)
+    c_dl = chunked(ref_line[:, 5], float("inf")).amin(1)
+    c_dr = chunked(ref_line[:, 6], float("inf")).amin(1)
+    c_zero = chunked((ref_line[:, 4] == 0.0).to(f32), 0.0).amax(1) > 0
+    last = torch.clamp(torch.arange(n_cch, device=dev) * CHUNK + CHUNK - 1,
+                       max=NR - 1)
+    ss_last = last.to(f32) * ref_step
+    jj = torch.arange(n_cch, device=dev)
+    segments = cells = cell_chunks = 0
+    for k in range(T - 1):
+        nx, ny = cons[:, k + 1, V_X], cons[:, k + 1, V_Y]
+        ax, ay, vx, vy, vv = tabs[:5]
+        q = ((nx - ax) * vx + (ny - ay) * vy) / vv
+        qc = torch.clamp(q, 0.0, 1.0)
+        ex, ey = nx - (ax + vx * qc), ny - (ay + vy * qc)
+        best = torch.amin(ex * ex + ey * ey, 0)                      # (C,)
+        key = _box_key(boxes[:, None], nx, ny)                      # (n_sch, C)
+        segments += int((seg_of[:, None] * (key <= best)).sum())
+        # the stop point: the chunks an exact search must look at
+        s, l = refs[:, k, R_S], refs[:, k, R_L]
+        i0 = torch.clamp(torch.ceil(s / ref_step), 0.0, NR - 1.0).long()
+        cz = i0 // CHUNK
+        zero_ok = c_zero[:, None] & (jj[:, None] >= cz)
+        off_ok = (ss_last[:, None] >= s) & ((l < -c_dr[:, None])
+                                            | (l > c_dl[:, None]))
+        for ok, start in ((zero_ok, cz), (off_ok, torch.zeros_like(cz))):
+            first = torch.where(ok.any(0), ok.to(torch.int64).argmax(0),
+                                torch.full_like(cz, n_cch))
+            cell_chunks += int((first - start + (first < n_cch).long())
+                               .clamp(min=1).sum())
+            cells += CHUNK * int((first < n_cch).sum())
+    return dict(segments=segments, seg_chunks=(T - 1) * C * n_sch,
+                cells=cells, cell_chunks=cell_chunks)
+
+
+def evaluate_work(states, objs, pp_vec, projections=False):
     """The hull tests the evaluation's gates let through on these inputs:
     (collision tests, interaction tests), each a rectangle SAT against a
     K-vertex hull.  A collision test runs where the object is ``near`` the
     ego, an interaction test where the ego projects in bounds and close
     onto the object's path and the object is oncoming; the bound counts
-    these, not every (candidate, step, object)."""
+    these, not every (candidate, step, object).  With ``projections`` a
+    third count: the (candidate, step, object) projections onto a path that
+    the path gate (the path's grown bounding box against the object's
+    radius, csrc/idm_evaluate.cu) lets through."""
     pp = _pp(pp_vec)
     T = states.shape[1]
     valid = (objs["valid"] != 0.0)[:, None]
@@ -920,7 +1041,14 @@ def evaluate_work(states, objs, pp_vec):
     l_off = pp["length_veh"] / 2.0 - pp["dist_back_veh"]
     path_tabs = tuple(x[..., None] for x in _seg_tables(objs["pred_xy"]))
     P = objs["pred_t"].shape[1]
-    n_coll = n_inter = 0
+    rad = pp["radius_veh"] + objs["radius_hull"]                   # (O,)
+    r2 = torch.clamp(rad * rad * (1.0 + BOX_REL), min=1e-17)
+    xy = objs["pred_xy"]
+    lo, hi = xy.amin(1), xy.amax(1)                                 # (O, 2)
+    m = torch.maximum(lo.abs().amax(1), hi.abs().amax(1)) * BOX_REL
+    boxes = torch.stack([lo[:, 0] - m, hi[:, 0] + m, lo[:, 1] - m,
+                         hi[:, 1] + m], -1)                         # (O, 4)
+    n_coll = n_inter = n_proj = 0
     for t in range(T):
         cx, cy, ch = (states[:, t, i] for i in (V_X, V_Y, V_H))
         ccx = cx + l_off * torch.cos(ch)
@@ -935,16 +1063,26 @@ def evaluate_work(states, objs, pp_vec):
         ok = in_b & valid & (torch.abs(dist) <= pp["radius_veh"]
                              + objs["radius_hull"][:, None])
         n_inter += int((ok & (torch.cos(ch - ang) < 0.0)).sum())
-    return n_coll, n_inter
+        if projections:
+            key = _box_key(boxes[:, None], cx, cy)                  # (O, C)
+            n_proj += int((~(key > r2[:, None])).sum())
+    return (n_coll, n_inter, n_proj) if projections else (n_coll, n_inter)
 
 
-def evaluate_operations(C, T, O, P, K, n_coll, n_inter):
+def evaluate_operations(C, T, O, P, K, n_coll, n_inter, n_proj=None):
     """Operations of one evaluation with ``n_coll`` / ``n_inter`` hull tests
-    (:func:`evaluate_work`)."""
+    (:func:`evaluate_work`): with ``n_proj`` None every (candidate, step,
+    object) projected onto its path (the full-scan bound), else ``n_proj``
+    projections the path gate lets through."""
     e = EVAL_OPS
     sat = e["vertex"] * K + (e["edge_k"] * K + e["edge"]) * K
-    per_obj = e["gate"] + e["seg"] * (P - 1) + e["pred"] * P + e["inter"]
-    return C * T * (O * per_obj + e["step"]) + (n_coll + n_inter) * sat
+    proj = e["seg"] * (P - 1) + e["pred"] * P + e["inter"]
+    if n_proj is None:
+        n_proj, gates = C * T * O, e["gate"]
+    else:
+        gates = e["gate"] + e["path_gate"]
+    return (C * T * (O * gates + e["step"]) + n_proj * proj
+            + (n_coll + n_inter) * sat)
 
 
 def evaluate_bytes(C, T, NR, O, P, K):
@@ -953,14 +1091,16 @@ def evaluate_bytes(C, T, NR, O, P, K):
                 + len(COST_KEYS) * C)
 
 
-def evaluate_bound_ms(C, T, NR, O, P, K, n_coll, n_inter):
+def evaluate_bound_ms(C, T, NR, O, P, K, n_coll, n_inter, n_proj=None):
     return _latency.roofline_ms(evaluate_bytes(C, T, NR, O, P, K),
                                 evaluate_operations(C, T, O, P, K, n_coll,
-                                                    n_inter), "float32")
+                                                    n_inter, n_proj),
+                                "float32")
 
 
 def evaluate_chain_ms(T, O, cycles, sm_mhz):
-    ops = _latency.add_ops({}, CHAIN_EVAL_OBJ, 2 * O)
+    ops = _latency.add_ops({}, CHAIN_EVAL_GATE, 2 * O)
+    ops = _latency.add_ops(ops, CHAIN_EVAL_OBJ, 2)
     ops = _latency.add_ops(ops, CHAIN_EVAL_STEP, T)
     return _latency.chain_ms(ops, cycles, sm_mhz)
 

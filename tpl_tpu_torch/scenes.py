@@ -185,6 +185,82 @@ def idm_scene(stop_cell=False, collider=False, oncoming=False):
     return rl, objs, _idm_pp(), init_ref, init_con
 
 
+def idm_hairpin_scene(start_s=0.0):
+    """A ref line that doubles back (NR=201, step 0.5 m): 40 m along +x,
+    a half circle of radius 4 m, then back along -x, the two legs 8 m
+    apart, so that a candidate between them lies near both and the
+    projection's chunk boxes cannot exclude the far leg.  The ref speed is
+    0 over cells 170-179 (a zero-speed stretch), and d_left / d_right fall
+    to 1.2 m over cells 60-89 (a narrowing that takes candidates with
+    |l| > 1.2 off the road).  Four objects (O=4, P=8, K=8): one slow ahead
+    on the first leg, one oncoming on it (the interaction screen's hull
+    tests run), one on the second leg and one parked on the half circle.
+    The ego starts on the first leg at station ``start_s`` (<= 40 m) at 8
+    m/s.  Returns (ref_line (201, 7), objs, pp, init_ref, init_con), as
+    :func:`idm_scene`."""
+    NR, step, rad = 201, 0.5, 4.0
+    s = np.arange(NR, dtype=np.float64) * step
+    arc_len = np.pi * rad
+    x, y = np.empty(NR), np.empty(NR)
+    head, k = np.zeros(NR), np.zeros(NR)
+    for n, sn in enumerate(s):
+        if sn <= 40.0:
+            x[n], y[n] = sn - 20.0, 0.0
+        elif sn <= 40.0 + arc_len:
+            a = (sn - 40.0) / rad - np.pi / 2
+            x[n], y[n] = 20.0 + rad * np.cos(a), rad + rad * np.sin(a)
+            head[n], k[n] = a + np.pi / 2, 1.0 / rad
+        else:
+            x[n], y[n] = 20.0 - (sn - 40.0 - arc_len), 2 * rad
+            head[n] = np.pi
+    rl = np.zeros((NR, 7), np.float32)
+    rl[:, 0], rl[:, 1], rl[:, 2], rl[:, 3] = x, y, head, k
+    rl[:, 4] = 12.0
+    rl[170:180, 4] = 0.0
+    rl[:, 5] = 4.0
+    rl[:, 6] = 4.0
+    rl[60:90, 5] = 1.2
+    rl[60:90, 6] = 1.2
+    O, P, K = 4, 8, 8
+    t = np.arange(P, dtype=np.float32)
+    # (x0, y0, heading, speed) of each object
+    motion = [(5.0, 0.0, 0.0, 3.0), (40.0, 2.5, np.pi, 8.0),
+              (10.0, 8.0, np.pi, 6.0), (24.0, 4.0, np.pi / 2, 0.0)]
+    objs = dict(
+        pred_t=np.tile(t, (O, 1)),
+        pred_xy=np.zeros((O, P, 2), np.float32),
+        pred_heading=np.zeros((O, P), np.float32),
+        pred_v=np.zeros((O, P), np.float32),
+        pred_dists=np.zeros((O, P), np.float32),
+        hull_preds=np.zeros((O, P, K, 2), np.float32),
+        hull_projs=np.full((O, P, 4), -1000.0, np.float32),
+        radius_hull=np.full(O, 2.5, np.float32),
+        valid=np.ones(O, bool),
+        on_local_map=np.ones(O, bool))
+    u = np.array([[-1, -1], [0, -1], [1, -1], [1, 0], [1, 1], [0, 1],
+                  [-1, 1], [-1, 0]], np.float32) * [2.3, 0.9]
+    for i, (x0, y0, h, v) in enumerate(motion):
+        c, s_ = np.cos(h), np.sin(h)
+        xy = np.stack([x0 + c * v * t, y0 + s_ * v * t], -1)
+        objs["pred_xy"][i] = xy
+        objs["pred_heading"][i] = h
+        objs["pred_v"][i] = v
+        objs["pred_dists"][i] = v * t if v > 0 else t
+        objs["hull_preds"][i, :, :, 0] = (xy[:, None, 0] + c * u[:, 0]
+                                          - s_ * u[:, 1])
+        objs["hull_preds"][i, :, :, 1] = (xy[:, None, 1] + s_ * u[:, 0]
+                                          + c * u[:, 1])
+    init_ref = np.zeros(10, np.float32)
+    init_ref[1] = start_s - 20.0
+    init_ref[4] = 8.0
+    init_ref[6] = start_s
+    init_con = np.zeros(9, np.float32)
+    init_con[1] = start_s - 20.0
+    init_con[5] = 8.0
+    init_con[7] = start_s
+    return rl, objs, _idm_pp(), init_ref, init_con
+
+
 def idm_through_states(C, T):
     """Fabricated (ref_states (C, T, 10), states (C, T, 9)) that drive
     straight through the collider scene, fanned out laterally (the JAX

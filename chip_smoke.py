@@ -74,16 +74,30 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    ``trajectory_tracking_mpc`` at B=2048, H=60, 8 iterations, HEUN, the
    ``_mpc_setup`` inputs with ``x0 + 0.01 * b`` (the batch of the JAX
    package's bench), in float64 and in float32: one launch of
-   ``ilqr_tracking_mpc_batched`` (a grid of B blocks) per update, all 2048
-   results against the plain batched update on the card, per scenario
-   (float64: x, u, lam atol = rtol = 1e-9 on at least 99 % of the scenarios
-   and equal mu_step and iteration counts on all; float32 and the reason
-   for a share: see BATCH_* / F32_* below), blocks 0, 1 and 2047 bit-equal
-   to three single launches (float64); the same batch size with every start
-   near the course, where every block does the full work; prints blocks per SM, shared memory per block, ms per batch
-   through the bare launcher and through the wrapper at B = 1, 132, 264,
-   2048, solves per second, the plain version's time, the roofline bound
-   and the floor of the one-block-per-scenario design;
+   ``ilqr_tracking_mpc_batched`` (persistent, a warp per scenario) per
+   update, all 2048 results against the plain batched update on the card,
+   per scenario (float64: x, u, lam atol = rtol = 1e-9 on at least 99 % of
+   the scenarios and equal mu_step and iteration counts on all; float32 and
+   the reason for a share: see BATCH_* / F32_* below), every 64th scenario
+   and the last bit-equal to single launches (float64); the profiling
+   instantiation bit-equal, scenario 0's microseconds per iteration by phase
+   beside the single solve's on the same problem, and the batch's line
+   searches by the candidate they took against the candidates the plain
+   version's sequential search rolls; the same for the bench's scenario 0
+   alone in the team geometry (a block a scenario, which batches of at
+   most the printed size take); the resident scenarios per SM (the
+   occupancy calculator, both geometries) and the shared memory of a
+   block's shared part and of a scenario; on seeded warm starts in float32,
+   the shares of scenarios whose mu_step or stopping iteration differ,
+   kernel against plain float32 and plain float32 against plain float64;
+   ms per batch through the bare launcher and through the
+   wrapper at B = 1, 132, 264, 2048 on the bench's batch and with every
+   start near the course (every scenario 8 iterations), solves per second,
+   the plain version's time, the roofline bound (the candidates the
+   sequential search rolls), the longest scenario's chain in the batch's
+   precision, the larger of the two (the bound of any design) and the
+   floor of this design (each scenario's chain with the rounds its line
+   searches take);
 11. FAS closed loops: ``SimStandalone`` on ``demo/country_follow`` with
    ``poly_lat_dp_lon_planner`` (the demo planning set's block: the sweep at
    1 x 20, lon T=10, S=201, V=37, A=20, P=200, env 10 x 201 x 31) and then
@@ -200,10 +214,15 @@ of an earlier commit's; may be given more than once) the kernel phases
 also build that version with the same flags, run both on the same inputs
 through the bare launchers in turns (other, tree, tree, other) and print
 the largest difference of the results and the four times; for the
-action-min, the rampify scan and the two IDM kernels (the IDM kernels on
+action-min, the rampify scan, the two IDM kernels (the IDM kernels on
 the JAX bench's scene, the loop's first replan, the seeded scenes and the
-hairpin; the evaluation of the tree's rollout) a difference other than 0.0
-raises.  A
+hairpin; the evaluation of the tree's rollout) and the tracking MPC's
+single solve and its profiling instantiation a difference other than 0.0
+raises.  The batched tracking MPC is held to the other version's batched
+entry (a grid of one block per scenario where the source predates the
+persistent kernel) on the bench's batch, near the course and on seeded
+warm starts at every size of BATCH_SIZES, both precisions: every
+scenario's bits (a difference raises), and the times in turns.  A
 rampify source of the earlier one-buffer launcher is recognised, and if it
 exports ``rstp_rampify_profile`` with stamps after its staging, backward
 scan, forward scan and write-out, its "phases" lines are printed too.
@@ -278,6 +297,11 @@ BATCH = 2048
 PROFILE_SKIP_TICKS = 110
 BATCH_ITERATIONS = 8
 BATCH_SIZES = (1, 132, 264, 2048)
+# the batches the batched kernel runs: (name, spread of the starts, seed of
+# the warm start): the bench's, every start near the course, seeded warm
+# starts near the course (mixed iteration counts)
+BATCH_CASES = (("bench", None, None), ("near course", 8, None),
+               ("seeded", 8, 11))
 
 DEMO_SPEC = dict(t_steps=10, s_steps=201, ds_steps=37, l_steps=21)
 MIN_REPLANS = 5
@@ -1013,7 +1037,8 @@ def compare_with_parent(source, lib_fn, csrc, cases, n=30):
               f"{diff:.3e}; ms per launch parent {a:.4f}, new {b:.4f}, new "
               f"{c:.4f}, parent {d:.4f}")
         if not diff == 0.0 and source in ("rstp_rampify", "latlon_action_min",
-                                          "idm_rollout", "idm_evaluate"):
+                                          "idm_rollout", "idm_evaluate",
+                                          "ilqr_tracking_mpc"):
             raise AssertionError(f"{source} {what}: the result differs from "
                                  "the parent kernel's")
     return parent_lib
@@ -1060,6 +1085,7 @@ def ilqr_phase(itm, picked, dev, mhz, parent_csrc=None):
         max_err = max(max_err, err)
 
     # the profiling instantiation: the same bits, and the cycles per phase
+    single_us = None
     for what, buf, args in cases[:3]:
         got = itm.update(buf, *args)
         prof, cycles = itm.profile(buf, *args)
@@ -1068,7 +1094,8 @@ def ilqr_phase(itm, picked, dev, mhz, parent_csrc=None):
             raise AssertionError(f"{what}: the profiling instantiation's "
                                  "result differs")
         its = itm.unpack_outputs(got.cpu().numpy(), MPC_H)["iterations"]
-        phase_line("ilqr_tracking_mpc", what, ilqr, cycles, its, mhz)
+        us = phase_line("ilqr_tracking_mpc", what, ilqr, cycles, its, mhz)
+        single_us = us if single_us is None else single_us
 
     times = {}
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1084,6 +1111,9 @@ def ilqr_phase(itm, picked, dev, mhz, parent_csrc=None):
         print(f"ilqr_tracking_mpc {what} at H={MPC_H}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms per solve")
 
+    # the single solve and its profiling instantiation against another
+    # version's: the same bits (a difference raises), times in turns
+    cyc = torch.zeros(len(ilqr.PHASES), dtype=torch.int64, device=dev)
     for csrc in parents_with(parent_csrc, "ilqr_tracking_mpc"):
         compare_with_parent(
             "ilqr_tracking_mpc", itm._kernel().ilqr_tracking_mpc, csrc,
@@ -1091,10 +1121,18 @@ def ilqr_phase(itm, picked, dev, mhz, parent_csrc=None):
               lambda fn, out, buf=buf, args=args: fn(
                   buf.data_ptr(), out.data_ptr(), *args, stream))
              for what, buf, args in cases])
+        compare_with_parent(
+            "ilqr_tracking_mpc", itm._kernel().ilqr_tracking_mpc_profile,
+            csrc,
+            [(what + " (profile)", itm.update(buf, *args),
+              lambda fn, out, buf=buf, args=args: fn(
+                  buf.data_ptr(), out.data_ptr(), cyc.data_ptr(), *args,
+                  stream))
+             for what, buf, args in cases[:2]])
     _, buf, args = cases[1]
     its = itm.unpack_outputs(itm.update(buf, *args).cpu().numpy(),
                              MPC_H)["iterations"]
-    return max_err, times[cases[1][0]], its
+    return max_err, times[cases[1][0]], its, single_us
 
 
 def _to(tree, dev):
@@ -1497,11 +1535,13 @@ def rampify_phase_line(kernel, what, names, cycles, args, mhz):
           f"{cycles['forward'] / H:.1f}")
 
 
-def mpc_batch_inputs(B, dtype, dev, spread=None):
+def mpc_batch_inputs(B, dtype, dev, spread=None, seed=None):
     """The batch of the JAX package's bench (bench.py _mpc_batched_setup):
     the ``_mpc_setup`` course, weights and limits, zero warm start, starts
-    ``x0 + 0.01 * b`` on every state (or ``x0 + 0.01 * (b % spread)``); in
-    the batched update's layout on ``dev``."""
+    ``x0 + 0.01 * b`` on every state (or ``x0 + 0.01 * (b % spread)``); with
+    ``seed`` also a seeded offset of every start and seeded warm controls,
+    multipliers and mu_steps (the scenarios stop after mixed iteration
+    counts); in the batched update's layout on ``dev``."""
     import torch
     from tpl_tpu_torch.optim import batched, problems
 
@@ -1523,6 +1563,10 @@ def mpc_batch_inputs(B, dtype, dev, spread=None):
     b = np.arange(B) if spread is None else np.arange(B) % spread
     x0 = (np.array([0.0, 1.0, 0.0, 0.0, 5.0, 0.0, 0.0])[:, None]
           + 0.01 * b[None, :])
+    rng = None if seed is None else np.random.default_rng(seed)
+    if rng is not None:
+        x0 = x0 + rng.normal(0.0, 0.3, (7, B)) * np.array(
+            [1, 1, 0.2, 0.1, 3, 0, 0.5])[:, None]
     cfg = dict(u_min=t(np.tile([-3.0, -1.0], (H, 1))),
                u_max=t(np.tile([1.5, 1.0], (H, 1))),
                barrier_weight=t(np.full(4, 1e4)),
@@ -1531,15 +1575,152 @@ def mpc_batch_inputs(B, dtype, dev, spread=None):
                max_iterations=BATCH_ITERATIONS, max_lg_iterations=1)
     prob, _ = problems.trajectory_tracking_mpc(ref_capacity=128)
     x, u, lam, mu = batched.init_batch(prob, H, B, dtype, dev)
+    if rng is not None:
+        u = t(rng.normal(0.0, 0.3, (H, 2, B)))
+        lam = t(rng.uniform(0.0, 1e-3, (H, 4, B)))
+        mu = torch.as_tensor(rng.integers(0, 4, B), dtype=torch.int32,
+                             device=dev)
     return prob, (x, u, lam, mu, t(x0), {k: t(v) for k, v in params.items()},
                   cfg)
 
 
-def batched_phase(itm, dev, cycles, mhz):
+def rows_out(itm):
+    """Reals of one scenario's packed result at MPC_H."""
+    from tpl_tpu_torch.optim import ilqr
+
+    return ilqr.layout(itm.output_layout(MPC_H))[1]
+
+
+def same_bits(a, b):
+    """Whether two float tensors hold the same bits (NaN included)."""
+    import torch
+
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.shape == b.shape and bool(torch.equal(a.view(view),
+                                                   b.view(view)))
+
+
+def batched_launch(itm, lib, shared, rows, mu, out, work, stream):
+    """A launch of the batched kernel through the bare launcher ``lib`` (of
+    this tree or of a parent with the same interface) into ``out``; returns
+    the CUDA error code."""
+    from tpl_tpu_torch.optim import ilqr
+
+    return lib.ilqr_tracking_mpc_batched(
+        shared.data_ptr(), rows.data_ptr(), out.data_ptr(), mu.data_ptr(),
+        work.data_ptr(), rows.shape[0], MPC_H, 128, MPC_H, BATCH_ITERATIONS,
+        1, ilqr.HEUN, itm.DTYPES[rows.dtype], stream)
+
+
+def parent_batched(itm, csrc, stream):
+    """The batched entry of another version of ``ilqr_tracking_mpc.cu``
+    (built from ``csrc``) as ``launch(shared, rows, mu, out, work)``, on the
+    same split inputs.  A source without ``ilqr_tracking_mpc_batched_resident``
+    is the earlier grid of one block per scenario, which takes the single
+    solve's rows one after the other (``rows_of_batch``)."""
+    import ctypes
+    from tpl_tpu_torch import _build
+    from tpl_tpu_torch.optim import ilqr
+
+    lib = _build.load("ilqr_tracking_mpc", csrc)
+    fn = lib.ilqr_tracking_mpc_batched
+    fn.restype = ctypes.c_int
+    if hasattr(lib, "ilqr_tracking_mpc_batched_resident"):
+        fn.argtypes = itm._kernel().ilqr_tracking_mpc_batched.argtypes
+        return lambda sh, rows, mu, out, work: batched_launch(
+            itm, lib, sh, rows, mu, out, work, stream)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    packed = {}
+
+    def launch(sh, rows, mu, out, work):
+        key = (sh.data_ptr(), rows.data_ptr())
+        if key not in packed:
+            packed.clear()
+            packed[key] = itm.rows_of_batch(sh, rows, MPC_H, 128)
+        return fn(packed[key].data_ptr(), out.data_ptr(), mu.data_ptr(),
+                  rows.shape[0], MPC_H, 128, MPC_H, BATCH_ITERATIONS, 1,
+                  ilqr.HEUN, itm.DTYPES[rows.dtype], stream)
+    return launch
+
+
+def batched_parent_check(itm, parent, csrc, dtype, dev, stream):
+    """The tree's batched kernel against a parent's on every batch (the
+    bench's, near the course, seeded warm starts) at every size of
+    BATCH_SIZES, every scenario's bits; times in turns (parent, tree, tree,
+    parent) through the bare launchers.  Any difference raises.  Returns
+    {(batch, B): (parent ms, tree ms)}."""
+    import torch
+
+    tag = str(dtype).replace("torch.", "")
+    lib = itm._kernel()
+    times = {}
+    for what, spread, seed in BATCH_CASES:
+        for n in BATCH_SIZES:
+            _, a = mpc_batch_inputs(n, dtype, dev, spread, seed)
+            sh, rows = itm.pack_inputs_batched(a[0], a[1], a[2], a[4], a[5],
+                                               a[6], dtype)
+            mu = a[3].to(torch.int32).contiguous()
+            outs = [torch.empty((n, rows_out(itm)), dtype=dtype, device=dev)
+                    for _ in range(2)]
+            work = torch.empty(1, dtype=torch.int32, device=dev)
+            calls = (lambda: parent(sh, rows, mu, outs[0], work),
+                     lambda: batched_launch(itm, lib, sh, rows, mu, outs[1],
+                                            work, stream))
+
+            def checked(i):
+                err = calls[i]()
+                if err:
+                    raise RuntimeError(f"launch failed: CUDA error {err}")
+
+            checked(0), checked(1)
+            torch.cuda.synchronize()
+            if not same_bits(outs[0], outs[1]):
+                bad = (outs[0] != outs[1]).any(1).nonzero().flatten()
+                raise AssertionError(
+                    f"batched {tag} {what} B={n}: {len(bad)} scenarios differ "
+                    f"from the parent kernel's (first {bad[:8].tolist()})")
+            (pa, pd), (ta, tb) = in_turns(lambda: checked(0),
+                                          lambda: checked(1), 5)
+            times[what, n] = ((pa + pd) / 2, (ta + tb) / 2)
+            print(f"ilqr_tracking_mpc_batched {tag} {what} B={n} vs the "
+                  f"source in {csrc}: every scenario bit-equal; ms per batch "
+                  f"parent {pa:.4f}, new {ta:.4f}, new {tb:.4f}, parent "
+                  f"{pd:.4f}")
+    return times
+
+
+def batch_phase_line(tag, what, phases, hist, iterations, single_us, mhz):
+    """One line of the batch's profiled scenario 0: microseconds per
+    iteration by phase, beside the single solve's on the same problem
+    (``single_us``, from phase_line), and the batch's line searches by the
+    candidate they took."""
+    us = {k: v / mhz / max(iterations, 1) for k, v in phases.items()}
+    pairs = [k for k in phases if k.startswith("candidates_")]
+    per_it = ", ".join(f"{k} {us[k]:.2f}" for k in (
+        "derivatives", "expansion", "riccati", *pairs, "pick_copy"))
+    single = ""
+    if single_us:
+        sit = {k: v / BATCH_ITERATIONS for k, v in single_us.items()}
+        single = (f"; the single solve's: derivatives {sit['derivatives']:.2f}, "
+                  f"riccati {sit['riccati']:.2f}, rollouts + step costs + "
+                  f"sums {sit['rollouts'] + sit['step_costs'] + sit['cost_sums']:.2f}, "
+                  f"pick_copy {sit['pick_copy']:.2f}")
+    print(f"phases ilqr_tracking_mpc_batched {tag} {what} scenario 0 "
+          f"({iterations} iterations, SM {mhz:.0f} MHz): us per iteration: "
+          f"{per_it} (sum {sum(us[k] for k in ('derivatives', 'expansion', 'riccati', *pairs, 'pick_copy')):.2f}){single}; "
+          f"line searches by the candidate taken (8: none): "
+          f"{dict(zip(range(1, 9), hist))}")
+
+
+def batched_phase(itm, dev, cycles, mhz, single_us=None, parent_csrc=None):
     """The batched tracking MPC at B=2048 on the card, float64 then
     float32: the main path (one update through ``make_batched_update_fn``),
-    every scenario against the plain version, three blocks bit-equal to
-    single launches, and the times."""
+    every scenario against the plain version, every 64th scenario and the
+    last bit-equal to single launches, the profiled phases, the times at
+    every size of BATCH_SIZES on the bench's batch and near the course, the
+    bounds, and (with ``parent_csrc``) the parent's batched entry on every
+    batch."""
     import torch
     from tpl_tpu_torch.optim import batched, ilqr
 
@@ -1547,6 +1728,8 @@ def batched_phase(itm, dev, cycles, mhz):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = itm._kernel()
+    parents = [(d, parent_batched(itm, d, stream))
+               for d in parents_with(parent_csrc, "ilqr_tracking_mpc")]
     res = {}
     for dtype in (torch.float64, torch.float32):
         tag = str(dtype).replace("torch.", "")
@@ -1562,10 +1745,11 @@ def batched_phase(itm, dev, cycles, mhz):
         if launches != 1 or itm.launches != before_single:
             raise AssertionError(f"{tag}: {launches} batched launches for "
                                  "one update")
-        want = upd.reference(*args, iterations=True)
+        want = upd.reference(*args, iterations=True, rolled=True)
         torch.cuda.synchronize()
 
         its = got[5].cpu().numpy()
+        rolled = want[6].cpu().numpy()
         f64 = dtype == torch.float64
         atol, rtol, cost_rtol, min_share = (
             (BATCH_ATOL, BATCH_RTOL, MPC_COST_RTOL, BATCH_MIN_SHARE) if f64
@@ -1588,7 +1772,9 @@ def batched_phase(itm, dev, cycles, mhz):
               f"{float(rel[ok].max()):.3e} / {float(rel.max()):.3e}); mu_step "
               f"and iterations equal on {int(same.sum())}; iterations min "
               f"{its.min()} median {np.median(its):.0f} max {its.max()}, "
-              f"histogram {np.bincount(its, minlength=9).tolist()}")
+              f"histogram {np.bincount(its, minlength=9).tolist()}; "
+              f"candidates the sequential search rolls (plain) "
+              f"{int(rolled.sum())}, {rolled.sum() / its.sum():.2f} a search")
         for b in torch.nonzero(~ok).flatten().tolist()[:24]:
             d0 = float(args[4][3, b])
             print(f"  scenario {b}: max|dx| {float(diffs[0][b]):.3e}, max|du| "
@@ -1606,85 +1792,192 @@ def batched_phase(itm, dev, cycles, mhz):
             raise AssertionError("float64 batch: mu_step / iterations "
                                  "differ from the plain version's")
 
-        # the packed batch through the bare launcher; blocks 0, 1, B - 1
-        # against single launches on their rows (float64: the same bits)
+        # the packed batch through the bare launcher; every 64th scenario
+        # and the last against single launches on their rows (float64: the
+        # same bits)
         x, u, lam, mu, x0, params, cfg = args
-        buf = itm.pack_inputs_batched(x, u, lam, x0, params, cfg, dtype)
-        out = itm.launch_batched(buf, mu, H, n_ref, H, BATCH_ITERATIONS, 1,
-                                 ilqr.HEUN)
+        shared, rows = itm.pack_inputs_batched(x, u, lam, x0, params, cfg,
+                                               dtype)
+        out = itm.launch_batched(shared, rows, mu, H, n_ref, H,
+                                 BATCH_ITERATIONS)
         torch.cuda.synchronize()
-        if dtype == torch.float64:
-            for b in (0, 1, B - 1):
-                single = itm.update(buf[b].clone(), H, n_ref, H,
-                                    BATCH_ITERATIONS, 1, int(mu[b]),
-                                    ilqr.HEUN)
-                if not torch.equal(out[b], single):
-                    raise AssertionError(f"block {b} of the batch and a "
+        if f64:
+            single = itm.rows_of_batch(shared, rows, H, n_ref)
+            picks = sorted(set(range(0, B, 64)) | {B - 1})
+            for b in picks:
+                one = itm.update(single[b].contiguous(), H, n_ref, H,
+                                 BATCH_ITERATIONS, 1, int(mu[b]), ilqr.HEUN)
+                if not same_bits(out[b], one):
+                    raise AssertionError(f"scenario {b} of the batch and a "
                                          "single launch differ")
-            print("batched check float64: blocks 0, 1 and "
-                  f"{B - 1} are bit-equal to single launches")
+            print(f"batched check float64: the {len(picks)} scenarios 0, 64, "
+                  f"..., {B - 1} are bit-equal to single launches")
 
-        per_sm = itm.blocks_per_sm(H, n_ref, dtype)
-        smem = itm.smem_bytes(H, n_ref, dtype)
-        print(f"batched {tag}: {smem} B of shared memory per block, "
-              f"{per_sm} blocks per SM, {sms} SMs: {sms * per_sm} scenarios "
-              f"at a time, {-(-B // (sms * per_sm))} waves at B={B}")
+        # the profiling instantiation: the same bits, scenario 0's phases
+        # beside the single solve's on the same problem, the line searches
+        prof_out, prof_phases, hist = itm.profile_batched(
+            shared, rows, mu, H, n_ref, H, BATCH_ITERATIONS)
+        if not same_bits(prof_out, out):
+            raise AssertionError(f"{tag}: the batch's profiling "
+                                 "instantiation's result differs")
+        kernel_rolled = int(sum(k * h for k, h in zip(range(1, 9), hist)))
+        print(f"batched {tag}: the kernel's line searches took candidates "
+              f"worth {kernel_rolled} sequential rollouts (plain: "
+              f"{int(rolled.sum())})")
+        batch_phase_line(tag, "bench", prof_phases, hist, int(its[0]),
+                         single_us if f64 else None, mhz)
+        # the team geometry on the bench's scenario 0 alone
+        one = tuple(t[..., :1].contiguous() for t in (x, u, lam, x0))
+        sh1, rows1 = itm.pack_inputs_batched(*one[:3], one[3], params, cfg,
+                                             dtype)
+        out1 = itm.launch_batched(sh1, rows1, mu[:1].contiguous(), H, n_ref,
+                                  H, BATCH_ITERATIONS)
+        p_out1, p_ph1, p_hist1 = itm.profile_batched(
+            sh1, rows1, mu[:1].contiguous(), H, n_ref, H, BATCH_ITERATIONS)
+        if not (same_bits(p_out1, out1) and same_bits(out1, out[:1])):
+            raise AssertionError(f"{tag}: the team geometry's scenario 0 "
+                                 "differs from the batch's")
+        batch_phase_line(tag, "bench B=1, team geometry (candidates_0_* "
+                         "holds all 8)", p_ph1, p_hist1,
+                         int(itm.unpack_outputs_batched(out1, H)[5][0]),
+                         single_us if f64 else None, mhz)
 
+        per_sm, slots = itm.resident_scenarios(H, n_ref, dtype)
+        shared_b, slot_b = itm.batched_bytes(H, n_ref, dtype)
+        print(f"batched {tag}: {shared_b} B of shared memory a block for "
+              f"the shared part, {slot_b} B a scenario, {slots} scenarios "
+              f"a block, {per_sm} scenarios per SM, {sms} SMs: "
+              f"{sms * per_sm} at a time")
+        group = itm.SIDE_BY_SIDE[dtype]
+        team = itm.team_scenarios(H, n_ref, dtype)
+        print(f"batched {tag}: a warp rolls {group} candidates a round; the "
+              f"team geometry (a block of {8 // group} warps a scenario, "
+              f"all 8 candidates in one round) holds {team} scenarios per "
+              f"SM and takes the batches of B <= {sms * team}: "
+              f"{[n for n in BATCH_SIZES if n <= sms * team]} of "
+              f"{list(BATCH_SIZES)}")
+
+        if not f64:
+            # seeded warm starts: where float32 rounding decides mu_step
+            # and the stopping iteration, the kernel against the plain
+            # float32 update beside the plain float32 against float64
+            seeded = BATCH_CASES[2]
+            a32 = mpc_batch_inputs(B, dtype, dev, *seeded[1:])[1]
+            a64 = mpc_batch_inputs(B, torch.float64, dev, *seeded[1:])[1]
+            upd_s = batched.make_batched_update_fn(prob, H, B, ilqr.HEUN,
+                                                   dtype)
+            k32 = upd_s(*a32, iterations=True)
+            p32 = upd_s.reference(*a32, iterations=True)
+            p64 = batched.make_batched_update_fn(
+                prob, H, B, ilqr.HEUN, torch.float64).reference(
+                    *a64, iterations=True)
+            torch.cuda.synchronize()
+
+            def split(g, w):
+                return float(((g[3] != w[3]) | (g[5] != w[5])).float().mean())
+
+            f32_split = dict(kernel_plain=split(k32, p32),
+                                plain_f64=split(p32, p64),
+                                kernel_f64=split(k32, p64))
+            print(f"batched float32 seeded warm starts B={B}: mu_step or "
+                  f"the stopping iteration differ on a share "
+                  f"{f32_split['kernel_plain']:.4f} kernel vs plain "
+                  f"float32, {f32_split['plain_f64']:.4f} plain float32 "
+                  f"vs plain float64, {f32_split['kernel_f64']:.4f} "
+                  f"kernel vs plain float64")
+
+        # the times: the bench's batch and the batch near the course at
+        # every size, through the bare launcher and the wrapper in turns
         f32 = itm.DTYPES[dtype]
         times = {}
-        for n in BATCH_SIZES:
-            _, a = mpc_batch_inputs(n, dtype, dev)
-            upd_n = batched.make_batched_update_fn(prob, H, n, ilqr.HEUN,
-                                                   dtype)
-            buf_n = itm.pack_inputs_batched(a[0], a[1], a[2], a[4], a[5],
-                                            a[6], dtype)
-            out_n = torch.empty((n, out.shape[1]), dtype=dtype, device=dev)
-            times[n] = launcher_times(
-                "ilqr_tracking_mpc_batched", f"{tag} B={n}",
-                lambda: lib.ilqr_tracking_mpc_batched(
-                    buf_n.data_ptr(), out_n.data_ptr(), a[3].data_ptr(), n,
-                    H, n_ref, H, BATCH_ITERATIONS, 1, ilqr.HEUN, f32, stream),
-                lambda: upd_n(*a), 10)
-        # the same batch size with every scenario near the course (starts
-        # x0 + 0.01 * (b % 8)), so that every block does the full work
+        for what, spread, _ in BATCH_CASES[:2]:
+            for n in BATCH_SIZES:
+                _, a = mpc_batch_inputs(n, dtype, dev, spread)
+                upd_n = batched.make_batched_update_fn(prob, H, n, ilqr.HEUN,
+                                                       dtype)
+                sh_n, rows_n = itm.pack_inputs_batched(
+                    a[0], a[1], a[2], a[4], a[5], a[6], dtype)
+                out_n = torch.empty((n, out.shape[1]), dtype=dtype,
+                                    device=dev)
+                work = torch.empty(1, dtype=torch.int32, device=dev)
+                times[what, n] = launcher_times(
+                    "ilqr_tracking_mpc_batched", f"{tag} {what} B={n}",
+                    lambda: batched_launch(itm, lib, sh_n, rows_n, a[3],
+                                           out_n, work, stream),
+                    lambda: upd_n(*a), 10)
+
+        # every scenario near the course (starts x0 + 0.01 * (b % 8)): its
+        # iterations, the candidates the plain version's search rolls, the
+        # bound and the floor of this design
         _, a = mpc_batch_inputs(B, dtype, dev, spread=8)
-        buf_t = itm.pack_inputs_batched(a[0], a[1], a[2], a[4], a[5], a[6],
-                                        dtype)
-        its_t = itm.unpack_outputs_batched(itm.launch_batched(
-            buf_t, a[3], H, n_ref, H, BATCH_ITERATIONS, 1, ilqr.HEUN),
-            H)[5].cpu().numpy()
-        tame_ms = cuda_ms(lambda: lib.ilqr_tracking_mpc_batched(
-            buf_t.data_ptr(), out.data_ptr(), a[3].data_ptr(), B, H, n_ref,
-            H, BATCH_ITERATIONS, 1, ilqr.HEUN, f32, stream), 10)
-        tame = dict(ms=tame_ms, mean_iterations=float(its_t.mean()),
-                    bound=itm.bound_ms_batched(H, n_ref, H, its_t, dtype)[0],
-                    floor=itm.floor_ms_batched(B, sms, per_sm, itm.chain_ms(
-                        H, H, float(its_t.mean()), cycles, mhz)))
-        print(f"batched {tag} B={B}, every scenario near the course (starts "
-              f"x0 + 0.01 * (b % 8); iterations histogram "
-              f"{np.bincount(its_t, minlength=9).tolist()}): kernel "
-              f"{tame_ms:.3f} ms per batch ({B / tame_ms * 1e3:.0f} "
-              f"solves/s), bound {tame['bound']:.4f} ms, floor of the design "
-              f"{tame['floor']:.3f} ms")
+        upd_t = batched.make_batched_update_fn(prob, H, B, ilqr.HEUN, dtype)
+        its_t = upd_t(*a, iterations=True)[5].cpu().numpy()
+        rolled_t = upd_t.reference(*a, iterations=True,
+                                   rolled=True)[6].cpu().numpy()
+        rounds_t = upd_t.reference(*a, iterations=True, rolled=True,
+                                   group=group)[6].cpu().numpy()
+
+        def bounds(its_b, rolled_b, rounds_b):
+            """The roofline, the bound of any design, the longest chain
+            (one rollout an iteration) and the floor of this design (each
+            scenario's chain with its searches' rounds of ``group``)."""
+            roof = itm.roofline_ms_batched(H, n_ref, H, its_b, rolled_b,
+                                           dtype)
+            bound = itm.bound_ms_batched(H, n_ref, H, its_b, rolled_b, cycles,
+                                         mhz, dtype)
+            chain = itm.chain_ms(H, H, int(max(its_b)), cycles, mhz,
+                                 dtype=dtype)
+            chains = [itm.chain_ms(H, H, int(i), cycles, mhz, rolled=int(r),
+                                   dtype=dtype)
+                      for i, r in zip(its_b, rounds_b)]
+            return roof, bound, chain, itm.floor_ms_batched(chains, sms,
+                                                            per_sm)
+
+        tame = dict(zip(("roof", "bound", "chain", "floor"),
+                        bounds(its_t, rolled_t, rounds_t)))
+        tame.update(ms=times["near course", B][0],
+                    wrapper_ms=times["near course", B][1],
+                    mean_iterations=float(its_t.mean()),
+                    rolled=int(rolled_t.sum()))
+        rounds = upd.reference(*args, iterations=True, rolled=True,
+                               group=group)[6].cpu().numpy()
+        roof, bound, chain, floor = bounds(its, rolled, rounds)
         plain_ms = cuda_ms(lambda: upd.reference(*args), 1, warm=0)
-        bound, by = itm.bound_ms_batched(H, n_ref, H, its, dtype)
-        chain = itm.chain_ms(H, H, float(its.mean()), cycles, mhz)
-        floor = itm.floor_ms_batched(B, sms, per_sm, chain)
-        ms, wrapper_ms = times[B]
-        print(f"batched {tag} B={B} H={H} {BATCH_ITERATIONS} iterations HEUN: "
-              f"kernel {ms:.3f} ms per batch ({B / ms * 1e3:.0f} solves/s), "
-              f"wrapper {wrapper_ms:.3f} ms ({B / wrapper_ms * 1e3:.0f} "
-              f"solves/s), plain {plain_ms:.1f} ms; bound {bound:.4f} ms by "
-              f"{by}; one solve's chain at the mean {its.mean():.2f} "
-              f"iterations {chain:.4f} ms (float64 latencies), floor of the "
-              f"design {floor:.3f} ms")
+        ms, wrapper_ms = times["bench", B]
+        for what, t, its_b, rolled_b, (r, bd, ch, fl) in (
+                ("bench", (ms, wrapper_ms), its, rolled,
+                 (roof, bound, chain, floor)),
+                ("near course", (tame["ms"], tame["wrapper_ms"]), its_t,
+                 rolled_t, (tame["roof"], tame["bound"], tame["chain"],
+                            tame["floor"]))):
+            print(f"batched {tag} {what} B={B} H={H} {BATCH_ITERATIONS} "
+                  f"iterations HEUN (iterations histogram "
+                  f"{np.bincount(its_b, minlength=9).tolist()}, "
+                  f"{int(rolled_b.sum())} candidates rolled by the "
+                  f"sequential search): kernel {t[0]:.3f} ms per batch "
+                  f"({B / t[0] * 1e3:.0f} solves/s), wrapper {t[1]:.3f} ms "
+                  f"({B / t[1] * 1e3:.0f} solves/s); roofline {r[0]:.4f} ms "
+                  f"by {r[1]}, longest scenario's chain {ch:.4f} ms "
+                  f"({tag} latencies), bound {bd[0]:.4f} ms by {bd[1]}, "
+                  f"floor of the design {fl:.4f} ms (rounds of {group})")
+        print(f"batched {tag}: plain {plain_ms:.1f} ms per batch (the bench's)")
+        parent_times = {}
+        for csrc, parent in parents:
+            parent_times[csrc] = batched_parent_check(itm, parent, csrc,
+                                                      dtype, dev, stream)
         res[tag] = dict(
             launches=launches, err=err_ok, err_all=err_all, share=share,
-            ms=ms, wrapper_ms=wrapper_ms, tame=tame,
-            plain_ms=plain_ms, bound=(bound, by), floor=floor,
-            blocks_per_sm=per_sm, smem=smem,
-            by_batch={n: t[0] for n, t in times.items()},
-            wrapper_by_batch={n: t[1] for n, t in times.items()})
+            ms=ms, wrapper_ms=wrapper_ms, tame=tame, plain_ms=plain_ms,
+            roof=roof, bound=bound, chain=chain, floor=floor,
+            resident=per_sm, slots=slots, bytes=(shared_b, slot_b),
+            team=team, group=group, rolled=int(rolled.sum()),
+            split=None if f64 else f32_split,
+            phases={k: v / mhz for k, v in prof_phases.items()}, hist=hist,
+            by_batch={f"{w} {n}": t[0] for (w, n), t in times.items()},
+            wrapper_by_batch={f"{w} {n}": t[1]
+                              for (w, n), t in times.items()},
+            parent_by_batch={f"{w} {n}": t for c, pt in parent_times.items()
+                             for (w, n), t in pt.items()})
     return res
 
 
@@ -3288,9 +3581,9 @@ def main(argv=()):
         return 0
     phase("DP slice", slice_phase, lam, tllk)
     loop = phase("DP closed loop", closed_loop_phase, lam, itm)
-    ilqr_err, (ilqr_ms, ilqr_wrapper_ms, ilqr_plain_ms), mpc_its = phase(
-        "tracking-MPC kernel", ilqr_phase, itm, loop["picked"], dev, mhz,
-        opts.parent_csrc)
+    (ilqr_err, (ilqr_ms, ilqr_wrapper_ms, ilqr_plain_ms), mpc_its,
+     single_us) = phase("tracking-MPC kernel", ilqr_phase, itm,
+                        loop["picked"], dev, mhz, opts.parent_csrc)
     native_rec, restore = record_native_calls(native)
     for k in native.ROUTES:
         native.calls[k] = 0
@@ -3308,7 +3601,8 @@ def main(argv=()):
                  follow["picked"], follow["scans"], dev, mhz,
                  opts.parent_csrc)
     phase("host C routes", native_phase, native, native_rec, loop_calls)
-    bat = phase("batched tracking MPC", batched_phase, itm, dev, cycles, mhz)
+    bat = phase("batched tracking MPC", batched_phase, itm, dev, cycles, mhz,
+                single_us, opts.parent_csrc)
     fas = phase("FAS closed loop, poly_lat_dp_lon_planner", fas_loop_phase,
                 tlk, plk, rmp, FAS, FAS_TICKS, record=True)
     lattice = phase("FAS closed loop, lattice_planner", fas_loop_phase, tlk,
@@ -3395,43 +3689,51 @@ def main(argv=()):
         (ms, by), chain = bounds[row["name"]]
         row.update(route="cuda", bound_ms=ms, bound_by=by, chain_ms=chain,
                    library_ms=NO_LIBRARY)
-    # the batch: the float64 numbers under the contract's keys (chain_ms is
-    # the floor of the one-block-per-scenario design), the float32
+    # the batch: the float64 numbers of the bench's batch under the
+    # contract's keys (chain_ms: the longest scenario's dependent chain,
+    # which with the roofline makes the design-independent bound,
+    # batch_bound_ms), the batch near the course and the float32
     # instantiation's beside them
     b64, b32 = bat["float64"], bat["float32"]
     row = {"name": "ilqr_tracking_mpc_batched", "route": "cuda",
            "source": "tpl_tpu_torch/csrc/ilqr_tracking_mpc.cu",
-           "replaces": "tpl_tpu/optim/batched.py:30",
-           "batch": BATCH, "launches": b64["launches"],
-           "max_abs_err": b64["err"], "ms": b64["ms"],
-           "wrapper_ms": b64["wrapper_ms"], "plain_ms": b64["plain_ms"],
-           "bound_ms": b64["bound"][0], "bound_by": b64["bound"][1],
-           "chain_ms": b64["floor"], "library_ms": NO_LIBRARY,
-           "solves_per_s": BATCH / b64["wrapper_ms"] * 1e3,
-           "kernel_solves_per_s": BATCH / b64["ms"] * 1e3,
-           "blocks_per_sm": b64["blocks_per_sm"],
-           "ms_by_batch": b64["by_batch"],
-           "wrapper_ms_by_batch": b64["wrapper_by_batch"],
-           "max_abs_err_all": b64["err_all"],
-           "share_within_tolerance": b64["share"],
-           "near_course_ms": b64["tame"]["ms"],
-           "near_course_bound_ms": b64["tame"]["bound"],
-           "near_course_chain_ms": b64["tame"]["floor"]}
-    for k, v in (("launches", b32["launches"]), ("max_abs_err", b32["err"]),
-                 ("ms", b32["ms"]), ("wrapper_ms", b32["wrapper_ms"]),
-                 ("plain_ms", b32["plain_ms"]), ("bound_ms", b32["bound"][0]),
-                 ("chain_ms", b32["floor"]),
-                 ("solves_per_s", BATCH / b32["wrapper_ms"] * 1e3),
-                 ("kernel_solves_per_s", BATCH / b32["ms"] * 1e3),
-                 ("blocks_per_sm", b32["blocks_per_sm"]),
-                 ("ms_by_batch", b32["by_batch"]),
-                 ("wrapper_ms_by_batch", b32["wrapper_by_batch"]),
-                 ("max_abs_err_all", b32["err_all"]),
-                 ("share_within_tolerance", b32["share"]),
-                 ("near_course_ms", b32["tame"]["ms"]),
-                 ("near_course_bound_ms", b32["tame"]["bound"]),
-                 ("near_course_chain_ms", b32["tame"]["floor"])):
-        row["float32_" + k] = v
+           "replaces": "tpl_tpu/optim/batched.py:30", "batch": BATCH,
+           "library_ms": NO_LIBRARY}
+
+    def batch_keys(r):
+        return {
+            "launches": r["launches"], "max_abs_err": r["err"],
+            "ms": r["ms"], "wrapper_ms": r["wrapper_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["roof"][0],
+            "bound_by": r["roof"][1], "chain_ms": r["chain"],
+            "batch_bound_ms": r["bound"][0], "batch_bound_by": r["bound"][1],
+            "floor_ms": r["floor"],
+            "solves_per_s": BATCH / r["wrapper_ms"] * 1e3,
+            "kernel_solves_per_s": BATCH / r["ms"] * 1e3,
+            "resident_scenarios_per_sm": r["resident"],
+            "scenarios_per_block": r["slots"],
+            "shared_bytes": r["bytes"][0], "scenario_bytes": r["bytes"][1],
+            "candidates_rolled": r["rolled"],
+            "scenario0_phases_us": r["phases"],
+            "line_searches_by_candidate": r["hist"],
+            "ms_by_batch": r["by_batch"],
+            "wrapper_ms_by_batch": r["wrapper_by_batch"],
+            "parent_ms_by_batch": r["parent_by_batch"],
+            "max_abs_err_all": r["err_all"],
+            "share_within_tolerance": r["share"],
+            "near_course_ms": r["tame"]["ms"],
+            "near_course_wrapper_ms": r["tame"]["wrapper_ms"],
+            "near_course_bound_ms": r["tame"]["roof"][0],
+            "near_course_chain_ms": r["tame"]["chain"],
+            "near_course_batch_bound_ms": r["tame"]["bound"][0],
+            "near_course_floor_ms": r["tame"]["floor"],
+            "near_course_candidates_rolled": r["tame"]["rolled"],
+            "team_scenarios_per_sm": r["team"],
+            "candidates_a_round": r["group"],
+            "warm_start_decision_split": r["split"]}
+
+    row.update(batch_keys(b64))
+    row.update({"float32_" + k: v for k, v in batch_keys(b32).items()})
     rows.append(row)
     # the FAS chain's kernels: launches on its loop, the lattice loop's
     # beside them; the checks on seeded inputs and on the FAS loop's, the

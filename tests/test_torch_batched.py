@@ -332,3 +332,108 @@ def test_init_batch_takes_the_device_given():
     assert x.shape == (H + 1, 7, 3) and u.shape == (H, 2, 3)
     assert lam.shape == (H, 4, 3) and mu.dtype == torch.int32
     assert {a.device.type for a in (x, u, lam, mu)} == {"cpu"}
+
+
+# ---------------------------------------------------------------------
+# the batched kernel's line-search rule
+
+def sequential_pick(costs, traj_costs):
+    """The line search's pick as the batched kernel takes it: candidate c
+    of a scenario is rolled while no candidate before it improved on
+    ``traj_costs`` (finite, non-negative and lower), and the first that
+    does is taken.  ``costs`` (B, A); returns ``(found, idx, rolled)``, each
+    (B,): whether one improved, which (0 where none did) and how many
+    candidates were rolled."""
+    B, A = costs.shape
+    found = torch.zeros(B, dtype=torch.bool)
+    idx = torch.zeros(B, dtype=torch.int64)
+    rolled = torch.zeros(B, dtype=torch.int64)
+    for c in range(A):
+        rolled += (~found).to(torch.int64)
+        cc = costs[:, c]
+        ok = ~found & (cc < traj_costs) & torch.isfinite(cc) & (cc >= 0.0)
+        idx = torch.where(ok, c, idx)
+        found |= ok
+    return found, idx, rolled
+
+
+def _argmax_pick(costs, cur):
+    """The plain update's pick: the first improving candidate by argmax,
+    and the candidates a search in order rolls to reach it."""
+    improving = (costs < cur[:, None]) & torch.isfinite(costs) & (costs >= 0.0)
+    found = improving.any(1)
+    idx = improving.to(torch.int8).argmax(1)
+    rolled = torch.where(found, idx + 1, costs.shape[1])
+    return found, torch.where(found, idx, 0), rolled
+
+
+@pytest.mark.parametrize("kind", ["mixed", "nan", "negative", "none"])
+def test_sequential_pick_matches_the_argmax_pick(kind):
+    """The kernel's rule (roll the candidates in order, stop at the first
+    improving one) takes the plain version's pick, and rolls as many as
+    that pick's index + 1 (all 8 where none improves), on seeded batches
+    of candidate costs with NaN, infinite, negative and no improving
+    costs."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    B, A = 256, 8
+    cur = torch.as_tensor(rng.uniform(1.0, 2.0, B))
+    costs = torch.as_tensor(rng.uniform(0.5, 3.0, (B, A)))
+    if kind == "nan":
+        costs[torch.as_tensor(rng.uniform(size=(B, A)) < 0.4)] = np.nan
+        costs[torch.as_tensor(rng.uniform(size=(B, A)) < 0.1)] = -np.inf
+    elif kind == "negative":
+        costs = costs - 2.0        # below zero is never taken
+    elif kind == "none":
+        costs = cur[:, None] + torch.as_tensor(rng.uniform(0.0, 1.0, (B, A)))
+        costs[:, 3] = cur          # equal is no improvement
+    found, idx, rolled = sequential_pick(costs, cur)
+    w_found, w_idx, w_rolled = _argmax_pick(costs, cur)
+    assert torch.equal(found, w_found)
+    assert torch.equal(torch.where(found, idx, 0), w_idx)
+    assert torch.equal(rolled, w_rolled)
+    if kind == "none":
+        assert not bool(found.any()) and bool((rolled == A).all())
+    else:
+        assert 0 < int(found.sum()) < B
+        assert len(set(rolled.tolist())) > 2
+
+
+def test_plain_reports_the_candidates_rolled():
+    """``rolled=True`` adds the candidates the sequential search rolls over
+    the update, one count a scenario, and changes no result: at least one
+    and at most 8 a search."""
+    (xs, u, lam, mu, costs, its), args, tprob = run_port("mpc_heun_f64_warm")
+    B = xs.shape[-1]
+    upd = batched.make_batched_update_fn(tprob, H, B, ilqr.HEUN,
+                                         torch.float64)
+    got = upd.reference(*args, iterations=True, rolled=True)
+    assert len(got) == 7
+    for g, w in zip(got[:6], (xs, u, lam, mu, costs, its)):
+        assert torch.equal(g, w)
+    rolled = got[6]
+    assert rolled.dtype == torch.int64 and rolled.shape == (B,)
+    assert bool((rolled >= its).all()) and bool((rolled <= 8 * its).all())
+    assert int(rolled.sum()) > int(its.sum())
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_plain_reports_the_rounds_of_a_group(group):
+    """``group=g`` counts the rounds of g candidates side by side that the
+    ordered search takes, ceil(rolled / g) a search: between the
+    candidates over g and the candidates, one a search with all 8 side by
+    side, and no result changes."""
+    (xs, u, lam, mu, costs, its), args, tprob = run_port("mpc_heun_f64_warm")
+    B = xs.shape[-1]
+    upd = batched.make_batched_update_fn(tprob, H, B, ilqr.HEUN,
+                                         torch.float64)
+    rolled = upd.reference(*args, rolled=True)[5]
+    got = upd.reference(*args, iterations=True, rolled=True, group=group)
+    for g, w in zip(got[:6], (xs, u, lam, mu, costs, its)):
+        assert torch.equal(g, w)
+    rounds = got[6]
+    assert bool((rounds >= its).all()) and bool((rounds <= rolled).all())
+    assert bool((rounds * group >= rolled).all())
+    if group == 1:
+        assert torch.equal(rounds, rolled)
+    if group == 8:
+        assert torch.equal(rounds, its)

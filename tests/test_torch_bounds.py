@@ -77,6 +77,79 @@ def test_mpc_bounds_at_h60():
     assert itm.chain_ops(H, 45, 3)["f64_div"] == 45 * (4 * 4 + 3)
 
 
+def test_mpc_batch_layout_and_bounds_at_h60():
+    H, n_ref = 60, 128
+    # the shared part: u_lims 60*2*2, bw_lim 4*2, cfg 2, alphas 8, 5 tables
+    # of 128; a scenario's row: x0 7, u 60*2, lam 60*4, 18 scalars
+    shared, row = itm.batched_layout(H, n_ref)
+    assert ilqr.layout(shared)[1] == 240 + 8 + 2 + 8 + 640 == 898
+    assert ilqr.layout(row)[1] == 7 + 120 + 240 + 18 == 385
+    # with the packed results (790 a scenario) and both parts read once
+    assert itm.traffic_bytes_batched(3, H, n_ref) == 8 * (898 + 3 * (385
+                                                                    + 790))
+    assert itm.traffic_bytes_batched(3, H, n_ref, 4) == 4 * (898 + 3 * 1175)
+    # per iteration the derivatives and the Riccati pass; per candidate
+    # rolled a rollout, its step costs and its sum
+    once = 60 * (151 + 119 + 1) + 60 * 20
+    per_it, per_cand = 60 * (164 + 2520), 60 * (203 + 119 + 1)
+    assert itm.operations(H, H, 3, rolled=5) == once + 3 * per_it \
+        + 5 * per_cand
+    assert itm.operations(H, H, 3) == itm.operations(H, H, 3, rolled=24)
+    its, rolled = [1, 8, 3], [8, 16, 5]
+    n_ops = sum(once + i * per_it + r * per_cand
+                for i, r in zip(its, rolled))
+    roof, by = itm.roofline_ms_batched(H, n_ref, H, its, rolled)
+    assert by == "operations" and roof == pytest.approx(n_ops / 34e12 * 1e3)
+    roof32, _ = itm.roofline_ms_batched(H, n_ref, H, its, rolled,
+                                        torch.float32)
+    assert roof32 == pytest.approx(n_ops / 67e12 * 1e3)
+    # the bound: the larger of the roofline and the longest scenario's
+    # chain at its own iteration count (8 here), one rollout an iteration
+    one = dict.fromkeys(_latency.PROBES, 1.0)
+    chain8 = itm.chain_ms(H, H, 8, one, 1000)
+    assert chain8 == pytest.approx(sum(itm.chain_ops(H, H, 8).values())
+                                   * 1e-6)
+    assert itm.bound_ms_batched(H, n_ref, H, its, rolled, one, 1000) == (
+        pytest.approx(chain8), "chain")
+    fast = dict.fromkeys(_latency.PROBES, 1e-6)
+    assert itm.bound_ms_batched(H, n_ref, H, its, rolled, fast, 1000) == (
+        pytest.approx(roof), "operations")
+    # rollouts one after the other lengthen the chain; one an iteration is
+    # the default
+    assert itm.chain_ops(H, H, 8) == itm.chain_ops(H, H, 8, rolled=8)
+    assert itm.chain_ops(H, H, 8, rolled=16)["f64_div"] == 60 * (17 * 4 + 8)
+    # the design's floor: the longest chain, or the chains over the warps
+    assert itm.floor_ms_batched([1.0, 2.0, 3.0], 2, 1) == 3.0
+    assert itm.floor_ms_batched([1.0] * 6, 1, 2) == 3.0
+
+
+def test_mpc_batch_chain_in_float32_takes_float32_latencies():
+    """A float32 batch's chain counts the same operations as float64's,
+    each priced at its ``f32_*`` probe (the angle distance's mod at
+    ``f32_fmod``); the bound of a float32 batch takes those latencies."""
+    H, n_ref = 60, 128
+    ops64 = itm.chain_ops(H, H, 8, rolled=12)
+    ops32 = itm.chain_ops(H, H, 8, rolled=12, dtype=torch.float32)
+    assert ops32 == {k.replace("f64_", "f32_"): v for k, v in ops64.items()}
+    assert set(ops32) <= set(_latency.PROBES)
+    assert ops32["f32_fmod"] == ops64["f64_fmod"] == 2 * 60 * 13
+    assert not any(k.startswith("f64_") for k in ops32)
+    # float64 latencies twice float32's: the float32 chain is half as long
+    # but for its shared-memory loads
+    lat = {k: (2.0 if k.startswith("f64_") else 1.0) for k in _latency.PROBES}
+    c64 = itm.chain_ms(H, H, 8, lat, 1000, rolled=12)
+    c32 = itm.chain_ms(H, H, 8, lat, 1000, rolled=12, dtype=torch.float32)
+    loads = ops64["smem_load"] * 1e-6
+    assert c32 - loads == pytest.approx((c64 - loads) / 2)
+    its, rolled = [1, 8, 3], [8, 16, 5]
+    assert itm.bound_ms_batched(H, n_ref, H, its, rolled, lat, 1000,
+                                torch.float32) == (
+        pytest.approx(itm.chain_ms(H, H, 8, lat, 1000, dtype=torch.float32)),
+        "chain")
+    with pytest.raises(ValueError, match="no chain"):
+        itm.chain_ops(H, H, 8, dtype=torch.float16)
+
+
 @pytest.mark.parametrize("name,n_tab,n_scal,nc,step_cost,roll,deriv,mult", [
     # deriv: one pass over the step cost and one operation for each
     # gradient, upper Hessian and state-dependent Jacobian entry

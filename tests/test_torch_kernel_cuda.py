@@ -12,13 +12,12 @@ rtol=1e-9, mu_step and the iteration count equal; the float32 RSTP iLQR
 kernel against its plain version x, u, lam atol=2e-2, traj_costs
 rtol=1e-5 (where each solve stops is decided by float32 rounding, see
 RSTP_X_ATOL); the rampify scan bit for bit; the batched tracking-MPC kernel
-(a grid of the float64 kernel, one scenario per block) against the plain
-batched update at the float64 kernel's own tolerance (x, u, lam atol=1e-6:
-on seeded warm starts a scenario's rounding differences grow to 1e-8 and
-more over 8 iterations; chip_smoke.py holds 99 % of the bench's cold batch
-to 1e-9) with equal
-mu_step and iteration counts, each block bit-equal to a single launch; its
-float32 instantiation
+(a warp per scenario, persistent) against the plain batched update at the
+float64 kernel's own tolerance (x, u, lam atol=1e-6: on seeded warm starts
+a scenario's rounding differences grow to 1e-8 and more over 8 iterations;
+chip_smoke.py holds 99 % of the bench's cold batch to 1e-9) with equal
+mu_step and iteration counts, each scenario bit-equal to a single launch;
+its float32 instantiation
 at the float32 tolerance above, with equal mu_step and iteration counts, on
 at least 90 % of a seeded batch's scenarios (an accepted or rejected last
 step of equal cost to rounding moves a control and the steps after it); the
@@ -354,7 +353,7 @@ def test_cuda_solver_launches_kernel_once_per_update(cuda):
 
 
 # ---------------------------------------------------------------------
-# the batched tracking-MPC kernel: a grid of B blocks
+# the batched tracking-MPC kernel: a warp per scenario, persistent
 
 def mpc_batch(B, dtype, dev, T=MPC_H, iterations=8, warm=True):
     """A seeded batch in the batched update's layout on ``dev``: starts
@@ -412,14 +411,17 @@ def test_batched_kernel_float64_matches_plain_and_single_launches(cuda, B, T,
                                rtol=1e-9)
     assert torch.equal(got[3], want[3]) and torch.equal(got[5], want[5])
     assert got[3].dtype == torch.int32 and got[0].shape == (MPC_H + 1, 7, B)
-    # every block returns the bits of a single launch on its scenario
+    # every scenario returns the bits of a single launch on its row
     x, u, lam_, mu, x0 = state
-    buf = itm.pack_inputs_batched(x, u, lam_, x0, params, cfg, torch.float64)
-    out = itm.launch_batched(buf, mu, MPC_H, 128, T, 8, 1, ilqr.HEUN)
+    shared, rows = itm.pack_inputs_batched(x, u, lam_, x0, params, cfg,
+                                           torch.float64)
+    out = itm.launch_batched(shared, rows, mu.to(torch.int32), MPC_H, 128, T,
+                             8, 1, ilqr.HEUN)
+    single = itm.rows_of_batch(shared, rows, MPC_H, 128)
     for b in sorted({0, 1, B // 2, B - 1}):
-        single = itm.update(buf[b].clone(), MPC_H, 128, T, 8, 1, int(mu[b]),
-                            ilqr.HEUN)
-        assert torch.equal(out[b], single), f"block {b}"
+        one = itm.update(single[b].contiguous(), MPC_H, 128, T, 8, 1,
+                         int(mu[b]), ilqr.HEUN)
+        assert torch.equal(out[b], one), f"scenario {b}"
     assert torch.equal(itm.unpack_outputs_batched(out, MPC_H)[0], got[0])
 
 
@@ -456,7 +458,179 @@ def test_batched_update_on_cuda_raises_for_other_problems(cuda):
     with pytest.raises(NotImplementedError, match="no batched kernel"):
         upd(x, u, lam_, mu, x[0], {}, cfg)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        itm.launch_batched(torch.zeros((2, 4)), mu.cpu(), 20, 128, 20, 2)
+        itm.launch_batched(torch.zeros(4), torch.zeros((2, 4)), mu.cpu(), 20,
+                           128, 20, 2)
+
+
+def _single_launches(shared, rows, mu, T, indices):
+    """Single launches on the batch's rows ``indices``: {b: result}."""
+    single = itm.rows_of_batch(shared, rows, MPC_H, 128)
+    return {b: itm.update(single[b].contiguous(), MPC_H, 128, T, 8, 1,
+                          int(mu[b]), ilqr.HEUN) for b in indices}
+
+
+@pytest.mark.cuda
+def test_batched_kernel_every_scenario_equals_a_single_launch(cuda):
+    """A seeded B=300 batch (warm starts, mixed iteration counts): every
+    scenario's result has the bits of a single launch on its row."""
+    B = 300
+    state, params, cfg = mpc_batch(B, torch.float64, cuda)
+    x, u, lam_, mu, x0 = state
+    shared, rows = itm.pack_inputs_batched(x, u, lam_, x0, params, cfg,
+                                           torch.float64)
+    mu = mu.to(torch.int32)
+    out = itm.launch_batched(shared, rows, mu, MPC_H, 128, MPC_H, 8)
+    its = itm.unpack_outputs_batched(out, MPC_H)[5]
+    assert len(set(its.tolist())) > 2
+    for b, one in _single_launches(shared, rows, mu, MPC_H,
+                                   range(B)).items():
+        assert torch.equal(out[b], one), f"scenario {b}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_team_geometry_matches_a_warp_a_scenario(cuda, dtype):
+    """The largest batch of the team geometry (a block a scenario) and the
+    same rows with one scenario more (a warp a scenario): every scenario of
+    the first has the second's bits; in float64 also those of single
+    launches (every 16th and the last)."""
+    team = itm.team_scenarios(MPC_H, 128, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert team >= 1
+    B = sms * team
+    state, params, cfg = mpc_batch(B + 1, dtype, cuda)
+    x, u, lam_, mu, x0 = state
+    shared, rows = itm.pack_inputs_batched(x, u, lam_, x0, params, cfg, dtype)
+    mu = mu.to(torch.int32)
+    warp = itm.launch_batched(shared, rows, mu, MPC_H, 128, MPC_H, 8)
+    out = itm.launch_batched(shared, rows[:B].contiguous(), mu[:B], MPC_H,
+                             128, MPC_H, 8)
+    assert torch.equal(out, warp[:B])
+    its = itm.unpack_outputs_batched(out, MPC_H)[5]
+    assert len(set(its.tolist())) > 2
+    if dtype == torch.float64:
+        picks = sorted(set(range(0, B, 16)) | {B - 1})
+        for b, one in _single_launches(shared, rows, mu, MPC_H,
+                                       picks).items():
+            assert torch.equal(out[b], one), f"scenario {b}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_kernel_above_the_resident_scenarios(cuda, dtype):
+    """More scenarios than the card holds at once: each warp takes several
+    in turn.  In float64 every 64th scenario and the last bit-equal to
+    single launches, and against the plain batched update mu_step and the
+    iteration counts equal on every scenario, x, u, lam within the tolerance
+    above on 99 % of them (chip_smoke.py's BATCH_MIN_SHARE: over a thousand
+    seeded warm starts a few carry their rounding differences to 2e-5); in
+    float32, on cold starts as test_batched_kernel_float32_matches_plain
+    (on warm starts float32 rounding decides mu_step and the stopping
+    iteration of more scenarios than this share allows: chip_smoke.py
+    prints, on its seeded warm starts, how often the kernel parts from plain
+    float32 beside how often plain float32 parts from float64, and holds the
+    float32 kernel to its parent's bits there), the tolerance above on 90 %
+    of them."""
+    per_sm, slots = itm.resident_scenarios(MPC_H, 128, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert slots >= 1 and per_sm >= slots
+    B = sms * per_sm + 37
+    state, params, cfg = mpc_batch(B, dtype, cuda,
+                                   warm=dtype == torch.float64)
+    upd = batched.make_batched_update_fn(
+        problems.trajectory_tracking_mpc(128)[0], MPC_H, B, ilqr.HEUN, dtype)
+    got = upd(*state, params, cfg, iterations=True)
+    want = upd.reference(*state, params, cfg, iterations=True)
+    if dtype == torch.float64:
+        ok = torch.ones(B, dtype=torch.bool, device=cuda)
+        for g, w in zip(got[:3], want[:3]):
+            ok &= torch.isclose(g, w, rtol=0, atol=1e-6).all(0).all(0)
+        assert float(ok.float().mean()) >= 0.99
+        assert torch.equal(got[3], want[3]) and torch.equal(got[5], want[5])
+        x, u, lam_, mu, x0 = state
+        shared, rows = itm.pack_inputs_batched(x, u, lam_, x0, params, cfg,
+                                               dtype)
+        mu = mu.to(torch.int32)
+        out = itm.launch_batched(shared, rows, mu, MPC_H, 128, MPC_H, 8)
+        picks = sorted(set(range(0, B, 64)) | {B - 1})
+        for b, one in _single_launches(shared, rows, mu, MPC_H,
+                                       picks).items():
+            assert torch.equal(out[b], one), f"scenario {b}"
+    else:
+        ok = (got[3] == want[3]) & (got[5] == want[5])
+        ok &= (got[4] - want[4]).abs() <= RSTP_COST_RTOL * want[4].abs()
+        for g, w in zip(got[:3], want[:3]):
+            ok &= torch.isclose(g, w, rtol=0, atol=RSTP_X_ATOL).all(0).all(0)
+        assert float(ok.float().mean()) >= 0.9
+    assert all(bool(torch.isfinite(g).all()) for g in got[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["team", "warp"])
+def test_batched_profiling_instantiation_is_bit_equal(cuda, geometry):
+    """The batch's profiling instantiation returns the normal one's bits,
+    a cycle count for each phase scenario 0 ran and the line searches by
+    candidates rolled, one a scenario and iteration; in the team geometry
+    (B=64) and a warp a scenario (one scenario more than the team geometry
+    takes).  The team keeps dense derivative blocks: no expansion."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B = (64 if geometry == "team"
+         else sms * itm.team_scenarios(MPC_H, 128, torch.float64) + 1)
+    state, params, cfg = mpc_batch(B, torch.float64, cuda)
+    x, u, lam_, mu, x0 = state
+    shared, rows = itm.pack_inputs_batched(x, u, lam_, x0, params, cfg,
+                                           torch.float64)
+    mu = mu.to(torch.int32)
+    out = itm.launch_batched(shared, rows, mu, MPC_H, 128, MPC_H, 8)
+    prof, phases, hist = itm.profile_batched(shared, rows, mu, MPC_H, 128,
+                                             MPC_H, 8)
+    assert torch.equal(out, prof)
+    assert set(phases) == set(itm.batch_phases(torch.float64))
+    for k in ("load", "init_rollout", "derivatives", "expansion", "riccati",
+              "candidates_0_1", "pick_copy", "store"):
+        if geometry == "team" and k == "expansion":
+            assert phases[k] == 0
+        else:
+            assert phases[k] > 0, k
+    its = itm.unpack_outputs_batched(out, MPC_H)[5]
+    assert sum(hist) == int(its.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["rows_width", "shared_length",
+                                   "shared_dtype", "mu_dtype", "mu_length",
+                                   "rows_strided", "table_per_scenario"])
+def test_batched_layout_checks_raise(cuda, fault):
+    """The split layout's shape checks: a launch the kernel cannot take
+    raises before it is made."""
+    B = 4
+    state, params, cfg = mpc_batch(B, torch.float64, cuda)
+    x, u, lam_, mu, x0 = state
+    shared, rows = itm.pack_inputs_batched(x, u, lam_, x0, params, cfg,
+                                           torch.float64)
+    mu = mu.to(torch.int32)
+    before = itm.launches_batched
+    with pytest.raises(ValueError):
+        if fault == "table_per_scenario":
+            itm.pack_inputs_batched(
+                x, u, lam_, x0,
+                dict(params, ref_x=params["ref_x"].expand(B, -1)), cfg,
+                torch.float64)
+        else:
+            if fault == "rows_width":
+                rows = rows[:, :-1].contiguous()
+            elif fault == "shared_length":
+                shared = shared[:-1]
+            elif fault == "shared_dtype":
+                shared = shared.float()
+            elif fault == "mu_dtype":
+                mu = mu.long()
+            elif fault == "mu_length":
+                mu = mu[:-1]
+            else:
+                rows = torch.cat([rows, rows], 1)[:, ::2]
+            itm.launch_batched(shared, rows, mu, MPC_H, 128, MPC_H, 8)
+    assert itm.launches_batched == before
 
 
 # ---------------------------------------------------------------------

@@ -89,6 +89,10 @@ from tpl_tpu_torch.scenes import (dp_poly_buffers, dp_poly_env,
 
 ATOL = 1e-12
 RTOL = 1e-12        # multipliers reach 1e2 and more (weight 1e4)
+# the batched kernel's own new cases against the plain batched update:
+# chip_smoke.py's BATCH_ATOL / BATCH_RTOL (each scenario is also held bit for
+# bit to the single-block body, which is the check of the kernel)
+BATCH_TOL = 1e-9
 MPC_H = 60
 RSTP_H = 250
 RSTP_N_REF = 512
@@ -114,7 +118,7 @@ struct Dim3 { unsigned x, y, z; };
 inline thread_local Dim3 threadIdx{0, 0, 0};
 inline thread_local Dim3 blockIdx{0, 0, 0};
 inline thread_local Dim3 gridDim{1, 1, 1};
-inline const Dim3 blockDim{256, 1, 1};
+inline Dim3 blockDim{256, 1, 1};      // set by the harness for a launch
 
 struct float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
@@ -124,29 +128,38 @@ inline float4 make_float4(float x, float y, float z, float w) {
 }
 
 namespace rehearsal {
-constexpr int THREADS = 256, WARP = 32;
-inline std::barrier<> block_barrier(THREADS);
-inline std::barrier<> warp_barrier[THREADS / WARP] = {
+constexpr int MAX_THREADS = 512, WARP = 32;
+inline std::barrier<>* block_barrier = nullptr;   // the launch's block
+inline std::barrier<> warp_barrier[MAX_THREADS / WARP] = {
     std::barrier<>(WARP), std::barrier<>(WARP), std::barrier<>(WARP),
     std::barrier<>(WARP), std::barrier<>(WARP), std::barrier<>(WARP),
-    std::barrier<>(WARP), std::barrier<>(WARP)};
-inline unsigned char exchange[THREADS / WARP][WARP][16];
+    std::barrier<>(WARP), std::barrier<>(WARP), std::barrier<>(WARP),
+    std::barrier<>(WARP), std::barrier<>(WARP), std::barrier<>(WARP),
+    std::barrier<>(WARP), std::barrier<>(WARP), std::barrier<>(WARP),
+    std::barrier<>(WARP)};
+inline unsigned char exchange[MAX_THREADS / WARP][WARP][16];
 }  // namespace rehearsal
 
-inline void __syncthreads() { rehearsal::block_barrier.arrive_and_wait(); }
+inline void __syncthreads() { rehearsal::block_barrier->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
   rehearsal::warp_barrier[threadIdx.x / 32].arrive_and_wait();
 }
 template <typename T>
-inline T __shfl_sync(unsigned, T v, int src) {
+inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
   static_assert(sizeof(T) <= 16, "exchange slot");
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   std::memcpy(rehearsal::exchange[w][lane], &v, sizeof(T));
   __syncwarp();
   T r;
-  std::memcpy(&r, rehearsal::exchange[w][src & 31], sizeof(T));
+  std::memcpy(&r,
+              rehearsal::exchange[w][(lane & ~(width - 1)) + (src & (width - 1))],
+              sizeof(T));
   __syncwarp();
   return r;
+}
+template <typename T>
+inline T __shfl_xor_sync(unsigned mask, T v, int lane_mask) {
+  return __shfl_sync(mask, v, (int)(threadIdx.x % 32) ^ lane_mask);
 }
 inline unsigned __ballot_sync(unsigned, int pred) {
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -163,6 +176,13 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return r;
 }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 inline long long clock64() {
   static thread_local long long t = 0;
   return ++t;
@@ -187,7 +207,7 @@ HARNESS = r"""
 // the kernels' dynamic shared memory (an extern array declared inside a
 // function belongs to the function's namespace)
 namespace ilqr_mpc { alignas(16) unsigned char smem_raw[262144]; }
-namespace ilqr_mpc_f32 { alignas(16) unsigned char smem_raw[131072]; }
+namespace ilqr_mpc_f32 { alignas(16) unsigned char smem_raw[262144]; }
 namespace ilqr_rstp { alignas(16) unsigned char smem_raw[262144]; }
 namespace rstp_rampify { alignas(16) unsigned char smem_raw[65536]; }
 namespace latlon_am { alignas(16) unsigned char smem_raw[262144]; }
@@ -198,13 +218,18 @@ namespace idm_evaluate_k { alignas(16) unsigned char smem_raw[262144]; }
 namespace poly_sampling_k { alignas(16) unsigned char smem_raw[65536]; }
 namespace dir_dist { alignas(16) unsigned char smem_raw[65536]; }
 
-// A grid of gx x gy blocks of 256 threads: every host thread runs its
-// thread of each block in turn (the blocks share the one shared-memory
-// array, so they run one after the other, kept apart by a block barrier).
+// A grid of gx x gy blocks of `threads` threads (256 unless given): every
+// host thread runs its thread of each block in turn (the blocks share the
+// one shared-memory array, so they run one after the other, kept apart by
+// a block barrier).
 template <class F>
-static void run_grid(unsigned gx, unsigned gy, F body) {
+static void run_grid(unsigned gx, unsigned gy, F body,
+                     unsigned threads = 256) {
+  std::barrier<> block(threads);
+  rehearsal::block_barrier = &block;
+  blockDim = {threads, 1, 1};
   std::vector<std::thread> pool;
-  for (unsigned i = 0; i < 256; ++i)
+  for (unsigned i = 0; i < threads; ++i)
     pool.emplace_back([=] {
       threadIdx.x = i;
       gridDim = {gx, gy, 1};
@@ -444,31 +469,76 @@ extern "C" void rehearse_mpc(const double* in, double* out, long long* prof,
                              int mu_step, int integrator) {
   run_block([=] {
     if (prof)
-      ilqr_mpc::ilqr_tracking_mpc_kernel<true>(in, out, prof, nullptr, H,
-                                               n_ref, T, max_it, max_lg,
-                                               mu_step, integrator);
+      ilqr_mpc::ilqr_tracking_mpc_kernel<true>(in, out, prof, H, n_ref, T,
+                                               max_it, max_lg, mu_step,
+                                               integrator);
     else
-      ilqr_mpc::ilqr_tracking_mpc_kernel<false>(in, out, nullptr, nullptr, H,
-                                                n_ref, T, max_it, max_lg,
-                                                mu_step, integrator);
+      ilqr_mpc::ilqr_tracking_mpc_kernel<false>(in, out, nullptr, H, n_ref,
+                                                T, max_it, max_lg, mu_step,
+                                                integrator);
   });
 }
 
-// the batched launch: a grid of B blocks, block b on scenario b
-extern "C" void rehearse_mpc_batched(const void* in, void* out,
-                                     const int* mu_steps, int B, int H,
-                                     int n_ref, int T, int max_it, int max_lg,
-                                     int integrator, int f32) {
-  run_grid(B, 1, [=] {
-    if (f32)
-      ilqr_mpc_f32::ilqr_tracking_mpc_kernel<false>(
-          (const float*)in, (float*)out, nullptr, mu_steps, H, n_ref, T,
-          max_it, max_lg, 0, integrator);
+// the batched kernel on the launcher's grid for `sms` SMs of `per_sm`
+// blocks of the largest block (ilqr_tracking_mpc_batched_grid), its warps
+// taking the scenarios through the work counter; prof (may be null) as the
+// profiling launcher's, zeroed by the caller; returns the slots a block
+extern "C" int rehearse_mpc_batched(const void* shared, const void* rows,
+                                    void* out, const int* mu_steps,
+                                    long long* prof, int B, int H, int n_ref,
+                                    int T, int max_it, int max_lg,
+                                    int integrator, int f32, int sms,
+                                    int per_sm) {
+  int slots = 0, grid = 0, work = 0;
+  ilqr_tracking_mpc_batched_grid(
+      B, sms, ilqr_tracking_mpc_batched_max_slots(H, n_ref, f32), per_sm,
+      &slots, &grid);
+  int* w = &work;
+  run_grid(grid, 1, [=] {
+    if (f32 && prof)
+      ilqr_mpc_f32::ilqr_tracking_mpc_batched_kernel<true>(
+          (const float*)shared, (const float*)rows, (float*)out, mu_steps, w,
+          prof, B, H, n_ref, T, max_it, max_lg, integrator);
+    else if (f32)
+      ilqr_mpc_f32::ilqr_tracking_mpc_batched_kernel<false>(
+          (const float*)shared, (const float*)rows, (float*)out, mu_steps, w,
+          nullptr, B, H, n_ref, T, max_it, max_lg, integrator);
+    else if (prof)
+      ilqr_mpc::ilqr_tracking_mpc_batched_kernel<true>(
+          (const double*)shared, (const double*)rows, (double*)out, mu_steps,
+          w, prof, B, H, n_ref, T, max_it, max_lg, integrator);
     else
-      ilqr_mpc::ilqr_tracking_mpc_kernel<false>(
-          (const double*)in, (double*)out, nullptr, mu_steps, H, n_ref, T,
-          max_it, max_lg, 0, integrator);
-  });
+      ilqr_mpc::ilqr_tracking_mpc_batched_kernel<false>(
+          (const double*)shared, (const double*)rows, (double*)out, mu_steps,
+          w, nullptr, B, H, n_ref, T, max_it, max_lg, integrator);
+  }, slots * 32);
+  return slots;
+}
+
+// the team geometry: a block of TEAM warps a scenario, a grid of B blocks
+extern "C" void rehearse_mpc_team(const void* shared, const void* rows,
+                                  void* out, const int* mu_steps,
+                                  long long* prof, int B, int H, int n_ref,
+                                  int T, int max_it, int max_lg,
+                                  int integrator, int f32) {
+  run_grid(B, 1, [=] {
+    if (f32 && prof)
+      ilqr_mpc_f32::ilqr_tracking_mpc_team_kernel<true>(
+          (const float*)shared, (const float*)rows, (float*)out, mu_steps,
+          prof, B, H, n_ref, T, max_it, max_lg, integrator);
+    else if (f32)
+      ilqr_mpc_f32::ilqr_tracking_mpc_team_kernel<false>(
+          (const float*)shared, (const float*)rows, (float*)out, mu_steps,
+          nullptr, B, H, n_ref, T, max_it, max_lg, integrator);
+    else if (prof)
+      ilqr_mpc::ilqr_tracking_mpc_team_kernel<true>(
+          (const double*)shared, (const double*)rows, (double*)out, mu_steps,
+          prof, B, H, n_ref, T, max_it, max_lg, integrator);
+    else
+      ilqr_mpc::ilqr_tracking_mpc_team_kernel<false>(
+          (const double*)shared, (const double*)rows, (double*)out, mu_steps,
+          nullptr, B, H, n_ref, T, max_it, max_lg, integrator);
+  }, (f32 ? ilqr_mpc_f32::TEAM : ilqr_mpc::TEAM) * 32);
 }
 
 extern "C" void rehearse_rstp(int problem, const double* in, double* out,
@@ -513,11 +583,20 @@ def bodies(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     lib.rehearse_mpc.restype = None
     lib.rehearse_mpc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-    lib.rehearse_mpc_batched.restype = None
-    lib.rehearse_mpc_batched.argtypes = ([ctypes.c_void_p] * 3
-                                         + [ctypes.c_int] * 8)
+    lib.rehearse_mpc_batched.restype = ctypes.c_int
+    lib.rehearse_mpc_batched.argtypes = ([ctypes.c_void_p] * 5
+                                         + [ctypes.c_int] * 10)
+    lib.rehearse_mpc_team.restype = None
+    lib.rehearse_mpc_team.argtypes = ([ctypes.c_void_p] * 5
+                                      + [ctypes.c_int] * 8)
+    lib.ilqr_tracking_mpc_team_bytes.restype = ctypes.c_size_t
+    lib.ilqr_tracking_mpc_team_bytes.argtypes = [ctypes.c_int] * 3
     lib.ilqr_tracking_mpc_smem_bytes.restype = ctypes.c_size_t
     lib.ilqr_tracking_mpc_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ilqr_tracking_mpc_batched_bytes.restype = ctypes.c_size_t
+    lib.ilqr_tracking_mpc_batched_bytes.argtypes = [ctypes.c_int] * 4
+    lib.ilqr_tracking_mpc_batched_max_slots.restype = ctypes.c_int
+    lib.ilqr_tracking_mpc_batched_max_slots.argtypes = [ctypes.c_int] * 3
     lib.rehearse_rstp.restype = None
     lib.rehearse_rstp.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
                                   + [ctypes.c_int] * 5)
@@ -687,36 +766,82 @@ def mpc_batch(dtype, B=4, T=MPC_H, iterations=8, warm=True):
     return (t(x), t(u), t(lam), torch.from_numpy(mu), t(x0)), params, cfg
 
 
-def rehearse_batch(bodies, state, params, cfg, dtype):
-    """The batched kernel body on the grid; returns the packed input, the
-    packed result and the unpacked result."""
+def rehearse_batch(bodies, state, params, cfg, dtype, sms=2, prof=None):
+    """The batched kernel on the launcher's grid for ``sms`` SMs of one
+    block each, its warps taking the scenarios through the work counter;
+    returns the packed ``(shared, rows)``, the packed result, the unpacked
+    result and the slots a block."""
     x, u, lam, mu, x0 = state
-    buf = itm.pack_inputs_batched(x, u, lam, x0, params, cfg, dtype)
-    B = buf.shape[0]
-    assert buf.is_contiguous() and buf.dtype == dtype
+    shared, rows = itm.pack_inputs_batched(x, u, lam, x0, params, cfg, dtype)
+    B = rows.shape[0]
+    assert rows.is_contiguous() and rows.dtype == shared.dtype == dtype
     n_out = ilqr.layout(itm.output_layout(MPC_H))[1]
-    out = np.zeros((B, n_out), buf.numpy().dtype)
+    out = np.full((B, n_out), np.nan, rows.numpy().dtype)
     f32 = int(dtype == torch.float32)
-    assert bodies.ilqr_tracking_mpc_smem_bytes(MPC_H, 128, f32) <= (
-        131072 if f32 else 262144)
-    bodies.rehearse_mpc_batched(
-        _ptr(buf.numpy()), _ptr(out), _ptr(mu.numpy()), B, MPC_H, 128,
-        cfg["T"], cfg["max_iterations"], 1, ilqr.HEUN, f32)
-    return buf, out, itm.unpack_outputs_batched(torch.from_numpy(out), MPC_H)
+    assert bodies.ilqr_tracking_mpc_batched_max_slots(MPC_H, 128, f32) >= 1
+    slots = bodies.rehearse_mpc_batched(
+        _ptr(shared.numpy()), _ptr(rows.numpy()), _ptr(out),
+        _ptr(mu.numpy()), None if prof is None else _ptr(prof), B, MPC_H,
+        128, cfg["T"], cfg["max_iterations"], 1, ilqr.HEUN, f32, sms, 1)
+    return ((shared, rows), out,
+            itm.unpack_outputs_batched(torch.from_numpy(out), MPC_H), slots)
+
+
+def rehearse_team(bodies, packed, mu, cfg, prof=None):
+    """The team geometry's kernel (a block of TEAM warps a scenario) on the
+    packed batch: the packed result."""
+    shared, rows = packed
+    B = rows.shape[0]
+    n_out = ilqr.layout(itm.output_layout(MPC_H))[1]
+    out = np.full((B, n_out), np.nan, rows.numpy().dtype)
+    bodies.rehearse_mpc_team(
+        _ptr(shared.numpy()), _ptr(rows.numpy()), _ptr(out), _ptr(mu.numpy()),
+        None if prof is None else _ptr(prof), B, MPC_H, 128, cfg["T"],
+        cfg["max_iterations"], 1, ilqr.HEUN, int(rows.dtype == torch.float32))
+    return out
+
+
+def single_bodies(bodies, packed, mu, cfg):
+    """The single-block body on every scenario's row of the batch
+    (``rows_of_batch``): the (B, n_out) results."""
+    rows = itm.rows_of_batch(*packed, MPC_H, 128).numpy()
+    out = np.zeros((rows.shape[0], ilqr.layout(itm.output_layout(MPC_H))[1]))
+    for b, row in enumerate(rows):
+        bodies.rehearse_mpc(_ptr(row.copy()), _ptr(out[b]), None, MPC_H, 128,
+                            cfg["T"], cfg["max_iterations"], 1, int(mu[b]),
+                            ilqr.HEUN)
+    return out
+
+
+def plain_batch(state, params, cfg, dtype, per_instance=()):
+    B = state[0].shape[-1]
+    upd = batched.make_batched_update_fn(
+        problems.trajectory_tracking_mpc(128)[0], MPC_H, B, ilqr.HEUN, dtype,
+        per_instance=per_instance)
+    return upd.reference(*state, params, cfg, iterations=True, rolled=True)
+
+
+def assert_plain_f64(got, want, tol=ATOL):
+    for name, g, w in zip(("x", "u", "lam"), got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=tol, atol=tol,
+                                   err_msg=name)
+    np.testing.assert_allclose(got[4].numpy(), want[4].numpy(), rtol=tol)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[5], want[5])
 
 
 @pytest.mark.parametrize("T,warm", [(MPC_H, True), (45, True),
                                     (MPC_H, False)])
 def test_mpc_batched_body_float64(bodies, T, warm):
-    """Each block of the grid returns the bits of the single-block body on
-    its scenario, and the batch agrees with the plain batched update."""
+    """Each scenario of the batch returns the bits of the single-block body
+    on its row, and the batch agrees with the plain batched update."""
     state, params, cfg = mpc_batch(torch.float64, T=T, warm=warm)
-    buf, out, got = rehearse_batch(bodies, state, params, cfg,
-                                   torch.float64)
-    B = buf.shape[0]
-    # row b is scenario b's pack_inputs
+    packed, out, got, _ = rehearse_batch(bodies, state, params, cfg,
+                                         torch.float64)
+    B = out.shape[0]
+    # row b of the split layout is scenario b's pack_inputs
+    rows = itm.rows_of_batch(*packed, MPC_H, 128)
+    x, u, lam, mu, x0 = state
     for b in (0, B - 1):
-        x, u, lam, mu, x0 = state
         row = itm.pack_inputs(
             dict(x=x[..., b].numpy(), u=u[..., b].numpy(),
                  lam=lam[..., b].numpy(),
@@ -726,32 +851,125 @@ def test_mpc_batched_body_float64(bodies, T, warm):
                                   cfg["lg_mult_limit"].numpy()], -1),
                  cfg_f=np.array([0.05, 1e-6])),
             {k: v.numpy() for k, v in params.items()})
-        np.testing.assert_array_equal(buf[b].numpy(), row)
+        np.testing.assert_array_equal(rows[b].numpy(), row)
+    single = single_bodies(bodies, packed, mu, cfg)
     for b in range(B):
-        single = np.zeros(out.shape[1])
-        bodies.rehearse_mpc(_ptr(buf[b].numpy().copy()), _ptr(single), None,
-                            MPC_H, 128, T, cfg["max_iterations"], 1,
-                            int(state[3][b]), ilqr.HEUN)
-        assert np.array_equal(out[b], single), f"block {b}"
-    upd = batched.make_batched_update_fn(
-        problems.trajectory_tracking_mpc(128)[0], MPC_H, B, ilqr.HEUN,
-        torch.float64)
-    want = upd(*state, params, cfg, iterations=True)
-    for name, g, w in zip(("x", "u", "lam"), got, want):
-        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=RTOL,
-                                   atol=ATOL, err_msg=name)
-    np.testing.assert_allclose(got[4].numpy(), want[4].numpy(), rtol=1e-12)
-    assert torch.equal(got[3], want[3]) and torch.equal(got[5], want[5])
+        assert np.array_equal(out[b], single[b]), f"scenario {b}"
+    want = plain_batch(state, params, cfg, torch.float64)
+    assert_plain_f64(got, want)
     if warm:
         assert len(set(got[5].tolist())) > 1      # they stop at different
     assert np.all(np.isfinite(got[0].numpy()))    # iteration counts
 
 
+@pytest.mark.parametrize("B,sms", [(1, 1), (5, 2), (9, 2)])
+def test_mpc_batched_warps_take_the_scenarios_in_turn(bodies, B, sms):
+    """Fewer warps than scenarios (B = 5 and 9 on a block of 3 and 5
+    slots): every scenario is solved once, bit-equal to the single-block
+    body on its row, whichever warp took it, and the batch agrees with the
+    plain batched update to BATCH_TOL (a scenario of the B = 9 batch carries
+    libm's last bits to 5e-12 over its iterations)."""
+    state, params, cfg = mpc_batch(torch.float64, B=B)
+    packed, out, got, slots = rehearse_batch(bodies, state, params, cfg,
+                                             torch.float64, sms=sms)
+    assert slots == -(-B // sms) and (B == 1 or B % slots)
+    single = single_bodies(bodies, packed, state[3], cfg)
+    for b in range(B):
+        assert np.array_equal(out[b], single[b]), f"scenario {b}"
+    assert_plain_f64(got, plain_batch(state, params, cfg, torch.float64),
+                     BATCH_TOL)
+
+
+def test_mpc_batched_search_without_improvement(bodies):
+    """Scenario 1 weighs nothing (its cost is its multiplier terms), so
+    after its first search no candidate improves: the search rolls all
+    eight and mu_step climbs to 7.  With no relative-change stop every solve
+    runs its 12 iterations.  The profiling instantiation returns the same
+    bits, scenario 0's phases and the line searches by candidates rolled,
+    which the plain version's count matches."""
+    state, params, cfg = mpc_batch(torch.float64, B=3, iterations=12)
+    cfg = dict(cfg, min_rel_cost_change=torch.tensor(0.0, dtype=torch.float64))
+    weights = ("pd", "pv", "min_pdelta_dot", "p_phi", "p_phi_ref_dot_diff",
+               "pa", "pj")
+    for k in weights:
+        params[k] = params[k] * torch.tensor([1.0, 0.0, 1.0],
+                                             dtype=torch.float64)
+    packed, out, got, _ = rehearse_batch(bodies, state, params, cfg,
+                                         torch.float64)
+    n = len(itm.batch_phases(torch.float64))
+    prof = np.zeros(n + 8, np.int64)
+    _, prof_out, _, _ = rehearse_batch(bodies, state, params, cfg,
+                                       torch.float64, prof=prof)
+    assert np.array_equal(out, prof_out)
+    assert np.all(prof[:n][[0, 1, 2, 3, 4, 5, 6, n - 2, n - 1]] > 0)
+    hist = prof[n:]
+    want = plain_batch(state, params, cfg, torch.float64, weights)
+    assert_plain_f64(got, want, BATCH_TOL)
+    assert np.all(got[5].numpy() == 12)
+    assert hist.sum() == 3 * 12 and hist[7] >= 11
+    assert int((hist * np.arange(1, 9)).sum()) == int(want[6].sum())
+    assert int(want[6][1]) >= 8 * 11 and int(got[3][1]) == 7
+    single = single_bodies(bodies, packed, state[3], cfg)
+    assert np.array_equal(out, single)
+
+
+@pytest.mark.parametrize("T,warm", [(MPC_H, True), (45, True),
+                                    (MPC_H, False)])
+def test_mpc_team_body_float64(bodies, T, warm):
+    """The team geometry (a block of four warps a scenario, every candidate
+    in one round) returns, scenario for scenario, the bits of the
+    warp-per-scenario kernel and of the single-block body on its row."""
+    state, params, cfg = mpc_batch(torch.float64, T=T, warm=warm)
+    packed, out, _, _ = rehearse_batch(bodies, state, params, cfg,
+                                       torch.float64)
+    team = rehearse_team(bodies, packed, state[3], cfg)
+    assert np.array_equal(team, out)
+    assert np.array_equal(team, single_bodies(bodies, packed, state[3], cfg))
+    assert bodies.ilqr_tracking_mpc_team_bytes(MPC_H, 128, 0) <= 232448
+
+
+def test_mpc_team_search_without_improvement(bodies):
+    """The batch of test_mpc_batched_search_without_improvement in the team
+    geometry: the same bits as the warp-per-scenario kernel, its profiling
+    instantiation the same bits, the same line searches by the candidate
+    taken, and no expansion phase."""
+    state, params, cfg = mpc_batch(torch.float64, B=3, iterations=12)
+    cfg = dict(cfg, min_rel_cost_change=torch.tensor(0.0, dtype=torch.float64))
+    for k in ("pd", "pv", "min_pdelta_dot", "p_phi", "p_phi_ref_dot_diff",
+              "pa", "pj"):
+        params[k] = params[k] * torch.tensor([1.0, 0.0, 1.0],
+                                             dtype=torch.float64)
+    n = len(itm.batch_phases(torch.float64))
+    prof = np.zeros(n + 8, np.int64)
+    packed, out, got, _ = rehearse_batch(bodies, state, params, cfg,
+                                         torch.float64, prof=prof)
+    team_prof = np.zeros(n + 8, np.int64)
+    team = rehearse_team(bodies, packed, state[3], cfg, team_prof)
+    assert np.array_equal(team, out)
+    assert np.array_equal(rehearse_team(bodies, packed, state[3], cfg), out)
+    assert np.array_equal(team_prof[n:], prof[n:])
+    assert team_prof[n + 7] >= 11 and int(got[3][1]) == 7
+    # the single solve's dense blocks: no expansion
+    assert np.all(team_prof[:n][[0, 1, 2, 3, 5, 6, n - 2, n - 1]] > 0)
+    assert team_prof[4] == 0
+
+
+def test_mpc_team_body_float32(bodies):
+    """The float32 team geometry (two warps a scenario) returns the bits of
+    the float32 warp-per-scenario kernel, scenario for scenario."""
+    state, params, cfg = mpc_batch(torch.float32, B=5)
+    packed, out, _, _ = rehearse_batch(bodies, state, params, cfg,
+                                       torch.float32)
+    team = rehearse_team(bodies, packed, state[3], cfg)
+    assert team.dtype == np.float32 and np.all(np.isfinite(team))
+    assert np.array_equal(team, out)
+
+
 def test_mpc_batched_body_float32(bodies):
-    """The float32 instantiation of the body against the plain float32
-    batched update, and near the float64 result."""
+    """The float32 instantiation of the batched kernel against the plain
+    float32 batched update, and near the float64 result."""
     state, params, cfg = mpc_batch(torch.float32)
-    _, out, got = rehearse_batch(bodies, state, params, cfg, torch.float32)
+    _, out, got, _ = rehearse_batch(bodies, state, params, cfg, torch.float32)
     assert out.dtype == np.float32
     B = out.shape[0]
     prob = problems.trajectory_tracking_mpc(128)[0]

@@ -44,6 +44,90 @@ constexpr int D_LUX = D_LUU + NU * NU;
 constexpr int ND = D_LUX + NU * NX;
 
 // ---------------------------------------------------------------------
+// the compact derivative block (the batched kernel)
+//
+// Of a step's 139 dense entries the derivative code writes only these with
+// a value it computes: the Jacobian entries in the masks of the dynamics'
+// rows (14, three of them the constant dt), the cost's 9 gradient entries
+// and the 26 upper-triangle Hessian pairs its terms touch (the 21 over
+// (px, py, phi, delta, v, s_r), (a, a), (j, j), (v, delta_dot),
+// (delta_dot, delta_dot), and (delta, a), which the multiplier term touches
+// with exact zeros).  Every other dense entry is a fixed expression: 1 + dt
+// * 0 on fx's diagonal, 0 + dt * 0 elsewhere in fx, dt * 0 in fu, a zero
+// the clear left in the cost's part, or a mirror of an upper-triangle
+// entry.  The compact block keeps the 49 in dense order; the batched kernel
+// rebuilds each step's dense block from it (expand_code) with the same
+// bits.  The writers check the sets at
+// compile time (jac_row against the masks, CompactHessAcc on every touched
+// entry), so a term that touches another entry does not compile.
+
+// row I of the dynamics depends on variable J
+__host__ __device__ constexpr bool jac_has(int I, int J) {
+  return I <= 1 ? (J == V_PHI || J == V_V)
+       : I == 2 ? (J == V_DELTA || J == V_V)
+       : I == 3 ? J == V_DDOT
+       : I == 4 ? J == V_A
+       : I == 5 ? (J == V_PX || J == V_PY || J == V_PHI || J == V_V
+                   || J == V_SR)
+                : J == V_J;
+}
+
+// the cost's Hessian entry (I, J), I <= J, is touched by one of its terms
+__host__ __device__ constexpr bool hess_has(int I, int J) {
+  return J <= V_SR || (I == V_A && J == V_A) || (I == V_J && J == V_J)
+         || (I == V_V && J == V_DDOT) || (I == V_DDOT && J == V_DDOT)
+         || (I == V_DELTA && J == V_A);
+}
+
+// the dense entry e is kept in the compact block
+__host__ __device__ constexpr bool stored(int e) {
+  return e < D_FU ? jac_has(e / NX, e % NX)
+       : e < D_LX ? jac_has((e - D_FU) / NU, NX + (e - D_FU) % NU)
+       : e < D_LXX ? true
+       : e < D_LUU ? ((e - D_LXX) / NX <= (e - D_LXX) % NX
+                      && hess_has((e - D_LXX) / NX, (e - D_LXX) % NX))
+       : e < D_LUX ? ((e - D_LUU) / NU <= (e - D_LUU) % NU
+                      && hess_has(NX + (e - D_LUU) / NU,
+                                  NX + (e - D_LUU) % NU))
+                   : hess_has((e - D_LUX) % NX, NX + (e - D_LUX) / NX);
+}
+
+// the stored entries among the first e dense ones
+__host__ __device__ constexpr int n_stored(int e) {
+  int p = 0;
+  for (int k = 0; k < e; ++k) p += stored(k) ? 1 : 0;
+  return p;
+}
+
+// the compact index of dense entry e, or -1
+__host__ __device__ constexpr int cpos(int e) {
+  return stored(e) ? n_stored(e) : -1;
+}
+
+constexpr int NCMP = n_stored(ND);       // reals of a compact block
+constexpr int NJAC = n_stored(D_LX);     // the Jacobian's, first
+static_assert(NCMP == 49 && NJAC == 14, "compact derivative block");
+
+// how the batch forms dense entry e: a compact index, or one of these, the
+// constant at konst[-1 - code] (the batched kernel's block keeps the four)
+enum Expand { X_ONE = -1, X_FX_ZERO = -2, X_FU_ZERO = -3, X_ZERO = -4 };
+constexpr int NKONST = 4;
+
+__host__ __device__ constexpr int expand_code(int e) {
+  // a lower-triangle entry of lxx or luu is its upper mirror's
+  const int src =
+      e >= D_LXX && e < D_LUU && (e - D_LXX) / NX > (e - D_LXX) % NX
+          ? D_LXX + ((e - D_LXX) % NX) * NX + (e - D_LXX) / NX
+      : e >= D_LUU && e < D_LUX && (e - D_LUU) / NU > (e - D_LUU) % NU
+          ? D_LUU + ((e - D_LUU) % NU) * NU + (e - D_LUU) / NU
+          : e;
+  return stored(src) ? cpos(src)
+       : src < D_FU ? (src / NX == src % NX ? X_ONE : X_FX_ZERO)
+       : src < D_LX ? X_FU_ZERO
+                    : X_ZERO;
+}
+
+// ---------------------------------------------------------------------
 // forward-mode numbers over (x, u) with a compile-time set of active
 // variables
 //
@@ -491,29 +575,43 @@ struct LocalTrig {
   }
 };
 
-// the same for a warp whose lanes all hold the same arguments: lanes 0, 1
-// and 2 take one angle each in one sincos() call and every lane reads the
-// five values back.  sincos() returns the bits of sin() and cos()
-// (chip_smoke.py counts the arguments at which they differ: none of
-// 12,000,000), and saves the second argument reduction.
-struct WarpTrig {
+// the value lane `src` of the calling group of G lanes holds (every lane
+// of the warp calls it; G == WARP is lane_get)
+template <int G>
+__device__ __forceinline__ real group_get(real v, int src) {
+  if constexpr (G == WARP)
+    return lane_get(v, src);
+  else
+    return __shfl_sync(FULL_MASK, v, src, G);
+}
+
+// the same for a group of G lanes (the warp, or half of it) that all hold
+// the same arguments: lanes 0, 1 and 2 of the group take one angle each in
+// one sincos() call and every lane reads the five values back.  sincos()
+// returns the bits of sin() and cos() (chip_smoke.py counts the arguments
+// at which they differ: none of 12,000,000), and saves the second argument
+// reduction.
+template <int G>
+struct GroupTrig {
   static constexpr bool LANES = true;
+  static constexpr int WIDTH = G;
   __device__ __forceinline__ static void eval(const real& phi,
                                               const real& r_phi,
                                               const real& dphi,
                                               real& s_phi, real& c_phi,
                                               real& s_r, real& c_r,
                                               real& c_d) {
-    const int lane = threadIdx.x & (WARP - 1);
+    const int lane = threadIdx.x & (G - 1);
     real s, c;
     sincos_r(lane == 0 ? phi : (lane == 1 ? r_phi : dphi), &s, &c);
-    s_phi = lane_get(s, 0);
-    s_r = lane_get(s, 1);
-    c_phi = lane_get(c, 0);
-    c_r = lane_get(c, 1);
-    c_d = lane_get(c, 2);
+    s_phi = group_get<G>(s, 0);
+    s_r = group_get<G>(s, 1);
+    c_phi = group_get<G>(c, 0);
+    c_r = group_get<G>(c, 1);
+    c_d = group_get<G>(c, 2);
   }
 };
+using WarpTrig = GroupTrig<WARP>;
 
 template <class Trig, class TPX, class TPY, class TPHI, class TDEL, class TV,
           class TSR, class TPRE = NoPre>
@@ -613,6 +711,38 @@ struct HessAcc {
   }
 };
 
+// the same additions into a step's compact block (its cost part); the
+// lower triangle is formed where the batch expands the block
+struct CompactHessAcc {
+  real* c;
+
+  __device__ __forceinline__ void clear() const {
+    for (int i = NJAC; i < NCMP; ++i) c[i] = R(0.0);
+  }
+  template <int E>
+  __device__ __forceinline__ void acc(real v) const {
+    constexpr int p = cpos(E);
+    static_assert(p >= 0, "a cost term touches an entry outside the "
+                          "compact block");
+    c[p] = c[p] + v;
+  }
+  template <unsigned A>
+  __device__ __forceinline__ void add(const SD<A, 2>& t) const {
+    sfor<0, NV>([&](auto ic) {
+      SD_I;
+      if constexpr (SD<A, 2>::template has<I>()) {
+        acc<HessAcc::gidx<I>()>(dbl(t.template G<I>()));
+        sfor<I, NV>([&](auto jc) {
+          constexpr int J = decltype(jc)::value;
+          if constexpr (SD<A, 2>::template has<J>())
+            acc<HessAcc::hidx<I, J>()>(dbl(t.template Hs<I, J>()));
+        });
+      }
+    });
+  }
+  __device__ __forceinline__ void mirror() const {}
+};
+
 // cost + sum(g*lam) + sum(inactive ? 0 : w*g*g), term by term into acc
 template <class Acc, class TPHI, class TDEL, class TV, class TA, class TJ,
           class TDD, class TCore>
@@ -661,9 +791,11 @@ __device__ real step_cost(const Prm& P, const real* x, const real* u,
 }
 
 // the augmented cost's gradient and Hessian at step (x, u) into the
-// step's block d: lx, lu, lxx, luu, lux
+// step's block through acc (HessAcc: the dense lx, lu, lxx, luu, lux;
+// CompactHessAcc: the compact block)
+template <class Acc>
 __device__ void deriv_cost(const Prm& P, const real* x, const real* u,
-                           const real* lam, const real* bw, real* d) {
+                           const real* lam, const real* bw, Acc acc) {
   const auto px = var<V_PX, 2>(x[0]);
   const auto py = var<V_PY, 2>(x[1]);
   const auto phi = var<V_PHI, 2>(x[2]);
@@ -674,30 +806,52 @@ __device__ void deriv_cost(const Prm& P, const real* x, const real* u,
   const auto j = var<V_J, 2>(u[0]);
   const auto delta_dot = var<V_DDOT, 2>(u[1]);
   const auto e = core<LocalTrig>(P, px, py, phi, delta, v, s_r);
-  HessAcc acc{d};
   acc.clear();
   aug_cost(P, acc, phi, delta, v, a, j, delta_dot, e, lam, bw);
   acc.mirror();
 }
 
-// row I of fx = I + dt*df/dx and fu = dt*df/du from dynamics entry f
-template <int I, class T>
-__device__ __forceinline__ void jac_row(real* d, real dt, const T& f) {
+// where jac_row puts an entry: every entry of the dense block, or the
+// compact block's
+struct DenseJac {
+  static constexpr bool DENSE = true;
+  real* d;
+  template <int E>
+  __device__ __forceinline__ void put(real v) const { d[E] = v; }
+};
+struct CompactJac {
+  static constexpr bool DENSE = false;
+  real* c;
+  template <int E>
+  __device__ __forceinline__ void put(real v) const { c[cpos(E)] = v; }
+};
+
+// row I of fx = I + dt*df/dx and fu = dt*df/du from dynamics entry f (a
+// compact writer skips the entries outside f's mask, which are constants)
+template <int I, class Out, class T>
+__device__ __forceinline__ void jac_row(const Out& o, real dt, const T& f) {
   sfor<0, NV>([&](auto jc) {
     constexpr int J = decltype(jc)::value;
-    real gj;
-    if constexpr (T::template has<J>()) gj = f.template G<J>();
-    else gj = R(0.0);
-    if constexpr (J < NX)
-      d[D_FX + I * NX + J] = (I == J ? R(1.0) : R(0.0)) + dt * gj;
-    else
-      d[D_FU + I * NU + (J - NX)] = dt * gj;
+    static_assert(T::template has<J>() == jac_has(I, J),
+                  "jac_has differs from the dynamics' masks");
+    if constexpr (Out::DENSE || T::template has<J>()) {
+      real gj;
+      if constexpr (T::template has<J>()) gj = f.template G<J>();
+      else gj = R(0.0);
+      if constexpr (J < NX)
+        o.template put<D_FX + I * NX + J>((I == J ? R(1.0) : R(0.0))
+                                          + dt * gj);
+      else
+        o.template put<D_FU + I * NU + (J - NX)>(dt * gj);
+    }
   });
 }
 
-// the dynamics' Euler Jacobians at step (x, u) into the step's block d
+// the dynamics' Euler Jacobians at step (x, u) into the step's block
+// through o
+template <class Out>
 __device__ void deriv_dyn(const Prm& P, const real* x, const real* u,
-                          real dt, real* d) {
+                          real dt, const Out& d) {
   const auto px = var<V_PX, 1>(x[0]);
   const auto py = var<V_PY, 1>(x[1]);
   const auto phi = var<V_PHI, 1>(x[2]);
@@ -742,12 +896,13 @@ __device__ void integrate(const Prm& P, const real* x, const real* u,
       // and delta_dot) are known before the first evaluation: lanes 0 and 1
       // form both evaluations' yaw rates in one pass (a tan and two
       // divisions), from the very values the two evaluations would use.
-      const bool second = (threadIdx.x & (WARP - 1)) == 1;
+      const bool second = (threadIdx.x & (Trig::WIDTH - 1)) == 1;
       const real v2 = x[4] + dt * (x[6] + P.s[A_OFFSET]);
       const real delta2 = x[3] + dt * u[1];
       const real pd = yaw_rate(P, second ? v2 : x[4],
                                  second ? delta2 : x[3], NoPre{});
-      const real pd1 = lane_get(pd, 0), pd2 = lane_get(pd, 1);
+      const real pd1 = group_get<Trig::WIDTH>(pd, 0);
+      const real pd2 = group_get<Trig::WIDTH>(pd, 1);
       eval_dyn<Trig>(P, x, u, k1, pd1);
 #pragma unroll
       for (int i = 0; i < NX; ++i) xt[i] = x[i] + dt * k1[i];
@@ -871,8 +1026,13 @@ __device__ __forceinline__ real dot7(const real* sm, const Dot& q,
 // the Riccati backward pass (ilqr.py backward) over steps n-1 .. 0, by the
 // 32 lanes of one warp: 4 warp barriers per step, no block barrier.  The
 // 72 + 67 dot products of 7 take 3 rounds each; a lane past the last item
-// repeats it (the same value to the same place).
-__device__ void backward_warp(real* sm, const Smem& m, int n, real mu) {
+// repeats it (the same value to the same place).  step_of(t), called by
+// every lane at the top of step t, returns the offset of step t's dense
+// block from m.der (the single solve: t * ND; the batch forms the block in
+// m.der there and returns 0).
+template <class StepOf>
+__device__ __forceinline__ void backward_steps(real* sm, const Smem& m, int n,
+                                               real mu, StepOf&& step_of) {
   const int lane = threadIdx.x & (WARP - 1);
   const int der = (int)(m.der - sm);
   auto at = [&](const real* p) { return (int)(p - sm); };
@@ -924,7 +1084,7 @@ __device__ void backward_warp(real* sm, const Smem& m, int n, real mu) {
   if (lane < NX) m.Vx[lane] = R(0.0);
   __syncwarp();
   for (int t = n - 1; t >= 0; --t) {
-    const int step = t * ND;
+    const int step = step_of(t);
     real* K = m.KK + (size_t)t * NU * NX;
     // A = fx^T Vxx, B = fu^T Vxx, Qx = lx + fx^T Vx, Qu = lu + fu^T Vx
     {
@@ -1031,6 +1191,12 @@ __device__ void backward_warp(real* sm, const Smem& m, int n, real mu) {
   }
 }
 
+// the single solve's backward pass: the dense blocks of every step lie one
+// after the other from m.der
+__device__ void backward_warp(real* sm, const Smem& m, int n, real mu) {
+  backward_steps(sm, m, n, mu, [](int t) { return t * ND; });
+}
+
 // the open-loop rollout with the current controls (no clamp), frozen
 // beyond T, by every lane of the calling warp in lock step
 __device__ void open_rollout(const Prm& P, const Smem& m, int H, int T,
@@ -1054,8 +1220,57 @@ __device__ void open_rollout(const Prm& P, const Smem& m, int H, int T,
   }
 }
 
-// candidate c's closed-loop rollout at alpha_c (ilqr.py fb_rollouts), by
-// every lane of the calling warp in lock step; lane 0 stores
+// the closed-loop rollout at step size alpha (ilqr.py fb_rollouts) into
+// cx, cu, by every lane of the calling group (Trig: the warp or a group of
+// lanes) in lock step; the group's lane 0 stores
+template <class Trig>
+__device__ __forceinline__ void rollout_group(const Prm& P, const Smem& m,
+                                              int H, int T, real alpha,
+                                              real* cx, real* cu,
+                                              int integrator) {
+  const bool lane0 = (threadIdx.x & (Trig::WIDTH - 1)) == 0;
+  const real dt = m.cfg[0];
+  real x[NX], u[NU], xn[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = m.xs[i];
+  if (lane0)
+#pragma unroll
+    for (int i = 0; i < NX; ++i) cx[i] = x[i];
+  for (int t = 0; t < H; ++t) {
+    const real* ur = m.us + t * NU;
+    if (t < T) {
+      const real* xr = m.xs + t * NX;
+      const real* k = m.kk + t * NU;
+      const real* K = m.KK + (size_t)t * NU * NX;
+      const real* lim = m.ulim + t * NU * 2;
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        real s = R(0.0);
+#pragma unroll
+        for (int j = 0; j < NX; ++j) s += (x[j] - xr[j]) * K[i * NX + j];
+        u[i] = clampd((ur[i] + alpha * k[i]) + s, lim[2 * i], lim[2 * i + 1]);
+      }
+      integrate<Trig>(P, x, u, dt, integrator, xn);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) x[i] = xn[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < NU; ++i) u[i] = ur[i];
+    }
+    if (lane0) {
+#pragma unroll
+      for (int i = 0; i < NU; ++i) cu[t * NU + i] = u[i];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) cx[(t + 1) * NX + i] = x[i];
+    }
+  }
+}
+
+// the single solve's candidate c: its closed-loop rollout at alpha_c
+// (ilqr.py fb_rollouts), by every lane of the calling warp in lock step;
+// lane 0 stores.  rollout_group<WarpTrig> is the same rollout; the single
+// kernel keeps this function of its own because built from the template
+// it ran 0.3 % slower on the card (the same bits).
 __device__ void fb_rollout(const Prm& P, const Smem& m, int H, int T, int c,
                            int integrator) {
   const bool lane0 = (threadIdx.x & (WARP - 1)) == 0;
@@ -1099,26 +1314,20 @@ __device__ void fb_rollout(const Prm& P, const Smem& m, int H, int T, int c,
   }
 }
 
-// Block b solves scenario b: its packed input lies at in + b * in_len, its
-// packed result goes to out + b * out_len, and it starts from mu_steps[b]
-// (or from mu_step where mu_steps is null, the single launch).  Scenarios
-// stop after different iteration counts; a block then simply returns, no
-// block waits for another.
+// One solve, one block of THREADS threads: the packed input `in`, the
+// packed result `out`, the starting mu_step.
 template <bool PROF>
 __global__ void __launch_bounds__(THREADS)
 ilqr_tracking_mpc_kernel(const real* __restrict__ in,
-                         real* __restrict__ out, long long* prof,
-                         const int* __restrict__ mu_steps, int H, int n_ref,
-                         int T, int max_it, int max_lg, int mu_step,
-                         int integrator) {
+                         real* __restrict__ out, long long* prof, int H,
+                         int n_ref, int T, int max_it, int max_lg,
+                         int mu_step, int integrator) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   real* sm = reinterpret_cast<real*>(smem_raw);
   PhaseClock<PROF> pc;
   pc.start();
   Smem m;
   carve(sm, H, n_ref, &m);
-  in += (size_t)blockIdx.x * m.in_len;
-  out += (size_t)blockIdx.x * m.out_len;
   const int tid = threadIdx.x;
   const int lane = tid & (WARP - 1), warp = tid / WARP;
   const Prm P{m.scal, m.tab, m.sad, n_ref};
@@ -1141,8 +1350,7 @@ ilqr_tracking_mpc_kernel(const real* __restrict__ in,
   __syncthreads();
   real cur = R(0.0);
   for (int t = 0; t < Te; ++t) cur += m.cstep[t];
-  int ms = mu_steps ? mu_steps[blockIdx.x] : mu_step, iterations = 0;
-  ms = ms < 0 ? 0 : (ms > 7 ? 7 : ms);
+  int ms = mu_step < 0 ? 0 : (mu_step > 7 ? 7 : mu_step), iterations = 0;
   pc.stamp(PH_INIT);
 
   for (int lg = 0; lg < max_lg; ++lg) {
@@ -1167,11 +1375,11 @@ ilqr_tracking_mpc_kernel(const real* __restrict__ in,
       if (warp < 2) {
         for (int t = tid; t < Te; t += 2 * WARP)
           deriv_cost(P, m.xs + t * NX, m.us + t * NU, m.lam + t * NC, m.bw,
-                     m.der + (size_t)t * ND);
+                     HessAcc{m.der + (size_t)t * ND});
       } else if (warp < 4) {
         for (int t = tid - 2 * WARP; t < Te; t += 2 * WARP)
           deriv_dyn(P, m.xs + t * NX, m.us + t * NU, m.cfg[0],
-                    m.der + (size_t)t * ND);
+                    DenseJac{m.der + (size_t)t * ND});
       }
       __syncthreads();
       pc.stamp(PH_DERIV);
@@ -1254,6 +1462,578 @@ ilqr_tracking_mpc_kernel(const real* __restrict__ in,
     out[nxo + nuo + nlo + 2] = iterations;
   }
   pc.stamp(PH_STORE);
+  pc.store(prof);
+}
+
+// ---------------------------------------------------------------------
+// the batched kernel: a warp per scenario, persistent
+//
+// A block keeps what every scenario of the batch shares once (the control
+// limits, barrier weights, step and tolerance, step sizes, reference tables
+// and their angle distances) and one region per warp ("slot").  A warp
+// takes its next scenario from the atomic counter `work` until the batch is
+// done, so a scenario that stops early frees its warp at once; the order
+// in which scenarios are taken changes no result.  Inside a scenario only
+// __syncwarp(): warps leave their loops at different iterations, and the
+// block's two barriers come before the loop.
+//
+// The solve is the single solve's, operation for operation, by the per-warp
+// functions above (open_rollout, backward_steps, rollout_group, step_cost,
+// deriv_cost, deriv_dyn), so a float64 scenario returns the bits of a
+// single launch.  What differs is where the work sits:
+// - derivatives: CHUNK steps at a time, inside the backward pass: at the top
+//   of each chunk the lanes take the cost's and the dynamics' derivatives
+//   of its steps (float64, 16 steps: lanes 0-15 the cost's, 16-31 the
+//   dynamics'; float32, 32 steps: every lane both of one step) into
+//   compact blocks (NCMP reals a step); each step's dense block is then
+//   expanded into the warp's scratch before its dot products, which read
+//   the same values in the same order;
+// - line search: the candidates in order, NG at a time (float64 two, on
+//   the half-warps; float32 four, on quarters), each group of lanes in lock
+//   step as a warp is in the single solve, with exchanges of the group's
+//   width; each is rolled, its step costs summed in step order, and the
+//   first improving one is taken (the plain version's argmax over
+//   `improving`), so NG candidate buffers serve and a search stops with
+//   the round that holds its pick (on the bench's course alpha = 1 mostly
+//   fails and 0.1 succeeds: one round);
+// - the backward pass's region (compact blocks, dense block, Riccati
+//   scratch) and the line search's (the candidates, their step costs)
+//   overlap: an accepted candidate is copied into the state.
+
+// The steps whose compact blocks are held at a time, and the candidates
+// rolled side by side: each as large as fits without lowering the
+// scenarios an SM holds (8, which the registers cap).  In float64, chunks
+// of 32 steps would take it to 7 scenarios and four candidates to 6.
+constexpr int CHUNK = sizeof(real) == sizeof(double) ? 16 : 32;
+constexpr int NG = sizeof(real) == sizeof(double) ? 2 : 4;
+constexpr int GW = WARP / NG;      // lanes of a candidate's group
+// scenarios (warps) of a block at most: 8 warps of 255 registers fill an
+// SM's register file
+constexpr int MAX_SLOTS = 8;
+constexpr int XR = (ND + WARP - 1) / WARP;   // dense entries a lane expands
+
+// the packed batch (tpl_tpu_torch/optim/ilqr_tracking_mpc.py
+// batched_layout): the shared part, u_lims (H, 2, 2), bw_lim (4, 2), cfg_f
+// (2), alphas (8), tables (5, n_ref); and a row per scenario, x0 (7), u
+// (H, 2), lam (H, 4), scalars (18)
+__host__ __device__ inline size_t batch_shared_len(int H, int n_ref) {
+  return (size_t)H * NU * 2 + NC * 2 + 2 + NA + (size_t)NTAB * n_ref;
+}
+__host__ __device__ inline size_t batch_row_len(int H) {
+  return NX + (size_t)H * (NU + NC) + NSCAL;
+}
+
+// a scenario's region: its state, scalars and gains, then one part the
+// backward pass (`dense` dense derivative blocks at m->der, compact blocks
+// for `steps` steps into *cmp) and the line search (`cands` candidate
+// buffers) take in turn.  Returns its reals.
+__host__ __device__ inline size_t carve_region(real* base, int H, int dense,
+                                               int steps, int cands, Smem* m,
+                                               real** cmp) {
+  size_t o = 0;
+  auto take = [&](size_t n) {
+    real* p = base ? base + o : nullptr;
+    o += n;
+    return p;
+  };
+  Smem s{};
+  s.xs = take((size_t)(H + 1) * NX);
+  s.us = take((size_t)H * NU);
+  s.lam = take((size_t)H * NC);
+  s.scal = take(NSCAL);
+  s.kk = take((size_t)H * NU);
+  s.KK = take((size_t)H * NU * NX);
+  const size_t common = o;
+  s.der = take((size_t)dense * ND);
+  real* c = take((size_t)steps * NCMP);
+  s.Vx = take(NX);
+  s.Vxx = take(NX * NX);
+  s.A = take(NX * NX);
+  s.B = take(NU * NX);
+  s.Qx = take(NX);
+  s.Qu = take(NU);
+  s.Qxx = take(NX * NX);
+  s.Quu = take(NU * NU);
+  s.Qux = take(NU * NX);
+  const size_t backward = o;
+  o = common;
+  s.cx = take((size_t)cands * (H + 1) * NX);   // a candidate a lane group
+  s.cu = take((size_t)cands * H * NU);
+  s.cstep = take((size_t)cands * H);
+  o = o > backward ? o : backward;
+  if (m) *m = s;
+  if (cmp) *cmp = c;
+  return o;
+}
+// a warp's slot: CHUNK steps' compact blocks, NG candidates
+__host__ __device__ inline size_t carve_slot(real* base, int H, Smem* m,
+                                             real** cmp) {
+  return carve_region(base, H, 1, CHUNK, NG, m, cmp);
+}
+
+// reals of a block's shared part (with the angle distances and the
+// expansion's constants) and of a slot
+__host__ __device__ inline size_t batch_shared_reals(int H, int n_ref) {
+  return batch_shared_len(H, n_ref) + (size_t)2 * n_ref + NKONST;
+}
+__host__ __device__ inline size_t batch_slot_reals(int H) {
+  return carve_slot(nullptr, H, nullptr, nullptr);
+}
+// dynamic shared memory of a block of `slots` scenarios
+__host__ __device__ inline size_t batch_smem_bytes(int H, int n_ref,
+                                                   int slots) {
+  return (batch_shared_reals(H, n_ref) + (size_t)slots * batch_slot_reals(H))
+         * sizeof(real);
+}
+
+// The block's copy of the part every scenario shares, its angle distances
+// and the expansion's constants, at sm (batch_shared_reals); every thread
+// of the block calls it, before any scenario's loop.  Points m's shared
+// fields there and returns the constants (konst[-1 - X_*]).
+__device__ real* load_shared(real* sm, const real* __restrict__ shared,
+                             int H, int n_ref, Smem& m) {
+  const size_t n_shared = batch_shared_len(H, n_ref);
+  for (size_t i = threadIdx.x; i < n_shared; i += blockDim.x)
+    sm[i] = shared[i];
+  m.ulim = sm;
+  m.bw = m.ulim + (size_t)H * NU * 2;
+  m.cfg = m.bw + NC * 2;
+  m.alphas = m.cfg + 2;
+  m.tab = m.alphas + NA;
+  m.sad = sm + n_shared;
+  real* const konst = m.sad + 2 * n_ref;
+  __syncthreads();
+  tabulate_angle_dist(m.tab, m.sad, n_ref);
+  if (threadIdx.x == 0) {         // the dense block's fixed entries
+    const real dt = m.cfg[0];
+    konst[-1 - X_ONE] = R(1.0) + dt * R(0.0);
+    konst[-1 - X_FX_ZERO] = R(0.0) + dt * R(0.0);
+    konst[-1 - X_FU_ZERO] = dt * R(0.0);
+    konst[-1 - X_ZERO] = R(0.0);
+  }
+  __syncthreads();
+  return konst;
+}
+
+// the phases of one warp's scenario in the profiling instantiation (lane 0
+// of the warp that takes scenario 0): BP_CAND + r is candidates NG r ..
+// NG r + NG - 1's rollouts, step costs and sums.  prof[N_BPHASE + k] then
+// counts the line searches of the whole batch whose pick was candidate k
+// (k = NA - 1 also those that found none): the sequential search rolls
+// k + 1.
+enum BatchPhase {
+  BP_LOAD, BP_INIT, BP_LAM, BP_DERIV, BP_EXPAND, BP_RICCATI, BP_CAND,
+  BP_PICK = BP_CAND + NA / NG, BP_STORE, N_BPHASE
+};
+
+template <bool PROF>
+struct WarpClock {
+  bool on = false;
+  long long last = 0;
+  long long acc[PROF ? N_BPHASE : 1];
+
+  __device__ __forceinline__ void start(bool rec) {
+    if constexpr (PROF) {
+      on = rec && (threadIdx.x & (WARP - 1)) == 0;
+      for (int i = 0; i < N_BPHASE; ++i) acc[i] = 0;
+      last = clock64();
+    }
+  }
+  __device__ __forceinline__ void stamp(int phase) {
+    if constexpr (PROF) {
+      if (on) {
+        const long long now = clock64();
+        acc[phase] += now - last;
+        last = now;
+      }
+    }
+  }
+  __device__ __forceinline__ void store(long long* out) const {
+    if constexpr (PROF) {
+      if (on)
+        for (int i = 0; i < N_BPHASE; ++i) out[i] = acc[i];
+    }
+  }
+};
+
+// B scenarios: `shared` the shared part, `rows` B rows, `out` B packed
+// results (the single solve's layout), mu_steps[b] scenario b's starting
+// mu_step, *work zero at the launch (the next scenario to take).  A block
+// has blockDim.x / 32 slots and batch_smem_bytes() of dynamic shared memory.
+// (__launch_bounds__ with one block an SM lets a thread have 255 registers:
+// without it the float32 instantiation kept to 128 and spilled, and two
+// such blocks an SM ran slower than one block that does not spill.)
+template <bool PROF>
+__global__ void __launch_bounds__(MAX_SLOTS * WARP, 1)
+ilqr_tracking_mpc_batched_kernel(const real* __restrict__ shared,
+                                 const real* __restrict__ rows,
+                                 real* __restrict__ out,
+                                 const int* __restrict__ mu_steps, int* work,
+                                 long long* prof, int B, int H, int n_ref,
+                                 int T, int max_it, int max_lg,
+                                 int integrator) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  real* sm = reinterpret_cast<real*>(smem_raw);
+  const int lane = threadIdx.x & (WARP - 1), slot = threadIdx.x / WARP;
+  Smem m;
+  real* cmp;
+  carve_slot(sm + batch_shared_reals(H, n_ref)
+                 + (size_t)slot * batch_slot_reals(H),
+             H, &m, &cmp);
+  const real* const konst = load_shared(sm, shared, H, n_ref, m);
+  const Prm P{m.scal, m.tab, m.sad, n_ref};
+  const int Te = T < H ? T : H;   // steps that move (T may exceed H)
+  const size_t row_len = batch_row_len(H);
+  const size_t out_len = (size_t)(H + 1) * NX + (size_t)H * (NU + NC) + 3;
+  int xcode[XR];                  // how this lane forms its dense entries
+#pragma unroll
+  for (int r = 0; r < XR; ++r)
+    xcode[r] = lane + r * WARP < ND ? expand_code(lane + r * WARP) : X_ZERO;
+
+  for (;;) {
+    int b = 0;
+    if (lane == 0) b = atomicAdd(work, 1);
+    b = lane_get(b, 0);
+    if (b >= B) break;
+    WarpClock<PROF> pc;
+    pc.start(b == 0);
+
+    // x0, u, lam and the scalars; the gains of the frozen steps stay zero
+    const real* in = rows + (size_t)b * row_len;
+    for (int i = lane; i < NX; i += WARP) m.xs[i] = in[i];
+    for (int i = lane; i < H * NU; i += WARP) m.us[i] = in[NX + i];
+    for (int i = lane; i < H * NC; i += WARP) m.lam[i] = in[NX + H * NU + i];
+    for (int i = lane; i < NSCAL; i += WARP)
+      m.scal[i] = in[NX + H * (NU + NC) + i];
+    for (int i = Te * NU + lane; i < H * NU; i += WARP) m.kk[i] = R(0.0);
+    for (int i = Te * NU * NX + lane; i < H * NU * NX; i += WARP)
+      m.KK[i] = R(0.0);
+    __syncwarp();
+    pc.stamp(BP_LOAD);
+
+    // initial rollout, and its cost with the OLD multipliers
+    open_rollout(P, m, H, T, integrator);
+    __syncwarp();
+    for (int t = lane; t < H; t += WARP)
+      m.cstep[t] = t < T ? step_cost(P, m.xs + t * NX, m.us + t * NU,
+                                     m.lam + t * NC, m.bw)
+                         : R(0.0);
+    __syncwarp();
+    real cur = R(0.0);
+    for (int t = 0; t < Te; ++t) cur += m.cstep[t];
+    int ms = mu_steps[b], iterations = 0;
+    ms = ms < 0 ? 0 : (ms > 7 ? 7 : ms);
+    pc.stamp(BP_INIT);
+
+    for (int lg = 0; lg < max_lg; ++lg) {
+      // clipped multiplier update on the active steps
+      for (int k = lane; k < Te * NC; k += WARP) {
+        const int t = k / NC, i = k % NC;
+        const real* x = m.xs + t * NX;
+        const real g = i == 0 ? x[3] - P.s[MAX_DELTA]
+                       : i == 1 ? (-P.s[MAX_DELTA]) - x[3]
+                       : i == 2 ? x[6] - P.s[MAX_ACC]
+                                : P.s[MIN_ACC] - x[6];
+        real y = m.lam[k] + m.bw[2 * i] * g;
+        y = y < R(0.0) ? R(0.0) : y;
+        m.lam[k] = y > m.bw[2 * i + 1] ? m.bw[2 * i + 1] : y;
+      }
+      __syncwarp();
+      pc.stamp(BP_LAM);
+
+      for (int it = 0; it < max_it; ++it) {
+        // the backward pass; at the top of each chunk of CHUNK steps the
+        // chunk's derivatives, at each step its dense block
+        int lo = 0;                   // the chunk's first step
+        backward_steps(sm, m, Te, MU_OF_STEP[ms], [&](int t) {
+          pc.stamp(BP_RICCATI);
+          if (t == Te - 1 || t == lo - 1) {
+            lo = t - CHUNK + 1 > 0 ? t - CHUNK + 1 : 0;
+            for (int k = lane; k < 2 * CHUNK; k += WARP) {
+              const int s = lo + k % CHUNK;
+              real* c = cmp + (size_t)(k % CHUNK) * NCMP;
+              if (s > t) continue;
+              if (k < CHUNK)
+                deriv_cost(P, m.xs + s * NX, m.us + s * NU, m.lam + s * NC,
+                           m.bw, CompactHessAcc{c});
+              else
+                deriv_dyn(P, m.xs + s * NX, m.us + s * NU, m.cfg[0],
+                          CompactJac{c});
+            }
+            __syncwarp();
+            pc.stamp(BP_DERIV);
+          }
+          const real* c = cmp + (size_t)(t - lo) * NCMP;
+#pragma unroll
+          for (int r = 0; r < XR; ++r) {
+            const int e = lane + r * WARP, x = xcode[r];
+            if (e < ND) m.der[e] = x >= 0 ? c[x] : konst[-1 - x];
+          }
+          __syncwarp();
+          pc.stamp(BP_EXPAND);
+          return 0;
+        });
+        pc.stamp(BP_RICCATI);
+
+        // line search: the first improving candidate, in order, NG at a
+        // time: lane group g rolls candidate NG r + g into its buffer
+        int pick = -1;
+        real nc = cur;
+        const int grp = lane / GW;
+        for (int r = 0; r < NA / NG && pick < 0; ++r) {
+          rollout_group<GroupTrig<GW>>(P, m, H, T, m.alphas[NG * r + grp],
+                                       m.cx + (size_t)grp * (H + 1) * NX,
+                                       m.cu + (size_t)grp * H * NU,
+                                       integrator);
+          __syncwarp();
+          for (int k = lane; k < NG * Te; k += WARP) {
+            const int g = k / Te, t = k % Te;
+            m.cstep[g * H + t] =
+                step_cost(P, m.cx + ((size_t)g * (H + 1) + t) * NX,
+                          m.cu + ((size_t)g * H + t) * NU, m.lam + t * NC,
+                          m.bw);
+          }
+          __syncwarp();
+          real own = R(0.0);            // this group's candidate, in order
+          for (int t = 0; t < Te; ++t) own += m.cstep[grp * H + t];
+          pc.stamp(BP_CAND + r);
+          for (int g = 0; g < NG; ++g) {
+            const real sg = lane_get(own, g * GW);
+            if (pick < 0 && sg < cur && isfinite(sg) && sg >= R(0.0)) {
+              pick = NG * r + g;
+              nc = sg;
+            }
+          }
+        }
+        if constexpr (PROF) {
+          if (lane == 0)
+            atomicAdd(reinterpret_cast<unsigned long long*>(prof)
+                          + N_BPHASE + (pick >= 0 ? pick : NA - 1),
+                      1ull);
+        }
+
+        // the mu schedule and the termination test, by every lane; then
+        // the accepted candidate's copy
+        if (pick >= 0)
+          ms = ms - 1 > 0 ? ms - 1 : 0;
+        else
+          ms = ms + 1 < 7 ? ms + 1 : 7;
+        const real denom = nc == R(0.0) ? R(1.0) : nc;
+        const real rel = fabs(nc - cur) / denom;
+        cur = nc;
+        iterations += 1;
+        if (pick >= 0) {
+          const real* cx = m.cx + (size_t)(pick % NG) * (H + 1) * NX;
+          const real* cu = m.cu + (size_t)(pick % NG) * H * NU;
+          for (int i = lane; i < (H + 1) * NX; i += WARP) m.xs[i] = cx[i];
+          for (int i = lane; i < H * NU; i += WARP) m.us[i] = cu[i];
+        }
+        __syncwarp();
+        pc.stamp(BP_PICK);
+        if (rel < m.cfg[1]) break;
+      }
+    }
+
+    // outputs: x, u, lam, mu_step, traj_costs, iterations
+    real* o = out + (size_t)b * out_len;
+    const int nxo = (H + 1) * NX, nuo = H * NU, nlo = H * NC;
+    for (int i = lane; i < nxo; i += WARP) o[i] = m.xs[i];
+    for (int i = lane; i < nuo; i += WARP) o[nxo + i] = m.us[i];
+    for (int i = lane; i < nlo; i += WARP) o[nxo + nuo + i] = m.lam[i];
+    if (lane == 0) {
+      o[nxo + nuo + nlo] = ms;
+      o[nxo + nuo + nlo + 1] = cur;
+      o[nxo + nuo + nlo + 2] = iterations;
+    }
+    __syncwarp();
+    pc.stamp(BP_STORE);
+    pc.store(prof);
+  }
+}
+
+// ---------------------------------------------------------------------
+// The team geometry, for a batch that leaves warps idle (the launcher takes
+// it when every scenario can have a block of its own at once): a block of
+// TEAM warps solves one scenario, blockIdx.x.  With room to spare it keeps
+// the single solve's dense derivative blocks, every step's: the first half
+// of the threads take the cost's derivatives, the second half the
+// dynamics', a step a thread, and warp 0 runs the single solve's backward
+// pass on them (no expansion); then all NA candidates are rolled at once,
+// warp w's lane group g taking candidate NG w + g, so a line search is one
+// round.  The same functions on the same inputs as the single solve and
+// the warp-per-scenario kernel, the candidates' sums read in order: the
+// same pick and the same bits.  A block is one scenario, so its barriers
+// are __syncthreads().
+constexpr int TEAM = NA / NG;
+
+// a team's region (dense blocks for H steps, NA candidates) and the
+// candidates' sums after it
+__host__ __device__ inline size_t team_region_reals(int H) {
+  return carve_region(nullptr, H, H, 0, NA, nullptr, nullptr);
+}
+__host__ __device__ inline size_t team_smem_bytes(int H, int n_ref) {
+  return (batch_shared_reals(H, n_ref) + team_region_reals(H) + NA)
+         * sizeof(real);
+}
+
+// B scenarios, a block each, as ilqr_tracking_mpc_batched_kernel takes
+// them (prof: thread 0 of the block on scenario 0, the histogram likewise);
+// TEAM warps a block, team_smem_bytes() of dynamic shared memory.
+template <bool PROF>
+__global__ void __launch_bounds__(TEAM * WARP)
+ilqr_tracking_mpc_team_kernel(const real* __restrict__ shared,
+                              const real* __restrict__ rows,
+                              real* __restrict__ out,
+                              const int* __restrict__ mu_steps,
+                              long long* prof, int B, int H, int n_ref, int T,
+                              int max_it, int max_lg, int integrator) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  real* sm = reinterpret_cast<real*>(smem_raw);
+  const int lane = threadIdx.x & (WARP - 1), w = threadIdx.x / WARP;
+  const int b = blockIdx.x;
+  if (b >= B) return;
+  Smem m;
+  real* const region = sm + batch_shared_reals(H, n_ref);
+  carve_region(region, H, H, 0, NA, &m, nullptr);
+  real* const sums = region + team_region_reals(H);
+  load_shared(sm, shared, H, n_ref, m);
+  const Prm P{m.scal, m.tab, m.sad, n_ref};
+  const int Te = T < H ? T : H;
+  const size_t row_len = batch_row_len(H);
+  const size_t out_len = (size_t)(H + 1) * NX + (size_t)H * (NU + NC) + 3;
+  const int nt = blockDim.x, half = nt / 2;
+  WarpClock<PROF> pc;
+  pc.start(b == 0 && w == 0);
+
+  const real* in = rows + (size_t)b * row_len;
+  for (int i = threadIdx.x; i < NX; i += nt) m.xs[i] = in[i];
+  for (int i = threadIdx.x; i < H * NU; i += nt) m.us[i] = in[NX + i];
+  for (int i = threadIdx.x; i < H * NC; i += nt)
+    m.lam[i] = in[NX + H * NU + i];
+  for (int i = threadIdx.x; i < NSCAL; i += nt)
+    m.scal[i] = in[NX + H * (NU + NC) + i];
+  for (int i = Te * NU + threadIdx.x; i < H * NU; i += nt) m.kk[i] = R(0.0);
+  for (int i = Te * NU * NX + threadIdx.x; i < H * NU * NX; i += nt)
+    m.KK[i] = R(0.0);
+  __syncthreads();
+  pc.stamp(BP_LOAD);
+
+  if (w == 0) {
+    open_rollout(P, m, H, T, integrator);
+    __syncwarp();
+    for (int t = lane; t < H; t += WARP)
+      m.cstep[t] = t < T ? step_cost(P, m.xs + t * NX, m.us + t * NU,
+                                     m.lam + t * NC, m.bw)
+                         : R(0.0);
+  }
+  __syncthreads();
+  real cur = R(0.0);
+  for (int t = 0; t < Te; ++t) cur += m.cstep[t];
+  int ms = mu_steps[b], iterations = 0;
+  ms = ms < 0 ? 0 : (ms > 7 ? 7 : ms);
+  __syncthreads();                // cstep is the derivatives' room next
+  pc.stamp(BP_INIT);
+
+  for (int lg = 0; lg < max_lg; ++lg) {
+    for (int k = threadIdx.x; k < Te * NC; k += nt) {
+      const int t = k / NC, i = k % NC;
+      const real* x = m.xs + t * NX;
+      const real g = i == 0 ? x[3] - P.s[MAX_DELTA]
+                     : i == 1 ? (-P.s[MAX_DELTA]) - x[3]
+                     : i == 2 ? x[6] - P.s[MAX_ACC]
+                              : P.s[MIN_ACC] - x[6];
+      real y = m.lam[k] + m.bw[2 * i] * g;
+      y = y < R(0.0) ? R(0.0) : y;
+      m.lam[k] = y > m.bw[2 * i + 1] ? m.bw[2 * i + 1] : y;
+    }
+    __syncthreads();
+    pc.stamp(BP_LAM);
+
+    for (int it = 0; it < max_it; ++it) {
+      // every step's dense block: the cost's on the first half of the
+      // threads, the dynamics' on the second
+      if ((int)threadIdx.x < half) {
+        for (int t = threadIdx.x; t < Te; t += half)
+          deriv_cost(P, m.xs + t * NX, m.us + t * NU, m.lam + t * NC, m.bw,
+                     HessAcc{m.der + (size_t)t * ND});
+      } else {
+        for (int t = threadIdx.x - half; t < Te; t += half)
+          deriv_dyn(P, m.xs + t * NX, m.us + t * NU, m.cfg[0],
+                    DenseJac{m.der + (size_t)t * ND});
+      }
+      __syncthreads();
+      pc.stamp(BP_DERIV);
+
+      if (w == 0) backward_warp(sm, m, Te, MU_OF_STEP[ms]);
+      __syncthreads();
+      pc.stamp(BP_RICCATI);
+
+      // every candidate at once; the sums in order pick the first
+      // improving one
+      const int cand = NG * w + lane / GW;
+      rollout_group<GroupTrig<GW>>(P, m, H, T, m.alphas[cand],
+                                   m.cx + (size_t)cand * (H + 1) * NX,
+                                   m.cu + (size_t)cand * H * NU, integrator);
+      __syncwarp();
+      for (int k = lane; k < NG * Te; k += WARP) {
+        const int g = NG * w + k / Te, t = k % Te;
+        m.cstep[g * H + t] =
+            step_cost(P, m.cx + ((size_t)g * (H + 1) + t) * NX,
+                      m.cu + ((size_t)g * H + t) * NU, m.lam + t * NC, m.bw);
+      }
+      __syncwarp();
+      real own = R(0.0);
+      for (int t = 0; t < Te; ++t) own += m.cstep[cand * H + t];
+      if ((lane & (GW - 1)) == 0) sums[cand] = own;
+      __syncthreads();
+      pc.stamp(BP_CAND);
+      int pick = -1;
+      real nc = cur;
+      for (int g = 0; g < NA; ++g) {
+        const real sg = sums[g];
+        if (pick < 0 && sg < cur && isfinite(sg) && sg >= R(0.0)) {
+          pick = g;
+          nc = sg;
+        }
+      }
+      if constexpr (PROF) {
+        if (threadIdx.x == 0)
+          atomicAdd(reinterpret_cast<unsigned long long*>(prof) + N_BPHASE
+                        + (pick >= 0 ? pick : NA - 1),
+                    1ull);
+      }
+
+      if (pick >= 0)
+        ms = ms - 1 > 0 ? ms - 1 : 0;
+      else
+        ms = ms + 1 < 7 ? ms + 1 : 7;
+      const real denom = nc == R(0.0) ? R(1.0) : nc;
+      const real rel = fabs(nc - cur) / denom;
+      cur = nc;
+      iterations += 1;
+      if (pick >= 0) {
+        const real* cx = m.cx + (size_t)pick * (H + 1) * NX;
+        const real* cu = m.cu + (size_t)pick * H * NU;
+        for (int i = threadIdx.x; i < (H + 1) * NX; i += nt) m.xs[i] = cx[i];
+        for (int i = threadIdx.x; i < H * NU; i += nt) m.us[i] = cu[i];
+      }
+      __syncthreads();
+      pc.stamp(BP_PICK);
+      if (rel < m.cfg[1]) break;
+    }
+  }
+
+  real* o = out + (size_t)b * out_len;
+  const int nxo = (H + 1) * NX, nuo = H * NU, nlo = H * NC;
+  for (int i = threadIdx.x; i < nxo; i += nt) o[i] = m.xs[i];
+  for (int i = threadIdx.x; i < nuo; i += nt) o[nxo + i] = m.us[i];
+  for (int i = threadIdx.x; i < nlo; i += nt) o[nxo + nuo + i] = m.lam[i];
+  if (threadIdx.x == 0) {
+    o[nxo + nuo + nlo] = ms;
+    o[nxo + nuo + nlo + 1] = cur;
+    o[nxo + nuo + nlo + 2] = iterations;
+  }
+  pc.stamp(BP_STORE);
   pc.store(prof);
 }
 

@@ -25,7 +25,7 @@ constexpr int N_SMEM = 256;
 
 // the order of tpl_tpu_torch/_latency.py PROBES
 enum Probe {
-  F32_ADD, F32_MUL, F32_DIV, F32_SIN, F32_COS, F32_ATAN,
+  F32_ADD, F32_MUL, F32_DIV, F32_SIN, F32_COS, F32_ATAN, F32_FMOD,
   F64_ADD, F64_MUL, F64_DIV, F64_SIN, F64_COS, F64_TAN, F64_FMOD,
   SMEM_LOAD, F32_RATE, F64_RATE, N_PROBE
 };
@@ -59,6 +59,8 @@ __global__ void latency_probe_kernel(const double* __restrict__ seeds,
   CHAIN(F32_SIN, float, 1.0f, sinf(x))
   CHAIN(F32_COS, float, 1.0f, cosf(x))
   CHAIN(F32_ATAN, float, 1.0f, atanf(x))
+  // the float32 instantiation's angle distance, like F64_FMOD below
+  CHAIN(F32_FMOD, float, 1.0f, fmodf(x + cf, 6.2831855f))
   CHAIN(F64_ADD, double, 1.0, x + ad)
   CHAIN(F64_MUL, double, 1.0, x * cd)
   CHAIN(F64_DIV, double, 1.0, x / cd)

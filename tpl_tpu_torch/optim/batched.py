@@ -9,17 +9,22 @@ the two packages' tensors compare directly; inside, the batch leads
 :mod:`tpl_tpu_torch.optim.problems` broadcast over.
 
 On CUDA tensors ``trajectory_tracking_mpc`` launches the hand-written
-kernel ``csrc/ilqr_tracking_mpc.cu`` with a grid of B blocks, one scenario
-per block (:func:`tpl_tpu_torch.optim.ilqr_tracking_mpc.update_batched`),
-in float64 and in float32; any other problem on CUDA tensors raises.  On CPU
-tensors the plain version below runs: generic in the problem, float32 and
-float64, EULER / HEUN / RK4.
+kernel ``csrc/ilqr_tracking_mpc.cu``'s batched entry, a warp per scenario
+(:func:`tpl_tpu_torch.optim.ilqr_tracking_mpc.update_batched`), in float64
+and in float32; any other problem on CUDA tensors raises.  On CPU tensors
+the plain version below runs: generic in the problem, float32 and float64,
+EULER / HEUN / RK4.
 
 Algorithm semantics match :mod:`tpl_tpu_torch.optim.ilqr` (same AL update,
 line search, mu schedule, termination), per scenario: each scenario has its
 own ``mu_step`` and its own ``done`` flag, a finished scenario is frozen
 while the others iterate, and the loop ends when all are done or at
 ``max_iterations``.  One AL round per update, as in the JAX module.
+
+The line search rolls all candidates and takes the first improving one.
+The kernel rolls them in order and stops at that one; the plain version
+reports, as a statistic, how many candidates that order rolls
+(``rolled=True``).
 """
 
 import torch
@@ -42,6 +47,10 @@ def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
     ``u_max`` ``(H, nu)`` shared; ``T`` and ``max_iterations`` are host
     integers.  The tensors' device decides the route: CPU tensors take the
     plain version, CUDA tensors the kernel (or raise).
+    ``update.reference`` is the plain version on any device; with
+    ``rolled=True`` it also returns the ``(B,)`` candidates a line search
+    that rolls them in order and stops at its pick rolls over the update,
+    or with ``group=g`` the rounds of g candidates side by side it takes.
     """
     H, B = horizon, batch
     nx, nu = prob.nx, prob.nu
@@ -169,9 +178,10 @@ def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
             Ks[:, t] = K
         return ks, Ks
 
-    def plain(x, u, lam, mu_step, x0, params, params8, cfg):
+    def plain(x, u, lam, mu_step, x0, params, params8, cfg, group=1):
         """The update on batch-leading tensors; ``params8`` are the params
-        for the (B, A, H) evaluation of the line search's costs."""
+        for the (B, A, H) evaluation of the line search's costs; ``group``
+        the candidates a round of the counted search rolls."""
         u_min, u_max = cfg["u_min"], cfg["u_max"]
         w = cfg["barrier_weight"]
         dt, T = cfg["dt"], int(cfg["T"])
@@ -191,6 +201,7 @@ def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
 
         done = torch.zeros(B, dtype=torch.bool, device=dev)
         iterations = torch.zeros(B, dtype=torch.int64, device=dev)
+        rolled = torch.zeros(B, dtype=torch.int64, device=dev)
         rows = torch.arange(B, device=dev)
         it = 0
         while it < int(cfg["max_iterations"]) and not bool(done.all()):
@@ -206,6 +217,8 @@ def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
                          & torch.isfinite(costs8) & (costs8 >= 0.0))
             found = improving.any(1)
             idx = improving.to(torch.int8).argmax(1)   # the first that does
+            rolled += torch.where(done, 0, torch.where(
+                found, idx // group + 1, -(-len(alphas) // group)))
 
             sel = found & ~done
             xs = torch.where(sel[:, None, None], xs8[rows, idx], xs)
@@ -221,7 +234,7 @@ def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
             done = done | (rel < cfg["min_rel_cost_change"])
             traj_costs = costs_new
             it += 1
-        return xs, u, lam, mu_step, traj_costs, iterations
+        return xs, u, lam, mu_step, traj_costs, iterations, rolled
 
     def check(x, u, lam, mu_step, x0, cfg):
         if int(cfg.get("max_lg_iterations", 1)) != 1:
@@ -238,7 +251,8 @@ def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
             raise ValueError(f"the state lies on several devices: {devices}")
         return devices.pop()
 
-    def reference(x, u, lam, mu_step, x0, params, cfg, iterations=False):
+    def reference(x, u, lam, mu_step, x0, params, cfg, iterations=False,
+                  rolled=False, group=1):
         """The plain version, on whatever device the tensors lie."""
         check(x, u, lam, mu_step, x0, cfg)
         lead = lambda a: a.to(dtype).movedim(-1, 0)
@@ -246,12 +260,13 @@ def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
              for k, v in params.items()}
         p8 = {k: (v[..., None] if k in per_instance else v)
               for k, v in p.items()}
-        xs, un, ln, ms, costs, its = plain(
+        xs, un, ln, ms, costs, its, n_rolled = plain(
             lead(x), lead(u), lead(lam), mu_step.to(torch.int64),
-            x0.to(dtype).T, p, p8, cfg)
+            x0.to(dtype).T, p, p8, cfg, group)
         out = (xs.movedim(0, -1), un.movedim(0, -1), ln.movedim(0, -1),
-               ms.to(mu_step.dtype), costs, its)
-        return out if iterations else out[:5]
+               ms.to(mu_step.dtype), costs)
+        return (out + ((its,) if iterations else ())
+                + ((n_rolled,) if rolled else ()))
 
     def update(x, u, lam, mu_step, x0, params, cfg, iterations=False):
         kind = check(x, u, lam, mu_step, x0, cfg)

@@ -181,7 +181,35 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    nodes without edges (every selection equal); times each kernel through
    its bare launcher and its wrapper in turns on the loop's first replan,
    the plain versions, ``bound_ms`` and ``chain_ms``;
-18. prints the card's name and power limit and one JSON line describing the
+18. the controllers beside the spatial MPC: ``SimStandalone`` on
+   ``demo/country_follow`` with the scenario's own sets (the RSTP planner,
+   fused, H=250, the collision screen on) and each of
+   ``model_predictive_controller_time``, ``feedforward_controller``,
+   ``flat_controller`` and ``direct_controller`` active, 200 ticks each,
+   the launch counters set to 0 just before each loop and read just after;
+   checks finite controls, the ego moving, the rule violations and the end
+   state against the JAX package's CPU loop's (tests/jax_controller_loops.py,
+   pinned in CONTROLLER_JAX_END), 2 ``ilqr_rstp`` and 1 ``rstp_rampify``
+   launches per replan, and exactly one ``ilqr_tracking_mpc_time`` launch per
+   time-MPC solve (none for the host controllers); prints the per-tick
+   control wall (median, max) of the ticks each controller drove; keeps
+   three of the time MPC's warm-started solves;
+19. time-indexed MPC kernel: ``csrc/ilqr_tracking_mpc_time.cu`` against the
+   plain ``make_update_fn`` on the card, float64, on the seeded cases of
+   ``scenes.mpc_time_case`` (a straight reference at UTM magnitude, a curved
+   one, a warm-started two-round solve, a reference that ends inside the
+   horizon) and on the three recorded loop solves: x, u, lam to 1e-9 (atol +
+   rtol), equal mu_step and iterations; prints the largest differences;
+   times the straight case and the first loop solve through the bare
+   launcher and the wrapper in turns, the plain version, ``bound_ms`` and
+   ``chain_ms``;
+20. ``python -m tpl_tpu_torch.simulation.tplsim run --scenario
+   demo/country_follow --headless --no-reload --max-ticks 400`` on the card
+   as a child process: exit code 0 (zero rule violations) and its summary;
+21. record and replay: ``SimRecorder`` over 100 ticks of the vendored loop
+   (written under ``build/``), read back with ``load_recording`` and stepped
+   into a fresh store by ``SimReplay``, every state equal;
+22. prints the card's name and power limit and one JSON line describing the
    kernels (launches on the main path and per tick or per DP replan, the
    largest difference to the plain version, the kernel's time through its
    bare launcher ``ms`` and through its wrapper ``wrapper_ms``, the plain
@@ -203,7 +231,9 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    (``full_scan_bound_ms``; ``bound_ms`` is the needed-work one) and the
    counts behind it (``needed_work``).  The three graph DP rows
    carry their loop's launches (per replan and per tick) and the loop's
-   ``runtime_environment`` / ``runtime_planning`` medians.
+   ``runtime_environment`` / ``runtime_planning`` medians.  The time-MPC row
+   carries its loop's launches and the per-tick control walls of the four
+   controllers' loops.
    Each phase prints its seconds.
 
 With ``--parent-csrc DIR`` (a directory holding another version of any of
@@ -401,10 +431,36 @@ DP_POLY_ROWS = (
      "tpl_tpu/planning/dyn_prog/poly_planner_kernel.py:275"))
 
 
+# the controllers beside the spatial MPC: SimStandalone on
+# demo/country_follow with the scenario's own sets (the RSTP planner, fused,
+# H=250, collision screen on) and that controller active, 200 ticks; the JAX
+# package's own loops on the CPU (tests/jax_controller_loops.py): (t, x, y,
+# v, rule violations) at the end.  The screen latches the hard brake over
+# ticks 4-103 in both packages, and the constant-deceleration fallback
+# drives while it does.
+TIME_MPC = "model_predictive_controller_time"
+CONTROLLER_TICKS = 200
+CONTROLLER_JAX_END = {
+    TIME_MPC: (1.99, 21.1633, 12.3621, 2.4110, 0),
+    "feedforward_controller": (1.99, 22.8113, 12.6315, 4.8501, 0),
+    "flat_controller": (1.99, 22.6170, 12.6498, 4.6655, 0),
+    "direct_controller": (1.99, 22.2709, 12.5070, 3.4880, 0)}
+CONTROLLER_END_ATOL = 0.05  # m, m/s
+# the time-MPC solves of its loop kept for the kernel phase (warm starts)
+RECORD_TIME_SOLVES = (5, 40, 80)
+# the time-indexed MPC kernel against its plain version on the card (both
+# float64; the card's and the CPU's libm part in the last bits)
+MPC_TIME_TOL = 1e-9
+MPC_TIME_H, MPC_TIME_T = 60, 40     # HORIZON_MAX, the demo set's horizon
+# the tplsim phase: the vendored loop through the command line, on the card
+TPLSIM_TICKS = 400
+RECORD_TICKS = 100
+
+
 KERNELS = ("latlon_action_min", "ilqr_tracking_mpc", "ilqr_rstp",
            "rstp_rampify", "latency_probe", "lon_dp", "poly_lat",
            "idm_rollout", "idm_evaluate", "poly_sampling", "dir_dist_map",
-           "poly_planner")
+           "poly_planner", "ilqr_tracking_mpc_time")
 NO_LIBRARY = None           # no single PyTorch call computes these kernels
 
 
@@ -3461,6 +3517,294 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz):
     return res
 
 
+def controller_loop_phase(itt, itm, rstp, rmp, name, ticks):
+    """SimStandalone on demo/country_follow with the scenario's own sets
+    (the RSTP planner, fused, H=250) and ``name`` active, one of the
+    controllers beside the spatial MPC, the rule checker on, the launch
+    counters of every kernel on the path set to 0 just before the loop and
+    read just after.  Checks finite controls, the ego moving, the rule
+    violations and the end state against the JAX package's CPU loop's
+    (``CONTROLLER_JAX_END``), 2 ``ilqr_rstp`` and 1 ``rstp_rampify`` launches
+    per replan, none of the spatial MPC's, and for the time MPC exactly one
+    launch of its kernel per solve (the host controllers launch none);
+    prints the per-tick control wall of the ticks the controller drove (the
+    collision screen's hard brake drives the others).  For the time MPC,
+    keeps the solves of ``RECORD_TIME_SOLVES``."""
+    import torch
+    from tpl_tpu_torch.simulation import SimStandalone
+
+    sim = SimStandalone(app_id=f"smoke_{name}",
+                        scenario_path="demo/country_follow")
+    store = sim.planning_app.sh_planners
+    controllers = sim.control_app.sh_controllers
+    with store.lock():
+        active = store.active_planner
+        params = store.path_vel_decomp_planner.params
+        cfg = (params.use_fused, params.horizon, params.collision_screen)
+    if active != "path_vel_decomp_planner" or cfg != (True, RSTP_H, True):
+        raise AssertionError(f"planning set: {active} {cfg}")
+    with controllers.lock():
+        controllers.active_controller = name
+        mp = controllers.model_predictive_controller_time.params
+        mpc_cfg = (mp.horizon, mp.step, mp.max_iterations)
+    if name == TIME_MPC and mpc_cfg != (MPC_TIME_T, 0.05, 20):
+        raise AssertionError(f"control set: {name} {mpc_cfg}")
+    ctrl = sim.control_app.controllers[name]
+    planner = sim.planning_app.planners["path_vel_decomp_planner"]
+    with sim.core.sh_state.lock():
+        ss = sim.core.sh_state.sim
+        ss.settings.running = True
+        ss.settings.use_real_time = False
+        ss.rule_checker.enable = True
+
+    # the loop's own time-MPC solves, recorded as the controller makes them
+    solve = itt.update
+    rec = {"n": 0, "picked": [], "events": []}
+
+    def recording(buf, *args):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = solve(buf, *args)
+        ev[1].record()
+        rec["events"].append(ev)
+        if rec["n"] in RECORD_TIME_SOLVES:
+            rec["picked"].append((f"loop solve {rec['n']}", buf.clone(),
+                                  args))
+        rec["n"] += 1
+        return out
+
+    itt.update = recording
+    try:
+        tick_ms, driven_ms, its, emergency = [], [], [], 0
+        solves0 = ctrl.opt.updates if name == TIME_MPC else 0
+        itt.launches = itm.launches = rstp.launches = rmp.launches = 0
+        for k in range(ticks):
+            t0 = time.perf_counter()
+            sim.update()
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            with store.lock():
+                latched = store.trajectory.emergency
+            with controllers.lock():
+                control_ms = controllers.runtime * 1e3
+                controls = np.array(controllers.controls)
+            if latched:
+                emergency += 1
+            else:
+                driven_ms.append(control_ms)
+            if name == TIME_MPC and ctrl.opt.updates - solves0 > len(its):
+                its.append(ctrl.opt.iterations)
+            if not np.all(np.isfinite(controls)):
+                raise AssertionError(f"{name} tick {k}: non-finite controls")
+        launches = dict(ilqr_tracking_mpc_time=itt.launches,
+                        ilqr_tracking_mpc=itm.launches,
+                        ilqr_rstp=rstp.launches, rstp_rampify=rmp.launches)
+        solves = ctrl.opt.updates - solves0 if name == TIME_MPC else 0
+    finally:
+        itt.update = solve
+
+    replans = planner.fused.steps
+    with sim.core.sh_state.lock():
+        s = sim.core.sh_state.sim
+        n_viol = len(s.rule_checker.violations)
+        end = (s.t, s.ego.x, s.ego.y, s.ego.v)
+    jax_end = CONTROLLER_JAX_END[name]
+    print(f"{name}: {ticks} ticks to t={end[0]:.2f} s, ego x {end[1]:.4f} y "
+          f"{end[2]:.4f} v {end[3]:.4f} m/s, {n_viol} violations (the JAX "
+          f"package's CPU loop: t={jax_end[0]:.2f} s, x {jax_end[1]:.4f} y "
+          f"{jax_end[2]:.4f} v {jax_end[3]:.4f}, {jax_end[4]} violations); "
+          f"{emergency} ticks of the screen's hard brake, {replans} replans, "
+          f"{solves} time-MPC solves; launches: {launches}")
+    if n_viol != jax_end[4]:
+        raise AssertionError(f"{name}: {n_viol} rule violations, the JAX "
+                             f"loop {jax_end[4]}")
+    if not (abs(end[0] - jax_end[0]) < 1e-9 and max(
+            abs(a - b) for a, b in zip(end[1:], jax_end[1:4]))
+            <= CONTROLLER_END_ATOL):
+        raise AssertionError(f"{name}: the loop ends at {end}, not at the "
+                             f"JAX loop's {jax_end}")
+    if not end[3] > 1.0:
+        raise AssertionError(f"{name}: ego speed {end[3]} at the end")
+    if replans < ticks - 5 or (launches["ilqr_rstp"], launches[
+            "rstp_rampify"]) != (2 * replans, replans):
+        raise AssertionError(f"{name}: {launches} for {replans} replans")
+    if launches["ilqr_tracking_mpc"]:
+        raise AssertionError(f"{name}: the spatial MPC launched")
+    if name == TIME_MPC:
+        if solves < ticks - emergency - 5 \
+                or launches["ilqr_tracking_mpc_time"] != solves:
+            raise AssertionError(f"{name}: {launches} for {solves} solves")
+        solve_ms = [a.elapsed_time(b) for a, b in rec["events"]]
+        print(f"{name}: solve on the card (CUDA events) ms: median "
+              f"{np.median(solve_ms):.4f}, max {np.max(solve_ms):.4f} (the "
+              f"first, the kernel's first launch here, {solve_ms[0]:.4f}; "
+              f"the rest at most {np.max(solve_ms[1:]):.4f}); iterations "
+              f"per solve: median {np.median(its):.1f}, max {np.max(its)}")
+    elif launches["ilqr_tracking_mpc_time"]:
+        raise AssertionError(f"{name}: the time-MPC kernel launched")
+    print(f"{name}: per-tick control wall ms over the {len(driven_ms)} ticks "
+          f"it drove: median {np.median(driven_ms):.3f}, max "
+          f"{np.max(driven_ms):.3f}; per-tick total wall ms: median "
+          f"{np.median(tick_ms):.3f}, max {np.max(tick_ms):.3f}")
+    return dict(launches=launches, picked=rec["picked"],
+                control_ms=driven_ms, ticks=ticks)
+
+
+def compare_time_solves(itt, got, want, H, what):
+    """Time-MPC kernel against plain results: raises beyond MPC_TIME_TOL
+    (atol + rtol) or on another mu_step or iteration count; returns (max
+    |x|, |u| difference, the unpacked kernel result)."""
+    a = itt.unpack_outputs(got.cpu().numpy(), H)
+    b = itt.unpack_outputs(want.cpu().numpy(), H)
+    d = {k: float(np.max(np.abs(a[k] - b[k]))) for k in ("x", "u", "lam")}
+    over = max(float(np.max(np.abs(a[k] - b[k]) - MPC_TIME_TOL
+                            * (1.0 + np.abs(b[k])))) for k in d)
+    dcost = abs(a["traj_costs"] - b["traj_costs"]) / max(
+        abs(b["traj_costs"]), 1e-300)
+    print(f"ilqr_tracking_mpc_time check {what}: max|dx| {d['x']:.3e}, "
+          f"max|du| {d['u']:.3e}, max|dlam| {d['lam']:.3e}, cost rel "
+          f"{dcost:.3e}, mu_step {a['mu_step']}/{b['mu_step']}, iterations "
+          f"{a['iterations']}/{b['iterations']}")
+    if over > 0.0 or not dcost <= MPC_TIME_TOL:
+        raise AssertionError(f"{what}: kernel and plain solves differ")
+    if (a["mu_step"], a["iterations"]) != (b["mu_step"], b["iterations"]):
+        raise AssertionError(f"{what}: mu_step / iterations differ")
+    if not np.all(np.isfinite(a["x"])):
+        raise AssertionError(f"{what}: non-finite solve")
+    return max(d["x"], d["u"]), a
+
+
+def mpc_time_phase(itt, scenes, picked, dev, cycles, mhz):
+    """The time-indexed MPC kernel against the plain ``make_update_fn`` on
+    the card, float64: on the seeded cases of ``scenes.mpc_time_case`` (a
+    straight reference at UTM magnitude, a curved one, a warm-started
+    two-round solve, a reference that ends inside the horizon) and on the
+    warm-started solves recorded in the time MPC's loop; times through the
+    bare launcher and the wrapper in turns and the plain version, with
+    ``bound_ms`` and ``chain_ms`` at the timed solves' iteration counts."""
+    import torch
+
+    cases = []
+    for kind in scenes.MPC_TIME_KINDS:
+        host, args = scenes.mpc_time_case(kind)
+        cases.append((kind, torch.from_numpy(host).to(dev), args))
+    if len(picked) != len(RECORD_TIME_SOLVES):
+        raise AssertionError(f"recorded {len(picked)} time-MPC loop solves")
+    cases += picked
+    max_err, iterations = 0.0, {}
+    for what, buf, args in cases:
+        if args[:3] != (MPC_TIME_H, 128, MPC_TIME_T):
+            raise AssertionError(f"{what}: shapes {args[:3]}")
+        got = itt.update(buf, *args)
+        want = itt.update_reference(buf, *args)
+        torch.cuda.synchronize()
+        err, res = compare_time_solves(itt, got, want, MPC_TIME_H, what)
+        max_err = max(max_err, err)
+        iterations[what] = res["iterations"]
+
+    times = {}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib_fn = itt._kernel().ilqr_tracking_mpc_time
+    for what, buf, args in (cases[0], cases[len(scenes.MPC_TIME_KINDS)]):
+        out = torch.empty_like(itt.update(buf, *args))
+        ms, wrapper_ms = launcher_times(
+            "ilqr_tracking_mpc_time", what,
+            lambda: lib_fn(buf.data_ptr(), out.data_ptr(), *args, stream),
+            lambda: itt.update(buf, *args), 50)
+        plain_ms = cuda_ms(lambda: itt.update_reference(buf, *args), 2)
+        its = iterations[what]
+        bound = itt.bound_ms(MPC_TIME_H, 128, MPC_TIME_T, its)
+        chain = itt.chain_ms(MPC_TIME_H, MPC_TIME_T, its, cycles, mhz)
+        times[what] = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                           bound=bound, chain=chain, iterations=its)
+        print(f"ilqr_tracking_mpc_time {what} at H={MPC_TIME_H}, "
+              f"T={MPC_TIME_T}, {its} iterations: kernel {ms:.4f} ms "
+              f"(wrapper {wrapper_ms:.4f}), plain {plain_ms:.4f} ms; "
+              f"bound_ms {bound[0]:.6f} ({bound[1]}), chain_ms {chain:.4f}")
+    return dict(err=max_err, times=times,
+                loop=times[cases[len(scenes.MPC_TIME_KINDS)][0]])
+
+
+def tplsim_phase():
+    """``python -m tpl_tpu_torch.simulation.tplsim run --headless
+    --no-reload`` on demo/country_follow for TPLSIM_TICKS ticks, on the card
+    (no ``--cpu``), as a child process run to its end: exit code 0 (zero
+    rule violations) and its summary."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "tpl_tpu_torch.simulation.tplsim", "run",
+           "--scenario", "demo/country_follow", "--headless", "--no-reload",
+           "--max-ticks", str(TPLSIM_TICKS)]
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    print(f"tplsim run (exit code {res.returncode}, {wall:.1f} s): "
+          + " | ".join(line.strip() for line in lines[-4:]))
+    if res.returncode != 0:
+        raise AssertionError(f"tplsim run exited {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    if f"ticks={TPLSIM_TICKS}" not in res.stdout \
+            or "rule violations: 0" not in res.stdout:
+        raise AssertionError(f"tplsim run summary:\n{res.stdout[-2000:]}")
+
+
+def record_replay_phase():
+    """SimRecorder over RECORD_TICKS ticks of the vendored loop on
+    demo/country_follow (on the card), written under build/, then
+    load_recording and SimReplay stepping it into a fresh store: every
+    recorded state equal to the loop's, state for state."""
+    import shutil
+    import torch
+    from tpl_tpu_torch.simulation import (SimRecorder, SimReplay,
+                                          SimStandalone, load_recording)
+    from tpl_tpu_torch.util import Store
+
+    sim = SimStandalone(app_id="smoke_record",
+                        scenario_path="demo/country_follow")
+    with sim.core.sh_state.lock():
+        ss = sim.core.sh_state.sim
+        ss.settings.running = True
+        ss.settings.use_real_time = False
+        ss.rule_checker.enable = True
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "smoke_recording")
+    shutil.rmtree(path, ignore_errors=True)
+    rec = SimRecorder(sim, path, dt_state_log=0.01)
+    seen = []
+    for _ in range(RECORD_TICKS):
+        sim.update()
+        torch.cuda.synchronize()
+        rec.capture()
+        with sim.core.sh_state.lock():
+            s = sim.core.sh_state.sim
+            seen.append((s.t, s.ego.x, s.ego.y, s.ego.v))
+    rec.finish()
+    recording = load_recording(path)
+    states = [(s.t, s.ego.x, s.ego.y, s.ego.v) for s in recording.sim_states]
+    if states != seen or len(recording.runtime_planner) != RECORD_TICKS:
+        raise AssertionError("the recording differs from the loop")
+    store = Store()
+    rep = SimReplay(app_id="smoke_replay", recording_path=path,
+                    sim_store=store)
+    with rep.sh_replay.lock():
+        rep.sh_replay.state.sleep_time = 0.0
+    for k in range(1, RECORD_TICKS):
+        if rep.update() != k:
+            raise AssertionError(f"replay step {k}")
+        with store.lock():
+            s = store.sim
+            if (s.t, s.ego.x, s.ego.y, s.ego.v) != seen[k]:
+                raise AssertionError(f"replay step {k}: another state")
+    rt = np.array(recording.runtime_planner) * 1e3
+    print(f"record and replay: {RECORD_TICKS} ticks recorded to t="
+          f"{seen[-1][0]:.2f} s (ego x {seen[-1][1]:.4f} v {seen[-1][3]:.4f}),"
+          f" read back and replayed state for state; recorded planner "
+          f"runtime ms median {np.median(rt):.3f}, max {np.max(rt):.3f}")
+
+
 def probe_phase(lat, itm, dev):
     """The card's operation latencies (csrc/latency_probe.cu) and the SM
     clock under load; prints them with the card's name and power limit."""
@@ -3524,7 +3868,9 @@ def main(argv=()):
     from tpl_tpu_torch import _latency as lat
     from tpl_tpu_torch import native
     from tpl_tpu_torch.optim import ilqr_rstp as rstp
+    from tpl_tpu_torch import scenes
     from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
+    from tpl_tpu_torch.optim import ilqr_tracking_mpc_time as itt
     from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
     from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
     from tpl_tpu_torch.planning.dyn_prog import lon_kernel as tlk
@@ -3547,7 +3893,7 @@ def main(argv=()):
 
     t0 = time.perf_counter()
     _build.build(KERNELS)
-    for mod in (lam, itm, rstp, rmp, lat, tlk, plk, idk, pok, dpe, ppk):
+    for mod in (lam, itm, rstp, rmp, lat, tlk, plk, idk, pok, dpe, ppk, itt):
         mod._kernel()
     native.get_lib()
     print(f"built {', '.join(KERNELS)} and native/hostops.cpp in "
@@ -3622,6 +3968,13 @@ def main(argv=()):
                 DP_POLY_TICKS)
     gk = phase("graph DP kernels", dp_poly_kernel_phase, dpe, ppk,
                gdp["first"], dev, cycles, mhz)
+    ctl = {name: phase(f"closed loop, {name}", controller_loop_phase, itt,
+                       itm, rstp, rmp, name, CONTROLLER_TICKS)
+           for name in CONTROLLER_JAX_END}
+    tk = phase("time-indexed MPC kernel", mpc_time_phase, itt, scenes,
+               ctl[TIME_MPC]["picked"], dev, cycles, mhz)
+    phase("tplsim run", tplsim_phase)
+    phase("record and replay", record_replay_phase)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -3804,6 +4157,26 @@ def main(argv=()):
             "chain_ms": r["chain"], "library_ms": NO_LIBRARY,
             "runtime_environment_median_ms": float(np.median(gdp["env_ms"])),
             "runtime_planning_median_ms": float(np.median(gdp["plan_ms"]))})
+    # the time-indexed MPC: launches on its loop, the checks on the seeded
+    # cases and the loop's solves, times on the loop's first recorded solve
+    tl, tloop = tk["loop"], ctl[TIME_MPC]
+    rows.append({
+        "name": "ilqr_tracking_mpc_time", "route": "cuda",
+        "source": "tpl_tpu_torch/csrc/ilqr_tracking_mpc_time.cu",
+        "replaces": "tpl_tpu/optim/ilqr.py:126",
+        "launches": tloop["launches"]["ilqr_tracking_mpc_time"],
+        "launches_per_tick": (tloop["launches"]["ilqr_tracking_mpc_time"]
+                              / tloop["ticks"]),
+        "max_abs_err": tk["err"], "ms": tl["ms"],
+        "wrapper_ms": tl["wrapper_ms"], "plain_ms": tl["plain_ms"],
+        "bound_ms": tl["bound"][0], "bound_by": tl["bound"][1],
+        "chain_ms": tl["chain"], "library_ms": NO_LIBRARY,
+        "iterations": tl["iterations"],
+        "cold_ms": tk["times"]["utm_straight"]["ms"],
+        "control_wall_median_ms": {
+            n: float(np.median(r["control_ms"])) for n, r in ctl.items()},
+        "control_wall_max_ms": {
+            n: float(np.max(r["control_ms"])) for n, r in ctl.items()}})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

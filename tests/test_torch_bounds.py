@@ -17,6 +17,7 @@ import torch
 import tpl_tpu_torch
 from tpl_tpu_torch import _build, _latency
 from tpl_tpu_torch.optim import ilqr, ilqr_rstp, ilqr_tracking_mpc as itm
+from tpl_tpu_torch.optim import ilqr_tracking_mpc_time as itt
 from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
 from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify as rmp
 
@@ -75,6 +76,43 @@ def test_mpc_bounds_at_h60():
     # fewer active steps and iterations shrink both
     assert itm.operations(H, 45, 3) < itm.operations(H, T, its)
     assert itm.chain_ops(H, 45, 3)["f64_div"] == 45 * (4 * 4 + 3)
+
+
+def test_mpc_time_bounds_at_the_demo_horizon():
+    """The time-indexed MPC at the demo control set's solve: capacity 60, 40
+    active steps, 5 iterations."""
+    H, n_ref, T, its = 60, 128, 40, 5
+    # in: x 61*6, u 60*2, lam 60*4, u_lims 60*2*2, bw_lim 4*2, cfg 2,
+    # alphas 8, 19 scalars, 4 tables of 128; out: x, u, lam, 3
+    n_in = 366 + 120 + 240 + 240 + 8 + 2 + 8 + 19 + 512
+    n_out = 366 + 120 + 240 + 3
+    assert itt.traffic_bytes(H, n_ref) == 8 * (n_in + n_out) == 17952
+    # per iteration and active step: derivatives 121 (the step cost 77, the
+    # dynamics 18, 8 gradient, 10 upper Hessian and 8 state-dependent
+    # Jacobian entries), a Riccati step 1740, 8 candidates of (109 + 77 +
+    # 1); once: the lookups 30, the open rollout (2*18 + 31), its cost and
+    # sum, one multiplier round of 20 a step
+    assert itt.OPS["derivatives"] == 77 + 18 + 8 + 10 + 8 == 121
+    once = 40 * (30 + 67 + 77 + 1) + 40 * 20
+    per_it = 40 * (121 + 1740 + 8 * 187)
+    assert itt.operations(H, T, its) == once + its * per_it == 679200
+    ms, by = itt.bound_ms(H, n_ref, T, its)
+    assert by == "operations"
+    assert ms == pytest.approx(679200 / 34e12 * 1e3)
+    # the critical path: 6 rollouts' worth of dynamics (2 a step: tan,
+    # atan, cos, two products, a division), 5 Riccati passes, 6 ordered sums
+    ops = itt.chain_ops(H, T, its)
+    assert set(ops) <= set(_latency.PROBES)
+    assert ops["f64_tan"] == ops["f64_atan"] == ops["f64_cos"] \
+        == 40 * 6 * 2 == 480
+    assert ops["f64_div"] == 40 * (6 * 2 + 5) == 680
+    assert ops["f64_mul"] == 40 * (6 * 4 + 5 * 3 + 2 + 5 * 6) == 2840
+    assert ops["f64_add"] == 40 * (5 * 10 + 3 + 5 * 17 + 6) == 5760
+    one = dict.fromkeys(_latency.PROBES, 1.0)
+    assert itt.chain_ms(H, T, its, one, 1000) == pytest.approx(
+        sum(ops.values()) * 1e-6)
+    # only the active steps count
+    assert itt.operations(H, H, its) > itt.operations(H, T, its)
 
 
 def test_mpc_batch_layout_and_bounds_at_h60():

@@ -8,7 +8,9 @@ On a machine with a card (no JAX needed):
 Tolerances: the action-min kernel as in test_torch_latlon_solver.py (cost
 rtol=1e-6, atol=1e-3; constraint atol=1e-4; trajectory atol=1e-3); the
 float64 iLQR kernel against its plain version x, u atol=1e-6, traj_costs
-rtol=1e-9, mu_step and the iteration count equal; the float32 RSTP iLQR
+rtol=1e-9, mu_step and the iteration count equal; the float64 time-indexed
+MPC kernel x, u, lam atol = rtol = 1e-9, traj_costs rtol=1e-9, mu_step and
+the iteration count equal; the float32 RSTP iLQR
 kernel against its plain version x, u, lam atol=2e-2, traj_costs
 rtol=1e-5 (where each solve stops is decided by float32 rounding, see
 RSTP_X_ATOL); the rampify scan bit for bit; the batched tracking-MPC kernel
@@ -37,6 +39,7 @@ import torch
 
 from tpl_tpu_torch.optim import batched, ilqr, ilqr_rstp
 from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
+from tpl_tpu_torch.optim import ilqr_tracking_mpc_time as itt
 from tpl_tpu_torch.optim import problems, solver
 from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
 from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
@@ -50,12 +53,14 @@ from tpl_tpu_torch.planning.poly_sampling import poly_kernel as pok
 from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner as psp
 from tpl_tpu_torch.planning.dyn_prog import dp_environment as dpe
 from tpl_tpu_torch.planning.dyn_prog import poly_planner_kernel as ppk
-from tpl_tpu_torch.scenes import (LON_DEMO, dp_poly_buffers, dp_poly_env,
-                                  dp_poly_propagation_case, dp_random_occ,
+from tpl_tpu_torch.scenes import (LON_DEMO, MPC_TIME_KINDS, dp_poly_buffers,
+                                  dp_poly_env, dp_poly_propagation_case,
+                                  dp_random_occ,
                                   idm_args, idm_bench_scene,
                                   idm_hairpin_scene, idm_scene,
                                   idm_through_states, lon_nodes, lon_scene,
-                                  poly_lat_scene, poly_scene, rampify_args)
+                                  mpc_time_case, poly_lat_scene, poly_scene,
+                                  rampify_args)
 import tpl_tpu_torch
 
 COST_RTOL, COST_ATOL = 1e-6, 1e-3
@@ -350,6 +355,96 @@ def test_cuda_solver_launches_kernel_once_per_update(cuda):
         for s in sides:
             s.shift(1)
             s.x[0] = s.x[0] + np.array([0.0, 0.01, 0.0, 0.0, 0.02, 0.0, 0.0])
+
+
+# ---------------------------------------------------------------------
+# the time-indexed tracking-MPC kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MPC_TIME_KINDS)
+def test_mpc_time_kernel_matches_plain(cuda, kind):
+    """The seeded cases of the CPU rehearsal against the plain float64
+    update on the card: x, u, lam to 1e-9 (atol and rtol), mu_step and the
+    iteration count equal, one launch."""
+    host, args = mpc_time_case(kind)
+    H = args[0]
+    buf = torch.from_numpy(host).to(cuda)
+    before = itt.launches
+    out = itt.update(buf, *args)
+    torch.cuda.synchronize()
+    assert itt.launches == before + 1
+    ref = itt.update_reference(buf, *args)
+    got = itt.unpack_outputs(out.cpu().numpy(), H)
+    want = itt.unpack_outputs(ref.cpu().numpy(), H)
+    for k in ("x", "u", "lam"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(got["traj_costs"], want["traj_costs"],
+                               rtol=1e-9)
+    assert got["mu_step"] == want["mu_step"]
+    assert got["iterations"] == want["iterations"]
+
+
+@pytest.mark.cuda
+def test_mpc_time_solver_launches_kernel_once_per_update(cuda, monkeypatch):
+    """The time-MPC Solver on the card launches the kernel once per update
+    and never the plain version; the same Solver on the CPU takes the plain
+    version and gives the same result, warm start included."""
+    host, args = mpc_time_case("curved")
+    H, n_ref, T = args[:3]
+    v = ilqr.unpack(host, ilqr.layout(itt.input_layout(H, n_ref))[0])
+    sides = []
+    for dev in (cuda, torch.device("cpu")):
+        prob, spec = problems.trajectory_tracking_mpc_time(ref_capacity=n_ref)
+        s = solver.Solver(prob, spec, horizon_max=H, dtype=torch.float64,
+                          device=dev)
+        s.integrator_type = s.HEUN
+        s.horizon = T
+        s.max_iterations = 20
+        s.barrier_weight[:] = 1e4
+        s.lg_mult_limit = 0.0
+        s.u_min[:] = [-3.0, -1.0]
+        s.u_max[:] = [1.5, 1.0]
+        for i, name in enumerate(itt.SCALARS):
+            setattr(s.params, name, v["scalars"][i])
+        for i, name in enumerate(itt.TABLES):
+            setattr(s.params, name, v["tables"][i])
+        s.x[0] = v["x"][0]
+        sides.append(s)
+    plain = itt.update_reference
+    for tick in range(3):
+        before = itt.launches
+
+        def no_plain(*a, **kw):
+            raise AssertionError("the CUDA solve took the plain version")
+
+        monkeypatch.setattr(itt, "update_reference", no_plain)
+        sides[0].update()
+        monkeypatch.setattr(itt, "update_reference", plain)
+        assert itt.launches == before + 1
+        sides[1].update()
+        assert itt.launches == before + 1        # the CPU side: plain
+        for a, b in ((sides[0].x, sides[1].x), (sides[0].u, sides[1].u)):
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-9)
+        assert sides[0]._mu_step == sides[1]._mu_step
+        assert sides[0].iterations == sides[1].iterations
+        for s in sides:
+            s.shift(1)
+            s.x[0] = s.x[0] + np.array([0.0, 0.01, 0.0, 0.0, 0.02, 0.0])
+
+
+@pytest.mark.cuda
+def test_mpc_time_launch_failures_raise(cuda):
+    """A CPU tensor never reaches the launcher; a horizon whose shared
+    memory does not fit raises before the launch."""
+    host, args = mpc_time_case("curved")
+    with pytest.raises(ValueError, match="unsupported device"):
+        itt.launch(torch.from_numpy(host), *args)
+    H, n_ref = 400, 128
+    n = ilqr.layout(itt.input_layout(H, n_ref))[1]
+    buf = torch.zeros(n, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        itt.update(buf, H, n_ref, H, 1, 1, 0, ilqr.HEUN)
 
 
 # ---------------------------------------------------------------------

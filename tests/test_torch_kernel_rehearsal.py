@@ -26,6 +26,10 @@ one after the other:
   1e-5, u 2e-2 on the scenarios whose mu_step and iteration count agree
   and 1e-1 elsewhere: where a float32 solve stops, and whether its last
   step is accepted, is decided by rounding),
+- the time-indexed tracking-MPC kernel (``ilqr_tracking_mpc_time.cu``) on
+  the seeded cases of ``scenes.mpc_time_case``: cold on a straight
+  reference at UTM magnitude and on a curved one, warm-started for two
+  multiplier rounds, and on a reference that ends inside the horizon,
 - the RSTP kernel's template instantiated in double on a lateral and a
   velocity problem at H = 250,
 
@@ -67,6 +71,7 @@ import tpl_tpu_torch
 from tpl_tpu_torch import _build
 from tpl_tpu_torch.optim import batched, ilqr, ilqr_rstp
 from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
+from tpl_tpu_torch.optim import ilqr_tracking_mpc_time as itt
 from tpl_tpu_torch.optim import problems
 from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as tllk
 from tpl_tpu_torch.ops import splines
@@ -80,6 +85,7 @@ from tpl_tpu_torch.planning.idm_sampling import idm_kernel as idk
 from tpl_tpu_torch.planning.poly_sampling import poly_kernel as pok
 from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner as psp
 
+from tpl_tpu_torch import scenes
 from tpl_tpu_torch.scenes import (dp_poly_buffers, dp_poly_env,
                                   dp_poly_propagation_case, dp_random_occ,
                                   idm_args, idm_hairpin_scene, idm_scene,
@@ -193,6 +199,7 @@ HARNESS = r"""
 #include <thread>
 #include <vector>
 #include "ilqr_tracking_mpc.cu"
+#include "ilqr_tracking_mpc_time.cu"
 #include "ilqr_rstp.cu"
 #include "rstp_rampify.cu"
 #include "latlon_action_min.cu"
@@ -208,6 +215,7 @@ HARNESS = r"""
 // function belongs to the function's namespace)
 namespace ilqr_mpc { alignas(16) unsigned char smem_raw[262144]; }
 namespace ilqr_mpc_f32 { alignas(16) unsigned char smem_raw[262144]; }
+namespace ilqr_mpc_time { alignas(16) unsigned char smem_raw[262144]; }
 namespace ilqr_rstp { alignas(16) unsigned char smem_raw[262144]; }
 namespace rstp_rampify { alignas(16) unsigned char smem_raw[65536]; }
 namespace latlon_am { alignas(16) unsigned char smem_raw[262144]; }
@@ -479,6 +487,15 @@ extern "C" void rehearse_mpc(const double* in, double* out, long long* prof,
   });
 }
 
+extern "C" void rehearse_mpc_time(const double* in, double* out, int H,
+                                  int n_ref, int T, int max_it, int max_lg,
+                                  int mu_step, int integrator) {
+  run_block([=] {
+    ilqr_mpc_time::ilqr_tracking_mpc_time_kernel(in, out, H, n_ref, T, max_it,
+                                                 max_lg, mu_step, integrator);
+  });
+}
+
 // the batched kernel on the launcher's grid for `sms` SMs of `per_sm`
 // blocks of the largest block (ilqr_tracking_mpc_batched_grid), its warps
 // taking the scenarios through the work counter; prof (may be null) as the
@@ -583,6 +600,10 @@ def bodies(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     lib.rehearse_mpc.restype = None
     lib.rehearse_mpc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    lib.rehearse_mpc_time.restype = None
+    lib.rehearse_mpc_time.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+    lib.ilqr_tracking_mpc_time_smem_bytes.restype = ctypes.c_size_t
+    lib.ilqr_tracking_mpc_time_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.rehearse_mpc_batched.restype = ctypes.c_int
     lib.rehearse_mpc_batched.argtypes = ([ctypes.c_void_p] * 5
                                          + [ctypes.c_int] * 10)
@@ -735,6 +756,34 @@ def test_mpc_profiling_body_is_bit_equal(bodies):
     bodies.rehearse_mpc(_ptr(host), _ptr(prof_out), _ptr(prof), *args)
     assert np.array_equal(out, prof_out)
     assert np.all(prof > 0)
+
+
+# ---------------------------------------------------------------------
+# the time-indexed tracking-MPC kernel body
+
+
+@pytest.mark.parametrize("kind", scenes.MPC_TIME_KINDS)
+def test_mpc_time_kernel_body_matches_plain(bodies, kind):
+    """A cold solve on a straight reference at UTM magnitude (centred) and
+    on a curved one, a warm-started two-round solve, and a reference that
+    ends inside the horizon, against the plain float64 update at 1e-12 with
+    equal mu_step and iteration counts."""
+    host, args = scenes.mpc_time_case(kind)
+    H, n_ref = args[:2]
+    assert bodies.ilqr_tracking_mpc_time_smem_bytes(H, n_ref) <= 227 * 1024
+    out = np.zeros(ilqr.layout(itt.output_layout(H))[1])
+    bodies.rehearse_mpc_time(_ptr(host), _ptr(out), *args)
+    want = itt.update_reference(torch.from_numpy(host), *args).numpy()
+    got, ref = itt.unpack_outputs(out, H), itt.unpack_outputs(want, H)
+    for k in ("x", "u", "lam"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got["traj_costs"], ref["traj_costs"],
+                               rtol=1e-12)
+    assert got["mu_step"] == ref["mu_step"]
+    assert got["iterations"] == ref["iterations"]
+    assert np.all(np.isfinite(got["x"]))
+    if kind == "warm":
+        assert np.any(got["lam"] > 0.0)
 
 
 def mpc_batch(dtype, B=4, T=MPC_H, iterations=8, warm=True):

@@ -1,6 +1,9 @@
 """The port never imports JAX or the JAX package: checked in a fresh
 interpreter after ``import tpl_tpu_torch``, after one CPU planning tick of
-the slice, after a few closed-loop ticks of the port's ``SimStandalone``,
+the slice, after a few closed-loop ticks of the port's ``SimStandalone``
+and a tick with each of the time-indexed MPC, the feedforward, the flat and
+the direct controller (the recorder, replay, ``tplsim`` and the live
+reloader imported),
 after the host C routes were built and called, after a batched update,
 after two ticks of each FAS-2025 planner, after two ticks of each
 rollout planner (IDM sampling, poly sampling) and after two ticks of the
@@ -61,6 +64,26 @@ mpc = sim.control_app.controllers["model_predictive_controller"]
 assert mpc.opt.iterations > 0, "the MPC never solved"
 assert sim.core.sh_state.sim.rule_checker.violations == []
 assert not leaked(), ("closed loop", leaked())
+
+from tpl_tpu_torch.control import (DirectController, FeedforwardController,
+                                   FlatController,
+                                   ModelPredictiveControllerTime)
+from tpl_tpu_torch.optim import ilqr_tracking_mpc_time
+from tpl_tpu_torch.simulation import (SimRecorder, SimReplay, load_recording,
+                                      tplsim)
+from tpl_tpu_torch.util import hotreload
+ctrl = sim.control_app.sh_controllers
+ctrl.model_predictive_controller_time.params.horizon = 10
+for name in ("model_predictive_controller_time", "feedforward_controller",
+             "flat_controller", "direct_controller"):
+    ctrl.active_controller = name
+    sim.update()
+    assert sim.control_app.registry.active_name() == name
+tmpc = sim.control_app.controllers["model_predictive_controller_time"]
+assert isinstance(tmpc, ModelPredictiveControllerTime)
+assert tmpc.opt.updates > 0, "the time MPC never solved"
+assert ilqr_tracking_mpc_time.launches == 0
+assert not leaked(), ("the four controllers", leaked())
 
 import numpy as np
 import torch
@@ -183,7 +206,9 @@ def test_port_runs_without_jax():
     "tpl_tpu_torch/planning/dyn_prog/dp_environment.py",
     "tpl_tpu_torch/planning/dyn_prog/poly_planner_kernel.py",
     "tpl_tpu_torch/planning/dyn_prog/dp_poly_planner.py",
-    "tpl_tpu_torch/scenes.py"])
+    "tpl_tpu_torch/scenes.py", "tpl_tpu_torch/control",
+    "tpl_tpu_torch/optim/ilqr_tracking_mpc_time.py",
+    "tpl_tpu_torch/simulation", "tpl_tpu_torch/util/hotreload.py"])
 def test_sources_name_no_jax(path):
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|tpl_tpu)\b(?!_torch)",
                      re.M)

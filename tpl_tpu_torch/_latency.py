@@ -32,7 +32,8 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 # the order of enum Probe in csrc/latency_probe.cu
 PROBES = ("f32_add", "f32_mul", "f32_div", "f32_sin", "f32_cos", "f32_atan",
           "f32_fmod", "f64_add", "f64_mul", "f64_div", "f64_sin", "f64_cos",
-          "f64_tan", "f64_fmod", "smem_load", "f32_rate", "f64_rate")
+          "f64_tan", "f64_fmod", "smem_load", "f32_rate", "f64_rate",
+          "f64_atan")
 # probes whose chain carries one extra operation, taken off the reading
 _EXTRA_OP = {"f64_tan": "f64_add", "f64_fmod": "f64_add",
              "f32_fmod": "f32_add"}

@@ -137,6 +137,22 @@ class TrackingMpc(BaseController):
         with self.lock_shared():
             self.shared.params = self.PARAMS()
 
+    def load_state(self, other):
+        """Copy the carried state from another instance, e.g. the JAX
+        package's: the solver's warm start (``Solver.load_state``), the
+        issued-command log, the idle compensation, the last controls and
+        the last tick time."""
+        o = other.opt
+        self.opt.load_state(o._x, o._u, o._lam, o._mu_step)
+        self.history.entries = list(other.history.entries)
+        self.idle.acc_ramp = other.idle.acc_ramp
+        self.idle.held_steer = other.idle.held_steer
+        self.controls = tuple(other.controls)
+        self.jerk = other.jerk
+        self.last_update_time = other.last_update_time
+        if hasattr(other, "cycle_time_estimate"):
+            self.cycle_time_estimate = other.cycle_time_estimate
+
     # -- subclass hooks ------------------------------------------------
 
     def _make_problem(self):

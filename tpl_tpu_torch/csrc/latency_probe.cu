@@ -1,8 +1,9 @@
 // Dependent-chain latencies of the operations the scan kernels are made of,
 // measured on the card: one thread runs N_OPS dependent operations of each
 // type between two clock64() reads.  The cycles per operation feed
-// chain_ms, the critical-path bound of ilqr_tracking_mpc.cu, ilqr_rstp.cu
-// and rstp_rampify.cu (tpl_tpu_torch/_latency.py).  Replaces no TPU kernel.
+// chain_ms, the critical-path bound of the kernels (ilqr_tracking_mpc.cu,
+// ilqr_tracking_mpc_time.cu, ilqr_rstp.cu, rstp_rampify.cu and the others;
+// tpl_tpu_torch/_latency.py).  Replaces no TPU kernel.
 // A second kernel counts the arguments at which sincos() and sin(), cos()
 // differ (sincos_check).
 //
@@ -27,7 +28,7 @@ constexpr int N_SMEM = 256;
 enum Probe {
   F32_ADD, F32_MUL, F32_DIV, F32_SIN, F32_COS, F32_ATAN, F32_FMOD,
   F64_ADD, F64_MUL, F64_DIV, F64_SIN, F64_COS, F64_TAN, F64_FMOD,
-  SMEM_LOAD, F32_RATE, F64_RATE, N_PROBE
+  SMEM_LOAD, F32_RATE, F64_RATE, F64_ATAN, N_PROBE
 };
 
 // one chain: x <- op(x, c), N_OPS times
@@ -72,6 +73,8 @@ __global__ void latency_probe_kernel(const double* __restrict__ seeds,
   // the floored-mod idiom of the tracking-MPC's angle distance, kept in
   // range by the added constant, which is taken off on the host
   CHAIN(F64_FMOD, double, 1.0, fmod(x + cd, 6.283185307179586))
+  // the time-indexed MPC's slip angle
+  CHAIN(F64_ATAN, double, 1.0, atan(x))
   {
     int x = (int)seeds[2];                // 0
     const long long t0 = clock64();

@@ -17,11 +17,15 @@ The solve runs on the solver's device (``tpl_tpu_torch.device()`` unless
 given).  Each :meth:`Solver.update` packs every input into one host buffer,
 uploads it once and downloads one packed result.  A problem with a
 hand-written kernel for the solver's dtype (``KERNELS``: the float64
-tracking MPC, the float32 RSTP profiles) goes through its wrapper, which
-launches the kernel on a CUDA device and runs the plain
-:func:`~tpl_tpu_torch.optim.ilqr.make_update_fn` on a CPU device; a problem
-whose kernel exists for another dtype raises on a CUDA device; every other
-problem runs the plain version on its device.
+spatial and time-indexed tracking MPCs, the float32 RSTP profiles) goes
+through its wrapper, which launches the kernel on a CUDA device and runs
+the plain :func:`~tpl_tpu_torch.optim.ilqr.make_update_fn` on a CPU device;
+a problem whose kernel exists for another dtype raises on a CUDA device.
+A problem without a kernel runs the plain version on its device, the card
+included: on the card that is ``ref_line_smoother_k``, which
+``path_smoothing``'s ``smooth_only`` path solves (off the vendored path);
+``velocity_profile_time`` and ``ref_line_smoother_dk`` have no kernel
+either, and no ported path solves them.
 """
 
 import functools
@@ -31,13 +35,16 @@ import numpy as np
 import torch
 
 import tpl_tpu_torch
-from tpl_tpu_torch.optim import ilqr, ilqr_rstp, ilqr_tracking_mpc
+from tpl_tpu_torch.optim import (ilqr, ilqr_rstp, ilqr_tracking_mpc,
+                                 ilqr_tracking_mpc_time)
 from tpl_tpu_torch.optim.ilqr import EULER, HEUN, RK4
 from tpl_tpu_torch.optim.problems import ArraySpec  # noqa: F401 (re-export)
 
 # (problem name, dtype) -> the solve of its hand-written kernel
 KERNELS = {
     ("trajectory_tracking_mpc", torch.float64): ilqr_tracking_mpc.solve,
+    ("trajectory_tracking_mpc_time", torch.float64):
+        ilqr_tracking_mpc_time.solve,
     **{(name, torch.float32): functools.partial(ilqr_rstp.solve, name)
        for name in ilqr_rstp.PROBLEMS},
 }

@@ -439,3 +439,63 @@ def dp_poly_buffers(node_pts, edge_steps, dev):
             torch.zeros(N, dtype=torch.int32, device=dev),
             torch.from_numpy(seg).to(dev), node_off, seg_off,
             torch.zeros((K + 1, 8), dtype=torch.float64, device=dev))
+
+
+# the time-indexed tracking MPC's cases: the demo control set's solve (H=60
+# capacity, T=40 active, step 0.05 s, 20 iterations, HEUN) on references
+# sampled every 0.1 s, centred on their first point as the controller
+# centres them
+MPC_TIME_KINDS = ("utm_straight", "curved", "warm", "short")
+
+
+def mpc_time_case(kind, seed=1):
+    """Packed inputs and launch arguments of one time-MPC update
+    (``optim.ilqr_tracking_mpc_time``): ``utm_straight`` a straight
+    reference laid at UTM magnitude (571172, 5364663) and centred, cold;
+    ``curved`` a weaving one, cold, with a 0.05 s reference offset;
+    ``warm`` the curved one from seeded controls and multipliers, mu_step 2
+    and two multiplier rounds; ``short`` a reference of 12 samples (1.1 s,
+    shorter than the horizon's 2 s), edge-padded to the table as the
+    solver pads it."""
+    from .optim import ilqr, ilqr_tracking_mpc_time as itt
+
+    rng = np.random.default_rng(seed)
+    H, T, n_ref = 60, 40, 128
+    tt = np.arange(n_ref) * 0.1
+    v = 8.0 + 0.5 * np.sin(tt * 0.3)
+    if kind == "utm_straight":
+        v = np.full(n_ref, 10.0)
+        yaw = np.full(n_ref, 0.3)
+        x = 571172.0 + np.cos(yaw) * v * tt
+        y = 5364663.0 + np.sin(yaw) * v * tt
+    else:
+        yaw = 0.2 * np.sin(tt * 0.4)
+        x = np.cumsum(v * np.cos(yaw)) * 0.1
+        y = np.cumsum(v * np.sin(yaw)) * 0.1
+    x0 = [x[0] + 0.3, y[0] - 0.4, yaw[0] + 0.05, 0.02, v[0] - 0.5, 0.2]
+    ref = dict(ref_x=x - x[0], ref_y=y - y[0], ref_phi=yaw, ref_v=v)
+    x0[0] -= x[0]
+    x0[1] -= y[0]
+    if kind == "short":
+        ref = {k: np.concatenate([a[:12], np.full(n_ref - 12, a[11])])
+               for k, a in ref.items()}
+    params = dict(pd=5.0, pv=5.0, pdelta=0.0, min_pdelta_dot=0.1,
+                  pdelta_dot=0.1, min_p_phi_dot=0.0, p_phi_dot=0.05,
+                  p_phi=0.5, pa=2.0, pj=0.5, l=2.7, v_ch=32.0, cog_pos=0.5,
+                  ref_dt=0.1, ref_t_offset=0.05 if kind == "curved" else 0.0,
+                  max_delta=0.7, max_acc=3.0, min_acc=-3.0, a_offset=0.1,
+                  **ref)
+    X = np.zeros((H + 1, 6))
+    X[0] = x0
+    u, lam, mu, lg = np.zeros((H, 2)), np.zeros((H, 4)), 0, 1
+    if kind == "warm":
+        u = rng.normal(0.0, 0.3, (H, 2))
+        lam = rng.uniform(0.0, 1e-3, (H, 4))
+        mu, lg = 2, 2
+    inputs = dict(
+        x=X, u=u, lam=lam,
+        u_lims=np.tile(np.array([[[-3.0, 1.5], [-1.0, 1.0]]]), (H, 1, 1)),
+        bw_lim=np.stack([np.full(4, 1e4), np.full(4, 1e30)], -1),
+        cfg_f=np.array([0.05, 1e-6]))
+    return (itt.pack_inputs(inputs, params),
+            (H, n_ref, T, 20, lg, mu, ilqr.HEUN))

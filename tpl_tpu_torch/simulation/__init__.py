@@ -13,3 +13,8 @@ from tpl_tpu_torch.simulation.state import (
 )
 from tpl_tpu_torch.simulation.core import SimCore, ScenarioLoadError
 from tpl_tpu_torch.simulation.standalone import SimStandalone
+from tpl_tpu_torch.simulation.record import (
+    SimRecorder,
+    SimReplay,
+    load_recording,
+)

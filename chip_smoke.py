@@ -112,7 +112,11 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
 12. FAS kernels: ``csrc/lon_dp.cu`` (every backward slice of a seeded
    demo-width solve and of each loop's first solve, A=20 and A=7: the
    chosen jerks as indices on all but 0.1 % of the nodes, the values to
-   the stated tolerance; the forward and reeval passes), ``csrc/poly_lat.cu``
+   the stated tolerance, and every slice bit for bit against the plain
+   version on the CPU; the slice's block plan, a "plan" line: s rows a
+   block, the largest box's bytes (``lon_kernel.box_bytes``), shared
+   memory, threads, blocks, registers; the forward and reeval passes),
+   ``csrc/poly_lat.cu``
    (the sweep seeded at 1 x 20 and 21 x 13 and each loop's, 1 x 20 and
    21 x 13; the selection on both loops' maps and 20 seeded ones) and the
    start mode of ``csrc/rstp_rampify.cu`` (seeded, and each loop's at its
@@ -200,9 +204,12 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    one, a warm-started two-round solve, a reference that ends inside the
    horizon) and on the three recorded loop solves: x, u, lam to 1e-9 (atol +
    rtol), equal mu_step and iterations; prints the largest differences;
-   times the straight case and the first loop solve through the bare
-   launcher and the wrapper in turns, the plain version, ``bound_ms`` and
-   ``chain_ms``;
+   the profiling instantiation bit-equal on every case, a "phases" line
+   for the straight case and the first loop solve; times those two
+   through the bare launcher and the wrapper in turns, the plain version,
+   ``bound_ms`` and ``chain_ms``; the loop's first solve, median and max
+   (the wrapper binds the library with its code loaded and its
+   shared-memory limit set, so the first launch waits on neither);
 20. ``python -m tpl_tpu_torch.simulation.tplsim run --scenario
    demo/country_follow --headless --no-reload --max-ticks 400`` on the card
    as a child process: exit code 0 (zero rule violations) and its summary;
@@ -239,16 +246,21 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
 With ``--parent-csrc DIR`` (a directory holding another version of any of
 the kernel sources ``latlon_action_min.cu``, ``ilqr_tracking_mpc.cu``,
 ``ilqr_rstp.cu``, ``rstp_rampify.cu``, ``idm_rollout.cu``,
-``idm_evaluate.cu`` and the headers they include, for example ``git show``
-of an earlier commit's; may be given more than once) the kernel phases
-also build that version with the same flags, run both on the same inputs
-through the bare launchers in turns (other, tree, tree, other) and print
-the largest difference of the results and the four times; for the
-action-min, the rampify scan, the two IDM kernels (the IDM kernels on
-the JAX bench's scene, the loop's first replan, the seeded scenes and the
-hairpin; the evaluation of the tree's rollout) and the tracking MPC's
-single solve and its profiling instantiation a difference other than 0.0
-raises.  The batched tracking MPC is held to the other version's batched
+``idm_evaluate.cu``, ``ilqr_tracking_mpc_time.cu``, ``lon_dp.cu`` and the
+headers they include, for example ``git show`` of an earlier commit's; may
+be given more than once) the kernel phases also build that version with
+the same flags, run both on the same inputs through the bare launchers in
+turns (other, tree, tree, other) and print the largest difference of the
+results and the four times; for the action-min, the rampify scan, the two
+IDM kernels (the IDM kernels on the JAX bench's scene, the loop's first
+replan, the seeded scenes and the hairpin; the evaluation of the tree's
+rollout), the tracking MPC's single solve and its profiling
+instantiation, the time-indexed MPC (every seeded and recorded solve) and
+the lon backward slice (every slice of the seeded, FAS-loop and
+lattice-loop solves; a source of the earlier one-thread-a-node launcher
+is recognised) a difference other than 0.0 raises; a time-MPC source that
+exports ``ilqr_tracking_mpc_time_profile`` also prints its "phases"
+lines.  The batched tracking MPC is held to the other version's batched
 entry (a grid of one block per scenario where the source predates the
 persistent kernel) on the bench's batch, near the course and on seeded
 warm starts at every size of BATCH_SIZES, both precisions: every
@@ -257,8 +269,11 @@ rampify source of the earlier one-buffer launcher is recognised, and if it
 exports ``rstp_rampify_profile`` with stamps after its staging, backward
 scan, forward scan and write-out, its "phases" lines are printed too.
 
-With ``--kernels-only`` the run stops after phase 2 and the rampify part
-of phase 8 on seeded inputs: no loop is driven and no result line printed.
+With ``--kernels-only`` the run stops after phase 2, the rampify part of
+phase 8, the time-indexed MPC's seeded cases (checked, profiled, against
+``--parent-csrc``) and every backward slice of the seeded demo-width lon
+solve and of ``scenes.LON_EDGE``'s grids (bit for bit on the CPU, against
+``--parent-csrc``): no loop is driven and no result line printed.
 
 With ``--host-profile TICKS`` the run builds, then drives the vendored RSTP
 loop on ``demo/country_follow`` for TICKS ticks under ``cProfile`` twice,
@@ -1042,6 +1057,33 @@ def closed_loop_phase(lam, itm):
                 replans=len(replan_ms), picked=rec["picked"], err=err)
 
 
+def graph_ms(launch, n=50, reps=10):
+    """Mean device ms per launch of ``launch(stream)`` (it launches one
+    kernel on the CUDA stream handle ``stream``), replayed from a CUDA graph
+    of ``n`` launches, so that the host's launch rate does not bound a
+    short kernel."""
+    import torch
+
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        launch(side.cuda_stream)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(n):
+            launch(stream)
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (n * reps)
+
+
 def in_turns(old, new, n):
     """Mean ms of old() and new() by CUDA events, run old, new, new, old;
     returns ((old ms, old ms), (new ms, new ms))."""
@@ -1058,7 +1100,8 @@ def parents_with(dirs, source):
             if os.path.isfile(os.path.join(d, source + ".cu"))]
 
 
-def compare_with_parent(source, lib_fn, csrc, cases, n=30):
+def compare_with_parent(source, lib_fn, csrc, cases, n=30, times=None,
+                        argtypes=None):
     """Holds the tree's launcher ``lib_fn`` of ``<source>.cu`` against the
     same launcher of another version of that source, built from the
     directory ``csrc`` with the port's flags.  ``cases`` are (what, like,
@@ -1067,15 +1110,17 @@ def compare_with_parent(source, lib_fn, csrc, cases, n=30):
     code; ``parent_call`` does so for a parent whose launcher reads its
     arguments another way.  Both go through the bare launcher into
     buffers made once, so that the wrapper's host work is in neither time.
-    Prints the largest difference of the results and the times in turns;
-    returns the parent's library."""
+    Prints the largest difference of the results and the times in turns
+    (into ``times[what]`` as (parent, new, new, parent) ms where given);
+    ``argtypes``, where given, are the parent launcher's (else the tree's).
+    Returns the parent's library."""
     import torch
     from tpl_tpu_torch import _build
 
     parent_lib = _build.load(source, csrc)
     parent = getattr(parent_lib, lib_fn.__name__)
     parent.restype = lib_fn.restype
-    parent.argtypes = lib_fn.argtypes
+    parent.argtypes = argtypes or lib_fn.argtypes
     fns = (parent, lib_fn)
     for what, like, *calls in cases:
         outs = [torch.empty_like(like) for _ in fns]
@@ -1087,14 +1132,19 @@ def compare_with_parent(source, lib_fn, csrc, cases, n=30):
 
         launch(0), launch(1)
         torch.cuda.synchronize()
-        diff = float((outs[1] - outs[0]).abs().max())
+        diff = 0.0 if torch.equal(outs[0], outs[1]) else float(
+            (outs[1] - outs[0]).abs().nan_to_num(float("inf")).max())
         (a, d), (b, c) = in_turns(lambda: launch(0), lambda: launch(1), n)
         print(f"{source} {what} vs the source in {csrc}: max |new - parent| "
               f"{diff:.3e}; ms per launch parent {a:.4f}, new {b:.4f}, new "
               f"{c:.4f}, parent {d:.4f}")
+        if times is not None:
+            times[what] = (a, b, c, d)
         if not diff == 0.0 and source in ("rstp_rampify", "latlon_action_min",
                                           "idm_rollout", "idm_evaluate",
-                                          "ilqr_tracking_mpc"):
+                                          "ilqr_tracking_mpc",
+                                          "ilqr_tracking_mpc_time",
+                                          "lon_dp"):
             raise AssertionError(f"{source} {what}: the result differs from "
                                  "the parent kernel's")
     return parent_lib
@@ -2385,7 +2435,137 @@ def lon_check(got, want, what):
     return float(torch.max(torch.abs(got - want)[keep])), share
 
 
-def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz):
+def lon_bits_on_cpu(tlk, cases, what):
+    """Every backward slice of ``cases`` (the wrapper's arguments) through
+    the kernel, bit for bit against the plain version on the CPU."""
+    import torch
+
+    for a in cases:
+        cpu = tuple(x.cpu() if torch.is_tensor(x) else x for x in a)
+        if not torch.equal(tlk.backward_slice_reference(*cpu),
+                           tlk.backward_slice(*a).cpu()):
+            raise AssertionError(f"lon_dp_backward {what} slice {a[4]}: "
+                                 "kernel and plain version on the CPU differ")
+
+
+def lon_plan_line(tlk, pp, S, V, A, P, what):
+    """Prints the backward kernel's plan for the parameters ``pp`` (a CUDA
+    tensor) at S x V x A over a path of P rows: the tile, the largest box's
+    bytes (``tlk.box_bytes``), the threads and blocks, shared memory,
+    registers; returns it as a dict."""
+    import torch
+
+    tile, cap = tlk._plan(pp, S, V, A, P)
+    host = pp.cpu().numpy()
+    sms = torch.cuda.get_device_properties(pp.device).multi_processor_count
+    n_tiles = -(-S // tile)
+    plan = dict(tile=tile, box_cap=cap,
+                box_bytes=tlk.box_bytes(host, S, V, A, tile),
+                threads=tlk.backward_threads(A, tile),
+                blocks=V * n_tiles,
+                smem_bytes=tlk.backward_smem_bytes(A, tile, P, cap),
+                registers=ptxas_usage("lon_dp")[0])
+    print(f"lon_dp_backward plan, {what} ({S} x {V} x {A}): {tile} s rows a "
+          f"block, the largest box {plan['box_bytes']} B "
+          f"(tlk.box_bytes), {plan['smem_bytes']} B of shared memory, "
+          f"{plan['threads']} threads, {plan['blocks']} blocks on {sms} "
+          f"SMs, {plan['registers']} registers a thread (ptxas)")
+    return plan
+
+
+def lon_parent_check(tlk, cases, dev, parent_csrc, timed):
+    """With ``parent_csrc``: the backward slice of another version of
+    ``lon_dp.cu`` (the earlier launcher, one thread a node, or this one's)
+    against the tree's on every case ((what, the wrapper's arguments)),
+    every bit (a difference raises); the times in turns through the bare
+    launchers and, since a slice takes about as long as the host takes to
+    launch it, from CUDA graphs (``graph_ms``, parent, tree, tree, parent)
+    printed for each case.  Returns {"events": (parent, new, new, parent)
+    ms, "graph": the same from graphs} of the case ``timed`` for the first
+    parent, or None."""
+    import ctypes
+    import torch
+    from tpl_tpu_torch import _build
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = tlk._kernel()
+    times, graphs = {}, {}
+    for k, csrc in enumerate(parents_with(parent_csrc, "lon_dp")):
+        with open(os.path.join(csrc, "lon_dp.cu")) as f:
+            old = "int tile, int box_cap" not in f.read()
+
+        def launcher(fn, out, a, parent):
+            nxt, pp, path, dist, t_idx, last = a
+            S, V, A = nxt.shape[:3]
+            head = (nxt.data_ptr(), pp.data_ptr(), path.data_ptr(),
+                    dist.data_ptr(), out.data_ptr(), S, V, A, path.shape[0],
+                    int(t_idx), int(bool(last)))
+            tail = () if parent and old else tlk._plan(pp, S, V, A,
+                                                       path.shape[0])
+            return lambda s: fn(*head, *tail, s)
+
+        compare_with_parent(
+            "lon_dp", lib.lon_dp_backward, csrc,
+            [(what, a[0],
+              lambda fn, out, a=a: launcher(fn, out, a, False)(stream),
+              lambda fn, out, a=a: launcher(fn, out, a, True)(stream))
+             for what, a in cases],
+            n=100, times=times if k == 0 else None,
+            argtypes=([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p]) if old else None)
+        parent = getattr(_build.load("lon_dp", csrc), "lon_dp_backward")
+        for what, a in cases:
+            outs = [torch.empty_like(a[0]) for _ in range(2)]
+            fns = [launcher(parent, outs[0], a, True),
+                   launcher(lib.lon_dp_backward, outs[1], a, False)]
+
+            def checked(i):
+                def run(s):
+                    if fns[i](s):
+                        raise RuntimeError("lon_dp_backward launch failed")
+                return run
+
+            t = (graph_ms(checked(0)), graph_ms(checked(1)),
+                 graph_ms(checked(1)), graph_ms(checked(0)))
+            if k == 0:
+                graphs[what] = t
+            print(f"lon_dp {what} vs the source in {csrc}, from CUDA graphs: "
+                  f"ms per launch parent {t[0]:.4f}, new {t[1]:.4f}, new "
+                  f"{t[2]:.4f}, parent {t[3]:.4f}")
+    if timed not in times:
+        return None
+    return {"events": times[timed], "graph": graphs[timed]}
+
+
+def lon_seeded_phase(tlk, dev, parent_csrc=None):
+    """``--kernels-only``: every backward slice of a seeded solve at the
+    demo width (lon T=10, S=201, V=37, A=20, P=200) and of the edge grids
+    of ``scenes.LON_EDGE``, from the plain next slice, bit for bit against
+    the plain version on the CPU and (with ``parent_csrc``) against
+    another version's kernel, timed in turns."""
+    import torch
+    from tpl_tpu_torch.scenes import LON_DEMO, LON_EDGE, lon_nodes, lon_scene
+
+    on = lambda *a: tuple(torch.as_tensor(np.asarray(x)).to(dev) for x in a)
+    grids = [("demo", tuple(LON_DEMO[k] for k in "TSVAP"), 5, True)]
+    grids += [(f"edge {g}", g, 3, False) for g in LON_EDGE]
+    cases = []
+    for what, (T, S, V, A, P), seed, demo in grids:
+        pp, path, dist, _ = lon_scene(S, V, A, P, T, seed, demo=demo)
+        args = on(pp, path, dist)
+        nodes = lon_nodes(pp, path, dist, T, S, V, A, dev=dev)
+        slices = [(nodes[min(i + 1, T - 1)],) + args + (i, i == T - 1)
+                  for i in range(T - 1, 0, -1)]
+        lon_bits_on_cpu(tlk, slices, what)
+        lon_plan_line(tlk, args[0], S, V, A, P, what)
+        print(f"lon_dp_backward {what}: {len(slices)} slices bit-equal to "
+              "the plain version on the CPU")
+        cases += [(f"{what} slice {a[4]}", a) for a in slices]
+    lon_parent_check(tlk, cases, dev, parent_csrc, cases[1][0])
+
+
+def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
+                     parent_csrc=None):
     """The chain's kernels against their plain versions on the card, on
     seeded inputs at the demo width (lon T=10, S=201, V=37, A=20, P=200;
     the sweep at 1 x 20 and 21 x 13) and on the recorded inputs of each
@@ -2434,17 +2614,13 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz):
                                  f"{loop} slice {a[4]}")
             note("lon_dp_backward", key(loop), e)
             note("lon_dp_backward", key(loop, "share"), share)
-        # the first slice after the final one, bit for bit on the CPU
-        a = cases[1]
-        if not torch.equal(tlk.backward_slice_reference(*cpu(a)),
-                           tlk.backward_slice(*a).cpu()):
-            raise AssertionError(f"lon_dp_backward {loop} slice {a[4]}: "
-                                 "kernel and plain version on the CPU differ")
+        # every slice bit for bit against the plain version on the CPU
+        lon_bits_on_cpu(tlk, cases, loop)
         r = res["lon_dp_backward"]
         print(f"lon_dp_backward check, {loop}: {len(cases)} slices at "
               f"{tuple(cases[0][0].shape[:3])}: max|kernel-plain| "
               f"{r[key(loop)]:.3e}, jerks differ on at most "
-              f"{r[key(loop, 'share')]:.2e} of nodes; slice {a[4]} "
+              f"{r[key(loop, 'share')]:.2e} of nodes; every slice "
               f"bit-equal to the plain version on the CPU")
     nxt, pp_r, path_r, dist_r, t_idx, _ = recs["fas"]["lon_dp_backward"][1]
     Tr = dist_r.shape[0]
@@ -2452,16 +2628,38 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz):
     Pr = path_r.shape[0]
     out = torch.empty_like(nxt)
     lib = tlk._kernel()
+    plan = lon_plan_line(tlk, pp_r, Sr, Vr, Ar, Pr, "FAS loop")
     ms, wrapper_ms = launcher_times(
         "lon_dp_backward", f"FAS loop slice {t_idx} ({Sr} x {Vr} x {Ar})",
         lambda: lib.lon_dp_backward(nxt.data_ptr(), pp_r.data_ptr(),
                                     path_r.data_ptr(), dist_r.data_ptr(),
                                     out.data_ptr(), Sr, Vr, Ar, Pr, t_idx, 0,
-                                    stream),
+                                    plan["tile"], plan["box_cap"], stream),
         lambda: tlk.backward_slice(nxt, pp_r, path_r, dist_r, t_idx, False,
                                    out=out), 100)
     lat_a = recs["lattice"]["lon_dp_backward"][1]
+    lon_plan_line(tlk, lat_a[1], *lat_a[0].shape[:3], lat_a[2].shape[0],
+                  "lattice loop")
+    lon_graph = {}
+    for loop, a in (("fas", recs["fas"]["lon_dp_backward"][1]),
+                    ("lattice", lat_a)):
+        nxt_g, pp_g, path_g, dist_g, t_g, last_g = a
+        out_g = torch.empty_like(nxt_g)
+        head = (nxt_g.data_ptr(), pp_g.data_ptr(), path_g.data_ptr(),
+                dist_g.data_ptr(), out_g.data_ptr(), *nxt_g.shape[:3],
+                path_g.shape[0], int(t_g), int(bool(last_g)),
+                *tlk._plan(pp_g, *nxt_g.shape[:3], path_g.shape[0]))
+        lon_graph[loop] = graph_ms(lambda s: lib.lon_dp_backward(*head, s))
+    print(f"lon_dp_backward from CUDA graphs (device time a launch): FAS "
+          f"loop slice {t_idx} {lon_graph['fas']:.4f} ms, lattice loop "
+          f"slice {lat_a[4]} {lon_graph['lattice']:.4f} ms")
+    parent = lon_parent_check(
+        tlk, [(f"{loop} slice {a[4]}", a) for loop, cases in slices.items()
+              for a in cases], dev, parent_csrc,
+        f"fas slice {t_idx}")
     res["lon_dp_backward"].update(
+        plan=plan, parent=parent, graph_ms=lon_graph["fas"],
+        lattice_graph_ms=lon_graph["lattice"],
         ms=ms, wrapper_ms=wrapper_ms,
         plain_ms=cuda_ms(lambda: tlk.backward_slice_reference(
             nxt, pp_r, path_r, dist_r, t_idx, False), 3),
@@ -3647,8 +3845,11 @@ def controller_loop_phase(itt, itm, rstp, rmp, name, ticks):
           f"it drove: median {np.median(driven_ms):.3f}, max "
           f"{np.max(driven_ms):.3f}; per-tick total wall ms: median "
           f"{np.median(tick_ms):.3f}, max {np.max(tick_ms):.3f}")
+    solve_ms = [a.elapsed_time(b) for a, b in rec["events"]]
     return dict(launches=launches, picked=rec["picked"],
-                control_ms=driven_ms, ticks=ticks)
+                control_ms=driven_ms, ticks=ticks,
+                solve_ms=dict(first=solve_ms[0], median=np.median(solve_ms),
+                              max=max(solve_ms)) if solve_ms else None)
 
 
 def compare_time_solves(itt, got, want, H, what):
@@ -3675,20 +3876,28 @@ def compare_time_solves(itt, got, want, H, what):
     return max(d["x"], d["u"]), a
 
 
-def mpc_time_phase(itt, scenes, picked, dev, cycles, mhz):
+def mpc_time_phase(itt, scenes, picked, dev, cycles, mhz, parent_csrc=None):
     """The time-indexed MPC kernel against the plain ``make_update_fn`` on
     the card, float64: on the seeded cases of ``scenes.mpc_time_case`` (a
     straight reference at UTM magnitude, a curved one, a warm-started
     two-round solve, a reference that ends inside the horizon) and on the
-    warm-started solves recorded in the time MPC's loop; times through the
-    bare launcher and the wrapper in turns and the plain version, with
-    ``bound_ms`` and ``chain_ms`` at the timed solves' iteration counts."""
+    warm-started solves recorded in the time MPC's loop; the profiling
+    instantiation and (with ``parent_csrc``) another version of the source
+    on every case (``mpc_time_kernel_checks``); times through the bare
+    launcher and the wrapper in turns and the plain version, with
+    ``bound_ms`` and ``chain_ms`` at the timed solves' iteration counts.
+    Without ``picked`` (``--kernels-only``) the seeded cases alone, checked
+    and profiled, and no times."""
     import torch
 
     cases = []
     for kind in scenes.MPC_TIME_KINDS:
         host, args = scenes.mpc_time_case(kind)
         cases.append((kind, torch.from_numpy(host).to(dev), args))
+    if not picked:
+        mpc_time_kernel_checks(itt, cases, dev, mhz, parent_csrc,
+                               [w for w, _, _ in cases])
+        return None
     if len(picked) != len(RECORD_TIME_SOLVES):
         raise AssertionError(f"recorded {len(picked)} time-MPC loop solves")
     cases += picked
@@ -3703,10 +3912,13 @@ def mpc_time_phase(itt, scenes, picked, dev, cycles, mhz):
         max_err = max(max_err, err)
         iterations[what] = res["iterations"]
 
+    loop_case = cases[len(scenes.MPC_TIME_KINDS)]
+    phases, parent = mpc_time_kernel_checks(itt, cases, dev, mhz, parent_csrc,
+                                            (cases[0][0], loop_case[0]))
     times = {}
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib_fn = itt._kernel().ilqr_tracking_mpc_time
-    for what, buf, args in (cases[0], cases[len(scenes.MPC_TIME_KINDS)]):
+    for what, buf, args in (cases[0], loop_case):
         out = torch.empty_like(itt.update(buf, *args))
         ms, wrapper_ms = launcher_times(
             "ilqr_tracking_mpc_time", what,
@@ -3717,13 +3929,79 @@ def mpc_time_phase(itt, scenes, picked, dev, cycles, mhz):
         bound = itt.bound_ms(MPC_TIME_H, 128, MPC_TIME_T, its)
         chain = itt.chain_ms(MPC_TIME_H, MPC_TIME_T, its, cycles, mhz)
         times[what] = dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                           bound=bound, chain=chain, iterations=its)
+                           bound=bound, chain=chain, iterations=its,
+                           phases_us=phases[what], parent=parent.get(what))
         print(f"ilqr_tracking_mpc_time {what} at H={MPC_TIME_H}, "
               f"T={MPC_TIME_T}, {its} iterations: kernel {ms:.4f} ms "
               f"(wrapper {wrapper_ms:.4f}), plain {plain_ms:.4f} ms; "
               f"bound_ms {bound[0]:.6f} ({bound[1]}), chain_ms {chain:.4f}")
-    return dict(err=max_err, times=times,
-                loop=times[cases[len(scenes.MPC_TIME_KINDS)][0]])
+    return dict(err=max_err, times=times, loop=times[loop_case[0]])
+
+
+def mpc_time_kernel_checks(itt, cases, dev, mhz, parent_csrc, profiled):
+    """The time-indexed MPC's profiling instantiation on ``cases`` ((what,
+    packed input, args)): bit-equal to the plain instantiation (a
+    difference raises), a "phases" line for each case named in
+    ``profiled``; and (with ``parent_csrc``) the bare launcher against
+    another version's on every case, every bit (a difference raises), in
+    turns, with that version's "phases" lines where it has a profiling
+    entry.  Returns ({what: us by phase}, {what: (parent, new, new, parent)
+    ms} of the first parent)."""
+    import ctypes
+    import torch
+    from tpl_tpu_torch import _build
+    from tpl_tpu_torch.optim import ilqr
+
+    phases = {}
+    for what, buf, args in cases:
+        got = itt.update(buf, *args)
+        prof, cycles = itt.profile(buf, *args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, prof):
+            raise AssertionError(f"{what}: the time MPC's profiling "
+                                 "instantiation's result differs")
+        if what in profiled:
+            its = itt.unpack_outputs(got.cpu().numpy(),
+                                     MPC_TIME_H)["iterations"]
+            phases[what] = phase_line("ilqr_tracking_mpc_time", what, ilqr,
+                                      cycles, its, mhz)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = itt._kernel()
+    parent_times = {}
+    for k, csrc in enumerate(parents_with(parent_csrc,
+                                          "ilqr_tracking_mpc_time")):
+        plib = compare_with_parent(
+            "ilqr_tracking_mpc_time", lib.ilqr_tracking_mpc_time, csrc,
+            [(what, itt.update(buf, *args),
+              lambda fn, out, buf=buf, args=args: fn(
+                  buf.data_ptr(), out.data_ptr(), *args, stream))
+             for what, buf, args in cases],
+            times=parent_times if k == 0 else None)
+        if not hasattr(plib, "ilqr_tracking_mpc_time_profile"):
+            continue
+        fn = plib.ilqr_tracking_mpc_time_profile
+        fn.restype = ctypes.c_int
+        fn.argtypes = lib.ilqr_tracking_mpc_time_profile.argtypes
+        _build.prepare(plib, "ilqr_tracking_mpc_time")
+        for what, buf, args in cases:
+            if what not in profiled:
+                continue
+            out = torch.empty_like(itt.update(buf, *args))
+            cyc = torch.zeros(len(ilqr.PHASES), dtype=torch.int64,
+                              device=dev)
+            if fn(buf.data_ptr(), out.data_ptr(), cyc.data_ptr(), *args,
+                  stream):
+                raise RuntimeError("the parent's profiling launch failed")
+            if not torch.equal(out, itt.update(buf, *args)):
+                raise AssertionError(f"{what}: the profiling instantiation "
+                                     f"in {csrc} differs")
+            its = itt.unpack_outputs(out.cpu().numpy(),
+                                     MPC_TIME_H)["iterations"]
+            phase_line("ilqr_tracking_mpc_time", f"{what}, the source in "
+                       f"{csrc}", ilqr, dict(zip(ilqr.PHASES,
+                                                 cyc.cpu().tolist())),
+                       its, mhz)
+    return phases, parent_times
 
 
 def tplsim_phase():
@@ -3845,14 +4123,15 @@ def main(argv=()):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", action="append", metavar="DIR",
                     help="a directory with another version of any of the "
-                    "six kernel sources the phases compare (and the headers "
-                    "they include): "
+                    "eight kernel sources the phases compare (and the "
+                    "headers they include): "
                     "built with the same flags, run in turns with the tree's "
                     "kernels on the same inputs, results and times printed")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="build, probe, then only the action-min and rampify "
-                    "kernel checks and times on seeded inputs; drives no "
-                    "loop and prints no result line")
+                    help="build, probe, then only the action-min, rampify, "
+                    "time-indexed MPC and lon backward-slice kernel checks "
+                    "and times on seeded inputs; drives no loop and prints "
+                    "no result line")
     ap.add_argument("--host-profile", type=int, default=0, metavar="TICKS",
                     help="build, then cProfile TICKS ticks of the vendored "
                     "RSTP loop with the host C routes off and on; prints "
@@ -3923,6 +4202,10 @@ def main(argv=()):
     if opts.kernels_only:
         phase("rampify kernel", rampify_phase, rmp, [], dev, mhz,
               opts.parent_csrc)
+        phase("time-indexed MPC kernel", mpc_time_phase, itt, scenes, [], dev,
+              cycles, mhz, opts.parent_csrc)
+        phase("lon DP backward slice", lon_seeded_phase, tlk, dev,
+              opts.parent_csrc)
         print("kernels only: no loop was driven")
         return 0
     phase("DP slice", slice_phase, lam, tllk)
@@ -3955,7 +4238,7 @@ def main(argv=()):
                     plk, rmp, LATTICE, FAS_TICKS, record=True)
     fk = phase("FAS kernels", fas_kernel_phase, tlk, plk, rmp,
                {"fas": fas["rec"], "lattice": lattice["rec"]}, dev, cycles,
-               mhz)
+               mhz, opts.parent_csrc)
     idm = phase("IDM closed loop, country_overtake", rollout_loop_phase, idk,
                 pok, IDM, ROLLOUT_TICKS)
     poly = phase("poly sampling closed loop, country_follow",
@@ -3972,7 +4255,7 @@ def main(argv=()):
                        itm, rstp, rmp, name, CONTROLLER_TICKS)
            for name in CONTROLLER_JAX_END}
     tk = phase("time-indexed MPC kernel", mpc_time_phase, itt, scenes,
-               ctl[TIME_MPC]["picked"], dev, cycles, mhz)
+               ctl[TIME_MPC]["picked"], dev, cycles, mhz, opts.parent_csrc)
     phase("tplsim run", tplsim_phase)
     phase("record and replay", record_replay_phase)
     if "jax" in sys.modules:
@@ -4114,6 +4397,12 @@ def main(argv=()):
             if k in r:
                 row[out] = r[k]
                 row["lattice_" + out] = r["lattice_" + k]
+        # the backward slice's blocks, its device time from CUDA graphs,
+        # and the other source's times in turns
+        if "plan" in r:
+            row.update(r["plan"], graph_ms=r["graph_ms"],
+                       lattice_graph_ms=r["lattice_graph_ms"],
+                       parent_ms=r["parent"])
         rows.append(row)
     # the rollout planners' kernels: launches on their loops, the checks on
     # the seeded scenes, the loops' first replans and the JAX bench's scenes,
@@ -4171,7 +4460,10 @@ def main(argv=()):
         "wrapper_ms": tl["wrapper_ms"], "plain_ms": tl["plain_ms"],
         "bound_ms": tl["bound"][0], "bound_by": tl["bound"][1],
         "chain_ms": tl["chain"], "library_ms": NO_LIBRARY,
-        "iterations": tl["iterations"],
+        "iterations": tl["iterations"], "phases_us": tl["phases_us"],
+        "parent_ms": tl["parent"],
+        "registers": ptxas_usage("ilqr_tracking_mpc_time")[0],
+        "loop_solve_ms": tloop["solve_ms"],
         "cold_ms": tk["times"]["utm_straight"]["ms"],
         "control_wall_median_ms": {
             n: float(np.median(r["control_ms"])) for n, r in ctl.items()},

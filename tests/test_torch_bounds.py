@@ -19,6 +19,8 @@ from tpl_tpu_torch import _build, _latency
 from tpl_tpu_torch.optim import ilqr, ilqr_rstp, ilqr_tracking_mpc as itm
 from tpl_tpu_torch.optim import ilqr_tracking_mpc_time as itt
 from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
+from tpl_tpu_torch.planning.dyn_prog import lon_kernel as tlk
+from tpl_tpu_torch.scenes import lon_scene
 from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify as rmp
 
 
@@ -99,14 +101,15 @@ def test_mpc_time_bounds_at_the_demo_horizon():
     ms, by = itt.bound_ms(H, n_ref, T, its)
     assert by == "operations"
     assert ms == pytest.approx(679200 / 34e12 * 1e3)
-    # the critical path: 6 rollouts' worth of dynamics (2 a step: tan,
-    # atan, cos, two products, a division), 5 Riccati passes, 6 ordered sums
+    # the critical path: 6 rollouts' worth of dynamics (1 a step: tan,
+    # atan, cos, two products, a division; the second HEUN evaluation's
+    # chain need not wait for the first's), 5 Riccati passes, 6 ordered sums
     ops = itt.chain_ops(H, T, its)
     assert set(ops) <= set(_latency.PROBES)
     assert ops["f64_tan"] == ops["f64_atan"] == ops["f64_cos"] \
-        == 40 * 6 * 2 == 480
-    assert ops["f64_div"] == 40 * (6 * 2 + 5) == 680
-    assert ops["f64_mul"] == 40 * (6 * 4 + 5 * 3 + 2 + 5 * 6) == 2840
+        == 40 * 6 == 240
+    assert ops["f64_div"] == 40 * (6 + 5) == 440
+    assert ops["f64_mul"] == 40 * (6 * 2 + 5 * 3 + 2 + 5 * 6) == 2360
     assert ops["f64_add"] == 40 * (5 * 10 + 3 + 5 * 17 + 6) == 5760
     one = dict.fromkeys(_latency.PROBES, 1.0)
     assert itt.chain_ms(H, T, its, one, 1000) == pytest.approx(
@@ -299,6 +302,52 @@ def test_probe_and_profiles_need_the_card():
         ilqr_rstp.profile("lateral_profile",
                           torch.zeros(n, dtype=torch.float32), 60, 64, 60, 1,
                           1)
+
+
+def test_mpc_time_profile_needs_the_card():
+    """The time MPC's profiling instantiation has no plain version."""
+    n = ilqr.layout(itt.input_layout(60, 128))[1]
+    with pytest.raises(ValueError):
+        itt.profile(torch.zeros(n, dtype=torch.float64), 60, 128, 40, 1, 1, 0)
+
+
+def test_lon_box_bytes_by_hand():
+    """lon_scene's 1 m s cells and 3 m/s v cells at S=23, V=7, A=20, dt = 1,
+    a and jerk in [-2, 2]: the s change v + a / 2 + j / 6 spans v - 4/3 ..
+    v + 4/3, so an inner v's row shifts k span 3i - 2 .. 3i + 1 (4 values);
+    its next v, v + a + j / 2, spans v - 3 .. v + 3, the corners' v rows
+    i - 1 .. i + 2 (4 rows).  A block of 5 s rows then stages 5 + 3 + 1 = 9
+    s rows of 4 v rows x 20 a, a row laid out with the odd stride 81, in
+    three planes of floats; a block of one row 5 rows."""
+    pp, _, _, _ = lon_scene(23, 7, 20, 40, 4, 3)
+    k, y0, y1 = tlk.backward_coords(pp, 23, 7, 20)
+    assert (k[1].min(), k[1].max(), y0[1].min(), y1[1].max()) == (1, 4, 0, 3)
+    assert tlk.box_floats(pp, 23, 7, 20, 5) == 3 * 9 * 81
+    assert tlk.box_bytes(pp, 23, 7, 20, 5) == 4 * 3 * 9 * 81 == 8748
+    assert tlk.box_bytes(pp, 23, 7, 20, 1) == 4 * 3 * 5 * 81
+    # the block's shared memory: its results (a float4 a node), the box
+    # (to 16 bytes), the (a, jerk) table of 64-byte entries, the path's
+    # v_max column (40 rows), three floats an s row and four bounds for each
+    # of up to 12 warps
+    assert tlk.backward_smem_bytes(20, 5, 40, 2187) \
+        == 16 * 5 * 20 + 4 * 2188 + 64 * 20 * 9 + 4 * (40 + 15) + 16 * 12
+    # the plan: 264 // 7 = 37 tiles wanted, so one row a block
+    assert tlk.backward_plan(pp, 23, 7, 20, 40) == (1, 3 * 5 * 81)
+
+
+def test_lon_plan_at_the_demo_grid_and_its_limit():
+    """At the demo grid a 7-tile split (29 s rows, 259 blocks on 132 SMs)
+    lets two blocks share an SM; a grid whose one-row block does not fit a
+    block's shared memory raises, naming it."""
+    pp, _, _, _ = lon_scene(201, 37, 20, 200, 10, 5, demo=True)
+    tile, cap = tlk.backward_plan(pp, 201, 37, 20, 200)
+    assert tile == 29
+    assert tlk.backward_smem_bytes(20, tile, 200, cap) \
+        <= tlk.SM_SMEM // 2 - 1024
+    assert tlk.backward_threads(20, tile) == 384
+    pp, _, _, _ = lon_scene(11, 5, 480, 20, 3, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        tlk.backward_plan(pp, 11, 5, 480, 20)
 
 
 def test_rampify_profile_needs_the_card():

@@ -10,7 +10,8 @@ rtol=1e-6, atol=1e-3; constraint atol=1e-4; trajectory atol=1e-3); the
 float64 iLQR kernel against its plain version x, u atol=1e-6, traj_costs
 rtol=1e-9, mu_step and the iteration count equal; the float64 time-indexed
 MPC kernel x, u, lam atol = rtol = 1e-9, traj_costs rtol=1e-9, mu_step and
-the iteration count equal; the float32 RSTP iLQR
+the iteration count equal, its profiling instantiation bit-equal with phases
+that sum to within 5 % of the launch's time; the float32 RSTP iLQR
 kernel against its plain version x, u, lam atol=2e-2, traj_costs
 rtol=1e-5 (where each solve stops is decided by float32 rounding, see
 RSTP_X_ATOL); the rampify scan bit for bit; the batched tracking-MPC kernel
@@ -33,6 +34,8 @@ planner's directional field cell for cell, its edge evaluation bit for bit
 its propagation's selections, costs and trajectory exactly.
 """
 
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -53,7 +56,8 @@ from tpl_tpu_torch.planning.poly_sampling import poly_kernel as pok
 from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner as psp
 from tpl_tpu_torch.planning.dyn_prog import dp_environment as dpe
 from tpl_tpu_torch.planning.dyn_prog import poly_planner_kernel as ppk
-from tpl_tpu_torch.scenes import (LON_DEMO, MPC_TIME_KINDS, dp_poly_buffers,
+from tpl_tpu_torch.scenes import (LON_DEMO, LON_EDGE, MPC_TIME_KINDS,
+                                  dp_poly_buffers,
                                   dp_poly_env, dp_poly_propagation_case,
                                   dp_random_occ,
                                   idm_args, idm_bench_scene,
@@ -431,6 +435,44 @@ def test_mpc_time_solver_launches_kernel_once_per_update(cuda, monkeypatch):
         for s in sides:
             s.shift(1)
             s.x[0] = s.x[0] + np.array([0.0, 0.01, 0.0, 0.0, 0.02, 0.0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MPC_TIME_KINDS)
+def test_mpc_time_profile_is_bit_equal_and_covers_the_solve(cuda, kind):
+    """The profiling instantiation returns the plain instantiation's bits,
+    and its phases' cycles, at the SM clock read under load, sum to within
+    5 % of the launch's time by CUDA events: no stretch of the solve falls
+    outside a phase."""
+    host, args = mpc_time_case(kind)
+    buf = torch.from_numpy(host).to(cuda)
+    got = itt.update(buf, *args)
+    prof, cycles = itt.profile(buf, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, prof)
+    assert set(cycles) == set(ilqr.PHASES) and min(cycles.values()) > 0
+    cyc = torch.zeros(len(ilqr.PHASES), dtype=torch.int64, device=cuda)
+    for _ in range(200):                 # keep the card busy for the read
+        itt.launch(buf, *args, cycles=cyc)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits", f"--id={cuda.index or 0}"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    n = 20
+    for _ in range(5):                   # the queue runs ahead of the card
+        itt.launch(buf, *args, cycles=cyc)
+    ev[0].record()
+    for _ in range(n):
+        itt.launch(buf, *args, cycles=cyc)
+    ev[1].record()
+    torch.cuda.synchronize()
+    launch_us = ev[0].elapsed_time(ev[1]) * 1e3 / n
+    # the cycles of the last of those launches, at the clock read under load
+    phases_us = float(cyc.sum()) / mhz
+    assert abs(phases_us - launch_us) <= 0.05 * launch_us, \
+        (phases_us, launch_us, mhz)
 
 
 @pytest.mark.cuda
@@ -971,6 +1013,39 @@ def test_lon_backward_kernel_matches_plain_bit_for_bit(cuda):
         assert tlk.backward_launches == before + 1
         assert torch.equal(got.cpu(), nodes[i]), f"slice {i}"
     assert (nodes[1:T - 1, ..., 1] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", LON_EDGE)
+def test_lon_backward_kernel_edge_grids_bit_for_bit(cuda, grid):
+    """Every slice of the edge grids of ``scenes.LON_EDGE`` (the fastest v
+    shifts past the last s row, the next v and a clamp at both ends, tiles
+    that do not divide S) bit for bit against the plain version on the
+    CPU, one launch each."""
+    T, S, V, A, P = grid
+    pp, path, dist, _ = lon_scene(S, V, A, P, T, 3)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    args = _on(cuda, pp, path, dist)
+    for i in range(T - 1, 0, -1):
+        before = tlk.backward_launches
+        got = tlk.backward_slice(nodes[min(i + 1, T - 1)].to(cuda), *args, i,
+                                 i == T - 1)
+        torch.cuda.synchronize()
+        assert tlk.backward_launches == before + 1
+        assert torch.equal(got.cpu(), nodes[i]), f"slice {i}"
+
+
+@pytest.mark.cuda
+def test_lon_backward_box_limit_raises_before_launch(cuda):
+    """A grid whose one-row block does not fit a block's shared memory
+    raises, naming the limit, and launches nothing."""
+    T, S, V, A, P = 3, 11, 5, 480, 20
+    pp, path, dist, _ = lon_scene(S, V, A, P, T, 3)
+    nxt = torch.zeros((S, V, A, 4), dtype=torch.float32, device=cuda)
+    before = tlk.backward_launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tlk.backward_slice(nxt, *_on(cuda, pp, path, dist), 1, False)
+    assert tlk.backward_launches == before
 
 
 @pytest.mark.cuda

@@ -29,7 +29,8 @@ one after the other:
 - the time-indexed tracking-MPC kernel (``ilqr_tracking_mpc_time.cu``) on
   the seeded cases of ``scenes.mpc_time_case``: cold on a straight
   reference at UTM magnitude and on a curved one, warm-started for two
-  multiplier rounds, and on a reference that ends inside the horizon,
+  multiplier rounds, and on a reference that ends inside the horizon
+  (its profiling instantiation bit-equal on each),
 - the RSTP kernel's template instantiated in double on a lateral and a
   velocity problem at H = 250,
 
@@ -46,6 +47,9 @@ RSTP_X_ATOL);
   three grids and at other tile heights,
 - the fused backward slice against ``backward_slice_reference`` on every
   backward slice of a seeded scene,
+- the lon DP's backward slice (a block a v and a tile of s rows, on the
+  launcher's grid) on ``scenes.LON_EDGE``'s grids at tiles that do not
+  divide S,
 
 each **bit for bit** in float32: these kernels keep the plain versions'
 operations and their order; and the graph DP planner's directional field
@@ -185,6 +189,22 @@ inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline int atomicMin(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v < old && !__atomic_compare_exchange_n(p, &old, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+inline int atomicMax(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v > old && !__atomic_compare_exchange_n(p, &old, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
 inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
@@ -219,7 +239,7 @@ namespace ilqr_mpc_time { alignas(16) unsigned char smem_raw[262144]; }
 namespace ilqr_rstp { alignas(16) unsigned char smem_raw[262144]; }
 namespace rstp_rampify { alignas(16) unsigned char smem_raw[65536]; }
 namespace latlon_am { alignas(16) unsigned char smem_raw[262144]; }
-namespace lon_dp { alignas(16) unsigned char smem_raw[4096]; }
+namespace lon_dp { alignas(16) unsigned char smem_raw[262144]; }
 namespace poly_lat { alignas(16) unsigned char smem_raw[65536]; }
 namespace idm_rollout_k { alignas(16) unsigned char smem_raw[262144]; }
 namespace idm_evaluate_k { alignas(16) unsigned char smem_raw[262144]; }
@@ -277,17 +297,18 @@ extern "C" void rehearse_rampify_start(const float* scalars,
   run_block([=] { rstp_rampify_kernel<false>(in, out, nullptr, H, H, true); });
 }
 
+// the backward slice on its launcher's grid: a block a v and `tile` s rows
 extern "C" void rehearse_lon_backward(const float* nodes_next, const float* pp,
                                       const float* path,
                                       const float* dist_path, float* out,
                                       int S, int V, int A, int P, int t_idx,
-                                      int is_last) {
+                                      int is_last, int tile, int box_cap) {
   using namespace lon_dp;
-  run_grid((S * V * A + THREADS - 1) / THREADS, 1, [=] {
+  run_grid(V, (S + tile - 1) / tile, [=] {
     lon_backward_kernel(reinterpret_cast<const float4*>(nodes_next), pp, path,
                         dist_path, reinterpret_cast<float4*>(out), S, V, A, P,
-                        t_idx, is_last != 0);
-  });
+                        t_idx, is_last != 0, tile, box_cap);
+  }, backward_threads(A, tile));
 }
 
 extern "C" void rehearse_lon_forward(const float* nodes, const float* pp,
@@ -487,12 +508,21 @@ extern "C" void rehearse_mpc(const double* in, double* out, long long* prof,
   });
 }
 
-extern "C" void rehearse_mpc_time(const double* in, double* out, int H,
-                                  int n_ref, int T, int max_it, int max_lg,
-                                  int mu_step, int integrator) {
+// the time-indexed MPC's solve, its profiling instantiation when prof is
+// given
+extern "C" void rehearse_mpc_time(const double* in, double* out,
+                                  long long* prof, int H, int n_ref, int T,
+                                  int max_it, int max_lg, int mu_step,
+                                  int integrator) {
+  using namespace ilqr_mpc_time;
   run_block([=] {
-    ilqr_mpc_time::ilqr_tracking_mpc_time_kernel(in, out, H, n_ref, T, max_it,
-                                                 max_lg, mu_step, integrator);
+    if (prof)
+      ilqr_tracking_mpc_time_kernel<true>(in, out, prof, H, n_ref, T, max_it,
+                                          max_lg, mu_step, integrator);
+    else
+      ilqr_tracking_mpc_time_kernel<false>(in, out, nullptr, H, n_ref, T,
+                                           max_it, max_lg, mu_step,
+                                           integrator);
   });
 }
 
@@ -601,7 +631,7 @@ def bodies(tmp_path_factory):
     lib.rehearse_mpc.restype = None
     lib.rehearse_mpc.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
     lib.rehearse_mpc_time.restype = None
-    lib.rehearse_mpc_time.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+    lib.rehearse_mpc_time.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
     lib.ilqr_tracking_mpc_time_smem_bytes.restype = ctypes.c_size_t
     lib.ilqr_tracking_mpc_time_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.rehearse_mpc_batched.restype = ctypes.c_int
@@ -629,7 +659,11 @@ def bodies(tmp_path_factory):
     lib.rehearse_rampify_start.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.rehearse_lon_backward.restype = None
     lib.rehearse_lon_backward.argtypes = ([ctypes.c_void_p] * 5
-                                          + [ctypes.c_int] * 6)
+                                          + [ctypes.c_int] * 8)
+    lib.lon_dp_backward_smem_bytes.restype = ctypes.c_size_t
+    lib.lon_dp_backward_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.lon_dp_backward_threads.restype = ctypes.c_int
+    lib.lon_dp_backward_threads.argtypes = [ctypes.c_int] * 2
     lib.rehearse_lon_forward.restype = None
     lib.rehearse_lon_forward.argtypes = ([ctypes.c_void_p] * 6
                                          + [ctypes.c_int] * 7)
@@ -772,7 +806,7 @@ def test_mpc_time_kernel_body_matches_plain(bodies, kind):
     H, n_ref = args[:2]
     assert bodies.ilqr_tracking_mpc_time_smem_bytes(H, n_ref) <= 227 * 1024
     out = np.zeros(ilqr.layout(itt.output_layout(H))[1])
-    bodies.rehearse_mpc_time(_ptr(host), _ptr(out), *args)
+    bodies.rehearse_mpc_time(_ptr(host), _ptr(out), None, *args)
     want = itt.update_reference(torch.from_numpy(host), *args).numpy()
     got, ref = itt.unpack_outputs(out, H), itt.unpack_outputs(want, H)
     for k in ("x", "u", "lam"):
@@ -784,6 +818,20 @@ def test_mpc_time_kernel_body_matches_plain(bodies, kind):
     assert np.all(np.isfinite(got["x"]))
     if kind == "warm":
         assert np.any(got["lam"] > 0.0)
+
+
+@pytest.mark.parametrize("kind", scenes.MPC_TIME_KINDS)
+def test_mpc_time_profiling_body_is_bit_equal(bodies, kind):
+    """The time-indexed MPC's profiling instantiation returns the bits of
+    the plain instantiation and a count for every phase."""
+    host, args = scenes.mpc_time_case(kind)
+    n = ilqr.layout(itt.output_layout(args[0]))[1]
+    out, prof_out = np.zeros(n), np.zeros(n)
+    prof = np.zeros(len(ilqr.PHASES), np.int64)
+    bodies.rehearse_mpc_time(_ptr(host), _ptr(out), None, *args)
+    bodies.rehearse_mpc_time(_ptr(host), _ptr(prof_out), _ptr(prof), *args)
+    assert np.array_equal(out, prof_out)
+    assert np.all(prof > 0)
 
 
 def mpc_batch(dtype, B=4, T=MPC_H, iterations=8, warm=True):
@@ -1332,12 +1380,13 @@ def test_lon_dp_kernel_bodies_match_plain_bit_for_bit(bodies, S, V, A, P, T):
     the reeval pass against the plain versions."""
     pp, path, dist, x0 = lon_scene(S, V, A, P, T, S + A)
     nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    tile, cap = tlk.backward_plan(pp, S, V, A, P)
     for i in range(T - 1, 0, -1):
         nxt = nodes[min(i + 1, T - 1)].numpy()
         out = np.full((S, V, A, 4), -7.0, np.float32)
         bodies.rehearse_lon_backward(_ptr(nxt), _ptr(pp), _ptr(path),
                                      _ptr(dist), _ptr(out), S, V, A, P, i,
-                                     int(i == T - 1))
+                                     int(i == T - 1), tile, cap)
         np.testing.assert_array_equal(out, nodes[i].numpy(),
                                       err_msg=f"slice {i}")
     # the constraint channel is in play: some nodes are infeasible
@@ -1361,6 +1410,53 @@ def test_lon_dp_kernel_bodies_match_plain_bit_for_bit(bodies, S, V, A, P, T):
                                 _ptr(dist), _ptr(traj), _ptr(out_r), T, S, V,
                                 A, P, len(traj), 1)
     np.testing.assert_array_equal(out_r, want_r)
+
+
+@pytest.mark.parametrize("grid", scenes.LON_EDGE)
+def test_lon_backward_body_edge_grids_bit_for_bit(bodies, grid):
+    """The staged-box backward body on the edge grids of
+    ``scenes.LON_EDGE``: every slice bit for bit against
+    ``backward_slice_reference`` at tiles that do not divide S, where the
+    fastest v shifts past the last s row and the next v and a clamp at both
+    ends of V and A; the host's shared-memory formula is the body's; a box
+    one node short of the largest makes a block write NaN, not a wrong
+    value."""
+    T, S, V, A, P = grid
+    pp, path, dist, _ = lon_scene(S, V, A, P, T, 3)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    k, _, _ = tlk.backward_coords(pp, S, V, A)
+    p = {key: float(x) for key, x in zip(tlk.LON_PP_KEYS, pp)}
+    v = np.linspace(p["v_min"], p["v_max"], V)[:, None, None]
+    a = np.linspace(p["a_min"], p["a_max"], A)[None, :, None]
+    j = np.linspace(p["j_min"], p["j_max"], tlk.NB)[None, None, :]
+    vn = v + a * p["dt"] + 0.5 * j * p["dt"] ** 2
+    an = a + j * p["dt"]
+    assert k.max() > S // 2
+    assert vn.min() < p["v_min"] and vn.max() > p["v_max"]
+    assert an.min() < p["a_min"] and an.max() > p["a_max"]
+
+    def run(i, tile, cap):
+        out = np.full((S, V, A, 4), -7.0, np.float32)
+        bodies.rehearse_lon_backward(
+            _ptr(nodes[min(i + 1, T - 1)].numpy()), _ptr(pp), _ptr(path),
+            _ptr(dist), _ptr(out), S, V, A, P, i, int(i == T - 1), tile, cap)
+        return out
+
+    for tile in (4, 7, S - 1):
+        assert S % tile
+        cap = tlk.box_floats(pp, S, V, A, tile)
+        assert bodies.lon_dp_backward_smem_bytes(A, tile, P, cap) \
+            == tlk.backward_smem_bytes(A, tile, P, cap)
+        assert bodies.lon_dp_backward_threads(A, tile) \
+            == tlk.backward_threads(A, tile)
+        for i in range(T - 1, 0, -1):
+            np.testing.assert_array_equal(run(i, tile, cap),
+                                          nodes[i].numpy(),
+                                          err_msg=f"tile {tile} slice {i}")
+    out = run(T - 2, 7, tlk.box_floats(pp, S, V, A, 7) - 1)
+    short = np.isnan(out).any(axis=-1)
+    assert short.any()
+    np.testing.assert_array_equal(out[~short], nodes[T - 2].numpy()[~short])
 
 
 @pytest.mark.parametrize("LD,SD,S", [(21, 13, 61), (1, 20, 41), (6, 4, 201)])

@@ -131,6 +131,17 @@ def load(name, csrc=None):
         return lib
 
 
+def prepare(lib, name):
+    """Calls the kernel library's ``<name>_prepare()``: it loads the
+    kernels' code onto the current CUDA device (CUDA loads a module lazily,
+    at its first launch, by default) and sets their shared-memory limits, so
+    that a wrapper that calls it when it binds the library launches at once
+    the first time.  Raises on a CUDA error."""
+    err = getattr(lib, name + "_prepare")()
+    if err != 0:
+        raise RuntimeError(f"{name}_prepare failed: CUDA error {err}")
+
+
 def gxx_path():
     found = shutil.which(os.environ.get("CXX") or "g++")
     if found:

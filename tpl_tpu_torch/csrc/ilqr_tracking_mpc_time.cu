@@ -32,10 +32,24 @@
 //   dynamics' Euler Jacobians (first order), a step a thread;
 // - Riccati backward pass: warp 0 alone, the dot products of 6 described
 //   per lane as offsets and strides, 4 __syncwarp() a step;
-// - line search: warp c rolls candidate alpha = 10^-c on its lane 0, then
-//   its lanes take the candidate's step costs and lane 0 sums them in step
-//   order; the pick, the mu schedule and the stopping test are computed by
-//   every thread from the 8 sums.
+// - line search: a rollout is a chain of 40 HEUN steps, each two dynamics
+//   evaluations of tan, atan, cos, a division and sincos in float64; one
+//   lane a candidate (the earlier design) ran both evaluations' chains one
+//   after the other, 61 us an iteration of the 88.  Now the 16 lanes of a
+//   half-warp roll candidate alpha = 10^-c in lock step on the same
+//   values, warps 0-3 two candidates each, and share the transcendental
+//   calls across their lanes (HeunLanes): a step waits on one chain of
+//   tan, atan, sincos and a division.  Then warp c takes candidate c's
+//   step costs over its lanes and lane 0 sums them in step order; the
+//   pick, the mu schedule and the stopping test are computed by every
+//   thread from the 8 sums.
+//
+// On an NVIDIA H100 80GB HBM3 (700 W, SM 1980 MHz) an iteration at T = 40
+// takes 61 us (derivatives 3, Riccati 21, rollouts 35, costs and pick 3)
+// against the earlier design's 88 (rollouts 62), and a 20-iteration solve
+// 1.228 ms against 1.826, with the same bits (chip_smoke.py --parent-csrc).
+// The PROF = true instantiation also returns thread 0's clock64() cycles
+// per phase; its results are bit-equal.
 //
 // Every sum runs in a fixed order, so the result is deterministic.  The
 // dynamics take atan, tan, sin and cos in float64: the card's libm may part
@@ -665,7 +679,8 @@ __device__ __forceinline__ void eval_dyn(const double* p, const double* x,
   f[5] = u[0];
 }
 
-// one discrete step (ilqr._integrate)
+// one discrete step (ilqr._integrate) of EULER or RK4, on the calling
+// thread (HEUN: HeunLanes below)
 __device__ void integrate(const double* p, const double* x, const double* u,
                           double dt, int integrator, double* xn) {
   double k1[NX], k2[NX], xt[NX];
@@ -673,14 +688,6 @@ __device__ void integrate(const double* p, const double* x, const double* u,
   if (integrator == 0) {            // EULER
 #pragma unroll
     for (int i = 0; i < NX; ++i) xn[i] = x[i] + dt * k1[i];
-    return;
-  }
-  if (integrator == 1) {            // HEUN
-#pragma unroll
-    for (int i = 0; i < NX; ++i) xt[i] = x[i] + dt * k1[i];
-    eval_dyn(p, xt, u, k2);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) xn[i] = x[i] + dt / 2.0 * (k1[i] + k2[i]);
     return;
   }
   double k3[NX], k4[NX];            // RK4
@@ -938,34 +945,140 @@ __device__ void backward_warp(double* sm, const Smem& m, int n, double mu) {
   }
 }
 
+// The lanes that roll one line-search candidate side by side (a group: a
+// warp, or half of one), and the warps that roll the NA candidates.
+constexpr int GROUP = 16;
+constexpr int ROLL_WARPS = NA * GROUP / WARP;
+static_assert(WARP % GROUP == 0 && NA * GROUP % WARP == 0, "groups");
+
+// the value lane `src` of the calling group holds (every lane of the warp
+// calls it)
+__device__ __forceinline__ double group_get(double v, int src) {
+  return __shfl_sync(FULL_MASK, v, src, GROUP);
+}
+
+// the dynamics' scalars, in registers for a rollout
+struct DynScal {
+  double cog, l, v_ch, a_off;
+};
+
+// the yaw rate at speed v from tan(delta) and cos(beta): yaw()'s last
+// operations
+__device__ __forceinline__ double yaw_rate(const DynScal& q, double v,
+                                           double td, double cb) {
+  return ((v * td) * cb) / (q.l * (1.0 + sq(v / q.v_ch)));
+}
+
+// HEUN steps (ilqr._integrate) by the lanes of a group in lock step, on
+// the same x and u.  A slip angle and a yaw rate depend on (delta, v)
+// alone.  A step's second evaluation's (delta, v) = (x[3] + dt * u[1], x[4]
+// + dt * (x[5] + a_offset)) and the next step's first, (x_next[3],
+// x_next[4]), are known as soon as the step's control is, so a step forms
+// both side by side (odd lanes this step's second evaluation, even lanes
+// the next step's first): the tangents and slip angles, then one sincos()
+// call on lanes 0-3 for both course angles (phi + beta1, phi + dt *
+// phi_dot1 + beta2) and both slip angles' cosines, then the two yaw rates.
+// So a step waits on one chain of tan, atan, sincos and a division.  Every
+// value is the one the plain HEUN step (ilqr._integrate: two eval_dyn())
+// forms, from the same operations (sincos() returns the bits of sin() and
+// cos(); csrc/latency_probe.cu counts the arguments at which they part).
+struct HeunLanes {
+  DynScal q;
+  double dt;
+  double beta1, pd1;          // this step's first evaluation
+
+  __device__ __forceinline__ HeunLanes(const double* p, double dt_)
+      : q{p[COG_POS], p[L], p[V_CH], p[A_OFFSET]}, dt(dt_) {}
+
+  // step 0's first evaluation, on every lane
+  __device__ __forceinline__ void start(const double* x) {
+    const double td = tan(x[3]);
+    beta1 = atan(td * q.cog);
+    pd1 = yaw_rate(q, x[4], td, cos(beta1));
+  }
+
+  __device__ __forceinline__ void step(const double* x, const double* u,
+                                       double* xn) {
+    const int gl = threadIdx.x & (GROUP - 1);
+    const bool odd = (gl & 1) != 0;
+    const double k1_4 = x[5] + q.a_off;
+    const double xt5 = x[5] + dt * u[0];
+    const double delta2 = x[3] + dt * u[1];
+    const double v2 = x[4] + dt * k1_4;
+    const double delta_n = x[3] + dt / 2.0 * (u[1] + u[1]);
+    const double v_n = x[4] + dt / 2.0 * (k1_4 + (xt5 + q.a_off));
+    const double dl = odd ? delta2 : delta_n, vl = odd ? v2 : v_n;
+    const double td = tan(dl);
+    const double beta = atan(td * q.cog);
+    const double beta2 = group_get(beta, 1), beta_n = group_get(beta, 0);
+    const double phi2 = x[2] + dt * pd1;
+    const int r = gl & 3;
+    double sv, cv;
+    sincos(r == 0 ? x[2] + beta1
+                  : (r == 1 ? phi2 + beta2 : (r == 2 ? beta_n : beta2)),
+           &sv, &cv);
+    const double s1 = group_get(sv, 0), c1 = group_get(cv, 0);
+    const double s2 = group_get(sv, 1), c2 = group_get(cv, 1);
+    const double pd = yaw_rate(q, vl, td, group_get(cv, 2 + (gl & 1)));
+    const double pd2 = group_get(pd, 1), pd_n = group_get(pd, 0);
+    const double k1[NX] = {x[4] * c1, x[4] * s1, pd1, u[1], k1_4, u[0]};
+    double xt[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) xt[i] = x[i] + dt * k1[i];
+    const double k2[NX] = {xt[4] * c2, xt[4] * s2, pd2, u[1],
+                           xt[5] + q.a_off, u[0]};
+#pragma unroll
+    for (int i = 0; i < NX; ++i) xn[i] = x[i] + dt / 2.0 * (k1[i] + k2[i]);
+    beta1 = beta_n;
+    pd1 = pd_n;
+  }
+};
+
 // the open-loop rollout with the current controls (no clamp), frozen
-// beyond T, on the calling thread
+// beyond T, by every lane of the calling warp in lock step (each group
+// alike); lane 0 stores
 __device__ void open_rollout(const Smem& m, int H, int T, int integrator) {
+  const bool lane0 = (threadIdx.x & (WARP - 1)) == 0;
+  HeunLanes heun(m.scal, m.cfg[0]);
   double x[NX], xn[NX];
 #pragma unroll
   for (int i = 0; i < NX; ++i) x[i] = m.xs[i];
+  if (integrator == 1) heun.start(x);
   for (int t = 0; t < H; ++t) {
     if (t < T) {
-      integrate(m.scal, x, m.us + t * NU, m.cfg[0], integrator, xn);
+      double u[NU];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) u[i] = m.us[t * NU + i];
+      if (integrator == 1)
+        heun.step(x, u, xn);
+      else
+        integrate(m.scal, x, u, m.cfg[0], integrator, xn);
 #pragma unroll
       for (int i = 0; i < NX; ++i) x[i] = xn[i];
     }
+    if (lane0)
 #pragma unroll
-    for (int i = 0; i < NX; ++i) m.xs[(t + 1) * NX + i] = x[i];
+      for (int i = 0; i < NX; ++i) m.xs[(t + 1) * NX + i] = x[i];
   }
 }
 
-// candidate c: the closed-loop rollout at alpha_c (ilqr.py fb_rollouts) on
-// the calling thread
+// candidate c: the closed-loop rollout at alpha_c (ilqr.py fb_rollouts) by
+// every lane of the calling group in lock step; the group's lane 0 stores
 __device__ void fb_rollout(const Smem& m, int H, int T, int c,
                            int integrator) {
+  const bool lane0 = (threadIdx.x & (GROUP - 1)) == 0;
   const double dt = m.cfg[0];
   const double alpha = m.alphas[c];
   double* cx = m.cx + (size_t)c * (H + 1) * NX;
   double* cu = m.cu + (size_t)c * H * NU;
+  HeunLanes heun(m.scal, dt);
   double x[NX], u[NU], xn[NX];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) cx[i] = x[i] = m.xs[i];
+  for (int i = 0; i < NX; ++i) x[i] = m.xs[i];
+  if (lane0)
+#pragma unroll
+    for (int i = 0; i < NX; ++i) cx[i] = x[i];
+  if (integrator == 1) heun.start(x);
   for (int t = 0; t < H; ++t) {
     const double* ur = m.us + t * NU;
     if (t < T) {
@@ -980,29 +1093,38 @@ __device__ void fb_rollout(const Smem& m, int H, int T, int c,
         for (int j = 0; j < NX; ++j) s += (x[j] - xr[j]) * K[i * NX + j];
         u[i] = clampd((ur[i] + alpha * k[i]) + s, lim[2 * i], lim[2 * i + 1]);
       }
-      integrate(m.scal, x, u, dt, integrator, xn);
+      if (integrator == 1)
+        heun.step(x, u, xn);
+      else
+        integrate(m.scal, x, u, dt, integrator, xn);
 #pragma unroll
       for (int i = 0; i < NX; ++i) x[i] = xn[i];
     } else {
 #pragma unroll
       for (int i = 0; i < NU; ++i) u[i] = ur[i];
     }
+    if (lane0) {
 #pragma unroll
-    for (int i = 0; i < NU; ++i) cu[t * NU + i] = u[i];
+      for (int i = 0; i < NU; ++i) cu[t * NU + i] = u[i];
 #pragma unroll
-    for (int i = 0; i < NX; ++i) cx[(t + 1) * NX + i] = x[i];
+      for (int i = 0; i < NX; ++i) cx[(t + 1) * NX + i] = x[i];
+    }
   }
 }
 
 // One solve, one block of THREADS threads: the packed input `in`, the
-// packed result `out`, the starting mu_step.
+// packed result `out`, the starting mu_step; PROF = true also stores thread
+// 0's clock64() cycles per phase (ilqr_common::Phase) into prof.
+template <bool PROF>
 __global__ void __launch_bounds__(THREADS)
 ilqr_tracking_mpc_time_kernel(const double* __restrict__ in,
-                              double* __restrict__ out, int H, int n_ref,
-                              int T, int max_it, int max_lg, int mu_step,
-                              int integrator) {
+                              double* __restrict__ out, long long* prof,
+                              int H, int n_ref, int T, int max_it, int max_lg,
+                              int mu_step, int integrator) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* sm = reinterpret_cast<double*>(smem_raw);
+  PhaseClock<PROF> pc;
+  pc.start();
   Smem m;
   carve(sm, H, n_ref, &m);
   const int tid = threadIdx.x;
@@ -1013,7 +1135,8 @@ ilqr_tracking_mpc_time_kernel(const double* __restrict__ in,
   for (size_t i = tid; i < m.in_len; i += blockDim.x) sm[i] = in[i];
   __syncthreads();
   tabulate_refs(m.scal, m.tab, n_ref, m.cfg[0], H, m.ref);
-  if (tid == 0) open_rollout(m, H, T, integrator);
+  pc.stamp(PH_LOAD);
+  if (warp == 0) open_rollout(m, H, T, integrator);
   __syncthreads();
 
   // the initial cost with the OLD multipliers; every thread keeps the
@@ -1026,6 +1149,7 @@ ilqr_tracking_mpc_time_kernel(const double* __restrict__ in,
   double cur = 0.0;
   for (int t = 0; t < Te; ++t) cur += m.cstep[t];
   int ms = mu_step < 0 ? 0 : (mu_step > 7 ? 7 : mu_step), iterations = 0;
+  pc.stamp(PH_INIT);
 
   for (int lg = 0; lg < max_lg; ++lg) {
     // clipped multiplier update on the active steps
@@ -1041,6 +1165,7 @@ ilqr_tracking_mpc_time_kernel(const double* __restrict__ in,
       m.lam[k] = y > m.bw[2 * i + 1] ? m.bw[2 * i + 1] : y;
     }
     __syncthreads();
+    pc.stamp(PH_LAM);
 
     for (int it = 0; it < max_it; ++it) {
       // derivatives of the active steps: warps 0-1 the cost's, warps 2-3
@@ -1055,6 +1180,7 @@ ilqr_tracking_mpc_time_kernel(const double* __restrict__ in,
                     m.der + (size_t)t * ND);
       }
       __syncthreads();
+      pc.stamp(PH_DERIV);
 
       // the backward pass on warp 0; the others zero the gains of the
       // frozen steps
@@ -1068,12 +1194,16 @@ ilqr_tracking_mpc_time_kernel(const double* __restrict__ in,
           m.KK[i] = 0.0;
       }
       __syncthreads();
+      pc.stamp(PH_RICCATI);
 
-      // line search: warp c rolls candidate c out on its lane 0, takes its
-      // step costs over its lanes and sums them in step order
+      // line search: group g of the first ROLL_WARPS warps rolls candidate
+      // g out; then warp c takes candidate c's step costs over its lanes and
+      // sums them in step order
+      if (warp < ROLL_WARPS)
+        fb_rollout(m, H, T, tid / GROUP, integrator);
+      __syncthreads();
+      pc.stamp(PH_ROLLOUT);
       if (warp < NA) {
-        if (lane == 0) fb_rollout(m, H, T, warp, integrator);
-        __syncwarp();
         const double* cx = m.cx + (size_t)warp * (H + 1) * NX;
         const double* cu = m.cu + (size_t)warp * H * NU;
         double* cs = m.cstep + (size_t)warp * H;
@@ -1081,6 +1211,7 @@ ilqr_tracking_mpc_time_kernel(const double* __restrict__ in,
           cs[t] = step_cost(p, m.ref + t * NREF, cx + t * NX, cu + t * NU,
                             m.lam + t * NC, m.bw);
         __syncwarp();
+        pc.stamp(PH_STEP_COST);
         if (lane == 0) {
           double s = 0.0;
           for (int t = 0; t < Te; ++t) s += cs[t];
@@ -1088,6 +1219,7 @@ ilqr_tracking_mpc_time_kernel(const double* __restrict__ in,
         }
       }
       __syncthreads();
+      pc.stamp(PH_COST_SUM);
 
       // the first improving alpha, the mu schedule and the termination
       // test, by every thread; then the accepted candidate's copy
@@ -1114,6 +1246,7 @@ ilqr_tracking_mpc_time_kernel(const double* __restrict__ in,
         for (int i = tid; i < H * NU; i += blockDim.x) m.us[i] = cu[i];
       }
       __syncthreads();
+      pc.stamp(PH_PICK);
       if (rel < m.cfg[1]) break;
     }
   }
@@ -1128,6 +1261,8 @@ ilqr_tracking_mpc_time_kernel(const double* __restrict__ in,
     out[nxo + nuo + nlo + 1] = cur;
     out[nxo + nuo + nlo + 2] = iterations;
   }
+  pc.stamp(PH_STORE);
+  pc.store(prof);
 }
 
 #undef TIME_SD_IJ
@@ -1141,21 +1276,73 @@ extern "C" size_t ilqr_tracking_mpc_time_smem_bytes(int H, int n_ref) {
 }
 
 #ifdef __CUDACC__
+namespace {
+
+// the dynamic shared-memory limit of each instantiation, raised once per
+// device and size (smem_limit.cuh)
+smem_limit::Marks marks[2];
+
+template <bool PROF>
+int launch(const double* in, double* out, long long* prof, int H, int n_ref,
+           int T, int max_it, int max_lg, int mu_step, int integrator,
+           void* stream) {
+  auto kernel = ilqr_mpc_time::ilqr_tracking_mpc_time_kernel<PROF>;
+  const size_t smem = ilqr_tracking_mpc_time_smem_bytes(H, n_ref);
+  cudaError_t err = smem_limit::ensure(kernel, smem, marks[PROF]);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<1, ilqr_common::THREADS, smem, (cudaStream_t)stream>>>(
+      in, out, prof, H, n_ref, T, max_it, max_lg, mu_step, integrator);
+  return (int)cudaGetLastError();
+}
+
+// loads the instantiation's code onto the current device and raises its
+// shared-memory limit to the most a block may use
+template <bool PROF>
+cudaError_t prepare() {
+  auto kernel = ilqr_mpc_time::ilqr_tracking_mpc_time_kernel<PROF>;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int dev = 0, optin = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  return smem_limit::ensure(kernel, (size_t)optin - attr.sharedSizeBytes,
+                            marks[PROF]);
+}
+
+}  // namespace
+
 // One update: `in` the packed input, `out` the packed result (float64, on
-// the current device), one block of ilqr_common::THREADS threads.  The
-// dynamic shared-memory limit is raised once per device and size
-// (smem_limit.cuh).  Returns the CUDA error code.
+// the current device), one block of ilqr_common::THREADS threads.  Returns
+// the CUDA error code.
 extern "C" int ilqr_tracking_mpc_time(const double* in, double* out, int H,
                                       int n_ref, int T, int max_it,
                                       int max_lg, int mu_step, int integrator,
                                       void* stream) {
-  static smem_limit::Marks marks;
-  auto kernel = ilqr_mpc_time::ilqr_tracking_mpc_time_kernel;
-  const size_t smem = ilqr_tracking_mpc_time_smem_bytes(H, n_ref);
-  cudaError_t err = smem_limit::ensure(kernel, smem, marks);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<1, ilqr_common::THREADS, smem, (cudaStream_t)stream>>>(
-      in, out, H, n_ref, T, max_it, max_lg, mu_step, integrator);
-  return (int)cudaGetLastError();
+  return launch<false>(in, out, nullptr, H, n_ref, T, max_it, max_lg,
+                       mu_step, integrator, stream);
+}
+
+// the profiling instantiation: the same update, and thread 0's clock64()
+// cycles per phase (ilqr_common::Phase) into prof[N_PHASE]
+extern "C" int ilqr_tracking_mpc_time_profile(const double* in, double* out,
+                                              long long* prof, int H,
+                                              int n_ref, int T, int max_it,
+                                              int max_lg, int mu_step,
+                                              int integrator, void* stream) {
+  return launch<true>(in, out, prof, H, n_ref, T, max_it, max_lg, mu_step,
+                      integrator, stream);
+}
+
+// Loads both instantiations onto the current device and sets their
+// shared-memory limits, so that the first update launches at once (the
+// wrapper calls it when it binds the library).  Returns the CUDA error code.
+extern "C" int ilqr_tracking_mpc_time_prepare() {
+  cudaError_t err = prepare<false>();
+  if (err == cudaSuccess) err = prepare<true>();
+  return (int)err;
 }
 #endif

@@ -7,19 +7,47 @@
 // :425-451), which `reeval` (:455-474) runs too with each state's own jerk.
 // The reference is lonBackwardStep / evalNode (lon_planner.cu).
 //
-// lon_dp_backward: one backward slice.  One thread per (s, v, a) node; a
-// node tries the NB = 9 jerks: next state, the trilinear value lookup in the
-// next slice (an s row shift and a (v, a) bilinear lookup, 8 corners of 3
-// channels), cost and constraint terms, and keeps the lexicographic
-// (constraint, cost) minimum, the first jerk winning.  The final slice is
-// [state_cost, 0, 0, 0] and reads no next slice.  What bounds it: the
-// lookups, 72 float4 loads a node (10.7 M a slice at the demo grid, 201 x 37
-// x 20 nodes) from a next-slice table of 2.38 MB that sits in L2; the bytes
-// the function must move (the table read once, the slice written once) take
-// ~1.4 us and its ~0.13 GFLOP ~2 us, so a slice is bound by its loads and,
-// at 9 launches a solve, by launch overhead.  Neighbouring threads take
-// neighbouring a, so their corner loads fall on neighbouring rows.
-//
+// lon_dp_backward: one backward slice.  A node (s, v, a) tries the NB = 9
+// jerks: next state, the trilinear value lookup in the next slice (an s row
+// shift and a (v, a) bilinear lookup, 8 corners of 3 channels), cost and
+// constraint terms, and keeps the lexicographic (constraint, cost) minimum,
+// the first jerk winning.  The final slice is [state_cost, 0, 0, 0] and
+// reads no next slice.  The bytes the function must move (the next slice
+// read once, 2.38 MB at the demo grid of 201 x 37 x 20 nodes, the slice
+// written once) take ~1.4 us and its ~0.13 GFLOP ~2 us.  One thread a node
+// with 72 float4 loads a node from L2 (the earlier design) spent its time
+// on those loads and on recomputing, for each of the 201 s rows, what
+// depends on (v, a, jerk) alone: the next v, a and s change, the row shift
+// k, the fraction, the (v, a) corners and their four weights (three IEEE
+// divisions a node-jerk).  So a block owns one v and a tile of s rows
+// (all a):
+// - it forms its (a, jerk) table once in shared memory (struct Coord), with
+//   the plain operations in the plain order, and the jerk-only and
+//   (a, jerk)-only terms of the cost and constraint with it;
+// - the table's own clamped indices give the block's box of the next slice:
+//   rows s0 + k_min .. s_last + k_max + 1 (clamped), v rows min y0 .. max
+//   y1, every a.  The box is staged in shared memory with 4-byte cp.async
+//   copies as three planes of floats (cost, constraint, jerk; the fourth
+//   channel is never read), a row of v rows x a at an odd stride; the
+//   copies run while the tile's s rows (grid value, v_max, distance slack)
+//   and the path's v_max column are formed;
+// - a thread per (s, a) of the tile, neighbouring s on neighbouring lanes:
+//   a warp reads one or two table entries (a broadcast) and box rows that
+//   fall on distinct banks.  Per node-jerk what is left is the s row pair,
+//   the path lookup at s + s_change (one division), the blends, costs and
+//   constraints; the tile's results go out a row of a at a time.
+// On an NVIDIA H100 80GB HBM3 (700 W) a demo slice takes 0.0187 ms of
+// device time against the earlier design's 0.0222 (chip_smoke.py
+// --parent-csrc, from CUDA graphs).  What is left: the evaluation's
+// instructions (the blends of 8 corners x 3 channels in the plain order),
+// the staging (every row of the next slice is staged by about nine
+// neighbouring v blocks) and the launch.
+// The host picks the tile (lon_kernel.py backward_plan) from the largest box
+// of any block, which it forms from the same table in float32, so that two
+// blocks share an SM and the grid fits one wave; it raises where even one
+// s row's box does not fit a block.  A block whose box exceeds the room it
+// was given writes NaN (a guard, never taken with the host's plan).
+
 // lon_dp_forward: one block of one warp.  Mode 0 is the forward pass: T
 // dependent steps, the NF = 21 jerks of a step on the lanes (each lane its
 // state terms, lookup, cost and constraint), lane 0 the lexicographic
@@ -40,12 +68,14 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "smem_limit.cuh"
+
 namespace lon_dp {
 
 constexpr int NB = 9;           // backward jerk samples
 constexpr int NF = 21;          // forward jerk samples
-constexpr int THREADS = 256;    // backward block
-constexpr int WARP = 32;        // forward block
+constexpr int MAX_THREADS = 384;    // backward block, at most
+constexpr int WARP = 32;            // forward block
 
 // the packed parameter vector (lon_kernel.py LON_PP_KEYS)
 enum Pp {
@@ -87,6 +117,25 @@ __device__ __forceinline__ float4 load4(const float4* p) {
 #endif
 }
 
+// a 4-byte asynchronous copy from device to shared memory
+__device__ __forceinline__ void copy4_async(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+// waits for every asynchronous copy of the calling thread
+__device__ __forceinline__ void copies_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;" ::
+                   : "memory");
+#endif
+}
+
 // column `col` of the path (P, 7) at distance `dist` (interp_path,
 // common.cuh:115-139): floor / ceil rows clamped, the fraction unclamped
 __device__ __forceinline__ float interp_col(const float* __restrict__ path,
@@ -98,6 +147,17 @@ __device__ __forceinline__ float interp_col(const float* __restrict__ path,
   const float al = a - i0f;
   return path[(int)i0f * N_PC + col] * (1.0f - al)
       + path[(int)i1f * N_PC + col] * al;
+}
+
+// interp_col over a column staged on its own (v[i] is path[i * N_PC +
+// col]): the same operations
+__device__ __forceinline__ float interp_staged(const float* v, float dist,
+                                               float pss, int P) {
+  const float a = dist / pss;
+  const float i0f = clampf(floorf(a), 0.0f, (float)(P - 1));
+  const float i1f = clampf(ceilf(a), 0.0f, (float)(P - 1));
+  const float al = a - i0f;
+  return v[(int)i0f] * (1.0f - al) + v[(int)i1f] * al;
 }
 
 // the path distance map at the rounded s index, less 0.6 vehicle lengths
@@ -142,22 +202,33 @@ __device__ __forceinline__ Next next_state(float s, float v, float a, float j,
   return n;
 }
 
-// the action's cost and constraint from its looked-up value nn[0..2]
-__device__ __forceinline__ void action_terms(
-    const float* pp, const float* __restrict__ path, int P, StateTerms st,
-    const float (&nn)[3], float j, float dt, const Next& n, float s_dist,
-    float* cost_out, float* constr_out) {
+// the terms of the next acceleration's limits
+struct ALimits {
+  float below, above;
+};
+
+__device__ __forceinline__ ALimits a_limits(const float* pp, float an) {
+  return {fmaxf(pp[A_MIN] - an, 0.0f), fmaxf(an - pp[A_MAX], 0.0f)};
+}
+
+// the action's cost and constraint from its looked-up value nn[0..2], the
+// path's v_max at the next s, v_max_n, and the acceleration limits' terms
+__device__ __forceinline__ void action_terms(const float* pp, StateTerms st,
+                                             const float (&nn)[3], float j,
+                                             float dt, const Next& n,
+                                             float s_dist, float v_max_n,
+                                             ALimits al, float* cost_out,
+                                             float* constr_out) {
   float cost = st.cost + nn[0];
   float constr = st.constr + nn[1];
   const float dj = nn[2] - j;
   cost = cost + pp[W_SNAP] * (dj * dj);
   const float jd = j * dt;
   cost = cost + pp[W_J] * (jd * jd);
-  const float v_max_n = interp_col(path, PC_VMAX, n.sn, pp[PATH_STEP_SIZE], P);
   constr = constr + fmaxf(n.vn - v_max_n, 0.0f);
   constr = constr + fmaxf(n.s_change - s_dist, 0.0f);
-  constr = constr + fmaxf(pp[A_MIN] - n.an, 0.0f);
-  constr = constr + fmaxf(n.an - pp[A_MAX], 0.0f);
+  constr = constr + al.below;
+  constr = constr + al.above;
   *cost_out = cost;
   *constr_out = constr;
 }
@@ -165,96 +236,257 @@ __device__ __forceinline__ void action_terms(
 // ---------------------------------------------------------------------
 // backward slice
 
-__global__ void __launch_bounds__(THREADS)
+// What a node of the block's v needs of one (a, jerk) besides its s: the
+// next s change and v, the s row shift and its fraction, the (v, a)
+// corners' weights and their offsets in a box row (o[0..3], (y0, z0), (y0,
+// z1), (y1, z0), (y1, z1); until the box is known y0, y1, z0, z1), the
+// next acceleration's limit terms and the jerk.  16-byte aligned, so that
+// a lane reads it in four loads.
+struct __align__(16) Coord {
+  float s_change, vn, f_c, ax_c;
+  float w00, w01, w10, w11;
+  int k, o[4];
+  ALimits al;
+  float j;
+};
+
+// a box row of n floats is laid out with an odd stride, so that lanes on
+// neighbouring rows read distinct banks
+__host__ __device__ inline int row_stride(int n) { return n | 1; }
+
+__host__ __device__ inline size_t backward_smem_bytes(int A, int tile, int P,
+                                                      int box_cap) {
+  return sizeof(float4) * (size_t)tile * A
+         + sizeof(float) * (((size_t)box_cap + 3) / 4 * 4)
+         + sizeof(Coord) * (size_t)A * NB
+         + sizeof(float) * ((size_t)P + 3 * (size_t)tile)
+         + sizeof(int) * 4 * (MAX_THREADS / WARP);
+}
+
+// the threads of a block of `tile` s rows: every (s, a) of the tile at
+// once, in whole warps, MAX_THREADS at most
+__host__ __device__ inline int backward_threads(int A, int tile) {
+  const int t = (tile * A + WARP - 1) / WARP * WARP;
+  return t < 2 * WARP ? 2 * WARP : (t > MAX_THREADS ? MAX_THREADS : t);
+}
+
+// a block: one v (blockIdx.x) and the s rows s0 .. s0 + tile - 1
+// (blockIdx.y), every a; `box_cap` floats of shared memory for its box
+__global__ void __launch_bounds__(MAX_THREADS, 2)
 lon_backward_kernel(const float4* __restrict__ nodes_next,
                     const float* __restrict__ pp_in,
                     const float* __restrict__ path,
                     const float* __restrict__ dist_path,
                     float4* __restrict__ out, int S, int V, int A, int P,
-                    int t_idx, bool is_last) {
+                    int t_idx, bool is_last, int tile, int box_cap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* res = reinterpret_cast<float4*>(smem_raw);      // (tile, A)
+  float* box = reinterpret_cast<float*>(res + tile * A);
+  Coord* tab = reinterpret_cast<Coord*>(box + (box_cap + 3) / 4 * 4);
+  float* vmax = reinterpret_cast<float*>(tab + A * NB);   // (P,)
+  float* s_val = vmax + P;
+  float* s_vmax = s_val + tile;
+  float* s_slack = s_vmax + tile;
+  int* part = reinterpret_cast<int*>(s_slack + tile);     // (warps, 4)
+
   float pp[N_PP];
 #pragma unroll
   for (int k = 0; k < N_PP; ++k) pp[k] = pp_in[k];
-  const int node = blockIdx.x * blockDim.x + threadIdx.x;
-  if (node >= S * V * A) return;
-  const int i_a = node % A;
-  const int i_v = (node / A) % V;
-  const int i_s = node / (A * V);
-
-  const float s = axis_point(pp[S_MIN], pp[S_MAX], i_s, S - 1);
+  const int tid = threadIdx.x;
+  const int i_v = blockIdx.x;
+  const int s0 = blockIdx.y * tile;
+  const int n_s = mini(tile, S - s0);
   const float v = axis_point(pp[V_MIN], pp[V_MAX], i_v, V - 1);
-  const float a = axis_point(pp[A_MIN], pp[A_MAX], i_a, A - 1);
   const float pss = pp[PATH_STEP_SIZE];
-  const float v_max_s = interp_col(path, PC_VMAX, s, pss, P);
-  const float s_dist = s_dist_at(dist_path, pp, t_idx,
-                                 interp_col(path, PC_S, s, pss, P), S);
-  const StateTerms st = state_terms(pp, s, v, a, s_dist, v_max_s);
-  if (is_last) {
-    out[node] = make_float4(st.cost, 0.0f, 0.0f, 0.0f);
-    return;
-  }
-
   const float dt = pp[DT];
-  const float s_step_x = (pp[S_MAX] - pp[S_MIN]) * (1.0f / (float)(S - 1));
-  float cost[NB], constr[NB];
-#pragma unroll
-  for (int jb = 0; jb < NB; ++jb) {
-    const float j = axis_point(pp[J_MIN], pp[J_MAX], jb, NB - 1);
-    const Next n = next_state(s, v, a, j, dt);
-    // the value lookup: a fractional s row shift, a (v, a) bilinear lookup
-    const float f_c = n.s_change / s_step_x;
-    const float k_c = floorf(f_c);
-    const float ax_c = f_c - k_c;
-    const float y = clampf((n.vn - pp[V_MIN]) / (pp[V_MAX] - pp[V_MIN])
-                           * (float)(V - 1), 0.0f, (float)(V - 1));
-    const float z = clampf((n.an - pp[A_MIN]) / (pp[A_MAX] - pp[A_MIN])
-                           * (float)(A - 1), 0.0f, (float)(A - 1));
-    const float y0f = floorf(y), z0f = floorf(z);
-    const float wy0 = 1.0f - (y - y0f);
-    const float wz0 = 1.0f - (z - z0f);
-    const int y0 = (int)y0f, z0 = (int)z0f;
-    const int y1 = mini(y0 + 1, V - 1), z1 = mini(z0 + 1, A - 1);
-    const float w00 = wy0 * wz0, w01 = wy0 * (1.0f - wz0);
-    const float w10 = (1.0f - wy0) * wz0, w11 = (1.0f - wy0) * (1.0f - wz0);
-    const int k = (int)k_c;
-    const int rows[2] = {clampi(i_s + k, 0, S - 1),
-                         clampi(i_s + k + 1, 0, S - 1)};
-    const float ax_row = (float)i_s + f_c >= (float)(S - 1) ? 0.0f : ax_c;
-    float b[2][3];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int base = rows[r] * V;
-      const float4 t00 = load4(nodes_next + (base + y0) * A + z0);
-      const float4 t01 = load4(nodes_next + (base + y0) * A + z1);
-      const float4 t10 = load4(nodes_next + (base + y1) * A + z0);
-      const float4 t11 = load4(nodes_next + (base + y1) * A + z1);
-      b[r][0] = ((t00.x * w00 + t01.x * w01) + t10.x * w10) + t11.x * w11;
-      b[r][1] = ((t00.y * w00 + t01.y * w01) + t10.y * w10) + t11.y * w11;
-      b[r][2] = ((t00.z * w00 + t01.z * w01) + t10.z * w10) + t11.z * w11;
+
+  int bs0 = 0, rs = 0, plane = 0;
+  bool fits = true;
+  if (!is_last) {
+    // the (a, jerk) table and each warp's extremes of its row shifts and v
+    // rows, then the block's
+    const float s_step_x = (pp[S_MAX] - pp[S_MIN]) * (1.0f / (float)(S - 1));
+    int k_lo = 0x7fffffff, k_hi = -0x7fffffff - 1;
+    int y_lo = 0x7fffffff, y_hi = -0x7fffffff - 1;
+    for (int e = tid; e < A * NB; e += blockDim.x) {
+      const int i_a = e / NB, jb = e - i_a * NB;
+      const float a = axis_point(pp[A_MIN], pp[A_MAX], i_a, A - 1);
+      const float j = axis_point(pp[J_MIN], pp[J_MAX], jb, NB - 1);
+      const Next n = next_state(0.0f, v, a, j, dt);
+      Coord c;
+      c.s_change = n.s_change;
+      c.vn = n.vn;
+      c.f_c = n.s_change / s_step_x;
+      const float k_c = floorf(c.f_c);
+      c.ax_c = c.f_c - k_c;
+      const float y = clampf((n.vn - pp[V_MIN]) / (pp[V_MAX] - pp[V_MIN])
+                             * (float)(V - 1), 0.0f, (float)(V - 1));
+      const float z = clampf((n.an - pp[A_MIN]) / (pp[A_MAX] - pp[A_MIN])
+                             * (float)(A - 1), 0.0f, (float)(A - 1));
+      const float y0f = floorf(y), z0f = floorf(z);
+      const float wy0 = 1.0f - (y - y0f);
+      const float wz0 = 1.0f - (z - z0f);
+      const int y0 = (int)y0f, z0 = (int)z0f;
+      c.o[0] = y0;
+      c.o[1] = mini(y0 + 1, V - 1);
+      c.o[2] = z0;
+      c.o[3] = mini(z0 + 1, A - 1);
+      c.w00 = wy0 * wz0;
+      c.w01 = wy0 * (1.0f - wz0);
+      c.w10 = (1.0f - wy0) * wz0;
+      c.w11 = (1.0f - wy0) * (1.0f - wz0);
+      c.k = (int)k_c;
+      c.al = a_limits(pp, n.an);
+      c.j = j;
+      tab[e] = c;
+      k_lo = mini(k_lo, c.k);
+      k_hi = k_hi > c.k ? k_hi : c.k;
+      y_lo = mini(y_lo, c.o[0]);
+      y_hi = y_hi > c.o[1] ? y_hi : c.o[1];
     }
-    float nn[3];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      nn[c] = b[0][c] * (1.0f - ax_row) + b[1][c] * ax_row;
-    action_terms(pp, path, P, st, nn, j, dt, n, s_dist, &cost[jb],
-                 &constr[jb]);
-  }
-  float cmin = constr[0];
-#pragma unroll
-  for (int jb = 1; jb < NB; ++jb) cmin = fminf(cmin, constr[jb]);
-  float best = INFINITY;
-  int jbest = 0;
-#pragma unroll
-  for (int jb = 0; jb < NB; ++jb) {
-    const float c = constr[jb] <= cmin ? cost[jb] : INFINITY;
-    if (c < best) {
-      best = c;
-      jbest = jb;
+    for (int o = WARP / 2; o > 0; o /= 2) {
+      k_lo = mini(k_lo, __shfl_xor_sync(0xffffffffu, k_lo, o));
+      const int kh = __shfl_xor_sync(0xffffffffu, k_hi, o);
+      k_hi = k_hi > kh ? k_hi : kh;
+      y_lo = mini(y_lo, __shfl_xor_sync(0xffffffffu, y_lo, o));
+      const int yh = __shfl_xor_sync(0xffffffffu, y_hi, o);
+      y_hi = y_hi > yh ? y_hi : yh;
+    }
+    if ((tid & (WARP - 1)) == 0) {
+      int* w = part + 4 * (tid / WARP);
+      w[0] = k_lo;
+      w[1] = k_hi;
+      w[2] = y_lo;
+      w[3] = y_hi;
+    }
+    __syncthreads();
+    for (int w = 0; w < (int)(blockDim.x / WARP); ++w) {
+      k_lo = mini(k_lo, part[4 * w]);
+      k_hi = k_hi > part[4 * w + 1] ? k_hi : part[4 * w + 1];
+      y_lo = mini(y_lo, part[4 * w + 2]);
+      y_hi = y_hi > part[4 * w + 3] ? y_hi : part[4 * w + 3];
+    }
+
+    // the box: the rows every (s, jerk) of the tile reads (clamped as the
+    // lookup clamps them) x the v rows y_lo .. y_hi x every a, one plane
+    // per channel (cost, constraint, jerk); the copies run while the s
+    // rows below are formed
+    bs0 = clampi(s0 + k_lo, 0, S - 1);
+    const int bs1 = clampi(s0 + n_s - 1 + k_hi + 1, 0, S - 1);
+    const int row_len = (y_hi - y_lo + 1) * A;
+    rs = row_stride(row_len);
+    plane = (bs1 - bs0 + 1) * rs;
+    fits = 3 * plane <= box_cap;
+    if (fits)
+      for (int q = tid; q < (bs1 - bs0 + 1) * row_len; q += blockDim.x) {
+        const int r = q / row_len, c = q - r * row_len;
+        const float* src = reinterpret_cast<const float*>(
+            nodes_next + ((bs0 + r) * V + y_lo) * A + c);
+        float* dst = box + r * rs + c;
+        copy4_async(dst, src);
+        copy4_async(dst + plane, src + 1);
+        copy4_async(dst + 2 * plane, src + 2);
+      }
+    // the table's corners as offsets in a box row
+    for (int e = tid; e < A * NB; e += blockDim.x) {
+      int* o = tab[e].o;
+      const int y0 = (o[0] - y_lo) * A, y1 = (o[1] - y_lo) * A;
+      const int z0 = o[2], z1 = o[3];
+      o[0] = y0 + z0;
+      o[1] = y0 + z1;
+      o[2] = y1 + z0;
+      o[3] = y1 + z1;
     }
   }
-  out[node] = make_float4(best, cmin,
-                          axis_point(pp[J_MIN], pp[J_MAX], jbest, NB - 1),
-                          0.0f);
+  // the path's v_max column; the tile's s rows: grid value, v_max there and
+  // the distance map's slack
+  if (!is_last)
+    for (int q = tid; q < P; q += blockDim.x)
+      vmax[q] = path[q * N_PC + PC_VMAX];
+  for (int r = tid; r < n_s; r += blockDim.x) {
+    const float s = axis_point(pp[S_MIN], pp[S_MAX], s0 + r, S - 1);
+    s_val[r] = s;
+    s_vmax[r] = interp_col(path, PC_VMAX, s, pss, P);
+    s_slack[r] = s_dist_at(dist_path, pp, t_idx,
+                           interp_col(path, PC_S, s, pss, P), S);
+  }
+  copies_wait();
+  __syncthreads();
+
+  // a thread per (s, a) of the tile, neighbouring s on neighbouring lanes
+  // (their table entries are one, their box rows neighbours)
+  for (int item = tid; item < n_s * A; item += blockDim.x) {
+    const int i_a = item / n_s, r = item - i_a * n_s;
+    const int i_s = s0 + r;
+    const float s = s_val[r];
+    const float a = axis_point(pp[A_MIN], pp[A_MAX], i_a, A - 1);
+    const float s_dist = s_slack[r];
+    const StateTerms st = state_terms(pp, s, v, a, s_dist, s_vmax[r]);
+    float4& o = res[r * A + i_a];
+    if (is_last) {
+      o = make_float4(st.cost, 0.0f, 0.0f, 0.0f);
+      continue;
+    }
+    if (!fits) {
+      o = make_float4(NAN, NAN, NAN, NAN);
+      continue;
+    }
+    float cost[NB], constr[NB];
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      const Coord& c = tab[i_a * NB + jb];
+      Next n;
+      n.s_change = c.s_change;
+      n.vn = c.vn;
+      n.sn = s + c.s_change;
+      const int rows[2] = {clampi(i_s + c.k, 0, S - 1) - bs0,
+                           clampi(i_s + c.k + 1, 0, S - 1) - bs0};
+      const float ax_row = (float)i_s + c.f_c >= (float)(S - 1) ? 0.0f
+                                                               : c.ax_c;
+      float b[2][3];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float* base = box + rows[q] * rs;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float* p = base + ch * plane;
+          b[q][ch] = ((p[c.o[0]] * c.w00 + p[c.o[1]] * c.w01)
+                      + p[c.o[2]] * c.w10)
+                     + p[c.o[3]] * c.w11;
+        }
+      }
+      float nn[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        nn[q] = b[0][q] * (1.0f - ax_row) + b[1][q] * ax_row;
+      action_terms(pp, st, nn, c.j, dt, n, s_dist,
+                   interp_staged(vmax, n.sn, pss, P), c.al, &cost[jb],
+                   &constr[jb]);
+    }
+    float cmin = constr[0];
+#pragma unroll
+    for (int jb = 1; jb < NB; ++jb) cmin = fminf(cmin, constr[jb]);
+    float best = INFINITY;
+    int jbest = 0;
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      const float cj = constr[jb] <= cmin ? cost[jb] : INFINITY;
+      if (cj < best) {
+        best = cj;
+        jbest = jb;
+      }
+    }
+    o = make_float4(best, cmin,
+                    axis_point(pp[J_MIN], pp[J_MAX], jbest, NB - 1), 0.0f);
+  }
+  __syncthreads();
+
+  // the tile's nodes, a row of A at a time
+  for (int q = tid; q < n_s * A; q += blockDim.x) {
+    const int r = q / A;
+    out[((s0 + r) * V + i_v) * A + (q - r * A)] = res[q];
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -334,7 +566,9 @@ __device__ __forceinline__ Scored score(const float* tp, float j,
   const Next n = next_state(s, v, a, j, dt);
   float nn[3];
   trilerp(nodes_next, pp, S, V, A, n.sn, n.vn, n.an, nn);
-  action_terms(pp, path, P, r.st, nn, j, dt, n, s_dist, &r.cost, &r.constr);
+  action_terms(pp, r.st, nn, j, dt, n, s_dist,
+               interp_col(path, PC_VMAX, n.sn, pss, P), a_limits(pp, n.an),
+               &r.cost, &r.constr);
   return r;
 }
 
@@ -441,22 +675,46 @@ __host__ __device__ inline size_t forward_smem_bytes() {
 
 }  // namespace lon_dp
 
+// dynamic shared memory of a backward block of `tile` s rows, a path of P
+// rows, room for a box of `box_cap` floats
+extern "C" size_t lon_dp_backward_smem_bytes(int A, int tile, int P,
+                                             int box_cap) {
+  return lon_dp::backward_smem_bytes(A, tile, P, box_cap);
+}
+
+// the threads of that block
+extern "C" int lon_dp_backward_threads(int A, int tile) {
+  return lon_dp::backward_threads(A, tile);
+}
+
 #ifdef __CUDACC__
+namespace {
+smem_limit::Marks backward_marks;
+}  // namespace
+
 extern "C" int lon_dp_n_params() { return lon_dp::N_PP; }
 
 // One backward slice: out (S, V, A, 4) from nodes_next (S, V, A, 4); pp the
 // packed parameters, path (P, 7), dist_path (T, S) of which row t_idx is
-// read; the final slice (is_last) reads no nodes_next.
+// read; the final slice (is_last) reads no nodes_next.  A block takes one
+// v and `tile` s rows, with room for a box of `box_cap` floats
+// (lon_kernel.py backward_plan); the dynamic shared-memory limit is raised
+// once per device and size (smem_limit.cuh).
 extern "C" int lon_dp_backward(const float* nodes_next, const float* pp,
                                const float* path, const float* dist_path,
                                float* out, int S, int V, int A, int P,
-                               int t_idx, int is_last, void* stream) {
+                               int t_idx, int is_last, int tile, int box_cap,
+                               void* stream) {
   using namespace lon_dp;
-  const int n = S * V * A;
-  lon_backward_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0,
-                        (cudaStream_t)stream>>>(
+  auto kernel = lon_backward_kernel;
+  const size_t smem = backward_smem_bytes(A, tile, P, box_cap);
+  cudaError_t err = smem_limit::ensure(kernel, smem, backward_marks);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(V, (S + tile - 1) / tile);
+  kernel<<<grid, backward_threads(A, tile), smem, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(nodes_next), pp, path, dist_path,
-      reinterpret_cast<float4*>(out), S, V, A, P, t_idx, is_last != 0);
+      reinterpret_cast<float4*>(out), S, V, A, P, t_idx, is_last != 0, tile,
+      box_cap);
   return (int)cudaGetLastError();
 }
 
@@ -474,5 +732,27 @@ extern "C" int lon_dp_forward(const float* nodes, const float* pp,
       reinterpret_cast<const float4*>(nodes), pp, path, dist_path, states,
       out, T, S, V, A, P, n_rows, mode);
   return (int)cudaGetLastError();
+}
+
+// Loads both kernels onto the current device and raises the backward
+// kernel's shared-memory limit to the most a block may use, so that the
+// first launch pays for neither (the wrapper calls it when it binds the
+// library).  Returns the CUDA error code.
+extern "C" int lon_dp_prepare() {
+  using namespace lon_dp;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, lon_forward_kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, lon_backward_kernel);
+  int dev = 0, optin = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = smem_limit::ensure(lon_backward_kernel,
+                             (size_t)optin - attr.sharedSizeBytes,
+                             backward_marks);
+  return (int)err;
 }
 #endif

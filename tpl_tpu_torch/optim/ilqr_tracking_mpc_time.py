@@ -17,8 +17,10 @@ returns the packed result (:func:`unpack_outputs`).  On a CUDA tensor it
 launches the hand-written kernel ``csrc/ilqr_tracking_mpc_time.cu`` (one
 launch per update, counted in ``launches``); on a CPU tensor it runs the
 plain version :func:`update_reference`, which is the plain
-``make_update_fn``.  :func:`bound_ms` and :func:`chain_ms` state the
-kernel's two bounds from shapes and iteration counts.
+``make_update_fn``.  :func:`profile` runs the kernel's profiling
+instantiation (the same bits, and cycles by phase).  :func:`bound_ms` and
+:func:`chain_ms` state the kernel's two bounds from shapes and iteration
+counts.
 """
 
 import ctypes
@@ -70,9 +72,14 @@ OPS = dict(lookups=30, dynamics=18, step_cost=77, rollout_step=109,
 # names).  Riccati: A = fx^T Vxx (a dot of 6), Qxx = lxx + A fx, the nu = 2
 # solve (a + mu, the determinant, one division, the inverse's entry, the
 # gain), K^T Quu K and the last sum.  Rollout (HEUN): the feedback dot of 6
-# and its two sums, then twice the dynamics' longest chain (tan, the slip
+# and its two sums, then the dynamics' longest chain once (tan, the slip
 # angle's product and atan, its cosine, the yaw rate's product and
-# division) and the two combinations.
+# division) and the combinations.  Once: the slip angle and yaw rate of a
+# HEUN step's two evaluations depend on (delta, v) alone, and the second
+# evaluation's (delta, v) is known as soon as the step's control is, so no
+# design need wait for the first evaluation's chain before the second's;
+# both course angles are known then too, and their sines and cosines are
+# off the longest chain.
 CHAIN_RICCATI = dict(f64_mul=6, f64_add=17, f64_div=1)
 CHAIN_DYNAMICS = dict(f64_tan=1, f64_atan=1, f64_cos=1, f64_mul=2,
                       f64_div=1)
@@ -143,10 +150,26 @@ def update(buf, H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
                   mu_step, integrator)
 
 
+def profile(buf, H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
+            integrator=ilqr.HEUN):
+    """:func:`update` through the kernel's profiling instantiation (CUDA
+    only): returns the packed result, bit-equal to :func:`update`'s, and
+    thread 0's cycles per phase, a dict over ``ilqr.PHASES`` (sums over the
+    solve)."""
+    _check(buf, H, n_ref, mu_step, integrator)
+    cycles = torch.zeros(len(ilqr.PHASES), dtype=torch.int64,
+                         device=buf.device)
+    out = launch(buf, H, n_ref, T, max_iterations, max_lg_iterations,
+                 mu_step, integrator, cycles)
+    return out, dict(zip(ilqr.PHASES, cycles.cpu().tolist()))
+
+
 def launch(buf, H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
-           integrator=ilqr.HEUN):
-    """Launches the kernel on the checked CUDA tensor ``buf``; returns the
-    packed result.  Raises on any other device and on a failed launch."""
+           integrator=ilqr.HEUN, cycles=None):
+    """Launches the kernel (its profiling instantiation when ``cycles``, an
+    int64 tensor of ``len(ilqr.PHASES)``, is given) on the checked CUDA
+    tensor ``buf``; returns the packed result.  Raises on any other device
+    and on a failed launch."""
     global launches
     dev = buf.device
     if dev.type != "cuda":
@@ -158,11 +181,17 @@ def launch(buf, H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
                          f"{smem} B of shared memory, above {_MAX_SMEM}")
     out = torch.empty(ilqr.layout(output_layout(H))[1], dtype=torch.float64,
                       device=dev)
+    run = (H, n_ref, T, max_iterations, max_lg_iterations, mu_step,
+           integrator)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ilqr_tracking_mpc_time(
-            buf.data_ptr(), out.data_ptr(), H, n_ref, T, max_iterations,
-            max_lg_iterations, mu_step, integrator, stream)
+        if cycles is None:
+            err = lib.ilqr_tracking_mpc_time(buf.data_ptr(), out.data_ptr(),
+                                             *run, stream)
+        else:
+            err = lib.ilqr_tracking_mpc_time_profile(
+                buf.data_ptr(), out.data_ptr(), cycles.data_ptr(), *run,
+                stream)
     if err != 0:
         raise RuntimeError(f"ilqr_tracking_mpc_time launch failed: CUDA "
                            f"error {err}")
@@ -211,10 +240,9 @@ def chain_ops(H, T, iterations):
     then T rollout steps of one candidate (the candidates roll side by side)
     and its ordered cost sum."""
     n = min(T, H)
-    dyn2 = {k: 2 * v for k, v in CHAIN_DYNAMICS.items()}
     total = {}
     add = lambda ops, times: _latency.add_ops(total, ops, times)
-    add(dyn2, n * (1 + iterations))
+    add(CHAIN_DYNAMICS, n * (1 + iterations))
     add(CHAIN_ROLLOUT_EXTRA, n * iterations)
     add(dict(f64_mul=2, f64_add=3), n)          # the initial rollout's sums
     add(CHAIN_RICCATI, n * iterations)
@@ -271,7 +299,9 @@ _LIB = None
 
 
 def _kernel():
-    """Build (first call) and bind the kernel library."""
+    """Build (first call) and bind the kernel library, and load its code
+    onto the current device with the shared-memory limit set, so that the
+    first update does not pay for either."""
     global _LIB
     if _LIB is None:
         from tpl_tpu_torch import _build
@@ -280,7 +310,13 @@ def _kernel():
         lib.ilqr_tracking_mpc_time.restype = ctypes.c_int
         lib.ilqr_tracking_mpc_time.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.ilqr_tracking_mpc_time_profile.restype = ctypes.c_int
+        lib.ilqr_tracking_mpc_time_profile.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.ilqr_tracking_mpc_time_smem_bytes.restype = ctypes.c_size_t
         lib.ilqr_tracking_mpc_time_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.ilqr_tracking_mpc_time_prepare.restype = ctypes.c_int
+        lib.ilqr_tracking_mpc_time_prepare.argtypes = []
+        _build.prepare(lib, "ilqr_tracking_mpc_time")
         _LIB = lib
     return _LIB

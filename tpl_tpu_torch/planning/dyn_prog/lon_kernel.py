@@ -18,6 +18,10 @@ launch (``lon_dp_forward``, which also runs :func:`reeval`'s pass); on CPU
 tensors the plain PyTorch versions :func:`backward_slice_reference` and
 :func:`forward_reference` run instead.  ``launches`` counts the kernel
 launches of either entry, ``backward_launches`` / ``forward_launches`` each.
+A backward block takes one v and a tile of s rows and stages the box of the
+next slice that its lookups read; :func:`backward_plan` sizes the tile and
+the box on the host from the packed parameters, which the wrapper reads
+from the card once a solve, and raises where one s row's box does not fit.
 
 The arithmetic follows the JAX program operation by operation.  XLA on the
 CPU turns a division by a constant into a product with its float32
@@ -33,6 +37,7 @@ of 8 for the TPU).
 """
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -476,6 +481,127 @@ def _check_common(pp_vec, path, dist_path, dev, S):
     _check("dist_path", dist_path, dist_path.shape, f32, dev)
 
 
+# ---------------------------------------------------------------------
+# the backward kernel's blocks (csrc/lon_dp.cu lon_backward_kernel): a block
+# takes one v and a tile of s rows, every a, and stages the box of the next
+# slice that its (a, jerk) table reads
+
+COORD_BYTES = 64            # one (a, jerk) entry of the table (struct Coord)
+SM_SMEM = 228 * 1024        # shared memory of an SM (H100)
+BLOCK_SMEM = 227 * 1024     # the most a block may use
+SMEM_RESERVED = 1024        # what the card keeps of an SM's for each block
+BLOCKS_PER_SM = 2           # the kernel's __launch_bounds__
+MAX_THREADS = 384
+
+
+def backward_smem_bytes(A, tile, P, box_cap):
+    """Dynamic shared memory of a block of ``tile`` s rows over a path of
+    ``P`` rows whose box holds ``box_cap`` floats (the kernel's
+    backward_smem_bytes): the tile's results, the box (to 16 bytes), the
+    (a, jerk) table, the path's v_max column, three floats an s row and
+    four bounds a warp."""
+    return (16 * tile * A + 16 * -(-box_cap // 4) + COORD_BYTES * A * NB
+            + 4 * (P + 3 * tile) + 16 * (MAX_THREADS // 32))
+
+
+def backward_threads(A, tile):
+    """Threads of such a block: its (s, a) nodes at once, whole warps, 64 ..
+    MAX_THREADS (the kernel's backward_threads)."""
+    t = -(-(tile * A) // 32) * 32
+    return min(max(t, 64), MAX_THREADS)
+
+
+def backward_coords(pp_vec, S, V, A):
+    """What bounds each block's box, from the (a, jerk) table every v's
+    block forms, in float32 with the kernel's operations: (the row shift k,
+    the lower and upper v rows y0, y1 of the lookup's corners), each an int
+    array (V, A, NB)."""
+    f32 = np.float32
+    p = {k: f32(x) for k, x in zip(LON_PP_KEYS, np.asarray(pp_vec, f32))}
+
+    def axis(lo, hi, n):
+        i = np.arange(n, dtype=f32)
+        return ((hi - lo) * i).astype(np.float64) \
+            * np.float64(f32(1.0) / f32(n - 1)) + np.float64(lo)
+
+    v = axis(p["v_min"], p["v_max"], V).astype(f32)[:, None, None]
+    a = axis(p["a_min"], p["a_max"], A).astype(f32)[None, :, None]
+    j = axis(p["j_min"], p["j_max"], NB).astype(f32)[None, None, :]
+    dt = p["dt"]
+    ds = (v * dt + f32(0.5) * a * dt * dt) \
+        + j * (dt * (dt * dt)) * (f32(1.0) / f32(6.0))
+    s_change = np.maximum(ds, f32(0.0))
+    vn = np.maximum(v + a * dt + f32(0.5) * j * dt * dt, f32(0.0))
+    s_step_x = (p["s_max"] - p["s_min"]) * (f32(1.0) / f32(S - 1))
+    k = np.floor(s_change / s_step_x).astype(np.int64)
+    y = np.minimum(np.maximum((vn - p["v_min"]) / (p["v_max"] - p["v_min"])
+                              * f32(V - 1), f32(0.0)), f32(V - 1))
+    y0 = np.floor(y).astype(np.int64)
+    return k, y0, np.minimum(y0 + 1, V - 1)
+
+
+def box_floats(pp_vec, S, V, A, tile):
+    """Floats in the largest box of the next slice that any block of
+    ``tile`` s rows stages: three planes (cost, constraint, jerk) of the
+    rows its lookups read (the row shifts of its v's table over the tile,
+    clamped) by a row of the v rows its corners span x every a, laid out
+    with an odd stride."""
+    k, y0, y1 = backward_coords(pp_vec, S, V, A)
+    s0 = np.arange(0, S, tile)
+    n_s = np.minimum(tile, S - s0)
+    lo = np.clip(s0[None, :] + k.min(axis=(1, 2))[:, None], 0, S - 1)
+    hi = np.clip((s0 + n_s)[None, :] + k.max(axis=(1, 2))[:, None], 0, S - 1)
+    stride = ((y1.max(axis=(1, 2)) - y0.min(axis=(1, 2)) + 1) * A) | 1
+    return 3 * int(((hi - lo + 1) * stride[:, None]).max())
+
+
+def box_bytes(pp_vec, S, V, A, tile):
+    """Bytes of the largest box a block of ``tile`` s rows stages."""
+    return 4 * box_floats(pp_vec, S, V, A, tile)
+
+
+def backward_plan(pp_vec, S, V, A, P, sms=132):
+    """(tile, box_cap) of the backward kernel for the parameters ``pp_vec``
+    (host values) over a path of ``P`` rows on a card of ``sms`` SMs: as
+    many s tiles as let the grid of V x tiles blocks run in one wave at
+    BLOCKS_PER_SM blocks an SM, then smaller tiles until the largest box
+    lets BLOCKS_PER_SM blocks share an SM, else until it fits one block.
+    Raises ValueError where even one s row's box does not fit a block."""
+    n = max(1, BLOCKS_PER_SM * sms // V)
+    start = -(-S // n)
+    budgets = (SM_SMEM // BLOCKS_PER_SM - SMEM_RESERVED, BLOCK_SMEM)
+    for budget in budgets:
+        for tile in range(start, 0, -1):
+            cap = box_floats(pp_vec, S, V, A, tile)
+            if backward_smem_bytes(A, tile, P, cap) <= budget:
+                return tile, cap
+    need = backward_smem_bytes(A, 1, P, box_floats(pp_vec, S, V, A, 1))
+    raise ValueError(
+        f"lon_dp_backward: a block of one s row needs {need} B of shared "
+        f"memory for its box of the next slice ({S} x {V} x {A} nodes), "
+        f"above the {BLOCK_SMEM} B a block may use")
+
+
+_PLANS = {}
+
+
+def _plan(pp_vec, S, V, A, P):
+    """:func:`backward_plan` for the parameters in the CUDA tensor
+    ``pp_vec``: read to the host once per tensor and version (a solve's
+    slices share one), kept for the last few."""
+    key = (id(pp_vec), pp_vec._version, S, V, A, P)
+    hit = _PLANS.get(key)
+    if hit is not None and hit[0]() is pp_vec:
+        return hit[1]
+    sms = torch.cuda.get_device_properties(
+        pp_vec.device).multi_processor_count
+    plan = backward_plan(pp_vec.cpu().numpy(), S, V, A, P, sms)
+    if len(_PLANS) >= 8:
+        _PLANS.clear()
+    _PLANS[key] = (weakref.ref(pp_vec), plan)
+    return plan
+
+
 def backward_slice(nodes_next, pp_vec, path, dist_path, t_idx, is_last,
                    out=None):
     """One backward slice (S, V, A, 4) from ``nodes_next`` (S, V, A, 4):
@@ -507,13 +633,14 @@ def backward_slice(nodes_next, pp_vec, path, dist_path, t_idx, is_last,
         out = torch.empty_like(nodes_next)
     else:
         _check("out", out, (S, V, A, 4), torch.float32, dev)
+    tile, box_cap = _plan(pp_vec, S, V, A, path.shape[0])
     lib = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lon_dp_backward(
             nodes_next.data_ptr(), pp_vec.data_ptr(), path.data_ptr(),
             dist_path.data_ptr(), out.data_ptr(), S, V, A, path.shape[0],
-            int(t_idx), int(bool(is_last)), stream)
+            int(t_idx), int(bool(is_last)), tile, box_cap, stream)
     if err != 0:
         raise RuntimeError(f"lon_dp_backward launch failed: CUDA error {err}")
     launches += 1
@@ -672,7 +799,9 @@ _LIB = None
 
 
 def _kernel():
-    """Build (first call) and bind the kernel library."""
+    """Build (first call) and bind the kernel library, and load its code
+    onto the current device with the shared-memory limit set, so that the
+    first launch does not pay for either."""
     global _LIB
     if _LIB is None:
         from tpl_tpu_torch import _build
@@ -680,7 +809,9 @@ def _kernel():
         lib = _build.load("lon_dp")
         lib.lon_dp_backward.restype = ctypes.c_int
         lib.lon_dp_backward.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.lon_dp_prepare.restype = ctypes.c_int
+        lib.lon_dp_prepare.argtypes = []
         lib.lon_dp_forward.restype = ctypes.c_int
         lib.lon_dp_forward.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
@@ -688,5 +819,6 @@ def _kernel():
         lib.lon_dp_n_params.argtypes = []
         if lib.lon_dp_n_params() != len(LON_PP_KEYS):
             raise RuntimeError("lon_dp.cu and LON_PP_KEYS disagree")
+        _build.prepare(lib, "lon_dp")
         _LIB = lib
     return _LIB

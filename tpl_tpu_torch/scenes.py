@@ -15,6 +15,11 @@ from .planning.poly_sampling import poly_sampling_planner as psp
 
 # the demo planning set's lon grid
 LON_DEMO = dict(T=10, S=201, V=37, A=20, P=200)
+# lon grids (T, S, V, A, P) of lon_scene (1 m s cells, 3 m/s v cells) where
+# the backward kernel's edges are in play: the fastest v shifts past the
+# last s row, the next v and a clamp at both ends of V and A, and the
+# kernel's tiles do not divide S
+LON_EDGE = ((4, 23, 7, 20, 40), (5, 41, 13, 5, 90), (3, 29, 11, 9, 60))
 
 
 def rampify_args(dev, H, T, seed):

@@ -169,22 +169,31 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    scenario's other sets, 300 ticks, rule checker on, the launch counters
    set to 0 just before the loop and read just after; checks zero
    violations, no emergency plan, finite controls, per replan one
-   ``dir_dist_map``, two ``poly_eval_edges`` and two ``poly_propagate``
-   launches, and the end state against the JAX package's CPU loop's;
+   ``dir_dist_map``, four ``poly_eval_edges`` (a level: the field's slice
+   straight ahead, then the edges) and two ``poly_propagate`` launches,
+   and the end state against the JAX package's CPU loop's;
    prints the medians of ``runtime_environment`` and ``runtime_planning``;
    keeps the first replan's grids and start state;
 17. graph DP kernels: ``csrc/dir_dist_map.cu`` against its plain version
    on tests/test_dp_poly_planner.py's scene (``scenes.dp_poly_env``),
    seeded random occupancy (also at ray_steps 40) and the loop's first
    grid, cell for cell (the scene also against the plain version on the
-   CPU); ``csrc/poly_planner.cu``'s edge evaluation at four start indices
+   CPU), with the samples one march a slice and one march for all slices
+   need; ``csrc/poly_planner.cu``'s edge evaluation at four start indices
    (two capped at 400,000 edges) on both levels over the scene's and the
    loop's field (t, ds, l exact, s and the cost to 4 float32 ulps; the
-   largest differences printed) and its propagation on the kernel's own
-   end points and on seeded graphs with equal least costs, NaN costs and
-   nodes without edges (every selection equal); times each kernel through
-   its bare launcher and its wrapper in turns on the loop's first replan,
-   the plain versions, ``bound_ms`` and ``chain_ms``;
+   largest differences printed; the steps taken those the edges need) and
+   its propagation on the kernel's own end points and on seeded graphs
+   with equal least costs, NaN costs and nodes without edges (every
+   selection equal); the field's and the evaluation's profiling
+   instantiations bit-equal, a "phases" line each (the field: us a block
+   in staging, march and write-out; the evaluation: cycles an edge in the
+   fits, the polynomial steps, the steps past te, the lookups, the sums);
+   times each kernel through its bare launcher and its wrapper in turns on
+   the loop's first replan, the field and the evaluation also from CUDA
+   graphs (``graph_ms``), the plain versions, ``bound_ms`` (the needed
+   work; beside it one march a slice / every step of every edge) and
+   ``chain_ms``;
 18. the controllers beside the spatial MPC: ``SimStandalone`` on
    ``demo/country_follow`` with the scenario's own sets (the RSTP planner,
    fused, H=250, the collision screen on) and each of
@@ -246,9 +255,9 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
 With ``--parent-csrc DIR`` (a directory holding another version of any of
 the kernel sources ``latlon_action_min.cu``, ``ilqr_tracking_mpc.cu``,
 ``ilqr_rstp.cu``, ``rstp_rampify.cu``, ``idm_rollout.cu``,
-``idm_evaluate.cu``, ``ilqr_tracking_mpc_time.cu``, ``lon_dp.cu`` and the
-headers they include, for example ``git show`` of an earlier commit's; may
-be given more than once) the kernel phases also build that version with
+``idm_evaluate.cu``, ``ilqr_tracking_mpc_time.cu``, ``lon_dp.cu``,
+``dir_dist_map.cu``, ``poly_planner.cu`` and the headers they include, for
+example ``git show`` of an earlier commit's; may be given more than once) the kernel phases also build that version with
 the same flags, run both on the same inputs through the bare launchers in
 turns (other, tree, tree, other) and print the largest difference of the
 results and the four times; for the action-min, the rampify scan, the two
@@ -258,9 +267,11 @@ rollout), the tracking MPC's single solve and its profiling
 instantiation, the time-indexed MPC (every seeded and recorded solve) and
 the lon backward slice (every slice of the seeded, FAS-loop and
 lattice-loop solves; a source of the earlier one-thread-a-node launcher
-is recognised) a difference other than 0.0 raises; a time-MPC source that
-exports ``ilqr_tracking_mpc_time_profile`` also prints its "phases"
-lines.  The batched tracking MPC is held to the other version's batched
+is recognised), the graph DP's field (every case of phase 17) and edge
+evaluation (both levels of every case of phase 17; a launcher without the
+slice's scratch is recognised; both also timed from CUDA graphs) a
+difference other than 0.0 raises; a time-MPC, field or evaluation source
+that exports a ``*_profile`` entry also prints its "phases" lines.  The batched tracking MPC is held to the other version's batched
 entry (a grid of one block per scenario where the source predates the
 persistent kernel) on the bench's batch, near the course and on seeded
 warm starts at every size of BATCH_SIZES, both precisions: every
@@ -271,9 +282,11 @@ scan, forward scan and write-out, its "phases" lines are printed too.
 
 With ``--kernels-only`` the run stops after phase 2, the rampify part of
 phase 8, the time-indexed MPC's seeded cases (checked, profiled, against
-``--parent-csrc``) and every backward slice of the seeded demo-width lon
+``--parent-csrc``), every backward slice of the seeded demo-width lon
 solve and of ``scenes.LON_EDGE``'s grids (bit for bit on the CPU, against
-``--parent-csrc``): no loop is driven and no result line printed.
+``--parent-csrc``) and phase 17 with seeded occupancy in place of the
+graph DP loop's first replan: no loop is driven and no result line
+printed.
 
 With ``--host-profile TICKS`` the run builds, then drives the vendored RSTP
 loop on ``demo/country_follow`` for TICKS ticks under ``cProfile`` twice,
@@ -430,8 +443,9 @@ DP_POLY_TICKS = 300
 DP_POLY_GRID = ((10, 201, 21, 21), (2, 10, 15, 21))
 DP_POLY_JAX_END = (2.99, 43.882, 12.251)
 DP_POLY_END_ATOL = 0.05     # m, m/s: both loops choose the same edges
-# launches of one replan: the field, an evaluation and a propagation a level
-DP_POLY_PER_REPLAN = {"dir_dist_map": 1, "poly_eval_edges": 2,
+# launches of one replan: the field; a level's evaluation (two launches: the
+# field's slice straight ahead, then the edges) and propagation
+DP_POLY_PER_REPLAN = {"dir_dist_map": 1, "poly_eval_edges": 4,
                       "poly_propagate": 2}
 # the edge evaluation, kernel against its plain version on the card: the
 # same float32 operations in the same order, neither contracted; allowed: 4
@@ -1144,7 +1158,8 @@ def compare_with_parent(source, lib_fn, csrc, cases, n=30, times=None,
                                           "idm_rollout", "idm_evaluate",
                                           "ilqr_tracking_mpc",
                                           "ilqr_tracking_mpc_time",
-                                          "lon_dp"):
+                                          "lon_dp", "dir_dist_map",
+                                          "poly_planner"):
             raise AssertionError(f"{source} {what}: the result differs from "
                                  "the parent kernel's")
     return parent_lib
@@ -3446,20 +3461,55 @@ def dp_poly_loop_phase(dpe, ppk, ticks):
                 plan_ms=plan_ms, end=(t_end, x_end, v_end))
 
 
-def dp_field_check(dpe, what, occ, ray, scal, step, R):
-    """The field kernel against its plain version on the card: any differing
-    cell raises.  Returns (the kernel's field, the plain version's ms)."""
+def dp_field_check(dpe, what, occ, ray, scal, step, R, mhz):
+    """The field kernel against its plain version on the card (any
+    differing cell raises) and its profiling instantiation against the
+    kernel (a differing bit raises); prints the samples one march a slice
+    and one march for all slices need, and the phases.  Returns (the
+    kernel's field, the plain version's ms, us a block by phase)."""
+    import torch
+
     got = dpe.dir_dist_map(occ, ray, *scal, step, R)
+    prof, cycles, blocks = dpe.dir_dist_profile(occ, ray, *scal, step, R)
     want, plain_ms = plain_timed(
         lambda: dpe.dir_dist_reference(occ, ray, *scal, step, R))
     bad = int((got != want).sum())
     free = float((want == dpe.FREE_DIST).float().mean())
+    per_slice = dpe.dir_dist_samples(want, step, R)
+    merged = dpe.dir_dist_merged_samples(want, step, R)
     print(f"dir_dist_map check, {what} ({tuple(got.shape)}, ray_steps {R}): "
-          f"{bad} cells differ; {dpe.dir_dist_samples(want, step, R):,} "
-          f"samples marched, {free:.3f} of the rays meet nothing")
+          f"{bad} cells differ; samples: {per_slice:,} one march a slice, "
+          f"{merged:,} one march for all slices ({per_slice / merged:.2f} "
+          f"x); {free:.3f} of the rays meet nothing")
     if bad:
         raise AssertionError(f"dir_dist_map {what}: {bad} cells differ")
-    return got, plain_ms
+    if not torch.equal(prof, got):
+        raise AssertionError(f"dir_dist_map {what}: the profiling "
+                             "instantiation's field differs")
+    us = field_phase_line(what, cycles, blocks, mhz)
+    return got, plain_ms, us
+
+
+def field_phase_line(what, cycles, blocks, mhz):
+    """One line of a profiled field: thread 0's us a block by phase."""
+    us = {k: v / blocks / mhz for k, v in cycles.items()}
+    print(f"phases dir_dist_map {what} ({blocks} blocks, SM {mhz:.0f} MHz): "
+          f"us a block (thread 0, barrier to barrier): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in us.items()))
+    return us
+
+
+def eval_phase_line(ppk, what, prof, E, mhz):
+    """One line of a profiled evaluation: an edge's thread's cycles by
+    phase and the steps an edge took."""
+    per = {k: prof[k] / E for k in ppk.EVAL_PHASES}
+    print(f"phases poly_eval_edges {what} ({E:,} edges, SM {mhz:.0f} MHz): "
+          "cycles an edge's thread: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in per.items())
+          + f" (sum {sum(per.values()):.1f}); steps an edge: polynomial "
+          f"{prof['poly_steps'] / E:.3f}, past te {prof['tail_steps'] / E:.3f}")
+    return dict(per, poly_steps=prof["poly_steps"] / E,
+                tail_steps=prof["tail_steps"] / E)
 
 
 def dp_prop_check(ppk, what, bufs, plain_bufs):
@@ -3489,19 +3539,232 @@ def dp_prop_check(ppk, what, bufs, plain_bufs):
                              "version differ")
 
 
-def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz):
+def dp_standin_first(dpe, ppk, dev):
+    """``--kernels-only``: a stand-in for the graph DP loop's first replan
+    (no loop is driven): the test scene's ref line and params over seeded
+    occupancy at the demo widths, the kernel's field of it, the demo
+    graph's params."""
+    import torch
+    from tpl_tpu_torch import scenes
+
+    env = scenes.dp_poly_env(True)
+    occ = torch.from_numpy(scenes.dp_random_occ(8, density=0.05)).to(dev)
+    env.adopt_grid(occ, env.grid.dist_map_lon)
+    init = np.zeros(8)
+    init[ppk.PP_DS], init[ppk.PP_L] = 8.0, 0.4
+    return dict(what="seeded stand-in for the loop's first replan",
+                init=init, occ=occ, dd=env.update_dir_dist_map(),
+                ref_line=env.grid.ref_line, ref_step=env.ref_step,
+                env_params=env.params, params=ppk.DpPolyParams())
+
+
+def dp_parent_checks(dpe, ppk, field_cases, eval_cases, timed, dev, mhz,
+                     parent_csrc):
+    """With ``parent_csrc``: another version's field and evaluation (the
+    launcher without the slice's scratch is recognised) against the tree's
+    on every field case ((what, occ, ray, scal, step, R)) and every level
+    of every evaluation case, every bit (a difference raises), times in
+    turns (parent, tree, tree, parent) through the bare launchers by CUDA
+    events for each case and from CUDA graphs for the ``timed`` cases
+    ({"field": what, "eval": what}); a version that exports a profiling
+    entry prints its "phases" lines.  Returns {"field" / "eval": {"events":
+    ..., "graph": ...}} of the first parent, or {}."""
+    import ctypes
+    import torch
+    from tpl_tpu_torch import _build
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib_d, lib_p = dpe._kernel(), ppk._kernel()
+    res = {}
+
+    def field_of(a):
+        what, occ, ray, scal, step, R = a
+        return dpe.dir_dist_map(occ, ray, *scal, step, R)
+
+    def field_call(a):
+        what, occ, ray, scal, step, R = a
+        T, S, L = occ.shape
+        D = ray.shape[0]
+        return lambda fn, out, s=None: fn(
+            occ.data_ptr(), ray.data_ptr(), *scal, step, out.data_ptr(),
+            T, S, L, D, R, stream if s is None else s)
+
+    for i, csrc in enumerate(parents_with(parent_csrc, "dir_dist_map")):
+        times = {}
+        plib = compare_with_parent(
+            "dir_dist_map", lib_d.dir_dist_map, csrc,
+            [(a[0], field_of(a), field_call(a)) for a in field_cases],
+            n=50, times=times)
+        a = next(x for x in field_cases if x[0] == timed["field"])
+        out = field_of(a)
+        call = field_call(a)
+        graph = in_turns_graph(
+            raising(lambda s: call(plib.dir_dist_map, out, s)),
+            raising(lambda s: call(lib_d.dir_dist_map, out, s)))
+        print(f"dir_dist_map {a[0]} vs the source in {csrc}, from CUDA "
+              "graphs: ms per launch parent {:.4f}, new {:.4f}, new {:.4f}, "
+              "parent {:.4f}".format(*graph))
+        if i == 0:
+            res["field"] = {"events": times[a[0]], "graph": graph}
+        if hasattr(plib, "dir_dist_map_profile"):
+            fn = plib.dir_dist_map_profile
+            fn.restype = ctypes.c_int
+            fn.argtypes = lib_d.dir_dist_map_profile.argtypes
+            n_ph = len(dpe.PHASES)
+            for a in field_cases:
+                what, occ, ray, scal, step, R = a
+                T, S, L = occ.shape
+                out = torch.empty_like(field_of(a))
+                cyc = torch.zeros(n_ph, dtype=torch.int64, device=dev)
+                if fn(occ.data_ptr(), ray.data_ptr(), *scal, step,
+                      out.data_ptr(), cyc.data_ptr(), T, S, L,
+                      ray.shape[0], R, stream):
+                    raise RuntimeError("the parent's profiling launch failed")
+                if not torch.equal(out, field_of(a)):
+                    raise AssertionError(f"dir_dist_map {what}: the "
+                                         f"profiling instantiation in {csrc} "
+                                         "differs")
+                blocks = int(np.prod(plib_grid_blocks(plib, T, S)))
+                field_phase_line(f"{what}, the source in {csrc}",
+                                 dict(zip(dpe.PHASES, cyc.cpu().tolist())),
+                                 blocks, mhz)
+
+    for i, csrc in enumerate(parents_with(parent_csrc, "poly_planner")):
+        with open(os.path.join(csrc, "poly_planner.cu")) as f:
+            old = "float* slice" not in f.read()
+        times = {}
+        cases = []
+        for c in eval_cases:
+            for k in range(len(c["starts"])):
+                sl = torch.empty(c["dd"][..., 0].numel(), device=dev)
+                cases.append((
+                    f"{c['what']}, start index {c['key']}, level {k + 1}",
+                    c["level"][k + 1],
+                    lambda fn, out, c=c, k=k, sl=sl: eval_fn_call(
+                        ppk, fn, c, k, out, sl, stream, False),
+                    lambda fn, out, c=c, k=k, sl=sl: eval_fn_call(
+                        ppk, fn, c, k, out, sl, stream, old)))
+        argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                    + [ctypes.c_void_p]) if old else None
+        plib = compare_with_parent("poly_planner", lib_p.poly_eval_edges,
+                                   csrc, cases, n=30, times=times,
+                                   argtypes=argtypes)
+        c = next(x for x in eval_cases if x["what"] == timed["eval"][0]
+                 and x["key"] == timed["eval"][1])
+        outs = [torch.empty_like(x) for x in c["level"][1:]]
+        sl = torch.empty(c["dd"][..., 0].numel(), device=dev)
+
+        def both(fn, is_old):
+            def run(s):
+                for k in range(len(outs)):
+                    err = eval_fn_call(ppk, fn, c, k, outs[k], sl, s, is_old)
+                    if err:
+                        return err
+                return 0
+            return raising(run)
+
+        graph = in_turns_graph(both(plib.poly_eval_edges, old),
+                               both(lib_p.poly_eval_edges, False))
+        print(f"poly_eval_edges {c['what']}, start index {c['key']}, both "
+              f"levels vs the source in {csrc}, from CUDA graphs: ms parent "
+              "{:.4f}, new {:.4f}, new {:.4f}, parent {:.4f}".format(*graph))
+        if i == 0:
+            keys = [w for w, *_ in cases if w.startswith(
+                f"{c['what']}, start index {c['key']},")]
+            res["eval"] = {"events": tuple(sum(times[w][j] for w in keys)
+                                           for j in range(4)),
+                           "graph": graph}
+        if hasattr(plib, "poly_eval_edges_profile"):
+            fn = plib.poly_eval_edges_profile
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * (8 if old else 9)
+                           + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            n_prof = len(ppk.EVAL_PHASES) + len(ppk.EVAL_COUNTS)
+            for c in eval_cases:
+                for k in range(len(c["starts"])):
+                    out = torch.empty_like(c["level"][k + 1])
+                    prof = torch.zeros(n_prof, dtype=torch.int64, device=dev)
+                    if eval_fn_call(ppk, fn, c, k, out, sl, stream, old,
+                                    prof):
+                        raise RuntimeError("the parent's profiling launch "
+                                           "failed")
+                    if not torch.equal(out, c["level"][k + 1]):
+                        raise AssertionError("poly_eval_edges: the profiling "
+                                             f"instantiation in {csrc} "
+                                             "differs")
+                    eval_phase_line(
+                        ppk, f"{c['what']}, start index {c['key']}, level "
+                        f"{k + 1}, the source in {csrc}", dict(zip(
+                            ppk.EVAL_PHASES + ppk.EVAL_COUNTS,
+                            prof.cpu().tolist())), len(c["starts"][k]), mhz)
+    return res
+
+
+def plib_grid_blocks(plib, T, S):
+    """The blocks of a field launch: S x ceil(T / 32) for a source with the
+    one march for all slices (it exports ``dir_dist_map_prepare``), else
+    the earlier grid of ceil(S / 4) x T."""
+    if hasattr(plib, "dir_dist_map_prepare"):
+        return S, -(-T // 32)
+    return -(-S // 4), T
+
+
+def eval_fn_call(ppk, fn, c, k, out, field_slice, stream, old, prof=None):
+    """Level k of evaluation case ``c`` through the launcher ``fn`` (a
+    profiling entry when ``prof`` is given); ``old``: a launcher without
+    the slice's scratch.  Returns the CUDA error code."""
+    T, S, L, D = c["dd"].shape
+    ptrs = [c["level"][k].data_ptr(), c["starts"][k].data_ptr(),
+            c["specs"][k].data_ptr(), c["dd"].data_ptr(), c["rl"].data_ptr()]
+    if not old:
+        ptrs.append(field_slice.data_ptr())
+    ptrs.append(out.data_ptr())
+    if prof is not None:
+        ptrs.append(prof.data_ptr())
+    K = len(c["starts"])
+    return fn(*ptrs, c["consts"].ctypes.data, len(c["starts"][k]),
+              int(k == K - 1), c["n_int"], T, S, L, D, c["rl"].shape[0],
+              stream)
+
+
+def raising(launch):
+    """``launch(stream)`` (returns a CUDA error code) as a function that
+    raises on an error."""
+    def run(stream):
+        err = launch(stream)
+        if err:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+    return run
+
+
+def in_turns_graph(old, new):
+    """Device ms per launch of ``old(stream)`` and ``new(stream)`` from CUDA
+    graphs (``graph_ms``), in turns: (old, new, new, old)."""
+    return (graph_ms(old), graph_ms(new), graph_ms(new), graph_ms(old))
+
+
+def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz,
+                         parent_csrc=None):
     """The graph DP planner's three kernels against their plain versions on
     the card at the demo widths: the field on tests/test_dp_poly_planner.py's
     scene (``scenes.dp_poly_env``), seeded random occupancy (also at
-    ray_steps 40) and the loop's first-replan grid, cell for cell; the edge
-    evaluation at four start indices (two of them capped at 400,000 edges)
-    on both levels, from the loop's first start state over the scene's
-    field and over the loop's first field (t, ds, l exact, s and the cost to
-    DP_EVAL_RTOL); the propagation on the kernel's own end points of each
-    and on seeded graphs with equal least costs, NaN costs and nodes without
-    edges, every selection equal.  Times each kernel through its bare
-    launcher and its wrapper in turns, the plain versions, ``bound_ms`` and
-    ``chain_ms``."""
+    ray_steps 40) and the loop's first-replan grid, cell for cell, its
+    profiling instantiation bit-equal with a "phases" line for each; the
+    edge evaluation at four start indices (two of them capped at 400,000
+    edges) on both levels, from the loop's first start state over the
+    scene's field and over the loop's first field (t, ds, l exact, s and
+    the cost to DP_EVAL_RTOL), its profiling instantiation bit-equal with a
+    "phases" line for each level; the propagation on the kernel's own end
+    points of each and on seeded graphs with equal least costs, NaN costs
+    and nodes without edges, every selection equal.  Times each kernel
+    through its bare launcher and its wrapper in turns, the field and the
+    evaluation also as device time from CUDA graphs, the plain versions,
+    ``bound_ms`` (the needed work and, beside it, one march a slice / every
+    step of every edge) and ``chain_ms``; with ``parent_csrc``
+    (:func:`dp_parent_checks`) holds another version's field and evaluation
+    to the tree's, every bit.  ``first`` is the loop's first replan (or a
+    stand-in, :func:`dp_standin_first`), whose own field is also held to
+    the kernel's."""
     import torch
     from tpl_tpu_torch import scenes
 
@@ -3514,19 +3777,21 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz):
     scal = [float(f32(x)) for x in (p.s_min, p.s_step_size, p.l_min,
                                     p.l_step_size)]
     R = env.ray_steps_default()
-    fields = {}
+    first_what = first.get("what", "the loop's first replan")
+    fields, field_us = {}, {}
+    field_cases = []
     for what, occ, r in (
             ("the test scene", env.grid.occ_map, R),
             ("seeded random occupancy", torch.from_numpy(
                 scenes.dp_random_occ(5)).to(dev), R),
-            ("seeded random occupancy", torch.from_numpy(
+            ("seeded random occupancy, ray_steps 40", torch.from_numpy(
                 scenes.dp_random_occ(6, density=0.3)).to(dev), 40),
-            ("the loop's first replan", first["occ"], R)):
-        dd, field_plain_ms = dp_field_check(dpe, what, occ, ray, scal, step,
-                                            r)
-        fields.setdefault(what, dd)
-    # the loop's own field is the kernel's: the same as computed here
-    if not torch.equal(fields["the loop's first replan"], first["dd"]):
+            (first_what, first["occ"], R)):
+        dd, field_plain_ms, field_us[what] = dp_field_check(
+            dpe, what, occ, ray, scal, step, r, mhz)
+        fields[what] = dd
+        field_cases.append((what, occ, ray, scal, step, r))
+    if not torch.equal(fields[first_what], first["dd"]):
         raise AssertionError("dir_dist_map: the loop's field differs")
     field = fields["the test scene"]
     cpu = dpe.dir_dist_reference(env.grid.occ_map.cpu(), ray.cpu(), *scal,
@@ -3537,13 +3802,14 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz):
 
     kp = first["params"]
     n_int = kp.n_int_steps()
+    m4, h5 = ppk.inverses_f32()
     err = dict(s=0.0, cost=0.0)
-    cases = []
+    cases, eval_us = [], {}
     for key in scenes.dp_poly_keys():
         for what, dd, rl, ref_step, ep in (
                 ("the test scene", field, env.grid.ref_line, env.ref_step,
                  p),
-                ("the loop's first replan", first["dd"], first["ref_line"],
+                (first_what, first["dd"], first["ref_line"],
                  first["ref_step"], first["env_params"])):
             node_steps, edge_steps = ppk.build_eval_graph(kp, *key)
             ev = ppk.eval_params(kp, ep, f32(ref_step))
@@ -3551,16 +3817,23 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz):
             init[ppk.PP_DS] = kp.ds_min + key[0] * kp.ds_step_size + 0.3
             init[ppk.PP_L] = kp.l_min + key[1] * kp.l_step_size - 0.1
             level = [torch.from_numpy(init[None]).to(dev)]
-            plain_level = [level[0]]
+            starts, specs = [], []
             for k in range(len(edge_steps)):
-                starts = torch.from_numpy(edge_steps[k]).to(dev)
-                specs = torch.from_numpy(node_steps[k + 1].astype(
-                    np.float32)).to(dev)
+                starts.append(torch.from_numpy(edge_steps[k]).to(dev))
+                specs.append(torch.from_numpy(node_steps[k + 1].astype(
+                    np.float32)).to(dev))
                 last = k == len(edge_steps) - 1
-                got = ppk.eval_edges(level[k], starts, specs, last, ev, dd,
-                                     rl, n_int)
-                want = ppk.eval_edges_reference(level[k], starts, specs,
-                                                last, ev, dd, rl, n_int)
+                got = ppk.eval_edges(level[k], starts[k], specs[k], last, ev,
+                                     dd, rl, n_int)
+                want = ppk.eval_edges_reference(level[k], starts[k],
+                                                specs[k], last, ev, dd, rl,
+                                                n_int)
+                prof_out, prof = ppk.eval_edges_profile(
+                    level[k], starts[k], specs[k], last, ev, dd, rl, n_int)
+                if not torch.equal(prof_out, got):
+                    raise AssertionError(f"poly_eval_edges {key} level "
+                                         f"{k + 1}: the profiling "
+                                         "instantiation's end points differ")
                 exact = [ppk.PP_T, ppk.PP_DS, ppk.PP_DDS, ppk.PP_L,
                          ppk.PP_DL, ppk.PP_DDL]
                 line = []
@@ -3580,8 +3853,18 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz):
                 print(f"poly_eval_edges check, {what}, start index {key}, "
                       f"level {k + 1} ({len(edge_steps[k]):,} edges): "
                       + ", ".join(line) + "; t, ds, l exact")
+                needed = ppk.eval_steps_needed(level[k], starts[k], specs[k],
+                                               last, ev, n_int)
+                if (prof["poly_steps"], prof["tail_steps"]) != needed:
+                    raise AssertionError(f"poly_eval_edges {key} level "
+                                         f"{k + 1}: the kernel took "
+                                         f"{prof['poly_steps']} + "
+                                         f"{prof['tail_steps']} steps, the "
+                                         f"edges need {needed}")
+                eval_us[(what, key, k)] = eval_phase_line(
+                    ppk, f"{what}, start index {key}, level {k + 1}", prof,
+                    len(edge_steps[k]), mhz)
                 level.append(got)
-                plain_level.append(want)
             node_off, seg, seg_off = ppk.graph_layout(
                 [len(x) for x in level], edge_steps)
             seg = torch.from_numpy(seg).to(dev)
@@ -3596,8 +3879,11 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz):
                                     device=dev))
             b = bufs(level)
             dp_prop_check(ppk, f"{what}, start index {key}", b, bufs(level))
-            cases.append(dict(key=key, what=what, level=level, bufs=b,
-                              edge_steps=edge_steps, ev=ev, dd=dd, rl=rl))
+            cases.append(dict(
+                key=key, what=what, level=level, bufs=b,
+                edge_steps=edge_steps, ev=ev, dd=dd, rl=rl, starts=starts,
+                specs=specs, n_int=n_int, consts=np.concatenate(
+                    [ev, m4.ravel(), h5.ravel()]).astype(np.float32)))
     for seed, ties, nan in ((0, True, True), (1, True, False),
                             (2, False, True)):
         node_pts, edge_steps = scenes.dp_poly_propagation_case(
@@ -3615,39 +3901,34 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz):
     D = ray.shape[0]
     out = torch.empty((T, S, L, D), dtype=torch.float32, device=dev)
 
-    def field_bare():
+    def field_bare(s=stream):
         return lib_d.dir_dist_map(occ.data_ptr(), ray.data_ptr(), *scal,
-                                  step, out.data_ptr(), T, S, L, D, R,
-                                  stream)
+                                  step, out.data_ptr(), T, S, L, D, R, s)
 
     field_ms, field_wrapper_ms = launcher_times(
-        "dir_dist_map", f"the loop's first grid ({T} x {S} x {L} x {D}, "
+        "dir_dist_map", f"{first_what} ({T} x {S} x {L} x {D}, "
         f"ray_steps {R})", field_bare,
         lambda: dpe.dir_dist_map(occ, ray, *scal, step, R), 50)
+    field_graph_ms = graph_ms(raising(field_bare))
     _, field_plain_ms = plain_timed(
         lambda: dpe.dir_dist_reference(occ, ray, *scal, step, R))
-    field_bound = dpe.dir_dist_bound_ms(first["dd"], step, R)
+    field_bound = dpe.dir_dist_needed_bound_ms(first["dd"], step, R)
+    field_slice_bound = dpe.dir_dist_bound_ms(first["dd"], step, R)
     field_chain = dpe.dir_dist_chain_ms(first["dd"], step, R, cycles, mhz)
 
     c = next(x for x in cases if x["key"] == (7, 10)
-             and x["what"] == "the loop's first replan")
+             and x["what"] == first_what)
     pts, node_cost, best, seg, node_off, seg_off, traj = c["bufs"]
     dd, rl, ev = c["dd"], c["rl"], c["ev"]
-    m4, h5 = ppk.inverses_f32()
-    consts = np.concatenate([ev, m4.ravel(), h5.ravel()]).astype(np.float32)
     K = len(c["edge_steps"])
-    starts = [torch.from_numpy(e).to(dev) for e in c["edge_steps"]]
-    specs = [c["level"][k + 1][:, [ppk.PP_T, ppk.PP_DS, ppk.PP_L]]
-             .contiguous() for k in range(K)]
+    starts, specs = c["starts"], c["specs"]
     outs = [torch.empty_like(c["level"][k + 1]) for k in range(K)]
+    field_slice = torch.empty(T * S * L, dtype=torch.float32, device=dev)
 
-    def eval_bare():
+    def eval_bare(s=stream):
         for k in range(K):
-            e = lib_p.poly_eval_edges(
-                c["level"][k].data_ptr(), starts[k].data_ptr(),
-                specs[k].data_ptr(), dd.data_ptr(), rl.data_ptr(),
-                outs[k].data_ptr(), consts.ctypes.data, len(starts[k]),
-                int(k == K - 1), n_int, T, S, L, D, rl.shape[0], stream)
+            e = eval_fn_call(ppk, lib_p.poly_eval_edges, c, k, outs[k],
+                             field_slice, s, False)
             if e:
                 return e
         return 0
@@ -3660,12 +3941,20 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz):
     E = [len(e) for e in c["edge_steps"]]
     eval_ms, eval_wrapper_ms = launcher_times(
         "poly_eval_edges", f"start index (7, 10), both levels ({E[0]:,} + "
-        f"{E[1]:,} edges, two launches)", eval_bare, eval_wrapper, 50)
+        f"{E[1]:,} edges, {ppk.EVAL_KERNELS * K} launches)", eval_bare,
+        eval_wrapper, 50)
+    eval_graph_ms = graph_ms(raising(eval_bare))
     _, eval_plain_ms = plain_timed(lambda: [ppk.eval_edges_reference(
         c["level"][k], starts[k], specs[k], k == K - 1, ev, dd, rl, n_int)
         for k in range(K)])
-    eval_bound = ppk.eval_bound_ms([len(c["level"][k]) for k in range(K)],
-                                   E, dd.shape, rl.shape[0], n_int)
+    n_starts = [len(c["level"][k]) for k in range(K)]
+    steps = [ppk.eval_steps_needed(c["level"][k], starts[k], specs[k],
+                                   k == K - 1, ev, n_int) for k in range(K)]
+    eval_bound = ppk.eval_needed_bound_ms(
+        n_starts, E, dd.shape, rl.shape[0], sum(x[0] for x in steps),
+        sum(x[1] for x in steps))
+    eval_full_bound = ppk.eval_bound_ms(n_starts, E, dd.shape, rl.shape[0],
+                                        n_int)
     eval_chain = K * ppk.eval_chain_ms(n_int, cycles, mhz)
 
     offs = np.zeros(2 * ppk.MAX_LEVELS + 3, np.int32)
@@ -3694,24 +3983,40 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz):
     prop_bound = ppk.propagate_bound_ms(node_off, seg_off)
     prop_chain = ppk.propagate_chain_ms(node_off, seg.cpu().numpy(),
                                         seg_off, cycles, mhz)
+    parent = dp_parent_checks(
+        dpe, ppk, field_cases, cases,
+        {"field": first_what, "eval": (first_what, (7, 10))}, dev, mhz,
+        parent_csrc)
     res = {
-        "dir_dist_map": dict(err=0.0, ms=field_ms,
-                             wrapper_ms=field_wrapper_ms,
-                             plain_ms=field_plain_ms, bound=field_bound,
-                             chain=field_chain),
-        "poly_eval_edges": dict(err=max(err.values()), ms=eval_ms,
-                                wrapper_ms=eval_wrapper_ms,
-                                plain_ms=eval_plain_ms, bound=eval_bound,
-                                chain=eval_chain),
+        "dir_dist_map": dict(
+            err=0.0, ms=field_ms, wrapper_ms=field_wrapper_ms,
+            graph_ms=field_graph_ms, plain_ms=field_plain_ms,
+            bound=field_bound, per_slice_bound=field_slice_bound,
+            chain=field_chain, phases_us=field_us[first_what],
+            parent=parent.get("field")),
+        "poly_eval_edges": dict(
+            err=max(err.values()), ms=eval_ms, wrapper_ms=eval_wrapper_ms,
+            graph_ms=eval_graph_ms, plain_ms=eval_plain_ms,
+            bound=eval_bound, full_scan_bound=eval_full_bound,
+            chain=eval_chain, steps_needed=steps,
+            phases=[eval_us[(first_what, (7, 10), k)] for k in range(K)],
+            parent=parent.get("eval")),
         "poly_propagate": dict(err=0.0, ms=prop_ms,
                                wrapper_ms=prop_wrapper_ms,
                                plain_ms=prop_plain_ms, bound=prop_bound,
                                chain=prop_chain)}
     for name, r in res.items():
+        extra = (f", from CUDA graphs {r['graph_ms']:.4f}"
+                 if "graph_ms" in r else "")
         print(f"{name}: kernel {r['ms']:.4f} ms (bare launcher; wrapper "
-              f"{r['wrapper_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+              f"{r['wrapper_ms']:.4f}{extra}), plain {r['plain_ms']:.4f} ms, "
               f"bound_ms {r['bound'][0]:.6f} ({r['bound'][1]}), chain_ms "
               f"{r['chain']:.6f}; max|kernel-plain| {r['err']:.3e}")
+    print(f"dir_dist_map: bound_ms of one march a slice "
+          f"{field_slice_bound[0]:.6f} ({field_slice_bound[1]}); "
+          f"poly_eval_edges: bound_ms of every step of every edge "
+          f"{eval_full_bound[0]:.6f} ({eval_full_bound[1]}), steps needed "
+          f"(polynomial, past te) a level {steps}")
     return res
 
 
@@ -4123,15 +4428,15 @@ def main(argv=()):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", action="append", metavar="DIR",
                     help="a directory with another version of any of the "
-                    "eight kernel sources the phases compare (and the "
+                    "ten kernel sources the phases compare (and the "
                     "headers they include): "
                     "built with the same flags, run in turns with the tree's "
                     "kernels on the same inputs, results and times printed")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, probe, then only the action-min, rampify, "
-                    "time-indexed MPC and lon backward-slice kernel checks "
-                    "and times on seeded inputs; drives no loop and prints "
-                    "no result line")
+                    "time-indexed MPC, lon backward-slice and graph DP "
+                    "kernel checks and times on seeded inputs; drives no "
+                    "loop and prints no result line")
     ap.add_argument("--host-profile", type=int, default=0, metavar="TICKS",
                     help="build, then cProfile TICKS ticks of the vendored "
                     "RSTP loop with the host C routes off and on; prints "
@@ -4206,6 +4511,9 @@ def main(argv=()):
               cycles, mhz, opts.parent_csrc)
         phase("lon DP backward slice", lon_seeded_phase, tlk, dev,
               opts.parent_csrc)
+        phase("graph DP kernels", dp_poly_kernel_phase, dpe, ppk,
+              dp_standin_first(dpe, ppk, dev), dev, cycles, mhz,
+              opts.parent_csrc)
         print("kernels only: no loop was driven")
         return 0
     phase("DP slice", slice_phase, lam, tllk)
@@ -4250,7 +4558,7 @@ def main(argv=()):
     gdp = phase("graph DP closed loop", dp_poly_loop_phase, dpe, ppk,
                 DP_POLY_TICKS)
     gk = phase("graph DP kernels", dp_poly_kernel_phase, dpe, ppk,
-               gdp["first"], dev, cycles, mhz)
+               gdp["first"], dev, cycles, mhz, opts.parent_csrc)
     ctl = {name: phase(f"closed loop, {name}", controller_loop_phase, itt,
                        itm, rstp, rmp, name, CONTROLLER_TICKS)
            for name in CONTROLLER_JAX_END}
@@ -4434,6 +4742,16 @@ def main(argv=()):
     # first replan (the evaluation and propagation at start index (7, 10))
     for name, source, replaces in DP_POLY_ROWS:
         r = gk[name]
+        extra = {}
+        if name == "dir_dist_map":
+            extra = dict(per_slice_bound_ms=r["per_slice_bound"][0],
+                         phases_us=r["phases_us"])
+        elif name == "poly_eval_edges":
+            extra = dict(full_scan_bound_ms=r["full_scan_bound"][0],
+                         steps_needed=r["steps_needed"],
+                         phases_cycles=r["phases"])
+        if "graph_ms" in r:
+            extra.update(graph_ms=r["graph_ms"], parent_ms=r["parent"])
         rows.append({
             "name": name, "route": "cuda",
             "source": f"tpl_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -4445,7 +4763,8 @@ def main(argv=()):
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "chain_ms": r["chain"], "library_ms": NO_LIBRARY,
             "runtime_environment_median_ms": float(np.median(gdp["env_ms"])),
-            "runtime_planning_median_ms": float(np.median(gdp["plan_ms"]))})
+            "runtime_planning_median_ms": float(np.median(gdp["plan_ms"]))}
+            | extra)
     # the time-indexed MPC: launches on its loop, the checks on the seeded
     # cases and the loop's solves, times on the loop's first recorded solve
     tl, tloop = tk["loop"], ctl[TIME_MPC]

@@ -441,6 +441,67 @@ def test_dir_dist_bounds_count_the_samples_marched():
         pytest.approx(72 * (4 + 8 + 40 + 30) / 2e6)
 
 
+def test_dir_dist_needed_work_bound_by_hand():
+    """The needed-work bound counts one march a ray for all slices: the
+    longest of its slices; the bound of one march a slice their sum."""
+    from tpl_tpu_torch.planning.dyn_prog import dp_environment as dpe
+
+    F = dpe.FREE_DIST
+    # two slices, one cell, two rays: slice 0 blocks ray 0 at sample 0 and
+    # ray 1 at sample 3, slice 1 leaves ray 0 free and blocks ray 1 at 1
+    field = torch.tensor([[0.0, 1.5], [F, 0.5]],
+                         dtype=torch.float32).reshape(2, 1, 1, 2)
+    assert dpe.dir_dist_samples(field, 0.5, 72) == 1 + 4 + 72 + 2
+    assert dpe.dir_dist_merged_samples(field, 0.5, 72) == 72 + 4
+    ms, by = dpe.dir_dist_needed_bound_ms(field, 0.5, 72)
+    assert by == "operations"
+    assert ms == pytest.approx((76 * dpe.OPS_SAMPLE + 4) / 67e9)
+    ms, by = dpe.dir_dist_bound_ms(field, 0.5, 72)
+    assert ms == pytest.approx((79 * dpe.OPS_SAMPLE + 4) / 67e9)
+    # the demo grid with every ray free in every slice: the field's bytes
+    # lead the merged march
+    T, S, L, D = 10, 201, 21, 21
+    free = torch.full((T, S, L, D), F)
+    ms, by = dpe.dir_dist_needed_bound_ms(free, 0.5, 72)
+    ops = S * L * D * 72 * dpe.OPS_SAMPLE + T * S * L * D
+    assert by == "operations" and ms == pytest.approx(ops / 67e9)
+    blocked = torch.zeros((T, S, L, D))
+    ms, by = dpe.dir_dist_needed_bound_ms(blocked, 0.5, 72)
+    assert by == "bytes"
+    assert ms == pytest.approx(dpe.dir_dist_bytes(T, S, L, D) / 3.35e9)
+
+
+def test_graph_dp_needed_steps_by_hand():
+    """The steps an edge needs: those up to its end time on the
+    polynomial, then (last level) those past it up to the horizon."""
+    from tpl_tpu_torch.planning.dyn_prog import dp_environment as dpe
+    from tpl_tpu_torch.planning.dyn_prog import poly_planner_kernel as ppk
+
+    p = ppk.DpPolyParams()
+    p.t_steps = 3                          # horizon 2 s, 9 steps
+    ev = ppk.eval_params(p, dpe.DpEnvParams(), 0.5)
+    pts = torch.zeros((2, 8))
+    pts[1, ppk.PP_T] = 1.5
+    starts = torch.tensor([0, 0, 1], dtype=torch.int32)
+    specs = torch.tensor([[1.0, 5.0, 0.0], [2.0, 5.0, 0.0],
+                          [1.75, 5.0, 0.0]])
+    n = p.n_int_steps()
+    assert n == 9
+    # ts 0 .. 1 (5 steps) and 0 .. 2 (9); from 1.5: 1.5 and 1.75 (2)
+    assert ppk.eval_steps_needed(pts, starts, specs, False, ev, n) == (16, 0)
+    # the last level adds 1.25 .. 2 (4 steps) and 2.0 (1)
+    assert ppk.eval_steps_needed(pts, starts, specs, True, ev, n) == (16, 5)
+    # a million such levels' steps against one launch's bytes
+    ms, by = ppk.eval_needed_bound_ms([2], [3], (3, 4, 5, 6), 7, 16 * 10**6,
+                                      5 * 10**6)
+    assert by == "operations"
+    assert ms == pytest.approx((16e6 * ppk.OPS_STEP + 5e6 * ppk.OPS_TAIL_STEP
+                                + 3 * ppk.OPS_EDGE) / 67e9)
+    ms, by = ppk.eval_needed_bound_ms([2], [3], (3, 4, 5, 6), 7, 16, 5)
+    assert by == "bytes" and ms == pytest.approx(
+        ppk.eval_bytes(2, 3, (3, 4, 5, 6), 7) / 3.35e9)
+
+
 def test_graph_dp_bounds_at_the_demo_widths():
     from tpl_tpu_torch.planning.dyn_prog import poly_planner_kernel as ppk
 

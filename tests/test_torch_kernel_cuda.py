@@ -57,8 +57,9 @@ from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner as psp
 from tpl_tpu_torch.planning.dyn_prog import dp_environment as dpe
 from tpl_tpu_torch.planning.dyn_prog import poly_planner_kernel as ppk
 from tpl_tpu_torch.scenes import (LON_DEMO, LON_EDGE, MPC_TIME_KINDS,
-                                  dp_poly_buffers,
-                                  dp_poly_env, dp_poly_propagation_case,
+                                  dp_moving_occ, dp_poly_buffers,
+                                  dp_poly_env, dp_poly_near_horizon,
+                                  dp_poly_propagation_case,
                                   dp_random_occ,
                                   idm_args, idm_bench_scene,
                                   idm_hairpin_scene, idm_scene,
@@ -1395,6 +1396,28 @@ def test_dir_dist_kernel_matches_plain(cuda, case, R):
     assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 10, 40])
+@pytest.mark.parametrize("R", [40, 72])
+def test_dir_dist_kernel_one_march_for_all_slices(cuda, T, R):
+    """One march a ray for every slice of a group (T = 40: groups of 32 and
+    8) on occupancy that changes over t, at the demo grid's 201 stations:
+    cell for cell the plain version's field on the card and on the CPU;
+    the profiling instantiation bit-equal, with every phase counted."""
+    tpl_tpu_torch.use_device("cuda")
+    occ = torch.from_numpy(dp_moving_occ(T + R, T, S=201)).to(cuda)
+    ray, scal, step = _field_args(cuda)
+    got = dpe.dir_dist_map(occ, ray, *scal, step, R)
+    prof, cycles, blocks = dpe.dir_dist_profile(occ, ray, *scal, step, R)
+    want = dpe.dir_dist_reference(occ, ray, *scal, step, R)
+    cpu = dpe.dir_dist_reference(occ.cpu(), ray.cpu(), *scal, step, R)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+    assert torch.equal(prof, got)
+    assert blocks == 201 * (2 if T > 32 else 1)
+    assert all(v > 0 for v in cycles.values())
+
+
 def _graph_levels(dev, key, small):
     env = dp_poly_env(True)
     dd = env.update_dir_dist_map()
@@ -1448,6 +1471,57 @@ def test_poly_planner_kernels_match_plain(cuda, key, small):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("key,small", [((2, 4), True), ((5, 1), True),
+                                       ((7, 8), True), ((7, 10), False)])
+def test_poly_eval_profiling_kernel_is_bit_equal(cuda, key, small):
+    """The evaluation's profiling instantiation: both levels' end points
+    bit-equal to the kernel's, and the steps it took those the edges need
+    (:func:`ppk.eval_steps_needed`)."""
+    tpl_tpu_torch.use_device("cuda")
+    env, dd, p, node_steps, edge_steps, ev, init = _graph_levels(cuda, key,
+                                                                 small)
+    level = [init]
+    K = len(edge_steps)
+    for k in range(K):
+        starts = torch.from_numpy(edge_steps[k]).to(cuda)
+        specs = torch.from_numpy(node_steps[k + 1].astype(np.float32)).to(
+            cuda)
+        args = (level[k], starts, specs, k == K - 1, ev, dd,
+                env.grid.ref_line, p.n_int_steps())
+        got = ppk.eval_edges(*args)
+        prof, counts = ppk.eval_edges_profile(*args)
+        assert torch.equal(prof, got)
+        assert (counts["poly_steps"], counts["tail_steps"]) == \
+            ppk.eval_steps_needed(*args[:5], args[-1])
+        level.append(got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("is_last", [True, False])
+def test_poly_eval_kernel_near_the_horizon(cuda, is_last):
+    """Edges from start points near the horizon (an edge ends at it, some
+    end past it): bit for bit the plain version's end points on the card
+    and on the CPU, the profiling instantiation too."""
+    tpl_tpu_torch.use_device("cuda")
+    env = dp_poly_env(True)
+    dd = env.update_dir_dist_map()
+    p = ppk.DpPolyParams()
+    ev = ppk.eval_params(p, env.params, np.float32(env.ref_step))
+    pts, starts, specs = (torch.from_numpy(a).to(cuda)
+                          for a in dp_poly_near_horizon(p))
+    args = (pts, starts, specs, is_last, ev, dd, env.grid.ref_line,
+            p.n_int_steps())
+    got = ppk.eval_edges(*args)
+    want = ppk.eval_edges_reference(*args)
+    cpu = ppk.eval_edges_reference(*[a.cpu() if torch.is_tensor(a) else a
+                                     for a in args])
+    prof, counts = ppk.eval_edges_profile(*args)
+    assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+    assert torch.equal(prof, got)
+    assert (counts["tail_steps"] > 0) == is_last
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("seed,ties,nan", [(0, True, True), (1, True, False),
                                            (2, False, True)])
 def test_poly_propagate_kernel_matches_plain(cuda, seed, ties, nan):
@@ -1470,9 +1544,10 @@ def test_poly_propagate_kernel_matches_plain(cuda, seed, ties, nan):
 
 @pytest.mark.cuda
 def test_graph_dp_replan_on_card_matches_cpu(cuda, monkeypatch):
-    """``DpPolyPlannerKernel.update`` on the card: 2 evaluation and 2
-    propagation launches, no plain version, and the CPU path's trajectory;
-    the field through one launch."""
+    """``DpPolyPlannerKernel.update`` on the card: 2 evaluations (2
+    launches each: the field's slice, the edges) and 2 propagation
+    launches, no plain version, and the CPU path's trajectory; the field
+    through one launch."""
     def plain(*args, **kw):
         raise AssertionError("a plain version ran on CUDA tensors")
 
@@ -1493,7 +1568,7 @@ def test_graph_dp_replan_on_card_matches_cpu(cuda, monkeypatch):
     env.update_dir_dist_map()
     got = ppk.DpPolyPlannerKernel().update(init, env)
     assert (dpe.dir_dist_launches, ppk.eval_launches,
-            ppk.propagate_launches) == (before[0] + 1, before[1] + 2,
+            ppk.propagate_launches) == (before[0] + 1, before[1] + 4,
                                         before[2] + 2)
     np.testing.assert_array_equal(got, want)
 
@@ -1502,8 +1577,8 @@ def test_graph_dp_replan_on_card_matches_cpu(cuda, monkeypatch):
 def test_graph_dp_replan_moves_one_state_up_and_one_trajectory_down(cuda):
     """A replan on a cached graph, traced by torch.profiler in a process
     that has run no sim loop: one host-to-device copy (the start state),
-    the 2 evaluation and 2 propagation kernels, one device-to-host copy
-    (the trajectory); no level's end points leave the card."""
+    the 2 slice, 2 evaluation and 2 propagation kernels, one device-to-host
+    copy (the trajectory); no level's end points leave the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1525,7 +1600,8 @@ def test_graph_dp_replan_moves_one_state_up_and_one_trajectory_down(cuda):
     down = [n for n in names if "DtoH" in n]
     kernels = [n for n in names if "Memcpy" not in n and "Memset" not in n]
     assert len(up) == 1 and len(down) == 1, names
-    assert sorted(n.split("(")[0].split("::")[-1] for n in kernels) == [
-        "eval_edges_kernel", "eval_edges_kernel", "propagate_kernel",
-        "propagate_kernel"], names
+    assert sorted(n.split("(")[0].split("<")[0].split("::")[-1]
+                  for n in kernels) == [
+        "eval_edges_kernel", "eval_edges_kernel", "field_slice_kernel",
+        "field_slice_kernel", "propagate_kernel", "propagate_kernel"], names
     np.testing.assert_array_equal(got, want)

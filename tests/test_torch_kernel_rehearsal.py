@@ -53,10 +53,13 @@ RSTP_X_ATOL);
 
 each **bit for bit** in float32: these kernels keep the plain versions'
 operations and their order; and the graph DP planner's directional field
-(cell for cell, on a stretch of the JAX test scene and seeded occupancy),
-its edge evaluation (bit for bit on both levels of three small graphs) and
-its propagation (every selection, propagated cost and the trajectory, also
-on seeded graphs with ties, NaN costs and edgeless nodes).  Grids and
+(cell for cell, on a stretch of the JAX test scene, seeded occupancy and
+occupancy that changes over t at T = 1, 10 and 40; its profiling
+instantiation bit-equal), its edge evaluation (bit for bit on both levels
+of three small graphs and on a level near the horizon; its profiling
+instantiation bit-equal, with the steps it takes) and its propagation
+(every selection, propagated cost and the trajectory, also on seeded
+graphs with ties, NaN costs and edgeless nodes).  Grids and
 graphs are kept small: every block costs barriers of 256 host threads,
 which crawl when the machine is busy.
 
@@ -90,7 +93,8 @@ from tpl_tpu_torch.planning.poly_sampling import poly_kernel as pok
 from tpl_tpu_torch.planning.poly_sampling import poly_sampling_planner as psp
 
 from tpl_tpu_torch import scenes
-from tpl_tpu_torch.scenes import (dp_poly_buffers, dp_poly_env,
+from tpl_tpu_torch.scenes import (dp_moving_occ, dp_poly_buffers,
+                                  dp_poly_env, dp_poly_near_horizon,
                                   dp_poly_propagation_case, dp_random_occ,
                                   idm_args, idm_hairpin_scene, idm_scene,
                                   idm_through_states,
@@ -244,7 +248,8 @@ namespace poly_lat { alignas(16) unsigned char smem_raw[65536]; }
 namespace idm_rollout_k { alignas(16) unsigned char smem_raw[262144]; }
 namespace idm_evaluate_k { alignas(16) unsigned char smem_raw[262144]; }
 namespace poly_sampling_k { alignas(16) unsigned char smem_raw[65536]; }
-namespace dir_dist { alignas(16) unsigned char smem_raw[65536]; }
+namespace dir_dist { alignas(16) unsigned char smem_raw[262144]; }
+namespace poly_planner_k { alignas(16) unsigned char smem_raw[65536]; }
 
 // A grid of gx x gy blocks of `threads` threads (256 unless given): every
 // host thread runs its thread of each block in turn (the blocks share the
@@ -407,34 +412,58 @@ extern "C" void rehearse_poly_sampling(
   });
 }
 
-// the directional distance field: a grid of S / S_TILE x T blocks
+// the directional distance field: a grid of S x ceil(T / 32) blocks, the
+// launcher's; with `prof` the profiling instantiation
 extern "C" void rehearse_dir_dist(const float* occ, const float* ray,
                                   float s_min, float s_step, float l_min,
-                                  float l_step, float step, float* out, int T,
-                                  int S, int L, int D, int R) {
+                                  float l_step, float step, float* out,
+                                  unsigned long long* prof, int T, int S,
+                                  int L, int D, int R) {
   using namespace dir_dist;
-  run_grid((S + S_TILE - 1) / S_TILE, T, [=] {
-    dir_dist_kernel(occ, ray, s_min, s_step, l_min, l_step, step, out, S, L,
-                    D, R);
-  });
+  run_grid(S, (T + GROUP - 1) / GROUP, [=] {
+    if (prof)
+      dir_dist_kernel<true>(occ, ray, s_min, s_step, l_min, l_step, step,
+                            out, prof, T, S, L, D, R);
+    else
+      dir_dist_kernel<false>(occ, ray, s_min, s_step, l_min, l_step, step,
+                             out, nullptr, T, S, L, D, R);
+  }, block_threads(L, D));
 }
 
-// one level's edge evaluation, a thread per edge; consts as the launcher's
+extern "C" size_t dir_dist_smem_bytes(int T, int S, int L, int D, int R) {
+  return dir_dist::smem_bytes(T, S, L, D, R);
+}
+
+// one level's edge evaluation as the launcher runs it: the field's slice
+// straight ahead into `slice`, then a thread per edge; consts as the
+// launcher's; with `prof` the profiling instantiation
 extern "C" void rehearse_poly_eval(const float* start_pts,
                                    const int* edge_starts,
                                    const float* end_specs,
                                    const float* dir_dist, const float* ref_line,
-                                   float* out, const float* consts, int E,
-                                   int is_last, int R, int T, int S, int L,
-                                   int D, int n_ref) {
+                                   float* slice, float* out,
+                                   unsigned long long* prof,
+                                   const float* consts, int E, int is_last,
+                                   int R, int T, int S, int L, int D,
+                                   int n_ref) {
   using namespace poly_planner_k;
   EvalParams p;
   std::memcpy(p.ev, consts, sizeof(p.ev));
   std::memcpy(p.m4, consts + N_EV, sizeof(p.m4));
   std::memcpy(p.h5, consts + N_EV + 25, sizeof(p.h5));
+  const int n = T * S * L;
+  run_grid((n + THREADS - 1) / THREADS, 1, [=] {
+    field_slice_kernel(dir_dist, slice, p.ev[DIR_MIN], p.ev[DIR_MAX], n, D);
+  });
   run_grid((E + THREADS - 1) / THREADS, 1, [=] {
-    eval_edges_kernel(start_pts, edge_starts, end_specs, dir_dist, ref_line,
-                      out, p, E, is_last, R, T, S, L, D, n_ref);
+    if (prof)
+      eval_edges_kernel<true>(start_pts, edge_starts, end_specs, slice,
+                              ref_line, out, prof, p, E, is_last, R, T, S, L,
+                              n_ref);
+    else
+      eval_edges_kernel<false>(start_pts, edge_starts, end_specs, slice,
+                               ref_line, out, nullptr, p, E, is_last, R, T,
+                               S, L, n_ref);
   });
 }
 
@@ -695,9 +724,12 @@ def bodies(tmp_path_factory):
     lib.rehearse_dir_dist.restype = None
     lib.rehearse_dir_dist.argtypes = ([ctypes.c_void_p] * 2
                                       + [ctypes.c_float] * 5
-                                      + [ctypes.c_void_p] + [ctypes.c_int] * 5)
+                                      + [ctypes.c_void_p] * 2
+                                      + [ctypes.c_int] * 5)
+    lib.dir_dist_smem_bytes.restype = ctypes.c_size_t
+    lib.dir_dist_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.rehearse_poly_eval.restype = None
-    lib.rehearse_poly_eval.argtypes = ([ctypes.c_void_p] * 7
+    lib.rehearse_poly_eval.argtypes = ([ctypes.c_void_p] * 9
                                        + [ctypes.c_int] * 8)
     lib.rehearse_poly_propagate.restype = None
     lib.rehearse_poly_propagate.argtypes = ([ctypes.c_void_p] * 6
@@ -1735,7 +1767,7 @@ def test_poly_sampling_body_matches_plain(bodies, scene):
 # edge evaluation's end points bit for bit (the same operations in the same
 # order), the propagation's selections and trajectory exactly
 
-def _dir_field(bodies, occ, R):
+def _dir_field(bodies, occ, R, prof=None):
     p = dpe.DpEnvParams()
     f32 = np.float32
     ray, step = dpe.ray_table(p.dir_min, p.dir_max, p.dir_steps,
@@ -1748,16 +1780,17 @@ def _dir_field(bodies, occ, R):
     D = ray.shape[0]
     out = np.zeros((T, S, L, D), np.float32)
     bodies.rehearse_dir_dist(_ptr(occ), _ptr(np.ascontiguousarray(
-        ray.numpy())), *scal, step, _ptr(out), T, S, L, D, R)
+        ray.numpy())), *scal, step, _ptr(out),
+        None if prof is None else _ptr(prof), T, S, L, D, R)
     return out, want.numpy()
 
 
 @pytest.mark.parametrize("case,R", [("obstacle", 72), ("random", 72),
                                     ("random", 40)])
 def test_dir_dist_body_matches_plain_cell_for_cell(bodies, case, R):
-    """On two time slices of 41 stations (a grid of 11 x 2 blocks: the
-    host threads' barriers are slow when the machine is busy): the test
-    scene's stretch around the obstacle and seeded occupancy."""
+    """On two time slices of 41 stations (a grid of 41 blocks: the host
+    threads' barriers are slow when the machine is busy): the test scene's
+    stretch around the obstacle and seeded occupancy."""
     tpl_tpu_torch.use_device("cpu")
     occ = (dp_poly_env(True).get_occ_map()[:2, 40:81] if case == "obstacle"
            else dp_random_occ(3, T=2, S=41))
@@ -1768,16 +1801,50 @@ def test_dir_dist_body_matches_plain_cell_for_cell(bodies, case, R):
     assert ((want > 0.0) & (want < dpe.FREE_DIST)).any()
 
 
+@pytest.mark.parametrize("T", [1, 10, 40])
+@pytest.mark.parametrize("R", [40, 72])
+def test_dir_dist_body_one_march_for_all_slices(bodies, T, R):
+    """One march a ray for every slice of a group (T = 40: two groups of
+    32 and 8) on occupancy that changes over t: cell for cell the plain
+    version's field; the profiling instantiation bit-equal, its phases
+    counted on every block."""
+    occ = dp_moving_occ(T + R, T)
+    got, want = _dir_field(bodies, occ, R)
+    np.testing.assert_array_equal(got, want)
+    if T > 1:   # the slices' fields differ, so a slice's own march matters
+        assert not (want == want[:1]).all()
+    prof = np.zeros(len(dpe.PHASES), np.uint64)
+    again, _ = _dir_field(bodies, occ, R, prof)
+    np.testing.assert_array_equal(again, got)
+    assert (prof > 0).all()
+    # the merged march needs no more samples than one march a slice
+    field = torch.from_numpy(want)
+    merged = dpe.dir_dist_merged_samples(field, 0.5, R)
+    assert merged <= dpe.dir_dist_samples(field, 0.5, R)
+    assert merged >= field[0].numel()
+
+
+def test_dir_dist_block_memory_holds_a_group_and_the_grid(bodies):
+    """A block's shared memory: the group's distances (at most 32 slices),
+    a mask word a cell and a row a sample of each direction, whatever T."""
+    assert bodies.dir_dist_smem_bytes(10, 201, 21, 21, 72) == 4 * (
+        10 * 441 + 201 * 21 + 21 * 72 + 2)
+    assert bodies.dir_dist_smem_bytes(40, 201, 21, 21, 72) == \
+        bodies.dir_dist_smem_bytes(32, 201, 21, 21, 72)
+
+
 def _rehearse_eval(bodies, start_pts, starts, specs, is_last, ev, dd, rl,
-                   n_int):
+                   n_int, prof=None):
     m4, h5 = ppk.inverses_f32()
     consts = np.concatenate([ev, m4.ravel(), h5.ravel()]).astype(np.float32)
     E = len(starts)
     out = np.zeros((E, 8), np.float32)
     T, S, L, D = dd.shape
+    field_slice = np.zeros(T * S * L, np.float32)
     bodies.rehearse_poly_eval(
         _ptr(start_pts), _ptr(starts), _ptr(specs), _ptr(dd), _ptr(rl),
-        _ptr(out), _ptr(consts), E, int(is_last), n_int, T, S, L, D, len(rl))
+        _ptr(field_slice), _ptr(out), None if prof is None else _ptr(prof),
+        _ptr(consts), E, int(is_last), n_int, T, S, L, D, len(rl))
     return out
 
 
@@ -1799,7 +1866,8 @@ def _rehearse_propagate(bodies, pts, seg, node_off, seg_off):
 
 @pytest.mark.parametrize("key", [(2, 4), (5, 1), (7, 8)])
 def test_poly_planner_bodies_match_plain(bodies, key):
-    """Both levels' edge evaluation on the obstacle scene, then the
+    """Both levels' edge evaluation on the obstacle scene (and its
+    profiling instantiation, with the steps it takes), then the
     propagation on those end points: every end point bit for bit, every
     selection and the trajectory exactly, on a graph of 6 s x 8 ds x 9 l
     (the demo widths' graphs are checked on the card)."""
@@ -1826,6 +1894,14 @@ def test_poly_planner_bodies_match_plain(bodies, key):
                              specs.numpy(), k == K - 1, ev, dd.numpy(),
                              rl.numpy(), n_int)
         np.testing.assert_array_equal(got, want.numpy())
+        prof = np.zeros(len(ppk.EVAL_PHASES) + len(ppk.EVAL_COUNTS),
+                        np.uint64)
+        again = _rehearse_eval(bodies, level[k].numpy(), starts.numpy(),
+                               specs.numpy(), k == K - 1, ev, dd.numpy(),
+                               rl.numpy(), n_int, prof)
+        np.testing.assert_array_equal(again, got)
+        assert tuple(prof[-2:].tolist()) == ppk.eval_steps_needed(
+            level[k], starts, specs, k == K - 1, ev, n_int)
         level.append(want)
     pts = torch.cat(level)
     node_off, seg, seg_off = ppk.graph_layout([len(x) for x in level],
@@ -1843,6 +1919,41 @@ def test_poly_planner_bodies_match_plain(bodies, key):
     np.testing.assert_array_equal(g_cost[:inner], node_cost.numpy()[:inner])
     np.testing.assert_array_equal(g_traj, traj.numpy())
     assert np.all(np.diff(g_traj[:, ppk.PP_T]) > 0)
+
+
+@pytest.mark.parametrize("is_last", [True, False])
+def test_poly_eval_body_near_the_horizon(bodies, is_last):
+    """Edges from start points near the horizon (the loops end at once or
+    after a step or two; an edge ends at the horizon, one starts at it,
+    some end past it) and the profiling instantiation: bit for bit, its
+    step counts those of :func:`ppk.eval_steps_needed`."""
+    tpl_tpu_torch.use_device("cpu")
+    env = dp_poly_env(True)
+    dd = env.update_dir_dist_map()
+    p = ppk.DpPolyParams()
+    ev = ppk.eval_params(p, env.params, np.float32(env.ref_step))
+    pts, starts, specs = dp_poly_near_horizon(p)
+    assert (specs[:, 0] == np.float32((p.t_steps - 1) * p.dt)).any()
+    n_int = p.n_int_steps()
+    rl = env.grid.ref_line
+    want = ppk.eval_edges_reference(torch.from_numpy(pts),
+                                    torch.from_numpy(starts),
+                                    torch.from_numpy(specs), is_last, ev, dd,
+                                    rl, n_int)
+    got = _rehearse_eval(bodies, pts, starts, specs, is_last, ev, dd.numpy(),
+                         rl.numpy(), n_int)
+    np.testing.assert_array_equal(got, want.numpy())
+    prof = np.zeros(len(ppk.EVAL_PHASES) + len(ppk.EVAL_COUNTS), np.uint64)
+    again = _rehearse_eval(bodies, pts, starts, specs, is_last, ev,
+                           dd.numpy(), rl.numpy(), n_int, prof)
+    np.testing.assert_array_equal(again, got)
+    poly, tail = ppk.eval_steps_needed(
+        torch.from_numpy(pts), torch.from_numpy(starts),
+        torch.from_numpy(specs), is_last, ev, n_int)
+    counts = dict(zip(ppk.EVAL_PHASES + ppk.EVAL_COUNTS, prof.tolist()))
+    assert (counts["poly_steps"], counts["tail_steps"]) == (poly, tail)
+    assert tail > 0 if is_last else tail == 0
+    assert counts["fit"] > 0 and counts["lookup"] > 0
 
 
 @pytest.mark.parametrize("seed,ties,nan", [(0, True, True), (1, True, False),

@@ -36,6 +36,8 @@ dir_dist_launches = 0   # kernel launches since import (reset freely)
 
 # the distance of a ray that meets nothing within its steps
 FREE_DIST = 10000.0
+# the time slices one march of the kernel serves (a mask word's bits)
+SLICE_GROUP = 32
 
 
 class DpEnvParams:
@@ -275,13 +277,8 @@ def dir_dist_reference(occ, ray, s_min, s_step, l_min, l_step, step,
     return torch.stack(out)
 
 
-def dir_dist_map(occ, ray, s_min, s_step, l_min, l_step, step, ray_steps):
-    """The directional distance field (T, S, L, D) float32: the kernel
-    ``dir_dist_map`` on a CUDA tensor, :func:`dir_dist_reference` on a CPU
-    tensor.  Arguments as
-    :func:`dir_dist_reference`'s; ``ray_steps`` is a runtime integer, so a
-    new value compiles nothing."""
-    global dir_dist_launches
+def _field_inputs(occ, ray, ray_steps):
+    """Checks the field's inputs; returns (T, S, L, D)."""
     dev = occ.device
     if occ.dim() != 3:
         raise ValueError(f"occ must be (T, S, L), got {tuple(occ.shape)}")
@@ -293,6 +290,18 @@ def dir_dist_map(occ, ray, s_min, s_step, l_min, l_step, step, ray_steps):
     _check("ray", ray, (D, 2), torch.float32, dev)
     if ray_steps < 1:
         raise ValueError(f"ray_steps must be positive, got {ray_steps}")
+    return T, S, L, D
+
+
+def dir_dist_map(occ, ray, s_min, s_step, l_min, l_step, step, ray_steps):
+    """The directional distance field (T, S, L, D) float32: the kernel
+    ``dir_dist_map`` on a CUDA tensor, :func:`dir_dist_reference` on a CPU
+    tensor.  Arguments as
+    :func:`dir_dist_reference`'s; ``ray_steps`` is a runtime integer, so a
+    new value compiles nothing."""
+    global dir_dist_launches
+    dev = occ.device
+    T, S, L, D = _field_inputs(occ, ray, ray_steps)
     if dev.type == "cpu":
         return dir_dist_reference(occ, ray, s_min, s_step, l_min, l_step,
                                   step, ray_steps)
@@ -311,6 +320,35 @@ def dir_dist_map(occ, ray, s_min, s_step, l_min, l_step, step, ray_steps):
     return out
 
 
+# the profiling instantiation's phases (csrc/dir_dist_map.cu Phase)
+PHASES = ("stage", "march", "write")
+
+
+def dir_dist_profile(occ, ray, s_min, s_step, l_min, l_step, step,
+                     ray_steps):
+    """The kernel's profiling instantiation on CUDA tensors (not counted as
+    a launch of the main path): (the field, {phase: thread 0's clock64()
+    cycles from barrier to barrier, summed over the blocks}, the number of
+    blocks).  Its field is bit-equal to :func:`dir_dist_map`'s."""
+    dev = occ.device
+    T, S, L, D = _field_inputs(occ, ray, ray_steps)
+    if dev.type != "cuda":
+        raise ValueError("dir_dist_profile needs CUDA tensors")
+    lib = _kernel()
+    out = torch.empty((T, S, L, D), dtype=torch.float32, device=dev)
+    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.dir_dist_map_profile(
+            occ.data_ptr(), ray.data_ptr(), s_min, s_step, l_min, l_step,
+            step, out.data_ptr(), prof.data_ptr(), T, S, L, D, ray_steps,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dir_dist_map_profile launch failed: CUDA error "
+                           f"{err}")
+    blocks = S * -(-T // SLICE_GROUP)
+    return out, dict(zip(PHASES, prof.cpu().tolist())), blocks
+
+
 # Operations of one ray sample as the plain version defines it: the two
 # sample positions (a multiply and an add each), the two float indices (a
 # subtraction and a division each), the four grid tests, the two clips and
@@ -321,13 +359,26 @@ OPS_SAMPLE = 16
 CHAIN_SAMPLE = dict(f32_mul=1, f32_add=2, f32_div=1, smem_load=1)
 
 
-def dir_dist_samples(field, step, ray_steps):
-    """The samples the rays of ``field`` (a computed field) marched: the
-    first blocking sample's index + 1, or ``ray_steps`` where none blocked
-    (the work this run's data needs, with the early exit)."""
+def _ray_samples(field, step, ray_steps):
+    """Each ray's samples in each slice: the first blocking sample's index
+    + 1, or ``ray_steps`` where none blocked (float64, like ``field``)."""
     f = field.double()
-    return int(torch.where(f == FREE_DIST, float(ray_steps),
-                           torch.round(f / step) + 1.0).sum())
+    return torch.where(f == FREE_DIST, float(ray_steps),
+                       torch.round(f / step) + 1.0)
+
+
+def dir_dist_samples(field, step, ray_steps):
+    """The samples the rays of ``field`` (a computed field) marched, one
+    march a slice (the work this run's data needs, with the early exit, as
+    the plain version defines it)."""
+    return int(_ray_samples(field, step, ray_steps).sum())
+
+
+def dir_dist_merged_samples(field, step, ray_steps):
+    """The samples one march of each ray for all slices needs: the longest
+    of its slices (the kernel marches a ray once for up to ``SLICE_GROUP``
+    slices)."""
+    return int(_ray_samples(field, step, ray_steps).amax(dim=0).sum())
 
 
 def dir_dist_bytes(T, S, L, D):
@@ -337,6 +388,7 @@ def dir_dist_bytes(T, S, L, D):
 
 
 def dir_dist_bound_ms(field, step, ray_steps):
+    """The bound of one march a slice (the plain version's samples)."""
     T, S, L, D = field.shape
     return _latency.roofline_ms(
         dir_dist_bytes(T, S, L, D),
@@ -344,12 +396,20 @@ def dir_dist_bound_ms(field, step, ray_steps):
         "float32")
 
 
+def dir_dist_needed_bound_ms(field, step, ray_steps):
+    """The needed-work bound: one march a ray for all slices
+    (:func:`dir_dist_merged_samples`), each distance written."""
+    T, S, L, D = field.shape
+    return _latency.roofline_ms(
+        dir_dist_bytes(T, S, L, D),
+        dir_dist_merged_samples(field, step, ray_steps) * OPS_SAMPLE
+        + field.numel(), "float32")
+
+
 def dir_dist_chain_ms(field, step, ray_steps, cycles, sm_mhz):
     """The longest ray's chain: its samples (at most ``ray_steps``) one
     after the other."""
-    f = field.double()
-    longest = int(torch.where(f == FREE_DIST, float(ray_steps),
-                              torch.round(f / step) + 1.0).max())
+    longest = int(_ray_samples(field, step, ray_steps).max())
     return _latency.chain_ms(_latency.add_ops({}, CHAIN_SAMPLE, longest),
                              cycles, sm_mhz)
 
@@ -358,16 +418,26 @@ _LIB = None
 
 
 def _kernel():
-    """Build (first call) and bind the field's kernel library."""
+    """Build (first call) and bind the field's kernel library, and load its
+    code onto the current device with the shared-memory limit set, so that
+    the first launch pays for neither."""
     global _LIB
     if _LIB is None:
         from tpl_tpu_torch import _build
 
         lib = _build.load("dir_dist_map")
+        head = [ctypes.c_void_p] * 2 + [ctypes.c_float] * 5
+        tail = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.dir_dist_map.restype = ctypes.c_int
-        lib.dir_dist_map.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_float] * 5 + [ctypes.c_void_p]
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.dir_dist_map.argtypes = head + [ctypes.c_void_p] + tail
+        lib.dir_dist_map_profile.restype = ctypes.c_int
+        lib.dir_dist_map_profile.argtypes = head + [ctypes.c_void_p] * 2 + tail
+        for fn in (lib.dir_dist_map_n_phases, lib.dir_dist_map_prepare):
+            fn.restype = ctypes.c_int
+            fn.argtypes = []
+        if lib.dir_dist_map_n_phases() != len(PHASES):
+            raise RuntimeError("dir_dist_map.cu and PHASES disagree")
+        _build.prepare(lib, "dir_dist_map")
         _LIB = lib
     return _LIB
 

@@ -9,12 +9,13 @@ tpl_tpu/planning/dyn_prog/poly_planner_kernel.py)
 
 The graph is built on the host (numpy, rate-feasibility pruning, cached
 per (ds, l) start index) and uploaded once per start index; a replan is
-one upload of the 8-float start state, ``eval_steps`` edge-evaluation
-launches, ``eval_steps`` propagation launches and one download of the
-(eval_steps + 1, 8) trajectory.  Every level's end points stay on the
-device.  On a CUDA tensor the two entries are the hand-written kernels of
-``csrc/poly_planner.cu``: :func:`eval_edges` (``poly_eval_edges``, a thread
-per edge) and :func:`propagate_and_backtrack` (``poly_propagate``, a launch
+one upload of the 8-float start state, ``eval_steps`` edge evaluations
+(two launches each), ``eval_steps`` propagation launches and one download
+of the (eval_steps + 1, 8) trajectory.  Every level's end points stay on
+the device.  On a CUDA tensor the two entries are the hand-written kernels
+of ``csrc/poly_planner.cu``: :func:`eval_edges` (``poly_eval_edges``: the
+field's slice straight ahead gathered, then a thread per edge that takes
+only the steps it needs) and :func:`propagate_and_backtrack` (``poly_propagate``, a launch
 per level from the last down, a warp per node, the level-0 launch also
 backtracks); on a CPU tensor their plain PyTorch versions
 :func:`eval_edges_reference` and :func:`propagate_reference`.
@@ -52,6 +53,9 @@ from tpl_tpu_torch.planning.dyn_prog.lon_kernel import _check
 
 eval_launches = 0       # kernel launches since import (reset freely)
 propagate_launches = 0
+# kernels a level's evaluation launches: the field's slice straight ahead,
+# then the evaluation
+EVAL_KERNELS = 2
 
 # point fields: t, s, ds, dds, l, dl, ddl, cost
 PP_T, PP_S, PP_DS, PP_DDS, PP_L, PP_DL, PP_DDL, PP_COST = range(8)
@@ -421,14 +425,9 @@ def propagate_reference(pts, node_cost, best, seg, node_off, seg_off, traj):
 # the wrappers
 
 
-def eval_edges(start_pts, edge_starts, end_specs, is_last, ev, dir_dist,
-               ref_line, n_int, out=None):
-    """End points (E, 8) float32 of one level's edges: the kernel
-    ``poly_eval_edges`` on a CUDA tensor (written into ``out`` when given),
-    :func:`eval_edges_reference` on a CPU tensor.  Arguments as
-    :func:`eval_edges_reference`'s, contiguous on one device; ``ev`` stays
-    on the host (the launch takes it by value)."""
-    global eval_launches
+def _eval_inputs(start_pts, edge_starts, end_specs, ev, dir_dist, ref_line):
+    """Checks one level's evaluation inputs; returns ``ev`` as a float32
+    numpy vector."""
     dev = start_pts.device
     f32 = torch.float32
     if start_pts.dim() != 2 or start_pts.shape[1] != 8:
@@ -449,6 +448,44 @@ def eval_edges(start_pts, edge_starts, end_specs, is_last, ev, dir_dist,
     ev = np.ascontiguousarray(ev, np.float32)
     if ev.shape != (len(EVAL_KEYS),):
         raise ValueError(f"ev must hold {len(EVAL_KEYS)} values")
+    return ev
+
+
+def _launch_eval(fn, start_pts, edge_starts, end_specs, is_last, ev,
+                 dir_dist, ref_line, n_int, out, prof=()):
+    """``poly_eval_edges`` (or its profiling entry ``fn`` with the counter
+    buffer ``prof``) on CUDA tensors, into ``out``; scratch for the field's
+    slice straight ahead is allocated here."""
+    dev = start_pts.device
+    m4, h5 = inverses_f32()
+    consts = np.concatenate([ev, m4.ravel(), h5.ravel()]).astype(np.float32)
+    T, S, L, D = dir_dist.shape
+    field_slice = torch.empty(T * S * L, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(start_pts.data_ptr(), edge_starts.data_ptr(),
+                 end_specs.data_ptr(), dir_dist.data_ptr(),
+                 ref_line.data_ptr(), field_slice.data_ptr(),
+                 out.data_ptr(), *[b.data_ptr() for b in prof],
+                 consts.ctypes.data, edge_starts.shape[0],
+                 int(bool(is_last)), n_int, T, S, L, D, ref_line.shape[0],
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"poly_eval_edges launch failed: CUDA error {err}")
+
+
+def eval_edges(start_pts, edge_starts, end_specs, is_last, ev, dir_dist,
+               ref_line, n_int, out=None):
+    """End points (E, 8) float32 of one level's edges: the kernel
+    ``poly_eval_edges`` on a CUDA tensor (written into ``out`` when given;
+    two launches, the field's slice straight ahead and the evaluation, none
+    for E = 0), :func:`eval_edges_reference` on a CPU tensor.  Arguments as
+    :func:`eval_edges_reference`'s, contiguous on one device; ``ev`` stays
+    on the host (the launch takes it by value)."""
+    global eval_launches
+    dev = start_pts.device
+    ev = _eval_inputs(start_pts, edge_starts, end_specs, ev, dir_dist,
+                      ref_line)
+    E = edge_starts.shape[0]
     if dev.type == "cpu":
         res = eval_edges_reference(start_pts, edge_starts, end_specs,
                                    is_last, ev, dir_dist, ref_line, n_int)
@@ -460,23 +497,42 @@ def eval_edges(start_pts, edge_starts, end_specs, is_last, ev, dir_dist,
         raise ValueError(f"poly_planner_kernel: unsupported device {dev}")
     lib = _kernel()
     if out is None:
-        out = torch.empty((E, 8), dtype=f32, device=dev)
+        out = torch.empty((E, 8), dtype=torch.float32, device=dev)
     else:
-        _check("out", out, (E, 8), f32, dev)
-    m4, h5 = inverses_f32()
-    consts = np.concatenate([ev, m4.ravel(), h5.ravel()]).astype(np.float32)
-    T, S, L, D = dir_dist.shape
-    with torch.cuda.device(dev):
-        err = lib.poly_eval_edges(
-            start_pts.data_ptr(), edge_starts.data_ptr(),
-            end_specs.data_ptr(), dir_dist.data_ptr(), ref_line.data_ptr(),
-            out.data_ptr(), consts.ctypes.data, E, int(bool(is_last)),
-            n_int, T, S, L, D, ref_line.shape[0],
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"poly_eval_edges launch failed: CUDA error {err}")
-    eval_launches += 1
+        _check("out", out, (E, 8), torch.float32, dev)
+    _launch_eval(lib.poly_eval_edges, start_pts, edge_starts, end_specs,
+                 is_last, ev, dir_dist, ref_line, n_int, out)
+    if E:
+        eval_launches += EVAL_KERNELS
     return out
+
+
+# the profiling instantiation's phases (csrc/poly_planner.cu EvalPhase),
+# then the counts it adds
+EVAL_PHASES = ("fit", "poly", "tail", "lookup", "sums")
+EVAL_COUNTS = ("poly_steps", "tail_steps")
+
+
+def eval_edges_profile(start_pts, edge_starts, end_specs, is_last, ev,
+                       dir_dist, ref_line, n_int):
+    """The evaluation's profiling instantiation on CUDA tensors (not
+    counted as a launch of the main path): (end points bit-equal to
+    :func:`eval_edges`'s, {phase: clock64() cycles summed over the edges'
+    threads, then the polynomial and tail steps taken})."""
+    dev = start_pts.device
+    ev = _eval_inputs(start_pts, edge_starts, end_specs, ev, dir_dist,
+                      ref_line)
+    if dev.type != "cuda":
+        raise ValueError("eval_edges_profile needs CUDA tensors")
+    lib = _kernel()
+    out = torch.empty((edge_starts.shape[0], 8), dtype=torch.float32,
+                      device=dev)
+    prof = torch.zeros(len(EVAL_PHASES) + len(EVAL_COUNTS),
+                       dtype=torch.int64, device=dev)
+    _launch_eval(lib.poly_eval_edges_profile, start_pts, edge_starts,
+                 end_specs, is_last, ev, dir_dist, ref_line, n_int, out,
+                 (prof,))
+    return out, dict(zip(EVAL_PHASES + EVAL_COUNTS, prof.cpu().tolist()))
 
 
 def propagate_and_backtrack(pts, node_cost, best, seg, node_off, seg_off,
@@ -651,6 +707,9 @@ class DpPolyPlannerKernel:
 # cost, the step sum; per edge the two coefficient solves (5 x 5 and 6 x 6
 # products and sums), the end values and the cost.
 OPS_STEP = 150
+# a step past the end time: no normalised time, jerks or polynomials (63
+# of the 150), the tail's station (3)
+OPS_TAIL_STEP = OPS_STEP - 63 + 3
 OPS_EDGE = 2 * (25 + 36) + 40
 # the critical path of one edge's thread: the coefficients, one step's
 # chain (Horner, the station's lookups in L2), then the step sums one after
@@ -682,6 +741,37 @@ def eval_bound_ms(n_starts, edges, dir_shape, n_ref, n_int):
         sum(eval_bytes(n, E, dir_shape, n_ref)
             for n, E in zip(n_starts, edges)),
         sum(eval_operations(E, n_int) for E in edges), "float32")
+
+
+def eval_steps_needed(start_pts, edge_starts, end_specs, is_last, ev,
+                      n_int):
+    """(polynomial steps, tail steps) one level's edges need: the steps
+    whose time ts (float32, as the kernel forms it) is at most the edge's
+    end time, then those past it up to the end of the evaluation (the
+    horizon on the last level); no other step adds anything."""
+    dev = start_pts.device
+    t0 = start_pts[edge_starts.long(), PP_T]
+    te = end_specs[:, 0]
+    ts = t0[:, None] + torch.arange(n_int, dtype=torch.float32,
+                                    device=dev) * DT_INT
+    poly = ts <= te[:, None]
+    t_end = (float(np.float32(ev[EVAL_KEYS.index("t_horizon")])) if is_last
+             else te[:, None])
+    tail = ~poly & (ts <= t_end)
+    return int(poly.sum()), int(tail.sum())
+
+
+def eval_needed_bound_ms(n_starts, edges, dir_shape, n_ref, poly_steps,
+                         tail_steps):
+    """The needed-work bound of one evaluation launch per level: the bytes
+    of :func:`eval_bound_ms`, the operations of the steps the edges need
+    (``poly_steps`` and ``tail_steps`` summed over the levels, from
+    :func:`eval_steps_needed`)."""
+    return _latency.roofline_ms(
+        sum(eval_bytes(n, E, dir_shape, n_ref)
+            for n, E in zip(n_starts, edges)),
+        poly_steps * OPS_STEP + tail_steps * OPS_TAIL_STEP
+        + sum(edges) * OPS_EDGE, "float32")
 
 
 def eval_chain_ms(n_int, cycles, sm_mhz):
@@ -728,25 +818,34 @@ _LIB = None
 
 
 def _kernel():
-    """Build (first call) and bind the kernel library."""
+    """Build (first call) and bind the kernel library, and load its code
+    onto the current device with the evaluation's shared-memory limit set,
+    so that the first launches pay for neither."""
     global _LIB
     if _LIB is None:
         from tpl_tpu_torch import _build
 
         lib = _build.load("poly_planner")
+        ints = [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.poly_eval_edges.restype = ctypes.c_int
-        lib.poly_eval_edges.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        lib.poly_eval_edges.argtypes = [ctypes.c_void_p] * 8 + ints
+        lib.poly_eval_edges_profile.restype = ctypes.c_int
+        lib.poly_eval_edges_profile.argtypes = [ctypes.c_void_p] * 9 + ints
         lib.poly_propagate.restype = ctypes.c_int
         lib.poly_propagate.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         for fn in (lib.poly_planner_n_eval_params,
-                   lib.poly_planner_max_levels):
+                   lib.poly_planner_max_levels, lib.poly_planner_n_eval_prof,
+                   lib.poly_planner_prepare):
             fn.restype = ctypes.c_int
             fn.argtypes = []
         if (lib.poly_planner_n_eval_params() != len(EVAL_KEYS)
-                or lib.poly_planner_max_levels() != MAX_LEVELS):
+                or lib.poly_planner_max_levels() != MAX_LEVELS
+                or lib.poly_planner_n_eval_prof()
+                != len(EVAL_PHASES) + len(EVAL_COUNTS)):
             raise RuntimeError("poly_planner.cu and poly_planner_kernel "
-                               "disagree on EVAL_KEYS / MAX_LEVELS")
+                               "disagree on EVAL_KEYS / MAX_LEVELS / "
+                               "EVAL_PHASES")
+        _build.prepare(lib, "poly_planner")
         _LIB = lib
     return _LIB

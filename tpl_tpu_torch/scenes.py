@@ -401,6 +401,42 @@ def dp_random_occ(seed, T=10, S=201, L=21, density=0.1):
                     np.float32(0.0)).astype(np.float32)
 
 
+def dp_moving_occ(seed, T, S=41, L=21):
+    """Occupancy (T, S, L) float32 that changes over t: seeded cells (4 %
+    of them), and the stationary block of :func:`dp_poly_env`'s stretch
+    around it moved a station a slice."""
+    occ = dp_random_occ(seed, T=T, S=S, L=L, density=0.04)
+    block = np.zeros((S, L), np.float32)
+    block[S // 2 - 2:S // 2 + 3, L // 2 - 2:L // 2 + 3] = 3.0
+    for t in range(T):
+        occ[t] = np.maximum(occ[t], np.roll(block, t - T // 2, axis=0))
+    return occ
+
+
+def dp_poly_near_horizon(p, seed=4):
+    """A graph DP level whose start points lie near the horizon of the
+    params ``p`` (8 to 9 s of 9 at the demo widths): (start points (5, 8),
+    edge starts (E,) int32, end specs (E, 3) float32), end times a step or
+    two after the start, at the horizon and past it."""
+    rng = np.random.default_rng(seed)
+    horizon = np.float32((p.t_steps - 1) * p.dt)
+    t0 = horizon - np.array([1.0, 0.7, 0.25, 0.1, 0.0], np.float32)
+    pts = np.zeros((len(t0), 8), np.float32)
+    pts[:, ppk.PP_T] = t0
+    pts[:, ppk.PP_S] = rng.uniform(40, 120, len(t0))
+    pts[:, ppk.PP_DS] = rng.uniform(2, 14, len(t0))
+    pts[:, ppk.PP_DDS] = rng.uniform(-1, 1, len(t0))
+    pts[:, ppk.PP_L] = rng.uniform(-3, 3, len(t0))
+    pts[:, ppk.PP_DL] = rng.uniform(-0.5, 0.5, len(t0))
+    starts, specs = [], []
+    for i, t in enumerate(t0):
+        for te in (t + 0.1, t + 0.25, t + 0.5, horizon, t + 1.5):
+            if te > t:
+                starts.append(i)
+                specs.append([te, rng.uniform(0, 15), rng.uniform(-4, 4)])
+    return pts, np.array(starts, np.int32), np.array(specs, np.float32)
+
+
 def dp_poly_keys():
     """The four (ds, l) start indices the graph DP's checks take at the
     demo widths (15 ds x 21 l): slow and centred, a level-2 cap at ds 3 and

@@ -125,7 +125,8 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    plain versions on the CPU; the RSTP mode of the rampify source still bit
    for bit); times through the bare launchers and the wrappers on the FAS
    loop's inputs, the wrappers on the lattice loop's, the plain versions'
-   times, ``bound_ms`` and ``chain_ms``;
+   times, ``bound_ms`` and ``chain_ms``; the forward pass, the sweep and
+   the selection also from CUDA graphs (``graph_ms``);
 13. rollout planner closed loops: ``SimStandalone`` with
    ``idm_sampling_planner`` on ``demo/country_overtake`` (the demo planning
    set: 8 candidates of 100 steps, a replan every 0.05 s) and then with
@@ -134,8 +135,8 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    sets, 300 ticks each, the launch counters set to 0 just before each loop
    and read just after; checks zero violations, no emergency plan, finite
    controls and exactly one ``idm_rollout`` and one ``idm_evaluate`` launch
-   per IDM replan (the grid's two launches, ``poly_sampling_eval`` and
-   ``poly_sampling_select``, per poly replan); prints the launches per
+   per IDM replan (the grid's one launch, ``poly_sampling``, per poly
+   replan); prints the launches per
    replan and per tick, the end state beside the JAX package's CPU loop's
    and the per-replan wall (median, max);
    keeps the first replan's inputs;
@@ -162,7 +163,14 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
 15. poly sampling kernel: ``csrc/poly_sampling.cu`` against its plain
    version and the numpy oracle ``_eval_candidates`` on the JAX bench's
    scene (C=30), tests/test_poly_kernel.py's two scenes and the poly loop's
-   first replan (the winner's index equal, its rows to tolerance), timed;
+   first replan, and against its plain version on the bench's scene with a
+   NaN cost at index 17, NaN costs at 23 and 9 and an exact tie of the
+   least cost (the winner's index equal, the first NaN winning, its rows to
+   tolerance, NaN equal to NaN); the profiling instantiation bit-equal, a
+   "phases" line (us a block: coefficients, steps, screen, sums, arrival;
+   the last block's selection); times through the bare launcher and the
+   wrapper and from CUDA graphs, ``chain_ms`` beside the pricing of the
+   earlier two-launch design;
 16. graph DP closed loop: ``SimStandalone`` on ``demo/country_follow``
    with ``dp_poly_planner`` active (the demo planning set's block: env 10 x
    201 x 21 x 21 directions, graph 10 x 15 x 21, two levels) and the
@@ -170,7 +178,7 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    set to 0 just before the loop and read just after; checks zero
    violations, no emergency plan, finite controls, per replan one
    ``dir_dist_map``, four ``poly_eval_edges`` (a level: the field's slice
-   straight ahead, then the edges) and two ``poly_propagate`` launches,
+   straight ahead, then the edges) and one ``poly_propagate`` launch,
    and the end state against the JAX package's CPU loop's;
    prints the medians of ``runtime_environment`` and ``runtime_planning``;
    keeps the first replan's grids and start state;
@@ -184,16 +192,18 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    loop's field (t, ds, l exact, s and the cost to 4 float32 ulps; the
    largest differences printed; the steps taken those the edges need) and
    its propagation on the kernel's own end points and on seeded graphs
-   with equal least costs, NaN costs and nodes without edges (every
-   selection equal); the field's and the evaluation's profiling
-   instantiations bit-equal, a "phases" line each (the field: us a block
-   in staging, march and write-out; the evaluation: cycles an edge in the
-   fits, the polynomial steps, the steps past te, the lookups, the sums);
-   times each kernel through its bare launcher and its wrapper in turns on
-   the loop's first replan, the field and the evaluation also from CUDA
-   graphs (``graph_ms``), the plain versions, ``bound_ms`` (the needed
-   work; beside it one march a slice / every step of every edge) and
-   ``chain_ms``;
+   of 1, 2 and 3 levels with equal least costs, NaN costs and nodes
+   without edges (every selection, cost and the trajectory equal); the
+   three profiling instantiations bit-equal, a "phases" line each (the
+   field: us a block in staging, march and write-out; the evaluation:
+   cycles an edge in the fits, the polynomial steps, the steps past te, the
+   lookups, the sums; the propagation: us a block for the last level and
+   the arrival, the last block's lower levels and backtrack); times each
+   kernel through its bare launcher and its wrapper in turns on the loop's
+   first replan and from CUDA graphs (``graph_ms``), the plain versions,
+   ``bound_ms`` (the needed work; beside it one march a slice / every step
+   of every edge) and ``chain_ms`` (the propagation's beside the pricing
+   of the earlier launch a level);
 18. the controllers beside the spatial MPC: ``SimStandalone`` on
    ``demo/country_follow`` with the scenario's own sets (the RSTP planner,
    fused, H=250, the collision screen on) and each of
@@ -256,7 +266,8 @@ With ``--parent-csrc DIR`` (a directory holding another version of any of
 the kernel sources ``latlon_action_min.cu``, ``ilqr_tracking_mpc.cu``,
 ``ilqr_rstp.cu``, ``rstp_rampify.cu``, ``idm_rollout.cu``,
 ``idm_evaluate.cu``, ``ilqr_tracking_mpc_time.cu``, ``lon_dp.cu``,
-``dir_dist_map.cu``, ``poly_planner.cu`` and the headers they include, for
+``dir_dist_map.cu``, ``poly_planner.cu``, ``poly_sampling.cu`` and the
+headers they include, for
 example ``git show`` of an earlier commit's; may be given more than once) the kernel phases also build that version with
 the same flags, run both on the same inputs through the bare launchers in
 turns (other, tree, tree, other) and print the largest difference of the
@@ -267,10 +278,15 @@ rollout), the tracking MPC's single solve and its profiling
 instantiation, the time-indexed MPC (every seeded and recorded solve) and
 the lon backward slice (every slice of the seeded, FAS-loop and
 lattice-loop solves; a source of the earlier one-thread-a-node launcher
-is recognised), the graph DP's field (every case of phase 17) and edge
+is recognised), the graph DP's field (every case of phase 17), edge
 evaluation (both levels of every case of phase 17; a launcher without the
-slice's scratch is recognised; both also timed from CUDA graphs) a
-difference other than 0.0 raises; a time-MPC, field or evaluation source
+slice's scratch is recognised) and propagation (every case of phase 17; a
+source of the launch a level is recognised; all three also timed from
+CUDA graphs) a difference other than 0.0 raises (NaN equal to NaN); the
+poly grid (a source of the two launches is recognised) must keep every
+candidate's rows and cost on every case of phase 15 and the winner on
+every case without a NaN cost, and is timed by CUDA events and from CUDA
+graphs; a time-MPC, field or evaluation source
 that exports a ``*_profile`` entry also prints its "phases" lines.  The batched tracking MPC is held to the other version's batched
 entry (a grid of one block per scenario where the source predates the
 persistent kernel) on the bench's batch, near the course and on seeded
@@ -444,9 +460,10 @@ DP_POLY_GRID = ((10, 201, 21, 21), (2, 10, 15, 21))
 DP_POLY_JAX_END = (2.99, 43.882, 12.251)
 DP_POLY_END_ATOL = 0.05     # m, m/s: both loops choose the same edges
 # launches of one replan: the field; a level's evaluation (two launches: the
-# field's slice straight ahead, then the edges) and propagation
+# field's slice straight ahead, then the edges); the propagation of every
+# level and the backtrack
 DP_POLY_PER_REPLAN = {"dir_dist_map": 1, "poly_eval_edges": 4,
-                      "poly_propagate": 2}
+                      "poly_propagate": 1}
 # the edge evaluation, kernel against its plain version on the card: the
 # same float32 operations in the same order, neither contracted; allowed: 4
 # float32 ulps on s and the cost, t / ds / l exact
@@ -2709,13 +2726,18 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
     nodes_r, pp_r, path_r, dist_r, x0_r = recs["fas"]["lon_dp_forward"][0]
     Tr = nodes_r.shape[0]
     outf = torch.empty((Tr, 7), dtype=torch.float32, device=dev)
-    ms, wrapper_ms = launcher_times(
-        "lon_dp_forward", f"FAS loop solve (T={Tr}, {tlk.NF} jerks)",
-        lambda: lib.lon_dp_forward(
+
+    def forward_bare(s=stream):
+        return lib.lon_dp_forward(
             nodes_r.data_ptr(), pp_r.data_ptr(), path_r.data_ptr(),
             dist_r.data_ptr(), x0_r.data_ptr(), outf.data_ptr(), Tr, Sr, Vr,
-            Ar, Pr, Tr, 0, stream),
+            Ar, Pr, Tr, 0, s)
+
+    ms, wrapper_ms = launcher_times(
+        "lon_dp_forward", f"FAS loop solve (T={Tr}, {tlk.NF} jerks)",
+        forward_bare,
         lambda: tlk.forward(nodes_r, pp_r, path_r, dist_r, x0_r), 100)
+    res["lon_dp_forward"]["graph_ms"] = graph_ms(raising(forward_bare))
     traj = outf.clone()
     traj[2:, tlk.LC_J] = pp_r[tlk.LON_PP_KEYS.index("j_min")]
     reeval_ms = cuda_ms(lambda: tlk.reeval_pass(nodes_r, pp_r, path_r,
@@ -2761,14 +2783,18 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
     inv = plk._hermite_inv(dev)
     plib = plk._kernel()
     TE, SE, LE = occ_r.shape
-    ms, wrapper_ms = launcher_times(
-        "poly_lat_sweep", f"FAS loop replan ({LD} x {SD} x {Sl})",
-        lambda: plib.poly_lat_sweep(
+    def sweep_bare(s=stream):
+        return plib.poly_lat_sweep(
             occ_r.data_ptr(), rl_r.data_ptr(), step_r.data_ptr(),
             ppl_r.data_ptr(), env_r.data_ptr(), start_r.data_ptr(),
             inv.data_ptr(), cd_o.data_ptr(), tc_o.data_ptr(), LD, SD, Sl, TE,
-            SE, LE, rl_r.shape[0], stream),
-        lambda: plk.sweep(*recs["fas"]["poly_lat_sweep"][0]), 100)
+            SE, LE, rl_r.shape[0], s)
+
+    ms, wrapper_ms = launcher_times(
+        "poly_lat_sweep", f"FAS loop replan ({LD} x {SD} x {Sl})",
+        sweep_bare, lambda: plk.sweep(*recs["fas"]["poly_lat_sweep"][0]),
+        100)
+    res["poly_lat_sweep"]["graph_ms"] = graph_ms(raising(sweep_bare))
     lat_a = recs["lattice"]["poly_lat_sweep"][0]
     res["poly_lat_sweep"].update(
         ms=ms, wrapper_ms=wrapper_ms,
@@ -2810,12 +2836,15 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
     cd_s, tc_s, lv_s, LD, SD = recs["fas"]["poly_lat_select"][0]
     best = torch.empty((), dtype=torch.int64, device=dev)
     cost = torch.empty((), dtype=torch.float32, device=dev)
+    def select_bare(s=stream):
+        return plib.poly_lat_select(cd_s.data_ptr(), tc_s.data_ptr(),
+                                    lv_s.data_ptr(), best.data_ptr(),
+                                    cost.data_ptr(), LD, SD, s)
+
     ms, wrapper_ms = launcher_times(
-        "poly_lat_select", f"FAS loop replan ({LD} x {SD})",
-        lambda: plib.poly_lat_select(cd_s.data_ptr(), tc_s.data_ptr(),
-                                     lv_s.data_ptr(), best.data_ptr(),
-                                     cost.data_ptr(), LD, SD, stream),
+        "poly_lat_select", f"FAS loop replan ({LD} x {SD})", select_bare,
         lambda: plk.select_device(cd_s, tc_s, lv_s, LD, SD), 100)
+    res["poly_lat_select"]["graph_ms"] = graph_ms(raising(select_bare))
     lat_a = recs["lattice"]["poly_lat_select"][0]
     res["poly_lat_select"].update(
         ms=ms, wrapper_ms=wrapper_ms,
@@ -2865,7 +2894,10 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
         bound=rmp.bound_ms(H), chain=rmp.chain_ms(H, cycles, mhz))
     for row, r in res.items():
         print(f"{row}: kernel {r['ms']:.4f} ms (bare launcher; wrapper "
-              f"{r['wrapper_ms']:.4f}; on the lattice loop's inputs "
+              f"{r['wrapper_ms']:.4f}"
+              + (f"; from CUDA graphs {r['graph_ms']:.4f}"
+                 if "graph_ms" in r else "") +
+              f"; on the lattice loop's inputs "
               f"{r['lattice_wrapper_ms']:.4f}), plain {r['plain_ms']:.4f} "
               f"ms, bound_ms {r['bound'][0]:.6f} ({r['bound'][1]}), "
               f"chain_ms {r['chain']:.6f}; max|kernel-plain| {r['err']:.3e}"
@@ -2875,15 +2907,13 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
 
 def rollout_counts(idk, pok, reset=False):
     """The rollout planners' kernel launch counters (set to 0 with
-    ``reset``); ``poly_sampling`` is its two launches together."""
+    ``reset``)."""
     if reset:
         idk.rollout_launches = idk.evaluate_launches = 0
-        pok.eval_launches = pok.select_launches = 0
+        pok.launches = 0
     return {"idm_rollout": idk.rollout_launches,
             "idm_evaluate": idk.evaluate_launches,
-            "poly_sampling": pok.eval_launches + pok.select_launches,
-            "poly_sampling_eval": pok.eval_launches,
-            "poly_sampling_select": pok.select_launches}
+            "poly_sampling": pok.launches}
 
 
 def rollout_loop_phase(idk, pok, name, ticks):
@@ -2893,7 +2923,7 @@ def rollout_loop_phase(idk, pok, name, ticks):
     to 0 just before the loop and read just after.  Checks zero rule
     violations, no emergency plan, finite controls and the planner's
     kernels launched exactly as often per replan as a replan launches them
-    (IDM: one rollout and one evaluation; poly: the grid and its selection)
+    (IDM: one rollout and one evaluation; poly: the grid's one launch)
     and the other planner's not at all; prints the end state beside the JAX
     package's CPU loop's and the per-replan wall.  Returns the first
     replan's inputs."""
@@ -2938,8 +2968,7 @@ def rollout_loop_phase(idk, pok, name, ticks):
     if name == IDM:
         per_replan = {"idm_rollout": 1, "idm_evaluate": 1, "poly_sampling": 0}
     else:
-        per_replan = {"idm_rollout": 0, "idm_evaluate": 0, "poly_sampling": 2,
-                      "poly_sampling_eval": 1, "poly_sampling_select": 1}
+        per_replan = {"idm_rollout": 0, "idm_evaluate": 0, "poly_sampling": 1}
     for row, per in per_replan.items():
         if n == 0 or counts[row] != per * n:
             raise AssertionError(f"{name}: {counts[row]} {row} launches for "
@@ -3280,76 +3309,243 @@ def idm_kernel_phase(idk, first, dev, cycles, mhz, parent_csrc=None):
     return res
 
 
-def poly_kernel_phase(pok, psp, first, dev, cycles, mhz):
-    """The poly-sampling kernels against their plain version on the card
-    and the numpy oracle ``_eval_candidates``: the JAX bench's scene (C=30,
-    500 path points, 8 obstacles), tests/test_poly_kernel.py's two scenes
-    and the loop's first replan; the winner's index equal, its rows to
-    POLY_ROW_TOL (plain) and POLY_ORACLE_TOL (oracle).  Times the two
-    launches through the bare launchers and the wrapper on the bench scene,
-    the plain version, ``bound_ms`` and ``chain_ms``."""
-    import torch
+def poly_cases(psp, pok, first, dev):
+    """The poly grid's cases: (what, inputs on ``dev``, NaN costs
+    expected, the scene for the numpy oracle or None): the JAX bench's
+    scene (C=30, 500 path points, 8 obstacles), tests/test_poly_kernel.py's
+    two scenes, the loop's first replan, and on the bench's scene a NaN cost
+    at index 17, NaN costs at 23 and 9 (their end offsets NaN) and an exact
+    tie of the least cost (the plain winner's (d, T, v) copied to the last
+    candidate)."""
     from tpl_tpu_torch.scenes import poly_scene
 
-    cases = [("the JAX bench's scene", poly_scene(bench=True)),
-             ("obstacles", poly_scene()),
-             ("free", poly_scene(obstacles=False)),
-             ("the loop's first replan", first)]
-    err = 0.0
-    for what, case in cases:
-        a = psp.device_inputs(*case, dev)
+    cases = [(what, psp.device_inputs(*case, dev), False, case)
+             for what, case in (
+                 ("the JAX bench's scene", poly_scene(bench=True)),
+                 ("obstacles", poly_scene()),
+                 ("free", poly_scene(obstacles=False)),
+                 ("the loop's first replan", first))]
+    bench = cases[0][1]
+    for what, nan_at in (("NaN cost at 17", (17,)),
+                         ("NaN costs at 23 and 9", (23, 9)),
+                         ("a tie of the least cost", ())):
+        a = [x.clone() for x in bench]
+        if not nan_at:
+            b = int(pok.run_reference(*a)[2])
+            for i in (1, 2, 3):
+                a[i][a[1].shape[0] - 1] = a[i][b]
+        for j in nan_at:
+            a[1][j] = float("nan")
+        cases.append((f"the bench's scene, {what}", tuple(a), bool(nan_at),
+                      None))
+    return cases
+
+
+def poly_buffers(a, dev):
+    """The grid's scratch and outputs for inputs ``a``: (rows, costs,
+    packed, cost, best, counter)."""
+    import torch
+
+    C, N = a[1].shape[0], a[4].shape[0]
+    f64 = torch.float64
+    return (torch.empty((C, 11, N), dtype=f64, device=dev),
+            torch.empty(C, dtype=f64, device=dev),
+            torch.empty((11, N), dtype=f64, device=dev),
+            torch.empty((), dtype=f64, device=dev),
+            torch.empty((), dtype=torch.int64, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def poly_launch(lib, a, inv, bufs, stream, two=False):
+    """The grid through a library's bare launcher into ``bufs``
+    (:func:`poly_buffers`): the tree's one launch or, with ``two``, a
+    source's two (``poly_sampling_eval``, ``poly_sampling_select``).
+    Returns the CUDA error code."""
+    rows, costs, packed, cost, best, counter = bufs
+    C, N, n_path = a[1].shape[0], a[4].shape[0], a[5].shape[0]
+    O, K = a[6].shape[:2]
+    head = [x.data_ptr() for x in a] + [inv.data_ptr(), rows.data_ptr(),
+                                        costs.data_ptr()]
+    if two:
+        e = lib.poly_sampling_eval(*head, C, N, n_path, O, K, stream)
+        return e or lib.poly_sampling_select(
+            rows.data_ptr(), costs.data_ptr(), packed.data_ptr(),
+            cost.data_ptr(), best.data_ptr(), C, N, stream)
+    return lib.poly_sampling(*head, packed.data_ptr(), cost.data_ptr(),
+                             best.data_ptr(), counter.data_ptr(), C, N,
+                             n_path, O, K, stream)
+
+
+def nan_equal(a, b):
+    """Bit for bit, NaN equal to NaN (both tensors of one dtype)."""
+    import torch
+
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def poly_parent_check(pok, cases, dev, parent_csrc):
+    """With ``parent_csrc``: another version of ``poly_sampling.cu`` (the
+    two-launch design is recognised by its ``poly_sampling_eval``) against
+    the tree's one launch on every case, through the bare launchers: every
+    candidate's rows and cost bit for bit, and the winner's on every case
+    without a NaN cost (a difference raises; the winners printed); times
+    in turns (parent, tree, tree, parent) on the bench's scene by CUDA
+    events and from CUDA graphs.  Returns {"events": ..., "graph": ...} of
+    the first parent, or None."""
+    import ctypes
+    import torch
+    from tpl_tpu_torch import _build
+
+    lib = pok._kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    inv = pok._inverses(dev)
+    res = None
+    for csrc in parents_with(parent_csrc, "poly_sampling"):
+        plib = _build.load("poly_sampling", csrc)
+        two = not hasattr(plib, "poly_sampling")
+        if two:
+            plib.poly_sampling_eval.restype = ctypes.c_int
+            plib.poly_sampling_eval.argtypes = (
+                [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                + [ctypes.c_void_p])
+            plib.poly_sampling_select.restype = ctypes.c_int
+            plib.poly_sampling_select.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p])
+        else:
+            plib.poly_sampling.restype = ctypes.c_int
+            plib.poly_sampling.argtypes = lib.poly_sampling.argtypes
+        for what, a, has_nan, _ in cases:
+            old, new = poly_buffers(a, dev), poly_buffers(a, dev)
+            for lb, bufs, t in ((plib, old, two), (lib, new, False)):
+                if poly_launch(lb, a, inv, bufs, stream, t):
+                    raise RuntimeError("poly_sampling launch failed")
+            torch.cuda.synchronize()
+            grid = nan_equal(old[0], new[0]) and nan_equal(old[1], new[1])
+            pick = (nan_equal(old[2], new[2]) and nan_equal(old[3], new[3])
+                    and int(old[4]) == int(new[4]))
+            print(f"poly_sampling {what} vs the source in {csrc}: every "
+                  f"candidate's rows and cost "
+                  f"{'bit-equal' if grid else 'DIFFER'}, the winner's "
+                  f"{'bit-equal' if pick else 'differ'}: parent "
+                  f"{int(old[4])} (cost {float(old[3])}), new {int(new[4])} "
+                  f"(cost {float(new[3])})")
+            if not grid or not (pick or has_nan):
+                raise AssertionError(f"poly_sampling {what}: the result "
+                                     "differs from the parent kernel's")
+        a = cases[0][1]
+        old, new = poly_buffers(a, dev), poly_buffers(a, dev)
+
+        def launcher(lb, bufs, t):
+            return lambda s=stream: poly_launch(lb, a, inv, bufs, s, t)
+
+        p_run = raising(launcher(plib, old, two))
+        n_run = raising(launcher(lib, new, False))
+        (ea, ed), (eb, ec) = in_turns(lambda: p_run(stream),
+                                      lambda: n_run(stream), 200)
+        graph = in_turns_graph(p_run, n_run)
+        print(f"poly_sampling the JAX bench's scene vs the source in {csrc}: "
+              f"ms parent {ea:.4f}, new {eb:.4f}, new {ec:.4f}, parent "
+              f"{ed:.4f}; from CUDA graphs parent {graph[0]:.4f}, new "
+              f"{graph[1]:.4f}, new {graph[2]:.4f}, parent {graph[3]:.4f}")
+        if res is None:
+            res = {"events": (ea, eb, ec, ed), "graph": graph}
+    return res
+
+
+def poly_kernel_phase(pok, psp, first, dev, cycles, mhz, parent_csrc=None):
+    """The poly-sampling kernel against its plain version on the card and
+    the numpy oracle ``_eval_candidates`` on the cases of
+    :func:`poly_cases`: the winner's index equal to the plain version's
+    (the oracle's on the cases without a NaN or a tie), its rows to
+    POLY_ROW_TOL (plain) and POLY_ORACLE_TOL (oracle), NaN equal to NaN;
+    the profiling instantiation bit-equal on every case, a "phases" line on
+    the bench's scene.  Times the launch through the bare launcher and the
+    wrapper in turns and from CUDA graphs on the bench's scene, the plain
+    version, ``bound_ms`` and ``chain_ms`` (the one launch's and the
+    earlier two launches' pricing); with ``parent_csrc``
+    (:func:`poly_parent_check`) holds another version to the tree's."""
+    import torch
+
+    cases = poly_cases(psp, pok, first, dev)
+    err, phases = 0.0, None
+    for what, a, has_nan, scene in cases:
         packed, cost, best = pok.run(*a)
         want_p, want_c, want_b = pok.run_reference(*a)
-        oracle = psp._eval_candidates(*case)
-        e = float(torch.max(torch.abs(packed - want_p)))
-        rel = abs(float(cost) - float(want_c)) / abs(float(want_c))
-        rows = packed.cpu().numpy()
-        e_o = max(float(np.max(np.abs(rows[i] - oracle[k])))
-                  for i, k in enumerate(pok.OUT_KEYS))
-        print(f"poly_sampling check, {what} (C={a[1].shape[0]}, N="
-              f"{a[4].shape[0]}, path {a[5].shape[0]}, obstacles "
-              f"{a[6].shape[0]} x {a[6].shape[1]}): winner {int(best)} (plain "
-              f"{int(want_b)}, oracle {oracle['best']}), max|kernel-plain| "
-              f"rows {e:.3e}, cost rel {rel:.3e}; max|kernel-oracle| "
-              f"{e_o:.3e}")
-        if not (int(best) == int(want_b) == oracle["best"]
-                and e <= POLY_ROW_TOL * (1 + float(torch.max(torch.abs(
-                    want_p)))) and rel <= 1e-12 and e_o <= POLY_ORACLE_TOL
-                * (1 + float(np.max(np.abs(rows))))):
+        pp_, pc, pb, prof = pok.run_profile(*a)
+        if not (nan_equal(pp_, packed) and nan_equal(pc, cost)
+                and int(pb) == int(best)):
+            raise AssertionError(f"poly_sampling {what}: the profiling "
+                                 "instantiation differs")
+        e = float(torch.max(torch.abs(packed - want_p).nan_to_num()))
+        if has_nan:
+            rel = 0.0 if torch.isnan(cost) and torch.isnan(want_c) else 1.0
+        else:
+            rel = abs(float(cost) - float(want_c)) / abs(float(want_c))
+        line = (f"poly_sampling check, {what} (C={a[1].shape[0]}, N="
+                f"{a[4].shape[0]}, path {a[5].shape[0]}, obstacles "
+                f"{a[6].shape[0]} x {a[6].shape[1]}): winner {int(best)} "
+                f"(plain {int(want_b)}), max|kernel-plain| rows {e:.3e}, "
+                f"cost rel {rel:.3e}")
+        ok = (int(best) == int(want_b) and torch.equal(
+            torch.isnan(packed), torch.isnan(want_p)) and e <= POLY_ROW_TOL
+            * (1 + float(torch.max(torch.abs(want_p).nan_to_num())))
+            and rel <= 1e-12)
+        if scene is not None:
+            oracle = psp._eval_candidates(*scene)
+            rows = packed.cpu().numpy()
+            e_o = max(float(np.max(np.abs(rows[i] - oracle[k])))
+                      for i, k in enumerate(pok.OUT_KEYS))
+            line += (f"; oracle winner {oracle['best']}, max|kernel-oracle| "
+                     f"{e_o:.3e}")
+            ok = ok and oracle["best"] == int(best) and e_o <= \
+                POLY_ORACLE_TOL * (1 + float(np.max(np.abs(rows))))
+        print(line + "; profiling instantiation bit-equal")
+        if not ok:
             raise AssertionError(f"poly_sampling {what}: kernel, plain and "
                                  "oracle differ")
+        if has_nan and not (int(best) == int(want_b)
+                            and torch.isnan(cost)):
+            raise AssertionError(f"poly_sampling {what}: the first NaN "
+                                 "did not win")
         err = max(err, e)
-    a = psp.device_inputs(*cases[0][1], dev)
+        if phases is None:
+            phases = prof
+    a = cases[0][1]
     C, N, n_path = a[1].shape[0], a[4].shape[0], a[5].shape[0]
     O, K = a[6].shape[:2]
     lib = pok._kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     inv = pok._inverses(dev)
-    rows = torch.empty((C, 11, N), dtype=torch.float64, device=dev)
-    costs = torch.empty(C, dtype=torch.float64, device=dev)
-    packed = torch.empty((11, N), dtype=torch.float64, device=dev)
-    cost = torch.empty((), dtype=torch.float64, device=dev)
-    best = torch.empty((), dtype=torch.int64, device=dev)
+    bufs = poly_buffers(a, dev)
 
-    def bare():
-        e = lib.poly_sampling_eval(*(x.data_ptr() for x in a), inv.data_ptr(),
-                                   rows.data_ptr(), costs.data_ptr(), C, N,
-                                   n_path, O, K, stream)
-        return e or lib.poly_sampling_select(
-            rows.data_ptr(), costs.data_ptr(), packed.data_ptr(),
-            cost.data_ptr(), best.data_ptr(), C, N, stream)
+    def bare(s=stream):
+        return poly_launch(lib, a, inv, bufs, s)
 
     ms, wrapper_ms = launcher_times(
-        "poly_sampling", f"the JAX bench's scene (C={C}, N={N}, two "
-        "launches)", bare, lambda: pok.run(*a), 200)
-    res = dict(err=err, ms=ms, wrapper_ms=wrapper_ms,
+        "poly_sampling", f"the JAX bench's scene (C={C}, N={N}, one "
+        "launch)", bare, lambda: pok.run(*a), 200)
+    graph = graph_ms(raising(bare))
+    us = {k: v / (1 if k == "selection" else C) / mhz
+          for k, v in phases.items()}
+    print(f"phases poly_sampling the JAX bench's scene ({C} blocks, SM "
+          f"{mhz:.0f} MHz): us a block (thread 0, barrier to barrier; the "
+          "selection the last block's): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in us.items()))
+    res = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, graph_ms=graph,
                plain_ms=cuda_ms(lambda: pok.run_reference(*a), 10),
                bound=pok.bound_ms(C, N, n_path, O, K),
-               chain=pok.chain_ms(C, N, cycles, mhz))
-    print(f"poly_sampling: kernel {ms:.4f} ms (bare launchers; wrapper "
-          f"{wrapper_ms:.4f}), plain {res['plain_ms']:.4f} ms, bound_ms "
-          f"{res['bound'][0]:.6f} ({res['bound'][1]}), chain_ms "
-          f"{res['chain']:.6f}; max|kernel-plain| {err:.3e}")
+               chain=pok.chain_ms(C, N, O, K, cycles, mhz),
+               serial_chain=pok.serial_chain_ms(C, N, cycles, mhz),
+               phases_us=us,
+               parent=poly_parent_check(pok, cases, dev, parent_csrc))
+    print(f"poly_sampling: kernel {ms:.4f} ms (bare launcher; wrapper "
+          f"{wrapper_ms:.4f}, from CUDA graphs {graph:.4f}), plain "
+          f"{res['plain_ms']:.4f} ms, bound_ms {res['bound'][0]:.6f} "
+          f"({res['bound'][1]}), chain_ms {res['chain']:.6f} (the "
+          f"two launches' pricing {res['serial_chain']:.6f}); "
+          f"max|kernel-plain| {err:.3e}")
     return res
 
 
@@ -3369,8 +3565,8 @@ def dp_poly_loop_phase(dpe, ppk, ticks):
     (the demo planning set's block) and the scenario's other sets, the rule
     checker on, the launch counters set to 0 just before the loop and read
     just after.  Checks zero rule violations, no emergency plan, finite
-    controls, per replan one field launch and two evaluation and two
-    propagation launches (one a level), and the end state against the JAX
+    controls, per replan one field launch, four evaluation launches (two a
+    level) and one propagation launch, and the end state against the JAX
     package's CPU loop's; prints the medians of ``runtime_environment`` and
     ``runtime_planning``.  Returns the first replan's grids and start state
     and the times."""
@@ -3515,7 +3711,8 @@ def eval_phase_line(ppk, what, prof, E, mhz):
 def dp_prop_check(ppk, what, bufs, plain_bufs):
     """The propagation kernel against its plain version on the card on
     equal inputs: every selection, propagated cost and the trajectory equal
-    (NaN equal to NaN), else raises."""
+    (NaN equal to NaN), else raises; the profiling instantiation bit-equal
+    on fresh buffers.  Returns its {phase: cycles}."""
     import torch
 
     pts, node_cost, best, seg, node_off, seg_off, traj = bufs
@@ -3523,20 +3720,61 @@ def dp_prop_check(ppk, what, bufs, plain_bufs):
     ppk.propagate_reference(*plain_bufs)
     inner = node_off[-2]
     b_bad = int((best[:inner] != plain_bufs[2][:inner]).sum())
-    c_ok = torch.equal(torch.nan_to_num(node_cost[:inner], posinf=1e308),
-                       torch.nan_to_num(plain_bufs[1][:inner], posinf=1e308))
-    t_ok = torch.equal(torch.nan_to_num(traj), torch.nan_to_num(
-        plain_bufs[6]))
+    c_ok = nan_equal(node_cost[:inner], plain_bufs[1][:inner])
+    t_ok = nan_equal(traj, plain_bufs[6])
+    again = (pts, torch.zeros_like(node_cost), torch.zeros_like(best), seg,
+             node_off, seg_off, torch.zeros_like(traj))
+    prof = ppk.propagate_profile(*again)
+    p_ok = (nan_equal(again[1], node_cost) and torch.equal(again[2], best)
+            and nan_equal(again[6], traj))
     n_inf = int(torch.isinf(node_cost[1:inner]).sum())
     n_nan = int(torch.isnan(node_cost[:inner]).sum())
-    print(f"poly_propagate check, {what} ({node_off[-1]:,} nodes, "
-          f"{node_off[-1] - 1:,} edges): {b_bad} selections differ, costs "
-          f"{'equal' if c_ok else 'DIFFER'}, trajectory "
-          f"{'equal' if t_ok else 'DIFFERS'}; {n_inf} nodes without an "
-          f"edge, {n_nan} NaN costs")
+    print(f"poly_propagate check, {what} ({len(node_off) - 2} levels, "
+          f"{node_off[-1]:,} nodes, {node_off[-1] - 1:,} edges): {b_bad} "
+          f"selections differ, costs {'equal' if c_ok else 'DIFFER'}, "
+          f"trajectory {'equal' if t_ok else 'DIFFERS'}; {n_inf} nodes "
+          f"without an edge, {n_nan} NaN costs; profiling instantiation "
+          f"{'bit-equal' if p_ok else 'DIFFERS'}")
     if b_bad or not c_ok or not t_ok:
         raise AssertionError(f"poly_propagate {what}: kernel and plain "
                              "version differ")
+    if not p_ok:
+        raise AssertionError(f"poly_propagate {what}: the profiling "
+                             "instantiation differs")
+    return prof
+
+
+def prop_phase_line(ppk, what, prof, blocks, mhz):
+    """One line of a profiled propagation: us a block of the last level and
+    the arrival, the last block's lower levels and backtrack."""
+    us = {k: v / (blocks if k in ("last_level", "arrival") else 1) / mhz
+          for k, v in prof.items()}
+    print(f"phases poly_propagate {what} ({blocks} blocks, SM {mhz:.0f} "
+          "MHz): us (thread 0, barrier to barrier; a block for the last "
+          "level and the arrival, the last block's for the lower levels "
+          "and the backtrack): " + ", ".join(f"{k} {v:.3f}"
+                                             for k, v in us.items()))
+    return us
+
+
+def prop_launch(ppk, lib, bufs, counter, stream, old=False):
+    """The propagation through a library's bare launcher on ``bufs``
+    (:func:`scenes.dp_poly_buffers`' layout): the tree's one launch or, with
+    ``old``, a source's launch a level.  Returns the CUDA error code."""
+    pts, node_cost, best, seg, node_off, seg_off, traj = bufs
+    K = len(node_off) - 2
+    offs = np.zeros(2 * ppk.MAX_LEVELS + 3, np.int32)
+    offs[:K + 2] = node_off
+    offs[ppk.MAX_LEVELS + 2:ppk.MAX_LEVELS + 3 + K] = seg_off
+    head = (pts.data_ptr(), node_cost.data_ptr(), best.data_ptr(),
+            seg.data_ptr(), traj.data_ptr(), offs.ctypes.data)
+    if not old:
+        return lib.poly_propagate(*head, counter.data_ptr(), K, stream)
+    for k in range(K - 1, -1, -1):
+        e = lib.poly_propagate(*head, K, k, stream)
+        if e:
+            return e
+    return 0
 
 
 def dp_standin_first(dpe, ppk, dev):
@@ -3558,17 +3796,20 @@ def dp_standin_first(dpe, ppk, dev):
                 env_params=env.params, params=ppk.DpPolyParams())
 
 
-def dp_parent_checks(dpe, ppk, field_cases, eval_cases, timed, dev, mhz,
-                     parent_csrc):
-    """With ``parent_csrc``: another version's field and evaluation (the
-    launcher without the slice's scratch is recognised) against the tree's
-    on every field case ((what, occ, ray, scal, step, R)) and every level
-    of every evaluation case, every bit (a difference raises), times in
+def dp_parent_checks(dpe, ppk, field_cases, eval_cases, prop_cases, timed,
+                     dev, mhz, parent_csrc):
+    """With ``parent_csrc``: another version's field, evaluation (the
+    launcher without the slice's scratch is recognised) and propagation (the
+    launch a level is recognised) against the tree's on every field case
+    ((what, occ, ray, scal, step, R)), every level of every evaluation case
+    and every propagation case ((what, a function that makes fresh
+    buffers)), every bit (a difference raises; NaN equal to NaN), times in
     turns (parent, tree, tree, parent) through the bare launchers by CUDA
-    events for each case and from CUDA graphs for the ``timed`` cases
-    ({"field": what, "eval": what}); a version that exports a profiling
-    entry prints its "phases" lines.  Returns {"field" / "eval": {"events":
-    ..., "graph": ...}} of the first parent, or {}."""
+    events for each field and evaluation case and from CUDA graphs for the
+    ``timed`` cases ({"field": what, "eval": what, "prop": what}); a
+    version that exports a profiling entry prints its "phases" lines.
+    Returns {"field" / "eval" / "prop": {"events": ..., "graph": ...}} of
+    the first parent, or {}."""
     import ctypes
     import torch
     from tpl_tpu_torch import _build
@@ -3697,6 +3938,60 @@ def dp_parent_checks(dpe, ppk, field_cases, eval_cases, timed, dev, mhz,
                         f"{k + 1}, the source in {csrc}", dict(zip(
                             ppk.EVAL_PHASES + ppk.EVAL_COUNTS,
                             prof.cpu().tolist())), len(c["starts"][k]), mhz)
+        prop = prop_parent_check(ppk, plib, csrc, prop_cases, timed["prop"],
+                                 dev)
+        if i == 0:
+            res["prop"] = prop
+    return res
+
+
+def prop_parent_check(ppk, plib, csrc, prop_cases, timed, dev):
+    """The propagation of the library ``plib`` (built from ``csrc``; a
+    source of the launch a level is recognised) against the tree's on every
+    case, every selection, propagated cost and the trajectory bit for bit
+    (a difference raises), and times in turns on the ``timed`` case by CUDA
+    events and from CUDA graphs.  Returns {"events": ..., "graph": ...}."""
+    import ctypes
+    import torch
+
+    with open(os.path.join(csrc, "poly_planner.cu")) as f:
+        old = "int* counter" not in f.read()
+    plib.poly_propagate.restype = ctypes.c_int
+    plib.poly_propagate.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        if old else ppk._kernel().poly_propagate.argtypes)
+    lib = ppk._kernel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    res = None
+    for what, make in prop_cases:
+        a, b = make(), make()
+        for lb, bufs, is_old in ((plib, a, old), (lib, b, False)):
+            if prop_launch(ppk, lb, bufs, counter, stream, is_old):
+                raise RuntimeError("poly_propagate launch failed")
+        torch.cuda.synchronize()
+        same = (nan_equal(a[1], b[1]) and torch.equal(a[2], b[2])
+                and nan_equal(a[6], b[6]))
+        print(f"poly_propagate {what} vs the source in {csrc}: selections, "
+              f"costs and trajectory {'bit-equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"poly_propagate {what}: the result differs "
+                                 "from the parent kernel's")
+        if what == timed:
+            def run(lb, bufs, is_old):
+                return raising(lambda s=stream: prop_launch(
+                    ppk, lb, bufs, counter, s, is_old))
+
+            p_run, n_run = run(plib, a, old), run(lib, b, False)
+            (ea, ed), (eb, ec) = in_turns(lambda: p_run(stream),
+                                          lambda: n_run(stream), 50)
+            graph = in_turns_graph(p_run, n_run)
+            print(f"poly_propagate {what} vs the source in {csrc}: ms "
+                  f"parent {ea:.4f}, new {eb:.4f}, new {ec:.4f}, parent "
+                  f"{ed:.4f}; from CUDA graphs parent {graph[0]:.4f}, new "
+                  f"{graph[1]:.4f}, new {graph[2]:.4f}, parent "
+                  f"{graph[3]:.4f}")
+            res = {"events": (ea, eb, ec, ed), "graph": graph}
     return res
 
 
@@ -3805,6 +4100,7 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz,
     m4, h5 = ppk.inverses_f32()
     err = dict(s=0.0, cost=0.0)
     cases, eval_us = [], {}
+    prop_cases, prop_prof = [], {}
     for key in scenes.dp_poly_keys():
         for what, dd, rl, ref_step, ep in (
                 ("the test scene", field, env.grid.ref_line, env.ref_step,
@@ -3869,8 +4165,9 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz,
                 [len(x) for x in level], edge_steps)
             seg = torch.from_numpy(seg).to(dev)
 
-            def bufs(lv):
-                N, K = node_off[-1], len(edge_steps)
+            def bufs(lv, node_off=node_off, seg=seg, seg_off=seg_off,
+                     K=len(edge_steps)):
+                N = node_off[-1]
                 return (torch.cat(lv).contiguous(),
                         torch.zeros(N, dtype=torch.float64, device=dev),
                         torch.zeros(N, dtype=torch.int32, device=dev), seg,
@@ -3878,19 +4175,27 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz,
                         torch.zeros((K + 1, 8), dtype=torch.float64,
                                     device=dev))
             b = bufs(level)
-            dp_prop_check(ppk, f"{what}, start index {key}", b, bufs(level))
+            prop_prof[(what, key)] = dp_prop_check(
+                ppk, f"{what}, start index {key}", b, bufs(level))
+            prop_cases.append((f"{what}, start index {key}",
+                               lambda lv=level, bufs=bufs: bufs(lv)))
             cases.append(dict(
                 key=key, what=what, level=level, bufs=b,
                 edge_steps=edge_steps, ev=ev, dd=dd, rl=rl, starts=starts,
                 specs=specs, n_int=n_int, consts=np.concatenate(
                     [ev, m4.ravel(), h5.ravel()]).astype(np.float32)))
-    for seed, ties, nan in ((0, True, True), (1, True, False),
-                            (2, False, True)):
+    for seed, ties, nan, levels in ((0, True, True, 2), (1, True, False, 2),
+                                    (2, False, True, 2), (3, True, True, 1),
+                                    (4, True, True, 3), (5, False, False, 3)):
         node_pts, edge_steps = scenes.dp_poly_propagation_case(
-            seed, n1=2000, e2=400_000, ties=ties, nan=nan)
-        dp_prop_check(ppk, f"seeded (ties {ties}, NaN {nan})",
+            seed, n1=2000, e2=400_000 if levels < 3 else 20_000,
+            e3=400_000, ties=ties, nan=nan, levels=levels)
+        what = f"seeded (ties {ties}, NaN {nan}, {levels} levels)"
+        dp_prop_check(ppk, what,
                       scenes.dp_poly_buffers(node_pts, edge_steps, dev),
                       scenes.dp_poly_buffers(node_pts, edge_steps, dev))
+        prop_cases.append((what, lambda n=node_pts, e=edge_steps:
+                           scenes.dp_poly_buffers(n, e, dev)))
 
     # times: the field on the loop's first grid, the evaluation of both
     # levels and the propagation at the loop's capped start index (7, 10)
@@ -3957,25 +4262,21 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz,
                                         n_int)
     eval_chain = K * ppk.eval_chain_ms(n_int, cycles, mhz)
 
-    offs = np.zeros(2 * ppk.MAX_LEVELS + 3, np.int32)
-    offs[:K + 2] = node_off
-    offs[ppk.MAX_LEVELS + 2:ppk.MAX_LEVELS + 3 + K] = seg_off
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
 
-    def prop_bare():
-        for k in range(K - 1, -1, -1):
-            e = lib_p.poly_propagate(pts.data_ptr(), node_cost.data_ptr(),
-                                     best.data_ptr(), seg.data_ptr(),
-                                     traj.data_ptr(), offs.ctypes.data, K, k,
-                                     stream)
-            if e:
-                return e
-        return 0
+    def prop_bare(s=stream):
+        return prop_launch(ppk, lib_p, c["bufs"], counter, s)
 
     prop_ms, prop_wrapper_ms = launcher_times(
         "poly_propagate", f"start index (7, 10) ({node_off[-1]:,} nodes, "
-        f"{K} launches)", prop_bare,
+        "one launch)", prop_bare,
         lambda: ppk.propagate_and_backtrack(pts, node_cost, best, seg,
                                             node_off, seg_off, traj), 50)
+    prop_graph_ms = graph_ms(raising(prop_bare))
+    n_last = node_off[K] - node_off[K - 1]
+    prop_us = prop_phase_line(ppk, f"{first_what}, start index (7, 10)",
+                              prop_prof[(first_what, (7, 10))],
+                              -(-n_last // 8), mhz)
     plain_bufs = (pts, node_cost.clone(), best.clone(), seg, node_off,
                   seg_off, traj.clone())
     _, prop_plain_ms = plain_timed(
@@ -3983,9 +4284,12 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz,
     prop_bound = ppk.propagate_bound_ms(node_off, seg_off)
     prop_chain = ppk.propagate_chain_ms(node_off, seg.cpu().numpy(),
                                         seg_off, cycles, mhz)
+    prop_serial_chain = ppk.propagate_chain_ms(
+        node_off, seg.cpu().numpy(), seg_off, cycles, mhz, one_launch=False)
     parent = dp_parent_checks(
-        dpe, ppk, field_cases, cases,
-        {"field": first_what, "eval": (first_what, (7, 10))}, dev, mhz,
+        dpe, ppk, field_cases, cases, prop_cases,
+        {"field": first_what, "eval": (first_what, (7, 10)),
+         "prop": f"{first_what}, start index (7, 10)"}, dev, mhz,
         parent_csrc)
     res = {
         "dir_dist_map": dict(
@@ -4003,8 +4307,12 @@ def dp_poly_kernel_phase(dpe, ppk, first, dev, cycles, mhz,
             parent=parent.get("eval")),
         "poly_propagate": dict(err=0.0, ms=prop_ms,
                                wrapper_ms=prop_wrapper_ms,
+                               graph_ms=prop_graph_ms,
                                plain_ms=prop_plain_ms, bound=prop_bound,
-                               chain=prop_chain)}
+                               chain=prop_chain,
+                               serial_chain=prop_serial_chain,
+                               phases_us=prop_us,
+                               parent=parent.get("prop"))}
     for name, r in res.items():
         extra = (f", from CUDA graphs {r['graph_ms']:.4f}"
                  if "graph_ms" in r else "")
@@ -4428,7 +4736,7 @@ def main(argv=()):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", action="append", metavar="DIR",
                     help="a directory with another version of any of the "
-                    "ten kernel sources the phases compare (and the "
+                    "eleven kernel sources the phases compare (and the "
                     "headers they include): "
                     "built with the same flags, run in turns with the tree's "
                     "kernels on the same inputs, results and times printed")
@@ -4554,7 +4862,7 @@ def main(argv=()):
     ik = phase("IDM kernels", idm_kernel_phase, idk, idm["first"], dev,
                cycles, mhz, opts.parent_csrc)
     pk = phase("poly sampling kernel", poly_kernel_phase, pok, psp,
-               poly["first"], dev, cycles, mhz)
+               poly["first"], dev, cycles, mhz, opts.parent_csrc)
     gdp = phase("graph DP closed loop", dp_poly_loop_phase, dpe, ppk,
                 DP_POLY_TICKS)
     gk = phase("graph DP kernels", dp_poly_kernel_phase, dpe, ppk,
@@ -4705,11 +5013,13 @@ def main(argv=()):
             if k in r:
                 row[out] = r[k]
                 row["lattice_" + out] = r["lattice_" + k]
-        # the backward slice's blocks, its device time from CUDA graphs,
-        # and the other source's times in turns
+        # the device time from CUDA graphs; the backward slice's blocks,
+        # its lattice slice's device time and the other source's times in
+        # turns
+        if "graph_ms" in r:
+            row["graph_ms"] = r["graph_ms"]
         if "plan" in r:
-            row.update(r["plan"], graph_ms=r["graph_ms"],
-                       lattice_graph_ms=r["lattice_graph_ms"],
+            row.update(r["plan"], lattice_graph_ms=r["lattice_graph_ms"],
                        parent_ms=r["parent"])
         rows.append(row)
     # the rollout planners' kernels: launches on their loops, the checks on
@@ -4728,7 +5038,11 @@ def main(argv=()):
             "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "chain_ms": r["chain"], "library_ms": NO_LIBRARY}
-        if name != "poly_sampling":
+        if name == "poly_sampling":
+            row.update(graph_ms=r["graph_ms"], parent_ms=r["parent"],
+                       serial_chain_ms=r["serial_chain"],
+                       phases_us=r["phases_us"])
+        else:
             row.update(candidates=IDM_C, blocks_per_sm=r["blocks_per_sm"],
                        registers=r["registers"], spill_bytes=r["spill_bytes"],
                        full_scan_bound_ms=r["full_scan_bound"][0],
@@ -4750,6 +5064,9 @@ def main(argv=()):
             extra = dict(full_scan_bound_ms=r["full_scan_bound"][0],
                          steps_needed=r["steps_needed"],
                          phases_cycles=r["phases"])
+        else:
+            extra = dict(serial_chain_ms=r["serial_chain"],
+                         phases_us=r["phases_us"])
         if "graph_ms" in r:
             extra.update(graph_ms=r["graph_ms"], parent_ms=r["parent"])
         rows.append({

@@ -526,11 +526,17 @@ def test_graph_dp_bounds_at_the_demo_widths():
     assert ppk.propagate_bytes(node_off, seg_off) == (
         4 * 5 + 8 * 3 + 4 * 6 + 4 * 4 + 12 * 4 + 8 * 8 * 3)
     cycles = {"f64_add": 8.0, "smem_load": 30.0}
-    seg = [0, 3, 0, 2, 2, 5]
-    # level 1: the longest range 3 edges, one round; level 0: 3, one round
-    assert ppk.propagate_chain_ms(node_off, __import__("numpy").array(seg),
-                                  seg_off, cycles, 2000) == pytest.approx(
+    seg = __import__("numpy").array([0, 3, 0, 2, 2, 5])
+    # a launch a level: level 1's longest range 3 edges, one round; level
+    # 0: 3, one round; a reduction each
+    assert ppk.propagate_chain_ms(node_off, seg, seg_off, cycles, 2000,
+                                  one_launch=False) == pytest.approx(
         (2 * (8 + 30) + 2 * (5 * 8 + 5 * 30) + 2 * 2 * 30) / 2e6)
+    # one launch: level 1 the same; the root, fewer nodes than the last
+    # block's 8 warps, over its 256 threads, one round and two reductions
+    assert ppk.propagate_chain_ms(node_off, seg, seg_off, cycles,
+                                  2000) == pytest.approx(
+        (2 * (8 + 30) + 3 * (5 * 8 + 5 * 30) + 2 * 2 * 30) / 2e6)
 
 
 def test_idm_full_scan_bounds_at_the_bench_width():

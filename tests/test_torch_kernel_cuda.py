@@ -1310,17 +1310,77 @@ def test_poly_sampling_kernel_matches_plain(cuda, scene):
     start, path, obs, pp = poly_scene(obstacles=scene == "obstacles",
                                       bench=scene == "bench")
     a = psp.device_inputs(start, path, obs, pp, cuda)
-    before = (pok.eval_launches, pok.select_launches)
+    before = pok.launches
     packed, cost, best = pok.run(*a)
     torch.cuda.synchronize()
-    assert (pok.eval_launches, pok.select_launches) == (before[0] + 1,
-                                                        before[1] + 1)
+    assert pok.launches == before + 1
     want_p, want_c, want_b = pok.run_reference(*a)
     assert int(best) == int(want_b)
     assert int(best) == psp._eval_candidates(start, path, obs, pp)["best"]
     np.testing.assert_allclose(packed.cpu().numpy(), want_p.cpu().numpy(),
                                rtol=1e-9, atol=1e-9)
     np.testing.assert_allclose(float(cost), float(want_c), rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nan", "tie"])
+def test_poly_sampling_kernel_selection_nan_and_tie(cuda, case):
+    """A NaN cost at an index > 0 wins (the first NaN, as ``torch.argmin``
+    takes it); an exact tie of the least cost goes to the smaller index:
+    the plain version's winner, its rows to 1e-9 (NaN equal to NaN)."""
+    start, path, obs, pp = poly_scene()
+    a = [x.clone() for x in psp.device_inputs(start, path, obs, pp, cuda)]
+    if case == "nan":
+        a[1][17] = float("nan")
+    else:
+        b = int(pok.run_reference(*a)[2])
+        for i in (1, 2, 3):
+            a[i][29] = a[i][b]
+    packed, cost, best = pok.run(*a)
+    want_p, want_c, want_b = pok.run_reference(*a)
+    assert int(best) == int(want_b)
+    if case == "nan":
+        assert int(best) == 17 and torch.isnan(cost)
+    np.testing.assert_allclose(packed.cpu().numpy(), want_p.cpu().numpy(),
+                               rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_one_launch_kernels_replay_from_a_cuda_graph(cuda):
+    """The poly grid and the propagation captured in a CUDA graph and
+    replayed three times: each replay's results those of a direct launch,
+    and the stream's arrival counter back at 0 after each."""
+    from tpl_tpu_torch import _build
+
+    start, path, obs, pp = poly_scene(bench=True)
+    a = psp.device_inputs(start, path, obs, pp, cuda)
+    want = [x.clone() for x in pok.run(*a)]
+    node_pts, edge_steps = dp_poly_propagation_case(0, n1=300, e2=20_000)
+    bufs = dp_poly_buffers(node_pts, edge_steps, cuda)
+    ppk.propagate_and_backtrack(*bufs)
+    want_prop = [bufs[i].clone() for i in (1, 2, 6)]
+    # the capture stream's counter exists before the capture, so the graph
+    # holds no reset of its own
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        pok.run(*a)
+        counter = _build.arrival_counter(torch.device(cuda),
+                                         side.cuda_stream)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        got = pok.run(*a)
+        ppk.propagate_and_backtrack(*bufs)
+    for _ in range(3):
+        for i in (1, 2, 6):
+            bufs[i].zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert int(counter.item()) == 0
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        for i, w in zip((1, 2, 6), want_prop):
+            assert torch.equal(torch.nan_to_num(bufs[i]), torch.nan_to_num(w))
 
 
 @pytest.mark.cuda
@@ -1335,8 +1395,7 @@ def test_rollout_planner_wrappers_never_take_the_plain_version(cuda,
                       (idk, "evaluate_reference"), (pok, "run_reference")):
         monkeypatch.setattr(mod, name, plain)
     a = _idm_rollout_case(cuda, "stop_cell", 16, 20)
-    before = (idk.rollout_launches, idk.evaluate_launches,
-              pok.eval_launches + pok.select_launches)
+    before = (idk.rollout_launches, idk.evaluate_launches, pok.launches)
     refs, cons = idk.rollout(*a, 20)
     idk.evaluate(refs, cons, a[2], a[7], a[5], a[6], a[8],
                  torch.zeros(1, dtype=torch.float32, device=cuda))
@@ -1344,8 +1403,7 @@ def test_rollout_planner_wrappers_never_take_the_plain_version(cuda,
     pok.run(*psp.device_inputs(start, path, obs, pp, cuda))
     torch.cuda.synchronize()
     assert (idk.rollout_launches, idk.evaluate_launches,
-            pok.eval_launches + pok.select_launches) == (
-        before[0] + 1, before[1] + 1, before[2] + 2)
+            pok.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
 
 
 @pytest.mark.cuda
@@ -1533,7 +1591,7 @@ def test_poly_propagate_kernel_matches_plain(cuda, seed, ties, nan):
     ppk.propagate_and_backtrack(*a)
     ppk.propagate_reference(*b)
     torch.cuda.synchronize()
-    assert ppk.propagate_launches == before + 2
+    assert ppk.propagate_launches == before + 1
     inner = a[4][-2]
     assert torch.equal(a[2][:inner].cpu(), b[2][:inner])
     nan_eq = torch.nan_to_num
@@ -1543,10 +1601,33 @@ def test_poly_propagate_kernel_matches_plain(cuda, seed, ties, nan):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 3])
+def test_poly_propagate_kernel_levels(cuda, levels):
+    """K = 1 and K = 3 graphs (the last block takes level 1's 2,000 nodes
+    a warp each, then the root): one launch, the plain version's
+    selections, costs and trajectory."""
+    node_pts, edge_steps = dp_poly_propagation_case(
+        4, n1=2000, e2=20_000, e3=40_000, levels=levels)
+    a = dp_poly_buffers(node_pts, edge_steps, cuda)
+    b = dp_poly_buffers(node_pts, edge_steps, "cpu")
+    before = ppk.propagate_launches
+    ppk.propagate_and_backtrack(*a)
+    ppk.propagate_reference(*b)
+    torch.cuda.synchronize()
+    assert ppk.propagate_launches == before + 1
+    inner = a[4][-2]
+    nan_eq = torch.nan_to_num
+    assert torch.equal(a[2][:inner].cpu(), b[2][:inner])
+    assert torch.equal(nan_eq(a[1][:inner].cpu(), posinf=1e308),
+                       nan_eq(b[1][:inner], posinf=1e308))
+    assert torch.equal(nan_eq(a[6].cpu()), nan_eq(b[6]))
+
+
+@pytest.mark.cuda
 def test_graph_dp_replan_on_card_matches_cpu(cuda, monkeypatch):
     """``DpPolyPlannerKernel.update`` on the card: 2 evaluations (2
-    launches each: the field's slice, the edges) and 2 propagation
-    launches, no plain version, and the CPU path's trajectory; the field
+    launches each: the field's slice, the edges) and 1 propagation
+    launch, no plain version, and the CPU path's trajectory; the field
     through one launch."""
     def plain(*args, **kw):
         raise AssertionError("a plain version ran on CUDA tensors")
@@ -1569,7 +1650,7 @@ def test_graph_dp_replan_on_card_matches_cpu(cuda, monkeypatch):
     got = ppk.DpPolyPlannerKernel().update(init, env)
     assert (dpe.dir_dist_launches, ppk.eval_launches,
             ppk.propagate_launches) == (before[0] + 1, before[1] + 4,
-                                        before[2] + 2)
+                                        before[2] + 1)
     np.testing.assert_array_equal(got, want)
 
 
@@ -1577,7 +1658,7 @@ def test_graph_dp_replan_on_card_matches_cpu(cuda, monkeypatch):
 def test_graph_dp_replan_moves_one_state_up_and_one_trajectory_down(cuda):
     """A replan on a cached graph, traced by torch.profiler in a process
     that has run no sim loop: one host-to-device copy (the start state),
-    the 2 slice, 2 evaluation and 2 propagation kernels, one device-to-host
+    the 2 slice, 2 evaluation and 1 propagation kernels, one device-to-host
     copy (the trajectory); no level's end points leave the card."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1603,5 +1684,5 @@ def test_graph_dp_replan_moves_one_state_up_and_one_trajectory_down(cuda):
     assert sorted(n.split("(")[0].split("<")[0].split("::")[-1]
                   for n in kernels) == [
         "eval_edges_kernel", "eval_edges_kernel", "field_slice_kernel",
-        "field_slice_kernel", "propagate_kernel", "propagate_kernel"], names
+        "field_slice_kernel", "propagate_kernel"], names
     np.testing.assert_array_equal(got, want)

@@ -57,9 +57,15 @@ operations and their order; and the graph DP planner's directional field
 occupancy that changes over t at T = 1, 10 and 40; its profiling
 instantiation bit-equal), its edge evaluation (bit for bit on both levels
 of three small graphs and on a level near the horizon; its profiling
-instantiation bit-equal, with the steps it takes) and its propagation
-(every selection, propagated cost and the trajectory, also on seeded
-graphs with ties, NaN costs and edgeless nodes).  Grids and
+instantiation bit-equal, with the steps it takes) and its one-launch
+propagation (every selection, propagated cost and the trajectory, also on
+seeded graphs of 1, 2 and 3 levels with ties, NaN costs and edgeless
+nodes, the blocks in seeded orders, so that the last block to arrive is
+not always the last index; its profiling instantiation bit-equal); and the
+one-launch poly-sampling grid against the plain version and, every
+candidate's rows and cost bit for bit, against the earlier two-launch body
+(a copy of it in the harness), at C = 1, 6 and 30, with NaN costs and
+ties (where that body's selection picks another winner).  Grids and
 graphs are kept small: every block costs barriers of 256 host threads,
 which crawl when the machine is busy.
 
@@ -114,6 +120,7 @@ RSTP_N_REF = 512
 STUB = r"""
 // a stand-in of the CUDA runtime for running kernel bodies on host threads
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
@@ -213,6 +220,11 @@ inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+template <typename T>
+inline T __ldcg(const T* p) { return *p; }
 inline long long clock64() {
   static thread_local long long t = 0;
   return ++t;
@@ -235,6 +247,228 @@ HARNESS = r"""
 #include "dir_dist_map.cu"
 #include "poly_planner.cu"
 
+// The grid's two-launch design before the one launch (the helpers are the
+// kernel source's): a block of 32 threads a candidate, then one block for
+// the selection.
+namespace poly_sampling_two {
+using namespace poly_sampling_k;
+
+__global__ void eval_kernel(
+    const float* __restrict__ start, const float* __restrict__ di,
+    const float* __restrict__ Ti, const float* __restrict__ tv,
+    const float* __restrict__ ts, const float* __restrict__ path,
+    const float* __restrict__ hulls, const float* __restrict__ valid,
+    const float* __restrict__ pp_in, const double* __restrict__ inv,
+    double* __restrict__ rows_out, double* __restrict__ cost_out, int C,
+    int N, int n_path, int O, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* cl = reinterpret_cast<double*>(smem_raw);    // quintic (6)
+  double* cs = cl + 6;                                 // quartic (5)
+  double* row = cs + 5;                                // (9, N)
+  double* term = row + 9 * N;                          // (N_TERMS, N)
+  int* hits = reinterpret_cast<int*>(term + N_TERMS * N);
+  float* nrm = reinterpret_cast<float*>(hits + N);     // (O, K, 2)
+  float* po_min = nrm + O * K * 2;                     // (O, K)
+  float* po_max = po_min + O * K;
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int c = blockIdx.x;
+  float pp[N_PP];
+  for (int k = 0; k < N_PP; ++k) pp[k] = pp_in[k];
+  const float T_end = Ti[c];
+  const float d = T_end - 0.0f;        // x1 - x0, the polynomials' span
+
+  if (tid == 0) {
+    // PolyQuintic(0, d0, dd0, ddd0, T, d_end, 0, 0): b = [y0, dy0 d,
+    // ddy0 (d d), y1, 0 d, 0 (d d)], c = b . inv^T
+    const float b5[6] = {start[0], start[1] * d, start[2] * (d * d), di[c],
+                         0.0f * d, 0.0f * (d * d)};
+    for (int m = 0; m < 6; ++m) {
+      double acc = 0.0;
+      for (int k = 0; k < 6; ++k) acc += (double)b5[k] * inv[m * 6 + k];
+      cl[m] = acc;
+    }
+    // PolyQuartic(0, s0, sd0, sdd0, T, v_end, 0): b = [s0, v d, (a d) d,
+    // ve d, (0 d) d]
+    const float b4[5] = {start[3], start[4] * d, start[5] * d * d, tv[c] * d,
+                         0.0f * d * d};
+    for (int m = 0; m < 5; ++m) {
+      double acc = 0.0;
+      for (int k = 0; k < 5; ++k) acc += (double)b4[k] * inv[36 + m * 5 + k];
+      cs[m] = acc;
+    }
+  }
+  // the obstacles' edge normals and their self-projections
+  for (int e = tid; e < O * K; e += nt) {
+    const int o = e / K, j = e % K;
+    const float* h = hulls + (size_t)o * K * 2;
+    const int jn = j + 1 < K ? j + 1 : 0;
+    const float ex = h[jn * 2] - h[j * 2], ey = h[jn * 2 + 1] - h[j * 2 + 1];
+    const float nx = -ey, ny = ex;
+    nrm[e * 2] = nx;
+    nrm[e * 2 + 1] = ny;
+    float lo = INFINITY, hi = -INFINITY;
+    for (int k = 0; k < K; ++k) {
+      const float p = h[k * 2] * nx + h[k * 2 + 1] * ny;
+      lo = fminf(lo, p);
+      hi = fmaxf(hi, p);
+    }
+    po_min[e] = lo;
+    po_max[e] = hi;
+  }
+  __syncthreads();
+
+  const double x0e = (double)(-pp[REAR_AXIS_TO_REAR]);
+  const double x1e = (double)pp[REAR_AXIS_TO_FRONT];
+  const double be = (double)(pp[WIDTH_EGO] / 2.0f);
+  const float xs0 = path[3], dxs = path[6 + 3] - path[3];
+  for (int n = tid; n < N; n += nt) {
+    const float u = (ts[n] - 0.0f) / d;
+    const double dv = poly_eval(cl, 5, 0, u, d);
+    const double d_d = poly_eval(cl, 5, 1, u, d);
+    const double d_dd = poly_eval(cl, 5, 2, u, d);
+    const double d_ddd = poly_eval(cl, 5, 3, u, d);
+    const double sv = poly_eval(cs, 4, 0, u, d);
+    const double s_d = poly_eval(cs, 4, 1, u, d);
+    const double s_dd = poly_eval(cs, 4, 2, u, d);
+    const double s_ddd = poly_eval(cs, 4, 3, u, d);
+
+    const double q = (sv - (double)xs0) / (double)dxs;
+    const double rx = lerp_path(path, n_path, q, 0, false);
+    const double ry = lerp_path(path, n_path, q, 1, false);
+    const double rh = lerp_path(path, n_path, q, 2, true);
+    const double rv = lerp_path(path, n_path, q, 5, false);
+    const double hf = atan(d_d / (s_d == 0.0 ? 1e-9 : s_d));
+    const double x = rx - sin(rh) * dv;
+    const double y = ry + cos(rh) * dv;
+    const double yaw = hf + rh;
+
+    // the collision screen at this pose
+    int nh = 0;
+    const double cy_ = cos(yaw), sy_ = sin(yaw);
+    for (int o = 0; o < O; ++o) {
+      if (valid[o] == 0.0f) continue;
+      const float* h = hulls + (size_t)o * K * 2;
+      double qx_max = -INFINITY, qx_min = INFINITY;
+      double qy_max = -INFINITY, qy_min = INFINITY;
+      for (int k = 0; k < K; ++k) {
+        const double rx_ = (double)h[k * 2] - x, ry_ = (double)h[k * 2 + 1] - y;
+        const double qx = rx_ * cy_ + ry_ * sy_;
+        const double qy = -rx_ * sy_ + ry_ * cy_;
+        qx_max = fmax(qx_max, qx);
+        qx_min = fmin(qx_min, qx);
+        qy_max = fmax(qy_max, qy);
+        qy_min = fmin(qy_min, qy);
+      }
+      bool sep = qx_max < x0e || qx_min > x1e || qy_max < -be || qy_min > be;
+      for (int j = 0; j < K && !sep; ++j) {
+        const double n_x = (double)nrm[(o * K + j) * 2];
+        const double n_y = (double)nrm[(o * K + j) * 2 + 1];
+        const double nx = n_x * cy_ + n_y * sy_;
+        const double ny = -n_x * sy_ + n_y * cy_;
+        const double pc = n_x * x + n_y * y;
+        const double hi = fmax(nx * x0e, nx * x1e) + fabs(ny) * be;
+        const double lo = fmin(nx * x0e, nx * x1e) - fabs(ny) * be;
+        if (pc + hi < (double)po_min[o * K + j] ||
+            pc + lo > (double)po_max[o * K + j])
+          sep = true;
+      }
+      if (!sep) ++nh;
+    }
+
+    row[O_D * N + n] = dv;
+    row[O_D_D * N + n] = d_d;
+    row[O_D_DD * N + n] = d_dd;
+    row[O_S * N + n] = sv;
+    row[O_S_D * N + n] = s_d;
+    row[O_S_DD * N + n] = s_dd;
+    row[O_X * N + n] = x;
+    row[O_Y * N + n] = y;
+    row[O_YAW * N + n] = yaw;
+    term[T_JP * N + n] = d_ddd * d_ddd;
+    term[T_JS * N + n] = s_ddd * s_ddd;
+    term[T_JR * N + n] = dv < 0.0 ? -dv : 0.0;
+    term[T_P1 * N + n] = fmax(fabs(s_d) - rv, 0.0);
+    term[T_P3 * N + n] = fmax(fabs(s_dd) - (double)pp[A_MAX], 0.0);
+    term[T_P4 * N + n] = fmax(fabs(dv) - 4.0, 0.0);
+    hits[n] = nh;
+  }
+  __syncthreads();
+
+  // the segments and the curvature
+  double* out = rows_out + (size_t)c * N_ROWS * N;
+  for (int n = tid; n + 1 < N; n += nt) {
+    const double seg = hypot_jnp(row[O_X * N + n + 1] - row[O_X * N + n],
+                                 row[O_Y * N + n + 1] - row[O_Y * N + n]);
+    const double k = sad_d(row[O_YAW * N + n], row[O_YAW * N + n + 1]) /
+                     fmax(seg, 1e-9);
+    out[O_DS * N + n] = seg;
+    out[O_C * N + n] = k;
+    term[T_P2 * N + n] = fmax(fabs(k) - (double)pp[K_MAX], 0.0);
+    if (n + 2 == N) {
+      out[O_C * N + n + 1] = k;
+      out[O_DS * N + n + 1] = 0.0;
+      term[T_P2 * N + n + 1] = term[T_P2 * N + n];
+    }
+  }
+  for (int i = tid; i < 9 * N; i += nt) out[i] = row[i];
+  __syncthreads();
+
+  if (tid == 0) {
+    double sums[N_TERMS];
+    int n_hits = 0;
+    for (int t = 0; t < N_TERMS; ++t) {
+      double acc = term[t * N];
+      for (int n = 1; n < N; ++n) acc = acc + term[t * N + n];
+      sums[t] = acc;
+    }
+    for (int n = 0; n < N; ++n) n_hits += hits[n];
+    const double kt_T = (double)(pp[K_T] * T_end);
+    const double dd_end = (double)pp[TRG_D] - row[O_D * N + N - 1];
+    const double vd_end = 100.0 - row[O_S_D * N + N - 1];
+    const double cd = (double)pp[K_J] * sums[T_JP] + kt_T +
+                      (double)pp[K_D] * (dd_end * dd_end) +
+                      (double)pp[K_OVERTAKE_RIGHT] * sums[T_JR];
+    const double cv = (double)pp[K_J] * sums[T_JS] + kt_T +
+                      (double)pp[K_V] * (vd_end * vd_end);
+    double cost = (double)pp[K_LAT] * cd + (double)pp[K_LON] * cv;
+    cost = cost + PENALTY * sums[T_P1];
+    cost = cost + PENALTY * sums[T_P2];
+    cost = cost + PENALTY * sums[T_P3];
+    cost = cost + PENALTY * sums[T_P4];
+    if (O > 0) cost = cost + (double)((float)PENALTY * (float)n_hits);
+    cost_out[c] = cost;
+  }
+}
+
+__global__ void select_kernel(const double* __restrict__ rows,
+                              const double* __restrict__ costs,
+                              double* __restrict__ packed,
+                              double* __restrict__ cost_out,
+                              long long* __restrict__ best_out, int C,
+                              int N) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int& best_s = *reinterpret_cast<int*>(smem_raw);
+  if (threadIdx.x == 0) {
+    int best = 0;
+    double bc = costs[0];
+    for (int c = 1; c < C; ++c)
+      if (costs[c] < bc) {
+        bc = costs[c];
+        best = c;
+      }
+    best_s = best;
+    *cost_out = bc;
+    *best_out = best;
+  }
+  __syncthreads();
+  const double* src = rows + (size_t)best_s * N_ROWS * N;
+  for (int i = threadIdx.x; i < N_ROWS * N; i += blockDim.x)
+    packed[i] = src[i];
+}
+}  // namespace poly_sampling_two
+
+
 // the kernels' dynamic shared memory (an extern array declared inside a
 // function belongs to the function's namespace)
 namespace ilqr_mpc { alignas(16) unsigned char smem_raw[262144]; }
@@ -248,16 +482,18 @@ namespace poly_lat { alignas(16) unsigned char smem_raw[65536]; }
 namespace idm_rollout_k { alignas(16) unsigned char smem_raw[262144]; }
 namespace idm_evaluate_k { alignas(16) unsigned char smem_raw[262144]; }
 namespace poly_sampling_k { alignas(16) unsigned char smem_raw[65536]; }
+namespace poly_sampling_two { alignas(16) unsigned char smem_raw[65536]; }
 namespace dir_dist { alignas(16) unsigned char smem_raw[262144]; }
 namespace poly_planner_k { alignas(16) unsigned char smem_raw[65536]; }
 
 // A grid of gx x gy blocks of `threads` threads (256 unless given): every
 // host thread runs its thread of each block in turn (the blocks share the
 // one shared-memory array, so they run one after the other, kept apart by
-// a block barrier).
+// a block barrier), in the order of `order` (gx x gy block numbers, y * gx
+// + x) where given, else x fastest.
 template <class F>
 static void run_grid(unsigned gx, unsigned gy, F body,
-                     unsigned threads = 256) {
+                     unsigned threads = 256, const int* order = nullptr) {
   std::barrier<> block(threads);
   rehearsal::block_barrier = &block;
   blockDim = {threads, 1, 1};
@@ -266,13 +502,13 @@ static void run_grid(unsigned gx, unsigned gy, F body,
     pool.emplace_back([=] {
       threadIdx.x = i;
       gridDim = {gx, gy, 1};
-      for (unsigned by = 0; by < gy; ++by)
-        for (unsigned bx = 0; bx < gx; ++bx) {
-          blockIdx.x = bx;
-          blockIdx.y = by;
-          body();
-          __syncthreads();
-        }
+      for (unsigned b = 0; b < gx * gy; ++b) {
+        const unsigned n = order ? (unsigned)order[b] : b;
+        blockIdx.x = n % gx;
+        blockIdx.y = n / gx;
+        body();
+        __syncthreads();
+      }
     });
   for (auto& t : pool) t.join();
 }
@@ -395,20 +631,50 @@ extern "C" void rehearse_idm_evaluate(
   });
 }
 
-// the poly-sampling grid (a block per candidate) then its selection
+// the poly-sampling grid's one launch (a block per candidate, the last to
+// arrive selects), the blocks in `order`; with `prof` the profiling
+// instantiation
 extern "C" void rehearse_poly_sampling(
+    const float* start, const float* di, const float* Ti, const float* tv,
+    const float* ts, const float* path, const float* hulls,
+    const float* valid, const float* pp, const double* inv, double* rows,
+    double* costs, double* packed, double* cost, long long* best,
+    int* counter, unsigned long long* prof, const int* order, int C, int N,
+    int n_path, int O, int K) {
+  using namespace poly_sampling_k;
+  run_grid(C, 1, [=] {
+    if (prof)
+      poly_sampling_kernel<true>(start, di, Ti, tv, ts, path, hulls, valid,
+                                 pp, inv, rows, costs, packed, cost, best,
+                                 counter, prof, C, N, n_path, O, K);
+    else
+      poly_sampling_kernel<false>(start, di, Ti, tv, ts, path, hulls, valid,
+                                  pp, inv, rows, costs, packed, cost, best,
+                                  counter, nullptr, C, N, n_path, O, K);
+  }, 256, order);
+}
+
+extern "C" size_t poly_sampling_smem_bytes(int N, int O, int K) {
+  return poly_sampling_k::smem_bytes(N, O, K);
+}
+
+// the two-launch design the grid had before (a block of 32 threads per
+// candidate, thread 0 solving the coefficients and summing the terms, a
+// thread a step running the whole collision screen; then a one-block
+// selection that keeps the strictly smaller cost), for the rows' bits and
+// the selection's fault with a NaN cost
+extern "C" void rehearse_poly_sampling_two_kernel(
     const float* start, const float* di, const float* Ti, const float* tv,
     const float* ts, const float* path, const float* hulls,
     const float* valid, const float* pp, const double* inv, double* rows,
     double* costs, double* packed, double* cost, long long* best, int C,
     int N, int n_path, int O, int K) {
-  using namespace poly_sampling_k;
   run_grid(C, 1, [=] {
-    poly_sampling_eval_kernel(start, di, Ti, tv, ts, path, hulls, valid, pp,
-                              inv, rows, costs, C, N, n_path, O, K);
-  });
+    poly_sampling_two::eval_kernel(start, di, Ti, tv, ts, path, hulls, valid,
+                                   pp, inv, rows, costs, C, N, n_path, O, K);
+  }, 32);
   run_block([=] {
-    poly_sampling_select_kernel(rows, costs, packed, cost, best, C, N);
+    poly_sampling_two::select_kernel(rows, costs, packed, cost, best, C, N);
   });
 }
 
@@ -467,20 +733,32 @@ extern "C" void rehearse_poly_eval(const float* start_pts,
   });
 }
 
-// the K propagation launches, the last level first; offs as the launcher's
+// the propagation's one launch on the launcher's grid, the blocks in
+// `order` (its length the grid's); offs as the launcher's; with `prof` the
+// profiling instantiation
+extern "C" int poly_propagate_blocks(const int* offs, int K) {
+  const int n = offs[K] - offs[K - 1];
+  return n > 0 ? (n + poly_planner_k::WARPS - 1) / poly_planner_k::WARPS : 1;
+}
+
 extern "C" void rehearse_poly_propagate(const float* pts, double* node_cost,
                                         int* best, const int* seg,
-                                        double* traj, const int* offs, int K) {
+                                        double* traj, const int* offs,
+                                        int* counter,
+                                        unsigned long long* prof,
+                                        const int* order, int K) {
   using namespace poly_planner_k;
   Levels lv;
   std::memcpy(lv.node_off, offs, sizeof(lv.node_off));
   std::memcpy(lv.seg_off, offs + MAX_LEVELS + 2, sizeof(lv.seg_off));
-  for (int k = K - 1; k >= 0; --k) {
-    const int n = lv.node_off[k + 1] - lv.node_off[k];
-    run_grid(n > 0 ? (n + WARPS - 1) / WARPS : 1, 1, [=] {
-      propagate_kernel(pts, node_cost, best, seg, traj, lv, K, k);
-    });
-  }
+  run_grid(poly_propagate_blocks(offs, K), 1, [=] {
+    if (prof)
+      propagate_kernel<true>(pts, node_cost, best, seg, traj, counter, prof,
+                             lv, K);
+    else
+      propagate_kernel<false>(pts, node_cost, best, seg, traj, counter,
+                              nullptr, lv, K);
+  }, 256, order);
 }
 
 static latlon_am::Tables tables_of(const void* const* t) {
@@ -713,8 +991,13 @@ def bodies(tmp_path_factory):
     lib.idm_evaluate_grid.restype = None
     lib.idm_evaluate_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     lib.rehearse_poly_sampling.restype = None
-    lib.rehearse_poly_sampling.argtypes = ([ctypes.c_void_p] * 15
+    lib.rehearse_poly_sampling.argtypes = ([ctypes.c_void_p] * 18
                                            + [ctypes.c_int] * 5)
+    lib.rehearse_poly_sampling_two_kernel.restype = None
+    lib.rehearse_poly_sampling_two_kernel.argtypes = (
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5)
+    lib.poly_sampling_smem_bytes.restype = ctypes.c_size_t
+    lib.poly_sampling_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.rehearse_action_min.restype = None
     lib.rehearse_action_min.argtypes = ([ctypes.c_void_p] * 6
                                         + [ctypes.c_int] * 4)
@@ -732,8 +1015,10 @@ def bodies(tmp_path_factory):
     lib.rehearse_poly_eval.argtypes = ([ctypes.c_void_p] * 9
                                        + [ctypes.c_int] * 8)
     lib.rehearse_poly_propagate.restype = None
-    lib.rehearse_poly_propagate.argtypes = ([ctypes.c_void_p] * 6
+    lib.rehearse_poly_propagate.argtypes = ([ctypes.c_void_p] * 9
                                             + [ctypes.c_int])
+    lib.poly_propagate_blocks.restype = ctypes.c_int
+    lib.poly_propagate_blocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.rstp_rampify_smem_bytes.restype = ctypes.c_size_t
     lib.rstp_rampify_smem_bytes.argtypes = [ctypes.c_int]
     lib.latlon_action_min_tile_rows.restype = ctypes.c_int
@@ -1734,14 +2019,32 @@ def test_idm_evaluate_body_hairpin_matches_plain(bodies, slots):
     assert n_coll > 0 and 0 < n_proj < C * T * objs["pred_t"].shape[0]
 
 
-@pytest.mark.parametrize("scene", ["obstacles", "free", "bench"])
-def test_poly_sampling_body_matches_plain(bodies, scene):
-    """The grid and the selection: the plain version's winner, its rows
-    to 1e-9 (float64 rows; the coefficient solves sum in another order)."""
+def _poly_sampling_case(scene, C=None, nan_at=(), tie=False):
+    """The grid's inputs of a scene of ``scenes.poly_scene`` (float32 CPU
+    tensors), its first C candidates; ``nan_at``: those candidates' end
+    offset NaN (their costs NaN); ``tie``: the last candidate a copy of the
+    plain version's winner, or the first where that is the last (an equal
+    least cost)."""
     start, path, obs, pp = poly_scene(obstacles=scene == "obstacles",
                                       bench=scene == "bench")
-    a = psp.device_inputs(start, path, obs, pp, "cpu")
-    want_p, want_c, want_b = pok.run_reference(*a)
+    a = [x.clone() for x in psp.device_inputs(start, path, obs, pp, "cpu")]
+    if C is not None:
+        for i in (1, 2, 3):
+            a[i] = a[i][:C].contiguous()
+    if tie:
+        b = int(pok.run_reference(*a)[2])
+        j = a[1].shape[0] - 1 if b != a[1].shape[0] - 1 else 0
+        for i in (1, 2, 3):
+            a[i][j] = a[i][b]
+    for j in nan_at:
+        a[1][j] = float("nan")
+    return a
+
+
+def _rehearse_poly_sampling(bodies, a, seed=0, prof=None, two=False):
+    """The one launch (the blocks in a seeded order) or, with ``two``, the
+    earlier two-launch body: (rows, costs, packed, cost, best), and the
+    counter back at 0 after the one launch."""
     n = [np.ascontiguousarray(x.numpy()) for x in a]
     C, N = a[1].shape[0], a[4].shape[0]
     O, K = a[6].shape[:2]
@@ -1751,15 +2054,102 @@ def test_poly_sampling_body_matches_plain(bodies, scene):
     packed = np.zeros((11, N))
     cost = np.zeros(1)
     best = np.zeros(1, np.int64)
-    bodies.rehearse_poly_sampling(*[_ptr(x) for x in n], _ptr(inv),
-                                  _ptr(rows), _ptr(costs), _ptr(packed),
-                                  _ptr(cost), _ptr(best), C, N, len(path), O,
-                                  K)
-    assert int(best[0]) == int(want_b)
+    out = [_ptr(x) for x in (rows, costs, packed, cost, best)]
+    if two:
+        bodies.rehearse_poly_sampling_two_kernel(
+            *[_ptr(x) for x in n], _ptr(inv), *out, C, N, a[5].shape[0], O, K)
+    else:
+        counter = np.zeros(1, np.int32)
+        order = np.random.default_rng(seed).permutation(C).astype(np.int32)
+        bodies.rehearse_poly_sampling(
+            *[_ptr(x) for x in n], _ptr(inv), *out, _ptr(counter),
+            None if prof is None else _ptr(prof), _ptr(order), C, N,
+            a[5].shape[0], O, K)
+        assert counter[0] == 0
+    return rows, costs, packed, cost[0], int(best[0])
+
+
+def _check_poly_sampling(bodies, a, seed=0):
+    """The one launch against the plain version (the winner, its rows to
+    1e-9, NaN equal to NaN) and against the two-launch body (every
+    candidate's rows and cost bit for bit); returns both results and the
+    plain version's winner."""
+    want_p, want_c, want_b = pok.run_reference(*a)
+    got = _rehearse_poly_sampling(bodies, a, seed)
+    two = _rehearse_poly_sampling(bodies, a, two=True)
+    rows, costs, packed, cost, best = got
+    assert best == int(want_b)
     np.testing.assert_allclose(packed, want_p.numpy(), rtol=1e-9, atol=1e-9)
-    np.testing.assert_allclose(cost[0], float(want_c), rtol=1e-12)
+    np.testing.assert_allclose(cost, float(want_c), rtol=1e-12)
+    np.testing.assert_array_equal(rows, two[0])
+    np.testing.assert_array_equal(costs, two[1])
+    np.testing.assert_array_equal(packed, rows[best])
+    assert cost == costs[best] or (np.isnan(cost) and np.isnan(costs[best]))
+    return got, two, int(want_b)
+
+
+@pytest.mark.parametrize("scene", ["obstacles", "free", "bench"])
+def test_poly_sampling_body_matches_plain(bodies, scene):
+    """The grid's one launch at C = 30, the blocks in a seeded order: the
+    plain version's winner, its rows to 1e-9 (float64 rows; the coefficient
+    solves sum in another order); every candidate's rows and cost bit for
+    bit the two-launch body's."""
+    a = _poly_sampling_case(scene)
+    (_, costs, _, _, _), _, _ = _check_poly_sampling(bodies, a, seed=1)
     if scene != "free":
         assert (costs >= pok.PENALTY).any()
+
+
+@pytest.mark.parametrize("C", [1, 6])
+@pytest.mark.parametrize("scene", ["obstacles", "free", "bench"])
+def test_poly_sampling_body_small_grids(bodies, scene, C):
+    """The first 1 and 6 candidates of each scene, as at C = 30."""
+    _check_poly_sampling(bodies, _poly_sampling_case(scene, C), seed=C)
+
+
+@pytest.mark.parametrize("case", ["nan", "two_nans", "tie", "nan_and_tie"])
+def test_poly_sampling_body_selection_nan_and_tie(bodies, case):
+    """A NaN cost at an index > 0 wins (the first NaN, as ``torch.argmin``
+    and ``jnp.argmin`` take it), an exact tie of the least cost goes to the
+    smaller index, whichever block arrives last.  The two-launch body's
+    selection, which kept the strictly smaller cost, misses every NaN case
+    (the fault this repairs)."""
+    nan_at = {"nan": (17,), "two_nans": (23, 9), "tie": (),
+              "nan_and_tie": (21,)}[case]
+    a = _poly_sampling_case("obstacles", nan_at=nan_at,
+                            tie=case in ("tie", "nan_and_tie"))
+    for seed in (0, 1, 2):
+        (_, costs, _, _, best), two, want = _check_poly_sampling(
+            bodies, a, seed)
+    if nan_at:
+        assert best == min(nan_at) and np.isnan(costs[best])
+        assert np.isnan(costs).sum() == len(nan_at)
+        assert two[4] != want and not np.isnan(two[3])
+    else:
+        least = np.flatnonzero(costs == costs.min())
+        assert len(least) == 2 and best == least[0] == two[4]
+
+
+def test_poly_sampling_profiling_body_is_bit_equal(bodies):
+    """The profiling instantiation: every row, cost and the winner the
+    plain instantiation's; each block's phases counted, the selection's on
+    the last block alone."""
+    a = _poly_sampling_case("bench")
+    got = _rehearse_poly_sampling(bodies, a, seed=3)
+    prof = np.zeros(len(pok.PHASES), np.uint64)
+    again = _rehearse_poly_sampling(bodies, a, seed=4, prof=prof)
+    for x, y in zip(got, again):
+        np.testing.assert_array_equal(x, y)
+    assert (prof > 0).all()
+
+
+def test_poly_sampling_block_memory_within_the_default_limit(bodies):
+    """A block's shared memory: the coefficients, the term sums and 16
+    float64 values a step, 4 ints, 16 bytes a hull edge; the demo set's and
+    the bench's grids well inside the 48 KB the launcher allows."""
+    assert bodies.poly_sampling_smem_bytes(25, 8, 4) == (
+        8 * (6 + 5 + 7 + 25 * 16) + 4 * 4 + 4 * 8 * 4 * 4)
+    assert bodies.poly_sampling_smem_bytes(25, 8, 4) < 48 * 1024
 
 
 # ---------------------------------------------------------------------
@@ -1848,7 +2238,10 @@ def _rehearse_eval(bodies, start_pts, starts, specs, is_last, ev, dd, rl,
     return out
 
 
-def _rehearse_propagate(bodies, pts, seg, node_off, seg_off):
+def _rehearse_propagate(bodies, pts, seg, node_off, seg_off, seed=0,
+                        prof=None):
+    """The propagation's one launch, its blocks in a seeded order:
+    (node_cost, best, traj), and the counter back at 0."""
     K = len(node_off) - 2
     N = node_off[-1]
     offs = np.zeros(2 * ppk.MAX_LEVELS + 3, np.int32)
@@ -1857,10 +2250,15 @@ def _rehearse_propagate(bodies, pts, seg, node_off, seg_off):
     node_cost = np.zeros(N)
     best = np.zeros(N, np.int32)
     traj = np.zeros((K + 1, 8))
+    counter = np.zeros(1, np.int32)
+    order = np.random.default_rng(seed).permutation(
+        bodies.poly_propagate_blocks(_ptr(offs), K)).astype(np.int32)
     bodies.rehearse_poly_propagate(
         _ptr(np.ascontiguousarray(pts, np.float32)), _ptr(node_cost),
         _ptr(best), _ptr(np.ascontiguousarray(seg, np.int32)), _ptr(traj),
-        _ptr(offs), K)
+        _ptr(offs), _ptr(counter), None if prof is None else _ptr(prof),
+        _ptr(order), K)
+    assert counter[0] == 0
     return node_cost, best, traj
 
 
@@ -1956,24 +2354,70 @@ def test_poly_eval_body_near_the_horizon(bodies, is_last):
     assert counts["fit"] > 0 and counts["lookup"] > 0
 
 
-@pytest.mark.parametrize("seed,ties,nan", [(0, True, True), (1, True, False),
-                                           (2, False, True)])
-def test_poly_propagate_body_matches_plain(bodies, seed, ties, nan):
-    """Seeded graphs with equal least costs in a node's range, NaN costs
-    and nodes without edges: the same selections, costs and trajectory."""
-    node_pts, edge_steps = dp_poly_propagation_case(seed, ties=ties, nan=nan)
+def _check_propagate(bodies, node_pts, edge_steps, seed):
+    """The one launch against :func:`ppk.propagate_reference`: every
+    selection, propagated cost (NaN equal to NaN) and the trajectory;
+    returns the plain version's buffers."""
     pts, node_cost, best, seg, node_off, seg_off, traj = dp_poly_buffers(
         node_pts, edge_steps, "cpu")
     ppk.propagate_reference(pts, node_cost, best, seg, node_off, seg_off,
                             traj)
     g_cost, g_best, g_traj = _rehearse_propagate(bodies, pts.numpy(),
                                                  seg.numpy(), node_off,
-                                                 seg_off)
+                                                 seg_off, seed)
     inner = node_off[-2]
     np.testing.assert_array_equal(g_best[:inner], best.numpy()[:inner])
     np.testing.assert_array_equal(g_cost[:inner], node_cost.numpy()[:inner])
     np.testing.assert_array_equal(g_traj, traj.numpy())
+    return node_cost.numpy(), node_off
+
+
+@pytest.mark.parametrize("seed,ties,nan", [(0, True, True), (1, True, False),
+                                           (2, False, True)])
+def test_poly_propagate_body_matches_plain(bodies, seed, ties, nan):
+    """Seeded graphs with equal least costs in a node's range, NaN costs
+    and nodes without edges, the blocks in seeded orders: the same
+    selections, costs and trajectory."""
+    node_pts, edge_steps = dp_poly_propagation_case(seed, ties=ties, nan=nan)
+    for order in range(3):
+        node_cost, node_off = _check_propagate(bodies, node_pts, edge_steps,
+                                               order)
+    inner = node_off[-2]
     # the case has what it is for: nodes without edges (+inf) and, with
     # ``nan``, a NaN propagated cost
-    assert np.isinf(node_cost.numpy()[1:inner]).any()
-    assert np.isnan(node_cost.numpy()[:inner]).any() == nan
+    assert np.isinf(node_cost[1:inner]).any()
+    assert np.isnan(node_cost[:inner]).any() == nan
+
+
+@pytest.mark.parametrize("levels", [1, 3])
+@pytest.mark.parametrize("ties,nan", [(True, True), (False, False)])
+def test_poly_propagate_body_levels(bodies, levels, ties, nan):
+    """K = 1 (the root is the last level: one block, no lower level) and
+    K = 3 (the last block takes level 1, 40 nodes a warp each, then the
+    root over the block): the plain version's selections, costs and
+    trajectory, whichever block arrives last."""
+    node_pts, edge_steps = dp_poly_propagation_case(
+        5, ties=ties, nan=nan, levels=levels)
+    assert len(edge_steps) == levels
+    for order in range(3):
+        node_cost, node_off = _check_propagate(bodies, node_pts, edge_steps,
+                                               order)
+    if levels == 3:
+        assert np.isinf(node_cost[1:node_off[-2]]).any()
+        assert np.isnan(node_cost[:node_off[-2]]).any() == nan
+
+
+def test_poly_propagate_profiling_body_is_bit_equal(bodies):
+    """The profiling instantiation: the same buffers bit for bit, each
+    phase counted."""
+    node_pts, edge_steps = dp_poly_propagation_case(0, levels=3)
+    pts, _, _, seg, node_off, seg_off, _ = dp_poly_buffers(
+        node_pts, edge_steps, "cpu")
+    got = _rehearse_propagate(bodies, pts.numpy(), seg.numpy(), node_off,
+                              seg_off, 1)
+    prof = np.zeros(len(ppk.PROP_PHASES), np.uint64)
+    again = _rehearse_propagate(bodies, pts.numpy(), seg.numpy(), node_off,
+                                seg_off, 2, prof)
+    for x, y in zip(got, again):
+        np.testing.assert_array_equal(x, y)
+    assert (prof > 0).all()

@@ -160,7 +160,7 @@ for name, scenario in (("idm_sampling_planner", "demo/country_overtake"),
     assert done is not None, name
     assert isinstance(planner, (IdmSamplingPlanner, PolySamplingPlanner))
 assert idm_kernel.rollout_launches == idm_kernel.evaluate_launches == 0
-assert poly_kernel.eval_launches == poly_kernel.select_launches == 0
+assert poly_kernel.launches == 0
 assert not leaked(), ("rollout planners", leaked())
 
 from tpl_tpu_torch.planning import DpPolyPlanner

@@ -1,6 +1,7 @@
 """The port's Frenet polynomial sampling planner against the JAX package:
-the candidate grid, the plain kernel against the JAX kernel's ``run`` and
-against the numpy oracle ``_eval_candidates``, the obstacle packing and
+the candidate grid, the plain kernel against the JAX kernel's ``run`` (also
+the winner where costs are NaN: the first NaN) and against the numpy
+oracle ``_eval_candidates``, the obstacle packing and
 the SAT helper, and the planner in ``SimStandalone`` in lock step with the
 JAX one on ``demo/country_follow``.
 
@@ -102,12 +103,47 @@ def test_plain_kernel_index_and_factory_match_jax():
     np.testing.assert_allclose(pp_.numpy(), np.asarray(jp), rtol=ROW_TOL,
                                atol=ROW_TOL)
     assert float(pc) == pytest.approx(float(jc), rel=1e-12)
-    before = (pok.eval_launches, pok.select_launches)
+    before = pok.launches
     a = psp.device_inputs(start, path, obs, pp, "cpu")
     _, cost, best = pok.run(*a)
-    assert (pok.eval_launches, pok.select_launches) == before
+    assert pok.launches == before
     assert int(best) == psp._eval_candidates(start, path, obs, pp)["best"]
     assert float(cost) == float(pc)
+
+
+@pytest.mark.parametrize("nan_at", [(17,), (23, 9)])
+def test_plain_and_jax_pick_the_first_nan(nan_at):
+    """Candidates whose end offset is NaN (so their cost is NaN): the JAX
+    ``run`` (``jnp.argmin``) and the plain version (``torch.argmin``) both
+    pick the first NaN, not the least finite cost.  The JAX winner's index
+    is the candidate whose rows, evaluated alone, are its rows."""
+    start, path, obs, pp = poly_scene()
+    tpl_tpu_torch.use_device("cpu")
+    a = [x.clone() for x in psp.device_inputs(start, path, obs, pp, "cpu")]
+    finite = int(pok.run_reference(*a)[2])
+    for j in nan_at:
+        a[1][j] = float("nan")
+    packed, cost, best = pok.run(*a)
+    assert int(best) == min(nan_at) != finite and torch.isnan(cost)
+    n = [x.numpy() for x in a]
+    n[7] = n[7] != 0.0
+    jrun = jpok.make_poly_sampling_kernel(len(n[1]), len(n[4]), len(n[5]),
+                                          *n[6].shape[:2])
+    jp, jc = jrun(*n)
+    assert np.isnan(float(jc))
+
+    def alone(c):
+        b = list(a)
+        for i in (1, 2, 3):
+            b[i] = a[i][c:c + 1].contiguous()
+        return pok.run_reference(*b)[0].numpy()
+
+    picked = [c for c in range(len(n[1]))
+              if np.allclose(alone(c), np.asarray(jp), rtol=ROW_TOL,
+                             atol=ROW_TOL, equal_nan=True)]
+    assert picked == [int(best)]
+    np.testing.assert_allclose(packed.numpy(), np.asarray(jp), rtol=ROW_TOL,
+                               atol=ROW_TOL)
 
 
 def test_pack_obstacles_and_sat_match_jax():
@@ -206,4 +242,4 @@ def test_loop_ego_and_controls_agree(loop):
 
 
 def test_the_loop_launches_no_kernel_on_the_cpu(loop):
-    assert pok.eval_launches == pok.select_launches == 0
+    assert pok.launches == 0

@@ -142,6 +142,27 @@ def prepare(lib, name):
         raise RuntimeError(f"{name}_prepare failed: CUDA error {err}")
 
 
+_COUNTERS = {}
+
+
+def arrival_counter(dev, stream):
+    """The int32 word on ``dev`` at which the blocks of a launch on the
+    CUDA stream handle ``stream`` count their arrival, so that the last one
+    takes the final step (``poly_sampling``, ``poly_propagate``): one a
+    (device, stream), zeroed when it is made.  The last block puts it back
+    to 0, so no launch clears it and a CUDA graph replays a launch as it
+    is; launches on one stream run one after the other, so they share
+    it."""
+    import torch
+
+    key = (dev.index if dev.index is not None
+           else torch.cuda.current_device(), stream)
+    word = _COUNTERS.get(key)
+    if word is None:
+        word = _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return word
+
+
 def gxx_path():
     found = shutil.which(os.environ.get("CXX") or "g++")
     if found:

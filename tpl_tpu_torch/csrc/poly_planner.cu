@@ -38,18 +38,33 @@
 // at start index (7, 10) the last level's edges need 25.65 steps each, 19.25
 // of them on the polynomial); each step takes eight IEEE divisions.
 //
-// poly_propagate: one launch per level, from the last down; one warp per
-// node of the level.  The node's edges are one contiguous range (its
-// offsets in `seg`); the lanes take them 32 apart, keeping the least
-// (cost, edge) pair, and a butterfly of shuffles reduces the warp.  The
-// order: a NaN cost first (the first NaN, as np.argmin), else the least
-// cost, the smaller edge index among equal costs.  Edge costs are read as
-// float64 (the last level's float32 end costs, the others' propagated
-// costs), the node's own float32 cost is raised in float64; a node without
-// edges gets +inf and edge 0.  The level-0 launch (one block, the root)
-// then backtracks on one thread and writes the (K + 1, 8) float64
-// trajectory.
+// poly_propagate: one launch for every level and the backtrack.  The
+// blocks share the last level (K - 1), a warp a node: the node's edges are
+// one contiguous range (its offsets in `seg`); the lanes take them 32
+// apart, keeping the least (cost, edge) pair, and a butterfly of shuffles
+// reduces the warp.  The order: a NaN cost first (the first NaN, as
+// np.argmin), else the least cost, the smaller edge index among equal
+// costs; it is a total order of the pairs, so any grouping of the edges
+// selects the same one.  Edge costs are read as float64 (the last level's
+// float32 end costs, the others' propagated costs), the node's own float32
+// cost is raised in float64; a node without edges gets +inf and edge 0.
+// Each block then arrives at a counter (a barrier, thread 0's fence, its
+// atomic add).  The last block to arrive runs every lower level in turn,
+// from K - 2 down to 0, with a barrier between levels: a level of at least
+// 8 nodes a warp a node, a smaller one (the root) a node at a time over all
+// 256 threads with a reduction across the warps; it reads the propagated
+// costs through L2 (__ldcg), then backtracks on one thread and writes the
+// (K + 1, 8) float64 trajectory.  It puts the counter back to 0, so a
+// counter is allocated once and a CUDA graph replays the launch as it is.
+// At the demo widths (eval_steps 2) the lower levels are the root alone; a
+// graph of K >= 3 leaves its lower levels to the one last block: correct,
+// but not measured.
 //
+// What bounds it: the last level's costs, one float of each node's 32-byte
+// row (400,000 rows, 12.8 MB of sectors at the demo widths, against 1.6 MB
+// of costs), then the last block's chain (the root's edges, two
+// reductions, the backtrack's loads one level after the other).
+
 // The operations and their order are the plain versions'
 // (poly_planner_kernel.eval_edges_reference, propagate_reference), so the
 // two agree to float32 rounding of the card's division and the math
@@ -343,60 +358,211 @@ __device__ __forceinline__ bool before(double c, int i, double bc, int bi) {
   return c < bc || (c == bc && i < bi);
 }
 
-__global__ void __launch_bounds__(THREADS) propagate_kernel(
-    const float* __restrict__ pts, double* __restrict__ node_cost,
-    int* __restrict__ best, const int* __restrict__ seg,
-    double* __restrict__ traj, const Levels lv, int K, int k) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// the propagation's phases, thread 0's clock64() cycles summed over the
+// blocks: the last level, the arrival; the lower levels and the backtrack
+// (the last block only)
+enum PropPhase { PH_LAST, PH_ARRIVE, PH_LOWER, PH_BACKTRACK, N_PROP_PHASE };
+
+// the propagation's shared memory: the warps' pairs, the last-arrival flag
+struct PropShared {
+  double bc[WARPS];
+  int bi[WARPS];
+  int last;
+};
+
+// thread 0's clock in the profiling instantiation (nothing otherwise)
+template <bool PROF>
+struct BlockClock {
+  long long last = 0;
+  long long acc[N_PROP_PHASE] = {};
+
+  __device__ __forceinline__ void start() {
+    if constexpr (PROF) last = clock64();
+  }
+  __device__ __forceinline__ void stamp(int phase) {
+    if constexpr (PROF) {
+      const long long now = clock64();
+      acc[phase] += now - last;
+      last = now;
+    }
+  }
+  __device__ __forceinline__ void flush(unsigned long long* prof) {
+    if constexpr (PROF) {
+      if (threadIdx.x == 0)
+        for (int i = 0; i < N_PROP_PHASE; ++i)
+          if (acc[i]) atomicAdd(prof + i, (unsigned long long)acc[i]);
+    }
+  }
+};
+
+// the least (cost, edge) pair of edges [lo, hi) of a level whose end nodes
+// start at row b, from lo + first on, `stride` apart, into (bc, bi).  A
+// lower level's propagated costs are read four at a time, so that a
+// thread's loads from L2 overlap (the order of the compares is free); the
+// last level's reads are bound by their sectors, one a node's row, and
+// four at a time there measured slower.
+template <bool LAST>
+__device__ __forceinline__ void scan_edges(const float* pts,
+                                           const double* node_cost, int b,
+                                           int lo, int hi, int first,
+                                           int stride, double& bc, int& bi) {
+  int j = lo + first;
+  if constexpr (!LAST) {
+    for (; j + 3 * stride < hi; j += 4 * stride) {
+      double c[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) c[u] = __ldcg(node_cost + b + j + u * stride);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (before(c[u], j + u * stride, bc, bi)) {
+          bc = c[u];
+          bi = j + u * stride;
+        }
+    }
+  }
+  for (; j < hi; j += stride) {
+    const double c = LAST ? (double)pts[(size_t)(b + j) * 8 + PP_COST]
+                          : __ldcg(node_cost + b + j);
+    if (before(c, j, bc, bi)) {
+      bc = c;
+      bi = j;
+    }
+  }
+}
+
+__device__ __forceinline__ void warp_least(double& bc, int& bi) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const double oc = __shfl_xor_sync(FULL, bc, off);
+    const int oi = __shfl_xor_sync(FULL, bi, off);
+    if (before(oc, oi, bc, bi)) {
+      bc = oc;
+      bi = oi;
+    }
+  }
+}
+
+// node `node`'s propagated cost and edge from its least pair
+__device__ __forceinline__ void settle(const float* pts, double* node_cost,
+                                       int* best, int node, double bc,
+                                       int bi) {
+  if (bi == INT_MAX) {  // no edge
+    bc = INFINITY;
+    bi = 0;
+  }
+  node_cost[node] = (double)pts[(size_t)node * 8 + PP_COST] + bc;
+  best[node] = bi;
+}
+
+// level k's nodes from `first` on, `step` apart, a warp each
+template <bool LAST>
+__device__ __forceinline__ void level_by_warps(
+    const float* pts, double* node_cost, int* best, const int* seg,
+    const Levels& lv, int k, int first, int step) {
+  const int lane = threadIdx.x % 32;
   const int a = lv.node_off[k], b = lv.node_off[k + 1];
-  const int i = blockIdx.x * WARPS + warp;
-  const bool last = k == K - 1;
-  if (i < b - a) {
-    const int* sg = seg + lv.seg_off[k];
-    const int lo = sg[i], hi = sg[i + 1];
+  const int* sg = seg + lv.seg_off[k];
+  for (int i = first; i < b - a; i += step) {
     double bc = INFINITY;
     int bi = INT_MAX;
-    for (int j = lo + lane; j < hi; j += 32) {
-      const double c = last ? (double)pts[(size_t)(b + j) * 8 + PP_COST]
-                            : node_cost[b + j];
-      if (before(c, j, bc, bi)) {
-        bc = c;
-        bi = j;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const double oc = __shfl_sync(FULL, bc, lane ^ off);
-      const int oi = __shfl_sync(FULL, bi, lane ^ off);
-      if (before(oc, oi, bc, bi)) {
-        bc = oc;
-        bi = oi;
-      }
-    }
+    scan_edges<LAST>(pts, node_cost, b, sg[i], sg[i + 1], lane, 32, bc, bi);
+    warp_least(bc, bi);
+    if (lane == 0) settle(pts, node_cost, best, a + i, bc, bi);
+  }
+}
+
+// level k's nodes one after the other, each over the block's threads
+__device__ __forceinline__ void level_by_block(
+    const float* pts, double* node_cost, int* best, const int* seg,
+    const Levels& lv, int k, PropShared& sh) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int a = lv.node_off[k], b = lv.node_off[k + 1];
+  const int* sg = seg + lv.seg_off[k];
+  for (int i = 0; i < b - a; ++i) {
+    double bc = INFINITY;
+    int bi = INT_MAX;
+    scan_edges<false>(pts, node_cost, b, sg[i], sg[i + 1], threadIdx.x,
+                      THREADS, bc, bi);
+    warp_least(bc, bi);
     if (lane == 0) {
-      if (bi == INT_MAX) {  // no edge
-        bc = INFINITY;
-        bi = 0;
-      }
-      node_cost[a + i] = (double)pts[(size_t)(a + i) * 8 + PP_COST] + bc;
-      best[a + i] = bi;
+      sh.bc[warp] = bc;
+      sh.bi[warp] = bi;
     }
-  }
-  if (k == 0) {
     __syncthreads();
-    if (threadIdx.x == 0 && blockIdx.x == 0) {
-      for (int c = 0; c < 8; ++c) traj[c] = (double)pts[c];
-      traj[PP_COST] = node_cost[0];
-      int idx = 0;
-      for (int kk = 0; kk < K; ++kk) {
-        idx = best[lv.node_off[kk] + idx];
-        const size_t r = (size_t)lv.node_off[kk + 1] + idx;
-        double* row = traj + (kk + 1) * 8;
-        for (int c = 0; c < 8; ++c) row[c] = (double)pts[r * 8 + c];
-        if (kk + 1 < K) row[PP_COST] = node_cost[r];
-      }
+    if (warp == 0) {
+      bc = lane < WARPS ? sh.bc[lane] : INFINITY;
+      bi = lane < WARPS ? sh.bi[lane] : INT_MAX;
+      warp_least(bc, bi);
+      if (lane == 0) settle(pts, node_cost, best, a + i, bc, bi);
+    }
+    __syncthreads();
+  }
+}
+
+// A launch of ceil(n / WARPS) blocks of THREADS for the last level's n
+// nodes (one block when n is 0); `node_cost` and `best` are read back by
+// the last block (so neither is const __restrict__); `counter` is 0 at the
+// launch and again at its end.
+template <bool PROF>
+__global__ void __launch_bounds__(THREADS) propagate_kernel(
+    const float* __restrict__ pts, double* node_cost, int* best,
+    const int* __restrict__ seg, double* __restrict__ traj, int* counter,
+    unsigned long long* __restrict__ prof, const Levels lv, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  PropShared& sh = *reinterpret_cast<PropShared*>(smem_raw);
+  BlockClock<PROF> clk;
+  clk.start();
+  const int warp = threadIdx.x / 32;
+  level_by_warps<true>(pts, node_cost, best, seg, lv, K - 1,
+                       blockIdx.x * WARPS + warp, gridDim.x * WARPS);
+  clk.stamp(PH_LAST);
+
+  // the arrival (as a grid barrier does it): the block's barrier, then
+  // thread 0's fence orders the block's writes before its count, and in the
+  // last block its second fence the count before the block's reads
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const bool last = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+    if (last) {
+      *counter = 0;
+      __threadfence();
+    }
+    sh.last = last;
+  }
+  __syncthreads();
+  clk.stamp(PH_ARRIVE);
+  if (!sh.last) {
+    clk.flush(prof);
+    return;
+  }
+
+  // the last block: the lower levels, then the backtrack
+  for (int k = K - 2; k >= 0; --k) {
+    if (lv.node_off[k + 1] - lv.node_off[k] >= WARPS)
+      level_by_warps<false>(pts, node_cost, best, seg, lv, k, warp, WARPS);
+    else
+      level_by_block(pts, node_cost, best, seg, lv, k, sh);
+    __syncthreads();
+  }
+  clk.stamp(PH_LOWER);
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < 8; ++c) traj[c] = (double)pts[c];
+    traj[PP_COST] = __ldcg(node_cost);
+    // node r's edge is loaded beside its row, so each level waits on one
+    // round of loads
+    int idx = __ldcg(best);
+    for (int kk = 0; kk < K; ++kk) {
+      const int r = lv.node_off[kk + 1] + idx;
+      const int next = kk + 1 < K ? __ldcg(best + r) : 0;
+      double* row = traj + (kk + 1) * 8;
+      for (int c = 0; c < 8; ++c) row[c] = (double)pts[(size_t)r * 8 + c];
+      if (kk + 1 < K) row[PP_COST] = __ldcg(node_cost + r);
+      idx = next;
     }
   }
+  clk.stamp(PH_BACKTRACK);
+  clk.flush(prof);
 }
 
 }  // namespace poly_planner_k
@@ -440,6 +606,24 @@ int eval_launch(const float* start_pts, const int* edge_starts,
   return (int)cudaGetLastError();
 }
 
+template <bool PROF>
+int propagate_launch(const float* pts, double* node_cost, int* best,
+                     const int* seg, double* traj, const int* offs,
+                     int* counter, unsigned long long* prof, int K,
+                     void* stream) {
+  using namespace poly_planner_k;
+  if (K < 1 || K > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  Levels lv;
+  memcpy(lv.node_off, offs, sizeof(lv.node_off));
+  memcpy(lv.seg_off, offs + MAX_LEVELS + 2, sizeof(lv.seg_off));
+  const int n = lv.node_off[K] - lv.node_off[K - 1];
+  const int blocks = n > 0 ? (n + WARPS - 1) / WARPS : 1;
+  propagate_kernel<PROF><<<blocks, THREADS, sizeof(PropShared),
+                           (cudaStream_t)stream>>>(
+      pts, node_cost, best, seg, traj, counter, prof, lv, K);
+  return (int)cudaGetLastError();
+}
+
 // loads a kernel's code onto the current device; with `marks`, also raises
 // its shared-memory limit to the most a block may use
 template <class K>
@@ -463,6 +647,9 @@ extern "C" int poly_planner_n_eval_params() { return poly_planner_k::N_EV; }
 extern "C" int poly_planner_max_levels() { return poly_planner_k::MAX_LEVELS; }
 extern "C" int poly_planner_n_eval_prof() {
   return poly_planner_k::N_EVAL_PROF;
+}
+extern "C" int poly_planner_n_prop_phases() {
+  return poly_planner_k::N_PROP_PHASE;
 }
 
 // One level's end points (E, 8) float32 from its start points, its edges'
@@ -495,26 +682,31 @@ extern "C" int poly_eval_edges_profile(
                            T, S, L, D, n_ref, stream);
 }
 
-// Level k of K's propagation; `offs` (host): the node offsets (K + 2),
-// then from MAX_LEVELS + 2 on the seg offsets (K + 1).  The level-0 launch
-// also writes the trajectory (K + 1, 8) float64.
+// The propagation and the backtrack in one launch: every node's float64
+// propagated cost (`node_cost`) and edge (`best`) of levels 0..K-1 and the
+// (K + 1, 8) float64 trajectory (`traj`); `offs` (host): the node offsets
+// (K + 2), then from MAX_LEVELS + 2 on the seg offsets (K + 1); `counter`
+// one int that is 0 (the launch leaves it 0).
 extern "C" int poly_propagate(const float* pts, double* node_cost, int* best,
                               const int* seg, double* traj, const int* offs,
-                              int K, int k, void* stream) {
-  using namespace poly_planner_k;
-  if (K < 1 || K > MAX_LEVELS || k < 0 || k >= K)
-    return (int)cudaErrorInvalidValue;
-  Levels lv;
-  memcpy(lv.node_off, offs, sizeof(lv.node_off));
-  memcpy(lv.seg_off, offs + MAX_LEVELS + 2, sizeof(lv.seg_off));
-  const int n = lv.node_off[k + 1] - lv.node_off[k];
-  const int blocks = n > 0 ? (n + WARPS - 1) / WARPS : 1;
-  propagate_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      pts, node_cost, best, seg, traj, lv, K, k);
-  return (int)cudaGetLastError();
+                              int* counter, int K, void* stream) {
+  return propagate_launch<false>(pts, node_cost, best, seg, traj, offs,
+                                 counter, nullptr, K, stream);
 }
 
-// Loads the four kernels onto the current device and sets the evaluation's
+// the profiling instantiation: the same results, and per phase
+// (poly_planner_k::PropPhase) thread 0's cycles added into
+// prof[N_PROP_PHASE]
+extern "C" int poly_propagate_profile(const float* pts, double* node_cost,
+                                      int* best, const int* seg,
+                                      double* traj, const int* offs,
+                                      int* counter, unsigned long long* prof,
+                                      int K, void* stream) {
+  return propagate_launch<true>(pts, node_cost, best, seg, traj, offs,
+                                counter, prof, K, stream);
+}
+
+// Loads the five kernels onto the current device and sets the evaluation's
 // shared-memory limits, so that a replan's first launches pay for neither
 // (the wrapper calls it when it binds the library).  Returns the CUDA
 // error code.
@@ -524,7 +716,8 @@ extern "C" int poly_planner_prepare() {
   if (err == cudaSuccess)
     err = prepare(eval_edges_kernel<true>, &eval_marks[1]);
   if (err == cudaSuccess) err = prepare(field_slice_kernel, nullptr);
-  if (err == cudaSuccess) err = prepare(propagate_kernel, nullptr);
+  if (err == cudaSuccess) err = prepare(propagate_kernel<false>, nullptr);
+  if (err == cudaSuccess) err = prepare(propagate_kernel<true>, nullptr);
   return (int)err;
 }
 #endif

@@ -5,26 +5,38 @@
 // tpl_tpu/planning/poly_sampling/poly_kernel.py make_poly_sampling_kernel's
 // `run` (:76-196).  The reference is poly_sampling.cpp:37-258.
 //
-// poly_sampling_eval: one block per (d_end, T, v_end) candidate, a thread
-// per step (strided by the block).  Thread 0 solves the candidate's quintic
-// and quartic coefficients (float32 boundary values times the float64
-// inverses, as the JAX program promotes them); each step evaluates both
-// polynomials and their derivatives (Horner, float64), the reference path
-// at the station (lerp_xs: float64 weights, the heading's short angle in
-// float32), the cartesian point and heading, the constraint terms, and the
-// separating-axis test of the ego rectangle posed there against every
-// obstacle hull (the hull's edge normals and self-projections, float32, are
-// made once per block); then each step its segment length (jnp.hypot's
-// form) and curvature; then thread 0 sums the step terms in step order and
-// forms the cost.  The candidate's 11 rows and its cost go to scratch.
-//
-// poly_sampling_select: one block.  Thread 0 takes the first minimum of the
-// costs; the block copies the winner's rows.
+// poly_sampling: one launch, a block of 256 threads per (d_end, T, v_end)
+// candidate, in four phases between barriers:
+//  1. the 11 coefficients on 11 threads, each a 6-term (quintic) or 5-term
+//     (quartic) sum in index order of float32 boundary values times the
+//     float64 inverses, as the JAX program promotes them; beside them the
+//     obstacles' edge normals and self-projections (float32);
+//  2. both polynomials and their derivatives (Horner, float64), a warp for
+//     each of the 8 (a step a lane), and the terms that need one of them
+//     alone; then the reference path at the station (lerp_xs: float64
+//     weights, the heading's short angle in float32), a warp each for the
+//     cartesian x, the y, the heading and the speed-limit term;
+//  3. a thread a (step, obstacle) pair for the separating-axis test of the
+//     ego rectangle posed at the step against the obstacle's hull, the hits
+//     counted as integers (so their order is free); beside it a thread a
+//     step for the segment length (jnp.hypot's form) and the curvature, and
+//     the candidate's rows written to scratch;
+//  4. the 7 step-term sums on 7 threads, each in step order, then thread 0
+//     forms the cost and writes it to scratch.
+// Every block then arrives at a counter (a barrier, thread 0's fence, its
+// atomic add).  The last block to arrive takes the first minimum of the C
+// costs on one warp (a NaN first, the first NaN, as np.argmin; else the
+// least cost, the smaller index among equal costs), copies the winner's 11
+// rows and writes its cost and index; it puts the counter back to 0, so a
+// counter is allocated once and a CUDA graph replays the launch as it is.
+// The last block reads the other blocks' rows and costs through L2
+// (__ldcg), never through the non-coherent path.
 //
 // What bounds it: neither bytes nor operations at these sizes (30 x 25
 // candidate steps at the JAX bench's scene, 6 x 25 at the demo set): the
-// launch and the serial chain of one candidate, a step's float64 chain and
-// the N-step sums.
+// launch, then one candidate's chain: a step's polynomial value, its
+// station's division and lookups and one transcendental call, an obstacle
+// test, the N-step sums, and the last block's selection.
 //
 // The operations and their order follow the plain version
 // (tpl_tpu_torch/planning/poly_sampling/poly_kernel.py run_reference), but
@@ -33,11 +45,14 @@
 // rounding, and the winner as an index.  Build with --fmad=false.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
 
 namespace poly_sampling_k {
 
+constexpr int THREADS = 256;   // 8 warps: one for each polynomial value
+static_assert(THREADS == 8 * 32, "a warp a polynomial value");
 constexpr int MAX_STEPS = 1024;
 constexpr int N_ROWS = 11;
 constexpr double PENALTY = 10.0e6;
@@ -45,6 +60,7 @@ constexpr float PI_F = 3.14159274f;       // float32(pi)
 constexpr float TWO_PI_F = 6.28318548f;   // float32(2 pi)
 constexpr double PI_D = 3.141592653589793;
 constexpr double TWO_PI_D = 6.283185307179586;
+constexpr unsigned FULL = 0xffffffffu;
 
 // the packed parameters (poly_kernel.py PP_KEYS)
 enum Pp {
@@ -55,6 +71,13 @@ enum Pp {
 enum { O_D, O_D_D, O_D_DD, O_S, O_S_D, O_S_DD, O_X, O_Y, O_YAW, O_C, O_DS };
 // the per-step terms summed per candidate
 enum { T_JP, T_JS, T_JR, T_P1, T_P2, T_P3, T_P4, N_TERMS };
+// the block's shared integers: the hits, the last-arrival flag, the winner
+enum { F_HITS, F_LAST, F_BEST, N_FLAGS = 4 };
+// the profiling instantiation's phases, thread 0's clock64() cycles from
+// barrier to barrier summed over the blocks (poly_kernel.py PHASES): the
+// coefficients, the steps, the screen and the segments, the sums and the
+// cost, the arrival; the selection and the copy (the last block only)
+enum Phase { P_COEF, P_STEPS, P_SCREEN, P_SUMS, P_ARRIVE, P_SELECT, N_PHASE };
 
 __device__ __forceinline__ float mod_f(float x, float m) {
   const float r = fmodf(x, m);
@@ -114,31 +137,74 @@ __device__ __forceinline__ double hypot_jnp(double a, double b) {
   return hi * sqrt(1.0 + r * r);
 }
 
-__host__ __device__ inline size_t eval_smem_bytes(int N, int O, int K) {
-  // coefficients, per step 9 rows + 7 terms (double) and the hit count,
-  // the obstacles' normals and self-projections
-  return sizeof(double) * (6 + 5 + (size_t)N * (9 + N_TERMS)) +
-         sizeof(int) * (size_t)N + sizeof(float) * (size_t)O * K * 4;
+// (c, i) before (bc, bi): a NaN first (the smaller index among NaNs), else
+// the smaller cost, the smaller index among equal costs (np.argmin)
+__device__ __forceinline__ bool before(double c, int i, double bc, int bi) {
+  const bool cn = c != c, bn = bc != bc;
+  if (cn || bn) return cn && (!bn || i < bi);
+  return c < bc || (c == bc && i < bi);
 }
 
-__global__ void poly_sampling_eval_kernel(
+__host__ __device__ inline size_t smem_bytes(int N, int O, int K) {
+  // the coefficients, the term sums and per step 9 rows + 7 terms
+  // (double), the block's integers, the obstacles' normals and
+  // self-projections
+  return sizeof(double) * (6 + 5 + N_TERMS + (size_t)N * (9 + N_TERMS)) +
+         sizeof(int) * N_FLAGS + sizeof(float) * (size_t)O * K * 4;
+}
+
+// thread 0's clock in the profiling instantiation (nothing otherwise)
+template <bool PROF>
+struct BlockClock {
+  long long last = 0;
+  long long acc[N_PHASE] = {};
+
+  __device__ __forceinline__ void start() {
+    if constexpr (PROF) last = clock64();
+  }
+  __device__ __forceinline__ void stamp(int phase) {
+    if constexpr (PROF) {
+      const long long now = clock64();
+      acc[phase] += now - last;
+      last = now;
+    }
+  }
+  __device__ __forceinline__ void flush(unsigned long long* prof) {
+    if constexpr (PROF) {
+      if (threadIdx.x == 0)
+        for (int i = 0; i < N_PHASE; ++i)
+          if (acc[i]) atomicAdd(prof + i, (unsigned long long)acc[i]);
+    }
+  }
+};
+
+// `rows` (C, 11, N) and `costs` (C,) are the blocks' scratch, which the
+// last block reads back (so neither is const __restrict__); `counter` is 0
+// at the launch and again at its end.
+template <bool PROF>
+__global__ void __launch_bounds__(THREADS, 1) poly_sampling_kernel(
     const float* __restrict__ start, const float* __restrict__ di,
     const float* __restrict__ Ti, const float* __restrict__ tv,
     const float* __restrict__ ts, const float* __restrict__ path,
     const float* __restrict__ hulls, const float* __restrict__ valid,
     const float* __restrict__ pp_in, const double* __restrict__ inv,
-    double* __restrict__ rows_out, double* __restrict__ cost_out, int C,
-    int N, int n_path, int O, int K) {
+    double* rows, double* costs, double* __restrict__ packed,
+    double* __restrict__ cost_out, long long* __restrict__ best_out,
+    int* counter, unsigned long long* __restrict__ prof, int C, int N,
+    int n_path, int O, int K) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* cl = reinterpret_cast<double*>(smem_raw);    // quintic (6)
   double* cs = cl + 6;                                 // quartic (5)
-  double* row = cs + 5;                                // (9, N)
+  double* sums = cs + 5;                               // (N_TERMS)
+  double* row = sums + N_TERMS;                        // (9, N)
   double* term = row + 9 * N;                          // (N_TERMS, N)
-  int* hits = reinterpret_cast<int*>(term + N_TERMS * N);
-  float* nrm = reinterpret_cast<float*>(hits + N);     // (O, K, 2)
+  int* flag = reinterpret_cast<int*>(term + N_TERMS * N);
+  float* nrm = reinterpret_cast<float*>(flag + N_FLAGS);  // (O, K, 2)
   float* po_min = nrm + O * K * 2;                     // (O, K)
   float* po_max = po_min + O * K;
 
+  BlockClock<PROF> clk;
+  clk.start();
   const int tid = threadIdx.x, nt = blockDim.x;
   const int c = blockIdx.x;
   float pp[N_PP];
@@ -146,28 +212,28 @@ __global__ void poly_sampling_eval_kernel(
   const float T_end = Ti[c];
   const float d = T_end - 0.0f;        // x1 - x0, the polynomials' span
 
-  if (tid == 0) {
+  if (tid < 6) {
     // PolyQuintic(0, d0, dd0, ddd0, T, d_end, 0, 0): b = [y0, dy0 d,
     // ddy0 (d d), y1, 0 d, 0 (d d)], c = b . inv^T
     const float b5[6] = {start[0], start[1] * d, start[2] * (d * d), di[c],
                          0.0f * d, 0.0f * (d * d)};
-    for (int m = 0; m < 6; ++m) {
-      double acc = 0.0;
-      for (int k = 0; k < 6; ++k) acc += (double)b5[k] * inv[m * 6 + k];
-      cl[m] = acc;
-    }
+    double acc = 0.0;
+    for (int k = 0; k < 6; ++k) acc += (double)b5[k] * inv[tid * 6 + k];
+    cl[tid] = acc;
+  } else if (tid < 11) {
     // PolyQuartic(0, s0, sd0, sdd0, T, v_end, 0): b = [s0, v d, (a d) d,
     // ve d, (0 d) d]
+    const int m = tid - 6;
     const float b4[5] = {start[3], start[4] * d, start[5] * d * d, tv[c] * d,
                          0.0f * d * d};
-    for (int m = 0; m < 5; ++m) {
-      double acc = 0.0;
-      for (int k = 0; k < 5; ++k) acc += (double)b4[k] * inv[36 + m * 5 + k];
-      cs[m] = acc;
-    }
+    double acc = 0.0;
+    for (int k = 0; k < 5; ++k) acc += (double)b4[k] * inv[36 + m * 5 + k];
+    cs[m] = acc;
   }
-  // the obstacles' edge normals and their self-projections
-  for (int e = tid; e < O * K; e += nt) {
+  if (tid == 0) flag[F_HITS] = 0;
+  // the obstacles' edge normals and their self-projections, from warp 1 on
+  // (warp 0 solves the coefficients)
+  for (int e = (tid + nt - 32) % nt; e < O * K; e += nt) {
     const int o = e / K, j = e % K;
     const float* h = hulls + (size_t)o * K * 2;
     const int jn = j + 1 < K ? j + 1 : 0;
@@ -185,86 +251,80 @@ __global__ void poly_sampling_eval_kernel(
     po_max[e] = hi;
   }
   __syncthreads();
+  clk.stamp(P_COEF);
 
-  const double x0e = (double)(-pp[REAR_AXIS_TO_REAR]);
-  const double x1e = (double)pp[REAR_AXIS_TO_FRONT];
-  const double be = (double)(pp[WIDTH_EGO] / 2.0f);
-  const float xs0 = path[3], dxs = path[6 + 3] - path[3];
-  for (int n = tid; n < N; n += nt) {
+  // the 8 polynomial values of each step, warp w the w-th (warp-uniform, so
+  // no warp runs another's branch), and the terms that need that one alone
+  const int warp = tid / 32, lane = tid % 32;
+  for (int n = lane; n < N; n += 32) {
     const float u = (ts[n] - 0.0f) / d;
-    const double dv = poly_eval(cl, 5, 0, u, d);
-    const double d_d = poly_eval(cl, 5, 1, u, d);
-    const double d_dd = poly_eval(cl, 5, 2, u, d);
-    const double d_ddd = poly_eval(cl, 5, 3, u, d);
-    const double sv = poly_eval(cs, 4, 0, u, d);
-    const double s_d = poly_eval(cs, 4, 1, u, d);
-    const double s_dd = poly_eval(cs, 4, 2, u, d);
-    const double s_ddd = poly_eval(cs, 4, 3, u, d);
-
-    const double q = (sv - (double)xs0) / (double)dxs;
-    const double rx = lerp_path(path, n_path, q, 0, false);
-    const double ry = lerp_path(path, n_path, q, 1, false);
-    const double rh = lerp_path(path, n_path, q, 2, true);
-    const double rv = lerp_path(path, n_path, q, 5, false);
-    const double hf = atan(d_d / (s_d == 0.0 ? 1e-9 : s_d));
-    const double x = rx - sin(rh) * dv;
-    const double y = ry + cos(rh) * dv;
-    const double yaw = hf + rh;
-
-    // the collision screen at this pose
-    int nh = 0;
-    const double cy_ = cos(yaw), sy_ = sin(yaw);
-    for (int o = 0; o < O; ++o) {
-      if (valid[o] == 0.0f) continue;
-      const float* h = hulls + (size_t)o * K * 2;
-      double qx_max = -INFINITY, qx_min = INFINITY;
-      double qy_max = -INFINITY, qy_min = INFINITY;
-      for (int k = 0; k < K; ++k) {
-        const double rx_ = (double)h[k * 2] - x, ry_ = (double)h[k * 2 + 1] - y;
-        const double qx = rx_ * cy_ + ry_ * sy_;
-        const double qy = -rx_ * sy_ + ry_ * cy_;
-        qx_max = fmax(qx_max, qx);
-        qx_min = fmin(qx_min, qx);
-        qy_max = fmax(qy_max, qy);
-        qy_min = fmin(qy_min, qy);
+    switch (warp) {
+      case 0: {
+        const double dv = poly_eval(cl, 5, 0, u, d);
+        row[O_D * N + n] = dv;
+        term[T_JR * N + n] = dv < 0.0 ? -dv : 0.0;
+        term[T_P4 * N + n] = fmax(fabs(dv) - 4.0, 0.0);
+        break;
       }
-      bool sep = qx_max < x0e || qx_min > x1e || qy_max < -be || qy_min > be;
-      for (int j = 0; j < K && !sep; ++j) {
-        const double n_x = (double)nrm[(o * K + j) * 2];
-        const double n_y = (double)nrm[(o * K + j) * 2 + 1];
-        const double nx = n_x * cy_ + n_y * sy_;
-        const double ny = -n_x * sy_ + n_y * cy_;
-        const double pc = n_x * x + n_y * y;
-        const double hi = fmax(nx * x0e, nx * x1e) + fabs(ny) * be;
-        const double lo = fmin(nx * x0e, nx * x1e) - fabs(ny) * be;
-        if (pc + hi < (double)po_min[o * K + j] ||
-            pc + lo > (double)po_max[o * K + j])
-          sep = true;
+      case 1: row[O_D_D * N + n] = poly_eval(cl, 5, 1, u, d); break;
+      case 2: row[O_D_DD * N + n] = poly_eval(cl, 5, 2, u, d); break;
+      case 3: {
+        const double d_ddd = poly_eval(cl, 5, 3, u, d);
+        term[T_JP * N + n] = d_ddd * d_ddd;
+        break;
       }
-      if (!sep) ++nh;
+      case 4: row[O_S * N + n] = poly_eval(cs, 4, 0, u, d); break;
+      case 5: row[O_S_D * N + n] = poly_eval(cs, 4, 1, u, d); break;
+      case 6: {
+        const double s_dd = poly_eval(cs, 4, 2, u, d);
+        row[O_S_DD * N + n] = s_dd;
+        term[T_P3 * N + n] = fmax(fabs(s_dd) - (double)pp[A_MAX], 0.0);
+        break;
+      }
+      default: {
+        const double s_ddd = poly_eval(cs, 4, 3, u, d);
+        term[T_JS * N + n] = s_ddd * s_ddd;
+      }
     }
-
-    row[O_D * N + n] = dv;
-    row[O_D_D * N + n] = d_d;
-    row[O_D_DD * N + n] = d_dd;
-    row[O_S * N + n] = sv;
-    row[O_S_D * N + n] = s_d;
-    row[O_S_DD * N + n] = s_dd;
-    row[O_X * N + n] = x;
-    row[O_Y * N + n] = y;
-    row[O_YAW * N + n] = yaw;
-    term[T_JP * N + n] = d_ddd * d_ddd;
-    term[T_JS * N + n] = s_ddd * s_ddd;
-    term[T_JR * N + n] = dv < 0.0 ? -dv : 0.0;
-    term[T_P1 * N + n] = fmax(fabs(s_d) - rv, 0.0);
-    term[T_P3 * N + n] = fmax(fabs(s_dd) - (double)pp[A_MAX], 0.0);
-    term[T_P4 * N + n] = fmax(fabs(dv) - 4.0, 0.0);
-    hits[n] = nh;
   }
   __syncthreads();
 
+  // the reference path at the station and the cartesian pose: warps 0-3
+  // the x, the y, the heading and the speed-limit term of each step, each
+  // with the station's lookups it needs
+  const float xs0 = path[3], dxs = path[6 + 3] - path[3];
+  for (int n = lane; n < N && warp < 4; n += 32) {
+    const double q = (row[O_S * N + n] - (double)xs0) / (double)dxs;
+    const double s_d = row[O_S_D * N + n];
+    switch (warp) {
+      case 0: {
+        const double rh = lerp_path(path, n_path, q, 2, true);
+        row[O_X * N + n] = lerp_path(path, n_path, q, 0, false) -
+                           sin(rh) * row[O_D * N + n];
+        break;
+      }
+      case 1: {
+        const double rh = lerp_path(path, n_path, q, 2, true);
+        row[O_Y * N + n] = lerp_path(path, n_path, q, 1, false) +
+                           cos(rh) * row[O_D * N + n];
+        break;
+      }
+      case 2: {
+        const double hf =
+            atan(row[O_D_D * N + n] / (s_d == 0.0 ? 1e-9 : s_d));
+        row[O_YAW * N + n] = hf + lerp_path(path, n_path, q, 2, true);
+        break;
+      }
+      default:
+        term[T_P1 * N + n] =
+            fmax(fabs(s_d) - lerp_path(path, n_path, q, 5, false), 0.0);
+    }
+  }
+  __syncthreads();
+  clk.stamp(P_STEPS);
+
   // the segments and the curvature
-  double* out = rows_out + (size_t)c * N_ROWS * N;
+  double* out = rows + (size_t)c * N_ROWS * N;
   for (int n = tid; n + 1 < N; n += nt) {
     const double seg = hypot_jnp(row[O_X * N + n + 1] - row[O_X * N + n],
                                  row[O_Y * N + n + 1] - row[O_Y * N + n]);
@@ -280,17 +340,56 @@ __global__ void poly_sampling_eval_kernel(
     }
   }
   for (int i = tid; i < 9 * N; i += nt) out[i] = row[i];
-  __syncthreads();
-
-  if (tid == 0) {
-    double sums[N_TERMS];
-    int n_hits = 0;
-    for (int t = 0; t < N_TERMS; ++t) {
-      double acc = term[t * N];
-      for (int n = 1; n < N; ++n) acc = acc + term[t * N + n];
-      sums[t] = acc;
+  // the collision screen: the ego rectangle at step n against obstacle o
+  const double x0e = (double)(-pp[REAR_AXIS_TO_REAR]);
+  const double x1e = (double)pp[REAR_AXIS_TO_FRONT];
+  const double be = (double)(pp[WIDTH_EGO] / 2.0f);
+  int nh = 0;
+  for (int p = tid; p < N * O; p += nt) {
+    const int n = p / O, o = p % O;
+    if (valid[o] == 0.0f) continue;
+    const double x = row[O_X * N + n], y = row[O_Y * N + n];
+    const double yaw = row[O_YAW * N + n];
+    const double cy_ = cos(yaw), sy_ = sin(yaw);
+    const float* h = hulls + (size_t)o * K * 2;
+    double qx_max = -INFINITY, qx_min = INFINITY;
+    double qy_max = -INFINITY, qy_min = INFINITY;
+    for (int k = 0; k < K; ++k) {
+      const double rx_ = (double)h[k * 2] - x, ry_ = (double)h[k * 2 + 1] - y;
+      const double qx = rx_ * cy_ + ry_ * sy_;
+      const double qy = -rx_ * sy_ + ry_ * cy_;
+      qx_max = fmax(qx_max, qx);
+      qx_min = fmin(qx_min, qx);
+      qy_max = fmax(qy_max, qy);
+      qy_min = fmin(qy_min, qy);
     }
-    for (int n = 0; n < N; ++n) n_hits += hits[n];
+    bool sep = qx_max < x0e || qx_min > x1e || qy_max < -be || qy_min > be;
+    for (int j = 0; j < K && !sep; ++j) {
+      const double n_x = (double)nrm[(o * K + j) * 2];
+      const double n_y = (double)nrm[(o * K + j) * 2 + 1];
+      const double nx = n_x * cy_ + n_y * sy_;
+      const double ny = -n_x * sy_ + n_y * cy_;
+      const double pc = n_x * x + n_y * y;
+      const double hi = fmax(nx * x0e, nx * x1e) + fabs(ny) * be;
+      const double lo = fmin(nx * x0e, nx * x1e) - fabs(ny) * be;
+      if (pc + hi < (double)po_min[o * K + j] ||
+          pc + lo > (double)po_max[o * K + j])
+        sep = true;
+    }
+    if (!sep) ++nh;
+  }
+  if (nh) atomicAdd(flag + F_HITS, nh);
+  __syncthreads();
+  clk.stamp(P_SCREEN);
+
+  // the step sums, each in step order, then the cost
+  if (tid < N_TERMS) {
+    double acc = term[tid * N];
+    for (int n = 1; n < N; ++n) acc = acc + term[tid * N + n];
+    sums[tid] = acc;
+  }
+  __syncthreads();
+  if (tid == 0) {
     const double kt_T = (double)(pp[K_T] * T_end);
     const double dd_end = (double)pp[TRG_D] - row[O_D * N + N - 1];
     const double vd_end = 100.0 - row[O_S_D * N + N - 1];
@@ -304,73 +403,125 @@ __global__ void poly_sampling_eval_kernel(
     cost = cost + PENALTY * sums[T_P2];
     cost = cost + PENALTY * sums[T_P3];
     cost = cost + PENALTY * sums[T_P4];
-    if (O > 0) cost = cost + (double)((float)PENALTY * (float)n_hits);
-    cost_out[c] = cost;
+    if (O > 0) cost = cost + (double)((float)PENALTY * (float)flag[F_HITS]);
+    costs[c] = cost;
   }
-}
+  clk.stamp(P_SUMS);
 
-__global__ void poly_sampling_select_kernel(const double* __restrict__ rows,
-                                            const double* __restrict__ costs,
-                                            double* __restrict__ packed,
-                                            double* __restrict__ cost_out,
-                                            long long* __restrict__ best_out,
-                                            int C, int N) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int& best_s = *reinterpret_cast<int*>(smem_raw);
-  if (threadIdx.x == 0) {
-    int best = 0;
-    double bc = costs[0];
-    for (int c = 1; c < C; ++c)
-      if (costs[c] < bc) {
-        bc = costs[c];
-        best = c;
-      }
-    best_s = best;
-    *cost_out = bc;
-    *best_out = best;
+  // the arrival (as a grid barrier does it): the block's barrier, then
+  // thread 0's fence orders the block's rows and cost before its count, and
+  // in the last block its second fence the count before the block's reads
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    const bool last = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+    if (last) {
+      *counter = 0;
+      __threadfence();
+    }
+    flag[F_LAST] = last;
   }
   __syncthreads();
-  const double* src = rows + (size_t)best_s * N_ROWS * N;
-  for (int i = threadIdx.x; i < N_ROWS * N; i += blockDim.x) packed[i] = src[i];
+  clk.stamp(P_ARRIVE);
+  if (!flag[F_LAST]) {
+    clk.flush(prof);
+    return;
+  }
+
+  // the last block: the first minimum of the costs, the winner's rows
+  if (tid < 32) {
+    double bc = INFINITY;
+    int bi = INT_MAX;
+    for (int k = tid; k < C; k += 32) {
+      const double v = __ldcg(costs + k);
+      if (before(v, k, bc, bi)) {
+        bc = v;
+        bi = k;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const double oc = __shfl_xor_sync(FULL, bc, off);
+      const int oi = __shfl_xor_sync(FULL, bi, off);
+      if (before(oc, oi, bc, bi)) {
+        bc = oc;
+        bi = oi;
+      }
+    }
+    if (tid == 0) {
+      flag[F_BEST] = bi;
+      *cost_out = bc;
+      *best_out = bi;
+    }
+  }
+  __syncthreads();
+  const double* src = rows + (size_t)flag[F_BEST] * N_ROWS * N;
+  for (int i = tid; i < N_ROWS * N; i += nt) packed[i] = __ldcg(src + i);
+  clk.stamp(P_SELECT);
+  clk.flush(prof);
 }
 
 }  // namespace poly_sampling_k
 
 #ifdef __CUDACC__
-extern "C" int poly_sampling_n_params() { return poly_sampling_k::N_PP; }
-extern "C" int poly_sampling_max_steps() { return poly_sampling_k::MAX_STEPS; }
+namespace {
 
-// The grid: each candidate's rows (C, 11, N) float64 and cost (C,) float64
-// from the start [d, d_d, d_dd, s, s_d, s_dd], the grids di / Ti / tv (C,),
-// the step times (N,), the path (n_path, 6), the obstacle hulls (O, K, 2)
-// and flags (O,), the packed parameters and the float64 inverses (the
-// quintic's 6 x 6, then the quartic's 5 x 5).
-extern "C" int poly_sampling_eval(const float* start, const float* di,
-                                  const float* Ti, const float* tv,
-                                  const float* ts, const float* path,
-                                  const float* hulls, const float* valid,
-                                  const float* pp, const double* inv,
-                                  double* rows, double* costs, int C, int N,
-                                  int n_path, int O, int K, void* stream) {
+template <bool PROF>
+int launch(const float* start, const float* di, const float* Ti,
+           const float* tv, const float* ts, const float* path,
+           const float* hulls, const float* valid, const float* pp,
+           const double* inv, double* rows, double* costs, double* packed,
+           double* cost, long long* best, int* counter,
+           unsigned long long* prof, int C, int N, int n_path, int O, int K,
+           void* stream) {
   using namespace poly_sampling_k;
   if (N > MAX_STEPS || N < 2 || C < 1 || n_path < 2)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = eval_smem_bytes(N, O, K);
+  const size_t smem = smem_bytes(N, O, K);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  poly_sampling_eval_kernel<<<C, 32, smem, (cudaStream_t)stream>>>(
-      start, di, Ti, tv, ts, path, hulls, valid, pp, inv, rows, costs, C, N,
-      n_path, O, K);
+  poly_sampling_kernel<PROF><<<C, THREADS, smem, (cudaStream_t)stream>>>(
+      start, di, Ti, tv, ts, path, hulls, valid, pp, inv, rows, costs,
+      packed, cost, best, counter, prof, C, N, n_path, O, K);
   return (int)cudaGetLastError();
 }
 
-// The selection: the winner's rows (11, N), cost and index.
-extern "C" int poly_sampling_select(const double* rows, const double* costs,
-                                    double* packed, double* cost,
-                                    long long* best, int C, int N,
-                                    void* stream) {
-  poly_sampling_k::poly_sampling_select_kernel<<<1, 256, 16,
-                                                 (cudaStream_t)stream>>>(
-      rows, costs, packed, cost, best, C, N);
-  return (int)cudaGetLastError();
+}  // namespace
+
+extern "C" int poly_sampling_n_params() { return poly_sampling_k::N_PP; }
+extern "C" int poly_sampling_max_steps() { return poly_sampling_k::MAX_STEPS; }
+extern "C" int poly_sampling_n_phases() { return poly_sampling_k::N_PHASE; }
+
+// The grid and its winner in one launch: the winner's rows (11, N) float64
+// into `packed`, its cost float64 and index int64, from the start [d, d_d,
+// d_dd, s, s_d, s_dd], the grids di / Ti / tv (C,), the step times (N,),
+// the path (n_path, 6), the obstacle hulls (O, K, 2) and flags (O,), the
+// packed parameters and the float64 inverses (the quintic's 6 x 6, then the
+// quartic's 5 x 5); `rows` (C, 11, N) and `costs` (C,) float64 are scratch,
+// `counter` one int that is 0 (the launch leaves it 0).
+extern "C" int poly_sampling(const float* start, const float* di,
+                             const float* Ti, const float* tv,
+                             const float* ts, const float* path,
+                             const float* hulls, const float* valid,
+                             const float* pp, const double* inv, double* rows,
+                             double* costs, double* packed, double* cost,
+                             long long* best, int* counter, int C, int N,
+                             int n_path, int O, int K, void* stream) {
+  return launch<false>(start, di, Ti, tv, ts, path, hulls, valid, pp, inv,
+                       rows, costs, packed, cost, best, counter, nullptr, C,
+                       N, n_path, O, K, stream);
+}
+
+// the profiling instantiation: the same results, and per phase
+// (poly_sampling_k::Phase) thread 0's cycles added into prof[N_PHASE]
+extern "C" int poly_sampling_profile(
+    const float* start, const float* di, const float* Ti, const float* tv,
+    const float* ts, const float* path, const float* hulls,
+    const float* valid, const float* pp, const double* inv, double* rows,
+    double* costs, double* packed, double* cost, long long* best,
+    int* counter, unsigned long long* prof, int C, int N, int n_path, int O,
+    int K, void* stream) {
+  return launch<true>(start, di, Ti, tv, ts, path, hulls, valid, pp, inv,
+                      rows, costs, packed, cost, best, counter, prof, C, N,
+                      n_path, O, K, stream);
 }
 #endif

@@ -10,14 +10,15 @@ tpl_tpu/planning/dyn_prog/poly_planner_kernel.py)
 The graph is built on the host (numpy, rate-feasibility pruning, cached
 per (ds, l) start index) and uploaded once per start index; a replan is
 one upload of the 8-float start state, ``eval_steps`` edge evaluations
-(two launches each), ``eval_steps`` propagation launches and one download
-of the (eval_steps + 1, 8) trajectory.  Every level's end points stay on
+(two launches each), one propagation launch and one download of the
+(eval_steps + 1, 8) trajectory.  Every level's end points stay on
 the device.  On a CUDA tensor the two entries are the hand-written kernels
 of ``csrc/poly_planner.cu``: :func:`eval_edges` (``poly_eval_edges``: the
 field's slice straight ahead gathered, then a thread per edge that takes
-only the steps it needs) and :func:`propagate_and_backtrack` (``poly_propagate``, a launch
-per level from the last down, a warp per node, the level-0 launch also
-backtracks); on a CPU tensor their plain PyTorch versions
+only the steps it needs) and :func:`propagate_and_backtrack`
+(``poly_propagate``, one launch: the blocks share the last level, a warp a
+node, and the last block to finish takes the lower levels and the
+backtrack); on a CPU tensor their plain PyTorch versions
 :func:`eval_edges_reference` and :func:`propagate_reference`.
 
 The device layout: the nodes of all levels are rows of one (N, 8) float32
@@ -535,15 +536,8 @@ def eval_edges_profile(start_pts, edge_starts, end_specs, is_last, ev,
     return out, dict(zip(EVAL_PHASES + EVAL_COUNTS, prof.cpu().tolist()))
 
 
-def propagate_and_backtrack(pts, node_cost, best, seg, node_off, seg_off,
-                            traj):
-    """The cost relaxation and the backtrack into ``traj`` ((K + 1, 8)
-    float64): ``poly_propagate`` once per level on a CUDA tensor (K
-    launches, the level-0 one backtracks), :func:`propagate_reference` on a
-    CPU tensor.  ``pts`` (N, 8) float32, ``node_cost`` (N,) float64,
-    ``best`` (N,) int32, ``seg`` int32, contiguous on one device;
-    ``node_off`` / ``seg_off`` host lists (module docstring)."""
-    global propagate_launches
+def _propagate_inputs(pts, node_cost, best, seg, node_off, seg_off, traj):
+    """Checks the propagation's buffers; returns K."""
     dev = pts.device
     N = node_off[-1]
     K = len(node_off) - 2
@@ -555,27 +549,71 @@ def propagate_and_backtrack(pts, node_cost, best, seg, node_off, seg_off,
     _check("best", best, (N,), torch.int32, dev)
     _check("seg", seg, (seg_off[-1],), torch.int32, dev)
     _check("traj", traj, (K + 1, 8), torch.float64, dev)
-    if dev.type == "cpu":
-        return propagate_reference(pts, node_cost, best, seg, node_off,
-                                   seg_off, traj)
-    if dev.type != "cuda":
-        raise ValueError(f"poly_planner_kernel: unsupported device {dev}")
-    lib = _kernel()
+    return K
+
+
+def _launch_propagate(fn, pts, node_cost, best, seg, node_off, seg_off, traj,
+                      K, prof=()):
+    """``poly_propagate`` (or its profiling entry ``fn`` with the counter
+    buffer ``prof``) on CUDA tensors; the arrival counter is the
+    stream's."""
+    from tpl_tpu_torch import _build
+
+    dev = pts.device
     offs = np.zeros(2 * MAX_LEVELS + 3, np.int32)
     offs[:K + 2] = node_off
     offs[MAX_LEVELS + 2:MAX_LEVELS + 2 + K + 1] = seg_off
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for k in range(K - 1, -1, -1):
-            err = lib.poly_propagate(pts.data_ptr(), node_cost.data_ptr(),
-                                     best.data_ptr(), seg.data_ptr(),
-                                     traj.data_ptr(), offs.ctypes.data, K, k,
-                                     stream)
-            if err != 0:
-                raise RuntimeError(f"poly_propagate launch failed: CUDA "
-                                   f"error {err}")
-            propagate_launches += 1
+        err = fn(pts.data_ptr(), node_cost.data_ptr(), best.data_ptr(),
+                 seg.data_ptr(), traj.data_ptr(), offs.ctypes.data,
+                 _build.arrival_counter(dev, stream).data_ptr(),
+                 *(b.data_ptr() for b in prof), K, stream)
+    if err != 0:
+        raise RuntimeError(f"poly_propagate launch failed: CUDA error {err}")
+
+
+def propagate_and_backtrack(pts, node_cost, best, seg, node_off, seg_off,
+                            traj):
+    """The cost relaxation and the backtrack into ``traj`` ((K + 1, 8)
+    float64): one ``poly_propagate`` launch on a CUDA tensor (every level
+    and the backtrack), :func:`propagate_reference` on a CPU tensor.
+    ``pts`` (N, 8) float32, ``node_cost`` (N,) float64, ``best`` (N,)
+    int32, ``seg`` int32, contiguous on one device; ``node_off`` /
+    ``seg_off`` host lists (module docstring)."""
+    global propagate_launches
+    dev = pts.device
+    K = _propagate_inputs(pts, node_cost, best, seg, node_off, seg_off, traj)
+    if dev.type == "cpu":
+        return propagate_reference(pts, node_cost, best, seg, node_off,
+                                   seg_off, traj)
+    if dev.type != "cuda":
+        raise ValueError(f"poly_planner_kernel: unsupported device {dev}")
+    _launch_propagate(_kernel().poly_propagate, pts, node_cost, best, seg,
+                      node_off, seg_off, traj, K)
+    propagate_launches += 1
     return traj
+
+
+# the propagation's profiling instantiation's phases (csrc/poly_planner.cu
+# PropPhase): thread 0's cycles from barrier to barrier, summed over the
+# blocks; the last two the last block's alone
+PROP_PHASES = ("last_level", "arrival", "lower_levels", "backtrack")
+
+
+def propagate_profile(pts, node_cost, best, seg, node_off, seg_off, traj):
+    """The propagation's profiling instantiation on CUDA tensors (not
+    counted as a launch of the main path): fills the buffers as
+    :func:`propagate_and_backtrack` does, bit for bit, and returns {phase:
+    clock64() cycles}."""
+    K = _propagate_inputs(pts, node_cost, best, seg, node_off, seg_off, traj)
+    if pts.device.type != "cuda":
+        raise ValueError("propagate_profile needs CUDA tensors")
+    prof = torch.zeros(len(PROP_PHASES), dtype=torch.int64,
+                       device=pts.device)
+    _launch_propagate(_kernel().poly_propagate_profile, pts, node_cost, best,
+                      seg, node_off, seg_off, traj, K, (prof,))
+    return dict(zip(PROP_PHASES, prof.cpu().tolist()))
 
 
 def graph_layout(node_counts, edge_steps):
@@ -716,8 +754,10 @@ OPS_EDGE = 2 * (25 + 36) + 40
 # the other
 CHAIN_EDGE = dict(f32_mul=14, f32_add=18, f32_div=3, smem_load=3)
 CHAIN_PER_STEP = dict(f32_add=1)
-# per level of the propagation: a node's warp reads its edges 32 at a time,
-# one float64 compare each, then 5 shuffle rounds; the backtrack K reads
+# the propagation: a node's warp reads its edges 32 at a time (a lower
+# level's node of the last block, when the level has fewer nodes than the
+# block's 8 warps: 256 at a time), one float64 compare each, then 5 shuffle
+# rounds (and a second 5 across the warps); the backtrack K reads
 CHAIN_PER_EDGE_ROUND = dict(f64_add=1, smem_load=1)
 CHAIN_REDUCE = dict(f64_add=5, smem_load=5)
 
@@ -781,9 +821,9 @@ def eval_chain_ms(n_int, cycles, sm_mhz):
 
 
 def propagate_bytes(node_off, seg_off):
-    """Bytes the K propagation launches must move: each edge's cost (the
-    last level's float32, the others' float64), each level's offsets, each
-    node's propagated cost and edge written, the trajectory."""
+    """Bytes the propagation must move: each edge's cost (the last level's
+    float32, the others' float64), each level's offsets, each node's
+    propagated cost and edge written, the trajectory."""
     K = len(node_off) - 2
     n = [node_off[k + 1] - node_off[k] for k in range(K + 1)]
     edge_cost = 4 * n[K] + 8 * sum(n[1:K])
@@ -798,18 +838,30 @@ def propagate_bound_ms(node_off, seg_off):
                                 "float64")
 
 
-def propagate_chain_ms(node_off, seg_host, seg_off, cycles, sm_mhz):
-    """K launches one after the other, each its longest node's warp: the
-    edges 32 at a time, then the reduction; ``seg_host`` the offsets as
-    numpy."""
+def propagate_chain_ms(node_off, seg_host, seg_off, cycles, sm_mhz,
+                       one_launch=True):
+    """The levels one after the other, each its longest warp: the edges 32
+    at a time, then the reduction.  ``one_launch``: the kernel's design,
+    the last level a warp a node, each lower level on the last block's 8
+    warps (a level of fewer than 8 nodes a node at a time, 256 edges at a
+    time, then two reductions); else the pricing of the earlier design, a
+    launch a level, a warp a node.  ``seg_host`` the offsets as numpy."""
     K = len(node_off) - 2
     ops = {}
     for k in range(K):
         n = node_off[k + 1] - node_off[k]
-        s = seg_host[seg_off[k]:seg_off[k] + n + 1]
-        rounds = int(np.ceil(int(np.max(np.diff(s))) / 32)) if n else 0
+        if n == 0:
+            continue
+        d = np.diff(seg_host[seg_off[k]:seg_off[k] + n + 1])
+        if not one_launch or k == K - 1:
+            rounds, reduces = int(np.ceil(int(np.max(d)) / 32)), 1
+        elif n < 8:
+            rounds, reduces = int(np.sum(np.ceil(d / 256))), 2 * n
+        else:
+            rounds = max(int(np.sum(np.ceil(d[w::8] / 32))) for w in range(8))
+            reduces = -(-n // 8)
         _latency.add_ops(ops, CHAIN_PER_EDGE_ROUND, rounds)
-        _latency.add_ops(ops, CHAIN_REDUCE, 1)
+        _latency.add_ops(ops, CHAIN_REDUCE, reduces)
     _latency.add_ops(ops, dict(smem_load=2), K)
     return _latency.chain_ms(ops, cycles, sm_mhz)
 
@@ -831,21 +883,24 @@ def _kernel():
         lib.poly_eval_edges.argtypes = [ctypes.c_void_p] * 8 + ints
         lib.poly_eval_edges_profile.restype = ctypes.c_int
         lib.poly_eval_edges_profile.argtypes = [ctypes.c_void_p] * 9 + ints
-        lib.poly_propagate.restype = ctypes.c_int
-        lib.poly_propagate.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        for fn, n_ptr in ((lib.poly_propagate, 7),
+                          (lib.poly_propagate_profile, 8)):
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int]
+                           + [ctypes.c_void_p])
         for fn in (lib.poly_planner_n_eval_params,
                    lib.poly_planner_max_levels, lib.poly_planner_n_eval_prof,
-                   lib.poly_planner_prepare):
+                   lib.poly_planner_n_prop_phases, lib.poly_planner_prepare):
             fn.restype = ctypes.c_int
             fn.argtypes = []
         if (lib.poly_planner_n_eval_params() != len(EVAL_KEYS)
                 or lib.poly_planner_max_levels() != MAX_LEVELS
                 or lib.poly_planner_n_eval_prof()
-                != len(EVAL_PHASES) + len(EVAL_COUNTS)):
+                != len(EVAL_PHASES) + len(EVAL_COUNTS)
+                or lib.poly_planner_n_prop_phases() != len(PROP_PHASES)):
             raise RuntimeError("poly_planner.cu and poly_planner_kernel "
                                "disagree on EVAL_KEYS / MAX_LEVELS / "
-                               "EVAL_PHASES")
+                               "EVAL_PHASES / PROP_PHASES")
         _build.prepare(lib, "poly_planner")
         _LIB = lib
     return _LIB

@@ -10,17 +10,18 @@ deviation costs, the cartesian conversion along the reference path, the
 curvature, the constraint penalties, the separating-axis screen of the ego
 rectangle against the padded obstacle hulls, then the first minimum of the
 cost and the winner's 11 rows.  On a CUDA tensor that is the hand-written
-kernel of ``csrc/poly_sampling.cu`` (a block per candidate, then a
-one-block selection: two launches); on a CPU tensor the plain PyTorch
-version :func:`run_reference`.
+kernel of ``csrc/poly_sampling.cu`` (one launch: a block per candidate, and
+the last block to finish takes the selection); on a CPU tensor the plain
+PyTorch version :func:`run_reference`.
 
 Dtypes are the JAX program's (the JAX package turns x64 on): the inputs
 are float32, the float64 Hermite and quartic inverses promote the
 polynomials, the geometry and the cost to float64; the obstacles' edge
 normals and self-projections stay float32, as do the time-cost terms
 ``k_t * T`` and the collision penalty.  The plain version sums over the
-steps in index order (the kernel's order).  ``eval_launches`` /
-``select_launches`` count each launch's kernel launches.
+steps in index order (the kernel's order).  The winner is the first
+minimum of the costs, a NaN first (``torch.argmin``, ``jnp.argmin``).
+``launches`` counts the kernel's launches.
 """
 
 import ctypes
@@ -34,8 +35,7 @@ from tpl_tpu_torch.ops.splines import PolyQuintic, PolyQuartic, \
     _HERMITE_INV, _M4_INV
 from tpl_tpu_torch.planning.dyn_prog.lon_kernel import _check
 
-eval_launches = 0       # kernel launches since import (reset freely)
-select_launches = 0
+launches = 0            # kernel launches since import (reset freely)
 
 PENALTY = 10.0e6
 
@@ -226,15 +226,10 @@ def _inverses(dev):
     return inv
 
 
-def run(start, di, Ti, tv, ts, path, obs_hulls, obs_valid, pp_vec):
-    """The candidate grid's winner: (packed (11, N) float64, cost float64,
-    index int64), the last two 0-d.  Two launches (``poly_sampling_eval``,
-    ``poly_sampling_select``) on a CUDA tensor, :func:`run_reference` on a
-    CPU tensor.  Arguments as :func:`run_reference`'s, float32, contiguous,
-    on one device."""
-    global eval_launches, select_launches
+def _inputs(start, di, Ti, tv, ts, path, obs_hulls, obs_valid, pp_vec):
+    """Checks the grid's inputs; returns (C, N, O, K)."""
     dev = di.device
-    f32, f64 = torch.float32, torch.float64
+    f32 = torch.float32
     C, N = di.shape[0], ts.shape[0]
     O = obs_hulls.shape[0]
     K = obs_hulls.shape[1] if obs_hulls.dim() == 3 else 0
@@ -251,11 +246,17 @@ def run(start, di, Ti, tv, ts, path, obs_hulls, obs_valid, pp_vec):
     if C < 1 or N < 2:
         raise ValueError(f"{C} candidates of {N} steps: outside what the "
                          "grid takes")
-    if dev.type == "cpu":
-        return run_reference(start, di, Ti, tv, ts, path, obs_hulls,
-                             obs_valid, pp_vec)
-    if dev.type != "cuda":
-        raise ValueError(f"poly_kernel: unsupported device {dev}")
+    return C, N, O, K
+
+
+def _launch(fn, args, C, N, O, K, prof=()):
+    """``poly_sampling`` (or its profiling entry ``fn`` with the counter
+    buffer ``prof``) on CUDA tensors: (packed, cost, best); the candidates'
+    scratch is allocated here, the arrival counter is the stream's."""
+    from tpl_tpu_torch import _build
+
+    dev = args[1].device
+    f64 = torch.float64
     lib = _kernel()
     if N > lib.poly_sampling_max_steps():
         raise ValueError(f"{N} steps: the grid takes at most "
@@ -265,27 +266,54 @@ def run(start, di, Ti, tv, ts, path, obs_hulls, obs_valid, pp_vec):
     packed = torch.empty((len(OUT_KEYS), N), dtype=f64, device=dev)
     cost = torch.empty((), dtype=f64, device=dev)
     best = torch.empty((), dtype=torch.int64, device=dev)
-    inv = _inverses(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.poly_sampling_eval(
-            start.data_ptr(), di.data_ptr(), Ti.data_ptr(), tv.data_ptr(),
-            ts.data_ptr(), path.data_ptr(), obs_hulls.data_ptr(),
-            obs_valid.data_ptr(), pp_vec.data_ptr(), inv.data_ptr(),
-            rows.data_ptr(), costs.data_ptr(), C, N, path.shape[0], O, K,
-            stream)
-        if err != 0:
-            raise RuntimeError(f"poly_sampling_eval launch failed: CUDA "
-                               f"error {err}")
-        eval_launches += 1
-        err = lib.poly_sampling_select(rows.data_ptr(), costs.data_ptr(),
-                                       packed.data_ptr(), cost.data_ptr(),
-                                       best.data_ptr(), C, N, stream)
+        err = fn(*(a.data_ptr() for a in args), _inverses(dev).data_ptr(),
+                 rows.data_ptr(), costs.data_ptr(), packed.data_ptr(),
+                 cost.data_ptr(), best.data_ptr(),
+                 _build.arrival_counter(dev, stream).data_ptr(),
+                 *(b.data_ptr() for b in prof), C, N, args[5].shape[0], O, K,
+                 stream)
     if err != 0:
-        raise RuntimeError(f"poly_sampling_select launch failed: CUDA error "
-                           f"{err}")
-    select_launches += 1
+        raise RuntimeError(f"poly_sampling launch failed: CUDA error {err}")
     return packed, cost, best
+
+
+def run(start, di, Ti, tv, ts, path, obs_hulls, obs_valid, pp_vec):
+    """The candidate grid's winner: (packed (11, N) float64, cost float64,
+    index int64), the last two 0-d.  One launch (``poly_sampling``) on a
+    CUDA tensor, :func:`run_reference` on a CPU tensor.  Arguments as
+    :func:`run_reference`'s, float32, contiguous, on one device."""
+    global launches
+    args = (start, di, Ti, tv, ts, path, obs_hulls, obs_valid, pp_vec)
+    C, N, O, K = _inputs(*args)
+    dev = di.device
+    if dev.type == "cpu":
+        return run_reference(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"poly_kernel: unsupported device {dev}")
+    res = _launch(_kernel().poly_sampling, args, C, N, O, K)
+    launches += 1
+    return res
+
+
+# the profiling instantiation's phases (csrc/poly_sampling.cu Phase): thread
+# 0's cycles from barrier to barrier, summed over the blocks; the last one
+# the last block's alone
+PHASES = ("coefficients", "steps", "screen", "sums", "arrival", "selection")
+
+
+def run_profile(start, di, Ti, tv, ts, path, obs_hulls, obs_valid, pp_vec):
+    """The kernel's profiling instantiation on CUDA tensors (not counted
+    as a launch of the main path): (packed, cost, best bit-equal to
+    :func:`run`'s, {phase: clock64() cycles})."""
+    args = (start, di, Ti, tv, ts, path, obs_hulls, obs_valid, pp_vec)
+    C, N, O, K = _inputs(*args)
+    if di.device.type != "cuda":
+        raise ValueError("run_profile needs CUDA tensors")
+    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=di.device)
+    res = _launch(_kernel().poly_sampling_profile, args, C, N, O, K, (prof,))
+    return res + (dict(zip(PHASES, prof.cpu().tolist())),)
 
 
 def make_poly_sampling_kernel(n_cand, n_steps, n_path, n_obs, n_hull):
@@ -359,13 +387,37 @@ def pack_obstacles(obstacles, pad_multiple=4):
 # candidate the coefficients (6 x 6 + 5 x 5 products and sums) and the
 # cost, 160.
 OPS = dict(step=8 * 11 + 32 + 20 + 20, vertex=8, edge=14, candidate=160)
-# the critical path of one candidate: a step's chain (Horner, a lookup, the
-# sine and cosine, the curvature's division), then the step sums on one
-# thread, N steps of 7 float64 additions, then the selection's C compares
-CHAIN_STEP = dict(f64_mul=12, f64_add=20, f64_div=4, f64_sin=1, f64_cos=1,
-                  smem_load=8)
-CHAIN_PER_STEP = dict(f64_add=7, smem_load=7)
-CHAIN_PER_CAND = dict(f64_add=1, smem_load=1)
+# The critical path of one candidate's block, the kernel's phases one after
+# the other: a coefficient (a 6-term sum); a polynomial value (Horner of 6
+# terms, its division) a round of its warp's lanes; the heading of a step
+# (the station's division and the heading's lookup, the slope's division
+# and arc tangent; the x, the y and the speed-limit term take as long or
+# less on their warps) a round; one (step, obstacle) test (the
+# pose's sine, cosine and rotation, a running max a vertex, an edge
+# normal's test a hull edge) a round; one term's N-step sum, the cost; then
+# the last block's selection (its warp's compares, C / 32 a lane, and 5
+# shuffle rounds).  The arrival's fence and atomic are not priced (no
+# probe).
+THREADS = 256
+CHAIN_COEF = dict(f64_mul=1, f64_add=6)
+CHAIN_VALUE = dict(f64_mul=6, f64_add=6, f64_div=1, smem_load=1)
+CHAIN_GEOMETRY = dict(f64_mul=3, f64_add=6, f64_div=2, f32_fmod=1,
+                      f64_atan=1, smem_load=3)
+CHAIN_PAIR = dict(f64_sin=1, f64_cos=1, f64_mul=2, f64_add=2, smem_load=3)
+CHAIN_PAIR_VERTEX = dict(f64_add=1)
+CHAIN_PAIR_EDGE = dict(f64_mul=2, f64_add=4)
+CHAIN_SUM_STEP = dict(f64_add=1, smem_load=1)
+CHAIN_COST = dict(f64_mul=6, f64_add=12, smem_load=7)
+CHAIN_SELECT_ROUND = dict(f64_add=1, smem_load=1)
+CHAIN_REDUCE = dict(f64_add=5, smem_load=10)
+# the pricing of the earlier two-launch design: a step's whole chain on one
+# thread (Horner, a lookup, the sine and cosine, the curvature's division),
+# then the step sums on one thread, N steps of 7 float64 additions, then
+# the selection's C compares on one thread
+SERIAL_STEP = dict(f64_mul=12, f64_add=20, f64_div=4, f64_sin=1, f64_cos=1,
+                   smem_load=8)
+SERIAL_PER_STEP = dict(f64_add=7, smem_load=7)
+SERIAL_PER_CAND = dict(f64_add=1, smem_load=1)
 
 
 def operations(C, N, O, K):
@@ -388,9 +440,26 @@ def bound_ms(C, N, n_path, O, K):
                                 operations(C, N, O, K), "float64")
 
 
-def chain_ms(C, N, cycles, sm_mhz):
-    ops = _latency.add_ops(dict(CHAIN_STEP), CHAIN_PER_STEP, N)
-    ops = _latency.add_ops(ops, CHAIN_PER_CAND, C)
+def chain_ms(C, N, O, K, cycles, sm_mhz):
+    """The critical path of the one-launch design (the constants above)."""
+    ops = _latency.add_ops(dict(CHAIN_COEF), CHAIN_VALUE, -(-N // 32))
+    _latency.add_ops(ops, CHAIN_GEOMETRY, -(-N // 32))
+    if O:
+        pair = _latency.add_ops(_latency.add_ops(
+            dict(CHAIN_PAIR), CHAIN_PAIR_VERTEX, K), CHAIN_PAIR_EDGE, K)
+        _latency.add_ops(ops, pair, -(-(N * O) // THREADS))
+    _latency.add_ops(ops, CHAIN_SUM_STEP, N)
+    _latency.add_ops(ops, CHAIN_COST, 1)
+    _latency.add_ops(ops, CHAIN_SELECT_ROUND, -(-C // 32))
+    _latency.add_ops(ops, CHAIN_REDUCE, 1)
+    return _latency.chain_ms(ops, cycles, sm_mhz)
+
+
+def serial_chain_ms(C, N, cycles, sm_mhz):
+    """The pricing of the earlier two-launch design: a step's chain, then
+    the 7 step sums on one thread, then C compares on one thread."""
+    ops = _latency.add_ops(dict(SERIAL_STEP), SERIAL_PER_STEP, N)
+    ops = _latency.add_ops(ops, SERIAL_PER_CAND, C)
     return _latency.chain_ms(ops, cycles, sm_mhz)
 
 
@@ -404,16 +473,18 @@ def _kernel():
         from tpl_tpu_torch import _build
 
         lib = _build.load("poly_sampling")
-        lib.poly_sampling_eval.restype = ctypes.c_int
-        lib.poly_sampling_eval.argtypes = (
-            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-        lib.poly_sampling_select.restype = ctypes.c_int
-        lib.poly_sampling_select.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        for fn in (lib.poly_sampling_max_steps, lib.poly_sampling_n_params):
+        for fn, n_ptr in ((lib.poly_sampling, 16),
+                          (lib.poly_sampling_profile, 17)):
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+        for fn in (lib.poly_sampling_max_steps, lib.poly_sampling_n_params,
+                   lib.poly_sampling_n_phases):
             fn.restype = ctypes.c_int
             fn.argtypes = []
-        if lib.poly_sampling_n_params() != len(PP_KEYS):
-            raise RuntimeError("poly_sampling.cu and PP_KEYS disagree")
+        if (lib.poly_sampling_n_params() != len(PP_KEYS)
+                or lib.poly_sampling_n_phases() != len(PHASES)):
+            raise RuntimeError("poly_sampling.cu and PP_KEYS / PHASES "
+                               "disagree")
         _LIB = lib
     return _LIB

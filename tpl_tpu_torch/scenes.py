@@ -444,13 +444,16 @@ def dp_poly_keys():
     return [(1, 10), (3, 10), (7, 10), (12, 4)]
 
 
-def dp_poly_propagation_case(seed, n1=40, e2=300, ties=True, nan=True):
-    """A seeded two-level graph for the propagation: a root with ``n1``
-    edges, level 1's nodes with ``e2`` edges among them (some nodes have
-    none), float32 points; with ``ties`` the costs take few values (equal
-    least costs in a node's range), with ``nan`` a NaN cost among level 2's
-    and one among level 1's.  Returns (node point arrays (float64, one per
-    level), edge start arrays (int32, one per level))."""
+def dp_poly_propagation_case(seed, n1=40, e2=300, ties=True, nan=True,
+                             levels=2, e3=600):
+    """A seeded graph for the propagation: a root with ``n1`` edges, level
+    1's nodes with ``e2`` edges among them (some nodes have none), float32
+    points; with ``ties`` the costs take few values (equal least costs in a
+    node's range), with ``nan`` a NaN cost among level 2's and one among
+    level 1's.  ``levels`` 1 keeps the root's edges alone, 3 adds ``e3``
+    edges from level 2's nodes (some without), with a NaN cost among them
+    too.  Returns (node point arrays (float64, one per level), edge start
+    arrays (int32, one per level))."""
     rng = np.random.default_rng(seed)
     with_edges = rng.permutation(n1)[:n1 * 3 // 4]
     starts2 = np.sort(rng.choice(with_edges, e2)).astype(np.int32)
@@ -464,7 +467,19 @@ def dp_poly_propagation_case(seed, n1=40, e2=300, ties=True, nan=True):
     if nan:
         pts[2][rng.integers(0, e2), ppk.PP_COST] = np.nan
         pts[1][rng.integers(0, n1), ppk.PP_COST] = np.nan
-    return pts, [np.zeros(n1, np.int32), starts2]
+    edges = [np.zeros(n1, np.int32), starts2]
+    if levels == 1:
+        return pts[:2], edges[:1]
+    if levels == 3:
+        with_edges = rng.permutation(e2)[:e2 * 3 // 4]
+        edges.append(np.sort(rng.choice(with_edges, e3)).astype(np.int32))
+        p = rng.normal(0.0, 5.0, (e3, 8)).astype(np.float32)
+        if ties:
+            p[:, ppk.PP_COST] = rng.integers(0, 4, e3).astype(np.float32)
+        if nan:
+            p[rng.integers(0, e3), ppk.PP_COST] = np.nan
+        pts.append(p.astype(np.float64))
+    return pts, edges
 
 
 def dp_poly_buffers(node_pts, edge_steps, dev):

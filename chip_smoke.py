@@ -126,7 +126,21 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    for bit); times through the bare launchers and the wrappers on the FAS
    loop's inputs, the wrappers on the lattice loop's, the plain versions'
    times, ``bound_ms`` and ``chain_ms``; the forward pass, the sweep and
-   the selection also from CUDA graphs (``graph_ms``);
+   the selection also from CUDA graphs (``graph_ms``); the profiling
+   instantiations of the forward pass (lane 0's us by phase: staging,
+   lookup, terms, pick, next) and of the sweep (thread 0's us a block:
+   coefficients, samples, segments, times, collision, reduce), each
+   bit-equal to the plain instantiation, a "phases" line each; the first
+   replan of each loop (``runtime_dp``) into the result line;
+12b. the NaN rule: the lon backward slice (two slices from a next slice
+   whose row S // 2 is NaN), the forward and reeval passes (slice 2 NaN at a
+   index 1), the action-min (37 x 5 x 3, row 18 NaN) and the fused slice
+   (the demo grid's slice T - 2, row S // 2 NaN), every channel NaN and the
+   cost alone, each bit for bit against its plain version on the CPU, NaN
+   equal to NaN (a NaN constraint makes the least constraint NaN: the lon
+   node costs inf with the first jerk, the action-min takes action 0 with
+   its own cost and constraint; the first NaN cost of the least constraint
+   wins);
 13. rollout planner closed loops: ``SimStandalone`` with
    ``idm_sampling_planner`` on ``demo/country_overtake`` (the demo planning
    set: 8 candidates of 100 steps, a replan every 0.05 s) and then with
@@ -250,6 +264,10 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    of differing jerks (``jerk_flip_share``) and the sweep's largest
    relative cost difference (``max_cost_rel_err``).  The three rollout
    planner rows carry their own loop's launches (per replan and per tick);
+   the forward pass's and the sweep's rows their "phases" (``phases_us``)
+   and, with ``--parent-csrc``, the other source's times in turns
+   (``parent_ms``); the five FAS rows each loop's first replan
+   (``first_replan_ms``, ``lattice_first_replan_ms``);
    the IDM rows their times
    at C=16,384 (``candidates``), at the loop's width (``loop_ms``),
    ``rollouts_per_s``, ``selection_flips``, ``blocks_per_sm``,
@@ -266,8 +284,8 @@ With ``--parent-csrc DIR`` (a directory holding another version of any of
 the kernel sources ``latlon_action_min.cu``, ``ilqr_tracking_mpc.cu``,
 ``ilqr_rstp.cu``, ``rstp_rampify.cu``, ``idm_rollout.cu``,
 ``idm_evaluate.cu``, ``ilqr_tracking_mpc_time.cu``, ``lon_dp.cu``,
-``dir_dist_map.cu``, ``poly_planner.cu``, ``poly_sampling.cu`` and the
-headers they include, for
+``dir_dist_map.cu``, ``poly_planner.cu``, ``poly_sampling.cu``,
+``poly_lat.cu`` and the headers they include, for
 example ``git show`` of an earlier commit's; may be given more than once) the kernel phases also build that version with
 the same flags, run both on the same inputs through the bare launchers in
 turns (other, tree, tree, other) and print the largest difference of the
@@ -278,7 +296,10 @@ rollout), the tracking MPC's single solve and its profiling
 instantiation, the time-indexed MPC (every seeded and recorded solve) and
 the lon backward slice (every slice of the seeded, FAS-loop and
 lattice-loop solves; a source of the earlier one-thread-a-node launcher
-is recognised), the graph DP's field (every case of phase 17), edge
+is recognised), the lon forward pass (the seeded, FAS-loop and
+lattice-loop solves, A=20 and A=7, and the reeval of each trajectory with
+more rows than slices; also timed from CUDA graphs), the fused backward
+slice (the 8 real slices of phase 2), the graph DP's field (every case of phase 17), edge
 evaluation (both levels of every case of phase 17; a launcher without the
 slice's scratch is recognised) and propagation (every case of phase 17; a
 source of the launch a level is recognised; all three also timed from
@@ -286,7 +307,9 @@ CUDA graphs) a difference other than 0.0 raises (NaN equal to NaN); the
 poly grid (a source of the two launches is recognised) must keep every
 candidate's rows and cost on every case of phase 15 and the winner on
 every case without a NaN cost, and is timed by CUDA events and from CUDA
-graphs; a time-MPC, field or evaluation source
+graphs; the lateral sweep must keep the collision distance's bits and
+its cost within SWEEP_PARENT_RTOL on every case of phase 12 (timed by
+events and from CUDA graphs); a time-MPC, field or evaluation source
 that exports a ``*_profile`` entry also prints its "phases" lines.  The batched tracking MPC is held to the other version's batched
 entry (a grid of one block per scenario where the source predates the
 persistent kernel) on the bench's batch, near the course and on seeded
@@ -300,9 +323,11 @@ With ``--kernels-only`` the run stops after phase 2, the rampify part of
 phase 8, the time-indexed MPC's seeded cases (checked, profiled, against
 ``--parent-csrc``), every backward slice of the seeded demo-width lon
 solve and of ``scenes.LON_EDGE``'s grids (bit for bit on the CPU, against
-``--parent-csrc``) and phase 17 with seeded occupancy in place of the
-graph DP loop's first replan: no loop is driven and no result line
-printed.
+``--parent-csrc``), the lon forward pass of seeded demo-width solves (A=20
+and A=7) and the sweep seeded at 1 x 20 and 21 x 13 (against the plain
+versions and ``--parent-csrc``; their "phases" lines), phase 12b and phase
+17 with seeded occupancy in place of the graph DP loop's first replan: no
+loop is driven and no result line printed.
 
 With ``--host-profile TICKS`` the run builds, then drives the vendored RSTP
 loop on ``demo/country_follow`` for TICKS ticks under ``cProfile`` twice,
@@ -408,6 +433,9 @@ FAS_ENTRIES = (("lon_dp_backward", "backward_slice", 9),
                ("poly_lat_select", "select_device", 1),
                ("rstp_rampify_start", "scan_start", 1))
 SWEEP_RTOL = 1e-9
+# the sweep's cost against another version of its kernel: a block's cost
+# sum may take another order (the serial sum, the warps' tree)
+SWEEP_PARENT_RTOL = 1e-12
 # (row, source, the XLA program of the JAX package it replaces)
 FAS_ROWS = (
     ("lon_dp_backward", "lon_dp.cu",
@@ -644,17 +672,7 @@ def kernel_phase(lam, tllk, dev, parent_csrc=None):
     # (b) every backward slice of a real solve: a straight road with a
     # parked car and a slower leader, inputs chained through the plain
     # version so kernel and plain see identical next-slice nodes
-    dist = np.full((T, S, L, 2), 10000.0, np.float32)
-    dist[..., 0] = 10000.0 + (S - np.arange(S))[None, :, None]
-    for t in range(T):
-        lead = int(30 + 7 * t)
-        dist[t, :lead, 8:13, 0] = lead - np.arange(lead)[:, None]
-        dist[t, :120, 1:5, 0] = np.minimum(dist[t, :120, 1:5, 0],
-                                           120 - np.arange(120)[:, None])
-    dist[:, :, [0, L - 1], 0] = 0.0
-    rl = np.zeros((500, 8), np.float32)
-    rl[:, 0] = np.arange(500) * 0.5
-    rl[:, 4], rl[:, 5], rl[:, 6] = 14.0, 4.0, 4.0
+    dist, rl = dp_scene(T, S, L)
     dist_x, rl_t, step_t, pp = solve.prepare(dist, rl, 0.5, p.packed())
     tables = solve.action_tables(pp)
     nxt = solve.final_slice(dist_x, rl_t, step_t, pp)
@@ -749,11 +767,25 @@ def kernel_phase(lam, tllk, dev, parent_csrc=None):
     plain_ms = cuda_ms(lambda: lam.action_min_reference(*args, tb), 20)
     print(f"action_min at S={S} DS={DS} L={L}: kernel {ms:.4f} ms (bare "
           f"launcher; wrapper {wrapper_ms:.4f}), plain {plain_ms:.4f} ms")
+    table_ptrs = (ctypes.c_void_p * len(lam.TABLE_KEYS))(*tables.ptrs)
+
+    def fused_call(i):
+        return lambda fn, out: fn(
+            cases[T - 1 - i][1][0].data_ptr(), dist_x[i].data_ptr(),
+            rl_t.data_ptr(), step_t.data_ptr(),
+            tables.slice_consts.data_ptr(), table_ptrs, out.data_ptr(), S, DS,
+            L, rl_t.shape[0], i, stream)
+
     for csrc in parents_with(parent_csrc, "latlon_action_min"):
         compare_with_parent(
             "latlon_action_min", lib.latlon_action_min, csrc,
             [(what, a[0], action_min_call(a, t, stream))
              for what, a, t in [("seeded", seeded, tables)] + grids], n=200)
+        # the fused slice on the 8 real slices
+        compare_with_parent(
+            "latlon_action_min", lib.latlon_backward_slice, csrc,
+            [(f"fused slice {i}", cases[T - 1 - i][1][0], fused_call(i))
+             for i in range(T - 2, 0, -1)], n=200)
 
     # the fused slice: bare launcher and wrapper at slice T - 2, its plain
     # version (the producers as tensor operations, then the plain
@@ -762,7 +794,6 @@ def kernel_phase(lam, tllk, dev, parent_csrc=None):
     i = T - 2
     nxt = cases[1][1][0]
     out = torch.empty_like(nxt)
-    table_ptrs = (ctypes.c_void_p * len(lam.TABLE_KEYS))(*tables.ptrs)
     fused_ms, fused_wrapper_ms = launcher_times(
         "latlon_backward_slice", f"slice {i} at S={S} DS={DS} L={L}",
         lambda: lib.latlon_backward_slice(
@@ -2596,6 +2627,338 @@ def lon_seeded_phase(tlk, dev, parent_csrc=None):
     lon_parent_check(tlk, cases, dev, parent_csrc, cases[1][0])
 
 
+def forward_launch(fn, a, out, mode=0, traj=None):
+    """``launch(stream)`` of the bare launcher ``fn`` of ``lon_dp_forward``
+    on the forward pass's arguments ``a`` (nodes, pp, path, dist, x0): the
+    forward pass into ``out``, or with ``mode`` 1 the reeval pass of
+    ``traj``."""
+    nodes, pp, path, dist, x0 = a
+    T, S, V, A = nodes.shape[:4]
+    states = x0 if mode == 0 else traj
+    rows = T if mode == 0 else traj.shape[0]
+    return lambda s: fn(nodes.data_ptr(), pp.data_ptr(), path.data_ptr(),
+                        dist.data_ptr(), states.data_ptr(), out.data_ptr(),
+                        T, S, V, A, path.shape[0], rows, mode, s)
+
+
+def sweep_launch(fn, a, cd, tc, inv):
+    """``launch(stream)`` of the bare launcher ``fn`` of ``poly_lat_sweep``
+    on the sweep's arguments ``a`` into ``cd`` and ``tc``."""
+    occ, rl, step, pp, env, start, LD, SD, S = a
+    TE, SE, LE = occ.shape
+    return lambda s: fn(occ.data_ptr(), rl.data_ptr(), step.data_ptr(),
+                        pp.data_ptr(), env.data_ptr(), start.data_ptr(),
+                        inv.data_ptr(), cd.data_ptr(), tc.data_ptr(), LD, SD,
+                        S, TE, SE, LE, rl.shape[0], s)
+
+
+def timed_in_turns(source, what, csrc, old, new, n=100):
+    """Prints and returns the times of ``old(stream)`` (the other
+    version's launch) and ``new(stream)`` in turns, by CUDA events and from
+    CUDA graphs: {"events": (parent, new, new, parent) ms, "graph": the
+    same}."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    old_r, new_r = raising(old), raising(new)
+    (a, d), (b, c) = in_turns(lambda: old_r(stream), lambda: new_r(stream),
+                              n)
+    graph = in_turns_graph(old_r, new_r)
+    print(f"{source} {what} vs the source in {csrc}: ms per launch parent "
+          f"{a:.4f}, new {b:.4f}, new {c:.4f}, parent {d:.4f}; from CUDA "
+          f"graphs parent {graph[0]:.4f}, new {graph[1]:.4f}, new "
+          f"{graph[2]:.4f}, parent {graph[3]:.4f}")
+    return {"events": (a, b, c, d), "graph": graph}
+
+
+def forward_parent_check(tlk, cases, parent_csrc, timed):
+    """With ``parent_csrc``: ``lon_dp_forward`` of another version of
+    ``lon_dp.cu`` against the tree's on every case ((what, the forward
+    pass's arguments, mode, the reeval's trajectory or None)), every bit (a
+    difference raises), timed in turns by events and from CUDA graphs.
+    Returns the times of the case ``timed`` for the first parent, or
+    None."""
+    import torch
+    from tpl_tpu_torch import _build
+
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = tlk._kernel()
+    res = None
+    for k, csrc in enumerate(parents_with(parent_csrc, "lon_dp")):
+        parent = _build.load("lon_dp", csrc).lon_dp_forward
+        parent.restype = lib.lon_dp_forward.restype
+        parent.argtypes = lib.lon_dp_forward.argtypes
+        for what, a, mode, traj in cases:
+            rows = a[0].shape[0] if mode == 0 else traj.shape[0]
+            outs = [torch.empty((rows, 7), dtype=torch.float32,
+                                device=a[0].device) for _ in range(2)]
+            old = forward_launch(parent, a, outs[0], mode, traj)
+            new = forward_launch(lib.lon_dp_forward, a, outs[1], mode, traj)
+            raising(old)(stream)
+            raising(new)(stream)
+            torch.cuda.synchronize()
+            if not torch.equal(outs[0], outs[1]):
+                raise AssertionError(f"lon_dp_forward {what}: the result "
+                                     "differs from the parent kernel's")
+            t = timed_in_turns("lon_dp_forward", what + " (bits equal)",
+                               csrc, old, new)
+            if k == 0 and what == timed:
+                res = t
+    return res
+
+
+def sweep_parent_check(plk, cases, parent_csrc, timed):
+    """With ``parent_csrc``: ``poly_lat_sweep`` of another version of
+    ``poly_lat.cu`` against the tree's on every case ((what, the sweep's
+    arguments)): the collision distance bit for bit and the cost within
+    SWEEP_PARENT_RTOL (its sum in another order), else it raises; timed in
+    turns by events and from CUDA graphs.  Returns the times of the case
+    ``timed`` for the first parent, or None."""
+    import torch
+    from tpl_tpu_torch import _build
+
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = plk._kernel()
+    res = None
+    for k, csrc in enumerate(parents_with(parent_csrc, "poly_lat")):
+        parent = _build.load("poly_lat", csrc).poly_lat_sweep
+        parent.restype = lib.poly_lat_sweep.restype
+        parent.argtypes = lib.poly_lat_sweep.argtypes
+        for what, a in cases:
+            LD, SD = a[6], a[7]
+            dev = a[0].device
+            inv = plk._hermite_inv(dev)
+            cds = [torch.empty((LD, SD), dtype=torch.float32, device=dev)
+                   for _ in range(2)]
+            tcs = [torch.empty((LD, SD), dtype=torch.float64, device=dev)
+                   for _ in range(2)]
+            old = sweep_launch(parent, a, cds[0], tcs[0], inv)
+            new = sweep_launch(lib.poly_lat_sweep, a, cds[1], tcs[1], inv)
+            raising(old)(stream)
+            raising(new)(stream)
+            torch.cuda.synchronize()
+            rel = float(torch.max(torch.abs(tcs[1] - tcs[0]) / torch.clamp(
+                torch.abs(tcs[0]), min=1e-300)))
+            if not (torch.equal(cds[0], cds[1])
+                    and rel <= SWEEP_PARENT_RTOL):
+                raise AssertionError(f"poly_lat_sweep {what}: the result "
+                                     "differs from the parent kernel's "
+                                     f"(max rel cost {rel:.3e})")
+            t = timed_in_turns("poly_lat_sweep",
+                               f"{what} (cd bits equal, max rel cost "
+                               f"{rel:.3e})", csrc, old, new)
+            if k == 0 and what == timed:
+                res = t
+    return res
+
+
+def forward_phase_line(tlk, what, a, mhz):
+    """The forward pass's profiling instantiation on ``a``: the rows bit for
+    bit the plain instantiation's; prints lane 0's us by phase (the steps'
+    sums; the staging once) and per step; returns the us by phase."""
+    import torch
+
+    got, cyc = tlk.forward_profile(*a)
+    if not torch.equal(got, tlk.forward(*a)):
+        raise AssertionError(f"lon_dp_forward {what}: the profiling "
+                             "instantiation differs")
+    T = a[0].shape[0]
+    us = {k: v / mhz for k, v in cyc.items()}
+    print(f"phases lon_dp_forward ({what}, T={T}, SM {mhz:.0f} MHz; rows "
+          f"bit-equal): lane 0's us, the staging once and the steps summed: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
+          + f"; a step {sum(us.values()) / T:.3f} (without the staging "
+          f"{(sum(us.values()) - us['stage']) / T:.3f}); total "
+          f"{sum(us.values()):.3f} us")
+    return us
+
+
+def sweep_phase_line(plk, what, a, mhz):
+    """The sweep's profiling instantiation on ``a``: the results bit for
+    bit the plain instantiation's; prints thread 0's us a block by phase;
+    returns them."""
+    import torch
+
+    cd, tc, cyc = plk.sweep_profile(*a)
+    cd0, tc0 = plk.sweep(*a)
+    if not (torch.equal(cd, cd0) and torch.equal(tc, tc0)):
+        raise AssertionError(f"poly_lat_sweep {what}: the profiling "
+                             "instantiation differs")
+    blocks = a[6] * a[7]
+    us = {k: v / blocks / mhz for k, v in cyc.items()}
+    print(f"phases poly_lat_sweep ({what}, {a[6]} x {a[7]} x {a[8]}, SM "
+          f"{mhz:.0f} MHz; results bit-equal): thread 0's us a block: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
+          + f"; total {sum(us.values()):.3f} us")
+    return us
+
+
+def dp_scene(T, S, L):
+    """A straight road with a parked car and a slower leader for the DP
+    lat/lon planner: (dist (T, S, L, 2), ref_line (500, 8)), float32."""
+    dist = np.full((T, S, L, 2), 10000.0, np.float32)
+    dist[..., 0] = 10000.0 + (S - np.arange(S))[None, :, None]
+    mid = L // 2
+    for t in range(T):
+        lead = min(S - 1, int(30 + 7 * t))
+        dist[t, :lead, max(mid - 2, 0):mid + 3, 0] = (
+            lead - np.arange(lead))[:, None]
+        park = min(S, 120)
+        dist[t, :park, 1:max(2, L // 4), 0] = np.minimum(
+            dist[t, :park, 1:max(2, L // 4), 0],
+            (park - np.arange(park))[:, None])
+    dist[:, :, [0, L - 1], 0] = 0.0
+    rl = np.zeros((500, 8), np.float32)
+    rl[:, 0] = np.arange(500) * 0.5
+    rl[:, 4], rl[:, 5], rl[:, 6] = 14.0, 4.0, 4.0
+    return dist, rl
+
+
+def nan_rule_phase(tlk, lam, tllk, dev):
+    """The NaN rule on the card: the lon backward slice (two slices from a
+    next slice whose row S // 2 is NaN, ``lon_scene(41, 13, 5, 90, 5)``),
+    the forward and reeval passes (slice 2 NaN at a index 1), the
+    action-min (seeded 37 x 5 x 3, row 18 NaN) and the fused slice (the
+    demo grid's slice T - 2, row S // 2 NaN), each with every channel NaN
+    and with the cost alone, bit for bit against the plain versions on the
+    CPU, NaN equal to NaN (raises otherwise)."""
+    import torch
+    from tpl_tpu_torch.scenes import lon_nodes, lon_scene
+
+    def same(got, want, what):
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
+                                      err_msg=what)
+        return int(torch.isnan(want).any(-1).sum())
+
+    def poison(a, channel):
+        if channel == "all":
+            a[...] = float("nan")
+        else:
+            a[..., 0] = float("nan")
+
+    T, S, V, A, P = 5, 41, 13, 5, 90
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, S + A)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    cpu = tuple(torch.from_numpy(x) for x in (pp, path, dist))
+    gpu = tuple(x.to(dev) for x in cpu)
+    x0 = torch.from_numpy(x0)
+    Td, Sd, DS, L = (DEMO_SPEC[k] for k in ("t_steps", "s_steps", "ds_steps",
+                                            "l_steps"))
+    d_dist, d_rl = dp_scene(Td, Sd, L)
+    p = tllk.LatLonParams()
+    solves = {}
+    for d in ("cpu", dev):
+        solve, _ = tllk.make_latlon_solver(DEMO_SPEC, d)
+        dist_x, rl_t, step_t, pp_d = solve.prepare(d_dist, d_rl, 0.5,
+                                                   p.packed())
+        solves[d] = (solve, dist_x, rl_t, step_t, pp_d,
+                     solve.action_tables(pp_d))
+    for channel in ("all", "cost"):
+        n = {}
+        nxt = nodes[T - 1].clone()
+        poison(nxt[S // 2], channel)
+        n["lon_dp_backward"] = 0
+        for i in (T - 2, T - 3):
+            want = tlk.backward_slice_reference(nxt, *cpu, i, False)
+            n["lon_dp_backward"] += same(
+                tlk.backward_slice(nxt.to(dev), *gpu, i, False), want,
+                f"lon_dp_backward NaN {channel} slice {i}")
+            nxt = want
+        bad = nodes.clone()
+        poison(bad[2, :, :, 1], channel)
+        n["lon_dp_forward"] = same(
+            tlk.forward(bad.to(dev), *gpu, x0.to(dev)),
+            tlk.forward_reference(bad, *cpu, x0), f"lon_dp_forward NaN "
+            f"{channel}")
+        traj = tlk.forward_reference(nodes, *cpu, x0)
+        n["lon_dp_forward reeval"] = same(
+            tlk.reeval_pass(bad.to(dev), *gpu, traj.to(dev)),
+            tlk.reeval_reference(bad, *cpu, traj), f"lon_dp reeval NaN "
+            f"{channel}")
+        args, tb_cpu = seeded_slice(lam, tllk, "cpu",
+                                    np.random.default_rng(37), 37, 5, 3)
+        poison(args[0][18], channel)
+        solve_s, _ = tllk.make_latlon_solver(
+            dict(t_steps=4, s_steps=37, ds_steps=5, l_steps=3), dev)
+        pp_s = tllk.unpack_pp(torch.from_numpy(p.packed()).to(dev))
+        n["latlon_action_min"] = same(
+            lam.action_min(*[a.to(dev) for a in args],
+                           solve_s.action_tables(pp_s)),
+            lam.action_min_reference(*args, tb_cpu),
+            f"latlon_action_min NaN {channel}")
+        solve, dist_x, rl_t, step_t, pp_d, tables = solves["cpu"]
+        nxt = solve.final_slice(dist_x, rl_t, step_t, pp_d).clone()
+        poison(nxt[Sd // 2], channel)
+        solve_g, dist_g, rl_g, step_g, pp_g, tables_g = solves[dev]
+        n["latlon_backward_slice"] = same(
+            solve_g.backward_slice(nxt.to(dev), Td - 2, dist_g, rl_g, step_g,
+                                   pp_g, tables_g),
+            solve.backward_slice_reference(nxt, Td - 2, dist_x, rl_t, step_t,
+                                           pp_d, tables),
+            f"latlon_backward_slice NaN {channel}")
+        print(f"NaN rule, {channel} channel{'s' if channel == 'all' else ''}"
+              " NaN: bit-equal to the plain versions on the CPU (NaN equal to "
+              "NaN); nodes with a NaN: "
+              + ", ".join(f"{k} {v}" for k, v in n.items()))
+
+
+def fas_seeded_phase(tlk, plk, dev, mhz, parent_csrc=None):
+    """``--kernels-only``: the forward and reeval passes of a seeded solve
+    at the demo width (A=20) and at A=7, and the sweep seeded at 1 x 20 and
+    21 x 13, against the plain versions (the forward bit for bit, the
+    sweep's cost to SWEEP_RTOL) and (with ``parent_csrc``) another
+    version's kernels, timed in turns; the two profiling instantiations'
+    "phases" lines."""
+    import torch
+    from tpl_tpu_torch.scenes import LON_DEMO, lon_nodes, lon_scene, \
+        lon_shifted_start, poly_lat_scene
+
+    on = lambda *a: tuple(torch.as_tensor(np.asarray(x)).to(dev) for x in a)
+    T, S, V, _, P = (LON_DEMO[k] for k in "TSVAP")
+    fwd_cases = []
+    for A in (20, 7):
+        pp, path, dist, x0 = lon_scene(S, V, A, P, T, 5, demo=True)
+        nodes = lon_nodes(pp, path, dist, T, S, V, A, dev=dev)
+        a = (nodes,) + on(pp, path, dist, x0)
+        # a replan's start: the previous plan's cost and constraint at its
+        # head, which the last row must not take over
+        a_shift = a[:4] + on(lon_shifted_start(x0))
+        for what, b in (("", a), (", replan start", a_shift)):
+            if not torch.equal(tlk.forward(*b).cpu(), tlk.forward_reference(
+                    *(x.cpu() for x in b))):
+                raise AssertionError(f"lon_dp_forward A={A}{what}: kernel "
+                                     "and plain version on the CPU differ")
+        trj = tlk.forward(*a).clone()
+        trj[2:, tlk.LC_J] = a[1][tlk.LON_PP_KEYS.index("j_min")]
+        trj = torch.cat([trj, trj[-3:]])
+        fwd_cases += [(f"seeded forward (A={A})", a, 0, None),
+                      (f"seeded reeval (A={A})", a, 1, trj),
+                      (f"seeded forward, replan start (A={A})", a_shift, 0,
+                       None)]
+    print("lon_dp_forward: the seeded forward passes (A=20, A=7; from the "
+          "scene's start and from a replan's) bit-equal to the plain "
+          "version on the CPU")
+    forward_parent_check(tlk, fwd_cases, parent_csrc, None)
+    forward_phase_line(tlk, "seeded A=20", fwd_cases[0][1], mhz)
+    sweep_cases = []
+    for LD, SD in ((1, 20), (21, 13)):
+        occ, rl, step, ppl, env, start = poly_lat_scene(LD, SD, 201,
+                                                        LD + SD)
+        a = on(occ, rl, np.array([step], np.float32), ppl, env, start) + (
+            LD, SD, 201)
+        cd, tc = plk.sweep(*a)
+        cd_w, tc_w = plk.evaluate_reference(*a)
+        rel = float(torch.max(torch.abs(tc - tc_w) / torch.abs(tc_w)))
+        if not (torch.equal(cd, cd_w) and rel <= SWEEP_RTOL):
+            raise AssertionError(f"poly_lat_sweep seeded {LD} x {SD}: "
+                                 "kernel and plain differ")
+        sweep_cases.append((f"seeded {LD} x {SD}", a))
+    print("poly_lat_sweep: the seeded sweeps (1 x 20, 21 x 13) against the "
+          f"plain version: cd bit-equal, cost within {SWEEP_RTOL}")
+    sweep_parent_check(plk, sweep_cases, parent_csrc, None)
+    sweep_phase_line(plk, "seeded 1 x 20", sweep_cases[0][1], mhz)
+
+
 def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
                      parent_csrc=None):
     """The chain's kernels against their plain versions on the card, on
@@ -2616,7 +2979,8 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
     over the lattice loop's."""
     import torch
     from tpl_tpu_torch.scenes import (LON_DEMO, lon_nodes, lon_scene,
-                                      poly_lat_scene, rampify_args)
+                                      lon_shifted_start, poly_lat_scene,
+                                      rampify_args)
 
     on = lambda d, *a: tuple(torch.as_tensor(np.asarray(x)).to(d) for x in a)
     cpu = lambda a: tuple(x.cpu() if torch.is_tensor(x) else x for x in a)
@@ -2628,7 +2992,8 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
         res[row][key] = max(res[row].get(key, 0.0), err)
 
     def key(loop, name="err"):
-        return name if loop in ("seeded", "fas") else f"lattice_{name}"
+        return name if loop.startswith("seeded") or loop == "fas" \
+            else f"lattice_{name}"
 
     # lon backward slice: seeded (every slice from the plain next slice)
     # and every slice of each loop's first solve, from its own next slice
@@ -2702,6 +3067,9 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
     # lon forward pass and reeval (the trajectory's jerks set to j_min)
     solves = {"seeded": (nodes,) + args + on(dev, x0)}
     solves.update((loop, recs[loop]["lon_dp_forward"][0]) for loop in loops)
+    # a replan's start: the previous plan's cost and constraint at its head
+    solves["seeded, replan start"] = (nodes,) + args + on(
+        dev, lon_shifted_start(x0))
     for loop, a in solves.items():
         got = tlk.forward(*a)
         note("lon_dp_forward", key(loop),
@@ -2744,6 +3112,18 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
                                                 dist_r, traj), 100)
     print(f"lon_dp_forward: reeval of {traj.shape[0]} rows through the "
           f"wrapper {reeval_ms:.4f} ms")
+    fwd_cases = []
+    for loop, a in solves.items():
+        trj = tlk.forward(*a).clone()
+        trj[2:, tlk.LC_J] = a[1][tlk.LON_PP_KEYS.index("j_min")]
+        trj = torch.cat([trj, trj[-3:]])        # more rows than slices
+        fwd_cases += [(f"{loop} forward (A={a[0].shape[3]})", a, 0, None),
+                      (f"{loop} reeval (A={a[0].shape[3]})", a, 1, trj)]
+    res["lon_dp_forward"]["parent"] = forward_parent_check(
+        tlk, fwd_cases, parent_csrc, next(
+            w for w, *_ in fwd_cases if w.startswith("fas forward")))
+    res["lon_dp_forward"]["phases_us"] = forward_phase_line(
+        tlk, "FAS loop solve", recs["fas"]["lon_dp_forward"][0], mhz)
     lat_a = recs["lattice"]["lon_dp_forward"][0]
     res["lon_dp_forward"].update(
         ms=ms, wrapper_ms=wrapper_ms,
@@ -2776,6 +3156,11 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
         if e != 0.0 or rel > SWEEP_RTOL or tc.dtype != torch.float64:
             raise AssertionError(f"poly_lat_sweep {loop}: kernel and plain "
                                  "differ")
+    sweep_cases = [(f"{loop} {a[6]} x {a[7]}", a) for loop, a in cases]
+    res["poly_lat_sweep"]["parent"] = sweep_parent_check(
+        plk, sweep_cases, parent_csrc, sweep_cases[2][0])
+    res["poly_lat_sweep"]["phases_us"] = sweep_phase_line(
+        plk, "FAS loop replan", recs["fas"]["poly_lat_sweep"][0], mhz)
     occ_r, rl_r, step_r, ppl_r, env_r, start_r, LD, SD, Sl = \
         recs["fas"]["poly_lat_sweep"][0]
     cd_o = torch.empty((LD, SD), dtype=torch.float32, device=dev)
@@ -4736,15 +5121,15 @@ def main(argv=()):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent-csrc", action="append", metavar="DIR",
                     help="a directory with another version of any of the "
-                    "eleven kernel sources the phases compare (and the "
-                    "headers they include): "
+                    "kernel sources the phases compare (and the headers "
+                    "they include): "
                     "built with the same flags, run in turns with the tree's "
                     "kernels on the same inputs, results and times printed")
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, probe, then only the action-min, rampify, "
-                    "time-indexed MPC, lon backward-slice and graph DP "
-                    "kernel checks and times on seeded inputs; drives no "
-                    "loop and prints no result line")
+                    "time-indexed MPC, lon DP, lateral sweep, NaN rule and "
+                    "graph DP kernel checks and times on seeded inputs; "
+                    "drives no loop and prints no result line")
     ap.add_argument("--host-profile", type=int, default=0, metavar="TICKS",
                     help="build, then cProfile TICKS ticks of the vendored "
                     "RSTP loop with the host C routes off and on; prints "
@@ -4819,6 +5204,9 @@ def main(argv=()):
               cycles, mhz, opts.parent_csrc)
         phase("lon DP backward slice", lon_seeded_phase, tlk, dev,
               opts.parent_csrc)
+        phase("lon DP forward and lateral sweep", fas_seeded_phase, tlk,
+              plk, dev, mhz, opts.parent_csrc)
+        phase("NaN rule", nan_rule_phase, tlk, lam, tllk, dev)
         phase("graph DP kernels", dp_poly_kernel_phase, dpe, ppk,
               dp_standin_first(dpe, ppk, dev), dev, cycles, mhz,
               opts.parent_csrc)
@@ -4855,6 +5243,7 @@ def main(argv=()):
     fk = phase("FAS kernels", fas_kernel_phase, tlk, plk, rmp,
                {"fas": fas["rec"], "lattice": lattice["rec"]}, dev, cycles,
                mhz, opts.parent_csrc)
+    phase("NaN rule", nan_rule_phase, tlk, lam, tllk, dev)
     idm = phase("IDM closed loop, country_overtake", rollout_loop_phase, idk,
                 pok, IDM, ROLLOUT_TICKS)
     poly = phase("poly sampling closed loop, country_follow",
@@ -5021,6 +5410,12 @@ def main(argv=()):
         if "plan" in r:
             row.update(r["plan"], lattice_graph_ms=r["lattice_graph_ms"],
                        parent_ms=r["parent"])
+        if "phases_us" in r:
+            row.update(phases_us=r["phases_us"], parent_ms=r["parent"])
+        # each loop's first replan (runtime_dp; the libraries load their
+        # code when bound)
+        row.update(first_replan_ms=fas["replan_ms"][0],
+                   lattice_first_replan_ms=lattice["replan_ms"][0])
         rows.append(row)
     # the rollout planners' kernels: launches on their loops, the checks on
     # the seeded scenes, the loops' first replans and the JAX bench's scenes,

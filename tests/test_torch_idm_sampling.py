@@ -300,6 +300,35 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
         idk.rollout(*args[:2], args[2][:3], *args[3:], T)
 
 
+def _objs_of_shape(O, P, K):
+    """Zero objects of O objects, P predictions and K hull points."""
+    shapes = dict(pred_t=(O, P), pred_xy=(O, P, 2), pred_heading=(O, P),
+                  pred_v=(O, P), pred_dists=(O, P), hull_preds=(O, P, K, 2),
+                  hull_projs=(O, P, 4), radius_hull=(O,), valid=(O,),
+                  on_local_map=(O,))
+    return {k: torch.zeros(shapes[k]) for k in idk.OBJ_KEYS}
+
+
+@pytest.mark.parametrize("O,P,K", [(0, 8, 8), (17, 8, 8), (4, 17, 8),
+                                   (4, 8, 17)])
+def test_object_caps_raise_before_the_plain_version(O, P, K):
+    """The kernels' object caps (1-16 objects, 2-16 predictions, 1-16 hull
+    points, ``csrc/idm_common.cuh``) are checked before the CPU branch, so
+    both entries raise on CPU tensors too, naming the limits."""
+    rl, objs, pp, init_ref, init_con = idm_scene()
+    C, T = 4, 10
+    t = torch.from_numpy
+    objs = _objs_of_shape(O, P, K)
+    args = (t(init_ref), t(init_con), torch.zeros(C), torch.full((C,), 1e6),
+            torch.tensor([0.1]), t(rl), torch.tensor([0.5]), objs,
+            _port_pp(pp))
+    with pytest.raises(ValueError, match="at most"):
+        idk.rollout(*args, T)
+    with pytest.raises(ValueError, match="at most"):
+        idk.evaluate(torch.zeros(C, T, 10), torch.zeros(C, T, 9), args[2],
+                     objs, args[5], args[6], args[8], torch.tensor([0.0]))
+
+
 # ---------------------------------------------------------------------
 # the host side
 

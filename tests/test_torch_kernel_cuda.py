@@ -64,7 +64,7 @@ from tpl_tpu_torch.scenes import (LON_DEMO, LON_EDGE, MPC_TIME_KINDS,
                                   idm_args, idm_bench_scene,
                                   idm_hairpin_scene, idm_scene,
                                   idm_through_states, lon_nodes, lon_scene,
-                                  mpc_time_case, poly_lat_scene, poly_scene,
+                                  lon_shifted_start, mpc_time_case, poly_lat_scene, poly_scene,
                                   rampify_args)
 import tpl_tpu_torch
 
@@ -221,6 +221,58 @@ def test_fused_slice_kernel_matches_plain(cuda, S, DS, L, T, params):
                                    rtol=0, atol=CONSTR_ATOL)
         assert torch.equal(got, want), f"slice {i}"
         nxt = want
+
+
+def _poison(a, channel):
+    """NaN into every channel of ``a`` ("all") or its cost ("cost")."""
+    if channel == "all":
+        a[...] = float("nan")
+    else:
+        a[..., 0] = float("nan")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channel", ["all", "cost"])
+def test_action_min_and_fused_slice_nan_rule_match_plain(cuda, channel):
+    """A next slice with a NaN row (every channel, or the cost alone): the
+    action-min (37 x 5 x 3, row 18) and the fused slice (61 x 9 x 11, slice
+    T - 2, row S // 2) on the card against their plain versions on the CPU,
+    NaN equal to NaN (a NaN constraint: action 0 with its own cost and
+    constraint; a NaN cost of the least constraint: the first one)."""
+    rng = np.random.default_rng(37)
+    S, DS, L = 37, 5, 3
+    solve, _ = tllk.make_latlon_solver(
+        dict(t_steps=4, s_steps=S, ds_steps=DS, l_steps=L), "cpu")
+    pp = tllk.unpack_pp(torch.from_numpy(tllk.LatLonParams().packed()))
+    tables = solve.action_tables(pp)
+    args = _seeded(rng, "cpu", tables, S, DS, L)
+    _poison(args[0][18], channel)
+    want = lam.action_min_reference(*args, tables).numpy()
+    assert np.isnan(want).any() or channel == "cost"
+    solve_g, _ = tllk.make_latlon_solver(
+        dict(t_steps=4, s_steps=S, ds_steps=DS, l_steps=L), cuda)
+    pp_g = tllk.unpack_pp(torch.from_numpy(
+        tllk.LatLonParams().packed()).to(cuda))
+    got = lam.action_min(*[a.to(cuda) for a in args],
+                         solve_g.action_tables(pp_g))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+    S, DS, L, T = 61, 9, 11, 6
+    i = T - 2
+    scenes_ = [_slice_scene(dev, S, DS, L, T, S + T) for dev in ("cpu", cuda)]
+    (solve, dist_x, rl, step, pp), (solve_g, dist_g, rl_g, step_g, pp_g) = \
+        scenes_
+    nxt = solve.final_slice(dist_x, rl, step, pp).clone()
+    _poison(nxt[S // 2], channel)
+    want = solve.backward_slice_reference(nxt, i, dist_x, rl, step, pp,
+                                          solve.action_tables(pp)).numpy()
+    before = lam.slice_launches
+    got = solve_g.backward_slice(nxt.to(cuda), i, dist_g, rl_g, step_g, pp_g,
+                                 solve_g.action_tables(pp_g))
+    torch.cuda.synchronize()
+    assert lam.slice_launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert np.isnan(want).any()
 
 
 @pytest.mark.cuda
@@ -1055,13 +1107,16 @@ def test_lon_forward_and_reeval_kernel_match_plain_bit_for_bit(cuda):
     pp, path, dist, x0 = lon_scene(S, V, A, P, T, 6, demo=True)
     nodes = lon_nodes(pp, path, dist, T, S, V, A)
     args = _on("cpu", pp, path, dist)
-    want = tlk.forward_reference(nodes, *args, torch.from_numpy(x0))
-    before = tlk.forward_launches
-    got = tlk.forward(nodes.to(cuda), *_on(cuda, pp, path, dist),
-                      torch.from_numpy(x0).to(cuda))
-    torch.cuda.synchronize()
-    assert tlk.forward_launches == before + 1
-    assert torch.equal(got.cpu(), want)
+    # a replan's start (the previous plan's cost and constraint at its
+    # head), then the scene's
+    for start in (lon_shifted_start(x0), x0):
+        want = tlk.forward_reference(nodes, *args, torch.from_numpy(start))
+        before = tlk.forward_launches
+        got = tlk.forward(nodes.to(cuda), *_on(cuda, pp, path, dist),
+                          torch.from_numpy(start).to(cuda))
+        torch.cuda.synchronize()
+        assert tlk.forward_launches == before + 1
+        assert torch.equal(got.cpu(), want)
     traj = want.clone()
     traj[2:, tlk.LC_J] = float(pp[tlk.LON_PP_KEYS.index("j_min")])
     traj = torch.cat([traj, traj[-3:]])
@@ -1069,6 +1124,68 @@ def test_lon_forward_and_reeval_kernel_match_plain_bit_for_bit(cuda):
     got_r = tlk.reeval_pass(nodes.to(cuda), *_on(cuda, pp, path, dist),
                             traj.to(cuda))
     assert torch.equal(got_r.cpu(), want_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channel", ["all", "cost"])
+def test_lon_kernels_nan_rule_match_plain(cuda, channel):
+    """``lon_scene(41, 13, 5, 90, 5)``: slice T - 2 from a next slice whose
+    row S // 2 is NaN (every channel, or the cost alone), the slice after
+    it from that one, and the forward and reeval passes over nodes whose
+    slice 2 is NaN at a index 1, on the card against the plain versions on
+    the CPU, NaN equal to NaN (a NaN constraint: cost inf, the first jerk;
+    a NaN cost of the least constraint: the first one)."""
+    T, S, V, A, P = 5, 41, 13, 5, 90
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, S + A)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    args = _on("cpu", pp, path, dist)
+    args_g = _on(cuda, pp, path, dist)
+    nxt = nodes[T - 1].clone()
+    _poison(nxt[S // 2], channel)
+    for i in (T - 2, T - 3):
+        want = tlk.backward_slice_reference(nxt, *args, i, False)
+        got = tlk.backward_slice(nxt.to(cuda), *args_g, i, False)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+        assert torch.isnan(want).any()
+        nxt = want
+    bad = nodes.clone()
+    _poison(bad[2, :, :, 1], channel)
+    want = tlk.forward_reference(bad, *args, torch.from_numpy(x0))
+    got = tlk.forward(bad.to(cuda), *args_g, torch.from_numpy(x0).to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert torch.isnan(want[1]).any()
+    traj = tlk.forward_reference(nodes, *args, torch.from_numpy(x0))
+    traj = torch.cat([traj, traj[-2:]])
+    want = tlk.reeval_reference(bad, *args, traj)
+    got = tlk.reeval_pass(bad.to(cuda), *args_g, traj.to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_lon_forward_profile_is_bit_equal(cuda):
+    """The forward pass's profiling instantiation: the plain
+    instantiation's rows bit for bit, every phase counted."""
+    T, S, V, A, P = (LON_DEMO[k] for k in "TSVAP")
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, 6, demo=True)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A, dev=cuda)
+    a = (nodes,) + _on(cuda, pp, path, dist, x0)
+    got, phases = tlk.forward_profile(*a)
+    assert torch.equal(got, tlk.forward(*a))
+    assert set(phases) == set(tlk.FORWARD_PHASES)
+    assert all(v > 0 for v in phases.values())
+
+
+@pytest.mark.cuda
+def test_lon_forward_staging_limit_raises_before_launch(cuda):
+    """A distance map whose staging does not fit a block's shared memory
+    raises, naming the limit, and launches nothing."""
+    T, S, V, A, P = 2, 30000, 2, 2, 20
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, 3)
+    nodes = torch.zeros((T, S, V, A, 4), dtype=torch.float32, device=cuda)
+    before = tlk.forward_launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tlk.forward(nodes, *_on(cuda, pp, path, dist, x0))
+    assert tlk.forward_launches == before
 
 
 @pytest.mark.cuda
@@ -1105,6 +1222,20 @@ def test_poly_lat_sweep_kernel_matches_plain(cuda, LD, SD, S):
     assert torch.equal(cd.cpu(), want_cd)
     np.testing.assert_allclose(tc.cpu().numpy(), want_tc.numpy(), rtol=1e-12,
                                atol=0)
+
+
+@pytest.mark.cuda
+def test_poly_lat_sweep_profile_is_bit_equal(cuda):
+    """The sweep's profiling instantiation: the plain instantiation's
+    results bit for bit, every phase counted."""
+    LD, SD, S = 1, 20, 201
+    occ, rl, step, pp, env, start = poly_lat_scene(LD, SD, S, 9)
+    a = _on(cuda, occ, rl, np.array([step], np.float32), pp, env, start)
+    cd, tc, phases = plk.sweep_profile(*a, LD, SD, S)
+    cd0, tc0 = plk.sweep(*a, LD, SD, S)
+    assert torch.equal(cd, cd0) and torch.equal(tc, tc0)
+    assert set(phases) == set(plk.SWEEP_PHASES)
+    assert all(v > 0 for v in phases.values())
 
 
 @pytest.mark.cuda
@@ -1255,6 +1386,34 @@ def test_idm_rollout_kernel_matches_plain(cuda, scene, C, T):
                                rtol=IDM_RTOL, atol=IDM_ATOL)
     np.testing.assert_allclose(cons.cpu().numpy(), want[1].cpu().numpy(),
                                rtol=IDM_RTOL, atol=IDM_ATOL)
+
+
+@pytest.mark.cuda
+def test_idm_evaluate_step_cap_raises_before_launch(cuda):
+    """T = 513 steps, one past the evaluation's cap (``T <= 512``,
+    ``csrc/idm_evaluate.cu``): a ValueError naming it, no launch."""
+    C, T = 8, 513
+    a = _idm_rollout_case(cuda, "free", C, T)
+    refs = torch.zeros((C, T, 10), dtype=torch.float32, device=cuda)
+    cons = torch.zeros((C, T, 9), dtype=torch.float32, device=cuda)
+    lg = torch.zeros(1, dtype=torch.float32, device=cuda)
+    before = idk.evaluate_launches
+    with pytest.raises(ValueError, match="at most 512"):
+        idk.evaluate(refs, cons, a[2], a[7], a[5], a[6], a[8], lg)
+    assert idk.evaluate_launches == before
+
+
+@pytest.mark.cuda
+def test_idm_rollout_ref_cap_raises_before_launch(cuda):
+    """4,097 ref line points, one past the rollout's cap (4,096,
+    ``csrc/idm_rollout.cu``): a ValueError naming it, no launch."""
+    a = list(_idm_rollout_case(cuda, "free", 8, 20))
+    rl = a[5]
+    a[5] = torch.cat([rl, rl[-1:].expand(4097 - rl.shape[0], 7)]).contiguous()
+    before = idk.rollout_launches
+    with pytest.raises(ValueError, match="at most 4096"):
+        idk.rollout(*a, 20)
+    assert idk.rollout_launches == before
 
 
 @pytest.mark.cuda

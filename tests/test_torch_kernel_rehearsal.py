@@ -5,7 +5,9 @@ bodies are plain C++ once the CUDA runtime's few names are supplied.  The
 fixture writes a stand-in ``cuda_runtime.h`` (``__syncthreads`` as a
 ``std::barrier`` over 256 ``std::thread``s, ``__syncwarp`` and
 ``__shfl_sync`` / ``__ballot_sync`` as a per-warp barrier and exchange,
-``__ffs`` as a count of trailing zeros, ``clock64`` as a
+``__reduce_min_sync`` / ``__reduce_max_sync`` as a per-warp exchange,
+``__ffs`` as a count of
+trailing zeros, ``clock64`` as a
 counter, ``float2`` / ``float4``, a ``blockIdx`` and ``gridDim`` per
 thread), compiles the
 kernel sources of ``csrc/`` with ``g++ -std=c++20 -ffp-contract=off``
@@ -65,7 +67,13 @@ not always the last index; its profiling instantiation bit-equal); and the
 one-launch poly-sampling grid against the plain version and, every
 candidate's rows and cost bit for bit, against the earlier two-launch body
 (a copy of it in the harness), at C = 1, 6 and 30, with NaN costs and
-ties (where that body's selection picks another winner).  Grids and
+ties (where that body's selection picks another winner); the NaN rule of
+the lon DP's backward slice and forward pass, the action-min and the fused
+slice on next slices with a NaN row, against the plain versions and
+against 2dd76fb's bodies (``PARENTS``), which dropped the NaN and agree on
+every node without one; the two-warp lon forward pass and the redesigned
+lateral sweep against 2dd76fb's bodies and their profiling
+instantiations.  Grids and
 graphs are kept small: every block costs barriers of 256 host threads,
 which crawl when the machine is busy.
 
@@ -104,7 +112,8 @@ from tpl_tpu_torch.scenes import (dp_moving_occ, dp_poly_buffers,
                                   dp_poly_propagation_case, dp_random_occ,
                                   idm_args, idm_hairpin_scene, idm_scene,
                                   idm_through_states,
-                                  lon_nodes, lon_scene, poly_lat_scene,
+                                  lon_nodes, lon_scene, lon_shifted_start,
+                                  poly_lat_scene,
                                   poly_scene)
 
 ATOL = 1e-12
@@ -196,6 +205,32 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   __syncwarp();
   return r;
 }
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  std::memcpy(rehearsal::exchange[w][lane], &v, sizeof(v));
+  __syncwarp();
+  unsigned r = v;
+  for (int i = 0; i < 32; ++i) {
+    unsigned b;
+    std::memcpy(&b, rehearsal::exchange[w][i], sizeof(b));
+    r = b < r ? b : r;
+  }
+  __syncwarp();
+  return r;
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  std::memcpy(rehearsal::exchange[w][lane], &v, sizeof(v));
+  __syncwarp();
+  unsigned r = v;
+  for (int i = 0; i < 32; ++i) {
+    unsigned b;
+    std::memcpy(&b, rehearsal::exchange[w][i], sizeof(b));
+    r = b > r ? b : r;
+  }
+  __syncwarp();
+  return r;
+}
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
@@ -231,6 +266,827 @@ inline long long clock64() {
 }
 """
 
+PARENTS = r"""
+// The bodies of 2dd76fb that this tree changed, over the tree's helpers:
+// the lon DP's backward slice and forward pass and the DP action-min's
+// selection with its two kernels (which dropped a NaN in their
+// lexicographic minimum), and the lateral sweep before its redesign.  The
+// NaN tests show the nodes whose result holds no NaN bit-equal to these,
+// and the sweep and forward tests every result.
+#pragma once
+
+namespace lon_dp_parent {
+using namespace lon_dp;
+
+// a block: one v (blockIdx.x) and the s rows s0 .. s0 + tile - 1
+// (blockIdx.y), every a; `box_cap` floats of shared memory for its box
+__global__ void __launch_bounds__(MAX_THREADS, 2)
+lon_backward_kernel(const float4* __restrict__ nodes_next,
+                    const float* __restrict__ pp_in,
+                    const float* __restrict__ path,
+                    const float* __restrict__ dist_path,
+                    float4* __restrict__ out, int S, int V, int A, int P,
+                    int t_idx, bool is_last, int tile, int box_cap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* res = reinterpret_cast<float4*>(smem_raw);      // (tile, A)
+  float* box = reinterpret_cast<float*>(res + tile * A);
+  Coord* tab = reinterpret_cast<Coord*>(box + (box_cap + 3) / 4 * 4);
+  float* vmax = reinterpret_cast<float*>(tab + A * NB);   // (P,)
+  float* s_val = vmax + P;
+  float* s_vmax = s_val + tile;
+  float* s_slack = s_vmax + tile;
+  int* part = reinterpret_cast<int*>(s_slack + tile);     // (warps, 4)
+
+  float pp[N_PP];
+#pragma unroll
+  for (int k = 0; k < N_PP; ++k) pp[k] = pp_in[k];
+  const int tid = threadIdx.x;
+  const int i_v = blockIdx.x;
+  const int s0 = blockIdx.y * tile;
+  const int n_s = mini(tile, S - s0);
+  const float v = axis_point(pp[V_MIN], pp[V_MAX], i_v, V - 1);
+  const float pss = pp[PATH_STEP_SIZE];
+  const float dt = pp[DT];
+
+  int bs0 = 0, rs = 0, plane = 0;
+  bool fits = true;
+  if (!is_last) {
+    // the (a, jerk) table and each warp's extremes of its row shifts and v
+    // rows, then the block's
+    const float s_step_x = (pp[S_MAX] - pp[S_MIN]) * (1.0f / (float)(S - 1));
+    int k_lo = 0x7fffffff, k_hi = -0x7fffffff - 1;
+    int y_lo = 0x7fffffff, y_hi = -0x7fffffff - 1;
+    for (int e = tid; e < A * NB; e += blockDim.x) {
+      const int i_a = e / NB, jb = e - i_a * NB;
+      const float a = axis_point(pp[A_MIN], pp[A_MAX], i_a, A - 1);
+      const float j = axis_point(pp[J_MIN], pp[J_MAX], jb, NB - 1);
+      const Next n = next_state(0.0f, v, a, j, dt);
+      Coord c;
+      c.s_change = n.s_change;
+      c.vn = n.vn;
+      c.f_c = n.s_change / s_step_x;
+      const float k_c = floorf(c.f_c);
+      c.ax_c = c.f_c - k_c;
+      const float y = clampf((n.vn - pp[V_MIN]) / (pp[V_MAX] - pp[V_MIN])
+                             * (float)(V - 1), 0.0f, (float)(V - 1));
+      const float z = clampf((n.an - pp[A_MIN]) / (pp[A_MAX] - pp[A_MIN])
+                             * (float)(A - 1), 0.0f, (float)(A - 1));
+      const float y0f = floorf(y), z0f = floorf(z);
+      const float wy0 = 1.0f - (y - y0f);
+      const float wz0 = 1.0f - (z - z0f);
+      const int y0 = (int)y0f, z0 = (int)z0f;
+      c.o[0] = y0;
+      c.o[1] = mini(y0 + 1, V - 1);
+      c.o[2] = z0;
+      c.o[3] = mini(z0 + 1, A - 1);
+      c.w00 = wy0 * wz0;
+      c.w01 = wy0 * (1.0f - wz0);
+      c.w10 = (1.0f - wy0) * wz0;
+      c.w11 = (1.0f - wy0) * (1.0f - wz0);
+      c.k = (int)k_c;
+      c.al = a_limits(pp, n.an);
+      c.j = j;
+      tab[e] = c;
+      k_lo = mini(k_lo, c.k);
+      k_hi = k_hi > c.k ? k_hi : c.k;
+      y_lo = mini(y_lo, c.o[0]);
+      y_hi = y_hi > c.o[1] ? y_hi : c.o[1];
+    }
+#pragma unroll
+    for (int o = WARP / 2; o > 0; o /= 2) {
+      k_lo = mini(k_lo, __shfl_xor_sync(0xffffffffu, k_lo, o));
+      const int kh = __shfl_xor_sync(0xffffffffu, k_hi, o);
+      k_hi = k_hi > kh ? k_hi : kh;
+      y_lo = mini(y_lo, __shfl_xor_sync(0xffffffffu, y_lo, o));
+      const int yh = __shfl_xor_sync(0xffffffffu, y_hi, o);
+      y_hi = y_hi > yh ? y_hi : yh;
+    }
+    if ((tid & (WARP - 1)) == 0) {
+      int* w = part + 4 * (tid / WARP);
+      w[0] = k_lo;
+      w[1] = k_hi;
+      w[2] = y_lo;
+      w[3] = y_hi;
+    }
+    __syncthreads();
+    for (int w = 0; w < (int)(blockDim.x / WARP); ++w) {
+      k_lo = mini(k_lo, part[4 * w]);
+      k_hi = k_hi > part[4 * w + 1] ? k_hi : part[4 * w + 1];
+      y_lo = mini(y_lo, part[4 * w + 2]);
+      y_hi = y_hi > part[4 * w + 3] ? y_hi : part[4 * w + 3];
+    }
+
+    // the box: the rows every (s, jerk) of the tile reads (clamped as the
+    // lookup clamps them) x the v rows y_lo .. y_hi x every a, one plane
+    // per channel (cost, constraint, jerk); the copies run while the s
+    // rows below are formed
+    bs0 = clampi(s0 + k_lo, 0, S - 1);
+    const int bs1 = clampi(s0 + n_s - 1 + k_hi + 1, 0, S - 1);
+    const int row_len = (y_hi - y_lo + 1) * A;
+    rs = row_stride(row_len);
+    plane = (bs1 - bs0 + 1) * rs;
+    fits = 3 * plane <= box_cap;
+    if (fits)
+      for (int q = tid; q < (bs1 - bs0 + 1) * row_len; q += blockDim.x) {
+        const int r = q / row_len, c = q - r * row_len;
+        const float* src = reinterpret_cast<const float*>(
+            nodes_next + ((bs0 + r) * V + y_lo) * A + c);
+        float* dst = box + r * rs + c;
+        copy4_async(dst, src);
+        copy4_async(dst + plane, src + 1);
+        copy4_async(dst + 2 * plane, src + 2);
+      }
+    // the table's corners as offsets in a box row
+    for (int e = tid; e < A * NB; e += blockDim.x) {
+      int* o = tab[e].o;
+      const int y0 = (o[0] - y_lo) * A, y1 = (o[1] - y_lo) * A;
+      const int z0 = o[2], z1 = o[3];
+      o[0] = y0 + z0;
+      o[1] = y0 + z1;
+      o[2] = y1 + z0;
+      o[3] = y1 + z1;
+    }
+  }
+  // the path's v_max column; the tile's s rows: grid value, v_max there and
+  // the distance map's slack
+  if (!is_last)
+    for (int q = tid; q < P; q += blockDim.x)
+      vmax[q] = path[q * N_PC + PC_VMAX];
+  for (int r = tid; r < n_s; r += blockDim.x) {
+    const float s = axis_point(pp[S_MIN], pp[S_MAX], s0 + r, S - 1);
+    s_val[r] = s;
+    s_vmax[r] = interp_col(path, PC_VMAX, s, pss, P);
+    s_slack[r] = s_dist_at(dist_path, pp, t_idx,
+                           interp_col(path, PC_S, s, pss, P), S);
+  }
+  copies_wait();
+  __syncthreads();
+
+  // a thread per (s, a) of the tile, neighbouring s on neighbouring lanes
+  // (their table entries are one, their box rows neighbours)
+  for (int item = tid; item < n_s * A; item += blockDim.x) {
+    const int i_a = item / n_s, r = item - i_a * n_s;
+    const int i_s = s0 + r;
+    const float s = s_val[r];
+    const float a = axis_point(pp[A_MIN], pp[A_MAX], i_a, A - 1);
+    const float s_dist = s_slack[r];
+    const StateTerms st = state_terms(pp, s, v, a, s_dist, s_vmax[r]);
+    float4& o = res[r * A + i_a];
+    if (is_last) {
+      o = make_float4(st.cost, 0.0f, 0.0f, 0.0f);
+      continue;
+    }
+    if (!fits) {
+      o = make_float4(NAN, NAN, NAN, NAN);
+      continue;
+    }
+    float cost[NB], constr[NB];
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      const Coord& c = tab[i_a * NB + jb];
+      Next n;
+      n.s_change = c.s_change;
+      n.vn = c.vn;
+      n.sn = s + c.s_change;
+      const int rows[2] = {clampi(i_s + c.k, 0, S - 1) - bs0,
+                           clampi(i_s + c.k + 1, 0, S - 1) - bs0};
+      const float ax_row = (float)i_s + c.f_c >= (float)(S - 1) ? 0.0f
+                                                               : c.ax_c;
+      float b[2][3];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float* base = box + rows[q] * rs;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float* p = base + ch * plane;
+          b[q][ch] = ((p[c.o[0]] * c.w00 + p[c.o[1]] * c.w01)
+                      + p[c.o[2]] * c.w10)
+                     + p[c.o[3]] * c.w11;
+        }
+      }
+      float nn[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        nn[q] = b[0][q] * (1.0f - ax_row) + b[1][q] * ax_row;
+      action_terms(pp, st, nn, c.j, dt, n, s_dist,
+                   interp_staged(vmax, n.sn, pss, P), c.al, &cost[jb],
+                   &constr[jb]);
+    }
+    float cmin = constr[0];
+#pragma unroll
+    for (int jb = 1; jb < NB; ++jb) cmin = fminf(cmin, constr[jb]);
+    float best = INFINITY;
+    int jbest = 0;
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      const float cj = constr[jb] <= cmin ? cost[jb] : INFINITY;
+      if (cj < best) {
+        best = cj;
+        jbest = jb;
+      }
+    }
+    o = make_float4(best, cmin,
+                    axis_point(pp[J_MIN], pp[J_MAX], jbest, NB - 1), 0.0f);
+  }
+  __syncthreads();
+
+  // the tile's nodes, a row of A at a time
+  for (int q = tid; q < n_s * A; q += blockDim.x) {
+    const int r = q / A;
+    out[((s0 + r) * V + i_v) * A + (q - r * A)] = res[q];
+  }
+}
+
+// the 8-corner value lookup of the forward pass (trilerp), channels 0..2
+__device__ __forceinline__ void trilerp(const float4* __restrict__ nodes,
+                                        const float* pp, int S, int V, int A,
+                                        float s, float v, float a,
+                                        float (&res)[3]) {
+  int i0[3], i1[3];
+  float fr[3];
+  const float q[3] = {s, v, a};
+  const float lo[3] = {pp[S_MIN], pp[V_MIN], pp[A_MIN]};
+  const float hi[3] = {pp[S_MAX], pp[V_MAX], pp[A_MAX]};
+  const int n[3] = {S, V, A};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float c = clampf((q[d] - lo[d]) / (hi[d] - lo[d]) * (float)(n[d] - 1),
+                           0.0f, (float)(n[d] - 1));
+    const float c0 = floorf(c);
+    i0[d] = (int)c0;
+    i1[d] = mini(i0[d] + 1, n[d] - 1);
+    fr[d] = c - c0;
+  }
+  auto at = [&](int x, int y, int z) {
+    return load4(nodes + (x * V + y) * A + z);
+  };
+  const float ax = fr[0], ay = fr[1], az = fr[2];
+  const float4 n000 = at(i0[0], i0[1], i0[2]), n100 = at(i1[0], i0[1], i0[2]);
+  const float4 n010 = at(i0[0], i1[1], i0[2]), n110 = at(i1[0], i1[1], i0[2]);
+  const float4 n001 = at(i0[0], i0[1], i1[2]), n101 = at(i1[0], i0[1], i1[2]);
+  const float4 n011 = at(i0[0], i1[1], i1[2]), n111 = at(i1[0], i1[1], i1[2]);
+  const float v000[3] = {n000.x, n000.y, n000.z}, v100[3] = {n100.x, n100.y, n100.z};
+  const float v010[3] = {n010.x, n010.y, n010.z}, v110[3] = {n110.x, n110.y, n110.z};
+  const float v001[3] = {n001.x, n001.y, n001.z}, v101[3] = {n101.x, n101.y, n101.z};
+  const float v011[3] = {n011.x, n011.y, n011.z}, v111[3] = {n111.x, n111.y, n111.z};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float c00 = v000[c] * (1.0f - ax) + v100[c] * ax;
+    const float c10 = v010[c] * (1.0f - ax) + v110[c] * ax;
+    const float c01 = v001[c] * (1.0f - ax) + v101[c] * ax;
+    const float c11 = v011[c] * (1.0f - ax) + v111[c] * ax;
+    const float c0 = c00 * (1.0f - ay) + c10 * ay;
+    const float c1 = c01 * (1.0f - ay) + c11 * ay;
+    res[c] = c0 * (1.0f - az) + c1 * az;
+  }
+}
+
+struct Scored {
+  StateTerms st;
+  float cost, constr;
+};
+
+// one action (jerk j) of the state tp with the next slice `nodes_next`
+__device__ __forceinline__ Scored score(const float* tp, float j,
+                                        const float4* __restrict__ nodes_next,
+                                        int t_idx,
+                                        const float* __restrict__ dist_path,
+                                        const float* __restrict__ path,
+                                        const float* pp, float dt, int S,
+                                        int V, int A, int P) {
+  const float s = tp[LC_S], v = tp[LC_V], a = tp[LC_A];
+  const float pss = pp[PATH_STEP_SIZE];
+  const float v_max = interp_col(path, PC_VMAX, s, pss, P);
+  const float s_dist = s_dist_at(dist_path, pp, t_idx,
+                                 interp_col(path, PC_S, s, pss, P), S);
+  Scored r;
+  r.st = state_terms(pp, s, v, a, s_dist, v_max);
+  const Next n = next_state(s, v, a, j, dt);
+  float nn[3];
+  trilerp(nodes_next, pp, S, V, A, n.sn, n.vn, n.an, nn);
+  action_terms(pp, r.st, nn, j, dt, n, s_dist,
+               interp_col(path, PC_VMAX, n.sn, pss, P), a_limits(pp, n.an),
+               &r.cost, &r.constr);
+  return r;
+}
+
+__global__ void __launch_bounds__(WARP)
+lon_forward_kernel(const float4* __restrict__ nodes,
+                   const float* __restrict__ pp_in,
+                   const float* __restrict__ path,
+                   const float* __restrict__ dist_path,
+                   const float* __restrict__ states, float* __restrict__ out,
+                   int T, int S, int V, int A, int P, int n_rows, int mode) {
+  // shared: the parameters, the state, each action's cost and constraint
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* pp = reinterpret_cast<float*>(smem_raw);
+  float* tp = pp + N_PP;
+  float* a_cost = tp + N_LC;
+  float* a_constr = a_cost + NF;
+  float* a_state_cost = a_constr + NF;
+  const int lane = threadIdx.x;
+  if (lane >= WARP) return;
+  for (int k = lane; k < N_PP; k += WARP) pp[k] = pp_in[k];
+  const size_t slice = (size_t)S * V * A;
+  __syncwarp();
+
+  if (mode == 1) {
+    // reeval: every row with its own jerk, rows on the lanes
+    for (int r = lane; r < n_rows; r += WARP) {
+      float row[N_LC];
+      for (int c = 0; c < N_LC; ++c) row[c] = states[r * N_LC + c];
+      const float dt_i = r == 0 ? pp[DT_START] : pp[DT];
+      const int t_idx = t_index(row[LC_T], pp, T);
+      const Scored sc = score(row, row[LC_J], nodes + mini(r + 1, T - 1) * slice,
+                              t_idx, dist_path, path, pp, dt_i, S, V, A, P);
+      // one action: cmin is its constraint, the cost survives unless NaN
+      const float cost = sc.constr <= sc.constr ? sc.cost : INFINITY;
+      finish_row(row, pp, T, sc.st.cost, cost, sc.constr, row[LC_J],
+                 out + r * N_LC);
+    }
+    return;
+  }
+
+  if (lane < N_LC) tp[lane] = states[lane];
+  __syncwarp();
+  for (int i = 0; i < T; ++i) {
+    const float dt_i = i == 0 ? pp[DT_START] : pp[DT];
+    const int t_idx = t_index(tp[LC_T], pp, T);
+    const float4* nodes_next = nodes + mini(i + 1, T - 1) * slice;
+    for (int k = lane; k < NF; k += WARP) {
+      const float j = axis_point(pp[J_MIN], pp[J_MAX], k, NF - 1);
+      const Scored sc = score(tp, j, nodes_next, t_idx, dist_path, path, pp,
+                              dt_i, S, V, A, P);
+      a_cost[k] = sc.cost;
+      a_constr[k] = sc.constr;
+      if (k == 0) *a_state_cost = sc.st.cost;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      float cmin = a_constr[0];
+      for (int k = 1; k < NF; ++k) cmin = fminf(cmin, a_constr[k]);
+      float best = INFINITY;
+      int kbest = 0;
+      for (int k = 0; k < NF; ++k) {
+        const float c = a_constr[k] <= cmin ? a_cost[k] : INFINITY;
+        if (c < best) {
+          best = c;
+          kbest = k;
+        }
+      }
+      float row[N_LC];
+      finish_row(tp, pp, T, *a_state_cost, best, cmin,
+                 axis_point(pp[J_MIN], pp[J_MAX], kbest, NF - 1), row);
+      for (int c = 0; c < N_LC; ++c) out[i * N_LC + c] = row[c];
+      // the next state
+      const float s = row[LC_S], v = row[LC_V], a = row[LC_A], j = row[LC_J];
+      const float dt2 = dt_i * dt_i;
+      tp[LC_T] = row[LC_T] + dt_i;
+      tp[LC_S] = fmaxf(s, s + v * dt_i + 0.5f * a * dt2
+                       + j * (dt_i * (dt_i * dt_i)) * (1.0f / 6.0f));
+      tp[LC_V] = fmaxf(v + a * dt_i + 0.5f * j * dt2, 0.0f);
+      tp[LC_A] = a + j * dt_i;
+      tp[LC_J] = j;
+      tp[LC_COST] = 0.0f;
+      tp[LC_CONSTR] = 0.0f;
+    }
+    __syncwarp();
+  }
+}
+}  // namespace lon_dp_parent
+
+namespace latlon_am_parent {
+using namespace latlon_am;
+
+// The lexicographic (constraint, cost) minimum over the 7 x 7 actions of one
+// cell, dl outer and dds inner (the XLA flattening order of the argmin),
+// first minimum winning.  my_rows: the staged rows of the cell's s, entry
+// (j, lt) at my_rows[j * tile + lt]; dfwd: the cell's 7 forward distances.
+__device__ __forceinline__ Best best_action(
+    const float4* my_rows, const float* s_ca, const Tables& tb,
+    const float (&dfwd)[NB], int ds, int l, int L, int tile) {
+  const float gap_min = tb.consts[0], time_gap = tb.consts[1];
+  const float w_safety = tb.consts[2], w_ddds = tb.consts[3];
+  const float w_ddl = tb.consts[4];
+  const float ds_gap = tb.dss[ds] * time_gap;
+
+  float sc[NB], dds_v[NB], q_dds[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    sc[j] = tb.schg[ds * NB + j];
+    dds_v[j] = tb.dds_vals[j];
+    q_dds[j] = tb.qdds[j];
+  }
+
+  Best b = {0.f, 0.f, 0.f, 0.f};
+  bool first = true;
+#pragma unroll
+  for (int m = 0; m < NB; ++m) {
+    const int lt = clampi(l + tb.kl[m], 0, L - 1);
+    const float d_safety = (dfwd[m] - gap_min) - ds_gap;
+    const float qdl_m = tb.qdl[m];
+    const float dl_v = tb.dl_vals[m];
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const float4 nn = my_rows[j * tile + lt];
+
+      const float occ = fmaxf(0.f, sc[j] - dfwd[m]);
+      const float constr = (s_ca[j * NB + m] + occ) + nn.y;
+
+      float cost = w_safety * fmaxf(0.f, sc[j] - d_safety);
+      cost = cost + q_dds[j];
+      const float e_dds = nn.z - dds_v[j];
+      cost = cost + w_ddds * (e_dds * e_dds);
+      cost = cost + qdl_m;
+      const float e_dl = nn.w - dl_v;
+      cost = cost + w_ddl * (e_dl * e_dl);
+      cost = cost + nn.x;
+
+      if (first || constr < b.constr ||
+          (constr == b.constr && cost < b.cost)) {
+        b.constr = constr;
+        b.cost = cost;
+        b.dds = dds_v[j];
+        b.dl = dl_v;
+        first = false;
+      }
+    }
+  }
+  return b;
+}
+
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == FEW_THREADS ? FEW_BLOCKS
+                                                                  : 1)
+action_min_kernel(
+    const float4* __restrict__ nodes_next,   // (S, DS, L) x 4 channels
+    const float* __restrict__ state_cost,    // (S, DS, L)
+    const float* __restrict__ state_constr,  // (S, DS, L)
+    const float* __restrict__ d_fwd,         // (S, L, NB)
+    const int* __restrict__ ids,             // (DS, NB) target ds row
+    const int* __restrict__ ks,              // (DS, NB) s shift (cells)
+    const int* __restrict__ kl,              // (NB,)    l shift (cells)
+    const float* __restrict__ ca,            // (DS, NB, NB) slope constr
+    const float* __restrict__ schg,          // (DS, NB) s change
+    const float* __restrict__ qdds,          // (NB,)
+    const float* __restrict__ qdl,           // (NB,)
+    const float* __restrict__ dds_vals,      // (NB,)
+    const float* __restrict__ dl_vals,       // (NB,)
+    const float* __restrict__ dss,           // (DS,)
+    const float* __restrict__ consts,        // gap_min, time_gap, w_safety,
+                                             // w_ddds, w_ddl
+    float4* __restrict__ out,                // (S, DS, L) x 4 channels
+    int S, int DS, int L, int ts_rows) {
+  // (the tables arrive as read-only kernel parameters of their own, which
+  // is what lets the compiler keep their loads out of the way)
+  const Tables tb = {ids, ks, kl, ca, schg, qdds, qdl, dds_vals, dl_vals,
+                     dss, consts};
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* rows = reinterpret_cast<float4*>(smem_raw);   // (NB, ts_rows, L)
+  float* s_ca = reinterpret_cast<float*>(rows + NB * ts_rows * L);  // (j, m)
+
+  const int tid = threadIdx.x;
+  const int ds = blockIdx.y;
+  const int s0 = blockIdx.x * ts_rows;
+  const int tile = ts_rows * L;
+  stage_lookups(rows, s_ca, nodes_next, tb, ds, s0, S, DS, L, tile);
+  copies_wait();
+  __syncthreads();
+
+  const int row = tid / L;
+  const int l = tid - row * L;
+  const int s = s0 + row;
+  if (tid >= tile || s >= S) return;
+  const int cell = (s * DS + ds) * L + l;
+
+  float dfwd[NB];
+  const float* dfwd_cell = d_fwd + (s * L + l) * NB;
+#pragma unroll
+  for (int m = 0; m < NB; ++m) dfwd[m] = dfwd_cell[m];
+
+  const Best b = latlon_am_parent::best_action(rows + row * L, s_ca, tb,
+                                               dfwd, ds, l, L, tile);
+  out[cell] = make_float4(state_cost[cell] + b.cost,
+                          state_constr[cell] + b.constr, b.dds, b.dl);
+}
+
+// One whole backward slice: what the plain version computes with some
+// hundred tensor operations before the action-min (the state cost and
+// constraint of every cell, with the nearest reference-line row, the two
+// first-obstacle searches along l and the mid-lane target, and the 7
+// forward distances with their per-side running minimum), computed per cell
+// from the tile's rows of the distance map in shared memory, then the
+// action-min above.  Every expression keeps the plain version's operations
+// and their order (reference: lat_lon_planner.cu:80-192 computed the same
+// per cell inside its backward step).
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == FEW_THREADS ? FEW_BLOCKS
+                                                                  : 1)
+backward_slice_kernel(
+    const float4* __restrict__ nodes_next,   // (S, DS, L) x 4 channels
+    const float* __restrict__ dist_t,        // (S, L) distance ahead
+    const float* __restrict__ ref_line,      // (n_ref, 8)
+    const float* __restrict__ ref_step,      // one value
+    const float* __restrict__ sc,            // SliceConst
+    const int* __restrict__ ids,             // (DS, NB) target ds row
+    const int* __restrict__ ks,              // (DS, NB) s shift (cells)
+    const int* __restrict__ kl,              // (NB,)    l shift (cells)
+    const float* __restrict__ ca,            // (DS, NB, NB) slope constr
+    const float* __restrict__ schg,          // (DS, NB) s change
+    const float* __restrict__ qdds,          // (NB,)
+    const float* __restrict__ qdl,           // (NB,)
+    const float* __restrict__ dds_vals,      // (NB,)
+    const float* __restrict__ dl_vals,       // (NB,)
+    const float* __restrict__ dss,           // (DS,)
+    const float* __restrict__ consts,        // gap_min, time_gap, w_safety,
+                                             // w_ddds, w_ddl
+    float4* __restrict__ out,                // (S, DS, L) x 4 channels
+    int S, int DS, int L, int n_ref, int slice, int ts_rows) {
+  // (the tables arrive as read-only kernel parameters of their own, which
+  // is what lets the compiler keep their loads out of the way)
+  const Tables tb = {ids, ks, kl, ca, schg, qdds, qdl, dds_vals, dl_vals,
+                     dss, consts};
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* rows = reinterpret_cast<float4*>(smem_raw);   // (NB, ts_rows, L)
+  float* s_ca = reinterpret_cast<float*>(rows + NB * ts_rows * L);  // (j, m)
+  float* dist = s_ca + NB * NB;                         // (ts_rows, L)
+  int* il2 = reinterpret_cast<int*>(dist + ts_rows * L);   // (L, NB)
+
+  const int tid = threadIdx.x;
+  const int ds = blockIdx.y;
+  const int s0 = blockIdx.x * ts_rows;
+  const int tile = ts_rows * L;
+  const float l_min = sc[C_L_MIN], l_step = sc[C_L_STEP], dt = sc[C_DT];
+
+  stage_lookups(rows, s_ca, nodes_next, tb, ds, s0, S, DS, L, tile);
+  for (int k = tid; k < tile; k += blockDim.x)
+    dist[k] = dist_t[clampi(s0 + k / L, 0, S - 1) * L + k % L];
+  // the l index each dl action's lateral sweep reads, per l
+  for (int k = tid; k < L * NB; k += blockDim.x) {
+    const float l_g = l_min + (float)(k / NB) * l_step;
+    const float at = rintf(((l_g + tb.dl_vals[k % NB] * dt) - l_min) / l_step);
+    il2[k] = (int)fminf(fmaxf(at, 0.f), (float)(L - 1));
+  }
+  copies_wait();
+  __syncthreads();
+
+  const int row = tid / L;
+  const int l = tid - row * L;
+  const int s = s0 + row;
+  if (tid >= tile || s >= S) return;
+  const int cell = (s * DS + ds) * L + l;
+
+  const float s_g = sc[C_S_MIN] + (float)s * sc[C_S_STEP];
+  const float l_g = l_min + (float)l * l_step;
+  const float ds_g = tb.dss[ds];
+  const float t = sc[C_DT_START] + (float)(slice - 1) * dt;
+  const float half_len = sc[C_LENGTH_VEH] * 0.5f;
+  const float* drow = dist + row * L;
+
+  // the nearest reference-line row (round half to even)
+  const float at = rintf(s_g / *ref_step);
+  const float* rl =
+      ref_line + (size_t)(int)fminf(fmaxf(at, 0.f), (float)(n_ref - 1)) * 8;
+  const float v_max_ref = rl[4];
+  const float half_width = sc[C_WIDTH_VEH] * 0.5f;
+  const float d_left_ref = rl[5] - half_width;
+  const float d_right_ref = -(rl[6] - half_width);
+
+  // the first l offset to each side whose distance ahead is too short
+  const float mean_dist = fmaxf(ds_g * dt, half_len);
+  int i_left = 0, i_right = 0;
+  bool found_left = false, found_right = false;
+  for (int k = 0; k < L; ++k)
+    if (drow[clampi(l + k, 0, L - 1)] < mean_dist) {
+      i_left = k;
+      found_left = true;
+      break;
+    }
+  for (int k = 0; k < L; ++k)
+    if (drow[clampi(l - k, 0, L - 1)] < mean_dist) {
+      i_right = k;
+      found_right = true;
+      break;
+    }
+  const float l_left = found_left ? l_g + (float)i_left * l_step : 0.f;
+  const float l_right = found_right ? l_g - (float)i_right * l_step : 0.f;
+  const float mid = l_right + (l_left - l_right) * 0.5f;
+  const float mid_y = fminf(l_right + sc[C_D_LAT_COMF], mid);
+  const float mid_z = fmaxf(l_left - sc[C_D_LAT_COMF], mid);
+  const float l_trg = sc[C_L_TRG];
+  const float mid_x =
+      l_trg < l_right ? mid_y : (l_trg > l_left ? mid_z : l_trg);
+
+  // the state cost and constraint, term by term
+  float cost = 1000.f * fmaxf(l_g - d_left_ref, 0.f);
+  cost = cost + 1000.f * fmaxf(d_right_ref - l_g, 0.f);
+  float e = mid_x - l_g;
+  cost = cost + sc[C_W_L] * (e * e);
+  e = mid_y - l_g;
+  cost = cost + (l_g < mid_y ? sc[C_W_LAT_DIST] * (e * e) : 0.f);
+  e = mid_z - l_g;
+  cost = cost + (l_g > mid_z ? sc[C_W_LAT_DIST] * (e * e) : 0.f);
+  cost = cost + sc[C_W_PROGRESS] * (1000.f - s_g);
+  const float constr = ds_g > v_max_ref ? ds_g - v_max_ref : 0.f;
+  const float s_st = sc[C_S_ST], w_st = sc[C_W_ST];
+  cost = cost + (t < sc[C_T_ST_MIN] ? w_st * fmaxf(s_g - s_st, 0.f) : 0.f);
+  cost = cost + (t > sc[C_T_ST_MAX] ? w_st * fmaxf(s_st - s_g, 0.f) : 0.f);
+
+  // the forward distances: center, then the running minimum to each side
+  float dfwd[NB];
+  const int* il2_l = il2 + l * NB;
+  dfwd[0] = drow[il2_l[0]];
+#pragma unroll
+  for (int m = 1; m < NB; ++m)
+    dfwd[m] = fminf(m == NB / 2 + 1 ? dfwd[0] : dfwd[m - 1], drow[il2_l[m]]);
+#pragma unroll
+  for (int m = 0; m < NB; ++m) dfwd[m] = dfwd[m] - half_len;
+
+  const Best b = latlon_am_parent::best_action(rows + row * L, s_ca, tb,
+                                               dfwd, ds, l, L, tile);
+  out[cell] = make_float4(cost + b.cost, constr + b.constr, b.dds, b.dl);
+}
+}  // namespace latlon_am_parent
+
+namespace poly_lat_parent {
+using namespace poly_lat;
+
+__global__ void __launch_bounds__(THREADS)
+poly_lat_sweep_kernel(const float* __restrict__ occ,
+                      const float* __restrict__ ref_line,
+                      const float* __restrict__ ref_step_p,
+                      const float* __restrict__ pp_in,
+                      const float* __restrict__ env_in,
+                      const float* __restrict__ start,
+                      const double* __restrict__ hermite_inv,
+                      float* __restrict__ cd_out, double* __restrict__ tc_out,
+                      int LD, int SD, int S, int TE, int SE, int LE,
+                      int n_ref) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* cost_sum = reinterpret_cast<double*>(smem_raw);
+  double* sl = cost_sum + 1;
+  double* sx = sl + S;
+  double* sy = sx + S;
+  double* sv = sy + S;
+  double* scost = sv + S;
+  double* st = scost + S;
+  float* scoll = reinterpret_cast<float*>(st + S);
+
+  const int tid = threadIdx.x;
+  const int cand = blockIdx.x;
+  const int il = cand / SD, isd = cand % SD;
+  float pp[N_PP], ep[N_ENV];
+  for (int k = 0; k < N_PP; ++k) pp[k] = pp_in[k];
+  for (int k = 0; k < N_ENV; ++k) ep[k] = env_in[k];
+  const float l0 = start[0], dl0 = start[1], ddl0 = start[2], s0 = start[3];
+  const float v0 = start[4];
+  const float ref_step = *ref_step_p;
+
+  const float l_dst = axis_point(pp[L_DST_MIN], pp[L_DST_MAX], il,
+                                 LD - 1 > 1 ? LD - 1 : 1);
+  const float s_dst = axis_point(pp[S_DST_MIN], pp[S_DST_MAX], isd,
+                                 SD - 1 > 1 ? SD - 1 : 1);
+  const float s_step = (pp[S_MAX] - pp[S_MIN]) * (1.0f / (float)(S - 1));
+  const float s_base = s0 + pp[S_MIN];
+  const float s_end = s0 + s_dst;
+
+  // the quintic from its boundary values (PolyQuintic): b scaled by d^k
+  const float d = s_end - s0;
+  const float b[NC] = {l0, dl0 * d, ddl0 * (d * d), l_dst, 0.0f * d,
+                       0.0f * (d * d)};
+  double c[NC];
+  for (int m = 0; m < NC; ++m) {
+    double acc = 0.0;
+    for (int k = 0; k < NC; ++k) acc += (double)b[k] * hermite_inv[m * NC + k];
+    c[m] = acc;
+  }
+  const double d1 = (double)d, d2 = (double)(d * d);
+  const double d3 = (double)(d * (d * d));
+  const double margin = (double)(pp[WIDTH_VEH] * 0.5f) * sqrt(2.0);
+  const float a_lat = pp[A_LAT_ABS_MAX];
+
+  for (int i = tid; i < S; i += blockDim.x) {
+    const float s = fma32((float)i, s_step, s_base);
+    const double u = (double)((s - s0) / d);
+    const bool past_end = s >= s_end;
+    const double l = past_end ? (double)l_dst : horner(c, u, 0);
+    const double dl = past_end ? 0.0 : horner(c, u, 1) / d1;
+    const double ddl = past_end ? 0.0 : horner(c, u, 2) / d2;
+    const double dddl = past_end ? 0.0 : horner(c, u, 3) / d3;
+
+    // the reference line at s (RefLine::lerp, float32)
+    const float q = s / ref_step;
+    const float i0f = clampf(floorf(q), 0.0f, (float)(n_ref - 1));
+    const float i1f = clampf(ceilf(q), 0.0f, (float)(n_ref - 1));
+    const float w = clampf(q - i0f, 0.0f, 1.0f);
+    const float* r0 = ref_line + (size_t)(int)i0f * REF_CH;
+    const float* r1 = ref_line + (size_t)(int)i1f * REF_CH;
+    float rp[7];
+    for (int ch = 0; ch < 7; ++ch) rp[ch] = r0[ch] * (1.0f - w) + r1[ch] * w;
+
+    const double hf = atan(dl);
+    const double x = (double)rp[RL_X] - (double)sinf(rp[RL_H]) * l;
+    const double y = (double)rp[RL_Y] + (double)cosf(rp[RL_H]) * l;
+    const double rk = (double)rp[RL_K];
+    const double k = ((ddl / (dl * dl + 1.0) + rk) * cos(hf)) / (1.0 - l * rk);
+    const double ak = fabs(k);
+    const double k_abs_path = fmax(ak, (double)fabsf(rp[RL_K]));
+    const double rv = (double)rp[RL_V];
+    const double v = k_abs_path > 1e-6
+        ? fmin(rv, sqrt((double)a_lat / fmax(k_abs_path, 1e-9)))
+        : rv;
+
+    // local constraints (poly_lat_planner.cu:64-76)
+    const float mv = fminf(rp[RL_V], v0);
+    double constr = fmax((double)(mv * mv) * ak - (double)a_lat, 0.0);
+    const bool in_poly = s <= s_end;
+    constr = constr + (in_poly ? fmax(ak - (double)pp[K_ABS_MAX], 0.0) : 0.0);
+    constr = constr
+        + (in_poly ? fmax(l - ((double)rp[RL_DL] - margin), 0.0) : 0.0);
+    constr = constr
+        + (in_poly ? fmax((-(double)rp[RL_DR] + margin) - l, 0.0) : 0.0);
+    // local cost (poly_lat_planner.cu:78-92)
+    double cost = ((double)pp[W_DL] * (dl * dl) + (double)pp[W_DDL] * (ddl * ddl))
+        + (double)pp[W_DDDL] * (dddl * dddl);
+    cost = cost + (ak > (double)fabsf(rp[RL_K]) ? (double)pp[W_K] * (k * k) : 0.0);
+    cost = cost + 10e6 * constr;
+
+    sl[i] = l;
+    sx[i] = x;
+    sy[i] = y;
+    sv[i] = v;
+    scost[i] = cost;
+  }
+  __syncthreads();
+
+  // the segment times (poly_lat_planner.cu:102-148)
+  for (int i = 1 + tid; i < S; i += blockDim.x) {
+    const double dx = sx[i] - sx[i - 1];
+    const double dy = sy[i] - sy[i - 1];
+    st[i] = sqrt(dx * dx + dy * dy) / fmax(sv[i], 1.0);
+  }
+  __syncthreads();
+  // their running sum on thread 0, the cost sum on a thread of warp 1
+  if (tid == 0) {
+    double t = 0.0;
+    st[0] = 0.0;
+    for (int i = 1; i < S; ++i) {
+      t = t + st[i];
+      st[i] = t;
+    }
+  } else if (tid == 32) {
+    double acc = 0.0;
+    for (int i = 0; i < S; ++i) acc = acc + scost[i];
+    *cost_sum = acc;
+  }
+  __syncthreads();
+
+  // collision checks (poly_lat_planner.cu:150-185): interpDistField
+  // (env.cu:229-239) with the dt_start time mapping
+  const float e_s_span = ep[E_S_MAX] - ep[E_S_MIN];
+  const double e_l_span = (double)(ep[E_L_MAX] - ep[E_L_MIN]);
+  for (int i = tid; i < S; i += blockDim.x) {
+    const float s = fma32((float)i, s_step, s_base);
+    const double t = st[i];
+    const double l = sl[i];
+    const float si = clampf(rintf((s - ep[E_S_MIN]) / e_s_span * (float)(SE - 1)),
+                            0.0f, (float)(SE - 1));
+    float dist_sem = 0.0f;
+    // time offsets -1, 0, 1 s, lateral offsets 0, 0.25, -0.25 m
+    for (int a = 0; a < 3; ++a) {
+      const double tq = t + (double)(a - 1);
+      const double t_idx = tq < (double)ep[E_DT_START]
+          ? 0.0 : rint((tq - (double)ep[E_DT_START]) / (double)ep[E_DT]) + 1.0;
+      const int ti = (int)clampd(t_idx, 0.0, (double)(TE - 1));
+      for (int b2 = 0; b2 < 3; ++b2) {
+        const double lq = l + (b2 == 0 ? 0.0 : (b2 == 1 ? 0.25 : -0.25));
+        const int li = (int)clampd(
+            rint((lq - (double)ep[E_L_MIN]) / e_l_span * (double)(LE - 1)),
+            0.0, (double)(LE - 1));
+        dist_sem = fmaxf(dist_sem,
+                         occ[((size_t)ti * SE + (int)si) * LE + li]);
+      }
+    }
+    const bool hit = dist_sem > 0.0f && t < 8.0 && s > pp[LENGTH_VEH];
+    scoll[i] = hit ? s : 10000.0f;
+  }
+  __syncthreads();
+
+  if (tid == 0) {
+    float cmin = scoll[0];
+    for (int i = 1; i < S; ++i) cmin = fminf(cmin, scoll[i]);
+    double tc = *cost_sum;
+    tc = tc + (double)(l_dst < -0.1f ? pp[W_RIGHT] : 0.0f);
+    const float dl_t = l_dst - pp[L_TRG];
+    tc = tc + (double)(pp[W_L] * (dl_t * dl_t));
+    tc = tc + (double)(pp[W_LEN] * fabsf(s_dst));
+    cd_out[cand] = fminf(cmin, 1000.0f);
+    tc_out[cand] = tc;
+  }
+}
+}  // namespace poly_lat_parent
+"""
+
 HARNESS = r"""
 #include <thread>
 #include <vector>
@@ -246,6 +1102,7 @@ HARNESS = r"""
 #include "poly_sampling.cu"
 #include "dir_dist_map.cu"
 #include "poly_planner.cu"
+#include "parents.cuh"
 
 // The grid's two-launch design before the one launch (the helpers are the
 // kernel source's): a block of 32 threads a candidate, then one block for
@@ -485,6 +1342,9 @@ namespace poly_sampling_k { alignas(16) unsigned char smem_raw[65536]; }
 namespace poly_sampling_two { alignas(16) unsigned char smem_raw[65536]; }
 namespace dir_dist { alignas(16) unsigned char smem_raw[262144]; }
 namespace poly_planner_k { alignas(16) unsigned char smem_raw[65536]; }
+namespace lon_dp_parent { alignas(16) unsigned char smem_raw[262144]; }
+namespace latlon_am_parent { alignas(16) unsigned char smem_raw[262144]; }
+namespace poly_lat_parent { alignas(16) unsigned char smem_raw[65536]; }
 
 // A grid of gx x gy blocks of `threads` threads (256 unless given): every
 // host thread runs its thread of each block in turn (the blocks share the
@@ -552,15 +1412,55 @@ extern "C" void rehearse_lon_backward(const float* nodes_next, const float* pp,
   }, backward_threads(A, tile));
 }
 
+// the forward / reeval pass on its launcher's one warp; with `prof` (mode
+// 0) the profiling instantiation
 extern "C" void rehearse_lon_forward(const float* nodes, const float* pp,
                                      const float* path, const float* dist_path,
                                      const float* states, float* out, int T,
                                      int S, int V, int A, int P, int n_rows,
                                      int mode) {
   using namespace lon_dp;
+  run_grid(1, 1, [=] {
+    lon_forward_kernel<false>(reinterpret_cast<const float4*>(nodes), pp,
+                              path, dist_path, states, out, nullptr, T, S, V,
+                              A, P, n_rows, mode);
+  }, 2 * WARP);
+}
+
+extern "C" void rehearse_lon_forward_profile(
+    const float* nodes, const float* pp, const float* path,
+    const float* dist_path, const float* states, float* out,
+    unsigned long long* prof, int T, int S, int V, int A, int P) {
+  using namespace lon_dp;
+  run_grid(1, 1, [=] {
+    lon_forward_kernel<true>(reinterpret_cast<const float4*>(nodes), pp, path,
+                             dist_path, states, out, prof, T, S, V, A, P, T,
+                             0);
+  }, 2 * WARP);
+}
+
+// the lon DP's backward slice and forward pass of 2dd76fb (PARENTS)
+extern "C" void rehearse_lon_backward_parent(
+    const float* nodes_next, const float* pp, const float* path,
+    const float* dist_path, float* out, int S, int V, int A, int P,
+    int t_idx, int is_last, int tile, int box_cap) {
+  using namespace lon_dp;
+  run_grid(V, (S + tile - 1) / tile, [=] {
+    lon_dp_parent::lon_backward_kernel(
+        reinterpret_cast<const float4*>(nodes_next), pp, path, dist_path,
+        reinterpret_cast<float4*>(out), S, V, A, P, t_idx, is_last != 0, tile,
+        box_cap);
+  }, backward_threads(A, tile));
+}
+
+extern "C" void rehearse_lon_forward_parent(
+    const float* nodes, const float* pp, const float* path,
+    const float* dist_path, const float* states, float* out, int T, int S,
+    int V, int A, int P, int n_rows, int mode) {
   run_block([=] {
-    lon_forward_kernel(reinterpret_cast<const float4*>(nodes), pp, path,
-                       dist_path, states, out, T, S, V, A, P, n_rows, mode);
+    lon_dp_parent::lon_forward_kernel(reinterpret_cast<const float4*>(nodes),
+                                      pp, path, dist_path, states, out, T, S,
+                                      V, A, P, n_rows, mode);
   });
 }
 
@@ -571,8 +1471,34 @@ extern "C" void rehearse_poly_lat_sweep(
     int n_ref) {
   using namespace poly_lat;
   run_grid(LD * SD, 1, [=] {
-    poly_lat_sweep_kernel(occ, ref_line, ref_step, pp, env, start, inv, cd, tc,
-                          LD, SD, S, TE, SE, LE, n_ref);
+    poly_lat_sweep_kernel<false>(occ, ref_line, ref_step, pp, env, start, inv,
+                                 cd, tc, nullptr, LD, SD, S, TE, SE, LE,
+                                 n_ref);
+  });
+}
+
+extern "C" void rehearse_poly_lat_sweep_profile(
+    const float* occ, const float* ref_line, const float* ref_step,
+    const float* pp, const float* env, const float* start, const double* inv,
+    float* cd, double* tc, unsigned long long* prof, int LD, int SD, int S,
+    int TE, int SE, int LE, int n_ref) {
+  using namespace poly_lat;
+  run_grid(LD * SD, 1, [=] {
+    poly_lat_sweep_kernel<true>(occ, ref_line, ref_step, pp, env, start, inv,
+                                cd, tc, prof, LD, SD, S, TE, SE, LE, n_ref);
+  });
+}
+
+// the sweep of 2dd76fb (PARENTS)
+extern "C" void rehearse_poly_lat_sweep_parent(
+    const float* occ, const float* ref_line, const float* ref_step,
+    const float* pp, const float* env, const float* start, const double* inv,
+    float* cd, double* tc, int LD, int SD, int S, int TE, int SE, int LE,
+    int n_ref) {
+  run_grid(LD * SD, 1, [=] {
+    poly_lat_parent::poly_lat_sweep_kernel(occ, ref_line, ref_step, pp, env,
+                                           start, inv, cd, tc, LD, SD, S, TE,
+                                           SE, LE, n_ref);
   });
 }
 
@@ -800,6 +1726,38 @@ extern "C" void rehearse_backward_slice(
   });
 }
 
+// the action-min and the fused slice of 2dd76fb (PARENTS)
+extern "C" void rehearse_action_min_parent(
+    const float* nodes_next, const float* state_cost,
+    const float* state_constr, const float* d_fwd, const void* const* tables,
+    float* out, int S, int DS, int L, int ts_rows) {
+  using namespace latlon_am;
+  const Tables tb = tables_of(tables);
+  run_grid((S + ts_rows - 1) / ts_rows, DS, [=] {
+    latlon_am_parent::action_min_kernel<FEW_THREADS>(
+        reinterpret_cast<const float4*>(nodes_next), state_cost, state_constr,
+        d_fwd, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg, tb.qdds, tb.qdl,
+        tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
+        reinterpret_cast<float4*>(out), S, DS, L, ts_rows);
+  });
+}
+
+extern "C" void rehearse_backward_slice_parent(
+    const float* nodes_next, const float* dist_t, const float* ref_line,
+    const float* ref_step, const float* slice_consts,
+    const void* const* tables, float* out, int S, int DS, int L, int n_ref,
+    int slice, int ts_rows) {
+  using namespace latlon_am;
+  const Tables tb = tables_of(tables);
+  run_grid((S + ts_rows - 1) / ts_rows, DS, [=] {
+    latlon_am_parent::backward_slice_kernel<FEW_THREADS>(
+        reinterpret_cast<const float4*>(nodes_next), dist_t, ref_line,
+        ref_step, slice_consts, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg, tb.qdds,
+        tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
+        reinterpret_cast<float4*>(out), S, DS, L, n_ref, slice, ts_rows);
+  });
+}
+
 extern "C" void rehearse_mpc(const double* in, double* out, long long* prof,
                              int H, int n_ref, int T, int max_it, int max_lg,
                              int mu_step, int integrator) {
@@ -927,6 +1885,7 @@ def bodies(tmp_path_factory):
         pytest.skip("needs g++ to compile the kernel bodies for the host")
     tmp = tmp_path_factory.mktemp("rehearsal")
     (tmp / "cuda_runtime.h").write_text(STUB)
+    (tmp / "parents.cuh").write_text(PARENTS)
     (tmp / "harness.cpp").write_text(HARNESS)
     so = tmp / "rehearsal.so"
     cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
@@ -969,14 +1928,39 @@ def bodies(tmp_path_factory):
                                           + [ctypes.c_int] * 8)
     lib.lon_dp_backward_smem_bytes.restype = ctypes.c_size_t
     lib.lon_dp_backward_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.rehearse_lon_forward_profile.restype = None
+    lib.rehearse_lon_forward_profile.argtypes = ([ctypes.c_void_p] * 7
+                                                 + [ctypes.c_int] * 5)
+    lib.lon_dp_forward_smem_bytes.restype = ctypes.c_size_t
+    lib.lon_dp_forward_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.lon_dp_backward_threads.restype = ctypes.c_int
     lib.lon_dp_backward_threads.argtypes = [ctypes.c_int] * 2
     lib.rehearse_lon_forward.restype = None
     lib.rehearse_lon_forward.argtypes = ([ctypes.c_void_p] * 6
                                          + [ctypes.c_int] * 7)
+    lib.rehearse_lon_backward_parent.restype = None
+    lib.rehearse_lon_backward_parent.argtypes = ([ctypes.c_void_p] * 5
+                                                 + [ctypes.c_int] * 8)
+    lib.rehearse_lon_forward_parent.restype = None
+    lib.rehearse_lon_forward_parent.argtypes = ([ctypes.c_void_p] * 6
+                                                + [ctypes.c_int] * 7)
+    lib.rehearse_poly_lat_sweep_parent.restype = None
+    lib.rehearse_poly_lat_sweep_parent.argtypes = ([ctypes.c_void_p] * 9
+                                                   + [ctypes.c_int] * 7)
+    lib.rehearse_action_min_parent.restype = None
+    lib.rehearse_action_min_parent.argtypes = ([ctypes.c_void_p] * 6
+                                               + [ctypes.c_int] * 4)
+    lib.rehearse_backward_slice_parent.restype = None
+    lib.rehearse_backward_slice_parent.argtypes = ([ctypes.c_void_p] * 7
+                                                   + [ctypes.c_int] * 6)
     lib.rehearse_poly_lat_sweep.restype = None
     lib.rehearse_poly_lat_sweep.argtypes = ([ctypes.c_void_p] * 9
                                             + [ctypes.c_int] * 7)
+    lib.rehearse_poly_lat_sweep_profile.restype = None
+    lib.rehearse_poly_lat_sweep_profile.argtypes = ([ctypes.c_void_p] * 10
+                                                    + [ctypes.c_int] * 7)
+    lib.poly_lat_sweep_smem_bytes.restype = ctypes.c_size_t
+    lib.poly_lat_sweep_smem_bytes.argtypes = [ctypes.c_int]
     lib.rehearse_poly_lat_select.restype = None
     lib.rehearse_poly_lat_select.argtypes = ([ctypes.c_void_p] * 5
                                              + [ctypes.c_int] * 2)
@@ -1671,6 +2655,75 @@ def test_backward_slice_kernel_body_matches_plain_bit_for_bit(bodies, S, DS,
     assert searched > 0
 
 
+def _am_nan_case(channel):
+    """``action_min_case(37, 5, 3)`` with the next slice's row s = 18 NaN
+    (every channel, or the cost alone)."""
+    args, tables = action_min_case(37, 5, 3, 37)
+    _poison(args[0].numpy()[18], channel)
+    return args, tables
+
+
+def _nan_free_cells(constr_o, cost_o):
+    return ~(torch.isnan(constr_o) | torch.isnan(cost_o)).any(-1).numpy()
+
+
+@pytest.mark.parametrize("channel", ["all", "cost"])
+def test_action_min_body_nan_rule(bodies, channel):
+    """The action-min with a NaN row in the next slice: the plain version's
+    cells bit for bit, NaN equal to NaN (a NaN constraint: action 0 with
+    its own cost and constraint; a NaN cost among the least constraint:
+    the first one); 2dd76fb's body differs there and agrees on every cell
+    whose 49 actions hold no NaN."""
+    args, tables = _am_nan_case(channel)
+    S, DS, L = args[0].shape[:3]
+    ts_rows = bodies.latlon_action_min_tile_rows(L)
+    want, constr_o, cost_o = lam.action_min_reference(*args, tables,
+                                                      return_actions=True)
+    want = want.numpy()
+    outs = {}
+    for name, fn in (("new", bodies.rehearse_action_min),
+                     ("old", bodies.rehearse_action_min_parent)):
+        out = outs[name] = np.full((S, DS, L, 4), -7.0, np.float32)
+        fn(*[_ptr(a.numpy()) for a in args], _table_ptrs(tables), _ptr(out),
+           S, DS, L, ts_rows)
+    np.testing.assert_array_equal(outs["new"], want)
+    keep = _nan_free_cells(constr_o, cost_o)
+    assert keep.any() and not keep.all()
+    np.testing.assert_array_equal(outs["old"][keep], want[keep])
+    assert not np.array_equal(outs["old"], want)
+
+
+@pytest.mark.parametrize("channel", ["all", "cost"])
+def test_backward_slice_body_nan_rule(bodies, channel):
+    """The fused slice on a seeded scene's slice T - 2 with the next
+    slice's row S // 2 NaN: as the action-min above.  (At 37 x 5 x 3 the
+    first action is every touched cell's least, so 61 x 9 x 11.)"""
+    S, DS, L, T = 61, 9, 11, 6
+    solve, dist_x, rl, step, pp = slice_case(S, DS, L, T, S + T)
+    tables = solve.action_tables(pp)
+    ts_rows = bodies.latlon_action_min_tile_rows(L)
+    nxt = solve.final_slice(dist_x, rl, step, pp).clone()
+    _poison(nxt[S // 2].numpy(), channel)
+    i = T - 2
+    want = solve.backward_slice_reference(nxt, i, dist_x, rl, step, pp,
+                                          tables).numpy()
+    ins = solve.slice_inputs(i, dist_x, rl, step, pp)
+    _, constr_o, cost_o = lam.action_min_reference(nxt, *ins, tables,
+                                                   return_actions=True)
+    outs = {}
+    for name, fn in (("new", bodies.rehearse_backward_slice),
+                     ("old", bodies.rehearse_backward_slice_parent)):
+        out = outs[name] = np.full((S, DS, L, 4), -7.0, np.float32)
+        fn(_ptr(nxt.numpy()), _ptr(dist_x[i].numpy()), _ptr(rl.numpy()),
+           _ptr(step.reshape(1).numpy()), _ptr(tables.slice_consts.numpy()),
+           _table_ptrs(tables), _ptr(out), S, DS, L, rl.shape[0], i, ts_rows)
+    np.testing.assert_array_equal(outs["new"], want)
+    keep = _nan_free_cells(constr_o, cost_o)
+    assert keep.any() and not keep.all()
+    np.testing.assert_array_equal(outs["old"][keep], want[keep])
+    assert not np.array_equal(outs["old"], want)
+
+
 # ---------------------------------------------------------------------
 # the poly chain's kernels: the rampify start mode, the lon DP backward
 # slice and forward / reeval pass bit for bit in float32; the lateral sweep
@@ -1711,12 +2764,16 @@ def test_lon_dp_kernel_bodies_match_plain_bit_for_bit(bodies, S, V, A, P, T):
 
     args = (torch.from_numpy(pp), torch.from_numpy(path),
             torch.from_numpy(dist))
-    want = tlk.forward_reference(nodes, *args, torch.from_numpy(x0)).numpy()
-    out = np.full((T, 7), -7.0, np.float32)
-    bodies.rehearse_lon_forward(_ptr(nodes.numpy()), _ptr(pp), _ptr(path),
-                                _ptr(dist), _ptr(x0), _ptr(out), T, S, V, A,
-                                P, T, 0)
-    np.testing.assert_array_equal(out, want)
+    # the scene's start, and a replan's (a previous plan's cost and
+    # constraint at its head, which the last row must not take over)
+    for start in (lon_shifted_start(x0), x0):
+        want = tlk.forward_reference(nodes, *args,
+                                     torch.from_numpy(start)).numpy()
+        out = np.full((T, 7), -7.0, np.float32)
+        bodies.rehearse_lon_forward(_ptr(nodes.numpy()), _ptr(pp),
+                                    _ptr(path), _ptr(dist), _ptr(start),
+                                    _ptr(out), T, S, V, A, P, T, 0)
+        np.testing.assert_array_equal(out, want)
 
     traj = want.copy()
     traj[:, tlk.LC_J] += np.float32(0.1)
@@ -1727,6 +2784,52 @@ def test_lon_dp_kernel_bodies_match_plain_bit_for_bit(bodies, S, V, A, P, T):
                                 _ptr(dist), _ptr(traj), _ptr(out_r), T, S, V,
                                 A, P, len(traj), 1)
     np.testing.assert_array_equal(out_r, want_r)
+
+
+@pytest.mark.parametrize("S,V,A,P,T", [(41, 13, 7, 90, 5), (23, 7, 20, 40, 4)])
+def test_lon_forward_body_matches_2dd76fb(bodies, S, V, A, P, T):
+    """The redesigned forward pass (the path and the distance map staged,
+    the minimum by warp shuffles, the next state on every lane) and its
+    reeval pass against 2dd76fb's body, bit for bit, at A = 7 and 20 (the
+    lattice and FAS loops' widths), with more reeval rows than slices; its
+    profiling instantiation bit-equal, every phase counted; the staging
+    fits a block at the demo grid.  The forward pass also from a
+    replan's start (the previous plan's cost and constraint at its head),
+    against the parent and the plain version."""
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, S + A + 1)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A).numpy()
+    shifted = lon_shifted_start(x0)
+    want = tlk.forward_reference(
+        torch.from_numpy(nodes), torch.from_numpy(pp), torch.from_numpy(path),
+        torch.from_numpy(dist), torch.from_numpy(shifted)).numpy()
+    assert want[-1, tlk.LC_CONSTR] != shifted[tlk.LC_CONSTR]
+    for fn in (bodies.rehearse_lon_forward,
+               bodies.rehearse_lon_forward_parent):
+        np.testing.assert_array_equal(
+            _lon_forward(fn, nodes, pp, path, dist, shifted, 0), want)
+    got = _lon_forward(bodies.rehearse_lon_forward, nodes, pp, path,
+                       dist, x0, 0)
+    old = _lon_forward(bodies.rehearse_lon_forward_parent, nodes, pp,
+                       path, dist, x0, 0)
+    np.testing.assert_array_equal(got, old)
+    traj = got.copy()
+    traj[2:, tlk.LC_J] = pp[tlk.LON_PP_KEYS.index("j_min")]
+    traj = np.concatenate([traj, traj[-3:]])
+    np.testing.assert_array_equal(
+        _lon_forward(bodies.rehearse_lon_forward, nodes, pp, path,
+                     dist, traj, 1),
+        _lon_forward(bodies.rehearse_lon_forward_parent, nodes, pp,
+                     path, dist, traj, 1))
+    prof = np.zeros(len(tlk.FORWARD_PHASES), np.uint64)
+    out = np.full((T, 7), -7.0, np.float32)
+    bodies.rehearse_lon_forward_profile(
+        _ptr(np.ascontiguousarray(nodes)), _ptr(pp), _ptr(path), _ptr(dist),
+        _ptr(x0), _ptr(out), _ptr(prof), T, S, V, A, P)
+    np.testing.assert_array_equal(out, got)
+    assert (prof > 0).all()
+    # the staging the wrapper sizes from the body's formula fits a block at
+    # the demo grid
+    assert bodies.lon_dp_forward_smem_bytes(10, 201, 200) <= tlk.BLOCK_SMEM
 
 
 @pytest.mark.parametrize("grid", scenes.LON_EDGE)
@@ -1776,6 +2879,115 @@ def test_lon_backward_body_edge_grids_bit_for_bit(bodies, grid):
     np.testing.assert_array_equal(out[~short], nodes[T - 2].numpy()[~short])
 
 
+# The NaN rule of the plain versions (``torch.amin`` / ``torch.argmin``, the
+# JAX default): a NaN constraint makes the minimum NaN, so that no action
+# passes the mask (the node's cost inf, its constraint NaN, the first jerk),
+# and among the actions of the least constraint the first NaN cost wins.
+# 2dd76fb's bodies (PARENTS) dropped a NaN in both; every node whose result
+# holds no NaN is theirs bit for bit.
+
+def _lon_slice(fn, nxt, pp, path, dist, i, last, plan=None):
+    S, V, A, _ = nxt.shape
+    P = path.shape[0]
+    tile, cap = plan or tlk.backward_plan(pp, S, V, A, P)
+    out = np.full((S, V, A, 4), -7.0, np.float32)
+    fn(_ptr(np.ascontiguousarray(nxt)), _ptr(pp), _ptr(path), _ptr(dist),
+       _ptr(out), S, V, A, P, i, int(last), tile, cap)
+    return out
+
+
+def _lon_forward(fn, nodes, pp, path, dist, states, mode):
+    T, S, V, A, _ = nodes.shape
+    rows = T if mode == 0 else len(states)
+    out = np.full((rows, 7), -7.0, np.float32)
+    fn(_ptr(np.ascontiguousarray(nodes)), _ptr(pp), _ptr(path), _ptr(dist),
+       _ptr(states), _ptr(out), T, S, V, A, path.shape[0], rows, mode)
+    return out
+
+
+def _poison(a, channel):
+    """NaN into ``a[..., :]`` (``channel`` "all": every channel) or its
+    cost channel alone (``channel`` "cost")."""
+    if channel == "all":
+        a[...] = np.nan
+    else:
+        a[..., 0] = np.nan
+
+
+@pytest.mark.parametrize("channel", ["all", "cost"])
+def test_lon_backward_body_nan_rule(bodies, channel):
+    """Slice T - 2 of ``lon_scene(41, 13, 5, 90, 5)`` with the next slice's
+    row S // 2 NaN (every channel, or the cost alone): the plain version's
+    nodes bit for bit, NaN equal to NaN; the NaN reaches the slice after
+    it; 2dd76fb's body differs there and agrees on every node without a
+    NaN."""
+    T, S, V, A, P = 5, 41, 13, 5, 90
+    pp, path, dist, _ = lon_scene(S, V, A, P, T, S + A)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    nxt = nodes[T - 1].numpy().copy()
+    _poison(nxt[S // 2], channel)
+    args = tuple(torch.from_numpy(x) for x in (pp, path, dist))
+    want = tlk.backward_slice_reference(torch.from_numpy(nxt), *args, T - 2,
+                                        False).numpy()
+    got = _lon_slice(bodies.rehearse_lon_backward, nxt, pp, path,
+                     dist, T - 2, False)
+    np.testing.assert_array_equal(got, want)
+    hit = np.isnan(want).any(axis=-1)
+    assert hit.any() and not hit.all()
+    if channel == "all":
+        assert np.isinf(want[..., 0][hit]).all()
+        assert np.isnan(want[..., 1][hit]).all()
+        assert (want[..., 2][hit] == pp[tlk.LON_PP_KEYS.index("j_min")]).all()
+    else:
+        assert np.isnan(want[..., 0][hit]).all()
+        assert not np.isnan(want[..., 1]).any()
+    old = _lon_slice(bodies.rehearse_lon_backward_parent, nxt, pp,
+                     path, dist, T - 2, False)
+    np.testing.assert_array_equal(old[~hit], want[~hit])
+    assert not np.array_equal(old, want)
+    # the slice after it takes the NaN nodes as the plain version does
+    want2 = tlk.backward_slice_reference(torch.from_numpy(want), *args,
+                                         T - 3, False).numpy()
+    got2 = _lon_slice(bodies.rehearse_lon_backward, want, pp, path,
+                      dist, T - 3, False)
+    np.testing.assert_array_equal(got2, want2)
+    assert np.isnan(want2).any()
+
+
+@pytest.mark.parametrize("channel", ["all", "cost"])
+def test_lon_forward_body_nan_rule(bodies, channel):
+    """The forward pass over nodes whose slice 2 holds NaN at a index 1,
+    which some of step 1's jerks look up (every channel, or the cost
+    alone), and the reeval pass of the clean trajectory over them: the
+    plain versions bit for bit, NaN equal to NaN; 2dd76fb's forward body
+    takes another jerk at the NaN step and agrees on the row before it.
+    (Its reeval pass, one action a row, already followed the rule.)"""
+    T, S, V, A, P = 5, 41, 13, 5, 90
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, S + A)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A).numpy().copy()
+    args = tuple(torch.from_numpy(x) for x in (pp, path, dist))
+    clean = tlk.forward_reference(torch.from_numpy(nodes), *args,
+                                  torch.from_numpy(x0)).numpy()
+    _poison(nodes[2, :, :, 1], channel)
+    n_t = torch.from_numpy(nodes)
+    want = tlk.forward_reference(n_t, *args, torch.from_numpy(x0)).numpy()
+    got = _lon_forward(bodies.rehearse_lon_forward, nodes, pp, path,
+                       dist, x0, 0)
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(want[1]).any() and not np.isnan(want[0]).any()
+    old = _lon_forward(bodies.rehearse_lon_forward_parent, nodes, pp,
+                       path, dist, x0, 0)
+    np.testing.assert_array_equal(old[:1], want[:1])
+    assert not np.array_equal(old[1], want[1])
+
+    traj = np.concatenate([clean, clean[-2:]])
+    want_r = tlk.reeval_reference(n_t, *args, torch.from_numpy(traj)).numpy()
+    got_r = _lon_forward(bodies.rehearse_lon_forward, nodes, pp,
+                         path, dist, traj, 1)
+    np.testing.assert_array_equal(got_r, want_r)
+    assert np.isnan(want_r).any()
+
+
 @pytest.mark.parametrize("LD,SD,S", [(21, 13, 61), (1, 20, 41), (6, 4, 201)])
 def test_poly_lat_sweep_body_matches_plain(bodies, LD, SD, S):
     occ, rl, step, pp, env, start = poly_lat_scene(LD, SD, S, LD + SD + S)
@@ -1793,6 +3005,71 @@ def test_poly_lat_sweep_body_matches_plain(bodies, LD, SD, S):
     np.testing.assert_allclose(tc, want_tc.numpy(), rtol=1e-12, atol=0)
     # the scene's obstacles and limits reach the outputs
     assert (cd < 1000.0).any() and (tc >= 1e6).any() or LD == 1
+
+
+def _sweep(fn, scene, LD, SD, S, prof=None):
+    occ, rl, step, pp, env, start = scene
+    cd = np.full((LD, SD), -7.0, np.float32)
+    tc = np.full((LD, SD), -7.0, np.float64)
+    inv = np.ascontiguousarray(splines._HERMITE_INV[5])
+    step_a = np.array([step], np.float32)
+    extra = () if prof is None else (_ptr(prof),)
+    fn(_ptr(occ), _ptr(rl), _ptr(step_a), _ptr(pp), _ptr(env), _ptr(start),
+       _ptr(inv), _ptr(cd), _ptr(tc), *extra, LD, SD, S, *occ.shape, len(rl))
+    return cd, tc
+
+
+@pytest.mark.parametrize("LD,SD,S", [(21, 13, 61), (1, 20, 41), (6, 4, 201)])
+def test_poly_lat_sweep_body_matches_2dd76fb(bodies, LD, SD, S):
+    """The redesigned sweep (coefficients once a block, the cost sum and the
+    least station as warp reductions, the time sum in order on one thread)
+    against 2dd76fb's body: the collision distance bit for bit, the cost to
+    rtol 1e-12 (its sum in another order)."""
+    scene = poly_lat_scene(LD, SD, S, LD + SD + S)
+    cd, tc = _sweep(bodies.rehearse_poly_lat_sweep, scene, LD, SD, S)
+    cd0, tc0 = _sweep(bodies.rehearse_poly_lat_sweep_parent, scene,
+                      LD, SD, S)
+    np.testing.assert_array_equal(cd, cd0)
+    np.testing.assert_allclose(tc, tc0, rtol=1e-12, atol=0)
+
+
+def test_poly_lat_sweep_profiling_body_is_bit_equal(bodies):
+    """The profiling instantiation: every result the plain instantiation's,
+    every phase counted; a block's shared memory at the most samples the
+    launcher takes inside the 48 KB a block has without opting in."""
+    LD, SD, S = 6, 4, 201
+    scene = poly_lat_scene(LD, SD, S, 5)
+    want = _sweep(bodies.rehearse_poly_lat_sweep, scene, LD, SD, S)
+    prof = np.zeros(len(plk.SWEEP_PHASES), np.uint64)
+    got = _sweep(bodies.rehearse_poly_lat_sweep_profile, scene, LD,
+                 SD, S, prof)
+    for x, y in zip(got, want):
+        np.testing.assert_array_equal(x, y)
+    assert (prof > 0).all()
+    assert bodies.poly_lat_sweep_smem_bytes(900) <= 48 * 1024
+
+
+def test_poly_lat_sweep_body_nan_occupancy(bodies):
+    """A NaN occupancy cell beside each obstacle cell: a sample whose
+    lookups meet both is no collision (torch.maximum keeps the NaN, and NaN
+    > 0 is false), where 2dd76fb's body dropped the NaN and took the
+    obstacle: the plain version bit for bit."""
+    LD, SD, S = 6, 4, 61
+    scene = list(poly_lat_scene(LD, SD, S, LD + SD + S))
+    occ = scene[0].copy()
+    occ[np.roll(occ > 0, 1, axis=2) & (occ == 0)] = np.nan
+    scene[0] = occ
+    cd, tc = _sweep(bodies.rehearse_poly_lat_sweep, scene, LD, SD, S)
+    T = torch.from_numpy
+    want_cd, want_tc = plk.evaluate_reference(
+        *(T(np.asarray(x)) for x in scene[:2]),
+        T(np.array([scene[2]], np.float32)),
+        *(T(x) for x in scene[3:]), LD, SD, S)
+    np.testing.assert_array_equal(cd, want_cd.numpy())
+    np.testing.assert_allclose(tc, want_tc.numpy(), rtol=1e-12, atol=0)
+    cd0, _ = _sweep(bodies.rehearse_poly_lat_sweep_parent, scene, LD,
+                    SD, S)
+    assert not np.array_equal(cd0, cd)
 
 
 def test_poly_lat_select_body_matches_plain(bodies):

@@ -105,8 +105,14 @@ struct Best {
 
 // The lexicographic (constraint, cost) minimum over the 7 x 7 actions of one
 // cell, dl outer and dds inner (the XLA flattening order of the argmin),
-// first minimum winning.  my_rows: the staged rows of the cell's s, entry
-// (j, lt) at my_rows[j * tile + lt]; dfwd: the cell's 7 forward distances.
+// first minimum winning, as the plain version and the XLA backward take it:
+// the least constraint by jnp.min (a NaN makes it NaN), then jnp.argmin of
+// the costs whose constraint equals it, the rest inf (the first NaN wins),
+// and the winner's own cost and constraint.  So where a constraint is NaN,
+// or every action of the least constraint costs inf, no cost beats the
+// masked inf of action 0, and action 0 wins with its own cost and
+// constraint.  my_rows: the staged rows of the cell's s, entry (j, lt) at
+// my_rows[j * tile + lt]; dfwd: the cell's 7 forward distances.
 __device__ __forceinline__ Best best_action(
     const float4* my_rows, const float* s_ca, const Tables& tb,
     const float (&dfwd)[NB], int ds, int l, int L, int tile) {
@@ -123,39 +129,50 @@ __device__ __forceinline__ Best best_action(
     q_dds[j] = tb.qdds[j];
   }
 
-  Best b = {0.f, 0.f, 0.f, 0.f};
-  bool first = true;
-#pragma unroll
-  for (int m = 0; m < NB; ++m) {
+  // action (m, j): its cost and constraint, the plain version's terms in
+  // their order
+  auto action = [&](int m, int j, float& cost, float& constr) {
     const int lt = clampi(l + tb.kl[m], 0, L - 1);
     const float d_safety = (dfwd[m] - gap_min) - ds_gap;
-    const float qdl_m = tb.qdl[m];
-    const float dl_v = tb.dl_vals[m];
+    const float4 nn = my_rows[j * tile + lt];
+
+    const float occ = fmaxf(0.f, sc[j] - dfwd[m]);
+    constr = (s_ca[j * NB + m] + occ) + nn.y;
+
+    cost = w_safety * fmaxf(0.f, sc[j] - d_safety);
+    cost = cost + q_dds[j];
+    const float e_dds = nn.z - dds_v[j];
+    cost = cost + w_ddds * (e_dds * e_dds);
+    cost = cost + tb.qdl[m];
+    const float e_dl = nn.w - tb.dl_vals[m];
+    cost = cost + w_ddl * (e_dl * e_dl);
+    cost = cost + nn.x;
+  };
+
+  Best b = {0.f, 0.f, 0.f, 0.f};
+  bool first = true, nan_c = false;
+#pragma unroll
+  for (int m = 0; m < NB; ++m) {
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
-      const float4 nn = my_rows[j * tile + lt];
-
-      const float occ = fmaxf(0.f, sc[j] - dfwd[m]);
-      const float constr = (s_ca[j * NB + m] + occ) + nn.y;
-
-      float cost = w_safety * fmaxf(0.f, sc[j] - d_safety);
-      cost = cost + q_dds[j];
-      const float e_dds = nn.z - dds_v[j];
-      cost = cost + w_ddds * (e_dds * e_dds);
-      cost = cost + qdl_m;
-      const float e_dl = nn.w - dl_v;
-      cost = cost + w_ddl * (e_dl * e_dl);
-      cost = cost + nn.x;
-
+      float cost, constr;
+      action(m, j, cost, constr);
+      nan_c = nan_c || constr != constr;
       if (first || constr < b.constr ||
-          (constr == b.constr && cost < b.cost)) {
+          (constr == b.constr &&
+           (cost < b.cost || (cost != cost && b.cost == b.cost)))) {
         b.constr = constr;
         b.cost = cost;
         b.dds = dds_v[j];
-        b.dl = dl_v;
+        b.dl = tb.dl_vals[m];
         first = false;
       }
     }
+  }
+  if (nan_c || b.cost == INFINITY) {
+    action(0, 0, b.cost, b.constr);
+    b.dds = dds_v[0];
+    b.dl = tb.dl_vals[0];
   }
   return b;
 }

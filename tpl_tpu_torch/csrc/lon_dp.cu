@@ -48,12 +48,27 @@
 // s row's box does not fit a block.  A block whose box exceeds the room it
 // was given writes NaN (a guard, never taken with the host's plan).
 
-// lon_dp_forward: one block of one warp.  Mode 0 is the forward pass: T
-// dependent steps, the NF = 21 jerks of a step on the lanes (each lane its
-// state terms, lookup, cost and constraint), lane 0 the lexicographic
-// minimum in jerk order and the next state.  Mode 1 is the reeval pass:
-// every row of a stored trajectory with its own jerk, rows on the lanes.
-// Bound by the T-step dependency: a few microseconds.
+// lon_dp_forward: one block of two warps.  Mode 0 is the forward pass: T
+// dependent steps, the NF = 21 jerks of a step on the lanes of each warp.
+// The path's s and v_max columns and the distance map (9.6 KB at the demo
+// grid) are staged in shared memory once, while step 0's lookups load, so
+// that a step's one round trip to device memory is its trilinear value
+// lookup (8 corners), on warp 0.  Warp 1 forms, for each jerk, v_max at its
+// next s and the state the row leads to if it wins, with that state's path
+// terms; warp 0 takes the lexicographic minimum (two warp reductions and a
+// ballot, warp_pick), and both read the winner's state and terms for the
+// next step from shared memory.  Lane 0 writes the row.  Mode 1 is the
+// reeval pass: every row of a stored trajectory with its own jerk, rows on
+// the threads.  Bound by the T-step dependency.
+//
+// Both keep the plain version's lexicographic minimum (_lex_min, which is
+// jnp.min / jnp.argmin in the JAX program), NaN included: a NaN constraint
+// makes the least constraint NaN, which no action's mask passes, so the node
+// gets cost inf, constraint NaN and the first jerk; among the actions of the
+// least constraint the first NaN cost wins; where every such action costs
+// inf the first jerk does.  So the NaN a backward block writes when its box
+// overflows its room (the guard above) reaches the next slice, and the
+// forward pass, as a NaN constraint, not dropped.
 //
 // Every operation and its order follow the plain versions
 // (tpl_tpu_torch/planning/dyn_prog/lon_kernel.py backward_slice_reference,
@@ -67,6 +82,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <string.h>
 
 #include "smem_limit.cuh"
 
@@ -464,15 +480,21 @@ lon_backward_kernel(const float4* __restrict__ nodes_next,
                    interp_staged(vmax, n.sn, pss, P), c.al, &cost[jb],
                    &constr[jb]);
     }
+    // the plain version's lexicographic minimum (the rule above)
     float cmin = constr[0];
+    bool nan_c = constr[0] != constr[0];
 #pragma unroll
-    for (int jb = 1; jb < NB; ++jb) cmin = fminf(cmin, constr[jb]);
+    for (int jb = 1; jb < NB; ++jb) {
+      cmin = fminf(cmin, constr[jb]);
+      nan_c = nan_c || constr[jb] != constr[jb];
+    }
+    if (nan_c) cmin = NAN;
     float best = INFINITY;
     int jbest = 0;
 #pragma unroll
     for (int jb = 0; jb < NB; ++jb) {
       const float cj = constr[jb] <= cmin ? cost[jb] : INFINITY;
-      if (cj < best) {
+      if (cj < best || (cj != cj && best == best)) {
         best = cj;
         jbest = jb;
       }
@@ -492,11 +514,16 @@ lon_backward_kernel(const float4* __restrict__ nodes_next,
 // ---------------------------------------------------------------------
 // forward pass / reeval
 
-// the 8-corner value lookup of the forward pass (trilerp), channels 0..2
-__device__ __forceinline__ void trilerp(const float4* __restrict__ nodes,
-                                        const float* pp, int S, int V, int A,
-                                        float s, float v, float a,
-                                        float (&res)[3]) {
+// the 8 corners of the forward pass's value lookup (trilerp) and their
+// fractions; the loads are issued here and waited for at blend()
+struct Corners {
+  float4 n[8];      // (x, y, z) = 000, 100, 010, 110, 001, 101, 011, 111
+  float ax, ay, az;
+};
+
+__device__ __forceinline__ Corners corners(const float4* __restrict__ nodes,
+                                           const float* pp, int S, int V,
+                                           int A, float s, float v, float a) {
   int i0[3], i1[3];
   float fr[3];
   const float q[3] = {s, v, a};
@@ -512,24 +539,30 @@ __device__ __forceinline__ void trilerp(const float4* __restrict__ nodes,
     i1[d] = mini(i0[d] + 1, n[d] - 1);
     fr[d] = c - c0;
   }
-  auto at = [&](int x, int y, int z) {
-    return load4(nodes + (x * V + y) * A + z);
-  };
-  const float ax = fr[0], ay = fr[1], az = fr[2];
-  const float4 n000 = at(i0[0], i0[1], i0[2]), n100 = at(i1[0], i0[1], i0[2]);
-  const float4 n010 = at(i0[0], i1[1], i0[2]), n110 = at(i1[0], i1[1], i0[2]);
-  const float4 n001 = at(i0[0], i0[1], i1[2]), n101 = at(i1[0], i0[1], i1[2]);
-  const float4 n011 = at(i0[0], i1[1], i1[2]), n111 = at(i1[0], i1[1], i1[2]);
-  const float v000[3] = {n000.x, n000.y, n000.z}, v100[3] = {n100.x, n100.y, n100.z};
-  const float v010[3] = {n010.x, n010.y, n010.z}, v110[3] = {n110.x, n110.y, n110.z};
-  const float v001[3] = {n001.x, n001.y, n001.z}, v101[3] = {n101.x, n101.y, n101.z};
-  const float v011[3] = {n011.x, n011.y, n011.z}, v111[3] = {n111.x, n111.y, n111.z};
+  Corners k;
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    k.n[e] = load4(nodes + ((e & 1 ? i1[0] : i0[0]) * V
+                            + (e & 2 ? i1[1] : i0[1])) * A
+                   + (e & 4 ? i1[2] : i0[2]));
+  k.ax = fr[0];
+  k.ay = fr[1];
+  k.az = fr[2];
+  return k;
+}
+
+// the trilinear blend of channels 0..2, in the plain version's order
+__device__ __forceinline__ void blend(const Corners& k, float (&res)[3]) {
+  const float ax = k.ax, ay = k.ay, az = k.az;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const float c00 = v000[c] * (1.0f - ax) + v100[c] * ax;
-    const float c10 = v010[c] * (1.0f - ax) + v110[c] * ax;
-    const float c01 = v001[c] * (1.0f - ax) + v101[c] * ax;
-    const float c11 = v011[c] * (1.0f - ax) + v111[c] * ax;
+    auto ch = [&](int e) {
+      return c == 0 ? k.n[e].x : (c == 1 ? k.n[e].y : k.n[e].z);
+    };
+    const float c00 = ch(0) * (1.0f - ax) + ch(1) * ax;
+    const float c10 = ch(2) * (1.0f - ax) + ch(3) * ax;
+    const float c01 = ch(4) * (1.0f - ax) + ch(5) * ax;
+    const float c11 = ch(6) * (1.0f - ax) + ch(7) * ax;
     const float c0 = c00 * (1.0f - ay) + c10 * ay;
     const float c1 = c01 * (1.0f - ay) + c11 * ay;
     res[c] = c0 * (1.0f - az) + c1 * az;
@@ -543,33 +576,57 @@ __device__ __forceinline__ int t_index(float t, const float* pp, int T) {
   return clampi((int)ti, 0, T - 1);
 }
 
-struct Scored {
-  StateTerms st;
-  float cost, constr;
+// What the forward pass looks up besides the nodes, staged in shared memory
+// once: the path's s and v_max columns and every row of the distance map
+// (the state's time picks the row, clamped to 0 .. T - 1).  Lookups there
+// are interp_col / s_dist_at over the staged values, the same operations.
+struct Staged {
+  const float* s_col;     // (P,)
+  const float* vmax_col;  // (P,)
+  const float* dmap;      // (T, S)
 };
 
-// one action (jerk j) of the state tp with the next slice `nodes_next`
-__device__ __forceinline__ Scored score(const float* tp, float j,
-                                        const float4* __restrict__ nodes_next,
-                                        int t_idx,
-                                        const float* __restrict__ dist_path,
-                                        const float* __restrict__ path,
-                                        const float* pp, float dt, int S,
-                                        int V, int A, int P) {
-  const float s = tp[LC_S], v = tp[LC_V], a = tp[LC_A];
+// the helper warp's candidates of a step (two steps' worth, by parity):
+// each jerk's next state, its distance slack and state terms (N_CAND rows of
+// NF), v_max at each jerk's next s, and the winner's index
+enum { C_S, C_V, C_A, C_SDIST, C_COST, C_CONSTR, N_CAND };
+
+__host__ __device__ inline size_t forward_smem_bytes(int T, int S, int P) {
+  return sizeof(float) * (2 * (size_t)P + (size_t)T * S
+                          + 2 * N_CAND * NF + NF)
+         + sizeof(int) * 4;
+}
+
+// named barriers of the forward block's two warps (on the host, where the
+// block's threads run on a barrier of their own, the block's barrier)
+__device__ __forceinline__ void pair_sync(int id) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(2 * WARP) : "memory");
+#else
+  __syncthreads();
+#endif
+}
+
+__device__ __forceinline__ void pair_arrive(int id) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(2 * WARP) : "memory");
+#else
+  __syncthreads();
+#endif
+}
+
+// a state's path terms: v_max at s and the distance slack at the s index of
+// the path's station
+__device__ __forceinline__ void path_terms(const Staged& sg, const float* pp,
+                                           int t_idx, float s, int S, int P,
+                                           float* v_max, float* s_dist) {
   const float pss = pp[PATH_STEP_SIZE];
-  const float v_max = interp_col(path, PC_VMAX, s, pss, P);
-  const float s_dist = s_dist_at(dist_path, pp, t_idx,
-                                 interp_col(path, PC_S, s, pss, P), S);
-  Scored r;
-  r.st = state_terms(pp, s, v, a, s_dist, v_max);
-  const Next n = next_state(s, v, a, j, dt);
-  float nn[3];
-  trilerp(nodes_next, pp, S, V, A, n.sn, n.vn, n.an, nn);
-  action_terms(pp, r.st, nn, j, dt, n, s_dist,
-               interp_col(path, PC_VMAX, n.sn, pss, P), a_limits(pp, n.an),
-               &r.cost, &r.constr);
-  return r;
+  *v_max = interp_staged(sg.vmax_col, s, pss, P);
+  const float s_path = interp_staged(sg.s_col, s, pss, P);
+  const float si = clampf(rintf((s_path - pp[S_MIN]) / (pp[S_MAX] - pp[S_MIN])
+                                * (float)(S - 1)),
+                          0.0f, (float)(S - 1));
+  *s_dist = sg.dmap[t_idx * S + (int)si] - pp[LENGTH_VEH] * 0.6f;
 }
 
 // the evaluated row: jerk, cost and constraint set unless tp is at the last
@@ -579,98 +636,267 @@ __device__ __forceinline__ void finish_row(const float* tp, const float* pp,
                                            float cost_best, float cmin,
                                            float j_best, float* out) {
   const bool is_last = rintf(tp[LC_T] / pp[DT]) == (float)(T - 1);
+#pragma unroll
   for (int c = 0; c < N_LC; ++c) out[c] = tp[c];
   out[LC_J] = is_last ? tp[LC_J] : j_best;
   out[LC_COST] = is_last ? state_cost : cost_best;
   out[LC_CONSTR] = is_last ? tp[LC_CONSTR] : cmin;
 }
 
-__global__ void __launch_bounds__(WARP)
+// a float's place in the total order of its values, a zero of either sign
+// as +0 (so that the two compare equal, as they do in the plain version's
+// comparisons)
+__device__ __forceinline__ unsigned order_key(float x) {
+  x = x == 0.0f ? 0.0f : x;
+#ifdef __CUDA_ARCH__
+  const unsigned b = __float_as_uint(x);
+#else
+  unsigned b;
+  memcpy(&b, &x, sizeof(b));
+#endif
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// The lexicographic minimum of the lanes' (constraint c, cost k), the lanes
+// that hold an action `valid` (lane = the action's index), on every lane:
+// the plain version's rule (see the header).  Two warp reductions over
+// order keys (the least constraint, then the least cost among the lanes of
+// that constraint, a NaN cost first) and a ballot of the first lane that
+// holds it.  Returns the winner's lane in `k`, and in `tier` a lane of the
+// least constraint (the winner unless a rule of the header picks jerk 0).
+struct Pick {
+  bool nan_c, all_inf;
+  int k, tier;
+};
+
+__device__ __forceinline__ Pick warp_pick(float c, float k, bool valid) {
+  const unsigned FULL = 0xffffffffu;
+  Pick p;
+  p.nan_c = __ballot_sync(FULL, valid && c != c) != 0u;
+  const unsigned ck = valid && c == c ? order_key(c) : 0xffffffffu;
+  const unsigned cmin = __reduce_min_sync(FULL, ck);
+  const bool tier = valid && ck == cmin;
+  const unsigned kk = !tier ? 0xffffffffu : (k != k ? 0u : order_key(k) + 1u);
+  const unsigned kmin = __reduce_min_sync(FULL, kk);
+  p.tier = __ffs(__ballot_sync(FULL, tier && kk == kmin)) - 1;
+  p.all_inf = kmin == order_key(INFINITY) + 1u;
+  p.k = p.nan_c || p.all_inf ? 0 : p.tier;
+  return p;
+}
+
+// the phases of the profiling instantiation, in the order lon_kernel.py
+// FORWARD_PHASES names them: lane 0's clock64() cycles, summed over the
+// steps (the staging once)
+enum FwdPhase { F_STAGE, F_LOOKUP, F_TERMS, F_PICK, F_NEXT, N_FWD_PHASE };
+
+template <bool PROF>
+struct LaneClock {
+  long long last = 0;
+  long long acc[N_FWD_PHASE] = {};
+
+  __device__ __forceinline__ void start() {
+    if constexpr (PROF) last = clock64();
+  }
+  __device__ __forceinline__ void stamp(int phase) {
+    if constexpr (PROF) {
+      const long long now = clock64();
+      acc[phase] += now - last;
+      last = now;
+    }
+  }
+  __device__ __forceinline__ void flush(unsigned long long* prof) {
+    if constexpr (PROF) {
+      if (threadIdx.x == 0)
+        for (int i = 0; i < N_FWD_PHASE; ++i)
+          prof[i] += (unsigned long long)acc[i];
+    }
+  }
+};
+
+// a state's terms that do not depend on the action: the path's v_max at s,
+// the distance slack and the state cost and constraint
+struct Here {
+  float s_dist;
+  StateTerms st;
+};
+
+__device__ __forceinline__ Here here(const Staged& sg, const float* pp,
+                                     int t_idx, float s, float v, float a,
+                                     int S, int P) {
+  Here h;
+  float v_max;
+  path_terms(sg, pp, t_idx, s, S, P, &v_max, &h.s_dist);
+  h.st = state_terms(pp, s, v, a, h.s_dist, v_max);
+  return h;
+}
+
+// Two warps.  Mode 0, the forward pass: T dependent steps, the NF = 21
+// jerks on lanes 0..20 of each warp.  Both hold the state and its terms.
+// Warp 0 forms its jerk's next state and issues the step's one round trip
+// to device memory, the trilerp's 8 corners, blends them, forms the cost
+// and constraint and takes the lexicographic minimum (warp_pick); lane 0
+// writes the row.  Meanwhile warp 1 forms, for its jerk, v_max at the next
+// s (which warp 0's constraint needs) and the state the row would lead to
+// if that jerk won (the plain version's next-state formula) with that
+// state's terms, into shared memory, so that after the minimum the next
+// step's state and terms are the winner's, read there.  Mode 1, the reeval
+// pass: every row of `states` with its own jerk, rows on the 64 threads.
+// The path's columns and the distance map are staged in shared memory
+// first; the copies run while step 0's corners load.
+template <bool PROF>
+__global__ void __launch_bounds__(2 * WARP)
 lon_forward_kernel(const float4* __restrict__ nodes,
                    const float* __restrict__ pp_in,
                    const float* __restrict__ path,
                    const float* __restrict__ dist_path,
                    const float* __restrict__ states, float* __restrict__ out,
-                   int T, int S, int V, int A, int P, int n_rows, int mode) {
-  // shared: the parameters, the state, each action's cost and constraint
+                   unsigned long long* __restrict__ prof, int T, int S, int V,
+                   int A, int P, int n_rows, int mode) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* pp = reinterpret_cast<float*>(smem_raw);
-  float* tp = pp + N_PP;
-  float* a_cost = tp + N_LC;
-  float* a_constr = a_cost + NF;
-  float* a_state_cost = a_constr + NF;
-  const int lane = threadIdx.x;
-  if (lane >= WARP) return;
-  for (int k = lane; k < N_PP; k += WARP) pp[k] = pp_in[k];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const Staged sg = {smem, smem + P, smem + 2 * P};
+  float* cand = smem + 2 * P + T * S;         // (2, N_CAND, NF)
+  float* vmax_n = cand + 2 * N_CAND * NF;     // (NF,)
+  int* win = reinterpret_cast<int*>(vmax_n + NF);
+  const int tid = threadIdx.x;
+  const int lane = tid & (WARP - 1), warp = tid / WARP;
+  LaneClock<PROF> clk;
+  clk.start();
+  float pp[N_PP];
+#pragma unroll
+  for (int k = 0; k < N_PP; ++k) pp[k] = pp_in[k];
+  for (int q = tid; q < P; q += 2 * WARP) {
+    copy4_async(smem + q, path + q * N_PC + PC_S);
+    copy4_async(smem + P + q, path + q * N_PC + PC_VMAX);
+  }
+  for (int q = tid; q < T * S; q += 2 * WARP) copy4_async(smem + 2 * P + q,
+                                                          dist_path + q);
   const size_t slice = (size_t)S * V * A;
-  __syncwarp();
+  const float pss = pp[PATH_STEP_SIZE];
 
   if (mode == 1) {
-    // reeval: every row with its own jerk, rows on the lanes
-    for (int r = lane; r < n_rows; r += WARP) {
+    copies_wait();
+    __syncthreads();
+    // reeval: every row with its own jerk, rows on the threads
+    for (int r = tid; r < n_rows; r += 2 * WARP) {
       float row[N_LC];
+#pragma unroll
       for (int c = 0; c < N_LC; ++c) row[c] = states[r * N_LC + c];
       const float dt_i = r == 0 ? pp[DT_START] : pp[DT];
-      const int t_idx = t_index(row[LC_T], pp, T);
-      const Scored sc = score(row, row[LC_J], nodes + mini(r + 1, T - 1) * slice,
-                              t_idx, dist_path, path, pp, dt_i, S, V, A, P);
+      const float s = row[LC_S], v = row[LC_V], a = row[LC_A];
+      const float j = row[LC_J];
+      const Here h = here(sg, pp, t_index(row[LC_T], pp, T), s, v, a, S, P);
+      const Next n = next_state(s, v, a, j, dt_i);
+      float nn[3];
+      blend(corners(nodes + mini(r + 1, T - 1) * slice, pp, S, V, A, n.sn,
+                    n.vn, n.an), nn);
+      float cost, constr;
+      action_terms(pp, h.st, nn, j, dt_i, n, h.s_dist,
+                   interp_staged(sg.vmax_col, n.sn, pss, P),
+                   a_limits(pp, n.an), &cost, &constr);
       // one action: cmin is its constraint, the cost survives unless NaN
-      const float cost = sc.constr <= sc.constr ? sc.cost : INFINITY;
-      finish_row(row, pp, T, sc.st.cost, cost, sc.constr, row[LC_J],
-                 out + r * N_LC);
+      cost = constr <= constr ? cost : INFINITY;
+      float o[N_LC];
+      finish_row(row, pp, T, h.st.cost, cost, constr, j, o);
+#pragma unroll
+      for (int c = 0; c < N_LC; ++c) out[r * N_LC + c] = o[c];
     }
     return;
   }
 
-  if (lane < N_LC) tp[lane] = states[lane];
-  __syncwarp();
+  const unsigned FULL = 0xffffffffu;
+  float tp[N_LC];
+#pragma unroll
+  for (int c = 0; c < N_LC; ++c) tp[c] = states[c];
+  const bool valid = lane < NF;
+  const int jl = valid ? lane : 0;
+  const float j = axis_point(pp[J_MIN], pp[J_MAX], jl, NF - 1);
+  Here h;     // the state's terms (step 0's once the staging is in)
+  clk.stamp(F_STAGE);
   for (int i = 0; i < T; ++i) {
     const float dt_i = i == 0 ? pp[DT_START] : pp[DT];
-    const int t_idx = t_index(tp[LC_T], pp, T);
-    const float4* nodes_next = nodes + mini(i + 1, T - 1) * slice;
-    for (int k = lane; k < NF; k += WARP) {
-      const float j = axis_point(pp[J_MIN], pp[J_MAX], k, NF - 1);
-      const Scored sc = score(tp, j, nodes_next, t_idx, dist_path, path, pp,
-                              dt_i, S, V, A, P);
-      a_cost[k] = sc.cost;
-      a_constr[k] = sc.constr;
-      if (k == 0) *a_state_cost = sc.st.cost;
-    }
-    __syncwarp();
-    if (lane == 0) {
-      float cmin = a_constr[0];
-      for (int k = 1; k < NF; ++k) cmin = fminf(cmin, a_constr[k]);
-      float best = INFINITY;
-      int kbest = 0;
-      for (int k = 0; k < NF; ++k) {
-        const float c = a_constr[k] <= cmin ? a_cost[k] : INFINITY;
-        if (c < best) {
-          best = c;
-          kbest = k;
-        }
+    const float s = tp[LC_S], v = tp[LC_V], a = tp[LC_A];
+    const Next n = next_state(s, v, a, j, dt_i);
+    const bool is_last = rintf(tp[LC_T] / pp[DT]) == (float)(T - 1);
+    float* cb = cand + (i & 1) * N_CAND * NF;
+    if (warp == 1) {
+      if (i == 0) {
+        copies_wait();
+        __syncthreads();
+        h = here(sg, pp, t_index(tp[LC_T], pp, T), s, v, a, S, P);
       }
-      float row[N_LC];
-      finish_row(tp, pp, T, *a_state_cost, best, cmin,
-                 axis_point(pp[J_MIN], pp[J_MAX], kbest, NF - 1), row);
-      for (int c = 0; c < N_LC; ++c) out[i * N_LC + c] = row[c];
-      // the next state
-      const float s = row[LC_S], v = row[LC_V], a = row[LC_A], j = row[LC_J];
+      // v_max at each jerk's next s, for warp 0's constraints
+      if (valid) vmax_n[lane] = interp_staged(sg.vmax_col, n.sn, pss, P);
+      pair_arrive(1);
+      // the state each jerk's row leads to, and its terms
+      const float jj = is_last ? tp[LC_J] : j;
       const float dt2 = dt_i * dt_i;
-      tp[LC_T] = row[LC_T] + dt_i;
-      tp[LC_S] = fmaxf(s, s + v * dt_i + 0.5f * a * dt2
-                       + j * (dt_i * (dt_i * dt_i)) * (1.0f / 6.0f));
-      tp[LC_V] = fmaxf(v + a * dt_i + 0.5f * j * dt2, 0.0f);
-      tp[LC_A] = a + j * dt_i;
-      tp[LC_J] = j;
-      tp[LC_COST] = 0.0f;
-      tp[LC_CONSTR] = 0.0f;
+      const float s_n = fmaxf(s, s + v * dt_i + 0.5f * a * dt2
+                              + jj * (dt_i * (dt_i * dt_i)) * (1.0f / 6.0f));
+      const float v_n = fmaxf(v + a * dt_i + 0.5f * jj * dt2, 0.0f);
+      const float a_n = a + jj * dt_i;
+      if (valid && i + 1 < T) {
+        const Here h_n = here(sg, pp, t_index(tp[LC_T] + dt_i, pp, T), s_n,
+                              v_n, a_n, S, P);
+        cb[C_S * NF + lane] = s_n;
+        cb[C_V * NF + lane] = v_n;
+        cb[C_A * NF + lane] = a_n;
+        cb[C_SDIST * NF + lane] = h_n.s_dist;
+        cb[C_COST * NF + lane] = h_n.st.cost;
+        cb[C_CONSTR * NF + lane] = h_n.st.constr;
+      }
+      pair_sync(2);
+    } else {
+      const Corners k = corners(nodes + mini(i + 1, T - 1) * slice, pp, S, V,
+                                A, n.sn, n.vn, n.an);
+      if (i == 0) {
+        copies_wait();
+        __syncthreads();
+        h = here(sg, pp, t_index(tp[LC_T], pp, T), s, v, a, S, P);
+        clk.stamp(F_STAGE);
+      }
+      float nn[3];
+      blend(k, nn);
+      clk.stamp(F_LOOKUP);
+      pair_sync(1);
+      float cost, constr;
+      action_terms(pp, h.st, nn, j, dt_i, n, h.s_dist, vmax_n[jl],
+                   a_limits(pp, n.an), &cost, &constr);
+      clk.stamp(F_TERMS);
+      const Pick pk = warp_pick(constr, cost, valid);
+      clk.stamp(F_PICK);
+      const float c_tier = __shfl_sync(FULL, constr, pk.tier);
+      const float k_win = __shfl_sync(FULL, cost, pk.k);
+      if (lane == 0) {
+        float row[N_LC];
+        finish_row(tp, pp, T, h.st.cost,
+                   pk.nan_c || pk.all_inf ? INFINITY : k_win,
+                   pk.nan_c ? NAN : c_tier,
+                   axis_point(pp[J_MIN], pp[J_MAX], pk.k, NF - 1), row);
+#pragma unroll
+        for (int c = 0; c < N_LC; ++c) out[i * N_LC + c] = row[c];
+        *win = pk.k;
+      }
+      pair_sync(2);
     }
-    __syncwarp();
+    // the next state: the winner's, with its terms
+    const int kw = *win;
+    tp[LC_T] = tp[LC_T] + dt_i;
+    tp[LC_J] = is_last ? tp[LC_J]
+                       : axis_point(pp[J_MIN], pp[J_MAX], kw, NF - 1);
+    tp[LC_COST] = 0.0f;
+    tp[LC_CONSTR] = 0.0f;
+    if (i + 1 < T) {
+      tp[LC_S] = cb[C_S * NF + kw];
+      tp[LC_V] = cb[C_V * NF + kw];
+      tp[LC_A] = cb[C_A * NF + kw];
+      h.s_dist = cb[C_SDIST * NF + kw];
+      h.st.cost = cb[C_COST * NF + kw];
+      h.st.constr = cb[C_CONSTR * NF + kw];
+    }
+    clk.stamp(F_NEXT);
   }
-}
-
-__host__ __device__ inline size_t forward_smem_bytes() {
-  return sizeof(float) * (N_PP + N_LC + 2 * NF + 1);
+  clk.flush(prof);
 }
 
 }  // namespace lon_dp
@@ -687,9 +913,34 @@ extern "C" int lon_dp_backward_threads(int A, int tile) {
   return lon_dp::backward_threads(A, tile);
 }
 
+// dynamic shared memory of the forward / reeval block: the path's two
+// columns and the distance map staged (the wrapper checks it against the
+// block's limit)
+extern "C" size_t lon_dp_forward_smem_bytes(int T, int S, int P) {
+  return lon_dp::forward_smem_bytes(T, S, P);
+}
+
+extern "C" int lon_dp_n_forward_phases() { return lon_dp::N_FWD_PHASE; }
+
 #ifdef __CUDACC__
 namespace {
-smem_limit::Marks backward_marks;
+smem_limit::Marks backward_marks, forward_marks[2];
+
+template <bool PROF>
+int forward_launch(const float* nodes, const float* pp, const float* path,
+                   const float* dist_path, const float* states, float* out,
+                   unsigned long long* prof, int T, int S, int V, int A,
+                   int P, int n_rows, int mode, void* stream) {
+  using namespace lon_dp;
+  auto kernel = lon_forward_kernel<PROF>;
+  const size_t smem = forward_smem_bytes(T, S, P);
+  cudaError_t err = smem_limit::ensure(kernel, smem, forward_marks[PROF]);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<1, 2 * WARP, smem, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(nodes), pp, path, dist_path, states,
+      out, prof, T, S, V, A, P, n_rows, mode);
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 extern "C" int lon_dp_n_params() { return lon_dp::N_PP; }
@@ -720,28 +971,39 @@ extern "C" int lon_dp_backward(const float* nodes_next, const float* pp,
 
 // The forward pass (mode 0: states is the start state (7,), out (T, 7)) or
 // the reeval pass (mode 1: states and out (n_rows, 7)) over the nodes
-// (T, S, V, A, 4).
+// (T, S, V, A, 4); the block stages lon_dp_forward_smem_bytes(T, S, P)
+// bytes (the wrapper checks that they fit).
 extern "C" int lon_dp_forward(const float* nodes, const float* pp,
                               const float* path, const float* dist_path,
                               const float* states, float* out, int T, int S,
                               int V, int A, int P, int n_rows, int mode,
                               void* stream) {
-  using namespace lon_dp;
-  lon_forward_kernel<<<1, WARP, forward_smem_bytes(),
-                       (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(nodes), pp, path, dist_path, states,
-      out, T, S, V, A, P, n_rows, mode);
-  return (int)cudaGetLastError();
+  return forward_launch<false>(nodes, pp, path, dist_path, states, out,
+                               nullptr, T, S, V, A, P, n_rows, mode, stream);
 }
 
-// Loads both kernels onto the current device and raises the backward
+// The profiling instantiation of the forward pass: the same rows, and per
+// phase (lon_dp::FwdPhase) lane 0's cycles added into prof[N_FWD_PHASE].
+extern "C" int lon_dp_forward_profile(const float* nodes, const float* pp,
+                                      const float* path,
+                                      const float* dist_path,
+                                      const float* states, float* out,
+                                      unsigned long long* prof, int T, int S,
+                                      int V, int A, int P, void* stream) {
+  return forward_launch<true>(nodes, pp, path, dist_path, states, out, prof,
+                              T, S, V, A, P, T, 0, stream);
+}
+
+// Loads the kernels onto the current device and raises the backward
 // kernel's shared-memory limit to the most a block may use, so that the
 // first launch pays for neither (the wrapper calls it when it binds the
 // library).  Returns the CUDA error code.
 extern "C" int lon_dp_prepare() {
   using namespace lon_dp;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, lon_forward_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, lon_forward_kernel<true>);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, lon_forward_kernel<false>);
   if (err == cudaSuccess)
     err = cudaFuncGetAttributes(&attr, lon_backward_kernel);
   int dev = 0, optin = 0;

@@ -14,7 +14,9 @@ every (s, v, a) node and NB = 9 jerks, lexicographic (constraint, cost)
 minimum, first jerk winning) and a greedy forward pass of T steps over
 NF = 21 jerks.  On CUDA tensors each slice is one launch of the hand-written
 kernel ``csrc/lon_dp.cu`` (``lon_dp_backward``) and the forward pass one
-launch (``lon_dp_forward``, which also runs :func:`reeval`'s pass); on CPU
+launch (``lon_dp_forward``, two warps that stage the path's columns and
+the distance map, the kernel's ``lon_dp_forward_smem_bytes``, and also run
+:func:`reeval`'s pass); on CPU
 tensors the plain PyTorch versions :func:`backward_slice_reference` and
 :func:`forward_reference` run instead.  ``launches`` counts the kernel
 launches of either entry, ``backward_launches`` / ``forward_launches`` each.
@@ -231,7 +233,11 @@ def _jerks(pp, n):
 
 def _lex_min(constr, cost, js):
     """Lexicographic (constraint, cost) minimum over the last axis, first
-    minimum winning; returns (cost, constr, jerk) of the winner."""
+    minimum winning; returns (cost, constr, jerk) of the winner.  As
+    ``jnp.min`` / ``jnp.argmin`` in the JAX program: a NaN constraint makes
+    the least constraint NaN, which no action passes (cost inf, the first
+    jerk); among the actions of the least constraint the first NaN cost
+    wins, and where all of them cost inf the first jerk does."""
     cmin = torch.amin(constr, dim=-1, keepdim=True)
     cost_m = torch.where(constr <= cmin, cost, float("inf"))
     jidx = torch.argmin(cost_m, dim=-1, keepdim=True)
@@ -648,7 +654,12 @@ def backward_slice(nodes_next, pp_vec, path, dist_path, t_idx, is_last,
     return out
 
 
-def _forward_entry(nodes, pp_vec, path, dist_path, states, mode):
+# the profiling instantiation's phases (csrc/lon_dp.cu FwdPhase): lane 0's
+# clock64() cycles over the forward pass's steps
+FORWARD_PHASES = ("stage", "lookup", "terms", "pick", "next")
+
+
+def _forward_entry(nodes, pp_vec, path, dist_path, states, mode, prof=None):
     global launches, forward_launches
     if nodes.dim() != 5 or nodes.shape[-1] != 4:
         raise ValueError(f"nodes must be (T, S, V, A, 4), got "
@@ -665,14 +676,28 @@ def _forward_entry(nodes, pp_vec, path, dist_path, states, mode):
            torch.float32, dev)
     if dev.type != "cuda":
         raise ValueError(f"lon_dp: unsupported device {dev}")
-    out = torch.empty((n_rows, 7), dtype=torch.float32, device=dev)
+    P = path.shape[0]
     lib = _kernel()
+    # the block's shared memory, by the kernel's own formula: the path's s
+    # and v_max columns and the (T, S) distance map staged once, and the
+    # helper warp's candidates
+    need = lib.lon_dp_forward_smem_bytes(T, S, P)
+    if need > BLOCK_SMEM:
+        raise ValueError(
+            f"lon_dp_forward: staging the path ({P} rows) and the distance "
+            f"map ({T} x {S}) needs {need} B of shared memory, above the "
+            f"{BLOCK_SMEM} B a block may use")
+    out = torch.empty((n_rows, 7), dtype=torch.float32, device=dev)
+    head = (nodes.data_ptr(), pp_vec.data_ptr(), path.data_ptr(),
+            dist_path.data_ptr(), states.data_ptr(), out.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lon_dp_forward(
-            nodes.data_ptr(), pp_vec.data_ptr(), path.data_ptr(),
-            dist_path.data_ptr(), states.data_ptr(), out.data_ptr(), T, S, V,
-            A, path.shape[0], n_rows, int(mode), stream)
+        if prof is None:
+            err = lib.lon_dp_forward(*head, T, S, V, A, P, n_rows, int(mode),
+                                     stream)
+        else:
+            err = lib.lon_dp_forward_profile(*head, prof.data_ptr(), T, S, V,
+                                             A, P, stream)
     if err != 0:
         raise RuntimeError(f"lon_dp_forward launch failed: CUDA error {err}")
     launches += 1
@@ -688,6 +713,19 @@ def forward(nodes, pp_vec, path, dist_path, x0):
         return forward_reference(nodes, pp_vec, path, dist_path, x0)
     return _forward_entry(nodes, pp_vec, path, dist_path,
                           x0.to(torch.float32).contiguous(), 0)
+
+
+def forward_profile(nodes, pp_vec, path, dist_path, x0):
+    """The forward pass through the kernel's profiling instantiation (CUDA
+    tensors only): (the trajectory, which the plain instantiation's equals
+    bit for bit, and lane 0's cycles by phase, :data:`FORWARD_PHASES`)."""
+    if nodes.device.type != "cuda":
+        raise ValueError("forward_profile needs CUDA tensors")
+    prof = torch.zeros(len(FORWARD_PHASES), dtype=torch.int64,
+                       device=nodes.device)
+    out = _forward_entry(nodes, pp_vec, path, dist_path,
+                         x0.to(torch.float32).contiguous(), 0, prof)
+    return out, dict(zip(FORWARD_PHASES, prof.cpu().tolist()))
 
 
 def reeval_pass(nodes, pp_vec, path, dist_path, traj):
@@ -815,10 +853,18 @@ def _kernel():
         lib.lon_dp_forward.restype = ctypes.c_int
         lib.lon_dp_forward.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.lon_dp_n_params.restype = ctypes.c_int
-        lib.lon_dp_n_params.argtypes = []
-        if lib.lon_dp_n_params() != len(LON_PP_KEYS):
-            raise RuntimeError("lon_dp.cu and LON_PP_KEYS disagree")
+        lib.lon_dp_forward_profile.restype = ctypes.c_int
+        lib.lon_dp_forward_profile.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.lon_dp_forward_smem_bytes.restype = ctypes.c_size_t
+        lib.lon_dp_forward_smem_bytes.argtypes = [ctypes.c_int] * 3
+        for fn in (lib.lon_dp_n_params, lib.lon_dp_n_forward_phases):
+            fn.restype = ctypes.c_int
+            fn.argtypes = []
+        if lib.lon_dp_n_params() != len(LON_PP_KEYS) \
+                or lib.lon_dp_n_forward_phases() != len(FORWARD_PHASES):
+            raise RuntimeError("lon_dp.cu and LON_PP_KEYS / FORWARD_PHASES "
+                               "disagree")
         _build.prepare(lib, "lon_dp")
         _LIB = lib
     return _LIB

@@ -13,7 +13,8 @@ Two device entries live here, each a hand-written kernel of
 tensor:
 
 - the candidate sweep (:func:`make_poly_lat_kernel`'s ``evaluate``; kernel
-  ``poly_lat_sweep``, one block per candidate; plain
+  ``poly_lat_sweep``, one block per candidate, a thread a sample, and its
+  profiling instantiation, :func:`sweep_profile`; plain
   :func:`evaluate_reference`);
 - the order-dependent selection (:func:`select_device`; kernel
   ``poly_lat_select``, one thread; plain :func:`select_reference`), the
@@ -270,7 +271,8 @@ def _hermite_inv(dev):
     return inv
 
 
-def sweep(occ_map, ref_line, ref_step, pp_vec, env_vec, start, LD, SD, S):
+def sweep(occ_map, ref_line, ref_step, pp_vec, env_vec, start, LD, SD, S,
+          prof=None):
     """The candidate sweep: (collision_dist (LD, SD) float32, traj_cost
     (LD, SD) float64).  One launch of ``poly_lat_sweep`` on a CUDA tensor,
     :func:`evaluate_reference` on a CPU tensor.  ``occ_map`` (TE, SE, LE),
@@ -308,18 +310,43 @@ def sweep(occ_map, ref_line, ref_step, pp_vec, env_vec, start, LD, SD, S):
         raise ValueError(f"{S} samples: the sweep takes at most "
                          f"{lib.poly_lat_max_samples()}")
     inv = _hermite_inv(dev)
+    head = (occ_map.data_ptr(), ref_line.data_ptr(), ref_step.data_ptr(),
+            pp_vec.data_ptr(), env_vec.data_ptr(), start.data_ptr(),
+            inv.data_ptr(), cd.data_ptr(), tc.data_ptr())
+    tail = (LD, SD, S, TE, SE, LE, ref_line.shape[0])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.poly_lat_sweep(
-            occ_map.data_ptr(), ref_line.data_ptr(), ref_step.data_ptr(),
-            pp_vec.data_ptr(), env_vec.data_ptr(), start.data_ptr(),
-            inv.data_ptr(), cd.data_ptr(), tc.data_ptr(), LD, SD, S, TE, SE,
-            LE, ref_line.shape[0], stream)
+        if prof is None:
+            err = lib.poly_lat_sweep(*head, *tail, stream)
+        else:
+            err = lib.poly_lat_sweep_profile(*head, prof.data_ptr(), *tail,
+                                             stream)
     if err != 0:
         raise RuntimeError(f"poly_lat_sweep launch failed: CUDA error {err}")
     launches += 1
     sweep_launches += 1
     return cd, tc
+
+
+# the profiling instantiation's phases (csrc/poly_lat.cu Phase): thread 0's
+# clock64() cycles of each block, summed over the blocks
+SWEEP_PHASES = ("coefficients", "samples", "segments", "times", "collision",
+                "reduce")
+
+
+def sweep_profile(occ_map, ref_line, ref_step, pp_vec, env_vec, start, LD,
+                  SD, S):
+    """The sweep through the kernel's profiling instantiation (CUDA tensors
+    only, checked as :func:`sweep`): (collision_dist, traj_cost), which the
+    plain instantiation's equal bit for bit, and thread 0's cycles by phase
+    summed over the blocks (:data:`SWEEP_PHASES`)."""
+    if occ_map.device.type != "cuda":
+        raise ValueError("sweep_profile needs CUDA tensors")
+    prof = torch.zeros(len(SWEEP_PHASES), dtype=torch.int64,
+                       device=occ_map.device)
+    cd, tc = sweep(occ_map, ref_line, ref_step, pp_vec, env_vec, start, LD,
+                   SD, S, prof)
+    return cd, tc, dict(zip(SWEEP_PHASES, prof.cpu().tolist()))
 
 
 def make_poly_lat_kernel(spec):
@@ -640,7 +667,9 @@ _LIB = None
 
 
 def _kernel():
-    """Build (first call) and bind the kernel library."""
+    """Build (first call) and bind the kernel library, and load its code
+    onto the current device, so that the first launch does not pay for
+    it."""
     global _LIB
     if _LIB is None:
         from tpl_tpu_torch import _build
@@ -649,16 +678,22 @@ def _kernel():
         lib.poly_lat_sweep.restype = ctypes.c_int
         lib.poly_lat_sweep.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.poly_lat_sweep_profile.restype = ctypes.c_int
+        lib.poly_lat_sweep_profile.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         for fn in (lib.poly_lat_max_samples, lib.poly_lat_n_params,
-                   lib.poly_lat_n_env_params):
+                   lib.poly_lat_n_env_params, lib.poly_lat_n_phases,
+                   lib.poly_lat_prepare):
             fn.restype = ctypes.c_int
             fn.argtypes = []
         lib.poly_lat_select.restype = ctypes.c_int
         lib.poly_lat_select.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         if lib.poly_lat_n_params() != len(PL_PP_KEYS) \
-                or lib.poly_lat_n_env_params() != len(ENV_PP_KEYS):
-            raise RuntimeError("poly_lat.cu and PL_PP_KEYS / ENV_PP_KEYS "
-                               "disagree")
+                or lib.poly_lat_n_env_params() != len(ENV_PP_KEYS) \
+                or lib.poly_lat_n_phases() != len(SWEEP_PHASES):
+            raise RuntimeError("poly_lat.cu and PL_PP_KEYS / ENV_PP_KEYS / "
+                               "SWEEP_PHASES disagree")
+        _build.prepare(lib, "poly_lat")
         _LIB = lib
     return _LIB

@@ -66,6 +66,15 @@ def lon_scene(S, V, A, P, T, seed, demo=False):
     return (p.packed(), path, dist.astype(np.float32), x0)
 
 
+def lon_shifted_start(x0):
+    """``x0`` as a replan's start state: the head of the previous plan as
+    the planner's ``shift_trajectory`` keeps it, with that plan's cost (3)
+    and constraint (0.5), which no row of the new pass may take over."""
+    x = np.array(x0, np.float32)
+    x[tlk.LC_COST], x[tlk.LC_CONSTR] = 3.0, 0.5
+    return x
+
+
 def lon_nodes(pp, path, dist, T, S, V, A, dev="cpu"):
     """Every slice of a solve by the plain version (nodes[0] zeros), on
     ``dev``."""

@@ -104,8 +104,9 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    ``lattice_planner`` (its defaults) active, the scenario's other sets, 300
    ticks each, the chain's launch counters set to 0 just before each loop
    and read just after; checks zero violations, no emergency plan, finite
-   controls and 13 launches of the chain's kernels per replan (9 backward
-   slices, 1 forward pass, 1 sweep, 1 selection, 1 rampify start scan);
+   controls and 12 launches of the chain's kernels per replan (9 backward
+   slices, 1 forward pass, 1 sweep with its selection, 1 rampify start
+   scan);
    prints the end state beside the JAX package's CPU loop's, the per-replan
    wall (median, max) and the launches of one replan (torch.profiler);
    keeps the inputs of each loop's first replan;
@@ -117,19 +118,24 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    block, the largest box's bytes (``lon_kernel.box_bytes``), shared
    memory, threads, blocks, registers; the forward and reeval passes),
    ``csrc/poly_lat.cu``
-   (the sweep seeded at 1 x 20 and 21 x 13 and each loop's, 1 x 20 and
-   21 x 13; the selection on both loops' maps and 20 seeded ones) and the
+   (the sweep and its selection in one launch, seeded at 1 x 20 and 21 x 13
+   and each loop's, 1 x 20 and 21 x 13: the maps against the plain sweep,
+   the winner and its cost against the plain selection on the kernel's own
+   maps) and the
    start mode of ``csrc/rstp_rampify.cu`` (seeded, and each loop's at its
    path step) against their plain versions on the card (a lon slice, the
    forward pass and the loops' rampify scans also bit for bit against the
    plain versions on the CPU; the RSTP mode of the rampify source still bit
    for bit); times through the bare launchers and the wrappers on the FAS
    loop's inputs, the wrappers on the lattice loop's, the plain versions'
-   times, ``bound_ms`` and ``chain_ms``; the forward pass, the sweep and
-   the selection also from CUDA graphs (``graph_ms``); the profiling
+   times, ``bound_ms`` and ``chain_ms`` (the sweep's:
+   ``sweep_select_chain_ms``, with the selection's updates on the loop's
+   maps); the forward pass and the sweep also from CUDA graphs
+   (``graph_ms``, the sweep at both loops' grids); the profiling
    instantiations of the forward pass (lane 0's us by phase: staging,
    lookup, terms, pick, next) and of the sweep (thread 0's us a block:
-   coefficients, samples, segments, times, collision, reduce), each
+   coefficients, samples, segments, times, collision, reduce, arrive; the
+   last block's selection), each
    bit-equal to the plain instantiation, a "phases" line each; the first
    replan of each loop (``runtime_dp``) into the result line;
 12b. the NaN rule: the lon backward slice (two slices from a next slice
@@ -140,7 +146,17 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    equal to NaN (a NaN constraint makes the least constraint NaN: the lon
    node costs inf with the first jerk, the action-min takes action 0 with
    its own cost and constraint; the first NaN cost of the least constraint
-   wins);
+   wins); then a NaN in a value input, which the kernels' terms keep as the
+   plain versions' clamps do: the lon kernels with a NaN in the distance
+   map or the path's v_max (``scenes.lon_nan_values``), the fused slice and
+   the action-min with NaN cells in the DP distance map or NaN lane bounds,
+   the sweep and its selection with NaN lane bounds at 1 x 20 and 21 x 13
+   (``scenes.poly_lat_nan_bounds``); and the selection driven into its
+   edges through the sweep's inputs at 1 x 20 and 21 x 13
+   (``scenes.poly_lat_select_edge``: no obstacle, every candidate
+   infeasible, the first update's cost NaN, every cost NaN), against the
+   plain selection on the kernel's own maps and (the NaN-free two, with
+   ``--parent-csrc``) the parent's;
 13. rollout planner closed loops: ``SimStandalone`` with
    ``idm_sampling_planner`` on ``demo/country_overtake`` (the demo planning
    set: 8 candidates of 100 steps, a replan every 0.05 s) and then with
@@ -258,7 +274,7 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    latencies), then ``{"ok": true, "device": {...}}`` as the last line.
    The ``latlon_action_min`` row counts every launch of the source's
    action-min (on the main path all of them go through the fused entry,
-   which has its own row, ``latlon_backward_slice``).  The five FAS rows
+   which has its own row, ``latlon_backward_slice``).  The four FAS rows
    carry the lattice loop's launches, largest differences and wrapper
    times under ``lattice_*`` beside the FAS loop's, the lon slices' share
    of differing jerks (``jerk_flip_share``) and the sweep's largest
@@ -266,7 +282,7 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    planner rows carry their own loop's launches (per replan and per tick);
    the forward pass's and the sweep's rows their "phases" (``phases_us``)
    and, with ``--parent-csrc``, the other source's times in turns
-   (``parent_ms``); the five FAS rows each loop's first replan
+   (``parent_ms``); the four FAS rows each loop's first replan
    (``first_replan_ms``, ``lattice_first_replan_ms``);
    the IDM rows their times
    at C=16,384 (``candidates``), at the loop's width (``loop_ms``),
@@ -307,9 +323,14 @@ CUDA graphs) a difference other than 0.0 raises (NaN equal to NaN); the
 poly grid (a source of the two launches is recognised) must keep every
 candidate's rows and cost on every case of phase 15 and the winner on
 every case without a NaN cost, and is timed by CUDA events and from CUDA
-graphs; the lateral sweep must keep the collision distance's bits and
-its cost within SWEEP_PARENT_RTOL on every case of phase 12 (timed by
-events and from CUDA graphs); a time-MPC, field or evaluation source
+graphs; the lateral sweep with its selection (a source of the two
+launches, ``poly_lat_select``, is run as such) must keep the collision
+distance's bits, the cost's bits (within SWEEP_PARENT_RTOL for a source
+whose sweep sums in another order, one without ``poly_lat_sweep_profile``)
+and the winner and its cost on every case of phase 12 (timed by events
+and from CUDA graphs); with a ``latlon_action_min.cu`` the DP loop's
+first replan is timed in four fresh processes, that source's and the
+tree's in turns, the libraries bound before the loop; a time-MPC, field or evaluation source
 that exports a ``*_profile`` entry also prints its "phases" lines.  The batched tracking MPC is held to the other version's batched
 entry (a grid of one block per scenario where the source predates the
 persistent kernel) on the bench's batch, near the course and on seeded
@@ -324,8 +345,9 @@ phase 8, the time-indexed MPC's seeded cases (checked, profiled, against
 ``--parent-csrc``), every backward slice of the seeded demo-width lon
 solve and of ``scenes.LON_EDGE``'s grids (bit for bit on the CPU, against
 ``--parent-csrc``), the lon forward pass of seeded demo-width solves (A=20
-and A=7) and the sweep seeded at 1 x 20 and 21 x 13 (against the plain
-versions and ``--parent-csrc``; their "phases" lines), phase 12b and phase
+and A=7) and the sweep with its selection seeded at 1 x 20, 21 x 13 and
+5 x 11 (against the plain versions and ``--parent-csrc``; their "phases"
+lines), phase 12b and phase
 17 with seeded occupancy in place of the graph DP loop's first replan: no
 loop is driven and no result line printed.
 
@@ -429,8 +451,7 @@ FAS_JAX_END = {FAS: (2.99, 39.51, 8.97), LATTICE: (2.99, 42.77, 10.80)}
 # every backward slice of the first solve, T - 1 at both planners' grids)
 FAS_ENTRIES = (("lon_dp_backward", "backward_slice", 9),
                ("lon_dp_forward", "forward", 1),
-               ("poly_lat_sweep", "sweep", 1),
-               ("poly_lat_select", "select_device", 1),
+               ("poly_lat_sweep_select", "sweep_select", 1),
                ("rstp_rampify_start", "scan_start", 1))
 SWEEP_RTOL = 1e-9
 # the sweep's cost against another version of its kernel: a block's cost
@@ -442,9 +463,8 @@ FAS_ROWS = (
      "tpl_tpu/planning/dyn_prog/lon_kernel.py:197"),
     ("lon_dp_forward", "lon_dp.cu",
      "tpl_tpu/planning/dyn_prog/lon_kernel.py:344"),
-    ("poly_lat_sweep", "poly_lat.cu",
-     "tpl_tpu/planning/dyn_prog/poly_lat_kernel.py:121"),
-    ("poly_lat_select", "poly_lat.cu",
+    ("poly_lat_sweep_select", "poly_lat.cu",
+     "tpl_tpu/planning/dyn_prog/poly_lat_kernel.py:121, "
      "tpl_tpu/planning/dyn_prog/poly_chain_kernel.py:78"),
     ("rstp_rampify_start", "rstp_rampify.cu",
      "tpl_tpu/planning/dyn_prog/poly_chain_kernel.py:227"))
@@ -1116,7 +1136,84 @@ def closed_loop_phase(lam, itm):
                             MPC_H, "last loop solve vs plain on the CPU")
     return dict(am_launches=am_launches, slice_launches=slice_launches,
                 ilqr_launches=ilqr_launches,
-                replans=len(replan_ms), picked=rec["picked"], err=err)
+                replans=len(replan_ms), picked=rec["picked"], err=err,
+                first_replan_ms=replan_ms[0])
+
+
+def dp_first_replan_child(csrc):
+    """In a fresh process: binds the kernel libraries of the DP loop as
+    this script's start does (``latlon_action_min`` from ``csrc`` where
+    given, else the tree's, which loads its code when bound), then drives
+    the DP loop on demo/country_follow to its first replan and prints
+    {"first_replan_ms": the planner's runtime_dp} as the last line."""
+    import torch
+    import tpl_tpu_torch
+    from tpl_tpu_torch import _build
+    from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
+    from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
+    from tpl_tpu_torch.simulation import SimStandalone
+
+    tpl_tpu_torch.use_device("cuda")
+    if csrc:
+        lib = _build.load("latlon_action_min", csrc)
+        if not hasattr(lib, "latlon_action_min_prepare"):
+            # a source that loads its code at the first launch
+            lib.latlon_action_min_prepare = lambda: 0
+        load = _build.load
+        _build.load = lambda name, c=None: (
+            lib if name == "latlon_action_min" else load(name, c))
+    lam._kernel()
+    itm._kernel()
+    sim = SimStandalone(app_id="smoke_first_replan",
+                        scenario_path="demo/country_follow")
+    store = sim.planning_app.sh_planners
+    with store.lock():
+        store.active_planner = "dp_lat_lon_planner"
+    planner = sim.planning_app.planners["dp_lat_lon_planner"]
+    with sim.core.sh_state.lock():
+        ss = sim.core.sh_state.sim
+        ss.settings.running = True
+        ss.settings.use_real_time = False
+    last = planner.policy.last_replan_time
+    for _ in range(20):
+        sim.update()
+        torch.cuda.synchronize()
+        if planner.policy.last_replan_time != last:
+            break
+    else:
+        raise AssertionError("no replan in 20 ticks")
+    print(json.dumps({"first_replan_ms": planner.runtime_dp}))
+
+
+def dp_first_replan_phase(parent_csrc):
+    """With a parent ``latlon_action_min.cu``: the DP loop's first replan
+    (the planner's runtime_dp) in four fresh processes, the parent's source
+    and the tree's in turns (parent, tree, tree, parent), each binding the
+    libraries before the loop starts (:func:`dp_first_replan_child`).
+    Returns {"parent": [ms, ms], "tree": [ms, ms]}, or None without a
+    parent."""
+    import subprocess
+
+    parents = parents_with(parent_csrc, "latlon_action_min")
+    if not parents:
+        return None
+    out = {"parent": [], "tree": []}
+    for who in ("parent", "tree", "tree", "parent"):
+        arg = os.path.abspath(parents[0]) if who == "parent" else ""
+        done = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--dp-first-replan",
+             arg], capture_output=True, text=True, timeout=300)
+        if done.returncode != 0:
+            raise AssertionError(f"DP first replan ({who}) failed:\n"
+                                 + done.stderr[-3000:])
+        out[who].append(json.loads(
+            done.stdout.strip().splitlines()[-1])["first_replan_ms"])
+    print(f"latlon_action_min: the DP loop's first replan in a fresh process "
+          f"with the libraries bound before it (runtime_dp ms): parent "
+          f"{out['parent'][0]:.3f}, tree {out['tree'][0]:.3f}, tree "
+          f"{out['tree'][1]:.3f}, parent {out['parent'][1]:.3f} (the tree "
+          f"loads its code when bound, the parent at its first launch)")
+    return out
 
 
 def graph_ms(launch, n=50, reps=10):
@@ -2330,24 +2427,23 @@ def fas_counts(tlk, plk, rmp, reset=False):
     ``reset``)."""
     if reset:
         tlk.launches = tlk.backward_launches = tlk.forward_launches = 0
-        plk.launches = plk.sweep_launches = plk.select_launches = 0
+        plk.launches = 0
         rmp.launches = rmp.start_launches = 0
     return {"lon_dp_backward": tlk.backward_launches,
             "lon_dp_forward": tlk.forward_launches,
-            "poly_lat_sweep": plk.sweep_launches,
-            "poly_lat_select": plk.select_launches,
+            "poly_lat_sweep_select": plk.launches,
             "rstp_rampify_start": rmp.start_launches}
 
 
 def record_fas_calls(tlk, plk, rmp):
-    """Wraps the chain's five kernel entries so that copies of the
+    """Wraps the chain's four kernel entries so that copies of the
     arguments of their first calls (the first replan's inputs; every
     backward slice of its solve, the final one first) are kept.  Returns
     (recorded by row name, restore)."""
     import torch
 
-    mods = {"backward_slice": tlk, "forward": tlk, "sweep": plk,
-            "select_device": plk, "scan_start": rmp}
+    mods = {"backward_slice": tlk, "forward": tlk, "sweep_select": plk,
+            "scan_start": rmp}
     rec = {row: [] for row, _, _ in FAS_ENTRIES}
     saved = []
     for row, name, keep in FAS_ENTRIES:
@@ -2444,8 +2540,7 @@ def fas_loop_phase(tlk, plk, rmp, planner_name, ticks, record=False):
     n = len(replan_ms)
     T = grid[1][0]
     per_replan = {"lon_dp_backward": T - 1, "lon_dp_forward": 1,
-                  "poly_lat_sweep": 1, "poly_lat_select": 1,
-                  "rstp_rampify_start": 1}
+                  "poly_lat_sweep_select": 1, "rstp_rampify_start": 1}
     for row, per in per_replan.items():
         if n == 0 or counts[row] != per * n:
             raise AssertionError(f"{planner_name}: {counts[row]} {row} "
@@ -2641,17 +2736,6 @@ def forward_launch(fn, a, out, mode=0, traj=None):
                         T, S, V, A, path.shape[0], rows, mode, s)
 
 
-def sweep_launch(fn, a, cd, tc, inv):
-    """``launch(stream)`` of the bare launcher ``fn`` of ``poly_lat_sweep``
-    on the sweep's arguments ``a`` into ``cd`` and ``tc``."""
-    occ, rl, step, pp, env, start, LD, SD, S = a
-    TE, SE, LE = occ.shape
-    return lambda s: fn(occ.data_ptr(), rl.data_ptr(), step.data_ptr(),
-                        pp.data_ptr(), env.data_ptr(), start.data_ptr(),
-                        inv.data_ptr(), cd.data_ptr(), tc.data_ptr(), LD, SD,
-                        S, TE, SE, LE, rl.shape[0], s)
-
-
 def timed_in_turns(source, what, csrc, old, new, n=100):
     """Prints and returns the times of ``old(stream)`` (the other
     version's launch) and ``new(stream)`` in turns, by CUDA events and from
@@ -2707,13 +2791,89 @@ def forward_parent_check(tlk, cases, parent_csrc, timed):
     return res
 
 
+def sweep_buffers(a):
+    """The sweep's outputs for its arguments ``a`` (the wrapper's): (cd,
+    tc, best, cost, the arrival counter), the counter zeroed."""
+    import torch
+
+    LD, SD, dev = a[6], a[7], a[0].device
+    return (torch.empty((LD, SD), dtype=torch.float32, device=dev),
+            torch.empty((LD, SD), dtype=torch.float64, device=dev),
+            torch.empty((), dtype=torch.int64, device=dev),
+            torch.empty((), dtype=torch.float32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def sweep_launch(lib, a, inv, bufs, two=False, sweep_only=False):
+    """``launch(stream)`` of a library's bare launchers of the sweep and its
+    selection on the wrapper's arguments ``a`` into ``bufs``
+    (:func:`sweep_buffers`): the tree's one launch
+    (``poly_lat_sweep_select``) or, with ``two``, a source's two
+    (``poly_lat_sweep``, then ``poly_lat_select`` on the sweep's
+    ``length_veh``; with ``sweep_only`` the first alone)."""
+    from tpl_tpu_torch.planning.dyn_prog import poly_lat_kernel as plk
+
+    occ, rl, step, pp, env, start, LD, SD, S = a
+    cd, tc, best, cost, counter = bufs
+    TE, SE, LE = occ.shape
+    head = (occ.data_ptr(), rl.data_ptr(), step.data_ptr(), pp.data_ptr(),
+            env.data_ptr(), start.data_ptr(), inv.data_ptr(), cd.data_ptr(),
+            tc.data_ptr())
+    tail = (LD, SD, S, TE, SE, LE, rl.shape[0])
+    if sweep_only:
+        return lambda s: lib.poly_lat_sweep(*head, *tail, s)
+    if two:
+        lv = pp.data_ptr() + 4 * plk.PL_PP_KEYS.index("length_veh")
+        return lambda s: lib.poly_lat_sweep(*head, *tail, s) or \
+            lib.poly_lat_select(cd.data_ptr(), tc.data_ptr(), lv,
+                                best.data_ptr(), cost.data_ptr(), LD, SD, s)
+    return lambda s: lib.poly_lat_sweep_select(
+        *head, best.data_ptr(), cost.data_ptr(), counter.data_ptr(), *tail,
+        s)
+
+
+def sweep_check(plk, a, what, got=None):
+    """The sweep and its selection on the card (``got``, else one launch
+    now) against the plain versions: the collision distance bit for bit,
+    the cost map's NaN entries where the plain version's are and the others
+    within SWEEP_RTOL, the winner and its cost the plain selection's on the
+    kernel's own maps.  Returns (max|cd kernel-plain|, max rel cost)."""
+    import torch
+
+    cd, tc, best, cost = got or plk.sweep_select(*a)
+    cd_w, tc_w = plk.evaluate_reference(*a)
+    nan = torch.isnan(tc_w)
+    e = float(torch.max(torch.abs(cd - cd_w)))
+    fin = ~nan
+    rel = float(torch.max(torch.abs(tc - tc_w)[fin] / torch.clamp(
+        torch.abs(tc_w[fin]), min=1e-300))) if bool(fin.any()) else 0.0
+    i_lv = plk.PL_PP_KEYS.index("length_veh")
+    want_b, want_c = plk.select_reference(cd.cpu(), tc.cpu(),
+                                          a[3][i_lv].cpu(), a[6], a[7])
+    if (e != 0.0 or rel > SWEEP_RTOL or tc.dtype != torch.float64
+            or not torch.equal(torch.isnan(tc), nan)
+            or int(best) != int(want_b) or float(cost) != float(want_c)):
+        raise AssertionError(f"poly_lat_sweep_select {what}: kernel and "
+                             f"plain differ (max|cd| {e:.3e}, max rel cost "
+                             f"{rel:.3e}, winner {int(best)} / "
+                             f"{int(want_b)}, cost {float(cost)} / "
+                             f"{float(want_c)})")
+    return e, rel
+
+
 def sweep_parent_check(plk, cases, parent_csrc, timed):
-    """With ``parent_csrc``: ``poly_lat_sweep`` of another version of
-    ``poly_lat.cu`` against the tree's on every case ((what, the sweep's
-    arguments)): the collision distance bit for bit and the cost within
-    SWEEP_PARENT_RTOL (its sum in another order), else it raises; timed in
-    turns by events and from CUDA graphs.  Returns the times of the case
-    ``timed`` for the first parent, or None."""
+    """With ``parent_csrc``: the sweep and selection of another version of
+    ``poly_lat.cu`` against the tree's one launch on every case ((what, the
+    wrapper's arguments)), timed in turns by events and from CUDA graphs.
+    A source of two launches (``poly_lat_select``) is run as such; one that
+    keeps the sweep's sums in the tree's order (it exports
+    ``poly_lat_sweep_profile`` or is the one launch) must give the same
+    bits, an earlier one the collision distance bit for bit and the cost
+    within SWEEP_PARENT_RTOL; the winner and its cost must be the same
+    (else it raises); a source of two launches also times its sweep alone
+    from CUDA graphs.  Returns the times of the cases ``timed`` for the
+    first parent ({what: times}), or None."""
+    import ctypes
     import torch
     from tpl_tpu_torch import _build
 
@@ -2721,34 +2881,52 @@ def sweep_parent_check(plk, cases, parent_csrc, timed):
     lib = plk._kernel()
     res = None
     for k, csrc in enumerate(parents_with(parent_csrc, "poly_lat")):
-        parent = _build.load("poly_lat", csrc).poly_lat_sweep
-        parent.restype = lib.poly_lat_sweep.restype
-        parent.argtypes = lib.poly_lat_sweep.argtypes
+        plib = _build.load("poly_lat", csrc)
+        two = hasattr(plib, "poly_lat_select")
+        if two:
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            plib.poly_lat_sweep.restype = i32
+            plib.poly_lat_sweep.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+            plib.poly_lat_select.restype = i32
+            plib.poly_lat_select.argtypes = [ptr] * 5 + [i32] * 2 + [ptr]
+        else:
+            fn = plib.poly_lat_sweep_select
+            fn.restype = lib.poly_lat_sweep_select.restype
+            fn.argtypes = lib.poly_lat_sweep_select.argtypes
+        bits = not two or hasattr(plib, "poly_lat_sweep_profile")
         for what, a in cases:
-            LD, SD = a[6], a[7]
-            dev = a[0].device
-            inv = plk._hermite_inv(dev)
-            cds = [torch.empty((LD, SD), dtype=torch.float32, device=dev)
-                   for _ in range(2)]
-            tcs = [torch.empty((LD, SD), dtype=torch.float64, device=dev)
-                   for _ in range(2)]
-            old = sweep_launch(parent, a, cds[0], tcs[0], inv)
-            new = sweep_launch(lib.poly_lat_sweep, a, cds[1], tcs[1], inv)
+            inv = plk._hermite_inv(a[0].device)
+            bufs = [sweep_buffers(a) for _ in range(2)]
+            old = sweep_launch(plib, a, inv, bufs[0], two=two)
+            new = sweep_launch(lib, a, inv, bufs[1])
             raising(old)(stream)
             raising(new)(stream)
             torch.cuda.synchronize()
-            rel = float(torch.max(torch.abs(tcs[1] - tcs[0]) / torch.clamp(
-                torch.abs(tcs[0]), min=1e-300)))
-            if not (torch.equal(cds[0], cds[1])
-                    and rel <= SWEEP_PARENT_RTOL):
-                raise AssertionError(f"poly_lat_sweep {what}: the result "
-                                     "differs from the parent kernel's "
-                                     f"(max rel cost {rel:.3e})")
-            t = timed_in_turns("poly_lat_sweep",
-                               f"{what} (cd bits equal, max rel cost "
-                               f"{rel:.3e})", csrc, old, new)
-            if k == 0 and what == timed:
-                res = t
+            (cd0, tc0, b0, c0, _), (cd1, tc1, b1, c1, _) = bufs
+            rel = float(torch.max(torch.abs(tc1 - tc0) / torch.clamp(
+                torch.abs(tc0), min=1e-300)))
+            same = torch.equal(cd0, cd1) and (
+                torch.equal(tc0, tc1) if bits else rel <= SWEEP_PARENT_RTOL)
+            if not (same and torch.equal(b0, b1) and torch.equal(c0, c1)):
+                raise AssertionError(
+                    f"poly_lat_sweep_select {what}: the result differs from "
+                    f"the parent kernel's (max rel cost {rel:.3e}, winner "
+                    f"{int(b1)} / {int(b0)})")
+            t = timed_in_turns(
+                "poly_lat_sweep_select", f"{what} ("
+                + ("cd, tc" if bits else f"cd bits, max rel cost {rel:.3e}")
+                + ", winner and cost equal; the parent "
+                + ("sweep + select" if two else "one launch") + ")", csrc,
+                old, new)
+            if two:
+                t["parent_sweep_graph"] = graph_ms(raising(sweep_launch(
+                    plib, a, inv, bufs[0], two=True, sweep_only=True)))
+                print(f"poly_lat_sweep_select {what}: the parent's sweep "
+                      f"alone from CUDA graphs {t['parent_sweep_graph']:.4f}"
+                      " ms")
+            if k == 0 and what in timed:
+                res = res or {}
+                res[what] = t
     return res
 
 
@@ -2775,19 +2953,20 @@ def forward_phase_line(tlk, what, a, mhz):
 
 def sweep_phase_line(plk, what, a, mhz):
     """The sweep's profiling instantiation on ``a``: the results bit for
-    bit the plain instantiation's; prints thread 0's us a block by phase;
-    returns them."""
+    bit the plain instantiation's; prints thread 0's us a block by phase
+    (the selection's: the last block's) and returns them."""
     import torch
 
-    cd, tc, cyc = plk.sweep_profile(*a)
-    cd0, tc0 = plk.sweep(*a)
-    if not (torch.equal(cd, cd0) and torch.equal(tc, tc0)):
-        raise AssertionError(f"poly_lat_sweep {what}: the profiling "
+    *got, cyc = plk.sweep_profile(*a)
+    if not all(torch.equal(x, y) for x, y in zip(got, plk.sweep_select(*a))):
+        raise AssertionError(f"poly_lat_sweep_select {what}: the profiling "
                              "instantiation differs")
     blocks = a[6] * a[7]
-    us = {k: v / blocks / mhz for k, v in cyc.items()}
-    print(f"phases poly_lat_sweep ({what}, {a[6]} x {a[7]} x {a[8]}, SM "
-          f"{mhz:.0f} MHz; results bit-equal): thread 0's us a block: "
+    us = {k: v / (1 if k == "select" else blocks) / mhz
+          for k, v in cyc.items()}
+    print(f"phases poly_lat_sweep_select ({what}, {a[6]} x {a[7]} x {a[8]}, "
+          f"SM {mhz:.0f} MHz; results bit-equal): thread 0's us a block, "
+          "the selection's the last block's: "
           + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
           + f"; total {sum(us.values()):.3f} us")
     return us
@@ -2814,16 +2993,30 @@ def dp_scene(T, S, L):
     return dist, rl
 
 
-def nan_rule_phase(tlk, lam, tllk, dev):
+def nan_rule_phase(tlk, lam, tllk, plk, dev, parent_csrc=None):
     """The NaN rule on the card: the lon backward slice (two slices from a
     next slice whose row S // 2 is NaN, ``lon_scene(41, 13, 5, 90, 5)``),
     the forward and reeval passes (slice 2 NaN at a index 1), the
     action-min (seeded 37 x 5 x 3, row 18 NaN) and the fused slice (the
     demo grid's slice T - 2, row S // 2 NaN), each with every channel NaN
     and with the cost alone, bit for bit against the plain versions on the
-    CPU, NaN equal to NaN (raises otherwise)."""
+    CPU, NaN equal to NaN (raises otherwise).  Then a NaN in a value input,
+    which the terms keep: the lon kernels with a NaN in the distance map or
+    the path's v_max (``scenes.lon_nan_values``: the final slice and slice
+    T - 2 from clean next slices, the forward pass and the reeval of the
+    clean trajectory); the fused slice and the action-min on the demo grid's
+    slice T - 2 with NaN cells in the DP distance map or NaN lane bounds;
+    the sweep and its selection with NaN lane bounds
+    (``scenes.poly_lat_nan_bounds``) at 1 x 20 and 21 x 13.  Last the
+    selection's edges through the sweep's inputs at the same grids
+    (``scenes.poly_lat_select_edge``), against the plain selection on the
+    kernel's own maps and, where no NaN is met, against ``parent_csrc``'s
+    sweep and selection."""
     import torch
-    from tpl_tpu_torch.scenes import lon_nodes, lon_scene
+    from tpl_tpu_torch.scenes import (NAN_VALUES, SELECT_EDGES,
+                                      lon_nan_values, lon_nodes, lon_scene,
+                                      poly_lat_nan_bounds, poly_lat_scene,
+                                      poly_lat_select_edge)
 
     def same(got, want, what):
         np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
@@ -2901,14 +3094,117 @@ def nan_rule_phase(tlk, lam, tllk, dev):
               "NaN); nodes with a NaN: "
               + ", ".join(f"{k} {v}" for k, v in n.items()))
 
+    # a NaN in a value input
+    traj = tlk.forward_reference(nodes, *cpu, x0)
+    traj = torch.cat([traj, traj[-2:]])
+    for where in NAN_VALUES:
+        path_n, dist_n = lon_nan_values(path, dist, where)
+        cpu_n = tuple(torch.from_numpy(x) for x in (pp, path_n, dist_n))
+        gpu_n = tuple(x.to(dev) for x in cpu_n)
+        n = {"lon_dp_backward": 0}
+        for i, last in ((T - 1, True), (T - 2, False)):
+            nxt = nodes[min(i + 1, T - 1)]
+            n["lon_dp_backward"] += same(
+                tlk.backward_slice(nxt.to(dev), *gpu_n, i, last),
+                tlk.backward_slice_reference(nxt, *cpu_n, i, last),
+                f"lon_dp_backward NaN {where} slice {i}")
+        n["lon_dp_forward"] = same(
+            tlk.forward(nodes.to(dev), *gpu_n, x0.to(dev)),
+            tlk.forward_reference(nodes, *cpu_n, x0),
+            f"lon_dp_forward NaN {where}")
+        n["lon_dp_forward reeval"] = same(
+            tlk.reeval_pass(nodes.to(dev), *gpu_n, traj.to(dev)),
+            tlk.reeval_reference(nodes, *cpu_n, traj),
+            f"lon_dp reeval NaN {where}")
+        if min(n.values()) == 0:
+            raise AssertionError(f"NaN {where}: a lon kernel met no NaN")
+        print(f"NaN in {where}: the lon kernels bit-equal to the plain "
+              "versions on the CPU (NaN equal to NaN); rows with a NaN: "
+              + ", ".join(f"{k} {v}" for k, v in n.items()))
+    solve, dist_x, rl_t, step_t, pp_d, tables = solves["cpu"]
+    solve_g, _, _, step_g, pp_g, tables_g = solves[dev]
+    nxt = solve.final_slice(dist_x, rl_t, step_t, pp_d)
+    i = Td - 2
+    for where in ("distance", "lane_bounds"):
+        dist_n, rl_n = dist_x.clone(), rl_t.clone()
+        if where == "distance":
+            dist_n[i, 60:62, L // 2 + 1] = float("nan")
+        else:
+            rl_n[80:84, 5] = float("nan")
+            rl_n[160:162, 6] = float("nan")
+        n = {"latlon_backward_slice": same(
+            solve_g.backward_slice(nxt.to(dev), i, dist_n.to(dev),
+                                   rl_n.to(dev), step_g, pp_g, tables_g),
+            solve.backward_slice_reference(nxt, i, dist_n, rl_n, step_t, pp_d,
+                                           tables),
+            f"latlon_backward_slice NaN {where}")}
+        ins = solve.slice_inputs(i, dist_n, rl_n, step_t, pp_d)
+        n["latlon_action_min"] = same(
+            lam.action_min(nxt.to(dev), *[x.to(dev) for x in ins], tables_g),
+            lam.action_min_reference(nxt, *ins, tables),
+            f"latlon_action_min NaN {where}")
+        if min(n.values()) == 0:
+            raise AssertionError(f"NaN {where}: a DP kernel met no NaN")
+        print(f"NaN in the DP {where.replace('_', ' ')}: the fused slice and "
+              "the action-min bit-equal to the plain versions on the CPU "
+              "(NaN equal to NaN); cells with a NaN: "
+              + ", ".join(f"{k} {v}" for k, v in n.items()))
+    for LD, SD in ((1, 20), (21, 13)):
+        occ, rl, step, ppl, env, start = poly_lat_scene(LD, SD, 201,
+                                                        LD + SD)
+        a = tuple(torch.as_tensor(np.asarray(x)).to(dev) for x in (
+            occ, poly_lat_nan_bounds(rl), np.array([step], np.float32), ppl,
+            env, start)) + (LD, SD, 201)
+        got = plk.sweep_select(*a)
+        sweep_check(plk, a, f"NaN lane bounds {LD} x {SD}", got)
+        n_nan = int(torch.isnan(got[1]).sum())
+        if not 0 < n_nan < LD * SD:
+            raise AssertionError(f"poly_lat_sweep_select NaN lane bounds "
+                                 f"{LD} x {SD}: {n_nan} NaN costs")
+        print(f"NaN lane bounds, poly_lat_sweep_select {LD} x {SD}: {n_nan} "
+              f"of {LD * SD} costs NaN as in the plain version, cd bit-equal, "
+              f"the winner {int(got[2])} and its cost the plain selection's")
+    clean = []
+    for LD, SD in ((1, 20), (21, 13)):
+        base = poly_lat_scene(LD, SD, 201, LD + SD)
+        init = min(LD // 2 + 1, LD - 1) * SD + SD - 1
+        for case in SELECT_EDGES:
+            occ, rl, step, ppl, env, start = poly_lat_select_edge(base, SD,
+                                                                  case)
+            a = tuple(torch.as_tensor(np.asarray(x)).to(dev) for x in (
+                occ, rl, np.array([step], np.float32), ppl, env, start)) + (
+                LD, SD, 201)
+            what = f"selection edge {case} {LD} x {SD}"
+            cd, tc, best, cost = got = plk.sweep_select(*a)
+            sweep_check(plk, a, what, got)
+            tc = tc.flatten()
+            reached = {
+                "empty": bool((cd == 1000.0).all()),
+                "infeasible": bool((tc.float() >= 1e6).all()),
+                "nan_init": bool(torch.isnan(tc[init]))
+                and not bool(torch.isnan(tc).all()),
+                "nan_all": bool(torch.isnan(tc).all()) and int(best) == init
+                and float(cost) == float("inf")}[case]
+            if not reached:
+                raise AssertionError(f"poly_lat_sweep_select {what}: the "
+                                     "scene missed its edge")
+            print(f"poly_lat_sweep_select {what}: {int(torch.isnan(tc).sum())}"
+                  f" NaN costs, {int((cd == 1000.0).sum())} tied cd = 1000; "
+                  f"the winner {int(best)} (first update {init}) and its cost "
+                  f"{float(cost)} the plain selection's on the kernel's maps")
+            if case in ("empty", "infeasible"):
+                clean.append((what, a))
+    sweep_parent_check(plk, clean, parent_csrc, ())
+
 
 def fas_seeded_phase(tlk, plk, dev, mhz, parent_csrc=None):
     """``--kernels-only``: the forward and reeval passes of a seeded solve
-    at the demo width (A=20) and at A=7, and the sweep seeded at 1 x 20 and
-    21 x 13, against the plain versions (the forward bit for bit, the
-    sweep's cost to SWEEP_RTOL) and (with ``parent_csrc``) another
-    version's kernels, timed in turns; the two profiling instantiations'
-    "phases" lines."""
+    at the demo width (A=20) and at A=7, and the sweep with its selection
+    seeded at 1 x 20, 21 x 13 and 5 x 11, against the plain versions (the
+    forward bit for bit, the sweep's cost to SWEEP_RTOL, the winner
+    exactly) and (with ``parent_csrc``) another version's kernels, timed in
+    turns; the two profiling
+    instantiations' "phases" lines."""
     import torch
     from tpl_tpu_torch.scenes import LON_DEMO, lon_nodes, lon_scene, \
         lon_shifted_start, poly_lat_scene
@@ -2941,21 +3237,17 @@ def fas_seeded_phase(tlk, plk, dev, mhz, parent_csrc=None):
     forward_parent_check(tlk, fwd_cases, parent_csrc, None)
     forward_phase_line(tlk, "seeded A=20", fwd_cases[0][1], mhz)
     sweep_cases = []
-    for LD, SD in ((1, 20), (21, 13)):
+    for LD, SD in ((1, 20), (21, 13), (5, 11)):
         occ, rl, step, ppl, env, start = poly_lat_scene(LD, SD, 201,
                                                         LD + SD)
         a = on(occ, rl, np.array([step], np.float32), ppl, env, start) + (
             LD, SD, 201)
-        cd, tc = plk.sweep(*a)
-        cd_w, tc_w = plk.evaluate_reference(*a)
-        rel = float(torch.max(torch.abs(tc - tc_w) / torch.abs(tc_w)))
-        if not (torch.equal(cd, cd_w) and rel <= SWEEP_RTOL):
-            raise AssertionError(f"poly_lat_sweep seeded {LD} x {SD}: "
-                                 "kernel and plain differ")
+        sweep_check(plk, a, f"seeded {LD} x {SD}")
         sweep_cases.append((f"seeded {LD} x {SD}", a))
-    print("poly_lat_sweep: the seeded sweeps (1 x 20, 21 x 13) against the "
-          f"plain version: cd bit-equal, cost within {SWEEP_RTOL}")
-    sweep_parent_check(plk, sweep_cases, parent_csrc, None)
+    print("poly_lat_sweep_select: the seeded sweeps (1 x 20, 21 x 13, "
+          "5 x 11) against the plain versions: cd bit-equal, cost within "
+          f"{SWEEP_RTOL}, the winner and its cost the plain selection's")
+    sweep_parent_check(plk, sweep_cases, parent_csrc, ())
     sweep_phase_line(plk, "seeded 1 x 20", sweep_cases[0][1], mhz)
 
 
@@ -3133,111 +3425,79 @@ def fas_kernel_phase(tlk, plk, rmp, recs, dev, cycles, mhz,
         bound=tlk.forward_bound_ms(Sr, Vr, Ar, Pr, Tr),
         chain=tlk.forward_chain_ms(Tr, cycles, mhz), reeval_ms=reeval_ms)
 
-    # the candidate sweep: seeded at 1 x 20 and 21 x 13, and each loop's:
-    # the collision distance exactly, the float64 cost to SWEEP_RTOL
+    # the candidate sweep and its selection: seeded at 1 x 20 and 21 x 13,
+    # and each loop's: the collision distance exactly, the float64 cost to
+    # SWEEP_RTOL, the winner and its cost the plain selection's
+    row = "poly_lat_sweep_select"
     cases = []
     for LD, SD in ((1, 20), (21, 13)):
         occ, rl, step, ppl, env, start = poly_lat_scene(LD, SD, 201,
                                                         LD + SD)
         cases.append(("seeded", on(dev, occ, rl, np.array([step], np.float32),
                                    ppl, env, start) + (LD, SD, 201)))
-    cases += [(loop, recs[loop]["poly_lat_sweep"][0]) for loop in loops]
+    cases += [(loop, recs[loop][row][0]) for loop in loops]
     for loop, a in cases:
-        cd, tc = plk.sweep(*a)
-        cd_w, tc_w = plk.evaluate_reference(*a)
-        e = float(torch.max(torch.abs(cd - cd_w)))
-        rel = float(torch.max(torch.abs(tc - tc_w)
-                              / torch.clamp(torch.abs(tc_w), min=1e-300)))
-        note("poly_lat_sweep", key(loop), e)
-        note("poly_lat_sweep", key(loop, "cost_rel"), rel)
-        print(f"poly_lat_sweep check, {loop} {a[6]} x {a[7]}: max|cd "
-              f"kernel-plain| {e:.3e}, max rel cost {rel:.3e}, cost dtype "
-              f"{tc.dtype}")
-        if e != 0.0 or rel > SWEEP_RTOL or tc.dtype != torch.float64:
-            raise AssertionError(f"poly_lat_sweep {loop}: kernel and plain "
-                                 "differ")
+        e, rel = sweep_check(plk, a, f"{loop} {a[6]} x {a[7]}")
+        note(row, key(loop), e)
+        note(row, key(loop, "cost_rel"), rel)
+        print(f"poly_lat_sweep_select check, {loop} {a[6]} x {a[7]}: max|cd "
+              f"kernel-plain| {e:.3e}, max rel cost {rel:.3e}, the plain "
+              f"selection's winner and cost")
     sweep_cases = [(f"{loop} {a[6]} x {a[7]}", a) for loop, a in cases]
-    res["poly_lat_sweep"]["parent"] = sweep_parent_check(
-        plk, sweep_cases, parent_csrc, sweep_cases[2][0])
-    res["poly_lat_sweep"]["phases_us"] = sweep_phase_line(
-        plk, "FAS loop replan", recs["fas"]["poly_lat_sweep"][0], mhz)
-    occ_r, rl_r, step_r, ppl_r, env_r, start_r, LD, SD, Sl = \
-        recs["fas"]["poly_lat_sweep"][0]
-    cd_o = torch.empty((LD, SD), dtype=torch.float32, device=dev)
-    tc_o = torch.empty((LD, SD), dtype=torch.float64, device=dev)
-    inv = plk._hermite_inv(dev)
+    a_fas, a_lat = recs["fas"][row][0], recs["lattice"][row][0]
+    parent = sweep_parent_check(plk, sweep_cases, parent_csrc,
+                                (sweep_cases[2][0], sweep_cases[3][0]))
+    res[row]["parent"] = parent and {
+        "fas": parent[sweep_cases[2][0]],
+        "lattice": parent[sweep_cases[3][0]]}
+    res[row]["phases_us"] = sweep_phase_line(plk, "FAS loop replan", a_fas,
+                                             mhz)
+    occ_r, rl_r, step_r, ppl_r, env_r, start_r, LD, SD, Sl = a_fas
     plib = plk._kernel()
-    TE, SE, LE = occ_r.shape
-    def sweep_bare(s=stream):
-        return plib.poly_lat_sweep(
-            occ_r.data_ptr(), rl_r.data_ptr(), step_r.data_ptr(),
-            ppl_r.data_ptr(), env_r.data_ptr(), start_r.data_ptr(),
-            inv.data_ptr(), cd_o.data_ptr(), tc_o.data_ptr(), LD, SD, Sl, TE,
-            SE, LE, rl_r.shape[0], s)
-
+    bare = raising(sweep_launch(plib, a_fas, plk._hermite_inv(dev),
+                                sweep_buffers(a_fas)))
     ms, wrapper_ms = launcher_times(
-        "poly_lat_sweep", f"FAS loop replan ({LD} x {SD} x {Sl})",
-        sweep_bare, lambda: plk.sweep(*recs["fas"]["poly_lat_sweep"][0]),
-        100)
-    res["poly_lat_sweep"]["graph_ms"] = graph_ms(raising(sweep_bare))
-    lat_a = recs["lattice"]["poly_lat_sweep"][0]
-    res["poly_lat_sweep"].update(
-        ms=ms, wrapper_ms=wrapper_ms,
-        plain_ms=cuda_ms(lambda: plk.evaluate_reference(
-            *recs["fas"]["poly_lat_sweep"][0]), 3),
-        lattice_wrapper_ms=cuda_ms(lambda: plk.sweep(*lat_a), 50),
-        bound=plk.bound_ms(LD, SD, Sl, rl_r.shape[0],
-                           min(TE * SE * LE, 9 * LD * SD * Sl)),
-        chain=plk.chain_ms(Sl, cycles, mhz),
-        lattice_bound_ms=plk.bound_ms(
-            lat_a[6], lat_a[7], lat_a[8], lat_a[1].shape[0],
-            min(lat_a[0].numel(), 9 * lat_a[6] * lat_a[7] * lat_a[8]))[0])
+        row, f"FAS loop replan ({LD} x {SD} x {Sl})", lambda: bare(stream),
+        lambda: plk.sweep_select(*a_fas), 100)
+    res[row]["graph_ms"] = graph_ms(bare)
+    res[row]["lattice_graph_ms"] = graph_ms(raising(sweep_launch(
+        plib, a_lat, plk._hermite_inv(dev), sweep_buffers(a_lat))))
+    print(f"poly_lat_sweep_select from CUDA graphs (device time a launch): "
+          f"FAS loop {LD} x {SD} {res[row]['graph_ms']:.4f} ms, lattice loop "
+          f"{a_lat[6]} x {a_lat[7]} {res[row]['lattice_graph_ms']:.4f} ms")
+    i_lv = plk.PL_PP_KEYS.index("length_veh")
 
-    # the selection: the winner exactly, the cost's difference measured
-    rng = np.random.default_rng(0)
-    cases = [(loop, recs[loop]["poly_lat_select"][0]) for loop in loops]
-    for trial in range(20):
-        cd = rng.uniform(0.0, 60.0, (21, 13)).astype(np.float32)
-        cd[rng.random((21, 13)) < 0.3] = 1000.0
-        tc = rng.uniform(0.0, 100.0, (21, 13))
-        tc[rng.random((21, 13)) < 0.2] = 1e7
-        cases.append(("seeded", on(dev, cd, tc, np.float32([2.0]))
-                      + (21, 13)))
-    for loop, a in cases:
-        got = plk.select_device(*a)
-        want = plk.select_reference(*cpu(a))
-        if int(got[0]) != int(want[0]):
-            raise AssertionError(f"poly_lat_select {loop}: winner "
-                                 f"{int(got[0])} != {int(want[0])}")
-        note("poly_lat_select", key(loop),
-             abs(float(got[1]) - float(want[1])))
-    r = res["poly_lat_select"]
-    print(f"poly_lat_select check: the FAS loop's (1 x 20), the lattice "
-          f"loop's (21 x 13) and 20 seeded 21 x 13 maps: the plain "
-          f"version's winner on all; max|cost kernel-plain| {r['err']:.3e} "
-          f"(seeded, FAS loop), {r['lattice_err']:.3e} (lattice loop)")
-    if max(r.values()) != 0.0:
-        raise AssertionError("poly_lat_select: kernel and plain differ")
-    cd_s, tc_s, lv_s, LD, SD = recs["fas"]["poly_lat_select"][0]
-    best = torch.empty((), dtype=torch.int64, device=dev)
-    cost = torch.empty((), dtype=torch.float32, device=dev)
-    def select_bare(s=stream):
-        return plib.poly_lat_select(cd_s.data_ptr(), tc_s.data_ptr(),
-                                    lv_s.data_ptr(), best.data_ptr(),
-                                    cost.data_ptr(), LD, SD, s)
+    def plain(a):
+        cd, tc = plk.evaluate_reference(*a)
+        return plk.select_reference(cd, tc, a[3][i_lv], a[6], a[7])
 
-    ms, wrapper_ms = launcher_times(
-        "poly_lat_select", f"FAS loop replan ({LD} x {SD})", select_bare,
-        lambda: plk.select_device(cd_s, tc_s, lv_s, LD, SD), 100)
-    res["poly_lat_select"]["graph_ms"] = graph_ms(raising(select_bare))
-    lat_a = recs["lattice"]["poly_lat_select"][0]
-    res["poly_lat_select"].update(
-        ms=ms, wrapper_ms=wrapper_ms,
-        plain_ms=cuda_ms(lambda: plk.select_reference(cd_s, tc_s, lv_s, LD,
-                                                      SD), 10),
-        lattice_wrapper_ms=cuda_ms(lambda: plk.select_device(*lat_a), 100),
-        bound=plk.select_bound_ms(LD, SD),
-        chain=plk.select_chain_ms(LD, SD, cycles, mhz))
+    def updates(a):
+        cd, tc = plk.sweep_select(*a)[:2]
+        return plk.selection_updates(cd, tc, a[3][i_lv], a[6], a[7])
+
+    def chain(a):
+        return plk.sweep_select_chain_ms(a[6], a[7], a[8], updates(a), cycles,
+                                         mhz)
+
+    def bound(a):
+        return plk.bound_ms(a[6], a[7], a[8], a[1].shape[0],
+                            min(a[0].numel(), 9 * a[6] * a[7] * a[8]))
+
+    res[row].update(
+        ms=ms, wrapper_ms=wrapper_ms, plain_ms=cuda_ms(lambda: plain(a_fas),
+                                                       3),
+        lattice_wrapper_ms=cuda_ms(lambda: plk.sweep_select(*a_lat), 50),
+        bound=bound(a_fas), chain=chain(a_fas),
+        sweep_chain_ms=plk.chain_ms(Sl, cycles, mhz),
+        lattice_bound_ms=bound(a_lat)[0], lattice_chain_ms=chain(a_lat),
+        selection_updates={"fas": updates(a_fas), "lattice": updates(a_lat)})
+    print(f"poly_lat_sweep_select: bound {res[row]['bound'][0]:.6f} ms "
+          f"({res[row]['bound'][1]}), sweep_select_chain_ms "
+          f"{res[row]['chain']:.6f} (the sweep's chain alone "
+          f"{res[row]['sweep_chain_ms']:.6f}; {res[row]['selection_updates']}"
+          f" selection updates), lattice bound "
+          f"{res[row]['lattice_bound_ms']:.6f}, chain "
+          f"{res[row]['lattice_chain_ms']:.6f}")
 
     # the rampify start mode (seeded, and each loop's at its path step), and
     # the RSTP mode of the same source, bit for bit
@@ -5134,12 +5394,17 @@ def main(argv=()):
                     help="build, then cProfile TICKS ticks of the vendored "
                     "RSTP loop with the host C routes off and on; prints "
                     "the leading functions and no result line")
+    ap.add_argument("--dp-first-replan", metavar="DIR", default=None,
+                    help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if opts.dp_first_replan is not None:
+        dp_first_replan_child(opts.dp_first_replan)
+        return 0
     import tpl_tpu_torch
     from tpl_tpu_torch import _build
     from tpl_tpu_torch import _latency as lat
@@ -5206,7 +5471,8 @@ def main(argv=()):
               opts.parent_csrc)
         phase("lon DP forward and lateral sweep", fas_seeded_phase, tlk,
               plk, dev, mhz, opts.parent_csrc)
-        phase("NaN rule", nan_rule_phase, tlk, lam, tllk, dev)
+        phase("NaN rule", nan_rule_phase, tlk, lam, tllk, plk, dev,
+          opts.parent_csrc)
         phase("graph DP kernels", dp_poly_kernel_phase, dpe, ppk,
               dp_standin_first(dpe, ppk, dev), dev, cycles, mhz,
               opts.parent_csrc)
@@ -5214,6 +5480,8 @@ def main(argv=()):
         return 0
     phase("DP slice", slice_phase, lam, tllk)
     loop = phase("DP closed loop", closed_loop_phase, lam, itm)
+    dp_first = phase("DP first replan", dp_first_replan_phase,
+                     opts.parent_csrc)
     (ilqr_err, (ilqr_ms, ilqr_wrapper_ms, ilqr_plain_ms), mpc_its,
      single_us) = phase("tracking-MPC kernel", ilqr_phase, itm,
                         loop["picked"], dev, mhz, opts.parent_csrc)
@@ -5243,7 +5511,8 @@ def main(argv=()):
     fk = phase("FAS kernels", fas_kernel_phase, tlk, plk, rmp,
                {"fas": fas["rec"], "lattice": lattice["rec"]}, dev, cycles,
                mhz, opts.parent_csrc)
-    phase("NaN rule", nan_rule_phase, tlk, lam, tllk, dev)
+    phase("NaN rule", nan_rule_phase, tlk, lam, tllk, plk, dev,
+          opts.parent_csrc)
     idm = phase("IDM closed loop, country_overtake", rollout_loop_phase, idk,
                 pok, IDM, ROLLOUT_TICKS)
     poly = phase("poly sampling closed loop, country_follow",
@@ -5326,6 +5595,11 @@ def main(argv=()):
          "max_abs_err": am["fused"]["err"], "ms": am["fused"]["ms"],
          "wrapper_ms": am["fused"]["wrapper_ms"],
          "plain_ms": am["fused"]["plain_ms"]}]
+    # the DP loop's first replan (its tick's wall; the kernel phase has
+    # launched the library's kernels before it) and, with a parent source,
+    # in fresh processes
+    rows[0].update(first_replan_tick_ms=loop["first_replan_ms"],
+                   fresh_first_replan_ms=dp_first)
     for row in rows:
         (ms, by), chain = bounds[row["name"]]
         row.update(route="cuda", bound_ms=ms, bound_by=by, chain_ms=chain,
@@ -5412,6 +5686,13 @@ def main(argv=()):
                        parent_ms=r["parent"])
         if "phases_us" in r:
             row.update(phases_us=r["phases_us"], parent_ms=r["parent"])
+        # the sweep's: the lattice loop's grid from CUDA graphs, the sweep's chain alone, the lattice loop's
+        # bounds, the selection's updates on each loop's first replan
+        for k in ("lattice_graph_ms", "sweep_chain_ms",
+                  "lattice_bound_ms", "lattice_chain_ms",
+                  "selection_updates"):
+            if k in r and k not in row:
+                row[k] = r[k]
         # each loop's first replan (runtime_dp; the libraries load their
         # code when bound)
         row.update(first_replan_ms=fas["replan_ms"][0],

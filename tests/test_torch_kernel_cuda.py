@@ -64,8 +64,10 @@ from tpl_tpu_torch.scenes import (LON_DEMO, LON_EDGE, MPC_TIME_KINDS,
                                   idm_args, idm_bench_scene,
                                   idm_hairpin_scene, idm_scene,
                                   idm_through_states, lon_nodes, lon_scene,
-                                  lon_shifted_start, mpc_time_case, poly_lat_scene, poly_scene,
-                                  rampify_args)
+                                  lon_nan_values, lon_shifted_start,
+                                  mpc_time_case, NAN_VALUES, poly_lat_scene,
+                                  poly_lat_nan_bounds, poly_lat_select_edge,
+                                  poly_scene, rampify_args, SELECT_EDGES)
 import tpl_tpu_torch
 
 COST_RTOL, COST_ATOL = 1e-6, 1e-3
@@ -1214,10 +1216,10 @@ def test_poly_lat_sweep_kernel_matches_plain(cuda, LD, SD, S):
     step = np.array([step], np.float32)
     want_cd, want_tc = plk.evaluate_reference(
         *_on("cpu", occ, rl, step, pp, env, start), LD, SD, S)
-    before = plk.sweep_launches
+    before = plk.launches
     cd, tc = plk.sweep(*_on(cuda, occ, rl, step, pp, env, start), LD, SD, S)
     torch.cuda.synchronize()
-    assert plk.sweep_launches == before + 1
+    assert plk.launches == before + 1
     assert (cd.dtype, tc.dtype) == (torch.float32, torch.float64)
     assert torch.equal(cd.cpu(), want_cd)
     np.testing.assert_allclose(tc.cpu().numpy(), want_tc.numpy(), rtol=1e-12,
@@ -1227,33 +1229,133 @@ def test_poly_lat_sweep_kernel_matches_plain(cuda, LD, SD, S):
 @pytest.mark.cuda
 def test_poly_lat_sweep_profile_is_bit_equal(cuda):
     """The sweep's profiling instantiation: the plain instantiation's
-    results bit for bit, every phase counted."""
+    results (the maps, the winner and its cost) bit for bit, every phase
+    counted, the selection's too."""
     LD, SD, S = 1, 20, 201
     occ, rl, step, pp, env, start = poly_lat_scene(LD, SD, S, 9)
     a = _on(cuda, occ, rl, np.array([step], np.float32), pp, env, start)
-    cd, tc, phases = plk.sweep_profile(*a, LD, SD, S)
-    cd0, tc0 = plk.sweep(*a, LD, SD, S)
-    assert torch.equal(cd, cd0) and torch.equal(tc, tc0)
+    *got, phases = plk.sweep_profile(*a, LD, SD, S)
+    want = plk.sweep_select(*a, LD, SD, S)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
     assert set(phases) == set(plk.SWEEP_PHASES)
     assert all(v > 0 for v in phases.values())
 
 
 @pytest.mark.cuda
-def test_poly_lat_select_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(0)
-    for LD, SD in ((21, 13), (1, 20), (4, 3)):
-        for trial in range(10):
-            cd = rng.uniform(0.0, 60.0, (LD, SD)).astype(np.float32)
-            cd[rng.random((LD, SD)) < 0.3] = 1000.0
-            tc = rng.uniform(0.0, 100.0, (LD, SD))
-            tc[rng.random((LD, SD)) < 0.2] = 1e7
-            lv = np.array([2.0], np.float32)
-            want = plk.select_reference(*_on("cpu", cd, tc, lv), LD, SD)
-            before = plk.select_launches
-            got = plk.select_device(*_on(cuda, cd, tc, lv), LD, SD)
-            assert plk.select_launches == before + 1
-            assert int(got[0]) == int(want[0]) and float(got[1]) == float(
-                want[1]), (LD, SD, trial)
+@pytest.mark.parametrize("case", ("clean", "nan") + SELECT_EDGES)
+def test_poly_lat_select_kernel_matches_plain(cuda, case):
+    """The sweep's last block's selection at 21 x 13, 1 x 20, 4 x 3 and
+    5 x 11 on seeded scenes: clean, with NaN lane bounds
+    (``poly_lat_nan_bounds``: NaN costs) and driven into each of its edges
+    (``poly_lat_select_edge``: every collision distance tied, every cost
+    past the feasibility limit, the first update's cost NaN, every cost NaN
+    so that the winner stays the first update's index at cost inf).  The
+    winner and its cost are the plain selection's on the kernel's own
+    maps, and the maps the plain sweep's; one launch each."""
+    for LD, SD in ((21, 13), (1, 20), (4, 3), (5, 11)):
+        S = 61
+        scene = poly_lat_scene(LD, SD, S, LD + SD)
+        occ, rl, step, pp, env, start = scene
+        if case == "nan":
+            rl = poly_lat_nan_bounds(rl)
+        elif case != "clean":
+            occ, rl, step, pp, env, start = poly_lat_select_edge(scene, SD,
+                                                                 case)
+        a = (occ, rl, np.array([step], np.float32), pp, env, start)
+        want_cd, want_tc = plk.evaluate_reference(*_on("cpu", *a), LD, SD, S)
+        before = plk.launches
+        cd, tc, best, cost = plk.sweep_select(*_on(cuda, *a), LD, SD, S)
+        torch.cuda.synchronize()
+        assert plk.launches == before + 1
+        assert torch.equal(cd.cpu(), want_cd)
+        assert torch.equal(torch.isnan(tc.cpu()), torch.isnan(want_tc))
+        np.testing.assert_allclose(tc.cpu().numpy(), want_tc.numpy(),
+                                   rtol=1e-12, atol=0)
+        want_b, want_c = plk.select_reference(
+            cd.cpu(), tc.cpu(), pp[plk.PL_PP_KEYS.index("length_veh")],
+            LD, SD)
+        assert int(best) == int(want_b), (LD, SD)
+        assert float(cost) == float(want_c), (LD, SD)
+        nan = torch.isnan(tc.cpu()).flatten()
+        init = min(LD // 2 + 1, LD - 1) * SD + SD - 1
+        if case == "nan":
+            assert nan.any() and not nan.all()
+        elif case == "empty":
+            assert (cd == 1000.0).all()
+        elif case == "infeasible":
+            assert (tc.float() >= 1e6).all()
+        elif case == "nan_init":
+            assert nan[init] and not nan.all()
+        elif case == "nan_all":
+            assert nan.all() and int(best) == init
+            assert float(cost) == float("inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", NAN_VALUES)
+def test_lon_kernels_nan_value_match_plain(cuda, where):
+    """``lon_scene(41, 13, 5, 90, 5)`` with a NaN in the distance map or in
+    the path's v_max (``lon_nan_values``): the final slice and slice T - 2
+    from the clean next slice, the forward pass and the reeval pass of the
+    clean trajectory over clean nodes, on the card against the plain
+    versions on the CPU, NaN equal to NaN (the terms keep it)."""
+    T, S, V, A, P = 5, 41, 13, 5, 90
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, S + A)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    traj = tlk.forward_reference(nodes, *_on("cpu", pp, path, dist),
+                                 torch.from_numpy(x0))
+    traj = torch.cat([traj, traj[-2:]])
+    path, dist = lon_nan_values(path, dist, where)
+    args = _on("cpu", pp, path, dist)
+    args_g = _on(cuda, pp, path, dist)
+    for i, last in ((T - 1, True), (T - 2, False)):
+        nxt = nodes[min(i + 1, T - 1)]
+        want = tlk.backward_slice_reference(nxt, *args, i, last)
+        got = tlk.backward_slice(nxt.to(cuda), *args_g, i, last)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert torch.isnan(want).any()
+    want = tlk.forward_reference(nodes, *args, torch.from_numpy(x0))
+    got = tlk.forward(nodes.to(cuda), *args_g, torch.from_numpy(x0).to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert torch.isnan(want).any()
+    want = tlk.reeval_reference(nodes, *args, traj)
+    got = tlk.reeval_pass(nodes.to(cuda), *args_g, traj.to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert torch.isnan(want).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["distance", "lane_bounds"])
+def test_action_min_and_fused_slice_nan_value_match_plain(cuda, where):
+    """Slice T - 2 of the seeded 61 x 9 x 11 scene from its clean final
+    slice, with NaN cells in the DP distance map or NaN lane bounds: the
+    fused slice, and the action-min on the slice's inputs, on the card
+    against their plain versions on the CPU, NaN equal to NaN."""
+    S, DS, L, T = 61, 9, 11, 6
+    i = T - 2
+    (solve, dist_x, rl, step, pp), (solve_g, _, _, step_g, pp_g) = [
+        _slice_scene(dev, S, DS, L, T, S + T) for dev in ("cpu", cuda)]
+    nxt = solve.final_slice(dist_x, rl, step, pp)
+    dist_x, rl = dist_x.clone(), rl.clone()
+    if where == "distance":
+        dist_x[i, 20:22, L // 2 + 1] = float("nan")
+    else:
+        rl[40:44, 5] = float("nan")
+        rl[80:82, 6] = float("nan")
+    tables = solve.action_tables(pp)
+    want = solve.backward_slice_reference(nxt, i, dist_x, rl, step, pp,
+                                          tables).numpy()
+    assert np.isnan(want).any()
+    got = solve_g.backward_slice(nxt.to(cuda), i, dist_x.to(cuda),
+                                 rl.to(cuda), step_g, pp_g,
+                                 solve_g.action_tables(pp_g))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    ins = solve.slice_inputs(i, dist_x, rl, step, pp)
+    want = lam.action_min_reference(nxt, *ins, tables).numpy()
+    got = lam.action_min(nxt.to(cuda), *[a.to(cuda) for a in ins],
+                         solve_g.action_tables(pp_g))
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.cuda
@@ -1281,9 +1383,9 @@ def test_rampify_start_mode_matches_plain_bit_for_bit(cuda, H):
 @pytest.mark.cuda
 def test_chain_replan_launch_counts(cuda):
     """One replan of the chain on the card at the demo set's widths: one
-    sweep, one selection, one rampify scan, T - 1 backward slices and one
-    forward pass; the same winner and trajectory as the plain chain on the
-    CPU."""
+    launch of the sweep and its selection, one rampify scan, T - 1 backward
+    slices and one forward pass; the same winner and trajectory as the
+    plain chain on the CPU."""
     import tpl_tpu_torch
     from tpl_tpu_torch.planning.dyn_prog.dp_environment import (
         DpEnvironment, DpEnvParams)
@@ -1322,17 +1424,15 @@ def test_chain_replan_launch_counts(cuda):
         for dev in ("cpu", "cuda"):
             tpl_tpu_torch.use_device(dev)
             env = straight_env()
-            counts = (plk.sweep_launches, plk.select_launches,
-                      rstp_rampify.start_launches, tlk.backward_launches,
-                      tlk.forward_launches)
+            counts = (plk.launches, rstp_rampify.start_launches,
+                      tlk.backward_launches, tlk.forward_launches)
             out[dev] = tpck.ChainRunner().replan(env, lat, lon, start, old, 0,
                                                  x0, prev)
             counts = tuple(a - b for a, b in zip(
-                (plk.sweep_launches, plk.select_launches,
-                 rstp_rampify.start_launches, tlk.backward_launches,
-                 tlk.forward_launches), counts))
-            want = (0, 0, 0, 0, 0) if dev == "cpu" else (
-                1, 1, 1, lon.t_steps - 1, 1)
+                (plk.launches, rstp_rampify.start_launches,
+                 tlk.backward_launches, tlk.forward_launches), counts))
+            want = (0, 0, 0, 0) if dev == "cpu" else (
+                1, 1, lon.t_steps - 1, 1)
             assert counts == want, (dev, counts)
     finally:
         tpl_tpu_torch.use_device("cuda")
@@ -1506,14 +1606,18 @@ def test_poly_sampling_kernel_selection_nan_and_tie(cuda, case):
 
 @pytest.mark.cuda
 def test_one_launch_kernels_replay_from_a_cuda_graph(cuda):
-    """The poly grid and the propagation captured in a CUDA graph and
-    replayed three times: each replay's results those of a direct launch,
-    and the stream's arrival counter back at 0 after each."""
+    """The poly grid, the propagation and the lateral sweep with its
+    selection captured in a CUDA graph and replayed three times: each
+    replay's results those of a direct launch, and the stream's arrival
+    counter back at 0 after each."""
     from tpl_tpu_torch import _build
 
     start, path, obs, pp = poly_scene(bench=True)
     a = psp.device_inputs(start, path, obs, pp, cuda)
     want = [x.clone() for x in pok.run(*a)]
+    lat = _on(cuda, *poly_lat_scene(21, 13, 61, 3)[:2],
+              np.array([0.5], np.float32), *poly_lat_scene(21, 13, 61, 3)[3:])
+    want_lat = [x.clone() for x in plk.sweep_select(*lat, 21, 13, 61)]
     node_pts, edge_steps = dp_poly_propagation_case(0, n1=300, e2=20_000)
     bufs = dp_poly_buffers(node_pts, edge_steps, cuda)
     ppk.propagate_and_backtrack(*bufs)
@@ -1530,13 +1634,16 @@ def test_one_launch_kernels_replay_from_a_cuda_graph(cuda):
     with torch.cuda.graph(g, stream=side):
         got = pok.run(*a)
         ppk.propagate_and_backtrack(*bufs)
+        got_lat = plk.sweep_select(*lat, 21, 13, 61)
     for _ in range(3):
         for i in (1, 2, 6):
             bufs[i].zero_()
+        for x in got_lat:
+            x.zero_()
         g.replay()
         torch.cuda.synchronize()
         assert int(counter.item()) == 0
-        for x, y in zip(got, want):
+        for x, y in zip([*got, *got_lat], want + want_lat):
             assert torch.equal(x, y)
         for i, w in zip((1, 2, 6), want_prop):
             assert torch.equal(torch.nan_to_num(bufs[i]), torch.nan_to_num(w))

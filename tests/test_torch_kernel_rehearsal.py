@@ -71,9 +71,16 @@ ties (where that body's selection picks another winner); the NaN rule of
 the lon DP's backward slice and forward pass, the action-min and the fused
 slice on next slices with a NaN row, against the plain versions and
 against 2dd76fb's bodies (``PARENTS``), which dropped the NaN and agree on
-every node without one; the two-warp lon forward pass and the redesigned
-lateral sweep against 2dd76fb's bodies and their profiling
-instantiations.  Grids and
+every node without one; a NaN in a value input (the path distance map,
+the path's v_max, a DP distance cell, a lane bound), which the repaired
+terms keep as the plain versions do, against the plain versions and
+92bf3da's bodies (also in ``PARENTS``), which dropped it; the two-warp lon
+forward pass and the redesigned lateral sweep against 2dd76fb's bodies and
+their profiling instantiations; the sweep and its selection in one launch
+(the last block to arrive selects, on a warp's lanes or on one thread)
+with its blocks in seeded orders against the plain versions and 92bf3da's
+two launches bit for bit, and the last block's selection on given maps
+with NaN and tied values.  Grids and
 graphs are kept small: every block costs barriers of 256 host threads,
 which crawl when the machine is busy.
 
@@ -1085,6 +1092,990 @@ poly_lat_sweep_kernel(const float* __restrict__ occ,
   }
 }
 }  // namespace poly_lat_parent
+
+// The bodies of 92bf3da that this tree changed, over the tree's helpers:
+// the lon DP's terms with its backward slice and forward pass, the DP
+// action-min's selection with its two kernels (which dropped a NaN of the
+// distance map, the path's v_max or the lane bounds in their terms), and
+// the lateral sweep and its selection, two launches then.  The NaN value
+// tests show them failing where the tree's bodies follow the plain
+// versions, and the tree's bodies bit-equal to them elsewhere.  (Their
+// calls of the helpers copied here are qualified: an argument of the
+// tree's namespace would find the tree's helper too.)
+namespace lon_dp_92bf3da {
+using namespace lon_dp;
+
+__device__ __forceinline__ StateTerms state_terms(const float* pp, float s,
+                                                  float v, float a,
+                                                  float s_dist, float v_max) {
+  StateTerms r;
+  r.cost = (pp[W_A] * (a * a) + pp[W_PROGRESS] * fabsf(1000.0f - s))
+      + pp[W_SAFETY_DIST]
+            * fmaxf(v * pp[TIME_GAP] + pp[GAP_MIN] - s_dist, 0.0f);
+  r.constr = fmaxf(v - v_max, 0.0f);
+  return r;
+}
+
+// the action's cost and constraint from its looked-up value nn[0..2], the
+// path's v_max at the next s, v_max_n, and the acceleration limits' terms
+__device__ __forceinline__ void action_terms(const float* pp, StateTerms st,
+                                             const float (&nn)[3], float j,
+                                             float dt, const Next& n,
+                                             float s_dist, float v_max_n,
+                                             ALimits al, float* cost_out,
+                                             float* constr_out) {
+  float cost = st.cost + nn[0];
+  float constr = st.constr + nn[1];
+  const float dj = nn[2] - j;
+  cost = cost + pp[W_SNAP] * (dj * dj);
+  const float jd = j * dt;
+  cost = cost + pp[W_J] * (jd * jd);
+  constr = constr + fmaxf(n.vn - v_max_n, 0.0f);
+  constr = constr + fmaxf(n.s_change - s_dist, 0.0f);
+  constr = constr + al.below;
+  constr = constr + al.above;
+  *cost_out = cost;
+  *constr_out = constr;
+}
+
+
+// a block: one v (blockIdx.x) and the s rows s0 .. s0 + tile - 1
+// (blockIdx.y), every a; `box_cap` floats of shared memory for its box
+__global__ void __launch_bounds__(MAX_THREADS, 2)
+lon_backward_kernel(const float4* __restrict__ nodes_next,
+                    const float* __restrict__ pp_in,
+                    const float* __restrict__ path,
+                    const float* __restrict__ dist_path,
+                    float4* __restrict__ out, int S, int V, int A, int P,
+                    int t_idx, bool is_last, int tile, int box_cap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* res = reinterpret_cast<float4*>(smem_raw);      // (tile, A)
+  float* box = reinterpret_cast<float*>(res + tile * A);
+  Coord* tab = reinterpret_cast<Coord*>(box + (box_cap + 3) / 4 * 4);
+  float* vmax = reinterpret_cast<float*>(tab + A * NB);   // (P,)
+  float* s_val = vmax + P;
+  float* s_vmax = s_val + tile;
+  float* s_slack = s_vmax + tile;
+  int* part = reinterpret_cast<int*>(s_slack + tile);     // (warps, 4)
+
+  float pp[N_PP];
+#pragma unroll
+  for (int k = 0; k < N_PP; ++k) pp[k] = pp_in[k];
+  const int tid = threadIdx.x;
+  const int i_v = blockIdx.x;
+  const int s0 = blockIdx.y * tile;
+  const int n_s = mini(tile, S - s0);
+  const float v = axis_point(pp[V_MIN], pp[V_MAX], i_v, V - 1);
+  const float pss = pp[PATH_STEP_SIZE];
+  const float dt = pp[DT];
+
+  int bs0 = 0, rs = 0, plane = 0;
+  bool fits = true;
+  if (!is_last) {
+    // the (a, jerk) table and each warp's extremes of its row shifts and v
+    // rows, then the block's
+    const float s_step_x = (pp[S_MAX] - pp[S_MIN]) * (1.0f / (float)(S - 1));
+    int k_lo = 0x7fffffff, k_hi = -0x7fffffff - 1;
+    int y_lo = 0x7fffffff, y_hi = -0x7fffffff - 1;
+    for (int e = tid; e < A * NB; e += blockDim.x) {
+      const int i_a = e / NB, jb = e - i_a * NB;
+      const float a = axis_point(pp[A_MIN], pp[A_MAX], i_a, A - 1);
+      const float j = axis_point(pp[J_MIN], pp[J_MAX], jb, NB - 1);
+      const Next n = next_state(0.0f, v, a, j, dt);
+      Coord c;
+      c.s_change = n.s_change;
+      c.vn = n.vn;
+      c.f_c = n.s_change / s_step_x;
+      const float k_c = floorf(c.f_c);
+      c.ax_c = c.f_c - k_c;
+      const float y = clampf((n.vn - pp[V_MIN]) / (pp[V_MAX] - pp[V_MIN])
+                             * (float)(V - 1), 0.0f, (float)(V - 1));
+      const float z = clampf((n.an - pp[A_MIN]) / (pp[A_MAX] - pp[A_MIN])
+                             * (float)(A - 1), 0.0f, (float)(A - 1));
+      const float y0f = floorf(y), z0f = floorf(z);
+      const float wy0 = 1.0f - (y - y0f);
+      const float wz0 = 1.0f - (z - z0f);
+      const int y0 = (int)y0f, z0 = (int)z0f;
+      c.o[0] = y0;
+      c.o[1] = mini(y0 + 1, V - 1);
+      c.o[2] = z0;
+      c.o[3] = mini(z0 + 1, A - 1);
+      c.w00 = wy0 * wz0;
+      c.w01 = wy0 * (1.0f - wz0);
+      c.w10 = (1.0f - wy0) * wz0;
+      c.w11 = (1.0f - wy0) * (1.0f - wz0);
+      c.k = (int)k_c;
+      c.al = a_limits(pp, n.an);
+      c.j = j;
+      tab[e] = c;
+      k_lo = mini(k_lo, c.k);
+      k_hi = k_hi > c.k ? k_hi : c.k;
+      y_lo = mini(y_lo, c.o[0]);
+      y_hi = y_hi > c.o[1] ? y_hi : c.o[1];
+    }
+#pragma unroll
+    for (int o = WARP / 2; o > 0; o /= 2) {
+      k_lo = mini(k_lo, __shfl_xor_sync(0xffffffffu, k_lo, o));
+      const int kh = __shfl_xor_sync(0xffffffffu, k_hi, o);
+      k_hi = k_hi > kh ? k_hi : kh;
+      y_lo = mini(y_lo, __shfl_xor_sync(0xffffffffu, y_lo, o));
+      const int yh = __shfl_xor_sync(0xffffffffu, y_hi, o);
+      y_hi = y_hi > yh ? y_hi : yh;
+    }
+    if ((tid & (WARP - 1)) == 0) {
+      int* w = part + 4 * (tid / WARP);
+      w[0] = k_lo;
+      w[1] = k_hi;
+      w[2] = y_lo;
+      w[3] = y_hi;
+    }
+    __syncthreads();
+    for (int w = 0; w < (int)(blockDim.x / WARP); ++w) {
+      k_lo = mini(k_lo, part[4 * w]);
+      k_hi = k_hi > part[4 * w + 1] ? k_hi : part[4 * w + 1];
+      y_lo = mini(y_lo, part[4 * w + 2]);
+      y_hi = y_hi > part[4 * w + 3] ? y_hi : part[4 * w + 3];
+    }
+
+    // the box: the rows every (s, jerk) of the tile reads (clamped as the
+    // lookup clamps them) x the v rows y_lo .. y_hi x every a, one plane
+    // per channel (cost, constraint, jerk); the copies run while the s
+    // rows below are formed
+    bs0 = clampi(s0 + k_lo, 0, S - 1);
+    const int bs1 = clampi(s0 + n_s - 1 + k_hi + 1, 0, S - 1);
+    const int row_len = (y_hi - y_lo + 1) * A;
+    rs = row_stride(row_len);
+    plane = (bs1 - bs0 + 1) * rs;
+    fits = 3 * plane <= box_cap;
+    if (fits)
+      for (int q = tid; q < (bs1 - bs0 + 1) * row_len; q += blockDim.x) {
+        const int r = q / row_len, c = q - r * row_len;
+        const float* src = reinterpret_cast<const float*>(
+            nodes_next + ((bs0 + r) * V + y_lo) * A + c);
+        float* dst = box + r * rs + c;
+        copy4_async(dst, src);
+        copy4_async(dst + plane, src + 1);
+        copy4_async(dst + 2 * plane, src + 2);
+      }
+    // the table's corners as offsets in a box row
+    for (int e = tid; e < A * NB; e += blockDim.x) {
+      int* o = tab[e].o;
+      const int y0 = (o[0] - y_lo) * A, y1 = (o[1] - y_lo) * A;
+      const int z0 = o[2], z1 = o[3];
+      o[0] = y0 + z0;
+      o[1] = y0 + z1;
+      o[2] = y1 + z0;
+      o[3] = y1 + z1;
+    }
+  }
+  // the path's v_max column; the tile's s rows: grid value, v_max there and
+  // the distance map's slack
+  if (!is_last)
+    for (int q = tid; q < P; q += blockDim.x)
+      vmax[q] = path[q * N_PC + PC_VMAX];
+  for (int r = tid; r < n_s; r += blockDim.x) {
+    const float s = axis_point(pp[S_MIN], pp[S_MAX], s0 + r, S - 1);
+    s_val[r] = s;
+    s_vmax[r] = interp_col(path, PC_VMAX, s, pss, P);
+    s_slack[r] = s_dist_at(dist_path, pp, t_idx,
+                           interp_col(path, PC_S, s, pss, P), S);
+  }
+  copies_wait();
+  __syncthreads();
+
+  // a thread per (s, a) of the tile, neighbouring s on neighbouring lanes
+  // (their table entries are one, their box rows neighbours)
+  for (int item = tid; item < n_s * A; item += blockDim.x) {
+    const int i_a = item / n_s, r = item - i_a * n_s;
+    const int i_s = s0 + r;
+    const float s = s_val[r];
+    const float a = axis_point(pp[A_MIN], pp[A_MAX], i_a, A - 1);
+    const float s_dist = s_slack[r];
+    const StateTerms st = lon_dp_92bf3da::state_terms(pp, s, v, a, s_dist, s_vmax[r]);
+    float4& o = res[r * A + i_a];
+    if (is_last) {
+      o = make_float4(st.cost, 0.0f, 0.0f, 0.0f);
+      continue;
+    }
+    if (!fits) {
+      o = make_float4(NAN, NAN, NAN, NAN);
+      continue;
+    }
+    float cost[NB], constr[NB];
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      const Coord& c = tab[i_a * NB + jb];
+      Next n;
+      n.s_change = c.s_change;
+      n.vn = c.vn;
+      n.sn = s + c.s_change;
+      const int rows[2] = {clampi(i_s + c.k, 0, S - 1) - bs0,
+                           clampi(i_s + c.k + 1, 0, S - 1) - bs0};
+      const float ax_row = (float)i_s + c.f_c >= (float)(S - 1) ? 0.0f
+                                                               : c.ax_c;
+      float b[2][3];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float* base = box + rows[q] * rs;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) {
+          const float* p = base + ch * plane;
+          b[q][ch] = ((p[c.o[0]] * c.w00 + p[c.o[1]] * c.w01)
+                      + p[c.o[2]] * c.w10)
+                     + p[c.o[3]] * c.w11;
+        }
+      }
+      float nn[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        nn[q] = b[0][q] * (1.0f - ax_row) + b[1][q] * ax_row;
+      lon_dp_92bf3da::action_terms(pp, st, nn, c.j, dt, n, s_dist,
+                   interp_staged(vmax, n.sn, pss, P), c.al, &cost[jb],
+                   &constr[jb]);
+    }
+    // the plain version's lexicographic minimum (the rule above)
+    float cmin = constr[0];
+    bool nan_c = constr[0] != constr[0];
+#pragma unroll
+    for (int jb = 1; jb < NB; ++jb) {
+      cmin = fminf(cmin, constr[jb]);
+      nan_c = nan_c || constr[jb] != constr[jb];
+    }
+    if (nan_c) cmin = NAN;
+    float best = INFINITY;
+    int jbest = 0;
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      const float cj = constr[jb] <= cmin ? cost[jb] : INFINITY;
+      if (cj < best || (cj != cj && best == best)) {
+        best = cj;
+        jbest = jb;
+      }
+    }
+    o = make_float4(best, cmin,
+                    axis_point(pp[J_MIN], pp[J_MAX], jbest, NB - 1), 0.0f);
+  }
+  __syncthreads();
+
+  // the tile's nodes, a row of A at a time
+  for (int q = tid; q < n_s * A; q += blockDim.x) {
+    const int r = q / A;
+    out[((s0 + r) * V + i_v) * A + (q - r * A)] = res[q];
+  }
+}
+
+__device__ __forceinline__ Here here(const Staged& sg, const float* pp,
+                                     int t_idx, float s, float v, float a,
+                                     int S, int P) {
+  Here h;
+  float v_max;
+  path_terms(sg, pp, t_idx, s, S, P, &v_max, &h.s_dist);
+  h.st = lon_dp_92bf3da::state_terms(pp, s, v, a, h.s_dist, v_max);
+  return h;
+}
+
+// Two warps.  Mode 0, the forward pass: T dependent steps, the NF = 21
+// jerks on lanes 0..20 of each warp.  Both hold the state and its terms.
+// Warp 0 forms its jerk's next state and issues the step's one round trip
+// to device memory, the trilerp's 8 corners, blends them, forms the cost
+// and constraint and takes the lexicographic minimum (warp_pick); lane 0
+// writes the row.  Meanwhile warp 1 forms, for its jerk, v_max at the next
+// s (which warp 0's constraint needs) and the state the row would lead to
+// if that jerk won (the plain version's next-state formula) with that
+// state's terms, into shared memory, so that after the minimum the next
+// step's state and terms are the winner's, read there.  Mode 1, the reeval
+// pass: every row of `states` with its own jerk, rows on the 64 threads.
+// The path's columns and the distance map are staged in shared memory
+// first; the copies run while step 0's corners load.
+template <bool PROF>
+__global__ void __launch_bounds__(2 * WARP)
+lon_forward_kernel(const float4* __restrict__ nodes,
+                   const float* __restrict__ pp_in,
+                   const float* __restrict__ path,
+                   const float* __restrict__ dist_path,
+                   const float* __restrict__ states, float* __restrict__ out,
+                   unsigned long long* __restrict__ prof, int T, int S, int V,
+                   int A, int P, int n_rows, int mode) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const Staged sg = {smem, smem + P, smem + 2 * P};
+  float* cand = smem + 2 * P + T * S;         // (2, N_CAND, NF)
+  float* vmax_n = cand + 2 * N_CAND * NF;     // (NF,)
+  int* win = reinterpret_cast<int*>(vmax_n + NF);
+  const int tid = threadIdx.x;
+  const int lane = tid & (WARP - 1), warp = tid / WARP;
+  LaneClock<PROF> clk;
+  clk.start();
+  float pp[N_PP];
+#pragma unroll
+  for (int k = 0; k < N_PP; ++k) pp[k] = pp_in[k];
+  for (int q = tid; q < P; q += 2 * WARP) {
+    copy4_async(smem + q, path + q * N_PC + PC_S);
+    copy4_async(smem + P + q, path + q * N_PC + PC_VMAX);
+  }
+  for (int q = tid; q < T * S; q += 2 * WARP) copy4_async(smem + 2 * P + q,
+                                                          dist_path + q);
+  const size_t slice = (size_t)S * V * A;
+  const float pss = pp[PATH_STEP_SIZE];
+
+  if (mode == 1) {
+    copies_wait();
+    __syncthreads();
+    // reeval: every row with its own jerk, rows on the threads
+    for (int r = tid; r < n_rows; r += 2 * WARP) {
+      float row[N_LC];
+#pragma unroll
+      for (int c = 0; c < N_LC; ++c) row[c] = states[r * N_LC + c];
+      const float dt_i = r == 0 ? pp[DT_START] : pp[DT];
+      const float s = row[LC_S], v = row[LC_V], a = row[LC_A];
+      const float j = row[LC_J];
+      const Here h = lon_dp_92bf3da::here(sg, pp, t_index(row[LC_T], pp, T), s, v, a, S, P);
+      const Next n = next_state(s, v, a, j, dt_i);
+      float nn[3];
+      blend(corners(nodes + mini(r + 1, T - 1) * slice, pp, S, V, A, n.sn,
+                    n.vn, n.an), nn);
+      float cost, constr;
+      lon_dp_92bf3da::action_terms(pp, h.st, nn, j, dt_i, n, h.s_dist,
+                   interp_staged(sg.vmax_col, n.sn, pss, P),
+                   a_limits(pp, n.an), &cost, &constr);
+      // one action: cmin is its constraint, the cost survives unless NaN
+      cost = constr <= constr ? cost : INFINITY;
+      float o[N_LC];
+      finish_row(row, pp, T, h.st.cost, cost, constr, j, o);
+#pragma unroll
+      for (int c = 0; c < N_LC; ++c) out[r * N_LC + c] = o[c];
+    }
+    return;
+  }
+
+  const unsigned FULL = 0xffffffffu;
+  float tp[N_LC];
+#pragma unroll
+  for (int c = 0; c < N_LC; ++c) tp[c] = states[c];
+  const bool valid = lane < NF;
+  const int jl = valid ? lane : 0;
+  const float j = axis_point(pp[J_MIN], pp[J_MAX], jl, NF - 1);
+  Here h;     // the state's terms (step 0's once the staging is in)
+  clk.stamp(F_STAGE);
+  for (int i = 0; i < T; ++i) {
+    const float dt_i = i == 0 ? pp[DT_START] : pp[DT];
+    const float s = tp[LC_S], v = tp[LC_V], a = tp[LC_A];
+    const Next n = next_state(s, v, a, j, dt_i);
+    const bool is_last = rintf(tp[LC_T] / pp[DT]) == (float)(T - 1);
+    float* cb = cand + (i & 1) * N_CAND * NF;
+    if (warp == 1) {
+      if (i == 0) {
+        copies_wait();
+        __syncthreads();
+        h = lon_dp_92bf3da::here(sg, pp, t_index(tp[LC_T], pp, T), s, v, a, S, P);
+      }
+      // v_max at each jerk's next s, for warp 0's constraints
+      if (valid) vmax_n[lane] = interp_staged(sg.vmax_col, n.sn, pss, P);
+      pair_arrive(1);
+      // the state each jerk's row leads to, and its terms
+      const float jj = is_last ? tp[LC_J] : j;
+      const float dt2 = dt_i * dt_i;
+      const float s_n = fmaxf(s, s + v * dt_i + 0.5f * a * dt2
+                              + jj * (dt_i * (dt_i * dt_i)) * (1.0f / 6.0f));
+      const float v_n = fmaxf(v + a * dt_i + 0.5f * jj * dt2, 0.0f);
+      const float a_n = a + jj * dt_i;
+      if (valid && i + 1 < T) {
+        const Here h_n = lon_dp_92bf3da::here(sg, pp, t_index(tp[LC_T] + dt_i, pp, T), s_n,
+                              v_n, a_n, S, P);
+        cb[C_S * NF + lane] = s_n;
+        cb[C_V * NF + lane] = v_n;
+        cb[C_A * NF + lane] = a_n;
+        cb[C_SDIST * NF + lane] = h_n.s_dist;
+        cb[C_COST * NF + lane] = h_n.st.cost;
+        cb[C_CONSTR * NF + lane] = h_n.st.constr;
+      }
+      pair_sync(2);
+    } else {
+      const Corners k = corners(nodes + mini(i + 1, T - 1) * slice, pp, S, V,
+                                A, n.sn, n.vn, n.an);
+      if (i == 0) {
+        copies_wait();
+        __syncthreads();
+        h = lon_dp_92bf3da::here(sg, pp, t_index(tp[LC_T], pp, T), s, v, a, S, P);
+        clk.stamp(F_STAGE);
+      }
+      float nn[3];
+      blend(k, nn);
+      clk.stamp(F_LOOKUP);
+      pair_sync(1);
+      float cost, constr;
+      lon_dp_92bf3da::action_terms(pp, h.st, nn, j, dt_i, n, h.s_dist, vmax_n[jl],
+                   a_limits(pp, n.an), &cost, &constr);
+      clk.stamp(F_TERMS);
+      const Pick pk = warp_pick(constr, cost, valid);
+      clk.stamp(F_PICK);
+      const float c_tier = __shfl_sync(FULL, constr, pk.tier);
+      const float k_win = __shfl_sync(FULL, cost, pk.k);
+      if (lane == 0) {
+        float row[N_LC];
+        finish_row(tp, pp, T, h.st.cost,
+                   pk.nan_c || pk.all_inf ? INFINITY : k_win,
+                   pk.nan_c ? NAN : c_tier,
+                   axis_point(pp[J_MIN], pp[J_MAX], pk.k, NF - 1), row);
+#pragma unroll
+        for (int c = 0; c < N_LC; ++c) out[i * N_LC + c] = row[c];
+        *win = pk.k;
+      }
+      pair_sync(2);
+    }
+    // the next state: the winner's, with its terms
+    const int kw = *win;
+    tp[LC_T] = tp[LC_T] + dt_i;
+    tp[LC_J] = is_last ? tp[LC_J]
+                       : axis_point(pp[J_MIN], pp[J_MAX], kw, NF - 1);
+    tp[LC_COST] = 0.0f;
+    tp[LC_CONSTR] = 0.0f;
+    if (i + 1 < T) {
+      tp[LC_S] = cb[C_S * NF + kw];
+      tp[LC_V] = cb[C_V * NF + kw];
+      tp[LC_A] = cb[C_A * NF + kw];
+      h.s_dist = cb[C_SDIST * NF + kw];
+      h.st.cost = cb[C_COST * NF + kw];
+      h.st.constr = cb[C_CONSTR * NF + kw];
+    }
+    clk.stamp(F_NEXT);
+  }
+  clk.flush(prof);
+}
+
+}  // namespace lon_dp_92bf3da
+
+namespace latlon_am_92bf3da {
+using namespace latlon_am;
+
+// The lexicographic (constraint, cost) minimum over the 7 x 7 actions of one
+// cell, dl outer and dds inner (the XLA flattening order of the argmin),
+// first minimum winning, as the plain version and the XLA backward take it:
+// the least constraint by jnp.min (a NaN makes it NaN), then jnp.argmin of
+// the costs whose constraint equals it, the rest inf (the first NaN wins),
+// and the winner's own cost and constraint.  So where a constraint is NaN,
+// or every action of the least constraint costs inf, no cost beats the
+// masked inf of action 0, and action 0 wins with its own cost and
+// constraint.  my_rows: the staged rows of the cell's s, entry (j, lt) at
+// my_rows[j * tile + lt]; dfwd: the cell's 7 forward distances.
+__device__ __forceinline__ Best best_action(
+    const float4* my_rows, const float* s_ca, const Tables& tb,
+    const float (&dfwd)[NB], int ds, int l, int L, int tile) {
+  const float gap_min = tb.consts[0], time_gap = tb.consts[1];
+  const float w_safety = tb.consts[2], w_ddds = tb.consts[3];
+  const float w_ddl = tb.consts[4];
+  const float ds_gap = tb.dss[ds] * time_gap;
+
+  float sc[NB], dds_v[NB], q_dds[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    sc[j] = tb.schg[ds * NB + j];
+    dds_v[j] = tb.dds_vals[j];
+    q_dds[j] = tb.qdds[j];
+  }
+
+  // action (m, j): its cost and constraint, the plain version's terms in
+  // their order
+  auto action = [&](int m, int j, float& cost, float& constr) {
+    const int lt = clampi(l + tb.kl[m], 0, L - 1);
+    const float d_safety = (dfwd[m] - gap_min) - ds_gap;
+    const float4 nn = my_rows[j * tile + lt];
+
+    const float occ = fmaxf(0.f, sc[j] - dfwd[m]);
+    constr = (s_ca[j * NB + m] + occ) + nn.y;
+
+    cost = w_safety * fmaxf(0.f, sc[j] - d_safety);
+    cost = cost + q_dds[j];
+    const float e_dds = nn.z - dds_v[j];
+    cost = cost + w_ddds * (e_dds * e_dds);
+    cost = cost + tb.qdl[m];
+    const float e_dl = nn.w - tb.dl_vals[m];
+    cost = cost + w_ddl * (e_dl * e_dl);
+    cost = cost + nn.x;
+  };
+
+  Best b = {0.f, 0.f, 0.f, 0.f};
+  bool first = true, nan_c = false;
+#pragma unroll
+  for (int m = 0; m < NB; ++m) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float cost, constr;
+      action(m, j, cost, constr);
+      nan_c = nan_c || constr != constr;
+      if (first || constr < b.constr ||
+          (constr == b.constr &&
+           (cost < b.cost || (cost != cost && b.cost == b.cost)))) {
+        b.constr = constr;
+        b.cost = cost;
+        b.dds = dds_v[j];
+        b.dl = tb.dl_vals[m];
+        first = false;
+      }
+    }
+  }
+  if (nan_c || b.cost == INFINITY) {
+    action(0, 0, b.cost, b.constr);
+    b.dds = dds_v[0];
+    b.dl = tb.dl_vals[0];
+  }
+  return b;
+}
+
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == FEW_THREADS ? FEW_BLOCKS
+                                                                  : 1)
+action_min_kernel(
+    const float4* __restrict__ nodes_next,   // (S, DS, L) x 4 channels
+    const float* __restrict__ state_cost,    // (S, DS, L)
+    const float* __restrict__ state_constr,  // (S, DS, L)
+    const float* __restrict__ d_fwd,         // (S, L, NB)
+    const int* __restrict__ ids,             // (DS, NB) target ds row
+    const int* __restrict__ ks,              // (DS, NB) s shift (cells)
+    const int* __restrict__ kl,              // (NB,)    l shift (cells)
+    const float* __restrict__ ca,            // (DS, NB, NB) slope constr
+    const float* __restrict__ schg,          // (DS, NB) s change
+    const float* __restrict__ qdds,          // (NB,)
+    const float* __restrict__ qdl,           // (NB,)
+    const float* __restrict__ dds_vals,      // (NB,)
+    const float* __restrict__ dl_vals,       // (NB,)
+    const float* __restrict__ dss,           // (DS,)
+    const float* __restrict__ consts,        // gap_min, time_gap, w_safety,
+                                             // w_ddds, w_ddl
+    float4* __restrict__ out,                // (S, DS, L) x 4 channels
+    int S, int DS, int L, int ts_rows) {
+  // (the tables arrive as read-only kernel parameters of their own, which
+  // is what lets the compiler keep their loads out of the way)
+  const Tables tb = {ids, ks, kl, ca, schg, qdds, qdl, dds_vals, dl_vals,
+                     dss, consts};
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* rows = reinterpret_cast<float4*>(smem_raw);   // (NB, ts_rows, L)
+  float* s_ca = reinterpret_cast<float*>(rows + NB * ts_rows * L);  // (j, m)
+
+  const int tid = threadIdx.x;
+  const int ds = blockIdx.y;
+  const int s0 = blockIdx.x * ts_rows;
+  const int tile = ts_rows * L;
+  stage_lookups(rows, s_ca, nodes_next, tb, ds, s0, S, DS, L, tile);
+  copies_wait();
+  __syncthreads();
+
+  const int row = tid / L;
+  const int l = tid - row * L;
+  const int s = s0 + row;
+  if (tid >= tile || s >= S) return;
+  const int cell = (s * DS + ds) * L + l;
+
+  float dfwd[NB];
+  const float* dfwd_cell = d_fwd + (s * L + l) * NB;
+#pragma unroll
+  for (int m = 0; m < NB; ++m) dfwd[m] = dfwd_cell[m];
+
+  const Best b = latlon_am_92bf3da::best_action(rows + row * L, s_ca, tb, dfwd, ds, l, L, tile);
+  out[cell] = make_float4(state_cost[cell] + b.cost,
+                          state_constr[cell] + b.constr, b.dds, b.dl);
+}
+
+// One whole backward slice: what the plain version computes with some
+// hundred tensor operations before the action-min (the state cost and
+// constraint of every cell, with the nearest reference-line row, the two
+// first-obstacle searches along l and the mid-lane target, and the 7
+// forward distances with their per-side running minimum), computed per cell
+// from the tile's rows of the distance map in shared memory, then the
+// action-min above.  Every expression keeps the plain version's operations
+// and their order (reference: lat_lon_planner.cu:80-192 computed the same
+// per cell inside its backward step).
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == FEW_THREADS ? FEW_BLOCKS
+                                                                  : 1)
+backward_slice_kernel(
+    const float4* __restrict__ nodes_next,   // (S, DS, L) x 4 channels
+    const float* __restrict__ dist_t,        // (S, L) distance ahead
+    const float* __restrict__ ref_line,      // (n_ref, 8)
+    const float* __restrict__ ref_step,      // one value
+    const float* __restrict__ sc,            // SliceConst
+    const int* __restrict__ ids,             // (DS, NB) target ds row
+    const int* __restrict__ ks,              // (DS, NB) s shift (cells)
+    const int* __restrict__ kl,              // (NB,)    l shift (cells)
+    const float* __restrict__ ca,            // (DS, NB, NB) slope constr
+    const float* __restrict__ schg,          // (DS, NB) s change
+    const float* __restrict__ qdds,          // (NB,)
+    const float* __restrict__ qdl,           // (NB,)
+    const float* __restrict__ dds_vals,      // (NB,)
+    const float* __restrict__ dl_vals,       // (NB,)
+    const float* __restrict__ dss,           // (DS,)
+    const float* __restrict__ consts,        // gap_min, time_gap, w_safety,
+                                             // w_ddds, w_ddl
+    float4* __restrict__ out,                // (S, DS, L) x 4 channels
+    int S, int DS, int L, int n_ref, int slice, int ts_rows) {
+  // (the tables arrive as read-only kernel parameters of their own, which
+  // is what lets the compiler keep their loads out of the way)
+  const Tables tb = {ids, ks, kl, ca, schg, qdds, qdl, dds_vals, dl_vals,
+                     dss, consts};
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* rows = reinterpret_cast<float4*>(smem_raw);   // (NB, ts_rows, L)
+  float* s_ca = reinterpret_cast<float*>(rows + NB * ts_rows * L);  // (j, m)
+  float* dist = s_ca + NB * NB;                         // (ts_rows, L)
+  int* il2 = reinterpret_cast<int*>(dist + ts_rows * L);   // (L, NB)
+
+  const int tid = threadIdx.x;
+  const int ds = blockIdx.y;
+  const int s0 = blockIdx.x * ts_rows;
+  const int tile = ts_rows * L;
+  const float l_min = sc[C_L_MIN], l_step = sc[C_L_STEP], dt = sc[C_DT];
+
+  stage_lookups(rows, s_ca, nodes_next, tb, ds, s0, S, DS, L, tile);
+  for (int k = tid; k < tile; k += blockDim.x)
+    dist[k] = dist_t[clampi(s0 + k / L, 0, S - 1) * L + k % L];
+  // the l index each dl action's lateral sweep reads, per l
+  for (int k = tid; k < L * NB; k += blockDim.x) {
+    const float l_g = l_min + (float)(k / NB) * l_step;
+    const float at = rintf(((l_g + tb.dl_vals[k % NB] * dt) - l_min) / l_step);
+    il2[k] = (int)fminf(fmaxf(at, 0.f), (float)(L - 1));
+  }
+  copies_wait();
+  __syncthreads();
+
+  const int row = tid / L;
+  const int l = tid - row * L;
+  const int s = s0 + row;
+  if (tid >= tile || s >= S) return;
+  const int cell = (s * DS + ds) * L + l;
+
+  const float s_g = sc[C_S_MIN] + (float)s * sc[C_S_STEP];
+  const float l_g = l_min + (float)l * l_step;
+  const float ds_g = tb.dss[ds];
+  const float t = sc[C_DT_START] + (float)(slice - 1) * dt;
+  const float half_len = sc[C_LENGTH_VEH] * 0.5f;
+  const float* drow = dist + row * L;
+
+  // the nearest reference-line row (round half to even)
+  const float at = rintf(s_g / *ref_step);
+  const float* rl =
+      ref_line + (size_t)(int)fminf(fmaxf(at, 0.f), (float)(n_ref - 1)) * 8;
+  const float v_max_ref = rl[4];
+  const float half_width = sc[C_WIDTH_VEH] * 0.5f;
+  const float d_left_ref = rl[5] - half_width;
+  const float d_right_ref = -(rl[6] - half_width);
+
+  // the first l offset to each side whose distance ahead is too short
+  const float mean_dist = fmaxf(ds_g * dt, half_len);
+  int i_left = 0, i_right = 0;
+  bool found_left = false, found_right = false;
+  for (int k = 0; k < L; ++k)
+    if (drow[clampi(l + k, 0, L - 1)] < mean_dist) {
+      i_left = k;
+      found_left = true;
+      break;
+    }
+  for (int k = 0; k < L; ++k)
+    if (drow[clampi(l - k, 0, L - 1)] < mean_dist) {
+      i_right = k;
+      found_right = true;
+      break;
+    }
+  const float l_left = found_left ? l_g + (float)i_left * l_step : 0.f;
+  const float l_right = found_right ? l_g - (float)i_right * l_step : 0.f;
+  const float mid = l_right + (l_left - l_right) * 0.5f;
+  const float mid_y = fminf(l_right + sc[C_D_LAT_COMF], mid);
+  const float mid_z = fmaxf(l_left - sc[C_D_LAT_COMF], mid);
+  const float l_trg = sc[C_L_TRG];
+  const float mid_x =
+      l_trg < l_right ? mid_y : (l_trg > l_left ? mid_z : l_trg);
+
+  // the state cost and constraint, term by term
+  float cost = 1000.f * fmaxf(l_g - d_left_ref, 0.f);
+  cost = cost + 1000.f * fmaxf(d_right_ref - l_g, 0.f);
+  float e = mid_x - l_g;
+  cost = cost + sc[C_W_L] * (e * e);
+  e = mid_y - l_g;
+  cost = cost + (l_g < mid_y ? sc[C_W_LAT_DIST] * (e * e) : 0.f);
+  e = mid_z - l_g;
+  cost = cost + (l_g > mid_z ? sc[C_W_LAT_DIST] * (e * e) : 0.f);
+  cost = cost + sc[C_W_PROGRESS] * (1000.f - s_g);
+  const float constr = ds_g > v_max_ref ? ds_g - v_max_ref : 0.f;
+  const float s_st = sc[C_S_ST], w_st = sc[C_W_ST];
+  cost = cost + (t < sc[C_T_ST_MIN] ? w_st * fmaxf(s_g - s_st, 0.f) : 0.f);
+  cost = cost + (t > sc[C_T_ST_MAX] ? w_st * fmaxf(s_st - s_g, 0.f) : 0.f);
+
+  // the forward distances: center, then the running minimum to each side
+  float dfwd[NB];
+  const int* il2_l = il2 + l * NB;
+  dfwd[0] = drow[il2_l[0]];
+#pragma unroll
+  for (int m = 1; m < NB; ++m)
+    dfwd[m] = fminf(m == NB / 2 + 1 ? dfwd[0] : dfwd[m - 1], drow[il2_l[m]]);
+#pragma unroll
+  for (int m = 0; m < NB; ++m) dfwd[m] = dfwd[m] - half_len;
+
+  const Best b = latlon_am_92bf3da::best_action(rows + row * L, s_ca, tb, dfwd, ds, l, L, tile);
+  out[cell] = make_float4(cost + b.cost, constr + b.constr, b.dds, b.dl);
+}
+
+}  // namespace latlon_am_92bf3da
+
+namespace poly_lat_92bf3da {
+using namespace poly_lat;
+
+// A block per candidate, a thread per sample (S <= THREADS at the demo
+// sets; more samples take turns).  The quintic's six coefficients are formed
+// once, by six threads; each sample's evaluation and segment time as
+// before; the path times are the running sum of the segment times on
+// thread 0 in the plain version's order (the chain's sums stay in a
+// register; the loads of the segment times run ahead of it); the cost sum
+// and the least collision station are a block's warp reductions.
+template <bool PROF>
+__global__ void __launch_bounds__(THREADS)
+poly_lat_sweep_kernel(const float* __restrict__ occ,
+                      const float* __restrict__ ref_line,
+                      const float* __restrict__ ref_step_p,
+                      const float* __restrict__ pp_in,
+                      const float* __restrict__ env_in,
+                      const float* __restrict__ start,
+                      const double* __restrict__ hermite_inv,
+                      float* __restrict__ cd_out, double* __restrict__ tc_out,
+                      unsigned long long* __restrict__ prof, int LD, int SD,
+                      int S, int TE, int SE, int LE, int n_ref) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* coef = reinterpret_cast<double*>(smem_raw);   // (NC,)
+  double* w_cost = coef + NC;                            // (WARPS,)
+  double* sl = w_cost + WARPS;
+  double* sx = sl + S;
+  double* sy = sx + S;
+  double* sv = sy + S;
+  double* st = sv + S;
+  float* w_coll = reinterpret_cast<float*>(st + S);      // (WARPS,)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & (WARP - 1), warp = tid / WARP;
+  const int cand = blockIdx.x;
+  const int il = cand / SD, isd = cand % SD;
+  BlockClock<PROF> clk;
+  clk.start();
+  float pp[N_PP], ep[N_ENV];
+  for (int k = 0; k < N_PP; ++k) pp[k] = pp_in[k];
+  for (int k = 0; k < N_ENV; ++k) ep[k] = env_in[k];
+  const float l0 = start[0], dl0 = start[1], ddl0 = start[2], s0 = start[3];
+  const float v0 = start[4];
+  const float ref_step = *ref_step_p;
+
+  const float l_dst = axis_point(pp[L_DST_MIN], pp[L_DST_MAX], il,
+                                 LD - 1 > 1 ? LD - 1 : 1);
+  const float s_dst = axis_point(pp[S_DST_MIN], pp[S_DST_MAX], isd,
+                                 SD - 1 > 1 ? SD - 1 : 1);
+  const float s_step = (pp[S_MAX] - pp[S_MIN]) * (1.0f / (float)(S - 1));
+  const float s_base = s0 + pp[S_MIN];
+  const float s_end = s0 + s_dst;
+
+  // the quintic from its boundary values (PolyQuintic): b scaled by d^k,
+  // c[m] = sum_k b[k] inv[m][k] on thread m
+  const float d = s_end - s0;
+  if (tid < NC) {
+    const float b[NC] = {l0, dl0 * d, ddl0 * (d * d), l_dst, 0.0f * d,
+                         0.0f * (d * d)};
+    double acc = 0.0;
+#pragma unroll
+    for (int k = 0; k < NC; ++k)
+      acc += (double)b[k] * hermite_inv[tid * NC + k];
+    coef[tid] = acc;
+  }
+  __syncthreads();
+  double c[NC];
+#pragma unroll
+  for (int m = 0; m < NC; ++m) c[m] = coef[m];
+  clk.stamp(P_COEF);
+  const double d1 = (double)d, d2 = (double)(d * d);
+  const double d3 = (double)(d * (d * d));
+  const double margin = (double)(pp[WIDTH_VEH] * 0.5f) * sqrt(2.0);
+  const float a_lat = pp[A_LAT_ABS_MAX];
+
+  double cost_part = 0.0;
+  for (int i = tid; i < S; i += blockDim.x) {
+    const float s = fma32((float)i, s_step, s_base);
+    const double u = (double)((s - s0) / d);
+    const bool past_end = s >= s_end;
+    const double l = past_end ? (double)l_dst : horner(c, u, 0);
+    const double dl = past_end ? 0.0 : horner(c, u, 1) / d1;
+    const double ddl = past_end ? 0.0 : horner(c, u, 2) / d2;
+    const double dddl = past_end ? 0.0 : horner(c, u, 3) / d3;
+
+    // the reference line at s (RefLine::lerp, float32)
+    const float q = s / ref_step;
+    const float i0f = clampf(floorf(q), 0.0f, (float)(n_ref - 1));
+    const float i1f = clampf(ceilf(q), 0.0f, (float)(n_ref - 1));
+    const float w = clampf(q - i0f, 0.0f, 1.0f);
+    const float* r0 = ref_line + (size_t)(int)i0f * REF_CH;
+    const float* r1 = ref_line + (size_t)(int)i1f * REF_CH;
+    float rp[7];
+#pragma unroll
+    for (int ch = 0; ch < 7; ++ch) rp[ch] = r0[ch] * (1.0f - w) + r1[ch] * w;
+
+    const double hf = atan(dl);
+    const double x = (double)rp[RL_X] - (double)sinf(rp[RL_H]) * l;
+    const double y = (double)rp[RL_Y] + (double)cosf(rp[RL_H]) * l;
+    const double rk = (double)rp[RL_K];
+    const double k = ((ddl / (dl * dl + 1.0) + rk) * cos(hf)) / (1.0 - l * rk);
+    const double ak = fabs(k);
+    const double k_abs_path = fmax(ak, (double)fabsf(rp[RL_K]));
+    const double rv = (double)rp[RL_V];
+    const double v = k_abs_path > 1e-6
+        ? fmin(rv, sqrt((double)a_lat / fmax(k_abs_path, 1e-9)))
+        : rv;
+
+    // local constraints (poly_lat_planner.cu:64-76)
+    const float mv = fminf(rp[RL_V], v0);
+    double constr = fmax((double)(mv * mv) * ak - (double)a_lat, 0.0);
+    const bool in_poly = s <= s_end;
+    constr = constr + (in_poly ? fmax(ak - (double)pp[K_ABS_MAX], 0.0) : 0.0);
+    constr = constr
+        + (in_poly ? fmax(l - ((double)rp[RL_DL] - margin), 0.0) : 0.0);
+    constr = constr
+        + (in_poly ? fmax((-(double)rp[RL_DR] + margin) - l, 0.0) : 0.0);
+    // local cost (poly_lat_planner.cu:78-92)
+    double cost = ((double)pp[W_DL] * (dl * dl) + (double)pp[W_DDL] * (ddl * ddl))
+        + (double)pp[W_DDDL] * (dddl * dddl);
+    cost = cost + (ak > (double)fabsf(rp[RL_K]) ? (double)pp[W_K] * (k * k) : 0.0);
+    cost = cost + 10e6 * constr;
+
+    sl[i] = l;
+    sx[i] = x;
+    sy[i] = y;
+    sv[i] = v;
+    cost_part = cost_part + cost;
+  }
+  __syncthreads();
+  clk.stamp(P_SAMPLES);
+
+  // the segment times (poly_lat_planner.cu:102-148)
+  for (int i = 1 + tid; i < S; i += blockDim.x) {
+    const double dx = sx[i] - sx[i - 1];
+    const double dy = sy[i] - sy[i - 1];
+    st[i] = sqrt(dx * dx + dy * dy) / fmax(sv[i], 1.0);
+  }
+  // the cost sum: each warp's, then warp 0 adds the warps' (an order other
+  // than the plain version's sum, to rounding)
+#pragma unroll
+  for (int o = WARP / 2; o > 0; o /= 2)
+    cost_part = cost_part + __shfl_xor_sync(0xffffffffu, cost_part, o);
+  if (lane == 0) w_cost[warp] = cost_part;
+  __syncthreads();
+  clk.stamp(P_SEGMENTS);
+  // their running sum, in order, on the block's last thread (which holds
+  // no sample at the demo set's S = 201); meanwhile the other threads form
+  // what their samples' occupancy lookups need besides the time: the s
+  // index and the three lateral indices
+  if (tid == (int)blockDim.x - 1) {
+    double t = 0.0;
+    st[0] = 0.0;
+#pragma unroll 16
+    for (int i = 1; i < S; ++i) {
+      t = t + st[i];
+      st[i] = t;
+    }
+  }
+  const float e_s_span = ep[E_S_MAX] - ep[E_S_MIN];
+  const double e_l_span = (double)(ep[E_L_MAX] - ep[E_L_MIN]);
+  int s_idx[PER_THREAD], l_idx[PER_THREAD][3];
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int i = tid + q * THREADS;
+    if (i >= S) continue;
+    const float s = fma32((float)i, s_step, s_base);
+    s_idx[q] = (int)clampf(rintf((s - ep[E_S_MIN]) / e_s_span
+                                 * (float)(SE - 1)), 0.0f, (float)(SE - 1));
+#pragma unroll
+    for (int b2 = 0; b2 < 3; ++b2) {
+      const double lq = sl[i] + (b2 == 0 ? 0.0 : (b2 == 1 ? 0.25 : -0.25));
+      l_idx[q][b2] = (int)clampd(
+          rint((lq - (double)ep[E_L_MIN]) / e_l_span * (double)(LE - 1)),
+          0.0, (double)(LE - 1));
+    }
+  }
+  __syncthreads();
+  clk.stamp(P_TIMES);
+
+  // collision checks (poly_lat_planner.cu:150-185): interpDistField
+  // (env.cu:229-239) with the dt_start time mapping, time offsets -1, 0,
+  // 1 s and lateral offsets 0, 0.25, -0.25 m
+  float coll = INFINITY;
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int i = tid + q * THREADS;
+    if (i >= S) continue;
+    const float s = fma32((float)i, s_step, s_base);
+    const double t = st[i];
+    float dist_sem = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const double tq = t + (double)(a - 1);
+      const double t_idx = tq < (double)ep[E_DT_START]
+          ? 0.0 : rint((tq - (double)ep[E_DT_START]) / (double)ep[E_DT]) + 1.0;
+      const int ti = (int)clampd(t_idx, 0.0, (double)(TE - 1));
+#pragma unroll
+      for (int b2 = 0; b2 < 3; ++b2)
+        dist_sem = max_nan(
+            dist_sem, occ[((size_t)ti * SE + s_idx[q]) * LE + l_idx[q][b2]]);
+    }
+    const bool hit = dist_sem > 0.0f && t < 8.0 && s > pp[LENGTH_VEH];
+    coll = min_nan(coll, hit ? s : 10000.0f);
+  }
+  clk.stamp(P_COLLISION);
+  // the least collision station: each warp's, then thread 0's
+#pragma unroll
+  for (int o = WARP / 2; o > 0; o /= 2)
+    coll = min_nan(coll, __shfl_xor_sync(0xffffffffu, coll, o));
+  if (lane == 0) w_coll[warp] = coll;
+  __syncthreads();
+
+  if (tid == 0) {
+    const int warps = (int)(blockDim.x / WARP);
+    float cmin = w_coll[0];
+    double tc = w_cost[0];
+    for (int w2 = 1; w2 < warps; ++w2) {
+      cmin = min_nan(cmin, w_coll[w2]);
+      tc = tc + w_cost[w2];
+    }
+    tc = tc + (double)(l_dst < -0.1f ? pp[W_RIGHT] : 0.0f);
+    const float dl_t = l_dst - pp[L_TRG];
+    tc = tc + (double)(pp[W_L] * (dl_t * dl_t));
+    tc = tc + (double)(pp[W_LEN] * fabsf(s_dst));
+    cd_out[cand] = min_nan(cmin, 1000.0f);
+    tc_out[cand] = tc;
+  }
+  clk.stamp(P_REDUCE);
+  clk.flush(prof);
+}
+
+__global__ void poly_lat_select_kernel(const float* __restrict__ cd,
+                                       const double* __restrict__ tc,
+                                       const float* __restrict__ length_veh,
+                                       long long* __restrict__ best_out,
+                                       float* __restrict__ cost_out, int LD,
+                                       int SD) {
+  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+  const int n = LD * SD;
+  const float lv = *length_veh;
+  const int init_l = LD / 2 + 1 < LD - 1 ? LD / 2 + 1 : LD - 1;
+  const int init = init_l * SD + SD - 1;
+  float max_cd = cd[init];
+  for (int i = 0; i < n; ++i) {
+    if ((float)tc[i] < 1e6f && cd[i] > max_cd + lv) max_cd = cd[i];
+  }
+  float min_cost = INFINITY;
+  int best = init;
+  for (int i = 0; i < n; ++i) {
+    const float ti = (float)tc[i];
+    if (fabsf(cd[i] - max_cd) <= 1.0f && ti < min_cost) {
+      max_cd = cd[i];
+      min_cost = ti;
+      best = i;
+    }
+  }
+  *best_out = best;
+  *cost_out = min_cost;
+}
+
+}  // namespace poly_lat_92bf3da
 """
 
 HARNESS = r"""
@@ -1345,6 +2336,9 @@ namespace poly_planner_k { alignas(16) unsigned char smem_raw[65536]; }
 namespace lon_dp_parent { alignas(16) unsigned char smem_raw[262144]; }
 namespace latlon_am_parent { alignas(16) unsigned char smem_raw[262144]; }
 namespace poly_lat_parent { alignas(16) unsigned char smem_raw[65536]; }
+namespace lon_dp_92bf3da { alignas(16) unsigned char smem_raw[262144]; }
+namespace latlon_am_92bf3da { alignas(16) unsigned char smem_raw[262144]; }
+namespace poly_lat_92bf3da { alignas(16) unsigned char smem_raw[65536]; }
 
 // A grid of gx x gy blocks of `threads` threads (256 unless given): every
 // host thread runs its thread of each block in turn (the blocks share the
@@ -1464,29 +2458,54 @@ extern "C" void rehearse_lon_forward_parent(
   });
 }
 
-extern "C" void rehearse_poly_lat_sweep(
-    const float* occ, const float* ref_line, const float* ref_step,
-    const float* pp, const float* env, const float* start, const double* inv,
-    float* cd, double* tc, int LD, int SD, int S, int TE, int SE, int LE,
-    int n_ref) {
-  using namespace poly_lat;
-  run_grid(LD * SD, 1, [=] {
-    poly_lat_sweep_kernel<false>(occ, ref_line, ref_step, pp, env, start, inv,
-                                 cd, tc, nullptr, LD, SD, S, TE, SE, LE,
-                                 n_ref);
-  });
+// the lon DP's backward slice and forward pass of 92bf3da (PARENTS)
+extern "C" void rehearse_lon_backward_92bf3da(
+    const float* nodes_next, const float* pp, const float* path,
+    const float* dist_path, float* out, int S, int V, int A, int P,
+    int t_idx, int is_last, int tile, int box_cap) {
+  using namespace lon_dp;
+  run_grid(V, (S + tile - 1) / tile, [=] {
+    lon_dp_92bf3da::lon_backward_kernel(
+        reinterpret_cast<const float4*>(nodes_next), pp, path, dist_path,
+        reinterpret_cast<float4*>(out), S, V, A, P, t_idx, is_last != 0, tile,
+        box_cap);
+  }, backward_threads(A, tile));
 }
 
-extern "C" void rehearse_poly_lat_sweep_profile(
+extern "C" void rehearse_lon_forward_92bf3da(
+    const float* nodes, const float* pp, const float* path,
+    const float* dist_path, const float* states, float* out, int T, int S,
+    int V, int A, int P, int n_rows, int mode) {
+  using namespace lon_dp;
+  run_grid(1, 1, [=] {
+    lon_dp_92bf3da::lon_forward_kernel<false>(
+        reinterpret_cast<const float4*>(nodes), pp, path, dist_path, states,
+        out, nullptr, T, S, V, A, P, n_rows, mode);
+  }, 2 * WARP);
+}
+
+// The sweep and its selection in one launch on a grid of LD x SD blocks,
+// in the order `order` (LD x SD block numbers) where given; with `prof` the
+// profiling instantiation.
+extern "C" int rehearse_poly_lat_sweep(
     const float* occ, const float* ref_line, const float* ref_step,
     const float* pp, const float* env, const float* start, const double* inv,
-    float* cd, double* tc, unsigned long long* prof, int LD, int SD, int S,
+    float* cd, double* tc, long long* best, float* cost,
+    unsigned long long* prof, const int* order, int LD, int SD, int S,
     int TE, int SE, int LE, int n_ref) {
   using namespace poly_lat;
+  static int counter = 0;
   run_grid(LD * SD, 1, [=] {
-    poly_lat_sweep_kernel<true>(occ, ref_line, ref_step, pp, env, start, inv,
-                                cd, tc, prof, LD, SD, S, TE, SE, LE, n_ref);
-  });
+    if (prof)
+      poly_lat_sweep_kernel<true>(occ, ref_line, ref_step, pp, env, start,
+                                  inv, cd, tc, best, cost, &counter, prof, LD,
+                                  SD, S, TE, SE, LE, n_ref);
+    else
+      poly_lat_sweep_kernel<false>(occ, ref_line, ref_step, pp, env, start,
+                                   inv, cd, tc, best, cost, &counter, nullptr,
+                                   LD, SD, S, TE, SE, LE, n_ref);
+  }, THREADS, order);
+  return counter;     // the last block puts it back to 0
 }
 
 // the sweep of 2dd76fb (PARENTS)
@@ -1502,12 +2521,41 @@ extern "C" void rehearse_poly_lat_sweep_parent(
   });
 }
 
+// the selection of the sweep's last block on given maps
 extern "C" void rehearse_poly_lat_select(const float* cd, const double* tc,
                                          const float* length_veh,
                                          long long* best, float* cost, int LD,
                                          int SD) {
   run_block([=] {
-    poly_lat::poly_lat_select_kernel(cd, tc, length_veh, best, cost, LD, SD);
+    poly_lat::select_block(cd, tc, LD, SD, *length_veh,
+                           reinterpret_cast<float*>(poly_lat::smem_raw), best,
+                           cost);
+  });
+}
+
+// the sweep and the selection of 92bf3da (PARENTS): two launches
+extern "C" void rehearse_poly_lat_sweep_92bf3da(
+    const float* occ, const float* ref_line, const float* ref_step,
+    const float* pp, const float* env, const float* start, const double* inv,
+    float* cd, double* tc, long long* best, float* cost, int LD, int SD,
+    int S, int TE, int SE, int LE, int n_ref) {
+  run_grid(LD * SD, 1, [=] {
+    poly_lat_92bf3da::poly_lat_sweep_kernel<false>(
+        occ, ref_line, ref_step, pp, env, start, inv, cd, tc, nullptr, LD, SD,
+        S, TE, SE, LE, n_ref);
+  });
+  run_block([=] {
+    poly_lat_92bf3da::poly_lat_select_kernel(
+        cd, tc, pp + poly_lat::LENGTH_VEH, best, cost, LD, SD);
+  });
+}
+
+extern "C" void rehearse_poly_lat_select_92bf3da(
+    const float* cd, const double* tc, const float* length_veh,
+    long long* best, float* cost, int LD, int SD) {
+  run_block([=] {
+    poly_lat_92bf3da::poly_lat_select_kernel(cd, tc, length_veh, best, cost,
+                                             LD, SD);
   });
 }
 
@@ -1758,6 +2806,38 @@ extern "C" void rehearse_backward_slice_parent(
   });
 }
 
+// the action-min and the fused slice of 92bf3da (PARENTS)
+extern "C" void rehearse_action_min_92bf3da(
+    const float* nodes_next, const float* state_cost,
+    const float* state_constr, const float* d_fwd, const void* const* tables,
+    float* out, int S, int DS, int L, int ts_rows) {
+  using namespace latlon_am;
+  const Tables tb = tables_of(tables);
+  run_grid((S + ts_rows - 1) / ts_rows, DS, [=] {
+    latlon_am_92bf3da::action_min_kernel<FEW_THREADS>(
+        reinterpret_cast<const float4*>(nodes_next), state_cost, state_constr,
+        d_fwd, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg, tb.qdds, tb.qdl,
+        tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
+        reinterpret_cast<float4*>(out), S, DS, L, ts_rows);
+  });
+}
+
+extern "C" void rehearse_backward_slice_92bf3da(
+    const float* nodes_next, const float* dist_t, const float* ref_line,
+    const float* ref_step, const float* slice_consts,
+    const void* const* tables, float* out, int S, int DS, int L, int n_ref,
+    int slice, int ts_rows) {
+  using namespace latlon_am;
+  const Tables tb = tables_of(tables);
+  run_grid((S + ts_rows - 1) / ts_rows, DS, [=] {
+    latlon_am_92bf3da::backward_slice_kernel<FEW_THREADS>(
+        reinterpret_cast<const float4*>(nodes_next), dist_t, ref_line,
+        ref_step, slice_consts, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg, tb.qdds,
+        tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
+        reinterpret_cast<float4*>(out), S, DS, L, n_ref, slice, ts_rows);
+  });
+}
+
 extern "C" void rehearse_mpc(const double* in, double* out, long long* prof,
                              int H, int n_ref, int T, int max_it, int max_lg,
                              int mu_step, int integrator) {
@@ -1953,17 +3033,34 @@ def bodies(tmp_path_factory):
     lib.rehearse_backward_slice_parent.restype = None
     lib.rehearse_backward_slice_parent.argtypes = ([ctypes.c_void_p] * 7
                                                    + [ctypes.c_int] * 6)
-    lib.rehearse_poly_lat_sweep.restype = None
-    lib.rehearse_poly_lat_sweep.argtypes = ([ctypes.c_void_p] * 9
+    lib.rehearse_poly_lat_sweep.restype = ctypes.c_int
+    lib.rehearse_poly_lat_sweep.argtypes = ([ctypes.c_void_p] * 13
                                             + [ctypes.c_int] * 7)
-    lib.rehearse_poly_lat_sweep_profile.restype = None
-    lib.rehearse_poly_lat_sweep_profile.argtypes = ([ctypes.c_void_p] * 10
-                                                    + [ctypes.c_int] * 7)
     lib.poly_lat_sweep_smem_bytes.restype = ctypes.c_size_t
-    lib.poly_lat_sweep_smem_bytes.argtypes = [ctypes.c_int]
+    lib.poly_lat_sweep_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.poly_lat_max_candidates.restype = ctypes.c_int
+    lib.poly_lat_max_candidates.argtypes = []
     lib.rehearse_poly_lat_select.restype = None
     lib.rehearse_poly_lat_select.argtypes = ([ctypes.c_void_p] * 5
                                              + [ctypes.c_int] * 2)
+    lib.rehearse_poly_lat_sweep_92bf3da.restype = None
+    lib.rehearse_poly_lat_sweep_92bf3da.argtypes = ([ctypes.c_void_p] * 11
+                                                    + [ctypes.c_int] * 7)
+    lib.rehearse_poly_lat_select_92bf3da.restype = None
+    lib.rehearse_poly_lat_select_92bf3da.argtypes = ([ctypes.c_void_p] * 5
+                                                     + [ctypes.c_int] * 2)
+    lib.rehearse_lon_backward_92bf3da.restype = None
+    lib.rehearse_lon_backward_92bf3da.argtypes = ([ctypes.c_void_p] * 5
+                                                  + [ctypes.c_int] * 8)
+    lib.rehearse_lon_forward_92bf3da.restype = None
+    lib.rehearse_lon_forward_92bf3da.argtypes = ([ctypes.c_void_p] * 6
+                                                 + [ctypes.c_int] * 7)
+    lib.rehearse_action_min_92bf3da.restype = None
+    lib.rehearse_action_min_92bf3da.argtypes = ([ctypes.c_void_p] * 6
+                                                + [ctypes.c_int] * 4)
+    lib.rehearse_backward_slice_92bf3da.restype = None
+    lib.rehearse_backward_slice_92bf3da.argtypes = ([ctypes.c_void_p] * 7
+                                                    + [ctypes.c_int] * 6)
     lib.rehearse_idm_rollout.restype = None
     lib.rehearse_idm_rollout.argtypes = ([ctypes.c_void_p] * 11
                                          + [ctypes.c_int] * 7)
@@ -2988,35 +4085,221 @@ def test_lon_forward_body_nan_rule(bodies, channel):
     assert np.isnan(want_r).any()
 
 
-@pytest.mark.parametrize("LD,SD,S", [(21, 13, 61), (1, 20, 41), (6, 4, 201)])
-def test_poly_lat_sweep_body_matches_plain(bodies, LD, SD, S):
-    occ, rl, step, pp, env, start = poly_lat_scene(LD, SD, S, LD + SD + S)
-    cd = np.full((LD, SD), -7.0, np.float32)
-    tc = np.full((LD, SD), -7.0, np.float64)
-    inv = np.ascontiguousarray(splines._HERMITE_INV[5])
-    step_a = np.array([step], np.float32)
-    bodies.rehearse_poly_lat_sweep(_ptr(occ), _ptr(rl), _ptr(step_a), _ptr(pp),
-                                   _ptr(env), _ptr(start), _ptr(inv), _ptr(cd),
-                                   _ptr(tc), LD, SD, S, *occ.shape, len(rl))
-    T = torch.from_numpy
-    want_cd, want_tc = plk.evaluate_reference(
-        T(occ), T(rl), T(step_a), T(pp), T(env), T(start), LD, SD, S)
-    np.testing.assert_array_equal(cd, want_cd.numpy())
-    np.testing.assert_allclose(tc, want_tc.numpy(), rtol=1e-12, atol=0)
-    # the scene's obstacles and limits reach the outputs
-    assert (cd < 1000.0).any() and (tc >= 1e6).any() or LD == 1
+# The sweep and its selection in one launch.  The blocks run in a seeded
+# order (the last block to arrive takes the selection: it must not always
+# be the last index).
 
 
-def _sweep(fn, scene, LD, SD, S, prof=None):
+def _order(n, seed):
+    return None if seed is None else np.random.default_rng(seed).permutation(
+        n).astype(np.int32)
+
+
+def _sweep(bodies, scene, LD, SD, S, prof=None, seed=None):
+    """The tree's one launch: (cd, tc, best, cost)."""
     occ, rl, step, pp, env, start = scene
     cd = np.full((LD, SD), -7.0, np.float32)
     tc = np.full((LD, SD), -7.0, np.float64)
+    best = np.full(1, -7, np.int64)
+    cost = np.full(1, -7.0, np.float32)
     inv = np.ascontiguousarray(splines._HERMITE_INV[5])
     step_a = np.array([step], np.float32)
-    extra = () if prof is None else (_ptr(prof),)
+    order = _order(LD * SD, seed)
+    left = bodies.rehearse_poly_lat_sweep(
+        _ptr(occ), _ptr(rl), _ptr(step_a), _ptr(pp), _ptr(env), _ptr(start),
+        _ptr(inv), _ptr(cd), _ptr(tc), _ptr(best), _ptr(cost),
+        None if prof is None else _ptr(prof),
+        None if order is None else _ptr(order), LD, SD, S, *occ.shape,
+        len(rl))
+    assert left == 0
+    return cd, tc, int(best[0]), cost[0]
+
+
+def _sweep_of(fn, scene, LD, SD, S, select=False):
+    """An earlier body's sweep (2dd76fb's: (cd, tc)) or sweep and selection
+    (92bf3da's two launches, ``select``: (cd, tc, best, cost))."""
+    occ, rl, step, pp, env, start = scene
+    cd = np.full((LD, SD), -7.0, np.float32)
+    tc = np.full((LD, SD), -7.0, np.float64)
+    best = np.full(1, -7, np.int64)
+    cost = np.full(1, -7.0, np.float32)
+    inv = np.ascontiguousarray(splines._HERMITE_INV[5])
+    step_a = np.array([step], np.float32)
+    extra = (_ptr(best), _ptr(cost)) if select else ()
     fn(_ptr(occ), _ptr(rl), _ptr(step_a), _ptr(pp), _ptr(env), _ptr(start),
        _ptr(inv), _ptr(cd), _ptr(tc), *extra, LD, SD, S, *occ.shape, len(rl))
-    return cd, tc
+    return (cd, tc, int(best[0]), cost[0]) if select else (cd, tc)
+
+
+def _plain_sweep(scene, LD, SD, S):
+    T = torch.from_numpy
+    occ, rl, step, pp, env, start = scene
+    return plk.sweep_select(T(occ), T(rl), T(np.array([step], np.float32)),
+                            T(pp), T(env), T(start), LD, SD, S)
+
+
+def _check_sweep(got, want):
+    """The kernel's (cd, tc, best, cost) against the plain version's: the
+    collision distance, the winner and its cost exactly, the cost map to
+    rtol 1e-12 (its sums in another order), NaN where the plain one is."""
+    cd, tc, best, cost = got
+    np.testing.assert_array_equal(cd, want[0].numpy())
+    np.testing.assert_array_equal(np.isnan(tc), np.isnan(want[1].numpy()))
+    np.testing.assert_allclose(tc, want[1].numpy(), rtol=1e-12, atol=0)
+    assert best == int(want[2])
+    assert cost == float(want[3])
+
+
+# A NaN in a value input (``scenes.lon_nan_values``, a NaN DP distance
+# cell or lane bound): the terms keep it as the plain versions' torch.clamp
+# / torch.minimum do, and no index takes it.  92bf3da's bodies (PARENTS)
+# dropped it; every node or cell whose terms do not meet it is theirs bit
+# for bit.
+
+@pytest.mark.parametrize("where", scenes.NAN_VALUES)
+def test_lon_backward_body_nan_value(bodies, where):
+    """Slice T - 2 of ``lon_scene(41, 13, 5, 90, 5)`` from the clean next
+    slice with a NaN in the distance map or the path's v_max: the plain
+    version's nodes bit for bit (the nodes that meet the NaN: constraint
+    NaN, cost inf, the first jerk); 92bf3da's body differs there and agrees
+    elsewhere; the final slice too."""
+    T, S, V, A, P = 5, 41, 13, 5, 90
+    pp, path, dist, _ = lon_scene(S, V, A, P, T, S + A)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A).numpy()
+    path, dist = scenes.lon_nan_values(path, dist, where)
+    args = tuple(torch.from_numpy(x) for x in (pp, path, dist))
+    for i, last in ((T - 2, False), (T - 1, True)):
+        nxt = nodes[min(i + 1, T - 1)]
+        want = tlk.backward_slice_reference(torch.from_numpy(nxt), *args, i,
+                                            last).numpy()
+        got = _lon_slice(bodies.rehearse_lon_backward, nxt, pp, path, dist,
+                         i, last)
+        np.testing.assert_array_equal(got, want)
+        hit = np.isnan(want).any(axis=-1)
+        old = _lon_slice(bodies.rehearse_lon_backward_92bf3da, nxt, pp,
+                         path, dist, i, last)
+        np.testing.assert_array_equal(old[~hit], want[~hit])
+        if where == "dist_path" or not last:
+            assert hit.any() and not hit.all()
+            assert not np.isnan(old).any()
+        if not last:
+            assert np.isinf(want[..., 0][hit]).all()
+            assert (want[..., 2][hit]
+                    == pp[tlk.LON_PP_KEYS.index("j_min")]).all()
+
+
+@pytest.mark.parametrize("where", scenes.NAN_VALUES)
+def test_lon_forward_body_nan_value(bodies, where):
+    """The forward pass over clean nodes with a NaN in the distance map or
+    the path's v_max, and the reeval pass of the clean trajectory: the
+    plain versions bit for bit (the step that meets the NaN: constraint
+    NaN, cost inf, the first jerk); 92bf3da's bodies agree on the rows
+    before it and differ there."""
+    T, S, V, A, P = 5, 41, 13, 5, 90
+    pp, path, dist, x0 = lon_scene(S, V, A, P, T, S + A)
+    nodes = lon_nodes(pp, path, dist, T, S, V, A)
+    args = tuple(torch.from_numpy(x) for x in (pp, path, dist))
+    clean = tlk.forward_reference(nodes, *args, torch.from_numpy(x0)).numpy()
+    path, dist = scenes.lon_nan_values(path, dist, where)
+    args = tuple(torch.from_numpy(x) for x in (pp, path, dist))
+    want = tlk.forward_reference(nodes, *args, torch.from_numpy(x0)).numpy()
+    n = nodes.numpy()
+    got = _lon_forward(bodies.rehearse_lon_forward, n, pp, path, dist, x0, 0)
+    np.testing.assert_array_equal(got, want)
+    bad = np.isnan(want).any(axis=-1)
+    k = int(np.argmax(bad))
+    assert bad.any() and k > 0
+    old = _lon_forward(bodies.rehearse_lon_forward_92bf3da, n, pp, path,
+                       dist, x0, 0)
+    np.testing.assert_array_equal(old[:k], want[:k])
+    assert not np.isnan(old).any()
+
+    traj = np.concatenate([clean, clean[-2:]])
+    want_r = tlk.reeval_reference(nodes, *args, torch.from_numpy(traj)).numpy()
+    got_r = _lon_forward(bodies.rehearse_lon_forward, n, pp, path, dist,
+                         traj, 1)
+    np.testing.assert_array_equal(got_r, want_r)
+    bad_r = np.isnan(want_r).any(axis=-1)
+    assert bad_r.any() and not bad_r.all()
+    old_r = _lon_forward(bodies.rehearse_lon_forward_92bf3da, n, pp, path,
+                         dist, traj, 1)
+    np.testing.assert_array_equal(old_r[~bad_r], want_r[~bad_r])
+    assert not np.isnan(old_r).any()
+
+
+def _dp_nan_case(where):
+    """``slice_case(61, 9, 11, 6)``'s final slice, then its distance map
+    with a NaN (two s rows of one l column of slice T - 2) or its reference
+    line with NaN lane bounds (``where`` "lane_bounds": dl at rows 40-43,
+    dr at 80-81)."""
+    S, DS, L, T = 61, 9, 11, 6
+    solve, dist_x, rl, step, pp = slice_case(S, DS, L, T, S + T)
+    nxt = solve.final_slice(dist_x, rl, step, pp)
+    dist_x, rl = dist_x.clone(), rl.clone()
+    if where == "distance":
+        dist_x[T - 2, 20:22, L // 2 + 1] = np.nan
+    else:
+        rl[40:44, 5] = np.nan
+        rl[80:82, 6] = np.nan
+    return solve, nxt, dist_x, rl, step, pp
+
+
+@pytest.mark.parametrize("where", ["distance", "lane_bounds"])
+def test_backward_slice_body_nan_value(bodies, where):
+    """The fused slice T - 2 with a NaN in the DP distance map (the forward
+    distances' running minimum, the occupancy and safety terms keep it: the
+    cells whose lateral sweep meets it take action 0 with its own NaN
+    constraint) or in the lane bounds (the state cost keeps it): the plain
+    version bit for bit; 92bf3da's body differs and agrees on every cell
+    that does not meet the NaN.  The action-min alone on the same slice's
+    inputs likewise."""
+    solve, nxt, dist_x, rl, step, pp = _dp_nan_case(where)
+    T, S, L = dist_x.shape[:3]
+    DS = nxt.shape[1]
+    tables = solve.action_tables(pp)
+    ts_rows = bodies.latlon_action_min_tile_rows(L)
+    i = T - 2
+    want = solve.backward_slice_reference(nxt, i, dist_x, rl, step, pp,
+                                          tables).numpy()
+    ins = solve.slice_inputs(i, dist_x, rl, step, pp)
+    want_a, constr_o, cost_o = lam.action_min_reference(
+        nxt, *ins, tables, return_actions=True)
+    want_a = want_a.numpy()
+    # the cells whose terms meet the NaN: a NaN state cost or a NaN among
+    # their 49 actions (then action 0 wins, NaN or not)
+    keep = _nan_free_cells(constr_o, cost_o) & ~np.isnan(want).any(axis=-1)
+    assert keep.any() and not keep.all()
+    outs = {}
+    for name, fn in (("new", bodies.rehearse_backward_slice),
+                     ("old", bodies.rehearse_backward_slice_92bf3da)):
+        out = outs[name] = np.full((S, DS, L, 4), -7.0, np.float32)
+        fn(_ptr(nxt.numpy()), _ptr(dist_x[i].numpy()), _ptr(rl.numpy()),
+           _ptr(step.reshape(1).numpy()), _ptr(tables.slice_consts.numpy()),
+           _table_ptrs(tables), _ptr(out), S, DS, L, rl.shape[0], i, ts_rows)
+    np.testing.assert_array_equal(outs["new"], want)
+    np.testing.assert_array_equal(outs["old"][keep], want[keep])
+    assert not np.isnan(outs["old"]).any()
+
+    outs = {}
+    for name, fn in (("new", bodies.rehearse_action_min),
+                     ("old", bodies.rehearse_action_min_92bf3da)):
+        out = outs[name] = np.full((S, DS, L, 4), -7.0, np.float32)
+        fn(*[_ptr(a.numpy()) for a in (nxt, *ins)], _table_ptrs(tables),
+           _ptr(out), S, DS, L, ts_rows)
+    np.testing.assert_array_equal(outs["new"], want_a)
+    np.testing.assert_array_equal(outs["old"][keep], want_a[keep])
+    if where == "distance":
+        assert not np.array_equal(outs["old"], want_a)
+
+
+@pytest.mark.parametrize("LD,SD,S", [(21, 13, 61), (1, 20, 41), (6, 4, 201)])
+def test_poly_lat_sweep_body_matches_plain(bodies, LD, SD, S):
+    scene = poly_lat_scene(LD, SD, S, LD + SD + S)
+    got = _sweep(bodies, scene, LD, SD, S, seed=S)
+    _check_sweep(got, _plain_sweep(scene, LD, SD, S))
+    # the scene's obstacles and limits reach the outputs
+    cd, tc = got[:2]
+    assert (cd < 1000.0).any() and (tc >= 1e6).any() or LD == 1
 
 
 @pytest.mark.parametrize("LD,SD,S", [(21, 13, 61), (1, 20, 41), (6, 4, 201)])
@@ -3026,27 +4309,98 @@ def test_poly_lat_sweep_body_matches_2dd76fb(bodies, LD, SD, S):
     against 2dd76fb's body: the collision distance bit for bit, the cost to
     rtol 1e-12 (its sum in another order)."""
     scene = poly_lat_scene(LD, SD, S, LD + SD + S)
-    cd, tc = _sweep(bodies.rehearse_poly_lat_sweep, scene, LD, SD, S)
-    cd0, tc0 = _sweep(bodies.rehearse_poly_lat_sweep_parent, scene,
-                      LD, SD, S)
+    cd, tc = _sweep(bodies, scene, LD, SD, S)[:2]
+    cd0, tc0 = _sweep_of(bodies.rehearse_poly_lat_sweep_parent, scene,
+                         LD, SD, S)
     np.testing.assert_array_equal(cd, cd0)
     np.testing.assert_allclose(tc, tc0, rtol=1e-12, atol=0)
 
 
+@pytest.mark.parametrize("S", [41, 11])
+@pytest.mark.parametrize("LD,SD,seed", [(1, 20, 1), (21, 13, 2), (5, 11, 3)])
+def test_poly_lat_sweep_select_body_matches_92bf3da(bodies, LD, SD, S, seed):
+    """The one launch, its blocks in a seeded order, against 92bf3da's
+    sweep and selection (two launches): cd, tc, the winner and its cost bit
+    for bit; and against the plain versions.  At 5 x 11 the candidates
+    fill one warp's 32 lanes and part of the next.  At S = 11 the staged
+    values of 21 x 13 candidates outgrow the sweep's region (5 S = 55
+    candidates), which then takes the staging's size."""
+    grows = bodies.poly_lat_sweep_smem_bytes(S, LD * SD) \
+        > bodies.poly_lat_sweep_smem_bytes(S, 1)
+    assert grows == (LD * SD > 5 * S)
+    scene = poly_lat_scene(LD, SD, S, seed)
+    got = _sweep(bodies, scene, LD, SD, S, seed=seed)
+    old = _sweep_of(bodies.rehearse_poly_lat_sweep_92bf3da, scene, LD, SD, S,
+                    select=True)
+    for x, y in zip(got, old):
+        np.testing.assert_array_equal(x, y)
+    _check_sweep(got, _plain_sweep(scene, LD, SD, S))
+    assert (got[0] == 1000.0).sum() > 1        # tied collision distances
+
+
+@pytest.mark.parametrize("LD,SD,S", [(1, 20, 41), (21, 13, 61), (5, 11, 41)])
+def test_poly_lat_sweep_body_nan_lane_bounds(bodies, LD, SD, S):
+    """NaN lane bounds (``scenes.poly_lat_nan_bounds``): the constraints keep
+    them (torch.clamp), so the candidates that reach them cost NaN and the
+    selection passes over them; the plain version's cd, NaN pattern,
+    winner and cost, where 92bf3da's sweep dropped the NaN (its costs
+    finite there); every other candidate bit-equal to 92bf3da's."""
+    scene = list(poly_lat_scene(LD, SD, S, LD + SD + S))
+    scene[1] = scenes.poly_lat_nan_bounds(scene[1])
+    got = _sweep(bodies, scene, LD, SD, S, seed=LD + SD)
+    _check_sweep(got, _plain_sweep(scene, LD, SD, S))
+    hit = np.isnan(got[1])
+    assert hit.any() and not hit.all()
+    old = _sweep_of(bodies.rehearse_poly_lat_sweep_92bf3da, scene, LD, SD, S,
+                    select=True)
+    assert not np.isnan(old[1]).any()
+    np.testing.assert_array_equal(got[0], old[0])
+    np.testing.assert_array_equal(got[1][~hit], old[1][~hit])
+
+
+@pytest.mark.parametrize("case", scenes.SELECT_EDGES)
+def test_poly_lat_sweep_select_body_edges(bodies, case):
+    """The one launch at 5 x 11 x 41, its blocks in a seeded order, with the
+    selection driven into an edge through the sweep's inputs
+    (``scenes.poly_lat_select_edge``): the plain versions' maps, winner and
+    cost; where no NaN is met, 92bf3da's two launches bit for bit."""
+    LD, SD, S = 5, 11, 41
+    scene = scenes.poly_lat_select_edge(poly_lat_scene(LD, SD, S, 7), SD,
+                                        case)
+    got = _sweep(bodies, scene, LD, SD, S, seed=11)
+    _check_sweep(got, _plain_sweep(scene, LD, SD, S))
+    init = min(LD // 2 + 1, LD - 1) * SD + SD - 1
+    nan = np.isnan(got[1]).ravel()
+    if case == "empty":
+        assert (got[0] == 1000.0).all()
+    elif case == "infeasible":
+        assert (got[1].astype(np.float32) >= 1e6).all()
+    elif case == "nan_init":
+        assert nan[init] and not nan.all()
+    else:
+        assert nan.all() and got[2] == init and got[3] == np.inf
+    if not nan.any():
+        old = _sweep_of(bodies.rehearse_poly_lat_sweep_92bf3da, scene, LD,
+                        SD, S, select=True)
+        for x, y in zip(got, old):
+            np.testing.assert_array_equal(x, y)
+
+
 def test_poly_lat_sweep_profiling_body_is_bit_equal(bodies):
     """The profiling instantiation: every result the plain instantiation's,
-    every phase counted; a block's shared memory at the most samples the
-    launcher takes inside the 48 KB a block has without opting in."""
+    every phase counted; a block's shared memory at the most samples and
+    candidates the launcher takes inside the 48 KB a block has without
+    opting in."""
     LD, SD, S = 6, 4, 201
     scene = poly_lat_scene(LD, SD, S, 5)
-    want = _sweep(bodies.rehearse_poly_lat_sweep, scene, LD, SD, S)
+    want = _sweep(bodies, scene, LD, SD, S, seed=4)
     prof = np.zeros(len(plk.SWEEP_PHASES), np.uint64)
-    got = _sweep(bodies.rehearse_poly_lat_sweep_profile, scene, LD,
-                 SD, S, prof)
+    got = _sweep(bodies, scene, LD, SD, S, prof, seed=4)
     for x, y in zip(got, want):
         np.testing.assert_array_equal(x, y)
     assert (prof > 0).all()
-    assert bodies.poly_lat_sweep_smem_bytes(900) <= 48 * 1024
+    assert bodies.poly_lat_sweep_smem_bytes(
+        900, bodies.poly_lat_max_candidates()) <= 48 * 1024
 
 
 def test_poly_lat_sweep_body_nan_occupancy(bodies):
@@ -3059,37 +4413,62 @@ def test_poly_lat_sweep_body_nan_occupancy(bodies):
     occ = scene[0].copy()
     occ[np.roll(occ > 0, 1, axis=2) & (occ == 0)] = np.nan
     scene[0] = occ
-    cd, tc = _sweep(bodies.rehearse_poly_lat_sweep, scene, LD, SD, S)
-    T = torch.from_numpy
-    want_cd, want_tc = plk.evaluate_reference(
-        *(T(np.asarray(x)) for x in scene[:2]),
-        T(np.array([scene[2]], np.float32)),
-        *(T(x) for x in scene[3:]), LD, SD, S)
-    np.testing.assert_array_equal(cd, want_cd.numpy())
-    np.testing.assert_allclose(tc, want_tc.numpy(), rtol=1e-12, atol=0)
-    cd0, _ = _sweep(bodies.rehearse_poly_lat_sweep_parent, scene, LD,
-                    SD, S)
-    assert not np.array_equal(cd0, cd)
+    got = _sweep(bodies, scene, LD, SD, S)
+    _check_sweep(got, _plain_sweep(scene, LD, SD, S))
+    cd0, _ = _sweep_of(bodies.rehearse_poly_lat_sweep_parent, scene, LD,
+                       SD, S)
+    assert not np.array_equal(cd0, got[0])
 
 
-def test_poly_lat_select_body_matches_plain(bodies):
-    rng = np.random.default_rng(0)
-    for LD, SD in ((21, 13), (1, 20), (4, 3)):
-        for trial in range(10):
-            cd = rng.uniform(0.0, 60.0, (LD, SD)).astype(np.float32)
-            cd[rng.random((LD, SD)) < 0.3] = 1000.0
-            tc = rng.uniform(0.0, 100.0, (LD, SD))
-            tc[rng.random((LD, SD)) < 0.2] = 1e7
+def _select_maps(LD, SD, rng, case):
+    """Candidate maps as tests/test_poly_chain.py draws them; ``case``
+    "nan": NaN costs and collision distances among them (also at the first
+    update's index), "tie": equal costs and distances a pass must keep the
+    first of, "infeasible": every cost past the feasibility limit."""
+    cd = rng.uniform(0.0, 60.0, (LD, SD)).astype(np.float32)
+    cd[rng.random((LD, SD)) < 0.3] = 1000.0
+    tc = rng.uniform(0.0, 100.0, (LD, SD))
+    tc[rng.random((LD, SD)) < 0.2] = 1e7
+    if case == "nan":
+        tc[rng.random((LD, SD)) < 0.2] = np.nan
+        cd[rng.random((LD, SD)) < 0.1] = np.nan
+        if rng.random() < 0.3:
+            cd[min(LD // 2 + 1, LD - 1), SD - 1] = np.nan
+    elif case == "tie":
+        tc[rng.random((LD, SD)) < 0.4] = 12.5
+        cd[rng.random((LD, SD)) < 0.3] = 30.0
+    elif case == "infeasible":
+        tc[...] = 2e6
+    return cd, tc
+
+
+@pytest.mark.parametrize("grids", [((21, 13), (5, 11)), ((1, 20), (4, 3))],
+                         ids=["warps", "one_warp"])
+@pytest.mark.parametrize("case", ["random", "nan", "tie", "infeasible"])
+def test_poly_lat_select_body_matches_plain(bodies, case, grids):
+    """The last block's selection on given maps: the winner and its cost
+    as the plain version's and as 92bf3da's one-thread kernel's, at 21 x 13
+    and 5 x 11 (the passes over several warps' rounds) and at 1 x 20 and
+    4 x 3 (one round)."""
+    rng = np.random.default_rng(len(case) + grids[0][0])
+    for LD, SD in grids:
+        for trial in range(4):
+            cd, tc = _select_maps(LD, SD, rng, case)
             lv = np.array([2.0], np.float32)
-            best = np.zeros(1, np.int64)
-            cost = np.zeros(1, np.float32)
-            bodies.rehearse_poly_lat_select(_ptr(cd), _ptr(tc), _ptr(lv),
-                                            _ptr(best), _ptr(cost), LD, SD)
+            outs = []
+            for fn, extra in ((bodies.rehearse_poly_lat_select, ()),
+                              (bodies.rehearse_poly_lat_select_92bf3da, ())):
+                best = np.zeros(1, np.int64)
+                cost = np.zeros(1, np.float32)
+                fn(_ptr(cd), _ptr(tc), _ptr(lv), _ptr(best), _ptr(cost), LD,
+                   SD, *extra)
+                outs.append((int(best[0]), cost[0]))
             want_b, want_c = plk.select_reference(
                 torch.from_numpy(cd), torch.from_numpy(tc),
                 torch.from_numpy(lv), LD, SD)
-            assert int(best[0]) == int(want_b), (LD, SD, trial)
-            assert cost[0] == float(want_c)
+            assert outs[0] == outs[1], (LD, SD, trial)
+            assert outs[0][0] == int(want_b), (LD, SD, trial)
+            assert outs[0][1] == float(want_c)
 
 
 # ---------------------------------------------------------------------

@@ -230,24 +230,6 @@ int launch(const float* occ, const float* ray, float s_min, float s_step,
   return (int)cudaGetLastError();
 }
 
-// loads the instantiation's code onto the current device and raises its
-// shared-memory limit to the most a block may use
-template <bool PROF>
-cudaError_t prepare() {
-  auto kernel = dir_dist::dir_dist_kernel<PROF>;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int dev = 0, optin = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  return smem_limit::ensure(kernel, (size_t)optin - attr.sharedSizeBytes,
-                            marks[PROF]);
-}
-
 }  // namespace
 
 extern "C" int dir_dist_map_n_phases() { return dir_dist::N_PHASE; }
@@ -281,8 +263,10 @@ extern "C" int dir_dist_map_profile(const float* occ, const float* ray,
 // wrapper calls it when it binds the library).  Returns the CUDA error
 // code.
 extern "C" int dir_dist_map_prepare() {
-  cudaError_t err = prepare<false>();
-  if (err == cudaSuccess) err = prepare<true>();
+  cudaError_t err =
+      smem_limit::prepare(dir_dist::dir_dist_kernel<false>, marks[0]);
+  if (err == cudaSuccess)
+    err = smem_limit::prepare(dir_dist::dir_dist_kernel<true>, marks[1]);
   return (int)err;
 }
 #endif

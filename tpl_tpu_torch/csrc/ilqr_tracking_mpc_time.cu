@@ -1295,24 +1295,6 @@ int launch(const double* in, double* out, long long* prof, int H, int n_ref,
   return (int)cudaGetLastError();
 }
 
-// loads the instantiation's code onto the current device and raises its
-// shared-memory limit to the most a block may use
-template <bool PROF>
-cudaError_t prepare() {
-  auto kernel = ilqr_mpc_time::ilqr_tracking_mpc_time_kernel<PROF>;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int dev = 0, optin = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  return smem_limit::ensure(kernel, (size_t)optin - attr.sharedSizeBytes,
-                            marks[PROF]);
-}
-
 }  // namespace
 
 // One update: `in` the packed input, `out` the packed result (float64, on
@@ -1341,8 +1323,11 @@ extern "C" int ilqr_tracking_mpc_time_profile(const double* in, double* out,
 // shared-memory limits, so that the first update launches at once (the
 // wrapper calls it when it binds the library).  Returns the CUDA error code.
 extern "C" int ilqr_tracking_mpc_time_prepare() {
-  cudaError_t err = prepare<false>();
-  if (err == cudaSuccess) err = prepare<true>();
+  using ilqr_mpc_time::ilqr_tracking_mpc_time_kernel;
+  cudaError_t err =
+      smem_limit::prepare(ilqr_tracking_mpc_time_kernel<false>, marks[0]);
+  if (err == cudaSuccess)
+    err = smem_limit::prepare(ilqr_tracking_mpc_time_kernel<true>, marks[1]);
   return (int)err;
 }
 #endif

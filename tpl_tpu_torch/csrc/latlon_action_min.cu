@@ -29,6 +29,10 @@
 //
 // Rounding: the integer shift tables arrive precomputed (round-half-even on
 // the host side, matching jnp.round); the kernel itself rounds nothing.
+// A NaN of the distance map or of the reference line's lane bounds stays in
+// the terms, as jnp.maximum / jnp.minimum and the plain version's
+// torch.clamp / torch.cummin keep it (max_nan / min_nan, nan_minmax.cuh);
+// the clamps that form an index drop it.
 // Build without --use_fast_math and with --fmad=false so every float op
 // rounds exactly like the elementwise reference.
 
@@ -36,9 +40,13 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "nan_minmax.cuh"
 #include "smem_limit.cuh"
 
 namespace latlon_am {
+
+using nan_minmax::max_nan;
+using nan_minmax::min_nan;
 
 constexpr int NB = 7;           // action samples per dimension
 constexpr int MAX_ROWS = 24;    // s rows of a block's tile, at most
@@ -136,10 +144,10 @@ __device__ __forceinline__ Best best_action(
     const float d_safety = (dfwd[m] - gap_min) - ds_gap;
     const float4 nn = my_rows[j * tile + lt];
 
-    const float occ = fmaxf(0.f, sc[j] - dfwd[m]);
+    const float occ = max_nan(0.f, sc[j] - dfwd[m]);
     constr = (s_ca[j * NB + m] + occ) + nn.y;
 
-    cost = w_safety * fmaxf(0.f, sc[j] - d_safety);
+    cost = w_safety * max_nan(0.f, sc[j] - d_safety);
     cost = cost + q_dds[j];
     const float e_dds = nn.z - dds_v[j];
     cost = cost + w_ddds * (e_dds * e_dds);
@@ -352,8 +360,8 @@ backward_slice_kernel(
       l_trg < l_right ? mid_y : (l_trg > l_left ? mid_z : l_trg);
 
   // the state cost and constraint, term by term
-  float cost = 1000.f * fmaxf(l_g - d_left_ref, 0.f);
-  cost = cost + 1000.f * fmaxf(d_right_ref - l_g, 0.f);
+  float cost = 1000.f * max_nan(l_g - d_left_ref, 0.f);
+  cost = cost + 1000.f * max_nan(d_right_ref - l_g, 0.f);
   float e = mid_x - l_g;
   cost = cost + sc[C_W_L] * (e * e);
   e = mid_y - l_g;
@@ -372,7 +380,7 @@ backward_slice_kernel(
   dfwd[0] = drow[il2_l[0]];
 #pragma unroll
   for (int m = 1; m < NB; ++m)
-    dfwd[m] = fminf(m == NB / 2 + 1 ? dfwd[0] : dfwd[m - 1], drow[il2_l[m]]);
+    dfwd[m] = min_nan(m == NB / 2 + 1 ? dfwd[0] : dfwd[m - 1], drow[il2_l[m]]);
 #pragma unroll
   for (int m = 0; m < NB; ++m) dfwd[m] = dfwd[m] - half_len;
 
@@ -429,6 +437,9 @@ inline Shape shape_of(int S, int DS, int L, int ts_rows) {
   return sh;
 }
 
+// the launchers' shared-memory limits set so far, by instantiation (few)
+smem_limit::Marks action_min_marks[2], slice_marks[2];
+
 inline Tables tables_of(const void* const* t) {
   return Tables{
       static_cast<const int*>(t[0]), static_cast<const int*>(t[1]),
@@ -454,11 +465,11 @@ extern "C" int latlon_action_min_tiled(
   using namespace latlon_am;
   const Shape sh = shape_of(S, DS, L, ts_rows);
   if (!sh.ok) return (int)cudaErrorInvalidValue;
-  static smem_limit::Marks marks[2];
   const size_t smem = smem_bytes(sh.ts_rows, L);
   auto kernel = sh.few ? action_min_kernel<FEW_THREADS>
                        : action_min_kernel<MAX_THREADS>;
-  cudaError_t err = smem_limit::ensure(kernel, smem, marks[sh.few]);
+  cudaError_t err = smem_limit::ensure(kernel, smem,
+                                       action_min_marks[sh.few]);
   if (err != cudaSuccess) return (int)err;
   const void* const t[] = {ids, ks, kl, ca, schg, qdds, qdl, dds_vals,
                            dl_vals, dss, consts};
@@ -483,11 +494,10 @@ extern "C" int latlon_backward_slice(
   using namespace latlon_am;
   const Shape sh = shape_of(S, DS, L, 0);
   if (!sh.ok || n_ref < 1) return (int)cudaErrorInvalidValue;
-  static smem_limit::Marks marks[2];
   const size_t smem = slice_smem_bytes(sh.ts_rows, L);
   auto kernel = sh.few ? backward_slice_kernel<FEW_THREADS>
                        : backward_slice_kernel<MAX_THREADS>;
-  cudaError_t err = smem_limit::ensure(kernel, smem, marks[sh.few]);
+  cudaError_t err = smem_limit::ensure(kernel, smem, slice_marks[sh.few]);
   if (err != cudaSuccess) return (int)err;
   const Tables tb = tables_of(tables);
   kernel<<<sh.grid, sh.threads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -518,5 +528,24 @@ extern "C" int latlon_empty_launch(int blocks, int threads, void* stream) {
   latlon_am::empty_kernel<<<blocks, threads, 0,
                             static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
+}
+
+// Loads the kernels onto the current device and raises their shared-memory
+// limits, so that the first launch pays for neither (the wrapper calls it
+// when it binds the library).  Returns the CUDA error code.
+extern "C" int latlon_action_min_prepare() {
+  using namespace latlon_am;
+  using smem_limit::prepare;
+  cudaError_t err =
+      prepare(action_min_kernel<FEW_THREADS>, action_min_marks[1]);
+  if (err == cudaSuccess)
+    err = prepare(action_min_kernel<MAX_THREADS>, action_min_marks[0]);
+  if (err == cudaSuccess)
+    err = prepare(backward_slice_kernel<FEW_THREADS>, slice_marks[1]);
+  if (err == cudaSuccess)
+    err = prepare(backward_slice_kernel<MAX_THREADS>, slice_marks[0]);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, empty_kernel);
+  return (int)err;
 }
 #endif

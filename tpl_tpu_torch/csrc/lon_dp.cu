@@ -68,7 +68,11 @@
 // least constraint the first NaN cost wins; where every such action costs
 // inf the first jerk does.  So the NaN a backward block writes when its box
 // overflows its room (the guard above) reaches the next slice, and the
-// forward pass, as a NaN constraint, not dropped.
+// forward pass, as a NaN constraint, not dropped.  The cost and constraint
+// terms keep a NaN of the distance map or of the path's v_max column as the
+// plain version's torch.clamp does (max_nan, nan_minmax.cuh); the clamps
+// that form an index or a coordinate of the value lookup drop it, so that a
+// NaN never becomes an address.
 //
 // Every operation and its order follow the plain versions
 // (tpl_tpu_torch/planning/dyn_prog/lon_kernel.py backward_slice_reference,
@@ -84,9 +88,12 @@
 #include <stddef.h>
 #include <string.h>
 
+#include "nan_minmax.cuh"
 #include "smem_limit.cuh"
 
 namespace lon_dp {
+
+using nan_minmax::max_nan;
 
 constexpr int NB = 9;           // backward jerk samples
 constexpr int NF = 21;          // forward jerk samples
@@ -196,8 +203,8 @@ __device__ __forceinline__ StateTerms state_terms(const float* pp, float s,
   StateTerms r;
   r.cost = (pp[W_A] * (a * a) + pp[W_PROGRESS] * fabsf(1000.0f - s))
       + pp[W_SAFETY_DIST]
-            * fmaxf(v * pp[TIME_GAP] + pp[GAP_MIN] - s_dist, 0.0f);
-  r.constr = fmaxf(v - v_max, 0.0f);
+            * max_nan(v * pp[TIME_GAP] + pp[GAP_MIN] - s_dist, 0.0f);
+  r.constr = max_nan(v - v_max, 0.0f);
   return r;
 }
 
@@ -241,8 +248,8 @@ __device__ __forceinline__ void action_terms(const float* pp, StateTerms st,
   cost = cost + pp[W_SNAP] * (dj * dj);
   const float jd = j * dt;
   cost = cost + pp[W_J] * (jd * jd);
-  constr = constr + fmaxf(n.vn - v_max_n, 0.0f);
-  constr = constr + fmaxf(n.s_change - s_dist, 0.0f);
+  constr = constr + max_nan(n.vn - v_max_n, 0.0f);
+  constr = constr + max_nan(n.s_change - s_dist, 0.0f);
   constr = constr + al.below;
   constr = constr + al.above;
   *cost_out = cost;
@@ -1005,16 +1012,7 @@ extern "C" int lon_dp_prepare() {
   if (err == cudaSuccess)
     err = cudaFuncGetAttributes(&attr, lon_forward_kernel<false>);
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr, lon_backward_kernel);
-  int dev = 0, optin = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = smem_limit::ensure(lon_backward_kernel,
-                             (size_t)optin - attr.sharedSizeBytes,
-                             backward_marks);
+    err = smem_limit::prepare(lon_backward_kernel, backward_marks);
   return (int)err;
 }
 #endif

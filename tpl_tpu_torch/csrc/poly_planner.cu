@@ -624,23 +624,6 @@ int propagate_launch(const float* pts, double* node_cost, int* best,
   return (int)cudaGetLastError();
 }
 
-// loads a kernel's code onto the current device; with `marks`, also raises
-// its shared-memory limit to the most a block may use
-template <class K>
-cudaError_t prepare(K kernel, smem_limit::Marks* marks) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess || marks == nullptr) return err;
-  int dev = 0, optin = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  return smem_limit::ensure(kernel, (size_t)optin - attr.sharedSizeBytes,
-                            *marks);
-}
-
 }  // namespace
 
 extern "C" int poly_planner_n_eval_params() { return poly_planner_k::N_EV; }
@@ -712,12 +695,17 @@ extern "C" int poly_propagate_profile(const float* pts, double* node_cost,
 // error code.
 extern "C" int poly_planner_prepare() {
   using namespace poly_planner_k;
-  cudaError_t err = prepare(eval_edges_kernel<false>, &eval_marks[0]);
+  cudaError_t err = smem_limit::prepare(eval_edges_kernel<false>,
+                                        eval_marks[0]);
   if (err == cudaSuccess)
-    err = prepare(eval_edges_kernel<true>, &eval_marks[1]);
-  if (err == cudaSuccess) err = prepare(field_slice_kernel, nullptr);
-  if (err == cudaSuccess) err = prepare(propagate_kernel<false>, nullptr);
-  if (err == cudaSuccess) err = prepare(propagate_kernel<true>, nullptr);
+    err = smem_limit::prepare(eval_edges_kernel<true>, eval_marks[1]);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, field_slice_kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, propagate_kernel<false>);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, propagate_kernel<true>);
   return (int)err;
 }
 #endif

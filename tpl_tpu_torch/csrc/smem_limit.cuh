@@ -34,6 +34,24 @@ inline cudaError_t ensure(K kernel, size_t smem, Marks& marks) {
   return err;
 }
 
+// loads `kernel`'s code onto the current device and raises its dynamic
+// shared-memory limit to the most a block may use (the device's opt-in
+// limit less the kernel's static shared memory), so that its first launch
+// pays for neither; returns the CUDA error code
+template <class K>
+inline cudaError_t prepare(K kernel, Marks& marks) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int dev = 0, optin = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  return ensure(kernel, (size_t)optin - attr.sharedSizeBytes, marks);
+}
+
 }  // namespace smem_limit
 #endif  // __CUDACC__
 

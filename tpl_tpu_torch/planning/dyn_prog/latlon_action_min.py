@@ -435,7 +435,9 @@ _LIB = None
 
 
 def _kernel():
-    """Build (first call) and bind the kernel library."""
+    """Build (first call) and bind the kernel library, and load its code
+    onto the current device with its shared-memory limits raised, so that
+    the first launch does not pay for it."""
     global _LIB
     if _LIB is None:
         from tpl_tpu_torch import _build
@@ -458,5 +460,8 @@ def _kernel():
         lib.latlon_empty_launch.restype = ctypes.c_int
         lib.latlon_empty_launch.argtypes = [ctypes.c_int] * 2 + [
             ctypes.c_void_p]
+        lib.latlon_action_min_prepare.restype = ctypes.c_int
+        lib.latlon_action_min_prepare.argtypes = []
+        _build.prepare(lib, "latlon_action_min")
         _LIB = lib
     return _LIB

@@ -3,9 +3,9 @@ The device replan chain of the PolyLatDpLonPlanner (FAS-2025 family) and
 the lattice planner: per replan,
 
   1. env grid build          (dp_environment._build_grids, tensor ops)
-  2. lateral stage: candidate sweep (kernel) -> sequential best-path
-     selection (kernel, the exact twin of the host ``select_path``) ->
-     winner expansion -> near-path splice with the previous lateral
+  2. lateral stage: candidate sweep and sequential best-path selection
+     (one kernel launch; the selection the exact twin of the host
+     ``select_path``) -> winner expansion -> near-path splice with the previous lateral
      trajectory -> resampling into the lon planner's path ->
      curvature-limited velocity profile -> jerk-limited ramp (kernel)
   3. longitudinal stage: projection of the previous trajectory point ->
@@ -96,19 +96,6 @@ def _lerp_xs_dev(x, dx, ys, angle=False):
     if angle:
         return ys[i0] + short_angle_dist_t(ys[i0], ys[i1]) * a
     return ys[i0] * (1.0 - a) + ys[i1] * a
-
-
-def select_path_device(collision_dist, traj_cost, length_veh,
-                       l_dst_steps, s_dst_steps):
-    """The device twin of poly_lat_kernel.select_path (reference:
-    poly_lat_planner.cu:227-268): the two order-dependent passes in flat
-    (il, isd) order on float32 values (kernel ``poly_lat_select`` on a CUDA
-    tensor).  Returns (il, isd, min_cost) as 0-d tensors."""
-    best, cost = plk.select_device(collision_dist.contiguous(),
-                                   traj_cost.contiguous(),
-                                   length_veh.reshape(1), l_dst_steps,
-                                   s_dst_steps)
-    return best // s_dst_steps, best % s_dst_steps, cost
 
 
 def _expand_winner(il, isd, start, ref_line, ref_step, pp, s_steps,
@@ -275,10 +262,9 @@ def make_poly_chain(spec):
         ppd = {k: ppl[i] for i, k in enumerate(PL_PP_KEYS)}
         ppn_d = unpack_lon_pp(ppn)
 
-        cd, tc = plk.sweep(occ_map, ref_line, ref_step, ppl, env_pp, start,
-                           LD, SD, S_LAT)
-        il, isd, cost = select_path_device(
-            cd, tc, ppl[PL_PP_KEYS.index("length_veh"):][:1], LD, SD)
+        best, cost = plk.sweep_select(occ_map, ref_line, ref_step, ppl,
+                                      env_pp, start, LD, SD, S_LAT)[2:]
+        il, isd = best // SD, best % SD
         new_pts = _expand_winner(il, isd, start, ref_line, ref_step, ppd,
                                  S_LAT, LD, SD)
         merged = _merge_and_time(old_pts, n_keep, new_pts)

@@ -8,25 +8,22 @@ tpl_tpu/planning/dyn_prog/poly_lat_kernel.py)
 Candidate/selection layout mirrors PolyLatTrajPoint / path_nodes
 (poly_lat_planner.cuh:64-108).
 
-Two device entries live here, each a hand-written kernel of
-``csrc/poly_lat.cu`` on a CUDA tensor and a plain PyTorch version on a CPU
-tensor:
-
-- the candidate sweep (:func:`make_poly_lat_kernel`'s ``evaluate``; kernel
-  ``poly_lat_sweep``, one block per candidate, a thread a sample, and its
-  profiling instantiation, :func:`sweep_profile`; plain
-  :func:`evaluate_reference`);
-- the order-dependent selection (:func:`select_device`; kernel
-  ``poly_lat_select``, one thread; plain :func:`select_reference`), the
-  device twin of the host :func:`select_path`.
+One device entry lives here, a hand-written kernel of ``csrc/poly_lat.cu``
+on a CUDA tensor and a plain PyTorch version on a CPU tensor: the candidate
+sweep and the order-dependent selection in one launch
+(:func:`sweep_select`; kernel ``poly_lat_sweep_select``, one block per
+candidate, a thread a sample, the last block to finish taking the
+selection; its profiling instantiation, :func:`sweep_profile`; plain
+:func:`evaluate_reference` and :func:`select_reference`, the device twin of
+the host :func:`select_path`).  :func:`sweep` (and
+:func:`make_poly_lat_kernel`'s ``evaluate``) return its maps alone.
 
 Dtypes are the JAX program's (the JAX package turns x64 on): the float64
 Hermite inverse promotes the quintics, the geometry and the cost to
 float64; the occupancy lookups' s index and the collision distance stay
 float32.  ``evaluate`` returns (collision_dist float32, traj_cost
 float64); the selection compares both as float32.  ``launches`` counts the
-kernel launches of both entries, ``sweep_launches`` / ``select_launches``
-each.
+kernel's launches.
 """
 
 import ctypes
@@ -40,9 +37,9 @@ from tpl_tpu_torch.ops.interp import short_angle_dist, lerp_xs
 from tpl_tpu_torch.planning.dyn_prog.lon_kernel import axis_points, fma32
 from tpl_tpu_torch.planning.dyn_prog.latlon_action_min import div_const
 
+THREADS = 256           # a block of the kernel (csrc/poly_lat.cu THREADS)
+
 launches = 0            # kernel launches since import (reset freely)
-sweep_launches = 0
-select_launches = 0
 
 # PolyLatTraj point columns
 TC_T, TC_L, TC_DL, TC_DDL, TC_DDDL, TC_S, TC_V, TC_X, TC_Y, TC_H, \
@@ -271,15 +268,18 @@ def _hermite_inv(dev):
     return inv
 
 
-def sweep(occ_map, ref_line, ref_step, pp_vec, env_vec, start, LD, SD, S,
-          prof=None):
-    """The candidate sweep: (collision_dist (LD, SD) float32, traj_cost
-    (LD, SD) float64).  One launch of ``poly_lat_sweep`` on a CUDA tensor,
-    :func:`evaluate_reference` on a CPU tensor.  ``occ_map`` (TE, SE, LE),
+def sweep_select(occ_map, ref_line, ref_step, pp_vec, env_vec, start, LD,
+                 SD, S, prof=None):
+    """The candidate sweep and the selection: (collision_dist (LD, SD)
+    float32, traj_cost (LD, SD) float64, the winner's flat index (int64,
+    0-d), its cost (float32, 0-d)).  One launch of ``poly_lat_sweep_select``
+    on a CUDA tensor (no host sync), :func:`evaluate_reference` and
+    :func:`select_reference` on a CPU tensor.  ``occ_map`` (TE, SE, LE),
     ``ref_line`` (n, 8), ``ref_step`` one element, ``pp_vec``
-    (:data:`PL_PP_KEYS`), ``env_vec`` (:data:`ENV_PP_KEYS`), ``start``
-    [l, dl, ddl, s, v]; float32, contiguous, on one device."""
-    global launches, sweep_launches
+    (:data:`PL_PP_KEYS`; the selection takes its ``length_veh``),
+    ``env_vec`` (:data:`ENV_PP_KEYS`), ``start`` [l, dl, ddl, s, v];
+    float32, contiguous, on one device."""
+    global launches
     dev = occ_map.device
     f32 = torch.float32
     if occ_map.dim() != 3:
@@ -298,55 +298,78 @@ def sweep(occ_map, ref_line, ref_step, pp_vec, env_vec, start, LD, SD, S,
         raise ValueError(f"{LD} x {SD} candidates of {S} samples: outside "
                          "what the sweep takes")
     if dev.type == "cpu":
-        return evaluate_reference(occ_map, ref_line, ref_step, pp_vec,
-                                  env_vec, start, LD, SD, S)
+        cd, tc = evaluate_reference(occ_map, ref_line, ref_step, pp_vec,
+                                    env_vec, start, LD, SD, S)
+        lv = pp_vec[PL_PP_KEYS.index("length_veh")]
+        return (cd, tc) + select_reference(cd, tc, lv, LD, SD)
     if dev.type != "cuda":
         raise ValueError(f"poly_lat: unsupported device {dev}")
-    cd = torch.empty((LD, SD), dtype=f32, device=dev)
-    tc = torch.empty((LD, SD), dtype=torch.float64, device=dev)
-    TE, SE, LE = occ_map.shape
     lib = _kernel()
     if S > lib.poly_lat_max_samples():
         raise ValueError(f"{S} samples: the sweep takes at most "
                          f"{lib.poly_lat_max_samples()}")
+    if LD * SD > lib.poly_lat_max_candidates():
+        raise ValueError(f"{LD} x {SD} candidates: the launch takes at most "
+                         f"{lib.poly_lat_max_candidates()} (its last block "
+                         "stages every candidate's cd and cost, 8 bytes "
+                         "each, in the shared memory a block has without "
+                         "opting in)")
+    from tpl_tpu_torch import _build
+
+    cd = torch.empty((LD, SD), dtype=f32, device=dev)
+    tc = torch.empty((LD, SD), dtype=torch.float64, device=dev)
+    best = torch.empty((), dtype=torch.int64, device=dev)
+    cost = torch.empty((), dtype=f32, device=dev)
+    TE, SE, LE = occ_map.shape
     inv = _hermite_inv(dev)
-    head = (occ_map.data_ptr(), ref_line.data_ptr(), ref_step.data_ptr(),
-            pp_vec.data_ptr(), env_vec.data_ptr(), start.data_ptr(),
-            inv.data_ptr(), cd.data_ptr(), tc.data_ptr())
-    tail = (LD, SD, S, TE, SE, LE, ref_line.shape[0])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        counter = _build.arrival_counter(dev, stream)
+        head = (occ_map.data_ptr(), ref_line.data_ptr(), ref_step.data_ptr(),
+                pp_vec.data_ptr(), env_vec.data_ptr(), start.data_ptr(),
+                inv.data_ptr(), cd.data_ptr(), tc.data_ptr(), best.data_ptr(),
+                cost.data_ptr(), counter.data_ptr())
+        tail = (LD, SD, S, TE, SE, LE, ref_line.shape[0])
         if prof is None:
-            err = lib.poly_lat_sweep(*head, *tail, stream)
+            err = lib.poly_lat_sweep_select(*head, *tail, stream)
         else:
-            err = lib.poly_lat_sweep_profile(*head, prof.data_ptr(), *tail,
-                                             stream)
+            err = lib.poly_lat_sweep_select_profile(*head, prof.data_ptr(),
+                                                    *tail, stream)
     if err != 0:
-        raise RuntimeError(f"poly_lat_sweep launch failed: CUDA error {err}")
+        raise RuntimeError(f"poly_lat_sweep_select launch failed: CUDA error "
+                           f"{err}")
     launches += 1
-    sweep_launches += 1
-    return cd, tc
+    return cd, tc, best, cost
+
+
+def sweep(occ_map, ref_line, ref_step, pp_vec, env_vec, start, LD, SD, S):
+    """The candidate maps of :func:`sweep_select`: (collision_dist (LD, SD)
+    float32, traj_cost (LD, SD) float64)."""
+    return sweep_select(occ_map, ref_line, ref_step, pp_vec, env_vec, start,
+                        LD, SD, S)[:2]
 
 
 # the profiling instantiation's phases (csrc/poly_lat.cu Phase): thread 0's
-# clock64() cycles of each block, summed over the blocks
+# clock64() cycles of each block, summed over the blocks (the selection's
+# the last block's alone)
 SWEEP_PHASES = ("coefficients", "samples", "segments", "times", "collision",
-                "reduce")
+                "reduce", "arrive", "select")
 
 
 def sweep_profile(occ_map, ref_line, ref_step, pp_vec, env_vec, start, LD,
                   SD, S):
-    """The sweep through the kernel's profiling instantiation (CUDA tensors
-    only, checked as :func:`sweep`): (collision_dist, traj_cost), which the
-    plain instantiation's equal bit for bit, and thread 0's cycles by phase
+    """The sweep and selection through the kernel's profiling
+    instantiation (CUDA tensors only, checked as :func:`sweep_select`):
+    (collision_dist, traj_cost, best, cost), which the plain
+    instantiation's equal bit for bit, and thread 0's cycles by phase
     summed over the blocks (:data:`SWEEP_PHASES`)."""
     if occ_map.device.type != "cuda":
         raise ValueError("sweep_profile needs CUDA tensors")
     prof = torch.zeros(len(SWEEP_PHASES), dtype=torch.int64,
                        device=occ_map.device)
-    cd, tc = sweep(occ_map, ref_line, ref_step, pp_vec, env_vec, start, LD,
-                   SD, S, prof)
-    return cd, tc, dict(zip(SWEEP_PHASES, prof.cpu().tolist()))
+    out = sweep_select(occ_map, ref_line, ref_step, pp_vec, env_vec, start,
+                       LD, SD, S, prof)
+    return out + (dict(zip(SWEEP_PHASES, prof.cpu().tolist())),)
 
 
 def make_poly_lat_kernel(spec):
@@ -404,59 +427,38 @@ def select_path(collision_dist, traj_cost, length_veh, l_dst_steps,
     return min_idx_l, min_idx_s
 
 
-def select_reference(cd, tc, length_veh, LD, SD):
-    """The plain version of the device selection (the JAX package's
-    ``select_path_device``, poly_chain_kernel.py:78-113): the two passes in
-    flat (il, isd) order, every value and comparison in float32.  Returns
-    (best flat index int64, min_cost float32) as 0-d tensors on the device
-    of ``cd``."""
+def _select_passes(cd, tc, length_veh, LD, SD):
+    """The selection's two passes in flat (il, isd) order, every value and
+    comparison in float32: (best flat index, min_cost, how many steps of
+    the passes changed their state)."""
     f32 = np.float32
     c = cd.reshape(-1).to(torch.float32).cpu().numpy()
     t = tc.reshape(-1).to(torch.float32).cpu().numpy()
     lv = f32(length_veh.reshape(()).item()) \
         if isinstance(length_veh, torch.Tensor) else f32(length_veh)
     init_flat = min(LD // 2 + 1, LD - 1) * SD + SD - 1
-    max_cd = c[init_flat]
+    max_cd, updates = c[init_flat], 0
     for i in range(LD * SD):
         if t[i] < f32(1e6) and c[i] > f32(max_cd + lv):
-            max_cd = c[i]
+            max_cd, updates = c[i], updates + 1
     min_cost, best = f32(np.inf), init_flat
     for i in range(LD * SD):
         if abs(f32(c[i] - max_cd)) <= f32(1.0) and t[i] < min_cost:
             max_cd, min_cost, best = c[i], t[i], i
+            updates += 1
+    return best, min_cost, updates
+
+
+def select_reference(cd, tc, length_veh, LD, SD):
+    """The plain version of the device selection (the JAX package's
+    ``select_path_device``, poly_chain_kernel.py:78-113): the two passes in
+    flat (il, isd) order, every value and comparison in float32.  Returns
+    (best flat index int64, min_cost float32) as 0-d tensors on the device
+    of ``cd``."""
+    best, min_cost, _ = _select_passes(cd, tc, length_veh, LD, SD)
     dev = cd.device
     return (torch.tensor(best, dtype=torch.int64, device=dev),
             torch.tensor(min_cost, dtype=torch.float32, device=dev))
-
-
-def select_device(cd, tc, length_veh, LD, SD):
-    """The selection on the device of ``cd`` (LD, SD) float32 and ``tc``
-    (LD, SD) float64, ``length_veh`` a one-element float32 tensor there:
-    one launch of ``poly_lat_select`` on a CUDA tensor (no host sync),
-    :func:`select_reference` on a CPU tensor.  Returns (best flat index
-    int64, min_cost float32), 0-d."""
-    global launches, select_launches
-    dev = cd.device
-    _check("collision_dist", cd, (LD, SD), torch.float32, dev)
-    _check("traj_cost", tc, (LD, SD), torch.float64, dev)
-    _check("length_veh", length_veh.reshape(1), (1,), torch.float32, dev)
-    if dev.type == "cpu":
-        return select_reference(cd, tc, length_veh, LD, SD)
-    if dev.type != "cuda":
-        raise ValueError(f"poly_lat: unsupported device {dev}")
-    best = torch.empty((), dtype=torch.int64, device=dev)
-    cost = torch.empty((), dtype=torch.float32, device=dev)
-    lib = _kernel()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.poly_lat_select(cd.data_ptr(), tc.data_ptr(),
-                                  length_veh.data_ptr(), best.data_ptr(),
-                                  cost.data_ptr(), LD, SD, stream)
-    if err != 0:
-        raise RuntimeError(f"poly_lat_select launch failed: CUDA error {err}")
-    launches += 1
-    select_launches += 1
-    return best, cost
 
 
 class PolyLatTraj:
@@ -614,24 +616,34 @@ CHAIN_SAMPLE = dict(f64_mul=14, f64_add=16, f64_div=4, f64_sin=2,
                     f64_cos=1, smem_load=4)
 CHAIN_PER_SAMPLE = dict(f64_add=1)
 CHAIN_TAIL = dict(f64_div=1, f64_add=8, f32_add=8, smem_load=10)
-# the selection: two passes over the candidates, each step a compare and a
-# select on one thread
-CHAIN_SELECT = dict(f32_add=3, smem_load=1)
+# The last block's selection: its staging (a load through L2, priced as a
+# shared-memory load, and a store), then for each pass and each 32
+# candidates a warp's test of the update condition (a float32 add and
+# compare on a staged value) and for each update of the serial pass a
+# shuffle of the winner's value and the re-test of the lanes after it.  The
+# arrival's fence and atomic are not priced (no probe).
+CHAIN_STAGE = dict(smem_load=2)
+CHAIN_SELECT_ROUND = dict(f32_add=2, smem_load=1)
+CHAIN_SELECT_UPDATE = dict(f32_add=2, smem_load=1)
+# the selection's float32 operations a candidate: two compares a pass
+SELECT_OPS = 4
 
 
 def traffic_bytes(LD, SD, S, n_ref, occ_cells):
     """Bytes one sweep must move: the reference rows it reads (8 channels
     each), the occupancy cells its lookups touch (at most the grid), the
-    parameters and the start, the two outputs written once."""
+    parameters and the start, the two maps and the winner's index and cost
+    written once."""
     return (4 * (min(n_ref, S + 1) * 8 + len(PL_PP_KEYS) + len(ENV_PP_KEYS)
-                 + 5 + 1) + 4 * occ_cells + (4 + 8) * LD * SD)
+                 + 5 + 1) + 4 * occ_cells + (4 + 8) * LD * SD + 8 + 4)
 
 
 def operations(LD, SD, S):
-    """(float64 operations, float32 operations) of one sweep."""
+    """(float64 operations, float32 operations) of one sweep and its
+    selection."""
     n = LD * SD
     return (n * (S * OPS["sample_f64"] + OPS["candidate"]),
-            n * S * OPS["sample_lookup_f32"])
+            n * (S * OPS["sample_lookup_f32"] + SELECT_OPS))
 
 
 def bound_ms(LD, SD, S, n_ref, occ_cells):
@@ -651,16 +663,23 @@ def chain_ms(S, cycles, sm_mhz):
     return _latency.chain_ms(ops, cycles, sm_mhz)
 
 
-def select_bound_ms(LD, SD):
-    """The selection reads both candidate maps and writes two words."""
-    n = LD * SD
-    return _latency.roofline_ms((4 + 8) * n + 4 + 8 + 4, 2 * n * 4,
-                                "float32")
+def selection_updates(cd, tc, length_veh, LD, SD):
+    """How many updates the selection's two serial passes make on these
+    maps (the steps of :func:`select_reference` that change its state)."""
+    return _select_passes(cd, tc, length_veh, LD, SD)[2]
 
 
-def select_chain_ms(LD, SD, cycles, sm_mhz):
-    return _latency.chain_ms(_latency.add_ops({}, CHAIN_SELECT, 2 * LD * SD),
-                             cycles, sm_mhz)
+def sweep_select_chain_ms(LD, SD, S, updates, cycles, sm_mhz):
+    """The critical path of the one launch: a candidate's sweep
+    (:func:`chain_ms`), then the last block's staging and the selection's
+    two passes on a warp, ``updates`` of them taken
+    (:func:`selection_updates`)."""
+    ops = _latency.add_ops(dict(CHAIN_SAMPLE), CHAIN_PER_SAMPLE, S)
+    _latency.add_ops(ops, CHAIN_TAIL, 1)
+    _latency.add_ops(ops, CHAIN_STAGE, -(-(LD * SD) // THREADS))
+    _latency.add_ops(ops, CHAIN_SELECT_ROUND, 2 * -(-(LD * SD) // 32))
+    _latency.add_ops(ops, CHAIN_SELECT_UPDATE, updates)
+    return _latency.chain_ms(ops, cycles, sm_mhz)
 
 
 _LIB = None
@@ -675,20 +694,17 @@ def _kernel():
         from tpl_tpu_torch import _build
 
         lib = _build.load("poly_lat")
-        lib.poly_lat_sweep.restype = ctypes.c_int
-        lib.poly_lat_sweep.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.poly_lat_sweep_profile.restype = ctypes.c_int
-        lib.poly_lat_sweep_profile.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        for fn in (lib.poly_lat_max_samples, lib.poly_lat_n_params,
-                   lib.poly_lat_n_env_params, lib.poly_lat_n_phases,
-                   lib.poly_lat_prepare):
-            fn.restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.poly_lat_sweep_select.argtypes = [ptr] * 12 + [i32] * 7 + [ptr]
+        lib.poly_lat_sweep_select_profile.argtypes = (
+            [ptr] * 13 + [i32] * 7 + [ptr])
+        lib.poly_lat_sweep_select.restype = i32
+        lib.poly_lat_sweep_select_profile.restype = i32
+        for fn in (lib.poly_lat_max_samples, lib.poly_lat_max_candidates,
+                   lib.poly_lat_n_params, lib.poly_lat_n_env_params,
+                   lib.poly_lat_n_phases, lib.poly_lat_prepare):
+            fn.restype = i32
             fn.argtypes = []
-        lib.poly_lat_select.restype = ctypes.c_int
-        lib.poly_lat_select.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         if lib.poly_lat_n_params() != len(PL_PP_KEYS) \
                 or lib.poly_lat_n_env_params() != len(ENV_PP_KEYS) \
                 or lib.poly_lat_n_phases() != len(SWEEP_PHASES):

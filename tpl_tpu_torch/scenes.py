@@ -75,6 +75,67 @@ def lon_shifted_start(x0):
     return x
 
 
+# the value inputs that the NaN cases poison (the terms keep the NaN, no
+# index takes it)
+NAN_VALUES = ("dist_path", "v_max")
+
+
+def lon_nan_values(path, dist, where):
+    """Copies of the path and the distance map of ``lon_scene(41, 13, 5,
+    90, 5, 46)`` with NaN in a value input: s cells 12-14 of every row of
+    the distance map (``where`` "dist_path": the forward pass's state 2
+    and the nodes of those rows), or the path's v_max at rows 37-38
+    ("v_max": state 3, and the actions of step 2 that reach it)."""
+    path, dist = path.copy(), dist.copy()
+    if where == "dist_path":
+        dist[:, 12:15] = np.nan
+    else:
+        path[37:39, tlk.PC_VMAX] = np.nan
+    return path, dist
+
+
+def poly_lat_nan_bounds(ref_line):
+    """A copy of a sweep's reference line (``poly_lat_scene``) with NaN
+    lane bounds: the left (dl) at rows 30-33 (s 15-16.5 m), the right (dr)
+    at rows 50-51 (s 25-25.5 m); every candidate whose polynomial reaches
+    them costs NaN."""
+    rl = ref_line.copy()
+    rl[30:34, 5] = np.nan
+    rl[50:52, 6] = np.nan
+    return rl
+
+
+SELECT_EDGES = ("empty", "infeasible", "nan_init", "nan_all")
+
+
+def poly_lat_select_edge(scene, SD, case):
+    """A copy of a sweep's scene (``poly_lat_scene``, SD > 1) that drives
+    the selection into an edge: "empty" no obstacle (every collision
+    distance 1000, all tied); "infeasible" the left lane bound at -10 m
+    (every cost past the feasibility limit: the first pass takes no
+    update); "nan_init" NaN left lane bounds past the second-longest
+    candidates' end (the longest candidates cost NaN, the first update's
+    among them); "nan_all" every left lane bound NaN (every cost NaN: the
+    winner stays the first update's index, its cost inf)."""
+    occ, rl, step, pp, env, start = scene
+    occ, rl = occ.copy(), rl.copy()
+    if case == "empty":
+        occ[...] = 0.0
+    elif case == "infeasible":
+        rl[:, 5] = -10.0
+    elif case == "nan_all":
+        rl[:, 5] = np.nan
+    else:
+        k = plk.PL_PP_KEYS.index
+        ends = start[3] + np.linspace(pp[k("s_dst_min")],
+                                      pp[k("s_dst_max")], SD)
+        # the rows a sample within the second-longest candidates reads lie
+        # at most one row past their end
+        at = np.arange(len(rl)) * step
+        rl[(at > ends[-2] + step) & (at <= ends[-1]), 5] = np.nan
+    return occ, rl, step, pp, env, start
+
+
 def lon_nodes(pp, path, dist, T, S, V, A, dev="cpu"):
     """Every slice of a solve by the plain version (nodes[0] zeros), on
     ``dev``."""

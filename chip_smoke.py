@@ -265,7 +265,34 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
 21. record and replay: ``SimRecorder`` over 100 ticks of the vendored loop
    (written under ``build/``), read back with ``load_recording`` and stepped
    into a fresh store by ``SimReplay``, every state equal;
-22. prints the card's name and power limit and one JSON line describing the
+22. genopt MPC: the sympy front end's tracking MPC
+   (``scenes.genopt_mpc_config``, float64, H=60, 8 iterations) solved by
+   the plain iLQR on the card (no kernel launched) against the native
+   problem's kernel solve and the same genopt solve on the CPU (x, u atol
+   1e-6, the cost rtol 1e-9), wall ms of each; then each ``optimizers``
+   factory with a kernel solves once at its own ``horizon_max`` on the card
+   (``cuda_horizon_max``) through its kernel (the tracking MPCs at 100, the
+   RSTP profiles at 300);
+23. the crane example (``tpl_tpu_torch.examples.crane_2d``, H=100) on the
+   card and on the CPU: the example's acceptance on both, their final
+   states within CRANE_ATOL;
+24. the batched DP slice (``latlon_backward_slice`` at B > 1, the scenario
+   as ``blockIdx.z``) at the demo grid, B = 1 and 8 on
+   ``scenes.dp_batch_scenes`` (per-scenario scenes, tables and ``l_trg``,
+   NaN distance cells in one scenario): every backward slice bit-equal to
+   the plain version on the CPU (NaN equal to NaN) and every scenario to
+   its one-scenario launch, one launch a slice; a batch solve at B = 8 is 8
+   batched launches and each plan its own solve's; one batched launch at
+   B = 8 timed against 8 one-scenario launches from CUDA graphs and by
+   events, the wrapper, the plain version and the bounds (also under
+   ``--kernels-only``);
+25. ``tpl_tpu_torch.parallel.dryrun_multichip(device_count)`` at its full
+   widths (the MPC at B = 4 a card, the IDM sweep at C = 16 a card, the DP
+   batch at B = 8 a card on the 10 x 201 x 37 x 21 grid, the env build at
+   B = 4 a card), the launch counters set to 0 just before and read just
+   after: the batched MPC, both IDM kernels and the batched slice (8 a
+   card) launched; run twice, each part's wall printed first and warm;
+26. prints the card's name and power limit and one JSON line describing the
    kernels (launches on the main path and per tick or per DP replan, the
    largest difference to the plain version, the kernel's time through its
    bare launcher ``ms`` and through its wrapper ``wrapper_ms``, the plain
@@ -293,7 +320,10 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    carry their loop's launches (per replan and per tick) and the loop's
    ``runtime_environment`` / ``runtime_planning`` medians.  The time-MPC row
    carries its loop's launches and the per-tick control walls of the four
-   controllers' loops.
+   controllers' loops.  The ``latlon_backward_slice_batched`` row carries
+   the dryrun's launches (``launches``, ``dryrun_launches``), its time at
+   B = 8 from CUDA graphs (``ms``) beside 8 one-scenario launches
+   (``single_launches_ms``), both by events, and the dryrun's wall times.
    Each phase prints its seconds.
 
 With ``--parent-csrc DIR`` (a directory holding another version of any of
@@ -347,9 +377,9 @@ solve and of ``scenes.LON_EDGE``'s grids (bit for bit on the CPU, against
 ``--parent-csrc``), the lon forward pass of seeded demo-width solves (A=20
 and A=7) and the sweep with its selection seeded at 1 x 20, 21 x 13 and
 5 x 11 (against the plain versions and ``--parent-csrc``; their "phases"
-lines), phase 12b and phase
-17 with seeded occupancy in place of the graph DP loop's first replan: no
-loop is driven and no result line printed.
+lines), phase 12b, phase
+17 with seeded occupancy in place of the graph DP loop's first replan and
+phase 24: no loop is driven and no result line printed.
 
 With ``--host-profile TICKS`` the run builds, then drives the vendored RSTP
 loop on ``demo/country_follow`` for TICKS ticks under ``cProfile`` twice,
@@ -361,6 +391,7 @@ Any failure raises (nonzero exit).  Without CUDA it exits nonzero before
 printing any result.
 """
 
+import ctypes
 import json
 import os
 import re
@@ -546,6 +577,21 @@ RECORD_TIME_SOLVES = (5, 40, 80)
 # float64; the card's and the CPU's libm part in the last bits)
 MPC_TIME_TOL = 1e-9
 MPC_TIME_H, MPC_TIME_T = 60, 40     # HORIZON_MAX, the demo set's horizon
+# the sympy front end's tracking MPC on the card: its plain float64 iLQR
+# against the native problem's kernel solve and the same solve on the CPU,
+# at the float64 kernel's tolerance against its plain version
+# (tests/test_torch_kernel_cuda.py: the two differ in how the derivatives
+# and the lookups are formed, and the card's libm from the CPU's)
+GENOPT_H = 60
+GENOPT_X_ATOL = 1e-6
+GENOPT_COST_RTOL = 1e-9
+# the crane example, float32 on the card and on the CPU: both meet the
+# example's acceptance; their final states (m, m/s, rad) within this (60
+# iterations of float32 whose stops are decided by rounding)
+CRANE_ATOL = 5e-2
+# the batched fused slice: the batch sizes checked, and the one timed
+SLICE_BATCHES = (1, 8)
+SLICE_BATCH_TIMED = 8
 # the tplsim phase: the vendored loop through the command line, on the card
 TPLSIM_TICKS = 400
 RECORD_TICKS = 100
@@ -789,12 +835,15 @@ def kernel_phase(lam, tllk, dev, parent_csrc=None):
           f"launcher; wrapper {wrapper_ms:.4f}), plain {plain_ms:.4f} ms")
     table_ptrs = (ctypes.c_void_p * len(lam.TABLE_KEYS))(*tables.ptrs)
 
-    def fused_call(i):
+    def fused_call(i, batch_entry=True):
+        # one scenario; a source from before the scenario batch takes no
+        # B and no distance-map stride
+        batch = (1, S * L) if batch_entry else ()
         return lambda fn, out: fn(
             cases[T - 1 - i][1][0].data_ptr(), dist_x[i].data_ptr(),
             rl_t.data_ptr(), step_t.data_ptr(),
             tables.slice_consts.data_ptr(), table_ptrs, out.data_ptr(), S, DS,
-            L, rl_t.shape[0], i, stream)
+            L, rl_t.shape[0], i, *batch, stream)
 
     for csrc in parents_with(parent_csrc, "latlon_action_min"):
         compare_with_parent(
@@ -802,10 +851,12 @@ def kernel_phase(lam, tllk, dev, parent_csrc=None):
             [(what, a[0], action_min_call(a, t, stream))
              for what, a, t in [("seeded", seeded, tables)] + grids], n=200)
         # the fused slice on the 8 real slices
+        batch_entry = slice_takes_batch(csrc)
         compare_with_parent(
             "latlon_action_min", lib.latlon_backward_slice, csrc,
-            [(f"fused slice {i}", cases[T - 1 - i][1][0], fused_call(i))
-             for i in range(T - 2, 0, -1)], n=200)
+            [(f"fused slice {i}", cases[T - 1 - i][1][0], fused_call(i),
+              fused_call(i, batch_entry)) for i in range(T - 2, 0, -1)],
+            n=200, argtypes=None if batch_entry else OLD_SLICE_ARGTYPES)
 
     # the fused slice: bare launcher and wrapper at slice T - 2, its plain
     # version (the producers as tensor operations, then the plain
@@ -819,7 +870,7 @@ def kernel_phase(lam, tllk, dev, parent_csrc=None):
         lambda: lib.latlon_backward_slice(
             nxt.data_ptr(), dist_x[i].data_ptr(), rl_t.data_ptr(),
             step_t.data_ptr(), tables.slice_consts.data_ptr(), table_ptrs,
-            out.data_ptr(), S, DS, L, rl_t.shape[0], i, stream),
+            out.data_ptr(), S, DS, L, rl_t.shape[0], i, 1, S * L, stream),
         lambda: solve.backward_slice(nxt, i, *scene), 200)
     fused_plain_ms = cuda_ms(
         lambda: solve.backward_slice_reference(nxt, i, *scene), 10)
@@ -1159,6 +1210,12 @@ def dp_first_replan_child(csrc):
         if not hasattr(lib, "latlon_action_min_prepare"):
             # a source that loads its code at the first launch
             lib.latlon_action_min_prepare = lambda: 0
+        if not slice_takes_batch(csrc):
+            # a source from before the scenario batch: its slice entry
+            # takes no B and no distance-map stride
+            old = lib.latlon_backward_slice
+            old.restype, old.argtypes = ctypes.c_int, OLD_SLICE_ARGTYPES
+            lib.latlon_backward_slice = lambda *a: old(*a[:12], a[-1])
         load = _build.load
         _build.load = lambda name, c=None: (
             lib if name == "latlon_action_min" else load(name, c))
@@ -1251,6 +1308,19 @@ def in_turns(old, new, n):
     c = cuda_ms(new, n)
     d = cuda_ms(old, n)
     return (a, d), (b, c)
+
+
+# the fused slice entry of a latlon_action_min.cu from before the scenario
+# batch (no B, no distance-map stride)
+OLD_SLICE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    ctypes.c_void_p]
+
+
+def slice_takes_batch(csrc):
+    """Whether ``latlon_action_min.cu`` in ``csrc`` has the fused slice
+    entry that takes a scenario batch (B and the distance-map stride)."""
+    with open(os.path.join(csrc, "latlon_action_min.cu")) as f:
+        return "long long dist_stride, void* stream" in f.read()
 
 
 def parents_with(dirs, source):
@@ -5341,6 +5411,303 @@ def record_replay_phase():
           f"runtime ms median {np.median(rt):.3f}, max {np.max(rt):.3f}")
 
 
+def genopt_phase(dev):
+    """The sympy front end on the card: the tracking MPC built with
+    ``genopt`` (``scenes.genopt_mpc_config``), float64, solved by the plain
+    iLQR on the card (no kernel launched), against the native problem's
+    kernel solve (``optimizers.trajectory_tracking_mpc``) and the same
+    genopt solve on the CPU, at GENOPT_X_ATOL / GENOPT_COST_RTOL; then
+    each ``optimizers`` factory with a kernel solves once at its own
+    ``horizon_max`` on the card, through its kernel."""
+    import torch
+    from tpl_tpu_torch import scenes
+    from tpl_tpu_torch.optim import genopt, ilqr_rstp
+    from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
+    from tpl_tpu_torch.optim import ilqr_tracking_mpc_time as itt
+    from tpl_tpu_torch.optim import optimizers as opts
+
+    inputs, x0 = scenes.genopt_mpc_solve_inputs()
+    cfg = scenes.genopt_mpc_config()
+    cfg.horizon_max = opts.trajectory_tracking_mpc.cuda_horizon_max
+
+    def run(make, times=2):
+        """A cold solve from fresh solvers ``times`` times: the last solver
+        and the wall ms of each (ending in a synchronize)."""
+        walls = []
+        for _ in range(times):
+            opt = make()
+            for k, v in inputs.items():
+                setattr(opt.params, k, v)
+            opt.horizon, opt.step, opt.max_iterations = GENOPT_H, 0.05, 8
+            opt.x[0] = x0
+            t0 = time.perf_counter()
+            opt.update()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return opt, walls
+
+    before = itm.launches
+    card, card_ms = run(genopt.build(cfg, dtype=torch.float64))
+    if itm.launches != before or card.device.type != "cuda":
+        raise AssertionError("the sympy problem did not take the plain iLQR "
+                             "on the card")
+    cpu, cpu_ms = run(genopt.build(cfg, device="cpu", dtype=torch.float64),
+                      1)
+    native, native_ms = run(opts.trajectory_tracking_mpc)
+    if itm.launches != before + 2:
+        raise AssertionError(f"{itm.launches - before} kernel launches for 2 "
+                             "native solves")
+    err = 0.0
+    for what, b in (("the native problem's kernel solve", native),
+                    ("the same genopt solve on the CPU", cpu)):
+        dx = float(np.max(np.abs(card.x - b.x)))
+        du = float(np.max(np.abs(card.u - b.u)))
+        dc = abs(card.traj_costs - b.traj_costs) / abs(b.traj_costs)
+        print(f"genopt MPC on the card (plain iLQR, float64, H={GENOPT_H}, "
+              f"8 iterations) against {what}: max|dx| {dx:.3e}, max|du| "
+              f"{du:.3e}, cost rel {dc:.3e}, iterations {card.iterations}/"
+              f"{b.iterations}")
+        if not (dx <= GENOPT_X_ATOL and du <= GENOPT_X_ATOL
+                and dc <= GENOPT_COST_RTOL):
+            raise AssertionError(f"genopt MPC against {what}: beyond the "
+                                 "tolerance")
+        err = max(err, dx, du)
+    if not float(np.abs(card.u).max()) > 1e-3:
+        raise AssertionError("the genopt MPC did not move")
+    print(f"genopt MPC wall ms (ending in a synchronize): card plain "
+          f"{card_ms[0]:.1f} then {card_ms[1]:.1f}, CPU plain {cpu_ms[0]:.1f},"
+          f" native kernel {native_ms[0]:.1f} then {native_ms[1]:.1f}")
+
+    counters = {"trajectory_tracking_mpc": (itm, "launches"),
+                "trajectory_tracking_mpc_time": (itt, "launches"),
+                "lateral_profile": (ilqr_rstp, "launches"),
+                "velocity_profile_space": (ilqr_rstp, "launches")}
+    for name, (mod, attr) in counters.items():
+        b = getattr(opts, name)
+        o = b()
+        if o.horizon_max != b.cuda_horizon_max:
+            raise AssertionError(f"optimizers.{name}: horizon_max "
+                                 f"{o.horizon_max} on the card")
+        o.horizon = o.horizon_max
+        for k in ("ref_step", "ref_dt"):
+            if hasattr(o.params, k):
+                setattr(o.params, k, 0.5)
+        n0 = getattr(mod, attr)
+        o.update()
+        torch.cuda.synchronize()
+        if getattr(mod, attr) != n0 + 1:
+            raise AssertionError(f"optimizers.{name}: no kernel launch")
+        print(f"optimizers.{name}: {o.dtype}, one kernel solve at horizon "
+              f"{o.horizon} = its horizon_max ({o.runtime:.1f} ms, finite "
+              f"{bool(np.all(np.isfinite(o.x)))})")
+    return dict(err=err, card_ms=card_ms, cpu_ms=cpu_ms, native_ms=native_ms)
+
+
+def crane_phase(dev):
+    """The crane example (``tpl_tpu_torch.examples.crane_2d``, H=100, up to
+    60 iterations, float32) solved on the card (plain iLQR) and on the CPU:
+    both meet the example's acceptance, their final states within
+    CRANE_ATOL."""
+    import torch
+    from tpl_tpu_torch.examples import crane_2d
+
+    walls = []
+    for _ in range(2):
+        card = crane_2d.make_solver(device=dev)
+        t0 = time.perf_counter()
+        card.update()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    crane_2d.check(card)
+    cpu = crane_2d.make_solver(device="cpu")
+    cpu.update()
+    crane_2d.check(cpu)
+    d = float(np.max(np.abs(card.x[-1] - cpu.x[-1])))
+    print(f"crane_2d on the card: cost {card.traj_costs:.4f} after "
+          f"{card.iterations} iterations (CPU {cpu.traj_costs:.4f} after "
+          f"{cpu.iterations}), final position {card.x[-1, 0]:.4f}, swing "
+          f"{np.degrees(card.x[-1, 2]):.3f} deg, max|final card - CPU| "
+          f"{d:.3e}; wall ms {walls[0]:.1f} then {walls[1]:.1f}")
+    if not d <= CRANE_ATOL:
+        raise AssertionError("crane_2d: the card's and the CPU's final states "
+                             "part")
+    return dict(ms=walls, err=d)
+
+
+def batch_slice_phase(lam, tllk, dev):
+    """The fused backward slice for a scenario batch (one launch, the
+    scenario as blockIdx.z) at the demo grid, B in SLICE_BATCHES, on
+    ``scenes.dp_batch_scenes`` (per-scenario leader, parked car, lane
+    bounds, ``l_trg``; one scenario with NaN distance cells): every
+    backward slice, chained through the plain version on the CPU, bit-equal
+    to the plain version (NaN equal to NaN) and each scenario to its own
+    one-scenario launch; one launch a slice by the wrapper's counter; a
+    whole batch solve launches it T - 2 times and each scenario's plan is
+    its one-scenario solve's.  Times at B = SLICE_BATCH_TIMED: one batched
+    launch against B one-scenario launches, from CUDA graphs and by events,
+    the wrapper and the plain version; the bounds."""
+    import torch
+    from tpl_tpu_torch import scenes
+
+    T, S, DS, L = (DEMO_SPEC[k] for k in ("t_steps", "s_steps", "ds_steps",
+                                          "l_steps"))
+    solves = {d: tllk.make_latlon_solver(DEMO_SPEC, d)[0]
+              for d in ("cpu", dev)}
+    out = {}
+    for B in SLICE_BATCHES:
+        dist, rl, pp, x0 = scenes.dp_batch_scenes(B, T, S, L, seed=B)
+        ins = {d: solves[d].batch_inputs(dist, rl, 0.5, pp) for d in solves}
+        tables = {d: lam.BatchTables([solves[d].action_tables(p)
+                                      for p in ins[d][3]]) for d in solves}
+        dist_c, rls_c, step_c, pps_c = ins["cpu"]
+        dist_g, rls_g, step_g, pps_g = ins[dev]
+        nxt = torch.stack([solves["cpu"].final_slice(
+            dist_c[b], rls_c[b], step_c, pps_c[b]) for b in range(B)])
+        n_nan, first = 0, None
+        for i in range(T - 2, 0, -1):
+            want = solves["cpu"].backward_slice_batch_reference(
+                nxt, i, dist_c, rls_c, step_c, pps_c, tables["cpu"])
+            nxt_g = nxt.to(dev)
+            before = lam.launches, lam.slice_launches, lam.batch_launches
+            got = solves[dev].backward_slice_batch(
+                nxt_g, i, dist_g, rls_g, step_g, pps_g, tables[dev])
+            torch.cuda.synchronize()
+            if (lam.launches, lam.slice_launches, lam.batch_launches) != (
+                    before[0] + 1, before[1] + (B == 1),
+                    before[2] + (B > 1)):
+                raise AssertionError("the batched slice: not one launch of "
+                                     "the instantiation for its B")
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), want.numpy(),
+                err_msg=f"batched slice B={B} slice {i} against the plain "
+                "version")
+            for b in range(B):
+                single = lam.backward_slice_launch(
+                    nxt_g[b:b + 1], dist_g[b:b + 1, i], rls_g[b:b + 1],
+                    step_g, i, tables[dev].tables[b])[0]
+                np.testing.assert_array_equal(
+                    single.cpu().numpy(), got[b].cpu().numpy(),
+                    err_msg=f"batched slice B={B} slice {i} scenario {b} "
+                    "against its one-scenario launch")
+            n_nan += int(torch.isnan(want).any(-1).sum())
+            if first is None:
+                first = (i, nxt_g, dist_g, rls_g, step_g, pps_g, tables[dev])
+            nxt = want
+        if not n_nan:
+            raise AssertionError("the NaN distance cells reached no node")
+        print(f"batched slice B={B} at S={S} DS={DS} L={L}: all {T - 2} "
+              "slices bit-equal to the plain version on the CPU and every "
+              f"scenario to its one-scenario launch; nodes with a NaN "
+              f"{n_nan}")
+        out[B] = first
+
+    # a whole batch solve: T - 2 launches, each plan its own solve's
+    B = SLICE_BATCH_TIMED
+    dist, rl, pp, x0 = scenes.dp_batch_scenes(B, T, S, L, seed=B, nan=False)
+    before = lam.batch_launches, lam.slice_launches
+    nodes, trajs = solves[dev].batch(dist, rl, 0.5, pp, x0)
+    torch.cuda.synchronize()
+    if (lam.batch_launches - before[0], lam.slice_launches - before[1]) != (
+            T - 2, 0):
+        raise AssertionError("a batch solve is not T - 2 batched launches")
+    for b in (0, B - 1):
+        n_b, tr_b = solves[dev](dist[b], rl[b], 0.5, pp[b], x0[b])
+        if not (torch.equal(n_b, nodes[b]) and torch.equal(tr_b, trajs[b])):
+            raise AssertionError(f"batch solve scenario {b}: another plan "
+                                 "than its own solve")
+    print(f"batch solve B={B}: {T - 2} batched launches, no one-scenario "
+          "launch; scenarios 0 and B-1 bit-equal to their own solves")
+
+    # times at B, the first slice (T - 2)
+    i, nxt_g, dist_g, rls_g, step_g, pps_g, tb = out[B]
+    lib = lam._kernel()
+    n_ref = rls_g.shape[1]
+    batch_ptrs = (ctypes.c_void_p * len(lam.TABLE_KEYS))(*tb.ptrs)
+    single_ptrs = [(ctypes.c_void_p * len(lam.TABLE_KEYS))(*t.ptrs)
+                   for t in tb.tables]
+    res = torch.empty_like(nxt_g)
+    dist_t = dist_g[:, i]
+
+    def batched(stream):
+        err = lib.latlon_backward_slice(
+            nxt_g.data_ptr(), dist_t.data_ptr(), rls_g.data_ptr(),
+            step_g.data_ptr(), tb.slice_consts.data_ptr(), batch_ptrs,
+            res.data_ptr(), S, DS, L, n_ref, i, B, dist_t.stride(0), stream)
+        if err:
+            raise RuntimeError(f"latlon_backward_slice: CUDA error {err}")
+
+    def singles(stream):
+        for b in range(B):
+            err = lib.latlon_backward_slice(
+                nxt_g[b].data_ptr(), dist_g[b, i].data_ptr(),
+                rls_g[b].data_ptr(), step_g.data_ptr(),
+                tb.tables[b].slice_consts.data_ptr(), single_ptrs[b],
+                res[b].data_ptr(), S, DS, L, n_ref, i, 1, S * L, stream)
+            if err:
+                raise RuntimeError(f"latlon_backward_slice: CUDA error {err}")
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g_batch, g_single = graph_ms(batched), graph_ms(singles)
+    g_batch2 = graph_ms(batched)
+    e_single = cuda_ms(lambda: singles(stream), 100)
+    e_batch = cuda_ms(lambda: batched(stream), 100)
+    wrapper_ms = cuda_ms(lambda: solves[dev].backward_slice_batch(
+        nxt_g, i, dist_g, rls_g, step_g, pps_g, tb), 100)
+    plain_ms = cuda_ms(lambda: solves[dev].backward_slice_batch_reference(
+        nxt_g, i, dist_g, rls_g, step_g, pps_g, tb), 5)
+    bound = lam.batch_bound_ms(B, S, DS, L)
+    single_bound = lam.slice_bound_ms(S, DS, L)
+    print(f"batched slice at B={B} S={S} DS={DS} L={L}, slice {i}: from CUDA "
+          f"graphs one batched launch {g_batch:.4f} ms (again "
+          f"{g_batch2:.4f}), {B} one-scenario launches {g_single:.4f} ms; by "
+          f"events {e_batch:.4f} / {e_single:.4f} ms; the wrapper "
+          f"{wrapper_ms:.4f} ms; the plain version on the card "
+          f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}), "
+          f"{B} x the one-scenario bound {B * single_bound[0]:.4f}")
+    return dict(err=0.0, ms=(g_batch + g_batch2) / 2, single_ms=g_single,
+                event_ms=e_batch, single_event_ms=e_single,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound=bound)
+
+
+def dryrun_phase(lam, itm, idk):
+    """``tpl_tpu_torch.parallel.dryrun_multichip(device_count)`` on the
+    cards at its full widths (the tracking MPC at H=60 and 8 iterations,
+    the IDM sweep's 100-step rollouts, the DP batch at the vendored
+    planner's 10 x 201 x 37 x 21 grid, the env build at 10 x 201 x 21): the
+    launch counters set to 0 just before and read just after; every kernel
+    of the path launched, the batched slice T - 2 times a mesh device.
+    Run twice: the second run's wall times are warm."""
+    import torch
+    from tpl_tpu_torch.parallel import dryrun
+
+    n = torch.cuda.device_count()
+    lam.batch_launches = lam.slice_launches = 0
+    itm.launches_batched = 0
+    idk.rollout_launches = idk.evaluate_launches = 0
+    first = dryrun.dryrun_multichip(n)
+    counts = {"latlon_backward_slice_batched": lam.batch_launches,
+              "ilqr_tracking_mpc_batched": itm.launches_batched,
+              "idm_rollout": idk.rollout_launches,
+              "idm_evaluate": idk.evaluate_launches}
+    print("dryrun launches: " + ", ".join(f"{k} {v}"
+                                           for k, v in counts.items())
+          + f", one-scenario slices {lam.slice_launches}")
+    if not all(counts.values()):
+        raise AssertionError("a kernel of the dryrun was not launched")
+    T = dryrun.LATLON_SPEC["t_steps"]
+    if counts["latlon_backward_slice_batched"] != (T - 2) * n \
+            or lam.slice_launches:
+        raise AssertionError("the DP batch: not T - 2 batched launches a "
+                             "mesh device")
+    warm = dryrun.dryrun_multichip(n)
+    print("dryrun wall s, first / warm: " + ", ".join(
+        f"{k} {first['seconds'][k]:.3f} / {warm['seconds'][k]:.3f}"
+        for k in first["seconds"]) + f" (B: MPC {dryrun.MPC_PER_DEVICE * n}, "
+        f"IDM {dryrun.IDM_PER_DEVICE * n} candidates, DP "
+        f"{dryrun.LATLON_PER_DEVICE * n}, env {dryrun.ENV_PER_DEVICE * n})")
+    return dict(counts=counts, first=first["seconds"], warm=warm["seconds"])
+
+
 def probe_phase(lat, itm, dev):
     """The card's operation latencies (csrc/latency_probe.cu) and the SM
     clock under load; prints them with the card's name and power limit."""
@@ -5476,6 +5843,7 @@ def main(argv=()):
         phase("graph DP kernels", dp_poly_kernel_phase, dpe, ppk,
               dp_standin_first(dpe, ppk, dev), dev, cycles, mhz,
               opts.parent_csrc)
+        phase("batched DP slice", batch_slice_phase, lam, tllk, dev)
         print("kernels only: no loop was driven")
         return 0
     phase("DP slice", slice_phase, lam, tllk)
@@ -5532,6 +5900,10 @@ def main(argv=()):
                ctl[TIME_MPC]["picked"], dev, cycles, mhz, opts.parent_csrc)
     phase("tplsim run", tplsim_phase)
     phase("record and replay", record_replay_phase)
+    gen = phase("genopt MPC", genopt_phase, dev)
+    phase("crane example", crane_phase, dev)
+    bs = phase("batched DP slice", batch_slice_phase, lam, tllk, dev)
+    dry = phase("dryrun_multichip", dryrun_phase, lam, itm, idk)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -5781,6 +6153,26 @@ def main(argv=()):
             n: float(np.median(r["control_ms"])) for n, r in ctl.items()},
         "control_wall_max_ms": {
             n: float(np.max(r["control_ms"])) for n, r in ctl.items()}})
+    # the DP slice for a scenario batch: launches on the dryrun's path, the
+    # checks at B = 1 and 8, times at B = 8 (from CUDA graphs) beside B
+    # one-scenario launches
+    rows.append({
+        "name": "latlon_backward_slice_batched", "route": "cuda",
+        "source": "tpl_tpu_torch/csrc/latlon_action_min.cu",
+        "replaces": "tpl_tpu/parallel/kernels.py:53",
+        "launches": dry["counts"]["latlon_backward_slice_batched"],
+        "per_batch_solve": DEMO_SPEC["t_steps"] - 2,
+        "batch": SLICE_BATCH_TIMED, "max_abs_err": bs["err"],
+        "ms": bs["ms"], "single_launches_ms": bs["single_ms"],
+        "event_ms": bs["event_ms"],
+        "single_launches_event_ms": bs["single_event_ms"],
+        "wrapper_ms": bs["wrapper_ms"], "plain_ms": bs["plain_ms"],
+        "bound_ms": bs["bound"][0], "bound_by": bs["bound"][1],
+        "library_ms": NO_LIBRARY,
+        "dryrun_launches": dry["counts"], "dryrun_first_s": dry["first"],
+        "dryrun_warm_s": dry["warm"],
+        "genopt_mpc_max_abs_err": gen["err"],
+        "genopt_mpc_card_ms": gen["card_ms"][1]})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

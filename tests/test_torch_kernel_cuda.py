@@ -14,7 +14,9 @@ the iteration count equal, its profiling instantiation bit-equal with phases
 that sum to within 5 % of the launch's time; the float32 RSTP iLQR
 kernel against its plain version x, u, lam atol=2e-2, traj_costs
 rtol=1e-5 (where each solve stops is decided by float32 rounding, see
-RSTP_X_ATOL); the rampify scan bit for bit; the batched tracking-MPC kernel
+RSTP_X_ATOL); the rampify scan bit for bit; the fused DP slice for a
+scenario batch bit for bit against the one-scenario launches and the plain
+version (NaN equal to NaN); the batched tracking-MPC kernel
 (a warp per scenario, persistent) against the plain batched update at the
 float64 kernel's own tolerance (x, u, lam atol=1e-6: on seeded warm starts
 a scenario's rounding differences grow to 1e-8 and more over 8 iterations;
@@ -275,6 +277,57 @@ def test_action_min_and_fused_slice_nan_rule_match_plain(cuda, channel):
     assert lam.slice_launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want)
     assert np.isnan(want).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,DS,L,T", [(1, 61, 9, 11, 5), (3, 61, 9, 11, 5),
+                                       (8, 201, 37, 21, 4)])
+def test_latlon_backward_slice_batch_matches_single(cuda, B, S, DS, L, T):
+    """The fused slice for a scenario batch (one launch, the scenario as
+    blockIdx.z; ``scenes.dp_batch_scenes``: per-scenario scenes, tables and
+    ``l_trg``, one scenario with NaN distance cells) against each
+    scenario's one-scenario launch and the plain version on the CPU, every
+    backward slice chained through the plain version: the same bits, NaN
+    equal to NaN.  A batch solve launches it T - 2 times for any B."""
+    from tpl_tpu_torch import scenes
+
+    dist, rl, pp, x0 = scenes.dp_batch_scenes(B, T, S, L, seed=S + B)
+    spec = dict(t_steps=T, s_steps=S, ds_steps=DS, l_steps=L)
+    solves = {d: tllk.make_latlon_solver(spec, d)[0] for d in ("cpu", cuda)}
+    ins = {d: solves[d].batch_inputs(dist, rl, 0.5, pp) for d in solves}
+    tables = {d: lam.BatchTables([solves[d].action_tables(p)
+                                  for p in ins[d][3]]) for d in solves}
+    solve, (dist_x, rls, step, pps) = solves["cpu"], ins["cpu"]
+    dist_g, rls_g, step_g, pps_g = ins[cuda]
+    nxt = torch.stack([solve.final_slice(dist_x[b], rls[b], step, pps[b])
+                       for b in range(B)])
+    for i in range(T - 2, 0, -1):
+        want = solve.backward_slice_batch_reference(nxt, i, dist_x, rls, step,
+                                                    pps, tables["cpu"])
+        before = lam.launches, lam.slice_launches, lam.batch_launches
+        got = solves[cuda].backward_slice_batch(nxt.to(cuda), i, dist_g,
+                                                rls_g, step_g, pps_g,
+                                                tables[cuda])
+        torch.cuda.synchronize()
+        assert (lam.launches, lam.slice_launches, lam.batch_launches) == (
+            before[0] + 1, before[1] + (B == 1), before[2] + (B > 1))
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy(),
+                                      err_msg=f"slice {i}")
+        for b in range(B):
+            single = lam.backward_slice_launch(
+                nxt[b:b + 1].to(cuda), dist_g[b:b + 1, i], rls_g[b:b + 1],
+                step_g, i, tables[cuda].tables[b])[0]
+            np.testing.assert_array_equal(single.cpu().numpy(),
+                                          got[b].cpu().numpy(),
+                                          err_msg=f"slice {i} scenario {b}")
+        nxt = want
+    before = lam.launches, lam.slice_launches, lam.batch_launches
+    nodes, trajs = solves[cuda].batch(dist, rl, 0.5, pp, x0)
+    torch.cuda.synchronize()
+    assert (lam.launches, lam.slice_launches, lam.batch_launches) == (
+        before[0] + T - 2, before[1] + (T - 2) * (B == 1),
+        before[2] + (T - 2) * (B > 1))
+    assert nodes.shape == (B, T, S, DS, L, 4) and trajs.shape == (B, T, 12)
 
 
 @pytest.mark.cuda

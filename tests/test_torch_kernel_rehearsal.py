@@ -48,7 +48,9 @@ RSTP_X_ATOL);
 - the DP action-min against ``action_min_reference`` on the card tests'
   three grids and at other tile heights,
 - the fused backward slice against ``backward_slice_reference`` on every
-  backward slice of a seeded scene,
+  backward slice of a seeded scene, and over a ``blockIdx.z`` batch of
+  scenarios (``scenes.dp_batch_scenes``, the blocks in a seeded order)
+  against each scenario's one-scenario run and the plain version,
 - the lon DP's backward slice (a block a v and a tile of s rows, on the
   launcher's grid) on ``scenes.LON_EDGE``'s grids at tiles that do not
   divide S,
@@ -2370,6 +2372,32 @@ static void run_grid(unsigned gx, unsigned gy, F body,
 template <class F>
 static void run_block(F body) { run_grid(1, 1, body); }
 
+// A grid of gx x gy x gz blocks, as run_grid: the blocks in the order of
+// `order` (gx x gy x gz block numbers, (z * gy + y) * gx + x) where given.
+template <class F>
+static void run_grid3(unsigned gx, unsigned gy, unsigned gz, F body,
+                      const int* order = nullptr) {
+  const unsigned threads = 256;
+  std::barrier<> block(threads);
+  rehearsal::block_barrier = &block;
+  blockDim = {threads, 1, 1};
+  std::vector<std::thread> pool;
+  for (unsigned i = 0; i < threads; ++i)
+    pool.emplace_back([=] {
+      threadIdx.x = i;
+      gridDim = {gx, gy, gz};
+      for (unsigned b = 0; b < gx * gy * gz; ++b) {
+        const unsigned n = order ? (unsigned)order[b] : b;
+        blockIdx.x = n % gx;
+        blockIdx.y = n / gx % gy;
+        blockIdx.z = n / (gx * gy);
+        body();
+        __syncthreads();
+      }
+    });
+  for (auto& t : pool) t.join();
+}
+
 extern "C" void rehearse_rampify(const float* scalars, const float* lim_v,
                                  float* out, long long* prof, int H, int T) {
   using namespace rstp_rampify;
@@ -2770,8 +2798,27 @@ extern "C" void rehearse_backward_slice(
         reinterpret_cast<const float4*>(nodes_next), dist_t, ref_line,
         ref_step, slice_consts, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg, tb.qdds,
         tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
-        reinterpret_cast<float4*>(out), S, DS, L, n_ref, slice, ts_rows);
+        reinterpret_cast<float4*>(out), S, DS, L, n_ref, slice, ts_rows, 0);
   });
+}
+
+// the fused slice over a batch of B scenarios (blockIdx.z), the blocks in
+// `order` where given; scenario b's distance map at dist_t + b * dist_stride
+extern "C" void rehearse_backward_slice_batch(
+    const float* nodes_next, const float* dist_t, const float* ref_line,
+    const float* ref_step, const float* slice_consts,
+    const void* const* tables, float* out, int S, int DS, int L, int n_ref,
+    int slice, int ts_rows, int B, long long dist_stride, const int* order) {
+  using namespace latlon_am;
+  const Tables tb = tables_of(tables);
+  run_grid3((S + ts_rows - 1) / ts_rows, DS, B, [=] {
+    backward_slice_kernel<FEW_THREADS, true>(
+        reinterpret_cast<const float4*>(nodes_next), dist_t, ref_line,
+        ref_step, slice_consts, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg, tb.qdds,
+        tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
+        reinterpret_cast<float4*>(out), S, DS, L, n_ref, slice, ts_rows,
+        dist_stride);
+  }, order);
 }
 
 // the action-min and the fused slice of 2dd76fb (PARENTS)
@@ -3085,6 +3132,10 @@ def bodies(tmp_path_factory):
     lib.rehearse_backward_slice.restype = None
     lib.rehearse_backward_slice.argtypes = ([ctypes.c_void_p] * 7
                                             + [ctypes.c_int] * 6)
+    lib.rehearse_backward_slice_batch.restype = None
+    lib.rehearse_backward_slice_batch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        + [ctypes.c_longlong, ctypes.c_void_p])
     lib.rehearse_dir_dist.restype = None
     lib.rehearse_dir_dist.argtypes = ([ctypes.c_void_p] * 2
                                       + [ctypes.c_float] * 5
@@ -3643,6 +3694,41 @@ def test_rampify_profiling_body_is_bit_equal(bodies):
     assert np.all(prof > 0)
 
 
+def test_optimizers_horizon_fits_the_kernels(bodies):
+    """Each ``optimizers`` factory with a kernel holds on a CUDA device a
+    horizon its kernel takes: at the problems' default reference capacities
+    the kernel's shared memory at the factory's ``cuda_horizon_max`` stays
+    within the 227 KB a block can use (the tracking MPCs' float64 solves,
+    which hold at most 110 and 132 steps, so 100; the RSTP solves in
+    double, an upper bound of their float32 instantiation's, at the JAX
+    package's 300).  Off the card, where no kernel runs, every factory
+    holds the JAX package's 300."""
+    from tpl_tpu_torch.optim import optimizers
+
+    limit = 227 * 1024
+    opts = {n: getattr(optimizers, n) for n in (
+        "trajectory_tracking_mpc", "trajectory_tracking_mpc_time",
+        "lateral_profile", "velocity_profile_space")}
+    assert all(b(device="cpu").horizon_max == optimizers.HORIZON_MAX == 300
+               for b in opts.values())
+    H = {n: b.cuda_horizon_max for n, b in opts.items()}
+    assert H == dict(trajectory_tracking_mpc=100,
+                     trajectory_tracking_mpc_time=100, lateral_profile=300,
+                     velocity_profile_space=300)
+    cap = lambda n: opts[n].param_spec[
+        "k_ref" if n == "lateral_profile" else "ref_v"].capacity
+    mpc = lambda h: bodies.ilqr_tracking_mpc_smem_bytes(
+        h, cap("trajectory_tracking_mpc"), 0)
+    mpc_time = lambda h: bodies.ilqr_tracking_mpc_time_smem_bytes(
+        h, cap("trajectory_tracking_mpc_time"))
+    assert mpc(H["trajectory_tracking_mpc"]) <= limit < mpc(111)
+    assert mpc_time(H["trajectory_tracking_mpc_time"]) <= limit \
+        < mpc_time(133)
+    for name in ("lateral_profile", "velocity_profile_space"):
+        pid = ilqr_rstp.PROBLEMS[name]["id"]
+        assert bodies.rehearse_rstp_smem(pid, H[name], cap(name)) <= limit
+
+
 def _table_ptrs(tables):
     return (ctypes.c_void_p * len(lam.TABLE_KEYS))(*tables.ptrs)
 
@@ -3819,6 +3905,54 @@ def test_backward_slice_body_nan_rule(bodies, channel):
     assert keep.any() and not keep.all()
     np.testing.assert_array_equal(outs["old"][keep], want[keep])
     assert not np.array_equal(outs["old"], want)
+
+
+@pytest.mark.parametrize("B,S,DS,L,T", [(1, 37, 5, 3, 4), (3, 61, 9, 11, 4),
+                                       (4, 37, 5, 3, 5)])
+def test_backward_slice_batch_body_matches_single_and_plain(bodies, B, S, DS,
+                                                            L, T):
+    """The fused slice over a ``blockIdx.z`` batch of B scenarios
+    (``scenes.dp_batch_scenes``: each its own leader, parked car, lane
+    bounds and ``l_trg``, one with NaN distance cells), the blocks in a
+    seeded order, every backward slice chained through the plain version:
+    each scenario bit-equal to its own one-scenario run and to the plain
+    version (``backward_slice_batch_reference``), NaN equal to NaN."""
+    solve, _ = tllk.make_latlon_solver(
+        dict(t_steps=T, s_steps=S, ds_steps=DS, l_steps=L), "cpu")
+    dist, rl, pp, _ = scenes.dp_batch_scenes(B, T, S, L, seed=S + B)
+    dist_x, rls, step, pps = solve.batch_inputs(dist, rl, 0.5, pp)
+    tables = lam.BatchTables([solve.action_tables(pp) for pp in pps])
+    assert len({float(pp["l_trg"]) for pp in pps}) == B
+    ts_rows = bodies.latlon_action_min_tile_rows(L)
+    blocks = -(-S // ts_rows) * DS * B
+    rng = np.random.default_rng(B)
+    nxt = torch.stack([solve.final_slice(dist_x[b], rls[b], step, pps[b])
+                       for b in range(B)])
+    n_nan = 0
+    for i in range(T - 2, 0, -1):
+        want = solve.backward_slice_batch_reference(nxt, i, dist_x, rls,
+                                                    step, pps, tables).numpy()
+        order = rng.permutation(blocks).astype(np.int32)
+        out = np.full((B, S, DS, L, 4), -7.0, np.float32)
+        bodies.rehearse_backward_slice_batch(
+            _ptr(nxt.numpy()), _ptr(dist_x[:, i].numpy()), _ptr(rls.numpy()),
+            _ptr(step.reshape(1).numpy()), _ptr(tables.slice_consts.numpy()),
+            _table_ptrs(tables), _ptr(out), S, DS, L, rls.shape[1], i,
+            ts_rows, B, T * S * L, _ptr(order))
+        np.testing.assert_array_equal(out, want, err_msg=f"slice {i}")
+        for b in range(B):
+            single = np.full((S, DS, L, 4), -7.0, np.float32)
+            tb = tables.tables[b]
+            bodies.rehearse_backward_slice(
+                _ptr(nxt[b].numpy()), _ptr(dist_x[b, i].numpy()),
+                _ptr(rls[b].numpy()), _ptr(step.reshape(1).numpy()),
+                _ptr(tb.slice_consts.numpy()), _table_ptrs(tb), _ptr(single),
+                S, DS, L, rls.shape[1], i, ts_rows)
+            assert np.array_equal(single, out[b], equal_nan=True), (i, b)
+        n_nan += int(np.isnan(want).any(-1).sum())
+        nxt = torch.from_numpy(want)
+    # the NaN distance cells reach the nodes
+    assert n_nan > 0
 
 
 # ---------------------------------------------------------------------

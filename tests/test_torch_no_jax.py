@@ -7,9 +7,13 @@ reloader imported),
 after the host C routes were built and called, after a batched update,
 after two ticks of each FAS-2025 planner, after two ticks of each
 rollout planner (IDM sampling, poly sampling) and after two ticks of the
-graph DP planner (``dp_poly_planner``), and statically over the port's
-sources (the graph DP planner's modules named on their own),
-``chip_smoke.py`` and the card tests it imports."""
+graph DP planner (``dp_poly_planner``), after one sympy problem was
+translated (``genopt``, ``optimizers`` and the examples imported) and one
+scenario batch was solved by ``sharded_latlon_batch`` on a CPU mesh, and
+statically over the port's sources (the graph DP planner's, the sympy front
+end's and the scale-out layer's modules named on their own),
+``chip_smoke.py``, the card tests it imports and the worker of the
+two-process scale-out test."""
 
 import os
 import re
@@ -189,6 +193,28 @@ assert dp_environment.dir_dist_launches == 0
 assert poly_planner_kernel.eval_launches == 0
 assert poly_planner_kernel.propagate_launches == 0
 assert not leaked(), ("graph DP planner", leaked())
+
+import sympy as sp
+from tpl_tpu_torch.optim import genopt, optimizers, symext
+from tpl_tpu_torch import parallel
+from tpl_tpu_torch.examples import (crane_2d, scale_out, simple_vehicle,
+                                    solver_crosscheck)
+from tpl_tpu_torch.planning.dyn_prog import lat_lon_kernel as llk
+from tpl_tpu_torch.scenes import dp_batch_scenes
+xs, us = sp.symbols("x u")
+gprob, _ = genopt.make_problem(genopt.Config(
+    states=[xs], actions=[us], params=[], dynamics=[sp.Max(us, 1)],
+    costs=[xs * symext.fixed(xs), sp.Integer(3)]))
+gx = torch.ones(3, 1, dtype=torch.float64)
+assert gprob.cost(gx, gx, torch.arange(3), 0.1, {}).shape == (3,)
+assert optimizers.lateral_profile(device="cpu").dtype == torch.float32
+spec = dict(t_steps=4, s_steps=41, ds_steps=5, l_steps=7)
+dist, rl, pp, x0 = dp_batch_scenes(2, 4, 41, 7, nan=False)
+nodes, trajs = parallel.sharded_latlon_batch(
+    llk.make_latlon_solver(spec, "cpu")[0], parallel.scenario_mesh(2))(
+    dist, rl, 0.5, pp, x0)
+assert trajs.shape == (2, 4, 12) and bool(torch.isfinite(trajs).all())
+assert not leaked(), ("sympy front end and scale-out", leaked())
 print("clean")
 """
 
@@ -208,7 +234,10 @@ def test_port_runs_without_jax():
     "tpl_tpu_torch/planning/dyn_prog/dp_poly_planner.py",
     "tpl_tpu_torch/scenes.py", "tpl_tpu_torch/control",
     "tpl_tpu_torch/optim/ilqr_tracking_mpc_time.py",
-    "tpl_tpu_torch/simulation", "tpl_tpu_torch/util/hotreload.py"])
+    "tpl_tpu_torch/simulation", "tpl_tpu_torch/util/hotreload.py",
+    "tpl_tpu_torch/optim/genopt.py", "tpl_tpu_torch/optim/symext.py",
+    "tpl_tpu_torch/optim/optimizers.py", "tpl_tpu_torch/parallel",
+    "tpl_tpu_torch/examples", "tests/torch_dist_worker.py"])
 def test_sources_name_no_jax(path):
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|tpl_tpu)\b(?!_torch)",
                      re.M)

@@ -12,7 +12,11 @@ replan step; the DP lat/lon planner; the FAS-2025 chain,
 ``poly_lat_dp_lon_planner`` and ``lattice_planner``; the rollout planners,
 ``idm_sampling_planner`` and ``poly_sampling_planner``; the graph DP
 planner, ``dp_poly_planner``), ``optim`` (the AL-iLQR core, its problems,
-the ``Solver`` and the batched update), ``control`` (the spatial and the
+the ``Solver``, the batched update and the sympy front end ``genopt`` /
+``symext`` / ``optimizers``), ``parallel`` (scenario batches and candidate
+fans sharded over a mesh of devices, ``dryrun_multichip``), ``examples``
+(the crane, vehicle, cross-check and scale-out scripts), ``control`` (the
+spatial and the
 time-indexed tracking MPC, the feedforward, flat and direct controllers and
 the constant-deceleration fallback), ``native`` (the host C routes),
 ``util`` (stores, param sets, live code reloading) and ``simulation`` (the
@@ -23,7 +27,8 @@ hand-written Hopper kernel sources live under ``csrc/``:
 batched), ``ilqr_tracking_mpc_time.cu`` (the float64 time-indexed
 tracking-MPC solve), ``ilqr_rstp.cu`` (the float32 RSTP profile solves),
 ``rstp_rampify.cu`` (the RSTP rampify scan and the FAS start mode),
-``latlon_action_min.cu`` (the DP backward action-min and fused slice),
+``latlon_action_min.cu`` (the DP backward action-min and fused slice, one
+scenario or a scenario batch a launch),
 ``lon_dp.cu`` and ``poly_lat.cu`` (the FAS chain's lon DP and lateral
 sweep), ``idm_rollout.cu`` and ``idm_evaluate.cu`` (the IDM sampling
 rollouts and their screens, sharing ``idm_common.cuh``) and

@@ -252,6 +252,8 @@ __host__ __device__ inline size_t slice_smem_bytes(int ts, int L) {
   return smem_bytes(ts, L) + sizeof(float) * ts * L + sizeof(int) * L * NB;
 }
 
+constexpr int N_CONSTS = 5;     // gap_min, time_gap, w_safety, w_ddds, w_ddl
+
 // One whole backward slice: what the plain version computes with some
 // hundred tensor operations before the action-min (the state cost and
 // constraint of every cell, with the nearest reference-line row, the two
@@ -261,7 +263,19 @@ __host__ __device__ inline size_t slice_smem_bytes(int ts, int L) {
 // action-min above.  Every expression keeps the plain version's operations
 // and their order (reference: lat_lon_planner.cu:80-192 computed the same
 // per cell inside its backward step).
-template <int THREADS>
+//
+// BATCHED: blockIdx.z is the scenario of a batch (the JAX package vmaps its
+// whole solve over a scenario batch, tpl_tpu/parallel/kernels.py
+// sharded_latlon_batch): scenario z reads its own next nodes and writes its
+// own out at z * S * DS * L cells, its distance map at z * dist_stride
+// floats, its n_ref reference rows at z * n_ref * 8, its slice constants
+// and every table at z times the table's size; ref_step and the slice index
+// are shared.  A block computes exactly what it computes for one scenario,
+// so every scenario of a batch has the bits of its own launch.  The
+// one-scenario instantiation (BATCHED false) leaves the kernel parameters
+// as they arrive: offset pointers live in registers, and at 80 of them
+// (FEW_THREADS) the batched instantiation spills 8 bytes.
+template <int THREADS, bool BATCHED = false>
 __global__ void __launch_bounds__(THREADS, THREADS == FEW_THREADS ? FEW_BLOCKS
                                                                   : 1)
 backward_slice_kernel(
@@ -283,7 +297,28 @@ backward_slice_kernel(
     const float* __restrict__ consts,        // gap_min, time_gap, w_safety,
                                              // w_ddds, w_ddl
     float4* __restrict__ out,                // (S, DS, L) x 4 channels
-    int S, int DS, int L, int n_ref, int slice, int ts_rows) {
+    int S, int DS, int L, int n_ref, int slice, int ts_rows,
+    long long dist_stride) {
+  if constexpr (BATCHED) {   // the block's scenario
+    const size_t z = blockIdx.z;
+    const size_t cells = (size_t)S * DS * L;
+    nodes_next += z * cells;
+    out += z * cells;
+    dist_t += z * dist_stride;
+    ref_line += z * n_ref * 8;
+    sc += z * N_SLICE_CONST;
+    ids += z * DS * NB;
+    ks += z * DS * NB;
+    kl += z * NB;
+    ca += z * DS * NB * NB;
+    schg += z * DS * NB;
+    qdds += z * NB;
+    qdl += z * NB;
+    dds_vals += z * NB;
+    dl_vals += z * NB;
+    dss += z * DS;
+    consts += z * N_CONSTS;
+  }
   // (the tables arrive as read-only kernel parameters of their own, which
   // is what lets the compiler keep their loads out of the way)
   const Tables tb = {ids, ks, kl, ca, schg, qdds, qdl, dds_vals, dl_vals,
@@ -438,7 +473,7 @@ inline Shape shape_of(int S, int DS, int L, int ts_rows) {
 }
 
 // the launchers' shared-memory limits set so far, by instantiation (few)
-smem_limit::Marks action_min_marks[2], slice_marks[2];
+smem_limit::Marks action_min_marks[2], slice_marks[2], batch_marks[2];
 
 inline Tables tables_of(const void* const* t) {
   return Tables{
@@ -484,20 +519,32 @@ extern "C" int latlon_action_min_tiled(
   return static_cast<int>(cudaGetLastError());
 }
 
-// One whole backward slice (backward_slice_kernel) at the default tile:
-// `tables` holds the 11 table pointers in the order of latlon_am::Tables,
-// `slice` is the slice's index i (its time is dt_start + (i - 1) dt).
+// Backward slice i of B scenarios in one launch (backward_slice_kernel) at
+// the default tile: `tables` holds the 11 table pointers in the order of
+// latlon_am::Tables, each table B copies one after the other; nodes_next /
+// out (B, S, DS, L) x 4, ref_line (B, n_ref, 8), slice_consts
+// (B, N_SLICE_CONST), contiguous; scenario b's distance map (S, L) at
+// dist_t + b * dist_stride; `slice` is the slice's index i (its time is
+// dt_start + (i - 1) dt).  One scenario (B = 1) runs the one-scenario
+// instantiation, a batch the batched one (blockIdx.z the scenario).
 extern "C" int latlon_backward_slice(
     const void* nodes_next, const void* dist_t, const void* ref_line,
     const void* ref_step, const void* slice_consts, const void* const* tables,
-    void* out, int S, int DS, int L, int n_ref, int slice, void* stream) {
+    void* out, int S, int DS, int L, int n_ref, int slice, int B,
+    long long dist_stride, void* stream) {
   using namespace latlon_am;
-  const Shape sh = shape_of(S, DS, L, 0);
-  if (!sh.ok || n_ref < 1) return (int)cudaErrorInvalidValue;
+  Shape sh = shape_of(S, DS, L, 0);
+  if (!sh.ok || n_ref < 1 || B < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  sh.grid.z = B;
+  const bool batched = B > 1;
   const size_t smem = slice_smem_bytes(sh.ts_rows, L);
-  auto kernel = sh.few ? backward_slice_kernel<FEW_THREADS>
-                       : backward_slice_kernel<MAX_THREADS>;
-  cudaError_t err = smem_limit::ensure(kernel, smem, slice_marks[sh.few]);
+  auto kernel = batched ? (sh.few ? backward_slice_kernel<FEW_THREADS, true>
+                                  : backward_slice_kernel<MAX_THREADS, true>)
+                        : (sh.few ? backward_slice_kernel<FEW_THREADS>
+                                  : backward_slice_kernel<MAX_THREADS>);
+  cudaError_t err = smem_limit::ensure(
+      kernel, smem, batched ? batch_marks[sh.few] : slice_marks[sh.few]);
   if (err != cudaSuccess) return (int)err;
   const Tables tb = tables_of(tables);
   kernel<<<sh.grid, sh.threads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -506,7 +553,8 @@ extern "C" int latlon_backward_slice(
       static_cast<const float*>(ref_step),
       static_cast<const float*>(slice_consts), tb.ids, tb.ks, tb.kl, tb.ca,
       tb.schg, tb.qdds, tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
-      static_cast<float4*>(out), S, DS, L, n_ref, slice, sh.ts_rows);
+      static_cast<float4*>(out), S, DS, L, n_ref, slice, sh.ts_rows,
+      dist_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -544,6 +592,10 @@ extern "C" int latlon_action_min_prepare() {
     err = prepare(backward_slice_kernel<FEW_THREADS>, slice_marks[1]);
   if (err == cudaSuccess)
     err = prepare(backward_slice_kernel<MAX_THREADS>, slice_marks[0]);
+  if (err == cudaSuccess)
+    err = prepare(backward_slice_kernel<FEW_THREADS, true>, batch_marks[1]);
+  if (err == cudaSuccess)
+    err = prepare(backward_slice_kernel<MAX_THREADS, true>, batch_marks[0]);
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, empty_kernel);
   return (int)err;

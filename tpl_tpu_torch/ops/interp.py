@@ -6,9 +6,9 @@ lookups of the solver problems.
 helpers (library/tpl/util.py:92-108); ``lerp_xs`` is the equally-spaced
 vector interpolation of library/tpl/environment/prediction_module.py:10-38.
 
-``lerp`` / ``lerp_angle`` / ``lerp_multi`` / ``box_interp`` are the torch
-lookups of the generated solver runtime (optim.c:332-480): floor / ceil
-indices clamped to the table, alpha clamped to [0, 1].  Written as plain
+``lerp`` / ``lerp_angle`` / ``lerp_multi`` / ``box_interp`` / ``blerp`` are
+the torch lookups of the generated solver runtime (optim.c:332-480): floor /
+ceil indices clamped to the table, alpha clamped to [0, 1].  Written as plain
 index-and-clamp formulas, torch autograd and ``torch.func`` give them the
 genopt-parity derivatives of the JAX package's custom JVPs: slope
 ``v1 - v0`` between the clamped indices (zero exactly on a grid point,
@@ -112,3 +112,15 @@ def box_interp(dx, x, arr):
     """Nearest-below (piecewise constant) lookup. (optim.c:357-369)"""
     q = torch.nan_to_num(x / dx, nan=0.0)
     return _take(arr, torch.clamp(torch.floor(q), 0, arr.shape[0] - 1).long())
+
+
+def blerp(x0, y0, dx, dy, x, y, arr):
+    """Bilinear interpolation into the equally spaced 2-D tensor ``arr``
+    (rows along y, columns along x), both axes clamped as :func:`lerp`.
+    (optim.c:452-480)"""
+    rows, cols = arr.shape
+    xs, xe, xa = _indices_t((x - x0) / dx, cols)
+    ys, ye, ya = _indices_t((y - y0) / dy, rows)
+    p0 = (1.0 - ya) * arr[ys, xs] + ya * arr[ye, xs]
+    p1 = (1.0 - ya) * arr[ys, xe] + ya * arr[ye, xe]
+    return (1.0 - xa) * p0 + xa * p1

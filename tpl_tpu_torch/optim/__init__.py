@@ -16,3 +16,8 @@ from tpl_tpu_torch.optim.problems import (
     trajectory_tracking_mpc,
     trajectory_tracking_mpc_time,
 )
+
+# genopt-compatible sympy frontend + ready-made solver-class module
+# (import as modules to avoid shadowing the problem factories above:
+#  `from tpl_tpu_torch.optim import genopt, optimizers`)
+from tpl_tpu_torch.optim import symext

@@ -274,7 +274,7 @@ def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
             return reference(x, u, lam, mu_step, x0, params, cfg, iterations)
         if kind != "cuda":
             raise ValueError(f"unsupported device {kind}")
-        if prob.name != "trajectory_tracking_mpc":
+        if prob.kernel != "trajectory_tracking_mpc":
             raise NotImplementedError(
                 f"no batched kernel for problem {prob.name!r}: on CUDA "
                 "tensors only trajectory_tracking_mpc is solved")

@@ -74,6 +74,11 @@ class Problem:
     cost(x, u, t, dt, params) -> scalar              (per-step, unscaled)
     end_cost(x, t, dt, params) -> scalar
     constraints(x, u, t, dt, params) -> (nc,)        (feasible iff <= 0)
+
+    ``kernel`` names the definition the port's hand-written kernels were
+    written for (the key of ``solver.KERNELS``): only the native problems
+    of :mod:`.problems` carry it, so no problem defined elsewhere reaches a
+    kernel, whatever its name.
     """
 
     name: str
@@ -84,6 +89,7 @@ class Problem:
     cost: Callable = None
     end_cost: Callable = None
     constraints: Callable = None
+    kernel: str = None
 
 
 @dataclasses.dataclass

@@ -95,7 +95,8 @@ def trajectory_tracking_mpc(ref_capacity=128):
 
     prob = Problem("trajectory_tracking_mpc", nx=7, nu=2, nc=4,
                    dynamics=dynamics, cost=cost, end_cost=None,
-                   constraints=constraints)
+                   constraints=constraints,
+                   kernel="trajectory_tracking_mpc")
     spec = dict(
         pd=0.0, pv=0.0, pdelta=0.0, min_pdelta_dot=0.0, pdelta_dot=0.0,
         min_p_phi_dot=0.0, p_phi_dot=0.0, p_phi=0.0, p_phi_ref_dot_diff=0.0,
@@ -162,7 +163,8 @@ def trajectory_tracking_mpc_time(ref_capacity=128):
 
     prob = Problem("trajectory_tracking_mpc_time", nx=6, nu=2, nc=4,
                    dynamics=dynamics, cost=cost, end_cost=None,
-                   constraints=constraints)
+                   constraints=constraints,
+                   kernel="trajectory_tracking_mpc_time")
     spec = dict(
         pd=0.0, pv=0.0, pdelta=0.0, min_pdelta_dot=0.0, pdelta_dot=0.0,
         min_p_phi_dot=0.0, p_phi_dot=0.0, p_phi=0.0,
@@ -215,7 +217,8 @@ def lateral_profile(ref_capacity=256):
 
     prob = Problem("lateral_profile", nx=2, nu=1, nc=2,
                    dynamics=dynamics, cost=cost, end_cost=end_cost,
-                   constraints=constraints)
+                   constraints=constraints,
+                   kernel="lateral_profile")
     spec = dict(
         k_ref=ArraySpec(ref_capacity), d_offset=ArraySpec(ref_capacity),
         d_lower_constr=ArraySpec(ref_capacity),
@@ -277,7 +280,8 @@ def velocity_profile_space(ref_capacity=256):
 
     prob = Problem("velocity_profile_space", nx=2, nu=1, nc=5,
                    dynamics=dynamics, cost=cost, end_cost=None,
-                   constraints=constraints)
+                   constraints=constraints,
+                   kernel="velocity_profile_space")
     spec = dict(
         p_v=0.1, p_a=1.0, max_a_total=5.0,
         ref_v=ArraySpec(ref_capacity), ref_k=ArraySpec(ref_capacity),
@@ -320,7 +324,8 @@ def velocity_profile_time(ref_capacity=256):
 
     prob = Problem("velocity_profile_time", nx=2, nu=1, nc=4,
                    dynamics=dynamics, cost=cost, end_cost=None,
-                   constraints=constraints)
+                   constraints=constraints,
+                   kernel="velocity_profile_time")
     spec = dict(w_v=1.0, w_a=1.0, ref_v=ArraySpec(ref_capacity),
                 ref_step=0.5, ref_s_max=ArraySpec(ref_capacity),
                 ref_s_min=ArraySpec(ref_capacity))
@@ -345,7 +350,8 @@ def ref_line_smoother_k(ref_capacity=512):
                 + p["w_k"] * u[..., 0] ** 2)
 
     prob = Problem("ref_line_smoother_k", nx=3, nu=1, nc=0,
-                   dynamics=dynamics, cost=cost)
+                   dynamics=dynamics, cost=cost,
+                   kernel="ref_line_smoother_k")
     spec = dict(w_pos=1.0, w_k=0.1,
                 ref_x=ArraySpec(ref_capacity), ref_y=ArraySpec(ref_capacity),
                 ref_step=0.5)
@@ -371,7 +377,8 @@ def ref_line_smoother_dk(ref_capacity=512):
                 + p["w_dk"] * u[..., 0] ** 2)
 
     prob = Problem("ref_line_smoother_dk", nx=4, nu=1, nc=0,
-                   dynamics=dynamics, cost=cost)
+                   dynamics=dynamics, cost=cost,
+                   kernel="ref_line_smoother_dk")
     spec = dict(w_pos=1.0, w_k=0.1, w_dk=0.1, s_start=0.0,
                 ref_x=ArraySpec(ref_capacity), ref_y=ArraySpec(ref_capacity),
                 ref_step=0.5)

@@ -25,7 +25,11 @@ A problem without a kernel runs the plain version on its device, the card
 included: on the card that is ``ref_line_smoother_k``, which
 ``path_smoothing``'s ``smooth_only`` path solves (off the vendored path);
 ``velocity_profile_time`` and ``ref_line_smoother_dk`` have no kernel
-either, and no ported path solves them.
+either, and no ported path solves them.  The kernel is found by the
+problem's ``kernel`` key, which only the native problems of
+:mod:`.problems` carry: a kernel hard-codes its own problem, so a problem
+defined elsewhere (the sympy front end's, :mod:`.genopt`) takes the plain
+version whatever its name.
 """
 
 import functools
@@ -40,7 +44,7 @@ from tpl_tpu_torch.optim import (ilqr, ilqr_rstp, ilqr_tracking_mpc,
 from tpl_tpu_torch.optim.ilqr import EULER, HEUN, RK4
 from tpl_tpu_torch.optim.problems import ArraySpec  # noqa: F401 (re-export)
 
-# (problem name, dtype) -> the solve of its hand-written kernel
+# (problem kernel key, dtype) -> the solve of its hand-written kernel
 KERNELS = {
     ("trajectory_tracking_mpc", torch.float64): ilqr_tracking_mpc.solve,
     ("trajectory_tracking_mpc_time", torch.float64):
@@ -301,7 +305,7 @@ class Solver:
 
     def update(self):
         start = time.perf_counter()
-        name = self.problem.name
+        name = self.problem.kernel
         kernel = KERNELS.get((name, self.dtype))
         run = (self.horizon, self.max_iterations, self.max_lg_iterations,
                self._mu_step, self._integrator)

@@ -611,9 +611,10 @@ class DpEnvironment:
             self._quads.append((_make_ccw(np.asarray(quad) - offset), t_idx,
                                 bool(stationary)))
 
-    def device_inputs(self):
-        """Pack all :func:`_build_grids` tensor inputs onto the selected
-        device (see lat_lon_kernel.make_latlon_replan)."""
+    def device_inputs(self, device=None):
+        """Pack all :func:`_build_grids` tensor inputs onto ``device``
+        (``tpl_tpu_torch.device()`` unless given; see
+        lat_lon_kernel.make_latlon_replan)."""
         p = self.params
         if self.ref_line is None:
             raise RuntimeError("set_ref_line before update")
@@ -642,7 +643,7 @@ class DpEnvironment:
             stat[i] = stationary
             valid[i] = True
 
-        dev = tpl_tpu_torch.device()
+        dev = tpl_tpu_torch.device() if device is None else device
 
         def scalar(x):
             return torch.tensor(np.float32(x), device=dev)

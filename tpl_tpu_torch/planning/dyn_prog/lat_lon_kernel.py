@@ -194,6 +194,14 @@ def make_latlon_solver(spec, device):
         (nodes (T, S, DS, L, 4), traj (T, 12)), float32 tensors on device;
       reeval(dist_map_lon, ref_line, ref_step, pp, traj) -> traj (N, 12).
     ``pp`` is a packed vector (:meth:`LatLonParams.packed`) or a dict.
+    ``solve.batch(dist_maps (B, T, S, L, 2), ref_lines (B, n, 8), ref_step,
+    pps, x0s (B, 12)) -> (nodes (B, T, S, DS, L, 4), trajs (B, T, 12))`` is
+    the solve of a scenario batch (the JAX package's vmap of the solve):
+    ``pps`` a dict of (B,) values by :data:`PP_KEYS` or a (B, n) packed
+    array; ``ref_step`` shared; the reference lines of one row count (a
+    list of them with another raises).  Its backward pass launches the
+    fused slice kernel once per slice for the whole batch; its final slice
+    and its forward pass run per scenario, as :func:`solve` runs them.
     """
     T = spec["t_steps"]
     S = spec["s_steps"]
@@ -332,6 +340,32 @@ def make_latlon_solver(spec, device):
             nodes_next, *slice_inputs(i, dist_x, ref_line, ref_step, pp),
             tables)
 
+    def backward_slice_batch_reference(nodes_next, i, dist_x, ref_lines,
+                                       ref_step, pps, tables):
+        """Backward slice i of a scenario batch (nodes_next (B, S, DS, L,
+        4), dist_x (B, T, S, L), ref_lines (B, n, 8), ``pps`` the B
+        scenarios' param dicts, ``tables`` a ``BatchTables``): the plain
+        version of :func:`backward_slice_batch`, the per-scenario plain
+        slice stacked."""
+        return torch.stack([
+            backward_slice_reference(nodes_next[b], i, dist_x[b],
+                                     ref_lines[b], ref_step, pps[b],
+                                     tables.tables[b])
+            for b in range(len(pps))])
+
+    def backward_slice_batch(nodes_next, i, dist_x, ref_lines, ref_step, pps,
+                             tables):
+        """Backward slice i (B, S, DS, L, 4) of a scenario batch: one launch
+        of the fused kernel for the whole batch on a CUDA device
+        (``latlon_action_min.backward_slice_launch``), the plain version on
+        the CPU."""
+        if nodes_next.device.type == "cpu":
+            return backward_slice_batch_reference(
+                nodes_next, i, dist_x, ref_lines, ref_step, pps, tables)
+        return lam.backward_slice_launch(
+            nodes_next, dist_x[:, min(max(i, 0), T - 1)], ref_lines, ref_step,
+            i, tables)
+
     def backward_slice(nodes_next, i, dist_x, ref_line, ref_step, pp,
                        tables):
         """Backward slice i (S, DS, L, 4) from the next slice's nodes: one
@@ -342,8 +376,8 @@ def make_latlon_solver(spec, device):
             return backward_slice_reference(nodes_next, i, dist_x, ref_line,
                                             ref_step, pp, tables)
         return lam.backward_slice_launch(
-            nodes_next, dist_x[min(max(i, 0), T - 1)], ref_line, ref_step, i,
-            tables)
+            nodes_next[None], dist_x[min(max(i, 0), T - 1)][None],
+            ref_line[None], ref_step, i, tables)[0]
 
     def final_slice(dist_x, ref_line, ref_step, pp):
         """Slice T-1: state cost + finalState (lat_lon_planner.cu:66-78)."""
@@ -567,6 +601,18 @@ def make_latlon_solver(spec, device):
         dist_x = f32_on_dev(dist_map_lon)[..., 0].contiguous()
         return dist_x, f32_on_dev(ref_line), f32_on_dev(ref_step), pp
 
+    def forward(nodes, dist_x, ref_line, ref_step, pp, x0):
+        """The forward pass of one scenario: (T, 12) from its nodes."""
+        tp = x0
+        traj = []
+        for i in range(T):
+            dt_i = pp["dt_start"] if i == 0 else pp["dt"]
+            tp_out, tp = forward_step(tp, nodes[min(i + 1, T - 1)], dist_x,
+                                      ref_line, ref_step, pp, dt_i,
+                                      i == T - 1)
+            traj.append(tp_out)
+        return torch.stack(traj)
+
     def solve(dist_map_lon, ref_line, ref_step, pp, x0):
         dist_x, ref_line, ref_step, pp = _inputs(dist_map_lon, ref_line,
                                                  ref_step, pp)
@@ -580,17 +626,58 @@ def make_latlon_solver(spec, device):
                                          ref_step, pp, tables))
         slices.append(torch.zeros((S, DS, L, 4), dtype=f32, device=dev))
         nodes = torch.stack(slices[::-1])             # (T, S, DS, L, 4)
+        return nodes, forward(nodes, dist_x, ref_line, ref_step, pp, x0)
 
-        # forward pass
-        tp = x0
-        traj = []
-        for i in range(T):
-            dt_i = pp["dt_start"] if i == 0 else pp["dt"]
-            tp_out, tp = forward_step(tp, nodes[min(i + 1, T - 1)], dist_x,
-                                      ref_line, ref_step, pp, dt_i,
-                                      i == T - 1)
-            traj.append(tp_out)
-        return nodes, torch.stack(traj)
+    def batch_inputs(dist_maps, ref_lines, ref_step, pps):
+        """:func:`solve.batch`'s inputs on the device: dist_x (B, T, S, L),
+        ref_lines (B, n, 8), ref_step, the B scenarios' param dicts."""
+        if isinstance(pps, dict):
+            cols = {k: f32_on_dev(v).reshape(-1) for k, v in pps.items()}
+        else:
+            packed = f32_on_dev(pps)
+            if packed.dim() != 2 or packed.shape[1] != len(PP_KEYS):
+                raise ValueError(f"packed params must be (B, {len(PP_KEYS)})"
+                                 f", got {tuple(packed.shape)}")
+            cols = {k: packed[:, j] for j, k in enumerate(PP_KEYS)}
+        dist_x = f32_on_dev(dist_maps)[..., 0].contiguous()
+        if isinstance(ref_lines, (list, tuple)):
+            if len({len(r) for r in ref_lines}) != 1:
+                raise ValueError("the batch's reference lines must have one "
+                                 "row count")
+            ref_lines = torch.stack([f32_on_dev(r) for r in ref_lines])
+        ref_lines = f32_on_dev(ref_lines).contiguous()
+        B = dist_x.shape[0]
+        if dist_x.shape[1:] != (T, S, L) or ref_lines.dim() != 3 \
+                or ref_lines.shape[0] != B:
+            raise ValueError(f"dist_maps (B, {T}, {S}, {L}, 2) and ref_lines"
+                             f" (B, n, 8), got {tuple(dist_maps.shape)} and "
+                             f"{tuple(ref_lines.shape)}")
+        if any(v.shape != (B,) for v in cols.values()):
+            raise ValueError(f"every param needs one value per scenario "
+                             f"({B})")
+        pps = [{k: v[b] for k, v in cols.items()} for b in range(B)]
+        return dist_x, ref_lines, f32_on_dev(ref_step), pps
+
+    def solve_batch(dist_maps, ref_lines, ref_step, pps, x0s):
+        dist_x, ref_lines, ref_step, pps = batch_inputs(dist_maps, ref_lines,
+                                                        ref_step, pps)
+        x0s = f32_on_dev(x0s)
+        B = dist_x.shape[0]
+
+        tables = lam.BatchTables([action_tables(pp) for pp in pps])
+        slices = [torch.stack([
+            final_slice(dist_x[b], ref_lines[b], ref_step, pps[b])
+            for b in range(B)])]
+        for i in range(T - 2, 0, -1):
+            slices.append(backward_slice_batch(slices[-1], i, dist_x,
+                                               ref_lines, ref_step, pps,
+                                               tables))
+        slices.append(torch.zeros((B, S, DS, L, 4), dtype=f32, device=dev))
+        nodes = torch.stack(slices[::-1], dim=1)      # (B, T, S, DS, L, 4)
+        trajs = torch.stack([
+            forward(nodes[b], dist_x[b], ref_lines[b], ref_step, pps[b],
+                    x0s[b]) for b in range(B)])
+        return nodes, trajs
 
     def reeval(dist_map_lon, ref_line, ref_step, pp, traj):
         """Re-evaluate a stored trajectory against a fresh environment on
@@ -674,8 +761,17 @@ def make_latlon_solver(spec, device):
     # final_slice(...) is slice T-1, slice_inputs(i, ...) and
     # action_tables(pp) are what action_min takes for slice i,
     # backward_slice(...) is what solve runs per slice (the fused kernel on
-    # a CUDA device) and backward_slice_reference(...) its plain version
+    # a CUDA device) and backward_slice_reference(...) its plain version;
+    # batch_inputs() converts solve.batch's inputs, backward_slice_batch(...)
+    # is what it runs per slice and backward_slice_batch_reference(...) its
+    # plain version; spec and device rebuild the solver elsewhere
     solve.prepare = _inputs
+    solve.spec = dict(spec)
+    solve.device = dev
+    solve.batch = solve_batch
+    solve.batch_inputs = batch_inputs
+    solve.backward_slice_batch = backward_slice_batch
+    solve.backward_slice_batch_reference = backward_slice_batch_reference
     solve.final_slice = final_slice
     solve.slice_inputs = slice_inputs
     solve.action_tables = action_tables

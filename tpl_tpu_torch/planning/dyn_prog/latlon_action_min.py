@@ -16,10 +16,14 @@ version :func:`action_min_reference` on a CPU tensor.
 :func:`backward_slice_launch` launches the same source's fused kernel, which
 also computes what the action-min consumes (the slice's state costs and
 forward distances) per cell; the solve goes through it
-(``lat_lon_kernel``'s ``backward_slice``).  ``launches`` counts the
-launches of either, ``slice_launches`` those of the fused kernel.  The
-action tables are checked once, where :func:`make_tables` makes them
-(:class:`Tables`).
+(``lat_lon_kernel``'s ``backward_slice``).  It takes a batch of scenarios
+in one launch, each with its own next nodes, distance map, reference line
+and tables (:class:`BatchTables`); the scenario-batched solve goes through
+it so (``lat_lon_kernel``'s ``solve.batch``, the counterpart of the JAX
+package's vmap of the solve).  ``launches`` counts the launches of either
+kernel, ``slice_launches`` those of the fused kernel for one scenario and
+``batch_launches`` those for a batch.  The action tables are checked once,
+where :func:`make_tables` makes them (:class:`Tables`).
 """
 
 import ctypes
@@ -31,12 +35,15 @@ from tpl_tpu_torch import _latency
 
 NB = 7              # backward action samples per dimension
 MAX_DS = 65535      # the kernel's grid has one block row per ds
+MAX_BATCH = 65535   # and one block layer (gridDim.z) per scenario
 
 # kernel launches since import (reset freely): every launch of the source's
 # action-min, alone (action_min) or with the slice's producers fused in
-# (backward_slice_launch), and those of the fused kernel alone
+# (backward_slice_launch), those of the fused kernel for one scenario and
+# those for a scenario batch
 launches = 0
 slice_launches = 0
+batch_launches = 0
 
 # Operations of one action of one cell as the plain version defines them
 # (the occupancy and safety clamps, the five cost terms, the next node's
@@ -252,6 +259,14 @@ def slice_bound_ms(S, DS, L):
                                 slice_operations(S, DS, L), "float32")
 
 
+def batch_bound_ms(B, S, DS, L):
+    """(ms, "bytes" or "operations"): the roofline bound of one batched
+    slice of B scenarios, each with its own inputs: B fused slices' bytes
+    and operations."""
+    return _latency.roofline_ms(B * slice_traffic_bytes(S, DS, L),
+                                B * slice_operations(S, DS, L), "float32")
+
+
 def slice_chain_ms(cycles, sm_mhz):
     """The fused cell's critical path: the producers' chain, then the
     action-min's."""
@@ -297,6 +312,36 @@ class Tables(dict):
         self.device = dev
         self.ptrs = tuple(self[k].data_ptr() for k in TABLE_KEYS)
         self.slice_consts = slice_consts
+
+
+class BatchTables(dict):
+    """The action tables of B scenarios for the batched fused slice: each
+    key of :data:`TABLE_KEYS` the scenarios' tables stacked, (B, ...), and
+    ``slice_consts`` (B, len(SLICE_CONSTS)); ``tables`` keeps the
+    per-scenario :class:`Tables` (the plain version's).  Made from tables
+    of :func:`make_tables` on one grid and one device; read-only."""
+
+    def __init__(self, tables):
+        tables = list(tables)
+        if not tables or len(tables) > MAX_BATCH:
+            raise ValueError(f"a batch of 1 to {MAX_BATCH} scenarios, got "
+                             f"{len(tables)}")
+        first = tables[0]
+        for t in tables:
+            if not isinstance(t, Tables) or t.slice_consts is None:
+                raise ValueError("the batched slice needs the tables of "
+                                 "make_tables")
+            if t.DS != first.DS or t.device != first.device:
+                raise ValueError("the scenarios' tables differ in ds_steps "
+                                 "or device")
+        super().__init__({k: torch.stack([t[k] for t in tables])
+                          for k in TABLE_KEYS})
+        self.slice_consts = torch.stack([t.slice_consts for t in tables])
+        self.tables = tables
+        self.B = len(tables)
+        self.DS = first.DS
+        self.device = first.device
+        self.ptrs = tuple(self[k].data_ptr() for k in TABLE_KEYS)
 
 
 def _check_tensor(name, t, shape, dtype, dev):
@@ -372,49 +417,68 @@ def action_min(nodes_next, state_cost, state_constr, d_fwd, tables):
 
 
 def backward_slice_launch(nodes_next, dist_t, ref_line, ref_step, i, tables):
-    """One whole backward slice i on the card, in one launch of the fused
-    kernel: the state cost and constraint and the forward distances of every
-    cell (what ``lat_lon_kernel``'s ``slice_inputs`` computes with tensor
-    operations) and the action-min.
+    """Backward slice i of B scenarios on the card in one launch of the
+    fused kernel: per cell the state cost and constraint and the forward
+    distances (what ``lat_lon_kernel``'s ``slice_inputs`` computes with
+    tensor operations) and the action-min, each scenario with its own
+    inputs and tables and the bits of its own launch.
 
-    nodes_next (S, DS, L, 4), dist_t (S, L) the slice's distance-ahead map,
-    ref_line (n, 8), ref_step one element, ``tables`` from
-    :func:`make_tables`; float32, contiguous, on one CUDA device.  Returns
-    (S, DS, L, 4) float32.  Its plain version is the solver's
-    ``backward_slice_reference``; a tensor that is not on a CUDA device
-    raises.
+    nodes_next (B, S, DS, L, 4) contiguous; dist_t (B, S, L), each
+    scenario's (S, L) rows contiguous (a slice ``dist_x[:, i]`` of the
+    (B, T, S, L) maps is taken as it is, by its batch stride); ref_line
+    (B, n, 8) contiguous, one row count for every scenario (a batch of
+    reference lines stacked to one tensor has one); ref_step one element
+    shared by the batch; ``tables`` the :class:`Tables` of
+    :func:`make_tables` for one scenario or a :class:`BatchTables` of the
+    B; float32, on one CUDA device.  Returns (B, S, DS, L, 4) float32.  One
+    scenario runs the kernel's one-scenario instantiation and counts in
+    ``slice_launches``, a batch the batched one (the scenario as
+    ``blockIdx.z``) and counts in ``batch_launches``.  Its plain version is
+    the solver's ``backward_slice_reference`` (per scenario); a tensor that
+    is not on a CUDA device raises.
     """
-    global launches, slice_launches
-    if nodes_next.dim() != 4 or nodes_next.shape[-1] != 4:
-        raise ValueError(f"nodes_next must be (S, DS, L, 4), got "
-                         f"{tuple(nodes_next.shape)}")
-    S, DS, L, _ = nodes_next.shape
+    global launches, slice_launches, batch_launches
     dev = nodes_next.device
     if dev.type != "cuda":
         raise ValueError(f"backward_slice_launch: needs a CUDA device, got "
                          f"{dev}")
-    if not isinstance(tables, Tables) or tables.slice_consts is None:
+    if nodes_next.dim() != 5 or nodes_next.shape[-1] != 4:
+        raise ValueError(f"nodes_next must be (B, S, DS, L, 4), got "
+                         f"{tuple(nodes_next.shape)}")
+    B, S, DS, L, _ = nodes_next.shape
+    if isinstance(tables, BatchTables):
+        n_tables = tables.B
+    elif isinstance(tables, Tables) and tables.slice_consts is not None:
+        n_tables = 1
+    else:
         raise ValueError("the fused slice needs the tables of make_tables")
-    if ref_line.dim() != 2:
-        raise ValueError(f"ref_line must be (n, {REF_LINE_CHANNELS}), got "
+    if ref_line.dim() != 3:
+        raise ValueError(f"ref_line must be (B, n, {REF_LINE_CHANNELS}), got "
                          f"{tuple(ref_line.shape)}")
     f32 = torch.float32
-    _check_tensor("nodes_next", nodes_next, (S, DS, L, 4), f32, dev)
-    _check_tensor("dist_t", dist_t, (S, L), f32, dev)
+    _check_tensor("nodes_next", nodes_next, (B, S, DS, L, 4), f32, dev)
     _check_tensor("ref_line", ref_line,
-                  (ref_line.shape[0], REF_LINE_CHANNELS), f32, dev)
+                  (B, ref_line.shape[1], REF_LINE_CHANNELS), f32, dev)
     _check_tensor("ref_step", ref_step.reshape(1), (1,), f32, dev)
-    if tables.DS != DS or tables.device != dev:
-        raise ValueError(f"action tables for ds_steps={tables.DS} on "
-                         f"{tables.device}, nodes_next has ds_steps={DS} on "
-                         f"{dev}")
+    if (tuple(dist_t.shape) != (B, S, L) or dist_t.dtype != f32
+            or dist_t.device != dev or dist_t.stride()[1:] != (L, 1)
+            or dist_t.stride(0) < S * L):
+        raise ValueError(f"dist_t must be float32 (B, S, L) = {(B, S, L)} "
+                         f"with contiguous rows on {dev}, got "
+                         f"{tuple(dist_t.shape)} {dist_t.dtype} strides "
+                         f"{dist_t.stride()} on {dist_t.device}")
+    if n_tables != B or tables.DS != DS or tables.device != dev:
+        raise ValueError(f"tables of {n_tables} scenarios with ds_steps="
+                         f"{tables.DS} on {tables.device}, nodes_next has "
+                         f"{B} with ds_steps={DS} on {dev}")
     if nodes_next.data_ptr() % 16:
         raise ValueError("nodes_next must be 16-byte aligned (16-byte copies)")
     lib = _kernel()
     if lib.latlon_action_min_tile_rows(L) < 1 or DS > MAX_DS \
-            or ref_line.shape[0] < 1:
-        raise ValueError(f"l_steps={L}, ds_steps={DS}, {ref_line.shape[0]} "
-                         "reference rows: outside what the kernel takes")
+            or ref_line.shape[1] < 1 or B > MAX_BATCH:
+        raise ValueError(f"{B} scenarios, l_steps={L}, ds_steps={DS}, "
+                         f"{ref_line.shape[1]} reference rows: outside what "
+                         "the kernel takes")
     out = torch.empty_like(nodes_next)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -422,12 +486,16 @@ def backward_slice_launch(nodes_next, dist_t, ref_line, ref_step, i, tables):
             nodes_next.data_ptr(), dist_t.data_ptr(), ref_line.data_ptr(),
             ref_step.data_ptr(), tables.slice_consts.data_ptr(),
             (ctypes.c_void_p * len(TABLE_KEYS))(*tables.ptrs),
-            out.data_ptr(), S, DS, L, ref_line.shape[0], int(i), stream)
+            out.data_ptr(), S, DS, L, ref_line.shape[1], int(i), B,
+            dist_t.stride(0), stream)
     if err != 0:
         raise RuntimeError(f"latlon_backward_slice launch failed: CUDA error "
                            f"{err}")
     launches += 1
-    slice_launches += 1
+    if B == 1:
+        slice_launches += 1
+    else:
+        batch_launches += 1
     return out
 
 
@@ -453,7 +521,8 @@ def _kernel():
         lib.latlon_action_min_tile_rows.argtypes = [ctypes.c_int]
         lib.latlon_backward_slice.restype = ctypes.c_int
         lib.latlon_backward_slice.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            + [ctypes.c_longlong, ctypes.c_void_p])
         if lib.latlon_n_slice_consts() != len(SLICE_CONSTS):
             raise RuntimeError("latlon_action_min.cu and SLICE_CONSTS "
                                "disagree")

@@ -461,6 +461,135 @@ def dp_poly_env(obstacle=True):
     return env
 
 
+def dp_batch_scenes(B, T, S, L, seed=0, nan=True):
+    """B seeded scenes of the DP lat/lon planner for its scenario-batched
+    solve: a distance-ahead map with a leader and a parked car (the kernel
+    phase's scene, scaled to the grid) whose leader starts, lanes and
+    parked length differ per scenario, plus seeded noise; reference lines
+    of one row count whose speed limit and lane bounds vary per scenario;
+    per-scenario ``l_trg`` (-1.5 .. 1.5 m) and start speeds; with ``nan``
+    one scenario (index 1, or 0 in a batch of one) with NaN distance cells
+    in every slice.  Returns numpy float32 (dist (B, T, S, L, 2), ref_lines
+    (B, 2 S + 40, 8), pps (B, len(PP_KEYS)) packed, x0s (B, 12)); the
+    reference step is 0.5 m and the params otherwise the defaults."""
+    from .planning.dyn_prog import lat_lon_kernel as llk
+
+    rng = np.random.default_rng(seed)
+    n_ref = 2 * S + 40
+    dist = np.full((B, T, S, L, 2), 10000.0, np.float32)
+    dist[..., 0] = 10000.0 + (S - np.arange(S))[None, None, :, None]
+    rls = np.zeros((B, n_ref, 8), np.float32)
+    pps = np.zeros((B, len(llk.PP_KEYS)), np.float32)
+    x0s = np.zeros((B, 12), np.float32)
+    mid = L // 2
+    for b in range(B):
+        d = dist[b, ..., 0]
+        shift = int(rng.integers(-1, 2)) if L > 4 else 0
+        lead0 = S // 6 + int(rng.integers(0, S // 8 + 1))
+        for t in range(T):
+            lead = min(S - 1, lead0 + (S // 25 + 1) * t)
+            lo, hi = max(mid - 2 + shift, 0), min(mid + 3 + shift, L)
+            d[t, :lead, lo:hi] = (lead - np.arange(lead))[:, None]
+            park = (3 * S) // 5 - int(rng.integers(0, S // 5 + 1))
+            d[t, :park, 1:max(2, L // 4)] = np.minimum(
+                d[t, :park, 1:max(2, L // 4)],
+                (park - np.arange(park))[:, None])
+        d[:, :, [0, L - 1]] = 0.0
+        d += rng.uniform(0, 0.5, (T, S, L)).astype(np.float32)
+        rl = rls[b]
+        rl[:, 0] = np.arange(n_ref) * 0.5
+        rl[:, 4] = 14.0 - rng.uniform(2.0, 8.0) * (np.arange(n_ref)
+                                                   > n_ref // 2)
+        rl[:, 5] = 4.0 - 1.5 * (np.arange(n_ref) % (40 + 10 * b) > 30)
+        rl[:, 6] = 4.0 - 2.0 * (np.arange(n_ref) % 70 > 50)
+        p = llk.LatLonParams()
+        p.l_trg = -1.5 + 3.0 * b / max(B - 1, 1)
+        pps[b] = p.packed()
+        x0s[b, llk.C_DS] = 4.0 + 0.5 * b
+    if nan:
+        b = min(1, B - 1)
+        dist[b, :, S // 3:S // 3 + 2, mid + 1, 0] = np.nan
+    return dist, rls, pps, x0s
+
+
+def genopt_mpc_config(sx=None, go=None):
+    """The spatial tracking MPC as a user would define it with the sympy
+    front end (the JAX package's tests/test_genopt.py ``mpc_config``, the
+    reference's config_trajectory_tracking_mpc shape), with the ``symext``
+    and ``genopt`` modules ``sx`` / ``go`` (the port's unless given)."""
+    import sympy as sp
+
+    if sx is None:
+        from .optim import symext as sx
+    if go is None:
+        from .optim import genopt as go
+    g = {n: sp.Symbol(n) for n in (
+        "x y phi delta v s_r a j delta_dot "
+        "ref_step l v_ch max_delta max_acc min_acc a_offset "
+        "pd pv pdelta min_pdelta_dot pdelta_dot min_p_phi_dot p_phi_dot "
+        "pa pj p_phi p_phi_ref_dot_diff").split()}
+    arrs = {n: sx.ArraySymbol(n) for n in
+            ["ref_x", "ref_y", "ref_phi", "ref_k", "ref_v"]}
+
+    s_r = g["s_r"]
+    r_x = sx.lerp(0.0, g["ref_step"], s_r, arrs["ref_x"])
+    r_y = sx.lerp(0.0, g["ref_step"], s_r, arrs["ref_y"])
+    r_phi = sx.lerp_angle(0.0, g["ref_step"], s_r, arrs["ref_phi"])
+    r_k = sx.lerp(0.0, g["ref_step"], s_r, arrs["ref_k"])
+    v_trg = sx.lerp(0.0, g["ref_step"], sx.fixed(s_r), arrs["ref_v"])
+
+    v, phi, delta = g["v"], g["phi"], g["delta"]
+    phi_dot = v / (g["l"] * (1 + (v / g["v_ch"]) ** 2)) * sp.tan(delta)
+    d_r = sp.cos(r_phi) * (g["y"] - r_y) - sp.sin(r_phi) * (g["x"] - r_x)
+    s_dot = v * sp.cos(phi - r_phi) / (1 - d_r * r_k)
+
+    dynamics = sp.Matrix([
+        v * sp.cos(phi), v * sp.sin(phi), phi_dot, g["delta_dot"],
+        g["a"] + g["a_offset"], s_dot, g["j"]])
+
+    costs = sp.Matrix([
+        (g["min_pdelta_dot"] + g["pdelta_dot"] * v ** 2) * g["delta_dot"] ** 2
+        + (g["min_p_phi_dot"] + g["p_phi_dot"] * v ** 2) * phi_dot ** 2
+        + g["pa"] * g["a"] ** 2 + g["pj"] * g["j"] ** 2
+        + g["pv"] * (v - v_trg) ** 2 + g["pd"] * d_r ** 2
+        + g["p_phi"] * (1 - sp.cos(phi - r_phi))
+        + g["p_phi_ref_dot_diff"] * (phi_dot - s_dot * r_k) ** 2 * v ** 2])
+
+    constraints = [
+        delta - g["max_delta"], -g["max_delta"] - delta,
+        g["a"] - g["max_acc"], g["min_acc"] - g["a"]]
+
+    params = {g[n]: None for n in
+              ["ref_step", "l", "v_ch", "max_delta", "max_acc", "min_acc",
+               "a_offset", "pd", "pv", "pdelta", "min_pdelta_dot",
+               "pdelta_dot", "min_p_phi_dot", "p_phi_dot", "pa", "pj",
+               "p_phi", "p_phi_ref_dot_diff"]}
+    params.update({arrs[n]: None for n in arrs})
+    params[g["l"]] = 2.7
+
+    return go.Config(
+        states=[g[n] for n in "x y phi delta v s_r a".split()],
+        actions=[g["j"], g["delta_dot"]],
+        params=params,
+        dynamics=dynamics, costs=costs, constraints=constraints,
+        name="mpc_sympy", array_capacity=128)
+
+
+def genopt_mpc_solve_inputs():
+    """The course, weights and start of tests/test_genopt.py's full solve
+    (a parabola of 100 samples every 0.5 m, 8 m/s): (params dict, x0)."""
+    n = 100
+    s = np.arange(n) * 0.5
+    params = dict(ref_x=s, ref_y=0.02 * s ** 2, ref_phi=np.arctan(0.04 * s),
+                  ref_k=np.full(n, 0.01), ref_v=np.full(n, 8.0),
+                  pd=1.0, pv=0.3, pa=0.1, pj=0.05, min_pdelta_dot=0.2,
+                  pdelta_dot=0.01, min_p_phi_dot=0.1, p_phi_dot=0.01,
+                  p_phi=2.0, p_phi_ref_dot_diff=0.1, ref_step=0.5,
+                  l=2.7, v_ch=30.0, max_delta=0.7, max_acc=2.5,
+                  min_acc=-3.0, a_offset=0.0)
+    return params, [0.0, 0.5, 0.1, 0.0, 5.0, 0.0, 0.0]
+
+
 def dp_random_occ(seed, T=10, S=201, L=21, density=0.1):
     """A seeded occupancy grid (T, S, L) float32 of the four cell values
     (0 free, 1 moving, 2 blocked, 3 stationary), ``density`` of it

@@ -276,16 +276,23 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
 23. the crane example (``tpl_tpu_torch.examples.crane_2d``, H=100) on the
    card and on the CPU: the example's acceptance on both, their final
    states within CRANE_ATOL;
-24. the batched DP slice (``latlon_backward_slice`` at B > 1, the scenario
-   as ``blockIdx.z``) at the demo grid, B = 1 and 8 on
+24. the batched DP slice (``latlon_backward_slice`` at B > 1: the resident
+   blocks walking the work items) at the demo grid on
    ``scenes.dp_batch_scenes`` (per-scenario scenes, tables and ``l_trg``,
-   NaN distance cells in one scenario): every backward slice bit-equal to
-   the plain version on the CPU (NaN equal to NaN) and every scenario to
-   its one-scenario launch, one launch a slice; a batch solve at B = 8 is 8
+   NaN distance cells in one scenario): at B = 1 and 8 every backward
+   slice bit-equal to the plain version on the CPU (NaN equal to NaN), at
+   B = 32 chained through the kernel, and every scenario to its
+   one-scenario launch, one launch a slice; a batch solve at B = 8 is 8
    batched launches and each plan its own solve's; one batched launch at
-   B = 8 timed against 8 one-scenario launches from CUDA graphs and by
-   events, the wrapper, the plain version and the bounds (also under
-   ``--kernels-only``);
+   B = 8 and 32 timed against B one-scenario launches from CUDA graphs and
+   by events, with scenarios a second of slice time and the blocks
+   launched; its profiling instantiation bit-equal, with a "phases" line
+   (thread 0's us an item); the kernels' registers and stack bytes
+   (``cuobjdump -res-usage``), SASS instruction counts and, for a kernel
+   with ``clock64()`` stamps, the instructions between them with the
+   action loop's opcodes by kind; the tree's ``numRegs`` /
+   ``localSizeBytes`` (``cudaFuncGetAttributes``); the wrapper, the plain
+   version and the bounds (also under ``--kernels-only``);
 25. ``tpl_tpu_torch.parallel.dryrun_multichip(device_count)`` at its full
    widths (the MPC at B = 4 a card, the IDM sweep at C = 16 a card, the DP
    batch at B = 8 a card on the 10 x 201 x 37 x 21 grid, the env build at
@@ -323,7 +330,10 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    controllers' loops.  The ``latlon_backward_slice_batched`` row carries
    the dryrun's launches (``launches``, ``dryrun_launches``), its time at
    B = 8 from CUDA graphs (``ms``) beside 8 one-scenario launches
-   (``single_launches_ms``), both by events, and the dryrun's wall times.
+   (``single_launches_ms``), both by events, scenarios a second of slice
+   time, the same at B = 32 (``by_batch``), the other sources' times in
+   turns (``parent_graph_ms``), its "phases" (``phases_us``), the kernels'
+   ``numRegs`` / ``localSizeBytes`` and the dryrun's wall times.
    Each phase prints its seconds.
 
 With ``--parent-csrc DIR`` (a directory holding another version of any of
@@ -349,7 +359,11 @@ slice (the 8 real slices of phase 2), the graph DP's field (every case of phase 
 evaluation (both levels of every case of phase 17; a launcher without the
 slice's scratch is recognised) and propagation (every case of phase 17; a
 source of the launch a level is recognised; all three also timed from
-CUDA graphs) a difference other than 0.0 raises (NaN equal to NaN); the
+CUDA graphs) and the batched slice (every scenario at B = 1, 8 and 32 of
+phase 24, from CUDA graphs and by events in turns; a source that exports
+``latlon_backward_slice_profile`` prints its "phases" line, and every
+source its kernels' registers and SASS counts) a difference other than
+0.0 raises (NaN equal to NaN); the
 poly grid (a source of the two launches is recognised) must keep every
 candidate's rows and cost on every case of phase 15 and the winner on
 every case without a NaN cost, and is timed by CUDA events and from CUDA
@@ -589,8 +603,12 @@ GENOPT_COST_RTOL = 1e-9
 # example's acceptance; their final states (m, m/s, rad) within this (60
 # iterations of float32 whose stops are decided by rounding)
 CRANE_ATOL = 5e-2
-# the batched fused slice: the batch sizes checked, and the one timed
+# the batched fused slice: the batch sizes checked against the plain
+# version on the CPU, those checked against the one-scenario launches on
+# the card, those timed, and the one in the kernels' JSON line
 SLICE_BATCHES = (1, 8)
+SLICE_CARD_BATCHES = (32,)
+SLICE_BATCHES_TIMED = (8, 32)
 SLICE_BATCH_TIMED = 8
 # the tplsim phase: the vendored loop through the command line, on the card
 TPLSIM_TICKS = 400
@@ -1216,6 +1234,17 @@ def dp_first_replan_child(csrc):
             old = lib.latlon_backward_slice
             old.restype, old.argtypes = ctypes.c_int, OLD_SLICE_ARGTYPES
             lib.latlon_backward_slice = lambda *a: old(*a[:12], a[-1])
+        if not hasattr(lib, "latlon_backward_slice_grid"):
+            # a source from before the persistent batch: the wrapper's
+            # check of a launch's blocks from its tile, and the profiling
+            # and attribute entries, which the loop never calls
+            rows = lib.latlon_action_min_tile_rows
+            rows.restype, rows.argtypes = ctypes.c_int, [ctypes.c_int]
+            lib.latlon_backward_slice_grid = lambda S, DS, L, B: (
+                -(-S // rows(L)) * DS * B if rows(L) > 0 else -1)
+            lib.latlon_backward_slice_n_phases = lambda: len(lam.SLICE_PHASES)
+            lib.latlon_backward_slice_profile = lambda *a: 1
+            lib.latlon_backward_slice_attributes = lambda *a: 1
         load = _build.load
         _build.load = lambda name, c=None: (
             lib if name == "latlon_action_min" else load(name, c))
@@ -5534,72 +5563,224 @@ def crane_phase(dev):
     return dict(ms=walls, err=d)
 
 
-def batch_slice_phase(lam, tllk, dev):
-    """The fused backward slice for a scenario batch (one launch, the
-    scenario as blockIdx.z) at the demo grid, B in SLICE_BATCHES, on
-    ``scenes.dp_batch_scenes`` (per-scenario leader, parked car, lane
-    bounds, ``l_trg``; one scenario with NaN distance cells): every
-    backward slice, chained through the plain version on the CPU, bit-equal
-    to the plain version (NaN equal to NaN) and each scenario to its own
-    one-scenario launch; one launch a slice by the wrapper's counter; a
-    whole batch solve launches it T - 2 times and each scenario's plan is
-    its one-scenario solve's.  Times at B = SLICE_BATCH_TIMED: one batched
-    launch against B one-scenario launches, from CUDA graphs and by events,
-    the wrapper and the plain version; the bounds."""
+def slice_batch_chain(lam, solve, ins, tables, B, what, plain=None):
+    """Every backward slice of a batch of B on the card, chained through
+    the plain version on the CPU where ``plain`` (the CPU solver, inputs
+    and tables) is given, else through the batched kernel itself: each slice
+    one launch by the wrapper's counters, bit-equal to the plain version
+    (NaN equal to NaN) where given and every scenario to its one-scenario
+    launch.  Returns the first slice's inputs on the card and the nodes
+    with a NaN."""
     import torch
-    from tpl_tpu_torch import scenes
+
+    T, S = DEMO_SPEC["t_steps"], DEMO_SPEC["s_steps"]
+    dist_g, rls_g, step_g, pps_g = ins
+    if plain is not None:
+        solve_c, (dist_c, rls_c, step_c, pps_c), tables_c = plain
+        nxt = torch.stack([solve_c.final_slice(
+            dist_c[b], rls_c[b], step_c, pps_c[b]) for b in range(B)])
+    else:
+        nxt = torch.stack([solve.final_slice(
+            dist_g[b], rls_g[b], step_g, pps_g[b]) for b in range(B)])
+    n_nan, first = 0, None
+    for i in range(T - 2, 0, -1):
+        nxt_g = nxt.to(dist_g.device)
+        before = lam.launches, lam.slice_launches, lam.batch_launches
+        got = solve.backward_slice_batch(nxt_g, i, dist_g, rls_g, step_g,
+                                         pps_g, tables)
+        torch.cuda.synchronize()
+        if (lam.launches, lam.slice_launches, lam.batch_launches) != (
+                before[0] + 1, before[1] + (B == 1), before[2] + (B > 1)):
+            raise AssertionError("the batched slice: not one launch of the "
+                                 "instantiation for its B")
+        if plain is not None:
+            want = solve_c.backward_slice_batch_reference(
+                nxt, i, dist_c, rls_c, step_c, pps_c, tables_c)
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), want.numpy(),
+                err_msg=f"batched slice B={B} slice {i} against the plain "
+                "version")
+        for b in range(B):
+            single = lam.backward_slice_launch(
+                nxt_g[b:b + 1], dist_g[b:b + 1, i], rls_g[b:b + 1], step_g,
+                i, tables.tables[b])[0]
+            if not nan_equal(single, got[b]):
+                raise AssertionError(f"batched slice B={B} slice {i} "
+                                     f"scenario {b}: not its one-scenario "
+                                     "launch's bits")
+        n_nan += int(torch.isnan(got).any(-1).sum())
+        if first is None:
+            first = (nxt_g, dist_g, rls_g, step_g, pps_g, tables, i)
+        nxt = want if plain is not None else got
+    if not n_nan:
+        raise AssertionError("the NaN distance cells reached no node")
+    print(f"batched slice B={B} at S={S} DS={DEMO_SPEC['ds_steps']} "
+          f"L={DEMO_SPEC['l_steps']}: all {T - 2} slices bit-equal to {what} "
+          f"and every scenario to its one-scenario launch; nodes with a NaN "
+          f"{n_nan}")
+    return first
+
+
+def slice_lib(lam, csrc):
+    """The fused slice's library: the tree's (``csrc`` None, bound by the
+    wrapper) or another version's built from ``csrc``, with the argument
+    types of its slice entry and, where it exports one, of its profiling
+    entry."""
+    from tpl_tpu_torch import _build
+
+    if csrc is None:
+        return lam._kernel()
+    lib = _build.load("latlon_action_min", csrc)
+    lib.latlon_backward_slice.restype = ctypes.c_int
+    lib.latlon_backward_slice.argtypes = (
+        lam._kernel().latlon_backward_slice.argtypes)
+    if hasattr(lib, "latlon_backward_slice_profile"):
+        lib.latlon_backward_slice_profile.restype = ctypes.c_int
+        lib.latlon_backward_slice_profile.argtypes = (
+            lam._kernel().latlon_backward_slice_profile.argtypes)
+    return lib
+
+
+def slice_launcher(lib, case, out, prof=None):
+    """``launch(stream)`` of the fused slice entry of ``lib`` (its profiling
+    entry with ``prof``) on ``case`` = (nodes_next, dist_x, ref_lines,
+    ref_step, pps, tables, i) into ``out``; raises on a CUDA error."""
+    nxt, dist_x, rls, step, _, tb, i = case
+    dist_t = dist_x[:, i]
+    B, S, DS, L, _ = nxt.shape
+    ptrs = (ctypes.c_void_p * len(tb.ptrs))(*tb.ptrs)
+    args = (nxt.data_ptr(), dist_t.data_ptr(), rls.data_ptr(),
+            step.data_ptr(), tb.slice_consts.data_ptr(), ptrs,
+            out.data_ptr(), S, DS, L, rls.shape[1], i, B, dist_t.stride(0))
+
+    def launch(stream):
+        err = (lib.latlon_backward_slice(*args, stream) if prof is None else
+               lib.latlon_backward_slice_profile(*args, prof.data_ptr(),
+                                                 stream))
+        if err:
+            raise RuntimeError(f"latlon_backward_slice: CUDA error {err}")
+    return launch
+
+
+def cuobjdump(*args):
+    """The output of the toolkit's ``cuobjdump`` (beside ``nvcc``)."""
+    from tpl_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    return subprocess.run([tool, *args], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def demangle(names):
+    """The C++ names of mangled ``names`` (as given where c++filt is
+    missing), shortened to the kernel and its template arguments."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return list(names)
+    return [re.sub(r"^.*?(\w+(<[^()]*>)?)\(.*$", r"\1", n) for n in out]
+
+
+SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")
+
+
+def slice_kernel_report(so, phases):
+    """Per fused-slice kernel of the library ``so`` (its C++ name): the
+    registers and stack bytes (``cuobjdump -res-usage``), the SASS
+    instruction count (``cuobjdump -sass``) and, for a kernel that reads the
+    clock, the instructions between its consecutive clock reads, named by
+    ``phases`` (the stamps' order in the code; the first stretch also holds
+    the kernel's prologue), with the opcodes of the action loop's stretch
+    by kind."""
+    usage = {}
+    for fn, reg, stack in re.findall(
+            r"Function (\S+):\s*\n\s*REG:(\d+) STACK:(\d+)",
+            cuobjdump("-res-usage", so)):
+        usage[fn] = (int(reg), int(stack))
+    report = {}
+    for block in cuobjdump("-sass", so).split("Function : ")[1:]:
+        fn = block.split(None, 1)[0]
+        if "backward_slice" not in fn:
+            continue
+        ops, cuts = [], []
+        for line in block.splitlines():
+            m = SASS_LINE.search(line)
+            if m:
+                if "SR_CLOCK" in line:
+                    cuts.append(len(ops))
+                ops.append(m.group(1))
+        regs, stack = usage.get(fn, (None, None))
+        r = dict(registers=regs, stack_bytes=stack, instructions=len(ops))
+        if len(cuts) == len(phases) + 1:
+            seg = [ops[a:b] for a, b in zip(cuts, cuts[1:])]
+            r["instructions_by_phase"] = {
+                p: len(s) for p, s in zip(phases, seg)}
+            act = seg[phases.index("actions")]
+            r["action_loop_opcodes"] = {
+                k: sum(o.split(".")[0] in ks for o in act)
+                for k, ks in (("LDS", ("LDS",)), ("LDG", ("LDG", "LD")),
+                              ("FSETP", ("FSETP",)),
+                              ("SEL", ("SEL", "FSEL")),
+                              ("FADD", ("FADD",)), ("FMUL", ("FMUL",)),
+                              ("FMNMX", ("FMNMX",)))}
+        elif cuts:
+            r["clock_reads"] = len(cuts)
+        report[fn] = r
+    return dict(zip(demangle(list(report)), report.values()))
+
+
+def slice_phase_line(lam, what, cycles, items, mhz):
+    """One "phases" line of the batched slice's profiling entry: thread 0's
+    cycles summed over the blocks, as us a work item (s tile, ds,
+    scenario) at the SM clock."""
+    us = {k: c / items / mhz for k, c in zip(lam.SLICE_PHASES, cycles)}
+    print(f"phases latlon_backward_slice {what} (thread 0, {items} items, SM "
+          f"{mhz:.0f} MHz): us an item " + ", ".join(
+              f"{k} {v:.3f}" for k, v in us.items())
+          + f" (sum {sum(us.values()):.3f})")
+    return us
+
+
+def batch_slice_phase(lam, tllk, dev, mhz, parent_csrc=None):
+    """The fused backward slice for a scenario batch (one launch) at the
+    demo grid on ``scenes.dp_batch_scenes`` (per-scenario leader, parked
+    car, lane bounds, ``l_trg``; one scenario with NaN distance cells):
+    at B in SLICE_BATCHES every backward slice, chained through the plain
+    version on the CPU, bit-equal to it (NaN equal to NaN), at B in
+    SLICE_CARD_BATCHES chained through the kernel; each scenario bit-equal
+    to its own one-scenario launch; one launch a slice by the wrapper's
+    counter; a whole batch solve launches it T - 2 times and each
+    scenario's plan is its one-scenario solve's.  Times at B in
+    SLICE_BATCHES_TIMED from CUDA graphs and by events: one batched launch
+    against B one-scenario launches, and with ``parent_csrc`` against that
+    source's batched entry in turns (bits per scenario, which must agree);
+    the one-scenario slice in turns with the parent's; the profiling entry
+    (bit-equal, "phases" line) of every source that exports one; each
+    source's kernels' registers, stack and SASS counts; the tree's
+    ``numRegs`` / ``localSizeBytes``; the wrapper, the plain version, the
+    bounds and scenarios per second of slice time."""
+    import torch
+    from tpl_tpu_torch import _build, scenes
 
     T, S, DS, L = (DEMO_SPEC[k] for k in ("t_steps", "s_steps", "ds_steps",
                                           "l_steps"))
     solves = {d: tllk.make_latlon_solver(DEMO_SPEC, d)[0]
               for d in ("cpu", dev)}
-    out = {}
-    for B in SLICE_BATCHES:
+    cases = {}
+    for B in SLICE_BATCHES + SLICE_CARD_BATCHES:
+        on_cpu = B in SLICE_BATCHES
         dist, rl, pp, x0 = scenes.dp_batch_scenes(B, T, S, L, seed=B)
-        ins = {d: solves[d].batch_inputs(dist, rl, 0.5, pp) for d in solves}
+        ins = {d: solves[d].batch_inputs(dist, rl, 0.5, pp)
+               for d in (solves if on_cpu else (dev,))}
         tables = {d: lam.BatchTables([solves[d].action_tables(p)
-                                      for p in ins[d][3]]) for d in solves}
-        dist_c, rls_c, step_c, pps_c = ins["cpu"]
-        dist_g, rls_g, step_g, pps_g = ins[dev]
-        nxt = torch.stack([solves["cpu"].final_slice(
-            dist_c[b], rls_c[b], step_c, pps_c[b]) for b in range(B)])
-        n_nan, first = 0, None
-        for i in range(T - 2, 0, -1):
-            want = solves["cpu"].backward_slice_batch_reference(
-                nxt, i, dist_c, rls_c, step_c, pps_c, tables["cpu"])
-            nxt_g = nxt.to(dev)
-            before = lam.launches, lam.slice_launches, lam.batch_launches
-            got = solves[dev].backward_slice_batch(
-                nxt_g, i, dist_g, rls_g, step_g, pps_g, tables[dev])
-            torch.cuda.synchronize()
-            if (lam.launches, lam.slice_launches, lam.batch_launches) != (
-                    before[0] + 1, before[1] + (B == 1),
-                    before[2] + (B > 1)):
-                raise AssertionError("the batched slice: not one launch of "
-                                     "the instantiation for its B")
-            np.testing.assert_array_equal(
-                got.cpu().numpy(), want.numpy(),
-                err_msg=f"batched slice B={B} slice {i} against the plain "
-                "version")
-            for b in range(B):
-                single = lam.backward_slice_launch(
-                    nxt_g[b:b + 1], dist_g[b:b + 1, i], rls_g[b:b + 1],
-                    step_g, i, tables[dev].tables[b])[0]
-                np.testing.assert_array_equal(
-                    single.cpu().numpy(), got[b].cpu().numpy(),
-                    err_msg=f"batched slice B={B} slice {i} scenario {b} "
-                    "against its one-scenario launch")
-            n_nan += int(torch.isnan(want).any(-1).sum())
-            if first is None:
-                first = (i, nxt_g, dist_g, rls_g, step_g, pps_g, tables[dev])
-            nxt = want
-        if not n_nan:
-            raise AssertionError("the NaN distance cells reached no node")
-        print(f"batched slice B={B} at S={S} DS={DS} L={L}: all {T - 2} "
-              "slices bit-equal to the plain version on the CPU and every "
-              f"scenario to its one-scenario launch; nodes with a NaN "
-              f"{n_nan}")
-        out[B] = first
+                                      for p in ins[d][3]]) for d in ins}
+        plain = (solves["cpu"], ins["cpu"], tables["cpu"]) if on_cpu else None
+        cases[B] = slice_batch_chain(
+            lam, solves[dev], ins[dev], tables[dev], B,
+            "the plain version on the CPU" if on_cpu else
+            "the batched kernel's own chain", plain)
 
     # a whole batch solve: T - 2 launches, each plan its own solve's
     B = SLICE_BATCH_TIMED
@@ -5618,55 +5799,111 @@ def batch_slice_phase(lam, tllk, dev):
     print(f"batch solve B={B}: {T - 2} batched launches, no one-scenario "
           "launch; scenarios 0 and B-1 bit-equal to their own solves")
 
-    # times at B, the first slice (T - 2)
-    i, nxt_g, dist_g, rls_g, step_g, pps_g, tb = out[B]
-    lib = lam._kernel()
-    n_ref = rls_g.shape[1]
-    batch_ptrs = (ctypes.c_void_p * len(lam.TABLE_KEYS))(*tb.ptrs)
-    single_ptrs = [(ctypes.c_void_p * len(lam.TABLE_KEYS))(*t.ptrs)
-                   for t in tb.tables]
-    res = torch.empty_like(nxt_g)
-    dist_t = dist_g[:, i]
+    parents = parents_with(parent_csrc, "latlon_action_min")
+    libs = {"tree": slice_lib(lam, None)}
+    libs.update({csrc: slice_lib(lam, csrc) for csrc in parents
+                 if slice_takes_batch(csrc)})
+    res = {"times": {}, "parent_ms": {}, "phases_us": {}}
+    n_tiles = -(-S // lam._kernel().latlon_action_min_tile_rows(L))
+    for B in (1,) + SLICE_BATCHES_TIMED:
+        case = cases[B]
+        outs = {k: torch.empty_like(case[0]) for k in libs}
+        run = {k: slice_launcher(lib, case, outs[k])
+               for k, lib in libs.items()}
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for k in libs:
+            run[k](stream)
+        torch.cuda.synchronize()
+        tree = run["tree"]
+        for k in libs:
+            if k == "tree":
+                continue
+            diff = [0.0 if nan_equal(outs[k][b], outs["tree"][b]) else float(
+                (outs[k][b] - outs["tree"][b]).abs().nan_to_num(
+                    float("inf")).max()) for b in range(B)]
+            g = in_turns_graph(run[k], tree)
+            e = in_turns(lambda: run[k](stream), lambda: tree(stream), 100)
+            print(f"latlon_backward_slice B={B} vs the source in {k}: max "
+                  f"|new - parent| per scenario {max(diff):.3e} (scenarios "
+                  f"{B}); from CUDA graphs ms parent {g[0]:.4f}, new "
+                  f"{g[1]:.4f}, new {g[2]:.4f}, parent {g[3]:.4f}; events "
+                  f"parent {e[0][0]:.4f}, new {e[1][0]:.4f}, new "
+                  f"{e[1][1]:.4f}, parent {e[0][1]:.4f}")
+            if max(diff) != 0.0:
+                raise AssertionError(f"the batched slice B={B}: another "
+                                     f"result than the source in {k}")
+            res["parent_ms"].setdefault(B, {})[k] = g
+        for k, lib in libs.items():
+            if not hasattr(lib, "latlon_backward_slice_profile") or B == 1:
+                continue
+            prof = torch.zeros(len(lam.SLICE_PHASES), dtype=torch.int64,
+                               device=dev)
+            pout = torch.empty_like(case[0])
+            slice_launcher(lib, case, pout, prof)(stream)
+            torch.cuda.synchronize()
+            if not nan_equal(pout, outs[k]):
+                raise AssertionError(f"the profiling slice of {k}: other "
+                                     "bits than its plain entry")
+            us = slice_phase_line(lam, f"B={B} {k}", prof.cpu().tolist(),
+                                  B * DS * n_tiles, mhz)
+            res["phases_us"].setdefault(B, {})[k] = us
+        if B == 1:
+            continue
+        nxt, dist_x, rls, step, pps, tb, i = case
+        single = [slice_launcher(libs["tree"], (
+            nxt[b:b + 1], dist_x[b:b + 1], rls[b:b + 1], step, None,
+            tb.tables[b], i), outs["tree"][b:b + 1]) for b in range(B)]
 
-    def batched(stream):
-        err = lib.latlon_backward_slice(
-            nxt_g.data_ptr(), dist_t.data_ptr(), rls_g.data_ptr(),
-            step_g.data_ptr(), tb.slice_consts.data_ptr(), batch_ptrs,
-            res.data_ptr(), S, DS, L, n_ref, i, B, dist_t.stride(0), stream)
-        if err:
-            raise RuntimeError(f"latlon_backward_slice: CUDA error {err}")
+        def singles(s, single=single):
+            for launch in single:
+                launch(s)
 
-    def singles(stream):
-        for b in range(B):
-            err = lib.latlon_backward_slice(
-                nxt_g[b].data_ptr(), dist_g[b, i].data_ptr(),
-                rls_g[b].data_ptr(), step_g.data_ptr(),
-                tb.tables[b].slice_consts.data_ptr(), single_ptrs[b],
-                res[b].data_ptr(), S, DS, L, n_ref, i, 1, S * L, stream)
-            if err:
-                raise RuntimeError(f"latlon_backward_slice: CUDA error {err}")
+        g_batch, g_single = graph_ms(tree), graph_ms(singles)
+        g_batch2 = graph_ms(tree)
+        e_single = cuda_ms(lambda: singles(stream), 50)
+        e_batch = cuda_ms(lambda: tree(stream), 100)
+        bound = lam.batch_bound_ms(B, S, DS, L)
+        ms = (g_batch + g_batch2) / 2
+        print(f"batched slice at B={B} S={S} DS={DS} L={L}, slice "
+              f"{i}: from CUDA graphs one batched launch "
+              f"{g_batch:.4f} ms (again {g_batch2:.4f}), {B} one-scenario "
+              f"launches {g_single:.4f} ms; by events {e_batch:.4f} / "
+              f"{e_single:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}); "
+              f"{B / ms * 1e3:.0f} scenarios a second of slice time; "
+              f"{lam._kernel().latlon_backward_slice_grid(S, DS, L, B)} "
+              f"blocks for {B * DS * n_tiles} items")
+        res["times"][B] = dict(ms=ms, single_ms=g_single, event_ms=e_batch,
+                               single_event_ms=e_single, bound=bound,
+                               scenarios_per_s=B / ms * 1e3)
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    g_batch, g_single = graph_ms(batched), graph_ms(singles)
-    g_batch2 = graph_ms(batched)
-    e_single = cuda_ms(lambda: singles(stream), 100)
-    e_batch = cuda_ms(lambda: batched(stream), 100)
+    # the registers and spills: the tree's kernels by cudaFuncGetAttributes,
+    # every source's by cuobjdump, with the SASS counts
+    attrs = lam.slice_kernel_attributes()
+    print("latlon_backward_slice kernels (cudaFuncGetAttributes): " + ", ".join(
+        f"{k} numRegs {r} localSizeBytes {b}" for k, (r, b) in attrs.items()))
+    sass = {}
+    for k in libs:
+        so = _build._paths("latlon_action_min", None if k == "tree" else k)[1]
+        sass[k] = slice_kernel_report(so, lam.SLICE_PHASES)
+        for fn, r in sass[k].items():
+            print(f"sass {k} {fn}: {json.dumps(r)}")
+
+    # the wrapper and the plain version at B = SLICE_BATCH_TIMED
+    nxt, dist_x, rls, step, pps, tb, i = cases[SLICE_BATCH_TIMED]
     wrapper_ms = cuda_ms(lambda: solves[dev].backward_slice_batch(
-        nxt_g, i, dist_g, rls_g, step_g, pps_g, tb), 100)
+        nxt, i, dist_x, rls, step, pps, tb), 100)
     plain_ms = cuda_ms(lambda: solves[dev].backward_slice_batch_reference(
-        nxt_g, i, dist_g, rls_g, step_g, pps_g, tb), 5)
-    bound = lam.batch_bound_ms(B, S, DS, L)
-    single_bound = lam.slice_bound_ms(S, DS, L)
-    print(f"batched slice at B={B} S={S} DS={DS} L={L}, slice {i}: from CUDA "
-          f"graphs one batched launch {g_batch:.4f} ms (again "
-          f"{g_batch2:.4f}), {B} one-scenario launches {g_single:.4f} ms; by "
-          f"events {e_batch:.4f} / {e_single:.4f} ms; the wrapper "
-          f"{wrapper_ms:.4f} ms; the plain version on the card "
-          f"{plain_ms:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}), "
-          f"{B} x the one-scenario bound {B * single_bound[0]:.4f}")
-    return dict(err=0.0, ms=(g_batch + g_batch2) / 2, single_ms=g_single,
-                event_ms=e_batch, single_event_ms=e_single,
-                wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound=bound)
+        nxt, i, dist_x, rls, step, pps, tb), 5)
+    t = res["times"][SLICE_BATCH_TIMED]
+    print(f"batched slice at B={SLICE_BATCH_TIMED}: the wrapper "
+          f"{wrapper_ms:.4f} ms, the plain version on the card "
+          f"{plain_ms:.4f} ms")
+    return dict(err=0.0, ms=t["ms"], single_ms=t["single_ms"],
+                event_ms=t["event_ms"],
+                single_event_ms=t["single_event_ms"], wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound=t["bound"], times=res["times"],
+                parent_ms=res["parent_ms"], phases_us=res["phases_us"],
+                attributes=attrs, sass=sass)
 
 
 def dryrun_phase(lam, itm, idk):
@@ -5843,7 +6080,8 @@ def main(argv=()):
         phase("graph DP kernels", dp_poly_kernel_phase, dpe, ppk,
               dp_standin_first(dpe, ppk, dev), dev, cycles, mhz,
               opts.parent_csrc)
-        phase("batched DP slice", batch_slice_phase, lam, tllk, dev)
+        phase("batched DP slice", batch_slice_phase, lam, tllk, dev, mhz,
+              opts.parent_csrc)
         print("kernels only: no loop was driven")
         return 0
     phase("DP slice", slice_phase, lam, tllk)
@@ -5902,7 +6140,8 @@ def main(argv=()):
     phase("record and replay", record_replay_phase)
     gen = phase("genopt MPC", genopt_phase, dev)
     phase("crane example", crane_phase, dev)
-    bs = phase("batched DP slice", batch_slice_phase, lam, tllk, dev)
+    bs = phase("batched DP slice", batch_slice_phase, lam, tllk, dev, mhz,
+               opts.parent_csrc)
     dry = phase("dryrun_multichip", dryrun_phase, lam, itm, idk)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
@@ -6169,6 +6408,12 @@ def main(argv=()):
         "wrapper_ms": bs["wrapper_ms"], "plain_ms": bs["plain_ms"],
         "bound_ms": bs["bound"][0], "bound_by": bs["bound"][1],
         "library_ms": NO_LIBRARY,
+        "scenarios_per_s": bs["times"][SLICE_BATCH_TIMED]["scenarios_per_s"],
+        "by_batch": {B: {k: v for k, v in t.items() if k != "bound"}
+                     | {"bound_ms": t["bound"][0]}
+                     for B, t in bs["times"].items()},
+        "parent_graph_ms": bs["parent_ms"], "phases_us": bs["phases_us"],
+        "registers_local_bytes": bs["attributes"],
         "dryrun_launches": dry["counts"], "dryrun_first_s": dry["first"],
         "dryrun_warm_s": dry["warm"],
         "genopt_mpc_max_abs_err": gen["err"],

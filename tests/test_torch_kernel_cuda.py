@@ -15,8 +15,8 @@ that sum to within 5 % of the launch's time; the float32 RSTP iLQR
 kernel against its plain version x, u, lam atol=2e-2, traj_costs
 rtol=1e-5 (where each solve stops is decided by float32 rounding, see
 RSTP_X_ATOL); the rampify scan bit for bit; the fused DP slice for a
-scenario batch bit for bit against the one-scenario launches and the plain
-version (NaN equal to NaN); the batched tracking-MPC kernel
+scenario batch (and its profiling instantiation) bit for bit against the
+one-scenario launches and the plain version (NaN equal to NaN); the batched tracking-MPC kernel
 (a warp per scenario, persistent) against the plain batched update at the
 float64 kernel's own tolerance (x, u, lam atol=1e-6: on seeded warm starts
 a scenario's rounding differences grow to 1e-8 and more over 8 iterations;
@@ -281,14 +281,17 @@ def test_action_min_and_fused_slice_nan_rule_match_plain(cuda, channel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,DS,L,T", [(1, 61, 9, 11, 5), (3, 61, 9, 11, 5),
-                                       (8, 201, 37, 21, 4)])
+                                       (8, 201, 37, 21, 4),
+                                       (2, 61, 9, 11, 5), (33, 61, 9, 11, 4)])
 def test_latlon_backward_slice_batch_matches_single(cuda, B, S, DS, L, T):
-    """The fused slice for a scenario batch (one launch, the scenario as
-    blockIdx.z; ``scenes.dp_batch_scenes``: per-scenario scenes, tables and
-    ``l_trg``, one scenario with NaN distance cells) against each
-    scenario's one-scenario launch and the plain version on the CPU, every
-    backward slice chained through the plain version: the same bits, NaN
-    equal to NaN.  A batch solve launches it T - 2 times for any B."""
+    """The fused slice for a scenario batch (one launch: the resident
+    blocks walking the work items; ``scenes.dp_batch_scenes``: per-scenario
+    scenes, tables and ``l_trg``, one scenario with NaN distance cells)
+    against each scenario's one-scenario launch and the plain version on
+    the CPU, every backward slice chained through the plain version: the
+    same bits, NaN equal to NaN.  A batch solve launches it T - 2 times for
+    any B.  B = 8 at the demo grid and B = 33 have more items than the
+    resident blocks; 33 x 27 items do not divide by them."""
     from tpl_tpu_torch import scenes
 
     dist, rl, pp, x0 = scenes.dp_batch_scenes(B, T, S, L, seed=S + B)
@@ -299,6 +302,12 @@ def test_latlon_backward_slice_batch_matches_single(cuda, B, S, DS, L, T):
                                   for p in ins[d][3]]) for d in solves}
     solve, (dist_x, rls, step, pps) = solves["cpu"], ins["cpu"]
     dist_g, rls_g, step_g, pps_g = ins[cuda]
+    lib = lam._kernel()
+    items = -(-S // lib.latlon_action_min_tile_rows(L)) * DS * B
+    blocks = lib.latlon_backward_slice_grid(S, DS, L, B)
+    assert 1 <= blocks <= items
+    if B in (8, 33):    # more items than resident blocks, not a multiple
+        assert items > blocks and items % blocks
     nxt = torch.stack([solve.final_slice(dist_x[b], rls[b], step, pps[b])
                        for b in range(B)])
     for i in range(T - 2, 0, -1):
@@ -328,6 +337,40 @@ def test_latlon_backward_slice_batch_matches_single(cuda, B, S, DS, L, T):
         before[0] + T - 2, before[1] + (T - 2) * (B == 1),
         before[2] + (T - 2) * (B > 1))
     assert nodes.shape == (B, T, S, DS, L, 4) and trajs.shape == (B, T, 12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,DS,L,T", [(3, 61, 9, 11, 4),
+                                       (8, 201, 37, 21, 4)])
+def test_latlon_backward_slice_profile_matches_plain_entry(cuda, B, S, DS,
+                                                           L, T):
+    """The batched slice's profiling instantiation
+    (``backward_slice_profile``) on every backward slice of a seeded batch:
+    bit-equal to the plain entry (NaN equal to NaN), no launch counted,
+    thread 0's cycles in every phase."""
+    from tpl_tpu_torch import scenes
+
+    dist, rl, pp, _ = scenes.dp_batch_scenes(B, T, S, L, seed=S + B)
+    solve, _ = tllk.make_latlon_solver(
+        dict(t_steps=T, s_steps=S, ds_steps=DS, l_steps=L), cuda)
+    dist_x, rls, step, pps = solve.batch_inputs(dist, rl, 0.5, pp)
+    tables = lam.BatchTables([solve.action_tables(p) for p in pps])
+    nxt = torch.stack([solve.final_slice(dist_x[b], rls[b], step, pps[b])
+                       for b in range(B)])
+    for i in range(T - 2, 0, -1):
+        got = lam.backward_slice_launch(nxt, dist_x[:, i], rls, step, i,
+                                        tables)
+        before = lam.launches, lam.slice_launches, lam.batch_launches
+        prof_out, cycles = lam.backward_slice_profile(nxt, dist_x[:, i], rls,
+                                                      step, i, tables)
+        torch.cuda.synchronize()
+        assert (lam.launches, lam.slice_launches,
+                lam.batch_launches) == before
+        assert torch.equal(torch.isnan(prof_out), torch.isnan(got))
+        assert torch.equal(prof_out.nan_to_num(), got.nan_to_num()), i
+        assert cycles.shape == (len(lam.SLICE_PHASES),)
+        assert bool((cycles > 0).all()), cycles
+        nxt = got
 
 
 @pytest.mark.cuda

@@ -6,8 +6,8 @@ fixture writes a stand-in ``cuda_runtime.h`` (``__syncthreads`` as a
 ``std::barrier`` over 256 ``std::thread``s, ``__syncwarp`` and
 ``__shfl_sync`` / ``__ballot_sync`` as a per-warp barrier and exchange,
 ``__reduce_min_sync`` / ``__reduce_max_sync`` as a per-warp exchange,
-``__ffs`` as a count of
-trailing zeros, ``clock64`` as a
+``__ffs`` / ``__clz`` as counts of
+trailing / leading zeros, ``clock64`` as a
 counter, ``float2`` / ``float4``, a ``blockIdx`` and ``gridDim`` per
 thread), compiles the
 kernel sources of ``csrc/`` with ``g++ -std=c++20 -ffp-contract=off``
@@ -48,9 +48,11 @@ RSTP_X_ATOL);
 - the DP action-min against ``action_min_reference`` on the card tests'
   three grids and at other tile heights,
 - the fused backward slice against ``backward_slice_reference`` on every
-  backward slice of a seeded scene, and over a ``blockIdx.z`` batch of
-  scenarios (``scenes.dp_batch_scenes``, the blocks in a seeded order)
-  against each scenario's one-scenario run and the plain version,
+  backward slice of a seeded scene, and over a batch of scenarios
+  (``scenes.dp_batch_scenes``; persistent blocks of the launcher's threads
+  walking the work items, as many blocks as items or fewer, in seeded
+  orders; its profiling instantiation) against each scenario's
+  one-scenario run and the plain version,
 - the lon DP's backward slice (a block a v and a tile of s rows, on the
   launcher's grid) on ``scenes.LON_EDGE``'s grids at tiles that do not
   divide S,
@@ -161,6 +163,7 @@ inline Dim3 blockDim{256, 1, 1};      // set by the harness for a launch
 
 struct float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) int2 { int x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
@@ -241,6 +244,7 @@ inline unsigned __reduce_max_sync(unsigned, unsigned v) {
   return r;
 }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
@@ -2372,32 +2376,6 @@ static void run_grid(unsigned gx, unsigned gy, F body,
 template <class F>
 static void run_block(F body) { run_grid(1, 1, body); }
 
-// A grid of gx x gy x gz blocks, as run_grid: the blocks in the order of
-// `order` (gx x gy x gz block numbers, (z * gy + y) * gx + x) where given.
-template <class F>
-static void run_grid3(unsigned gx, unsigned gy, unsigned gz, F body,
-                      const int* order = nullptr) {
-  const unsigned threads = 256;
-  std::barrier<> block(threads);
-  rehearsal::block_barrier = &block;
-  blockDim = {threads, 1, 1};
-  std::vector<std::thread> pool;
-  for (unsigned i = 0; i < threads; ++i)
-    pool.emplace_back([=] {
-      threadIdx.x = i;
-      gridDim = {gx, gy, gz};
-      for (unsigned b = 0; b < gx * gy * gz; ++b) {
-        const unsigned n = order ? (unsigned)order[b] : b;
-        blockIdx.x = n % gx;
-        blockIdx.y = n / gx % gy;
-        blockIdx.z = n / (gx * gy);
-        body();
-        __syncthreads();
-      }
-    });
-  for (auto& t : pool) t.join();
-}
-
 extern "C" void rehearse_rampify(const float* scalars, const float* lim_v,
                                  float* out, long long* prof, int H, int T) {
   using namespace rstp_rampify;
@@ -2798,27 +2776,52 @@ extern "C" void rehearse_backward_slice(
         reinterpret_cast<const float4*>(nodes_next), dist_t, ref_line,
         ref_step, slice_consts, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg, tb.qdds,
         tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
-        reinterpret_cast<float4*>(out), S, DS, L, n_ref, slice, ts_rows, 0);
+        reinterpret_cast<float4*>(out), S, DS, L, n_ref, slice, ts_rows);
   });
 }
 
-// the fused slice over a batch of B scenarios (blockIdx.z), the blocks in
-// `order` where given; scenario b's distance map at dist_t + b * dist_stride
+// the fused slice over a batch of B scenarios (backward_slice_batch_kernel)
+// on `blocks` persistent blocks of the launcher's threads (the tile's cells
+// in whole warps), one after the other in `order` (block numbers) where
+// given; `prof` (N_PHASE counts) selects the profiling
+// instantiation; scenario b's distance map at dist_t + b * dist_stride
+extern "C" void rehearse_backward_slice_persistent(
+    const float* nodes_next, const float* dist_t, const float* ref_line,
+    const float* ref_step, const float* slice_consts,
+    const void* const* tables, float* out, int S, int DS, int L, int n_ref,
+    int slice, int ts_rows, int B, long long dist_stride, int blocks,
+    const int* order, unsigned long long* prof) {
+  using namespace latlon_am;
+  const Tables tb = tables_of(tables);
+  run_grid(blocks, 1, [=] {
+    if (prof)
+      backward_slice_batch_kernel<FEW_THREADS, true>(
+          reinterpret_cast<const float4*>(nodes_next), dist_t, ref_line,
+          ref_step, slice_consts, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg,
+          tb.qdds, tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
+          reinterpret_cast<float4*>(out), prof, S, DS, L, n_ref, slice,
+          ts_rows, B, dist_stride);
+    else
+      backward_slice_batch_kernel<FEW_THREADS, false>(
+          reinterpret_cast<const float4*>(nodes_next), dist_t, ref_line,
+          ref_step, slice_consts, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg,
+          tb.qdds, tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
+          reinterpret_cast<float4*>(out), nullptr, S, DS, L, n_ref, slice,
+          ts_rows, B, dist_stride);
+  }, (ts_rows * L + 31) / 32 * 32, order);
+}
+
+// the same with a block a work item (the whole batch in one walk), the
+// blocks in `order` where given
 extern "C" void rehearse_backward_slice_batch(
     const float* nodes_next, const float* dist_t, const float* ref_line,
     const float* ref_step, const float* slice_consts,
     const void* const* tables, float* out, int S, int DS, int L, int n_ref,
     int slice, int ts_rows, int B, long long dist_stride, const int* order) {
-  using namespace latlon_am;
-  const Tables tb = tables_of(tables);
-  run_grid3((S + ts_rows - 1) / ts_rows, DS, B, [=] {
-    backward_slice_kernel<FEW_THREADS, true>(
-        reinterpret_cast<const float4*>(nodes_next), dist_t, ref_line,
-        ref_step, slice_consts, tb.ids, tb.ks, tb.kl, tb.ca, tb.schg, tb.qdds,
-        tb.qdl, tb.dds_vals, tb.dl_vals, tb.dss, tb.consts,
-        reinterpret_cast<float4*>(out), S, DS, L, n_ref, slice, ts_rows,
-        dist_stride);
-  }, order);
+  rehearse_backward_slice_persistent(
+      nodes_next, dist_t, ref_line, ref_step, slice_consts, tables, out, S,
+      DS, L, n_ref, slice, ts_rows, B, dist_stride,
+      (S + ts_rows - 1) / ts_rows * DS * B, order, nullptr);
 }
 
 // the action-min and the fused slice of 2dd76fb (PARENTS)
@@ -3136,6 +3139,10 @@ def bodies(tmp_path_factory):
     lib.rehearse_backward_slice_batch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
         + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.rehearse_backward_slice_persistent.restype = None
+    lib.rehearse_backward_slice_persistent.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2)
     lib.rehearse_dir_dist.restype = None
     lib.rehearse_dir_dist.argtypes = ([ctypes.c_void_p] * 2
                                       + [ctypes.c_float] * 5
@@ -3911,7 +3918,7 @@ def test_backward_slice_body_nan_rule(bodies, channel):
                                        (4, 37, 5, 3, 5)])
 def test_backward_slice_batch_body_matches_single_and_plain(bodies, B, S, DS,
                                                             L, T):
-    """The fused slice over a ``blockIdx.z`` batch of B scenarios
+    """The fused slice over a batch of B scenarios, a block a work item
     (``scenes.dp_batch_scenes``: each its own leader, parked car, lane
     bounds and ``l_trg``, one with NaN distance cells), the blocks in a
     seeded order, every backward slice chained through the plain version:
@@ -3949,6 +3956,67 @@ def test_backward_slice_batch_body_matches_single_and_plain(bodies, B, S, DS,
                 _ptr(tb.slice_consts.numpy()), _table_ptrs(tb), _ptr(single),
                 S, DS, L, rls.shape[1], i, ts_rows)
             assert np.array_equal(single, out[b], equal_nan=True), (i, b)
+        n_nan += int(np.isnan(want).any(-1).sum())
+        nxt = torch.from_numpy(want)
+    # the NaN distance cells reach the nodes
+    assert n_nan > 0
+
+
+@pytest.mark.parametrize("B,S,DS,L,T,blocks", [
+    (2, 37, 5, 3, 4, 3), (3, 61, 9, 11, 4, 7), (3, 61, 9, 11, 4, 2),
+    (5, 37, 5, 3, 5, 4), (5, 37, 5, 3, 5, 11), (2, 13, 3, 37, 4, 5)])
+def test_backward_slice_batch_persistent_matches_single_and_plain(
+        bodies, B, S, DS, L, T, blocks):
+    """The batched slice on fewer blocks than work items (each block walks
+    items w = block, + blocks, ..., its next item's copies staged while it
+    computes one; item counts that the blocks do not divide, S not a
+    multiple of the tile, two block counts at B = 3 and 5; L = 37, past the
+    32 lateral cells of the searches' ballot masks, with a tile of fewer s
+    rows than dl actions), the blocks in a
+    seeded order, on ``scenes.dp_batch_scenes`` (one scenario with NaN
+    distance cells), every backward slice chained through the plain
+    version: each scenario bit-equal to its own one-scenario body and to
+    ``backward_slice_batch_reference``, NaN equal to NaN; the profiling
+    instantiation bit-equal, its clock counts in every phase."""
+    solve, _ = tllk.make_latlon_solver(
+        dict(t_steps=T, s_steps=S, ds_steps=DS, l_steps=L), "cpu")
+    dist, rl, pp, _ = scenes.dp_batch_scenes(B, T, S, L, seed=S + B + blocks)
+    dist_x, rls, step, pps = solve.batch_inputs(dist, rl, 0.5, pp)
+    tables = lam.BatchTables([solve.action_tables(pp) for pp in pps])
+    ts_rows = bodies.latlon_action_min_tile_rows(L)
+    items = -(-S // ts_rows) * DS * B
+    assert S % ts_rows and items % blocks and items > blocks
+    rng = np.random.default_rng(blocks)
+    nxt = torch.stack([solve.final_slice(dist_x[b], rls[b], step, pps[b])
+                       for b in range(B)])
+    n_nan = 0
+    for i in range(T - 2, 0, -1):
+        want = solve.backward_slice_batch_reference(nxt, i, dist_x, rls,
+                                                    step, pps, tables).numpy()
+        args = (_ptr(nxt.numpy()), _ptr(dist_x[:, i].numpy()),
+                _ptr(rls.numpy()), _ptr(step.reshape(1).numpy()),
+                _ptr(tables.slice_consts.numpy()), _table_ptrs(tables))
+        outs = []
+        for prof in (None, np.zeros(len(lam.SLICE_PHASES), np.uint64)):
+            out = np.full((B, S, DS, L, 4), -7.0, np.float32)
+            order = rng.permutation(blocks).astype(np.int32)
+            bodies.rehearse_backward_slice_persistent(
+                *args, _ptr(out), S, DS, L, rls.shape[1], i, ts_rows, B,
+                T * S * L, blocks, _ptr(order),
+                None if prof is None else _ptr(prof))
+            outs.append(out)
+        np.testing.assert_array_equal(outs[0], want, err_msg=f"slice {i}")
+        assert np.array_equal(outs[1], outs[0], equal_nan=True), i
+        assert (prof > 0).all(), prof
+        for b in range(B):
+            single = np.full((S, DS, L, 4), -7.0, np.float32)
+            tb = tables.tables[b]
+            bodies.rehearse_backward_slice(
+                _ptr(nxt[b].numpy()), _ptr(dist_x[b, i].numpy()),
+                _ptr(rls[b].numpy()), _ptr(step.reshape(1).numpy()),
+                _ptr(tb.slice_consts.numpy()), _table_ptrs(tb), _ptr(single),
+                S, DS, L, rls.shape[1], i, ts_rows)
+            assert np.array_equal(single, outs[0][b], equal_nan=True), (i, b)
         n_nan += int(np.isnan(want).any(-1).sum())
         nxt = torch.from_numpy(want)
     # the NaN distance cells reach the nodes

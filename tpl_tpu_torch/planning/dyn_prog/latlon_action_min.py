@@ -35,7 +35,9 @@ from tpl_tpu_torch import _latency
 
 NB = 7              # backward action samples per dimension
 MAX_DS = 65535      # the kernel's grid has one block row per ds
-MAX_BATCH = 65535   # and one block layer (gridDim.z) per scenario
+# the batched kernel's resident blocks walk its work items, so a batch is
+# bounded only by its int count (and by the card's memory)
+MAX_BATCH = 2**31 - 1
 
 # kernel launches since import (reset freely): every launch of the source's
 # action-min, alone (action_min) or with the slice's producers fused in
@@ -66,6 +68,12 @@ SLICE_CONSTS = ("s_min", "s_step", "l_min", "l_step", "dt", "dt_start",
                 "w_lat_dist", "w_progress", "t_st_min", "t_st_max", "s_st",
                 "w_spatio_temporal")
 REF_LINE_CHANNELS = 8
+# the phases of the batched slice's profiling instantiation, in a work
+# item's order (enum Phase of csrc/latlon_action_min.cu): waiting for the
+# item's staged copies, issuing the next item's and preparing this one,
+# the producers (reference row, l searches, state cost, forward
+# distances), the 7 x 7 action loop, the store
+SLICE_PHASES = ("wait", "stage", "producers", "actions", "store")
 
 
 def div_const(x, n):
@@ -416,28 +424,10 @@ def action_min(nodes_next, state_cost, state_constr, d_fwd, tables):
     return out
 
 
-def backward_slice_launch(nodes_next, dist_t, ref_line, ref_step, i, tables):
-    """Backward slice i of B scenarios on the card in one launch of the
-    fused kernel: per cell the state cost and constraint and the forward
-    distances (what ``lat_lon_kernel``'s ``slice_inputs`` computes with
-    tensor operations) and the action-min, each scenario with its own
-    inputs and tables and the bits of its own launch.
-
-    nodes_next (B, S, DS, L, 4) contiguous; dist_t (B, S, L), each
-    scenario's (S, L) rows contiguous (a slice ``dist_x[:, i]`` of the
-    (B, T, S, L) maps is taken as it is, by its batch stride); ref_line
-    (B, n, 8) contiguous, one row count for every scenario (a batch of
-    reference lines stacked to one tensor has one); ref_step one element
-    shared by the batch; ``tables`` the :class:`Tables` of
-    :func:`make_tables` for one scenario or a :class:`BatchTables` of the
-    B; float32, on one CUDA device.  Returns (B, S, DS, L, 4) float32.  One
-    scenario runs the kernel's one-scenario instantiation and counts in
-    ``slice_launches``, a batch the batched one (the scenario as
-    ``blockIdx.z``) and counts in ``batch_launches``.  Its plain version is
-    the solver's ``backward_slice_reference`` (per scenario); a tensor that
-    is not on a CUDA device raises.
-    """
-    global launches, slice_launches, batch_launches
+def _slice_args(nodes_next, dist_t, ref_line, ref_step, i, tables):
+    """The checked arguments of the fused slice entries (see
+    :func:`backward_slice_launch`): (library, the entry's arguments before
+    the stream, the output, B)."""
     dev = nodes_next.device
     if dev.type != "cuda":
         raise ValueError(f"backward_slice_launch: needs a CUDA device, got "
@@ -474,20 +464,47 @@ def backward_slice_launch(nodes_next, dist_t, ref_line, ref_step, i, tables):
     if nodes_next.data_ptr() % 16:
         raise ValueError("nodes_next must be 16-byte aligned (16-byte copies)")
     lib = _kernel()
-    if lib.latlon_action_min_tile_rows(L) < 1 or DS > MAX_DS \
+    if lib.latlon_backward_slice_grid(S, DS, L, B) < 1 \
             or ref_line.shape[1] < 1 or B > MAX_BATCH:
         raise ValueError(f"{B} scenarios, l_steps={L}, ds_steps={DS}, "
                          f"{ref_line.shape[1]} reference rows: outside what "
                          "the kernel takes")
     out = torch.empty_like(nodes_next)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.latlon_backward_slice(
-            nodes_next.data_ptr(), dist_t.data_ptr(), ref_line.data_ptr(),
+    args = (nodes_next.data_ptr(), dist_t.data_ptr(), ref_line.data_ptr(),
             ref_step.data_ptr(), tables.slice_consts.data_ptr(),
             (ctypes.c_void_p * len(TABLE_KEYS))(*tables.ptrs),
             out.data_ptr(), S, DS, L, ref_line.shape[1], int(i), B,
-            dist_t.stride(0), stream)
+            dist_t.stride(0))
+    return lib, args, out, B
+
+
+def backward_slice_launch(nodes_next, dist_t, ref_line, ref_step, i, tables):
+    """Backward slice i of B scenarios on the card in one launch of the
+    fused kernel: per cell the state cost and constraint and the forward
+    distances (what ``lat_lon_kernel``'s ``slice_inputs`` computes with
+    tensor operations) and the action-min, each scenario with its own
+    inputs and tables and the bits of its own launch.
+
+    nodes_next (B, S, DS, L, 4) contiguous; dist_t (B, S, L), each
+    scenario's (S, L) rows contiguous (a slice ``dist_x[:, i]`` of the
+    (B, T, S, L) maps is taken as it is, by its batch stride); ref_line
+    (B, n, 8) contiguous, one row count for every scenario (a batch of
+    reference lines stacked to one tensor has one); ref_step one element
+    shared by the batch; ``tables`` the :class:`Tables` of
+    :func:`make_tables` for one scenario or a :class:`BatchTables` of the
+    B; float32, on one CUDA device.  Returns (B, S, DS, L, 4) float32.  One
+    scenario runs the kernel's one-scenario instantiation and counts in
+    ``slice_launches``, a batch the batched one and counts in
+    ``batch_launches``.  Its plain version is the solver's
+    ``backward_slice_reference`` (per scenario); a tensor that is not on a
+    CUDA device raises.
+    """
+    global launches, slice_launches, batch_launches
+    lib, args, out, B = _slice_args(nodes_next, dist_t, ref_line, ref_step,
+                                    i, tables)
+    with torch.cuda.device(out.device):
+        err = lib.latlon_backward_slice(
+            *args, torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"latlon_backward_slice launch failed: CUDA error "
                            f"{err}")
@@ -497,6 +514,44 @@ def backward_slice_launch(nodes_next, dist_t, ref_line, ref_step, i, tables):
     else:
         batch_launches += 1
     return out
+
+
+def backward_slice_profile(nodes_next, dist_t, ref_line, ref_step, i,
+                           tables):
+    """:func:`backward_slice_launch` for a batch (B > 1) through the
+    batched kernel's profiling instantiation (counted nowhere): the same
+    nodes, and per phase of :data:`SLICE_PHASES` thread 0's clock cycles
+    summed over the blocks, an int64 tensor on the card."""
+    lib, args, out, B = _slice_args(nodes_next, dist_t, ref_line, ref_step,
+                                    i, tables)
+    if B < 2:
+        raise ValueError("the profiling instantiation is the batched one")
+    prof = torch.zeros(len(SLICE_PHASES), dtype=torch.int64,
+                       device=out.device)
+    with torch.cuda.device(out.device):
+        err = lib.latlon_backward_slice_profile(
+            *args, prof.data_ptr(),
+            torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"latlon_backward_slice_profile launch failed: "
+                           f"CUDA error {err}")
+    return out, prof
+
+
+def slice_kernel_attributes():
+    """{kernel: (numRegs, localSizeBytes)} of the fused slice's kernels at
+    FEW_THREADS, from cudaFuncGetAttributes."""
+    lib = _kernel()
+    res = {}
+    for which, name in enumerate(("one-scenario", "batched",
+                                  "batched profiling")):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        err = lib.latlon_backward_slice_attributes(
+            which, ctypes.byref(regs), ctypes.byref(local))
+        if err != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes: CUDA error {err}")
+        res[name] = (regs.value, local.value)
+    return res
 
 
 _LIB = None
@@ -523,9 +578,19 @@ def _kernel():
         lib.latlon_backward_slice.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
             + [ctypes.c_longlong, ctypes.c_void_p])
-        if lib.latlon_n_slice_consts() != len(SLICE_CONSTS):
-            raise RuntimeError("latlon_action_min.cu and SLICE_CONSTS "
-                               "disagree")
+        lib.latlon_backward_slice_profile.restype = ctypes.c_int
+        lib.latlon_backward_slice_profile.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+            + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
+        lib.latlon_backward_slice_grid.restype = ctypes.c_int
+        lib.latlon_backward_slice_grid.argtypes = [ctypes.c_int] * 4
+        lib.latlon_backward_slice_attributes.restype = ctypes.c_int
+        lib.latlon_backward_slice_attributes.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 2)
+        if lib.latlon_n_slice_consts() != len(SLICE_CONSTS) or \
+                lib.latlon_backward_slice_n_phases() != len(SLICE_PHASES):
+            raise RuntimeError("latlon_action_min.cu and SLICE_CONSTS / "
+                               "SLICE_PHASES disagree")
         lib.latlon_empty_launch.restype = ctypes.c_int
         lib.latlon_empty_launch.argtypes = [ctypes.c_int] * 2 + [
             ctypes.c_void_p]

@@ -7,7 +7,8 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
 
 1. prints the card's name and power limit, builds the CUDA kernels from
    ``tpl_tpu_torch/csrc`` (one ``nvcc`` per source, all started together)
-   and the host C routes of ``tpl_tpu_torch/native`` (``g++``), and prints
+   and the host C routes and the shared-memory store engine of
+   ``tpl_tpu_torch/native`` (``g++``), and prints
    the build time and the ptxas register / memory report; then
    the latency probe: the SM clock under load and the card's cycles per
    dependent operation (``csrc/latency_probe.cu``), on one line with the
@@ -299,7 +300,30 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    B = 4 a card), the launch counters set to 0 just before and read just
    after: the batched MPC, both IDM kernels and the batched slice (8 a
    card) launched; run twice, each part's wall printed first and warm;
-26. prints the card's name and power limit and one JSON line describing the
+26. the multi-process deployment: the env, planning and control apps of
+   ``tpl_tpu_torch.application.mains`` as three child processes on the
+   card (new interpreters, ``TPL_TPU_NO_RELOAD=1``, the libraries built by
+   this process and loaded from ``build/``; each child is this script with
+   ``--deploy-child APP APP_ID`` and prints its launch counters, its
+   updates and each store's lock round trips when SIGTERM ends it) and
+   ``tplsim attach --scenario demo/country_follow`` in real time to
+   DEPLOY_LEG_T * 2 s of sim time, all under one app id; this process
+   attaches a ``GuiServer`` by the app id on a free port and reads
+   ``/state.json`` and ``/params.json`` (and ``/scene.png``: a PNG, or
+   where matplotlib is missing the 500 with its ImportError).  Leg 1 runs
+   the scenario's own sets (the vendored RSTP planner, the tracking MPC);
+   in it a ``POST /param`` turns the RSTP planner's ``write_debug_data``
+   off and on, and the planner's published debug must lose and regain
+   ``opt_path``.  At
+   DEPLOY_LEG_T s a ``POST /select`` switches the planning process to
+   ``dp_lat_lon_planner``.  Checks: every child exits 0 and none is left
+   (killed in a ``finally`` otherwise), zero rule violations, the ego moved,
+   ``ilqr_rstp`` and ``rstp_rampify`` launches under the RSTP planner, 8
+   fused DP slice launches per DP replan under the DP planner, one
+   tracking-MPC launch per control solve; prints the replans and control
+   solves per second of each process, each process's lock and read round
+   trips (ms) by store, the store sizes and the phase's wall;
+27. prints the card's name and power limit and one JSON line describing the
    kernels (launches on the main path and per tick or per DP replan, the
    largest difference to the plain version, the kernel's time through its
    bare launcher ``ms`` and through its wrapper ``wrapper_ms``, the plain
@@ -333,7 +357,9 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    (``single_launches_ms``), both by events, scenarios a second of slice
    time, the same at B = 32 (``by_batch``), the other sources' times in
    turns (``parent_graph_ms``), its "phases" (``phases_us``), the kernels'
-   ``numRegs`` / ``localSizeBytes`` and the dryrun's wall times.
+   ``numRegs`` / ``localSizeBytes`` and the dryrun's wall times.  The rows
+   of the kernels the multi-process deployment launches carry those
+   launches (``deploy_launches``, counted in the child processes).
    Each phase prints its seconds.
 
 With ``--parent-csrc DIR`` (a directory holding another version of any of
@@ -613,6 +639,10 @@ SLICE_BATCH_TIMED = 8
 # the tplsim phase: the vendored loop through the command line, on the card
 TPLSIM_TICKS = 400
 RECORD_TICKS = 100
+# the multi-process deployment: sim seconds of each leg, in real time
+DEPLOY_LEG_T = 10.0
+DEPLOY_APPS = ("env", "planning", "control")
+DEPLOY_SWITCH = "dp_lat_lon_planner"
 
 
 KERNELS = ("latlon_action_min", "ilqr_tracking_mpc", "ilqr_rstp",
@@ -5978,6 +6008,374 @@ def probe_phase(lat, itm, dev):
     return cycles, mhz
 
 
+def _lock_timer(stats):
+    """Wraps ``ShmStore.lock`` and ``ShmStore.revalidate`` of this process:
+    per store file, the outermost locks' count and their round trips (the
+    wait, the read, the publish and the release; not the body), and the
+    reads' (``revalidate``: the wait, the read and the release), in ms."""
+    from tpl_tpu_torch.util.shm_store import ShmStore
+
+    lock, revalidate = ShmStore.lock, ShmStore.revalidate
+
+    def add(kind, store, ms):
+        s = stats.setdefault(os.path.basename(store._file_path), {}) \
+            .setdefault(kind, [0, 0.0, 0.0])
+        s[0] += 1
+        s[1] += ms
+        s[2] = max(s[2], ms)
+
+    def timed_read(store):
+        t = time.perf_counter()
+        revalidate(store)
+        add("reads", store, (time.perf_counter() - t) * 1e3)
+
+    def timed(store):
+        ctx = lock(store)
+        outer = store._lock_depth == 0
+
+        class Timed:
+            def __enter__(self):
+                t = time.perf_counter()
+                out = ctx.__enter__()
+                self.t = time.perf_counter()
+                self.ms = (self.t - t) * 1e3
+                return out
+
+            def __exit__(self, *exc):
+                t = time.perf_counter()
+                try:
+                    return ctx.__exit__(*exc)
+                finally:
+                    if outer:
+                        add("locks", store, self.ms + (
+                            time.perf_counter() - t) * 1e3)
+
+        return Timed()
+
+    ShmStore.lock = timed
+    ShmStore.revalidate = timed_read
+
+
+def deploy_child(app, app_id):
+    """One app of the multi-process deployment in this fresh process, on
+    the card: ``mains.env_main`` / ``planning_main`` / ``control_main``
+    under ``app_id``, its kernel libraries bound first (built by the
+    parent).  SIGTERM ends it (``mains.exit_on_sigterm``); it then prints
+    one JSON line: the kernel launches, the updates (planning: by the
+    planner that ran, with the DP replans and the RSTP planner's
+    ``write_debug_data`` values seen; control: the MPC solves), the wall
+    and each store's lock round trips."""
+    import torch
+    import tpl_tpu_torch
+    from tpl_tpu_torch.application import mains
+    from tpl_tpu_torch.optim import ilqr_rstp as rstp
+    from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
+    from tpl_tpu_torch.planning.dyn_prog import latlon_action_min as lam
+    from tpl_tpu_torch.planning.path_vel_decomp import rstp_rampify as rmp
+
+    tpl_tpu_torch.use_device("cuda")
+    mains.exit_on_sigterm()
+    for mod in {"planning": (rstp, rmp, lam), "control": (itm,)}.get(app, ()):
+        mod._kernel()
+
+    def counts():
+        return {"ilqr_rstp": rstp.launches, "rstp_rampify": rmp.launches,
+                "latlon_backward_slice": lam.slice_launches,
+                "latlon_action_min": lam.launches,
+                "ilqr_tracking_mpc": itm.launches}
+
+    out = {"app": app, "locks": {}, "by_planner": {}}
+    _lock_timer(out["locks"])
+    if app == "planning":
+        from tpl_tpu_torch.application.planning_app import PlanningApp
+        update = PlanningApp.update
+
+        def counted(self):
+            dp = self.planners[DEPLOY_SWITCH]
+            last = dp.policy.last_replan_time
+            before = counts()
+            update(self)
+            after = counts()
+            now = time.perf_counter()
+            rec = out["by_planner"].setdefault(self.last_active_planner, {
+                "updates": 0, "dp_replans": 0, "write_debug_data": [],
+                "launches": dict.fromkeys(before, 0), "first": now})
+            rec["updates"] += 1
+            rec["last"] = now
+            rec["dp_replans"] += dp.policy.last_replan_time != last
+            for k in before:
+                rec["launches"][k] += after[k] - before[k]
+            # the bundle the planner holds, as the app's last lock left it
+            seen = self.planners["path_vel_decomp_planner"] \
+                .shared.params.write_debug_data
+            if rec["write_debug_data"][-1:] != [seen]:
+                rec["write_debug_data"].append(seen)
+
+        PlanningApp.update = counted
+    elif app == "control":
+        from tpl_tpu_torch.application.control_app import ControlApp
+        update = ControlApp.update
+
+        def solves(self):
+            update(self)
+            mpc = self.controllers["model_predictive_controller"]
+            if mpc.opt.updates != out.get("mpc_solves", 0):
+                out.setdefault("first", time.perf_counter())
+                out["last"] = time.perf_counter()
+            out["mpc_solves"] = mpc.opt.updates
+
+        ControlApp.update = solves
+    main_fn = {"env": mains.env_main, "planning": mains.planning_main,
+               "control": mains.control_main}[app]
+    t0 = time.perf_counter()
+    try:
+        main_fn(app_id)
+    finally:
+        if app != "env":
+            torch.cuda.synchronize()
+        out.update(wall_s=time.perf_counter() - t0, launches=counts())
+        print(json.dumps(out), flush=True)
+
+
+def _gui_json(gui, path, body=None):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{gui.port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read() or b"{}")
+
+
+def _scene_png(gui):
+    """GET /scene.png: a PNG where matplotlib imports, else the 500 that
+    carries matplotlib's ImportError (it must not pass quietly)."""
+    import importlib.util
+    import urllib.error
+    import urllib.request
+    url = f"http://127.0.0.1:{gui.port}/scene.png"
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            body, code = r.read(), r.status
+    except urllib.error.HTTPError as e:
+        body, code = e.read(), e.code
+    if importlib.util.find_spec("matplotlib") is not None:
+        if code != 200 or body[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"/scene.png: {code} {body[:200]!r}")
+        return f"a PNG of {len(body)} bytes"
+    if code != 500 or b"matplotlib" not in body:
+        raise AssertionError(f"/scene.png without matplotlib: {code} "
+                             f"{body[:200]!r}")
+    return f"500 (no matplotlib here): {body.decode()[:120]}"
+
+
+def _wait_for(what, cond, procs, timeout):
+    """Polls ``cond`` until it holds; raises if a process of ``procs`` ended
+    or ``timeout`` s passed."""
+    start = time.time()
+    while not cond():
+        for name, p in procs.items():
+            if p.poll() is not None:
+                raise AssertionError(f"{name} ended ({p.returncode}) while "
+                                     f"waiting for {what}")
+        if time.time() - start > timeout:
+            raise AssertionError(f"no {what} in {timeout} s")
+        time.sleep(0.05)
+
+
+def deploy_phase():
+    """The multi-process deployment on the card (phase 26 of the module's
+    docstring).  Returns {"launches": {kernel: launches in the children}}."""
+    import pickle
+    import urllib.error
+    from tpl_tpu_torch.gui import GuiServer
+    from tpl_tpu_torch.util import StoreRegistry, store_paths
+    from tpl_tpu_torch.util.shm_store import remove_app_stores
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = os.path.join(root, "build", "deploy")
+    os.makedirs(logs, exist_ok=True)
+    app_id = f"smoke{os.getpid()}"
+    remove_app_stores(app_id)
+    env = dict(os.environ, PYTHONPATH=root, TPL_TPU_SHM="1",
+               TPL_TPU_NO_RELOAD="1")
+    cmds = {name: [sys.executable, os.path.abspath(__file__),
+                   "--deploy-child", name, app_id] for name in DEPLOY_APPS}
+    cmds["sim"] = [sys.executable, "-m", "tpl_tpu_torch.simulation.tplsim",
+                   "attach", "--scenario", "demo/country_follow", "--app-id",
+                   app_id, "--no-reload", "--max-t", str(2 * DEPLOY_LEG_T)]
+    procs, files = {}, {}
+    shm_was = os.environ.get("TPL_TPU_SHM")
+    gui = None
+    try:
+        for name, cmd in cmds.items():
+            files[name] = open(os.path.join(logs, f"{name}.log"), "w+")
+            procs[name] = subprocess.Popen(cmd, cwd=root, env=env,
+                                           stdout=files[name],
+                                           stderr=subprocess.STDOUT)
+        # attached by app id: sets TPL_TPU_SHM=1 here (put back below)
+        gui = GuiServer(app_id=app_id, port=0).start()
+        planning = gui.planning_store
+
+        def state():
+            return _gui_json(gui, "/state.json")
+
+        def running():
+            try:
+                return state()["running"]
+            except urllib.error.HTTPError:     # no sim state published yet
+                return False
+
+        def has_names():
+            planning.revalidate()
+            return "planner_names" in planning
+        _wait_for("the planning store", has_names, procs, 300)
+        _wait_for("the sim running", running, procs, 300)
+        first = state()
+        params = _gui_json(gui, "/params.json")
+        rstp_name = "path_vel_decomp_planner"
+        if (first["planning"]["active"] != rstp_name
+                or params["planning"][rstp_name]["horizon"] != RSTP_H):
+            raise AssertionError(f"the scenario's sets: {first['planning']}")
+        print(f"deploy: GUI on port {gui.port}: t={first['t']:.2f} s, "
+              f"planner {first['planning']['active']}, controller "
+              f"{first['control']['active']}; /params.json planning "
+              f"{sorted(params['planning'])}")
+        _wait_for("the first plan", lambda: (planning.revalidate() or len(
+            planning.trajectory.x) == RSTP_H), procs, 300)
+        t_plan = state()["t"]
+        print("deploy: GET /scene.png: " + _scene_png(gui))
+
+        # leg 1: a param edit through the GUI reaches the planning
+        # process's bundle; the planner publishes its debug accordingly
+        def debug_has_path():
+            planning.revalidate()
+            return "opt_path" in vars(getattr(planning, rstp_name).debug)
+        edits = []
+        for on in (False, True):
+            _gui_json(gui, "/param", {"target": "planning", "name":
+                                      rstp_name, "param": "write_debug_data",
+                                      "value": on})
+            t0 = time.perf_counter()
+            _wait_for(f"the planner's debug with write_debug_data={on}",
+                      lambda: debug_has_path() == on, procs, 30)
+            edits.append((on, (time.perf_counter() - t0) * 1e3))
+        print("deploy: GUI param edits seen in the planning process's "
+              "published debug after (ms): " + ", ".join(
+                  f"write_debug_data={on} {ms:.1f}" for on, ms in edits))
+        _wait_for("leg 1's end", lambda: state()["t"] >= DEPLOY_LEG_T,
+                  procs, 300)
+        _gui_json(gui, "/select", {"planner": DEPLOY_SWITCH})
+        mid = state()
+        print(f"deploy: leg 1 to t={mid['t']:.2f} s (first plan at "
+              f"t={t_plan:.2f} s), ego x {mid['ego']['x']:.2f} v "
+              f"{mid['ego']['v']:.2f}; POST /select {DEPLOY_SWITCH}")
+        code = procs["sim"].wait(timeout=300)
+        last = state()
+        sizes = {}
+        for name, store in (("sim", gui.sim_store), ("planning", planning),
+                            ("control", gui.control_store),
+                            ("env", gui.env._shm)):
+            store.revalidate()
+            sizes[name] = len(pickle.dumps(store._attrs,
+                                           protocol=pickle.HIGHEST_PROTOCOL))
+        ci = StoreRegistry.get(store_paths(app_id).control_input)
+        ci.revalidate()
+        sizes["control_input"] = len(pickle.dumps(
+            ci._attrs, protocol=pickle.HIGHEST_PROTOCOL))
+    finally:
+        if gui is not None:
+            gui.stop()
+        for p in procs.values():
+            if p.poll() is None:
+                p.terminate()
+        for name, p in procs.items():
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        if shm_was is None:
+            os.environ.pop("TPL_TPU_SHM", None)
+        else:
+            os.environ["TPL_TPU_SHM"] = shm_was
+        StoreRegistry.clear()
+        remove_app_stores(app_id)
+    text = {}
+    for name, f in files.items():
+        f.seek(0)
+        text[name] = f.read()
+        f.close()
+    for name, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError(f"{name} exited {p.returncode}:\n"
+                                 + text[name][-3000:])
+    if code != 0 or "rule violations: 0" not in text["sim"] \
+            or last["violations"]:
+        raise AssertionError("tplsim attach: " + text["sim"][-2000:])
+    print("deploy: tplsim attach: " + " | ".join(
+        line.strip() for line in text["sim"].strip().splitlines()[-3:]))
+    stats = {name: json.loads(text[name].strip().splitlines()[-1])
+             for name in DEPLOY_APPS}
+    moved = last["ego"]["x"] - first["ego"]["x"]
+    print(f"deploy: t={last['t']:.2f} s, ego x {first['ego']['x']:.2f} -> "
+          f"{last['ego']['x']:.2f} ({moved:.2f} m), v {last['ego']['v']:.2f}"
+          f" m/s, planner {last['planning']['active']}, 0 violations")
+    if not moved > 20.0:
+        raise AssertionError(f"the ego moved {moved:.2f} m")
+    by = stats["planning"]["by_planner"]
+    rs, dp = by.get("path_vel_decomp_planner"), by.get(DEPLOY_SWITCH)
+    if rs is None or dp is None:
+        raise AssertionError(f"planners that ran: {sorted(by)}")
+    for name, rec in (("path_vel_decomp_planner", rs), (DEPLOY_SWITCH, dp)):
+        print(f"deploy: planning process, {name}: {rec['updates']} updates, "
+              f"{rec['dp_replans']} DP replans, launches {rec['launches']}")
+    if not (rs["launches"]["ilqr_rstp"] > 0
+            and rs["launches"]["rstp_rampify"] > 0):
+        raise AssertionError("no RSTP launches in leg 1")
+    if not (dp["dp_replans"] > 0 and dp["launches"]["latlon_backward_slice"]
+            == (DEMO_SPEC["t_steps"] - 2) * dp["dp_replans"]
+            and dp["launches"]["ilqr_rstp"] == 0):
+        raise AssertionError(f"leg 2's launches: {dp}")
+    if rs["write_debug_data"] != [True, False, True]:
+        raise AssertionError("write_debug_data seen by the planning "
+                             f"process: {rs['write_debug_data']}")
+    ctl = stats["control"]
+    if not ctl["launches"]["ilqr_tracking_mpc"] == ctl["mpc_solves"] > 0:
+        raise AssertionError(f"control: {ctl['launches']}, "
+                             f"{ctl['mpc_solves']} solves")
+    def per_s(n, rec):
+        return n / max(rec["last"] - rec["first"], 1e-9)
+
+    for name in DEPLOY_APPS:
+        s = stats[name]
+        rate = ""
+        if name == "planning":
+            rate = "updates/s while active: " + ", ".join(
+                f"{n} {per_s(r['updates'], r):.1f}" for n, r in by.items()
+                if r["updates"] > 1)
+            rate += (f"; {DEPLOY_SWITCH} replans/s "
+                     f"{per_s(dp['dp_replans'], dp):.2f}")
+        elif name == "control":
+            rate = (f"MPC solves/s from the first to the last "
+                    f"{per_s(ctl['mpc_solves'], ctl):.1f}")
+        trips = "; ".join(
+            f"{f} {kind} {n}, mean {ms / n:.3f} ms, max {mx:.3f} ms"
+            for f, kinds in sorted(s["locks"].items())
+            for kind, (n, ms, mx) in sorted(kinds.items()))
+        print(f"deploy: {name} process ({s['wall_s']:.1f} s): {rate}"
+              f"{'; ' if rate else ''}round trips: {trips}")
+    print("deploy: store sizes (pickled bytes): " + ", ".join(
+        f"{k} {v}" for k, v in sizes.items()))
+    print(f"deploy: phase wall {time.perf_counter() - t_phase:.1f} s")
+    launches = {k: stats["planning"]["launches"][k]
+                for k in ("ilqr_rstp", "rstp_rampify",
+                          "latlon_backward_slice")}
+    launches["ilqr_tracking_mpc"] = ctl["launches"]["ilqr_tracking_mpc"]
+    return {"launches": launches}
+
+
 def main(argv=()):
     import argparse
     import torch
@@ -6000,6 +6398,8 @@ def main(argv=()):
                     "the leading functions and no result line")
     ap.add_argument("--dp-first-replan", metavar="DIR", default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--deploy-child", nargs=2, metavar=("APP", "APP_ID"),
+                    default=None, help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6008,6 +6408,9 @@ def main(argv=()):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if opts.dp_first_replan is not None:
         dp_first_replan_child(opts.dp_first_replan)
+        return 0
+    if opts.deploy_child is not None:
+        deploy_child(*opts.deploy_child)
         return 0
     import tpl_tpu_torch
     from tpl_tpu_torch import _build
@@ -6042,8 +6445,9 @@ def main(argv=()):
     for mod in (lam, itm, rstp, rmp, lat, tlk, plk, idk, pok, dpe, ppk, itt):
         mod._kernel()
     native.get_lib()
-    print(f"built {', '.join(KERNELS)} and native/hostops.cpp in "
-          f"{time.perf_counter() - t0:.2f} s")
+    native.get_shm_lib()
+    print(f"built {', '.join(KERNELS)}, native/hostops.cpp and "
+          f"native/shmstore.cpp in {time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
         log = _build.BUILD_LOG.get(name, "").strip()
         if log:
@@ -6143,6 +6547,7 @@ def main(argv=()):
     bs = phase("batched DP slice", batch_slice_phase, lam, tllk, dev, mhz,
                opts.parent_csrc)
     dry = phase("dryrun_multichip", dryrun_phase, lam, itm, idk)
+    dep = phase("multi-process deployment", deploy_phase)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -6418,6 +6823,10 @@ def main(argv=()):
         "dryrun_warm_s": dry["warm"],
         "genopt_mpc_max_abs_err": gen["err"],
         "genopt_mpc_card_ms": gen["card_ms"][1]})
+    # the multi-process deployment's launches, counted in its processes
+    for row in rows:
+        if row["name"] in dep["launches"]:
+            row["deploy_launches"] = dep["launches"][row["name"]]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

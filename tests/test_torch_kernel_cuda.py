@@ -2048,3 +2048,52 @@ def test_graph_dp_replan_moves_one_state_up_and_one_trajectory_down(cuda):
         "eval_edges_kernel", "eval_edges_kernel", "field_slice_kernel",
         "field_slice_kernel", "propagate_kernel"], names
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_multiprocess_apps_launch_their_kernels_on_the_card(cuda,
+                                                              monkeypatch):
+    """A short attach loop: the env, planning and control mains as three
+    processes on the card (no ``--cpu``), ``SimAttach`` here, 30 ticks on
+    ``demo/country_follow`` with the scenario's own sets (the vendored RSTP
+    planner, fused, H=250; the tracking MPC), each tick after a control
+    solve (``tests/torch_deploy.py``).  The kernels are built here first,
+    so that the children load them from ``build/``.  The planning process
+    launched ``ilqr_rstp`` and ``rstp_rampify``, the control process the
+    tracking MPC; no rule violation; every process exits 0."""
+    import uuid
+
+    import torch_deploy as deploy
+    from tpl_tpu_torch import _build, util
+    from tpl_tpu_torch.simulation import SimAttach
+    from tpl_tpu_torch.util.shm_store import remove_app_stores
+
+    _build.build(["ilqr_tracking_mpc", "ilqr_rstp", "rstp_rampify"])
+    monkeypatch.setenv("TPL_TPU_SHM", "1")
+    util.StoreRegistry.clear()
+    app_id = "card" + uuid.uuid4().hex[:6]
+    procs = deploy.start_mains(app_id, cpu=False)
+    try:
+        sim = SimAttach(app_id=app_id, scenario_path="demo/country_follow",
+                        timeout=300)
+        deploy.cut_and_start(sim, cut=False)
+        deploy.wait_for_plan(sim, procs, 250)
+        ci = util.StoreRegistry.get(util.store_paths(app_id).control_input)
+        for _ in range(30):
+            deploy.paced_tick(sim, ci, procs)
+        with sim.core.sh_state.lock():
+            assert sim.core.sh_state.sim.rule_checker.violations == []
+    finally:
+        out = deploy.stop_mains(procs)
+        remove_app_stores(app_id)
+        util.StoreRegistry.clear()
+    for name, (code, text) in out.items():
+        assert code == 0, f"{name} exited {code}:\n{text[-3000:]}"
+    planning = deploy.launches(out["planning"][1])
+    control = deploy.launches(out["control"][1])
+    assert planning["ilqr_rstp"] > 0 and planning["rstp_rampify"] > 0
+    assert planning["ilqr_tracking_mpc"] == 0
+    # the collision screen's latch (t=0.04-1.03 s) hands most of these ticks
+    # to the constant-deceleration fallback, which launches nothing
+    assert control["ilqr_tracking_mpc"] > 0
+    assert control["ilqr_rstp"] == 0

@@ -13,7 +13,11 @@ scenario batch was solved by ``sharded_latlon_batch`` on a CPU mesh, and
 statically over the port's sources (the graph DP planner's, the sympy front
 end's and the scale-out layer's modules named on their own),
 ``chip_smoke.py``, the card tests it imports and the worker of the
-two-process scale-out test."""
+two-process scale-out test.  The multi-process deployment's modules (the
+shared-memory stores, the mains, ``SimAttach``, the GUI and the scene
+renderer) import, and a shared store round-trips, with ``jax``, ``jaxlib``
+and ``tpl_tpu`` blocked from import; their sources are scanned with the
+helper of the multi-process tests."""
 
 import os
 import re
@@ -219,6 +223,48 @@ print("clean")
 """
 
 
+_BLOCKED_PROBE = r"""
+import os, sys, uuid
+
+
+class Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "tpl_tpu"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+os.environ["TPL_TPU_SHM"] = "1"
+from tpl_tpu_torch.application import mains
+from tpl_tpu_torch.util import shm_store
+from tpl_tpu_torch.simulation import SimAttach, tplsim
+from tpl_tpu_torch.simulation import renderer
+import tpl_tpu_torch.gui
+from tpl_tpu_torch.gui import (GuiServer, birdseye, event_log, map_editor,
+                               map_tiles, optim_view, renderers)
+name = "/nojax_" + uuid.uuid4().hex[:8]
+store = shm_store.ShmStore(name, reinit=True)
+with store.lock():
+    store.a = 1
+other = shm_store.ShmStore(name)
+other.revalidate()
+assert other.a == 1
+os.remove(shm_store.file_path(name))
+print("clean")
+"""
+
+
+def test_multiprocess_modules_import_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("TPL_TPU_SHM_ENGINE", None)
+    res = subprocess.run([sys.executable, "-c", _BLOCKED_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("clean")
+
+
 def test_port_runs_without_jax():
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
@@ -237,7 +283,10 @@ def test_port_runs_without_jax():
     "tpl_tpu_torch/simulation", "tpl_tpu_torch/util/hotreload.py",
     "tpl_tpu_torch/optim/genopt.py", "tpl_tpu_torch/optim/symext.py",
     "tpl_tpu_torch/optim/optimizers.py", "tpl_tpu_torch/parallel",
-    "tpl_tpu_torch/examples", "tests/torch_dist_worker.py"])
+    "tpl_tpu_torch/examples", "tests/torch_dist_worker.py",
+    "tpl_tpu_torch/util/shm_store.py", "tpl_tpu_torch/native",
+    "tpl_tpu_torch/application/mains.py", "tpl_tpu_torch/gui",
+    "tpl_tpu_torch/simulation/renderer.py", "tests/torch_deploy.py"])
 def test_sources_name_no_jax(path):
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|tpl_tpu)\b(?!_torch)",
                      re.M)

@@ -185,20 +185,21 @@ def _cpu_features():
     return platform.machine().encode()
 
 
-def load_host(src):
+def load_host(src, flags=HOST_FLAGS):
     """Compile (if needed) the host C++ source ``src`` with ``g++`` and
-    :data:`HOST_FLAGS` and load it; returns the ``ctypes.CDLL``."""
+    ``flags`` (:data:`HOST_FLAGS` unless given) and load it; returns the
+    ``ctypes.CDLL``."""
     with _LOCK:
         lib = _LOADED.get(src)
         if lib is not None:
             return lib
         if not os.path.isfile(src):
             raise RuntimeError(f"host source {src} not found")
-        so = _library(src, HOST_FLAGS, _cpu_features())
+        so = _library(src, flags, _cpu_features())
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.tmp{os.getpid()}"
-            cmd = [gxx_path(), *HOST_FLAGS, "-o", tmp, src]
+            cmd = [gxx_path(), *flags, "-o", tmp, src]
             done = subprocess.run(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
             if done.returncode != 0:

@@ -16,7 +16,7 @@ from tpl_tpu_torch.control import BaseController
 from tpl_tpu_torch.environment import VehicleState
 from tpl_tpu_torch.planning import Trajectory
 from tpl_tpu_torch.util import (
-    Bundle, StoreRegistry, project, short_angle_dist, snapshot)
+    Bundle, StoreRegistry, project, short_angle_dist, snapshot, store_paths)
 
 
 class ControlInput:
@@ -58,13 +58,14 @@ class ControlApp:
     def __init__(self, app_id="", control_params_path=None):
         self.app_id = app_id
 
-        self.sh_input = StoreRegistry.get(f"/{app_id}tpl_control_input")
+        paths = store_paths(app_id)
+        self.sh_input = StoreRegistry.get(paths.control_input)
         with self.sh_input.lock():
             defaults = ControlInput()
             for field in ("t", "vehicle", "trajectory"):
                 setattr(self.sh_input, field, getattr(defaults, field))
 
-        self.sh_controllers = StoreRegistry.get(f"/{app_id}tpl_control")
+        self.sh_controllers = StoreRegistry.get(paths.control)
         with self.sh_controllers.lock():
             self.registry = ComponentRegistry(
                 self.sh_controllers, BaseController, kind="control",

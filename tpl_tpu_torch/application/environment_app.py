@@ -19,11 +19,14 @@ from tpl_tpu_torch.environment import (
 
 class EnvironmentApp:
 
-    def __init__(self, app_id="", env_params_path=None):
+    def __init__(self, app_id="", env_params_path=None, env=None):
+        """``env``: the shared environment to run on (the multi-process
+        deployment passes its shared-memory one); an in-process one if
+        None."""
         self.app_id = app_id
         self.last_time = -1.0
 
-        self.env = SharedEnvironmentState()
+        self.env = SharedEnvironmentState() if env is None else env
         with self.env.lock():
             self.env.storage = "default"
             load_env_params(self.env, env_params_path)

@@ -14,7 +14,7 @@ import time
 from tpl_tpu_torch.application.registry import (
     ComponentRegistry, merge_param_set, save_param_set)
 from tpl_tpu_torch.planning import BasePlanner, Trajectory
-from tpl_tpu_torch.util import StoreRegistry
+from tpl_tpu_torch.util import StoreRegistry, store_paths
 
 
 class PlanningApp:
@@ -30,7 +30,7 @@ class PlanningApp:
         self.last_active_planner = ""
         self._warned_unknown = None
 
-        self.sh_planners = StoreRegistry.get(f"/{app_id}tpl_planning")
+        self.sh_planners = StoreRegistry.get(store_paths(app_id).planning)
         with self.sh_planners.lock():
             self.registry = ComponentRegistry(
                 self.sh_planners, BasePlanner, kind="planning",

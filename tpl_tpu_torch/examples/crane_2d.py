@@ -9,9 +9,10 @@ hand-written kernel: the ``Solver`` runs the plain iLQR on its device.
 
 Run: python -m tpl_tpu_torch.examples.crane_2d          (on the card)
      python -m tpl_tpu_torch.examples.crane_2d --cpu    (on the CPU)
-
-``--gui`` (the interactive browser view of the JAX example) waits for the
-port of the GUI and is refused until then.
+     python -m tpl_tpu_torch.examples.crane_2d --gui    (interactive
+         browser view: drag the target and the rope length, tweak the
+         weights, toggle receding-horizon simulation; add --cpu off the
+         card)
 """
 
 import argparse
@@ -78,15 +79,55 @@ def check(opt):
                              "deg")
 
 
+def crane_scene(opt):
+    """Plot geometry for the interactive view: fading payload
+    trajectory, cart marker, rope line (the reference's crane figure,
+    crane_2d/main.py:136-151)."""
+    r = np.asarray(opt.x[:, 0])
+    a = np.asarray(opt.x[:, 2])
+    L = opt.params.rope_len
+    xe, ye = r + L * np.sin(a), -L * np.cos(a)
+    return [
+        {"kind": "line", "xy": np.column_stack([xe, ye]).tolist(),
+         "color": "#ec5", "fade": True},
+        {"kind": "line", "xy": [[r[0], 0.0], [xe[0], ye[0]]],
+         "color": "#6ac", "size": 2},
+        {"kind": "points", "xy": [[r[0], 0.0]], "color": "#6ac",
+         "size": 5},
+        {"kind": "points", "xy": [[xe[0], ye[0]]], "color": "#ec5",
+         "size": 4},
+    ]
+
+
+def serve_gui(port=8024):
+    """Interactive browser view: drag the target point / rope-length
+    line, tweak weights, toggle receding-horizon simulation (the
+    reference's imviz loop, crane_2d/main.py:123-186)."""
+    from tpl_tpu_torch.gui.optim_view import OptimView, Handle
+
+    opt = make_solver()
+    handles = [
+        Handle("target_position", "point",
+               get=lambda o: (o.params.p_trg, 0.0),
+               set=lambda o, x, y: setattr(o.params, "p_trg", x)),
+        Handle("rope_length", "hline",
+               get=lambda o: (0.0, -o.params.rope_len),
+               set=lambda o, x, y: setattr(o.params, "rope_len",
+                                           max(0.5, -y))),
+    ]
+    OptimView(opt, scene=crane_scene, handles=handles,
+              title="crane_2d", port=port).serve_forever()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[1])
     ap.add_argument("--cpu", action="store_true", help="solve on the CPU")
     ap.add_argument("--gui", action="store_true",
-                    help="the interactive view: waits for the GUI's port")
+                    help="serve the interactive view (port 8024)")
     args = ap.parse_args(argv)
-    if args.gui:
-        ap.error("--gui waits for the port of the GUI (tpl_tpu/gui)")
     tpl_tpu_torch.use_device("cpu" if args.cpu else "cuda")
+    if args.gui:
+        return serve_gui()
 
     opt = make_solver()
     opt.update()

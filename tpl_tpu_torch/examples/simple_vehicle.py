@@ -12,9 +12,9 @@ Run: python -m tpl_tpu_torch.examples.simple_vehicle          (on the card)
      python -m tpl_tpu_torch.examples.simple_vehicle --cpu    (on the CPU)
      ... --plot FILE    (the path against the reference, where matplotlib
                          is installed)
-
-``--gui`` (the interactive browser view of the JAX example) waits for the
-port of the GUI and is refused until then.
+     ... --gui          (interactive browser view: tweak the weights and
+                         the target speed live, toggle receding-horizon
+                         simulation)
 """
 
 import argparse
@@ -75,6 +75,29 @@ def make_solver(device=None):
     return opt
 
 
+def vehicle_scene(opt):
+    """Reference line + optimized path + ego marker for the
+    interactive view (``--gui``)."""
+    ref = np.column_stack([np.asarray(opt.params.ref_x),
+                           np.asarray(opt.params.ref_y)])
+    return [
+        {"kind": "line", "xy": ref[:120].tolist(), "color": "#888"},
+        {"kind": "line",
+         "xy": np.asarray(opt.x[:, :2]).tolist(), "color": "#ec5",
+         "size": 2},
+        {"kind": "points", "xy": [np.asarray(opt.x[0, :2]).tolist()],
+         "color": "#6ac", "size": 5},
+    ]
+
+
+def serve_gui(port=8025):
+    """Interactive browser view of the tracking problem (the
+    imviz-example analog, see tpl_tpu_torch/gui/optim_view.py)."""
+    from tpl_tpu_torch.gui.optim_view import OptimView
+    OptimView(make_solver(), scene=vehicle_scene,
+              title="simple_vehicle", port=port).serve_forever()
+
+
 def plot(opt, path):
     import matplotlib
     matplotlib.use("Agg")
@@ -95,11 +118,11 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true", help="solve on the CPU")
     ap.add_argument("--plot", metavar="FILE", help="save a plot there")
     ap.add_argument("--gui", action="store_true",
-                    help="the interactive view: waits for the GUI's port")
+                    help="serve the interactive view (port 8025)")
     args = ap.parse_args(argv)
-    if args.gui:
-        ap.error("--gui waits for the port of the GUI (tpl_tpu/gui)")
     tpl_tpu_torch.use_device("cpu" if args.cpu else "cuda")
+    if args.gui:
+        return serve_gui()
 
     opt = make_solver()
     opt.update()

@@ -1,9 +1,12 @@
 """
-The host C++ routes of the port: ``hostops.cpp`` built with ``g++`` at
-first use (:func:`tpl_tpu_torch._build.load_host`, keyed by the source's
-hash, into ``build/tpl_tpu_torch/``) and bound with ``ctypes``.
+The host C++ routes of the port: ``hostops.cpp`` and ``shmstore.cpp``, each
+built with ``g++`` at first use (:func:`tpl_tpu_torch._build.load_host`,
+keyed by the source's hash, into ``build/tpl_tpu_torch/``) and bound with
+``ctypes``.
 
-The port of ``tpl_tpu/native/__init__.py`` without the shared-memory store.
+The port of ``tpl_tpu/native/__init__.py``.  ``shmstore.cpp`` is the native
+engine of the shared-memory stores (:mod:`tpl_tpu_torch.util.shm_store`):
+:func:`get_shm_lib` binds it, :class:`NativeShm` is one store's mapping.
 Four sequential host routines have a C twin: polyline projection and
 resampling (:mod:`tpl_tpu_torch.ops.geometry`), the jerk-limited velocity
 profile (:mod:`tpl_tpu_torch.ops.profile`) and the corridor ramp
@@ -21,14 +24,17 @@ import numpy as np
 
 from tpl_tpu_torch import _build
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                      "hostops.cpp")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_HERE, "hostops.cpp")
+SHM_SOURCE = os.path.join(_HERE, "shmstore.cpp")
+SHM_FLAGS = ["-O2", "-shared", "-fPIC", "-pthread"]
 ROUTES = ("project", "resample", "rampify_profile", "rampify_corridor")
 
 calls = dict.fromkeys(ROUTES, 0)    # C calls per route (reset freely)
 
 _enabled = True
 _lib = None
+_shm_lib = None
 
 
 def enable(on=True):
@@ -141,3 +147,95 @@ def rampify_corridor(step, horizon, sharpness, proj_distance, path, gap,
                              float(proj_distance), _ptr(path_v), n,
                              float(gap), _ptr(lo), _ptr(up), _ptr(out))
     return out
+
+
+def get_shm_lib():
+    """Build (first call) and bind ``shmstore.cpp``; raises if that fails."""
+    global _shm_lib
+    if _shm_lib is None:
+        lib = _build.load_host(SHM_SOURCE, SHM_FLAGS)
+        vp, i64, u64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64
+        lib.tpl_shm_open.restype = vp
+        lib.tpl_shm_open.argtypes = [ctypes.c_char_p, i64,
+                                     ctypes.POINTER(ctypes.c_int)]
+        for name in ("tpl_shm_lock", "tpl_shm_unlock"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = [vp]
+        lib.tpl_shm_version.restype = u64
+        lib.tpl_shm_version.argtypes = [vp]
+        lib.tpl_shm_capacity.restype = i64
+        lib.tpl_shm_capacity.argtypes = [vp]
+        lib.tpl_shm_read.restype = i64
+        lib.tpl_shm_read.argtypes = [vp, ctypes.c_char_p, i64,
+                                     ctypes.POINTER(u64)]
+        lib.tpl_shm_write.restype = u64
+        lib.tpl_shm_write.argtypes = [vp, ctypes.c_char_p, i64]
+        lib.tpl_shm_close.restype = None
+        lib.tpl_shm_close.argtypes = [vp]
+        _shm_lib = lib
+    return _shm_lib
+
+
+class NativeShm:
+    """One store's mapping in the native engine (``shmstore.cpp``): a
+    robust process-shared mutex and two payload slots of ``size`` bytes.
+    Raises if the engine cannot be built, or if the file holds content
+    that is neither all zero nor a native store."""
+
+    def __init__(self, path, size):
+        self._h = None
+        self._lib = lib = get_shm_lib()
+        status = ctypes.c_int()
+        self._h = lib.tpl_shm_open(path.encode(), int(size),
+                                   ctypes.byref(status))
+        if not self._h:
+            if status.value == 1:
+                raise RuntimeError(
+                    f"{path} holds content that is not a native shm store "
+                    "(a store of the python engine? remove the file, or set "
+                    "TPL_TPU_SHM_ENGINE the same in every process)")
+            raise RuntimeError(f"tpl_shm_open failed for {path}")
+        self.created = status.value == 2   # this open initialized the store
+        self.capacity = lib.tpl_shm_capacity(self._h)
+        self._buf = ctypes.create_string_buffer(self.capacity)
+
+    def lock(self):
+        """Takes the store's mutex: 0, or 1 where the last owner died
+        holding it (the data is its last complete write)."""
+        r = self._lib.tpl_shm_lock(self._h)
+        if r < 0:
+            raise RuntimeError("tpl_shm_lock failed")
+        return r
+
+    def unlock(self):
+        self._lib.tpl_shm_unlock(self._h)
+
+    def version(self):
+        return self._lib.tpl_shm_version(self._h)
+
+    def read(self):
+        """(payload bytes, version) of the readable slot; the caller holds
+        the lock."""
+        ver = ctypes.c_uint64()
+        n = self._lib.tpl_shm_read(self._h, self._buf, self.capacity,
+                                   ctypes.byref(ver))
+        if n < 0:
+            raise RuntimeError("shm payload larger than capacity")
+        return ctypes.string_at(self._buf, n), ver.value
+
+    def write(self, blob):
+        """Fills the other slot with ``blob`` and makes it readable; returns
+        the new version.  The caller holds the lock."""
+        ver = self._lib.tpl_shm_write(self._h, blob, len(blob))
+        if ver == 0:
+            raise RuntimeError(
+                f"shm store overflow: {len(blob)} > {self.capacity}")
+        return ver
+
+    def close(self):
+        if self._h:
+            self._lib.tpl_shm_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()

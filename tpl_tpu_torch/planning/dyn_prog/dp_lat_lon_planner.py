@@ -97,6 +97,8 @@ def traj_lerp(traj, t):
 
 class DpLatLonPlanner(BasePlanner):
 
+    RENDERER = "tpl_tpu_torch.gui.renderers:dp_lat_lon"
+
     def __init__(self, shared, lock_shared):
         np.seterr(divide="ignore", invalid="ignore")
 

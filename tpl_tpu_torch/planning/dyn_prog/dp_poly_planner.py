@@ -178,6 +178,8 @@ def _synchronize(t):
 
 class DpPolyPlanner(BasePlanner):
 
+    RENDERER = "tpl_tpu_torch.gui.renderers:dp_poly"
+
     def __init__(self, shared, lock_shared):
         np.seterr(divide="ignore", invalid="ignore")
 

@@ -72,6 +72,7 @@ class Params:
 
 class LatticePlanner(BasePlanner):
 
+    RENDERER = "tpl_tpu_torch.gui.renderers:poly_lat_dp_lon"
 
     def __init__(self, shared, lock_shared):
         np.seterr(divide="ignore", invalid="ignore")

@@ -61,6 +61,7 @@ class Params:
 
 class PolyLatDpLonPlanner(BasePlanner):
 
+    RENDERER = "tpl_tpu_torch.gui.renderers:poly_lat_dp_lon"
 
     def __init__(self, shared, lock_shared):
         np.seterr(divide="ignore", invalid="ignore")

@@ -189,6 +189,8 @@ def run_kernels(init_ref, init_con, l_trgs, d_stops, dt_replan, rl_dev,
 
 class IdmSamplingPlanner(BasePlanner):
 
+    RENDERER = "tpl_tpu_torch.gui.renderers:idm_sampling"
+
     def __init__(self, shared, lock_shared):
         self.shared = shared
         self.lock_shared = lock_shared

@@ -6,7 +6,7 @@ trajectory.  The port of
 ``tpl_tpu/planning/path_vel_decomp/path_vel_decomp_planner.py``; it
 replans on every tick, and with ``use_fused`` (the vendored param set)
 the whole replan is :class:`FusedRstpReplan` on ``tpl_tpu_torch.device()``.
-The GUI renderer hook is not ported.
+Its GUI view is ``tpl_tpu_torch.gui.renderers.rstp`` (``RENDERER``).
 (reference: library/tpl/planning/path_vel_decomp/path_vel_decomp_planner.py)
 """
 
@@ -59,6 +59,8 @@ class Params:
 
 
 class PathVelDecompPlanner(BasePlanner):
+
+    RENDERER = "tpl_tpu_torch.gui.renderers:rstp"
 
     def __init__(self, shared, lock_shared):
         self.shared = shared

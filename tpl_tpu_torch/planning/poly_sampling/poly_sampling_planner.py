@@ -249,6 +249,8 @@ def _eval_candidates(start, path, obstacles, pp):
 
 class PolySamplingPlanner(BasePlanner):
 
+    RENDERER = "tpl_tpu_torch.gui.renderers:poly_sampling"
+
     def __init__(self, shared, lock_shared):
         self.shared = shared
         self.lock_shared = lock_shared

@@ -14,6 +14,7 @@ from tpl_tpu_torch.simulation.state import (
 from tpl_tpu_torch.simulation.core import SimCore, ScenarioLoadError
 from tpl_tpu_torch.simulation.standalone import SimStandalone
 from tpl_tpu_torch.simulation.record import (
+    SimAttach,
     SimRecorder,
     SimReplay,
     load_recording,

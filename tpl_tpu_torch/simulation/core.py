@@ -48,9 +48,8 @@ class SimCore:
         self.last_obj_measure_t = 0.0
         self.manager = None
 
-        prefix = f"{app_id}_" if app_id else ""
-        self.app_id = prefix
-        self.sh_state = util.StoreRegistry.get(f"/{prefix}tpl_sim")
+        self.app_id = f"{app_id}_" if app_id else ""
+        self.sh_state = util.StoreRegistry.get(util.store_paths(app_id).sim)
         with self.sh_state.lock():
             self.sh_state.storage = scenario_path or "default"
             self.sh_state.sim = SimState()

@@ -1,13 +1,16 @@
 """
 Simulation recorder and replay: capture per-tick sim states and planner /
-controller stats to disk and replay recordings into the sim store.
-(reference: library/tpl/simulation/record.py, replay.py)
+controller stats to disk, replay recordings into the sim store, export
+headless scene renderings, and attach the sim to apps running as other
+processes.
+(reference: library/tpl/simulation/record.py, replay.py, attach.py)
 
-The port of tpl_tpu/simulation/record.py (numpy host code).  Not ported
-yet: ``SimAttach`` (it drives apps in other processes over the shared-memory
-stores of ``util/shm_store``, which the port lacks) and the scene renderer
-``simulation/renderer`` (``render_video=True`` raises ImportError naming
-it at the first frame).
+The port of tpl_tpu/simulation/record.py (numpy host code).  ``SimAttach``
+differs from the JAX package's where that one cannot meet the apps of
+``application/mains``: it opens their stores by the names they use
+(:func:`tpl_tpu_torch.util.store_paths`), the environment as the
+``ShmObject`` the env process publishes, and it hands the control store's
+controls to the ego, as ``SimStandalone`` does.
 """
 
 import os
@@ -18,14 +21,14 @@ import os.path as osp
 
 import numpy as np
 
-from tpl_tpu_torch.util import Bundle, StoreRegistry
+from tpl_tpu_torch.util import Bundle, StoreRegistry, snapshot, store_paths
 from tpl_tpu_torch.simulation.state import SimState
 
 
 class SimRecorder:
     """Capture sim states + runtimes each tick; save as a pickle bundle.
-    (record.py:98-188, imdash video capture replaced by a headless
-    renderer, tpl_tpu_torch.simulation.renderer, which is not ported yet)"""
+    (record.py:98-188, imdash video capture replaced by the headless
+    renderer in tpl_tpu_torch.simulation.renderer)"""
 
     def __init__(self, standalone, path, dt_state_log=0.05,
                  render_video=False):
@@ -114,16 +117,15 @@ class SimReplay:
     def __init__(self, app_id="", recording_path=None, sim_store=None):
         self.recording = load_recording(recording_path)
 
-        if app_id != "":
-            app_id += "_"
-        self.app_id = app_id
+        paths = store_paths(app_id)
+        self.app_id = f"{app_id}_" if app_id else ""
 
-        self.sh_replay = StoreRegistry.get(f"/{app_id}tpl_sim_replay")
+        self.sh_replay = StoreRegistry.get(paths.sim_replay)
         with self.sh_replay.lock():
             self.sh_replay.state = SimReplayState()
 
         self.sh_state = sim_store if sim_store is not None else \
-            StoreRegistry.get(f"/{app_id}tpl_sim")
+            StoreRegistry.get(paths.sim)
 
         with self.sh_state.lock():
             if not hasattr(self.sh_state, "sim"):
@@ -146,3 +148,63 @@ class SimReplay:
 
         time.sleep(max(0.0, state.sleep_time))
         return state.step
+
+
+class SimAttach:
+    """Attach the simulation core to environment / planning / control apps
+    running as other processes (``tpl_tpu_torch.application.mains``) over
+    shared-memory stores.  (reference: library/tpl/simulation/attach.py)
+
+    ``__init__`` waits until each app has published its store (at most
+    ``timeout`` s each, if given), then loads the scenario into them, as
+    ``SimStandalone`` does.  :meth:`update` is ``SimStandalone.update``
+    without the apps: it ticks the physics and senses into the env store,
+    then hands the control store's latest controls to the ego."""
+
+    def __init__(self, app_id="", scenario_path=None, timeout=None):
+        from tpl_tpu_torch.environment import EnvironmentState
+        from tpl_tpu_torch.simulation.core import SimCore
+        from tpl_tpu_torch.util.shm_store import ShmObject, ShmStore
+
+        paths = store_paths(app_id)
+        self.core = SimCore(app_id=app_id, scenario_path=scenario_path)
+        self.sh_env = ShmObject(EnvironmentState(), paths.env)
+        self.sh_planning = ShmStore(paths.planning)
+        self.sh_control = ShmStore(paths.control)
+
+        for name, store, attr in (
+                ("environment", self.sh_env, "t"),
+                ("planning", self.sh_planning, "planner_names"),
+                ("control", self.sh_control, "controller_names")):
+            self._wait(name, store, attr, timeout)
+        with self.core.sh_state.lock():
+            self.core.reload_scenario(scenario_path, self.sh_env,
+                                      self.sh_planning, self.sh_control)
+
+    @staticmethod
+    def _wait(name, store, attr, timeout=None):
+        start = time.time()
+        while not store.wait_for_attr(attr, timeout=1.0):
+            if timeout is not None and time.time() - start > timeout:
+                raise TimeoutError(f"no {name} app published its store in "
+                                   f"{timeout} s")
+            print(f"Waiting for valid {name} ...", flush=True)
+
+    def validate_env(self):
+        self._wait("environment", self.sh_env, "t")
+
+    def update(self, wall_time=None):
+        self.validate_env()
+        sim = self.core.get_next_sim_state(
+            self.sh_env, self.sh_planning, self.sh_control,
+            wall_time=wall_time)
+        self.core.write_sim_state(sim)
+        self._apply_controls()
+
+    def _apply_controls(self):
+        self.sh_control.revalidate()
+        acc, steer = snapshot(self.sh_control.controls)
+        with self.core.sh_state.lock():
+            ego = self.core.sh_state.sim.ego
+            ego.control_acc = acc
+            ego.control_steer = steer

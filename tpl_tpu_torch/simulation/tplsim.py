@@ -1,19 +1,22 @@
 """
-tplsim CLI: run closed-loop simulation scenarios headlessly, or replay a
-recording into the sim store.
+tplsim CLI: run closed-loop simulation scenarios headlessly, drive apps
+that run as other processes, or replay a recording into the sim store.
 
 Usage:
     python -m tpl_tpu_torch.simulation.tplsim run \
         --scenario demo/country_follow --headless --max-t 25 [--cpu]
+    python -m tpl_tpu_torch.simulation.tplsim attach \
+        --scenario demo/country_follow --app-id demo --max-t 25
     python -m tpl_tpu_torch.simulation.tplsim replay --recording DIR
 
 The run takes the card (``tpl_tpu_torch.use_device("cuda")``, which raises
-where there is none); ``--cpu`` runs every solve on the CPU instead.  It
-prints the rule violations at the end and exits 1 if there were any.
+where there is none); ``--cpu`` runs every solve on the CPU instead.
+``attach`` solves nothing itself: it ticks the sim against the env,
+planning and control processes of ``tpl_tpu_torch.application.mains``
+started with the same ``--app-id``, over shared-memory stores.  Both print
+the rule violations at the end and exit 1 if there were any.
 (reference: library/tpl/simulation/tplsim; the port of
-tpl_tpu/simulation/tplsim.py.  Its ``attach`` subcommand drives apps in
-other processes over shared-memory stores, which the port lacks: not
-offered yet.)
+tpl_tpu/simulation/tplsim.py)
 """
 
 import sys
@@ -33,21 +36,28 @@ def run(args):
         np.random.seed(args.seed)
 
     sim = SimStandalone(app_id=args.app_id, scenario_path=args.scenario)
+    return _drive(sim, sim.core, sim.planning_app.sh_planners, args)
 
-    with sim.core.sh_state.lock():
-        ss = sim.core.sh_state.sim
+
+def _drive(sim, core, planning, args):
+    """Starts the loaded scenario (running, real time unless headless, the
+    rule checker on), selects ``args.planner`` in the store ``planning``,
+    ticks ``sim.update`` until the scenario finishes or ``--max-t`` /
+    ``--max-ticks``, and prints the summary; returns the exit code."""
+    with core.sh_state.lock():
+        ss = core.sh_state.sim
         ss.settings.running = True
         ss.settings.use_real_time = not args.headless
         ss.settings.reload_if_finished = False
         ss.rule_checker.enable = True
 
     if args.planner:
-        if args.planner not in sim.planning_app.planners:
-            raise SystemExit(
-                f"unknown planner {args.planner!r}; available: "
-                f"{sorted(sim.planning_app.planners)}")
-        with sim.planning_app.sh_planners.lock():
-            sim.planning_app.sh_planners.active_planner = args.planner
+        with planning.lock():
+            names = list(planning.planner_names)
+            if args.planner not in names:
+                raise SystemExit(f"unknown planner {args.planner!r}; "
+                                 f"available: {sorted(names)}")
+            planning.active_planner = args.planner
 
     t_start = time.time()
     ticks = 0
@@ -64,14 +74,15 @@ def run(args):
         update()
         ticks += 1
 
-        with sim.core.sh_state.lock():
-            s = sim.core.sh_state.sim
+        with core.sh_state.lock():
+            s = core.sh_state.sim
             sim_t = s.t
             finished = s.finished
             n_viol = len(s.rule_checker.violations)
 
-        with sim.planning_app.sh_planners.lock():
-            planner_runtimes.append(sim.planning_app.sh_planners.runtime)
+        # read without the lock: a shared store publishes on every lock
+        planning.revalidate()
+        planner_runtimes.append(planning.runtime)
 
         if args.verbose and ticks % 100 == 0:
             print(f"t={sim_t:6.2f}s ticks={ticks} violations={n_viol} "
@@ -82,8 +93,8 @@ def run(args):
         if args.max_ticks and ticks >= args.max_ticks:
             break
 
-    with sim.core.sh_state.lock():
-        s = sim.core.sh_state.sim
+    with core.sh_state.lock():
+        s = core.sh_state.sim
         viols = s.rule_checker.violations
 
     rt = np.array(planner_runtimes[5:]) * 1e3
@@ -95,6 +106,20 @@ def run(args):
     for v in viols[:10]:
         print(" ", v)
     return 0 if len(viols) == 0 else 1
+
+
+def attach(args):
+    """Drive externally running apps over shared memory: the sim of
+    :func:`run`, its physics against the apps of
+    ``tpl_tpu_torch.application.mains``.  (reference: tplsim attach)"""
+    import os
+    os.environ.setdefault("TPL_TPU_SHM", "1")
+    from tpl_tpu_torch.simulation.record import SimAttach
+
+    if args.seed is not None:
+        np.random.seed(args.seed)
+    sim = SimAttach(app_id=args.app_id, scenario_path=args.scenario)
+    return _drive(sim, sim.core, sim.sh_planning, args)
 
 
 def replay(args):
@@ -127,6 +152,19 @@ def main():
     p_run.add_argument("--no-reload", action="store_true",
                        help="disable live code reloading")
 
+    p_att = sub.add_parser("attach")
+    p_att.add_argument("--scenario", default="default")
+    p_att.add_argument("--planner", default=None,
+                       help="active planner name (e.g. dp_lat_lon_planner)")
+    p_att.add_argument("--app-id", default="")
+    p_att.add_argument("--headless", action="store_true")
+    p_att.add_argument("--max-t", type=float, default=None)
+    p_att.add_argument("--max-ticks", type=int, default=None)
+    p_att.add_argument("--seed", type=int, default=0)
+    p_att.add_argument("--verbose", action="store_true", default=True)
+    p_att.add_argument("--no-reload", action="store_true",
+                       help="disable live code reloading")
+
     p_rep = sub.add_parser("replay")
     p_rep.add_argument("--recording", required=True)
     p_rep.add_argument("--app-id", default="")
@@ -134,6 +172,8 @@ def main():
     args = parser.parse_args()
     if args.cmd == "run":
         sys.exit(run(args))
+    elif args.cmd == "attach":
+        sys.exit(attach(args))
     elif args.cmd == "replay":
         replay(args)
 

@@ -7,6 +7,10 @@ stores (reference: library/tpl/util.py:310-333). Here the default substrate
 is in-process stores with re-entrant locks — the whole planning pipeline
 runs in one process, keeping device arrays resident — while preserving the
 ``store.lock(): ...`` working surface so applications read identically.
+Under ``TPL_TPU_SHM=1`` the registry hands out shared-memory stores
+(:mod:`tpl_tpu_torch.util.shm_store`) instead, for the multi-process
+deployment of :mod:`tpl_tpu_torch.application.mains`; :func:`store_paths`
+names every store of a deployment.
 """
 
 import os
@@ -218,8 +222,25 @@ class Store(Bundle):
         pass
 
 
+def store_paths(app_id=""):
+    """The store names of a deployment with ``app_id``, written once for the
+    apps, the mains, the sims and the GUI: ``env``, ``planning``,
+    ``control``, ``control_input`` (``/{app_id}tpl_<name>``), and the sim's
+    own ``sim`` and ``sim_replay``, which put a ``_`` after a non-empty app
+    id (``/{app_id}_tpl_sim``)."""
+    sim_id = f"{app_id}_" if app_id else ""
+    return Bundle(env=f"/{app_id}tpl_env",
+                  planning=f"/{app_id}tpl_planning",
+                  control=f"/{app_id}tpl_control",
+                  control_input=f"/{app_id}tpl_control_input",
+                  sim=f"/{sim_id}tpl_sim",
+                  sim_replay=f"/{sim_id}tpl_sim_replay")
+
+
 class StoreRegistry:
-    """Named in-process store registry (util.py:310-333 analog)."""
+    """Named store registry (util.py:310-333 analog): in-process stores,
+    or shared-memory ones (:class:`tpl_tpu_torch.util.shm_store.ShmStore`)
+    under ``TPL_TPU_SHM=1``."""
 
     REGISTRY = {}
     _LOCK = threading.Lock()
@@ -230,10 +251,10 @@ class StoreRegistry:
             store = StoreRegistry.REGISTRY.get(path)
             if store is None:
                 if os.environ.get("TPL_TPU_SHM") == "1":
-                    raise NotImplementedError(
-                        "shared-memory stores are not ported yet; "
-                        "unset TPL_TPU_SHM")
-                store = Store()
+                    from tpl_tpu_torch.util.shm_store import ShmStore
+                    store = ShmStore(path, reinit=reinit)
+                else:
+                    store = Store()
                 StoreRegistry.REGISTRY[path] = store
             return store
 

@@ -267,13 +267,31 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    (written under ``build/``), read back with ``load_recording`` and stepped
    into a fresh store by ``SimReplay``, every state equal;
 22. genopt MPC: the sympy front end's tracking MPC
-   (``scenes.genopt_mpc_config``, float64, H=60, 8 iterations) solved by
-   the plain iLQR on the card (no kernel launched) against the native
-   problem's kernel solve and the same genopt solve on the CPU (x, u atol
-   1e-6, the cost rtol 1e-9), wall ms of each; then each ``optimizers``
-   factory with a kernel solves once at its own ``horizon_max`` on the card
-   (``cuda_horizon_max``) through its kernel (the tracking MPCs at 100, the
-   RSTP profiles at 300);
+   (``scenes.genopt_mpc_config``, float64, H=60, 8 iterations) solved on
+   the card by the kernel generated from its config (the printed struct in
+   ``csrc/ilqr_generic_body.cuh``; its ``nvcc`` runs in a thread beside
+   the phases from 3 on, and its seconds are printed), one launch an
+   update, against its plain version on the card, the native problem's
+   kernel solve and the same genopt solve on the CPU (x, u atol 1e-6, the
+   cost rtol 1e-9); the bare launcher's, the wrapper's and the plain
+   version's ms, ``bound_ms`` / ``chain_ms``, the shared-memory /
+   workspace split and a "phases" line (the profiling instantiation
+   bit-equal); then each ``optimizers`` factory with a kernel solves once
+   at its own ``horizon_max`` on the card (``cuda_horizon_max``) through
+   its kernel (the tracking MPCs at 100, the other five at 300).  Then
+   "iLQR generic": ``csrc/ilqr_generic.cu`` on ``ref_line_smoother_k``,
+   ``ref_line_smoother_dk`` and ``velocity_profile_time`` at H = 250 and
+   300 (at 300 with a 24 KB shared-memory limit: the workspace path), cold
+   with EULER and warm with HEUN, float32 and float64 against the plain
+   version on the card (at the RSTP tolerance and at 1e-9), times, bounds,
+   the split and "phases" lines; the batch through ``optim.batched`` on CUDA tensors at
+   B = 1, 64 and 2,048 of ``ref_line_smoother_k`` and of the genopt MPC,
+   every scenario bit-equal to its single launch, against the plain batched
+   update on the card at B <= 64, timed.  Then "RSTP smooth_only":
+   ``SimStandalone`` on ``demo/country_follow`` with the scenario's sets
+   and ``smooth_only`` turned on in the planning store, 200 ticks: one
+   ``ref_line_smoother_k`` launch and one ``ilqr_rstp`` launch a replan,
+   finite controls, zero violations, the ego moving, the replan walls;
 23. the crane example (``tpl_tpu_torch.examples.crane_2d``, H=100) on the
    card and on the CPU: the example's acceptance on both, their final
    states within CRANE_ATOL;
@@ -437,6 +455,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -625,6 +644,14 @@ MPC_TIME_H, MPC_TIME_T = 60, 40     # HORIZON_MAX, the demo set's horizon
 GENOPT_H = 60
 GENOPT_X_ATOL = 1e-6
 GENOPT_COST_RTOL = 1e-9
+# the generic AL-iLQR kernel: float64 against its plain version (relative to
+# the largest |x|), the horizons, a shared-memory limit that puts a block's
+# arrays in the workspace, the batch sizes, the smooth_only loop's ticks
+GENERIC_TOL = 1e-9
+GENERIC_H = (250, 300)
+GENERIC_SMALL_SMEM = 24 * 1024
+GENERIC_BATCHES = (1, 64, 2048)
+SMOOTH_TICKS = 200
 # the crane example, float32 on the card and on the CPU: both meet the
 # example's acceptance; their final states (m, m/s, rad) within this (60
 # iterations of float32 whose stops are decided by rounding)
@@ -648,7 +675,7 @@ DEPLOY_SWITCH = "dp_lat_lon_planner"
 KERNELS = ("latlon_action_min", "ilqr_tracking_mpc", "ilqr_rstp",
            "rstp_rampify", "latency_probe", "lon_dp", "poly_lat",
            "idm_rollout", "idm_evaluate", "poly_sampling", "dir_dist_map",
-           "poly_planner", "ilqr_tracking_mpc_time")
+           "poly_planner", "ilqr_tracking_mpc_time", "ilqr_generic")
 NO_LIBRARY = None           # no single PyTorch call computes these kernels
 
 
@@ -1546,6 +1573,16 @@ def _to(tree, dev):
     return tree
 
 
+def check_planning_set(scenario, active, params, smooth_only=False):
+    """Raises unless the RSTP planner is active with the vendored set:
+    fused, H=RSTP_H, and ``smooth_only`` off, or on where the caller (the
+    smooth_only phase) has turned it on."""
+    cfg = (params.use_fused, params.horizon, params.smooth_only)
+    if active != "path_vel_decomp_planner" or cfg != (True, RSTP_H,
+                                                      smooth_only):
+        raise AssertionError(f"planning set of {scenario}: {active} {cfg}")
+
+
 def rstp_loop_phase(rstp, rmp, itm, scenario, ticks, screen=True,
                     record=False):
     """SimStandalone with the scenario's own param sets (the RSTP planner,
@@ -1561,12 +1598,9 @@ def rstp_loop_phase(rstp, rmp, itm, scenario, ticks, screen=True,
     sim = SimStandalone(app_id=f"smoke_{name}", scenario_path=scenario)
     store = sim.planning_app.sh_planners
     with store.lock():
-        active = store.active_planner
         params = store.path_vel_decomp_planner.params
-        cfg = (params.use_fused, params.horizon, params.smooth_only)
+        check_planning_set(scenario, store.active_planner, params)
         params.collision_screen = screen
-    if active != "path_vel_decomp_planner" or cfg != (True, RSTP_H, False):
-        raise AssertionError(f"planning set of {scenario}: {active} {cfg}")
     planner = sim.planning_app.planners["path_vel_decomp_planner"]
     controllers = sim.control_app.sh_controllers
     with controllers.lock():
@@ -5470,17 +5504,23 @@ def record_replay_phase():
           f"runtime ms median {np.median(rt):.3f}, max {np.max(rt):.3f}")
 
 
-def genopt_phase(dev):
+def genopt_phase(dev, gen_build, cycles, mhz):
     """The sympy front end on the card: the tracking MPC built with
-    ``genopt`` (``scenes.genopt_mpc_config``), float64, solved by the plain
-    iLQR on the card (no kernel launched), against the native problem's
-    kernel solve (``optimizers.trajectory_tracking_mpc``) and the same
-    genopt solve on the CPU, at GENOPT_X_ATOL / GENOPT_COST_RTOL; then
-    each ``optimizers`` factory with a kernel solves once at its own
+    ``genopt`` (``scenes.genopt_mpc_config``), float64, solved by the kernel
+    generated from its config (``csrc/ilqr_generic_body.cuh`` with the
+    printed struct), one launch an update, against its plain version on the
+    card, the same genopt solve on the CPU and the native problem's kernel
+    solve (``optimizers.trajectory_tracking_mpc``), at GENOPT_X_ATOL /
+    GENOPT_COST_RTOL; prints the generated source's build seconds (its
+    ``nvcc``, started in a thread beside the first phases, ``gen_build``),
+    its bare-launcher and wrapper ms, the plain version's ms on the card,
+    ``bound_ms`` / ``chain_ms`` and the shared-memory / workspace split;
+    then each ``optimizers`` factory with a kernel solves once at its own
     ``horizon_max`` on the card, through its kernel."""
     import torch
     from tpl_tpu_torch import scenes
-    from tpl_tpu_torch.optim import genopt, ilqr_rstp
+    from tpl_tpu_torch.optim import genopt, ilqr, ilqr_rstp
+    from tpl_tpu_torch.optim import ilqr_generic as ig
     from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
     from tpl_tpu_torch.optim import ilqr_tracking_mpc_time as itt
     from tpl_tpu_torch.optim import optimizers as opts
@@ -5489,58 +5529,132 @@ def genopt_phase(dev):
     cfg = scenes.genopt_mpc_config()
     cfg.horizon_max = opts.trajectory_tracking_mpc.cuda_horizon_max
 
+    gen_build["thread"].join()
+    if "error" in gen_build:
+        raise gen_build["error"]
+    make = genopt.build(cfg, dtype=torch.float64)
+    spec = make.problem.generated
+    if spec is None:
+        raise AssertionError("the genopt MPC has no generated struct")
+    t0 = time.perf_counter()
+    ig._kernel(spec, torch.float64)
+    load_s = time.perf_counter() - t0
+    print(f"genopt MPC generated kernel: nvcc of the generated source "
+          f"{gen_build['s']:.2f} s (started beside the first phases), its "
+          f"first use (load and prepare) {load_s:.3f} s")
+    log = _build_log(ig._tag(spec))
+    if log:
+        print(log)
+
     def run(make, times=2):
-        """A cold solve from fresh solvers ``times`` times: the last solver
-        and the wall ms of each (ending in a synchronize)."""
-        walls = []
+        """A cold solve from fresh solvers ``times`` times: the last solver,
+        the wall ms of each (ending in a synchronize) and the first one's
+        packed inputs."""
+        walls, first = [], None
         for _ in range(times):
             opt = make()
             for k, v in inputs.items():
                 setattr(opt.params, k, v)
             opt.horizon, opt.step, opt.max_iterations = GENOPT_H, 0.05, 8
             opt.x[0] = x0
+            if first is None:
+                first = ({k: np.array(v) for k, v in opt._inputs().items()},
+                         dict(opt.params._values))
             t0 = time.perf_counter()
             opt.update()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        return opt, walls
+        return opt, walls, first
 
-    before = itm.launches
-    card, card_ms = run(genopt.build(cfg, dtype=torch.float64))
-    if itm.launches != before or card.device.type != "cuda":
-        raise AssertionError("the sympy problem did not take the plain iLQR "
-                             "on the card")
-    cpu, cpu_ms = run(genopt.build(cfg, device="cpu", dtype=torch.float64),
-                      1)
-    native, native_ms = run(opts.trajectory_tracking_mpc)
+    before, gen0 = itm.launches, ig.by_problem.get(spec.name, 0)
+    card, card_ms, (ins, params) = run(make)
+    launches = ig.by_problem.get(spec.name, 0) - gen0
+    if (launches != 2 or itm.launches != before
+            or card.device.type != "cuda"):
+        raise AssertionError(f"{launches} generated-kernel launches for 2 "
+                             "genopt updates on the card")
+    cpu, cpu_ms, _ = run(genopt.build(cfg, device="cpu", dtype=torch.float64),
+                         1)
+    native, native_ms, _ = run(opts.trajectory_tracking_mpc)
     if itm.launches != before + 2:
         raise AssertionError(f"{itm.launches - before} kernel launches for 2 "
                              "native solves")
+
+    # the kernel and its plain version on the card, on the first solve's
+    # packed inputs
+    H = cfg.horizon_max
+    n_ref = ig.n_ref_of(spec, params)
+    buf = torch.from_numpy(ig.pack_inputs(spec, ins, params, 0)).to(dev)
+    integ = card.integrator_type          # the Solver's, EULER
+    run_args = (H, n_ref, GENOPT_H, 8, 1, integ)
+    got = ig.unpack_outputs(spec, ig.update(spec, buf, *run_args)
+                            .cpu().numpy(), H)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ig.update_reference(spec, buf, *run_args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain = ig.unpack_outputs(spec, ref.cpu().numpy(), H)
     err = 0.0
-    for what, b in (("the native problem's kernel solve", native),
-                    ("the same genopt solve on the CPU", cpu)):
-        dx = float(np.max(np.abs(card.x - b.x)))
-        du = float(np.max(np.abs(card.u - b.u)))
-        dc = abs(card.traj_costs - b.traj_costs) / abs(b.traj_costs)
-        print(f"genopt MPC on the card (plain iLQR, float64, H={GENOPT_H}, "
-              f"8 iterations) against {what}: max|dx| {dx:.3e}, max|du| "
-              f"{du:.3e}, cost rel {dc:.3e}, iterations {card.iterations}/"
-              f"{b.iterations}")
+    for what, b in (("its plain version on the card", plain),
+                    ("the native problem's kernel solve",
+                     dict(x=native._x, u=native._u,
+                          traj_costs=native.traj_costs,
+                          iterations=native.iterations)),
+                    ("the same genopt solve on the CPU",
+                     dict(x=cpu._x, u=cpu._u, traj_costs=cpu.traj_costs,
+                          iterations=cpu.iterations))):
+        dx = float(np.max(np.abs(card._x[:GENOPT_H + 1] - b["x"][
+            :GENOPT_H + 1])))
+        du = float(np.max(np.abs(card._u[:GENOPT_H] - b["u"][:GENOPT_H])))
+        dc = abs(card.traj_costs - b["traj_costs"]) / abs(b["traj_costs"])
+        print(f"genopt MPC on the card (generated kernel, float64, "
+              f"H={GENOPT_H}, 8 iterations) against {what}: max|dx| "
+              f"{dx:.3e}, max|du| {du:.3e}, cost rel {dc:.3e}, iterations "
+              f"{card.iterations}/{b['iterations']}")
         if not (dx <= GENOPT_X_ATOL and du <= GENOPT_X_ATOL
                 and dc <= GENOPT_COST_RTOL):
             raise AssertionError(f"genopt MPC against {what}: beyond the "
                                  "tolerance")
         err = max(err, dx, du)
+    if not (np.array_equal(got["x"], card._x) and np.array_equal(
+            got["u"], card._u)):
+        raise AssertionError("the wrapper's launch and the solver's part")
     if not float(np.abs(card.u).max()) > 1e-3:
         raise AssertionError("the genopt MPC did not move")
-    print(f"genopt MPC wall ms (ending in a synchronize): card plain "
-          f"{card_ms[0]:.1f} then {card_ms[1]:.1f}, CPU plain {cpu_ms[0]:.1f},"
-          f" native kernel {native_ms[0]:.1f} then {native_ms[1]:.1f}")
+
+    n_sh = ig._size(ig.shared_layout(spec, H, n_ref))
+    shared, rows = buf[:n_sh], buf[n_sh:].reshape(1, -1)
+    bare_ms, wrapper_ms = launcher_times(
+        "genopt MPC generated kernel", f"float64 H={GENOPT_H} of {H}",
+        ig.bare(spec, shared, rows, *run_args[:5], integrator=integ),
+        lambda: ig.update(spec, buf, *run_args), 20)
+    its = got["iterations"]
+    bound = ig.bound_ms(spec, H, n_ref, GENOPT_H, its, integrator=integ)
+    chain = ig.chain_ms(spec, H, GENOPT_H, its, cycles, mhz, integ)
+    sm, ws = ig.split(spec, H, n_ref, torch.float64)
+    sm300, ws300 = ig.split(spec, 300, n_ref, torch.float64)
+    out, prof = ig.profile(spec, buf, *run_args)
+    if not torch.equal(out, ig.update(spec, buf, *run_args)):
+        raise AssertionError("genopt MPC: the profiling instantiation parts")
+    phase_line("ilqr_generic genopt_mpc", "cold", ilqr, prof, its, mhz)
+    print(f"genopt MPC generated kernel ms: bare launcher {bare_ms:.4f}, "
+          f"wrapper {wrapper_ms:.4f}, plain on the card {plain_ms:.1f}; "
+          f"bound_ms {bound[0]:.6f} ({bound[1]}), chain_ms {chain:.4f} "
+          f"({its} iterations); split at H={H}: {sm} B shared, {ws} B "
+          f"workspace a block (H=300: {sm300} / {ws300})")
+    print(f"genopt MPC wall ms (ending in a synchronize): card kernel "
+          f"{card_ms[0]:.1f} then {card_ms[1]:.1f}, CPU plain "
+          f"{cpu_ms[0]:.1f}, native kernel {native_ms[0]:.1f} then "
+          f"{native_ms[1]:.1f}")
 
     counters = {"trajectory_tracking_mpc": (itm, "launches"),
                 "trajectory_tracking_mpc_time": (itt, "launches"),
                 "lateral_profile": (ilqr_rstp, "launches"),
-                "velocity_profile_space": (ilqr_rstp, "launches")}
+                "velocity_profile_space": (ilqr_rstp, "launches"),
+                "velocity_profile_time": (ig, "launches"),
+                "ref_line_smoother_k": (ig, "launches"),
+                "ref_line_smoother_dk": (ig, "launches")}
     for name, (mod, attr) in counters.items():
         b = getattr(opts, name)
         o = b()
@@ -5559,7 +5673,328 @@ def genopt_phase(dev):
         print(f"optimizers.{name}: {o.dtype}, one kernel solve at horizon "
               f"{o.horizon} = its horizon_max ({o.runtime:.1f} ms, finite "
               f"{bool(np.all(np.isfinite(o.x)))})")
-    return dict(err=err, card_ms=card_ms, cpu_ms=cpu_ms, native_ms=native_ms)
+    return dict(err=err, card_ms=card_ms, cpu_ms=cpu_ms, native_ms=native_ms,
+                launches=launches, ms=bare_ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound=bound, chain=chain,
+                build_s=gen_build["s"], iterations=its,
+                split=dict(H=H, shared_bytes=sm, workspace_bytes=ws,
+                           H300_shared_bytes=sm300,
+                           H300_workspace_bytes=ws300))
+
+
+def build_genopt_source(result):
+    """Builds the genopt MPC's generated kernel source for float64 (its
+    nvcc), the seconds into result["s"], or the exception into
+    result["error"]."""
+    import torch
+    from tpl_tpu_torch import scenes
+    from tpl_tpu_torch.optim import genopt
+    from tpl_tpu_torch.optim import ilqr_generic as ig
+
+    t0 = time.perf_counter()
+    try:
+        spec = genopt.make_problem(scenes.genopt_mpc_config())[0].generated
+        ig.build_generated([spec], torch.float64)
+        result["s"] = time.perf_counter() - t0
+    except Exception as e:      # raised again by the genopt phase
+        result["error"] = e
+
+
+def _build_log(name):
+    """The ptxas lines (registers, spills) of a library built in this run."""
+    from tpl_tpu_torch import _build
+
+    return "\n".join(line for line in _build.BUILD_LOG.get(name, "")
+                     .splitlines() if "Used" in line or "spill" in line)
+
+
+def generic_case_buf(ig, name, H, T, warm, seed, dtype, dev):
+    """A native problem's seeded packed input on ``dev``
+    (``scenes.generic_native_case``): (buf, max_iterations)."""
+    import torch
+    from tpl_tpu_torch import scenes
+
+    inputs, params, mu, it = scenes.generic_native_case(name, H, T, warm,
+                                                        seed)
+    host = ig.pack_inputs(name, inputs, params, mu, dtype)
+    return torch.from_numpy(host).to(dev), it
+
+
+def compare_generic(ig, name, got, want, H, dtype, what):
+    """Generic kernel vs plain results (packed, any device): raises beyond
+    the float32 RSTP tolerances or, in float64, GENERIC_TOL with equal
+    mu_step and iterations; returns the largest |x|, |u| difference."""
+    g = ig.unpack_outputs(name, got.double().cpu().numpy(), H)
+    w = ig.unpack_outputs(name, want.double().cpu().numpy(), H)
+    d = max(float(np.max(np.abs(g[k] - w[k]))) for k in ("x", "u", "lam"))
+    dc = abs(g["traj_costs"] - w["traj_costs"]) / max(abs(w["traj_costs"]),
+                                                       1e-30)
+    if dtype == "float64":
+        ok = (d <= GENERIC_TOL * max(1.0, float(np.max(np.abs(w["x"]))))
+              and dc <= GENERIC_TOL and g["mu_step"] == w["mu_step"]
+              and g["iterations"] == w["iterations"])
+    else:
+        ok = d <= RSTP_X_ATOL and dc <= RSTP_COST_RTOL
+    if not (ok and np.all(np.isfinite(g["x"]))):
+        raise AssertionError(f"{name} {what}: kernel and plain part: max "
+                             f"diff {d:.3e}, cost rel {dc:.3e}, iterations "
+                             f"{g['iterations']}/{w['iterations']}")
+    return d, g["iterations"]
+
+
+def generic_phase(ig, dev, cycles, mhz):
+    """The generic AL-iLQR kernel (``csrc/ilqr_generic.cu``) on the native
+    problems without a kernel of their own, at H = 250 and 300 (at 300
+    with a shared-memory limit of GENERIC_SMALL_SMEM, so that a block's
+    arrays lie in the global workspace), cold with EULER and warm with HEUN
+    (the seeded cases of the card tests), float32 (the factories' dtype, at
+    the RSTP tolerance) and float64 (at GENERIC_TOL), each against its plain
+    version on the card; on the cold float32 cases times, bounds, the split
+    and a "phases" line (the profiling instantiation bit-equal); then the batch (``optim.batched`` on CUDA tensors) at
+    B = 1, 64 and 2,048 of ``ref_line_smoother_k`` (H=250) and of the
+    genopt MPC (H=60), float64: every scenario bit-equal to its single
+    launch, against the plain batched update on the card at B <= 64;
+    times through the bare launcher and the wrapper.  The batches are
+    float64: in float32 a scenario's line-search acceptance near the stop
+    is decided by rounding, and the batched plain update sums in another
+    order than the kernel, so one scenario in 64 may part by a metre."""
+    import torch
+    from tpl_tpu_torch import scenes
+    from tpl_tpu_torch.optim import batched, genopt, ilqr
+
+    f32, f64 = torch.float32, torch.float64
+    err, times = 0.0, {}
+    for name in scenes.GENERIC_NATIVE:
+        for H in GENERIC_H:
+            smem = GENERIC_SMALL_SMEM if H == 300 else ig.SMEM_LIMIT
+            for warm, integ in ((False, ilqr.EULER), (True, ilqr.HEUN)):
+                T = H - 20 if warm else H
+                what = (f"H={H} T={T} {'warm' if warm else 'cold'} "
+                        f"{'HEUN' if integ else 'EULER'}")
+                for dtype in (f32, f64):
+                    buf, it = generic_case_buf(ig, name, H, T, warm, H + warm,
+                                               dtype, dev)
+                    run = (H, 512, T, it, 1, integ)
+                    n0 = ig.launches
+                    out = ig.update(name, buf, *run, smem_limit=smem)
+                    if ig.launches != n0 + 1:
+                        raise AssertionError(f"{name}: no launch")
+                    t0 = time.perf_counter()
+                    ref = ig.update_reference(name, buf, *run)
+                    torch.cuda.synchronize()
+                    plain_ms = (time.perf_counter() - t0) * 1e3
+                    kind = str(dtype).replace("torch.", "")
+                    d, its = compare_generic(ig, name, out, ref, H, kind,
+                                             what)
+                    err = max(err, d) if dtype == f64 else err
+                    sm, ws = ig.split(name, H, 512, dtype, smem)
+                    print(f"ilqr_generic {name} {what} {kind}: max diff to "
+                          f"plain on the card {d:.3e}, {its} iterations, "
+                          f"plain {plain_ms:.1f} ms; split {sm} B shared + "
+                          f"{ws} B workspace (limit {smem} B)")
+                    if warm or dtype == f64:
+                        continue
+                    # the factories' dtype, cold: times, bounds, phases
+                    n_sh = ig._size(ig.shared_layout(name, H, 512))
+                    sh, rw = buf[:n_sh], buf[n_sh:].reshape(1, -1)
+                    bare, wrap = launcher_times(
+                        f"ilqr_generic {name}", f"{what} float32",
+                        ig.bare(name, sh, rw, *run[:5], integrator=integ,
+                                smem_limit=smem),
+                        lambda: ig.update(name, buf, *run, smem_limit=smem),
+                        10)
+                    t = times[(name, H)] = dict(
+                        ms=bare, wrapper_ms=wrap, plain_ms=plain_ms,
+                        iterations=its,
+                        bound=ig.bound_ms(name, H, 512, T, its,
+                                          integrator=integ, dtype=f32),
+                        chain=ig.chain_ms(name, H, T, its, cycles, mhz,
+                                          integ, f32),
+                        shared_bytes=sm, workspace_bytes=ws)
+                    print(f"ilqr_generic {name} {what} float32: bound_ms "
+                          f"{t['bound'][0]:.6f} ({t['bound'][1]}), chain_ms "
+                          f"{t['chain']:.4f}")
+                    pout, prof = ig.profile(name, buf, *run)
+                    if not torch.equal(pout, out):
+                        raise AssertionError(f"{name}: the profiling "
+                                             "instantiation parts")
+                    phase_line(f"ilqr_generic {name}", what, ilqr, prof, its,
+                               mhz)
+    print(_build_log("ilqr_generic"))
+
+    # the batch through optim.batched on CUDA tensors
+    gspec = genopt.make_problem(scenes.genopt_mpc_config())[0].generated
+    batches = {}
+    for which in ("ref_line_smoother_k", "genopt_mpc"):
+        for B in GENERIC_BATCHES:
+            rng = np.random.default_rng(B)
+            if which == "genopt_mpc":
+                spec, H, n_ref, dtype, integ = gspec, 60, 128, \
+                    torch.float64, ilqr.HEUN
+                inputs, params, _ = scenes.genopt_mpc_case(False, 1)
+                spread = np.array([1, 1, 0.2, 0.1, 3, 0, 0.5])[:, None]
+                it = 8
+            else:
+                spec, H, n_ref, dtype, integ = ig.NATIVE[which], 250, 512, \
+                    f64, ilqr.EULER
+                inputs, params, _, it = scenes.generic_native_case(
+                    which, H, H, False, 1)
+                spread = np.array([0.2, 0.2, 0.02])[:, None]
+            t = lambda a: torch.as_tensor(np.asarray(a, np.float64),
+                                          dtype=dtype, device=dev)
+            tp = {k: t(v) for k, v in params.items()
+                  if k in spec.scalars + spec.tables}
+            cfg = dict(u_min=t(inputs["u_lims"][..., 0]),
+                       u_max=t(inputs["u_lims"][..., 1]),
+                       barrier_weight=t(inputs["bw_lim"][:, 0]),
+                       lg_mult_limit=t(inputs["bw_lim"][:, 1]),
+                       dt=t(inputs["cfg_f"][0]),
+                       min_rel_cost_change=t(inputs["cfg_f"][1]), T=H,
+                       max_iterations=it, max_lg_iterations=1)
+            x = torch.zeros((H + 1, spec.nx, B), dtype=dtype, device=dev)
+            u = torch.zeros((H, spec.nu, B), dtype=dtype, device=dev)
+            lam_ = torch.zeros((H, spec.ncl, B), dtype=dtype, device=dev)
+            mu = torch.zeros(B, dtype=torch.int32, device=dev)
+            x0 = t(inputs["x"][0][:, None]
+                   + rng.normal(0.0, 1.0, (spec.nx, B)) * spread)
+            upd = batched.make_batched_update_fn(spec.problem, H, B, integ,
+                                                 dtype)
+            n0 = ig.launches
+            got = upd(x, u, lam_, mu, x0, tp, cfg, iterations=True)
+            torch.cuda.synchronize()
+            if ig.launches != n0 + 1:
+                raise AssertionError(f"{which} B={B}: {ig.launches - n0} "
+                                     "launches")
+            shared, rows = ig.pack_inputs_batched(spec, x, u, lam_, mu, x0,
+                                                  tp, cfg, dtype)
+            out = ig.launch(spec, shared, rows, H, n_ref, H, it,
+                            integrator=integ)
+            singles = ig.rows_of_batch(shared, rows)
+            for b in range(B):
+                one = ig.update(spec, singles[b].contiguous(), H, n_ref, H,
+                                it, 1, integ)
+                if not torch.equal(one, out[b]):
+                    raise AssertionError(f"{which} B={B}: scenario {b} "
+                                         "parts from its single launch")
+            line = ""
+            plain_ms = None
+            if B <= 64:
+                t0 = time.perf_counter()
+                want = upd.reference(x, u, lam_, mu, x0, tp, cfg,
+                                     iterations=True)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                d = max(float((g.double() - w.double()).abs().max())
+                        for g, w in zip(got[:3], want[:3]))
+                tol = (GENERIC_TOL * float(want[0].abs().max())
+                       if dtype == torch.float64 else RSTP_X_ATOL)
+                if not d <= tol:
+                    raise AssertionError(f"{which} B={B}: the batch and the "
+                                         f"plain batched update part by {d}")
+                err = max(err, d)
+                line = (f", max diff to the plain batched update on the card "
+                        f"{d:.3e} (plain {plain_ms:.1f} ms)")
+            its = got[5].cpu().numpy()
+            bare, wrap = launcher_times(
+                f"ilqr_generic batch {which}", f"B={B}",
+                ig.bare(spec, shared, rows, H, n_ref, H, it,
+                        integrator=integ),
+                lambda: upd(x, u, lam_, mu, x0, tp, cfg), 5)
+            bound = ig.bound_ms(spec, H, n_ref, H, its, integrator=integ,
+                                dtype=dtype)
+            chain = ig.chain_ms(spec, H, H, int(its.max()), cycles, mhz,
+                                integ, dtype)
+            batches[(which, B)] = dict(
+                ms=bare, wrapper_ms=wrap, plain_ms=plain_ms, bound=bound,
+                chain=chain, solves_per_s=B / wrap * 1e3,
+                iterations_max=int(its.max()))
+            print(f"ilqr_generic batch {which} B={B} ({dtype}): every "
+                  f"scenario bit-equal to its single launch{line}; "
+                  f"iterations {int(its.min())}-{int(its.max())}; ms bare "
+                  f"{bare:.4f}, wrapper {wrap:.4f}, {B / wrap * 1e3:.0f} "
+                  f"solves/s; bound_ms {bound[0]:.6f} ({bound[1]}), "
+                  f"chain_ms {chain:.4f}")
+    return dict(err=err, times=times, batches=batches)
+
+
+def smooth_only_phase(ig, rstp, itm):
+    """The RSTP planner's ``smooth_only`` path on the card: SimStandalone on
+    ``demo/country_follow`` with the scenario's own sets and ``smooth_only``
+    turned on in the planning store, SMOOTH_TICKS ticks: one
+    ``ref_line_smoother_k`` launch of the generic kernel and one
+    ``velocity_profile_space`` launch of ``ilqr_rstp`` a replan, finite
+    controls, zero violations, the ego moving; prints the replan walls."""
+    import torch
+    from tpl_tpu_torch.simulation import SimStandalone
+
+    scenario = "demo/country_follow"
+    sim = SimStandalone(app_id="smoke_smooth_only", scenario_path=scenario)
+    store = sim.planning_app.sh_planners
+    with store.lock():
+        params = store.path_vel_decomp_planner.params
+        check_planning_set(scenario, store.active_planner, params)
+        params.smooth_only = True
+        check_planning_set(scenario, store.active_planner, params,
+                           smooth_only=True)
+    planner = sim.planning_app.planners["path_vel_decomp_planner"]
+    with sim.core.sh_state.lock():
+        ss = sim.core.sh_state.sim
+        ss.settings.running = True
+        ss.settings.use_real_time = False
+        ss.rule_checker.enable = True
+        x_start = ss.ego.x
+    replans = []
+    smooth = planner.path_smoothing.update
+
+    def counted(*a, **k):
+        replans.append(1)
+        return smooth(*a, **k)
+
+    planner.path_smoothing.update = counted
+    plan_ms = []
+    ig.by_problem["ref_line_smoother_k"] = 0
+    rstp.launches = itm.launches = 0
+    try:
+        for k in range(SMOOTH_TICKS):
+            sim.update()
+            torch.cuda.synchronize()
+            with store.lock():
+                plan_ms.append(store.runtime * 1e3)
+                traj = store.trajectory
+            with sim.control_app.sh_controllers.lock():
+                controls = np.array(sim.control_app.sh_controllers.controls)
+            if not np.all(np.isfinite(controls)):
+                raise AssertionError(f"smooth_only tick {k}: non-finite "
+                                     "controls")
+            if len(traj.x) and not np.all(np.isfinite(traj.velocity)):
+                raise AssertionError(f"smooth_only tick {k}: no finite "
+                                     "plan")
+    finally:
+        planner.path_smoothing.update = smooth
+    smoother = ig.by_problem["ref_line_smoother_k"]
+    with sim.core.sh_state.lock():
+        s = sim.core.sh_state.sim
+        violations = list(s.rule_checker.violations)
+        t_end, x_end, v_end = s.t, s.ego.x, s.ego.v
+    n = len(replans)
+    print(f"rstp smooth_only country_follow: {SMOOTH_TICKS} ticks to "
+          f"t={t_end:.2f} s, ego x {x_start:.2f} -> {x_end:.2f}, v "
+          f"{v_end:.2f} m/s, {len(violations)} violations, {n} replans, "
+          f"launches: ref_line_smoother_k {smoother}, ilqr_rstp "
+          f"{rstp.launches}, ilqr_tracking_mpc {itm.launches}; replan wall "
+          f"ms median {np.median(plan_ms[1:]):.3f} max "
+          f"{np.max(plan_ms[1:]):.3f}")
+    if violations:
+        raise AssertionError(f"smooth_only: rule violations {violations[:3]}")
+    if n < SMOOTH_TICKS - 5 or smoother != n or rstp.launches != n:
+        raise AssertionError(f"smooth_only: {smoother} smoother and "
+                             f"{rstp.launches} velocity launches for {n} "
+                             "replans")
+    if not x_end > x_start + 1.0:
+        raise AssertionError("smooth_only: the ego did not move")
+    return dict(launches=smoother, replans=n, ticks=SMOOTH_TICKS,
+                plan_median_ms=float(np.median(plan_ms[1:])),
+                plan_max_ms=float(np.max(plan_ms[1:])))
 
 
 def crane_phase(dev):
@@ -6117,7 +6552,14 @@ def deploy_child(app, app_id):
         update = ControlApp.update
 
         def solves(self):
-            update(self)
+            n0 = itm.launches
+            try:
+                update(self)
+            except BaseException:
+                # SIGTERM ended the process inside this update: what it
+                # launched has no finished solve
+                out["interrupted_launches"] = itm.launches - n0
+                raise
             mpc = self.controllers["model_predictive_controller"]
             if mpc.opt.updates != out.get("mpc_solves", 0):
                 out.setdefault("first", time.perf_counter())
@@ -6342,9 +6784,12 @@ def deploy_phase():
         raise AssertionError("write_debug_data seen by the planning "
                              f"process: {rs['write_debug_data']}")
     ctl = stats["control"]
-    if not ctl["launches"]["ilqr_tracking_mpc"] == ctl["mpc_solves"] > 0:
+    if not (ctl["launches"]["ilqr_tracking_mpc"] == ctl["mpc_solves"]
+            + ctl.get("interrupted_launches", 0) and ctl["mpc_solves"] > 0):
         raise AssertionError(f"control: {ctl['launches']}, "
-                             f"{ctl['mpc_solves']} solves")
+                             f"{ctl['mpc_solves']} solves, "
+                             f"{ctl.get('interrupted_launches', 0)} launches "
+                             "of the update SIGTERM ended")
     def per_s(n, rec):
         return n / max(rec["last"] - rec["first"], 1e-9)
 
@@ -6431,6 +6876,7 @@ def main(argv=()):
         as psp
     from tpl_tpu_torch.planning.dyn_prog import dp_environment as dpe
     from tpl_tpu_torch.planning.dyn_prog import poly_planner_kernel as ppk
+    from tpl_tpu_torch.optim import ilqr_generic as ig
 
     card = smi("name,power.limit")
     print(card)
@@ -6442,7 +6888,8 @@ def main(argv=()):
 
     t0 = time.perf_counter()
     _build.build(KERNELS)
-    for mod in (lam, itm, rstp, rmp, lat, tlk, plk, idk, pok, dpe, ppk, itt):
+    for mod in (lam, itm, rstp, rmp, lat, tlk, plk, idk, pok, dpe, ppk, itt,
+                ig):
         mod._kernel()
     native.get_lib()
     native.get_shm_lib()
@@ -6488,6 +6935,13 @@ def main(argv=()):
               opts.parent_csrc)
         print("kernels only: no loop was driven")
         return 0
+    # the genopt MPC's generated source, built beside the next phases (its
+    # nvcc is a process of its own; the thread is joined by the genopt
+    # phase, and at exit if a phase before it fails)
+    gen_build = {}
+    gen_build["thread"] = threading.Thread(target=build_genopt_source,
+                                           args=(gen_build,))
+    gen_build["thread"].start()
     phase("DP slice", slice_phase, lam, tllk)
     loop = phase("DP closed loop", closed_loop_phase, lam, itm)
     dp_first = phase("DP first replan", dp_first_replan_phase,
@@ -6542,7 +6996,9 @@ def main(argv=()):
                ctl[TIME_MPC]["picked"], dev, cycles, mhz, opts.parent_csrc)
     phase("tplsim run", tplsim_phase)
     phase("record and replay", record_replay_phase)
-    gen = phase("genopt MPC", genopt_phase, dev)
+    gen = phase("genopt MPC", genopt_phase, dev, gen_build, cycles, mhz)
+    igk = phase("iLQR generic", generic_phase, ig, dev, cycles, mhz)
+    smooth = phase("RSTP smooth_only", smooth_only_phase, ig, rstp, itm)
     phase("crane example", crane_phase, dev)
     bs = phase("batched DP slice", batch_slice_phase, lam, tllk, dev, mhz,
                opts.parent_csrc)
@@ -6823,6 +7279,51 @@ def main(argv=()):
         "dryrun_warm_s": dry["warm"],
         "genopt_mpc_max_abs_err": gen["err"],
         "genopt_mpc_card_ms": gen["card_ms"][1]})
+    # the generic AL-iLQR kernel: the native problems (launches on the
+    # smooth_only loop; times of ref_line_smoother_k at H=250, the others
+    # beside), the genopt MPC's generated kernel (launches in its phase) and
+    # the batch at B=2,048 (one launch a batched update)
+    sm = igk["times"][("ref_line_smoother_k", GENERIC_H[0])]
+    rows.append({
+        "name": "ilqr_generic", "route": "cuda",
+        "source": "tpl_tpu_torch/csrc/ilqr_generic.cu",
+        "replaces": "tpl_tpu/optim/ilqr.py:126",
+        "launches": smooth["launches"],
+        "per_replan": smooth["launches"] / max(smooth["replans"], 1),
+        "max_abs_err": igk["err"], "ms": sm["ms"],
+        "wrapper_ms": sm["wrapper_ms"], "plain_ms": sm["plain_ms"],
+        "bound_ms": sm["bound"][0], "bound_by": sm["bound"][1],
+        "chain_ms": sm["chain"], "library_ms": NO_LIBRARY,
+        "by_problem": {f"{n} H={H}": {k: (v[0] if k == "bound" else v)
+                                      for k, v in t.items()}
+                       for (n, H), t in igk["times"].items()},
+        "smooth_only_replan_median_ms": smooth["plan_median_ms"],
+        "smooth_only_replan_max_ms": smooth["plan_max_ms"]})
+    rows.append({
+        "name": "ilqr_generic_genopt_mpc", "route": "cuda",
+        "source": "tpl_tpu_torch/csrc/ilqr_generic_body.cuh",
+        "replaces": "tpl_tpu/optim/ilqr.py:126",
+        "launches": gen["launches"], "max_abs_err": gen["err"],
+        "ms": gen["ms"], "wrapper_ms": gen["wrapper_ms"],
+        "plain_ms": gen["plain_ms"], "bound_ms": gen["bound"][0],
+        "bound_by": gen["bound"][1], "chain_ms": gen["chain"],
+        "library_ms": NO_LIBRARY, "build_s": gen["build_s"],
+        "iterations": gen["iterations"], "split": gen["split"]})
+    for which in ("ref_line_smoother_k", "genopt_mpc"):
+        b = igk["batches"][(which, GENERIC_BATCHES[-1])]
+        rows.append({
+            "name": f"ilqr_generic_batched_{which}", "route": "cuda",
+            "source": "tpl_tpu_torch/csrc/ilqr_generic_body.cuh",
+            "replaces": "tpl_tpu/optim/batched.py:30",
+            "batch": GENERIC_BATCHES[-1], "launches": 1,
+            "max_abs_err": igk["err"], "ms": b["ms"],
+            "wrapper_ms": b["wrapper_ms"],
+            "plain_ms": igk["batches"][(which, 64)]["plain_ms"],
+            "plain_batch": 64, "bound_ms": b["bound"][0],
+            "bound_by": b["bound"][1], "chain_ms": b["chain"],
+            "library_ms": NO_LIBRARY, "solves_per_s": b["solves_per_s"],
+            "ms_by_batch": {B: igk["batches"][(which, B)]["ms"]
+                            for B in GENERIC_BATCHES}})
     # the multi-process deployment's launches, counted in its processes
     for row in rows:
         if row["name"] in dep["launches"]:

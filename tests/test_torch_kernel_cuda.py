@@ -33,7 +33,11 @@ it), ``invalid`` equal; the poly-sampling grid's winner equal, its float64
 rows to 1e-9 (the coefficient solves sum in another order); the graph DP
 planner's directional field cell for cell, its edge evaluation bit for bit
 (the same float32 operations in the same order, neither contracted) and
-its propagation's selections, costs and trajectory exactly.
+its propagation's selections, costs and trajectory exactly; the generic
+AL-iLQR kernel (``csrc/ilqr_generic.cu`` and the structs the sympy front end
+prints) in float64 against the plain float64 update at x, u, lam atol = rtol
+= 1e-9 with equal mu_step and iteration counts, in float32 at the RSTP
+tolerance above, a batch's rows bit-equal to single launches.
 """
 
 import subprocess
@@ -42,7 +46,9 @@ import numpy as np
 import pytest
 import torch
 
-from tpl_tpu_torch.optim import batched, ilqr, ilqr_rstp
+from tpl_tpu_torch import scenes
+from tpl_tpu_torch.optim import batched, genopt, ilqr, ilqr_rstp
+from tpl_tpu_torch.optim import ilqr_generic as ig
 from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
 from tpl_tpu_torch.optim import ilqr_tracking_mpc_time as itt
 from tpl_tpu_torch.optim import problems, solver
@@ -737,11 +743,11 @@ def test_batched_kernel_float32_matches_plain(cuda):
 @pytest.mark.cuda
 def test_batched_update_on_cuda_raises_for_other_problems(cuda):
     """A CUDA tensor launches the kernel or raises: no plain version in
-    silence."""
-    prob = problems.lateral_profile(128)[0]
+    silence (the time-indexed MPC has no batched kernel)."""
+    prob = problems.trajectory_tracking_mpc_time(128)[0]
     upd = batched.make_batched_update_fn(prob, 20, 2, ilqr.EULER,
-                                         torch.float32)
-    x, u, lam_, mu = batched.init_batch(prob, 20, 2, torch.float32, cuda)
+                                         torch.float64)
+    x, u, lam_, mu = batched.init_batch(prob, 20, 2, torch.float64, cuda)
     cfg = dict(T=20, max_iterations=2, max_lg_iterations=1)
     with pytest.raises(NotImplementedError, match="no batched kernel"):
         upd(x, u, lam_, mu, x[0], {}, cfg)
@@ -2097,3 +2103,136 @@ def test_multiprocess_apps_launch_their_kernels_on_the_card(cuda,
     # to the constant-deceleration fallback, which launches nothing
     assert control["ilqr_tracking_mpc"] > 0
     assert control["ilqr_rstp"] == 0
+
+
+# ---------------------------------------------------------------------
+# the generic AL-iLQR kernel
+
+GENERIC_TOL = 1e-9
+
+
+def _generic_solve(spec, inputs, params, mu, H, n_ref, T, it, lg, integ,
+                   dtype, dev, smem_limit=ig.SMEM_LIMIT):
+    host = ig.pack_inputs(spec, inputs, params, mu, dtype)
+    buf = torch.from_numpy(host)
+    before = ig.launches
+    out = ig.update(spec, buf.to(dev), H, n_ref, T, it, lg, integ,
+                    smem_limit=smem_limit)
+    torch.cuda.synchronize()
+    assert ig.launches == before + 1
+    ref = ig.update_reference(spec, buf, H, n_ref, T, it, lg, integ)
+    return (ig.unpack_outputs(spec, out.cpu().double().numpy(), H),
+            ig.unpack_outputs(spec, ref.double().numpy(), H))
+
+
+def _close_generic(got, want, it, dtype):
+    if dtype == torch.float64:
+        for k in ("x", "u", "lam"):
+            np.testing.assert_allclose(got[k], want[k], rtol=GENERIC_TOL,
+                                       atol=GENERIC_TOL, err_msg=k)
+        np.testing.assert_allclose(got["traj_costs"], want["traj_costs"],
+                                   rtol=GENERIC_TOL)
+        assert got["mu_step"] == want["mu_step"]
+        assert got["iterations"] == want["iterations"]
+    else:
+        _close_rstp(got, want, it)
+    assert 1 <= got["iterations"] <= it
+    assert np.all(np.isfinite(got["x"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", scenes.GENERIC_NATIVE)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("H,T,warm,integ,smem", [
+    (250, 250, False, ilqr.EULER, ig.SMEM_LIMIT),
+    (300, 280, True, ilqr.HEUN, 24 * 1024)])
+def test_generic_native_kernel_matches_plain(cuda, name, dtype, H, T, warm,
+                                             integ, smem):
+    inputs, params, mu, it = scenes.generic_native_case(name, H, T, warm,
+                                                        seed=H + warm)
+    spec = ig.NATIVE[name]
+    if smem < ig.SMEM_LIMIT:
+        assert ig.split(spec, H, 512, dtype, smem)[1] > 0
+    _close_generic(*_generic_solve(spec, inputs, params, mu, H, 512, T, it,
+                                   1, integ, dtype, cuda, smem), it, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["mpc", "every_function"])
+def test_generated_kernel_matches_plain(cuda, which):
+    if which == "mpc":
+        cfg = scenes.genopt_mpc_config()
+        inputs, params, mu = scenes.genopt_mpc_case(True, 2)
+        H, n_ref, it, lg, integ = 60, 128, 8, 1, ilqr.HEUN
+    else:
+        cfg = scenes.genopt_every_function_config()
+        inputs, params, mu = scenes.genopt_every_function_case(11)
+        H, n_ref, it, lg, integ = 40, 64, 6, 2, ilqr.RK4
+    spec = genopt.make_problem(cfg)[0].generated
+    _close_generic(*_generic_solve(spec, inputs, params, mu, H, n_ref, H, it,
+                                   lg, integ, torch.float64, cuda),
+                   it * lg, torch.float64)
+
+
+@pytest.mark.cuda
+def test_generic_batch_rows_equal_single_launches(cuda):
+    """A grid of 5 blocks: every row bit-equal to a single launch on it, the
+    batch within GENERIC_TOL of the plain batched update; the profiling
+    instantiation bit-equal."""
+    H, B = 120, 5
+    inputs, params, _, it = scenes.generic_native_case(
+        "ref_line_smoother_k", H, H, False, seed=1)
+    spec = ig.NATIVE["ref_line_smoother_k"]
+    rng = np.random.default_rng(2)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=cuda)
+    tp = {k: t(v) for k, v in params.items()}
+    cfg = dict(u_min=t(inputs["u_lims"][..., 0]),
+               u_max=t(inputs["u_lims"][..., 1]),
+               barrier_weight=t(inputs["bw_lim"][:, 0]),
+               lg_mult_limit=t(inputs["bw_lim"][:, 1]),
+               dt=t(inputs["cfg_f"][0]),
+               min_rel_cost_change=t(inputs["cfg_f"][1]), T=H,
+               max_iterations=it, max_lg_iterations=1)
+    x = torch.zeros((H + 1, 3, B), dtype=torch.float64, device=cuda)
+    u = t(rng.normal(0.0, 0.01, (H, 1, B)))
+    lam_ = torch.zeros((H, 1, B), dtype=torch.float64, device=cuda)
+    mu = torch.as_tensor(rng.integers(0, 3, B), dtype=torch.int32,
+                         device=cuda)
+    x0 = t(inputs["x"][0][:, None] + rng.normal(0.0, 0.2, (3, B)))
+    shared, rows = ig.pack_inputs_batched(spec, x, u, lam_, mu, x0, tp, cfg)
+    out = ig.launch(spec, shared, rows, H, 512, H, it)
+    singles = ig.rows_of_batch(shared, rows)
+    for b in range(B):
+        one = ig.update(spec, singles[b].contiguous(), H, 512, H, it, 1)
+        assert torch.equal(out[b], one), b
+    cycles = torch.zeros(len(ilqr.PHASES), dtype=torch.int64, device=cuda)
+    prof = ig.launch(spec, shared, rows, H, 512, H, it, cycles=cycles)
+    assert torch.equal(out, prof) and bool((cycles > 0).all())
+    upd = batched.make_batched_update_fn(spec.problem, H, B, ilqr.EULER,
+                                         torch.float64)
+    got = upd(x, u, lam_, mu, x0, tp, cfg, iterations=True)
+    want = upd.reference(x, u, lam_, mu, x0, tp, cfg, iterations=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.double().cpu().numpy(),
+                                   w.double().cpu().numpy(),
+                                   rtol=GENERIC_TOL, atol=GENERIC_TOL)
+
+
+@pytest.mark.cuda
+def test_genopt_solver_launches_its_generated_kernel(cuda, monkeypatch):
+    """A genopt Solver on the card: one generated-kernel launch an update,
+    the plain version never called."""
+    opt = genopt.build(scenes.genopt_mpc_config(), dtype=torch.float64)()
+    monkeypatch.setattr(ilqr, "make_update_fn", lambda *a, **k: pytest.fail(
+        "the card solve took the plain version"))
+    inputs, x0 = scenes.genopt_mpc_solve_inputs()
+    for k, v in inputs.items():
+        setattr(opt.params, k, v)
+    opt.horizon, opt.step, opt.max_iterations = 60, 0.05, 8
+    opt.x[0] = x0
+    for _ in range(2):
+        before = ig.by_problem.get("mpc_sympy", 0)
+        opt.update()
+        assert ig.by_problem["mpc_sympy"] == before + 1
+        opt.shift(1)
+    assert np.all(np.isfinite(opt.x)) and opt.iterations >= 1

@@ -35,6 +35,10 @@ one after the other:
   (its profiling instantiation bit-equal on each),
 - the RSTP kernel's template instantiated in double on a lateral and a
   velocity problem at H = 250,
+- the generic AL-iLQR body (``csrc/ilqr_generic.cu``) in double on the
+  three native problems without a kernel of their own at H = 250
+  (tests/test_torch_ilqr_generic.py holds it and the structs the sympy
+  front end prints on more cases, and against JAX),
 
 each against the plain float64 ``make_update_fn`` at 1e-12 (atol + rtol;
 the two keep the same operation order and differ only in how the
@@ -150,6 +154,7 @@ STUB = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __restrict__
 #define __shared__
 #define __launch_bounds__(...)
@@ -2090,6 +2095,7 @@ HARNESS = r"""
 #include "ilqr_tracking_mpc.cu"
 #include "ilqr_tracking_mpc_time.cu"
 #include "ilqr_rstp.cu"
+#include "ilqr_generic.cu"
 #include "rstp_rampify.cu"
 #include "latlon_action_min.cu"
 #include "lon_dp.cu"
@@ -2329,6 +2335,7 @@ namespace ilqr_mpc { alignas(16) unsigned char smem_raw[262144]; }
 namespace ilqr_mpc_f32 { alignas(16) unsigned char smem_raw[262144]; }
 namespace ilqr_mpc_time { alignas(16) unsigned char smem_raw[262144]; }
 namespace ilqr_rstp { alignas(16) unsigned char smem_raw[262144]; }
+namespace ilqr_generic { alignas(16) unsigned char smem_raw[262144]; }
 namespace rstp_rampify { alignas(16) unsigned char smem_raw[65536]; }
 namespace latlon_am { alignas(16) unsigned char smem_raw[262144]; }
 namespace lon_dp { alignas(16) unsigned char smem_raw[262144]; }
@@ -2998,6 +3005,46 @@ extern "C" void rehearse_rstp(int problem, const double* in, double* out,
   });
 }
 
+// the generic AL-iLQR body on a native problem (csrc/ilqr_generic.cu), in
+// double, one block
+template <class P>
+static void rehearse_generic_one(int integ, const double* shared,
+                                 const double* rows, double* out, double* ws,
+                                 int H, int n_ref, int T, int max_it,
+                                 int max_lg, size_t smem_limit) {
+  using namespace ilqr_generic;
+  double* smd = reinterpret_cast<double*>(smem_raw);
+  const size_t cap = smem_limit / sizeof(double);
+  typedef Solve<P, double> S;
+  run_block([=] {
+    if (integ == EULER)
+      S::template run<EULER, false>(smd, ws, cap, shared, rows, out, nullptr,
+                                    H, n_ref, T, max_it, max_lg);
+    else if (integ == HEUN)
+      S::template run<HEUN, false>(smd, ws, cap, shared, rows, out, nullptr,
+                                   H, n_ref, T, max_it, max_lg);
+    else
+      S::template run<RK4, false>(smd, ws, cap, shared, rows, out, nullptr,
+                                  H, n_ref, T, max_it, max_lg);
+  });
+}
+
+extern "C" void rehearse_generic_native(int problem, int integ,
+                                        const double* shared,
+                                        const double* rows, double* out,
+                                        double* ws, int H, int n_ref, int T,
+                                        int max_it, int max_lg,
+                                        size_t smem_limit) {
+  using namespace ilqr_generic;
+#define X(ID, P)                                                          \
+  if (problem == ID)                                                      \
+    return rehearse_generic_one<P<double>>(integ, shared, rows, out, ws,  \
+                                           H, n_ref, T, max_it, max_lg,   \
+                                           smem_limit);
+  ILQR_GENERIC_PROBLEMS(X)
+#undef X
+}
+
 extern "C" size_t rehearse_rstp_smem(int problem, int H, int n_ref) {
   using namespace ilqr_rstp;
   return problem == 0
@@ -3049,6 +3096,13 @@ def bodies(tmp_path_factory):
                                   + [ctypes.c_int] * 5)
     lib.rehearse_rstp_smem.restype = ctypes.c_size_t
     lib.rehearse_rstp_smem.argtypes = [ctypes.c_int] * 3
+    lib.rehearse_generic_native.restype = None
+    lib.rehearse_generic_native.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        + [ctypes.c_size_t])
+    lib.ilqr_generic_split.restype = ctypes.c_size_t
+    lib.ilqr_generic_split.argtypes = ([ctypes.c_int] * 4
+                                       + [ctypes.c_size_t, ctypes.c_int])
     lib.rehearse_rampify.restype = None
     lib.rehearse_rampify.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
     lib.rehearse_rampify_start.restype = None
@@ -3644,6 +3698,34 @@ def test_rstp_kernel_body_in_double_matches_plain(bodies, name, T, warm):
     assert got["iterations"] == ref["iterations"]
     assert 1 <= got["iterations"] <= args[3]
     assert np.all(np.isfinite(got["x"]))
+
+
+@pytest.mark.parametrize("name,integ", [
+    ("ref_line_smoother_k", ilqr.EULER), ("ref_line_smoother_dk", ilqr.HEUN),
+    ("velocity_profile_time", ilqr.RK4)])
+def test_generic_native_body_in_double_matches_plain(bodies, name, integ):
+    """The generic AL-iLQR body (csrc/ilqr_generic.cu) on the native
+    problems without a kernel of their own, H = 250, against the plain
+    float64 make_update_fn (the cases of tests/test_torch_ilqr_generic.py,
+    which also runs them at H = 300, warm, and against JAX)."""
+    import test_torch_ilqr_generic as tig
+    from tpl_tpu_torch.optim import ilqr_generic as ig
+
+    H = RSTP_H
+    spec, inputs, params, mu, it = tig.native_case(name, H, H, False, seed=4)
+    host = ig.pack_inputs(spec, inputs, params, mu)
+    n_sh = ig._size(ig.shared_layout(spec, H, tig.N_REF))
+    ws_words = bodies.ilqr_generic_split(spec.id, 1, H, tig.N_REF,
+                                         ig.SMEM_LIMIT, 1)
+    ws = np.zeros(max(ws_words, 1))
+    out = np.zeros(ig._size(ig.output_layout(spec, H)))
+    shared, row = host[:n_sh].copy(), host[n_sh:].copy()
+    bodies.rehearse_generic_native(spec.id, integ, _ptr(shared), _ptr(row),
+                                   _ptr(out), _ptr(ws), H, tig.N_REF, H, it,
+                                   1, ig.SMEM_LIMIT)
+    tig.assert_matches(ig.unpack_outputs(spec, out, H),
+                       tig.plain(spec, host, H, tig.N_REF, H, it, 1, integ),
+                       it)
 
 
 # ---------------------------------------------------------------------

@@ -211,6 +211,11 @@ gprob, _ = genopt.make_problem(genopt.Config(
     costs=[xs * symext.fixed(xs), sp.Integer(3)]))
 gx = torch.ones(3, 1, dtype=torch.float64)
 assert gprob.cost(gx, gx, torch.arange(3), 0.1, {}).shape == (3,)
+from tpl_tpu_torch.optim import ilqr_generic
+from tpl_tpu_torch.scenes import genopt_mpc_config
+gen = genopt.make_problem(genopt_mpc_config())[0].generated
+assert "struct Gen_mpc_sympy" in ilqr_generic.source_text(gen, torch.float64)
+assert gprob.generated is not None and ilqr_generic.launches == 0
 assert optimizers.lateral_profile(device="cpu").dtype == torch.float32
 spec = dict(t_steps=4, s_steps=41, ds_steps=5, l_steps=7)
 dist, rl, pp, x0 = dp_batch_scenes(2, 4, 41, 7, nan=False)
@@ -280,6 +285,7 @@ def test_port_runs_without_jax():
     "tpl_tpu_torch/planning/dyn_prog/dp_poly_planner.py",
     "tpl_tpu_torch/scenes.py", "tpl_tpu_torch/control",
     "tpl_tpu_torch/optim/ilqr_tracking_mpc_time.py",
+    "tpl_tpu_torch/optim/ilqr_generic.py",
     "tpl_tpu_torch/simulation", "tpl_tpu_torch/util/hotreload.py",
     "tpl_tpu_torch/optim/genopt.py", "tpl_tpu_torch/optim/symext.py",
     "tpl_tpu_torch/optim/optimizers.py", "tpl_tpu_torch/parallel",

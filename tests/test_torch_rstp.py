@@ -448,8 +448,11 @@ PLAN_H = 100
 PLAN_TICKS = 5
 
 
-@pytest.mark.parametrize("use_fused", [True, False])
-def test_planner_matches_jax(use_fused):
+@pytest.mark.parametrize("use_fused,smooth_only", [
+    pytest.param(True, False, id="True"),
+    pytest.param(False, False, id="False"),
+    pytest.param(False, True, id="smooth_only")])
+def test_planner_matches_jax(use_fused, smooth_only):
     world = ScenarioWorld("demo/country_follow")
     tag = uuid.uuid4().hex[:8]
     stacks = [SliceStack(apps, world, p + tag,
@@ -460,6 +463,22 @@ def test_planner_matches_jax(use_fused):
         with store.lock():
             store.path_vel_decomp_planner.params.horizon = PLAN_H
             store.path_vel_decomp_planner.params.use_fused = use_fused
+            store.path_vel_decomp_planner.params.smooth_only = smooth_only
+            # the smoother's own horizon too (the velocity solve takes its
+            # path)
+            store.path_vel_decomp_planner.params.path_smoothing.horizon = \
+                PLAN_H
+    if smooth_only:
+        # Both packages' smoothing and velocity solves in float64: in
+        # float32 the two smoothing solves part by a rounding of the
+        # curvature (~1e-5 after 5 iterations), and the velocity solve of
+        # either package turns a 1e-5 change of its curvature table into
+        # m/s (JAX's own smoothed path with 1e-5 of noise moves the port's
+        # profile by 5.7 m/s; without the noise the two agree to 8e-4).
+        for st, f64 in zip(stacks, (jnp.float64, torch.float64)):
+            for opt in (st.planner.path_smoothing.opt,
+                        st.planner.velocity_optim.opt):
+                opt.dtype = f64
     for k in range(PLAN_TICKS):
         t = round(0.1 * k, 5)
         jt, tt = (st.step(t) for st in stacks)

@@ -4,7 +4,10 @@ for the host C++ routines of ``native/``.
 
 Each kernel source is compiled by ``nvcc`` (:func:`load`), each host source
 by ``g++`` (:func:`load_host`), into a shared library with a plain C
-interface and loaded with ``ctypes``.  Libraries land in
+interface and loaded with ``ctypes``.  A generated kernel source (the
+sympy front end's, :func:`load_generated`) is written to the build
+directory and compiled the same way, its ``#include``s resolved in
+``csrc/``.  Libraries land in
 ``build/tpl_tpu_torch/`` at the repository root, keyed by a hash of the
 source, the headers it includes from its own directory and the flags, so an
 edited source or header rebuilds and an unchanged one loads straight away.
@@ -89,32 +92,81 @@ def _paths(name, csrc=None):
     return src, _library(src, NVCC_FLAGS)
 
 
-def build(names, csrc=None):
-    """Compile every missing ``<name>.cu`` of ``names`` (under ``csrc/``, or
-    under the directory ``csrc`` given), one ``nvcc`` per source, all
-    started together.  Raises on the first failure."""
-    jobs = []
-    for name in names:
-        src, so = _paths(name, csrc)
-        if os.path.exists(so):
-            continue
+def _nvcc(jobs, log=True):
+    """Compile ``jobs`` ((name, source, library, extra flags)), one ``nvcc``
+    each, all started together; keeps each compiler output in BUILD_LOG
+    where ``log``.  Raises on the first failure."""
+    procs = []
+    for name, src, so, extra in jobs:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.tmp{os.getpid()}"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-        jobs.append((name, so, tmp, cmd, subprocess.Popen(
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", tmp, src]
+        procs.append((name, so, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
-    for name, so, tmp, cmd, proc in jobs:
+    for name, so, tmp, cmd, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"building {name} failed ({' '.join(cmd)}):\n{out}")
             continue
-        if csrc is None:
+        if log:
             BUILD_LOG[name] = out
         os.replace(tmp, so)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def build(names, csrc=None):
+    """Compile every missing ``<name>.cu`` of ``names`` (under ``csrc/``, or
+    under the directory ``csrc`` given), one ``nvcc`` per source, all
+    started together.  Raises on the first failure."""
+    jobs = [(name, *_paths(name, csrc), ()) for name in names]
+    _nvcc([j for j in jobs if not os.path.exists(j[2])], log=csrc is None)
+
+
+def _generated(tag, text):
+    """(source path, library path) of the generated source ``text``: both
+    named by ``tag`` and the hash of the text, the ``csrc/`` headers it
+    includes and the flags."""
+    data, seen = text.encode(), set()
+    for inc in _INCLUDE.findall(data):
+        data += _sources(os.path.join(CSRC, inc.decode()), seen)
+    flags = [*NVCC_FLAGS, "-I", CSRC]
+    digest = hashlib.sha1(data + " ".join(flags).encode()).hexdigest()[:16]
+    stem = os.path.join(BUILD_DIR, f"{tag}_{digest}")
+    return stem + ".cu", stem + ".so"
+
+
+def build_generated(sources):
+    """Compile every generated source of ``sources`` ((tag, text) pairs)
+    whose library is missing, one ``nvcc`` each, all started together.
+    Raises on the first failure."""
+    jobs = []
+    for tag, text in sources:
+        src, so = _generated(tag, text)
+        if os.path.exists(so):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(f"{src}.tmp{os.getpid()}", "w") as f:
+            f.write(text)
+        os.replace(f"{src}.tmp{os.getpid()}", src)
+        jobs.append((tag, src, so, ("-I", CSRC)))
+    _nvcc(jobs)
+
+
+def load_generated(tag, text):
+    """Compile (if needed) and load the generated kernel source ``text``;
+    returns the ``ctypes.CDLL``."""
+    with _LOCK:
+        key = ("generated", tag, text)
+        lib = _LOADED.get(key)
+        if lib is not None:
+            return lib
+        build_generated([(tag, text)])
+        lib = ctypes.CDLL(_generated(tag, text)[1])
+        _LOADED[key] = lib
+        return lib
 
 
 def load(name, csrc=None):

@@ -66,396 +66,14 @@
 #include <stddef.h>
 
 #include "ilqr_common.cuh"
+#include "ilqr_jet.cuh"
+#include "ilqr_rstp_problems.cuh"
 #include "smem_limit.cuh"
 
 namespace ilqr_rstp {
 
 using namespace ilqr_common;
-
-
-// ---------------------------------------------------------------------
-// scalar math, float and double
-
-__device__ __forceinline__ float fsin(float a) { return sinf(a); }
-__device__ __forceinline__ float fcos(float a) { return cosf(a); }
-__device__ __forceinline__ float fatan(float a) { return atanf(a); }
-__device__ __forceinline__ float ffloor(float a) { return floorf(a); }
-__device__ __forceinline__ float fceil(float a) { return ceilf(a); }
-__device__ __forceinline__ double fsin(double a) { return sin(a); }
-__device__ __forceinline__ double fcos(double a) { return cos(a); }
-__device__ __forceinline__ double fatan(double a) { return atan(a); }
-__device__ __forceinline__ double ffloor(double a) { return floor(a); }
-__device__ __forceinline__ double fceil(double a) { return ceil(a); }
-
-// torch.clamp: NaN passes through
-template <typename R>
-__device__ __forceinline__ R clampr(R x, R lo, R hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-// ---------------------------------------------------------------------
-// second-order forward-mode number over the N variables (x, u)
-
-template <typename R, int N>
-struct Jet {
-  static constexpr int NH = N * (N + 1) / 2;   // packed upper triangle
-  R v;
-  R g[N];
-  R h[NH];
-
-  Jet() = default;
-  __device__ explicit Jet(R c) : v(c) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) g[i] = R(0);
-#pragma unroll
-    for (int i = 0; i < NH; ++i) h[i] = R(0);
-  }
-};
-
-template <int N>
-__device__ __forceinline__ int hidx(int i, int j) {  // i <= j
-  return i * N - (i * (i - 1)) / 2 + (j - i);
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> jvar(R c, int k) {
-  Jet<R, N> r(c);
-  r.g[k] = R(1);
-  return r;
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> operator+(const Jet<R, N>& a,
-                                               const Jet<R, N>& b) {
-  Jet<R, N> r;
-  r.v = a.v + b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.g[i] = a.g[i] + b.g[i];
-#pragma unroll
-  for (int i = 0; i < Jet<R, N>::NH; ++i) r.h[i] = a.h[i] + b.h[i];
-  return r;
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> operator-(const Jet<R, N>& a,
-                                               const Jet<R, N>& b) {
-  Jet<R, N> r;
-  r.v = a.v - b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.g[i] = a.g[i] - b.g[i];
-#pragma unroll
-  for (int i = 0; i < Jet<R, N>::NH; ++i) r.h[i] = a.h[i] - b.h[i];
-  return r;
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> operator+(const Jet<R, N>& a, R b) {
-  Jet<R, N> r = a;
-  r.v = a.v + b;
-  return r;
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> operator+(R b, const Jet<R, N>& a) {
-  Jet<R, N> r = a;
-  r.v = b + a.v;
-  return r;
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> operator-(const Jet<R, N>& a, R b) {
-  Jet<R, N> r = a;
-  r.v = a.v - b;
-  return r;
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> operator-(R b, const Jet<R, N>& a) {
-  Jet<R, N> r;
-  r.v = b - a.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.g[i] = -a.g[i];
-#pragma unroll
-  for (int i = 0; i < Jet<R, N>::NH; ++i) r.h[i] = -a.h[i];
-  return r;
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> operator*(const Jet<R, N>& a, R b) {
-  Jet<R, N> r;
-  r.v = a.v * b;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.g[i] = a.g[i] * b;
-#pragma unroll
-  for (int i = 0; i < Jet<R, N>::NH; ++i) r.h[i] = a.h[i] * b;
-  return r;
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> operator*(R b, const Jet<R, N>& a) {
-  Jet<R, N> r;
-  r.v = b * a.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.g[i] = b * a.g[i];
-#pragma unroll
-  for (int i = 0; i < Jet<R, N>::NH; ++i) r.h[i] = b * a.h[i];
-  return r;
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> operator*(const Jet<R, N>& a,
-                                               const Jet<R, N>& b) {
-  Jet<R, N> r;
-  r.v = a.v * b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.g[i] = a.v * b.g[i] + b.v * a.g[i];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = i; j < N; ++j) {
-      const int k = hidx<N>(i, j);
-      r.h[k] = a.v * b.h[k] + b.v * a.h[k] + a.g[i] * b.g[j]
-               + a.g[j] * b.g[i];
-    }
-  return r;
-}
-
-// q = a / b: a = q b, so q' = (a' - q b') / b and
-// q'' = (a'' - q' b'^T - b' q'^T - q b'') / b
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> operator/(const Jet<R, N>& a,
-                                               const Jet<R, N>& b) {
-  Jet<R, N> r;
-  r.v = a.v / b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.g[i] = (a.g[i] - r.v * b.g[i]) / b.v;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = i; j < N; ++j) {
-      const int k = hidx<N>(i, j);
-      r.h[k] = (a.h[k] - r.g[i] * b.g[j] - r.g[j] * b.g[i] - r.v * b.h[k])
-               / b.v;
-    }
-  return r;
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> operator/(R a, const Jet<R, N>& b) {
-  return Jet<R, N>(a) / b;
-}
-
-// f(a) with f(a.v) = f0, f'(a.v) = f1, f''(a.v) = f2
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> chain(const Jet<R, N>& a, R f0, R f1,
-                                           R f2) {
-  Jet<R, N> r;
-  r.v = f0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) r.g[i] = f1 * a.g[i];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = i; j < N; ++j) {
-      const int k = hidx<N>(i, j);
-      r.h[k] = f1 * a.h[k] + f2 * a.g[i] * a.g[j];
-    }
-  return r;
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> fcos(const Jet<R, N>& a) {
-  const R s = fsin(a.v), c = fcos(a.v);
-  return chain(a, c, -s, -c);
-}
-
-template <typename R, int N>
-__device__ __forceinline__ Jet<R, N> fatan(const Jet<R, N>& a) {
-  const R d = R(1) + a.v * a.v;
-  return chain(a, fatan(a.v), R(1) / d, R(-2) * a.v / (d * d));
-}
-
-template <typename R>
-__device__ __forceinline__ R val(R a) { return a; }
-template <typename R, int N>
-__device__ __forceinline__ R val(const Jet<R, N>& a) { return a.v; }
-template <class S>
-__device__ __forceinline__ S sq(const S& a) { return a * a; }
-
-// ---------------------------------------------------------------------
-// table lookups at the step's arc length (tpl_tpu_torch/ops/interp.py)
-
-template <typename R>
-struct Lookup {
-  int i0, i1;
-  R a;
-};
-
-// lerp / lerp_multi at (s - 0) / step: clamped floor / ceil indices and
-// alpha (a NaN query reads row 0; its alpha stays NaN)
-template <typename R>
-__device__ __forceinline__ Lookup<R> lerp_at(R s, R step, int n) {
-  const R q = s / step;
-  const R qs = isnan(q) ? R(0) : q;
-  const R f0 = clampr(ffloor(qs), R(0), R(n - 1));
-  const R f1 = clampr(fceil(qs), R(0), R(n - 1));
-  Lookup<R> r;
-  r.i0 = (int)f0;
-  r.i1 = (int)f1;
-  r.a = clampr(q - f0, R(0), R(1));
-  return r;
-}
-
-template <typename R>
-__device__ __forceinline__ R lerp_row(const Lookup<R>& lk, const R* tab) {
-  return tab[lk.i0] + lk.a * (tab[lk.i1] - tab[lk.i0]);
-}
-
-// box_interp: the row below s / step, clamped
-template <typename R>
-__device__ __forceinline__ R box_row(R s, R step, int n, const R* tab) {
-  R q = s / step;
-  q = isnan(q) ? R(0) : q;
-  return tab[(int)clampr(ffloor(q), R(0), R(n - 1))];
-}
-
-// ---------------------------------------------------------------------
-// the problems (tpl_tpu_torch/optim/problems.py)
-
-template <typename R>
-struct Prm {
-  const R* s;     // scalars
-  const R* tab;   // the problem's tables, n_ref each
-  int n_ref;
-  R dt;
-};
-
-// lateral_profile: states (d, v_d), action a_d
-template <typename R>
-struct Lateral {
-  static constexpr int NX = 2, NU = 1, NC = 2, NS = 5, NT = 4;
-  static constexpr bool END_COST = true;
-  enum { REF_STEP, W_D, W_V_D, W_A_D, W_K };
-  enum { K_REF, D_OFFSET, D_LOWER, D_UPPER };
-
-  struct Ref {
-    R k_r, d_o, d_lo, d_up;
-  };
-
-  // the reference at arc length s
-  __device__ static Ref ref_at(const Prm<R>& P, R s) {
-    const int n = P.n_ref;
-    const Lookup<R> lk = lerp_at(s, P.s[REF_STEP], n);
-    Ref r;
-    r.k_r = lerp_row(lk, P.tab + K_REF * n);
-    r.d_o = lerp_row(lk, P.tab + D_OFFSET * n);
-    r.d_lo = lerp_row(lk, P.tab + D_LOWER * n);
-    r.d_up = lerp_row(lk, P.tab + D_UPPER * n);
-    return r;
-  }
-
-  template <class S>
-  __device__ static void dynamics(const Prm<R>&, const Ref&, const S* x,
-                                  const S* u, S* f) {
-    f[0] = x[1];
-    f[1] = u[0];
-  }
-
-  template <class S>
-  __device__ static S cost(const Prm<R>& P, const Ref& r, const S* x,
-                           const S* u) {
-    const S& d = x[0];
-    const S& v_d = x[1];
-    const S& a_d = u[0];
-    const R* p = P.s;
-    const S k = (a_d / (sq(v_d) + R(1)) + r.k_r) * fcos(fatan(v_d))
-                / (R(1) - d * r.k_r);
-    S c = p[W_D] * sq(d - r.d_o) + p[W_V_D] * sq(v_d);
-    c = c + p[W_A_D] * sq(a_d);
-    return c + p[W_K] * sq(k);
-  }
-
-  template <class S>
-  __device__ static void constraints(const Prm<R>&, const Ref& r, const S* x,
-                                     const S*, S* g) {
-    g[0] = r.d_lo - x[0];
-    g[1] = x[0] - r.d_up;
-  }
-
-  // r: the reference at the end's arc length T*dt
-  template <class S>
-  __device__ static S end_cost(const Prm<R>& P, const Ref& r, const S* x) {
-    return P.s[W_D] * sq(x[0] - r.d_o) + P.s[W_V_D] * sq(x[1]);
-  }
-};
-
-// velocity_profile_space: states (v, st), action a
-template <typename R>
-struct Velocity {
-  static constexpr int NX = 2, NU = 1, NC = 5, NS = 4, NT = 6;
-  static constexpr bool END_COST = false;
-  enum { P_V, P_A, MAX_A_TOTAL, REF_STEP };
-  enum { REF_V, REF_K, REF_T_MAX, REF_T_MIN, REF_T_OFFSET, REF_V_WEIGHT };
-
-  struct Ref {
-    R v_trg, v_w, t_min, t_max, kk, t_off;
-  };
-
-  // the reference at arc length s
-  __device__ static Ref ref_at(const Prm<R>& P, R s) {
-    const int n = P.n_ref;
-    const Lookup<R> lk = lerp_at(s, P.s[REF_STEP], n);
-    Ref r;
-    r.v_trg = lerp_row(lk, P.tab + REF_V * n);
-    r.v_w = lerp_row(lk, P.tab + REF_V_WEIGHT * n);
-    r.t_min = lerp_row(lk, P.tab + REF_T_MIN * n);
-    r.t_max = lerp_row(lk, P.tab + REF_T_MAX * n);
-    r.kk = box_row(s, P.s[REF_STEP], n, P.tab + REF_K * n);
-    r.t_off = box_row(s, P.s[REF_STEP], n, P.tab + REF_T_OFFSET * n);
-    return r;
-  }
-
-  // dv/ds = a/v, dt/ds = 1/v above v = 1 + 1e-3; a and t_offset below
-  template <class S>
-  __device__ static void dynamics(const Prm<R>&, const Ref& r, const S* x,
-                                  const S* u, S* f) {
-    if (val(x[0]) > (R)(1.0 + 1e-3)) {
-      f[0] = u[0] / x[0];
-      f[1] = R(1) / x[0];
-    } else {
-      f[0] = u[0];
-      f[1] = S(r.t_off);
-    }
-  }
-
-  template <class S>
-  __device__ static S cost(const Prm<R>& P, const Ref& r, const S* x,
-                           const S* u) {
-    const R* p = P.s;
-    return p[P_V] * sq(r.v_trg - x[0]) * r.v_w + p[P_A] * sq(u[0]);
-  }
-
-  template <class S>
-  __device__ static void constraints(const Prm<R>& P, const Ref& r,
-                                     const S* x, const S* u, S* g) {
-    const S& v = x[0];
-    const S& st = x[1];
-    const S a_lat = sq(v) * r.kk;
-    g[0] = (sq(u[0]) + sq(a_lat)) - sq(P.s[MAX_A_TOTAL]);
-    g[1] = R(1) - v;
-    g[2] = v - r.v_trg;
-    g[3] = (st + r.t_off) - r.t_max;
-    if (r.t_min > R(0))
-      g[4] = (r.t_min - st) * (v - R(1));
-    else
-      g[4] = (r.t_min - st) * R(1);
-  }
-
-  template <class S>
-  __device__ static S end_cost(const Prm<R>&, const Ref&, const S*) {
-    return S(R(0));
-  }
-};
+using namespace ilqr_jet;
 
 // ---------------------------------------------------------------------
 // the solve, generic in the problem

@@ -11,9 +11,15 @@ the two packages' tensors compare directly; inside, the batch leads
 On CUDA tensors ``trajectory_tracking_mpc`` launches the hand-written
 kernel ``csrc/ilqr_tracking_mpc.cu``'s batched entry, a warp per scenario
 (:func:`tpl_tpu_torch.optim.ilqr_tracking_mpc.update_batched`), in float64
-and in float32; any other problem on CUDA tensors raises.  On CPU tensors
-the plain version below runs: generic in the problem, float32 and float64,
-EULER / HEUN / RK4.
+and in float32.  The native problems of the generic kernel
+(``ref_line_smoother_k``, ``ref_line_smoother_dk``,
+``velocity_profile_time``, ``lateral_profile``,
+``velocity_profile_space``) and every sympy problem with a printed struct
+launch ``csrc/ilqr_generic_body.cuh`` on a grid of B blocks, a block a
+scenario (:func:`tpl_tpu_torch.optim.ilqr_generic.update_batched`), float32
+and float64, EULER / HEUN / RK4.  Any other problem on CUDA tensors raises
+(:func:`no_batched_kernel_message`).  On CPU tensors the plain version below
+runs: generic in the problem, float32 and float64, EULER / HEUN / RK4.
 
 Algorithm semantics match :mod:`tpl_tpu_torch.optim.ilqr` (same AL update,
 line search, mu schedule, termination), per scenario: each scenario has its
@@ -30,8 +36,17 @@ reports, as a statistic, how many candidates that order rolls
 import torch
 
 import tpl_tpu_torch
-from tpl_tpu_torch.optim import ilqr, ilqr_tracking_mpc
+from tpl_tpu_torch.optim import ilqr, ilqr_generic, ilqr_tracking_mpc
 from tpl_tpu_torch.optim.ilqr import EULER, HEUN, RK4  # noqa: F401
+
+
+def no_batched_kernel_message(name):
+    """Why a problem raises on CUDA tensors: the problems that have a
+    batched kernel."""
+    have = ["trajectory_tracking_mpc"] + list(ilqr_generic.NATIVE)
+    return (f"no batched kernel for problem {name!r}: on CUDA tensors the "
+            f"batch solves {', '.join(have)} and every sympy (genopt) "
+            "problem with a generated struct")
 
 
 def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
@@ -274,12 +289,15 @@ def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
             return reference(x, u, lam, mu_step, x0, params, cfg, iterations)
         if kind != "cuda":
             raise ValueError(f"unsupported device {kind}")
-        if prob.kernel != "trajectory_tracking_mpc":
-            raise NotImplementedError(
-                f"no batched kernel for problem {prob.name!r}: on CUDA "
-                "tensors only trajectory_tracking_mpc is solved")
-        out = ilqr_tracking_mpc.update_batched(
-            x, u, lam, mu_step, x0, params, cfg, integrator, dtype)
+        if prob.kernel == "trajectory_tracking_mpc":
+            out = ilqr_tracking_mpc.update_batched(
+                x, u, lam, mu_step, x0, params, cfg, integrator, dtype)
+        elif ilqr_generic.spec_of(prob) is not None:
+            out = ilqr_generic.update_batched(
+                ilqr_generic.spec_of(prob), x, u, lam, mu_step, x0, params,
+                cfg, integrator, dtype, per_instance)
+        else:
+            raise NotImplementedError(no_batched_kernel_message(prob.name))
         return out if iterations else out[:5]
 
     update.reference = reference

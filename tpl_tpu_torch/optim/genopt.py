@@ -40,22 +40,39 @@ functions for :class:`tpl_tpu_torch.optim.ilqr.Problem`:
 :class:`tpl_tpu_torch.optim.solver.Solver` with the config's parameter
 defaults applied — the same call shape as the reference
 (``opt = genopt.build(cfg)()``).  The solver runs on
-``tpl_tpu_torch.device()`` (the card) unless a device is given, and always
-solves with the plain iLQR: a hand-written kernel hard-codes its own
-problem, so a translated problem never takes one, whatever its name.
+``tpl_tpu_torch.device()`` (the card) unless a device is given.
+
+On the card a config solves in one kernel launch an update, as the JAX
+package's solve is one XLA program: the CUDA printer (:func:`cuda_struct`)
+prints the config's sympy expressions, after ``sp.cse``, as a problem
+struct in C++ over the forward-mode jet of ``csrc/ilqr_jet.cuh``, and the
+generic AL-iLQR body (``csrc/ilqr_generic_body.cuh``) is instantiated for
+it.  The source lands in ``build/tpl_tpu_torch/`` and ``nvcc`` builds it at
+its first solve on a CUDA device (``build_parallel`` on a CUDA device
+builds its configs' sources at once, in parallel), cached by the hash of
+its text, the headers and the flags; a build or launch that fails raises.
+A config with a function outside the printer's table (``CUDA_FUNCTIONS``)
+warns once at ``build`` and solves with the plain iLQR, as a user-written
+torch ``Problem`` does.  The struct carries no name a native kernel
+matches: a translated problem never takes a hand-written kernel of the
+native problems, whatever its name.  On a CPU device the plain iLQR
+solves.
 
 Inside expressions, the symbol ``t`` is the step index and ``dt`` the
 integration step, matching the generated solvers' routine signatures
 (reference: optim.c:1091-1105 passes the loop index as ``t``).
 """
 
+import dataclasses
 import multiprocessing.dummy as mp_dummy
+import warnings
 
 import sympy as sp
 import torch
 from sympy.printing.codeprinter import CodePrinter
 from sympy.printing.pytorch import TorchPrinter
 
+from tpl_tpu_torch.optim import ilqr_generic
 from tpl_tpu_torch.optim import symext as spx
 from tpl_tpu_torch.optim.ilqr import Problem
 from tpl_tpu_torch.optim.problems import ArraySpec
@@ -309,6 +326,294 @@ class _Translator:
         return call
 
 
+# ---------------------------------------------------------------------
+# the CUDA printer: a config's problem struct for the generic kernel
+
+class Unprintable(Exception):
+    """An expression the CUDA printer has no form for; its argument names
+    the function."""
+
+
+# sympy functions -> their jet forms in csrc/ilqr_jet.cuh
+_CUDA_FUNCS = {
+    sp.sin: "j_sin", sp.cos: "j_cos", sp.tan: "j_tan", sp.asin: "j_asin",
+    sp.acos: "j_acos", sp.atan: "j_atan", sp.sinh: "j_sinh",
+    sp.cosh: "j_cosh", sp.tanh: "j_tanh", sp.exp: "j_exp", sp.log: "j_log",
+    sp.Abs: "j_abs", sp.sign: "j_sign", sp.atan2: "j_atan2",
+}
+# the lookups of symext -> (jet form, positions of their table arguments)
+_CUDA_LOOKUPS = {
+    spx.lerp: ("j_lerp", (3,)), spx.lerp_angle: ("j_lerp_angle", (3,)),
+    spx.box_interp: ("j_box_interp", (2,)),
+    spx.lerp_wrap: ("j_lerp_wrap", (3, 4)),
+    spx.get_array_value: ("j_get_array_value", (0,)),
+}
+# what the printer takes, by name (the table of the printer's functions)
+CUDA_FUNCTIONS = tuple(sorted(
+    [f.__name__ for f in _CUDA_FUNCS] + [f.__name__ for f in _CUDA_LOOKUPS]
+    + ["Max", "Min", "Piecewise", "Pow", "sqrt"]))
+
+_RELATIONS = {sp.StrictLessThan: "<", sp.LessThan: "<=",
+              sp.StrictGreaterThan: ">", sp.GreaterThan: ">=",
+              sp.Equality: "==", sp.Unequality: "!="}
+
+
+def _real(v):
+    """A C++ literal of the real type R for a Python float."""
+    return f"R({float(v)!r})"
+
+
+class _CudaPrinter:
+    """Prints sympy expressions as C++ over csrc/ilqr_jet.cuh: ``env`` maps a
+    symbol's name to its C++ form, ``tables`` an ArraySymbol's name to its
+    table index."""
+
+    def __init__(self, env, tables):
+        self.env = env
+        self.tables = tables
+
+    def __call__(self, e):
+        if isinstance(e, sp.Symbol):
+            if isinstance(e, spx.ArraySymbol):
+                raise Unprintable(f"the array {e.name} outside a lookup")
+            if e.name.startswith(spx.FIXED_PREFIX):
+                return f"val({self.env[e.name[len(spx.FIXED_PREFIX):]]})"
+            return self.env[e.name]
+        if isinstance(e, sp.Rational) and not isinstance(e, sp.Integer):
+            return f"R({float(e.p)!r} / {float(e.q)!r})"
+        if isinstance(e, (sp.Number, sp.NumberSymbol)):
+            return _real(e)
+        if e is sp.true:
+            return "true"
+        if e is sp.false:
+            return "false"
+        if isinstance(e, sp.Add):
+            return "(" + " + ".join(self(a) for a in e.as_ordered_terms()) \
+                + ")"
+        if isinstance(e, sp.Mul):
+            return self._mul(e)
+        if isinstance(e, sp.Pow):
+            return self._pow(e.base, e.exp)
+        if isinstance(e, (sp.Max, sp.Min)):
+            name = "j_max" if isinstance(e, sp.Max) else "j_min"
+            args = [self(a) for a in e.args]
+            out = args[0]
+            for a in args[1:]:
+                out = f"{name}({out}, {a})"
+            return out
+        if isinstance(e, sp.Piecewise):
+            out = None
+            for expr, cond in reversed(e.args):
+                if out is None:
+                    out = self(expr)
+                    if cond is not sp.true:
+                        out = f"j_select({self(cond)}, {out}, R(NAN))"
+                    continue
+                out = f"j_select({self(cond)}, {self(expr)}, {out})"
+            return out
+        if type(e) in _RELATIONS:
+            return (f"(val({self(e.lhs)}) {_RELATIONS[type(e)]} "
+                    f"val({self(e.rhs)}))")
+        if isinstance(e, sp.And):
+            return "(" + " && ".join(self(a) for a in e.args) + ")"
+        if isinstance(e, sp.Or):
+            return "(" + " || ".join(self(a) for a in e.args) + ")"
+        if isinstance(e, sp.Not):
+            return f"(!{self(e.args[0])})"
+        if type(e) in _CUDA_FUNCS:
+            return f"{_CUDA_FUNCS[type(e)]}(" + ", ".join(
+                self(a) for a in e.args) + ")"
+        if type(e) in _CUDA_LOOKUPS:
+            name, tabs = _CUDA_LOOKUPS[type(e)]
+            args = []
+            for i, a in enumerate(e.args):
+                if i in tabs:
+                    if not isinstance(a, spx.ArraySymbol):
+                        raise Unprintable(f"{type(e).__name__} of a "
+                                          "non-array table")
+                    args.append(f"P.table({self.tables[a.name]})")
+                else:
+                    args.append(self(a))
+            return f"{name}(" + ", ".join(args) + ")"
+        if isinstance(e, sp.Function):
+            raise Unprintable(type(e).__name__)
+        raise Unprintable(type(e).__name__)
+
+    def _mul(self, e):
+        coeff, factors = e.as_coeff_mul()
+        num, den = [], []
+        for f in factors:
+            if (isinstance(f, sp.Pow) and f.exp.is_Integer and f.exp < 0):
+                den.append(self(f.base) if f.exp == -1
+                           else self._pow(f.base, -f.exp))
+            else:
+                num.append(self(f))
+        if coeff == -1:
+            head = "-"
+        elif coeff != 1:
+            num.insert(0, self(coeff))
+            head = ""
+        else:
+            head = ""
+        out = " * ".join(num) if num else "R(1.0)"
+        if den:
+            out = f"({out}) / ({' * '.join(den)})"
+        return f"({head}{out})"
+
+    def _pow(self, base, exp):
+        if base is sp.E:
+            return f"j_exp({self(exp)})"
+        if exp.is_Integer:
+            return f"j_ipow({self(base)}, {int(exp)})"
+        if exp == sp.Rational(1, 2):
+            return f"j_sqrt({self(base)})"
+        if exp == sp.Rational(-1, 2):
+            return f"(R(1.0) / j_sqrt({self(base)}))"
+        if exp.is_Number:
+            return f"j_pow({self(base)}, {self(exp)})"
+        return f"j_pow({self(base)}, {self(exp)})"
+
+
+# an operation's weight when the longest path through the dynamics is
+# chosen (its count goes to the probe of its name)
+_CHAIN_WEIGHT = {"add": 1, "mul": 1, "div": 4, "sin": 8, "cos": 8,
+                 "atan": 8, "smem_load": 6}
+_CHAIN_FUNC = {sp.sin: "sin", sp.cos: "cos", sp.atan: "atan",
+               sp.atan2: "atan", sp.tan: "tan"}
+
+
+def _chain(e):
+    """(weight, ops) of the heaviest dependent path through ``e``."""
+    if not e.args or isinstance(e, spx.ArraySymbol):
+        return 0, {}
+    sub = max((_chain(a) for a in e.args), key=lambda c: c[0])
+    ops = dict(sub[1])
+    add = {}
+    if isinstance(e, sp.Add):
+        add = {"add": len(e.args) - 1}
+    elif isinstance(e, sp.Mul):
+        add = {"mul": len(e.args) - 1}
+    elif isinstance(e, sp.Pow):
+        add = {"div": 1} if e.exp.is_negative else {"mul": 1}
+    elif type(e) in _CUDA_LOOKUPS:
+        add = {"div": 1, "add": 2, "mul": 1, "smem_load": 1}
+    elif isinstance(e, sp.Function):
+        add = {_CHAIN_FUNC.get(type(e), "sin"): 1}
+    for k, v in add.items():
+        ops[k] = ops.get(k, 0) + v
+    return sub[0] + sum(_CHAIN_WEIGHT.get(k, 8) * v
+                        for k, v in add.items()), ops
+
+
+def _count_ops(exprs):
+    """Operations of evaluating ``exprs`` once, a lookup counted as its 6."""
+    n = 0
+    for e in exprs:
+        n += int(sp.count_ops(e))
+        n += 5 * sum(1 for f in sp.preorder_traversal(e)
+                     if type(f) in _CUDA_LOOKUPS)
+    return n
+
+
+def _c_name(name):
+    return "".join(c if c.isalnum() else "_" for c in name)
+
+
+def cuda_struct(config, dyn, cost, cons, end, scalars, tables):
+    """The config's problem struct (C++ over csrc/ilqr_jet.cuh) and its
+    name: sympy's common subexpressions of each function as ``auto``
+    temporaries, a scalar param read from the scalar table, an ArraySymbol
+    as a table of ``array_capacity``, ``fixed_<name>`` as ``val(<name>)``,
+    ``t`` / ``dt`` the step index and the step.  Raises :class:`Unprintable`
+    for a function outside the printer's table."""
+    struct = f"Gen_{_c_name(config.name)}"
+    env = {"dt": "P.dt", "t": "R(t)"}
+    env.update({n: f"P.s[{i}]" for i, n in enumerate(scalars)})
+    tabs = {n: i for i, n in enumerate(tables)}
+
+    def body(exprs, assign, states, actions):
+        e2 = dict(env)
+        e2.update({s.name: f"x[{i}]" for i, s in enumerate(states)})
+        e2.update({a.name: (f"u[{i}]" if actions else "R(0.0)")
+                   for i, a in enumerate(config.actions)})
+        reps, red = sp.cse(exprs, symbols=sp.numbered_symbols("cse_"))
+        lines = []
+        pr = _CudaPrinter(e2, tabs)
+        for sym, val in reps:
+            lines.append(f"    const auto {sym.name} = {pr(val)};")
+            e2[sym.name] = sym.name
+        lines += assign([pr(r) for r in red])
+        return "\n".join(lines)
+
+    sig = "const Prm<R>& P, int t, const S* x"
+    dyn_body = body(dyn, lambda r: [f"    f[{i}] = S({v});"
+                                    for i, v in enumerate(r)],
+                    config.states, True)
+    cost_body = body(cost, lambda r: ["    S c = S(" + r[0] + ");"]
+                     + [f"    c = c + S({v});" for v in r[1:]]
+                     + ["    return c;"], config.states, True)
+    cons_body = (body(cons, lambda r: [f"    g[{i}] = S({v});"
+                                       for i, v in enumerate(r)],
+                      config.states, True) if cons else "")
+    end_cost = not all(e.is_zero for e in end)
+    end_body = (body(end, lambda r: ["    S c = S(" + r[0] + ");"]
+                     + [f"    c = c + S({v});" for v in r[1:]]
+                     + ["    return c;"], config.states, False)
+                if end_cost else "    return S(R(0.0));")
+    text = f"""namespace ilqr_generic {{
+
+// {config.name}: printed by tpl_tpu_torch/optim/genopt.py from the config's
+// sympy expressions
+template <typename R>
+struct {struct} {{
+  static constexpr int NX = {len(config.states)}, NU = {len(config.actions)}, NC = {len(cons)}, NS = {len(scalars)}, NT = {len(tables)};
+  static constexpr bool END_COST = {"true" if end_cost else "false"};
+
+  template <class S>
+  __device__ static void dynamics({sig}, const S* u, S* f) {{
+{dyn_body}
+  }}
+
+  template <class S>
+  __device__ static S cost({sig}, const S* u) {{
+{cost_body}
+  }}
+
+  template <class S>
+  __device__ static void constraints({sig}, const S* u, S* g) {{
+{cons_body}
+  }}
+
+  template <class S>
+  __device__ static S end_cost({sig}) {{
+{end_body}
+  }}
+}};
+
+}}  // namespace ilqr_generic
+"""
+    return struct, text
+
+
+def cuda_spec(config, prob, dyn, cost, cons, end, param_syms):
+    """The generic kernel's :class:`~tpl_tpu_torch.optim.ilqr_generic.Spec`
+    of a config: its struct (:func:`cuda_struct`), its params' order and
+    its operation counts."""
+    scalars = tuple(s.name for s in param_syms
+                    if not isinstance(s, spx.ArraySymbol))
+    tables = tuple(s.name for s in param_syms
+                   if isinstance(s, spx.ArraySymbol))
+    name, struct = cuda_struct(config, dyn, cost, cons, end, scalars, tables)
+    chain = {}
+    if dyn:
+        chain = max((_chain(e) for e in dyn), key=lambda c: c[0])[1]
+    ops = dict(dynamics=_count_ops(dyn), cost=_count_ops(cost),
+               constraints=_count_ops(cons), end_cost=_count_ops(end))
+    return ilqr_generic.Spec(
+        config.name, prob.nx, prob.nu, prob.nc, scalars, tables, ops, chain,
+        problem=prob, struct=struct, struct_name=name)
+
+
 def make_problem(config):
     """Translate a :class:`Config` into ``(Problem, param_spec)`` for the
     iLQR engine — the analog of the reference's codegen step
@@ -353,6 +658,15 @@ def make_problem(config):
                    nu=len(config.actions), nc=len(con_exprs),
                    dynamics=dynamics, cost=cost, end_cost=end_cost,
                    constraints=constraints)
+    try:
+        spec = cuda_spec(config, prob, dyn_exprs, cost_exprs, con_exprs,
+                         end_exprs, tr.param_syms)
+        prob = dataclasses.replace(prob, generated=spec)
+        object.__setattr__(spec, "problem", prob)
+    except Unprintable as e:
+        warnings.warn(f"genopt: {config.name}: the CUDA printer has no form "
+                      f"for {e.args[0]}; the problem solves with the plain "
+                      "iLQR", stacklevel=3)
 
     spec = {}
     for s in tr.param_syms:
@@ -391,9 +705,18 @@ def build(config, device=None, dtype=None):
 
 
 def build_parallel(configs, device=None, dtype=None):
-    """Build several configs; translation is cheap (no C compiler), so a
-    thread pool suffices (reference forks a process pool,
-    genopt.py:658-665)."""
+    """Build several configs; translation is cheap, so a thread pool
+    suffices (reference forks a process pool, genopt.py:658-665).  On a
+    CUDA device the configs' generated kernel sources are compiled here,
+    one ``nvcc`` each, all started together."""
+    import tpl_tpu_torch
+
     with mp_dummy.Pool(min(len(configs), 8) or 1) as pool:
-        return pool.map(lambda c: build(c, device=device, dtype=dtype),
-                        configs)
+        out = pool.map(lambda c: build(c, device=device, dtype=dtype),
+                       configs)
+    dev = tpl_tpu_torch.device() if device is None else torch.device(device)
+    if dev.type == "cuda":
+        specs = [f.problem.generated for f in out
+                 if f.problem.generated is not None]
+        ilqr_generic.build_generated(specs, dtype or torch.float32)
+    return out

@@ -78,7 +78,10 @@ class Problem:
     ``kernel`` names the definition the port's hand-written kernels were
     written for (the key of ``solver.KERNELS``): only the native problems
     of :mod:`.problems` carry it, so no problem defined elsewhere reaches a
-    kernel, whatever its name.
+    kernel, whatever its name.  ``generated`` is the problem struct the
+    sympy front end printed for its own config
+    (:class:`tpl_tpu_torch.optim.ilqr_generic.Spec`), which the generic
+    kernel solves; None for every other problem.
     """
 
     name: str
@@ -90,6 +93,7 @@ class Problem:
     end_cost: Callable = None
     constraints: Callable = None
     kernel: str = None
+    generated: object = None
 
 
 @dataclasses.dataclass

@@ -26,7 +26,9 @@ and a problem with a hand-written kernel gets its kernel's dtype, since on
 a CUDA device the ``Solver`` raises for a problem whose kernel exists only
 for another dtype (``solver.KERNELS``): float64 for the two tracking MPCs,
 float32 for ``lateral_profile`` and ``velocity_profile_space``; the other
-three keep the JAX package's float32.  ``dtype=`` overrides either.
+three keep the JAX package's float32, which the generic kernel
+(``csrc/ilqr_generic.cu``) takes as it takes float64.  ``dtype=`` overrides
+either.
 
 The JAX package's factories hold a horizon of 300, and so do these on the
 CPU.  A kernel sizes its shared memory by the solver's ``horizon_max``, and
@@ -34,8 +36,11 @@ at the problems' default reference capacities the tracking MPCs' float64
 kernels hold at most 110 (spatial) and 132 (time-indexed) steps in the
 227 KB a block can use (tests/test_torch_kernel_rehearsal.py computes it
 from the sources), so on a CUDA device their factories hold 100
-(``cuda_horizon_max``); the other five hold 300 on every device (the RSTP
-kernels fit it).
+(``cuda_horizon_max``).  The other five hold 300 on every device and launch
+a kernel on the card at it: the RSTP profiles ``csrc/ilqr_rstp.cu``,
+``velocity_profile_time``, ``ref_line_smoother_k`` and
+``ref_line_smoother_dk`` the generic kernel, which keeps in shared memory
+what fits and the rest of a solve's arrays in a global workspace.
 """
 
 import torch

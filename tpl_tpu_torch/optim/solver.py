@@ -17,19 +17,21 @@ The solve runs on the solver's device (``tpl_tpu_torch.device()`` unless
 given).  Each :meth:`Solver.update` packs every input into one host buffer,
 uploads it once and downloads one packed result.  A problem with a
 hand-written kernel for the solver's dtype (``KERNELS``: the float64
-spatial and time-indexed tracking MPCs, the float32 RSTP profiles) goes
-through its wrapper, which launches the kernel on a CUDA device and runs
-the plain :func:`~tpl_tpu_torch.optim.ilqr.make_update_fn` on a CPU device;
-a problem whose kernel exists for another dtype raises on a CUDA device.
-A problem without a kernel runs the plain version on its device, the card
-included: on the card that is ``ref_line_smoother_k``, which
-``path_smoothing``'s ``smooth_only`` path solves (off the vendored path);
-``velocity_profile_time`` and ``ref_line_smoother_dk`` have no kernel
-either, and no ported path solves them.  The kernel is found by the
-problem's ``kernel`` key, which only the native problems of
-:mod:`.problems` carry: a kernel hard-codes its own problem, so a problem
-defined elsewhere (the sympy front end's, :mod:`.genopt`) takes the plain
-version whatever its name.
+spatial and time-indexed tracking MPCs, the float32 RSTP profiles, and
+``ref_line_smoother_k``, ``ref_line_smoother_dk`` and
+``velocity_profile_time`` in float32 and float64 through the generic
+kernel, :mod:`.ilqr_generic`) goes through its wrapper, which launches the
+kernel on a CUDA device and runs the plain
+:func:`~tpl_tpu_torch.optim.ilqr.make_update_fn` on a CPU device; a problem
+whose kernel exists for another dtype raises on a CUDA device.  The native
+kernels are found by the problem's ``kernel`` key, which only the native
+problems of :mod:`.problems` carry: a kernel hard-codes its own problem,
+so a problem defined elsewhere never takes one, whatever its name.  A
+sympy problem (:mod:`.genopt`) carries the struct its printer wrote for it
+(``Problem.generated``) and goes to the generic kernel, built from that
+struct at its first solve on a CUDA device.  Any other problem (a user's
+torch functions, or a sympy config with a function the printer has no form
+for) runs the plain version on its device, the card included.
 """
 
 import functools
@@ -39,8 +41,8 @@ import numpy as np
 import torch
 
 import tpl_tpu_torch
-from tpl_tpu_torch.optim import (ilqr, ilqr_rstp, ilqr_tracking_mpc,
-                                 ilqr_tracking_mpc_time)
+from tpl_tpu_torch.optim import (ilqr, ilqr_generic, ilqr_rstp,
+                                 ilqr_tracking_mpc, ilqr_tracking_mpc_time)
 from tpl_tpu_torch.optim.ilqr import EULER, HEUN, RK4
 from tpl_tpu_torch.optim.problems import ArraySpec  # noqa: F401 (re-export)
 
@@ -51,6 +53,11 @@ KERNELS = {
         ilqr_tracking_mpc_time.solve,
     **{(name, torch.float32): functools.partial(ilqr_rstp.solve, name)
        for name in ilqr_rstp.PROBLEMS},
+    **{(name, dtype): functools.partial(ilqr_generic.solve, name,
+                                        dtype=dtype)
+       for name in ("ref_line_smoother_k", "ref_line_smoother_dk",
+                    "velocity_profile_time")
+       for dtype in (torch.float32, torch.float64)},
 }
 
 # limits outside this range travel as the sentinels (solver.py:348-355)
@@ -309,7 +316,11 @@ class Solver:
         kernel = KERNELS.get((name, self.dtype))
         run = (self.horizon, self.max_iterations, self.max_lg_iterations,
                self._mu_step, self._integrator)
-        if kernel is not None:
+        if self.problem.generated is not None:
+            res = ilqr_generic.solve(self.problem.generated, self._inputs(),
+                                     self.params._values, *run, self.device,
+                                     dtype=self.dtype)
+        elif kernel is not None:
             res = kernel(self._inputs(), self.params._values, *run,
                          self.device)
         elif self.device.type == "cuda" and any(n == name for n, _ in KERNELS):

@@ -1,8 +1,9 @@
 """
 RSTP smooth-only stage: fit a curvature-controlled unicycle to the raw
 reference line, yielding a smoothed local path without corridor logic.
-Its problem, ``ref_line_smoother_k``, has no hand-written kernel yet: on a
-CUDA device the solve is the plain torch iLQR.
+Its problem, ``ref_line_smoother_k``, is solved on a CUDA device by the
+generic AL-iLQR kernel (``csrc/ilqr_generic.cu``, one launch a replan at
+the horizon of 250, float32), on the CPU by the plain torch iLQR.
 
 Behavioral parity target:
 library/tpl/planning/path_vel_decomp/path_smoothing.py:36-83.

@@ -754,3 +754,148 @@ def mpc_time_case(kind, seed=1):
         cfg_f=np.array([0.05, 1e-6]))
     return (itt.pack_inputs(inputs, params),
             (H, n_ref, T, 20, lg, mu, ilqr.HEUN))
+
+
+def generic_inputs(nx, nu, ncl, H, T, rng, warm, u_lim, bw, lg_limit, dt, x0,
+                   u_scale):
+    """The per-update solver inputs (x, u, lam, u_lims, bw_lim, cfg_f) of a
+    problem with nx states, nu actions and ncl multiplier columns, and its
+    mu_step: start x0, the limits ``u_lim`` ((nu, 2) or (2,)) on every
+    step, barrier weight ``bw``, multiplier limit ``lg_limit``; warm: seeded
+    controls, multipliers and mu_step on the first T steps."""
+    u, lam, mu = np.zeros((H, nu)), np.zeros((H, ncl)), 0
+    if warm:
+        u[:T] = rng.normal(0.0, u_scale, (T, nu))
+        lam[:T] = (rng.uniform(0.0, 0.05, (T, ncl))
+                   * (rng.uniform(size=(T, ncl)) < 0.3))
+        mu = int(rng.integers(0, 4))
+    x = np.zeros((H + 1, nx))
+    x[0] = x0
+    lims = np.asarray(u_lim, float).reshape(nu, 2)
+    return dict(x=x, u=u, lam=lam, u_lims=np.tile(lims, (H, 1, 1)),
+                bw_lim=np.stack([np.full(ncl, bw), np.full(ncl, lg_limit)],
+                                -1),
+                cfg_f=np.array([dt, 1e-6])), mu
+
+
+GENERIC_NATIVE = ("ref_line_smoother_k", "ref_line_smoother_dk",
+                  "velocity_profile_time")
+
+
+def generic_native_case(name, H, T, warm, seed, n_ref=512):
+    """Seeded inputs of a native problem of the generic AL-iLQR kernel
+    (``GENERIC_NATIVE``) at ``n_ref``: (inputs, params, mu_step,
+    max_iterations).  The smoothers follow a gentle curve from its start
+    (the curvature-rate smoother from near its solution: its quadruple
+    integrator turns a larger start error into an orbit that leaves the
+    curve); the time-indexed velocity profile drives under a limit over s
+    and a corridor over t."""
+    rng = np.random.default_rng(seed)
+    s = np.arange(n_ref) * 0.5
+    path_y = 0.8 * np.sin(s / 25.0) + rng.normal(0.0, 0.02, n_ref)
+    path_x = s + rng.normal(0.0, 0.05, n_ref)
+    if name in ("ref_line_smoother_k", "ref_line_smoother_dk"):
+        params = dict(w_pos=1.0, w_k=0.5, w_dk=10.0, s_start=1.3,
+                      ref_step=0.5, ref_x=path_x, ref_y=path_y)
+        heading = np.arctan2(path_y[1] - path_y[0], path_x[1] - path_x[0])
+        x0 = [path_x[0] + rng.normal(0.0, 0.1), path_y[0]
+              + rng.normal(0.0, 0.1), heading + rng.normal(0.0, 0.02)]
+        lim, u_scale, nx = [-1.0, 1.0], 0.01, 3
+        if name == "ref_line_smoother_dk":
+            x0.append(rng.normal(0.0, 0.001))
+            lim, u_scale, nx = [-0.05, 0.05], 2e-5, 4
+        inputs, mu = generic_inputs(nx, 1, 1, H, T, rng, warm, lim, 1000.0,
+                                    0.1, 0.5, x0, u_scale)
+    elif name == "velocity_profile_time":
+        k = np.arange(n_ref)
+        v_max = np.full(n_ref, 12.0)
+        v_max[200:260] = 6.0
+        s_max = np.where(k % 90 > 60, 3.0 * k * 0.1 + 20.0, 0.0)
+        s_min = np.where(k % 70 > 55, 2.0 * k * 0.1 - 5.0, 0.0)
+        params = dict(w_v=0.05, w_a=2.0, ref_step=0.5, ref_v=v_max,
+                      ref_s_max=s_max, ref_s_min=s_min)
+        inputs, mu = generic_inputs(2, 1, 4, H, T, rng, warm, [-3.0, 2.0],
+                                    100.0, 10.0, 0.1,
+                                    [0.0, rng.uniform(2.0, 10.0)], 0.3)
+    else:
+        raise ValueError(f"no generic case for {name!r}")
+    return inputs, params, mu, 5
+
+
+def genopt_mpc_case(warm, seed, H=60):
+    """The genopt MPC's solve inputs (``genopt_mpc_solve_inputs``' course
+    edge-padded to its capacity of 128), seeded warm starts: (inputs, params,
+    mu_step)."""
+    rng = np.random.default_rng(seed)
+    params, x0 = genopt_mpc_solve_inputs()
+    params = {k: (np.resize(np.asarray(v, float), 128) if np.ndim(v) else v)
+              for k, v in params.items()}
+    for k in ("ref_x", "ref_y", "ref_phi", "ref_k", "ref_v"):
+        params[k][100:] = params[k][99]
+    params["pdelta"] = 0.0
+    inputs, mu = generic_inputs(7, 2, 4, H, H, rng, warm,
+                                [[-3.0, 1.5], [-1.0, 1.0]], 1e4, 1e30, 0.05,
+                                x0, 0.1)
+    return inputs, params, mu
+
+
+def genopt_every_function_config(sx=None, go=None):
+    """A sympy config whose functions span the front end's CUDA printer
+    (``genopt.CUDA_FUNCTIONS``): every trigonometric, hyperbolic and
+    exponential function, sqrt and integer / real / symbolic powers, Abs,
+    sign, atan2, Max, Min, a Piecewise, ``fixed``, and each lookup at a
+    step- or state-dependent query; with the ``symext`` and ``genopt``
+    modules ``sx`` / ``go`` (the port's unless given)."""
+    import sympy as sp
+
+    if sx is None:
+        from .optim import symext as sx
+    if go is None:
+        from .optim import genopt as go
+    x, v, a = sp.symbols("x v a")
+    c, w, step = sp.symbols("c w step")
+    ref, ang, xs, arr = (sx.ArraySymbol(n) for n in
+                         ("ref", "ang", "xs", "arr"))
+    t, dt = sp.Symbol("t"), sp.Symbol("dt")
+    costs = [
+        (x - sx.lerp(0.0, step, t * dt, ref)) ** 2,
+        w * (v - sx.lerp_angle(0.0, step, x, ang)) ** 2,
+        0.05 * a ** 2 + 0.01 * sp.exp(0.1 * a) + 0.01 * sp.tan(0.1 * a) ** 2,
+        0.02 * sp.cosh(0.1 * v) + 0.01 * sp.sinh(0.05 * x) ** 2,
+        0.01 * sp.log(2 + x ** 2) + 0.01 * sp.sqrt(1 + v ** 2),
+        0.01 * sp.Abs(x - 100) + 0.001 * sp.sign(v) * v,
+        0.01 * sp.atan2(v, 2 + x ** 2) + 0.01 * sp.atan(v) ** 2,
+        0.01 * sp.asin(0.5 * sp.tanh(v)) + 0.01 * sp.acos(
+            0.5 * sp.tanh(0.1 * x)) + 0.01 * sp.sin(x) * sp.cos(v),
+        0.001 * sp.Max(v - 3, 0) ** 2 + 0.001 * sp.Min(x, 0) ** 2,
+        sp.Piecewise((0.01 * v ** 2, v > 1), (0.01 * v, True)),
+        0.01 * sx.lerp_wrap(30.0, step, x, xs, arr) * v,
+        0.01 * sx.box_interp(step, x, arr) * v
+        + 0.001 * sx.get_array_value(arr, t) * v,
+        0.001 * (1 + v ** 2) ** sp.Rational(3, 4)
+        + 0.001 * (2 + x ** 2) ** (0.1 * c) + 0.01 * sx.fixed(v) * v,
+        0.01 / (1 + v ** 2) + 0.01 * (1 + a ** 2) ** -2,
+    ]
+    return go.Config(
+        states=[x, v], actions=[a],
+        params={c: 0.5, w: 0.2, step: 0.5, ref: None, ang: None, xs: None,
+                arr: None},
+        dynamics=[v, a - 0.05 * sp.sin(x) * sp.tanh(v)], costs=costs,
+        end_costs=[0.1 * (x - 12) ** 2, 0.01 * v ** 2],
+        constraints=[v - 4, -v - 4, sp.Max(a, -1) - 2 * c],
+        name="every_function", array_capacity=64)
+
+
+def genopt_every_function_case(seed, H=40):
+    """Seeded inputs of ``genopt_every_function_config``: (inputs, params,
+    mu_step)."""
+    rng = np.random.default_rng(seed)
+    n = 64
+    s = np.arange(n) * 0.5
+    params = dict(c=0.5, w=0.2, step=0.5,
+                  ref=np.minimum(0.6 * s, 12.0) + rng.normal(0.0, 0.05, n),
+                  ang=np.arctan(np.sin(0.3 * s)) + rng.normal(0.0, 0.01, n),
+                  xs=s + 1.0, arr=np.cos(0.2 * s) + rng.normal(0.0, 0.1, n))
+    inputs, mu = generic_inputs(2, 1, 3, H, H, rng, True, [-1.5, 1.5], 100.0,
+                                5.0, 0.1, [0.5, 1.2], 0.2)
+    return inputs, params, mu

@@ -276,18 +276,35 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    cost rtol 1e-9); the bare launcher's, the wrapper's and the plain
    version's ms, ``bound_ms`` / ``chain_ms``, the shared-memory /
    workspace split and a "phases" line (the profiling instantiation
-   bit-equal); then each ``optimizers`` factory with a kernel solves once
-   at its own ``horizon_max`` on the card (``cuda_horizon_max``) through
-   its kernel (the tracking MPCs at 100, the other five at 300).  Then
-   "iLQR generic": ``csrc/ilqr_generic.cu`` on ``ref_line_smoother_k``,
-   ``ref_line_smoother_dk`` and ``velocity_profile_time`` at H = 250 and
-   300 (at 300 with a 24 KB shared-memory limit: the workspace path), cold
-   with EULER and warm with HEUN, float32 and float64 against the plain
-   version on the card (at the RSTP tolerance and at 1e-9), times, bounds,
-   the split and "phases" lines; the batch through ``optim.batched`` on CUDA tensors at
-   B = 1, 64 and 2,048 of ``ref_line_smoother_k`` and of the genopt MPC,
-   every scenario bit-equal to its single launch, against the plain batched
-   update on the card at B <= 64, timed.  Then "RSTP smooth_only":
+   bit-equal), the kernels' registers and local bytes; then each
+   ``optimizers`` factory with a kernel solves once at its horizon of 300
+   on the card through its kernel (the tracking MPCs through the generic
+   one).  Then "iLQR generic": ``csrc/ilqr_generic.cu`` on
+   ``ref_line_smoother_k``, ``ref_line_smoother_dk`` and
+   ``velocity_profile_time`` at H = 250 and 300 (at 300 with a 24 KB
+   shared-memory limit: the workspace path), cold with EULER and warm with
+   HEUN, float32 and float64 against the plain version on the card (at
+   the RSTP tolerance and at 1e-9), times, bounds, the split and "phases"
+   lines, every instantiation's registers and local bytes; the batch
+   through ``optim.batched`` on CUDA tensors at B = 1, 64 and 2,048 of
+   ``ref_line_smoother_k`` and of the genopt MPC, every scenario bit-equal
+   to its single launch, against the plain batched update on the card at
+   B <= 64, timed, with the geometry the launcher picks (a block a
+   scenario, or resident warps at 2,048: slots a block, blocks an SM, a
+   slot's bytes) and scenario 0's "phases" line.  With ``--parent-csrc``
+   holding another ``ilqr_generic.cu`` (and ``ilqr_generic_body.cuh``,
+   ``ilqr_generic_entries.cuh``, ``ilqr_jet.cuh`` and the headers they
+   include), its native library and the genopt MPC's source against its
+   headers are built beside the first phases, and every case of both
+   phases (and the RSTP profiles at the same shapes) must keep its bits
+   against it, timed in turns.  Then "tracking MPCs, generic kernel": both
+   tracking-MPC factories' solvers at H = 200 and 300 through the generic
+   kernel against their plain versions on the card at 1e-9, timed, and
+   the batched time-indexed MPC at B = 64 and 2,048, every scenario
+   bit-equal to its single launch, against the plain batched update at
+   64.  The vendored loop's controller (horizon 60) is checked to launch
+   ``ilqr_tracking_mpc`` and never the generic kernel.  Then "RSTP
+   smooth_only":
    ``SimStandalone`` on ``demo/country_follow`` with the scenario's sets
    and ``smooth_only`` turned on in the planning store, 200 ticks: one
    ``ref_line_smoother_k`` launch and one ``ilqr_rstp`` launch a replan,
@@ -450,6 +467,7 @@ printing any result.
 """
 
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -651,6 +669,12 @@ GENERIC_TOL = 1e-9
 GENERIC_H = (250, 300)
 GENERIC_SMALL_SMEM = 24 * 1024
 GENERIC_BATCHES = (1, 64, 2048)
+GENOPT_HORIZON_MAX = 100    # the genopt MPC solver's capacity (H=60 active)
+TRACKING_H = (200, 300)     # the tracking MPCs through the generic kernel
+TIME_BATCHES = (64, 2048)   # the batched time-indexed MPC
+# the sources of the generic kernel that --parent-csrc compares
+GENERIC_SOURCES = ("ilqr_generic.cu", "ilqr_generic_body.cuh",
+                   "ilqr_generic_entries.cuh", "ilqr_jet.cuh")
 SMOOTH_TICKS = 200
 # the crane example, float32 on the card and on the CPU: both meet the
 # example's acceptance; their final states (m, m/s, rad) within this (60
@@ -5504,19 +5528,171 @@ def record_replay_phase():
           f"runtime ms median {np.median(rt):.3f}, max {np.max(rt):.3f}")
 
 
-def genopt_phase(dev, gen_build, cycles, mhz):
+def build_generic_parents(dirs, result):
+    """Builds, for each directory of ``dirs`` that holds another
+    ``ilqr_generic.cu`` (with the headers it includes), its native library
+    and the genopt MPC's generated float64 source compiled against its
+    headers, one ``nvcc`` each, all started together (no lock of
+    ``_build`` held, so that the phases beside it load their libraries);
+    the library paths by directory into result["libs"], the seconds into
+    result["s"], or the exception into result["error"]."""
+    import torch
+    from tpl_tpu_torch import _build, scenes
+    from tpl_tpu_torch.optim import genopt
+    from tpl_tpu_torch.optim import ilqr_generic as ig
+
+    t0 = time.perf_counter()
+    try:
+        spec = genopt.make_problem(scenes.genopt_mpc_config())[0].generated
+        text = ig.source_text(spec, torch.float64)
+        jobs, libs = [], {}
+        for d in dirs:
+            native = _build._paths("ilqr_generic", d)
+            stem = os.path.join(_build.BUILD_DIR, "parent_genopt_" + hashlib
+                                .sha1((os.path.abspath(d) + text).encode())
+                                .hexdigest()[:16])
+            with open(stem + ".cu", "w") as f:
+                f.write(text)
+            jobs += [("ilqr_generic", *native, ()),
+                     ("genopt_mpc", stem + ".cu", stem + ".so", ("-I", d))]
+            libs[d] = (native[1], stem + ".so")
+        _build._nvcc([j for j in jobs if not os.path.exists(j[2])],
+                     log=False)
+        result["libs"] = libs
+        result["s"] = time.perf_counter() - t0
+    except Exception as e:      # raised again by the phase that needs it
+        result["error"] = e
+
+
+def generic_parent_libs(parent_build):
+    """The parent libraries of build_generic_parents, bound: (dir, native,
+    generated) for each; the parents' launchers take the tree's
+    arguments."""
+    if not parent_build:
+        return []
+    parent_build["thread"].join()
+    if "error" in parent_build:
+        raise parent_build["error"]
+    out = []
+    for d, paths in parent_build["libs"].items():
+        libs = []
+        for path in paths:
+            lib = ctypes.CDLL(path)
+            lib.ilqr_generic_update.restype = ctypes.c_int
+            lib.ilqr_generic_update.argtypes = (
+                [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+                + [ctypes.c_int] * 6 + [ctypes.c_size_t, ctypes.c_void_p])
+            lib.ilqr_generic_split.restype = ctypes.c_size_t
+            lib.ilqr_generic_split.argtypes = ([ctypes.c_int] * 4
+                                               + [ctypes.c_size_t,
+                                                  ctypes.c_int])
+            if lib.ilqr_generic_prepare() != 0:
+                raise RuntimeError(f"{path}: prepare failed")
+            libs.append(lib)
+        out.append((d, *libs))
+    return out
+
+
+def generic_launcher(ig, lib, spec, shared, rows, H, n_ref, T, it, lg,
+                     integ, smem, parent=False):
+    """(out, launch): a launch of the generic kernel into buffers made once,
+    through the tree's wrapper library (parent=False: its geometry and
+    workspace) or another source's ``lib`` (a grid of B blocks, a block's
+    workspace by its own ``ilqr_generic_split``); ``launch()`` raises on a
+    CUDA error."""
+    import torch
+
+    f64 = int(rows.dtype == torch.float64)
+    B = rows.shape[0]
+    pid = 0 if spec.struct is not None else spec.id
+    if parent:
+        ws_words = B * lib.ilqr_generic_split(pid, f64, H, n_ref, smem, 1)
+        out = torch.empty((B, ig._size(ig.output_layout(spec, H))),
+                          dtype=rows.dtype, device=rows.device)
+        ws = torch.empty(max(ws_words, 1), dtype=rows.dtype,
+                         device=rows.device)
+    else:
+        lib, f64, out, ws = ig._prepare_launch(ig._spec(spec), shared, rows,
+                                               H, n_ref, integ, smem)
+    args = (pid, f64, int(integ), shared.data_ptr(), rows.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), None, B, H, n_ref, int(T),
+            int(it), int(lg), smem,
+            torch.cuda.current_stream(rows.device).cuda_stream)
+
+    def launch():
+        err = lib.ilqr_generic_update(*args)
+        if err:
+            raise RuntimeError(f"ilqr_generic launch failed: CUDA error "
+                               f"{err}")
+    return out, launch
+
+
+def generic_versus_parents(ig, parents, which, what, spec, shared, rows, H,
+                           n_ref, T, it, lg, integ, smem, n, times):
+    """Holds the tree's generic kernel against each parent source's on one
+    launch's inputs: every result bit for bit (raises otherwise), then
+    timed in turns (parent, new, new, parent), into times[what] per parent;
+    which: 1 the native library, 2 the generated one."""
+    import torch
+
+    new_out, new = generic_launcher(ig, None, spec, shared, rows, H, n_ref,
+                                    T, it, lg, integ, smem)
+    for d, *libs in parents:
+        old_out, old = generic_launcher(ig, libs[which - 1], spec, shared,
+                                        rows, H, n_ref, T, it, lg, integ,
+                                        smem, parent=True)
+        old(), new()
+        torch.cuda.synchronize()
+        if not torch.equal(old_out, new_out):
+            d_max = float((old_out - new_out).abs().nan_to_num(
+                float("inf")).max())
+            raise AssertionError(f"ilqr_generic {what}: the result differs "
+                                 f"from the source in {d} by {d_max:.3e}")
+        (a, dd), (b, c) = in_turns(old, new, n)
+        print(f"ilqr_generic {what} vs the source in {d}: bits 0.0; ms per "
+              f"launch parent {a:.4f}, new {b:.4f}, new {c:.4f}, parent "
+              f"{dd:.4f}")
+        times.setdefault(what, []).append((a, b, c, dd))
+
+
+def generic_build_figures(ig, specs):
+    """Prints, for each (label, spec, dtype) of ``specs``, the registers and
+    local (spill) bytes of its kernels (the block geometry's and the
+    resident one's, each with its profiling instantiation; each serves
+    every integrator) and returns them."""
+    figs = {}
+    for label, spec, dtype in specs:
+        row = {}
+        for geo in ("block", "resident"):
+            for prof in (False, True):
+                regs, local, _ = ig.attributes(spec, dtype,
+                                               geo == "resident", prof)
+                row[geo + (" profiling" if prof else "")] = dict(
+                    registers=regs, local_bytes=local)
+        figs[label] = row
+        print(f"ilqr_generic build {label} "
+              f"{str(dtype).replace('torch.', '')}: " + "; ".join(
+                  f"{k} {v['registers']} registers, {v['local_bytes']} B "
+                  "local" for k, v in row.items()))
+    return figs
+
+
+def genopt_phase(dev, gen_build, cycles, mhz, parents=()):
     """The sympy front end on the card: the tracking MPC built with
     ``genopt`` (``scenes.genopt_mpc_config``), float64, solved by the kernel
     generated from its config (``csrc/ilqr_generic_body.cuh`` with the
     printed struct), one launch an update, against its plain version on the
     card, the same genopt solve on the CPU and the native problem's kernel
-    solve (``optimizers.trajectory_tracking_mpc``), at GENOPT_X_ATOL /
-    GENOPT_COST_RTOL; prints the generated source's build seconds (its
-    ``nvcc``, started in a thread beside the first phases, ``gen_build``),
-    its bare-launcher and wrapper ms, the plain version's ms on the card,
-    ``bound_ms`` / ``chain_ms`` and the shared-memory / workspace split;
-    then each ``optimizers`` factory with a kernel solves once at its own
-    ``horizon_max`` on the card, through its kernel."""
+    solve (a ``trajectory_tracking_mpc`` Solver of the same capacity, its
+    own kernel), at GENOPT_X_ATOL / GENOPT_COST_RTOL; prints the generated
+    source's build seconds (its ``nvcc``, started in a thread beside the
+    first phases, ``gen_build``), its bare-launcher and wrapper ms, the
+    plain version's ms on the card, ``bound_ms`` / ``chain_ms``, the
+    shared-memory / workspace split and the kernels' registers; with
+    ``parents`` (generic_parent_libs) the launch against each parent
+    source's generated kernel, bits and times in turns; then each
+    ``optimizers`` factory with a kernel solves once at its horizon of 300
+    on the card, through its kernel (the tracking MPCs the generic one)."""
     import torch
     from tpl_tpu_torch import scenes
     from tpl_tpu_torch.optim import genopt, ilqr, ilqr_rstp
@@ -5526,8 +5702,11 @@ def genopt_phase(dev, gen_build, cycles, mhz):
     from tpl_tpu_torch.optim import optimizers as opts
 
     inputs, x0 = scenes.genopt_mpc_solve_inputs()
+    from tpl_tpu_torch.optim import problems
+    from tpl_tpu_torch.optim.solver import Solver
+
     cfg = scenes.genopt_mpc_config()
-    cfg.horizon_max = opts.trajectory_tracking_mpc.cuda_horizon_max
+    cfg.horizon_max = GENOPT_HORIZON_MAX
 
     gen_build["thread"].join()
     if "error" in gen_build:
@@ -5575,7 +5754,10 @@ def genopt_phase(dev, gen_build, cycles, mhz):
                              "genopt updates on the card")
     cpu, cpu_ms, _ = run(genopt.build(cfg, device="cpu", dtype=torch.float64),
                          1)
-    native, native_ms, _ = run(opts.trajectory_tracking_mpc)
+    mpc_prob, mpc_spec = problems.trajectory_tracking_mpc()
+    native, native_ms, _ = run(lambda: Solver(
+        mpc_prob, mpc_spec, horizon_max=GENOPT_HORIZON_MAX,
+        dtype=torch.float64))
     if itm.launches != before + 2:
         raise AssertionError(f"{itm.launches - before} kernel launches for 2 "
                              "native solves")
@@ -5638,6 +5820,12 @@ def genopt_phase(dev, gen_build, cycles, mhz):
     if not torch.equal(out, ig.update(spec, buf, *run_args)):
         raise AssertionError("genopt MPC: the profiling instantiation parts")
     phase_line("ilqr_generic genopt_mpc", "cold", ilqr, prof, its, mhz)
+    parent_ms = {}
+    generic_versus_parents(ig, parents, 2, f"genopt MPC single H={GENOPT_H} "
+                           f"of {H}", spec, shared, rows, *run_args[:5],
+                           integ, ig.SMEM_LIMIT, 20, parent_ms)
+    figures = generic_build_figures(ig, [("genopt MPC", spec,
+                                          torch.float64)])
     print(f"genopt MPC generated kernel ms: bare launcher {bare_ms:.4f}, "
           f"wrapper {wrapper_ms:.4f}, plain on the card {plain_ms:.1f}; "
           f"bound_ms {bound[0]:.6f} ({bound[1]}), chain_ms {chain:.4f} "
@@ -5648,8 +5836,8 @@ def genopt_phase(dev, gen_build, cycles, mhz):
           f"{cpu_ms[0]:.1f}, native kernel {native_ms[0]:.1f} then "
           f"{native_ms[1]:.1f}")
 
-    counters = {"trajectory_tracking_mpc": (itm, "launches"),
-                "trajectory_tracking_mpc_time": (itt, "launches"),
+    counters = {"trajectory_tracking_mpc": (ig, "launches"),
+                "trajectory_tracking_mpc_time": (ig, "launches"),
                 "lateral_profile": (ilqr_rstp, "launches"),
                 "velocity_profile_space": (ilqr_rstp, "launches"),
                 "velocity_profile_time": (ig, "launches"),
@@ -5658,7 +5846,7 @@ def genopt_phase(dev, gen_build, cycles, mhz):
     for name, (mod, attr) in counters.items():
         b = getattr(opts, name)
         o = b()
-        if o.horizon_max != b.cuda_horizon_max:
+        if o.horizon_max != opts.HORIZON_MAX:
             raise AssertionError(f"optimizers.{name}: horizon_max "
                                  f"{o.horizon_max} on the card")
         o.horizon = o.horizon_max
@@ -5670,10 +5858,11 @@ def genopt_phase(dev, gen_build, cycles, mhz):
         torch.cuda.synchronize()
         if getattr(mod, attr) != n0 + 1:
             raise AssertionError(f"optimizers.{name}: no kernel launch")
-        print(f"optimizers.{name}: {o.dtype}, one kernel solve at horizon "
-              f"{o.horizon} = its horizon_max ({o.runtime:.1f} ms, finite "
-              f"{bool(np.all(np.isfinite(o.x)))})")
+        print(f"optimizers.{name}: {o.dtype}, one {o.route} solve at "
+              f"horizon {o.horizon} = its horizon_max ({o.runtime:.1f} ms, "
+              f"finite {bool(np.all(np.isfinite(o.x)))})")
     return dict(err=err, card_ms=card_ms, cpu_ms=cpu_ms, native_ms=native_ms,
+                parent_ms=parent_ms, figures=figures,
                 launches=launches, ms=bare_ms, wrapper_ms=wrapper_ms,
                 plain_ms=plain_ms, bound=bound, chain=chain,
                 build_s=gen_build["s"], iterations=its,
@@ -5742,7 +5931,7 @@ def compare_generic(ig, name, got, want, H, dtype, what):
     return d, g["iterations"]
 
 
-def generic_phase(ig, dev, cycles, mhz):
+def generic_phase(ig, dev, cycles, mhz, parents=()):
     """The generic AL-iLQR kernel (``csrc/ilqr_generic.cu``) on the native
     problems without a kernel of their own, at H = 250 and 300 (at 300
     with a shared-memory limit of GENERIC_SMALL_SMEM, so that a block's
@@ -5754,17 +5943,25 @@ def generic_phase(ig, dev, cycles, mhz):
     B = 1, 64 and 2,048 of ``ref_line_smoother_k`` (H=250) and of the
     genopt MPC (H=60), float64: every scenario bit-equal to its single
     launch, against the plain batched update on the card at B <= 64;
-    times through the bare launcher and the wrapper.  The batches are
+    times through the bare launcher and the wrapper, the geometry the
+    launcher picks (a block a scenario, or resident warps: slots a block,
+    blocks an SM, a slot's shared and workspace bytes) and, at B = 2,048, a
+    "phases" line of the warp that solves scenario 0.  The batches are
     float64: in float32 a scenario's line-search acceptance near the stop
     is decided by rounding, and the batched plain update sums in another
-    order than the kernel, so one scenario in 64 may part by a metre."""
+    order than the kernel, so one scenario in 64 may part by a metre.
+    With ``parents`` (generic_parent_libs) every case above, and the RSTP
+    profiles (``scenes.GENERIC_RSTP``) at the same shapes, is held bit for
+    bit to each parent source's launch and timed in turns with it."""
     import torch
     from tpl_tpu_torch import scenes
     from tpl_tpu_torch.optim import batched, genopt, ilqr
 
     f32, f64 = torch.float32, torch.float64
-    err, times = 0.0, {}
-    for name in scenes.GENERIC_NATIVE:
+    err, times, parent_ms = 0.0, {}, {}
+    for name in scenes.GENERIC_NATIVE + scenes.GENERIC_RSTP:
+        if name in scenes.GENERIC_RSTP and not parents:
+            continue
         for H in GENERIC_H:
             smem = GENERIC_SMALL_SMEM if H == 300 else ig.SMEM_LIMIT
             for warm, integ in ((False, ilqr.EULER), (True, ilqr.HEUN)):
@@ -5775,6 +5972,13 @@ def generic_phase(ig, dev, cycles, mhz):
                     buf, it = generic_case_buf(ig, name, H, T, warm, H + warm,
                                                dtype, dev)
                     run = (H, 512, T, it, 1, integ)
+                    n_sh = ig._size(ig.shared_layout(name, H, 512))
+                    generic_versus_parents(
+                        ig, parents, 1, f"{name} {what} {dtype}",
+                        ig.NATIVE[name], buf[:n_sh],
+                        buf[n_sh:].reshape(1, -1), *run, smem, 5, parent_ms)
+                    if name in scenes.GENERIC_RSTP:
+                        continue
                     n0 = ig.launches
                     out = ig.update(name, buf, *run, smem_limit=smem)
                     if ig.launches != n0 + 1:
@@ -5821,6 +6025,8 @@ def generic_phase(ig, dev, cycles, mhz):
                     phase_line(f"ilqr_generic {name}", what, ilqr, prof, its,
                                mhz)
     print(_build_log("ilqr_generic"))
+    figures = generic_build_figures(
+        ig, [(n, ig.NATIVE[n], d) for n in ig.NATIVE for d in (f32, f64)])
 
     # the batch through optim.batched on CUDA tensors
     gspec = genopt.make_problem(scenes.genopt_mpc_config())[0].generated
@@ -5876,6 +6082,28 @@ def generic_phase(ig, dev, cycles, mhz):
                 if not torch.equal(one, out[b]):
                     raise AssertionError(f"{which} B={B}: scenario {b} "
                                          "parts from its single launch")
+            generic_versus_parents(ig, parents, 2 if spec.struct else 1,
+                                   f"batch {which} B={B}", spec, shared, rows,
+                                   H, n_ref, H, it, 1, integ, ig.SMEM_LIMIT,
+                                   3 if B > 64 else 10, parent_ms)
+            geo = ig.geometry(spec, B, H, n_ref, dtype)
+            unit = ig.split(spec, H, n_ref, dtype, B=B)
+            print(f"ilqr_generic batch {which} B={B}: "
+                  f"{'resident warps' if geo['resident'] else 'a block a scenario'}"
+                  f", {geo['slots']} scenarios a block, {geo['per_sm']} "
+                  f"blocks an SM, {geo['blocks']} blocks, {geo['smem']} B "
+                  f"shared a block; a {'slot' if geo['resident'] else 'block'}"
+                  f": {unit[0]} B shared, {unit[1]} B workspace")
+            phases = None
+            if geo["resident"]:
+                pout, prof = ig.profile_batch(spec, shared, rows, H, n_ref, H,
+                                              it, 1, integ)
+                if not torch.equal(pout, out):
+                    raise AssertionError(f"{which} B={B}: the profiling "
+                                         "instantiation parts")
+                phases = phase_line(f"ilqr_generic batch {which}",
+                                    f"B={B} scenario 0", ilqr, prof,
+                                    int(got[5][0]), mhz)
             line = ""
             plain_ms = None
             if B <= 64:
@@ -5904,17 +6132,204 @@ def generic_phase(ig, dev, cycles, mhz):
                                 dtype=dtype)
             chain = ig.chain_ms(spec, H, H, int(its.max()), cycles, mhz,
                                 integ, dtype)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            resident = sms * geo["per_sm"] * geo["slots"]
+            floor = (ig.design_floor_ms(spec, H, H, its, its, cycles, mhz,
+                                        resident, integ, dtype)
+                     if geo["resident"] else None)
             batches[(which, B)] = dict(
                 ms=bare, wrapper_ms=wrap, plain_ms=plain_ms, bound=bound,
                 chain=chain, solves_per_s=B / wrap * 1e3,
-                iterations_max=int(its.max()))
+                iterations_max=int(its.max()), geometry=geo,
+                unit_bytes=unit, floor=floor, phases=phases,
+                parent_ms=parent_ms.get(f"batch {which} B={B}"))
             print(f"ilqr_generic batch {which} B={B} ({dtype}): every "
                   f"scenario bit-equal to its single launch{line}; "
                   f"iterations {int(its.min())}-{int(its.max())}; ms bare "
                   f"{bare:.4f}, wrapper {wrap:.4f}, {B / wrap * 1e3:.0f} "
                   f"solves/s; bound_ms {bound[0]:.6f} ({bound[1]}), "
-                  f"chain_ms {chain:.4f}")
-    return dict(err=err, times=times, batches=batches)
+                  f"chain_ms {chain:.4f}"
+                  + (f", this design's floor {floor:.4f} (each scenario's "
+                     f"chain with a round an iteration, {resident} warps)"
+                     if floor is not None else ""))
+    return dict(err=err, times=times, batches=batches, parent_ms=parent_ms,
+                figures=figures)
+
+
+def tracking_generic_phase(ig, itm, itt, dev, cycles, mhz):
+    """The two tracking MPCs through the generic kernel: each
+    ``optimizers`` factory's solver (horizon_max 300) at H = 200 and 300
+    on seeded warm starts (``scenes.genopt_mpc_case``,
+    ``scenes.mpc_time_generic_case``; HEUN, 8 iterations): one generic
+    launch a solve and none of the MPC's own kernel, the result against the
+    plain update on the card at GENERIC_TOL (x scaled by its largest
+    magnitude) with equal mu_step and iterations, the bare launcher's and
+    the plain version's ms, bound_ms / chain_ms, the split; then the batched
+    time-indexed MPC (``optim.batched`` on CUDA tensors, H=60, 8 iterations,
+    HEUN, cold) at B = 64 and 2,048: one launch, every scenario bit-equal
+    to its single launch, against the plain batched update on the card at
+    B = 64, the geometry, times and bounds."""
+    import torch
+    from tpl_tpu_torch import scenes
+    from tpl_tpu_torch.optim import batched, ilqr, optimizers, problems
+
+    f64 = torch.float64
+    err, singles, batches, launches = 0.0, {}, {}, 0
+    for name in ("trajectory_tracking_mpc", "trajectory_tracking_mpc_time"):
+        own = itm if name == "trajectory_tracking_mpc" else itt
+        for H in TRACKING_H:
+            opt = getattr(optimizers, name)()
+            if opt.route != "ilqr_generic":
+                raise AssertionError(f"{name}: route {opt.route}")
+            if name == "trajectory_tracking_mpc":
+                inputs, params, mu = scenes.genopt_mpc_case(True, 7, H)
+            else:
+                inputs, params, mu = scenes.mpc_time_generic_case(H, 7, True)
+            cap = opt.horizon_max
+            pad = lambda a: np.pad(a, ((0, cap - H),) + ((0, 0),) * (
+                a.ndim - 1))
+            for k, v in params.items():
+                setattr(opt.params, k, v)
+            opt.horizon, opt.step, opt.max_iterations = H, 0.05, 8
+            opt.integrator_type = ilqr.HEUN
+            opt.load_state(pad(inputs["x"]), pad(inputs["u"]),
+                           pad(inputs["lam"]), mu)
+            opt.u_min = inputs["u_lims"][..., 0]
+            opt.u_max = inputs["u_lims"][..., 1]
+            opt.barrier_weight = inputs["bw_lim"][:, 0]
+            opt.lg_mult_limit = inputs["bw_lim"][:, 1]
+            state = {k: np.array(v) for k, v in opt._inputs().items()}
+            n0, own0 = ig.by_problem.get(name, 0), own.launches
+            opt.update()
+            torch.cuda.synchronize()
+            if ig.by_problem.get(name, 0) != n0 + 1 or own.launches != own0:
+                raise AssertionError(f"{name} H={H}: not one generic launch")
+            launches += 1
+            n_ref = ig.n_ref_of(name, opt.params._values)
+            buf = torch.from_numpy(ig.pack_inputs(
+                name, state, opt.params._values, mu)).to(dev)
+            run = (cap, n_ref, H, 8, 1, ilqr.HEUN)
+            got = ig.update(name, buf, *run)
+            t0 = time.perf_counter()
+            ref = ig.update_reference(name, buf, *run)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            if not (np.array_equal(opt._x, ig.unpack_outputs(
+                    name, got.cpu().numpy(), cap)["x"])):
+                raise AssertionError(f"{name} H={H}: the solver's and the "
+                                     "wrapper's launch part")
+            d, its = compare_generic(ig, name, got, ref, cap, "float64",
+                                     f"H={H} through the factory")
+            err = max(err, d)
+            n_sh = ig._size(ig.shared_layout(name, cap, n_ref))
+            bare, wrap = launcher_times(
+                f"ilqr_generic {name}", f"H={H} of {cap} float64",
+                ig.bare(name, buf[:n_sh], buf[n_sh:].reshape(1, -1),
+                        *run[:5], integrator=ilqr.HEUN),
+                lambda: ig.update(name, buf, *run), 10)
+            bound = ig.bound_ms(name, cap, n_ref, H, its,
+                                integrator=ilqr.HEUN)
+            chain = ig.chain_ms(name, cap, H, its, cycles, mhz, ilqr.HEUN)
+            split = ig.split(name, cap, n_ref, f64)
+            out, prof = ig.profile(name, buf, *run)
+            if not torch.equal(out, got):
+                raise AssertionError(f"{name}: the profiling instantiation "
+                                     "parts")
+            phases = phase_line(f"ilqr_generic {name}", f"H={H}", ilqr, prof,
+                                its, mhz)
+            singles[(name, H)] = dict(ms=bare, wrapper_ms=wrap,
+                                      plain_ms=plain_ms, bound=bound,
+                                      chain=chain, iterations=its,
+                                      split=split, phases=phases, err=d)
+            print(f"ilqr_generic {name} H={H} of {cap} (the factory's "
+                  f"solver, generic kernel): max diff to plain on the card "
+                  f"{d:.3e}, {its} iterations, plain {plain_ms:.1f} ms; "
+                  f"bound_ms {bound[0]:.6f} ({bound[1]}), chain_ms "
+                  f"{chain:.4f}; split {split[0]} B shared + {split[1]} B "
+                  "workspace")
+
+    name = "trajectory_tracking_mpc_time"
+    spec = ig.NATIVE[name]
+    H, it, integ = MPC_H, 8, ilqr.HEUN
+    inputs, params, _ = scenes.mpc_time_generic_case(H, 3)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    tp = {k: t(v) for k, v in params.items()}
+    cfg = dict(u_min=t(inputs["u_lims"][..., 0]),
+               u_max=t(inputs["u_lims"][..., 1]),
+               barrier_weight=t(inputs["bw_lim"][:, 0]),
+               lg_mult_limit=t(inputs["bw_lim"][:, 1]),
+               dt=t(inputs["cfg_f"][0]),
+               min_rel_cost_change=t(inputs["cfg_f"][1]), T=H,
+               max_iterations=it, max_lg_iterations=1)
+    for B in TIME_BATCHES:
+        rng = np.random.default_rng(B)
+        x = torch.zeros((H + 1, 6, B), dtype=f64, device=dev)
+        u = torch.zeros((H, 2, B), dtype=f64, device=dev)
+        lam_ = torch.zeros((H, 4, B), dtype=f64, device=dev)
+        mu = torch.zeros(B, dtype=torch.int32, device=dev)
+        x0 = t(inputs["x"][0][:, None] + rng.normal(0.0, 0.2, (6, B)))
+        upd = batched.make_batched_update_fn(
+            problems.trajectory_tracking_mpc_time()[0], H, B, integ, f64)
+        n0 = ig.launches
+        got = upd(x, u, lam_, mu, x0, tp, cfg, iterations=True)
+        torch.cuda.synchronize()
+        if ig.launches != n0 + 1:
+            raise AssertionError(f"batched {name} B={B}: "
+                                 f"{ig.launches - n0} launches")
+        launches += 1
+        shared, rows = ig.pack_inputs_batched(spec, x, u, lam_, mu, x0, tp,
+                                              cfg)
+        out = ig.launch(spec, shared, rows, H, 128, H, it, 1, integ)
+        singles_in = ig.rows_of_batch(shared, rows)
+        for b in range(B):
+            one = ig.update(spec, singles_in[b].contiguous(), H, 128, H, it,
+                            1, integ)
+            if not torch.equal(one, out[b]):
+                raise AssertionError(f"batched {name} B={B}: scenario {b} "
+                                     "parts from its single launch")
+        plain_ms, line = None, ""
+        if B <= 64:
+            t0 = time.perf_counter()
+            want = upd.reference(x, u, lam_, mu, x0, tp, cfg,
+                                 iterations=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            d = max(float((g.double() - w.double()).abs().max())
+                    for g, w in zip(got[:3], want[:3]))
+            if not (d <= GENERIC_TOL * float(want[0].abs().max())
+                    and torch.equal(got[3], want[3])
+                    and torch.equal(got[5], want[5])):
+                raise AssertionError(f"batched {name} B={B}: the batch and "
+                                     f"the plain batched update part by {d}")
+            err = max(err, d)
+            line = (f", max diff to the plain batched update on the card "
+                    f"{d:.3e} (plain {plain_ms:.1f} ms)")
+        its = got[5].cpu().numpy()
+        geo = ig.geometry(spec, B, H, 128, f64)
+        bare, wrap = launcher_times(
+            f"ilqr_generic batch {name}", f"B={B}",
+            ig.bare(spec, shared, rows, H, 128, H, it, 1, integ),
+            lambda: upd(x, u, lam_, mu, x0, tp, cfg), 5)
+        bound = ig.bound_ms(spec, H, 128, H, its, integrator=integ)
+        chain = ig.chain_ms(spec, H, H, int(its.max()), cycles, mhz, integ)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        floor = (ig.design_floor_ms(spec, H, H, its, its, cycles, mhz,
+                                    sms * geo["per_sm"] * geo["slots"],
+                                    integ)
+                 if geo["resident"] else None)
+        batches[B] = dict(ms=bare, wrapper_ms=wrap, plain_ms=plain_ms,
+                          bound=bound, chain=chain, floor=floor,
+                          solves_per_s=B / wrap * 1e3, geometry=geo,
+                          iterations_max=int(its.max()))
+        print(f"ilqr_generic batch {name} B={B}: every scenario bit-equal "
+              f"to its single launch{line}; iterations {int(its.min())}-"
+              f"{int(its.max())}; {'resident warps' if geo['resident'] else 'a block a scenario'}"
+              f" ({geo['slots']} a block, {geo['per_sm']} blocks an SM); ms "
+              f"bare {bare:.4f}, wrapper {wrap:.4f}, {B / wrap * 1e3:.0f} "
+              f"solves/s; bound_ms {bound[0]:.6f} ({bound[1]}), chain_ms "
+              f"{chain:.4f}"
+              + (f", this design's floor {floor:.4f}" if floor else ""))
+    return dict(err=err, singles=singles, batches=batches, launches=launches)
 
 
 def smooth_only_phase(ig, rstp, itm):
@@ -6942,6 +7357,16 @@ def main(argv=()):
     gen_build["thread"] = threading.Thread(target=build_genopt_source,
                                            args=(gen_build,))
     gen_build["thread"].start()
+    # another ilqr_generic.cu of --parent-csrc (its native library and the
+    # genopt MPC's source against its headers), built likewise
+    parent_build = {}
+    generic_dirs = [d for d in parents_with(opts.parent_csrc, "ilqr_generic")
+                    if all(os.path.isfile(os.path.join(d, f))
+                           for f in GENERIC_SOURCES)]
+    if generic_dirs:
+        parent_build["thread"] = threading.Thread(
+            target=build_generic_parents, args=(generic_dirs, parent_build))
+        parent_build["thread"].start()
     phase("DP slice", slice_phase, lam, tllk)
     loop = phase("DP closed loop", closed_loop_phase, lam, itm)
     dp_first = phase("DP first replan", dp_first_replan_phase,
@@ -6952,12 +7377,20 @@ def main(argv=()):
     native_rec, restore = record_native_calls(native)
     for k in native.ROUTES:
         native.calls[k] = 0
+    generic_mpc0 = ig.by_problem.get("trajectory_tracking_mpc", 0)
     try:
         follow = phase("RSTP closed loop, country_follow", rstp_loop_phase,
                        rstp, rmp, itm, "demo/country_follow", LOOP_TICKS,
                        record=True)
     finally:
         restore()
+    # the vendored controller (HORIZON_MAX = 60) keeps the MPC's own kernel
+    if (follow["launches"]["ilqr_tracking_mpc"] == 0
+            or ig.by_problem.get("trajectory_tracking_mpc", 0)
+            != generic_mpc0):
+        raise AssertionError("the vendored controller left ilqr_tracking_mpc")
+    print(f"the vendored controller: {follow['launches']['ilqr_tracking_mpc']}"
+          " ilqr_tracking_mpc launches, none of the generic kernel")
     loop_calls = dict(native.calls)
     overtake = phase("RSTP closed loop, country_overtake", rstp_loop_phase,
                      rstp, rmp, itm, "demo/country_overtake", OVERTAKE_TICKS,
@@ -6996,8 +7429,15 @@ def main(argv=()):
                ctl[TIME_MPC]["picked"], dev, cycles, mhz, opts.parent_csrc)
     phase("tplsim run", tplsim_phase)
     phase("record and replay", record_replay_phase)
-    gen = phase("genopt MPC", genopt_phase, dev, gen_build, cycles, mhz)
-    igk = phase("iLQR generic", generic_phase, ig, dev, cycles, mhz)
+    parents = generic_parent_libs(parent_build)
+    if parents:
+        print(f"the parent generic sources built in {parent_build['s']:.1f} s"
+              " beside the phases")
+    gen = phase("genopt MPC", genopt_phase, dev, gen_build, cycles, mhz,
+                parents)
+    igk = phase("iLQR generic", generic_phase, ig, dev, cycles, mhz, parents)
+    trk = phase("tracking MPCs, generic kernel", tracking_generic_phase, ig,
+                itm, itt, dev, cycles, mhz)
     smooth = phase("RSTP smooth_only", smooth_only_phase, ig, rstp, itm)
     phase("crane example", crane_phase, dev)
     bs = phase("batched DP slice", batch_slice_phase, lam, tllk, dev, mhz,
@@ -7297,6 +7737,7 @@ def main(argv=()):
         "by_problem": {f"{n} H={H}": {k: (v[0] if k == "bound" else v)
                                       for k, v in t.items()}
                        for (n, H), t in igk["times"].items()},
+        "parent_ms": igk["parent_ms"], "build_figures": igk["figures"],
         "smooth_only_replan_median_ms": smooth["plan_median_ms"],
         "smooth_only_replan_max_ms": smooth["plan_max_ms"]})
     rows.append({
@@ -7308,7 +7749,8 @@ def main(argv=()):
         "plain_ms": gen["plain_ms"], "bound_ms": gen["bound"][0],
         "bound_by": gen["bound"][1], "chain_ms": gen["chain"],
         "library_ms": NO_LIBRARY, "build_s": gen["build_s"],
-        "iterations": gen["iterations"], "split": gen["split"]})
+        "iterations": gen["iterations"], "split": gen["split"],
+        "parent_ms": gen["parent_ms"], "build_figures": gen["figures"]})
     for which in ("ref_line_smoother_k", "genopt_mpc"):
         b = igk["batches"][(which, GENERIC_BATCHES[-1])]
         rows.append({
@@ -7322,8 +7764,42 @@ def main(argv=()):
             "plain_batch": 64, "bound_ms": b["bound"][0],
             "bound_by": b["bound"][1], "chain_ms": b["chain"],
             "library_ms": NO_LIBRARY, "solves_per_s": b["solves_per_s"],
+            "design_floor_ms": b["floor"], "geometry": b["geometry"],
+            "unit_bytes": b["unit_bytes"], "scenario0_phases_us": b["phases"],
             "ms_by_batch": {B: igk["batches"][(which, B)]["ms"]
-                            for B in GENERIC_BATCHES}})
+                            for B in GENERIC_BATCHES},
+            "parent_ms_by_batch": {
+                B: igk["batches"][(which, B)]["parent_ms"]
+                for B in GENERIC_BATCHES}})
+    # the tracking MPCs through the generic kernel (launches in their phase)
+    for name in ("trajectory_tracking_mpc", "trajectory_tracking_mpc_time"):
+        t = trk["singles"][(name, TRACKING_H[-1])]
+        rows.append({
+            "name": f"ilqr_generic_{name}", "route": "cuda",
+            "source": "tpl_tpu_torch/csrc/ilqr_generic.cu",
+            "replaces": "tpl_tpu/optim/ilqr.py:126",
+            "launches": len(TRACKING_H), "max_abs_err": t["err"],
+            "ms": t["ms"], "wrapper_ms": t["wrapper_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "chain_ms": t["chain"],
+            "library_ms": NO_LIBRARY, "horizon": TRACKING_H[-1],
+            "iterations": t["iterations"],
+            "by_horizon": {H: {k: (v[0] if k == "bound" else v)
+                               for k, v in trk["singles"][(name, H)].items()}
+                           for H in TRACKING_H}})
+    b = trk["batches"][TIME_BATCHES[-1]]
+    rows.append({
+        "name": "ilqr_generic_batched_trajectory_tracking_mpc_time",
+        "route": "cuda", "source": "tpl_tpu_torch/csrc/ilqr_generic.cu",
+        "replaces": "tpl_tpu/optim/batched.py:30",
+        "batch": TIME_BATCHES[-1], "launches": 1, "max_abs_err": trk["err"],
+        "ms": b["ms"], "wrapper_ms": b["wrapper_ms"],
+        "plain_ms": trk["batches"][TIME_BATCHES[0]]["plain_ms"],
+        "plain_batch": TIME_BATCHES[0], "bound_ms": b["bound"][0],
+        "bound_by": b["bound"][1], "chain_ms": b["chain"],
+        "design_floor_ms": b["floor"], "library_ms": NO_LIBRARY,
+        "solves_per_s": b["solves_per_s"], "geometry": b["geometry"],
+        "ms_by_batch": {B: trk["batches"][B]["ms"] for B in TIME_BATCHES}})
     # the multi-process deployment's launches, counted in its processes
     for row in rows:
         if row["name"] in dep["launches"]:

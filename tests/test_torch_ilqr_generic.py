@@ -60,6 +60,11 @@ RTOL = ATOL = 1e-12
 SOLVE_RTOL, SOLVE_X_ATOL, SOLVE_U_ATOL = 1e-4, 1e-6, 1e-5
 N_REF = 512
 SMALL_SMEM = 24 * 1024      # most arrays in the workspace
+# the tracking MPCs' structs against the plain update over 200 steps: an
+# 8-iteration solve of the time-indexed MPC at 200 steps is sensitive to
+# rounding (cold from scenes.mpc_time_generic_case, the two part by 3e-7 in
+# x and 2e-9 in cost; at 120 steps by 3e-12), so the solves are held at
+TRACKING_TOL = 1e-6
 
 HARNESS = r"""
 #include <thread>
@@ -100,18 +105,12 @@ static void run_problem(int integ, const double* shared, const double* rows,
   const size_t cap = smem_limit / sizeof(double);
   typedef Solve<P, double> S;
   run_grid(B, [=] {
-#define RUN(I, PR) S::template run<I, PR>(smd, ws, cap, shared, rows, out, \
-                                          prof, H, n_ref, T, max_it, max_lg)
-    if (prof) {
-      if (integ == EULER) RUN(EULER, true);
-      else if (integ == HEUN) RUN(HEUN, true);
-      else RUN(RK4, true);
-    } else {
-      if (integ == EULER) RUN(EULER, false);
-      else if (integ == HEUN) RUN(HEUN, false);
-      else RUN(RK4, false);
-    }
-#undef RUN
+    if (prof)
+      S::template run<true>(smd, ws, cap, shared, rows, out, prof, H, n_ref,
+                            T, max_it, max_lg, integ);
+    else
+      S::template run<false>(smd, ws, cap, shared, rows, out, prof, H, n_ref,
+                             T, max_it, max_lg, integ);
   }, order);
 }
 
@@ -247,12 +246,12 @@ def plain(spec, host, H, n_ref, T, it, lg, integrator):
     return ig.unpack_outputs(spec, out.numpy(), H)
 
 
-def assert_matches(got, want, max_it):
+def assert_matches(got, want, max_it, tol=RTOL):
     for k in ("x", "u", "lam"):
-        np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL,
+        np.testing.assert_allclose(got[k], want[k], rtol=tol, atol=tol,
                                    err_msg=k)
     np.testing.assert_allclose(got["traj_costs"], want["traj_costs"],
-                               rtol=RTOL)
+                               rtol=tol)
     assert got["mu_step"] == want["mu_step"]
     assert got["iterations"] == want["iterations"]
     assert 1 <= got["iterations"] <= max_it
@@ -386,6 +385,97 @@ def test_native_body_matches_jax(body, name, H):
     assert_jax(ig.unpack_outputs(spec, out[0], H),
                jax_solve(j_prob, spec, inputs, params, mu, H, H, it,
                          ilqr.HEUN))
+
+
+# ---------------------------------------------------------------------
+# the two tracking MPCs through the generic kernel
+
+TRACKING = ("trajectory_tracking_mpc", "trajectory_tracking_mpc_time")
+
+
+def tracking_case(name, H, seed, warm=False):
+    """(spec, inputs, params, mu_step, n_ref) of a tracking MPC's seeded
+    solve at horizon H (HEUN, 8 iterations): the spatial one on the genopt
+    MPC's course (``scenes.genopt_mpc_case``), the time-indexed one on
+    ``scenes.mpc_time_generic_case``."""
+    if name == "trajectory_tracking_mpc":
+        inputs, params, mu = scenes.genopt_mpc_case(warm, seed, H)
+    else:
+        inputs, params, mu = scenes.mpc_time_generic_case(H, seed, warm)
+    return ig.NATIVE[name], inputs, params, mu, 128
+
+
+@pytest.mark.parametrize("H", [60, 200])
+@pytest.mark.parametrize("name", TRACKING)
+def test_tracking_mpc_struct_matches_plain(body, name, H):
+    """The hand-written structs of the two tracking MPCs (csrc/
+    ilqr_generic.cu) in the body against the plain float64 update (equal
+    mu_step and iterations), cold at H = 60 at RTOL = ATOL = 1e-12 and warm
+    at H = 200 with a 24 KB shared-memory limit (the arrays past it in the
+    workspace) at TRACKING_TOL: the structs' derivatives are autograd's
+    formulas rounded in another order, and the long solves amplify that;
+    at H = 200 also against the JAX package's make_update_fn at the solve
+    tolerance."""
+    spec, inputs, params, mu, n_ref = tracking_case(name, H, 7, H == 200)
+    host = ig.pack_inputs(spec, inputs, params, mu)
+    shared, rows = _split(spec, host, H, n_ref)
+    smem = SMALL_SMEM if H == 200 else ig.SMEM_LIMIT
+    out = rehearse(body, spec, shared, rows, H, n_ref, H, 8,
+                   integrator=ilqr.HEUN, smem_limit=smem)
+    got = ig.unpack_outputs(spec, out[0], H)
+    assert_matches(got, plain(spec, host, H, n_ref, H, 8, 1, ilqr.HEUN), 8,
+                   RTOL if H == 60 else TRACKING_TOL)
+    assert float(np.abs(got["u"]).max()) > 1e-3
+    if H == 200:
+        j_prob, _ = getattr(j_problems, name)(ref_capacity=n_ref)
+        assert_jax(got, jax_solve(j_prob, spec, inputs, params, mu, H, H, 8,
+                                  ilqr.HEUN))
+
+
+def test_factories_hold_300_and_route_by_capacity(monkeypatch):
+    """Every ``optimizers`` factory holds the JAX package's horizon of 300
+    on every device; a tracking MPC's solver names its own kernel exactly
+    while its horizon_max fits that kernel's shared memory (110 spatial and
+    132 time-indexed steps at 128 reference samples) and the generic kernel
+    beyond; float32 takes no kernel; the vendored controller's solver (60)
+    keeps the MPC's own kernel.  On the CPU a solver at 300 goes through
+    ilqr_generic.solve, whose CPU tensor runs the plain update."""
+    from tpl_tpu_torch.control import tracking_mpc
+    from tpl_tpu_torch.optim import optimizers, problems
+
+    for name in optimizers._FACTORIES:
+        make = getattr(optimizers, name)
+        assert make(device="cpu").horizon_max == optimizers.HORIZON_MAX == 300
+        assert not hasattr(make, "cuda_horizon_max")
+    for name, own, cap in (("trajectory_tracking_mpc", "ilqr_tracking_mpc",
+                            110),
+                           ("trajectory_tracking_mpc_time",
+                            "ilqr_tracking_mpc_time", 132)):
+        prob, pspec = getattr(problems, name)()
+        for H in (20, 60, cap, cap + 1, 200, 300):
+            s = solver.Solver(prob, pspec, horizon_max=H,
+                              dtype=torch.float64, device="cpu")
+            assert s.route == (own if H <= cap else "ilqr_generic"), (name, H)
+        assert solver.Solver(prob, pspec, horizon_max=60, dtype=torch.float32,
+                             device="cpu").route is None
+        assert getattr(optimizers, name)(device="cpu").route == "ilqr_generic"
+    assert tracking_mpc.TrackingMpc.HORIZON_MAX == 60
+    prob, pspec = problems.trajectory_tracking_mpc()
+    assert solver.Solver(prob, pspec, horizon_max=60, dtype=torch.float64,
+                         device="cpu").route == "ilqr_tracking_mpc"
+    calls = []
+    real = ig.solve
+    monkeypatch.setattr(ig, "solve", lambda *a, **k: (calls.append(a),
+                                                      real(*a, **k))[1])
+    opt = optimizers.trajectory_tracking_mpc_time(device="cpu")
+    inputs, params, _ = scenes.mpc_time_generic_case(300, 1)
+    for k, v in params.items():
+        setattr(opt.params, k, v)
+    opt.horizon, opt.step, opt.max_iterations = 300, 0.05, 2
+    opt.x[0] = inputs["x"][0]
+    opt.update()
+    assert len(calls) == 1 and calls[0][0] == "trajectory_tracking_mpc_time"
+    assert np.all(np.isfinite(opt.x)) and opt.iterations >= 1
 
 
 # ---------------------------------------------------------------------
@@ -555,15 +645,22 @@ def test_unprintable_function_warns_and_solves_plain(monkeypatch):
 
 
 def test_batched_update_names_the_problems_with_a_batched_kernel():
-    """A problem with no batched kernel (the time MPC) raises on CUDA
-    tensors naming those that have one; on CPU tensors every problem takes
-    the plain version."""
-    msg = batched.no_batched_kernel_message("trajectory_tracking_mpc_time")
-    for name in ("trajectory_tracking_mpc", "lateral_profile",
-                 "velocity_profile_space", "ref_line_smoother_k",
-                 "ref_line_smoother_dk", "velocity_profile_time"):
+    """A problem with no batched kernel (a user's torch problem) raises on
+    CUDA tensors naming those that have one, the time-indexed tracking MPC
+    among them (the generic kernel's batch); on CPU tensors every problem
+    takes the plain version."""
+    msg = batched.no_batched_kernel_message("my_problem")
+    for name in ("trajectory_tracking_mpc", "trajectory_tracking_mpc_time",
+                 "lateral_profile", "velocity_profile_space",
+                 "ref_line_smoother_k", "ref_line_smoother_dk",
+                 "velocity_profile_time"):
         assert name in msg
-    assert "generated" in msg
+    assert msg.count("trajectory_tracking_mpc,") == 1
+    assert "generated" in msg and "my_problem" in msg
+    from tpl_tpu_torch.optim import problems
+
+    prob, _ = problems.trajectory_tracking_mpc_time()
+    assert ig.spec_of(prob) is ig.NATIVE["trajectory_tracking_mpc_time"]
 
 
 def test_operation_counts_and_bounds():

@@ -743,8 +743,11 @@ def test_batched_kernel_float32_matches_plain(cuda):
 @pytest.mark.cuda
 def test_batched_update_on_cuda_raises_for_other_problems(cuda):
     """A CUDA tensor launches the kernel or raises: no plain version in
-    silence (the time-indexed MPC has no batched kernel)."""
-    prob = problems.trajectory_tracking_mpc_time(128)[0]
+    silence (a user's torch problem has no batched kernel; the time-indexed
+    MPC has had one since the generic kernel took it)."""
+    prob = ilqr.Problem("user_problem", nx=6, nu=2, nc=4,
+                        dynamics=lambda x, u, t, dt, p: x,
+                        cost=lambda x, u, t, dt, p: (x * x).sum(-1))
     upd = batched.make_batched_update_fn(prob, 20, 2, ilqr.EULER,
                                          torch.float64)
     x, u, lam_, mu = batched.init_batch(prob, 20, 2, torch.float64, cuda)
@@ -2236,3 +2239,122 @@ def test_genopt_solver_launches_its_generated_kernel(cuda, monkeypatch):
         assert ig.by_problem["mpc_sympy"] == before + 1
         opt.shift(1)
     assert np.all(np.isfinite(opt.x)) and opt.iterations >= 1
+
+
+# the tracking MPCs through the generic kernel: x, u, lam within
+# test_torch_ilqr_generic.py's TRACKING_TOL (a 200-step solve amplifies the
+# rounding of the structs' derivatives against autograd's)
+TRACKING_TOL = 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [200, 300])
+@pytest.mark.parametrize("name", ["trajectory_tracking_mpc",
+                                  "trajectory_tracking_mpc_time"])
+def test_tracking_mpc_factory_solves_through_generic_kernel(cuda, name, H):
+    """A factory's tracking-MPC solver at horizon 200 and 300 on the card:
+    one generic-kernel launch an update and none of the MPC's own kernel,
+    the result within TRACKING_TOL of the plain update on the card."""
+    from tpl_tpu_torch.optim import optimizers
+
+    opt = getattr(optimizers, name)()
+    assert opt.route == "ilqr_generic" and opt.horizon_max == 300
+    if name == "trajectory_tracking_mpc":
+        inputs, params, mu = scenes.genopt_mpc_case(True, 7, H)
+    else:
+        inputs, params, mu = scenes.mpc_time_generic_case(H, 7, True)
+    for k, v in params.items():
+        if hasattr(opt.params, k):
+            setattr(opt.params, k, v)
+    opt.horizon, opt.step, opt.max_iterations = H, 0.05, 8
+    opt.integrator_type = ilqr.HEUN
+    opt.load_state(np.pad(inputs["x"], ((0, 300 - H), (0, 0))),
+                   np.pad(inputs["u"], ((0, 300 - H), (0, 0))),
+                   np.pad(inputs["lam"], ((0, 300 - H), (0, 0))), mu)
+    opt.u_min, opt.u_max = inputs["u_lims"][..., 0], inputs["u_lims"][..., 1]
+    opt.barrier_weight = inputs["bw_lim"][:, 0]
+    opt.lg_mult_limit = inputs["bw_lim"][:, 1]
+    state = {k: np.array(v) for k, v in opt._inputs().items()}
+    own = itm if name == "trajectory_tracking_mpc" else itt
+    n0, own0 = ig.by_problem.get(name, 0), own.launches
+    opt.update()
+    torch.cuda.synchronize()
+    assert ig.by_problem[name] == n0 + 1 and own.launches == own0
+    spec = ig.NATIVE[name]
+    buf = torch.from_numpy(ig.pack_inputs(spec, state, opt.params._values,
+                                          mu)).to(cuda)
+    want = ig.unpack_outputs(spec, ig.update_reference(
+        spec, buf, 300, 128, H, 8, 1, ilqr.HEUN).cpu().numpy(), 300)
+    for k, got in (("x", opt._x), ("u", opt._u), ("lam", opt._lam)):
+        np.testing.assert_allclose(got, want[k], rtol=TRACKING_TOL,
+                                   atol=TRACKING_TOL, err_msg=k)
+    assert opt.iterations == want["iterations"]
+    assert float(np.abs(opt.u).max()) > 1e-3
+
+
+@pytest.mark.cuda
+def test_vendored_controller_keeps_its_own_kernel(cuda):
+    """The vendored controller's solver (horizon_max 60) launches the
+    tracking MPC's own kernel, never the generic one."""
+    from tpl_tpu_torch.control import tracking_mpc
+
+    prob, pspec = problems.trajectory_tracking_mpc()
+    s = solver.Solver(prob, pspec,
+                      horizon_max=tracking_mpc.TrackingMpc.HORIZON_MAX,
+                      dtype=torch.float64, device=cuda)
+    assert s.route == "ilqr_tracking_mpc"
+    inputs, x0 = scenes.genopt_mpc_solve_inputs()
+    for k, v in inputs.items():
+        setattr(s.params, k, v)
+    s.horizon, s.x[0] = 40, x0
+    n0, g0 = itm.launches, ig.launches
+    s.update()
+    assert itm.launches == n0 + 1 and ig.launches == g0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [8, 300])
+def test_batched_time_mpc_rows_equal_single_launches(cuda, B):
+    """The batched time-indexed tracking MPC on CUDA tensors (the generic
+    kernel; B = 300 takes the resident geometry): one launch, every
+    scenario bit-equal to its single launch; at B = 8 within TRACKING_TOL
+    of the plain batched update."""
+    H, it = 60, 8
+    inputs, params, _ = scenes.mpc_time_generic_case(H, 3)
+    spec = ig.NATIVE["trajectory_tracking_mpc_time"]
+    rng = np.random.default_rng(B)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=cuda)
+    tp = {k: t(v) for k, v in params.items()}
+    cfg = dict(u_min=t(inputs["u_lims"][..., 0]),
+               u_max=t(inputs["u_lims"][..., 1]),
+               barrier_weight=t(inputs["bw_lim"][:, 0]),
+               lg_mult_limit=t(inputs["bw_lim"][:, 1]),
+               dt=t(inputs["cfg_f"][0]),
+               min_rel_cost_change=t(inputs["cfg_f"][1]), T=H,
+               max_iterations=it, max_lg_iterations=1)
+    x = torch.zeros((H + 1, 6, B), dtype=torch.float64, device=cuda)
+    u = torch.zeros((H, 2, B), dtype=torch.float64, device=cuda)
+    lam_ = torch.zeros((H, 4, B), dtype=torch.float64, device=cuda)
+    mu = torch.zeros(B, dtype=torch.int32, device=cuda)
+    x0 = t(inputs["x"][0][:, None] + rng.normal(0.0, 0.2, (6, B)))
+    upd = batched.make_batched_update_fn(problems.trajectory_tracking_mpc_time()[0],
+                                         H, B, ilqr.HEUN, torch.float64)
+    n0 = ig.launches
+    got = upd(x, u, lam_, mu, x0, tp, cfg, iterations=True)
+    torch.cuda.synchronize()
+    assert ig.launches == n0 + 1
+    assert ig.geometry(spec, B, H, 128)[
+        "resident"] == (B > 8)
+    shared, rows = ig.pack_inputs_batched(spec, x, u, lam_, mu, x0, tp, cfg)
+    out = ig.launch(spec, shared, rows, H, 128, H, it, 1, ilqr.HEUN)
+    singles = ig.rows_of_batch(shared, rows)
+    for b in range(B):
+        one = ig.update(spec, singles[b].contiguous(), H, 128, H, it, 1,
+                        ilqr.HEUN)
+        assert torch.equal(out[b], one), b
+    if B <= 8:
+        want = upd.reference(x, u, lam_, mu, x0, tp, cfg, iterations=True)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.double().cpu().numpy(),
+                                       w.double().cpu().numpy(),
+                                       rtol=TRACKING_TOL, atol=TRACKING_TOL)

@@ -2106,6 +2106,7 @@ HARNESS = r"""
 #include "dir_dist_map.cu"
 #include "poly_planner.cu"
 #include "parents.cuh"
+#include "generated.cuh"
 
 // The grid's two-launch design before the one launch (the helpers are the
 // kernel source's): a block of 32 threads a candidate, then one block for
@@ -3005,44 +3006,96 @@ extern "C" void rehearse_rstp(int problem, const double* in, double* out,
   });
 }
 
-// the generic AL-iLQR body on a native problem (csrc/ilqr_generic.cu), in
-// double, one block
-template <class P>
-static void rehearse_generic_one(int integ, const double* shared,
-                                 const double* rows, double* out, double* ws,
-                                 int H, int n_ref, int T, int max_it,
-                                 int max_lg, size_t smem_limit) {
+// the generic AL-iLQR body (csrc/ilqr_generic.cu, and from id 100 the
+// structs the sympy front end prints, generated.cuh) in double or float:
+// slots == 0 the block geometry, a grid of B blocks of 256 threads, block b
+// on row b, at `limit` bytes of shared memory a block; else the resident
+// geometry, `grid` blocks of `slots` warps walking the B rows, at `limit`
+// bytes a slot; the blocks in `order` where given
+template <class P, typename R>
+static void rehearse_generic_one(int integ, const R* shared, const R* rows,
+                                 R* out, R* ws, long long* prof, int B, int H,
+                                 int n_ref, int T, int max_it, int max_lg,
+                                 size_t limit, int slots, int grid,
+                                 const int* order) {
   using namespace ilqr_generic;
-  double* smd = reinterpret_cast<double*>(smem_raw);
-  const size_t cap = smem_limit / sizeof(double);
-  typedef Solve<P, double> S;
-  run_block([=] {
-    if (integ == EULER)
-      S::template run<EULER, false>(smd, ws, cap, shared, rows, out, nullptr,
-                                    H, n_ref, T, max_it, max_lg);
-    else if (integ == HEUN)
-      S::template run<HEUN, false>(smd, ws, cap, shared, rows, out, nullptr,
-                                   H, n_ref, T, max_it, max_lg);
+  R* smr = reinterpret_cast<R*>(smem_raw);
+  const size_t cap = limit / sizeof(R);
+  typedef Solve<P, R> S;
+  auto body = [=] {
+#define RUN(PR)                                                            \
+  (slots == 0 ? S::template run<PR>(smr, ws, cap, shared, rows, out, prof,  \
+                                    H, n_ref, T, max_it, max_lg, integ)     \
+              : S::template run_resident<PR>(smr, ws, cap, slots, shared,   \
+                                             rows, out, prof, B, H, n_ref,  \
+                                             T, max_it, max_lg, integ))
+    if (prof)
+      RUN(true);
     else
-      S::template run<RK4, false>(smd, ws, cap, shared, rows, out, nullptr,
-                                  H, n_ref, T, max_it, max_lg);
-  });
+      RUN(false);
+#undef RUN
+  };
+  if (slots == 0)
+    run_grid(B, 1, body, 256, order);
+  else
+    run_grid(grid, 1, body, slots * 32, order);
 }
 
-extern "C" void rehearse_generic_native(int problem, int integ,
-                                        const double* shared,
-                                        const double* rows, double* out,
-                                        double* ws, int H, int n_ref, int T,
-                                        int max_it, int max_lg,
-                                        size_t smem_limit) {
+extern "C" void rehearse_generic(int problem, int f64, int integ,
+                                 const void* shared, const void* rows,
+                                 void* out, void* ws, long long* prof, int B,
+                                 int H, int n_ref, int T, int max_it,
+                                 int max_lg, size_t limit, int slots,
+                                 int grid, const int* order) {
   using namespace ilqr_generic;
-#define X(ID, P)                                                          \
-  if (problem == ID)                                                      \
-    return rehearse_generic_one<P<double>>(integ, shared, rows, out, ws,  \
-                                           H, n_ref, T, max_it, max_lg,   \
-                                           smem_limit);
+  // float: ref_line_smoother_dk alone (its Riccati pass on the lanes)
+  if (problem == 1 && !f64)
+    return rehearse_generic_one<RefLineSmootherDK<float>, float>(
+        integ, (const float*)shared, (const float*)rows, (float*)out,
+        (float*)ws, prof, B, H, n_ref, T, max_it, max_lg, limit, slots, grid,
+        order);
+#define X(ID, P)                                                           \
+  if (problem == ID && f64)                                                \
+    return rehearse_generic_one<P<double>, double>(                        \
+        integ, (const double*)shared, (const double*)rows, (double*)out,   \
+        (double*)ws, prof, B, H, n_ref, T, max_it, max_lg, limit, slots,   \
+        grid, order);
   ILQR_GENERIC_PROBLEMS(X)
+  GENERATED_PROBLEMS(X)
 #undef X
+}
+
+// the words of shared memory (which = 0; a resident block's at `slots`)
+// and of workspace (1) a block (slots == 0) or a slot takes at `limit`
+// bytes; which = 3: whether its derivative blocks lie in the workspace,
+// staged in shared memory for the backward pass
+extern "C" size_t rehearse_generic_words(int problem, int f64, int H,
+                                         int n_ref, size_t limit, int slots,
+                                         int which) {
+  using namespace ilqr_generic;
+  size_t n_sm = 0, n_ws = 0;
+  bool staged = false;
+  auto words = [&](auto solve, size_t cap) {
+    typedef decltype(solve) S;
+    typename S::Mem m{};
+    if (slots == 0) {
+      S::carve(nullptr, nullptr, H, n_ref, cap, &m, &n_sm, &n_ws);
+    } else {
+      typename S::Carver c{nullptr, nullptr, cap, 0, 0};
+      S::carve_slot(c, H, &m);
+      n_sm = S::shared_len(H, n_ref) + slots * c.o_sm;
+      n_ws = c.o_ws;
+    }
+    staged = m.staged;
+  };
+  if (problem == 1 && !f64)
+    words(Solve<RefLineSmootherDK<float>, float>{}, limit / 4);
+#define X(ID, P) \
+  if (problem == ID && f64) words(Solve<P<double>, double>{}, limit / 8);
+  ILQR_GENERIC_PROBLEMS(X)
+  GENERATED_PROBLEMS(X)
+#undef X
+  return which == 3 ? (size_t)staged : which == 1 ? n_ws : n_sm;
 }
 
 extern "C" size_t rehearse_rstp_smem(int problem, int H, int n_ref) {
@@ -3054,6 +3107,16 @@ extern "C" size_t rehearse_rstp_smem(int problem, int H, int n_ref) {
 """
 
 
+def generated_structs():
+    """generated.cuh of the harness: the struct the sympy front end prints
+    for the genopt MPC (``scenes.genopt_mpc_config``), id 100."""
+    from tpl_tpu_torch.optim import genopt
+
+    spec = genopt.make_problem(scenes.genopt_mpc_config())[0].generated
+    return (f"{spec.struct}\n#define GENERATED_PROBLEMS(X) "
+            f"X(100, {spec.struct_name})\n")
+
+
 @pytest.fixture(scope="module")
 def bodies(tmp_path_factory):
     """The two kernel bodies compiled for the host, as a ctypes library."""
@@ -3063,6 +3126,7 @@ def bodies(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("rehearsal")
     (tmp / "cuda_runtime.h").write_text(STUB)
     (tmp / "parents.cuh").write_text(PARENTS)
+    (tmp / "generated.cuh").write_text(generated_structs())
     (tmp / "harness.cpp").write_text(HARNESS)
     so = tmp / "rehearsal.so"
     cmd = [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
@@ -3096,10 +3160,14 @@ def bodies(tmp_path_factory):
                                   + [ctypes.c_int] * 5)
     lib.rehearse_rstp_smem.restype = ctypes.c_size_t
     lib.rehearse_rstp_smem.argtypes = [ctypes.c_int] * 3
-    lib.rehearse_generic_native.restype = None
-    lib.rehearse_generic_native.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_size_t])
+    lib.rehearse_generic.restype = None
+    lib.rehearse_generic.argtypes = (
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.c_size_t] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.rehearse_generic_words.restype = ctypes.c_size_t
+    lib.rehearse_generic_words.argtypes = ([ctypes.c_int] * 4
+                                           + [ctypes.c_size_t]
+                                           + [ctypes.c_int] * 2)
     lib.ilqr_generic_split.restype = ctypes.c_size_t
     lib.ilqr_generic_split.argtypes = ([ctypes.c_int] * 4
                                        + [ctypes.c_size_t, ctypes.c_int])
@@ -3700,32 +3768,206 @@ def test_rstp_kernel_body_in_double_matches_plain(bodies, name, T, warm):
     assert np.all(np.isfinite(got["x"]))
 
 
+def generic_spec(name):
+    """A problem of the harness's generic bodies: a native one by its name,
+    or the genopt MPC's printed struct (id 100)."""
+    import dataclasses
+    from tpl_tpu_torch.optim import genopt, ilqr_generic as ig
+
+    if name == "genopt_mpc":
+        spec = genopt.make_problem(scenes.genopt_mpc_config())[0].generated
+        return dataclasses.replace(spec, id=100)
+    return ig.NATIVE[name]
+
+
+def generic_launch(bodies, spec, shared, rows, H, n_ref, T, it, integ,
+                   lg=1, f64=True, limit=None, slots=0, grid=0, order=None,
+                   prof=None):
+    """The generic body on the harness's grid: the block geometry (slots
+    == 0, B blocks, ``limit`` bytes of shared memory a block) or the
+    resident one (``grid`` blocks of ``slots`` warps, ``limit`` bytes a
+    slot); the ``(B, n_out)`` results."""
+    from tpl_tpu_torch.optim import ilqr_generic as ig
+
+    dtype = np.float64 if f64 else np.float32
+    limit = ig.SMEM_LIMIT if limit is None else limit
+    shared = np.ascontiguousarray(shared, dtype)
+    rows = np.ascontiguousarray(np.atleast_2d(rows), dtype)
+    B = rows.shape[0]
+    words = lambda which: bodies.rehearse_generic_words(
+        spec.id, int(f64), H, n_ref, limit, slots, which)
+    assert words(0) * dtype().itemsize <= 262144
+    ws = np.full(max((grid * slots if slots else B) * words(1), 1), np.nan,
+                 dtype)
+    out = np.zeros((B, ig._size(ig.output_layout(spec, H))), dtype)
+    o = None if order is None else np.ascontiguousarray(order, np.int32)
+    bodies.rehearse_generic(
+        spec.id, int(f64), integ, _ptr(shared), _ptr(rows), _ptr(out),
+        _ptr(ws), None if prof is None else _ptr(prof), B, H, n_ref, T, it,
+        lg, limit, slots, grid, None if o is None else _ptr(o))
+    return out
+
+
 @pytest.mark.parametrize("name,integ", [
     ("ref_line_smoother_k", ilqr.EULER), ("ref_line_smoother_dk", ilqr.HEUN),
-    ("velocity_profile_time", ilqr.RK4)])
+    ("velocity_profile_time", ilqr.RK4), ("genopt_mpc", ilqr.HEUN)])
 def test_generic_native_body_in_double_matches_plain(bodies, name, integ):
     """The generic AL-iLQR body (csrc/ilqr_generic.cu) on the native
-    problems without a kernel of their own, H = 250, against the plain
+    problems without a kernel of their own, H = 250, and on the struct the
+    sympy front end prints for the genopt MPC, H = 60, against the plain
     float64 make_update_fn (the cases of tests/test_torch_ilqr_generic.py,
     which also runs them at H = 300, warm, and against JAX)."""
     import test_torch_ilqr_generic as tig
     from tpl_tpu_torch.optim import ilqr_generic as ig
 
-    H = RSTP_H
-    spec, inputs, params, mu, it = tig.native_case(name, H, H, False, seed=4)
+    spec = generic_spec(name)
+    if name == "genopt_mpc":
+        H, n_ref, it = MPC_H, 128, 8
+        inputs, params, mu = scenes.genopt_mpc_case(False, 3, H)
+    else:
+        H, n_ref = RSTP_H, tig.N_REF
+        _, inputs, params, mu, it = tig.native_case(name, H, H, False,
+                                                    seed=4)
     host = ig.pack_inputs(spec, inputs, params, mu)
-    n_sh = ig._size(ig.shared_layout(spec, H, tig.N_REF))
-    ws_words = bodies.ilqr_generic_split(spec.id, 1, H, tig.N_REF,
-                                         ig.SMEM_LIMIT, 1)
-    ws = np.zeros(max(ws_words, 1))
-    out = np.zeros(ig._size(ig.output_layout(spec, H)))
-    shared, row = host[:n_sh].copy(), host[n_sh:].copy()
-    bodies.rehearse_generic_native(spec.id, integ, _ptr(shared), _ptr(row),
-                                   _ptr(out), _ptr(ws), H, tig.N_REF, H, it,
-                                   1, ig.SMEM_LIMIT)
-    tig.assert_matches(ig.unpack_outputs(spec, out, H),
-                       tig.plain(spec, host, H, tig.N_REF, H, it, 1, integ),
-                       it)
+    n_sh = ig._size(ig.shared_layout(spec, H, n_ref))
+    out = generic_launch(bodies, spec, host[:n_sh], host[n_sh:], H, n_ref, H,
+                         it, integ)
+    tig.assert_matches(ig.unpack_outputs(spec, out[0], H),
+                       tig.plain(spec, host, H, n_ref, H, it, 1, integ), it)
+
+
+def generic_batch(name, B, seed, dtype=torch.float64, H=None):
+    """(spec, H, n_ref, it, integ, shared, rows, plain) of a seeded batch of
+    a harness problem; ``plain()`` is the plain batched update's result,
+    the batch last."""
+    from tpl_tpu_torch.optim import ilqr_generic as ig
+
+    rng = np.random.default_rng(seed)
+    spec = generic_spec(name)
+    if name == "genopt_mpc":
+        H, n_ref, it, integ = H or 40, 128, 4, ilqr.HEUN
+        inputs, params, _ = scenes.genopt_mpc_case(False, 1, H)
+        spread = np.array([1, 1, 0.2, 0.1, 3, 0, 0.5])
+    else:
+        H, n_ref, integ = H or 60, 512, ilqr.RK4
+        inputs, params, _, it = scenes.generic_native_case(name, H, H, False,
+                                                           2, n_ref)
+        spread = np.full(spec.nx, 0.3) * (0.01 if spec.nx == 4 else 1.0)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype)
+    tp = {k: t(v) for k, v in params.items()
+          if k in spec.scalars + spec.tables}
+    cfg = dict(u_min=t(inputs["u_lims"][..., 0]),
+               u_max=t(inputs["u_lims"][..., 1]),
+               barrier_weight=t(inputs["bw_lim"][:, 0]),
+               lg_mult_limit=t(inputs["bw_lim"][:, 1]),
+               dt=t(inputs["cfg_f"][0]),
+               min_rel_cost_change=t(inputs["cfg_f"][1]), T=H,
+               max_iterations=it, max_lg_iterations=1)
+    x = torch.zeros((H + 1, spec.nx, B), dtype=dtype)
+    u = t(rng.normal(0.0, 0.02, (H, spec.nu, B)) * (spec.nx != 4))
+    lam = torch.zeros((H, spec.ncl, B), dtype=dtype)
+    mu = torch.as_tensor(rng.integers(0, 3, B), dtype=torch.int32)
+    x0 = t(inputs["x"][0][:, None]
+           + rng.normal(0.0, 1.0, (spec.nx, B)) * spread[:, None])
+    shared, rows = ig.pack_inputs_batched(spec, x, u, lam, mu, x0, tp, cfg,
+                                          dtype)
+
+    def plain():
+        upd = batched.make_batched_update_fn(spec.problem, H, B, integ, dtype)
+        return upd.reference(x, u, lam, mu, x0, tp, cfg, iterations=True)
+
+    return (spec, H, n_ref, it, integ, shared.numpy(), rows.numpy(), plain)
+
+
+def assert_rows_are_single_launches(bodies, spec, shared, rows, out, H,
+                                    n_ref, it, integ, f64=True):
+    """Every row of a batch's result bit-equal to its own single launch
+    (the block geometry at the default shared memory)."""
+    for b in range(rows.shape[0]):
+        one = generic_launch(bodies, spec, shared, rows[b], H, n_ref, H, it,
+                             integ, f64=f64)
+        assert np.array_equal(out[b], one[0]), b
+
+
+@pytest.mark.parametrize("name", ["genopt_mpc", "ref_line_smoother_k"])
+def test_generic_resident_batch_matches_single_launches(bodies, name):
+    """The resident-warp geometry of the generic body at B = 5 on 2 blocks
+    of 2 warps (4 slots, so one warp walks two scenarios), the blocks in
+    reversed order: every row bit-equal to its single launch of the block
+    geometry, twice: with a slot's arrays in shared memory, and at a slot
+    limit that puts most of them (the derivative blocks, staged for the
+    backward pass with cp.async's stand-in, among them) in the workspace;
+    the profiling instantiation bit-equal, its cycles counted; the batch
+    within 1e-12 of the plain batched update."""
+    from tpl_tpu_torch.optim import ilqr_generic as ig
+
+    spec, H, n_ref, it, integ, shared, rows, plain = generic_batch(name, 5,
+                                                                   11)
+    small = 24 * 1024 if name == "genopt_mpc" else 6 * 1024
+    words = lambda which: bodies.rehearse_generic_words(
+        spec.id, 1, H, n_ref, small, 2, which)
+    assert words(1) > 0 and words(3) == (name == "genopt_mpc")
+    outs = [generic_launch(bodies, spec, shared, rows, H, n_ref, H, it,
+                           integ, limit=limit, slots=2, grid=2,
+                           order=[1, 0])
+            for limit in (64 * 1024, small)]
+    assert np.array_equal(outs[0], outs[1])
+    assert_rows_are_single_launches(bodies, spec, shared, rows, outs[0], H,
+                                    n_ref, it, integ)
+    prof = np.zeros(len(ilqr.PHASES), np.int64)
+    p = generic_launch(bodies, spec, shared, rows, H, n_ref, H, it, integ,
+                       limit=small, slots=2, grid=2, prof=prof)
+    assert np.array_equal(p, outs[0])
+    assert np.all(prof[[ilqr.PHASES.index(k) for k in
+                        ("derivatives", "riccati")]] > 0)
+    got = ig.unpack_outputs_batched(spec, torch.from_numpy(outs[0]), H)
+    want = plain()
+    for g, w, what in zip(got, want, ("x", "u", "lam", "mu", "cost", "it")):
+        if what in ("mu", "it"):
+            assert np.array_equal(g.numpy(), w.numpy()), what
+        else:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=RTOL,
+                                       atol=ATOL, err_msg=what)
+
+
+def test_generic_team_geometry_at_b2(bodies):
+    """The block geometry of the generic body at B = 2 (a block a scenario,
+    the blocks in reversed order): each row bit-equal to its single
+    launch."""
+    spec, H, n_ref, it, integ, shared, rows, _ = generic_batch("genopt_mpc",
+                                                               2, 5)
+    out = generic_launch(bodies, spec, shared, rows, H, n_ref, H, it, integ,
+                         order=[1, 0])
+    assert_rows_are_single_launches(bodies, spec, shared, rows, out, H,
+                                    n_ref, it, integ)
+
+
+def test_generic_float32_body(bodies):
+    """The float32 instantiation (ref_line_smoother_dk, its Riccati pass on
+    the lanes): a single solve against the plain float32 update (x within
+    chip_smoke's RSTP_X_ATOL, 2e-2, the cost within its RSTP_COST_RTOL,
+    1e-5), and the resident geometry at B = 5 on one block of 4 warps (4
+    candidates a line-search round) at a slot limit that stages the
+    derivative blocks, every row bit-equal to its single launch."""
+    from tpl_tpu_torch.optim import ilqr_generic as ig
+
+    spec, H, n_ref, it, integ, shared, rows, plain = generic_batch(
+        "ref_line_smoother_dk", 5, 3, torch.float32)
+    limit = 7 * 1024
+    assert bodies.rehearse_generic_words(spec.id, 0, H, n_ref, limit, 4, 3)
+    out = generic_launch(bodies, spec, shared, rows, H, n_ref, H, it, integ,
+                         f64=False, limit=limit, slots=4, grid=1)
+    assert_rows_are_single_launches(bodies, spec, shared, rows, out, H,
+                                    n_ref, it, integ, f64=False)
+    host = np.concatenate([shared, rows[0]])
+    want = ig.unpack_outputs(spec, ig.update_reference(
+        spec, torch.from_numpy(host), H, n_ref, H, it, 1, integ).numpy()
+        .astype(np.float64), H)
+    got = ig.unpack_outputs(spec, out[0].astype(np.float64), H)
+    assert np.all(np.isfinite(got["x"]))
+    assert float(np.max(np.abs(got["x"] - want["x"]))) <= 2e-2
+    assert abs(got["traj_costs"] - want["traj_costs"]) <= 1e-5 * abs(
+        want["traj_costs"])
 
 
 # ---------------------------------------------------------------------
@@ -3784,15 +4026,15 @@ def test_rampify_profiling_body_is_bit_equal(bodies):
 
 
 def test_optimizers_horizon_fits_the_kernels(bodies):
-    """Each ``optimizers`` factory with a kernel holds on a CUDA device a
-    horizon its kernel takes: at the problems' default reference capacities
-    the kernel's shared memory at the factory's ``cuda_horizon_max`` stays
-    within the 227 KB a block can use (the tracking MPCs' float64 solves,
-    which hold at most 110 and 132 steps, so 100; the RSTP solves in
-    double, an upper bound of their float32 instantiation's, at the JAX
-    package's 300).  Off the card, where no kernel runs, every factory
-    holds the JAX package's 300."""
-    from tpl_tpu_torch.optim import optimizers
+    """Each ``optimizers`` factory holds the JAX package's horizon of 300
+    on every device, and the solve a factory's solver takes fits its
+    kernel: the tracking MPCs' own float64 kernels hold at most 110 and 132
+    steps in the 227 KB a block can use at the default 128 reference
+    samples (``solver.own_kernel_fits``, whose carve words are held here to
+    the sources' at several reference capacities), so at 300 they take the
+    generic kernel; the RSTP solves in double, an upper bound of their
+    float32 instantiation's, fit at 300."""
+    from tpl_tpu_torch.optim import optimizers, solver
 
     limit = 227 * 1024
     opts = {n: getattr(optimizers, n) for n in (
@@ -3800,22 +4042,26 @@ def test_optimizers_horizon_fits_the_kernels(bodies):
         "lateral_profile", "velocity_profile_space")}
     assert all(b(device="cpu").horizon_max == optimizers.HORIZON_MAX == 300
                for b in opts.values())
-    H = {n: b.cuda_horizon_max for n, b in opts.items()}
-    assert H == dict(trajectory_tracking_mpc=100,
-                     trajectory_tracking_mpc_time=100, lateral_profile=300,
-                     velocity_profile_space=300)
     cap = lambda n: opts[n].param_spec[
         "k_ref" if n == "lateral_profile" else "ref_v"].capacity
-    mpc = lambda h: bodies.ilqr_tracking_mpc_smem_bytes(
-        h, cap("trajectory_tracking_mpc"), 0)
-    mpc_time = lambda h: bodies.ilqr_tracking_mpc_time_smem_bytes(
-        h, cap("trajectory_tracking_mpc_time"))
-    assert mpc(H["trajectory_tracking_mpc"]) <= limit < mpc(111)
-    assert mpc_time(H["trajectory_tracking_mpc_time"]) <= limit \
-        < mpc_time(133)
+    mpc = lambda h, n=cap("trajectory_tracking_mpc"): (
+        bodies.ilqr_tracking_mpc_smem_bytes(h, n, 0))
+    mpc_time = lambda h, n=cap("trajectory_tracking_mpc_time"): (
+        bodies.ilqr_tracking_mpc_time_smem_bytes(h, n))
+    assert mpc(110) <= limit < mpc(111)
+    assert mpc_time(132) <= limit < mpc_time(133)
+    for name, fn in (("trajectory_tracking_mpc", mpc),
+                     ("trajectory_tracking_mpc_time", mpc_time)):
+        for h in (1, 60, 110, 132, 133, 300):
+            for n in (16, 128, 256):
+                a, b_, c = solver.OWN_KERNEL_WORDS[name]
+                assert 8 * (a + b_ * h + c * n) == fn(h, n), (name, h, n)
+                assert solver.own_kernel_fits(name, h, n) == (fn(h, n)
+                                                              <= limit)
+        assert opts[name](device="cpu").route == "ilqr_generic"
     for name in ("lateral_profile", "velocity_profile_space"):
         pid = ilqr_rstp.PROBLEMS[name]["id"]
-        assert bodies.rehearse_rstp_smem(pid, H[name], cap(name)) <= limit
+        assert bodies.rehearse_rstp_smem(pid, 300, cap(name)) <= limit
 
 
 def _table_ptrs(tables):

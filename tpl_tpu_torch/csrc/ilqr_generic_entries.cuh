@@ -42,9 +42,36 @@ extern "C" size_t ilqr_generic_split(int problem, int f64, int H, int n_ref,
   return 0;
 }
 
+// the resident geometry's slot at cap words of shared memory: its words of
+// shared memory (which = 0) and of workspace (which = 1); which = 2: the
+// words of the shared part a block holds once
+extern "C" size_t ilqr_generic_slot_split(int problem, int f64, int H,
+                                          int n_ref, size_t cap, int which) {
+  using namespace ilqr_generic;
+  size_t n_sm = 0, n_ws = 0;
+#define X(ID, S)                                                           \
+  if (problem == ID) {                                                     \
+    if (f64) {                                                             \
+      ILQR_GENERIC_IF_F64(0, (which == 2                                   \
+          ? (n_sm = Solve<S<double>, double>::shared_len(H, n_ref))        \
+          : (Solve<S<double>, double>::slot_words(H, cap, &n_sm, &n_ws),   \
+             (size_t)0)));                                                 \
+    } else {                                                               \
+      ILQR_GENERIC_IF_F32(0, (which == 2                                   \
+          ? (n_sm = Solve<S<float>, float>::shared_len(H, n_ref))          \
+          : (Solve<S<float>, float>::slot_words(H, cap, &n_sm, &n_ws),     \
+             (size_t)0)));                                                 \
+    }                                                                      \
+  }
+  ILQR_GENERIC_PROBLEMS(X)
+#undef X
+  return which == 1 ? n_ws : n_sm;
+}
+
 #ifdef __CUDACC__
-// One launch of B blocks, block b solving row b; prof (int64, N_PHASE
-// words) selects the profiling instantiation.  Returns the CUDA error code.
+// One launch of B instances (block geometry: block b solving row b;
+// resident: warps walking the rows); prof (int64, N_PHASE words) selects
+// the profiling instantiation.  Returns the CUDA error code.
 extern "C" int ilqr_generic_update(int problem, int f64, int integrator,
                                    const void* shared, const void* rows,
                                    void* out, void* ws, long long* prof,
@@ -62,6 +89,54 @@ extern "C" int ilqr_generic_update(int problem, int f64, int integrator,
                      launch<S<float>, float>(                              \
                      integrator, shared, rows, out, ws, prof, B, H, n_ref, \
                      T, max_it, max_lg, smem_limit, stream));
+  ILQR_GENERIC_PROBLEMS(X)
+#undef X
+  return (int)cudaErrorInvalidValue;
+}
+
+// the geometry a launch of B instances takes (ilqr_generic::Geometry, 8
+// int64 words into out: resident, slots, blocks, blocks an SM, shared
+// bytes a block, shared words of a block's or a slot's arrays, workspace
+// words a block or slot, blocks or slots in all); prof: the profiling
+// instantiation's.  Returns the CUDA error code.
+extern "C" int ilqr_generic_geometry(int problem, int f64, int prof, int B,
+                                     int H, int n_ref, size_t smem_limit,
+                                     long long* out) {
+  using namespace ilqr_generic;
+  Geometry g{};
+  int err = (int)cudaErrorInvalidValue;
+#define X(ID, S)                                                          \
+  if (problem == ID)                                                      \
+    err = f64 ? ILQR_GENERIC_IF_F64((int)cudaErrorInvalidValue,           \
+                    launch_geometry<S<double>, double>(prof != 0, B, H,   \
+                                                       n_ref, smem_limit, \
+                                                       &g))               \
+              : ILQR_GENERIC_IF_F32((int)cudaErrorInvalidValue,           \
+                    launch_geometry<S<float>, float>(prof != 0, B, H,     \
+                                                     n_ref, smem_limit,   \
+                                                     &g));
+  ILQR_GENERIC_PROBLEMS(X)
+#undef X
+  const long long v[8] = {g.resident, g.slots, g.blocks, g.per_sm, g.smem,
+                          g.cap, g.unit_ws, g.units};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return err;
+}
+
+// registers, local (spill) bytes and static shared bytes of a kernel of
+// the source (resident: the resident geometry's; prof: the profiling
+// instantiation) into out[0..2]
+extern "C" int ilqr_generic_attributes(int problem, int f64, int resident,
+                                       int prof, long long* out) {
+  using namespace ilqr_generic;
+#define X(ID, S)                                                          \
+  if (problem == ID)                                                      \
+    return f64 ? ILQR_GENERIC_IF_F64((int)cudaErrorInvalidValue,          \
+                     attributes<S<double>, double>(resident != 0,         \
+                                                   prof != 0, out))       \
+               : ILQR_GENERIC_IF_F32((int)cudaErrorInvalidValue,          \
+                     attributes<S<float>, float>(resident != 0,           \
+                                                 prof != 0, out));
   ILQR_GENERIC_PROBLEMS(X)
 #undef X
   return (int)cudaErrorInvalidValue;

@@ -12,14 +12,16 @@ On CUDA tensors ``trajectory_tracking_mpc`` launches the hand-written
 kernel ``csrc/ilqr_tracking_mpc.cu``'s batched entry, a warp per scenario
 (:func:`tpl_tpu_torch.optim.ilqr_tracking_mpc.update_batched`), in float64
 and in float32.  The native problems of the generic kernel
-(``ref_line_smoother_k``, ``ref_line_smoother_dk``,
-``velocity_profile_time``, ``lateral_profile``,
+(``trajectory_tracking_mpc_time``, ``ref_line_smoother_k``,
+``ref_line_smoother_dk``, ``velocity_profile_time``, ``lateral_profile``,
 ``velocity_profile_space``) and every sympy problem with a printed struct
-launch ``csrc/ilqr_generic_body.cuh`` on a grid of B blocks, a block a
-scenario (:func:`tpl_tpu_torch.optim.ilqr_generic.update_batched`), float32
-and float64, EULER / HEUN / RK4.  Any other problem on CUDA tensors raises
-(:func:`no_batched_kernel_message`).  On CPU tensors the plain version below
-runs: generic in the problem, float32 and float64, EULER / HEUN / RK4.
+launch ``csrc/ilqr_generic_body.cuh``
+(:func:`tpl_tpu_torch.optim.ilqr_generic.update_batched`), float32 and
+float64, EULER / HEUN / RK4: a block a scenario while the card holds every
+scenario's block at once, else resident warps, a scenario a warp.  Any
+other problem on CUDA tensors raises (:func:`no_batched_kernel_message`).
+On CPU tensors the plain version below runs: generic in the problem,
+float32 and float64, EULER / HEUN / RK4.
 
 Algorithm semantics match :mod:`tpl_tpu_torch.optim.ilqr` (same AL update,
 line search, mu schedule, termination), per scenario: each scenario has its
@@ -43,7 +45,8 @@ from tpl_tpu_torch.optim.ilqr import EULER, HEUN, RK4  # noqa: F401
 def no_batched_kernel_message(name):
     """Why a problem raises on CUDA tensors: the problems that have a
     batched kernel."""
-    have = ["trajectory_tracking_mpc"] + list(ilqr_generic.NATIVE)
+    have = ["trajectory_tracking_mpc"] + [
+        n for n in ilqr_generic.NATIVE if n != "trajectory_tracking_mpc"]
     return (f"no batched kernel for problem {name!r}: on CUDA tensors the "
             f"batch solves {', '.join(have)} and every sympy (genopt) "
             "problem with a generated struct")

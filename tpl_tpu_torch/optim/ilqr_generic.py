@@ -1,6 +1,8 @@
 """
 One full AL-iLQR update of any problem with a problem struct, as one kernel:
-a block an instance, a batch a grid of blocks.
+a block an instance (the single solve, and a batch that fits on the card a
+block an instance at once), or resident warps an instance (a larger
+batch).
 
 The kernel body ``csrc/ilqr_generic_body.cuh`` is a template over a problem
 struct (sizes, dynamics, cost, end cost, constraints), the real type and
@@ -9,9 +11,12 @@ algorithm.  Two kinds of struct reach it:
 
 - the native problems without a kernel of their own
   (``ref_line_smoother_k``, ``ref_line_smoother_dk``,
-  ``velocity_profile_time``) and, for a batch, the RSTP profiles
-  (``lateral_profile``, ``velocity_profile_space``), written by hand in
-  ``csrc/ilqr_generic.cu`` (:data:`NATIVE`);
+  ``velocity_profile_time``), the two tracking MPCs
+  (``trajectory_tracking_mpc``, ``trajectory_tracking_mpc_time``: a solve
+  beyond their own kernels' horizons, and the time-indexed one's batch)
+  and, for a batch, the RSTP profiles (``lateral_profile``,
+  ``velocity_profile_space``), written by hand in ``csrc/ilqr_generic.cu``
+  (:data:`NATIVE`);
 - every sympy config of :mod:`tpl_tpu_torch.optim.genopt`, whose printer
   writes the struct and a source that includes the body, built by ``nvcc``
   at first use into ``build/tpl_tpu_torch/`` (:class:`Spec` with a
@@ -31,13 +36,18 @@ row (:func:`input_layout`).  :func:`update` takes that input: on a CUDA
 tensor it launches the kernel (one launch, counted in ``launches``), on a
 CPU tensor it runs the plain version :func:`update_reference`, the plain
 ``make_update_fn``.  :func:`update_batched` is the batched update of
-:mod:`tpl_tpu_torch.optim.batched` on CUDA tensors (pack, one launch of B
-blocks, unpack); :func:`launch` the bare launcher.  :func:`profile` runs
-the profiling instantiation (the same bits, cycles per phase).
-:func:`split` states how many bytes of a block's arrays sit in shared
-memory and how many in the launch's global workspace.  :func:`bound_ms`
+:mod:`tpl_tpu_torch.optim.batched` on CUDA tensors (pack, one launch,
+unpack); :func:`launch` the bare launcher.  The launcher picks the
+geometry on the host (:func:`geometry`): a block an instance while the card
+holds every instance's block at once, else resident warps, a block's warps
+walking the instances.  :func:`profile` runs the profiling instantiation
+(the same bits, cycles per phase of instance 0).  :func:`split` states how
+many bytes of a block's (or, for a batch, a resident slot's) arrays sit in
+shared memory and how many in the launch's global workspace;
+:func:`attributes` a kernel's registers and spill bytes.  :func:`bound_ms`
 and :func:`chain_ms` state the kernel's two bounds from shapes and
-iteration counts.
+iteration counts, :func:`design_floor_ms` the resident geometry's least
+time.
 """
 
 import ctypes
@@ -125,7 +135,32 @@ NATIVE = {s.name: s for s in (
              "ref_v_weight"),
             dict(dynamics=3 + 3, cost=2 * 6 + 7, constraints=3 * 6 + 2 * 3
                  + 16, end_cost=0),
-            dict(div=1)))}
+            dict(div=1)),
+    # the course's four lookups at s_r (6 each) and its heading's (6 and
+    # the angle distance's 4), phi_dot 7, d_r 7, s_dot 6, the rest 5; the
+    # cost takes them again with the speed target's lookup and 29 more
+    _native("trajectory_tracking_mpc", 5,
+            ("pd", "pv", "pdelta", "min_pdelta_dot", "pdelta_dot",
+             "min_p_phi_dot", "p_phi_dot", "p_phi", "p_phi_ref_dot_diff",
+             "pa", "pj", "l", "v_ch", "ref_step", "max_delta", "max_acc",
+             "min_acc", "a_offset"),
+            ("ref_x", "ref_y", "ref_phi", "ref_k", "ref_v"),
+            dict(dynamics=4 * 6 + 10 + 7 + 7 + 6 + 5,
+                 cost=4 * 6 + 10 + 7 + 7 + 6 + 6 + 29, constraints=4,
+                 end_cost=0),
+            dict(div=3, fmod=1, cos=1, mul=2, add=4)),
+    # the slip angle (tan, atan) and phi_dot 8, the rest 8; the cost: the
+    # time 2, four lookups at it (6 each, the heading's angle distance 4),
+    # phi_dot again and 30 more
+    _native("trajectory_tracking_mpc_time", 6,
+            ("pd", "pv", "pdelta", "min_pdelta_dot", "pdelta_dot",
+             "min_p_phi_dot", "p_phi_dot", "p_phi", "pa", "pj", "l", "v_ch",
+             "cog_pos", "ref_dt", "ref_t_offset", "max_delta", "max_acc",
+             "min_acc", "a_offset"),
+            ("ref_x", "ref_y", "ref_phi", "ref_v"),
+            dict(dynamics=2 + 8 + 8, cost=2 + 4 * 6 + 4 + 10 + 30,
+                 constraints=4, end_cost=0),
+            dict(tan=1, atan=1, cos=2, mul=2, div=1)))}
 
 
 def spec_of(prob):
@@ -332,30 +367,95 @@ def profile(spec, buf, H, n_ref, T, max_iterations, max_lg_iterations,
     solve)."""
     s = _spec(spec)
     _check(s, buf, H, n_ref, integrator)
-    cycles = torch.zeros(len(ilqr.PHASES), dtype=torch.int64,
-                         device=buf.device)
     n_sh = _size(shared_layout(s, H, n_ref))
-    out = launch(s, buf[:n_sh], buf[n_sh:].reshape(1, -1), H, n_ref, T,
-                 max_iterations, max_lg_iterations, integrator, cycles)[0]
+    out, cycles = profile_batch(s, buf[:n_sh], buf[n_sh:].reshape(1, -1), H,
+                                n_ref, T, max_iterations, max_lg_iterations,
+                                integrator)
+    return out[0], cycles
+
+
+def profile_batch(spec, shared, rows, H, n_ref, T, max_iterations,
+                  max_lg_iterations=1, integrator=ilqr.EULER):
+    """:func:`launch` through the profiling instantiation: the ``(B,
+    n_out)`` results, bit-equal to the normal launch's, and the cycles per
+    phase of the thread that solves instance 0 (the block geometry: its
+    block's thread 0; resident warps: lane 0 of the warp that takes it), a
+    dict over ``ilqr.PHASES``."""
+    cycles = torch.zeros(len(ilqr.PHASES), dtype=torch.int64,
+                         device=rows.device)
+    out = launch(spec, shared, rows, H, n_ref, T, max_iterations,
+                 max_lg_iterations, integrator, cycles)
     return out, dict(zip(ilqr.PHASES, cycles.cpu().tolist()))
 
 
-def split(spec, H, n_ref, dtype=torch.float64, smem_limit=SMEM_LIMIT):
-    """``(shared_bytes, workspace_bytes)``: a block's bytes of shared
-    memory and of the launch's global workspace (the arrays that do not
-    fit), computed by the source's own carve."""
+GEOMETRY = ("resident", "slots", "blocks", "per_sm", "smem", "cap",
+            "unit_ws", "units")
+
+
+def geometry(spec, B, H, n_ref, dtype=torch.float64, smem_limit=SMEM_LIMIT,
+             prof=False):
+    """The geometry a launch of ``B`` instances takes on the current CUDA
+    device, chosen by the source's launcher: ``resident`` 0 (a block of 256
+    threads an instance, ``blocks`` = B) or 1 (``blocks`` blocks of
+    ``slots`` warps, a warp an instance at a time); ``per_sm`` blocks an SM
+    (the occupancy calculator's), ``smem`` bytes of dynamic shared memory a
+    block, ``cap`` words of it for a block's (resident: a slot's) arrays,
+    ``unit_ws`` words of workspace a block (slot) and ``units`` blocks
+    (slots) in all; ``prof``: the profiling instantiation's (its registers
+    may allow fewer warps an SM)."""
+    s = _spec(spec)
+    lib, f64 = _kernel(s, dtype), int(dtype == torch.float64)
+    out = (ctypes.c_longlong * len(GEOMETRY))()
+    err = lib.ilqr_generic_geometry(s.id, f64, int(prof), B, H, n_ref,
+                                    smem_limit, out)
+    if err != 0:
+        raise RuntimeError(f"ilqr_generic geometry ({s.name}) failed: CUDA "
+                           f"error {err}")
+    return dict(zip(GEOMETRY, out))
+
+
+def split(spec, H, n_ref, dtype=torch.float64, smem_limit=SMEM_LIMIT,
+          B=None):
+    """``(shared_bytes, workspace_bytes)``, computed by the source's own
+    carve: a block's bytes of shared memory and of the launch's global
+    workspace (the arrays that do not fit); with ``B``, those of the unit
+    of the geometry a launch of B instances takes (a block, or a resident
+    slot: one warp's instance, its shared part held once a block)."""
     s = _spec(spec)
     lib, f64 = _kernel(s, dtype), int(dtype == torch.float64)
     size = torch.empty((), dtype=dtype).element_size()
+    if B is not None:
+        g = geometry(s, B, H, n_ref, dtype, smem_limit)
+        if g["resident"]:
+            return (size * lib.ilqr_generic_slot_split(s.id, f64, H, n_ref,
+                                                       g["cap"], 0),
+                    size * g["unit_ws"])
     return tuple(size * lib.ilqr_generic_split(s.id, f64, H, n_ref,
                                                smem_limit, which)
                  for which in (0, 1))
 
 
-def _prepare_launch(s, shared, rows, H, n_ref, integrator, smem_limit):
+def attributes(spec, dtype=torch.float64, resident=False, prof=False):
+    """``(registers, local_bytes, static_shared_bytes)`` of a kernel of the
+    problem's source (the block geometry's, or the resident one's; each
+    serves every integrator; ``prof`` the profiling instantiation)."""
+    s = _spec(spec)
+    lib, f64 = _kernel(s, dtype), int(dtype == torch.float64)
+    out = (ctypes.c_longlong * 3)()
+    err = lib.ilqr_generic_attributes(s.id, f64, int(resident), int(prof),
+                                      out)
+    if err != 0:
+        raise RuntimeError(f"ilqr_generic attributes ({s.name}) failed: "
+                           f"CUDA error {err}")
+    return tuple(out)
+
+
+def _prepare_launch(s, shared, rows, H, n_ref, integrator, smem_limit,
+                    prof=False):
     """Checks what a launch takes (``shared`` ``(n_shared,)`` and ``rows``
     ``(B, n_row)`` of one dtype on one CUDA device) and makes its output
-    and workspace: (library, f64 flag, out, workspace)."""
+    and the workspace of its geometry: (library, f64 flag, out,
+    workspace)."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"ilqr_generic: the kernel runs on CUDA tensors, "
@@ -375,10 +475,12 @@ def _prepare_launch(s, shared, rows, H, n_ref, integrator, smem_limit):
         raise ValueError(f"unknown integrator {integrator}")
     B = rows.shape[0]
     lib, f64 = _kernel(s, rows.dtype), int(rows.dtype == torch.float64)
-    ws_words = lib.ilqr_generic_split(s.id, f64, H, n_ref, smem_limit, 1)
+    with torch.cuda.device(dev):
+        g = geometry(s, B, H, n_ref, rows.dtype, smem_limit, prof)
     out = torch.empty((B, _size(output_layout(s, H))), dtype=rows.dtype,
                       device=dev)
-    ws = torch.empty(max(B * ws_words, 1), dtype=rows.dtype, device=dev)
+    ws = torch.empty(max(g["units"] * g["unit_ws"], 1), dtype=rows.dtype,
+                     device=dev)
     return lib, f64, out, ws
 
 
@@ -386,15 +488,17 @@ def launch(spec, shared, rows, H, n_ref, T, max_iterations,
            max_lg_iterations=1, integrator=ilqr.EULER, cycles=None,
            smem_limit=SMEM_LIMIT):
     """The launcher the wrappers call: ``shared`` ``(n_shared,)`` and
-    ``rows`` ``(B, n_row)`` of one dtype on one CUDA device, one launch of
-    B blocks (counted in ``launches``); returns the ``(B, n_out)`` packed
-    results.  With ``cycles`` (int64, ``len(ilqr.PHASES)``) the profiling
-    instantiation runs and fills it with block 0's cycles.  A block keeps
-    at most ``smem_limit`` bytes in shared memory (:func:`split`)."""
+    ``rows`` ``(B, n_row)`` of one dtype on one CUDA device, one launch in
+    the geometry :func:`geometry` picks (counted in ``launches``); returns
+    the ``(B, n_out)`` packed results.  With ``cycles`` (int64,
+    ``len(ilqr.PHASES)``, zeros) the profiling instantiation runs and adds
+    instance 0's cycles to it.  A block keeps at most ``smem_limit`` bytes
+    in shared memory (:func:`split`)."""
     global launches
     s = _spec(spec)
     lib, f64, out, ws = _prepare_launch(s, shared, rows, H, n_ref,
-                                        integrator, smem_limit)
+                                        integrator, smem_limit,
+                                        cycles is not None)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = lib.ilqr_generic_update(
@@ -431,8 +535,8 @@ def update_batched(spec, x, u, lam, mu_step, x0, params, cfg,
                    integrator=ilqr.EULER, dtype=torch.float64,
                    per_instance=()):
     """The batched update of ``tpl_tpu_torch.optim.batched`` on CUDA
-    tensors: pack, one launch of B blocks, unpack.  Returns ``(xs, u, lam,
-    mu_step, traj_costs, iterations)``, the batch last."""
+    tensors: pack, one launch, unpack.  Returns ``(xs, u, lam, mu_step,
+    traj_costs, iterations)``, the batch last."""
     s = _spec(spec)
     H = u.shape[0]
     shared, rows = pack_inputs_batched(s, x, u, lam, mu_step, x0, params,
@@ -562,12 +666,14 @@ def bound_ms(spec, H, n_ref, T, iterations, max_lg_iterations=1,
 
 
 def chain_ops(spec, H, T, iterations, integrator=ilqr.EULER,
-              dtype=torch.float64):
+              dtype=torch.float64, rolled=None):
     """Dependent operations on the critical path of one update: the
     initial rollout and its ordered cost sum, then per iteration T Riccati
     steps (fx^T Vxx, Qxx, the action solve, the value update), T rollout
     steps (the feedback dot, the integrator's stages through the dynamics'
-    longest path and their combinations) and the ordered cost sum."""
+    longest path and their combinations) and the ordered cost sum; with
+    ``rolled``, that many rounds of rollouts and sums in all, one after the
+    other (default: one an iteration, the candidates side by side)."""
     s = _spec(spec)
     nx, nu = s.nx, s.nu
     stages = {ilqr.EULER: 1, ilqr.HEUN: 2, ilqr.RK4: 4}[integrator]
@@ -578,11 +684,12 @@ def chain_ops(spec, H, T, iterations, integrator=ilqr.EULER,
     stage = _latency.add_ops(dict(s.dyn_chain), dict(mul=1, add=1), 1)
     roll_open = _latency.add_ops({}, stage, stages)
     roll = _latency.add_ops(dict(roll_open), dict(mul=1, add=nx + 1), 1)
+    rounds = iterations if rolled is None else rolled
     total = {}
     _latency.add_ops(total, roll_open, n)
-    _latency.add_ops(total, roll, n * iterations)
+    _latency.add_ops(total, roll, n * rounds)
     _latency.add_ops(total, riccati, n * iterations)
-    _latency.add_ops(total, dict(add=1), n * (1 + iterations))
+    _latency.add_ops(total, dict(add=1), n * (1 + rounds))
     prefix = "f64_" if dtype == torch.float64 else "f32_"
     out = {}
     for op, k in total.items():
@@ -594,11 +701,31 @@ def chain_ops(spec, H, T, iterations, integrator=ilqr.EULER,
 
 
 def chain_ms(spec, H, T, iterations, cycles, sm_mhz, integrator=ilqr.EULER,
-             dtype=torch.float64):
+             dtype=torch.float64, rolled=None):
     """The critical path's time from the probe's latencies (``cycles`` per
     operation, :func:`tpl_tpu_torch._latency.measure`) at ``sm_mhz``."""
     return _latency.chain_ms(chain_ops(spec, H, T, iterations, integrator,
-                                       dtype), cycles, sm_mhz)
+                                       dtype, rolled), cycles, sm_mhz)
+
+
+def design_floor_ms(spec, H, T, iterations, rounds, cycles, sm_mhz,
+                    resident, integrator=ilqr.EULER, dtype=torch.float64):
+    """The least time of the resident geometry on a batch: ``resident``
+    warps (slots on the card at once) take the instances in turn, each at
+    least its own dependent chain with its line searches' rounds rolled one
+    after the other (``iterations`` and ``rounds``, one count an instance;
+    a round rolls 2 candidates in float64, 4 in float32, and at least one
+    round runs an iteration), so the batch takes at least the longest chain
+    and the chains' sum over the warps."""
+    memo = {}
+    chains = []
+    for it, r in zip(np.atleast_1d(iterations), np.atleast_1d(rounds)):
+        key = (int(it), int(r))
+        if key not in memo:
+            memo[key] = chain_ms(spec, H, T, key[0], cycles, sm_mhz,
+                                 integrator, dtype, rolled=key[1])
+        chains.append(memo[key])
+    return max(max(chains), sum(chains) / resident)
 
 
 # ---------------------------------------------------------------------
@@ -615,6 +742,15 @@ def _bind(lib):
     lib.ilqr_generic_split.restype = ctypes.c_size_t
     lib.ilqr_generic_split.argtypes = ([ctypes.c_int] * 4
                                        + [ctypes.c_size_t, ctypes.c_int])
+    lib.ilqr_generic_slot_split.restype = ctypes.c_size_t
+    lib.ilqr_generic_slot_split.argtypes = ([ctypes.c_int] * 4
+                                            + [ctypes.c_size_t, ctypes.c_int])
+    lib.ilqr_generic_geometry.restype = ctypes.c_int
+    lib.ilqr_generic_geometry.argtypes = ([ctypes.c_int] * 6
+                                          + [ctypes.c_size_t, ctypes.c_void_p])
+    lib.ilqr_generic_attributes.restype = ctypes.c_int
+    lib.ilqr_generic_attributes.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
     return lib
 
 

@@ -30,17 +30,17 @@ three keep the JAX package's float32, which the generic kernel
 (``csrc/ilqr_generic.cu``) takes as it takes float64.  ``dtype=`` overrides
 either.
 
-The JAX package's factories hold a horizon of 300, and so do these on the
-CPU.  A kernel sizes its shared memory by the solver's ``horizon_max``, and
-at the problems' default reference capacities the tracking MPCs' float64
-kernels hold at most 110 (spatial) and 132 (time-indexed) steps in the
-227 KB a block can use (tests/test_torch_kernel_rehearsal.py computes it
-from the sources), so on a CUDA device their factories hold 100
-(``cuda_horizon_max``).  The other five hold 300 on every device and launch
-a kernel on the card at it: the RSTP profiles ``csrc/ilqr_rstp.cu``,
-``velocity_profile_time``, ``ref_line_smoother_k`` and
-``ref_line_smoother_dk`` the generic kernel, which keeps in shared memory
-what fits and the rest of a solve's arrays in a global workspace.
+The factories hold the JAX package's horizon of 300 on every device.  A
+kernel sizes its shared memory by the solver's ``horizon_max``: the
+tracking MPCs' own float64 kernels hold at most 110 (spatial) and 132
+(time-indexed) steps in the 227 KB a block can use at the problems' default
+reference capacities, so at 300 their solvers take the generic kernel
+(``csrc/ilqr_generic.cu``, ``solver.route``), which keeps in shared memory
+what fits and the rest of a solve's arrays in a global workspace; a solver
+made with a smaller ``horizon_max`` (the vendored controller's 60) keeps
+the MPC's own kernel.  The RSTP profiles launch ``csrc/ilqr_rstp.cu`` at
+300, ``velocity_profile_time``, ``ref_line_smoother_k`` and
+``ref_line_smoother_dk`` the generic kernel.
 """
 
 import torch
@@ -51,41 +51,35 @@ from tpl_tpu_torch.optim.solver import Solver
 
 HORIZON_MAX = 300   # the JAX package's factories' horizon capacity
 
-# (problem factory, dtype, horizon capacity on a CUDA device)
+# (problem factory, dtype)
 _FACTORIES = {
     "trajectory_tracking_mpc": (problems.trajectory_tracking_mpc,
-                                torch.float64, 100),
+                                torch.float64),
     "trajectory_tracking_mpc_time": (problems.trajectory_tracking_mpc_time,
-                                     torch.float64, 100),
-    "lateral_profile": (problems.lateral_profile, torch.float32,
-                        HORIZON_MAX),
+                                     torch.float64),
+    "lateral_profile": (problems.lateral_profile, torch.float32),
     "velocity_profile_space": (problems.velocity_profile_space,
-                               torch.float32, HORIZON_MAX),
-    "velocity_profile_time": (problems.velocity_profile_time, torch.float32,
-                              HORIZON_MAX),
-    "ref_line_smoother_k": (problems.ref_line_smoother_k, torch.float32,
-                            HORIZON_MAX),
-    "ref_line_smoother_dk": (problems.ref_line_smoother_dk, torch.float32,
-                             HORIZON_MAX),
+                               torch.float32),
+    "velocity_profile_time": (problems.velocity_profile_time, torch.float32),
+    "ref_line_smoother_k": (problems.ref_line_smoother_k, torch.float32),
+    "ref_line_smoother_dk": (problems.ref_line_smoother_dk, torch.float32),
 }
 
 
 def _make_factory(name):
-    factory, dtype, cuda_horizon_max = _FACTORIES[name]
+    factory, dtype = _FACTORIES[name]
     prob, spec = factory()
 
     def init_opt(dtype=dtype, device=None):
         dev = (tpl_tpu_torch.device() if device is None
                else torch.device(device))
-        horizon_max = cuda_horizon_max if dev.type == "cuda" else HORIZON_MAX
-        return Solver(prob, spec, horizon_max=horizon_max, dtype=dtype,
+        return Solver(prob, spec, horizon_max=HORIZON_MAX, dtype=dtype,
                       device=dev)
 
     init_opt.__name__ = name
     init_opt.problem = prob
     init_opt.param_spec = spec
     init_opt.dtype = dtype
-    init_opt.cuda_horizon_max = cuda_horizon_max
     return init_opt
 
 

@@ -23,7 +23,12 @@ spatial and time-indexed tracking MPCs, the float32 RSTP profiles, and
 kernel, :mod:`.ilqr_generic`) goes through its wrapper, which launches the
 kernel on a CUDA device and runs the plain
 :func:`~tpl_tpu_torch.optim.ilqr.make_update_fn` on a CPU device; a problem
-whose kernel exists for another dtype raises on a CUDA device.  The native
+whose kernel exists for another dtype raises on a CUDA device.  A tracking
+MPC's own kernel holds a solve in one block's shared memory, so a solver
+whose ``horizon_max`` outgrows it (:func:`own_kernel_fits`: 110 spatial
+and 132 time-indexed steps at the default 128 reference samples) takes the
+generic kernel, which puts what does not fit in a global workspace; the
+solver names the kernel it takes in :attr:`Solver.route`.  The native
 kernels are found by the problem's ``kernel`` key, which only the native
 problems of :mod:`.problems` carry: a kernel hard-codes its own problem,
 so a problem defined elsewhere never takes one, whatever its name.  A
@@ -59,6 +64,42 @@ KERNELS = {
                     "velocity_profile_time")
        for dtype in (torch.float32, torch.float64)},
 }
+
+# The tracking MPCs' own float64 kernels hold a solve in one block's shared
+# memory: the words of their carve (csrc/ilqr_tracking_mpc_body.cuh and
+# csrc/ilqr_tracking_mpc_time.cu, carve) are a + b H + c n_ref at horizon H
+# and n_ref reference samples, (a, b, c) by problem.
+OWN_KERNEL_WORDS = {"trajectory_tracking_mpc": (302, 252, 7),
+                    "trajectory_tracking_mpc_time": (249, 214, 4)}
+OWN_KERNEL_SMEM = 227 * 1024    # the shared memory a block can use (H100)
+
+
+def own_kernel_fits(name, horizon_max, n_ref):
+    """Whether a tracking MPC's own kernel holds a solve at ``horizon_max``
+    with ``n_ref`` reference samples (a problem of OWN_KERNEL_WORDS)."""
+    a, b, c = OWN_KERNEL_WORDS[name]
+    return 8 * (a + b * horizon_max + c * n_ref) <= OWN_KERNEL_SMEM
+
+
+def route(problem, dtype, horizon_max, n_ref):
+    """``(kernel, solve)``: the kernel a solve of ``problem`` in ``dtype``
+    at capacity ``horizon_max`` (``n_ref`` samples a table) takes on a CUDA
+    device, by its source's name, and its wrapper's solve; ``(None, None)``
+    where none does (the plain version runs)."""
+    if problem.generated is not None:
+        return "ilqr_generic", functools.partial(
+            ilqr_generic.solve, problem.generated, dtype=dtype)
+    name = problem.kernel
+    solve = KERNELS.get((name, dtype))
+    if solve is None:
+        return None, None
+    if name in OWN_KERNEL_WORDS and not own_kernel_fits(name, horizon_max,
+                                                        n_ref):
+        return "ilqr_generic", functools.partial(ilqr_generic.solve, name,
+                                                 dtype=dtype)
+    module = getattr(solve, "func", solve).__module__
+    return module.rsplit(".", 1)[-1], solve
+
 
 # limits outside this range travel as the sentinels (solver.py:348-355)
 _BIG = 1e30
@@ -140,6 +181,8 @@ class Solver:
         self._u_max = np.full((H, nu), np.inf)
 
         self.params = SolverParams(param_spec)
+        self._n_ref = max((s.capacity for s in param_spec.values()
+                           if hasattr(s, "capacity")), default=0)
 
         self.horizon = min(20, H)       # optim.c default T=20
         self.step = 0.05                # optim.c default dt
@@ -155,6 +198,14 @@ class Solver:
         self.runtime = 0.0
 
     # --- genopt-style attribute surface -------------------------------
+
+    @property
+    def route(self):
+        """The kernel a solve takes on a CUDA device (its source's name,
+        e.g. ``ilqr_tracking_mpc`` or ``ilqr_generic``), or None where the
+        plain version runs."""
+        return route(self.problem, self.dtype, self.horizon_max,
+                     self._n_ref)[0]
 
     @property
     def T(self):
@@ -313,14 +364,11 @@ class Solver:
     def update(self):
         start = time.perf_counter()
         name = self.problem.kernel
-        kernel = KERNELS.get((name, self.dtype))
+        _, kernel = route(self.problem, self.dtype, self.horizon_max,
+                          self._n_ref)
         run = (self.horizon, self.max_iterations, self.max_lg_iterations,
                self._mu_step, self._integrator)
-        if self.problem.generated is not None:
-            res = ilqr_generic.solve(self.problem.generated, self._inputs(),
-                                     self.params._values, *run, self.device,
-                                     dtype=self.dtype)
-        elif kernel is not None:
+        if kernel is not None:
             res = kernel(self._inputs(), self.params._values, *run,
                          self.device)
         elif self.device.type == "cuda" and any(n == name for n, _ in KERNELS):

@@ -756,6 +756,31 @@ def mpc_time_case(kind, seed=1):
             (H, n_ref, T, 20, lg, mu, ilqr.HEUN))
 
 
+def mpc_time_generic_case(H, seed, warm=False, n_ref=128):
+    """The time-indexed tracking MPC's solve inputs at any horizon up to
+    300 steps of 0.05 s for the generic kernel (``mpc_time_case``'s weaving
+    reference, sampled every 0.125 s so that its 128 samples outlast the
+    horizon; HEUN): (inputs, params, mu_step)."""
+    rng = np.random.default_rng(seed)
+    ref_dt = 0.125
+    tt = np.arange(n_ref) * ref_dt
+    v = 8.0 + 0.5 * np.sin(tt * 0.3)
+    yaw = 0.2 * np.sin(tt * 0.4)
+    x = np.cumsum(v * np.cos(yaw)) * ref_dt
+    y = np.cumsum(v * np.sin(yaw)) * ref_dt
+    ref = dict(ref_x=x - x[0], ref_y=y - y[0], ref_phi=yaw, ref_v=v)
+    params = dict(pd=5.0, pv=5.0, pdelta=0.0, min_pdelta_dot=0.1,
+                  pdelta_dot=0.1, min_p_phi_dot=0.0, p_phi_dot=0.05,
+                  p_phi=0.5, pa=2.0, pj=0.5, l=2.7, v_ch=32.0, cog_pos=0.5,
+                  ref_dt=ref_dt, ref_t_offset=0.05, max_delta=0.7,
+                  max_acc=3.0, min_acc=-3.0, a_offset=0.1, **ref)
+    x0 = [0.3, -0.4, yaw[0] + 0.05, 0.02, v[0] - 0.5, 0.2]
+    inputs, mu = generic_inputs(6, 2, 4, H, H, rng, warm,
+                                [[-3.0, 1.5], [-1.0, 1.0]], 1e4, 1e30, 0.05,
+                                x0, 0.1)
+    return inputs, params, mu
+
+
 def generic_inputs(nx, nu, ncl, H, T, rng, warm, u_lim, bw, lg_limit, dt, x0,
                    u_scale):
     """The per-update solver inputs (x, u, lam, u_lims, bw_lim, cfg_f) of a
@@ -780,16 +805,20 @@ def generic_inputs(nx, nu, ncl, H, T, rng, warm, u_lim, bw, lg_limit, dt, x0,
 
 GENERIC_NATIVE = ("ref_line_smoother_k", "ref_line_smoother_dk",
                   "velocity_profile_time")
+# the RSTP profiles, which the generic kernel solves in a batch
+GENERIC_RSTP = ("lateral_profile", "velocity_profile_space")
 
 
 def generic_native_case(name, H, T, warm, seed, n_ref=512):
     """Seeded inputs of a native problem of the generic AL-iLQR kernel
-    (``GENERIC_NATIVE``) at ``n_ref``: (inputs, params, mu_step,
-    max_iterations).  The smoothers follow a gentle curve from its start
-    (the curvature-rate smoother from near its solution: its quadruple
-    integrator turns a larger start error into an orbit that leaves the
-    curve); the time-indexed velocity profile drives under a limit over s
-    and a corridor over t."""
+    (``GENERIC_NATIVE``, ``GENERIC_RSTP``) at ``n_ref``: (inputs, params,
+    mu_step, max_iterations).  The smoothers follow a gentle curve from its
+    start (the curvature-rate smoother from near its solution: its
+    quadruple integrator turns a larger start error into an orbit that
+    leaves the curve); the time-indexed velocity profile drives under a
+    limit over s and a corridor over t; the lateral profile keeps to a
+    corridor that narrows ahead, the spatial velocity profile under a limit
+    that drops and crossing times."""
     rng = np.random.default_rng(seed)
     s = np.arange(n_ref) * 0.5
     path_y = 0.8 * np.sin(s / 25.0) + rng.normal(0.0, 0.02, n_ref)
@@ -817,6 +846,29 @@ def generic_native_case(name, H, T, warm, seed, n_ref=512):
         inputs, mu = generic_inputs(2, 1, 4, H, T, rng, warm, [-3.0, 2.0],
                                     100.0, 10.0, 0.1,
                                     [0.0, rng.uniform(2.0, 10.0)], 0.3)
+    elif name == "lateral_profile":
+        lower = np.full(n_ref, -2.0)
+        lower[8:14] = 0.4
+        params = dict(k_ref=0.01 * np.sin(np.arange(n_ref) * 0.1),
+                      d_offset=np.zeros(n_ref), d_lower_constr=lower,
+                      d_upper_constr=np.full(n_ref, 2.0), ref_step=0.5,
+                      w_d=0.5, w_v_d=0.5, w_a_d=0.5, w_k=0.5)
+        inputs, mu = generic_inputs(2, 1, 2, H, T, rng, warm, [-2.5, 2.5],
+                                    1000.0, 0.1, 0.5,
+                                    [rng.normal(0.0, 0.5), 0.0], 0.05)
+    elif name == "velocity_profile_space":
+        k = np.arange(n_ref)
+        v_max = np.full(n_ref, 14.0)
+        v_max[120:160] = 8.0
+        params = dict(p_v=0.1, p_a=1.0, max_a_total=5.0, ref_step=0.5,
+                      ref_v=v_max, ref_k=0.002 * np.sin(k * 0.05),
+                      ref_t_max=np.full(n_ref, 1e10),
+                      ref_t_min=np.where(k % 100 > 80, 0.05 * k, 0.0),
+                      ref_t_offset=np.ones(n_ref),
+                      ref_v_weight=np.ones(n_ref))
+        inputs, mu = generic_inputs(2, 1, 5, H, T, rng, warm, [-5.0, 3.0],
+                                    1000.0, 0.1, 0.5,
+                                    [rng.uniform(6.0, 10.0), 0.0], 0.2)
     else:
         raise ValueError(f"no generic case for {name!r}")
     return inputs, params, mu, 5

@@ -309,9 +309,27 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    and ``smooth_only`` turned on in the planning store, 200 ticks: one
    ``ref_line_smoother_k`` launch and one ``ilqr_rstp`` launch a replan,
    finite controls, zero violations, the ego moving, the replan walls;
-23. the crane example (``tpl_tpu_torch.examples.crane_2d``, H=100) on the
-   card and on the CPU: the example's acceptance on both, their final
-   states within CRANE_ATOL;
+23. user problems through the generic kernel: the three examples' torch
+   problems (``tpl_tpu_torch.examples.{crane_2d, simple_vehicle,
+   solver_crosscheck}``: H = 100 / 80 / 40, up to 60 / 30 / 100
+   iterations, the vehicle's float32 solve up to 10) traced into the generic kernel's struct
+   (``tpl_tpu_torch/optim/trace.py``; their sources, float32 and float64,
+   and the traced ``trajectory_tracking_mpc``'s, float64, built by one
+   ``nvcc`` each in a thread beside the phases from 3 on, the seconds
+   printed): each example's ``main`` on the card (its own checks; the
+   launch counters set to 0 just before and read just after: one
+   ``ilqr_generic`` launch an update), each example's solve through its
+   ``Solver`` (``route == "ilqr_generic"``) in float32 and float64
+   against the plain iLQR on the card and on the CPU (USER_TOL), float32
+   timed with ``bound_ms`` / ``chain_ms`` and a "phases" line; the crane's
+   batch through ``optim.batched`` (float64) at B = 64 and 2,048: one
+   launch, every scenario bit-equal to its single launch, four scenarios
+   within 1e-9 of ``update.reference`` on the CPU and, at 64, every one of
+   the plain batched update on the card, timed, solves/s, the bounds and
+   the design floor; the traced ``trajectory_tracking_mpc`` at H = 60
+   (float64, HEUN, cold and warm) against its hand-written struct (1e-9,
+   equal iterations) and ``csrc/ilqr_tracking_mpc.cu`` (x, u atol 1e-6,
+   cost rtol 1e-9), the three timed;
 24. the batched DP slice (``latlon_backward_slice`` at B > 1: the resident
    blocks walking the work items) at the demo grid on
    ``scenes.dp_batch_scenes`` (per-scenario scenes, tables and ``l_trg``,
@@ -676,10 +694,30 @@ TIME_BATCHES = (64, 2048)   # the batched time-indexed MPC
 GENERIC_SOURCES = ("ilqr_generic.cu", "ilqr_generic_body.cuh",
                    "ilqr_generic_entries.cuh", "ilqr_jet.cuh")
 SMOOTH_TICKS = 200
-# the crane example, float32 on the card and on the CPU: both meet the
-# example's acceptance; their final states (m, m/s, rad) within this (60
-# iterations of float32 whose stops are decided by rounding)
-CRANE_ATOL = 5e-2
+# USER_TOL: the user problems' traced kernel solves against their plain
+# versions.  float64: GENERIC_TOL (x, u scaled by the largest |x|; cost),
+# equal iterations and mu_step, except the vehicle's (30 iterations, still
+# descending at the last: the struct's other rounding order grows to 9e-7
+# in x over them, tests/test_torch_trace.py), held at USER_VEHICLE_TOL.
+# float32: where a float32 solve stops and which line-search step it takes
+# is decided by rounding (tests/test_torch_kernel_cuda.py RSTP_X_ATOL), so
+# iterations may differ; the crane (60 iterations, converged at 23) and the
+# unicycle (28) agree to USER_F32_TOL (x scaled by the largest |x|: 5 cm at
+# the crane's 10 m).  The vehicle's float32 solve, still descending, parts
+# from any other rounding order after about 12 iterations (on the CPU its
+# plain float32 solve against float64: 8.5e-6 of the largest |x| and 8.8e-7
+# in cost after 10 iterations, 8.2e-4 and 3.0e-4 after 15, 5.0e-2 and
+# 0.19 after 30, where float32 stops at 26; on the card, NVIDIA H100 80GB
+# HBM3, the traced kernel against the plain iLQR after 10 iterations:
+# 7.4e-6 / 8.2e-7 on the card, 4.1e-6 / 8.2e-7 on the CPU, after 15
+# 1.4e-3 / 1.4e-3): its float32 solve is checked at
+# USER_VEHICLE_F32_ITERATIONS, equal iterations and mu_step, at
+# USER_VEHICLE_F32_TOL
+USER_F32_TOL = 5e-3
+USER_VEHICLE_TOL = 1e-5
+USER_VEHICLE_F32_ITERATIONS = 10
+USER_VEHICLE_F32_TOL = 1e-4
+USER_BATCHES = (64, 2048)   # the crane's batch: the JAX bench's 2,048
 # the batched fused slice: the batch sizes checked against the plain
 # version on the CPU, those checked against the one-scenario launches on
 # the card, those timed, and the one in the kernels' JSON line
@@ -5659,7 +5697,7 @@ def generic_build_figures(ig, specs):
     """Prints, for each (label, spec, dtype) of ``specs``, the registers and
     local (spill) bytes of its kernels (the block geometry's and the
     resident one's, each with its profiling instantiation; each serves
-    every integrator) and returns them."""
+    every integrator) and returns them by label and dtype."""
     figs = {}
     for label, spec, dtype in specs:
         row = {}
@@ -5669,9 +5707,9 @@ def generic_build_figures(ig, specs):
                                                geo == "resident", prof)
                 row[geo + (" profiling" if prof else "")] = dict(
                     registers=regs, local_bytes=local)
-        figs[label] = row
-        print(f"ilqr_generic build {label} "
-              f"{str(dtype).replace('torch.', '')}: " + "; ".join(
+        kind = str(dtype).replace("torch.", "")
+        figs[f"{label} {kind}"] = row
+        print(f"ilqr_generic build {label} {kind}: " + "; ".join(
                   f"{k} {v['registers']} registers, {v['local_bytes']} B "
                   "local" for k, v in row.items()))
     return figs
@@ -6412,35 +6450,403 @@ def smooth_only_phase(ig, rstp, itm):
                 plan_max_ms=float(np.max(plan_ms[1:])))
 
 
-def crane_phase(dev):
-    """The crane example (``tpl_tpu_torch.examples.crane_2d``, H=100, up to
-    60 iterations, float32) solved on the card (plain iLQR) and on the CPU:
-    both meet the example's acceptance, their final states within
-    CRANE_ATOL."""
-    import torch
-    from tpl_tpu_torch.examples import crane_2d
+def user_problems():
+    """{example module name: (module, the Problem a fresh make_problem
+    builds)} of the three examples whose torch problems the tracer takes
+    to the generic kernel."""
+    from tpl_tpu_torch.examples import (crane_2d, simple_vehicle,
+                                        solver_crosscheck)
 
-    walls = []
-    for _ in range(2):
-        card = crane_2d.make_solver(device=dev)
+    return {m.__name__.rsplit(".", 1)[-1]: m for m in (
+        crane_2d, simple_vehicle, solver_crosscheck)}
+
+
+def build_user_sources(result):
+    """Traces the three examples' problems (their solvers' param kinds) and
+    ``trajectory_tracking_mpc`` and builds the structs' sources the user
+    problems' phase launches (the examples in float32, their own dtype, and
+    float64; the tracking MPC in float64) in one ``build_generated`` call,
+    one ``nvcc`` each, all started together; the seconds into result["s"],
+    the specs into result["specs"], or the exception into
+    result["error"]."""
+    import torch
+    from tpl_tpu_torch.optim import ilqr_generic as ig
+    from tpl_tpu_torch.optim import problems, trace
+
+    t0 = time.perf_counter()
+    try:
+        jobs = []
+        for name, mod in user_problems().items():
+            prob, pspec = mod.make_problem()
+            spec = trace.spec(prob, trace.kinds_of_spec(pspec))
+            jobs += [(spec, torch.float32), (spec, torch.float64)]
+        prob, pspec = problems.trajectory_tracking_mpc()
+        jobs.append((trace.spec(prob, trace.kinds_of_spec(pspec)),
+                     torch.float64))
+        result["trace_s"] = time.perf_counter() - t0
+        ig.build_generated([s for s, _ in jobs], [d for _, d in jobs])
+        result["specs"] = jobs
+        result["s"] = time.perf_counter() - t0
+    except Exception as e:      # raised again by the phase that needs it
+        result["error"] = e
+
+
+def user_check(what, got, want, dtype, its_equal=True, tol=None):
+    """Two solves' x, u (and iterations, mu_step where its_equal): raises
+    beyond ``tol`` (x, u atol scaled by the largest |x|; cost rtol); returns
+    (max |dx|, |du|, cost rel)."""
+    d = max(float(np.max(np.abs(np.asarray(got[k]) - np.asarray(want[k]))))
+            for k in ("x", "u"))
+    dc = abs(got["traj_costs"] - want["traj_costs"]) / max(
+        abs(want["traj_costs"]), 1e-30)
+    scale = max(1.0, float(np.max(np.abs(want["x"]))))
+    x_tol, c_tol = tol
+    ok = d <= x_tol * scale and dc <= c_tol and np.all(np.isfinite(got["x"]))
+    if its_equal:
+        ok = ok and (got["iterations"], got["mu_step"]) == (
+            want["iterations"], want["mu_step"])
+    print(f"  {what}: max|dx|,|du| {d:.3e}, cost rel {dc:.3e}, iterations "
+          f"{got['iterations']}/{want['iterations']} (tolerance {x_tol:g} "
+          f"x {scale:.1f}, cost {c_tol:g})")
+    if not ok:
+        raise AssertionError(f"{what}: beyond the tolerance")
+    return d
+
+
+def user_tolerance(name, dtype):
+    """(x tol, cost tol, iterations equal) of a user problem's kernel solve
+    against its plain version in ``dtype`` (see USER_TOL)."""
+    import torch
+
+    if dtype == torch.float64:
+        if name == "simple_vehicle":
+            return USER_VEHICLE_TOL, USER_VEHICLE_TOL, True
+        return GENERIC_TOL, GENERIC_TOL, True
+    if name == "simple_vehicle":
+        return USER_VEHICLE_F32_TOL, USER_VEHICLE_F32_TOL, True
+    return USER_F32_TOL, USER_F32_TOL, False
+
+
+def user_solver(mod, dtype, device):
+    """An example's own Solver in ``dtype`` on ``device``; the vehicle's
+    float32 one stops at USER_VEHICLE_F32_ITERATIONS (see USER_TOL)."""
+    import torch
+
+    opt = mod.make_solver(device=device)
+    opt.dtype = dtype
+    if mod.__name__.endswith("simple_vehicle") and dtype == torch.float32:
+        opt.max_iterations = USER_VEHICLE_F32_ITERATIONS
+    return opt
+
+
+def user_problem_phase(ig, dev, cycles, mhz, user_build):
+    """User problems through the generic kernel: the three examples' torch
+    problems (``tpl_tpu_torch.examples.{crane_2d, simple_vehicle,
+    solver_crosscheck}``), traced into the generic kernel's struct
+    (``tpl_tpu_torch/optim/trace.py``) and built by ``build_user_sources``
+    beside the first phases.  First the main path: each example's ``main``
+    on the card (its own acceptance: the crane at its target, the
+    vehicle's path finite, the unicycle within 5e-2 of scipy's SLSQP), the
+    counts set to 0 just before and read just after: one ``ilqr_generic``
+    launch an update.  Then each example's own solve, float32 (its dtype)
+    and float64, through the Solver (``route == "ilqr_generic"``, one
+    launch an update) against the plain iLQR on the card and on the CPU
+    (USER_TOL); float32 timed through the bare launcher and the wrapper,
+    with ``bound_ms`` / ``chain_ms`` and a "phases" line.  Then the crane's
+    batch (``optim.batched`` on CUDA tensors, float64) at each of
+    USER_BATCHES: one launch, every scenario bit-equal to its single
+    launch, four scenarios within GENERIC_TOL of ``update.reference`` on
+    the CPU; timed, solves/s, bounds and the design floor.  Then the traced
+    ``trajectory_tracking_mpc`` (H=60, float64, HEUN, 8 iterations, cold
+    and warm) against its hand-written struct through ``ilqr_generic``
+    (GENERIC_TOL, equal iterations) and against ``csrc/ilqr_tracking_mpc.cu``
+    (GENOPT_X_ATOL / GENOPT_COST_RTOL), the three timed in turns."""
+    import torch
+    from tpl_tpu_torch import scenes
+    from tpl_tpu_torch.optim import batched, ilqr, problems, trace
+    from tpl_tpu_torch.optim import ilqr_tracking_mpc as itm
+
+    f32, f64 = torch.float32, torch.float64
+    user_build["thread"].join()
+    if "error" in user_build:
+        raise user_build["error"]
+    print(f"user problems: traced in {user_build['trace_s']:.2f} s; "
+          f"{len(user_build['specs'])} sources (nvcc, one each, started "
+          f"together beside the first phases) built in "
+          f"{user_build['s']:.2f} s")
+    figures = generic_build_figures(
+        ig, [(f"traced {s.name}", s, d) for s, d in user_build["specs"]])
+    mods = user_problems()
+
+    # the main path: the examples' own mains on the card
+    main_launches, main_ms = {}, {}
+    for name, mod in mods.items():
+        prob_name = mod.make_problem()[0].name
+        ig.by_problem[prob_name] = 0
         t0 = time.perf_counter()
-        card.update()
+        mod.main([])
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    crane_2d.check(card)
-    cpu = crane_2d.make_solver(device="cpu")
-    cpu.update()
-    crane_2d.check(cpu)
-    d = float(np.max(np.abs(card.x[-1] - cpu.x[-1])))
-    print(f"crane_2d on the card: cost {card.traj_costs:.4f} after "
-          f"{card.iterations} iterations (CPU {cpu.traj_costs:.4f} after "
-          f"{cpu.iterations}), final position {card.x[-1, 0]:.4f}, swing "
-          f"{np.degrees(card.x[-1, 2]):.3f} deg, max|final card - CPU| "
-          f"{d:.3e}; wall ms {walls[0]:.1f} then {walls[1]:.1f}")
-    if not d <= CRANE_ATOL:
-        raise AssertionError("crane_2d: the card's and the CPU's final states "
-                             "part")
-    return dict(ms=walls, err=d)
+        main_ms[name] = (time.perf_counter() - t0) * 1e3
+        main_launches[name] = ig.by_problem[prob_name]
+        want = 2 if name == "solver_crosscheck" else 1
+        if main_launches[name] != want:
+            raise AssertionError(f"{name}: {main_launches[name]} generic "
+                                 f"launches for {want} updates")
+        print(f"{name} main on the card: its checks passed, "
+              f"{main_launches[name]} ilqr_generic launches for {want} "
+              f"updates, {main_ms[name]:.1f} ms")
+
+    # each example's own solve against the plain iLQR on the card and CPU
+    singles, err = {}, 0.0
+    for name, mod in mods.items():
+        for dtype in (f32, f64):     # float32 first: singles[name] holds it
+            kind = str(dtype).replace("torch.", "")
+            walls = []
+            for _ in range(2):
+                opt = user_solver(mod, dtype, dev)
+                if opt.route != "ilqr_generic":
+                    raise AssertionError(f"{name}: route {opt.route}")
+                state = {k: np.array(v) for k, v in opt._inputs().items()}
+                params = dict(opt.params._values)
+                n0 = ig.by_problem.get(opt.problem.name, 0)
+                t0 = time.perf_counter()
+                opt.update()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                if ig.by_problem[opt.problem.name] != n0 + 1:
+                    raise AssertionError(f"{name}: not one launch an update")
+            spec = ig.spec_of(opt.problem, opt._kinds)
+            H, T, it = opt.horizon_max, opt.horizon, opt.max_iterations
+            integ, n_ref = opt.integrator_type, ig.n_ref_of(spec, params)
+            run = (H, n_ref, T, it, 1, integ)
+            buf = torch.from_numpy(ig.pack_inputs(spec, state, params, 0,
+                                                  dtype)).to(dev)
+            out = ig.update(spec, buf, *run)
+            got = ig.unpack_outputs(spec, out.double().cpu().numpy(), H)
+            if not (np.array_equal(got["x"], opt._x)
+                    and np.array_equal(got["u"], opt._u)):
+                raise AssertionError(f"{name}: the solver's launch and the "
+                                     "wrapper's part")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = ig.update_reference(spec, buf, *run)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            plain = ig.unpack_outputs(spec, ref.double().cpu().numpy(), H)
+            cpu = user_solver(mod, dtype, "cpu")
+            t0 = time.perf_counter()
+            cpu.update()
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            x_tol, c_tol, same = user_tolerance(name, dtype)
+            print(f"{name} {kind} H={T} of {H}, up to {it} iterations: "
+                  f"the traced kernel ({got['iterations']} iterations, cost "
+                  f"{got['traj_costs']:.6f})")
+            d = user_check("against its plain iLQR on the card", got, plain,
+                           dtype, same, (x_tol, c_tol))
+            user_check("against its plain iLQR on the CPU", got, dict(
+                x=cpu._x, u=cpu._u, traj_costs=cpu.traj_costs,
+                iterations=cpu.iterations, mu_step=cpu._mu_step), dtype,
+                same, (x_tol, c_tol))
+            if dtype == f64:
+                err = max(err, d)
+                singles[name]["float64"] = dict(
+                    err_plain=d, plain_ms=plain_ms, cpu_ms=cpu_ms,
+                    iterations=got["iterations"])
+                continue
+            n_sh = ig._size(ig.shared_layout(spec, H, n_ref))
+            bare, wrap = launcher_times(
+                f"ilqr_generic traced {name}", f"{kind} H={T}",
+                ig.bare(spec, buf[:n_sh], buf[n_sh:].reshape(1, -1),
+                        *run[:5], integrator=integ),
+                lambda: ig.update(spec, buf, *run), 10)
+            its = got["iterations"]
+            bound = ig.bound_ms(spec, H, n_ref, T, its, integrator=integ,
+                                dtype=dtype)
+            chain = ig.chain_ms(spec, H, T, its, cycles, mhz, integ, dtype)
+            pout, prof = ig.profile(spec, buf, *run)
+            if not torch.equal(pout, out):
+                raise AssertionError(f"{name}: the profiling instantiation "
+                                     "parts")
+            phases = phase_line(f"ilqr_generic traced {name}", f"{kind}",
+                                ilqr, prof, its, mhz)
+            singles[name] = dict(
+                ms=bare, wrapper_ms=wrap, plain_ms=plain_ms, cpu_ms=cpu_ms,
+                solve_wall_ms=walls, bound=bound, chain=chain,
+                iterations=its, horizon=T, phases=phases, dtype=kind,
+                err_plain=d, split=ig.split(spec, H, n_ref, dtype))
+            print(f"{name} traced kernel {kind}: ms bare {bare:.4f}, wrapper "
+                  f"{wrap:.4f}; Solver.update wall {walls[0]:.1f} (first, "
+                  f"the library loaded) then {walls[1]:.1f}; plain on the "
+                  f"card {plain_ms:.1f}, plain on the CPU {cpu_ms:.1f}; "
+                  f"bound_ms {bound[0]:.6f} ({bound[1]}), chain_ms "
+                  f"{chain:.4f} ({its} iterations)")
+
+    # the crane's batch, float64
+    crane = mods["crane_2d"]
+    prob, _ = crane.make_problem()
+    opt = crane.make_solver(device=dev)
+    state = {k: np.array(v) for k, v in opt._inputs().items()}
+    H, T, it = opt.horizon_max, opt.horizon, opt.max_iterations
+    integ = opt.integrator_type
+    t = lambda a, d=dev: torch.as_tensor(np.asarray(a, np.float64),
+                                         device=d)
+    tp = {k: t(v) for k, v in opt.params._values.items()}
+    cfg = dict(u_min=t(state["u_lims"][..., 0]),
+               u_max=t(state["u_lims"][..., 1]),
+               barrier_weight=t(state["bw_lim"][:, 0]),
+               lg_mult_limit=t(state["bw_lim"][:, 1]),
+               dt=t(state["cfg_f"][0]),
+               min_rel_cost_change=t(state["cfg_f"][1]), T=T,
+               max_iterations=it, max_lg_iterations=1)
+    spec = ig.spec_of(prob, trace.kinds_of_params(tp))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    batches = {}
+    for B in USER_BATCHES:
+        rng = np.random.default_rng(B)
+        x, u, lam_, mu = batched.init_batch(prob, H, B, f64, dev)
+        x0 = t(rng.normal(0.0, 1.0, (4, B)) * np.array(
+            [[2.0], [0.5], [0.1], [0.1]]))
+        upd = batched.make_batched_update_fn(prob, H, B, integ, f64)
+        n0 = ig.launches
+        got = upd(x, u, lam_, mu, x0, tp, cfg, iterations=True)
+        torch.cuda.synchronize()
+        if ig.launches != n0 + 1:
+            raise AssertionError(f"crane batch B={B}: {ig.launches - n0} "
+                                 "launches")
+        shared, rows = ig.pack_inputs_batched(spec, x, u, lam_, mu, x0, tp,
+                                              cfg)
+        out = ig.launch(spec, shared, rows, H, 0, T, it, 1, integ)
+        singles_in = ig.rows_of_batch(shared, rows)
+        for b in range(B):
+            one = ig.update(spec, singles_in[b].contiguous(), H, 0, T, it, 1,
+                            integ)
+            if not torch.equal(one, out[b]):
+                raise AssertionError(f"crane batch B={B}: scenario {b} "
+                                     "parts from its single launch")
+        pick = [0, 1, B // 2, B - 1]
+        cpu = lambda a: a[..., pick].cpu()
+        ref = batched.make_batched_update_fn(prob, H, len(pick), integ,
+                                             f64).reference
+        want = ref(cpu(x), cpu(u), cpu(lam_), cpu(mu), cpu(x0),
+                   {k: v.cpu() for k, v in tp.items()},
+                   {k: (v.cpu() if torch.is_tensor(v) else v)
+                    for k, v in cfg.items()}, iterations=True)
+        d = max(float((g[..., pick].cpu() - w).abs().max())
+                for g, w in zip(got[:3], want[:3]))
+        scale = max(1.0, float(want[0].abs().max()))
+        if not (d <= GENERIC_TOL * scale
+                and torch.equal(got[3][pick].cpu(), want[3].to(got[3].dtype))
+                and torch.equal(got[5][pick].cpu(), want[5])):
+            raise AssertionError(f"crane batch B={B}: scenarios {pick} part "
+                                 f"from update.reference on the CPU by {d}")
+        plain_ms, line = None, ""
+        if B <= 64:
+            t0 = time.perf_counter()
+            want = upd.reference(x, u, lam_, mu, x0, tp, cfg,
+                                 iterations=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            d_all = max(float((g - w).abs().max())
+                        for g, w in zip(got[:3], want[:3]))
+            if not (d_all <= GENERIC_TOL * max(1.0, float(
+                    want[0].abs().max())) and torch.equal(got[5], want[5])):
+                raise AssertionError(f"crane batch B={B}: the batch and the "
+                                     f"plain batched update part by {d_all}")
+            d = max(d, d_all)
+            line = (f", every scenario within {d_all:.3e} of the plain "
+                    f"batched update on the card ({plain_ms:.1f} ms)")
+        its = got[5].cpu().numpy()
+        geo = ig.geometry(spec, B, H, 0, f64)
+        bare, wrap = launcher_times(
+            "ilqr_generic batch traced crane_2d", f"B={B}",
+            ig.bare(spec, shared, rows, H, 0, T, it, integrator=integ),
+            lambda: upd(x, u, lam_, mu, x0, tp, cfg), 5)
+        bound = ig.bound_ms(spec, H, 0, T, its, integrator=integ)
+        chain = ig.chain_ms(spec, H, T, int(its.max()), cycles, mhz, integ)
+        resident = sms * geo["per_sm"] * geo["slots"]
+        floor = (ig.design_floor_ms(spec, H, T, its, its, cycles, mhz,
+                                    resident, integ)
+                 if geo["resident"] else None)
+        batches[B] = dict(ms=bare, wrapper_ms=wrap, plain_ms=plain_ms,
+                          bound=bound, chain=chain,
+                          floor=floor, solves_per_s=B / wrap * 1e3,
+                          kernel_solves_per_s=B / bare * 1e3, geometry=geo,
+                          iterations_max=int(its.max()), err=d)
+        err = max(err, d)
+        print(f"ilqr_generic batch traced crane_2d B={B} (float64): every "
+              f"scenario bit-equal to its single launch, scenarios {pick} "
+              f"within {d:.3e} of update.reference on the CPU{line}; "
+              f"iterations "
+              f"{int(its.min())}-{int(its.max())}; "
+              f"{'resident warps' if geo['resident'] else 'a block a scenario'}"
+              f" ({geo['slots']} a block, {geo['per_sm']} blocks an SM); ms "
+              f"bare {bare:.4f}, wrapper {wrap:.4f}, {B / wrap * 1e3:.0f} "
+              f"solves/s; bound_ms {bound[0]:.6f} ({bound[1]}), chain_ms "
+              f"{chain:.4f}"
+              + (f", this design's floor {floor:.4f}" if floor else ""))
+
+    # the traced tracking MPC against its hand-written struct and kernel
+    tprob, tpspec = problems.trajectory_tracking_mpc()
+    tspec = trace.spec(tprob, trace.kinds_of_spec(tpspec))   # not NATIVE
+    native = ig.NATIVE["trajectory_tracking_mpc"]
+    H, n_ref, it, integ = MPC_H, 128, 8, ilqr.HEUN
+    tracking = {}
+    for warm in (False, True):
+        inputs, params, mu = scenes.genopt_mpc_case(warm, 5 + warm, H)
+        run = (H, n_ref, H, it, 1, integ)
+        bufs = {s.name if s is native else "traced": torch.from_numpy(
+            ig.pack_inputs(s, inputs, params, mu)).to(dev)
+            for s in (tspec, native)}
+        got = ig.unpack_outputs(tspec, ig.update(tspec, bufs["traced"], *run)
+                                .cpu().numpy(), H)
+        nat = ig.unpack_outputs(native, ig.update(
+            native, bufs[native.name], *run).cpu().numpy(), H)
+        own = itm.solve(inputs, params, H, it, 1, mu, integ, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ig.update_reference(tspec, bufs["traced"], *run)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        what = f"traced trajectory_tracking_mpc H={H} " + (
+            "warm" if warm else "cold")
+        print(f"{what} (float64, HEUN, {it} iterations):")
+        d = user_check("against the hand-written struct (ilqr_generic)",
+                       got, nat, f64, True, (GENERIC_TOL, GENERIC_TOL))
+        d_own = user_check("against csrc/ilqr_tracking_mpc.cu", got, own,
+                           f64, False, (GENOPT_X_ATOL, GENOPT_COST_RTOL))
+        err = max(err, d, d_own)
+        n_sh = {k: ig._size(ig.shared_layout(s, H, n_ref))
+                for k, s in (("traced", tspec), (native.name, native))}
+        launch = {k: ig.bare(s, bufs[k][:n_sh[k]],
+                             bufs[k][n_sh[k]:].reshape(1, -1), *run[:5],
+                             integrator=integ)
+                  for k, s in (("traced", tspec), (native.name, native))}
+
+        def checked(fn):
+            def call():
+                if fn():
+                    raise RuntimeError("ilqr_generic launch failed")
+            return call
+        (a, b), (c, e) = in_turns(checked(launch[native.name]),
+                                  checked(launch["traced"]), 20)
+        own_ms = cuda_ms(lambda: itm.solve(inputs, params, H, it, 1, mu,
+                                           integ, dev), 10)
+        tracking["warm" if warm else "cold"] = dict(
+            traced_ms=(c + e) / 2, native_ms=(a + b) / 2, own_solve_ms=own_ms,
+            plain_ms=plain_ms, err_native=d, err_own=d_own,
+            iterations=got["iterations"],
+            bound=ig.bound_ms(tspec, H, n_ref, H, got["iterations"],
+                              integrator=integ),
+            chain=ig.chain_ms(tspec, H, H, got["iterations"], cycles, mhz,
+                              integ))
+        print(f"  ms by CUDA events: hand-written struct {a:.4f}, traced "
+              f"{c:.4f}, traced {e:.4f}, hand-written {b:.4f}; "
+              f"ilqr_tracking_mpc.solve (its wrapper, the upload and "
+              f"download included) {own_ms:.4f}; the plain iLQR on the "
+              f"card {plain_ms:.1f}")
+    return dict(err=err, main_launches=main_launches, main_ms=main_ms,
+                singles=singles, batches=batches, tracking=tracking,
+                figures=figures, build_s=user_build["s"])
 
 
 def slice_batch_chain(lam, solve, ins, tables, B, what, plain=None):
@@ -7367,6 +7773,11 @@ def main(argv=()):
         parent_build["thread"] = threading.Thread(
             target=build_generic_parents, args=(generic_dirs, parent_build))
         parent_build["thread"].start()
+    # the user problems' traced structs, built likewise
+    user_build = {}
+    user_build["thread"] = threading.Thread(target=build_user_sources,
+                                            args=(user_build,))
+    user_build["thread"].start()
     phase("DP slice", slice_phase, lam, tllk)
     loop = phase("DP closed loop", closed_loop_phase, lam, itm)
     dp_first = phase("DP first replan", dp_first_replan_phase,
@@ -7439,7 +7850,8 @@ def main(argv=()):
     trk = phase("tracking MPCs, generic kernel", tracking_generic_phase, ig,
                 itm, itt, dev, cycles, mhz)
     smooth = phase("RSTP smooth_only", smooth_only_phase, ig, rstp, itm)
-    phase("crane example", crane_phase, dev)
+    user = phase("user problems through the generic kernel",
+                 user_problem_phase, ig, dev, cycles, mhz, user_build)
     bs = phase("batched DP slice", batch_slice_phase, lam, tllk, dev, mhz,
                opts.parent_csrc)
     dry = phase("dryrun_multichip", dryrun_phase, lam, itm, idk)
@@ -7800,6 +8212,43 @@ def main(argv=()):
         "design_floor_ms": b["floor"], "library_ms": NO_LIBRARY,
         "solves_per_s": b["solves_per_s"], "geometry": b["geometry"],
         "ms_by_batch": {B: trk["batches"][B]["ms"] for B in TIME_BATCHES}})
+    # the user problems traced into the generic kernel: launches on their
+    # main path (the examples' mains, the counts set to 0 just before),
+    # times of each example's own solve in float32 (its dtype)
+    for name, r in user["singles"].items():
+        rows.append({
+            "name": f"ilqr_generic_traced_{name}", "route": "cuda",
+            "source": "tpl_tpu_torch/csrc/ilqr_generic_body.cuh",
+            "replaces": "tpl_tpu/optim/ilqr.py:126",
+            "launches": user["main_launches"][name],
+            "max_abs_err": r["err_plain"], "ms": r["ms"],
+            "wrapper_ms": r["wrapper_ms"], "plain_ms": r["plain_ms"],
+            "cpu_plain_ms": r["cpu_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "chain_ms": r["chain"],
+            "library_ms": NO_LIBRARY, "dtype": r["dtype"],
+            "horizon": r["horizon"], "iterations": r["iterations"],
+            "solve_wall_ms": r["solve_wall_ms"],
+            "main_ms": user["main_ms"][name], "phases_us": r["phases"],
+            "split": r["split"], "float64": r["float64"],
+            "build_s": user["build_s"]})
+    b = user["batches"][USER_BATCHES[-1]]
+    rows.append({
+        "name": "ilqr_generic_batched_traced_crane_2d", "route": "cuda",
+        "source": "tpl_tpu_torch/csrc/ilqr_generic_body.cuh",
+        "replaces": "tpl_tpu/optim/batched.py:30",
+        "batch": USER_BATCHES[-1], "launches": 1, "max_abs_err": b["err"],
+        "ms": b["ms"], "wrapper_ms": b["wrapper_ms"],
+        "plain_ms": user["batches"][USER_BATCHES[0]]["plain_ms"],
+        "plain_batch": USER_BATCHES[0], "bound_ms": b["bound"][0],
+        "bound_by": b["bound"][1], "chain_ms": b["chain"],
+        "design_floor_ms": b["floor"], "library_ms": NO_LIBRARY,
+        "solves_per_s": b["solves_per_s"],
+        "kernel_solves_per_s": b["kernel_solves_per_s"],
+        "geometry": b["geometry"],
+        "ms_by_batch": {B: user["batches"][B]["ms"] for B in USER_BATCHES},
+        "traced_trajectory_tracking_mpc": {
+            k: {n: (v[0] if n == "bound" else v) for n, v in t.items()}
+            for k, t in user["tracking"].items()}})
     # the multi-process deployment's launches, counted in its processes
     for row in rows:
         if row["name"] in dep["launches"]:

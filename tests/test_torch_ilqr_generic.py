@@ -645,11 +645,19 @@ def test_unprintable_function_warns_and_solves_plain(monkeypatch):
 
 
 def test_batched_update_names_the_problems_with_a_batched_kernel():
-    """A problem with no batched kernel (a user's torch problem) raises on
-    CUDA tensors naming those that have one, the time-indexed tracking MPC
-    among them (the generic kernel's batch); on CPU tensors every problem
-    takes the plain version."""
-    msg = batched.no_batched_kernel_message("my_problem")
+    """A problem the tracer refuses (a user's torch problem with an
+    operation outside its table) raises on CUDA tensors: the message says
+    what the tracer refused and names the problems that have a batched
+    kernel, the time-indexed tracking MPC among them (the generic kernel's
+    batch); on CPU tensors every problem takes the plain version."""
+    from tpl_tpu_torch.optim import problems, trace
+
+    prob = ilqr.Problem("my_problem", nx=1, nu=1, nc=0,
+                        dynamics=lambda x, u, t, dt, p: u,
+                        cost=lambda x, u, t, dt, p: torch.erf(x[..., 0]))
+    with pytest.raises(trace.Untraceable) as refused:
+        ig.spec_of(prob, ())
+    msg = batched.no_batched_kernel_message("my_problem", refused.value)
     for name in ("trajectory_tracking_mpc", "trajectory_tracking_mpc_time",
                  "lateral_profile", "velocity_profile_space",
                  "ref_line_smoother_k", "ref_line_smoother_dk",
@@ -657,7 +665,8 @@ def test_batched_update_names_the_problems_with_a_batched_kernel():
         assert name in msg
     assert msg.count("trajectory_tracking_mpc,") == 1
     assert "generated" in msg and "my_problem" in msg
-    from tpl_tpu_torch.optim import problems
+    assert "my_problem.cost" in msg and "erf" in msg
+    assert "tracer takes" in msg
 
     prob, _ = problems.trajectory_tracking_mpc_time()
     assert ig.spec_of(prob) is ig.NATIVE["trajectory_tracking_mpc_time"]

@@ -743,16 +743,16 @@ def test_batched_kernel_float32_matches_plain(cuda):
 @pytest.mark.cuda
 def test_batched_update_on_cuda_raises_for_other_problems(cuda):
     """A CUDA tensor launches the kernel or raises: no plain version in
-    silence (a user's torch problem has no batched kernel; the time-indexed
-    MPC has had one since the generic kernel took it)."""
+    silence (a user's torch problem with an operation the tracer refuses has
+    no batched kernel; every problem the tracer takes has one)."""
     prob = ilqr.Problem("user_problem", nx=6, nu=2, nc=4,
                         dynamics=lambda x, u, t, dt, p: x,
-                        cost=lambda x, u, t, dt, p: (x * x).sum(-1))
+                        cost=lambda x, u, t, dt, p: torch.erf(x).sum(-1))
     upd = batched.make_batched_update_fn(prob, 20, 2, ilqr.EULER,
                                          torch.float64)
     x, u, lam_, mu = batched.init_batch(prob, 20, 2, torch.float64, cuda)
     cfg = dict(T=20, max_iterations=2, max_lg_iterations=1)
-    with pytest.raises(NotImplementedError, match="no batched kernel"):
+    with pytest.raises(NotImplementedError, match="no batched kernel.*erf"):
         upd(x, u, lam_, mu, x[0], {}, cfg)
     with pytest.raises(ValueError, match="CUDA tensors"):
         itm.launch_batched(torch.zeros(4), torch.zeros((2, 4)), mu.cpu(), 20,
@@ -2290,6 +2290,92 @@ def test_tracking_mpc_factory_solves_through_generic_kernel(cuda, name, H):
                                    atol=TRACKING_TOL, err_msg=k)
     assert opt.iterations == want["iterations"]
     assert float(np.abs(opt.u).max()) > 1e-3
+
+
+@pytest.mark.cuda
+def test_unprintable_function_raises_on_cuda(cuda):
+    """The config of test_torch_ilqr_generic.py's
+    test_unprintable_function_warns_and_solves_plain on the card: no struct,
+    no plain iLQR behind it; the update raises naming erf."""
+    import sympy as sp
+    from tpl_tpu_torch.optim import trace
+
+    x, u = sp.symbols("x u0")
+    cfg = genopt.Config(states=[x], actions=[u], params=[], dynamics=[u],
+                        costs=[x ** 2 + 0.1 * u ** 2 + 0.01 * sp.erf(x)],
+                        name="with_erf")
+    with pytest.warns(UserWarning, match="erf"):
+        make = genopt.build(cfg, device=cuda, dtype=torch.float64)
+    opt = make()
+    opt.horizon = 10
+    opt.x[0] = [1.0]
+    with pytest.raises(trace.Untraceable, match="erf"):
+        opt.update()
+
+
+@pytest.mark.cuda
+def test_traced_crane_solves_through_generic_kernel(cuda, monkeypatch):
+    """The crane example's torch problem on the card, float64: its Solver
+    names ilqr_generic and launches the traced struct's kernel once an
+    update (the plain version never called), within GENERIC_TOL of the plain
+    update; a batch of 5 through optim.batched launches once, every row
+    bit-equal to a single launch."""
+    from tpl_tpu_torch.examples import crane_2d
+
+    prob, pspec = crane_2d.make_problem()
+    opt = solver.Solver(prob, pspec, horizon_max=100, dtype=torch.float64)
+    assert opt.route == "ilqr_generic"
+    opt.horizon, opt.step, opt.max_iterations = 100, 0.1, 60
+    opt.u_min[:] = -2.0
+    opt.u_max[:] = 2.0
+    state = {k: np.array(v) for k, v in opt._inputs().items()}
+    n0 = ig.by_problem.get("crane_2d", 0)
+    real = ilqr.make_update_fn
+    monkeypatch.setattr(ilqr, "make_update_fn", lambda *a, **k: pytest.fail(
+        "the card solve took the plain version"))
+    opt.update()
+    monkeypatch.setattr(ilqr, "make_update_fn", real)
+    assert ig.by_problem["crane_2d"] == n0 + 1
+    crane_2d.check(opt)
+    spec = ig.spec_of(prob, opt._kinds)
+    buf = torch.from_numpy(ig.pack_inputs(spec, state, opt.params._values,
+                                          0))
+    want = ig.unpack_outputs(spec, ig.update_reference(
+        spec, buf, 100, 0, 100, 60, 1).numpy(), 100)
+    _close_generic(dict(x=opt._x, u=opt._u, lam=opt._lam,
+                        traj_costs=opt.traj_costs, mu_step=opt._mu_step,
+                        iterations=opt.iterations), want, 60, torch.float64)
+
+    B, H = 5, 100
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=cuda)
+    tp = {k: t(v) for k, v in opt.params._values.items()}
+    cfg = dict(u_min=t(state["u_lims"][..., 0]),
+               u_max=t(state["u_lims"][..., 1]),
+               barrier_weight=t(state["bw_lim"][:, 0]),
+               lg_mult_limit=t(state["bw_lim"][:, 1]), dt=t(0.1),
+               min_rel_cost_change=t(1e-6), T=H, max_iterations=60,
+               max_lg_iterations=1)
+    x, u, lam_, mu = batched.init_batch(prob, H, B, torch.float64, cuda)
+    x0 = t(rng.normal(0.0, 1.0, (4, B)) * np.array([[2.0], [0.5], [0.1],
+                                                    [0.1]]))
+    upd = batched.make_batched_update_fn(prob, H, B, ilqr.EULER,
+                                         torch.float64)
+    n0 = ig.by_problem["crane_2d"]
+    got = upd(x, u, lam_, mu, x0, tp, cfg, iterations=True)
+    torch.cuda.synchronize()
+    assert ig.by_problem["crane_2d"] == n0 + 1
+    shared, rows = ig.pack_inputs_batched(spec, x, u, lam_, mu, x0, tp, cfg)
+    out = ig.launch(spec, shared, rows, H, 0, H, 60)
+    singles = ig.rows_of_batch(shared, rows)
+    for b in range(B):
+        assert torch.equal(out[b], ig.update(spec, singles[b].contiguous(),
+                                             H, 0, H, 60, 1)), b
+    want = upd.reference(x, u, lam_, mu, x0, tp, cfg, iterations=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.double().cpu().numpy(),
+                                   w.double().cpu().numpy(),
+                                   rtol=GENERIC_TOL, atol=GENERIC_TOL)
 
 
 @pytest.mark.cuda

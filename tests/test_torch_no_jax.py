@@ -8,10 +8,11 @@ after the host C routes were built and called, after a batched update,
 after two ticks of each FAS-2025 planner, after two ticks of each
 rollout planner (IDM sampling, poly sampling) and after two ticks of the
 graph DP planner (``dp_poly_planner``), after one sympy problem was
-translated (``genopt``, ``optimizers`` and the examples imported) and one
+translated (``genopt``, ``optimizers`` and the examples imported), one
+torch problem traced (``trace``: the crane example's struct) and one
 scenario batch was solved by ``sharded_latlon_batch`` on a CPU mesh, and
 statically over the port's sources (the graph DP planner's, the sympy front
-end's and the scale-out layer's modules named on their own),
+end's, the tracer's and the scale-out layer's modules named on their own),
 ``chip_smoke.py``, the card tests it imports and the worker of the
 two-process scale-out test.  The multi-process deployment's modules (the
 shared-memory stores, the mains, ``SimAttach``, the GUI and the scene
@@ -216,6 +217,11 @@ from tpl_tpu_torch.scenes import genopt_mpc_config
 gen = genopt.make_problem(genopt_mpc_config())[0].generated
 assert "struct Gen_mpc_sympy" in ilqr_generic.source_text(gen, torch.float64)
 assert gprob.generated is not None and ilqr_generic.launches == 0
+from tpl_tpu_torch.optim import trace
+cprob, cspec = crane_2d.make_problem()
+traced = trace.spec(cprob, trace.kinds_of_spec(cspec))
+assert "struct Gen_crane_2d" in ilqr_generic.source_text(traced,
+                                                        torch.float32)
 assert optimizers.lateral_profile(device="cpu").dtype == torch.float32
 spec = dict(t_steps=4, s_steps=41, ds_steps=5, l_steps=7)
 dist, rl, pp, x0 = dp_batch_scenes(2, 4, 41, 7, nan=False)
@@ -288,7 +294,8 @@ def test_port_runs_without_jax():
     "tpl_tpu_torch/optim/ilqr_generic.py",
     "tpl_tpu_torch/simulation", "tpl_tpu_torch/util/hotreload.py",
     "tpl_tpu_torch/optim/genopt.py", "tpl_tpu_torch/optim/symext.py",
-    "tpl_tpu_torch/optim/optimizers.py", "tpl_tpu_torch/parallel",
+    "tpl_tpu_torch/optim/optimizers.py", "tpl_tpu_torch/optim/trace.py",
+    "tpl_tpu_torch/parallel",
     "tpl_tpu_torch/examples", "tests/torch_dist_worker.py",
     "tpl_tpu_torch/util/shm_store.py", "tpl_tpu_torch/native",
     "tpl_tpu_torch/application/mains.py", "tpl_tpu_torch/gui",

@@ -4,8 +4,10 @@
 The port of ``examples/crane_2d.py``, the solver-core analog of the
 reference's genopt crane demo (reference:
 library/tpl/optim/examples/crane_2d/main.py): cart + pendulum payload, move
-to a target with minimal swing under control limits.  The problem has no
-hand-written kernel: the ``Solver`` runs the plain iLQR on its device.
+to a target with minimal swing under control limits.  On the card the
+``Solver`` traces the problem's torch functions into the generic AL-iLQR
+kernel's struct (``tpl_tpu_torch/optim/trace.py``) and solves in one
+launch an update; on the CPU it runs the plain iLQR.
 
 Run: python -m tpl_tpu_torch.examples.crane_2d          (on the card)
      python -m tpl_tpu_torch.examples.crane_2d --cpu    (on the CPU)
@@ -132,7 +134,8 @@ def main(argv=None):
     opt = make_solver()
     opt.update()
 
-    print(f"solved on {opt.device} in {opt.runtime:.1f} ms, cost "
+    route = opt.route if opt.device.type == "cuda" else "the plain iLQR"
+    print(f"solved on {opt.device} ({route}) in {opt.runtime:.1f} ms, cost "
           f"{opt.traj_costs:.3f}, {opt.iterations} iterations")
     print(f"final: position {opt.x[-1, 0]:.3f} (target 10), "
           f"swing {np.degrees(opt.x[-1, 2]):.2f} deg")

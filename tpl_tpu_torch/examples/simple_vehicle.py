@@ -5,8 +5,10 @@ The port of ``examples/simple_vehicle.py``, the solver-core analog of the
 reference's genopt demo (reference:
 library/tpl/optim/examples/simple_vehicle/main.py): define a kinematic
 bicycle problem as plain torch functions, solve a receding-horizon tracking
-task, print the result.  The problem has no hand-written kernel: the
-``Solver`` runs the plain iLQR on its device.
+task, print the result.  On the card the ``Solver`` traces the problem's
+torch functions into the generic AL-iLQR kernel's struct
+(``tpl_tpu_torch/optim/trace.py``) and solves in one launch an update; on
+the CPU it runs the plain iLQR.
 
 Run: python -m tpl_tpu_torch.examples.simple_vehicle          (on the card)
      python -m tpl_tpu_torch.examples.simple_vehicle --cpu    (on the CPU)
@@ -127,7 +129,8 @@ def main(argv=None):
     opt = make_solver()
     opt.update()
 
-    print(f"solved on {opt.device} in {opt.runtime:.1f} ms, cost "
+    route = opt.route if opt.device.type == "cuda" else "the plain iLQR"
+    print(f"solved on {opt.device} ({route}) in {opt.runtime:.1f} ms, cost "
           f"{opt.traj_costs:.2f}, {opt.iterations} iterations")
     print("final state:", np.round(opt.x[-1], 2))
     if not np.all(np.isfinite(opt.x)):

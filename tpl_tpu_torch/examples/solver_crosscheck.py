@@ -6,8 +6,9 @@ reference's acados comparison (reference:
 library/tpl/optim/examples/simple_vehicle_acados/simple_vehicle_acados.py):
 the same unicycle point-tracking OCP is solved by
 
-  1. the port's augmented-Lagrangian iLQR (tpl_tpu_torch.optim.Solver, the
-     plain iLQR on its device: the problem has no hand-written kernel), and
+  1. the port's augmented-Lagrangian iLQR (tpl_tpu_torch.optim.Solver: on
+     the card the problem is traced into the generic AL-iLQR kernel's
+     struct, one launch an update; on the CPU the plain iLQR), and
   2. scipy SLSQP on the direct single-shooting transcription of the
      identical discrete-time problem (on the host),
 
@@ -55,7 +56,8 @@ def stage_cost_np(x, u):
                  + W_U * (u[0] ** 2 + u[1] ** 2))
 
 
-def solve_ilqr(device=None):
+def make_problem():
+    """The unicycle OCP as a torch problem (no params)."""
     def dynamics(x, u, t, dt, p):
         return torch.stack([u[..., 0] * torch.cos(x[..., 2]),
                             u[..., 0] * torch.sin(x[..., 2]),
@@ -69,7 +71,12 @@ def solve_ilqr(device=None):
 
     prob = Problem("unicycle_crosscheck", nx=3, nu=2, nc=0,
                    dynamics=dynamics, cost=cost)
-    opt = Solver(prob, {}, horizon_max=H, device=device)
+    return prob, {}
+
+
+def make_solver(device=None):
+    prob, spec = make_problem()
+    opt = Solver(prob, spec, horizon_max=H, device=device)
     opt.horizon = H
     opt.step = DT
     opt.max_iterations = 100
@@ -78,12 +85,17 @@ def solve_ilqr(device=None):
     opt.u_min[:, 1] = -STEER_MAX
     opt.u_max[:, 1] = STEER_MAX
     opt.x[0] = [0.0, 0.0, 0.0]
+    return opt
 
-    opt.update()           # first solve (builds the update function)
+
+def solve_ilqr(device=None):
+    opt = make_solver(device)
+    opt.update()           # first solve (traces and builds on the card)
     t0 = time.perf_counter()
     opt.update()
     dt_ms = (time.perf_counter() - t0) * 1e3
-    return np.asarray(opt.x), np.asarray(opt.u), dt_ms
+    route = opt.route if opt.device.type == "cuda" else "the plain iLQR"
+    return np.asarray(opt.x), np.asarray(opt.u), dt_ms, route
 
 
 def rollout_cost(u_flat, x0):
@@ -121,14 +133,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
     tpl_tpu_torch.use_device("cpu" if args.cpu else "cuda")
 
-    x_i, u_i, ms_i = solve_ilqr()
+    x_i, u_i, ms_i, route = solve_ilqr()
     cost_i = rollout_cost(np.asarray(u_i[:H]).ravel(), np.zeros(3))
 
     x_s, u_s, ms_s, res = solve_scipy()
     cost_s = res.fun
 
     print(f"AL-iLQR    : cost {cost_i:.6f}   runtime {ms_i:8.2f} ms "
-          f"(second solve, {tpl_tpu_torch.device()})")
+          f"(second solve, {tpl_tpu_torch.device()}, {route})")
     print(f"scipy SLSQP: cost {cost_s:.6f}   runtime {ms_s:8.2f} ms "
           f"({res.nit} iterations)")
     print(f"final pose iLQR : {np.round(x_i[-1], 3)}")

@@ -15,10 +15,16 @@ genopt-parity derivatives of the JAX package's custom JVPs: slope
 where both indices coincide, and in the clamped regions), no second
 derivative in the query, and a zero slope for ``box_interp``
 (tests/test_torch_ilqr.py checks this).
+
+The five lookups are overridable (``torch.overrides``): an argument with
+``__torch_function__`` (the tracer's symbolic tensor,
+:mod:`tpl_tpu_torch.optim.trace`) receives the lookup whole instead of its
+floor / gather internals.  Tensors take the formulas below.
 """
 
 import numpy as np
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 
 def normalize_angle(a):
@@ -86,6 +92,9 @@ def _take(table, idx):
 
 def lerp(x0, dx, x, arr):
     """Linear interpolation into the equally spaced 1-D tensor ``arr``."""
+    args = (x0, dx, x, arr)
+    if has_torch_function(args):
+        return handle_torch_function(lerp, args, *args)
     i0, i1, a = _indices_t((x - x0) / dx, arr.shape[0])
     v0, v1 = _take(arr, i0), _take(arr, i1)
     return v0 + a * (v1 - v0)
@@ -94,6 +103,9 @@ def lerp(x0, dx, x, arr):
 def lerp_multi(x0, dx, x, mat):
     """:func:`lerp` into the columns of ``mat`` (n, C) at one query;
     returns shape (..., C)."""
+    args = (x0, dx, x, mat)
+    if has_torch_function(args):
+        return handle_torch_function(lerp_multi, args, *args)
     i0, i1, a = _indices_t((x - x0) / dx, mat.shape[0])
     v0, v1 = _take(mat, i0), _take(mat, i1)
     return v0 + a[..., None] * (v1 - v0)
@@ -101,6 +113,9 @@ def lerp_multi(x0, dx, x, mat):
 
 def lerp_angle(x0, dx, x, arr):
     """Like :func:`lerp`, along the short angular distance."""
+    args = (x0, dx, x, arr)
+    if has_torch_function(args):
+        return handle_torch_function(lerp_angle, args, *args)
     n = arr.shape[0]
     q = torch.clamp((x - x0) / dx, 0.0, n - 1.0)
     i0, i1, a = _indices_t(q, n)
@@ -110,6 +125,9 @@ def lerp_angle(x0, dx, x, arr):
 
 def box_interp(dx, x, arr):
     """Nearest-below (piecewise constant) lookup. (optim.c:357-369)"""
+    args = (dx, x, arr)
+    if has_torch_function(args):
+        return handle_torch_function(box_interp, args, *args)
     q = torch.nan_to_num(x / dx, nan=0.0)
     return _take(arr, torch.clamp(torch.floor(q), 0, arr.shape[0] - 1).long())
 
@@ -118,6 +136,9 @@ def blerp(x0, y0, dx, dy, x, y, arr):
     """Bilinear interpolation into the equally spaced 2-D tensor ``arr``
     (rows along y, columns along x), both axes clamped as :func:`lerp`.
     (optim.c:452-480)"""
+    args = (x0, y0, dx, dy, x, y, arr)
+    if has_torch_function(args):
+        return handle_torch_function(blerp, args, *args)
     rows, cols = arr.shape
     xs, xe, xa = _indices_t((x - x0) / dx, cols)
     ys, ye, ya = _indices_t((y - y0) / dy, rows)

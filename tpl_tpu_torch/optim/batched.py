@@ -14,12 +14,16 @@ kernel ``csrc/ilqr_tracking_mpc.cu``'s batched entry, a warp per scenario
 and in float32.  The native problems of the generic kernel
 (``trajectory_tracking_mpc_time``, ``ref_line_smoother_k``,
 ``ref_line_smoother_dk``, ``velocity_profile_time``, ``lateral_profile``,
-``velocity_profile_space``) and every sympy problem with a printed struct
-launch ``csrc/ilqr_generic_body.cuh``
+``velocity_profile_space``), every sympy problem with a printed struct and
+every other torch problem, traced at the first call
+(:mod:`tpl_tpu_torch.optim.trace`, the params' kinds from their shapes: a
+0-d value, or a ``(B,)`` one named in ``per_instance``, is a scalar, one of
+1-D or more a table), launch ``csrc/ilqr_generic_body.cuh``
 (:func:`tpl_tpu_torch.optim.ilqr_generic.update_batched`), float32 and
 float64, EULER / HEUN / RK4: a block a scenario while the card holds every
-scenario's block at once, else resident warps, a scenario a warp.  Any
-other problem on CUDA tensors raises (:func:`no_batched_kernel_message`).
+scenario's block at once, else resident warps, a scenario a warp.  A
+problem the tracer refuses raises on CUDA tensors
+(:func:`no_batched_kernel_message` says why).
 On CPU tensors the plain version below runs: generic in the problem,
 float32 and float64, EULER / HEUN / RK4.
 
@@ -38,18 +42,20 @@ reports, as a statistic, how many candidates that order rolls
 import torch
 
 import tpl_tpu_torch
-from tpl_tpu_torch.optim import ilqr, ilqr_generic, ilqr_tracking_mpc
+from tpl_tpu_torch.optim import (ilqr, ilqr_generic, ilqr_tracking_mpc,
+                                 trace)
 from tpl_tpu_torch.optim.ilqr import EULER, HEUN, RK4  # noqa: F401
 
 
-def no_batched_kernel_message(name):
-    """Why a problem raises on CUDA tensors: the problems that have a
-    batched kernel."""
+def no_batched_kernel_message(name, why):
+    """Why a problem raises on CUDA tensors: what the tracer refused
+    (``why``), and the problems that have a batched kernel."""
     have = ["trajectory_tracking_mpc"] + [
         n for n in ilqr_generic.NATIVE if n != "trajectory_tracking_mpc"]
-    return (f"no batched kernel for problem {name!r}: on CUDA tensors the "
-            f"batch solves {', '.join(have)} and every sympy (genopt) "
-            "problem with a generated struct")
+    return (f"no batched kernel for problem {name!r}: the tracer refuses "
+            f"it ({why}); on CUDA tensors the batch solves {', '.join(have)}"
+            ", every sympy (genopt) problem with a generated struct and "
+            "every torch problem the tracer takes")
 
 
 def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
@@ -295,12 +301,16 @@ def make_batched_update_fn(prob, horizon, batch, integrator=EULER,
         if prob.kernel == "trajectory_tracking_mpc":
             out = ilqr_tracking_mpc.update_batched(
                 x, u, lam, mu_step, x0, params, cfg, integrator, dtype)
-        elif ilqr_generic.spec_of(prob) is not None:
-            out = ilqr_generic.update_batched(
-                ilqr_generic.spec_of(prob), x, u, lam, mu_step, x0, params,
-                cfg, integrator, dtype, per_instance)
         else:
-            raise NotImplementedError(no_batched_kernel_message(prob.name))
+            try:
+                spec = ilqr_generic.spec_of(
+                    prob, trace.kinds_of_params(params, per_instance))
+            except trace.Untraceable as e:
+                raise NotImplementedError(no_batched_kernel_message(
+                    prob.name, e)) from e
+            out = ilqr_generic.update_batched(
+                spec, x, u, lam, mu_step, x0, params, cfg, integrator, dtype,
+                per_instance)
         return out if iterations else out[:5]
 
     update.reference = reference

@@ -52,8 +52,9 @@ its first solve on a CUDA device (``build_parallel`` on a CUDA device
 builds its configs' sources at once, in parallel), cached by the hash of
 its text, the headers and the flags; a build or launch that fails raises.
 A config with a function outside the printer's table (``CUDA_FUNCTIONS``)
-warns once at ``build`` and solves with the plain iLQR, as a user-written
-torch ``Problem`` does.  The struct carries no name a native kernel
+warns once at ``build``: it solves with the plain iLQR on the CPU and
+raises on a CUDA device.  The same printer prints a torch ``Problem``'s
+functions traced by :mod:`.trace`.  The struct carries no name a native kernel
 matches: a translated problem never takes a hand-written kernel of the
 native problems, whatever its name.  On a CPU device the plain iLQR
 solves.
@@ -76,7 +77,7 @@ from tpl_tpu_torch.optim import ilqr_generic
 from tpl_tpu_torch.optim import symext as spx
 from tpl_tpu_torch.optim.ilqr import Problem
 from tpl_tpu_torch.optim.problems import ArraySpec
-from tpl_tpu_torch.optim.solver import Solver
+from tpl_tpu_torch.optim import solver
 from tpl_tpu_torch.ops import interp
 
 
@@ -519,54 +520,60 @@ def _c_name(name):
     return "".join(c if c.isalnum() else "_" for c in name)
 
 
-def cuda_struct(config, dyn, cost, cons, end, scalars, tables):
-    """The config's problem struct (C++ over csrc/ilqr_jet.cuh) and its
-    name: sympy's common subexpressions of each function as ``auto``
-    temporaries, a scalar param read from the scalar table, an ArraySymbol
-    as a table of ``array_capacity``, ``fixed_<name>`` as ``val(<name>)``,
-    ``t`` / ``dt`` the step index and the step.  Raises :class:`Unprintable`
-    for a function outside the printer's table."""
-    struct = f"Gen_{_c_name(config.name)}"
+def cuda_struct(name, states, actions, dyn, cost, cons, end, scalars, tables):
+    """The problem struct (C++ over csrc/ilqr_jet.cuh) of a problem's four
+    lists of sympy expressions over its ``states`` and ``actions`` symbols,
+    and its name: sympy's common subexpressions of each function as
+    ``auto`` temporaries, a scalar param read from the scalar table, an
+    ArraySymbol as a table of ``array_capacity``, ``fixed_<name>`` as
+    ``val(<name>)``, ``t`` / ``dt`` the step index and the step.  Raises
+    :class:`Unprintable` naming the function and what the printer has no
+    form for."""
+    struct = f"Gen_{_c_name(name)}"
     env = {"dt": "P.dt", "t": "R(t)"}
     env.update({n: f"P.s[{i}]" for i, n in enumerate(scalars)})
     tabs = {n: i for i, n in enumerate(tables)}
 
-    def body(exprs, assign, states, actions):
+    def body(label, exprs, assign, with_actions):
         e2 = dict(env)
         e2.update({s.name: f"x[{i}]" for i, s in enumerate(states)})
-        e2.update({a.name: (f"u[{i}]" if actions else "R(0.0)")
-                   for i, a in enumerate(config.actions)})
+        e2.update({a.name: (f"u[{i}]" if with_actions else "R(0.0)")
+                   for i, a in enumerate(actions)})
         reps, red = sp.cse(exprs, symbols=sp.numbered_symbols("cse_"))
         lines = []
         pr = _CudaPrinter(e2, tabs)
-        for sym, val in reps:
-            lines.append(f"    const auto {sym.name} = {pr(val)};")
-            e2[sym.name] = sym.name
-        lines += assign([pr(r) for r in red])
+        try:
+            for sym, val in reps:
+                lines.append(f"    const auto {sym.name} = {pr(val)};")
+                e2[sym.name] = sym.name
+            lines += assign([pr(r) for r in red])
+        except Unprintable as e:
+            raise Unprintable(f"{label}: {e.args[0]}") from e
         return "\n".join(lines)
 
     sig = "const Prm<R>& P, int t, const S* x"
-    dyn_body = body(dyn, lambda r: [f"    f[{i}] = S({v});"
-                                    for i, v in enumerate(r)],
-                    config.states, True)
-    cost_body = body(cost, lambda r: ["    S c = S(" + r[0] + ");"]
+    dyn_body = body("dynamics", dyn, lambda r: [f"    f[{i}] = S({v});"
+                                                for i, v in enumerate(r)],
+                    True)
+    cost_body = body("cost", cost, lambda r: ["    S c = S(" + r[0] + ");"]
                      + [f"    c = c + S({v});" for v in r[1:]]
-                     + ["    return c;"], config.states, True)
-    cons_body = (body(cons, lambda r: [f"    g[{i}] = S({v});"
-                                       for i, v in enumerate(r)],
-                      config.states, True) if cons else "")
+                     + ["    return c;"], True)
+    cons_body = (body("constraints", cons,
+                      lambda r: [f"    g[{i}] = S({v});"
+                                 for i, v in enumerate(r)], True)
+                 if cons else "")
     end_cost = not all(e.is_zero for e in end)
-    end_body = (body(end, lambda r: ["    S c = S(" + r[0] + ");"]
+    end_body = (body("end_cost", end,
+                     lambda r: ["    S c = S(" + r[0] + ");"]
                      + [f"    c = c + S({v});" for v in r[1:]]
-                     + ["    return c;"], config.states, False)
+                     + ["    return c;"], False)
                 if end_cost else "    return S(R(0.0));")
     text = f"""namespace ilqr_generic {{
 
-// {config.name}: printed by tpl_tpu_torch/optim/genopt.py from the config's
-// sympy expressions
+// {name}: printed by tpl_tpu_torch/optim/genopt.py
 template <typename R>
 struct {struct} {{
-  static constexpr int NX = {len(config.states)}, NU = {len(config.actions)}, NC = {len(cons)}, NS = {len(scalars)}, NT = {len(tables)};
+  static constexpr int NX = {len(states)}, NU = {len(actions)}, NC = {len(cons)}, NS = {len(scalars)}, NT = {len(tables)};
   static constexpr bool END_COST = {"true" if end_cost else "false"};
 
   template <class S>
@@ -595,23 +602,26 @@ struct {struct} {{
     return struct, text
 
 
-def cuda_spec(config, prob, dyn, cost, cons, end, param_syms):
+def cuda_spec(name, states, actions, prob, dyn, cost, cons, end, param_syms):
     """The generic kernel's :class:`~tpl_tpu_torch.optim.ilqr_generic.Spec`
-    of a config: its struct (:func:`cuda_struct`), its params' order and
-    its operation counts."""
+    of a problem's four lists of sympy expressions (a config's, or a torch
+    problem's traced by :mod:`.trace`): its struct (:func:`cuda_struct`),
+    its params' order and its operation counts; ``prob`` is the plain
+    version's Problem."""
     scalars = tuple(s.name for s in param_syms
                     if not isinstance(s, spx.ArraySymbol))
     tables = tuple(s.name for s in param_syms
                    if isinstance(s, spx.ArraySymbol))
-    name, struct = cuda_struct(config, dyn, cost, cons, end, scalars, tables)
+    struct_name, struct = cuda_struct(name, states, actions, dyn, cost, cons,
+                                      end, scalars, tables)
     chain = {}
     if dyn:
         chain = max((_chain(e) for e in dyn), key=lambda c: c[0])[1]
     ops = dict(dynamics=_count_ops(dyn), cost=_count_ops(cost),
                constraints=_count_ops(cons), end_cost=_count_ops(end))
     return ilqr_generic.Spec(
-        config.name, prob.nx, prob.nu, prob.nc, scalars, tables, ops, chain,
-        problem=prob, struct=struct, struct_name=name)
+        name, prob.nx, prob.nu, prob.nc, scalars, tables, ops, chain,
+        problem=prob, struct=struct, struct_name=struct_name)
 
 
 def make_problem(config):
@@ -659,14 +669,16 @@ def make_problem(config):
                    dynamics=dynamics, cost=cost, end_cost=end_cost,
                    constraints=constraints)
     try:
-        spec = cuda_spec(config, prob, dyn_exprs, cost_exprs, con_exprs,
-                         end_exprs, tr.param_syms)
+        spec = cuda_spec(config.name, config.states, config.actions, prob,
+                         dyn_exprs, cost_exprs, con_exprs, end_exprs,
+                         tr.param_syms)
         prob = dataclasses.replace(prob, generated=spec)
         object.__setattr__(spec, "problem", prob)
     except Unprintable as e:
         warnings.warn(f"genopt: {config.name}: the CUDA printer has no form "
                       f"for {e.args[0]}; the problem solves with the plain "
-                      "iLQR", stacklevel=3)
+                      "iLQR on the CPU and raises on a CUDA device",
+                      stacklevel=3)
 
     spec = {}
     for s in tr.param_syms:
@@ -694,7 +706,7 @@ def build(config, device=None, dtype=None):
         kwargs["dtype"] = dtype
 
     def init_opt():
-        opt = Solver(prob, spec, **kwargs)
+        opt = solver.Solver(prob, spec, **kwargs)
         for name, val in defaults.items():
             setattr(opt.params, name, val)
         return opt

@@ -20,7 +20,9 @@ algorithm.  Two kinds of struct reach it:
 - every sympy config of :mod:`tpl_tpu_torch.optim.genopt`, whose printer
   writes the struct and a source that includes the body, built by ``nvcc``
   at first use into ``build/tpl_tpu_torch/`` (:class:`Spec` with a
-  ``source``).
+  ``struct``), and every other torch problem, traced into the same
+  printer by :mod:`tpl_tpu_torch.optim.trace` (:func:`spec_of` with the
+  params' kinds).
 
 The JAX package compiled each of these problems to one XLA program
 (``tpl_tpu/optim/ilqr.py:126`` make_update_fn, single, and
@@ -79,8 +81,8 @@ class Spec:
     path through the dynamics, by the latency probe's names without the
     precision prefix (``add``, ``mul``, ``div``, ``sin``, ``cos``,
     ``atan``, ``smem_load``).  A sympy config's spec carries the struct
-    its printer wrote (``struct``, named ``struct_name``); a native
-    problem's has none."""
+    its printer wrote (``struct``, named ``struct_name``), as does a torch
+    problem's traced by :mod:`.trace`; a native problem's has none."""
 
     name: str
     nx: int
@@ -163,13 +165,20 @@ NATIVE = {s.name: s for s in (
             dict(tan=1, atan=1, cos=2, mul=2, div=1)))}
 
 
-def spec_of(prob):
-    """The :class:`Spec` of a problem the kernel solves (a sympy config's
-    generated one, or a native problem's by its ``kernel`` key), else
-    None."""
+def spec_of(prob, kinds=None):
+    """The :class:`Spec` of a problem the kernel solves: a sympy config's
+    generated one, a native problem's by its ``kernel`` key, or, given the
+    params' ``(name, is_table)`` pairs ``kinds``, a torch problem's traced
+    (:func:`tpl_tpu_torch.optim.trace.spec`, which raises ``Untraceable``
+    for a problem it refuses); else None."""
     if getattr(prob, "generated", None) is not None:
         return prob.generated
-    return NATIVE.get(prob.kernel)
+    if prob.kernel is not None or kinds is None:
+        return NATIVE.get(prob.kernel)
+    # imported here: trace prints through genopt, which imports this module
+    from tpl_tpu_torch.optim import trace
+
+    return trace.spec(prob, kinds)
 
 
 def _spec(spec):
@@ -755,13 +764,14 @@ def _bind(lib):
 
 
 def source_text(spec, dtype):
-    """The source a sympy config's library is built from, for the one dtype
-    the solver takes: its struct in a unit that includes the kernel body
-    and instantiates it (``csrc/ilqr_generic_entries.cuh``)."""
+    """The source a printed struct's library is built from, for the one
+    dtype the solver takes: its struct in a unit that includes the kernel
+    body and instantiates it (``csrc/ilqr_generic_entries.cuh``)."""
     s = _spec(spec)
     flag = ("ILQR_GENERIC_F64_ONLY" if dtype == torch.float64
             else "ILQR_GENERIC_F32_ONLY")
-    return (f"// the generic AL-iLQR kernel for the sympy config {s.name!r}\n"
+    return (f"// the generic AL-iLQR kernel for the printed problem "
+            f"{s.name!r}\n"
             f"#define {flag}\n#include \"ilqr_generic_body.cuh\"\n\n"
             f"{s.struct}\n#define ILQR_GENERIC_PROBLEMS(X) "
             f"X(0, {s.struct_name})\n#include \"ilqr_generic_entries.cuh\"\n")
@@ -789,17 +799,21 @@ def _kernel(spec=None, dtype=torch.float64):
 
 
 def _tag(spec):
-    """A file name for a generated source: the config's name, kept to
+    """A file name for a generated source: the problem's name, kept to
     letters, digits and underscores."""
     name = "".join(c if c.isalnum() else "_" for c in spec.name)
     return f"genopt_{name}"
 
 
 def build_generated(specs, dtype):
-    """Compile the generated sources of ``specs`` for ``dtype`` that are not
-    built yet, one ``nvcc`` each, all started together (the front end's
-    ``build_parallel`` on a CUDA device)."""
+    """Compile the generated sources of ``specs`` (printed or traced
+    structs) that are not built yet, one ``nvcc`` each, all started
+    together (the front end's ``build_parallel`` on a CUDA device, and the
+    traced structs a run needs at once); ``dtype`` is one dtype for all, or
+    one a spec."""
     from tpl_tpu_torch import _build
 
-    _build.build_generated([(_tag(s), source_text(s, dtype))
-                            for s in specs])
+    dtypes = (list(dtype) if isinstance(dtype, (list, tuple))
+              else [dtype] * len(specs))
+    _build.build_generated([(_tag(s), source_text(s, d))
+                            for s, d in zip(specs, dtypes)])

@@ -35,8 +35,15 @@ so a problem defined elsewhere never takes one, whatever its name.  A
 sympy problem (:mod:`.genopt`) carries the struct its printer wrote for it
 (``Problem.generated``) and goes to the generic kernel, built from that
 struct at its first solve on a CUDA device.  Any other problem (a user's
-torch functions, or a sympy config with a function the printer has no form
-for) runs the plain version on its device, the card included.
+torch functions) is traced at its first solve on a CUDA device
+(:mod:`.trace`: its functions run once on symbolic tensors, the params'
+kinds from the solver's param spec) into the same printer's struct, cached
+on the problem, and solves through the generic kernel as a sympy problem
+does; a problem the tracer refuses (an operation outside its table, a
+Python branch on a traced value, a sympy config with a function the printer
+has no form for) raises on a CUDA device, naming the function and the
+operation.  On a CPU device every problem without a kernel runs the plain
+version.
 """
 
 import functools
@@ -47,7 +54,8 @@ import torch
 
 import tpl_tpu_torch
 from tpl_tpu_torch.optim import (ilqr, ilqr_generic, ilqr_rstp,
-                                 ilqr_tracking_mpc, ilqr_tracking_mpc_time)
+                                 ilqr_tracking_mpc, ilqr_tracking_mpc_time,
+                                 trace)
 from tpl_tpu_torch.optim.ilqr import EULER, HEUN, RK4
 from tpl_tpu_torch.optim.problems import ArraySpec  # noqa: F401 (re-export)
 
@@ -81,14 +89,21 @@ def own_kernel_fits(name, horizon_max, n_ref):
     return 8 * (a + b * horizon_max + c * n_ref) <= OWN_KERNEL_SMEM
 
 
-def route(problem, dtype, horizon_max, n_ref):
+def route(problem, dtype, horizon_max, n_ref, kinds, device):
     """``(kernel, solve)``: the kernel a solve of ``problem`` in ``dtype``
-    at capacity ``horizon_max`` (``n_ref`` samples a table) takes on a CUDA
-    device, by its source's name, and its wrapper's solve; ``(None, None)``
-    where none does (the plain version runs)."""
-    if problem.generated is not None:
-        return "ilqr_generic", functools.partial(
-            ilqr_generic.solve, problem.generated, dtype=dtype)
+    at capacity ``horizon_max`` (``n_ref`` samples a table) takes on
+    ``device``, by its source's name, and its wrapper's solve (which runs
+    its plain version on a CPU device); ``(None, None)`` where the plain
+    iLQR solves.  On a CUDA device a problem without a kernel or a printed
+    struct is traced with its params' ``(name, is_table)`` pairs ``kinds``
+    (:func:`.trace.spec`, which raises ``Untraceable`` for a problem it
+    refuses); on a CPU device it is not traced and solves plain."""
+    if torch.device(device).type != "cuda":
+        kinds = None
+    spec = ilqr_generic.spec_of(problem, kinds)
+    if spec is not None and spec.struct is not None:
+        return "ilqr_generic", functools.partial(ilqr_generic.solve, spec,
+                                                 dtype=dtype)
     name = problem.kernel
     solve = KERNELS.get((name, dtype))
     if solve is None:
@@ -181,6 +196,7 @@ class Solver:
         self._u_max = np.full((H, nu), np.inf)
 
         self.params = SolverParams(param_spec)
+        self._kinds = trace.kinds_of_spec(param_spec)
         self._n_ref = max((s.capacity for s in param_spec.values()
                            if hasattr(s, "capacity")), default=0)
 
@@ -201,11 +217,11 @@ class Solver:
 
     @property
     def route(self):
-        """The kernel a solve takes on a CUDA device (its source's name,
-        e.g. ``ilqr_tracking_mpc`` or ``ilqr_generic``), or None where the
-        plain version runs."""
+        """The kernel a solve takes on the solver's device (its source's
+        name, e.g. ``ilqr_tracking_mpc`` or ``ilqr_generic``), or None where
+        the plain iLQR runs (see :func:`route`)."""
         return route(self.problem, self.dtype, self.horizon_max,
-                     self._n_ref)[0]
+                     self._n_ref, self._kinds, self.device)[0]
 
     @property
     def T(self):
@@ -365,13 +381,14 @@ class Solver:
         start = time.perf_counter()
         name = self.problem.kernel
         _, kernel = route(self.problem, self.dtype, self.horizon_max,
-                          self._n_ref)
+                          self._n_ref, self._kinds, self.device)
         run = (self.horizon, self.max_iterations, self.max_lg_iterations,
                self._mu_step, self._integrator)
         if kernel is not None:
             res = kernel(self._inputs(), self.params._values, *run,
                          self.device)
-        elif self.device.type == "cuda" and any(n == name for n, _ in KERNELS):
+        elif self.device.type == "cuda" and any(n == name
+                                                 for n, _ in KERNELS):
             dtypes = [str(d) for n, d in KERNELS if n == name]
             raise ValueError(f"{name}: the CUDA solve takes {dtypes}, got "
                              f"{self.dtype}")

@@ -261,8 +261,15 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    (the wrapper binds the library with its code loaded and its
    shared-memory limit set, so the first launch waits on neither);
 20. ``python -m tpl_tpu_torch.simulation.tplsim run --scenario
-   demo/country_follow --headless --no-reload --max-ticks 400`` on the card
+   demo/country_follow --headless --no-reload --max-ticks 200`` on the card
    as a child process: exit code 0 (zero rule violations) and its summary;
+20a. the demo legs: ``tplsim run --headless --seed 0`` on ``demo/oval_lap``,
+   ``leader_brake``, ``urban_light`` and ``urban_crossing`` for 200 ticks
+   each, four child processes side by side, the scenarios' own sets (RSTP
+   fused, H = 250, the collision screen on; the MPC, H = 60): exit code,
+   rule violations and emergency ticks equal to the JAX package's own CPU
+   loop over the same ticks (``DEMO_JAX_END``, printed by
+   ``tests/jax_demo_loops.py``), the end position and speed within 0.05;
 21. record and replay: ``SimRecorder`` over 100 ticks of the vendored loop
    (written under ``build/``), read back with ``load_recording`` and stepped
    into a fresh store by ``SimReplay``, every state equal;
@@ -330,6 +337,28 @@ Smoke run of the PyTorch / CUDA port (``tpl_tpu_torch``) on one GPU.
    (float64, HEUN, cold and warm) against its hand-written struct (1e-9,
    equal iterations) and ``csrc/ilqr_tracking_mpc.cu`` (x, u atol 1e-6,
    cost rtol 1e-9), the three timed;
+23a. traced operations through the generic kernel: the two problems of
+   ``scenes.USER_PROBLEMS`` (a quadratic tracking MPC, H = 100, its
+   captured weights in ``einsum`` / ``@`` and its captured reference read
+   by the step index; a vehicle on a captured 200 x 200 cost map through
+   ``blerp`` with softplus, hypot, sigmoid, erf, log1p, expm1, relu and
+   the reductions, H = 80), traced and built (float32 and float64, one
+   ``nvcc`` each) in a thread beside the phases from 3 on: each solved
+   through its ``Solver`` on the card at its own 20 iterations (one
+   ``ilqr_generic`` launch, the counts set to 0 just before) and timed
+   there with ``bound_ms`` / ``chain_ms``, registers and local bytes;
+   against its plain iLQR on the card, equal iterations and mu_step:
+   float64 at its own iterations at USER_OWN_TOL and over the iterations
+   where another rounding order stays within 1e-12 (``USER_SETTINGS``
+   ``it_exact``: 3 and 2) at USER_OPS_TOL, float32 over ``it_f32`` (5 and
+   4) at USER_F32_TOL, and the float32 own solve against the plain
+   float64 one parting beyond USER_OWN_TOL (the control); the float64
+   batch at B = 64 and 2,048 at its own iterations: one launch, finite,
+   timed, solves/s, the bounds; over ``it_exact`` iterations every
+   scenario bit-equal to its single launch, four within USER_OPS_TOL of
+   ``update.reference`` on the CPU; at 64 all of the plain batched update
+   on the card (USER_OPS_TOL over ``it_exact``, USER_OWN_TOL over
+   USER_OWN_BATCH_IT);
 24. the batched DP slice (``latlon_backward_slice`` at B > 1: the resident
    blocks walking the work items) at the demo grid on
    ``scenes.dp_batch_scenes`` (per-scenario scenes, tables and ``l_trg``,
@@ -718,6 +747,25 @@ USER_VEHICLE_TOL = 1e-5
 USER_VEHICLE_F32_ITERATIONS = 10
 USER_VEHICLE_F32_TOL = 1e-4
 USER_BATCHES = (64, 2048)   # the crane's batch: the JAX bench's 2,048
+# the traced operations' two problems (scenes.USER_PROBLEMS): float64 kernel
+# solves against the plain version on the card over the iterations where
+# another rounding order stays within it (scenes.USER_SETTINGS it_exact;
+# x, u scaled by the largest |x|, and the cost), float32 at it_f32 within
+# USER_F32_TOL, equal iterations and mu_step both
+USER_OPS_TOL = 1e-12
+# and at their own 20 iterations (the single solves, and the batch at B = 64
+# over USER_OWN_BATCH_IT) within USER_OWN_TOL, equal iterations and mu_step:
+# the largest of the readings of tests/user_problem_readings.py (the printed
+# struct compiled with g++ against the plain float64 iLQR on the CPU) and
+# of this script on the card, raised to the next power of ten above them
+# with room for another compiler's rounding; the float32 kernel's own solve
+# against the plain float64 one, the control, parts far beyond it.  The
+# cost map's batch of spread starts is held over 5 iterations: at its own
+# 20 the plain float64 batch parts from itself, its starts moved by 1e-14,
+# by up to 5e-2 of the largest |x| (several scenarios take other iteration
+# counts), where no tolerance tells a right kernel from a wrong one
+USER_OWN_TOL = {"quadratic_tracking_mpc": 1e-9, "cost_map_vehicle": 1e-6}
+USER_OWN_BATCH_IT = {"quadratic_tracking_mpc": 20, "cost_map_vehicle": 5}
 # the batched fused slice: the batch sizes checked against the plain
 # version on the CPU, those checked against the one-scenario launches on
 # the card, those timed, and the one in the kernels' JSON line
@@ -725,8 +773,24 @@ SLICE_BATCHES = (1, 8)
 SLICE_CARD_BATCHES = (32,)
 SLICE_BATCHES_TIMED = (8, 32)
 SLICE_BATCH_TIMED = 8
+# the demo legs: tplsim run on the card against the JAX package's own CPU
+# loop over the same ticks (tests/jax_demo_loops.py prints these: end t, x,
+# y, v, rule violations, emergency ticks), the scenarios' own sets, the
+# collision screen on in all four (leader_brake's latches the hard brake
+# over 100 of the 200 ticks in the JAX loop)
+DEMO_SCENARIOS = ("demo/oval_lap", "demo/leader_brake", "demo/urban_light",
+                  "demo/urban_crossing")
+DEMO_TICKS = 200
+DEMO_JAX_END = {
+    "demo/oval_lap": (1.99, 8.4241, -0.0000, 3.6973, 0, 0),
+    "demo/leader_brake": (1.99, 21.1786, 12.3065, 2.2127, 0, 100),
+    "demo/urban_light": (1.99, 22.7877, 0.2596, 6.8388, 0, 0),
+    "demo/urban_crossing": (1.99, 253.5160, 15.5781, 7.1086, 0, 0)}
+DEMO_END_ATOL = 0.05        # m, m/s
 # the tplsim phase: the vendored loop through the command line, on the card
-TPLSIM_TICKS = 400
+# (200 ticks, half its earlier depth, since the demo legs run four more
+# scenarios through it: to hold the script's wall)
+TPLSIM_TICKS = 200
 RECORD_TICKS = 100
 # the multi-process deployment: sim seconds of each leg, in real time
 DEPLOY_LEG_T = 10.0
@@ -737,7 +801,8 @@ DEPLOY_SWITCH = "dp_lat_lon_planner"
 KERNELS = ("latlon_action_min", "ilqr_tracking_mpc", "ilqr_rstp",
            "rstp_rampify", "latency_probe", "lon_dp", "poly_lat",
            "idm_rollout", "idm_evaluate", "poly_sampling", "dir_dist_map",
-           "poly_planner", "ilqr_tracking_mpc_time", "ilqr_generic")
+           "poly_planner", "ilqr_tracking_mpc_time", "ilqr_generic_f32",
+           "ilqr_generic_f64")
 NO_LIBRARY = None           # no single PyTorch call computes these kernels
 
 
@@ -5657,8 +5722,12 @@ def generic_launcher(ig, lib, spec, shared, rows, H, n_ref, T, it, lg,
             int(it), int(lg), smem,
             torch.cuda.current_stream(rows.device).cuda_stream)
 
+    # the tree's entry takes the constant tables too (none here)
+    entry = lib.ilqr_generic_update if parent else (
+        lambda *a: lib.ilqr_generic_update_consts(*a, None))
+
     def launch():
-        err = lib.ilqr_generic_update(*args)
+        err = entry(*args)
         if err:
             raise RuntimeError(f"ilqr_generic launch failed: CUDA error "
                                f"{err}")
@@ -6062,7 +6131,8 @@ def generic_phase(ig, dev, cycles, mhz, parents=()):
                                              "instantiation parts")
                     phase_line(f"ilqr_generic {name}", what, ilqr, prof, its,
                                mhz)
-    print(_build_log("ilqr_generic"))
+    print(_build_log("ilqr_generic_f32") + "\n"
+          + _build_log("ilqr_generic_f64"))
     figures = generic_build_figures(
         ig, [(n, ig.NATIVE[n], d) for n in ig.NATIVE for d in (f32, f64)])
 
@@ -6847,6 +6917,378 @@ def user_problem_phase(ig, dev, cycles, mhz, user_build):
     return dict(err=err, main_launches=main_launches, main_ms=main_ms,
                 singles=singles, batches=batches, tracking=tracking,
                 figures=figures, build_s=user_build["s"])
+
+
+def build_traced_ops_sources(result):
+    """Traces the two problems of ``scenes.USER_PROBLEMS`` (their captured
+    tensors on the card) and builds their structs' sources in float32 and
+    float64 in one ``build_generated`` call, one ``nvcc`` each, all started
+    together; the seconds into result["s"], the specs into
+    result["specs"], or the exception into result["error"]."""
+    import torch
+    from tpl_tpu_torch import scenes
+    from tpl_tpu_torch.optim import ilqr_generic as ig
+    from tpl_tpu_torch.optim import trace
+
+    t0 = time.perf_counter()
+    try:
+        jobs = []
+        for name in scenes.USER_PROBLEMS:
+            for dtype in (torch.float32, torch.float64):
+                prob, pspec = scenes.user_problem(name, dtype, "cuda")
+                jobs.append((trace.spec(prob, trace.kinds_of_spec(pspec)),
+                             dtype))
+        result["trace_s"] = time.perf_counter() - t0
+        ig.build_generated([s for s, _ in jobs], [d for _, d in jobs])
+        result["specs"] = jobs
+        result["s"] = time.perf_counter() - t0
+    except Exception as e:      # raised again by the phase that needs it
+        result["error"] = e
+
+
+def _parting(got, want):
+    """(max |dx|, |du| over the largest |x| of ``want``, relative cost
+    difference) of two solves."""
+    d = max(float(np.max(np.abs(np.asarray(got[k]) - np.asarray(want[k]))))
+            for k in ("x", "u"))
+    return (d / max(1.0, float(np.max(np.abs(want["x"])))),
+            abs(got["traj_costs"] - want["traj_costs"])
+            / max(abs(want["traj_costs"]), 1e-30))
+
+
+def traced_ops_single(ig, name, dtype, dev, cycles, mhz, plain64=None):
+    """One problem of ``scenes.USER_PROBLEMS`` solved by its ``Solver`` on
+    the card at its own iterations (USER_SETTINGS it; the main path: the
+    launch counts set to 0 just before, read just after: one
+    ``ilqr_generic`` launch), timed through the bare launcher and the
+    wrapper, against its plain iLQR on the card, equal iterations and
+    mu_step: in float64 at its own iterations within USER_OWN_TOL and over
+    it_exact iterations within USER_OPS_TOL; in float32 over it_f32
+    iterations within USER_F32_TOL, and its own solve, the control, against
+    the plain float64 one (``plain64``, the float64 call's) beyond
+    USER_OWN_TOL.  Returns its figures (the float64 call's with its plain
+    own solve, "plain_own")."""
+    import torch
+    from tpl_tpu_torch import scenes
+
+    st = scenes.USER_SETTINGS[name]
+    f64 = dtype == torch.float64
+    kind = str(dtype).replace("torch.", "")
+    opt = scenes.user_solver(name, dtype, dev)
+    if opt.route != "ilqr_generic":
+        raise AssertionError(f"{name}: route {opt.route}")
+    state = {k: np.array(v) for k, v in opt._inputs().items()}
+    params = dict(opt.params._values)
+    ig.by_problem[name] = 0
+    t0 = time.perf_counter()
+    opt.update()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = ig.by_problem[name]
+    if launches != 1:
+        raise AssertionError(f"{name}: {launches} generic launches for one "
+                             "update")
+    spec = ig.spec_of(opt.problem, opt._kinds)
+    H, T, integ, its = (opt.horizon_max, opt.horizon, opt.integrator_type,
+                        opt.max_iterations)
+    n_ref = ig.n_ref_of(spec, params)
+    buf = torch.from_numpy(ig.pack_inputs(spec, state, params, 0,
+                                          dtype)).to(dev)
+
+    def solve(it, plain=False):
+        fn = ig.update_reference if plain else ig.update
+        t0 = time.perf_counter()
+        out = fn(spec, buf, H, n_ref, T, it, 1, integ)
+        torch.cuda.synchronize()
+        return (ig.unpack_outputs(spec, out.double().cpu().numpy(), H),
+                (time.perf_counter() - t0) * 1e3)
+
+    got, _ = solve(its)
+    if not (np.array_equal(got["x"], opt._x)
+            and np.array_equal(got["u"], opt._u)):
+        raise AssertionError(f"{name}: the solver's launch and the "
+                             "wrapper's part")
+    plain, plain_ms = solve(its, True)
+    print(f"{name} {kind} H={T}, its own {its} iterations: the traced kernel "
+          f"({got['iterations']} taken, cost {got['traj_costs']:.9g}), "
+          f"Solver.update wall {wall:.1f} ms, one ilqr_generic launch")
+    out = {}
+    if f64:
+        tol = USER_OWN_TOL[name]
+        err = user_check("against its plain iLQR on the card", got, plain,
+                         dtype, True, (tol, tol))
+        it_x = st["it_exact"]
+        out["err_exact"] = user_check(
+            f"over {it_x} iterations against its plain iLQR on the card",
+            solve(it_x)[0], solve(it_x, True)[0], dtype, True,
+            (USER_OPS_TOL, USER_OPS_TOL))
+        out["plain_own"] = plain
+    else:
+        it_x = st["it_f32"]
+        err = user_check(
+            f"over {it_x} iterations against its plain iLQR on the card",
+            solve(it_x)[0], solve(it_x, True)[0], dtype, True,
+            (USER_F32_TOL, USER_F32_TOL))
+        control = _parting(got, plain64)
+        print(f"  the control, its own solve against the plain float64 one: "
+              f"max|dx|,|du| {control[0]:.3e} of the largest |x|, cost rel "
+              f"{control[1]:.3e} (must part beyond USER_OWN_TOL "
+              f"{USER_OWN_TOL[name]:g})")
+        if not min(control) > USER_OWN_TOL[name]:
+            raise AssertionError(f"{name}: the float32 control is within "
+                                 "the float64 tolerance")
+        out["control"] = control
+    n_sh = ig._size(ig.shared_layout(spec, H, n_ref))
+    run = (H, n_ref, T, its, 1, integ)
+    bare, wrap = launcher_times(
+        f"ilqr_generic traced {name}", f"{kind} H={T}, {its} iterations",
+        ig.bare(spec, buf[:n_sh], buf[n_sh:].reshape(1, -1), *run[:5],
+                integrator=integ),
+        lambda: ig.update(spec, buf, *run), 10)
+    bound = ig.bound_ms(spec, H, n_ref, T, got["iterations"],
+                        integrator=integ, dtype=dtype)
+    chain = ig.chain_ms(spec, H, T, got["iterations"], cycles, mhz, integ,
+                        dtype)
+    regs, local, _ = ig.attributes(spec, dtype)
+    print(f"{name} traced kernel {kind}: ms bare {bare:.4f}, wrapper "
+          f"{wrap:.4f}; plain on the card {plain_ms:.1f}; bound_ms "
+          f"{bound[0]:.6f} ({bound[1]}), chain_ms {chain:.4f}; {regs} "
+          f"registers, {local} B local; {len(spec.consts)} constant table "
+          "words")
+    out.update(ms=bare, wrapper_ms=wrap, plain_ms=plain_ms, wall_ms=wall,
+               launches=launches, err=err, bound=bound, chain=chain,
+               iterations=got["iterations"], max_iterations=its, horizon=T,
+               registers=regs, local_bytes=local, dtype=kind,
+               consts=len(spec.consts))
+    return out
+
+
+def traced_ops_batch(ig, name, B, dev, cycles, mhz):
+    """The batch of one problem of ``scenes.USER_PROBLEMS`` through
+    ``optim.batched`` on CUDA tensors, float64, at its own iterations (the
+    main path: one launch), finite and timed, with the bounds and the
+    design floor; over it_exact iterations every scenario bit-equal to its
+    single launch and four within USER_OPS_TOL of ``update.reference`` on
+    the CPU (the problem's captured tensors there); at B <= 64 every
+    scenario against the plain batched update on the card, within
+    USER_OPS_TOL over it_exact iterations and within USER_OWN_TOL over
+    USER_OWN_BATCH_IT, equal iterations."""
+    import torch
+    from tpl_tpu_torch import scenes
+    from tpl_tpu_torch.optim import batched, trace
+
+    f64 = torch.float64
+    st = scenes.USER_SETTINGS[name]
+    H, integ = st["H"], st["integ"]
+    prob, pspec = scenes.user_problem(name, f64, dev)
+    cpu_prob, _ = scenes.user_problem(name, f64, "cpu")
+    t = lambda a, d=dev: torch.as_tensor(np.asarray(a, np.float64),
+                                         device=d)
+    tp = {k: t(v) for k, v in pspec.items()}
+    lims = np.asarray(st["u_lim"], float)
+
+    def cfg(it):
+        return dict(u_min=t(np.tile(lims[:, 0], (H, 1))),
+                    u_max=t(np.tile(lims[:, 1], (H, 1))),
+                    barrier_weight=t(np.ones(prob.nc)),
+                    lg_mult_limit=t(np.full(prob.nc, 1e4)), dt=t(st["dt"]),
+                    min_rel_cost_change=t(1e-6), T=H, max_iterations=it,
+                    max_lg_iterations=1)
+    spec = ig.spec_of(prob, trace.kinds_of_params(tp))
+    rng = np.random.default_rng(B)
+    x, u, lam_, mu = batched.init_batch(prob, H, B, f64, dev)
+    x0 = t(np.asarray(st["x0"])[:, None] + rng.normal(0.0, 1.0, (4, B))
+           * np.array([[0.5], [0.5], [0.05], [0.5]]))
+    args = (x, u, lam_, mu, x0, tp)
+    upd = batched.make_batched_update_fn(prob, H, B, integ, f64)
+    it = st["it"]
+    n0 = ig.launches
+    got = upd(*args, cfg(it), iterations=True)
+    torch.cuda.synchronize()
+    if ig.launches != n0 + 1:
+        raise AssertionError(f"{name} batch B={B}: {ig.launches - n0} "
+                             "launches")
+    if not all(bool(torch.isfinite(g).all()) for g in got[:3]):
+        raise AssertionError(f"{name} batch B={B}: not finite")
+
+    # over it_exact iterations: bit-equal to the single launches, and four
+    # scenarios against update.reference on the CPU
+    it_x = st["it_exact"]
+    exact = upd(*args, cfg(it_x), iterations=True)
+    shared, rows = ig.pack_inputs_batched(spec, *args, cfg(it_x))
+    out = ig.launch(spec, shared, rows, H, 0, H, it_x, 1, integ)
+    singles = ig.rows_of_batch(shared, rows)
+    for b in range(B):
+        one = ig.update(spec, singles[b].contiguous(), H, 0, H, it_x, 1,
+                        integ)
+        if not torch.equal(one, out[b]):
+            raise AssertionError(f"{name} batch B={B}: scenario {b} parts "
+                                 "from its single launch")
+    pick = [0, 1, B // 2, B - 1]
+    cpu = lambda a: a[..., pick].cpu()
+    ref = batched.make_batched_update_fn(cpu_prob, H, len(pick), integ,
+                                         f64).reference
+    want = ref(*(cpu(a) for a in args[:5]),
+               {k: v.cpu() for k, v in tp.items()},
+               {k: (v.cpu() if torch.is_tensor(v) else v)
+                for k, v in cfg(it_x).items()}, iterations=True)
+    scale = max(1.0, float(want[0].abs().max()))
+    d = max(float((g[..., pick].cpu() - w).abs().max())
+            for g, w in zip(exact[:3], want[:3]))
+    if not (d <= USER_OPS_TOL * scale
+            and torch.equal(exact[3][pick].cpu(), want[3].to(exact[3].dtype))
+            and torch.equal(exact[5][pick].cpu(), want[5])):
+        raise AssertionError(f"{name} batch B={B}: scenarios {pick} part "
+                             f"from update.reference on the CPU by {d}")
+    line = (f"over {it_x} iterations every scenario bit-equal to its single "
+            f"launch, scenarios {pick} within {d:.3e} of update.reference "
+            "on the CPU")
+
+    def against_plain(it, res, tol):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = upd.reference(*args, cfg(it), iterations=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        d = max(float((g - w).abs().max()) for g, w in zip(res[:3], want[:3]))
+        d /= max(1.0, float(want[0].abs().max()))
+        if not (d <= tol and torch.equal(res[5], want[5])):
+            raise AssertionError(f"{name} batch B={B}: over {it} iterations "
+                                 f"the batch and the plain batched update "
+                                 f"part by {d:.3e} of the largest |x| "
+                                 f"(tolerance {tol:g}), iterations equal: "
+                                 f"{torch.equal(res[5], want[5])}")
+        return d, ms
+
+    plain_ms, err = None, None
+    if B <= 64:
+        d_x, _ = against_plain(it_x, exact, USER_OPS_TOL)
+        it_c = USER_OWN_BATCH_IT[name]
+        err, plain_ms = against_plain(it_c, got if it_c == it else upd(
+            *args, cfg(it_c), iterations=True), USER_OWN_TOL[name])
+        if it_c != it:
+            t0 = time.perf_counter()
+            upd.reference(*args, cfg(it))
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        line += (f"; every scenario against the plain batched update on the "
+                 f"card: {d_x:.3e} over {it_x} iterations, {err:.3e} over "
+                 f"{it_c} (tolerance {USER_OWN_TOL[name]:g}), its own "
+                 f"{it} iterations there {plain_ms:.1f} ms")
+    its = got[5].cpu().numpy()
+    geo = ig.geometry(spec, B, H, 0, f64)
+    shared, rows = ig.pack_inputs_batched(spec, *args, cfg(it))
+    bare, wrap = launcher_times(
+        f"ilqr_generic batch traced {name}", f"B={B}, {it} iterations",
+        ig.bare(spec, shared, rows, H, 0, H, it, integrator=integ),
+        lambda: upd(*args, cfg(it)), 5)
+    bound = ig.bound_ms(spec, H, 0, H, its, integrator=integ)
+    chain = ig.chain_ms(spec, H, H, int(its.max()), cycles, mhz, integ)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    floor = (ig.design_floor_ms(spec, H, H, its, its, cycles, mhz,
+                                sms * geo["per_sm"] * geo["slots"], integ)
+             if geo["resident"] else None)
+    print(f"ilqr_generic batch traced {name} B={B} (float64), its own {it} "
+          f"iterations ({int(its.min())}-{int(its.max())} taken): {line}; "
+          f"{'resident warps' if geo['resident'] else 'a block a scenario'}"
+          f" ({geo['slots']} a block, {geo['per_sm']} blocks an SM); ms bare "
+          f"{bare:.4f}, wrapper {wrap:.4f}, {B / wrap * 1e3:.0f} solves/s; "
+          f"bound_ms {bound[0]:.6f} ({bound[1]}), chain_ms {chain:.4f}"
+          + (f", this design's floor {floor:.4f}" if floor else ""))
+    return dict(ms=bare, wrapper_ms=wrap, plain_ms=plain_ms, bound=bound,
+                chain=chain, floor=floor, solves_per_s=B / wrap * 1e3,
+                geometry=geo, iterations_max=int(its.max()),
+                err=err if err is not None else d, err_exact=d)
+
+
+def traced_ops_phase(ig, dev, cycles, mhz, ops_build):
+    """What the tracer takes beyond the arithmetic, on the card: the two
+    problems of ``scenes.USER_PROBLEMS`` (the quadratic tracking MPC with
+    its captured weights and reference read by the step index, H = 100;
+    the vehicle on the captured 200 x 200 cost map through ``blerp``,
+    H = 80), traced into the generic kernel's struct and built by
+    ``build_traced_ops_sources`` beside the first phases.  Each single at
+    its own iterations, in float64 and float32, through its ``Solver``
+    (``traced_ops_single``), and the float64 batch at USER_BATCHES
+    (``traced_ops_batch``)."""
+    import torch
+    from tpl_tpu_torch import scenes
+
+    ops_build["thread"].join()
+    if "error" in ops_build:
+        raise ops_build["error"]
+    print(f"traced operations: traced in {ops_build['trace_s']:.2f} s; "
+          f"{len(ops_build['specs'])} sources (nvcc, one each, started "
+          f"together beside the first phases) built in "
+          f"{ops_build['s']:.2f} s")
+    figures = generic_build_figures(
+        ig, [(f"traced {s.name}", s, d) for s, d in ops_build["specs"]])
+    out = {}
+    for name in scenes.USER_PROBLEMS:
+        s64 = traced_ops_single(ig, name, torch.float64, dev, cycles, mhz)
+        s32 = traced_ops_single(ig, name, torch.float32, dev, cycles, mhz,
+                                s64.pop("plain_own"))
+        out[name] = dict(
+            float64=s64, float32=s32,
+            batches={B: traced_ops_batch(ig, name, B, dev, cycles, mhz)
+                     for B in USER_BATCHES})
+    return dict(problems=out, figures=figures, build_s=ops_build["s"])
+
+
+def demo_legs_phase():
+    """``tplsim run --headless --no-reload --seed 0`` on each of
+    DEMO_SCENARIOS for DEMO_TICKS ticks on the card, as child processes
+    run side by side to their ends, with the scenario's own sets (the RSTP
+    planner fused, H = 250, and its collision screen as the set has it;
+    the spatial MPC, H = 60): each leg's exit code (0 with no violation),
+    rule violations and emergency ticks equal to the JAX package's own CPU
+    loop over the same ticks (DEMO_JAX_END, tests/jax_demo_loops.py), the
+    ego's end position and speed within DEMO_END_ATOL of it."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for scenario in DEMO_SCENARIOS:
+            procs[scenario] = subprocess.Popen(
+                [sys.executable, "-m", "tpl_tpu_torch.simulation.tplsim",
+                 "run", "--scenario", scenario, "--headless", "--no-reload",
+                 "--seed", "0", "--max-ticks", str(DEMO_TICKS)],
+                cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        outs = {s: p.communicate(timeout=600) for s, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    legs = {}
+    for scenario, (stdout, stderr) in outs.items():
+        code = procs[scenario].returncode
+        ego = re.search(r"ego: x=(\S+) y=(\S+) v=(\S+); emergency ticks: "
+                        r"(\d+)", stdout)
+        viol = re.search(r"rule violations: (\d+)", stdout)
+        if ego is None or viol is None or f"ticks={DEMO_TICKS}" not in stdout:
+            raise AssertionError(f"tplsim run {scenario} (exit code {code})"
+                                 f":\n{stdout[-2000:]}\n{stderr[-3000:]}")
+        x, y, v = (float(ego.group(i)) for i in (1, 2, 3))
+        emergency, n_viol = int(ego.group(4)), int(viol.group(1))
+        jt, jx, jy, jv, j_viol, j_emergency = DEMO_JAX_END[scenario]
+        d = max(abs(x - jx), abs(y - jy), abs(v - jv))
+        print(f"tplsim run {scenario}: exit code {code}, {n_viol} violations"
+              f", {emergency} emergency ticks, ego x {x:.4f} y {y:.4f} v "
+              f"{v:.4f}; the JAX package's CPU loop: {j_viol} violations, "
+              f"{j_emergency} emergency ticks, x {jx:.4f} y {jy:.4f} v "
+              f"{jv:.4f} (max difference {d:.4f})")
+        if (code != (1 if j_viol else 0) or n_viol != j_viol
+                or emergency != j_emergency or not d <= DEMO_END_ATOL):
+            raise AssertionError(f"tplsim run {scenario}: beyond the JAX "
+                                 f"loop's end:\n{stdout[-2000:]}")
+        legs[scenario] = dict(code=code, violations=n_viol,
+                              emergency=emergency, end=(x, y, v), diff=d)
+    print(f"demo legs: {len(legs)} tplsim runs side by side in {wall:.1f} s")
+    return legs
 
 
 def slice_batch_chain(lam, solve, ins, tables, B, what, plain=None):
@@ -7712,6 +8154,7 @@ def main(argv=()):
     for mod in (lam, itm, rstp, rmp, lat, tlk, plk, idk, pok, dpe, ppk, itt,
                 ig):
         mod._kernel()
+    ig._kernel(dtype=torch.float32)
     native.get_lib()
     native.get_shm_lib()
     print(f"built {', '.join(KERNELS)}, native/hostops.cpp and "
@@ -7778,6 +8221,11 @@ def main(argv=()):
     user_build["thread"] = threading.Thread(target=build_user_sources,
                                             args=(user_build,))
     user_build["thread"].start()
+    # the traced operations' two problems, built likewise
+    ops_build = {}
+    ops_build["thread"] = threading.Thread(target=build_traced_ops_sources,
+                                           args=(ops_build,))
+    ops_build["thread"].start()
     phase("DP slice", slice_phase, lam, tllk)
     loop = phase("DP closed loop", closed_loop_phase, lam, itm)
     dp_first = phase("DP first replan", dp_first_replan_phase,
@@ -7839,6 +8287,7 @@ def main(argv=()):
     tk = phase("time-indexed MPC kernel", mpc_time_phase, itt, scenes,
                ctl[TIME_MPC]["picked"], dev, cycles, mhz, opts.parent_csrc)
     phase("tplsim run", tplsim_phase)
+    phase("demo legs", demo_legs_phase)
     phase("record and replay", record_replay_phase)
     parents = generic_parent_libs(parent_build)
     if parents:
@@ -7852,6 +8301,8 @@ def main(argv=()):
     smooth = phase("RSTP smooth_only", smooth_only_phase, ig, rstp, itm)
     user = phase("user problems through the generic kernel",
                  user_problem_phase, ig, dev, cycles, mhz, user_build)
+    ops = phase("traced operations through the generic kernel",
+                traced_ops_phase, ig, dev, cycles, mhz, ops_build)
     bs = phase("batched DP slice", batch_slice_phase, lam, tllk, dev, mhz,
                opts.parent_csrc)
     dry = phase("dryrun_multichip", dryrun_phase, lam, itm, idk)
@@ -8249,6 +8700,39 @@ def main(argv=()):
         "traced_trajectory_tracking_mpc": {
             k: {n: (v[0] if n == "bound" else v) for n, v in t.items()}
             for k, t in user["tracking"].items()}})
+    # the traced operations' two problems: launches on their main path (the
+    # Solver's float64 update, the counts set to 0 just before), times of
+    # that solve, float32 beside it, and the batch at the bench's 2,048
+    for name, r in ops["problems"].items():
+        s64, b = r["float64"], r["batches"][USER_BATCHES[-1]]
+        rows.append({
+            "name": f"ilqr_generic_traced_{name}", "route": "cuda",
+            "source": "tpl_tpu_torch/csrc/ilqr_generic_body.cuh",
+            "replaces": "tpl_tpu/optim/ilqr.py:126",
+            "launches": s64["launches"], "max_abs_err": s64["err"],
+            "ms": s64["ms"], "wrapper_ms": s64["wrapper_ms"],
+            "plain_ms": s64["plain_ms"], "bound_ms": s64["bound"][0],
+            "bound_by": s64["bound"][1], "chain_ms": s64["chain"],
+            "library_ms": NO_LIBRARY, "dtype": "float64",
+            "horizon": s64["horizon"], "iterations": s64["iterations"],
+            "registers": s64["registers"], "local_bytes": s64["local_bytes"],
+            "max_iterations": s64["max_iterations"],
+            "const_words": s64["consts"], "err_exact": s64["err_exact"],
+            "float32": {k: (v[0] if k == "bound" else v)
+                        for k, v in r["float32"].items()},
+            "build_s": ops["build_s"]})
+        rows.append({
+            "name": f"ilqr_generic_batched_traced_{name}", "route": "cuda",
+            "source": "tpl_tpu_torch/csrc/ilqr_generic_body.cuh",
+            "replaces": "tpl_tpu/optim/batched.py:30",
+            "batch": USER_BATCHES[-1], "launches": 1, "max_abs_err": b["err"],
+            "ms": b["ms"], "wrapper_ms": b["wrapper_ms"],
+            "plain_ms": r["batches"][USER_BATCHES[0]]["plain_ms"],
+            "plain_batch": USER_BATCHES[0], "bound_ms": b["bound"][0],
+            "bound_by": b["bound"][1], "chain_ms": b["chain"],
+            "design_floor_ms": b["floor"], "library_ms": NO_LIBRARY,
+            "solves_per_s": b["solves_per_s"], "geometry": b["geometry"],
+            "ms_by_batch": {B: r["batches"][B]["ms"] for B in USER_BATCHES}})
     # the multi-process deployment's launches, counted in its processes
     for row in rows:
         if row["name"] in dep["launches"]:

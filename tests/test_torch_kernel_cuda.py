@@ -747,12 +747,13 @@ def test_batched_update_on_cuda_raises_for_other_problems(cuda):
     no batched kernel; every problem the tracer takes has one)."""
     prob = ilqr.Problem("user_problem", nx=6, nu=2, nc=4,
                         dynamics=lambda x, u, t, dt, p: x,
-                        cost=lambda x, u, t, dt, p: torch.erf(x).sum(-1))
+                        cost=lambda x, u, t, dt, p: torch.floor(x).sum(-1))
     upd = batched.make_batched_update_fn(prob, 20, 2, ilqr.EULER,
                                          torch.float64)
     x, u, lam_, mu = batched.init_batch(prob, 20, 2, torch.float64, cuda)
     cfg = dict(T=20, max_iterations=2, max_lg_iterations=1)
-    with pytest.raises(NotImplementedError, match="no batched kernel.*erf"):
+    with pytest.raises(NotImplementedError,
+                       match="no batched kernel.*floor"):
         upd(x, u, lam_, mu, x[0], {}, cfg)
     with pytest.raises(ValueError, match="CUDA tensors"):
         itm.launch_batched(torch.zeros(4), torch.zeros((2, 4)), mu.cpu(), 20,
@@ -2296,20 +2297,20 @@ def test_tracking_mpc_factory_solves_through_generic_kernel(cuda, name, H):
 def test_unprintable_function_raises_on_cuda(cuda):
     """The config of test_torch_ilqr_generic.py's
     test_unprintable_function_warns_and_solves_plain on the card: no struct,
-    no plain iLQR behind it; the update raises naming erf."""
+    no plain iLQR behind it; the update raises naming floor."""
     import sympy as sp
     from tpl_tpu_torch.optim import trace
 
     x, u = sp.symbols("x u0")
     cfg = genopt.Config(states=[x], actions=[u], params=[], dynamics=[u],
-                        costs=[x ** 2 + 0.1 * u ** 2 + 0.01 * sp.erf(x)],
-                        name="with_erf")
-    with pytest.warns(UserWarning, match="erf"):
+                        costs=[x ** 2 + 0.1 * u ** 2 + 0.01 * sp.floor(x)],
+                        name="with_floor")
+    with pytest.warns(UserWarning, match="floor"):
         make = genopt.build(cfg, device=cuda, dtype=torch.float64)
     opt = make()
     opt.horizon = 10
     opt.x[0] = [1.0]
-    with pytest.raises(trace.Untraceable, match="erf"):
+    with pytest.raises(trace.Untraceable, match="floor"):
         opt.update()
 
 

@@ -15,6 +15,18 @@ attach``).
   came back before or after the child's first replan): the transport is
   lossless (in-process parity with JAX is held by
   tests/test_torch_rstp.py).
+- Fresh apps under their own app id: ``tplsim attach``'s loop holds the
+  scenario's clock until the apps track a plan (``SimAttach.wait_for_apps``):
+  the first plan the sim sees is at t = 0 with the ego where it started.
+  Without the hold the clock ran from the first tick and the ego drove
+  without a plan until the apps' first replan: 0.85-0.96 s of sim time on
+  an NVIDIA H100's host, seconds on a busy CPU, long enough to leave a
+  curving road.
+- Fresh apps, the planning process stopped (SIGSTOP) for LATE_PLAN_S s
+  before its first plan: ``tplsim``'s loop over LATE_PLAN_TICKS headless
+  ticks, each waiting for the control process's input to be at most
+  LATE_PLAN_LAG s behind, keeps the road
+  (without the hold the ego, planless, left it at t = 4.56 s).
 - The three mains with ``--cpu`` and ``SimAttach`` in the test under a
   non-empty app id, LOOP_TICKS ticks of 0.01 s, each tick only after the
   control process has published a solve that took the tick's time (the
@@ -55,6 +67,13 @@ from tpl_tpu_torch.util import SharedObject, snapshot, store_paths
 
 LOOP_TICKS = 60
 PROGRESS_BAND = 0.10      # relative, on the distance the ego travelled
+# the planning process stopped for LATE_PLAN_S s before its first plan,
+# the attached loop run LATE_PLAN_TICKS ticks of 0.01 s: the ego
+# without a plan leaves the road at t = 4.56 s (the sim's clock run from
+# the first tick, as before SimAttach.wait_for_apps)
+LATE_PLAN_S = 10.0
+LATE_PLAN_TICKS = 500
+LATE_PLAN_LAG = 0.1
 
 
 @pytest.fixture(autouse=True)
@@ -187,6 +206,111 @@ def test_planning_main_in_a_subprocess_matches_in_process():
         [float(np.abs(got["x"] - w["x"]).max()) for w in want]
 
 
+def test_attached_sim_holds_its_clock_until_the_apps_track_a_plan():
+    import argparse
+    from tpl_tpu_torch.simulation import SimAttach
+    from tpl_tpu_torch.simulation import tplsim
+    from tpl_tpu_torch.util.shm_store import remove_app_stores
+
+    app_id = "hold" + uuid.uuid4().hex[:6]
+    procs = deploy.start_mains(app_id)
+    try:
+        sim = SimAttach(app_id=app_id, scenario_path="demo/country_follow",
+                        timeout=120)
+        with sim.core.sh_state.lock():
+            x0 = sim.core.sh_state.sim.ego.x
+        seen = []
+        update = sim.update
+
+        def recorded(*args, **kwargs):
+            update(*args, **kwargs)
+            sim.sh_planning.revalidate()
+            with sim.core.sh_state.lock():
+                s = sim.core.sh_state.sim
+                seen.append((s.t, s.ego.x, len(sim.sh_planning.trajectory.x)))
+        sim.update = recorded
+        args = argparse.Namespace(planner=None, headless=True, no_reload=True,
+                                  max_t=None, max_ticks=10, verbose=False,
+                                  scenario="demo/country_follow")
+        tplsim._drive(sim, sim.core, sim.sh_planning, args)
+        planned = [s for s in seen if s[2] >= 2]
+        assert planned, f"no plan in {len(seen)} ticks"
+        assert planned[0][:2] == (0.0, x0), planned[0]
+        assert seen[-1][0] > 0.0
+    finally:
+        out = deploy.stop_mains(procs)
+        remove_app_stores(app_id)
+    for name, (code, text) in out.items():
+        assert code == 0, f"{name} exited {code}:\n{text[-3000:]}"
+
+
+def test_attached_sim_keeps_the_road_when_the_first_plan_is_late():
+    import argparse
+    import signal
+    from tpl_tpu_torch.simulation import SimAttach
+    from tpl_tpu_torch.simulation import tplsim
+    from tpl_tpu_torch.util import StoreRegistry
+    from tpl_tpu_torch.util.shm_store import remove_app_stores
+
+    app_id = "late" + uuid.uuid4().hex[:6]
+    procs = deploy.start_mains(app_id)
+    planner = procs["planning"].pid
+    resumed = threading.Event()
+
+    def resume():
+        if not resumed.is_set():
+            resumed.set()
+            os.kill(planner, signal.SIGCONT)
+    timer = threading.Timer(LATE_PLAN_S, resume)
+    try:
+        sim = SimAttach(app_id=app_id, scenario_path="demo/country_follow",
+                        timeout=120)
+        deploy.cut_and_start(sim)
+        # each tick waits until the control process's input is at most
+        # LATE_PLAN_LAG s of sim time behind (test_attached_loop_closes_
+        # across_processes waits for a solve at each tick's time): the ego
+        # takes controls that are a few ticks old at most, however busy
+        # the host
+        control_input = StoreRegistry.get(store_paths(app_id).control_input)
+        update = sim.update
+
+        def paced():
+            update()
+            with sim.core.sh_state.lock():
+                t = sim.core.sh_state.sim.t
+            start = time.time()
+            while True:
+                control_input.revalidate()
+                if control_input.t >= t - LATE_PLAN_LAG:
+                    return
+                deploy._check(procs, start, 60.0, f"control input at t={t}")
+        sim.update = paced
+        # the planning process stopped before its first plan
+        os.kill(planner, signal.SIGSTOP)
+        timer.start()
+        sim.sh_planning.revalidate()
+        plan = getattr(sim.sh_planning, "trajectory", None)
+        assert plan is None or len(plan.x) < 2, "planned before the stop"
+        args = argparse.Namespace(planner=None, headless=True, no_reload=True,
+                                  max_t=None, max_ticks=LATE_PLAN_TICKS,
+                                  verbose=False,
+                                  scenario="demo/country_follow")
+        code = tplsim._drive(sim, sim.core, sim.sh_planning, args)
+        with sim.core.sh_state.lock():
+            s = snapshot(sim.core.sh_state.sim)
+        assert code == 0 and s.rule_checker.violations == [], \
+            s.rule_checker.violations[:3]
+        # the held clock's paused ticks take the first tick's zero step
+        assert s.t == pytest.approx(LATE_PLAN_TICKS * 0.01)
+    finally:
+        timer.cancel()
+        resume()
+        out = deploy.stop_mains(procs)
+        remove_app_stores(app_id)
+    for name, (code, text) in out.items():
+        assert code == 0, f"{name} exited {code}:\n{text[-3000:]}"
+
+
 @pytest.fixture(scope="module")
 def reference():
     """The port's SimStandalone over the attached loop's sim time, run
@@ -289,7 +413,9 @@ def test_tplsim_attach_exits_zero(deployment):
         cwd=deploy.REPO, env=deploy.child_env(), capture_output=True,
         text=True, timeout=300)
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-3000:]
-    assert "scenario demo/country_follow: t=0.19s ticks=20" in res.stdout
+    # the clock held until the apps track a plan (SimAttach.wait_for_apps):
+    # its paused ticks take the first tick's zero step, so 20 run 0.2 s
+    assert "scenario demo/country_follow: t=0.20s ticks=20" in res.stdout
     assert "rule violations: 0" in res.stdout
 
 

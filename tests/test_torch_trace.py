@@ -48,9 +48,12 @@ import numpy as np
 import pytest
 import sympy as sp
 import torch
+import jax
 import jax.numpy as jnp
 
+from tpl_tpu.ops import interp as j_interp
 from tpl_tpu.optim import batched as j_batched
+from tpl_tpu.optim import ilqr as j_ilqr
 
 import tpl_tpu_torch
 from tpl_tpu_torch import _build, scenes
@@ -76,13 +79,16 @@ JETS = r"""
 // a struct's four functions on Jet<double, NX + NU> at one point z = (x, u):
 // per output its value, gradient and packed Hessian, in the order dynamics,
 // cost, constraints, end cost
+static const double* jets_consts = nullptr;
+extern "C" void jets_set_consts(const double* c) { jets_consts = c; }
+
 template <class P>
 static void jets_problem(const double* s, const double* tab, int n_ref,
                          double dt, int t, const double* z, double* out) {
   using namespace ilqr_generic;
   constexpr int N = P::NX + P::NU;
   typedef ilqr_jet::Jet<double, N> J;
-  const Prm<double> pr{s, tab, n_ref, dt};
+  const Prm<double> pr{s, tab, n_ref, dt, jets_consts};
   J x[P::NX], u[P::NU > 0 ? P::NU : 1], f[P::NX];
   J g[P::NC > 0 ? P::NC : 1];
   for (int i = 0; i < P::NX; ++i) x[i] = ilqr_jet::jvar<double, N>(z[i], i);
@@ -205,6 +211,8 @@ def body(tmp_path_factory):
         pytest.skip("needs g++ to compile the kernel bodies for the host")
     probs = {n: case(n)[:2] for n in NATIVES + tuple(EXAMPLES)}
     probs["kinks"] = kinks_problem()
+    probs.update({n: scenes.user_problem(n, H=USER_H)
+                  for n in scenes.USER_PROBLEMS})
     for i, (name, (prob, pspec)) in enumerate(probs.items()):
         TRACED[name] = (100 + i, trace.spec(prob, trace.kinds_of_spec(pspec)))
     gen = "\n".join(s.struct for _, s in TRACED.values())
@@ -228,11 +236,19 @@ def body(tmp_path_factory):
     lib.rehearse_generic_split.restype = ctypes.c_size_t
     lib.rehearse_generic_split.argtypes = ([ctypes.c_int] * 3
                                            + [ctypes.c_size_t, ctypes.c_int])
+    bind_jets(lib)
+    lib.rehearse_set_consts.restype = None
+    lib.rehearse_set_consts.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def bind_jets(lib):
     lib.jets.restype = None
     lib.jets.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2
                          + [ctypes.c_int, ctypes.c_double, ctypes.c_int]
                          + [ctypes.c_void_p] * 2)
-    return lib
+    lib.jets_set_consts.restype = None
+    lib.jets_set_consts.argtypes = [ctypes.c_void_p]
 
 
 def _ptr(a):
@@ -250,6 +266,9 @@ def rehearse(lib, pid, spec, shared, rows, H, n_ref, T, max_it,
         pid, H, n_ref, ig.SMEM_LIMIT, 1), 1), np.nan)
     out = np.zeros((B, ig._size(ig.output_layout(spec, H))))
     o = None if order is None else np.ascontiguousarray(order, np.int32)
+    consts = (None if spec.consts is None
+              else np.ascontiguousarray(spec.consts, np.float64))
+    lib.rehearse_set_consts(_ptr(consts))
     lib.rehearse_generic(pid, integrator, _ptr(shared), _ptr(rows),
                          _ptr(out), _ptr(ws), None, B, H, n_ref, T, max_it,
                          1, ig.SMEM_LIMIT, _ptr(o))
@@ -272,7 +291,7 @@ def plain_jets(prob, x, u, t, dt, p):
     """Each output's value, gradient and Hessian over z = (x, u) by
     torch.func, in the order of the jets entry."""
     nx = prob.nx
-    tt = torch.tensor(t, dtype=torch.float64)
+    tt = t if torch.is_tensor(t) else torch.tensor(t, dtype=torch.float64)
     dd = torch.tensor(dt, dtype=torch.float64)
     fns = [lambda z: prob.dynamics(z[:nx], z[nx:], tt, dd, p),
            lambda z: prob.cost(z[:nx], z[nx:], tt, dd, p)[None]]
@@ -293,6 +312,9 @@ def plain_jets(prob, x, u, t, dt, p):
 
 
 def struct_jets(lib, pid, spec, x, u, t, dt, params):
+    consts = (None if spec.consts is None
+              else np.ascontiguousarray(spec.consts, np.float64))
+    lib.jets_set_consts(_ptr(consts))
     s = np.array([params[n] for n in spec.scalars], np.float64)
     n_ref = ig.n_ref_of(spec, params)
     tab = np.ascontiguousarray(np.reshape(
@@ -512,6 +534,223 @@ def test_traced_crane_batch_matches_jax_batched(body):
 
 
 # ---------------------------------------------------------------------
+# (e) the two user problems of scenes.py (captured tensors, products, the
+# reductions, the new elementwise functions, blerp) against the JAX package
+
+USER_H = 30         # the tracking MPC's reference cut to the horizon
+
+
+def user_it(name):
+    """The iterations over which the problem's float64 solves agree at 1e-12
+    in any rounding order (``scenes.USER_SETTINGS`` it_exact)."""
+    return scenes.USER_SETTINGS[name]["it_exact"]
+
+
+def _col(a, x):
+    """``a`` (k,) against a value of x's layout: (k,) or (k, B)."""
+    return a.reshape(a.shape + (1,) * (x.ndim - 1))
+
+
+def jax_user_problem(name):
+    """The jnp twin of a problem of ``scenes.USER_PROBLEMS`` (over the same
+    captured arrays), for the JAX package's ilqr / batched programs: its
+    functions index the state by position and reduce over the first axis,
+    so that they take one step's (nx,) and the batched program's (nx, B)."""
+    if name == "quadratic_tracking_mpc":
+        d = {k: jnp.asarray(v)
+             for k, v in scenes.quadratic_tracking_data(USER_H).items()}
+
+        def dynamics(x, u, t, dt, p):
+            return jnp.stack([x[3] * jnp.cos(x[2]), x[3] * jnp.sin(x[2]),
+                              x[3] * jnp.tan(u[1]) / p["wheel_base"], u[0]])
+
+        def cost(x, u, t, dt, p):
+            e = x - _col(d["REF"][t], x)
+            return (jnp.einsum("i...,ij,j...->...", e, d["Q"], e)
+                    + jnp.einsum("i...,ij,j...->...", u, d["R"], u))
+
+        def constraints(x, u, t, dt, p):
+            off = x[:2] - _col(d["REF"][t][:2], x)
+            return jnp.stack([
+                jnp.linalg.norm(off, axis=0) - p["corridor"],
+                jnp.linalg.norm(u / _col(d["U_SCALE"], u), ord=1, axis=0)
+                - p["effort_max"]])
+
+        def end_cost(x, t, dt, p):
+            e = x - _col(d["REF"][-1], x)
+            return jnp.einsum("i...,ij,j...->...", e, d["QF"], e)
+
+        return j_ilqr.Problem(name, nx=4, nu=2, nc=2, dynamics=dynamics,
+                              cost=cost, constraints=constraints,
+                              end_cost=end_cost)
+    d = {k: jnp.asarray(v) for k, v in scenes.cost_map_data().items()}
+
+    def goal_distance(x):
+        return jnp.hypot(x[0] - d["GOAL"][0], x[1] - d["GOAL"][1])
+
+    def dynamics(x, u, t, dt, p):
+        return jnp.stack([x[3] * jnp.cos(x[2]), x[3] * jnp.sin(x[2]),
+                          x[3] * u[1], u[0]])
+
+    def cost(x, u, t, dt, p):
+        v, a, kappa = x[3], u[0], u[1]
+        cmap = j_interp.blerp(d["ORIGIN"][0], d["ORIGIN"][1], d["STEP"],
+                              d["STEP"], x[0], x[1], d["GRID"])
+        goal = goal_distance(x)
+        over = 4.0 * (v - p["v_max"])
+        barrier = jnp.where(over > 20.0, v - p["v_max"],
+                            jnp.log1p(jnp.exp(over)) / 4.0)
+        obs = d["OBS"].reshape((2, 2) + (1,) * (x.ndim - 1))
+        diff = x[None, :2] - obs
+        scaled = u / _col(jnp.stack([p["a_max"], p["kappa_max"]]), u)
+        return (p["w_map"] * cmap + barrier
+                + p["w_goal"] * goal * goal * jax.lax.rsqrt(
+                    1.0 + 0.01 * goal * goal)
+                * jax.nn.sigmoid(0.5 * (goal - 10.0))
+                - jax.scipy.special.erf(v / 8.0)
+                + 0.1 * jnp.log1p((v * v * kappa) ** 2)
+                + 0.1 * jnp.expm1(0.125 * a * a)
+                + 10.0 * jax.nn.relu(jnp.abs(kappa) - 0.15) ** 2
+                + 5.0 * jnp.exp(-0.05 * jnp.min((diff * diff).sum(1), 0))
+                + 0.1 * jnp.max(jnp.square(scaled) + _col(d["U_OFF"], u), 0)
+                + 0.1 * jnp.prod(u * u, 0)
+                + jnp.mean(jnp.cumsum(u * u * _col(d["U_W"], u), 0), 0))
+
+    def constraints(x, u, t, dt, p):
+        return -x[3:4]
+
+    def end_cost(x, t, dt, p):
+        return p["w_goal_end"] * goal_distance(x)
+
+    return j_ilqr.Problem(name, nx=4, nu=2, nc=1, dynamics=dynamics,
+                          cost=cost, constraints=constraints,
+                          end_cost=end_cost)
+
+
+def user_case(name, seed=3):
+    """A seeded warm start (no action exactly 0: there the JAX package's
+    abs takes slope 1, torch's 0) at mu_step 0."""
+    inputs, params, _ = scenes.user_case(name, H=USER_H, seed=seed,
+                                         warm=True)
+    return inputs, params, 0, scenes.USER_SETTINGS[name]["integ"]
+
+
+@pytest.mark.parametrize("name", scenes.USER_PROBLEMS)
+def test_user_problem_jets_match_plain(body, name):
+    pid, spec = TRACED[name]
+    prob, _ = scenes.user_problem(name, H=USER_H)
+    inputs, params, _, _ = user_case(name)
+    p = {k: torch.tensor(v, dtype=torch.float64) for k, v in params.items()}
+    rng = np.random.default_rng(len(name))
+    for x, u, t in seeded_points(name, inputs, rng):
+        assert_jets(struct_jets(body, pid, spec, x, u, t, 0.1, params),
+                    plain_jets(prob, x, u, torch.tensor(t), 0.1, p),
+                    f"{name} t={t}")
+
+
+@pytest.mark.parametrize("name", scenes.USER_PROBLEMS)
+def test_user_problem_struct_plain_and_jax_agree(body, name):
+    """The printed struct (g++), the plain float64 update and the JAX
+    package's make_update_fn on the jnp twin, each held to the others at
+    1e-12 (sympy's rewriting of the struct's expressions moves its
+    rounding, not past the bound over these converged solves)."""
+    pid, spec = TRACED[name]
+    inputs, params, mu, integ = user_case(name)
+    it = user_it(name)
+    got, host, n_ref = solve_body(body, pid, spec, inputs, params, mu,
+                                  USER_H, USER_H, it, integ)
+    want = plain(spec, host, USER_H, n_ref, USER_H, it, integ)
+    tig.assert_matches(got, want, it)
+    assert got["iterations"] == it
+    jax_out = tig.jax_solve(jax_user_problem(name), spec, inputs, params, mu,
+                            USER_H, USER_H, it, integ)
+    for k in ("x", "u"):
+        np.testing.assert_allclose(want[k], jax_out[k], rtol=RTOL,
+                                   atol=ATOL, err_msg=k)
+        np.testing.assert_allclose(got[k], jax_out[k], rtol=RTOL, atol=ATOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(want["traj_costs"], jax_out["traj_costs"],
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("name", scenes.USER_PROBLEMS)
+def test_user_problem_batch_matches_jax_vmap(body, name):
+    """B = 4 through the struct on a grid of 4 blocks in a seeded order,
+    each block bit-equal to its single launch, against the plain batched
+    update and ``jax.vmap`` of the JAX package's update, at 1e-12."""
+    B = 4
+    it = user_it(name)
+    pid, spec = TRACED[name]
+    prob, _ = scenes.user_problem(name, H=USER_H)
+    inputs, params, _, integ = user_case(name)
+    H = USER_H
+    rng = np.random.default_rng(17)
+    x0 = (inputs["x"][0][:, None]
+          + rng.normal(0.0, 1.0, (4, B)) * np.array([0.5, 0.5, 0.05, 0.5])
+          [:, None])
+    u = rng.normal(0.0, 0.05, (H, 2, B))
+    lam = np.zeros((H, prob.nc, B))
+    mu_b = rng.integers(0, 2, B)
+    cfg = dict(u_min=inputs["u_lims"][..., 0], u_max=inputs["u_lims"][..., 1],
+               barrier_weight=inputs["bw_lim"][:, 0],
+               lg_mult_limit=inputs["bw_lim"][:, 1], dt=inputs["cfg_f"][0],
+               min_rel_cost_change=inputs["cfg_f"][1], T=H,
+               max_iterations=it, max_lg_iterations=1)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    tp = {k: t(v) for k, v in params.items()}
+    tcfg = {k: (t(v) if isinstance(v, (np.ndarray, float)) else v)
+            for k, v in cfg.items()}
+    x = torch.zeros((H + 1, 4, B), dtype=torch.float64)
+    shared, rows = ig.pack_inputs_batched(
+        spec, x, t(u), t(lam), torch.as_tensor(mu_b, dtype=torch.int32),
+        t(x0), tp, tcfg)
+    order = np.random.default_rng(5).permutation(B)
+    out = rehearse(body, pid, spec, shared.numpy(), rows.numpy(), H, 0, H,
+                   it, integ, order)
+    singles = ig.rows_of_batch(shared, rows).numpy()
+    n_sh = shared.numel()
+    for b in range(B):
+        one = rehearse(body, pid, spec, singles[b, :n_sh],
+                       singles[b, n_sh:][None], H, 0, H, it, integ)
+        assert np.array_equal(out[b], one[0]), b
+    got = ig.unpack_outputs_batched(spec, torch.from_numpy(out), H)
+    upd = batched.make_batched_update_fn(prob, H, B, integ, torch.float64)
+    want = upd.reference(x, t(u), t(lam), torch.as_tensor(mu_b), t(x0), tp,
+                         tcfg, iterations=True)
+    for g, w, what in zip(got, want, ("x", "u", "lam", "mu", "cost", "it")):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=what)
+    # the JAX package's batch of this problem: jax.vmap over its jitted
+    # update (its tpl_tpu/optim/batched.py program parts from its own single
+    # update on the cost map, by 3e-3 to 0.56 after one iteration, and is
+    # not the reference here)
+    upd = j_ilqr.make_update_fn(jax_user_problem(name), H, integ,
+                                dtype=jnp.float64)
+    jcfg = dict(u_min=jnp.asarray(cfg["u_min"]),
+                u_max=jnp.asarray(cfg["u_max"]),
+                barrier_weight=jnp.asarray(cfg["barrier_weight"]),
+                lg_mult_limit=jnp.asarray(cfg["lg_mult_limit"]),
+                dt=jnp.float64(cfg["dt"]),
+                min_rel_cost_change=jnp.float64(cfg["min_rel_cost_change"]),
+                T=jnp.int32(H), max_iterations=jnp.int32(it),
+                max_lg_iterations=jnp.int32(1))
+    jp = {k: jnp.asarray(np.asarray(v, np.float64))
+          for k, v in params.items()}
+    xs = np.zeros((B, H + 1, 4))
+    xs[:, 0] = x0.T
+    states = j_ilqr.SolverState(jnp.asarray(xs), jnp.asarray(u.transpose(
+        2, 0, 1)), jnp.asarray(lam.transpose(2, 0, 1)),
+        jnp.asarray(mu_b, jnp.int32))
+    new, info = jax.vmap(lambda s, x0_: upd(s, x0_, jp, jcfg))(
+        states, jnp.asarray(x0.T))
+    np.testing.assert_allclose(got[0].numpy(), np.moveaxis(
+        np.asarray(new.x), 0, -1), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got[1].numpy(), np.moveaxis(
+        np.asarray(new.u), 0, -1), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got[4].numpy(), np.asarray(
+        info["traj_costs"]), rtol=RTOL)
+
+
 # (d) what the tracer refuses, and what sympy rewrites
 
 def _user(name, dynamics=None, cost=None):
@@ -532,17 +771,51 @@ def _branching(x, u, t, dt, p):
 WEIGHTS = torch.linspace(1.0, 2.0, 20)
 GRID = torch.linspace(0.0, 1.0, 12).reshape(3, 4)
 
+# what jax.jit refuses too (a Python branch, number or index off a traced
+# value, a boolean mask of one), and an operation outside the tracer's table
 REFUSED = {
-    "erf": (_user("with_erf", cost=lambda x, u, t, dt, p: torch.erf(
-        x[..., 0]) + u[..., 0] ** 2), "cost", "erf"),
     "python_if": (_user("with_if", dynamics=_branching), "dynamics",
                   "Python branch"),
+    "python_float": (_user("with_float", cost=lambda x, u, t, dt, p: (
+        x[..., 0] ** 2 * float(x[..., 1]))), "cost", "float()"),
+    "python_index": (_user("with_index", cost=lambda x, u, t, dt, p: (
+        WEIGHTS[[x[..., 0]]] + u[..., 0] ** 2)), "cost", "Python index"),
+    "bool_mask": (_user("with_mask", cost=lambda x, u, t, dt, p: (
+        WEIGHTS[x[..., 0] > 0.0] + u[..., 0] ** 2)), "cost",
+        "boolean mask"),
+    "sort": (_user("with_sort", cost=lambda x, u, t, dt, p: torch.sort(
+        x, -1).values[..., 0] + u[..., 0] ** 2), "cost",
+        "'sort' (no form in the tracer)"),
+}
+
+# what the tracer refused before it took captured tensors, erf and blerp:
+# each traces into a struct of its form and routes to the generic kernel
+FORMERLY_REFUSED = {
+    "erf": (_user("with_erf", cost=lambda x, u, t, dt, p: torch.erf(
+        x[..., 0]) + u[..., 0] ** 2), "j_erf"),
     "captured": (_user("with_weights", cost=lambda x, u, t, dt, p: (
-        WEIGHTS * x[..., 0] ** 2)), "cost", "shape (20,)"),
+        (x[..., :1] * WEIGHTS).sum(-1) * x[..., 0])), "j_ipow(x[0], 2)"),
     "blerp": (_user("with_blerp", cost=lambda x, u, t, dt, p: interp.blerp(
         0.0, 0.0, 1.0, 1.0, x[..., 0], x[..., 1], GRID) + u[..., 0] ** 2),
-        "cost", "'blerp' (no form in the tracer)"),
+        "j_blerp(R(0.0), R(0.0), R(1.0), R(1.0), x[0], x[1], "
+        "P.ctab2(0, 3, 4))"),
 }
+
+
+@pytest.mark.parametrize("which", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_problem_traces(which):
+    prob, form = FORMERLY_REFUSED[which]
+    spec = trace.spec(prob, ())
+    assert form in spec.struct, spec.struct
+    assert solver.route(prob, torch.float64, 20, 0, (),
+                        torch.device("cuda"))[0] == "ilqr_generic"
+    opt = solver.Solver(prob, {}, horizon_max=20, dtype=torch.float64,
+                        device="cpu")
+    assert opt.route is None
+    opt.horizon, opt.max_iterations = 20, 3
+    opt.x[0] = [1.0, 0.5]
+    opt.update()            # the CPU keeps the plain iLQR
+    assert opt.iterations > 0 and np.all(np.isfinite(opt.x))
 
 
 @pytest.mark.parametrize("which", sorted(REFUSED))
@@ -559,7 +832,7 @@ def test_tracer_refuses_naming_the_function(which):
     assert opt.route is None
     with pytest.raises(trace.Untraceable, match=re.escape(what)):
         solver.route(prob, torch.float64, 20, 0, (), torch.device("cuda"))
-    if which == "erf":
+    if which == "sort":
         opt.horizon, opt.max_iterations = 20, 3
         opt.x[0] = [1.0, 0.0]
         opt.update()            # the CPU keeps the plain iLQR

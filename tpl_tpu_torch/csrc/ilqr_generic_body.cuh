@@ -16,6 +16,7 @@
 //
 //   static constexpr int NX, NU, NC;     // states, actions, constraints
 //   static constexpr int NS, NT;         // scalar params, tables of n_ref
+//                                        // (Prm::table, Prm::table2)
 //   static constexpr bool END_COST;
 //   template <class S> static void dynamics(const Prm<R>&, int t,
 //                                           const S* x, const S* u, S* f);
@@ -31,7 +32,10 @@
 // derivatives, so a struct states only the problem's values: the native
 // problems of csrc/ilqr_generic.cu are written by hand, and the sympy front
 // end (tpl_tpu_torch/optim/genopt.py) prints one for each config.  t is the
-// step index (the end cost's is T), as the plain version passes it.
+// step index (the end cost's is T), as the plain version passes it.  A
+// traced problem's captured tensors are its constant tables (Prm::ctab,
+// Prm::ctab2 at offsets the printer fixed): one array in global memory a
+// launch reads through the cache, uploaded once by the wrapper.
 //
 // The semantics are make_update_fn's: the initial rollout and its cost with
 // the old multipliers, then max_lg rounds of the clipped multiplier update,
@@ -108,9 +112,20 @@ struct Prm {
   const R* tab;   // the tables, n_ref each
   int n_ref;
   R dt;
+  const R* c = nullptr;   // the constant tables (global memory)
 
   __device__ Tab<R> table(int k) const {
     return Tab<R>{tab + (size_t)k * n_ref, n_ref};
+  }
+  // table k read as rows x cols, row-major (rows * cols <= n_ref)
+  __device__ Tab2<R> table2(int k, int rows, int cols) const {
+    return Tab2<R>{tab + (size_t)k * n_ref, rows, cols};
+  }
+  __device__ Tab<R> ctab(size_t off, int n) const {
+    return Tab<R>{c + off, n};
+  }
+  __device__ Tab2<R> ctab2(size_t off, int rows, int cols) const {
+    return Tab2<R>{c + off, rows, cols};
   }
 };
 
@@ -1200,7 +1215,7 @@ struct Solve {
                              const R* __restrict__ rows,
                              R* __restrict__ out_all, long long* prof, int H,
                              int n_ref, int T, int max_it, int max_lg,
-                             int integ) {
+                             int integ, const R* consts = nullptr) {
     Clock<PROF> pc;
     pc.start(threadIdx.x == 0 && blockIdx.x == 0 ? prof : nullptr);
     const int b = blockIdx.x;
@@ -1232,7 +1247,7 @@ struct Solve {
       copy(m.mu, 1);
     }
     __syncthreads();
-    const Prm<R> Pr{m.scal, m.tab, n_ref, m.cfg[0]};
+    const Prm<R> Pr{m.scal, m.tab, n_ref, m.cfg[0], consts};
     pc.stamp(PH_LOAD);
     solve<BlockTeam, PROF>(Pr, m, pc, out_all + (size_t)b * out_len(H), H,
                            T, max_it, max_lg, integ);
@@ -1251,7 +1266,8 @@ struct Solve {
                                       R* __restrict__ out_all,
                                       long long* prof, int B, int H,
                                       int n_ref, int T, int max_it,
-                                      int max_lg, int integ) {
+                                      int max_lg, int integ,
+                                      const R* consts = nullptr) {
     Mem m{};
     {
       Carver c{sm, nullptr, ~(size_t)0, 0, 0};
@@ -1277,7 +1293,7 @@ struct Solve {
                ws_all + (size_t)slot * slot_ws, cap_slot, 0, 0};
       carve_slot(c, H, &m);
     }
-    const Prm<R> Pr{m.scal, m.tab, n_ref, m.cfg[0]};
+    const Prm<R> Pr{m.scal, m.tab, n_ref, m.cfg[0], consts};
     const size_t rl = row_len(H);
     const int stride = gridDim.x * slots;
     auto stage_row = [&](int b) {
@@ -1322,11 +1338,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 ilqr_generic_kernel(const R* __restrict__ shared, const R* __restrict__ rows,
                     R* __restrict__ out, R* ws, long long* prof, size_t cap,
                     int H, int n_ref, int T, int max_it, int max_lg,
-                    int integ) {
+                    int integ, const R* __restrict__ consts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Solve<P, R>::template run<PROF>(reinterpret_cast<R*>(smem_raw), ws, cap,
                                   shared, rows, out, prof, H, n_ref, T,
-                                  max_it, max_lg, integ);
+                                  max_it, max_lg, integ, consts);
 }
 
 template <class P, typename R, bool PROF>
@@ -1335,11 +1351,11 @@ ilqr_generic_resident(const R* __restrict__ shared,
                       const R* __restrict__ rows, R* __restrict__ out, R* ws,
                       long long* prof, size_t cap_slot, int slots, int B,
                       int H, int n_ref, int T, int max_it, int max_lg,
-                      int integ) {
+                      int integ, const R* __restrict__ consts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Solve<P, R>::template run_resident<PROF>(
       reinterpret_cast<R*>(smem_raw), ws, cap_slot, slots, shared, rows, out,
-      prof, B, H, n_ref, T, max_it, max_lg, integ);
+      prof, B, H, n_ref, T, max_it, max_lg, integ, consts);
 }
 
 // the words of shared memory (which = 0) and of workspace a block (which =
@@ -1469,7 +1485,8 @@ template <class P, typename R, bool PROF>
 inline int launch_instance(int integrator, const R* shared, const R* rows,
                            R* out, R* ws, long long* prof, int B, int H,
                            int n_ref, int T, int max_it, int max_lg,
-                           size_t smem_limit, cudaStream_t stream) {
+                           size_t smem_limit, cudaStream_t stream,
+                           const R* consts) {
   Geometry g;
   cudaError_t err = geometry<P, R, PROF>(B, H, n_ref, smem_limit, &g);
   if (err != cudaSuccess) return (int)err;
@@ -1478,11 +1495,11 @@ inline int launch_instance(int integrator, const R* shared, const R* rows,
         <<<(unsigned)g.blocks, (unsigned)(g.slots * WARP), (size_t)g.smem,
            stream>>>(shared, rows, out, ws, prof, (size_t)g.cap,
                      (int)g.slots, B, H, n_ref, T, max_it, max_lg,
-                     integrator);
+                     integrator, consts);
   else
     ilqr_generic_kernel<P, R, PROF><<<B, THREADS, (size_t)g.smem, stream>>>(
         shared, rows, out, ws, prof, (size_t)g.cap, H, n_ref, T, max_it,
-        max_lg, integrator);
+        max_lg, integrator, consts);
   return (int)cudaGetLastError();
 }
 
@@ -1490,9 +1507,11 @@ template <class P, typename R>
 inline int launch(int integrator, const void* shared, const void* rows,
                   void* out, void* ws, long long* prof, int B, int H,
                   int n_ref, int T, int max_it, int max_lg,
-                  size_t smem_limit, void* stream) {
+                  size_t smem_limit, void* stream,
+                  const void* consts = nullptr) {
   if (integrator != EULER && integrator != HEUN && integrator != RK4)
     return (int)cudaErrorInvalidValue;
+  const R* c = (const R*)consts;
   const R* sh = (const R*)shared;
   const R* rw = (const R*)rows;
   R* o = (R*)out;
@@ -1500,10 +1519,10 @@ inline int launch(int integrator, const void* shared, const void* rows,
   cudaStream_t s = (cudaStream_t)stream;
   return prof ? launch_instance<P, R, true>(integrator, sh, rw, o, w, prof,
                                             B, H, n_ref, T, max_it, max_lg,
-                                            smem_limit, s)
+                                            smem_limit, s, c)
               : launch_instance<P, R, false>(integrator, sh, rw, o, w, prof,
                                              B, H, n_ref, T, max_it, max_lg,
-                                             smem_limit, s);
+                                             smem_limit, s, c);
 }
 
 // the geometry of a launch of B instances (prof: the profiling

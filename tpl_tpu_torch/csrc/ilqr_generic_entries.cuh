@@ -71,24 +71,26 @@ extern "C" size_t ilqr_generic_slot_split(int problem, int f64, int H,
 #ifdef __CUDACC__
 // One launch of B instances (block geometry: block b solving row b;
 // resident: warps walking the rows); prof (int64, N_PHASE words) selects
-// the profiling instantiation.  Returns the CUDA error code.
-extern "C" int ilqr_generic_update(int problem, int f64, int integrator,
-                                   const void* shared, const void* rows,
-                                   void* out, void* ws, long long* prof,
-                                   int B, int H, int n_ref, int T,
-                                   int max_it, int max_lg, size_t smem_limit,
-                                   void* stream) {
+// the profiling instantiation; consts: the struct's constant tables (null
+// where it has none).  Returns the CUDA error code.
+extern "C" int ilqr_generic_update_consts(int problem, int f64,
+                                          int integrator, const void* shared,
+                                          const void* rows, void* out,
+                                          void* ws, long long* prof, int B,
+                                          int H, int n_ref, int T, int max_it,
+                                          int max_lg, size_t smem_limit,
+                                          void* stream, const void* consts) {
   using namespace ilqr_generic;
 #define X(ID, S)                                                            \
   if (problem == ID)                                                        \
     return f64 ? ILQR_GENERIC_IF_F64((int)cudaErrorInvalidValue,           \
                      launch<S<double>, double>(                            \
                      integrator, shared, rows, out, ws, prof, B, H, n_ref, \
-                     T, max_it, max_lg, smem_limit, stream))               \
+                     T, max_it, max_lg, smem_limit, stream, consts))       \
                : ILQR_GENERIC_IF_F32((int)cudaErrorInvalidValue,           \
                      launch<S<float>, float>(                              \
                      integrator, shared, rows, out, ws, prof, B, H, n_ref, \
-                     T, max_it, max_lg, smem_limit, stream));
+                     T, max_it, max_lg, smem_limit, stream, consts));
   ILQR_GENERIC_PROBLEMS(X)
 #undef X
   return (int)cudaErrorInvalidValue;

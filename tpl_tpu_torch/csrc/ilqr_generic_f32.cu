@@ -1,0 +1,6 @@
+// csrc/ilqr_generic.cu's native problems in float32 alone: the two
+// real types build as two libraries, one nvcc each side by side, which
+// halves the longest build of the kernels (optim/ilqr_generic.py loads the
+// one of a solve's dtype).
+#define ILQR_GENERIC_F32_ONLY
+#include "ilqr_generic.cu"

@@ -334,6 +334,9 @@ ILQR_JET_REAL(j_exp, expf, exp)
 ILQR_JET_REAL(j_log, logf, log)
 ILQR_JET_REAL(j_sqrt, sqrtf, sqrt)
 ILQR_JET_REAL(j_abs, fabsf, fabs)
+ILQR_JET_REAL(j_erf, erff, erf)
+ILQR_JET_REAL(j_log1p, log1pf, log1p)
+ILQR_JET_REAL(j_expm1, expm1f, expm1)
 #undef ILQR_JET_REAL
 
 __device__ __forceinline__ float j_atan2(float y, float x) {
@@ -425,6 +428,60 @@ __device__ __forceinline__ Jet<R, N> j_sign(const Jet<R, N>& a) {
   return Jet<R, N>(j_sign(a.v));
 }
 
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> j_erf(const Jet<R, N>& a) {
+  const R d = R(1.1283791670955126) * j_exp(-(a.v * a.v));   // 2/sqrt(pi)
+  return chain(a, j_erf(a.v), d, R(-2) * a.v * d);
+}
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> j_log1p(const Jet<R, N>& a) {
+  const R r = R(1) / (R(1) + a.v);
+  return chain(a, j_log1p(a.v), r, -(r * r));
+}
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> j_expm1(const Jet<R, N>& a) {
+  const R e = j_exp(a.v);
+  return chain(a, j_expm1(a.v), e, e);
+}
+
+// torch.sigmoid: y = 1 / (1 + exp(-a)); autograd's slope y (1 - y), its
+// second derivative y (1 - y) (1 - 2 y)
+template <typename R>
+__device__ __forceinline__ R j_sigmoid(R a) {
+  return R(1) / (R(1) + j_exp(-a));
+}
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> j_sigmoid(const Jet<R, N>& a) {
+  const R y = j_sigmoid(a.v), d = (R(1) - y) * y;
+  return chain(a, y, d, d * (R(1) - R(2) * y));
+}
+
+// torch.nn.functional.softplus(a, beta, threshold): a where a beta >
+// threshold, else log1p(exp(a beta)) / beta; autograd's slope there z / (z
+// + 1), z = exp(a beta), and its second derivative beta z / (z + 1)^2
+template <typename R>
+__device__ __forceinline__ R j_softplus(R a, R beta, R threshold) {
+  return a * beta > threshold ? a : j_log1p(j_exp(a * beta)) / beta;
+}
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> j_softplus(const Jet<R, N>& a, R beta,
+                                                R threshold) {
+  if (a.v * beta > threshold) return a;
+  const R z = j_exp(a.v * beta), d = z + R(1);
+  return chain(a, j_log1p(z) / beta, z / d, beta * z / (d * d));
+}
+
+// torch.relu: a NaN passes; autograd's slope 1 where the result is > 0,
+// else 0
+template <typename R>
+__device__ __forceinline__ R j_relu(R a) {
+  return a != a ? a : (a > R(0) ? a : R(0));
+}
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> j_relu(const Jet<R, N>& a) {
+  return a.v > R(0) ? a : Jet<R, N>(j_relu(a.v));
+}
+
 // a^n for an integer n, as torch's pow(tensor, scalar) forms it: squares
 // and cubes by products, -1 and -2 by a reciprocal
 template <typename R>
@@ -486,6 +543,30 @@ __device__ __forceinline__ Jet<R, N> j_atan2(R y, const Jet<R, N>& x) {
   return j_atan2(Jet<R, N>(y), x);
 }
 
+// torch.hypot(a, b) = sqrt(a^2 + b^2): autograd's slopes a / r, b / r (NaN
+// at the origin, as autograd's)
+__device__ __forceinline__ float j_hypot(float a, float b) {
+  return hypotf(a, b);
+}
+__device__ __forceinline__ double j_hypot(double a, double b) {
+  return hypot(a, b);
+}
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> j_hypot(const Jet<R, N>& a,
+                                             const Jet<R, N>& b) {
+  const R r = j_hypot(a.v, b.v), r3 = r * r * r;
+  return chain2(a, b, r, a.v / r, b.v / r, b.v * b.v / r3,
+                -(a.v * b.v) / r3, a.v * a.v / r3);
+}
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> j_hypot(const Jet<R, N>& a, R b) {
+  return j_hypot(a, Jet<R, N>(b));
+}
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> j_hypot(R a, const Jet<R, N>& b) {
+  return j_hypot(Jet<R, N>(a), b);
+}
+
 // torch.maximum / torch.minimum: a NaN operand wins; at a tie autograd
 // splits the slope between the two
 template <typename R>
@@ -529,6 +610,103 @@ __device__ __forceinline__ Jet<R, N> j_min(const Jet<R, N>& a, R b) {
 template <typename R, int N>
 __device__ __forceinline__ Jet<R, N> j_min(R a, const Jet<R, N>& b) {
   return j_min(Jet<R, N>(a), b);
+}
+
+// the reductions of K values of one type (the printer lifts each to the
+// function's S): torch.amax / amin (a NaN wins; autograd shares the slope
+// evenly among the values equal to the result) and the 2-norm
+// torch.linalg.vector_norm (autograd's slope x / r, and 0 where r is 0:
+// its backward masks the division there; its second derivative there is
+// autograd's NaN, its double backward dividing by 0, for the variables
+// the values depend on)
+template <typename R>
+__device__ __forceinline__ R reduce_ext(const R* v, int k, bool most) {
+  R m = v[0];
+  for (int i = 1; i < k; ++i) m = most ? j_max(m, v[i]) : j_min(m, v[i]);
+  return m;
+}
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> reduce_ext(const Jet<R, N>* v, int k,
+                                                bool most) {
+  R m = v[0].v;
+  for (int i = 1; i < k; ++i)
+    m = most ? j_max(m, v[i].v) : j_min(m, v[i].v);
+  Jet<R, N> r(R(0));
+  int ties = 0;
+  for (int i = 0; i < k; ++i)
+    if (v[i].v == m) {
+      r = r + v[i];
+      ++ties;
+    }
+  if (ties > 1) r = r * (R(1) / R(ties));
+  r.v = m;
+  return r;
+}
+template <class T, class... Ts>
+__device__ __forceinline__ T j_amax(const T& a, const Ts&... rest) {
+  const T v[] = {a, rest...};
+  return reduce_ext(v, 1 + (int)sizeof...(rest), true);
+}
+template <class T, class... Ts>
+__device__ __forceinline__ T j_amin(const T& a, const Ts&... rest) {
+  const T v[] = {a, rest...};
+  return reduce_ext(v, 1 + (int)sizeof...(rest), false);
+}
+
+template <typename R>
+__device__ __forceinline__ R norm2_of(const R* v, int k) {
+  R s = R(0);
+  for (int i = 0; i < k; ++i) s = s + v[i] * v[i];
+  return j_sqrt(s);
+}
+template <typename R, int N>
+__device__ __forceinline__ Jet<R, N> norm2_of(const Jet<R, N>* v, int k) {
+  R s = R(0);
+  for (int i = 0; i < k; ++i) s = s + v[i].v * v[i].v;
+  Jet<R, N> out(j_sqrt(s));
+  const R r = out.v;
+  if (r == R(0)) {
+    bool dep[N];
+#pragma unroll
+    for (int p = 0; p < N; ++p) {
+      dep[p] = false;
+      for (int i = 0; i < k; ++i) dep[p] = dep[p] || v[i].g[p] != R(0);
+    }
+#pragma unroll
+    for (int p = 0; p < N; ++p)
+#pragma unroll
+      for (int q = p; q < N; ++q)
+        out.h[hidx<N>(p, q)] = dep[p] && dep[q] ? R(NAN) : R(0);
+    return out;
+  }
+  // d r = sum x_i d x_i / r;  d2 r = (sum (x_i d2 x_i + d x_i d x_i^T)
+  //                                   - d r d r^T) / r
+  for (int i = 0; i < k; ++i) {
+#pragma unroll
+    for (int p = 0; p < N; ++p) out.g[p] += v[i].v * v[i].g[p];
+#pragma unroll
+    for (int p = 0; p < N; ++p)
+#pragma unroll
+      for (int q = p; q < N; ++q) {
+        const int h = hidx<N>(p, q);
+        out.h[h] += v[i].v * v[i].h[h] + v[i].g[p] * v[i].g[q];
+      }
+  }
+#pragma unroll
+  for (int p = 0; p < N; ++p) out.g[p] /= r;
+#pragma unroll
+  for (int p = 0; p < N; ++p)
+#pragma unroll
+    for (int q = p; q < N; ++q) {
+      const int h = hidx<N>(p, q);
+      out.h[h] = (out.h[h] - out.g[p] * out.g[q]) / r;
+    }
+  return out;
+}
+template <class T, class... Ts>
+__device__ __forceinline__ T j_norm2(const T& a, const Ts&... rest) {
+  const T v[] = {a, rest...};
+  return norm2_of(v, 1 + (int)sizeof...(rest));
 }
 
 // Piecewise / torch.where: the taken branch, with its derivatives
@@ -642,6 +820,15 @@ __device__ __forceinline__ R j_get_array_value(Tab<R> t, const I& i) {
   const int k = v != v ? 0 : (v <= R(0) ? 0 : (v >= R(t.n - 1)
                                                    ? t.n - 1 : (int)v));
   return t.p[k];
+}
+
+// a table read at index i as jnp reads x[i] (the tracer's indexing of a
+// table or a captured tensor): a negative index counts from the end once,
+// then the index is clamped to the table; no slope
+template <class I, typename R>
+__device__ __forceinline__ R j_take(Tab<R> t, const I& i) {
+  const R v = val(i);
+  return j_get_array_value(t, v < R(0) ? v + R(t.n) : v);
 }
 
 // lerp_wrap(length, dx, x, xs, arr): periodic linear interpolation over a

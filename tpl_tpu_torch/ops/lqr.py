@@ -9,6 +9,7 @@ trajectory smoothing stage.
 """
 
 import numpy as np
+import torch
 
 
 # The Vxx recursion (and thus the feedback gains K and all derived
@@ -90,6 +91,47 @@ def lqr_smoother(x0, x_ref, fx, fu, lxx, luu):
         us[i] = Ks[i] @ xs[i] + ks[i]
         xs[i + 1] = fx @ xs[i] + fu @ us[i]
     return xs, us
+
+
+def lqr_smoother_torch(x0, x_ref, fx, fu, lxx, luu, device=None):
+    """:func:`lqr_smoother` on tensors, float64, on ``device`` (the port's,
+    ``tpl_tpu_torch.device()``, unless given), with per-step ``lxx`` (H, X,
+    X) and ``luu`` (H, U, U): the Riccati recursion backward over the
+    steps, then the rollout.  The counterpart of the JAX package's
+    ``lqr_smoother_jax``.  Returns tensors (xs (H, X), us (H, U)); the last
+    step's action is 0."""
+    if device is None:
+        import tpl_tpu_torch
+        device = tpl_tpu_torch.device()
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float64)
+                                  if not torch.is_tensor(a) else a,
+                                  dtype=torch.float64, device=device)
+    x0, x_ref, fx, fu, lxx, luu = map(f, (x0, x_ref, fx, fu, lxx, luu))
+    H, X = x_ref.shape
+    U = fu.shape[1]
+    ks = torch.zeros((H, U), dtype=torch.float64, device=device)
+    Ks = torch.zeros((H, U, X), dtype=torch.float64, device=device)
+    Vxx = lxx[-1]
+    Vx = -lxx[-1] @ x_ref[-1]
+    for i in range(H - 2, -1, -1):
+        Qx = -lxx[i] @ x_ref[i] + fx.T @ Vx
+        Qu = fu.T @ Vx
+        Qxx = lxx[i] + fx.T @ Vxx @ fx
+        Quu = luu[i] + fu.T @ Vxx @ fu
+        Qux = fu.T @ Vxx @ fx
+        W = -torch.linalg.inv(Quu)
+        k, K = W @ Qu, W @ Qux
+        Vx = Qx + K.T @ Quu @ k + K.T @ Qu + Qux.T @ k
+        tmp = K.T @ Qux
+        Vxx = Qxx + K.T @ Quu @ K + tmp + tmp.T
+        ks[i], Ks[i] = k, K
+    xs, us, x = [], [], x0
+    for i in range(H):
+        u = Ks[i] @ x + ks[i]
+        xs.append(x)
+        us.append(u)
+        x = fx @ x + fu @ u
+    return torch.stack(xs), torch.stack(us)
 
 
 def smooth_path_positions(path_xy, ds, w_v=1.0, w_a=1.0, w_j=1.0,

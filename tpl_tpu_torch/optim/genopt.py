@@ -68,6 +68,7 @@ import dataclasses
 import multiprocessing.dummy as mp_dummy
 import warnings
 
+import numpy as np
 import sympy as sp
 import torch
 from sympy.printing.codeprinter import CodePrinter
@@ -184,6 +185,8 @@ def _get_array_value(arr, i):
     return arr[idx]
 
 
+
+
 _FN_MODULE = {
     "lerp": interp.lerp,
     "lerp_angle": interp.lerp_angle,
@@ -191,6 +194,8 @@ _FN_MODULE = {
     "blerp": interp.blerp,
     "lerp_wrap": _lerp_wrap,
     "get_array_value": _get_array_value,
+    # a table read as rows x cols, the 2-D table of blerp
+    "table2": lambda arr, rows, cols: arr[:rows * cols].reshape(rows, cols),
     # the torch printer's names for Max / Min / atan2
     "max": _maximum,
     "min": _minimum,
@@ -341,17 +346,36 @@ _CUDA_FUNCS = {
     sp.acos: "j_acos", sp.atan: "j_atan", sp.sinh: "j_sinh",
     sp.cosh: "j_cosh", sp.tanh: "j_tanh", sp.exp: "j_exp", sp.log: "j_log",
     sp.Abs: "j_abs", sp.sign: "j_sign", sp.atan2: "j_atan2",
+    sp.erf: "j_erf", spx.sigmoid: "j_sigmoid", spx.softplus: "j_softplus",
+    spx.relu: "j_relu", spx.log1p: "j_log1p", spx.expm1: "j_expm1",
+    spx.hypot: "j_hypot",
 }
-# the lookups of symext -> (jet form, positions of their table arguments)
+# the reductions of any number of values, each argument lifted to the
+# function's scalar type S
+_CUDA_VARIADIC = {spx.amax: "j_amax", spx.amin: "j_amin",
+                  spx.norm2: "j_norm2"}
+# the lookups of symext -> (jet form, positions of their table arguments);
+# blerp's table is 2-D
 _CUDA_LOOKUPS = {
     spx.lerp: ("j_lerp", (3,)), spx.lerp_angle: ("j_lerp_angle", (3,)),
     spx.box_interp: ("j_box_interp", (2,)),
     spx.lerp_wrap: ("j_lerp_wrap", (3, 4)),
     spx.get_array_value: ("j_get_array_value", (0,)),
+    spx.take: ("j_take", (0,)),
+    spx.blerp: ("j_blerp", (6,)),
 }
+_TABLES_2D = {spx.blerp: (6,)}
+# the printer's functions that a config of the reference's surface cannot
+# write for the JAX package's genopt: the port's own symext functions (the
+# tracer's forms), blerp, whose table is 2-D (a traced problem's captured
+# tensor, or symext.table2 of a table) where a config's tables are 1-D, and
+# erf, which the JAX package's genopt evaluates with math.erf, outside jit
+PORT_FUNCTIONS = ("amax", "amin", "blerp", "erf", "expm1", "hypot", "log1p",
+                  "norm2", "relu", "sigmoid", "softplus", "take")
 # what the printer takes, by name (the table of the printer's functions)
 CUDA_FUNCTIONS = tuple(sorted(
     [f.__name__ for f in _CUDA_FUNCS] + [f.__name__ for f in _CUDA_LOOKUPS]
+    + [f.__name__ for f in _CUDA_VARIADIC]
     + ["Max", "Min", "Piecewise", "Pow", "sqrt"]))
 
 _RELATIONS = {sp.StrictLessThan: "<", sp.LessThan: "<=",
@@ -367,11 +391,32 @@ def _real(v):
 class _CudaPrinter:
     """Prints sympy expressions as C++ over csrc/ilqr_jet.cuh: ``env`` maps a
     symbol's name to its C++ form, ``tables`` an ArraySymbol's name to its
-    table index."""
+    table index, ``consts`` a ConstArray's name to its (offset, shape) in
+    the constant tables."""
 
-    def __init__(self, env, tables):
+    def __init__(self, env, tables, consts=None):
         self.env = env
         self.tables = tables
+        self.consts = consts or {}
+
+    def _table(self, f, a, two_d):
+        """A lookup's table argument: a table param (``P.table``), one read
+        as 2-D (``table2``, ``P.table2``) or a constant table (``P.ctab``,
+        ``P.ctab2``)."""
+        if isinstance(a, spx.ConstArray):
+            off, shape = self.consts[a.name]
+            if two_d and len(shape) == 2:
+                return f"P.ctab2({off}, {shape[0]}, {shape[1]})"
+            if not two_d and len(shape) == 1:
+                return f"P.ctab({off}, {shape[0]})"
+        elif isinstance(a, spx.ArraySymbol) and not two_d:
+            return f"P.table({self.tables[a.name]})"
+        elif (two_d and isinstance(a, spx.table2)
+              and isinstance(a.args[0], spx.ArraySymbol)):
+            return (f"P.table2({self.tables[a.args[0].name]}, "
+                    f"{int(a.args[1])}, {int(a.args[2])})")
+        raise Unprintable(f"{f.__name__} of a table that is not "
+                          f"{'2-D' if two_d else 'one array'}")
 
     def __call__(self, e):
         if isinstance(e, sp.Symbol):
@@ -421,20 +466,20 @@ class _CudaPrinter:
             return "(" + " || ".join(self(a) for a in e.args) + ")"
         if isinstance(e, sp.Not):
             return f"(!{self(e.args[0])})"
+        if isinstance(e, sp.ITE):   # sympy's form of a Piecewise compared
+            c, a, b = (self(a) for a in e.args)
+            return f"({c} ? {a} : {b})"
         if type(e) in _CUDA_FUNCS:
             return f"{_CUDA_FUNCS[type(e)]}(" + ", ".join(
                 self(a) for a in e.args) + ")"
+        if type(e) in _CUDA_VARIADIC:
+            return f"{_CUDA_VARIADIC[type(e)]}(" + ", ".join(
+                f"S({self(a)})" for a in e.args) + ")"
         if type(e) in _CUDA_LOOKUPS:
             name, tabs = _CUDA_LOOKUPS[type(e)]
-            args = []
-            for i, a in enumerate(e.args):
-                if i in tabs:
-                    if not isinstance(a, spx.ArraySymbol):
-                        raise Unprintable(f"{type(e).__name__} of a "
-                                          "non-array table")
-                    args.append(f"P.table({self.tables[a.name]})")
-                else:
-                    args.append(self(a))
+            two_d = _TABLES_2D.get(type(e), ())
+            args = [self._table(type(e), a, i in two_d) if i in tabs
+                    else self(a) for i, a in enumerate(e.args)]
             return f"{name}(" + ", ".join(args) + ")"
         if isinstance(e, sp.Function):
             raise Unprintable(type(e).__name__)
@@ -520,15 +565,17 @@ def _c_name(name):
     return "".join(c if c.isalnum() else "_" for c in name)
 
 
-def cuda_struct(name, states, actions, dyn, cost, cons, end, scalars, tables):
+def cuda_struct(name, states, actions, dyn, cost, cons, end, scalars, tables,
+                consts=None):
     """The problem struct (C++ over csrc/ilqr_jet.cuh) of a problem's four
     lists of sympy expressions over its ``states`` and ``actions`` symbols,
     and its name: sympy's common subexpressions of each function as
     ``auto`` temporaries, a scalar param read from the scalar table, an
-    ArraySymbol as a table of ``array_capacity``, ``fixed_<name>`` as
-    ``val(<name>)``, ``t`` / ``dt`` the step index and the step.  Raises
-    :class:`Unprintable` naming the function and what the printer has no
-    form for."""
+    ArraySymbol as a table of ``array_capacity``, a ConstArray as a
+    constant table at the (offset, shape) ``consts`` gives it,
+    ``fixed_<name>`` as ``val(<name>)``, ``t`` / ``dt`` the step index and
+    the step.  Raises :class:`Unprintable` naming the function and what the
+    printer has no form for."""
     struct = f"Gen_{_c_name(name)}"
     env = {"dt": "P.dt", "t": "R(t)"}
     env.update({n: f"P.s[{i}]" for i, n in enumerate(scalars)})
@@ -541,7 +588,7 @@ def cuda_struct(name, states, actions, dyn, cost, cons, end, scalars, tables):
                    for i, a in enumerate(actions)})
         reps, red = sp.cse(exprs, symbols=sp.numbered_symbols("cse_"))
         lines = []
-        pr = _CudaPrinter(e2, tabs)
+        pr = _CudaPrinter(e2, tabs, consts)
         try:
             for sym, val in reps:
                 lines.append(f"    const auto {sym.name} = {pr(val)};")
@@ -602,18 +649,26 @@ struct {struct} {{
     return struct, text
 
 
-def cuda_spec(name, states, actions, prob, dyn, cost, cons, end, param_syms):
+def cuda_spec(name, states, actions, prob, dyn, cost, cons, end, param_syms,
+              consts=()):
     """The generic kernel's :class:`~tpl_tpu_torch.optim.ilqr_generic.Spec`
     of a problem's four lists of sympy expressions (a config's, or a torch
     problem's traced by :mod:`.trace`): its struct (:func:`cuda_struct`),
-    its params' order and its operation counts; ``prob`` is the plain
-    version's Problem."""
+    its params' order, its operation counts and its constant tables
+    (``consts``: (name, array) pairs, laid one after another in the spec's
+    ``consts``); ``prob`` is the plain version's Problem."""
     scalars = tuple(s.name for s in param_syms
                     if not isinstance(s, spx.ArraySymbol))
     tables = tuple(s.name for s in param_syms
                    if isinstance(s, spx.ArraySymbol))
+    layout, flat, off = {}, [], 0
+    for cname, arr in consts:
+        arr = np.asarray(arr, np.float64)
+        layout[cname] = (off, arr.shape)
+        flat.append(arr.reshape(-1))
+        off += arr.size
     struct_name, struct = cuda_struct(name, states, actions, dyn, cost, cons,
-                                      end, scalars, tables)
+                                      end, scalars, tables, layout)
     chain = {}
     if dyn:
         chain = max((_chain(e) for e in dyn), key=lambda c: c[0])[1]
@@ -621,7 +676,8 @@ def cuda_spec(name, states, actions, prob, dyn, cost, cons, end, param_syms):
                constraints=_count_ops(cons), end_cost=_count_ops(end))
     return ilqr_generic.Spec(
         name, prob.nx, prob.nu, prob.nc, scalars, tables, ops, chain,
-        problem=prob, struct=struct, struct_name=struct_name)
+        problem=prob, struct=struct, struct_name=struct_name,
+        consts=np.concatenate(flat) if flat else None)
 
 
 def make_problem(config):

@@ -82,7 +82,11 @@ class Spec:
     precision prefix (``add``, ``mul``, ``div``, ``sin``, ``cos``,
     ``atan``, ``smem_load``).  A sympy config's spec carries the struct
     its printer wrote (``struct``, named ``struct_name``), as does a torch
-    problem's traced by :mod:`.trace`; a native problem's has none."""
+    problem's traced by :mod:`.trace`; a native problem's has none.  A
+    traced problem's captured tensors are ``consts``, its constant tables
+    (float64, one after another at the offsets its struct reads them at;
+    None without any): the launcher uploads them once for each device and
+    dtype (:func:`consts_on`)."""
 
     name: str
     nx: int
@@ -96,6 +100,7 @@ class Spec:
     problem: object = None      # the plain version's Problem
     struct: str = None
     struct_name: str = None
+    consts: object = None
 
     @property
     def ncl(self):
@@ -459,6 +464,28 @@ def attributes(spec, dtype=torch.float64, resident=False, prof=False):
     return tuple(out)
 
 
+_CONSTS = {}
+
+
+def consts_on(spec, device, dtype):
+    """The constant tables of ``spec`` as a tensor on ``device`` in
+    ``dtype``, uploaded at the first call for each (device, dtype) and kept;
+    None for a spec without any."""
+    s = _spec(spec)
+    if s.consts is None:
+        return None
+    key = (id(s), str(device), dtype)
+    if key not in _CONSTS:
+        _CONSTS[key] = (s, torch.as_tensor(s.consts, dtype=dtype,
+                                           device=device))
+    return _CONSTS[key][1]
+
+
+def _consts_ptr(s, rows):
+    c = consts_on(s, rows.device, rows.dtype)
+    return None if c is None else c.data_ptr()
+
+
 def _prepare_launch(s, shared, rows, H, n_ref, integrator, smem_limit,
                     prof=False):
     """Checks what a launch takes (``shared`` ``(n_shared,)`` and ``rows``
@@ -510,12 +537,12 @@ def launch(spec, shared, rows, H, n_ref, T, max_iterations,
                                         cycles is not None)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.ilqr_generic_update(
+        err = lib.ilqr_generic_update_consts(
             s.id, f64, int(integrator), shared.data_ptr(), rows.data_ptr(),
             out.data_ptr(), ws.data_ptr(),
             None if cycles is None else cycles.data_ptr(), rows.shape[0],
             H, n_ref, int(T), int(max_iterations), int(max_lg_iterations),
-            smem_limit, stream)
+            smem_limit, stream, _consts_ptr(s, rows))
     if err != 0:
         raise RuntimeError(f"ilqr_generic launch ({s.name}) failed: CUDA "
                            f"error {err}")
@@ -536,8 +563,9 @@ def bare(spec, shared, rows, H, n_ref, T, max_iterations,
     args = (s.id, f64, int(integrator), shared.data_ptr(), rows.data_ptr(),
             out.data_ptr(), ws.data_ptr(), None, rows.shape[0], H, n_ref,
             int(T), int(max_iterations), int(max_lg_iterations), smem_limit,
-            torch.cuda.current_stream(rows.device).cuda_stream)
-    return lambda: lib.ilqr_generic_update(*args)
+            torch.cuda.current_stream(rows.device).cuda_stream,
+            _consts_ptr(s, rows))
+    return lambda: lib.ilqr_generic_update_consts(*args)
 
 
 def update_batched(spec, x, u, lam, mu_step, x0, params, cfg,
@@ -654,11 +682,13 @@ def operations(spec, H, T, iterations, max_lg_iterations=1,
 
 
 def traffic_bytes(spec, H, n_ref, B=1, itemsize=8):
-    """Bytes a launch must move: the shared part once, each instance's row
-    and its packed result once."""
-    return itemsize * (_size(shared_layout(spec, H, n_ref))
-                       + B * (_size(row_layout(spec, H))
-                              + _size(output_layout(spec, H))))
+    """Bytes a launch must move: the shared part and the constant tables
+    once, each instance's row and its packed result once."""
+    s = _spec(spec)
+    n_consts = 0 if s.consts is None else len(s.consts)
+    return itemsize * (_size(shared_layout(s, H, n_ref)) + n_consts
+                       + B * (_size(row_layout(s, H))
+                              + _size(output_layout(s, H))))
 
 
 def bound_ms(spec, H, n_ref, T, iterations, max_lg_iterations=1,
@@ -744,10 +774,10 @@ _LIBS = {}
 
 
 def _bind(lib):
-    lib.ilqr_generic_update.restype = ctypes.c_int
-    lib.ilqr_generic_update.argtypes = (
+    lib.ilqr_generic_update_consts.restype = ctypes.c_int
+    lib.ilqr_generic_update_consts.argtypes = (
         [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-        + [ctypes.c_size_t, ctypes.c_void_p])
+        + [ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p])
     lib.ilqr_generic_split.restype = ctypes.c_size_t
     lib.ilqr_generic_split.argtypes = ([ctypes.c_int] * 4
                                        + [ctypes.c_size_t, ctypes.c_int])
@@ -777,19 +807,28 @@ def source_text(spec, dtype):
             f"X(0, {s.struct_name})\n#include \"ilqr_generic_entries.cuh\"\n")
 
 
+def native_source(dtype):
+    """The source of the native problems' library for ``dtype``:
+    ``csrc/ilqr_generic.cu`` built for that real type alone."""
+    return "ilqr_generic_f64" if dtype == torch.float64 else \
+        "ilqr_generic_f32"
+
+
 def _kernel(spec=None, dtype=torch.float64):
-    """Build (first call) and bind the library of ``spec``: the native
-    problems' ``csrc/ilqr_generic.cu``, or a sympy config's generated
-    source for ``dtype`` (built by nvcc at its first use, cached by the hash
-    of its text, the headers and the flags).  A build that fails raises."""
+    """Build (first call) and bind the library of ``spec`` for ``dtype``:
+    the native problems' ``csrc/ilqr_generic.cu`` (:func:`native_source`),
+    or a sympy config's or a traced problem's generated source (built by
+    nvcc at its first use, cached by the hash of its text, the headers and
+    the flags).  A build that fails raises."""
     s = NATIVE["ref_line_smoother_k"] if spec is None else _spec(spec)
-    key = None if s.struct is None else (s.name, source_text(s, dtype))
+    key = (native_source(dtype) if s.struct is None
+           else (s.name, source_text(s, dtype)))
     lib = _LIBS.get(key)
     if lib is None:
         from tpl_tpu_torch import _build
 
-        if key is None:
-            lib = _build.load("ilqr_generic")
+        if s.struct is None:
+            lib = _build.load(key)
         else:
             lib = _build.load_generated(_tag(s), key[1])
         _bind(lib)

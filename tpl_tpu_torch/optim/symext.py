@@ -51,6 +51,32 @@ lerp_wrap = _opaque("lerp_wrap", 5)   # (len, dx, x, xs, arr)
 get_array_value = _opaque("get_array_value", 2)  # (arr, i)
 
 
+# The port's own functions, beyond the reference's surface: the forms the
+# tracer (tpl_tpu_torch/optim/trace.py) gives a torch problem's operations,
+# which the CUDA printer (genopt.py) prints as the jet forms of
+# csrc/ilqr_jet.cuh.
+sigmoid = _opaque("sigmoid", 1)       # torch.sigmoid
+softplus = _opaque("softplus", 3)     # (x, beta, threshold): F.softplus
+relu = _opaque("relu", 1)             # torch.relu
+log1p = _opaque("log1p", 1)
+expm1 = _opaque("expm1", 1)
+hypot = _opaque("hypot", 2)
+# the reductions of any number of values: torch.amax / amin (a tie shares
+# the slope evenly) and the 2-norm torch.linalg.vector_norm (slope 0 at 0)
+amax = type("amax", (sp.Function,), {})
+amin = type("amin", (sp.Function,), {})
+norm2 = type("norm2", (sp.Function,), {})
+take = _opaque("take", 2)             # (arr, i): arr[i] as jnp reads it
+# (arr, rows, cols): the table arr read as rows x cols, row-major, the 2-D
+# table of blerp (a config's, or a traced table param's reshape)
+table2 = _opaque("table2", 3)
+
+
+class ConstArray(ArraySymbol):
+    """A captured tensor of a traced problem, as a constant table of the
+    struct (its values and layout live beside the trace, by name)."""
+
+
 FIXED_PREFIX = "fixed_"
 
 

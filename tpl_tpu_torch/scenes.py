@@ -893,11 +893,12 @@ def genopt_mpc_case(warm, seed, H=60):
 
 def genopt_every_function_config(sx=None, go=None):
     """A sympy config whose functions span the front end's CUDA printer
-    (``genopt.CUDA_FUNCTIONS``): every trigonometric, hyperbolic and
-    exponential function, sqrt and integer / real / symbolic powers, Abs,
-    sign, atan2, Max, Min, a Piecewise, ``fixed``, and each lookup at a
-    step- or state-dependent query; with the ``symext`` and ``genopt``
-    modules ``sx`` / ``go`` (the port's unless given)."""
+    (``genopt.CUDA_FUNCTIONS`` but ``genopt.PORT_FUNCTIONS``): every
+    trigonometric, hyperbolic and exponential function, sqrt and
+    integer / real / symbolic powers, Abs, sign, atan2, Max, Min, a
+    Piecewise, ``fixed``, and each 1-D lookup at a step- or state-dependent
+    query; with the ``symext`` and ``genopt`` modules ``sx`` / ``go`` (the
+    port's unless given)."""
     import sympy as sp
 
     if sx is None:
@@ -951,3 +952,239 @@ def genopt_every_function_case(seed, H=40):
     inputs, mu = generic_inputs(2, 1, 3, H, H, rng, True, [-1.5, 1.5], 100.0,
                                 5.0, 0.1, [0.5, 1.2], 0.2)
     return inputs, params, mu
+
+
+# ---------------------------------------------------------------------
+# two user problems written in plain torch, for the tracer
+# (tpl_tpu_torch/optim/trace.py) and the generic AL-iLQR kernel: their
+# captured tensors, products, reductions and elementwise functions are what
+# jax.jit takes from a problem in the JAX package.  tests/test_torch_trace*.py
+# write each again in jnp for the JAX package's ilqr / batched programs.
+
+USER_PROBLEMS = ("quadratic_tracking_mpc", "cost_map_vehicle")
+
+
+def quadratic_tracking_data(H=100, seed=0):
+    """The captured tensors of :func:`quadratic_tracking_problem` (numpy,
+    float64): the state weight ``Q`` (4 x 4, symmetric positive definite),
+    the action weight ``R`` (2 x 2), the end weight ``QF``, the action
+    scales ``U_SCALE`` and the reference ``REF`` (H, 4) of (x, y, heading,
+    speed) of a vehicle driving a seeded curve at about 8 m/s, 0.1 s a
+    step."""
+    rng = np.random.default_rng(seed)
+    steps = np.arange(H)
+    kappa = 0.02 * np.sin(0.05 * steps + rng.uniform(0.0, 2 * np.pi))
+    v = 8.0 + 0.5 * np.sin(0.03 * steps)
+    phi = np.cumsum(kappa * v * 0.1)
+    xy = np.cumsum(np.stack([v * np.cos(phi), v * np.sin(phi)], -1) * 0.1, 0)
+    a = rng.normal(0.0, 1.0, (4, 4))
+    Q = np.diag([1.0, 1.0, 2.0, 0.3]) + 0.02 * (a + a.T)
+    b = rng.normal(0.0, 1.0, (2, 2))
+    R = np.diag([0.2, 2.0]) + 0.02 * (b + b.T)
+    return dict(Q=Q, R=R, QF=5.0 * Q, U_SCALE=np.array([3.0, 0.5]),
+                REF=np.column_stack([xy, phi, v]))
+
+
+def quadratic_tracking_problem(H=100, seed=0, dtype=torch.float64,
+                               device="cpu"):
+    """A quadratic tracking MPC of a kinematic vehicle (states x, y, phi, v;
+    actions acc, steer): step cost ``(x - REF[t]) Q (x - REF[t]) + u R u``
+    (``einsum`` and ``@`` over the captured Q, R; the reference read by the
+    step index), the end cost ``d^T QF d`` at the reference's last row, and
+    two constraints, the distance to the reference within ``corridor``
+    (``linalg.vector_norm``) and the scaled actions' 1-norm within
+    ``effort_max``.  Returns (Problem, param spec)."""
+    from .optim.ilqr import Problem
+
+    data = quadratic_tracking_data(H, seed)
+    Q, R, QF, U_SCALE, REF = (torch.as_tensor(data[k], dtype=dtype,
+                                              device=device)
+                              for k in ("Q", "R", "QF", "U_SCALE", "REF"))
+
+    def dynamics(x, u, t, dt, p):
+        phi, v = x[..., 2], x[..., 3]
+        vel = v.unsqueeze(-1) * torch.stack([torch.cos(phi), torch.sin(phi)],
+                                            -1)
+        yaw = v * torch.tan(u[..., 1]) * torch.reciprocal(p["wheel_base"])
+        return torch.cat([vel, torch.stack([yaw, u[..., 0]], -1)], -1)
+
+    def cost(x, u, t, dt, p):
+        d = x - REF[t]
+        return (torch.einsum("...i,ij,...j->...", d, Q, d)
+                + (u @ R * u).sum(-1))
+
+    def constraints(x, u, t, dt, p):
+        off = x[..., :2] - REF[t][..., :2]
+        return torch.stack([
+            torch.linalg.vector_norm(off, dim=-1) - p["corridor"],
+            torch.linalg.vector_norm(u / U_SCALE, ord=1, dim=-1)
+            - p["effort_max"]], -1)
+
+    def end_cost(x, t, dt, p):
+        d = (x - REF[-1]).unsqueeze(-1)
+        return (d.transpose(-1, -2) @ QF @ d).squeeze(-1).squeeze(-1)
+
+    prob = Problem("quadratic_tracking_mpc", nx=4, nu=2, nc=2,
+                   dynamics=dynamics, cost=cost, constraints=constraints,
+                   end_cost=end_cost)
+    return prob, dict(wheel_base=2.7, corridor=2.0, effort_max=1.5)
+
+
+def cost_map_data(seed=0, n=200):
+    """The captured tensors of :func:`cost_map_vehicle_problem` (numpy,
+    float64): a cost map ``GRID`` (n x n cells of 0.5 m, rows along y, its
+    first cell at ``ORIGIN``) of seeded Gaussian hills, two obstacles
+    ``OBS`` (2 x 2), the goal ``GOAL`` and the action weights ``U_W``."""
+    rng = np.random.default_rng(seed)
+    step = 0.5
+    origin = np.array([-10.0, -0.5 * step * n])
+    xs = origin[0] + step * np.arange(n)
+    ys = origin[1] + step * np.arange(n)
+    gx, gy = np.meshgrid(xs, ys)
+    grid = np.zeros((n, n))
+    for cx, cy, h, r in zip(rng.uniform(5.0, 80.0, 12),
+                            rng.uniform(-30.0, 30.0, 12),
+                            rng.uniform(0.5, 2.0, 12),
+                            rng.uniform(2.0, 6.0, 12)):
+        grid += h * np.exp(-((gx - cx) ** 2 + (gy - cy) ** 2) / (2 * r * r))
+    return dict(GRID=grid, ORIGIN=origin, STEP=np.array(step),
+                OBS=np.array([[30.0, 3.0], [50.0, -4.0]]),
+                GOAL=np.array([70.0, 5.0]), U_W=np.array([0.5, 20.0]),
+                U_OFF=np.array([0.0, 0.01]))
+
+
+def cost_map_vehicle_problem(seed=0, dtype=torch.float64, device="cpu"):
+    """A vehicle (states x, y, phi, v; actions acc, curvature) crossing a
+    2-D cost map to a goal: the map read by ``blerp`` from the captured 200
+    x 200 grid, a ``softplus`` barrier on the speed limit, the goal
+    distance by ``hypot`` in a pseudo-Huber pull (``rsqrt``) weighted by a
+    ``sigmoid``, a saturating speed reward (``neg`` of ``erf``), the
+    lateral acceleration through ``log1p``, an ``expm1`` acceleration cost,
+    a ``relu`` curvature limit, the two obstacles' clearance (``expand``,
+    ``permute``, ``amin``), the larger scaled action's square (``amax``),
+    the actions' product (``prod``) and their cumulated weights
+    (``cumsum``, ``mean``), and the speed kept non-negative.  No term has a
+    kink at zero actions, the solver's cold start.  Returns (Problem, param
+    spec)."""
+    import torch.nn.functional as F
+    from .ops import interp
+    from .optim.ilqr import Problem
+
+    data = cost_map_data(seed)
+    GRID, ORIGIN, STEP, OBS, GOAL, U_W, U_OFF = (
+        torch.as_tensor(data[k], dtype=dtype, device=device)
+        for k in ("GRID", "ORIGIN", "STEP", "OBS", "GOAL", "U_W", "U_OFF"))
+
+    def dynamics(x, u, t, dt, p):
+        phi, v = x[..., 2], x[..., 3]
+        vel = v.unsqueeze(-1) * torch.stack([torch.cos(phi), torch.sin(phi)],
+                                            -1)
+        rates = torch.stack([v * u[..., 1], u[..., 0]], -1)
+        return torch.cat([vel, rates], -1).view(x.shape)
+
+    def goal_distance(x):
+        return torch.hypot(x[..., 0] - GOAL[0], x[..., 1] - GOAL[1])
+
+    def cost(x, u, t, dt, p):
+        px, py, phi, v = x.unbind(-1)
+        a, kappa = u.unbind(-1)
+        cmap = interp.blerp(ORIGIN[0], ORIGIN[1], STEP, STEP, px, py, GRID)
+        goal = goal_distance(x)
+        pull = goal * goal * torch.rsqrt(1.0 + 0.01 * goal * goal)
+        near = torch.sigmoid(0.5 * (goal - 10.0))
+        pos = x[..., :2].unsqueeze(-2)
+        diff = pos.expand(*pos.shape[:-2], 2, 2) - OBS
+        dist2 = (diff * diff).permute(*range(diff.dim() - 2), -1, -2).sum(-2)
+        clear = torch.amin(dist2.reshape(*dist2.shape[:-1], 2), -1)
+        scaled = (u / torch.stack([p["a_max"], p["kappa_max"]])).flatten(-1)
+        return (p["w_map"] * cmap
+                + F.softplus(v - p["v_max"], beta=4.0)
+                + p["w_goal"] * pull * near
+                + torch.neg(torch.erf(v / 8.0))
+                + 0.1 * torch.log1p((v * v * kappa) ** 2)
+                + 0.1 * torch.expm1(0.125 * a * a)
+                + 10.0 * torch.relu(kappa.abs() - 0.15) ** 2
+                + 5.0 * torch.exp(-0.05 * clear)
+                + 0.1 * torch.amax(scaled.square() + U_OFF, -1)
+                + 0.1 * (u * u).prod(-1)
+                + torch.cumsum(u * u * U_W, dim=-1).mean(-1))
+
+    def constraints(x, u, t, dt, p):
+        return (-x[..., 3]).unsqueeze(-1)
+
+    def end_cost(x, t, dt, p):
+        return p["w_goal_end"] * goal_distance(x)
+
+    prob = Problem("cost_map_vehicle", nx=4, nu=2, nc=1, dynamics=dynamics,
+                   cost=cost, constraints=constraints, end_cost=end_cost)
+    return prob, dict(v_max=10.0, w_map=2.0, w_goal=0.05, w_goal_end=5.0,
+                      a_max=3.0, kappa_max=0.3)
+
+
+def user_problem(name, dtype=torch.float64, device="cpu", H=None, seed=0):
+    """(Problem, param spec) of one of USER_PROBLEMS (H: the tracking MPC's
+    reference length, its horizon)."""
+    if name == "quadratic_tracking_mpc":
+        return quadratic_tracking_problem(H or 100, seed, dtype, device)
+    return cost_map_vehicle_problem(seed, dtype, device)
+
+
+# the solver settings of USER_PROBLEMS: horizon, step, iterations, the
+# integrator (HEUN = 1), the action limits, the start; and the iterations
+# over which solves in another rounding order stay well within 1e-12 of
+# the largest |x| and of the cost in float64 (it_exact, single and in a
+# batch of spread starts) and within 5e-3 in float32 (it_f32).  On the CPU,
+# the plain float64 solves against the JAX package's: the cost map's from
+# the cold start 2e-12 apart in x after 4 iterations, 8e-11 after 6, 8e-6
+# after its 8 (the rounding grows ~10 x an iteration), and over 64 spread
+# starts (x 1e-11 of the largest |x| after 4 iterations, 1e-12 after 3,
+# 7e-15 after 2); the tracking MPC's cost 2e-15 after 5 iterations, 9e-13
+# after 10, 1e-11 after 20, and over 64 spread starts 3e-13 after 5, 1e-14
+# after 3; plain float32 against float64: 8e-5 of the largest |x| after 4
+# iterations of the cost map (6e-2 after 5), 8e-7 after 5 of the tracking
+# MPC (7e-5 after 10; on an NVIDIA H100, the traced kernel against its
+# plain float32 iLQR after 10: 1.4e-1 in x, 3e-3 in cost).
+USER_SETTINGS = {
+    "quadratic_tracking_mpc": dict(H=100, dt=0.1, it=20, integ=1,
+                                   u_lim=[[-3.0, 2.0], [-0.5, 0.5]],
+                                   x0=[0.0, 1.0, 0.05, 6.0], it_exact=3,
+                                   it_f32=5),
+    "cost_map_vehicle": dict(H=80, dt=0.1, it=20, integ=1,
+                             u_lim=[[-3.0, 2.0], [-0.3, 0.3]],
+                             x0=[0.0, 0.0, 0.0, 6.0], it_exact=2, it_f32=4),
+}
+
+
+def user_solver(name, dtype=torch.float64, device="cpu", H=None,
+                max_iterations=None):
+    """A :class:`~tpl_tpu_torch.optim.solver.Solver` of one of
+    USER_PROBLEMS in ``dtype`` on ``device``, its settings
+    (USER_SETTINGS) applied; ``H`` cuts the horizon (and the tracking MPC's
+    reference), ``max_iterations`` the iterations."""
+    from .optim.solver import Solver
+
+    st = USER_SETTINGS[name]
+    H = H or st["H"]
+    prob, spec = user_problem(name, dtype, device, H)
+    opt = Solver(prob, spec, horizon_max=H, integrator_type=st["integ"],
+                 dtype=dtype, device=device)
+    opt.horizon = H
+    opt.step = st["dt"]
+    opt.max_iterations = max_iterations or st["it"]
+    for i, (lo, hi) in enumerate(st["u_lim"]):
+        opt.u_min[:, i] = lo
+        opt.u_max[:, i] = hi
+    opt.x[0] = st["x0"]
+    return opt
+
+
+def user_case(name, H=None, seed=0, warm=False):
+    """Seeded solve inputs of one of USER_PROBLEMS at horizon H: (inputs,
+    params, mu_step)."""
+    st = USER_SETTINGS[name]
+    H = H or st["H"]
+    prob, spec = user_problem(name, H=H)
+    rng = np.random.default_rng(seed)
+    inputs, mu = generic_inputs(4, 2, prob.nc, H, H, rng, warm, st["u_lim"],
+                                1.0, 1e4, st["dt"], st["x0"], 0.1)
+    return inputs, dict(spec), mu

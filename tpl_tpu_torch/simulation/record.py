@@ -24,6 +24,9 @@ import numpy as np
 from tpl_tpu_torch.util import Bundle, StoreRegistry, snapshot, store_paths
 from tpl_tpu_torch.simulation.state import SimState
 
+# the seconds between SimAttach.wait_for_apps's paused ticks
+WAIT_POLL_S = 0.005
+
 
 class SimRecorder:
     """Capture sim states + runtimes each tick; save as a pickle bundle.
@@ -159,7 +162,9 @@ class SimAttach:
     ``timeout`` s each, if given), then loads the scenario into them, as
     ``SimStandalone`` does.  :meth:`update` is ``SimStandalone.update``
     without the apps: it ticks the physics and senses into the env store,
-    then hands the control store's latest controls to the ego."""
+    then hands the control store's latest controls to the ego.
+    :meth:`wait_for_apps` holds the scenario's clock until the apps track a
+    plan (``tplsim attach`` calls it before the clock runs)."""
 
     def __init__(self, app_id="", scenario_path=None, timeout=None):
         from tpl_tpu_torch.environment import EnvironmentState
@@ -167,6 +172,7 @@ class SimAttach:
         from tpl_tpu_torch.util.shm_store import ShmObject, ShmStore
 
         paths = store_paths(app_id)
+        self.timeout = timeout
         self.core = SimCore(app_id=app_id, scenario_path=scenario_path)
         self.sh_env = ShmObject(EnvironmentState(), paths.env)
         self.sh_planning = ShmStore(paths.planning)
@@ -192,6 +198,34 @@ class SimAttach:
 
     def validate_env(self):
         self._wait("environment", self.sh_env, "t")
+
+    def wait_for_apps(self):
+        """Ticks the sim with its clock held (the physics paused, the
+        sensing into the env store going on) until the planning app has
+        published a plan and the control app has published two solves
+        since: the first tick the clock runs then tracks a plan, as
+        ``SimStandalone``'s first tick does, however long a fresh app's
+        first replan takes (its first-use imports and kernel loads, seconds
+        on a busy host, while the ego would drive on without a plan).
+        Raises ``TimeoutError`` after the ``timeout`` given to
+        ``__init__``, if one was."""
+        with self.core.sh_state.lock():
+            self.core.sh_state.sim.settings.running = False
+        start, seen = time.time(), None
+        while True:
+            self.sh_planning.revalidate()
+            plan = getattr(self.sh_planning, "trajectory", None)
+            if seen is None and plan is not None and len(plan.x) >= 2:
+                seen = self.sh_control.shm_version()
+            if (seen is not None
+                    and self.sh_control.shm_version() >= seen + 2):
+                return
+            if (self.timeout is not None
+                    and time.time() - start > self.timeout):
+                raise TimeoutError(f"the apps tracked no plan in "
+                                   f"{self.timeout} s")
+            self.update()
+            time.sleep(WAIT_POLL_S)
 
     def update(self, wall_time=None):
         self.validate_env()

@@ -40,13 +40,14 @@ def run(args):
 
 
 def _drive(sim, core, planning, args):
-    """Starts the loaded scenario (running, real time unless headless, the
-    rule checker on), selects ``args.planner`` in the store ``planning``,
-    ticks ``sim.update`` until the scenario finishes or ``--max-t`` /
-    ``--max-ticks``, and prints the summary; returns the exit code."""
+    """Starts the loaded scenario (real time unless headless, the rule
+    checker on), selects ``args.planner`` in the store ``planning``, holds
+    the clock until the apps track a plan where they run as other processes
+    (``SimAttach.wait_for_apps``), runs it, ticks ``sim.update`` until the
+    scenario finishes or ``--max-t`` / ``--max-ticks``, and prints the
+    summary; returns the exit code."""
     with core.sh_state.lock():
         ss = core.sh_state.sim
-        ss.settings.running = True
         ss.settings.use_real_time = not args.headless
         ss.settings.reload_if_finished = False
         ss.rule_checker.enable = True
@@ -59,8 +60,14 @@ def _drive(sim, core, planning, args):
                                  f"available: {sorted(names)}")
             planning.active_planner = args.planner
 
+    if hasattr(sim, "wait_for_apps"):
+        sim.wait_for_apps()
+    with core.sh_state.lock():
+        core.sh_state.sim.settings.running = True
+
     t_start = time.time()
     ticks = 0
+    emergency = 0
     planner_runtimes = []
 
     # live code reloading, like the reference's minireload wrapper
@@ -83,6 +90,8 @@ def _drive(sim, core, planning, args):
         # read without the lock: a shared store publishes on every lock
         planning.revalidate()
         planner_runtimes.append(planning.runtime)
+        trajectory = getattr(planning, "trajectory", None)
+        emergency += bool(getattr(trajectory, "emergency", False))
 
         if args.verbose and ticks % 100 == 0:
             print(f"t={sim_t:6.2f}s ticks={ticks} violations={n_viol} "
@@ -100,6 +109,8 @@ def _drive(sim, core, planning, args):
     rt = np.array(planner_runtimes[5:]) * 1e3
     print(f"\nscenario {args.scenario}: t={s.t:.2f}s ticks={ticks} "
           f"wall={time.time()-t_start:.1f}s finished={bool(finished)}")
+    print(f"ego: x={s.ego.x:.4f} y={s.ego.y:.4f} v={s.ego.v:.4f}; "
+          f"emergency ticks: {emergency}")
     print(f"planner runtime ms: mean={rt.mean():.2f} std={rt.std():.2f} "
           f"p99={np.percentile(rt, 99):.2f} max={rt.max():.2f}")
     print(f"rule violations: {len(viols)}")

@@ -34,6 +34,7 @@ from tpl_tpu_torch.ops import (        # noqa: F401  (re-exports, util.py:12-22)
     resample_path,
     path_segment,
     build_route,
+    lerp,
     normalize_angle,
     short_angle_dist,
 )
@@ -164,6 +165,20 @@ def resolve_data(kind, rel=""):
         if os.path.exists(p):
             return p
     return os.path.join(primary, rel) if rel else primary
+
+
+def list_data(kind):
+    """Union of entries under <root>/<kind> across all data roots (the
+    primary root wins name clashes): name -> path."""
+    seen = {}
+    primary = globals().get("PATH_" + kind.upper(),
+                            os.path.join(PATH_DATA, kind))
+    for base in [primary] + [os.path.join(r, kind) for r in data_roots()]:
+        if not os.path.isdir(base):
+            continue
+        for name in sorted(os.listdir(base)):
+            seen.setdefault(name, os.path.join(base, name))
+    return seen
 
 
 # --- bundle + stores --------------------------------------------------
